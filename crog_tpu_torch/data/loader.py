@@ -1,0 +1,69 @@
+"""Sequential eval batcher.
+
+Collates samples in index order, with the JAX package's tail-padding rule:
+a short last batch is padded to the full batch size by repeating its last
+sample and carries ``n_valid``, the count of real samples, so every batch has
+one shape and consumers slice outputs to ``n_valid``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, List
+
+import numpy as np
+
+_STACK_KEYS = (
+    "img", "mask", "qua", "sin", "cos", "wid", "ang", "word", "inverse",
+    "ori_size",
+)
+_LIST_KEYS = ("grasps", "sentence", "sent_id", "scene_id", "target", "bbox")
+
+
+def collate_crog(samples: List[Dict]) -> Dict:
+    """Stack tensors; keep ragged fields (grasps, sentences, ids) as lists
+    (reference collate_fn, utils/dataset.py:1041-1064)."""
+    batch: Dict = {}
+    for k in _STACK_KEYS:
+        if k in samples[0]:
+            batch[k] = np.stack([np.asarray(s[k]) for s in samples])
+    for k in _LIST_KEYS:
+        if k in samples[0]:
+            batch[k] = [s[k] for s in samples]
+    return batch
+
+
+def pad_batch(batch: Dict, batch_size: int, n_valid: int) -> Dict:
+    """Pad a short tail batch to ``batch_size`` by repeating the last sample,
+    recording ``n_valid``."""
+    out: Dict = {"n_valid": n_valid}
+    pad = batch_size - n_valid
+    for k, v in batch.items():
+        if isinstance(v, np.ndarray) and v.ndim >= 1 and v.shape[0] == n_valid:
+            out[k] = np.concatenate([v, np.repeat(v[-1:], pad, axis=0)])
+        elif isinstance(v, list) and len(v) == n_valid:
+            out[k] = v + [v[-1]] * pad
+        else:
+            out[k] = v
+    return out
+
+
+class SequentialLoader:
+    """Batches ``dataset`` in order, one sample at a time on the caller's
+    thread."""
+
+    def __init__(self, dataset, batch_size: int, pad_last_batch: bool = True):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.pad_last_batch = pad_last_batch
+
+    def __len__(self):
+        return -(-len(self.dataset) // self.batch_size)
+
+    def __iter__(self) -> Iterator[Dict]:
+        n = len(self.dataset)
+        for start in range(0, n, self.batch_size):
+            idx = range(start, min(start + self.batch_size, n))
+            batch = collate_crog([self.dataset[i] for i in idx])
+            if self.pad_last_batch and len(idx) < self.batch_size:
+                batch = pad_batch(batch, self.batch_size, len(idx))
+            yield batch
