@@ -53,6 +53,35 @@ constexpr float kNeg = -1e30f;
 
 __host__ __device__ constexpr int round_up(int n, int m) { return (n + m - 1) / m * m; }
 
+// Counter-based dropout, the device side of crog_tpu_torch/ops/dropout.py:
+// bits(seed, row, col) = mix(mix(mix(seed) ^ row) ^ col), kept where
+// bits >= thresh.  row and col are the element's global indices, so the
+// mask does not depend on a kernel's tiling and a backward kernel
+// regenerates the forward's mask.  thresh 0 switches dropout off.
+struct Dropout {
+  uint32_t seed;
+  uint32_t thresh;
+  float scale;  // 1 / (1 - rate)
+};
+
+__device__ __forceinline__ uint32_t mix32(uint32_t x) {
+  x = ((x >> 16) ^ x) * 0x45D9F3Bu;
+  x = ((x >> 16) ^ x) * 0x45D9F3Bu;
+  return (x >> 16) ^ x;
+}
+
+__device__ __forceinline__ bool dropout_keep(const Dropout& d, uint32_t row,
+                                             uint32_t col) {
+  return d.thresh == 0u || mix32(mix32(mix32(d.seed) ^ row) ^ col) >= d.thresh;
+}
+
+// x * keep * scale in f32, rounded to bf16 and back (the twins' rounding)
+__device__ __forceinline__ float dropout_apply(const Dropout& d, uint32_t row,
+                                               uint32_t col, float x) {
+  if (d.thresh == 0u) return x;
+  return dropout_keep(d, row, col) ? bf2f(f2bf(x * d.scale)) : 0.0f;
+}
+
 }  // namespace crog
 
 // Each kernel library is one translation unit, so each carries its own copy.

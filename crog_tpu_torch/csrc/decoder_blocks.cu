@@ -6,8 +6,8 @@
 // :503 `_cross_fwd` (pallas_call at :511, under `fused_cross_block` :492 /
 // `decoder_cross_block` :613):
 //
-//   self : y = x + LN_post(OutProj(MHA(LN_pre(x)+pos, LN_pre(x)+pos, LN_pre(x))))
-//   cross: y = x + LN_post(OutProj(MHA(LN_pre(x)+pos, kv+kpos, kv)))  (+key mask)
+//   self : y = x + drop(LN_post(OutProj(MHA(LN_pre(x)+pos, LN_pre(x)+pos, LN_pre(x)))))
+//   cross: y = x + drop(LN_post(OutProj(MHA(LN_pre(x)+pos, kv+kpos, kv))))  (+key mask)
 //
 // with the TPU kernel's cast points: bf16 after every Dense and after each
 // LN, LN statistics in f32 with flax's fast variance E[x^2] - E[x]^2, bias
@@ -27,8 +27,10 @@
 //   3. attention (attention.cuh): q, k, v read in place from the projection
 //      outputs by stride, the score block kept in shared memory.
 //   4. outproj_ln_residual: a block owns 32 whole rows, so the post-LN
-//      statistics and the residual add fuse into the projection's epilogue
-//      and the out-projection never reaches device memory unnormalized.
+//      statistics, the dropout (counter-based mask, common.cuh) and the
+//      residual add fuse into the projection's epilogue.  In training it also
+//      writes the pre-LN projection `op`, which the backward
+//      (decoder_blocks_bwd.cu) reads with the other intermediates.
 // The activations between the launches (about 5 bf16 [M, D] tensors) do
 // round-trip device memory; fusing them away is later work.
 #include "attention.cuh"
@@ -165,8 +167,10 @@ __global__ void __launch_bounds__(128) gemm_bias_kernel(
 }
 
 // ---------------------------------------------------- outproj_ln_residual
-// y = bf16(x + bf16(LN(bf16(o W^T + bo)))), D = 512: a block owns 32 whole
-// rows so the LN statistics are taken in the epilogue.
+// y = bf16(x + drop(bf16(LN(bf16(o W^T + bo))))), D = 512: a block owns 32
+// whole rows so the LN statistics are taken in the epilogue; OP (or null)
+// receives bf16(o W^T + bo).  TRAIN is a compile-time switch, so eval
+// (no dropout, no OP) runs an epilogue without either branch.
 constexpr int kOD = 512, kOM = 32, kOK = 32, kOLd = kOK + 8, kOCs = kOD + 4;
 
 constexpr size_t outproj_smem_bytes() {
@@ -176,11 +180,12 @@ constexpr size_t outproj_smem_bytes() {
              : (size_t)kOM * kOCs * sizeof(float);
 }
 
+template <bool TRAIN>
 __global__ void __launch_bounds__(256) outproj_ln_residual_kernel(
     const bf16* __restrict__ O, const bf16* __restrict__ Wo,
     const float* __restrict__ bo, const float* __restrict__ g,
     const float* __restrict__ be, const bf16* __restrict__ X,
-    bf16* __restrict__ Y, int M) {
+    bf16* __restrict__ Y, bf16* __restrict__ OP, int M, Dropout drop) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* as = reinterpret_cast<bf16*>(smem_raw);
   bf16* ws = as + kOM * kOLd;
@@ -245,6 +250,7 @@ __global__ void __launch_bounds__(256) outproj_ln_residual_kernel(
     for (int i = 0; i < kPer; ++i) {
       const int c = i * 32 + lane;
       v[i] = bf2f(f2bf(cs[r * kOCs + c] + bo[c]));
+      if (TRAIN && OP) OP[(long long)row * kOD + c] = f2bf(v[i]);
       s += v[i];
       ss += v[i] * v[i];
     }
@@ -256,7 +262,8 @@ __global__ void __launch_bounds__(256) outproj_ln_residual_kernel(
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
       const int c = i * 32 + lane;
-      const float on = bf2f(f2bf((v[i] - mu) * rstd * g[c] + be[c]));
+      float on = bf2f(f2bf((v[i] - mu) * rstd * g[c] + be[c]));
+      if (TRAIN) on = dropout_apply(drop, row, c, on);
       const long long off = (long long)row * kOD + c;
       Y[off] = f2bf(bf2f(X[off]) + on);
     }
@@ -292,15 +299,16 @@ static cudaError_t launch_gemm(const bf16* A, int lda, const bf16* W,
 
 static cudaError_t launch_outproj(const bf16* O, const bf16* Wo, const float* bo,
                                   const float* g, const float* be, const bf16* X,
-                                  bf16* Y, int M, int D, cudaStream_t st) {
+                                  bf16* Y, bf16* OP, int M, int D, Dropout drop,
+                                  cudaStream_t st) {
   if (D != kOD) return cudaErrorInvalidValue;
   const size_t smem = outproj_smem_bytes();
+  const bool train = OP != nullptr || drop.thresh != 0u;
+  auto kernel = train ? outproj_ln_residual_kernel<true> : outproj_ln_residual_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      outproj_ln_residual_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  outproj_ln_residual_kernel<<<(M + kOM - 1) / kOM, 256, smem, st>>>(
-      O, Wo, bo, g, be, X, Y, M);
+  kernel<<<(M + kOM - 1) / kOM, 256, smem, st>>>(O, Wo, bo, g, be, X, Y, OP, M, drop);
   return cudaGetLastError();
 }
 
@@ -316,13 +324,16 @@ using crog::bf16;
 
 // Self block over x [B, L, D].  w_in [3D, D] packs q, k, v (torch
 // in_proj_weight), b_in [3D]; w_out [D, D]; the four LN vectors [D] f32.
-// Workspace: xl, qin, o [B*L, D]; qk [B*L, 2D]; v [B*L, D].
+// Workspace: xl, qin, o [B*L, D]; qk [B*L, 2D]; v [B*L, D]; ws_op [B*L, D]
+// or null (written for the backward).  Dropout on the block output with
+// (seed, thresh, scale); thresh 0 is eval.
 extern "C" int crog_self_block_fwd(
     const void* x, const void* pos, const void* w_in, const float* b_in,
     const void* w_out, const float* b_out, const float* g_pre,
     const float* b_pre, const float* g_post, const float* b_post, void* y,
-    void* ws_xl, void* ws_qin, void* ws_qk, void* ws_v, void* ws_o, int B,
-    int L, int D, int heads, void* stream) {
+    void* ws_xl, void* ws_qin, void* ws_qk, void* ws_v, void* ws_o, void* ws_op,
+    int B, int L, int D, int heads, unsigned seed, unsigned thresh, float scale,
+    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * L;
   const bf16* xb = static_cast<const bf16*>(x);
@@ -354,20 +365,23 @@ extern "C" int crog_self_block_fwd(
   a.scale = 1.0f / 8.0f;  // head dim 64
   CROG_TRY(crog::launch_attention(a, B, st));
   CROG_TRY(crog::launch_outproj(o, static_cast<const bf16*>(w_out), b_out, g_post,
-                                b_post, xb, static_cast<bf16*>(y), M, D, st));
+                                b_post, xb, static_cast<bf16*>(y),
+                                static_cast<bf16*>(ws_op), M, D,
+                                crog::Dropout{seed, thresh, scale}, st));
   return 0;
 }
 
 // Cross block: queries from x [B, L, D], keys/values from kv [B, T, D];
 // mask [B, T] additive f32 (0 keep, -1e30 drop).  Workspace: qin, q, o
-// [B*L, D]; kin, k, v [B*T, D].
+// [B*L, D]; kin, k, v [B*T, D]; ws_op as for the self block.
 extern "C" int crog_cross_block_fwd(
     const void* x, const void* kv, const void* pos, const void* kpos,
     const float* mask, const void* w_in, const float* b_in, const void* w_out,
     const float* b_out, const float* g_pre, const float* b_pre,
     const float* g_post, const float* b_post, void* y, void* ws_qin,
-    void* ws_q, void* ws_o, void* ws_kin, void* ws_k, void* ws_v, int B, int L,
-    int T, int D, int heads, void* stream) {
+    void* ws_q, void* ws_o, void* ws_kin, void* ws_k, void* ws_v, void* ws_op,
+    int B, int L, int T, int D, int heads, unsigned seed, unsigned thresh,
+    float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * L;
   const int MT = B * T;
@@ -406,6 +420,8 @@ extern "C" int crog_cross_block_fwd(
   a.scale = 1.0f / 8.0f;  // head dim 64
   CROG_TRY(crog::launch_attention(a, B, st));
   CROG_TRY(crog::launch_outproj(o, static_cast<const bf16*>(w_out), b_out, g_post,
-                                b_post, xb, static_cast<bf16*>(y), M, D, st));
+                                b_post, xb, static_cast<bf16*>(y),
+                                static_cast<bf16*>(ws_op), M, D,
+                                crog::Dropout{seed, thresh, scale}, st));
   return 0;
 }

@@ -3,7 +3,7 @@
 // Replaces crog_tpu/ops/pallas_ffn.py:190 `_fused_ffn_fwd` (pallas_call at
 // :197, under `fused_ffn` :176):
 //
-//   h  = bf16(x W1^T + b1);  h = relu(h)            (dropout is off in eval)
+//   h  = bf16(x W1^T + b1);  h = drop(relu(h))   (counter-based mask, common.cuh)
 //   hn = bf16(LN(h))         f32 statistics, flax fast variance
 //   y  = bf16(hn W2^T + b2)
 //
@@ -46,11 +46,13 @@ static_assert((size_t)kFM * kSLd1 * sizeof(float) <= kRBytes, "phase-1 staging")
 static_assert((size_t)kFM * kSLd2 * sizeof(float) <= kHBytes, "phase-2 staging");
 static_assert(kXBytes % 128 == 0 && kHBytes % 128 == 0, "region alignment");
 
+// DROP is a compile-time switch, so eval runs a phase 1 without the mask.
+template <bool DROP>
 __global__ void __launch_bounds__(256) ffn_fwd_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ w1,
     const float* __restrict__ b1, const float* __restrict__ g,
     const float* __restrict__ be, const bf16* __restrict__ w2,
-    const float* __restrict__ b2, bf16* __restrict__ y, int M) {
+    const float* __restrict__ b2, bf16* __restrict__ y, int M, Dropout drop) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* xs = reinterpret_cast<bf16*>(smem_raw);
   bf16* hs = reinterpret_cast<bf16*>(smem_raw + kXBytes);
@@ -115,8 +117,9 @@ __global__ void __launch_bounds__(256) ffn_fwd_kernel(
     for (int e = threadIdx.x; e < kFM * kFN1; e += 256) {
       const int r = e / kFN1;
       const int c = e % kFN1;
-      const float h = bf2f(f2bf(st1[r * kSLd1 + c] + b1[n0 + c]));
-      hs[r * kHLd + n0 + c] = f2bf(fmaxf(h, 0.0f));
+      float h = fmaxf(bf2f(f2bf(st1[r * kSLd1 + c] + b1[n0 + c])), 0.0f);
+      if (DROP) h = dropout_apply(drop, m0 + r, n0 + c, h);
+      hs[r * kHLd + n0 + c] = f2bf(h);
     }
     __syncthreads();
   }
@@ -188,21 +191,23 @@ __global__ void __launch_bounds__(256) ffn_fwd_kernel(
 }  // namespace crog
 
 // x [M, 512], w1 [2048, 512], w2 [512, 2048] bf16; b1, g, be [2048] and
-// b2 [512] f32; y [M, 512].
+// b2 [512] f32; y [M, 512].  Dropout on the hidden with (seed, thresh,
+// scale); thresh 0 is eval.
 extern "C" int crog_ffn_fwd(const void* x, const void* w1, const float* b1,
                             const float* g, const float* be, const void* w2,
                             const float* b2, void* y, int M, int D, int F,
+                            unsigned seed, unsigned thresh, float scale,
                             void* stream) {
   using crog::bf16;
   if (D != crog::kFD || F != crog::kFF || M < 1) return (int)cudaErrorInvalidValue;
+  auto kernel = thresh ? crog::ffn_fwd_kernel<true> : crog::ffn_fwd_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      crog::ffn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)crog::kFfnSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)crog::kFfnSmem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (M + crog::kFM - 1) / crog::kFM;
-  crog::ffn_fwd_kernel<<<blocks, 256, crog::kFfnSmem,
-                         static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<blocks, 256, crog::kFfnSmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w1), b1, g, be,
-      static_cast<const bf16*>(w2), b2, static_cast<bf16*>(y), M);
+      static_cast<const bf16*>(w2), b2, static_cast<bf16*>(y), M,
+      crog::Dropout{seed, thresh, scale});
   return (int)cudaGetLastError();
 }

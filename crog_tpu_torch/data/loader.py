@@ -1,9 +1,13 @@
-"""Sequential eval batcher.
+"""Batchers: a sequential eval batcher and a shuffling train batcher.
 
-Collates samples in index order, with the JAX package's tail-padding rule:
-a short last batch is padded to the full batch size by repeating its last
-sample and carries ``n_valid``, the count of real samples, so every batch has
-one shape and consumers slice outputs to ``n_valid``.
+``SequentialLoader`` collates samples in index order, with the JAX
+package's tail-padding rule: a short last batch is padded to the full batch
+size by repeating its last sample and carries ``n_valid``, the count of real
+samples, so every batch has one shape and consumers slice outputs to
+``n_valid``.  ``ShuffleLoader`` draws batches through ``EpochSampler``
+(crog_tpu/data/loader.py:39): a ``np.random.RandomState(seed + epoch)``
+shuffle, reseeded by ``set_epoch``, on one host.  Both load samples on the
+caller's thread.
 """
 
 from __future__ import annotations
@@ -45,6 +49,54 @@ def pad_batch(batch: Dict, batch_size: int, n_valid: int) -> Dict:
         else:
             out[k] = v
     return out
+
+
+class EpochSampler:
+    """DistributedSampler semantics on one host: seeded shuffle reseeded per
+    epoch (``set_epoch``), optional ``drop_last``."""
+
+    def __init__(self, num_samples: int, shuffle: bool = True, seed: int = 0,
+                 drop_last: bool = False, batch_size: int = 1):
+        self.num_samples = num_samples
+        self.shuffle = shuffle
+        self.seed = seed
+        self.epoch = 0
+        self.drop_last = drop_last
+        self.batch_size = batch_size
+
+    def set_epoch(self, epoch: int):
+        self.epoch = epoch
+
+    def batches(self) -> Iterator[List[int]]:
+        idx = np.arange(self.num_samples)
+        if self.shuffle:
+            np.random.RandomState(self.seed + self.epoch).shuffle(idx)
+        for i in range(0, len(self) * self.batch_size, self.batch_size):
+            yield idx[i : i + self.batch_size].tolist()
+
+    def __len__(self):
+        if self.drop_last:
+            return self.num_samples // self.batch_size
+        return -(-self.num_samples // self.batch_size)
+
+
+class ShuffleLoader:
+    """Train batches of ``dataset`` in ``EpochSampler`` order (drop_last)."""
+
+    def __init__(self, dataset, batch_size: int, seed: int = 0, shuffle: bool = True,
+                 drop_last: bool = True):
+        self.dataset = dataset
+        self.sampler = EpochSampler(len(dataset), shuffle, seed, drop_last, batch_size)
+
+    def set_epoch(self, epoch: int):
+        self.sampler.set_epoch(epoch)
+
+    def __len__(self):
+        return len(self.sampler)
+
+    def __iter__(self) -> Iterator[Dict]:
+        for idx in self.sampler.batches():
+            yield collate_crog([self.dataset[i] for i in idx])
 
 
 class SequentialLoader:

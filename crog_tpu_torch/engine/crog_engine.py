@@ -1,8 +1,15 @@
-"""CROG eval engine.
+"""CROG train / eval engine.
 
-Counterpart of the eval half of crog_tpu/engine/crog_engine.py:
-``make_eval_step`` (167), ``jacquard_index`` (264), ``summarize_eval``
-(282) and ``validate_with_grasp`` (306).  The whole post-forward pipeline
+Counterpart of crog_tpu/engine/crog_engine.py: ``train_metrics`` (62),
+``make_train_step`` (108), ``train_one_epoch`` (429), ``make_eval_step``
+(167), ``jacquard_index`` (264), ``summarize_eval`` (282) and
+``validate_with_grasp`` (306).
+
+The train step is forward in train mode, ``crog_losses``, backward (through
+the backward kernels K1b-K4b on the card), optional global-norm clipping,
+the optimizer and scheduler steps, the BatchNorm running statistics updated
+in place, and the batch IoU metrics; it returns device tensors and never
+syncs.  In eval, the whole post-forward pipeline
 stays on the device: sigmoid -> bicubic upsample (align_corners=True)
 composed with the per-sample inverse letterbox warp as one row and one
 column matrix per sample -> thresholded mask IoU -> grasp peak detection.
@@ -12,15 +19,25 @@ the host.
 
 from __future__ import annotations
 
-from typing import Dict
+import time
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from crog_tpu_torch.engine.optim import clip_by_global_norm_
+from crog_tpu_torch.models.crog import crog_losses
 from crog_tpu_torch.ops.peaks import detect_grasp_peaks
 from crog_tpu_torch.ops.rects import rotated_rect_iou
-from crog_tpu_torch.ops.resize import batched_affine_axis_matrix, interp_matrix
+from crog_tpu_torch.ops.resize import (
+    batched_affine_axis_matrix,
+    interp_matrix,
+    resize_nearest,
+)
 from crog_tpu_torch.utils.logging import get_logger
+from crog_tpu_torch.utils.meters import AverageMeter, ProgressMeter
+
+TRAIN_KEYS = ("mask", "qua", "sin", "cos", "wid")
 
 
 def set_exact_fp32_matmul() -> None:
@@ -30,6 +47,92 @@ def set_exact_fp32_matmul() -> None:
     default for convolutions is TF32, which this also turns off.)"""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def train_metrics(pred_logits, target_mask, threshold: float = 0.35,
+                  pr_iou: float = 0.5):
+    """Batch mask IoU and Pr@50 (reference utils/misc.py:115-131), x100."""
+    binary = torch.sigmoid(pred_logits.float()) >= threshold
+    t = target_mask > 0.5
+    b = binary.reshape(binary.shape[0], -1)
+    t = t.reshape(t.shape[0], -1)
+    ious = (b & t).sum(1) / ((b | t).sum(1) + 1e-6)
+    return 100.0 * ious.mean(), 100.0 * (ious > pr_iou).float().mean()
+
+
+def make_train_step(model, optimizer, scheduler, use_grasp_masks: bool = True,
+                    max_norm: float = 0.0, generator: Optional[torch.Generator] = None,
+                    device=None):
+    """Returns ``step(batch) -> metrics`` for a legacy-format numpy batch;
+    the metrics (``loss``, ``iou``, ``prec@50`` and the ``m_*`` loss terms)
+    are device tensors.  ``generator`` (a CPU ``torch.Generator``) gives the
+    dropout seeds of every step."""
+    device = torch.device(device) if device is not None else next(
+        model.parameters()).device
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def step(batch: Dict) -> Dict[str, torch.Tensor]:
+        if "img" not in batch:
+            raise NotImplementedError(
+                "only the legacy wire format is ported (ROADMAP queue 1, item 4)"
+            )
+        model.train()
+        put = lambda k: torch.as_tensor(batch[k]).to(device, non_blocking=True)
+        img, word = put("img"), put("word")
+        targets = {k: put(k) if k in batch else put("mask") for k in TRAIN_KEYS}
+        preds = model(img, word, generator=generator)
+        loss, loss_dict = crog_losses(preds, targets, use_grasp_masks)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        if max_norm and max_norm > 0:
+            clip_by_global_norm_(params, max_norm)
+        optimizer.step()
+        scheduler.step()
+        with torch.no_grad():
+            mask = targets["mask"]
+            if tuple(mask.shape[1:3]) != tuple(preds.shape[1:3]):
+                mask = resize_nearest(mask.float()[..., None], preds.shape[1:3])[..., 0]
+            iou, pr5 = train_metrics(preds[..., 0].detach(), mask)
+        return {"loss": loss.detach(), "iou": iou, "prec@50": pr5,
+                **{k: v.detach() for k, v in loss_dict.items()}}
+
+    return step
+
+
+def train_one_epoch(loader, train_step, epoch: int, args,
+                    steps_per_epoch: Optional[int] = None):
+    """One training epoch (reference train_with_grasp, :17-122).  Syncs with
+    the device once per ``print_freq`` window only."""
+    logger = get_logger()
+    num_batches = steps_per_epoch or len(loader)
+    meters = {
+        name: AverageMeter(label, fmt)
+        for name, (label, fmt) in {
+            "batch_time": ("Batch", ":2.2f"),
+            "data_time": ("Data", ":2.2f"),
+            "loss": ("Loss", ":2.4f"),
+            "iou": ("IoU", ":2.2f"),
+            "prec@50": ("Prec@50", ":2.2f"),
+        }.items()
+    }
+    progress = ProgressMeter(num_batches, list(meters.values()),
+                             prefix=f"Training: Epoch=[{epoch}/{args.epochs}] ")
+    end = time.perf_counter()
+    win_start = end
+    metrics = None
+    for i, batch in enumerate(loader):
+        meters["data_time"].update(time.perf_counter() - end)
+        metrics = train_step(batch)
+        if (i + 1) % args.print_freq == 0:
+            bsz = len(batch["word"])
+            for key in ("loss", "iou", "prec@50"):
+                meters[key].update(float(metrics[key]), bsz)
+            now = time.perf_counter()
+            meters["batch_time"].update((now - win_start) / args.print_freq)
+            win_start = now
+            logger.info(progress.display(i + 1))
+        end = time.perf_counter()
+    return metrics
 
 
 def make_eval_step(

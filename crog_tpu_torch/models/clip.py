@@ -12,8 +12,9 @@ NCHW view of the NHWC tensor (channels-last memory, no copy).
 
 Precision: parameters are fp32; the compute dtype is the dtype of the input
 (bf16 on the card).  Convs and Linears cast their weights to it; BatchNorm
-and LayerNorm compute in fp32 and cast back, as the flax modules do.  Only
-inference is ported: BatchNorm always uses its running statistics.
+and LayerNorm compute in fp32 and cast back, as the flax modules do.
+BatchNorm follows ``self.training``: batch statistics and a running-average
+update in train mode, the running statistics in eval mode.
 """
 
 from __future__ import annotations
@@ -46,16 +47,29 @@ class Conv2d(nn.Conv2d):
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """Eval-mode BatchNorm over the last axis with the running statistics,
-    computed in fp32 (eps 1e-5) and cast back to the input dtype."""
+    """BatchNorm over the last axis (NHWC or [B, C]), computed in fp32 (eps
+    1e-5) and cast back to the input dtype.
+
+    Train mode is flax ``nn.BatchNorm(momentum=0.9)``: batch statistics in
+    f32 with the fast variance E[x^2] - E[x]^2 clipped at 0, and running
+    statistics updated with that *biased* variance (torch momentum 0.1 is
+    flax momentum 0.9), where ``nn.BatchNorm2d`` would store the unbiased
+    one.  Eval mode uses the running statistics."""
 
     def forward(self, x):
-        if self.training:
-            raise NotImplementedError(
-                "train-mode BatchNorm belongs to the training slice of the port"
-            )
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - self.running_mean) * mul + self.bias
+        if not self.training:
+            mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+            y = (x.float() - self.running_mean) * mul + self.bias
+            return y.to(x.dtype)
+        xf = x.float()
+        dims = tuple(range(x.dim() - 1))
+        mean = xf.mean(dims)
+        var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked += 1
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
         return y.to(x.dtype)
 
 
@@ -266,8 +280,10 @@ class CLIPRN50(nn.Module):
         )
         self.ln_final = LayerNormFp32(transformer_width)
         self.text_projection = nn.Parameter(torch.empty(transformer_width, embed_dim))
-        # unused here; kept so reference checkpoints load strictly
-        self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
+        # unused here; kept so reference checkpoints load strictly.  The JAX
+        # package has no such leaf, so it takes no gradient and no update.
+        self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)),
+                                        requires_grad=False)
         nn.init.normal_(self.positional_embedding, std=0.01)
         nn.init.normal_(self.text_projection, std=transformer_width**-0.5)
 

@@ -1,14 +1,15 @@
-"""CROG: CLIP-based referring grasp synthesis, inference.
+"""CROG: CLIP-based referring grasp synthesis, and its training losses.
 
-Counterpart of crog_tpu/models/crog.py ``CROG`` (30) and ``build_crog``
-(164): image [B,416,416,3] + word ids [B,17] -> 5 maps at 104x104: instance
-mask logit + grasp quality / sin2theta / cos2theta / width logits.  The
-losses (``crog_losses``) belong to the training slice of the port.
+Counterpart of crog_tpu/models/crog.py ``CROG`` (30), ``smooth_l1`` (116),
+``weighted_bce_with_logits`` (122), ``crog_losses`` (131) and
+``build_crog`` (164): image [B,416,416,3] + word ids [B,17] -> 5 maps at
+104x104: instance mask logit + grasp quality / sin2theta / cos2theta /
+width logits.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 import torch.nn as nn
@@ -20,6 +21,7 @@ from crog_tpu_torch.models.layers import (
     Projector,
     TransformerDecoder,
 )
+from crog_tpu_torch.ops.resize import resize_nearest
 
 
 class CROG(nn.Module):
@@ -70,17 +72,58 @@ class CROG(nn.Module):
         proj_cls = MultiTaskProjector if use_grasp_masks else Projector
         self.proj = proj_cls(word_dim=word_dim, in_dim=vis_dim // 2, kernel_size=3)
 
-    def forward(self, img, word):
+    def forward(self, img, word, generator=None):
         """img [B,H,W,3] normalized; word [B,L] int padded token ids.
-        Returns [B,H/4,W/4,5] (or [...,1] without grasp masks) fp32 logits."""
+        Returns [B,H/4,W/4,5] (or [...,1] without grasp masks) fp32 logits.
+        In train mode the decoder's dropout seeds come from ``generator``."""
         word = word.long()
         pad_mask = word == 0
         vis = self.backbone.encode_image(img)
         word_feat, state = self.backbone.encode_text(word)
         fq = self.neck(vis, state)
         if self.use_contrastive:
-            fq = self.decoder(fq, word_feat, pad_mask)
+            fq = self.decoder(fq, word_feat, pad_mask, generator)
         return self.proj(fq, state)
+
+
+def smooth_l1(pred, target, beta: float = 1.0):
+    """torch F.smooth_l1_loss, mean reduction."""
+    d = (pred - target).abs()
+    return torch.where(d < beta, 0.5 * d * d / beta, d - 0.5 * beta).mean()
+
+
+def weighted_bce_with_logits(logits, targets, weight):
+    """F.binary_cross_entropy_with_logits(pred, mask, weight=w), in the
+    stable log-sigmoid form the JAX package writes out."""
+    loss = logits.clamp_min(0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
+    return (loss * weight).mean()
+
+
+def crog_losses(preds, targets: Dict[str, torch.Tensor], use_grasp_masks: bool = True
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Training losses (reference model/crog.py:76-111), all in f32: weighted
+    BCE on the instance mask (weight = mask * 0.5 + 1) plus smooth-L1 on
+    qua/sin/cos/wid, an unweighted sum.  Targets at input size are resized
+    to the prediction's size by nearest neighbour."""
+    ph, pw = preds.shape[1:3]
+
+    def fit(x):
+        x = x.float()
+        if tuple(x.shape[1:3]) != (ph, pw):
+            x = resize_nearest(x[..., None], (ph, pw))[..., 0]
+        return x
+
+    mask = fit(targets["mask"])
+    loss_ins = weighted_bce_with_logits(preds[..., 0].float(), mask, mask * 0.5 + 1.0)
+    loss_dict = {"m_ins": loss_ins}
+    total = loss_ins
+    for i, key in enumerate(("qua", "sin", "cos", "wid"), start=1):
+        if use_grasp_masks:
+            loss_dict[f"m_{key}"] = smooth_l1(preds[..., i].float(), fit(targets[key]))
+            total = total + loss_dict[f"m_{key}"]
+        else:
+            loss_dict[f"m_{key}"] = torch.zeros((), device=preds.device)
+    return total, loss_dict
 
 
 def build_crog(cfg, dtype: torch.dtype | None = None) -> CROG:

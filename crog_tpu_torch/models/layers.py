@@ -4,8 +4,9 @@ decoder, and the language-conditioned projectors.
 Counterpart of crog_tpu/models/layers.py.  Module names follow the reference
 torch key schema (reference model/layers.py); tensors are NHWC.  On a CUDA
 tensor the decoder layer runs its attention blocks and FFN through the
-hand-written kernels K2, K3 and K4 whenever ``d_model % 128 == 0 and
-dim_ffn % 128 == 0``, as the JAX package runs its Pallas kernels on a TPU.
+hand-written kernels K2, K3 and K4 (and their backward kernels) whenever
+``d_model % 128 == 0 and dim_ffn % 128 == 0``, as the JAX package runs its
+Pallas kernels on a TPU.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from crog_tpu_torch.ops.decoder_blocks import (
     decoder_self_block,
     self_block_plain,
 )
+from crog_tpu_torch.ops.dropout import apply_dropout, draw_seed
 from crog_tpu_torch.ops.dynconv import dynamic_group_conv_fused
 from crog_tpu_torch.ops.ffn import ffn_plain, fused_ffn
 from crog_tpu_torch.ops.resize import upsample2x_bilinear
@@ -147,7 +149,10 @@ def _pos2d(d_model: int, height: int, width: int) -> np.ndarray:
 
 class TransformerDecoderLayer(nn.Module):
     """Pre-LN self-attn / cross-attn / FFN layer (reference
-    model/layers.py:280-339), inference only (dropout off)."""
+    model/layers.py:280-339).  In train mode dropout acts inside the two
+    attention blocks and the FFN (as in the fused kernels) and once more on
+    the FFN output (``d3``), each with its own seed drawn from the caller's
+    ``generator``."""
 
     def __init__(self, d_model: int = 512, nhead: int = 8, dim_ffn: int = 2048,
                  dropout: float = 0.1):
@@ -165,8 +170,18 @@ class TransformerDecoderLayer(nn.Module):
         self.self_attn_norm = LayerNormFp32(d_model)
         self.cross_attn_norm = LayerNormFp32(d_model)
         self.fuse = d_model % 128 == 0 and dim_ffn % 128 == 0
+        self.rate = dropout
 
-    def forward(self, vis, txt, vis_pos, txt_pos, pad_mask):
+    def forward(self, vis, txt, vis_pos, txt_pos, pad_mask, generator=None):
+        rate = self.rate if self.training else 0.0
+        seeds = [0] * 4
+        if rate > 0.0:
+            if generator is None:
+                raise ValueError(
+                    "train-mode dropout draws its seeds from an explicit "
+                    "torch.Generator: pass generator="
+                )
+            seeds = [draw_seed(generator) for _ in range(4)]
         if self.fuse:
             self_blk, cross_blk, ffn = decoder_self_block, decoder_cross_block, fused_ffn
         else:
@@ -176,18 +191,19 @@ class TransformerDecoderLayer(nn.Module):
             vis, vis_pos, sa.in_proj_weight, sa.in_proj_bias, sa.out_proj.weight,
             sa.out_proj.bias, self.norm1.weight, self.norm1.bias,
             self.self_attn_norm.weight, self.self_attn_norm.bias, self.nhead,
+            seeds[0], rate,
         )
         vis = cross_blk(
             vis, txt, vis_pos, txt_pos, pad_mask, ca.in_proj_weight,
             ca.in_proj_bias, ca.out_proj.weight, ca.out_proj.bias,
             self.norm2.weight, self.norm2.bias, self.cross_attn_norm.weight,
-            self.cross_attn_norm.bias, self.nhead,
+            self.cross_attn_norm.bias, self.nhead, seeds[1], rate,
         )
         b, l, c = vis.shape
         fc1, ln, fc2 = self.ffn[0], self.ffn[3], self.ffn[4]
         y = ffn(self.norm3(vis).reshape(b * l, c), fc1.weight, fc1.bias,
-                ln.weight, ln.bias, fc2.weight, fc2.bias)
-        return vis + y.reshape(b, l, c)
+                ln.weight, ln.bias, fc2.weight, fc2.bias, seeds[2], rate)
+        return vis + apply_dropout(y.reshape(b, l, c), seeds[3], rate)
 
 
 class TransformerDecoder(nn.Module):
@@ -204,14 +220,14 @@ class TransformerDecoder(nn.Module):
         ])
         self.norm = LayerNormFp32(d_model)
 
-    def forward(self, vis, txt, pad_mask):
+    def forward(self, vis, txt, pad_mask, generator=None):
         b, h, w, c = vis.shape
         l = txt.shape[1]
         vis_pos = torch.from_numpy(_pos2d(c, h, w)).to(vis.device)
         txt_pos = torch.from_numpy(_pos1d(txt.shape[-1], l)).to(vis.device)
         x = vis.reshape(b, h * w, c)
         for layer in self.layers:
-            x = layer(x, txt, vis_pos, txt_pos, pad_mask)
+            x = layer(x, txt, vis_pos, txt_pos, pad_mask, generator)
         return self.norm(x).reshape(b, h, w, c)
 
 

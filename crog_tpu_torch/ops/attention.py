@@ -1,13 +1,15 @@
-"""Multi-head attention, and K1: the fused attention kernel.
+"""Multi-head attention, and K1/K1b: the fused attention kernel and its
+backward.
 
 Counterpart of crog_tpu/ops/attention.py (``attention_core``,
 ``MultiHeadAttention``) and crog_tpu/ops/pallas_attention.py
-(``fused_self_attention``).  Unmasked self-shaped attention over at least 64
-tokens (the CLIP attention pool's 169) goes to ``fused_attention``, as
-``_use_fused`` routes it to the Pallas kernel on a TPU; on a CUDA tensor that
-launches the hand-written kernel of csrc/attention.cu, on a CPU tensor its
-plain PyTorch twin.  Masked or short attention (the 17-token causal text
-tower) stays a plain matmul + fp32 softmax.
+(``fused_self_attention`` and its custom VJP).  Unmasked self-shaped
+attention over at least 64 tokens (the CLIP attention pool's 169) goes to
+``FusedAttention``, as ``_use_fused`` routes it to the Pallas kernel on a
+TPU: its forward is ``fused_attention`` (K1, csrc/attention.cu) and its
+backward ``attention_bwd`` (K1b, csrc/attention_bwd.cu) on a CUDA tensor,
+their plain PyTorch twins on a CPU tensor.  Masked or short attention (the
+17-token causal text tower) stays a plain matmul + fp32 softmax.
 """
 
 from __future__ import annotations
@@ -99,6 +101,114 @@ def fused_attention(q, k, v, num_heads: int, mask_add=None):
 fused_attention.launches = 0
 
 
+def _split_heads(t, num_heads: int):
+    b, l, d = t.shape
+    return t.reshape(b, l, num_heads, d // num_heads).transpose(1, 2)
+
+
+def _merge_heads(t, dtype):
+    b, h, l, dh = t.shape
+    return t.transpose(1, 2).reshape(b, l, h * dh).to(dtype)
+
+
+def attention_bwd_plain(q, k, v, o, do, num_heads: int):
+    """Plain twin of K1b (``_bwd_kernel`` of pallas_attention.py): everything
+    in f32 -- q, k, v, o and do upcast, P, dP and dS f32, delta =
+    rowsum(do * o) -- and only dq, dk, dv rounded to q's dtype."""
+    qh, kh, vh, oh, doh = (_split_heads(t, num_heads).float() for t in (q, k, v, o, do))
+    scale = qh.shape[-1] ** -0.5
+    p = torch.softmax(torch.matmul(qh, kh.transpose(-1, -2)) * scale, dim=-1)
+    dv = torch.matmul(p.transpose(-1, -2), doh)
+    dp = torch.matmul(doh, vh.transpose(-1, -2))
+    delta = (doh * oh).sum(-1, keepdim=True)
+    ds = p * (dp - delta) * scale
+    dq = torch.matmul(ds, kh)
+    dk = torch.matmul(ds.transpose(-1, -2), qh)
+    return tuple(_merge_heads(t, q.dtype) for t in (dq, dk, dv))
+
+
+def mha_bwd_plain(q, k, v, do, num_heads: int, mask_add=None):
+    """Plain twin of the attention step inside the decoder blocks' backward
+    (``_mha_bwd`` of pallas_decoder.py): bf16 operands with f32 sums; P is
+    recomputed in f32 and rounded to q's dtype for dV = P^T dO; delta =
+    rowsum(dP * P) on the f32 P; dS is rounded to q's dtype before dQ and
+    dK."""
+    dt = q.dtype
+    qh, kh, vh, doh = (_split_heads(t, num_heads).float() for t in (q, k, v, do.to(dt)))
+    scale = qh.shape[-1] ** -0.5
+    s = torch.matmul(qh, kh.transpose(-1, -2)) * scale
+    if mask_add is not None:
+        s = s + mask_add.float()[:, None, None, :]
+    p = torch.softmax(s, dim=-1)
+    dv = torch.matmul(p.to(dt).float().transpose(-1, -2), doh)
+    dp = torch.matmul(doh, vh.transpose(-1, -2))
+    delta = (dp * p).sum(-1, keepdim=True)
+    ds = (p * (dp - delta) * scale).to(dt).float()
+    dq = torch.matmul(ds, kh)
+    dk = torch.matmul(ds.transpose(-1, -2), qh)
+    return tuple(_merge_heads(t, dt) for t in (dq, dk, dv))
+
+
+def _check_bwd_width(q, num_heads: int) -> None:
+    b, l, d = q.shape
+    if d != num_heads * HEAD_DIM or not 1 <= l <= MAX_KEYS:
+        raise ValueError(
+            f"attention backward kernel takes head dim {HEAD_DIM} and 1..{MAX_KEYS} "
+            f"tokens: q {tuple(q.shape)}, {num_heads} heads"
+        )
+
+
+def attention_bwd(q, k, v, o, do, num_heads: int, bf16_casts: bool = False):
+    """K1b.  q, k, v, o, do [B, L, H*64] bf16 (contiguous) -> dq, dk, dv.
+
+    On a CPU tensor this is ``attention_bwd_plain``; on a CUDA tensor it
+    launches crog_attention_bwd (csrc/attention_bwd.cu) or raises.
+    ``bf16_casts`` swaps in the decoder blocks' cast points (P and dS
+    rounded to bf16, twin ``mha_bwd_plain``); only the checks that K1b's
+    tolerance would see a lost f32 cast point set it (chip_smoke.py,
+    tests/test_torch_cuda_kernels.py)."""
+    if q.device.type == "cpu":
+        if bf16_casts:
+            return mha_bwd_plain(q, k, v, do, num_heads)
+        return attention_bwd_plain(q, k, v, o, do, num_heads)
+    _check_bwd_width(q, num_heads)
+    b, l, d = q.shape
+    for t, name in ((q, "q"), (k, "k"), (v, "v"), (o, "o"), (do, "do")):
+        cuda_build.require(t, name, torch.bfloat16, (b, l, d))
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    stats = torch.empty(3, b * num_heads, l, dtype=torch.float32, device=q.device)
+    lib = cuda_build.load("attention_bwd")
+    rc = lib.crog_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+        b, num_heads, l, HEAD_DIM**-0.5, int(bf16_casts), cuda_build.stream_ptr(q.device),
+    )
+    cuda_build.check_launch(lib, rc, "crog_attention_bwd")
+    attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+attention_bwd.launches = 0
+
+
+class FusedAttention(torch.autograd.Function):
+    """K1 forward, K1b backward (``fused_self_attention``'s custom VJP).
+    The backward recomputes the row statistics from q and k instead of
+    saving the forward's logsumexp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads: int):
+        o = fused_attention(q, k, v, num_heads)
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(q, k, v, o)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        return (*attention_bwd(q, k, v, o, do.contiguous(), ctx.num_heads), None)
+
+
 def attention_core(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -116,7 +226,7 @@ def attention_core(
     b, lq, d = q.shape
     lk = k.shape[1]
     if _use_fused(lq, lk, attn_mask, key_padding_mask):
-        return fused_attention(q, k, v, num_heads)
+        return FusedAttention.apply(q, k, v, num_heads)
     dh = d // num_heads
     qh = q.reshape(b, lq, num_heads, dh).transpose(1, 2)
     kh = k.reshape(b, lk, num_heads, dh).transpose(1, 2)

@@ -1,6 +1,6 @@
 """Build and load the hand-written CUDA kernels.
 
-Each ``crog_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for
+Each ``crog_tpu_torch/csrc/<name>.cu`` in ``SIGNATURES`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface and loaded with
 ``ctypes``.  Libraries go to ``crog_tpu_torch/_build/`` under a name that
 carries a digest of every source, so an edited source is never served by a
@@ -36,19 +36,33 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_U = ctypes.c_uint
+_DROP = [_U, _U, _F]  # dropout seed, uint32 threshold (0: off), keep scale
 
-# C signature of every entry point, by library
+# C signature of every entry point, by library.  The backward entry points
+# take a table of device pointers (one host array of void*) as their first
+# argument; its order is documented at each C function.
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "attention": {
         "crog_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I]
         + [_L] * 8 + [_F, _P],
     },
+    "attention_bwd": {
+        "crog_attention_bwd": [_P] * 9 + [_I] * 3 + [_F, _I, _P],
+    },
     "decoder_blocks": {
-        "crog_self_block_fwd": [_P] * 16 + [_I] * 4 + [_P],
-        "crog_cross_block_fwd": [_P] * 20 + [_I] * 5 + [_P],
+        "crog_self_block_fwd": [_P] * 17 + [_I] * 4 + _DROP + [_P],
+        "crog_cross_block_fwd": [_P] * 21 + [_I] * 5 + _DROP + [_P],
+    },
+    "decoder_blocks_bwd": {
+        "crog_self_block_bwd": [_P] + [_I] * 5 + _DROP + [_P],
+        "crog_cross_block_bwd": [_P] + [_I] * 6 + _DROP + [_P],
     },
     "ffn": {
-        "crog_ffn_fwd": [_P] * 8 + [_I] * 3 + [_P],
+        "crog_ffn_fwd": [_P] * 8 + [_I] * 3 + _DROP + [_P],
+    },
+    "ffn_bwd": {
+        "crog_ffn_bwd": [_P] + [_I] * 3 + _DROP + [_P],
     },
 }
 
@@ -138,6 +152,15 @@ def check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.crog_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def ptr_table(*tensors) -> ctypes.c_void_p:
+    """A host array of the tensors' device pointers, as the backward entry
+    points take it; the array lives as long as the returned pointer."""
+    table = (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+    ptr = ctypes.cast(table, ctypes.c_void_p)
+    ptr._keep = table
+    return ptr
 
 
 def stream_ptr(device: torch.device) -> int:

@@ -1,17 +1,25 @@
-"""K2 and K3: the decoder's pre-LN self- and cross-attention blocks.
+"""K2/K3 and K2b/K3b: the decoder's pre-LN self- and cross-attention blocks,
+forward and backward.
 
 Counterpart of crog_tpu/ops/pallas_decoder.py ``decoder_self_block`` (590)
-and ``decoder_cross_block`` (613), forward only:
+and ``decoder_cross_block`` (613) with their custom VJPs:
 
-  self : x + LN_post(OutProj(MHA(LN_pre(x)+pos, LN_pre(x)+pos, LN_pre(x))))
-  cross: x + LN_post(OutProj(MHA(LN_pre(x)+pos, txt+tpos, txt)))
+  self : x + drop(LN_post(OutProj(MHA(LN_pre(x)+pos, LN_pre(x)+pos, LN_pre(x)))))
+  cross: x + drop(LN_post(OutProj(MHA(LN_pre(x)+pos, txt+tpos, txt))))
 
 Weights are in torch layout: ``in_w`` [3D, D] packs the q/k/v projections
 (nn.MultiheadAttention's ``in_proj_weight``), ``out_w`` [D, D]; biases and
-LN affines are 1-D.  On a CUDA tensor each block launches the kernel
-sequence of csrc/decoder_blocks.cu (or raises); on a CPU tensor it runs the
-plain twin, which keeps the TPU kernel's cast points: bf16 after every Dense
-and every LN, f32 LN statistics with flax's fast variance, f32 softmax.
+LN affines are 1-D.  ``decoder_self_block`` / ``decoder_cross_block`` are
+autograd functions.  On a CUDA tensor their forward launches the kernel
+sequence of csrc/decoder_blocks.cu and their backward that of
+csrc/decoder_blocks_bwd.cu (or raises); on a CPU tensor both run the plain
+twins, which keep the TPU kernels' cast points: bf16 after every Dense and
+every LN, f32 LN statistics with flax's fast variance, f32 softmax; in the
+backward P and dS rounded before their products, the LN backward on f32
+x-hat, dW summed in f32 and rounded once to the compute dtype.
+
+Dropout (``rate`` > 0, training) uses the counter-based mask of
+ops/dropout.py keyed by ``seed``, over rows b*L + l and columns of D.
 """
 
 from __future__ import annotations
@@ -19,20 +27,37 @@ from __future__ import annotations
 import torch
 
 from crog_tpu_torch.ops import cuda_build
-from crog_tpu_torch.ops.attention import HEAD_DIM, NEG, attention_plain
+from crog_tpu_torch.ops.attention import HEAD_DIM, NEG, attention_plain, mha_bwd_plain
+from crog_tpu_torch.ops.dropout import apply_dropout, dropout_keep, kernel_args
 
 EPS = 1e-5
+MAX_TOKENS = 768
 
 
 def ln_fast(x, g, b, eps: float = EPS):
     """LayerNorm with f32 statistics and flax's fast variance
     E[x^2] - E[x]^2, cast back to x's dtype."""
+    xhat, _ = ln_stats(x, eps)
+    return (xhat * g.float() + b.float()).to(x.dtype)
+
+
+def ln_stats(x, eps: float = EPS):
+    """(x-hat, rstd) in f32 over the last axis, fast variance."""
     xf = x.float()
     mu = xf.mean(-1, keepdim=True)
     mu2 = (xf * xf).mean(-1, keepdim=True)
-    var = (mu2 - mu * mu).clamp_min(0.0)
-    y = (xf - mu) * torch.rsqrt(var + eps) * g.float() + b.float()
-    return y.to(x.dtype)
+    rstd = torch.rsqrt((mu2 - mu * mu).clamp_min(0.0) + eps)
+    return (xf - mu) * rstd, rstd
+
+
+def ln_bwd(dy, xhat, rstd, g):
+    """LayerNorm backward on [M, N] f32 rows (``_ln_bwd``): dx and the
+    column sums dg, db."""
+    dxhat = dy * g.float()
+    m1 = dxhat.mean(-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(-1, keepdim=True)
+    dx = rstd * (dxhat - m1 - xhat * m2)
+    return dx, (dy * xhat).sum(0), dy.sum(0)
 
 
 def dense(x, w, b):
@@ -40,6 +65,19 @@ def dense(x, w, b):
     kernels' ``_dense``); ``w`` is [out, in]."""
     y = torch.matmul(x.float(), w.to(x.dtype).float().t())
     return (y + b.float()).to(x.dtype)
+
+
+def dense_t(dy, w):
+    """dy W with the sum in f32, rounded to dy's dtype (``_dense_t``): the
+    input gradient of ``dense`` for a torch-layout ``w`` [out, in]."""
+    return torch.matmul(dy.float(), w.to(dy.dtype).float()).to(dy.dtype)
+
+
+def grad_w(dy, x, dtype):
+    """dW = dy^T x [out, in], summed over all rows in f32 and rounded once
+    to the compute dtype (``_grad_w`` + ``dw.astype(w.dtype)``)."""
+    return torch.matmul(dy.reshape(-1, dy.shape[-1]).float().t(),
+                        x.reshape(-1, x.shape[-1]).float()).to(dtype).float()
 
 
 def key_mask(pad_mask, b: int, t: int, device):
@@ -50,7 +88,7 @@ def key_mask(pad_mask, b: int, t: int, device):
 
 
 def self_block_plain(x, pos, in_w, in_b, out_w, out_b, g_pre, b_pre, g_post,
-                     b_post, nheads: int):
+                     b_post, nheads: int, seed: int = 0, rate: float = 0.0):
     d = x.shape[-1]
     xl = ln_fast(x, g_pre, b_pre)
     qin = xl + pos.to(x.dtype)
@@ -59,11 +97,12 @@ def self_block_plain(x, pos, in_w, in_b, out_w, out_b, g_pre, b_pre, g_post,
     v = dense(xl, in_w[2 * d :], in_b[2 * d :])
     o = attention_plain(q, k, v, nheads)
     on = ln_fast(dense(o, out_w, out_b), g_post, b_post)
-    return x + on
+    return x + apply_dropout(on, seed, rate)
 
 
 def cross_block_plain(x, txt, pos, tpos, pad_mask, in_w, in_b, out_w, out_b,
-                      g_pre, b_pre, g_post, b_post, nheads: int):
+                      g_pre, b_pre, g_post, b_post, nheads: int, seed: int = 0,
+                      rate: float = 0.0):
     d = x.shape[-1]
     xl = ln_fast(x, g_pre, b_pre)
     kv = txt.to(x.dtype)
@@ -73,12 +112,105 @@ def cross_block_plain(x, txt, pos, tpos, pad_mask, in_w, in_b, out_w, out_b,
     mask = key_mask(pad_mask, txt.shape[0], txt.shape[1], x.device)
     o = attention_plain(q, k, v, nheads, mask)
     on = ln_fast(dense(o, out_w, out_b), g_post, b_post)
-    return x + on
+    return x + apply_dropout(on, seed, rate)
 
 
+def _post_ln_bwd(dy, op, g_post, seed, rate):
+    """Dropout and post-LN backward shared by both blocks: (dop f32, dop
+    rounded, dg_post, db_post, db_out)."""
+    m, d = op.shape
+    dyf = dy.reshape(m, d).float()
+    if rate > 0.0:
+        keep = dropout_keep(seed, rate, m, d, dy.device)
+        dyf = torch.where(keep, dyf * (1.0 / (1.0 - rate)), 0.0)
+    xhat2, rstd2 = ln_stats(op)
+    dop, dgp, dbp = ln_bwd(dyf, xhat2, rstd2, g_post)
+    return dop.to(op.dtype), dgp, dbp, dop.sum(0)
+
+
+def self_block_bwd_plain(x, pos, in_w, in_b, out_w, out_b, g_pre, b_pre, g_post,
+                         b_post, dy, nheads: int, seed: int = 0, rate: float = 0.0):
+    """Plain twin of K2b (``_self_bwd_kernel``): recompute the block, then
+    its backward.  Returns (dx, d in_w, d in_b, d out_w, d out_b, d g_pre,
+    d b_pre, d g_post, d b_post); weight grads f32 holding values of the
+    compute dtype."""
+    b, l, d = x.shape
+    dt = x.dtype
+    x2 = x.reshape(b * l, d)
+    xl = ln_fast(x2, g_pre, b_pre)
+    qin = xl + pos.to(dt).repeat(b, 1)
+    q = dense(qin, in_w[:d], in_b[:d])
+    k = dense(qin, in_w[d : 2 * d], in_b[d : 2 * d])
+    v = dense(xl, in_w[2 * d :], in_b[2 * d :])
+    heads = lambda t: t.view(b, l, d)
+    o = attention_plain(heads(q), heads(k), heads(v), nheads).reshape(b * l, d)
+    op = dense(o, out_w, out_b)
+    dop, dgp, dbp, dbo = _post_ln_bwd(dy.to(dt), op, g_post, seed, rate)
+    do = dense_t(dop, out_w)
+    dq, dk, dv = (t.reshape(b * l, d) for t in
+                  mha_bwd_plain(heads(q), heads(k), heads(v), heads(do), nheads))
+    dxl = (dense_t(dq, in_w[:d]).float() + dense_t(dk, in_w[d : 2 * d]).float()
+           + dense_t(dv, in_w[2 * d :]).float())
+    xhat1, rstd1 = ln_stats(x2)
+    dx_ln, dga, dba = ln_bwd(dxl, xhat1, rstd1, g_pre)
+    dx = (dy.to(dt).reshape(b * l, d).float() + dx_ln).to(dt).view(b, l, d)
+    d_in_w = torch.cat([grad_w(dq, qin, dt), grad_w(dk, qin, dt), grad_w(dv, xl, dt)])
+    d_in_b = torch.cat([t.float().sum(0) for t in (dq, dk, dv)])
+    return dx, d_in_w, d_in_b, grad_w(dop, o, dt), dbo, dga, dba, dgp, dbp
+
+
+def cross_block_bwd_plain(x, txt, pos, tpos, pad_mask, in_w, in_b, out_w, out_b,
+                          g_pre, b_pre, g_post, b_post, dy, nheads: int,
+                          seed: int = 0, rate: float = 0.0):
+    """Plain twin of K3b (``_cross_bwd_kernel``).  Returns (dx, d txt,
+    d in_w, d in_b, d out_w, d out_b, d g_pre, d b_pre, d g_post,
+    d b_post)."""
+    b, l, d = x.shape
+    t = txt.shape[1]
+    dt = x.dtype
+    x2 = x.reshape(b * l, d)
+    kv = txt.to(dt).reshape(b * t, d)
+    xl = ln_fast(x2, g_pre, b_pre)
+    qin = xl + pos.to(dt).repeat(b, 1)
+    kin = kv + tpos.to(dt).repeat(b, 1)
+    q = dense(qin, in_w[:d], in_b[:d])
+    k = dense(kin, in_w[d : 2 * d], in_b[d : 2 * d])
+    v = dense(kv, in_w[2 * d :], in_b[2 * d :])
+    mask = key_mask(pad_mask, b, t, x.device)
+    qs, ks, vs = q.view(b, l, d), k.view(b, t, d), v.view(b, t, d)
+    o = attention_plain(qs, ks, vs, nheads, mask).reshape(b * l, d)
+    op = dense(o, out_w, out_b)
+    dop, dgp, dbp, dbo = _post_ln_bwd(dy.to(dt), op, g_post, seed, rate)
+    do = dense_t(dop, out_w)
+    dq, dk, dv = mha_bwd_plain(qs, ks, vs, do.view(b, l, d), nheads, mask)
+    dq, dk, dv = dq.reshape(b * l, d), dk.reshape(b * t, d), dv.reshape(b * t, d)
+    dxl = dense_t(dq, in_w[:d]).float()
+    dkv = (dense_t(dk, in_w[d : 2 * d]).float()
+           + dense_t(dv, in_w[2 * d :]).float()).to(dt).view(b, t, d)
+    xhat1, rstd1 = ln_stats(x2)
+    dx_ln, dga, dba = ln_bwd(dxl, xhat1, rstd1, g_pre)
+    dx = (dy.to(dt).reshape(b * l, d).float() + dx_ln).to(dt).view(b, l, d)
+    d_in_w = torch.cat([grad_w(dq, qin, dt), grad_w(dk, kin, dt), grad_w(dv, kv, dt)])
+    d_in_b = torch.cat([t_.float().sum(0) for t_ in (dq, dk, dv)])
+    return (dx, dkv, d_in_w, d_in_b, grad_w(dop, o, dt), dbo, dga, dba, dgp, dbp)
+
+
+# ------------------------------------------------------------ CUDA side
 def kernel_supported(d_model: int, nheads: int) -> bool:
     """Widths the block kernels take: 64-wide heads, D = 512."""
     return d_model == 512 and d_model == nheads * HEAD_DIM
+
+
+def _check_block_input(x, nheads):
+    if x.dim() != 3 or not kernel_supported(x.shape[-1], nheads):
+        raise ValueError(
+            f"decoder block kernels take x [B, L, 512] with 8 heads of 64, got "
+            f"{tuple(x.shape)} and {nheads} heads"
+        )
+    if x.shape[1] > MAX_TOKENS:
+        raise ValueError(
+            f"decoder block kernels take at most {MAX_TOKENS} tokens, got {x.shape[1]}")
+    cuda_build.require(x, "x", torch.bfloat16)
 
 
 def _weights(x, in_w, in_b, out_w, out_b, g_pre, b_pre, g_post, b_post):
@@ -94,23 +226,19 @@ def _weights(x, in_w, in_b, out_w, out_b, g_pre, b_pre, g_post, b_post):
     return wi, wo, vecs
 
 
-def _check_block_input(x, nheads):
-    cuda_build.require(x, "x", torch.bfloat16)
-    if x.dim() != 3 or not kernel_supported(x.shape[-1], nheads):
-        raise ValueError(
-            f"decoder block kernels take x [B, L, 512] with 8 heads of 64, got "
-            f"{tuple(x.shape)} and {nheads} heads"
-        )
-    if x.shape[1] > 768:
-        raise ValueError(f"decoder block kernels take at most 768 tokens, got {x.shape[1]}")
+def _wgrad_splits(m: int) -> int:
+    """Row chunks of the dW kernels' first pass (summed in a fixed order by
+    the second pass): enough blocks to fill the card at M = 16224."""
+    return max(1, min(16, -(-m // 1024)))
 
 
-def decoder_self_block(x, pos, in_w, in_b, out_w, out_b, g_pre, b_pre, g_post,
-                       b_post, nheads: int):
-    """K2.  x [B, L, D]; pos [L, D].  Returns x + block(x)."""
+def self_block_fwd(x, pos, in_w, in_b, out_w, out_b, g_pre, b_pre, g_post, b_post,
+                   nheads: int, seed: int = 0, rate: float = 0.0, save: bool = False):
+    """K2.  x [B, L, D]; pos [L, D].  Returns (x + block(x), saved), where
+    ``saved`` holds what K2b reads when ``save`` (else None)."""
     if x.device.type == "cpu":
         return self_block_plain(x, pos, in_w, in_b, out_w, out_b, g_pre, b_pre,
-                                g_post, b_post, nheads)
+                                g_post, b_post, nheads, seed, rate), None
     _check_block_input(x, nheads)
     b, l, d = x.shape
     posb = pos.to(torch.bfloat16).contiguous()
@@ -120,29 +248,66 @@ def decoder_self_block(x, pos, in_w, in_b, out_w, out_b, g_pre, b_pre, g_post,
     new = lambda n: torch.empty(b * l, n, dtype=torch.bfloat16, device=x.device)
     y = torch.empty_like(x)
     ws = (new(d), new(d), new(2 * d), new(d), new(d))  # xl, qin, qk, v, o
+    op = new(d) if save else None
+    dseed, thresh, scale = kernel_args(seed, rate)
     lib = cuda_build.load("decoder_blocks")
     rc = lib.crog_self_block_fwd(
         x.data_ptr(), posb.data_ptr(), wi.data_ptr(), bi.data_ptr(),
         wo.data_ptr(), bo.data_ptr(), gp.data_ptr(), bp.data_ptr(),
         gq.data_ptr(), bq.data_ptr(), y.data_ptr(),
-        *(t.data_ptr() for t in ws), b, l, d, nheads,
-        cuda_build.stream_ptr(x.device),
+        *(t.data_ptr() for t in ws), None if op is None else op.data_ptr(),
+        b, l, d, nheads, dseed, thresh, scale, cuda_build.stream_ptr(x.device),
     )
     cuda_build.check_launch(lib, rc, "crog_self_block_fwd")
-    decoder_self_block.launches += 1
-    return y
+    self_block_fwd.launches += 1
+    return y, ((wi, wo, gp, gq) + ws + (op,) if save else None)
 
 
-decoder_self_block.launches = 0
+self_block_fwd.launches = 0
 
 
-def decoder_cross_block(x, txt, pos, tpos, pad_mask, in_w, in_b, out_w, out_b,
-                        g_pre, b_pre, g_post, b_post, nheads: int):
+def self_block_bwd(x, saved, dy, nheads: int, seed: int = 0, rate: float = 0.0):
+    """K2b on a CUDA tensor: the backward kernels of csrc/decoder_blocks_bwd.cu
+    over what ``self_block_fwd(save=True)`` kept.  Returns (dx, d in_w,
+    d in_b, d out_w, d out_b, d g_pre, d b_pre, d g_post, d b_post)."""
+    _check_block_input(x, nheads)
+    b, l, d = x.shape
+    m = b * l
+    wi, wo, g_pre, g_post, xl, qin, qk, v, o, op = saved
+    dy = dy.to(torch.bfloat16).contiguous()
+    cuda_build.require(dy, "dy", torch.bfloat16, (b, l, d))
+    dev = x.device
+    bf = lambda *s: torch.empty(*s, dtype=torch.bfloat16, device=dev)
+    f32 = lambda *s: torch.empty(*s, dtype=torch.float32, device=dev)
+    splits = _wgrad_splits(m)
+    dx, dwi, dwo, dvec = bf(b, l, d), bf(3 * d, d), bf(d, d), f32(8, d)
+    ws = (bf(m, d), bf(m, d), bf(m, d), bf(m, d), bf(m, d), f32(m, d),
+          f32(3, b * nheads, l), f32(splits, d, d), f32(splits, d),
+          f32(-(-m // 64), 3, d))  # dop, do, dq, dk, dv, dxl, stats, parts
+    dseed, thresh, scale = kernel_args(seed, rate)
+    table = cuda_build.ptr_table(x, wi, wo, g_pre, g_post, xl, qin, qk, v, o, op, dy,
+                  dx, dwi, dwo, dvec, *ws)
+    lib = cuda_build.load("decoder_blocks_bwd")
+    rc = lib.crog_self_block_bwd(table, b, l, d, nheads, splits, dseed, thresh, scale,
+                                 cuda_build.stream_ptr(dev))
+    cuda_build.check_launch(lib, rc, "crog_self_block_bwd")
+    self_block_bwd.launches += 1
+    return (dx, dwi.float(), dvec[:3].reshape(-1), dwo.float(), dvec[3], dvec[4],
+            dvec[5], dvec[6], dvec[7])
+
+
+self_block_bwd.launches = 0
+
+
+def cross_block_fwd(x, txt, pos, tpos, pad_mask, in_w, in_b, out_w, out_b, g_pre,
+                    b_pre, g_post, b_post, nheads: int, seed: int = 0,
+                    rate: float = 0.0, save: bool = False):
     """K3.  x [B, L, D]; txt [B, T, D]; pos [L, D]; tpos [T, D]; pad_mask
-    [B, T] bool (True = ignore that key) or None."""
+    [B, T] bool (True = ignore that key) or None.  Returns (y, saved)."""
     if x.device.type == "cpu":
         return cross_block_plain(x, txt, pos, tpos, pad_mask, in_w, in_b, out_w,
-                                 out_b, g_pre, b_pre, g_post, b_post, nheads)
+                                 out_b, g_pre, b_pre, g_post, b_post, nheads, seed,
+                                 rate), None
     _check_block_input(x, nheads)
     b, l, d = x.shape
     t = txt.shape[1]
@@ -158,18 +323,121 @@ def decoder_cross_block(x, txt, pos, tpos, pad_mask, in_w, in_b, out_w, out_b,
         x, in_w, in_b, out_w, out_b, g_pre, b_pre, g_post, b_post)
     new = lambda n: torch.empty(n, d, dtype=torch.bfloat16, device=x.device)
     y = torch.empty_like(x)
+    # qin, q, o [B*L, D]; kin, k, v [B*T, D]
     ws = (new(b * l), new(b * l), new(b * l), new(b * t), new(b * t), new(b * t))
+    op = new(b * l) if save else None
+    dseed, thresh, scale = kernel_args(seed, rate)
     lib = cuda_build.load("decoder_blocks")
     rc = lib.crog_cross_block_fwd(
         x.data_ptr(), kv.data_ptr(), posb.data_ptr(), tposb.data_ptr(),
         mask.data_ptr(), wi.data_ptr(), bi.data_ptr(), wo.data_ptr(),
         bo.data_ptr(), gp.data_ptr(), bp.data_ptr(), gq.data_ptr(),
         bq.data_ptr(), y.data_ptr(), *(w.data_ptr() for w in ws),
-        b, l, t, d, nheads, cuda_build.stream_ptr(x.device),
+        None if op is None else op.data_ptr(),
+        b, l, t, d, nheads, dseed, thresh, scale, cuda_build.stream_ptr(x.device),
     )
     cuda_build.check_launch(lib, rc, "crog_cross_block_fwd")
-    decoder_cross_block.launches += 1
-    return y
+    cross_block_fwd.launches += 1
+    return y, ((kv, mask, wi, wo, gp, gq) + ws + (op,) if save else None)
 
 
-decoder_cross_block.launches = 0
+cross_block_fwd.launches = 0
+
+
+def cross_block_bwd(x, saved, dy, nheads: int, seed: int = 0, rate: float = 0.0):
+    """K3b on a CUDA tensor.  Returns (dx, d txt, d in_w, d in_b, d out_w,
+    d out_b, d g_pre, d b_pre, d g_post, d b_post)."""
+    _check_block_input(x, nheads)
+    b, l, d = x.shape
+    kv, mask, wi, wo, g_pre, g_post, qin, q, o, kin, k, v, op = saved
+    t = kv.shape[1]
+    m, mt = b * l, b * t
+    dy = dy.to(torch.bfloat16).contiguous()
+    cuda_build.require(dy, "dy", torch.bfloat16, (b, l, d))
+    dev = x.device
+    bf = lambda *s: torch.empty(*s, dtype=torch.bfloat16, device=dev)
+    f32 = lambda *s: torch.empty(*s, dtype=torch.float32, device=dev)
+    splits = _wgrad_splits(m)
+    dx, dkv, dwi, dwo, dvec = bf(b, l, d), bf(b, t, d), bf(3 * d, d), bf(d, d), f32(8, d)
+    ws = (bf(m, d), bf(m, d), bf(m, d), bf(mt, d), bf(mt, d), f32(m, d), f32(mt, d),
+          f32(3, b * nheads, l), f32(splits, d, d), f32(splits, d),
+          f32(-(-m // 64), 3, d))  # dop, do, dq, dk, dv, dxl, dkv f32, stats, parts
+    dseed, thresh, scale = kernel_args(seed, rate)
+    table = cuda_build.ptr_table(x, kv, mask, wi, wo, g_pre, g_post, qin, q, o, kin, k, v, op, dy,
+                  dx, dkv, dwi, dwo, dvec, *ws)
+    lib = cuda_build.load("decoder_blocks_bwd")
+    rc = lib.crog_cross_block_bwd(table, b, l, t, d, nheads, splits, dseed, thresh,
+                                  scale, cuda_build.stream_ptr(dev))
+    cuda_build.check_launch(lib, rc, "crog_cross_block_bwd")
+    cross_block_bwd.launches += 1
+    return (dx, dkv, dwi.float(), dvec[:3].reshape(-1), dwo.float(), dvec[3],
+            dvec[4], dvec[5], dvec[6], dvec[7])
+
+
+cross_block_bwd.launches = 0
+
+
+# ------------------------------------------------------------- autograd
+class _SelfBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, pos, *args):
+        *params, nheads, seed, rate, save = args
+        ctx.nheads, ctx.seed, ctx.rate = nheads, seed, rate
+        y, saved = self_block_fwd(x, pos, *params, nheads, seed, rate, save)
+        ctx.saved = saved
+        ctx.save_for_backward(x, pos, *params)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, pos, *params = ctx.saved_tensors
+        if x.device.type == "cpu":
+            grads = self_block_bwd_plain(x, pos, *params, dy, ctx.nheads, ctx.seed,
+                                         ctx.rate)
+        else:
+            grads = self_block_bwd(x, ctx.saved, dy, ctx.nheads, ctx.seed, ctx.rate)
+        ctx.saved = None
+        return (grads[0], None, *grads[1:], None, None, None, None)
+
+
+class _CrossBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, txt, pos, tpos, pad_mask, *args):
+        *params, nheads, seed, rate, save = args
+        ctx.nheads, ctx.seed, ctx.rate = nheads, seed, rate
+        ctx.pad_mask = pad_mask
+        y, saved = cross_block_fwd(x, txt, pos, tpos, pad_mask, *params, nheads,
+                                   seed, rate, save)
+        ctx.saved = saved
+        ctx.save_for_backward(x, txt, pos, tpos, *params)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, txt, pos, tpos, *params = ctx.saved_tensors
+        if x.device.type == "cpu":
+            grads = cross_block_bwd_plain(x, txt, pos, tpos, ctx.pad_mask, *params, dy,
+                                          ctx.nheads, ctx.seed, ctx.rate)
+        else:
+            grads = cross_block_bwd(x, ctx.saved, dy, ctx.nheads, ctx.seed, ctx.rate)
+        ctx.saved = ctx.pad_mask = None
+        dtxt = grads[1].to(txt.dtype)
+        return (grads[0], dtxt, None, None, None, *grads[2:], None, None, None, None)
+
+
+def decoder_self_block(x, pos, in_w, in_b, out_w, out_b, g_pre, b_pre, g_post,
+                       b_post, nheads: int, seed: int = 0, rate: float = 0.0):
+    """x + block(x) with K2 forward and K2b backward; ``pos`` takes no
+    gradient (fixed sin/cos)."""
+    return _SelfBlock.apply(x, pos, in_w, in_b, out_w, out_b, g_pre, b_pre, g_post,
+                            b_post, nheads, seed, rate, torch.is_grad_enabled())
+
+
+def decoder_cross_block(x, txt, pos, tpos, pad_mask, in_w, in_b, out_w, out_b,
+                        g_pre, b_pre, g_post, b_post, nheads: int, seed: int = 0,
+                        rate: float = 0.0):
+    """x + block(x, txt) with K3 forward and K3b backward; gradients for x,
+    txt and the parameters (``pos``/``tpos`` are fixed sin/cos)."""
+    return _CrossBlock.apply(x, txt, pos, tpos, pad_mask, in_w, in_b, out_w, out_b,
+                             g_pre, b_pre, g_post, b_post, nheads, seed, rate,
+                             torch.is_grad_enabled())

@@ -1,12 +1,22 @@
-"""K4: the decoder FFN, Dense -> ReLU -> LayerNorm -> Dense, forward.
+"""K4/K4b: the decoder FFN, Dense -> ReLU -> Dropout -> LayerNorm -> Dense,
+forward and backward.
 
-Counterpart of crog_tpu/ops/pallas_ffn.py ``fused_ffn`` (176) with dropout
-off (eval).  Weights in torch layout: ``w1`` [F, D], ``w2`` [D, F].  On a
-CUDA tensor this launches csrc/ffn.cu, which keeps each row tile's
-[32, 2048] hidden in shared memory (or raises); on a CPU tensor it runs the
-plain twin, which keeps the TPU kernel's cast points: the hidden rounded to
-x's dtype after the bias and again after the f32-statistics LayerNorm, one
-rounding of the output after the bias.
+Counterpart of crog_tpu/ops/pallas_ffn.py ``fused_ffn`` (176) and its custom
+VJP.  Weights in torch layout: ``w1`` [F, D], ``w2`` [D, F].  ``fused_ffn``
+is an autograd function.  On a CUDA tensor its forward launches csrc/ffn.cu,
+which keeps each row tile's [32, 2048] hidden in shared memory, and its
+backward csrc/ffn_bwd.cu, which recomputes the hidden and the dropout mask
+from x and the seed and emits dx, dh, hn and the column sums of db1, dgamma,
+dbeta, db2 (or raises); the two weight gradients dW1 = dh^T x and dW2 =
+dy^T hn are library matrix products outside the kernel, as the JAX package
+leaves them to XLA: bf16 operands on the tensor cores with f32 sums and an
+f32 result, as the JAX einsums with ``preferred_element_type=float32``
+compute them.  On a CPU tensor both run the plain twins, which
+keep the TPU kernel's cast points: the hidden rounded to x's dtype after the
+bias, after the dropout scale and again after the f32-statistics LayerNorm,
+one rounding of the output after the bias; in the backward dh rounded
+before db1 and dx, dy rounded for dW2 but f32 for db2, the ReLU mask taken
+from the post-dropout hidden.
 """
 
 from __future__ import annotations
@@ -14,44 +24,148 @@ from __future__ import annotations
 import torch
 
 from crog_tpu_torch.ops import cuda_build
-from crog_tpu_torch.ops.decoder_blocks import dense, ln_fast
+from crog_tpu_torch.ops.decoder_blocks import dense, ln_fast, ln_stats
+from crog_tpu_torch.ops.dropout import apply_dropout, dropout_keep, kernel_args
 
 KERNEL_D, KERNEL_F = 512, 2048
+ROWS = 32  # rows per block of both kernels
 
 
-def ffn_plain(x, w1, b1, gamma, beta, w2, b2, eps: float = 1e-5):
-    h = torch.relu(dense(x, w1, b1))
+def ffn_plain(x, w1, b1, gamma, beta, w2, b2, seed: int = 0, rate: float = 0.0,
+              eps: float = 1e-5):
+    h = apply_dropout(torch.relu(dense(x, w1, b1)), seed, rate)
     return dense(ln_fast(h, gamma, beta, eps), w2, b2)
 
 
-def fused_ffn(x, w1, b1, gamma, beta, w2, b2):
-    """K4 over x [M, D] tokens."""
-    if x.device.type == "cpu":
-        return ffn_plain(x, w1, b1, gamma, beta, w2, b2)
+def ffn_bwd_plain(x, w1, b1, gamma, beta, w2, dy, seed: int = 0, rate: float = 0.0,
+                  eps: float = 1e-5):
+    """Plain twin of K4b (``_bwd_kernel`` of pallas_ffn.py plus the two
+    weight-gradient products).  Returns (dx, dw1, db1, dgamma, dbeta, dw2,
+    db2), the weight gradients in f32."""
+    dt = x.dtype
+    m, _ = x.shape
+    f = w1.shape[0]
+    h = apply_dropout(torch.relu(dense(x, w1, b1)), seed, rate)
+    hf = h.float()
+    hhat, rstd = ln_stats(h, eps)
+    hn = (hhat * gamma.float() + beta.float()).to(dt)
+    dyc = dy.to(dt)
+    dhn = torch.matmul(dyc.float(), w2.to(dt).float())
+    dgamma, dbeta = (dhn * hhat).sum(0), dhn.sum(0)
+    dhhat = dhn * gamma.float()
+    m1 = dhhat.mean(-1, keepdim=True)
+    m2 = (dhhat * hhat).mean(-1, keepdim=True)
+    dh = rstd * (dhhat - m1 - hhat * m2)
+    if rate > 0.0:
+        keep = dropout_keep(seed, rate, m, f, x.device)
+        dh = torch.where(keep, dh * (1.0 / (1.0 - rate)), 0.0)
+    dh = torch.where(hf > 0, dh, 0.0).to(dt)
+    dx = torch.matmul(dh.float(), w1.to(dt).float()).to(dt)
+    # dW1 = dh^T x [F, D], dW2 = dy^T hn [D, F]: f32 products of the
+    # compute-dtype values (the JAX package's einsums with f32 results)
+    dw1 = torch.matmul(dh.float().t(), x.float())
+    dw2 = torch.matmul(dyc.float().t(), hn.float())
+    return dx, dw1, dh.float().sum(0), dgamma, dbeta, dw2, dy.float().sum(0)
+
+
+def _check(x, w1):
     m, d = x.shape
     f = w1.shape[0]
     if (d, f) != (KERNEL_D, KERNEL_F):
         raise ValueError(
-            f"FFN kernel takes D={KERNEL_D}, F={KERNEL_F}, got D={d}, F={f}"
+            f"FFN kernels take D={KERNEL_D}, F={KERNEL_F}, got D={d}, F={f}"
         )
     cuda_build.require(x, "x", torch.bfloat16, (m, d))
+
+
+def _params(w1, w2, d, f, **vecs):
+    """bf16 weights and f32 vectors, checked for the kernels."""
     w1b = w1.to(torch.bfloat16).contiguous()
     w2b = w2.to(torch.bfloat16).contiguous()
     cuda_build.require(w1b, "w1", torch.bfloat16, (f, d))
     cuda_build.require(w2b, "w2", torch.bfloat16, (d, f))
-    vecs = [t.float().contiguous() for t in (b1, gamma, beta, b2)]
-    for t, n, size in zip(vecs, ("b1", "gamma", "beta", "b2"), (f, f, f, d)):
-        cuda_build.require(t, n, torch.float32, (size,))
+    out = []
+    for n, t in vecs.items():
+        t = t.float().contiguous()
+        cuda_build.require(t, n, torch.float32, (d if n == "b2" else f,))
+        out.append(t)
+    return w1b, w2b, out
+
+
+def ffn_fwd(x, w1, b1, gamma, beta, w2, b2, seed: int = 0, rate: float = 0.0):
+    """K4 over x [M, D] tokens."""
+    if x.device.type == "cpu":
+        return ffn_plain(x, w1, b1, gamma, beta, w2, b2, seed, rate)
+    _check(x, w1)
+    m, d = x.shape
+    f = w1.shape[0]
+    w1b, w2b, vecs = _params(w1, w2, d, f, b1=b1, gamma=gamma, beta=beta, b2=b2)
     y = torch.empty_like(x)
+    dseed, thresh, scale = kernel_args(seed, rate)
     lib = cuda_build.load("ffn")
     rc = lib.crog_ffn_fwd(
         x.data_ptr(), w1b.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(),
         vecs[2].data_ptr(), w2b.data_ptr(), vecs[3].data_ptr(), y.data_ptr(),
-        m, d, f, cuda_build.stream_ptr(x.device),
+        m, d, f, dseed, thresh, scale, cuda_build.stream_ptr(x.device),
     )
     cuda_build.check_launch(lib, rc, "crog_ffn_fwd")
-    fused_ffn.launches += 1
+    ffn_fwd.launches += 1
     return y
 
 
-fused_ffn.launches = 0
+ffn_fwd.launches = 0
+
+
+def ffn_bwd(x, w1, b1, gamma, beta, w2, dy, seed: int = 0, rate: float = 0.0):
+    """K4b on a CUDA tensor (csrc/ffn_bwd.cu) plus the two weight-gradient
+    products (bf16 GEMMs with f32 results).  Returns (dx, dw1, db1, dgamma,
+    dbeta, dw2, db2)."""
+    _check(x, w1)
+    m, d = x.shape
+    f = w1.shape[0]
+    w1b, w2b, (b1f, gf, bef) = _params(w1, w2, d, f, b1=b1, gamma=gamma, beta=beta)
+    dy = dy.to(torch.bfloat16).contiguous()
+    cuda_build.require(dy, "dy", torch.bfloat16, (m, d))
+    dev = x.device
+    nblk = -(-m // ROWS)
+    dx = torch.empty_like(x)
+    dh = torch.empty(m, f, dtype=torch.bfloat16, device=dev)
+    hn = torch.empty(m, f, dtype=torch.bfloat16, device=dev)
+    rows = torch.empty(3, f, dtype=torch.float32, device=dev)  # db1, dgamma, dbeta
+    db2 = torch.empty(d, dtype=torch.float32, device=dev)
+    parts = torch.empty(nblk, 3 * f + d, dtype=torch.float32, device=dev)
+    dseed, thresh, scale = kernel_args(seed, rate)
+    table = cuda_build.ptr_table(x, w1b, b1f, gf, bef, w2b, dy, dx, dh, hn, rows, db2, parts)
+    lib = cuda_build.load("ffn_bwd")
+    rc = lib.crog_ffn_bwd(table, m, d, f, dseed, thresh, scale,
+                          cuda_build.stream_ptr(dev))
+    cuda_build.check_launch(lib, rc, "crog_ffn_bwd")
+    ffn_bwd.launches += 1
+    # bf16 GEMMs with f32 sums and results: products of bf16 values are
+    # exact in f32, so these differ from the twin's f32 products only in the
+    # order of the sums
+    dw1 = torch.mm(dh.t(), x, out_dtype=torch.float32)
+    dw2 = torch.mm(dy.t(), hn, out_dtype=torch.float32)
+    return dx, dw1, rows[0], rows[1], rows[2], dw2, db2
+
+
+ffn_bwd.launches = 0
+
+
+class _FusedFFN(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, b1, gamma, beta, w2, b2, seed, rate):
+        ctx.seed, ctx.rate = seed, rate
+        ctx.save_for_backward(x, w1, b1, gamma, beta, w2)
+        return ffn_fwd(x, w1, b1, gamma, beta, w2, b2, seed, rate)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w1, b1, gamma, beta, w2 = ctx.saved_tensors
+        fn = ffn_bwd_plain if x.device.type == "cpu" else ffn_bwd
+        return (*fn(x, w1, b1, gamma, beta, w2, dy, ctx.seed, ctx.rate), None, None)
+
+
+def fused_ffn(x, w1, b1, gamma, beta, w2, b2, seed: int = 0, rate: float = 0.0):
+    """K4 forward and K4b backward over x [M, D] tokens."""
+    return _FusedFFN.apply(x, w1, b1, gamma, beta, w2, b2, seed, rate)

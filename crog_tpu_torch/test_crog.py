@@ -6,8 +6,9 @@ Runs the eval split and reports mask IoU, Pr@50-90, J@1 and J@5:
         [--device cpu] --opts wire_format legacy synthetic_samples 48
 
 ``--device`` defaults to ``cuda`` and raises when there is no card.  A
-``.pth``/``.pt`` ``resume`` (a reference CROG checkpoint) loads directly;
-an orbax checkpoint directory of the JAX package is not supported yet.
+``resume`` file (a reference CROG ``.pth`` or a checkpoint of
+``crog_tpu_torch.train_crog``) loads directly; an orbax checkpoint
+directory of the JAX package is not supported yet.
 """
 
 from __future__ import annotations
@@ -73,10 +74,10 @@ def load_eval_variables(args, model):
     logger = get_logger()
     resume = args.get("resume")
     if resume and os.path.exists(resume):
-        if not resume.endswith((".pth", ".pt")):
+        if os.path.isdir(resume):
             raise NotImplementedError(
                 f"{resume!r}: orbax checkpoints of the JAX package are not "
-                "supported by the port yet; pass a reference .pth checkpoint"
+                "supported by the port yet; pass a torch checkpoint file"
             )
         model.load_state_dict(load_checkpoint(resume), strict=True)
         logger.info(f"=> loaded checkpoint '{resume}'")

@@ -1,0 +1,149 @@
+"""CROG training entry point of the port (counterpart of train_crog.py).
+
+    python -m crog_tpu_torch.train_crog --config config/OCID-VLG/crog_synthetic_r50.yaml \\
+        [--device cpu] --opts wire_format legacy synthetic_samples 48 batch_size 24
+
+Per epoch: ``train_one_epoch`` over shuffled train batches, then (with
+``evaluate``) ``validate_with_grasp`` over the val split with the model in
+eval mode, then ``last_model`` is saved and copied to ``best_iou_model`` /
+``best_jindex_model`` on an improvement.  ``--device`` defaults to ``cuda``
+and raises when there is no card; on the CPU the model computes in fp32.
+Weights start from ``random_init_`` seeded by ``manual_seed``; a ``resume``
+checkpoint written by this CLI restores the model, the optimizer and the
+schedule.  One process, one device: no tracker and no mesh.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import torch
+
+from crog_tpu_torch.config import load_cfg_from_cfg_file, merge_cfg_from_list
+from crog_tpu_torch.data.loader import SequentialLoader, ShuffleLoader
+from crog_tpu_torch.engine import checkpoint as ckpt
+from crog_tpu_torch.engine.crog_engine import (
+    make_eval_step,
+    make_train_step,
+    set_exact_fp32_matmul,
+    train_one_epoch,
+    validate_with_grasp,
+)
+from crog_tpu_torch.engine.optim import make_optimizer, set_schedule_step
+from crog_tpu_torch.models.crog import build_crog, random_init_
+from crog_tpu_torch.test_crog import build_dataset, resolve_device
+from crog_tpu_torch.utils.logging import get_logger, setup_logger
+from crog_tpu_torch.utils.seed import set_random_seed
+
+
+def get_parser(argv=None):
+    parser = argparse.ArgumentParser(description="CROG training (PyTorch)")
+    parser.add_argument(
+        "--config", default="config/OCID-VLG/crog_multiple_r50.yaml", type=str
+    )
+    parser.add_argument("--device", default="cuda", type=str)
+    parser.add_argument("--opts", default=None, nargs=argparse.REMAINDER)
+    args = parser.parse_args(argv)
+    cfg = load_cfg_from_cfg_file(args.config)
+    if args.opts:
+        cfg = merge_cfg_from_list(cfg, args.opts)
+    return cfg, args.device
+
+
+def check_pretrained_clip(args) -> None:
+    """use_pretrained_clip semantics (reference model/crog.py:20-23): a
+    missing archive keeps the fresh initialization, as the JAX package
+    does; loading a CLIP archive into the port is not ported yet."""
+    logger = get_logger()
+    path = args.get("clip_pretrain")
+    if not args.get("use_pretrained_clip", True):
+        logger.info("Load pretrained CLIP: False")
+    elif not path or not os.path.exists(path):
+        logger.warning(f"clip_pretrain checkpoint not found at {path!r}; "
+                       "backbone keeps fresh initialization")
+    else:
+        raise NotImplementedError(
+            f"{path!r}: loading a pretrained CLIP archive is not ported yet "
+            "(pass use_pretrained_clip False)"
+        )
+
+
+def main(argv=None):
+    args, device_name = get_parser(argv)
+    device = resolve_device(device_name)
+    out_dir = os.path.join(args.output_folder, args.exp_name)
+    setup_logger(out_dir, filename="train.log")
+    logger = get_logger()
+    generator = set_random_seed(args.manual_seed)
+    set_exact_fp32_matmul()
+    logger.info(f"Device: {device}")
+    logger.info(str(args))
+
+    # the plain path on the CPU computes in fp32, whatever compute_dtype says
+    model = build_crog(args, torch.float32 if device.type == "cpu" else None)
+    random_init_(model, torch.Generator().manual_seed(args.manual_seed))
+    check_pretrained_clip(args)
+    model = model.to(device)
+    train_loader = ShuffleLoader(build_dataset(args, args.train_split), args.batch_size,
+                                 seed=args.manual_seed)
+    val_ds = build_dataset(args, args.val_split)
+    val_loader = SequentialLoader(val_ds, args.batch_size_val, pad_last_batch=True)
+    steps_per_epoch = len(train_loader)
+    optimizer, scheduler = make_optimizer(
+        model, base_lr=args.base_lr, lr_multi=args.lr_multi, milestones=args.milestones,
+        lr_decay=args.lr_decay, steps_per_epoch=steps_per_epoch,
+        weight_decay=args.weight_decay,
+    )
+
+    start_epoch = args.start_epoch
+    best_iou, best_jindex = 0.0, 0.0
+    resume = args.get("resume")
+    if resume and os.path.exists(resume):
+        payload = ckpt.restore_checkpoint(resume, model, optimizer)
+        set_schedule_step(scheduler, payload["step"])
+        meta = payload["meta"]
+        start_epoch = int(meta.get("epoch", 0))
+        best_iou = float(meta.get("best_iou", 0.0))
+        best_jindex = float(meta.get("best_jindex", 0.0))
+        logger.info(f"=> resumed from '{resume}' (epoch {start_epoch})")
+
+    train_step = make_train_step(model, optimizer, scheduler, args.use_grasp_masks,
+                                 args.max_norm, generator, device)
+    eval_step = make_eval_step(model, input_size=args.input_size,
+                               ori_hw=getattr(val_ds, "max_ori_size", (480, 640)),
+                               device=device)
+    for epoch in range(start_epoch, args.epochs):
+        train_loader.set_epoch(epoch)
+        t0 = time.perf_counter()
+        train_one_epoch(train_loader, train_step, epoch + 1, args, steps_per_epoch)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        dt = time.perf_counter() - t0
+        seen = steps_per_epoch * args.batch_size
+        logger.info(f"Epoch {epoch + 1}: {dt:.1f}s, {seen / dt:.2f} samples/s")
+        step = scheduler.last_epoch
+        if args.get("evaluate", True):
+            model.eval()
+            result = validate_with_grasp(val_loader, eval_step, epoch + 1, args,
+                                         with_grasps=args.use_grasp_masks)
+            model.train()
+            ckpt.save_checkpoint(out_dir, model, optimizer, step, epoch + 1, best_iou,
+                                 best_jindex, result["prec"])
+            if result["iou"] > best_iou:
+                best_iou = result["iou"]
+                ckpt.copy_best(out_dir, ckpt.LAST, ckpt.BEST_IOU)
+                logger.info(f"=> new best IoU {100 * best_iou:.2f}")
+            if result["j_index@1"] > best_jindex:
+                best_jindex = result["j_index@1"]
+                ckpt.copy_best(out_dir, ckpt.LAST, ckpt.BEST_J)
+                logger.info(f"=> new best J@1 {100 * best_jindex:.2f}")
+        else:
+            ckpt.save_checkpoint(out_dir, model, optimizer, step, epoch + 1, best_iou,
+                                 best_jindex)
+    logger.info("* Training finished *")
+
+
+if __name__ == "__main__":
+    main()

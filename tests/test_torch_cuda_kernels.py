@@ -1,4 +1,5 @@
-"""The port's CUDA kernels K1-K4 against their plain PyTorch twins, on a card.
+"""The port's CUDA kernels K1-K4 and K1b-K4b against their plain PyTorch
+twins, on a card.
 
 Marked ``cuda``: they skip where ``torch.cuda.is_available()`` is false (the
 kernels have no CPU mode).  This file imports neither jax nor crog_tpu, so
@@ -10,6 +11,13 @@ Tolerances: kernel and twin are both bf16 with the same cast points, so
 they differ only where a reordered f32 sum flips one bf16 rounding of an
 intermediate: 3e-2 on attention outputs of magnitude ~1.5, 0.125 (four bf16
 steps at magnitude 4-8) on the blocks' and FFN's outputs of magnitude ~6.
+The forwards with dropout draw the same counter-based mask in kernel and
+twin and are held alike.  Backward outputs are held to 2^-6 of each
+gradient's largest magnitude (four bf16 steps: a flipped rounding of an
+intermediate such as P, dS or dh feeds many outputs).  K1b rounds only its
+outputs, as its twin does, so it is held to one bf16 step (2^-8 of the
+largest magnitude) with at most 1% of the elements differing at all, as in
+chip_smoke.py.
 """
 
 import pytest
@@ -82,3 +90,90 @@ def test_cuda_ffn_kernel_matches_twin(card):
     ref = FF.ffn_plain(*args)
     torch.cuda.synchronize()
     assert (got.float() - ref.float()).abs().max().item() <= 0.125
+
+
+BWD_REL = 2**-6
+K1B_REL, K1B_SHARE = 2**-8, 0.01
+
+
+def _close_all(got, ref, rel=BWD_REL, share=1.0):
+    for i, (g, r) in enumerate(zip(got, ref)):
+        tol = rel * r.float().abs().max().item()
+        err = (g.float() - r.float()).abs()
+        assert torch.isfinite(g.float()).all(), i
+        assert err.max().item() <= tol, i
+        assert (err > 0).float().mean().item() <= share, i
+
+
+@pytest.mark.cuda
+def test_cuda_attention_backward_matches_twin(card):
+    q, k, v, do = (_bf16(s, 2, 169, 512) for s in (1, 2, 3, 4))
+    o = A.fused_attention(q, k, v, 8)
+    got = A.attention_bwd(q, k, v, o, do, 8)
+    ref = A.attention_bwd_plain(q, k, v, o, do, 8)
+    torch.cuda.synchronize()
+    _close_all(got, ref, K1B_REL, K1B_SHARE)
+    with pytest.raises(ValueError, match="head dim 64"):
+        A.attention_bwd(*(t[..., :96].contiguous() for t in (q, k, v, o, do)), 1)
+
+
+@pytest.mark.cuda
+def test_cuda_attention_backward_tolerance_sees_bf16_casts(card):
+    """At K1b's main-path shapes (B=24, 169 tokens, 32 heads), the same
+    kernels with the decoder blocks' cast points (P and dS rounded to bf16)
+    match their own twin but fail K1b's tolerance against K1b's twin: a K1b
+    that lost an f32 cast point would not pass."""
+    q, k, v, do = (_bf16(s, 24, 169, 2048) for s in (1, 2, 3, 4))
+    o = A.fused_attention(q, k, v, 32)
+    ref = A.attention_bwd_plain(q, k, v, o, do, 32)
+    _close_all(A.attention_bwd(q, k, v, o, do, 32), ref, K1B_REL, K1B_SHARE)
+    lost = A.attention_bwd(q, k, v, o, do, 32, bf16_casts=True)
+    _close_all(lost, A.mha_bwd_plain(q, k, v, do, 32))
+    shares = [((g.float() - r.float()).abs() > 0).float().mean().item()
+              for g, r in zip(lost, ref)]
+    torch.cuda.synchronize()
+    assert min(shares) > K1B_SHARE, shares
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_cuda_block_kernels_train_mode_match_twins(card, rate):
+    """Forward with dropout and backward, self and cross block (a padded
+    key mask), L=676 as on the main path."""
+    x, txt = _bf16(1, 2, 676, 512), _bf16(2, 2, 17, 512)
+    pos, tpos = _bf16(3, 676, 512, std=0.5), _bf16(4, 17, 512, std=0.5)
+    dy = _bf16(5, 2, 676, 512)
+    pad = torch.arange(17, device=card)[None].expand(2, 17) >= torch.tensor(
+        [[9], [17]], device=card)
+    w = _block_args(10)
+    y, saved = DB.self_block_fwd(x, pos, *w, 8, 7, rate, save=True)
+    assert (y.float() - DB.self_block_plain(x, pos, *w, 8, 7, rate).float()).abs().max() <= 0.125
+    _close_all(DB.self_block_bwd(x, saved, dy, 8, 7, rate),
+               DB.self_block_bwd_plain(x, pos, *w, dy, 8, 7, rate))
+    y, saved = DB.cross_block_fwd(x, txt, pos, tpos, pad, *w, 8, 8, rate, save=True)
+    ref = DB.cross_block_plain(x, txt, pos, tpos, pad, *w, 8, 8, rate)
+    assert (y.float() - ref.float()).abs().max() <= 0.125
+    _close_all(DB.cross_block_bwd(x, saved, dy, 8, 8, rate),
+               DB.cross_block_bwd_plain(x, txt, pos, tpos, pad, *w, dy, 8, 8, rate))
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError, match="512"):
+        DB.self_block_bwd(x[..., :256].contiguous(), saved, dy, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_cuda_ffn_train_mode_matches_twin(card, rate):
+    x, dy = _bf16(1, 1000, 512), _bf16(8, 1000, 512)
+    f32 = lambda s, n, std: (torch.randn(n, generator=torch.Generator()
+                                         .manual_seed(s)) * std).to(card)
+    w1, b1 = _bf16(2, 2048, 512, std=512**-0.5), f32(3, 2048, 0.05)
+    g, be = 1 + f32(4, 2048, 0.1), f32(5, 2048, 0.05)
+    w2, b2 = _bf16(6, 512, 2048, std=2048**-0.5), f32(7, 512, 0.05)
+    y = FF.ffn_fwd(x, w1, b1, g, be, w2, b2, 11, rate)
+    assert (y.float() - FF.ffn_plain(x, w1, b1, g, be, w2, b2, 11, rate).float()
+            ).abs().max() <= 0.125
+    _close_all(FF.ffn_bwd(x, w1, b1, g, be, w2, dy, 11, rate),
+               FF.ffn_bwd_plain(x, w1, b1, g, be, w2, dy, 11, rate))
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError, match="D=512, F=2048"):
+        FF.ffn_bwd(x, w1[:1024], b1[:1024], g[:1024], be[:1024], w2[:, :1024], dy)
