@@ -6,8 +6,8 @@
 Phases, in order; any failure propagates and the exit code is not 0:
   1. the card's name and power limit (nvidia-smi);
   2. build the hand-written kernels from crog_tpu_torch/csrc (nvcc, sm_90a,
-     one process per source, all at once): K1-K4 and the backward kernels
-     K1b-K4b;
+     one process per source, all at once): K1-K4, the backward kernels
+     K1b-K4b, and SSG's lincomb loss kernels K5/K5b;
   3. hold each kernel against its plain PyTorch twin on the card, in bf16,
      at the shapes of CROG at batch 24 and 416^2 -- the forwards in eval,
      the K2-K4 forwards again with dropout on (the twins draw the same
@@ -15,7 +15,9 @@ Phases, in order; any failure propagates and the exit code is not 0:
      on -- and time kernel and twin (and, for K1 and K1b, PyTorch's
      scaled_dot_product_attention and its backward as a yardstick only);
      K1b's kernels with the decoder blocks' bf16 cast points must fail
-     K1b's tolerance;
+     K1b's tolerance; K5 and K5b in f32 at SSG's shapes at batch 8 and
+     544^2, for both of a train step's launches (instance masks: one task,
+     BCE; grasp maps: four tasks, smooth-L1);
   4. the eval main path: full-width CROG (config/OCID-VLG/
      crog_synthetic_r50.yaml: RN50 (3,4,6,3), 416^2, 12-layer text tower,
      3 decoder layers, dim_ffn 2048, bf16) with seeded random weights,
@@ -33,10 +35,24 @@ Phases, in order; any failure propagates and the exit code is not 0:
   7. one train step's loss and gradients at batch 2, dropout 0, BatchNorm on
      running statistics, on the card (kernels, bf16) and on the CPU (plain
      PyTorch, fp32);
-  8. forward latency at batch 1 and eval samples/s at batch 24.
+  8. forward latency at batch 1 and eval samples/s at batch 24;
+  9. SSG training at full width (config/OCID-Grasp/ssg_r50.yaml: RN50
+     (3,4,6,3), RGB-D, 544^2, 32 classes, 32 prototypes, bf16) with seeded
+     random weights through ``train_one_epoch`` for 4 steps at batch 8 (2
+     prepared synthetic batches, reused; the config's batch 32 would carry
+     4.7 GB of f32 legacy targets per step), with the launch counters
+     checked (2 K5 and 2 K5b per step, nothing else); the loss and its 8
+     terms are finite and every trainable parameter and BatchNorm statistic
+     moved; then SSG train samples/s over 4 more steps;
+ 10. SSG eval: ``validate`` (batched post-processing, J@1/J@5) over 16
+     synthetic val samples at the config's batch_size_val 2, no K5 launch;
+ 11. one SSG train step at batch 2 and 256^2 (to bound the CPU's time),
+     BatchNorm on running statistics, the same positive priorities, on the
+     card (kernels, bf16) and on the CPU (plain PyTorch, fp32): the 8 loss
+     terms and each group's gradients must agree.
 
 Precision: fp32 products on the card run in full fp32 (TF32 off for matmul
-and cuDNN) wherever fp32 is compared; the model computes in bf16.
+and cuDNN) wherever fp32 is compared; the models compute in bf16.
 
 The second-to-last lines are a JSON ``kernels`` record and the nvidia-smi
 line; the last line is ``{"ok": true, "device": {...}}``.
@@ -56,8 +72,14 @@ SAMPLES = 48
 CONFIG = "config/OCID-VLG/crog_synthetic_r50.yaml"
 TRAIN_STEPS = 4
 RATE = 0.1  # the config's decoder dropout
-# H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
+SSG_CONFIG = "config/OCID-Grasp/ssg_r50.yaml"
+SSG_BATCH = 8
+SSG_VAL_SAMPLES = 16
+SSG_E2E_SIZE = 256
+# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): bf16 tensor cores, f32
+# on the CUDA cores, device memory
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 FWD = ("attention", "decoder_self_block", "decoder_cross_block", "ffn")
 BWD = tuple(n + "_bwd" for n in FWD)
@@ -66,6 +88,14 @@ BWD = tuple(n + "_bwd" for n in FWD)
 PER_FORWARD = {"attention": 1, "decoder_self_block": 3, "decoder_cross_block": 3,
                "ffn": 3}
 PER_STEP = {**PER_FORWARD, **{n + "_bwd": k for n, k in PER_FORWARD.items()}}
+# one SSG train step: the instance-mask and the grasp-map loss, forward and
+# backward
+SSG_PER_STEP = {"lincomb": 2, "lincomb_bwd": 2}
+# K5/K5b vs twin, relative to each output's largest magnitude: both are f32
+# with the same products and differ only in the order of the sums over
+# 18496 pixels (sums, dcoef) and up to 400 columns (dprotos); a wrong crop,
+# GT row or derivative is off by order 1
+LINCOMB_REL_TOL = 1e-4
 # forward kernel vs twin, both bf16 on the same inputs: the twin rounds at
 # the same points, so they differ where a reordered f32 sum flips a bf16
 # rounding of an intermediate; outputs reach |y| ~ 6, where one bf16 step
@@ -123,10 +153,11 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(flops: float, nbytes: float):
-    """(ms, limiter): the least time for ``flops`` bf16 tensor-core
-    operations and ``nbytes`` of device-memory traffic on an H100."""
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
+    """(ms, limiter): the least time for ``flops`` operations at ``peak``
+    (the bf16 tensor-core rate unless the operands are f32) and ``nbytes``
+    of device-memory traffic on an H100."""
+    t_ops = flops / peak * 1e3
     t_mem = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
 
@@ -348,6 +379,9 @@ SOURCES = {
     "decoder_cross_block_bwd": ("crog_tpu_torch/csrc/decoder_blocks_bwd.cu",
                                 "crog_tpu/ops/pallas_decoder.py:550"),
     "ffn_bwd": ("crog_tpu_torch/csrc/ffn_bwd.cu", "crog_tpu/ops/pallas_ffn.py:234"),
+    "lincomb": ("crog_tpu_torch/csrc/lincomb.cu", "crog_tpu/ops/pallas_lincomb.py:225"),
+    "lincomb_bwd": ("crog_tpu_torch/csrc/lincomb.cu",
+                    "crog_tpu/ops/pallas_lincomb.py:252"),
 }
 
 
@@ -411,6 +445,7 @@ def check_kernels(device, timed: bool = True):
             if timed:
                 _time(records[name], kern, plain, lib)
         k1b_cast_check(inp)
+        records.update(check_lincomb(device, timed))
     return records
 
 
@@ -435,16 +470,107 @@ def k1b_cast_check(inp):
         raise AssertionError("K1b's tolerance does not see bf16 cast points")
 
 
+def lincomb_cases(device, b=SSG_BATCH, ph=136, k=100, m=24):
+    """loss kind -> (kernel arguments, tasks, gradient of the sums): K5/K5b's
+    inputs at SSG's main path (batch 8, 544^2: 136^2 prototypes,
+    masks_to_train 100, max_objs 24) for the instance-mask launch (T=1,
+    binary GT, 24 rows) and the grasp launch (T=4, 96 rows; both row counts
+    are multiples of 8).  Prototypes are ReLU'd and coefficients tanh'd, as
+    the model emits them; three anchors' boxes lie off the map, so their
+    crops are empty."""
+    import torch
+
+    from crog_tpu_torch.ops import lincomb as LC
+
+    g = torch.Generator().manual_seed(SEED + 5)
+    protos = torch.relu(torch.randn(b, ph, ph, 32, generator=g))
+    lo = torch.rand(b, k, 2, generator=g) * 0.7
+    box = torch.cat([lo, lo + 0.05 + 0.25 * torch.rand(b, k, 2, generator=g)], -1)
+    box[:, :3] = torch.tensor([-0.5, -0.5, -0.4, -0.4])
+    sel_gt = torch.randint(0, m, (b, k), generator=g)
+    cases = {}
+    for kind, t in (("bce", 1), ("smooth_l1", 4)):
+        coef = torch.tanh(torch.randn(b, k, t, 32, generator=g))
+        ds = torch.rand(b, t * m, ph * ph, generator=g)
+        if t == 1:
+            ds = (ds > 0.5).float()
+        args = LC.kernel_args(*(x.to(device) for x in (protos, coef, ds, sel_gt, box)), t)
+        cases[kind] = (args, t, torch.randn(b, k * t, generator=g).to(device))
+    return cases
+
+
+def lincomb_work(args, t):
+    """(flops, fwd bytes, bwd bytes) of one K5 / K5b call: the products
+    2·B·KT·HW·C (K5b three times that: the prediction, dcoef and dprotos;
+    the elementwise work is not counted), and each input read once -- of
+    the GT, only the rows the columns name -- and each output written
+    once."""
+    protos, coef, ds, idx, boxes = args
+    b, kt, c = coef.shape
+    hw = ds.shape[2]
+    rows = sum(int(idx[i].unique().numel()) for i in range(b))
+    read = nbytes(protos, coef, idx, boxes) + rows * hw * 4
+    return (2.0 * b * kt * hw * c, read + b * kt * 4,
+            read + b * kt * 4 + nbytes(coef, protos))
+
+
+def check_lincomb(device, timed: bool = True):
+    """K5 and K5b against their twins at the main path's shapes, both loss
+    kinds; a record's times, bound and work are per SSG train step, i.e.
+    the mask launch plus the grasp launch."""
+    from crog_tpu_torch.ops import lincomb as LC
+
+    cases = lincomb_cases(device)
+    records = {}
+    for name in ("lincomb", "lincomb_bwd"):
+        rec = _record(name, 0.0, 0.0, "operations")
+        if timed:
+            rec.update(ms=0.0, plain_ms=0.0)
+        for kind, (args, t, gsum) in cases.items():
+            flops, fwd_b, bwd_b = lincomb_work(args, t)
+            if name == "lincomb":
+                kern = lambda: LC.lincomb_fwd(*args, t, loss_kind=kind)
+                plain = lambda: LC.lincomb_task_sums_plain(*args, t, loss_kind=kind)
+                got, ref = [kern()], [plain()]
+                outs, work = ("sums",), bound(flops, fwd_b, PEAK_F32_FLOPS)
+            else:
+                kern = lambda: LC.lincomb_bwd(*args, gsum, t, loss_kind=kind)
+                plain = lambda: LC.lincomb_bwd_plain(*args, gsum, t, loss_kind=kind)
+                got, ref = kern(), plain()
+                outs, work = ("dcoef", "dprotos"), bound(3 * flops, bwd_b, PEAK_F32_FLOPS)
+            for o, gt_, r in zip(outs, got, ref):
+                tol = LINCOMB_REL_TOL * float(r.abs().max())
+                err = _compare(f"{name} ({kind}, T={t}).{o}", gt_, r, tol)
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            rec["bound_ms"] += work[0]
+            if work[1] == "bytes":
+                rec["bound_by"] = "bytes"
+            if timed:
+                ms, plain_ms = cuda_ms(kern), cuda_ms(plain, reps=5)
+                rec["ms"] += ms
+                rec["plain_ms"] += plain_ms
+                print(f"[kernels] {name} ({kind}, T={t}): {ms:.4f} ms (plain "
+                      f"{plain_ms:.4f}, bound {work[0]:.4f} by {work[1]})", flush=True)
+        if timed:
+            print(f"[kernels] {name} per SSG train step: {rec['ms']:.4f} ms (plain "
+                  f"{rec['plain_ms']:.4f}, library none, bound {rec['bound_ms']:.4f} by "
+                  f"{rec['bound_by']})", flush=True)
+        records[name] = rec
+    return records
+
+
 def launch_counts():
     from crog_tpu_torch.ops import attention as A
     from crog_tpu_torch.ops import decoder_blocks as DB
     from crog_tpu_torch.ops import ffn as FF
+    from crog_tpu_torch.ops import lincomb as LC
 
     return {"attention": A.fused_attention, "decoder_self_block": DB.self_block_fwd,
             "decoder_cross_block": DB.cross_block_fwd, "ffn": FF.ffn_fwd,
             "attention_bwd": A.attention_bwd,
             "decoder_self_block_bwd": DB.self_block_bwd,
-            "decoder_cross_block_bwd": DB.cross_block_bwd, "ffn_bwd": FF.ffn_bwd}
+            "decoder_cross_block_bwd": DB.cross_block_bwd, "ffn_bwd": FF.ffn_bwd,
+            "lincomb": LC.lincomb_fwd, "lincomb_bwd": LC.lincomb_bwd}
 
 
 def _cfg(samples=SAMPLES, batch=BATCH, opts=()):
@@ -501,11 +627,40 @@ def main_path(device, cfg, model, batches):
     for key in ("iou", "j_index@1", "j_index@5"):
         if not math.isfinite(result[key]):
             raise AssertionError(f"{key} is not finite: {result[key]}")
-    for n in launches:
-        want = PER_FORWARD.get(n, 0) * forwards
-        if launches[n] != want:
-            raise AssertionError(f"{n}: {launches[n]} launches, expected {want}")
+    check_launches(launches, PER_FORWARD, forwards)
     return eval_step, launches
+
+
+def check_launches(launches, per_call, calls: int):
+    """Each kernel launched ``per_call`` times per forward or step (0 where
+    it is not named) over ``calls`` of them."""
+    for n, got in launches.items():
+        want = per_call.get(n, 0) * calls
+        if got != want:
+            raise AssertionError(f"{n}: {got} launches, expected {want}")
+
+
+def snapshot(model):
+    """Copies of the trainable parameters and the BatchNorm statistics."""
+    params = {n: p.detach().clone() for n, p in model.named_parameters() if p.requires_grad}
+    stats = {n: b.clone() for n, b in model.named_buffers() if "running" in n}
+    return params, stats
+
+
+def check_moved(model, params0, stats0, tag: str):
+    """Every trainable parameter and BatchNorm statistic differs from its
+    ``snapshot``."""
+    import torch
+
+    named = dict(model.named_parameters())
+    frozen = [n for n, p in params0.items() if torch.equal(p, named[n].detach())]
+    buffers = dict(model.named_buffers())
+    still = [n for n, b in stats0.items() if torch.equal(b, buffers[n])]
+    print(f"[{tag}] {len(params0) - len(frozen)}/{len(params0)} trainable parameters "
+          f"and {len(stats0) - len(still)}/{len(stats0)} BatchNorm statistics moved",
+          flush=True)
+    if frozen or still:
+        raise AssertionError(f"did not move: {frozen[:5]} {still[:5]}")
 
 
 def train_path(device, smi: str):
@@ -532,8 +687,7 @@ def train_path(device, smi: str):
                                 cfg.lr_decay, TRAIN_STEPS, cfg.weight_decay)
     step = make_train_step(model, opt, sched, cfg.use_grasp_masks, cfg.max_norm,
                            set_random_seed(SEED), device)
-    params0 = {n: p.detach().clone() for n, p in model.named_parameters() if p.requires_grad}
-    stats0 = {n: b.clone() for n, b in model.named_buffers() if "running" in n}
+    params0, stats0 = snapshot(model)
     wrappers = launch_counts()
     _reset(wrappers)
     metrics = train_one_epoch(batches, step, 1, cfg, TRAIN_STEPS)
@@ -544,19 +698,8 @@ def train_path(device, smi: str):
           f"{float(metrics['iou']):.4g}; launches {launches}", flush=True)
     if not math.isfinite(loss):
         raise AssertionError(f"train loss is not finite: {loss}")
-    for n in launches:
-        if launches[n] != PER_STEP[n] * TRAIN_STEPS:
-            raise AssertionError(
-                f"{n}: {launches[n]} launches, expected {PER_STEP[n] * TRAIN_STEPS}")
-    named = dict(model.named_parameters())
-    frozen = [n for n, p in params0.items() if torch.equal(p, named[n].detach())]
-    buffers = dict(model.named_buffers())
-    still = [n for n, b in stats0.items() if torch.equal(b, buffers[n])]
-    print(f"[train] {len(params0) - len(frozen)}/{len(params0)} trainable parameters "
-          f"and {len(stats0) - len(still)}/{len(stats0)} BatchNorm statistics moved",
-          flush=True)
-    if frozen or still:
-        raise AssertionError(f"did not move: {frozen[:5]} {still[:5]}")
+    check_launches(launches, PER_STEP, TRAIN_STEPS)
+    check_moved(model, params0, stats0, "train")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     train_one_epoch(batches, step, 1, cfg, TRAIN_STEPS)
@@ -694,6 +837,188 @@ def timings(model, eval_step, batch, smi: str):
     return fwd_ms, n / dt
 
 
+def _ssg_cfg(opts=()):
+    from crog_tpu_torch.config import load_cfg_from_cfg_file, merge_cfg_from_list
+
+    return merge_cfg_from_list(load_cfg_from_cfg_file(SSG_CONFIG), [
+        "dataset", "synthetic", "wire_format", "legacy", *opts])
+
+
+def _ssg_model(cfg, device, dtype=None):
+    import torch
+
+    from crog_tpu_torch.models.ssg import build_ssg, random_init_
+
+    model = build_ssg(cfg, dtype)
+    random_init_(model, torch.Generator().manual_seed(SEED))
+    return model.to(device)
+
+
+def _ssg_batches(cfg, split: str, samples: int, batch: int, shuffle: bool):
+    from functools import partial
+
+    from crog_tpu_torch.data.loader import SequentialLoader, ShuffleLoader
+    from crog_tpu_torch.data.ocid_grasp import collate_ssg
+    from crog_tpu_torch.data.synthetic_ssg import SyntheticOCIDGrasp
+
+    ds = SyntheticOCIDGrasp(samples, split, cfg.img_size, cfg.num_classes)
+    collate = partial(collate_ssg, max_objs=cfg.max_objs)
+    t0 = time.perf_counter()
+    loader = (ShuffleLoader(ds, batch, seed=SEED, collate_fn=collate) if shuffle
+              else SequentialLoader(ds, batch, pad_last_batch=False, collate_fn=collate))
+    batches = list(loader)
+    print(f"[ssg] {samples} synthetic {split} samples at {cfg.img_size}^2 prepared in "
+          f"{time.perf_counter() - t0:.1f} s (host)", flush=True)
+    return batches
+
+
+def ssg_train_path(device, smi: str):
+    """Phase 9: SSG's train_one_epoch at full width, batch 8; returns
+    (launches, samples/s, model, cfg)."""
+    import torch
+
+    from crog_tpu_torch.engine.optim import make_optimizer
+    from crog_tpu_torch.engine.ssg_engine import make_ssg_train_step, train_one_epoch
+    from crog_tpu_torch.train_ssg import loss_config
+    from crog_tpu_torch.utils.seed import set_random_seed
+
+    cfg = _ssg_cfg(("batch_size", str(SSG_BATCH), "print_freq", "2", "epochs", "1"))
+    prepared = _ssg_batches(cfg, cfg.train_split, 2 * SSG_BATCH, SSG_BATCH, True)
+    batches = [prepared[i % len(prepared)] for i in range(TRAIN_STEPS)]
+    model = _ssg_model(cfg, device).train()
+    opt, sched = make_optimizer(model, cfg.base_lr, 1.0, cfg.milestones, cfg.lr_decay,
+                                TRAIN_STEPS, cfg.weight_decay)
+    step = make_ssg_train_step(model, opt, sched, model.anchors(), loss_config(cfg),
+                               set_random_seed(SEED), cfg.max_norm, device)
+    params0, stats0 = snapshot(model)
+    wrappers = launch_counts()
+    _reset(wrappers)
+    metrics = train_one_epoch(batches, step, 1, cfg, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    launches = {n: w.launches for n, w in wrappers.items()}
+    terms = {k: float(v) for k, v in metrics.items()}
+    print(f"[ssg-train] {TRAIN_STEPS} steps at batch {SSG_BATCH}, {cfg.img_size}^2: last "
+          + ", ".join(f"{k} {v:.6g}" for k, v in terms.items())
+          + f"; launches {launches}", flush=True)
+    if len(terms) != 9 or not all(math.isfinite(v) for v in terms.values()):
+        raise AssertionError(f"SSG loss terms not all finite: {terms}")
+    check_launches(launches, SSG_PER_STEP, TRAIN_STEPS)
+    check_moved(model, params0, stats0, "ssg-train")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_one_epoch(batches, step, 1, cfg, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / TRAIN_STEPS
+    print(f"[time] SSG train step batch {SSG_BATCH}: {dt * 1e3:.2f} ms = "
+          f"{SSG_BATCH / dt:.2f} samples/s (prepared host batches in) on {smi}", flush=True)
+    return launches, SSG_BATCH / dt, model, cfg
+
+
+def ssg_eval_path(device, model, cfg, smi: str):
+    """Phase 10: ``validate`` through the batched post-processing; returns
+    eval samples/s."""
+    import torch
+
+    from crog_tpu_torch.engine.ssg_engine import make_ssg_eval_fwd, validate
+    from crog_tpu_torch.train_ssg import post_processing
+
+    bval = int(cfg.batch_size_val)
+    batches = _ssg_batches(cfg, cfg.val_split, SSG_VAL_SAMPLES, bval, False)
+    post = post_processing(cfg, model.anchors(), batched=bval > 1)
+    fwd = make_ssg_eval_fwd(model, device)
+    validate(batches[:1], post, fwd, 1, cfg)  # warm-up
+    wrappers = launch_counts()
+    _reset(wrappers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    j1, j5 = validate(batches, post, fwd, 1, cfg)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {n: w.launches for n, w in wrappers.items()}
+    print(f"[ssg-eval] J@1={j1:.6f} J@5={j5:.6f} over {SSG_VAL_SAMPLES} samples at batch "
+          f"{bval} (random weights: near 0 expected); launches {launches}", flush=True)
+    print(f"[time] SSG eval (validate, batch {bval}): {SSG_VAL_SAMPLES / dt:.2f} samples/s "
+          f"(host arrays in, Jacquard check on the host) on {smi}", flush=True)
+    if not (math.isfinite(j1) and math.isfinite(j5)):
+        raise AssertionError(f"SSG J@1/J@5 not finite: {j1}, {j5}")
+    check_launches(launches, {}, 0)
+    return SSG_VAL_SAMPLES / dt
+
+
+# SSG card (bf16, kernels) vs CPU (fp32, plain) on one train step at batch
+# 2, BatchNorm on running statistics (for the reason given above CROG's
+# TRAIN_LOSS_TOL), the same positive priorities: bounds on each loss term's
+# error and on each group's gradient relative L2.  bf16 keeps ~3
+# significant digits through ~60 layers forward and back, and the OHEM
+# ranking may swap a few marginal negatives between bf16 and fp32 logits
+# (a swapped negative's cross-entropy is its ranking score, near-equal to
+# the one it replaced).  A small smooth-L1 term is a sum of small
+# differences pred - GT, whose bf16 error does not shrink with them, so
+# each term is held to SSG_LOSS_TOL of itself plus SSG_LOSS_FLOOR of the
+# total loss (on the CPU at 128^2, bf16 against fp32, loss_cos 0.152 moved
+# by 0.007, 4.6%, while the total moved 0.1%).  A wrong kernel is off by
+# order 1.
+SSG_LOSS_TOL = 0.05
+SSG_LOSS_FLOOR = 1e-3
+SSG_GRAD_TOL = 0.25
+SSG_GROUPS = ("backbone", "fpn", "proto_net", "prediction_layers", "semantic_seg_conv")
+
+
+def ssg_train_step_gap(device):
+    """Phase 11: ({term: rel error}, {group: grad rel-L2}) of one SSG train
+    step at batch 2 and 256^2, card vs CPU."""
+    import torch
+
+    from crog_tpu_torch.data.ocid_grasp import collate_ssg
+    from crog_tpu_torch.data.synthetic_ssg import SyntheticOCIDGrasp
+    from crog_tpu_torch.engine.ssg_engine import DENSE_KEYS
+    from crog_tpu_torch.models.clip import BatchNorm
+    from crog_tpu_torch.models.ssg_loss import ssg_losses
+    from crog_tpu_torch.train_ssg import loss_config
+
+    cfg = _ssg_cfg(("img_size", str(SSG_E2E_SIZE)))
+    ds = SyntheticOCIDGrasp(2, cfg.train_split, cfg.img_size, cfg.num_classes)
+    batch = collate_ssg([ds[0], ds[1]], cfg.max_objs)
+    cpu = torch.device("cpu")
+    ref = _ssg_model(cfg, cpu, torch.float32)
+    anchors = torch.as_tensor(ref.anchors())
+    priority = torch.rand(2, len(anchors), generator=torch.Generator().manual_seed(SEED))
+    out = []
+    for dev, model in ((device, _ssg_model(cfg, device)), (cpu, ref)):
+        model.train()
+        for mod in model.modules():
+            if isinstance(mod, BatchNorm):
+                mod.eval()
+        dense = {k: torch.as_tensor(batch[k]).to(dev) for k in DENSE_KEYS}
+        loss, terms = ssg_losses(model(dense["img"]), dense, anchors.to(dev),
+                                 priority=priority, **loss_config(cfg))
+        loss.backward()
+        terms = {k: float(v.detach()) for k, v in {"loss": loss, **terms}.items()}
+        out.append((terms, {n: p.grad.float().cpu() for n, p in model.named_parameters()
+                            if p.grad is not None}))
+    (tc, gc), (tp, gp) = out
+    if set(gc) != set(gp):
+        raise AssertionError("the two runs give gradients for different parameters")
+    rel = {k: abs(tc[k] - tp[k]) / max(abs(tp[k]), 1e-12) for k in tp}
+    bad = [k for k in tp
+           if abs(tc[k] - tp[k]) > SSG_LOSS_TOL * abs(tp[k]) + SSG_LOSS_FLOOR * abs(tp["loss"])]
+    groups = {}
+    for g in SSG_GROUPS:
+        names = [n for n in gp if n.split(".")[0] == g]
+        num = sum(float((gc[n] - gp[n]).pow(2).sum()) for n in names)
+        den = sum(float(gp[n].pow(2).sum()) for n in names)
+        groups[g] = (num / max(den, 1e-30)) ** 0.5
+    print("[ssg-e2e] card vs cpu fp32: " + ", ".join(
+        f"{k} {tc[k]:.6g}/{tp[k]:.6g} (rel {rel[k]:.3g})" for k in tp), flush=True)
+    print("[ssg-e2e] grad rel_l2 " + ", ".join(f"{g} {r:.4g}" for g, r in groups.items())
+          + f" (tols: loss terms {SSG_LOSS_TOL} + {SSG_LOSS_FLOOR} of the total, grads "
+          f"{SSG_GRAD_TOL})", flush=True)
+    if bad or max(groups.values()) > SSG_GRAD_TOL:
+        raise AssertionError(f"SSG card vs CPU train step: terms {bad}, grad "
+                             f"{max(groups.values()):.4g}")
+    return rel, groups
+
+
 def main() -> int:
     import torch
 
@@ -727,11 +1052,22 @@ def main() -> int:
     del model, eval_step
     torch.cuda.empty_cache()
     launches, train_rate, train_batch = train_path(device, smi)
-    for n, rec in records.items():
-        rec["launches"] = launches[n]
     e2e_train_step(train_batch, device)
-    print(f"[done] {time.perf_counter() - t_start:.1f} s; train {train_rate:.2f} and "
-          f"eval {eval_rate:.2f} samples/s at batch {BATCH}", flush=True)
+    del train_batch
+    torch.cuda.empty_cache()
+    ssg_launches, ssg_train_rate, ssg_model, ssg_cfg = ssg_train_path(device, smi)
+    ssg_eval_rate = ssg_eval_path(device, ssg_model, ssg_cfg, smi)
+    del ssg_model
+    torch.cuda.empty_cache()
+    ssg_train_step_gap(device)
+    # each kernel's launches on the main path that runs it: CROG training
+    # for K1-K4b, SSG training for K5/K5b
+    for n, rec in records.items():
+        rec["launches"] = ssg_launches[n] if n in SSG_PER_STEP else launches[n]
+    print(f"[done] {time.perf_counter() - t_start:.1f} s; CROG train {train_rate:.2f} "
+          f"and eval {eval_rate:.2f} samples/s at batch {BATCH}; SSG train "
+          f"{ssg_train_rate:.2f} samples/s at batch {SSG_BATCH}, eval {ssg_eval_rate:.2f} "
+          f"samples/s", flush=True)
 
     print(json.dumps({"kernels": list(records.values())}))
     print(smi)

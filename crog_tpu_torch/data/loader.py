@@ -7,7 +7,8 @@ samples, so every batch has one shape and consumers slice outputs to
 ``n_valid``.  ``ShuffleLoader`` draws batches through ``EpochSampler``
 (crog_tpu/data/loader.py:39): a ``np.random.RandomState(seed + epoch)``
 shuffle, reseeded by ``set_epoch``, on one host.  Both load samples on the
-caller's thread.
+caller's thread.  Both collate with ``collate_crog`` unless given another
+``collate_fn`` (SSG's ``data/ocid_grasp.py:collate_ssg``).
 """
 
 from __future__ import annotations
@@ -84,9 +85,10 @@ class ShuffleLoader:
     """Train batches of ``dataset`` in ``EpochSampler`` order (drop_last)."""
 
     def __init__(self, dataset, batch_size: int, seed: int = 0, shuffle: bool = True,
-                 drop_last: bool = True):
+                 drop_last: bool = True, collate_fn=collate_crog):
         self.dataset = dataset
         self.sampler = EpochSampler(len(dataset), shuffle, seed, drop_last, batch_size)
+        self.collate_fn = collate_fn
 
     def set_epoch(self, epoch: int):
         self.sampler.set_epoch(epoch)
@@ -96,17 +98,19 @@ class ShuffleLoader:
 
     def __iter__(self) -> Iterator[Dict]:
         for idx in self.sampler.batches():
-            yield collate_crog([self.dataset[i] for i in idx])
+            yield self.collate_fn([self.dataset[i] for i in idx])
 
 
 class SequentialLoader:
     """Batches ``dataset`` in order, one sample at a time on the caller's
     thread."""
 
-    def __init__(self, dataset, batch_size: int, pad_last_batch: bool = True):
+    def __init__(self, dataset, batch_size: int, pad_last_batch: bool = True,
+                 collate_fn=collate_crog):
         self.dataset = dataset
         self.batch_size = batch_size
         self.pad_last_batch = pad_last_batch
+        self.collate_fn = collate_fn
 
     def __len__(self):
         return -(-len(self.dataset) // self.batch_size)
@@ -115,7 +119,7 @@ class SequentialLoader:
         n = len(self.dataset)
         for start in range(0, n, self.batch_size):
             idx = range(start, min(start + self.batch_size, n))
-            batch = collate_crog([self.dataset[i] for i in idx])
+            batch = self.collate_fn([self.dataset[i] for i in idx])
             if self.pad_last_batch and len(idx) < self.batch_size:
                 batch = pad_batch(batch, self.batch_size, len(idx))
             yield batch

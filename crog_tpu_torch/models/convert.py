@@ -1,6 +1,8 @@
 """JAX package parameters -> the port's state_dict, and checkpoint loading.
 
-The inverse of crog_tpu/models/convert.py ``convert_crog_state_dict`` (384):
+``ssg_state_dict_from_flax`` is the inverse of crog_tpu/models/convert.py
+``convert_ssg_state_dict`` (523), for SSG.  For CROG, the inverse of
+crog_tpu/models/convert.py ``convert_crog_state_dict`` (384):
 the JAX package's flax ``params`` / ``batch_stats`` trees (as numpy) become
 a state_dict in the reference torch key schema (``backbone.``, ``neck.``,
 ``decoder.``, ``proj.``; packed ``in_proj_weight`` for torch
@@ -167,6 +169,49 @@ def state_dict_from_flax(params: Mapping, batch_stats: Mapping,
     b.cbr("proj.vis.3", *pj, "vis_conv2")
     b.conv("proj.vis.4", *pj, "vis_out")
     b.dense("proj.txt", *pj, "txt")
+    return b.sd
+
+
+def ssg_state_dict_from_flax(params: Mapping, batch_stats: Mapping
+                             ) -> Dict[str, np.ndarray]:
+    """The JAX package's SSG variables -> the port's state_dict (numpy), in
+    the reference key schema that crog_tpu/models/convert.py
+    ``convert_ssg_state_dict`` (523) reads."""
+    b = _Builder(params, batch_stats)
+    bb = ("backbone",)
+    b.conv("backbone.conv1", *bb, "conv1")
+    b.bn("backbone.bn1", *bb, "bn1")
+    blocks = sorted(
+        (int(m.group(1)), int(m.group(2)))
+        for k in b.p(*bb) if (m := re.fullmatch(r"layer(\d)_(\d+)", k))
+    )
+    for stage, idx in blocks:
+        src = bb + (f"layer{stage}_{idx}",)
+        dst = f"backbone.layers.{stage - 1}.{idx}"
+        for i in (1, 2, 3):
+            b.conv(f"{dst}.conv{i}", *src, f"conv{i}")
+            b.bn(f"{dst}.bn{i}", *src, f"bn{i}")
+        if "downsample_conv" in b.p(*src):
+            b.conv(f"{dst}.downsample.0", *src, "downsample_conv")
+            b.bn(f"{dst}.downsample.1", *src, "downsample_bn")
+    for j in range(3):
+        b.conv(f"fpn.lat_layers.{j}", "fpn", f"lat{j}")
+        b.conv(f"fpn.pred_layers.{j}.0", "fpn", f"pred{j}")
+    for j in range(2):
+        b.conv(f"fpn.downsample_layers.{j}.0", "fpn", f"down{j}")
+    for i, idx in enumerate((0, 2, 4)):
+        b.conv(f"proto_net.proto1.{idx}", "proto_net", f"proto1_{i}")
+    b.conv("proto_net.proto2.0", "proto_net", "proto2_0")
+    b.conv("proto_net.proto2.2", "proto_net", "proto2_1")
+    pl = "prediction_layers"
+    b.conv(f"{pl}.upfeature.0", pl, "upfeature")
+    b.conv(f"{pl}.conf_layer", pl, "conf_layer")
+    b.conv(f"{pl}.bbox_layer", pl, "bbox_layer")
+    b.conv(f"{pl}.coef_layer.0", pl, "coef_layer")
+    if "grasp_coef_layer" in b.p(pl):
+        b.conv(f"{pl}.grasp_coef_layer.0", pl, "grasp_coef_layer")
+    if "semantic_seg_conv" in params:  # present when initialized in train mode
+        b.conv("semantic_seg_conv", "semantic_seg_conv")
     return b.sd
 
 

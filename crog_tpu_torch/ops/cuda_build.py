@@ -64,6 +64,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "ffn_bwd": {
         "crog_ffn_bwd": [_P] + [_I] * 3 + _DROP + [_P],
     },
+    "lincomb": {
+        "crog_lincomb_fwd": [_P] * 7 + [_I] * 9 + [_P],
+        "crog_lincomb_bwd": [_P] * 9 + [_I] * 9 + [_P],
+    },
 }
 
 _LOCK = threading.Lock()

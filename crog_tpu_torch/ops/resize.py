@@ -96,6 +96,12 @@ def resize2d(x: torch.Tensor, out_hw, mode: str, align_corners: bool = False,
     return y.to(x.dtype)
 
 
+def resize_bilinear(x, out_hw, align_corners: bool = False):
+    """Bilinear resize in fp32 (crog_tpu/ops/resize.py:214), e.g. SSG's
+    ground-truth downsample to prototype resolution."""
+    return resize2d(x, out_hw, "linear", align_corners)
+
+
 def resize_bicubic(x, out_hw, align_corners: bool = True):
     return resize2d(x, out_hw, "cubic", align_corners)
 

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels K1-K4 and K1b-K4b against their plain PyTorch
-twins, on a card.
+"""The port's CUDA kernels K1-K4, K1b-K4b and SSG's K5/K5b against their
+plain PyTorch twins, on a card.
 
 Marked ``cuda``: they skip where ``torch.cuda.is_available()`` is false (the
 kernels have no CPU mode).  This file imports neither jax nor crog_tpu, so
@@ -17,7 +17,8 @@ gradient's largest magnitude (four bf16 steps: a flipped rounding of an
 intermediate such as P, dS or dh feeds many outputs).  K1b rounds only its
 outputs, as its twin does, so it is held to one bf16 step (2^-8 of the
 largest magnitude) with at most 1% of the elements differing at all, as in
-chip_smoke.py.
+chip_smoke.py.  K5/K5b and their twins are f32 with the same products, so
+each output is held to 1e-4 of its largest magnitude.
 """
 
 import pytest
@@ -26,6 +27,7 @@ import torch
 from crog_tpu_torch.ops import attention as A
 from crog_tpu_torch.ops import decoder_blocks as DB
 from crog_tpu_torch.ops import ffn as FF
+from crog_tpu_torch.ops import lincomb as LC
 
 @pytest.fixture
 def card():
@@ -177,3 +179,44 @@ def test_cuda_ffn_train_mode_matches_twin(card, rate):
     torch.cuda.synchronize()
     with pytest.raises(ValueError, match="D=512, F=2048"):
         FF.ffn_bwd(x, w1[:1024], b1[:1024], g[:1024], be[:1024], w2[:, :1024], dy)
+
+
+LINCOMB_REL = 1e-4  # both f32; only the order of the pixel and column sums differs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,t", [("bce", 1), ("smooth_l1", 4)])
+def test_cuda_lincomb_kernels_match_twins(card, kind, t):
+    """K5 and K5b against their twins on ragged shapes: 40x44 pixels (not a
+    multiple of the 128-pixel chunk), 37 anchors (kt not a multiple of the
+    32-column tile), T*M = 8 rows, two anchors whose boxes lie off the map
+    (empty crops); the results are the same in a second run."""
+    b, ph, pw, k, m = 2, 40, 44, 37, 8 // t
+    g = torch.Generator().manual_seed(t)
+    protos = torch.relu(torch.randn(b, ph, pw, 32, generator=g))
+    coef = torch.tanh(torch.randn(b, k, t, 32, generator=g))
+    ds = torch.rand(b, t * m, ph * pw, generator=g)
+    if kind == "bce":
+        ds = (ds > 0.5).float()
+    lo = torch.rand(b, k, 2, generator=g) * 0.7
+    box = torch.cat([lo, lo + 0.05 + 0.25 * torch.rand(b, k, 2, generator=g)], -1)
+    box[:, :2] = torch.tensor([1.2, 1.2, 1.5, 1.5])
+    sel_gt = torch.randint(0, m, (b, k), generator=g)
+    gsum = torch.randn(b, k * t, generator=g).to(card)
+    args = LC.kernel_args(*(x.to(card) for x in (protos, coef, ds, sel_gt, box)), t)
+    got = [LC.lincomb_fwd(*args, t, loss_kind=kind),
+           *LC.lincomb_bwd(*args, gsum, t, loss_kind=kind)]
+    ref = [LC.lincomb_task_sums_plain(*args, t, loss_kind=kind),
+           *LC.lincomb_bwd_plain(*args, gsum, t, loss_kind=kind)]
+    again = [LC.lincomb_fwd(*args, t, loss_kind=kind),
+             *LC.lincomb_bwd(*args, gsum, t, loss_kind=kind)]
+    torch.cuda.synchronize()
+    _close_all(got, ref, LINCOMB_REL)
+    for a, r in zip(got, again):
+        assert torch.equal(a, r)
+    assert (got[1][:, :2 * t] == 0).all()  # an empty crop takes no gradient
+    with pytest.raises(ValueError, match="int32"):
+        LC.lincomb_fwd(*args[:3], args[3].long(), args[4], t, loss_kind=kind)
+    with pytest.raises(ValueError, match="prototypes"):
+        LC.lincomb_fwd(args[0][..., :16].contiguous(), args[1][..., :16].contiguous(),
+                       *args[2:], t, loss_kind=kind)

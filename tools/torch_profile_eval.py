@@ -1,13 +1,14 @@
-"""Device-time breakdown of the PyTorch port's CROG eval forward, or of its
-train step, on one card.
+"""Device-time breakdown of the PyTorch port's CROG eval forward, of its
+train step, or of SSG's train step, on one card.
 
-    python3 tools/torch_profile_eval.py [--batch 24] [--steps 3] [--train]
+    python3 tools/torch_profile_eval.py [--batch 24] [--steps 3] [--train | --ssg]
 
 Builds full-width CROG (config/OCID-VLG/crog_synthetic_r50.yaml, bf16,
 seeded random weights, as chip_smoke.py does), warms up, then traces
 ``--steps`` forwards (with ``--train``: train steps -- forward, backward,
-Adam -- on one prepared synthetic train batch, dropout on) with
-torch.profiler and prints: device time by kernel (top 25), device time by
+Adam -- on one prepared synthetic train batch, dropout on; with ``--ssg``:
+full-width SSG train steps (config/OCID-Grasp/ssg_r50.yaml, 544^2) on one
+prepared synthetic batch, AdamW) with torch.profiler and prints: device time by kernel (top 25), device time by
 group (the port's hand-written kernels, cuDNN convolutions, cuBLAS GEMMs,
 pooling, casts and copies, reductions, other elementwise), the device busy
 share of the traced wall time, and one JSON line with the group totals per
@@ -38,6 +39,8 @@ GROUPS = (
     ("K2/K3 block: gemm_bias", ("gemm_bias_kernel",)),
     ("K2/K3 block: outproj_ln_residual", ("outproj_ln_residual_kernel",)),
     ("K4 ffn", ("ffn_fwd_kernel",)),
+    ("K5/K5b lincomb", ("lincomb_", "sum_splits_kernel")),
+    ("host-to-device copies", ("memcpy htod",)),
     ("pooling", ("avg_pool", "max_pool")),
     ("dtype casts and layout copies", ("copy_kernel",)),
     ("reductions", ("reduce_kernel",)),
@@ -66,6 +69,7 @@ def main() -> int:
     p.add_argument("--batch", type=int, default=24)
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--train", action="store_true")
+    p.add_argument("--ssg", action="store_true")
     a = p.parse_args()
     if not torch.cuda.is_available():
         print("torch_profile_eval: no CUDA device", file=sys.stderr)
@@ -73,14 +77,16 @@ def main() -> int:
     set_exact_fp32_matmul()
     dev = torch.device("cuda", 0)
     smi = cs.smi_line()
-    if a.train:
+    if a.ssg:
+        run = ssg_train_step(cs, dev, a.batch)
+    elif a.train:
         run = train_step(cs, dev, a.batch)
     else:
         cfg, model, batches = cs.build_model_and_data(dev, samples=a.batch, batch=a.batch)
         img = torch.as_tensor(batches[0]["img"]).to(dev)
         word = torch.as_tensor(batches[0]["word"]).to(dev)
         run = torch.no_grad()(lambda: model(img, word))
-    unit = "step" if a.train else "fwd"
+    unit = "step" if a.train or a.ssg else "fwd"
     for _ in range(3):
         run()
     torch.cuda.synchronize()
@@ -119,7 +125,7 @@ def main() -> int:
         groups[group_of(name)] += ms / a.steps
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"[group] {g:40s} {ms:9.4f} ms/{unit} ({100 * ms * a.steps / total:.1f}%)")
-    print(json.dumps({"batch": a.batch, "card": smi, "mode": "train" if a.train else "eval",
+    print(json.dumps({"batch": a.batch, "card": smi, "mode": "ssg-train" if a.ssg else "train" if a.train else "eval",
                       f"{unit}_wall_ms": wall_ms / a.steps,
                       "device_busy_share": busy / 1e3 / wall_ms,
                       f"groups_ms_per_{unit}": groups}))
@@ -141,6 +147,23 @@ def train_step(cs, dev, batch: int):
                                 cfg.lr_decay, 1000, cfg.weight_decay)
     step = make_train_step(model, opt, sched, cfg.use_grasp_masks, cfg.max_norm,
                            set_random_seed(cs.SEED), dev)
+    return lambda: step(data)
+
+
+def ssg_train_step(cs, dev, batch: int):
+    """One prepared synthetic SSG train batch and an SSG train step over it."""
+    from crog_tpu_torch.engine.optim import make_optimizer
+    from crog_tpu_torch.engine.ssg_engine import make_ssg_train_step
+    from crog_tpu_torch.train_ssg import loss_config
+    from crog_tpu_torch.utils.seed import set_random_seed
+
+    cfg = cs._ssg_cfg()
+    data = cs._ssg_batches(cfg, cfg.train_split, batch, batch, True)[0]
+    model = cs._ssg_model(cfg, dev).train()
+    opt, sched = make_optimizer(model, cfg.base_lr, 1.0, cfg.milestones, cfg.lr_decay,
+                                1000, cfg.weight_decay)
+    step = make_ssg_train_step(model, opt, sched, model.anchors(), loss_config(cfg),
+                               set_random_seed(cs.SEED), cfg.max_norm, dev)
     return lambda: step(data)
 
 
