@@ -6,8 +6,9 @@
 Phases, in order; any failure propagates and the exit code is not 0:
   1. the card's name and power limit (nvidia-smi);
   2. build the hand-written kernels from crog_tpu_torch/csrc (nvcc, sm_90a,
-     one process per source, all at once): K1-K4, the backward kernels
-     K1b-K4b, and SSG's lincomb loss kernels K5/K5b;
+     one process per source, all at once: eight libraries): K1-K4, the
+     backward kernels K1b-K4b, SSG's lincomb loss kernels K5/K5b, and the
+     s2d stem's gathered conv K6 (forward and dgrad) and its wgrad K6b;
   3. hold each kernel against its plain PyTorch twin on the card, in bf16,
      at the shapes of CROG at batch 24 and 416^2 -- the forwards in eval,
      the K2-K4 forwards again with dropout on (the twins draw the same
@@ -17,19 +18,28 @@ Phases, in order; any failure propagates and the exit code is not 0:
      K1b's kernels with the decoder blocks' bf16 cast points must fail
      K1b's tolerance; K5 and K5b in f32 at SSG's shapes at batch 8 and
      544^2, for both of a train step's launches (instance masks: one task,
-     BCE; grasp maps: four tasks, smooth-L1);
+     BCE; grasp maps: four tasks, smooth-L1); K6 at the stem's conv2 and
+     conv3 forward and both dgrads and K6b at conv2 and conv3, bf16, at
+     batch 24, 104x104 cells, each timed beside its twin, cuDNN's conv of
+     the blocked tensor with the zero-embedded kernel (the function K6
+     replaces) and cuDNN's plain 3x3 conv of the unblocked 208^2 tensor;
   4. the eval main path: full-width CROG (config/OCID-VLG/
-     crog_synthetic_r50.yaml: RN50 (3,4,6,3), 416^2, 12-layer text tower,
-     3 decoder layers, dim_ffn 2048, bf16) with seeded random weights,
-     through ``validate_with_grasp`` over 48 synthetic val samples at batch
-     24, with every forward kernel's launch counter checked against the
-     launches one forward makes;
+     crog_synthetic_r50.yaml as written: RN50 (3,4,6,3), 416^2, 12-layer
+     text tower, 3 decoder layers, dim_ffn 2048, bf16, the rawlb wire
+     unpacked on the card, the s2d stem) built with ``fused_stem`` and
+     seeded random weights, through ``validate_with_grasp`` over 48
+     synthetic val samples at batch 24, with every kernel's launch counter
+     checked against the launches one forward makes;
   5. the training main path: the same model in train mode through
-     ``train_one_epoch`` for 4 steps at batch 24 (2 prepared synthetic train
+     ``train_one_epoch`` for 4 steps at batch 24 (2 prepared rawlb train
      batches, reused), with every forward and backward kernel's launch
      counter checked against the launches one step makes; the loss is
      finite, every trainable parameter and BatchNorm statistic moved; then
-     train samples/s over 4 more steps;
+     train samples/s over 4 more steps; then one prepared batch in each of
+     the legacy, compact and raw wires through one train step (finite loss;
+     host bytes per sample and step time), and the stem's forward and
+     backward at batch 24 for the plain stem, the s2d stem on cuDNN and the
+     s2d stem on K6/K6b;
   6. one sample through the same weights on the card (kernels, bf16) and on
      the CPU (plain PyTorch, fp32): the five logit maps must agree;
   7. one train step's loss and gradients at batch 2, dropout 0, BatchNorm on
@@ -66,6 +76,8 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 SEED = 0
 BATCH = 24
 SAMPLES = 48
@@ -85,9 +97,12 @@ FWD = ("attention", "decoder_self_block", "decoder_cross_block", "ffn")
 BWD = tuple(n + "_bwd" for n in FWD)
 # launches of each kernel in one CROG forward, and one train step's forward
 # and backward (1 attention pool, 3 decoder layers)
+# and the s2d stem's conv2 and conv3 (K6; in a step also their dgrads, and
+# K6b for their weight gradients)
 PER_FORWARD = {"attention": 1, "decoder_self_block": 3, "decoder_cross_block": 3,
-               "ffn": 3}
-PER_STEP = {**PER_FORWARD, **{n + "_bwd": k for n, k in PER_FORWARD.items()}}
+               "ffn": 3, "s2dconv": 2}
+PER_STEP = {**PER_FORWARD, **{n + "_bwd": k for n, k in PER_FORWARD.items()
+                              if n != "s2dconv"}, "s2dconv": 4, "s2dconv_wgrad": 2}
 # one SSG train step: the instance-mask and the grasp-map loss, forward and
 # backward
 SSG_PER_STEP = {"lincomb": 2, "lincomb_bwd": 2}
@@ -96,6 +111,16 @@ SSG_PER_STEP = {"lincomb": 2, "lincomb_bwd": 2}
 # 18496 pixels (sums, dcoef) and up to 400 columns (dprotos); a wrong crop,
 # GT row or derivative is off by order 1
 LINCOMB_REL_TOL = 1e-4
+# K6 vs twin, relative to the output's largest magnitude: the same bf16
+# operands and products, f32 sums in another order, one bf16 rounding of
+# the output, so they differ by at most one bf16 step where a sum lands on
+# a rounding boundary (2^-7 at the top binade); a wrong tap or slot is off
+# by order 1.  K6b's f32 gradient sums 259584 cells per element in another
+# order, held like K5/K5b to 1e-4 of its largest magnitude.
+S2D_REL_TOL = 2**-7
+S2D_WGRAD_REL_TOL = 1e-4
+# the wire formats run once each through a train step beside the main path's
+WIRES = ("legacy", "compact", "raw")
 # forward kernel vs twin, both bf16 on the same inputs: the twin rounds at
 # the same points, so they differ where a reordered f32 sum flips a bf16
 # rounding of an intermediate; outputs reach |y| ~ 6, where one bf16 step
@@ -382,6 +407,9 @@ SOURCES = {
     "lincomb": ("crog_tpu_torch/csrc/lincomb.cu", "crog_tpu/ops/pallas_lincomb.py:225"),
     "lincomb_bwd": ("crog_tpu_torch/csrc/lincomb.cu",
                     "crog_tpu/ops/pallas_lincomb.py:252"),
+    "s2dconv": ("crog_tpu_torch/csrc/s2dconv.cu", "crog_tpu/ops/pallas_s2dconv.py:348"),
+    "s2dconv_wgrad": ("crog_tpu_torch/csrc/s2dconv.cu",
+                      "crog_tpu/ops/pallas_s2dconv.py:373"),
 }
 
 
@@ -446,6 +474,7 @@ def check_kernels(device, timed: bool = True):
                 _time(records[name], kern, plain, lib)
         k1b_cast_check(inp)
         records.update(check_lincomb(device, timed))
+        records.update(check_s2dconv(device, timed))
     return records
 
 
@@ -559,37 +588,145 @@ def check_lincomb(device, timed: bool = True):
     return records
 
 
+def s2dconv_cases(device, b=BATCH, cells=104):
+    """K6/K6b's launches in one train step of the main path (batch 24,
+    416^2: the stem's 2x2-blocked tensors have 104x104 cells; conv2 ci = co
+    = 32, conv3 ci = 32, co = 64), each as (label, kernel call, plain call,
+    blocked cuDNN call, unblocked cuDNN call, flops, bytes, tolerance
+    relative to the largest |output|).  Activations are ReLU'd as the stem's
+    BN+ReLU emits them; weights He-scaled.  The flops count the real taps,
+    2*9*ci*co per original output pixel; the bytes each input once and each
+    output once."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.grad import conv2d_weight
+
+    from crog_tpu_torch.ops import s2dconv as SC
+    from crog_tpu_torch.ops.s2d import block_kernel_s1, depth_to_space
+
+    g = torch.Generator().manual_seed(SEED + 6)
+    bf = torch.bfloat16
+    nchw = lambda t: t.permute(0, 3, 1, 2)
+    k6, k6b = [], []
+    for name, ci, co in (("conv2", 32, 32), ("conv3", 32, 64)):
+        x = torch.relu(torch.randn(b, cells, cells, 4 * ci, generator=g)).to(device, bf)
+        dy = torch.randn(b, cells, cells, 4 * co, generator=g).to(device, bf)
+        w = (torch.randn(3, 3, ci, co, generator=g) * (2.0 / (9 * ci)) ** 0.5).to(device)
+        pixels = b * (2 * cells) ** 2
+        flops = 2.0 * 9 * ci * co * pixels
+        wt = torch.flip(w, (0, 1)).permute(0, 1, 3, 2)
+        for label, inp, kern_w, c_in, c_out in ((f"{name} forward", x, w, ci, co),
+                                                (f"{name} dgrad", dy, wt, co, ci)):
+            wp = SC.pack_s1(kern_w).to(bf).contiguous()
+            blocked = block_kernel_s1(kern_w).permute(3, 2, 0, 1).to(bf).contiguous()
+            plain_w = kern_w.permute(3, 2, 0, 1).to(bf).contiguous()
+            unblocked = nchw(depth_to_space(inp, 2)).contiguous(memory_format=torch.channels_last)
+            k6.append((label,
+                       lambda inp=inp, wp=wp, c_in=c_in, c_out=c_out:
+                           SC.s2dconv_fwd(inp, wp, c_in, c_out),
+                       lambda inp=inp, wp=wp, c_in=c_in, c_out=c_out:
+                           SC.conv_padded_plain(inp, wp, c_in, c_out),
+                       lambda inp=inp, k=blocked: F.conv2d(nchw(inp), k, padding=1),
+                       lambda u=unblocked, k=plain_w: F.conv2d(u, k, padding=1),
+                       flops, nbytes(inp, wp) + inp.numel() // c_in * c_out * 2,
+                       S2D_REL_TOL))
+        ub_x = nchw(depth_to_space(x, 2)).contiguous(memory_format=torch.channels_last)
+        ub_dy = nchw(depth_to_space(dy, 2)).contiguous(memory_format=torch.channels_last)
+        k6b.append((f"{name} wgrad",
+                    lambda x=x, dy=dy, ci=ci, co=co: SC.s2dconv_wgrad(x, dy, ci, co),
+                    lambda x=x, dy=dy, ci=ci, co=co: SC.wgrad_plain(x, dy, ci, co),
+                    lambda x=x, dy=dy, ci=ci, co=co: conv2d_weight(
+                        nchw(x), (4 * co, 4 * ci, 3, 3), nchw(dy), padding=1),
+                    lambda x=ub_x, dy=ub_dy, ci=ci, co=co: conv2d_weight(
+                        x, (co, ci, 3, 3), dy, padding=1),
+                    flops, nbytes(x, dy) + 16 * ci * 4 * co * 4, S2D_WGRAD_REL_TOL))
+    return {"s2dconv": k6, "s2dconv_wgrad": k6b}
+
+
+def check_s2dconv(device, timed: bool = True):
+    """K6 and K6b against their twins at the main path's shapes; a record's
+    times, bound and work are per CROG train step (K6: conv2 and conv3
+    forward and dgrad; K6b: conv2 and conv3 wgrad), its library time the
+    blocked cuDNN conv (the function K6 replaces); cuDNN's plain conv of the
+    unblocked tensor is printed beside it."""
+    records = {}
+    for name, cases in s2dconv_cases(device).items():
+        rec = _record(name, 0.0, 0.0, "bytes")
+        if timed:
+            rec.update(ms=0.0, plain_ms=0.0, library_ms=0.0)
+        unblocked_ms = 0.0
+        for label, kern, plain, lib, lib_plain, flops, nb, rel in cases:
+            ref = plain()
+            err = _compare(f"{name} ({label})", kern(), ref, rel * float(ref.float().abs().max()))
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            del ref
+            bms, by = bound(flops, nb)
+            rec["bound_ms"] += bms
+            if by == "operations":
+                rec["bound_by"] = "operations"
+            if timed:
+                ms, plain_ms = cuda_ms(kern), cuda_ms(plain, reps=5)
+                lib_ms, ub_ms = cuda_ms(lib), cuda_ms(lib_plain)
+                rec["ms"] += ms
+                rec["plain_ms"] += plain_ms
+                rec["library_ms"] += lib_ms
+                unblocked_ms += ub_ms
+                print(f"[kernels] {name} ({label}): {ms:.4f} ms (plain {plain_ms:.4f}, "
+                      f"cuDNN blocked {lib_ms:.4f}, cuDNN unblocked 208^2 {ub_ms:.4f}, "
+                      f"bound {bms:.4f} by {by})", flush=True)
+        if timed:
+            print(f"[kernels] {name} per CROG train step: {rec['ms']:.4f} ms (plain "
+                  f"{rec['plain_ms']:.4f}, cuDNN blocked {rec['library_ms']:.4f}, cuDNN "
+                  f"unblocked {unblocked_ms:.4f}, bound {rec['bound_ms']:.4f} by "
+                  f"{rec['bound_by']})", flush=True)
+        records[name] = rec
+    return records
+
+
 def launch_counts():
     from crog_tpu_torch.ops import attention as A
     from crog_tpu_torch.ops import decoder_blocks as DB
     from crog_tpu_torch.ops import ffn as FF
     from crog_tpu_torch.ops import lincomb as LC
+    from crog_tpu_torch.ops import s2dconv as SC
 
     return {"attention": A.fused_attention, "decoder_self_block": DB.self_block_fwd,
             "decoder_cross_block": DB.cross_block_fwd, "ffn": FF.ffn_fwd,
             "attention_bwd": A.attention_bwd,
             "decoder_self_block_bwd": DB.self_block_bwd,
             "decoder_cross_block_bwd": DB.cross_block_bwd, "ffn_bwd": FF.ffn_bwd,
-            "lincomb": LC.lincomb_fwd, "lincomb_bwd": LC.lincomb_bwd}
+            "lincomb": LC.lincomb_fwd, "lincomb_bwd": LC.lincomb_bwd,
+            "s2dconv": SC.s2dconv_fwd, "s2dconv_wgrad": SC.s2dconv_wgrad}
 
 
 def _cfg(samples=SAMPLES, batch=BATCH, opts=()):
+    """The CROG config as written (rawlb wire, s2d stem), cut to ``samples``
+    synthetic samples at ``batch``; ``opts`` override further keys."""
     from crog_tpu_torch.config import load_cfg_from_cfg_file, merge_cfg_from_list
 
     return merge_cfg_from_list(load_cfg_from_cfg_file(CONFIG), [
-        "wire_format", "legacy", "synthetic_samples", str(samples),
-        "batch_size", str(batch), "batch_size_val", str(batch), *opts,
+        "synthetic_samples", str(samples), "batch_size", str(batch),
+        "batch_size_val", str(batch), *opts,
     ])
 
 
-def _model(cfg, device, dtype=None):
+def _model(cfg, device, dtype=None, fused_stem: bool = True):
+    """Full-width CROG with seeded random weights; with ``fused_stem`` the
+    s2d stem's convs go through K6/K6b on the card."""
     import torch
 
     from crog_tpu_torch.models.crog import build_crog, random_init_
 
-    model = build_crog(cfg, dtype)
+    model = build_crog(cfg, dtype, fused_stem=fused_stem)
     random_init_(model, torch.Generator().manual_seed(SEED))
     return model.to(device)
+
+
+def host_bytes(batch) -> int:
+    """Bytes per sample that a train step sends to the card."""
+    from crog_tpu_torch.engine.crog_engine import step_keys
+
+    return sum(batch[k].nbytes for k in step_keys(batch)) // len(batch["word"])
 
 
 def build_model_and_data(device, samples=SAMPLES, batch=BATCH, opts=()):
@@ -664,9 +801,9 @@ def check_moved(model, params0, stats0, tag: str):
 
 
 def train_path(device, smi: str):
-    """Phase 5: train_one_epoch at full width, batch 24, through every
-    forward and backward kernel; returns (launches, samples/s, cfg, model,
-    a prepared train batch)."""
+    """Phase 5: train_one_epoch at full width, batch 24, rawlb batches,
+    through every forward and backward kernel; returns (launches, samples/s,
+    a prepared train batch, cfg, the train step)."""
     import torch
 
     from crog_tpu_torch.data.loader import ShuffleLoader
@@ -679,7 +816,8 @@ def train_path(device, smi: str):
     t0 = time.perf_counter()
     loader = ShuffleLoader(build_dataset(cfg, cfg.train_split), BATCH, seed=SEED)
     prepared = list(loader)
-    print(f"[train] {2 * BATCH} synthetic train samples prepared in "
+    print(f"[train] {2 * BATCH} synthetic train samples ({cfg.wire_format} wire, "
+          f"{host_bytes(prepared[0])} host bytes per sample to the card) prepared in "
           f"{time.perf_counter() - t0:.1f} s (host)", flush=True)
     batches = [prepared[i % len(prepared)] for i in range(TRAIN_STEPS)]
     model = _model(cfg, device).train()
@@ -706,8 +844,60 @@ def train_path(device, smi: str):
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / TRAIN_STEPS
     print(f"[time] train step batch {BATCH}: {dt * 1e3:.2f} ms = {BATCH / dt:.2f} "
-          f"samples/s (prepared host batches in) on {smi}", flush=True)
-    return launches, BATCH / dt, prepared[0]
+          f"samples/s (prepared {cfg.wire_format} host batches in) on {smi}", flush=True)
+    return launches, BATCH / dt, prepared[0], cfg, step
+
+
+def wire_phase(step, smi: str):
+    """One prepared batch of each other wire format through one train step
+    of the main path's model: the loss is finite; host bytes per sample and
+    the step time (the second of two steps on the batch)."""
+    import torch
+
+    from crog_tpu_torch.data.loader import ShuffleLoader
+    from crog_tpu_torch.test_crog import build_dataset
+
+    for wire in WIRES:
+        cfg = _cfg(BATCH, BATCH, ("wire_format", wire))
+        t0 = time.perf_counter()
+        batch = next(iter(ShuffleLoader(build_dataset(cfg, cfg.train_split), BATCH,
+                                        seed=SEED)))
+        prep = time.perf_counter() - t0
+        step(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(step(batch)["loss"])
+        dt = time.perf_counter() - t0
+        print(f"[wire] {wire}: loss {loss:.6g}; {host_bytes(batch)} host bytes per sample; "
+              f"train step {dt * 1e3:.2f} ms at batch {BATCH} (host prepared the batch in "
+              f"{prep:.1f} s) on {smi}", flush=True)
+        if not math.isfinite(loss):
+            raise AssertionError(f"{wire} wire: train loss is not finite: {loss}")
+
+
+def stem_timings(device, smi: str):
+    """Forward and forward+backward of the stem alone at batch 24, 416^2,
+    train mode: the plain stem, the s2d stem on cuDNN and the s2d stem on
+    K6/K6b (the same modules and weights)."""
+    import torch
+
+    from crog_tpu_torch.models.clip import ModifiedResNet
+
+    m = ModifiedResNet((1, 1, 1, 1), 1024, 32, 416, 64).to(device).train()
+    g = torch.Generator().manual_seed(SEED + 7)
+    x = torch.randn(BATCH, 416, 416, 3, generator=g).to(device, torch.bfloat16)
+    dy = torch.randn(BATCH, 104, 104, 64, generator=g).to(device, torch.bfloat16)
+    out = []
+    for label, s2d, fused in (("plain", False, False), ("s2d cuDNN", True, False),
+                              ("s2d K6/K6b", True, True)):
+        m.fused_stem = fused
+        stem = m._stem_s2d if s2d else m._stem_plain
+        with torch.no_grad():
+            fwd = cuda_ms(lambda: stem(x))
+        both = cuda_ms(lambda: stem(x).backward(dy))
+        out.append(f"{label} {fwd:.3f} / {both:.3f}")
+    print(f"[stem] forward / forward+backward ms at batch {BATCH}, 416^2, bf16: "
+          + "; ".join(out) + f" on {smi}", flush=True)
 
 
 # card (bf16, kernels) vs CPU (fp32, plain) on one train step at batch 2,
@@ -737,6 +927,7 @@ def train_step_gap(batch, device, running_bn: bool = True, opts=()):
     override further config keys."""
     import torch
 
+    from crog_tpu_torch.engine.crog_engine import device_batch
     from crog_tpu_torch.models.clip import BatchNorm
     from crog_tpu_torch.models.crog import crog_losses
 
@@ -745,15 +936,15 @@ def train_step_gap(batch, device, running_bn: bool = True, opts=()):
     # leave the 2-sample txt_proj BatchNorm a vanishing variance)
     words = [tuple(w) for w in batch["word"]]
     j = next((i for i in range(1, len(words)) if words[i] != words[0]), 1)
-    mini = {k: v[[0, j]] for k, v in batch.items() if k in (
-        "img", "word", "mask", "qua", "sin", "cos", "wid")}
+    mini = device_batch({k: v[[0, j]] for k, v in batch.items()
+                         if isinstance(v, np.ndarray)}, torch.device("cpu"), cfg.input_size)
     out = []
     for dev, dtype in ((device, None), (torch.device("cpu"), torch.float32)):
         model = _model(cfg, dev, dtype).train()
         for mod in model.modules():
             if running_bn and isinstance(mod, BatchNorm):
                 mod.eval()
-        put = lambda k: torch.as_tensor(mini[k]).to(dev)
+        put = lambda k: mini[k].to(dev)
         loss, _ = crog_losses(model(put("img"), put("word")),
                               {k: put(k) for k in ("mask", "qua", "sin", "cos", "wid")})
         loss.backward()
@@ -787,14 +978,16 @@ def e2e_agreement(model, batch, cfg):
     """Phase 6: one sample, card bf16 kernels vs CPU fp32 plain."""
     import torch
 
+    from crog_tpu_torch.engine.crog_engine import device_batch
     from crog_tpu_torch.models.crog import build_crog
 
-    img = torch.as_tensor(batch["img"][:1])
-    word = torch.as_tensor(batch["word"][:1])
+    one = device_batch({k: v[:1] for k, v in batch.items() if isinstance(v, np.ndarray)},
+                       torch.device("cpu"), cfg.input_size, train=False)
+    img, word = one["img"], one["word"]
     dev = next(model.parameters()).device
     with torch.no_grad():
         card = model(img.to(dev), word.to(dev)).float().cpu()
-        cpu_model = build_crog(cfg, torch.float32)
+        cpu_model = build_crog(cfg, torch.float32, fused_stem=True)
         cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
         cpu = cpu_model.eval()(img, word)
     if card.shape != cpu.shape or not torch.isfinite(card).all():
@@ -812,13 +1005,16 @@ def e2e_agreement(model, batch, cfg):
     return worst
 
 
-def timings(model, eval_step, batch, smi: str):
+def timings(model, eval_step, batch, cfg, smi: str):
     """Phase 8: batch-1 forward latency and batch-24 eval throughput."""
     import torch
 
+    from crog_tpu_torch.engine.crog_engine import device_batch
+
     dev = next(model.parameters()).device
-    img1 = torch.as_tensor(batch["img"][:1]).to(dev)
-    word1 = torch.as_tensor(batch["word"][:1]).to(dev)
+    one = device_batch({k: v[:1] for k, v in batch.items() if isinstance(v, np.ndarray)},
+                       dev, cfg.input_size, train=False)
+    img1, word1 = one["img"], one["word"]
     with torch.no_grad():
         fwd_ms = cuda_ms(lambda: model(img1, word1), reps=10)
     torch.cuda.synchronize()
@@ -832,8 +1028,8 @@ def timings(model, eval_step, batch, smi: str):
     dt = (time.perf_counter() - t0) / reps
     n = len(batch["word"])
     print(f"[time] forward batch 1: {fwd_ms:.3f} ms; eval step batch {n}: "
-          f"{dt * 1e3:.2f} ms = {n / dt:.2f} samples/s (host arrays in, metrics out) "
-          f"on {smi}", flush=True)
+          f"{dt * 1e3:.2f} ms = {n / dt:.2f} samples/s ({cfg.wire_format} host arrays in, "
+          f"metrics out) on {smi}", flush=True)
     return fwd_ms, n / dt
 
 
@@ -1048,10 +1244,14 @@ def main() -> int:
     cfg, model, batches = build_model_and_data(device)
     eval_step, eval_launches = main_path(device, cfg, model, batches)
     e2e_agreement(model, batches[0], cfg)
-    fwd_ms, eval_rate = timings(model, eval_step, batches[0], smi)
+    fwd_ms, eval_rate = timings(model, eval_step, batches[0], cfg, smi)
     del model, eval_step
     torch.cuda.empty_cache()
-    launches, train_rate, train_batch = train_path(device, smi)
+    launches, train_rate, train_batch, train_cfg, step = train_path(device, smi)
+    wire_phase(step, smi)
+    del step
+    torch.cuda.empty_cache()
+    stem_timings(device, smi)
     e2e_train_step(train_batch, device)
     del train_batch
     torch.cuda.empty_cache()
@@ -1061,7 +1261,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     ssg_train_step_gap(device)
     # each kernel's launches on the main path that runs it: CROG training
-    # for K1-K4b, SSG training for K5/K5b
+    # for K1-K4b and K6/K6b, SSG training for K5/K5b
     for n, rec in records.items():
         rec["launches"] = ssg_launches[n] if n in SSG_PER_STEP else launches[n]
     print(f"[done] {time.perf_counter() - t_start:.1f} s; CROG train {train_rate:.2f} "

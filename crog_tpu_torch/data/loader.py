@@ -9,6 +9,7 @@ samples, so every batch has one shape and consumers slice outputs to
 shuffle, reseeded by ``set_epoch``, on one host.  Both load samples on the
 caller's thread.  Both collate with ``collate_crog`` unless given another
 ``collate_fn`` (SSG's ``data/ocid_grasp.py:collate_ssg``).
+``device_put_crog`` moves a batch's dense fields to the card.
 """
 
 from __future__ import annotations
@@ -16,10 +17,12 @@ from __future__ import annotations
 from typing import Dict, Iterator, List
 
 import numpy as np
+import torch
 
 _STACK_KEYS = (
     "img", "mask", "qua", "sin", "cos", "wid", "ang", "word", "inverse",
-    "ori_size",
+    "ori_size", "img_u8", "planes_u8",
+    "raw_img_u8", "lb_img_u8", "raw_mask_bits", "rect_corners", "rect_vals",
 )
 _LIST_KEYS = ("grasps", "sentence", "sent_id", "scene_id", "target", "bbox")
 
@@ -35,6 +38,23 @@ def collate_crog(samples: List[Dict]) -> Dict:
         if k in samples[0]:
             batch[k] = [s[k] for s in samples]
     return batch
+
+
+def device_put_crog(batch: Dict, keys, device) -> Dict[str, torch.Tensor]:
+    """The dense fields ``keys`` of a collated batch (those it has) as
+    tensors on ``device`` (crog_tpu/data/loader.py:283): for a card, each
+    array is copied into pinned host memory and from there with
+    ``non_blocking=True``, so the copies run asynchronously to the host."""
+    device = torch.device(device)
+    out = {}
+    for k in keys:
+        if k not in batch:
+            continue
+        t = torch.as_tensor(np.ascontiguousarray(batch[k]))
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        out[k] = t
+    return out
 
 
 def pad_batch(batch: Dict, batch_size: int, n_valid: int) -> Dict:

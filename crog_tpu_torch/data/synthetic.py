@@ -13,7 +13,7 @@ from typing import Dict
 import numpy as np
 
 from crog_tpu_torch.data.grasp_transforms import GraspTransforms
-from crog_tpu_torch.data.ocid_vlg import check_wire_format, preprocess
+from crog_tpu_torch.data.ocid_vlg import preprocess
 from crog_tpu_torch.ops.rects import box_points, polygon_mask
 
 _COLORS = {
@@ -35,9 +35,16 @@ class SyntheticOCIDVLG:
         word_length: int = 17,
         ori_hw=(480, 640),
         seed: int = 0,
-        wire_format: str = "legacy",
+        compact: bool = False,
+        raw=False,
+        max_rects: int = 16,
     ):
-        check_wire_format(wire_format)
+        """``compact`` and ``raw`` (True, or "lb") pick the wire format
+        (``ocid_vlg.preprocess``); ``max_rects`` bounds the raw wire's
+        grasp rects per sample."""
+        self.compact = compact
+        self.raw = raw
+        self.max_rects = max_rects
         self.num_samples = num_samples
         self.split = split
         self.input_size = (input_size, input_size)
@@ -95,9 +102,12 @@ class SyntheticOCIDVLG:
     def __getitem__(self, n: int) -> Dict:
         img, msk, grasp_pts, sent = self._scene(n)
         grasps = self.transform_grasp(grasp_pts.astype(np.float64), 1)
-        grasp_masks = self.transform_grasp.generate_masks(grasps)
+        # the raw wires rasterize the grasp maps on the card
+        grasp_masks = None if self.raw else self.transform_grasp.generate_masks(grasps)
         sample = preprocess(
-            img, msk, grasp_masks, sent, self.input_size, self.word_length
+            img, msk, grasp_masks, sent, self.input_size, self.word_length,
+            self.compact, self.raw, grasps, self.max_rects,
+            self.transform_grasp.width_factor,
         )
         sample.update(
             grasps=grasps,

@@ -5,6 +5,12 @@ Counterpart of crog_tpu/engine/crog_engine.py: ``train_metrics`` (62),
 (167), ``jacquard_index`` (264), ``summarize_eval`` (282) and
 ``validate_with_grasp`` (306).
 
+Both steps take a collated numpy batch in any of the four wire formats
+(``data/ocid_vlg.py``): its dense fields go to the card through
+``device_put_crog`` (pinned memory, non-blocking) and are unpacked there by
+``_unpack`` (compact: ``data/compact.py``; raw and rawlb:
+``data/rawwire.py``; legacy: as they are).
+
 The train step is forward in train mode, ``crog_losses``, backward (through
 the backward kernels K1b-K4b on the card), optional global-norm clipping,
 the optimizer and scheduler steps, the BatchNorm running statistics updated
@@ -25,6 +31,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from crog_tpu_torch.data.compact import is_compact, unpack_compact
+from crog_tpu_torch.data.loader import device_put_crog
+from crog_tpu_torch.data.rawwire import is_raw, unpack_raw
 from crog_tpu_torch.engine.optim import clip_by_global_norm_
 from crog_tpu_torch.models.crog import crog_losses
 from crog_tpu_torch.ops.peaks import detect_grasp_peaks
@@ -37,7 +46,46 @@ from crog_tpu_torch.ops.resize import (
 from crog_tpu_torch.utils.logging import get_logger
 from crog_tpu_torch.utils.meters import AverageMeter, ProgressMeter
 
-TRAIN_KEYS = ("mask", "qua", "sin", "cos", "wid")
+TARGET_KEYS = ("mask", "qua", "sin", "cos", "wid")
+# the dense fields each wire format sends to the card (crog_tpu/engine/
+# crog_engine.py:75-86): legacy float arrays, compact uint8 planes, raw
+# uint8 planes with mask bits and raster parameters
+_TRAIN_KEYS = ("img", "word", "mask", "qua", "sin", "cos", "wid")
+_EVAL_KEYS = ("img", "word", "mask", "inverse", "ori_size")
+_TRAIN_KEYS_C = ("img_u8", "planes_u8", "word")
+_EVAL_KEYS_C = ("img_u8", "planes_u8", "word", "inverse", "ori_size")
+_TRAIN_KEYS_R = ("raw_img_u8", "lb_img_u8", "raw_mask_bits", "rect_corners",
+                 "rect_vals", "word")
+_EVAL_KEYS_R = _TRAIN_KEYS_R + ("inverse", "ori_size")
+
+
+def _select_keys(batch, legacy, compact, raw):
+    if is_raw(batch):
+        return raw
+    return compact if is_compact(batch) else legacy
+
+
+def _unpack(batch: Dict, input_size: int) -> Dict:
+    """Wire-format dispatch on the device tensors of a batch (identity on a
+    legacy batch)."""
+    if is_raw(batch):
+        return unpack_raw(batch, input_size)
+    if is_compact(batch):
+        return unpack_compact(batch)
+    return batch
+
+
+def step_keys(batch: Dict, train: bool = True):
+    """The dense fields a train (or eval) step sends to the card for a batch
+    in its wire format (those the batch has)."""
+    keys = (_select_keys(batch, _TRAIN_KEYS, _TRAIN_KEYS_C, _TRAIN_KEYS_R) if train
+            else _select_keys(batch, _EVAL_KEYS, _EVAL_KEYS_C, _EVAL_KEYS_R))
+    return tuple(k for k in keys if k in batch)
+
+
+def device_batch(batch: Dict, device, input_size: int, train: bool = True) -> Dict:
+    """Those fields of a numpy batch on ``device``, unpacked there."""
+    return _unpack(device_put_crog(batch, step_keys(batch, train), device), input_size)
 
 
 def set_exact_fp32_matmul() -> None:
@@ -63,24 +111,20 @@ def train_metrics(pred_logits, target_mask, threshold: float = 0.35,
 def make_train_step(model, optimizer, scheduler, use_grasp_masks: bool = True,
                     max_norm: float = 0.0, generator: Optional[torch.Generator] = None,
                     device=None):
-    """Returns ``step(batch) -> metrics`` for a legacy-format numpy batch;
-    the metrics (``loss``, ``iou``, ``prec@50`` and the ``m_*`` loss terms)
-    are device tensors.  ``generator`` (a CPU ``torch.Generator``) gives the
-    dropout seeds of every step."""
+    """Returns ``step(batch) -> metrics`` for a numpy batch in any wire
+    format; the metrics (``loss``, ``iou``, ``prec@50`` and the ``m_*`` loss
+    terms) are device tensors.  ``generator`` (a CPU ``torch.Generator``)
+    gives the dropout seeds of every step."""
+    set_exact_fp32_matmul()  # the raw wire's warp products
     device = torch.device(device) if device is not None else next(
         model.parameters()).device
     params = [p for p in model.parameters() if p.requires_grad]
 
     def step(batch: Dict) -> Dict[str, torch.Tensor]:
-        if "img" not in batch:
-            raise NotImplementedError(
-                "only the legacy wire format is ported (ROADMAP queue 1, item 4)"
-            )
         model.train()
-        put = lambda k: torch.as_tensor(batch[k]).to(device, non_blocking=True)
-        img, word = put("img"), put("word")
-        targets = {k: put(k) if k in batch else put("mask") for k in TRAIN_KEYS}
-        preds = model(img, word, generator=generator)
+        dense = device_batch(batch, device, model.input_resolution)
+        targets = {k: dense.get(k, dense["mask"]) for k in TARGET_KEYS}
+        preds = model(dense["img"], dense["word"], generator=generator)
         loss, loss_dict = crog_losses(preds, targets, use_grasp_masks)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -144,7 +188,7 @@ def make_eval_step(
     device=None,
 ):
     """Returns ``step(batch) -> {"iou", "rects", "rects_valid"}`` for a
-    legacy-format numpy batch, with per-sample original geometry.
+    numpy batch in any wire format, with per-sample original geometry.
 
     ``ori_hw`` is the maximum original (h, w) of the split: every sample is
     un-warped to its own resolution (``batch['inverse']`` /
@@ -162,13 +206,8 @@ def make_eval_step(
 
     @torch.no_grad()
     def step(batch: Dict) -> Dict[str, torch.Tensor]:
-        if "img" not in batch:
-            raise NotImplementedError(
-                "only the legacy wire format is ported (ROADMAP queue 1, item 4)"
-            )
-        img = torch.as_tensor(batch["img"]).to(device)
-        word = torch.as_tensor(batch["word"]).to(device)
-        preds = model(img, word).float()
+        dense = device_batch(batch, device, input_size, train=False)
+        preds = model(dense["img"], dense["word"]).float()
         mask_p = torch.sigmoid(preds[..., 0])
         qua_p = torch.sigmoid(preds[..., 1])
         sin_p = preds[..., 2]
@@ -177,8 +216,8 @@ def make_eval_step(
 
         # cv2.warpAffine(pred, inverse, ori_size) samples src = forward
         # letterbox @ dst: invert the stored axis-aligned input->original map
-        inv = torch.as_tensor(batch["inverse"]).to(device, torch.float32)
-        osz = torch.as_tensor(batch["ori_size"]).to(device, torch.int32)
+        inv = dense["inverse"].float()
+        osz = dense["ori_size"].int()
         fsy = 1.0 / inv[:, 1, 1]
         foy = -inv[:, 1, 2] * fsy
         fsx = 1.0 / inv[:, 0, 0]
@@ -193,7 +232,7 @@ def make_eval_step(
         warped = torch.einsum("bpw,bcow->bcop", wc, y)
         mask_w, qua_w, sin_w, cos_w, wid_w = warped.unbind(1)
 
-        tgt = torch.as_tensor(batch["mask"]).to(device, torch.float32)
+        tgt = dense["mask"].float()
         ty = torch.einsum("boh,bhw->bow", w_row, tgt)
         tgt_w = torch.einsum("bpw,bow->bop", w_col, ty)
 

@@ -30,6 +30,13 @@ import torch.nn.functional as F
 
 from crog_tpu_torch.ops.attention import Linear, MultiheadAttention, attention_core
 from crog_tpu_torch.ops.resize import resize_bicubic
+from crog_tpu_torch.ops.s2d import (
+    block_kernel_s1,
+    block_kernel_s2,
+    block_mean,
+    space_to_depth,
+)
+from crog_tpu_torch.ops.s2dconv import blocked_conv3x3_s1
 
 
 def quick_gelu(x):
@@ -71,6 +78,40 @@ class BatchNorm(nn.BatchNorm2d):
             self.num_batches_tracked += 1
         y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
         return y.to(x.dtype)
+
+
+def blocked_bn_relu(bn: BatchNorm, x: torch.Tensor, c: int) -> torch.Tensor:
+    """``bn`` then ReLU over a 2x2-blocked tensor [..., 4c] (slot-major):
+    statistics per original channel over batch, space and the four slots
+    (crog_tpu/models/clip.py:136 ``_blocked_bn_relu``), i.e. ``bn`` of the
+    un-blocked tensor, with the same running update."""
+    if bn.training:
+        xf = x.float()
+        dims = tuple(range(x.dim() - 1))
+        mean = xf.mean(dims).reshape(4, c).mean(0)
+        var = ((xf * xf).mean(dims).reshape(4, c).mean(0) - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            bn.running_mean.lerp_(mean, bn.momentum)
+            bn.running_var.lerp_(var, bn.momentum)
+            bn.num_batches_tracked += 1
+    else:
+        mean, var = bn.running_mean, bn.running_var
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    y = (x.float() - mean.repeat(4)) * mul.repeat(4) + bn.bias.repeat(4)
+    return F.relu(y.to(x.dtype))
+
+
+def _hwio(conv: nn.Conv2d) -> torch.Tensor:
+    """A conv's [co, ci, 3, 3] weight as the JAX package's [3, 3, ci, co]."""
+    return conv.weight.permute(2, 3, 1, 0)
+
+
+def _conv_blocked(x: torch.Tensor, k: torch.Tensor, pad) -> torch.Tensor:
+    """Stride-1 conv of NHWC x with the blocked HWIO kernel k, padding
+    ((top, bottom), (left, right)), in x's dtype."""
+    (top, bottom), (left, right) = pad
+    xp = F.pad(x.permute(0, 3, 1, 2), (left, right, top, bottom))
+    return F.conv2d(xp, k.permute(3, 2, 0, 1).to(x.dtype)).permute(0, 2, 3, 1)
 
 
 class LayerNormFp32(nn.LayerNorm):
@@ -169,12 +210,26 @@ class AttentionPool2d(nn.Module):
 
 
 class ModifiedResNet(nn.Module):
-    """Reference model/clip.py:147-223 with the plain 3-conv stem; returns
-    (x2, x3, x4_attnpooled)."""
+    """Reference model/clip.py:147-223; returns (x2, x3, x4_attnpooled).
+
+    ``stem_s2d`` runs the 3-conv stem in the space-to-depth domain
+    (crog_tpu/models/clip.py:306 ``_stem_s2d``) on the same modules, so the
+    state_dict is unchanged: the image is blocked 4x4, conv1 becomes one
+    stride-1 conv with ``block_kernel_s2`` of its weight, conv2 and conv3
+    stride-1 convs of 2x2-blocked tensors, the BatchNorms reduce over the
+    block slots too, and the pool is ``block_mean``.  ``fused_stem`` (the
+    counterpart of CROG_FUSED_STEM=1) runs conv2 and conv3 through
+    ``blocked_conv3x3_s1``, the gathered K6/K6b kernels on the card;
+    without it they are ``F.conv2d`` with ``block_kernel_s1`` of the weight.
+    An input whose H or W is not a multiple of 4 takes the plain stem."""
 
     def __init__(self, layers: Sequence[int], output_dim: int, heads: int,
-                 input_resolution: int = 224, width: int = 64):
+                 input_resolution: int = 224, width: int = 64,
+                 stem_s2d: bool = False, fused_stem: bool = False):
         super().__init__()
+        self.width = width
+        self.stem_s2d = stem_s2d
+        self.fused_stem = fused_stem
         self.conv1 = Conv2d(3, width // 2, 3, stride=2, padding=1, bias=False)
         self.bn1 = BatchNorm(width // 2)
         self.conv2 = Conv2d(width // 2, width // 2, 3, padding=1, bias=False)
@@ -197,11 +252,31 @@ class ModifiedResNet(nn.Module):
         mods += [Bottleneck(self._inplanes, planes) for _ in range(1, blocks)]
         return nn.Sequential(*mods)
 
-    def forward(self, x):
+    def _stem_plain(self, x):
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.relu(self.bn2(self.conv2(x)))
         x = F.relu(self.bn3(self.conv3(x)))
-        x = self.avgpool(x)
+        return self.avgpool(x)
+
+    def _conv_s1(self, x, conv):
+        if self.fused_stem:
+            return blocked_conv3x3_s1(x, _hwio(conv))
+        return _conv_blocked(x, block_kernel_s1(_hwio(conv)), ((1, 1), (1, 1)))
+
+    def _stem_s2d(self, x):
+        w, h = self.width, self.width // 2
+        x = _conv_blocked(space_to_depth(x, 4), block_kernel_s2(_hwio(self.conv1)),
+                          ((1, 0), (1, 0)))
+        x = blocked_bn_relu(self.bn1, x, h)
+        x = blocked_bn_relu(self.bn2, self._conv_s1(x, self.conv2), h)
+        x = blocked_bn_relu(self.bn3, self._conv_s1(x, self.conv3), w)
+        return block_mean(x, w)
+
+    def forward(self, x):
+        if self.stem_s2d and x.shape[1] % 4 == 0 and x.shape[2] % 4 == 0:
+            x = self._stem_s2d(x)
+        else:
+            x = self._stem_plain(x)
         x = self.layer1(x)
         x2 = self.layer2(x)
         x3 = self.layer3(x2)
@@ -263,13 +338,14 @@ class CLIPRN50(nn.Module):
                  vision_width: int = 64, context_length: int = 77,
                  vocab_size: int = 49408, transformer_width: int = 512,
                  transformer_heads: int = 8, transformer_layers: int = 12,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, stem_s2d: bool = False,
+                 fused_stem: bool = False):
         super().__init__()
         self.dtype = dtype
         self.context_length = context_length
         self.visual = ModifiedResNet(
             vision_layers, embed_dim, vision_width * 32 // 64,
-            image_resolution, vision_width,
+            image_resolution, vision_width, stem_s2d, fused_stem,
         )
         self.transformer = Transformer(
             transformer_width, transformer_layers, transformer_heads

@@ -26,7 +26,10 @@ from crog_tpu_torch.ops.resize import resize_nearest
 
 class CROG(nn.Module):
     """Config fields mirror config/OCID-VLG/*.yaml TRAIN keys.  ``dtype`` is
-    the compute dtype; parameters stay fp32."""
+    the compute dtype; parameters stay fp32.  ``stem_s2d`` (default on, as
+    in the JAX package) runs the vision stem in the space-to-depth domain;
+    ``fused_stem`` runs its two stride-1 convs through the K6/K6b kernels
+    (``clip.ModifiedResNet``)."""
 
     def __init__(
         self,
@@ -48,6 +51,8 @@ class CROG(nn.Module):
         transformer_width: int = 512,
         vocab_size: int = 49408,
         clip_resolution: int = 224,
+        stem_s2d: bool = True,
+        fused_stem: bool = False,
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
@@ -63,6 +68,8 @@ class CROG(nn.Module):
             transformer_heads=transformer_width // 64,
             transformer_layers=transformer_layers,
             dtype=dtype,
+            stem_s2d=stem_s2d,
+            fused_stem=fused_stem,
         )
         self.neck = FPN(in_channels=tuple(fpn_in), out_channels=tuple(fpn_out))
         if use_contrastive:
@@ -126,9 +133,11 @@ def crog_losses(preds, targets: Dict[str, torch.Tensor], use_grasp_masks: bool =
     return total, loss_dict
 
 
-def build_crog(cfg, dtype: torch.dtype | None = None) -> CROG:
+def build_crog(cfg, dtype: torch.dtype | None = None, fused_stem: bool = False) -> CROG:
     """The model of a flattened config (reference model/__init__.py:6-23);
-    ``dtype`` overrides the config's ``compute_dtype``."""
+    ``dtype`` overrides the config's ``compute_dtype``; ``stem_s2d`` comes
+    from the config (default True), ``fused_stem`` from the caller (the
+    counterpart of the JAX package's CROG_FUSED_STEM=1)."""
     if dtype is None:
         bf16 = cfg.get("compute_dtype", "bfloat16") == "bfloat16"
         dtype = torch.bfloat16 if bf16 else torch.float32
@@ -145,6 +154,8 @@ def build_crog(cfg, dtype: torch.dtype | None = None) -> CROG:
         input_resolution=cfg.input_size,
         use_contrastive=cfg.use_contrastive,
         use_grasp_masks=cfg.use_grasp_masks,
+        stem_s2d=bool(cfg.get("stem_s2d", True)),
+        fused_stem=fused_stem,
         dtype=dtype,
     )
 

@@ -68,6 +68,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "crog_lincomb_fwd": [_P] * 7 + [_I] * 9 + [_P],
         "crog_lincomb_bwd": [_P] * 9 + [_I] * 9 + [_P],
     },
+    "s2dconv": {
+        "crog_s2dconv_fwd": [_P] * 3 + [_I] * 5 + [_P],
+        "crog_s2dconv_wgrad": [_P] * 4 + [_I] * 7 + [_P],
+    },
 }
 
 _LOCK = threading.Lock()

@@ -117,6 +117,32 @@ def upsample2x_bilinear(x, align_corners: bool = False):
     return resize2d(x, (2 * h, 2 * w), "linear", align_corners, exact=False)
 
 
+@lru_cache(maxsize=None)
+def affine_axis_matrix(in_size: int, out_size: int, scale: float, offset: float,
+                       mode: str = "cubic") -> np.ndarray:
+    """(out_size, in_size) float32 matrix sampling ``src = scale*dst +
+    offset`` with a constant-0 border (out-of-range taps get zero weight)
+    (crog_tpu/ops/resize.py:114): an axis-aligned affine warp such as the
+    letterbox is separable, so the whole warp is two small matmuls."""
+    w = np.zeros((out_size, in_size), np.float64)
+    dst = np.arange(out_size, dtype=np.float64)
+    src = scale * dst + offset
+    x0 = np.floor(src).astype(np.int64)
+    t = src - x0
+    if mode == "cubic":
+        taps = [(dx, _cubic_kernel(dx - t)) for dx in (-1, 0, 1, 2)]
+    elif mode == "linear":
+        taps = [(0, 1.0 - t), (1, t)]
+    else:
+        raise ValueError(mode)
+    for dx, weight in taps:
+        xi = x0 + dx
+        ok = (xi >= 0) & (xi < in_size)
+        np.add.at(w, (np.arange(out_size)[ok], xi[ok]),
+                  np.broadcast_to(weight, (out_size,))[ok])
+    return w.astype(np.float32)
+
+
 def batched_affine_axis_matrix(
     in_size: int,
     out_size: int,

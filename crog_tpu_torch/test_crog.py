@@ -3,8 +3,11 @@
 Runs the eval split and reports mask IoU, Pr@50-90, J@1 and J@5:
 
     python -m crog_tpu_torch.test_crog --config config/OCID-VLG/crog_synthetic_r50.yaml \\
-        [--device cpu] --opts wire_format legacy synthetic_samples 48
+        [--device cpu] [--fused-stem] --opts synthetic_samples 48
 
+The batches come in the config's ``wire_format`` (rawlb in every OCID-VLG
+config) and are unpacked on the device; ``stem_s2d`` comes from the config
+and ``--fused-stem`` runs the s2d stem's stride-1 convs through K6/K6b.
 ``--device`` defaults to ``cuda`` and raises when there is no card.  A
 ``resume`` file (a reference CROG ``.pth`` or a checkpoint of
 ``crog_tpu_torch.train_crog``) loads directly; an orbax checkpoint
@@ -20,7 +23,7 @@ import torch
 
 from crog_tpu_torch.config import load_cfg_from_cfg_file, merge_cfg_from_list
 from crog_tpu_torch.data.loader import SequentialLoader
-from crog_tpu_torch.data.ocid_vlg import check_wire_format
+from crog_tpu_torch.data.ocid_vlg import wire_kwargs
 from crog_tpu_torch.engine.crog_engine import make_eval_step, validate_with_grasp
 from crog_tpu_torch.models.convert import load_checkpoint
 from crog_tpu_torch.models.crog import build_crog
@@ -33,12 +36,16 @@ def get_parser(argv=None):
         "--config", default="config/OCID-VLG/crog_multiple_r50.yaml", type=str
     )
     parser.add_argument("--device", default="cuda", type=str)
+    parser.add_argument(
+        "--fused-stem", action="store_true",
+        help="run the s2d stem's stride-1 convs through the K6/K6b kernels",
+    )
     parser.add_argument("--opts", default=None, nargs=argparse.REMAINDER)
     args = parser.parse_args(argv)
     cfg = load_cfg_from_cfg_file(args.config)
     if args.opts:
         cfg = merge_cfg_from_list(cfg, args.opts)
-    return cfg, args.device
+    return cfg, args.device, args.fused_stem
 
 
 def resolve_device(name: str) -> torch.device:
@@ -52,7 +59,9 @@ def resolve_device(name: str) -> torch.device:
 
 
 def build_dataset(args, split: str):
-    check_wire_format(args.get("wire_format", "legacy"))
+    """The split's dataset, emitting batches in the config's
+    ``wire_format`` (legacy when the config has none)."""
+    kw = wire_kwargs(args.get("wire_format", "legacy"))
     if args.dataset != "synthetic":
         raise NotImplementedError(
             "the OCID-VLG reader is not ported yet (ROADMAP queue 1); use "
@@ -65,6 +74,7 @@ def build_dataset(args, split: str):
         split=split,
         input_size=args.input_size,
         word_length=args.word_len,
+        **kw,
     )
 
 
@@ -87,14 +97,15 @@ def load_eval_variables(args, model):
 
 
 def main(argv=None):
-    args, device_name = get_parser(argv)
+    args, device_name, fused_stem = get_parser(argv)
     device = resolve_device(device_name)
     setup_logger(os.path.join(args.output_folder, args.exp_name), filename="test.log")
     logger = get_logger()
     logger.info(str(args))
     ds = build_dataset(args, args.test_split)
     # the plain path on the CPU computes in fp32, whatever compute_dtype says
-    model = build_crog(args, torch.float32 if device.type == "cpu" else None)
+    model = build_crog(args, torch.float32 if device.type == "cpu" else None,
+                       fused_stem)
     load_eval_variables(args, model)
     model = model.to(device).eval()
     loader = SequentialLoader(

@@ -1,7 +1,11 @@
 """CROG training entry point of the port (counterpart of train_crog.py).
 
     python -m crog_tpu_torch.train_crog --config config/OCID-VLG/crog_synthetic_r50.yaml \\
-        [--device cpu] --opts wire_format legacy synthetic_samples 48 batch_size 24
+        [--device cpu] [--fused-stem] --opts synthetic_samples 48 batch_size 24
+
+Batches come in the config's ``wire_format`` (rawlb in every OCID-VLG
+config), unpacked on the device; ``--fused-stem`` runs the s2d stem's
+stride-1 convs through the K6/K6b kernels.
 
 Per epoch: ``train_one_epoch`` over shuffled train batches, then (with
 ``evaluate``) ``validate_with_grasp`` over the val split with the model in
@@ -44,12 +48,16 @@ def get_parser(argv=None):
         "--config", default="config/OCID-VLG/crog_multiple_r50.yaml", type=str
     )
     parser.add_argument("--device", default="cuda", type=str)
+    parser.add_argument(
+        "--fused-stem", action="store_true",
+        help="run the s2d stem's stride-1 convs through the K6/K6b kernels",
+    )
     parser.add_argument("--opts", default=None, nargs=argparse.REMAINDER)
     args = parser.parse_args(argv)
     cfg = load_cfg_from_cfg_file(args.config)
     if args.opts:
         cfg = merge_cfg_from_list(cfg, args.opts)
-    return cfg, args.device
+    return cfg, args.device, args.fused_stem
 
 
 def check_pretrained_clip(args) -> None:
@@ -71,7 +79,7 @@ def check_pretrained_clip(args) -> None:
 
 
 def main(argv=None):
-    args, device_name = get_parser(argv)
+    args, device_name, fused_stem = get_parser(argv)
     device = resolve_device(device_name)
     out_dir = os.path.join(args.output_folder, args.exp_name)
     setup_logger(out_dir, filename="train.log")
@@ -82,7 +90,8 @@ def main(argv=None):
     logger.info(str(args))
 
     # the plain path on the CPU computes in fp32, whatever compute_dtype says
-    model = build_crog(args, torch.float32 if device.type == "cpu" else None)
+    model = build_crog(args, torch.float32 if device.type == "cpu" else None,
+                       fused_stem)
     random_init_(model, torch.Generator().manual_seed(args.manual_seed))
     check_pretrained_clip(args)
     model = model.to(device)

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels K1-K4, K1b-K4b and SSG's K5/K5b against their
-plain PyTorch twins, on a card.
+"""The port's CUDA kernels K1-K4, K1b-K4b, SSG's K5/K5b and the s2d stem's
+K6/K6b against their plain PyTorch twins, on a card.
 
 Marked ``cuda``: they skip where ``torch.cuda.is_available()`` is false (the
 kernels have no CPU mode).  This file imports neither jax nor crog_tpu, so
@@ -18,7 +18,11 @@ intermediate such as P, dS or dh feeds many outputs).  K1b rounds only its
 outputs, as its twin does, so it is held to one bf16 step (2^-8 of the
 largest magnitude) with at most 1% of the elements differing at all, as in
 chip_smoke.py.  K5/K5b and their twins are f32 with the same products, so
-each output is held to 1e-4 of its largest magnitude.
+each output is held to 1e-4 of its largest magnitude.  K6 and its twin take
+the same bf16 operands and sum in f32 in another order, so a bf16 output
+differs by at most one bf16 step where a sum lands on a rounding boundary:
+2^-7 of the largest magnitude.  K6b's f32 gradient is held to 1e-4 of its
+largest magnitude, as K5/K5b.
 """
 
 import pytest
@@ -28,6 +32,7 @@ from crog_tpu_torch.ops import attention as A
 from crog_tpu_torch.ops import decoder_blocks as DB
 from crog_tpu_torch.ops import ffn as FF
 from crog_tpu_torch.ops import lincomb as LC
+from crog_tpu_torch.ops import s2dconv as SC
 
 @pytest.fixture
 def card():
@@ -220,3 +225,58 @@ def test_cuda_lincomb_kernels_match_twins(card, kind, t):
     with pytest.raises(ValueError, match="prototypes"):
         LC.lincomb_fwd(args[0][..., :16].contiguous(), args[1][..., :16].contiguous(),
                        *args[2:], t, loss_kind=kind)
+
+
+S2D_REL = 2**-7  # K6: one bf16 step at the top binade; K6b: LINCOMB_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ci,co", [(32, 32), (32, 64), (64, 32), (64, 64)])
+def test_cuda_s2dconv_kernels_match_twins(card, ci, co):
+    """K6 (forward shapes (32, 32) and (32, 64), dgrad shapes (32, 32) and
+    (64, 32)) and K6b against their twins on ragged planes (20 x 37 cells:
+    neither a multiple of the 8 x 16 tile); K6b gives the same gradient in
+    a second run."""
+    b, h, w = 2, 20, 37
+    g = torch.Generator().manual_seed(ci + co)
+    x = torch.relu(torch.randn(b, h, w, 4 * ci, generator=g)).to(card, torch.bfloat16)
+    wt = (torch.randn(3, 3, ci, co, generator=g) * (9 * ci) ** -0.5).to(card)
+    dy = torch.randn(b, h, w, 4 * co, generator=g).to(card, torch.bfloat16)
+    wp = SC.pack_s1(wt).to(torch.bfloat16).contiguous()
+    before = SC.s2dconv_fwd.launches, SC.s2dconv_wgrad.launches
+    got = SC.s2dconv_fwd(x, wp, ci, co)
+    dwp = SC.s2dconv_wgrad(x, dy, ci, co)
+    again = SC.s2dconv_wgrad(x, dy, ci, co)
+    torch.cuda.synchronize()
+    _close_all([got], [SC.conv_padded_plain(x, wp, ci, co)], S2D_REL)
+    _close_all([dwp], [SC.wgrad_plain(x, dy, ci, co)], LINCOMB_REL)
+    assert torch.equal(dwp, again)
+    assert (SC.s2dconv_fwd.launches, SC.s2dconv_wgrad.launches) == (before[0] + 1,
+                                                                   before[1] + 2)
+
+
+@pytest.mark.cuda
+def test_cuda_blocked_conv_autograd_matches_twins(card):
+    """blocked_conv3x3_s1 on the card: forward K6, dgrad K6 with the flipped,
+    swapped kernel, wgrad K6b folded by unpack_s1, each against the twins on
+    the same bf16 tensors; widths the kernels do not take raise."""
+    ci, co = 32, 64
+    g = torch.Generator().manual_seed(5)
+    x = torch.relu(torch.randn(2, 16, 24, 4 * ci, generator=g)).to(card, torch.bfloat16)
+    wt = (torch.randn(3, 3, ci, co, generator=g) * (9 * ci) ** -0.5).to(card)
+    dy = torch.randn(2, 16, 24, 4 * co, generator=g).to(card, torch.bfloat16)
+    xg, wg = x.clone().requires_grad_(), wt.clone().requires_grad_()
+    y = SC.blocked_conv3x3_s1(xg, wg)
+    y.backward(dy)
+    flip = SC.pack_s1(torch.flip(wt, (0, 1)).permute(0, 1, 3, 2)).to(torch.bfloat16)
+    ref_dx = SC.conv_padded_plain(dy, flip, co, ci)
+    ref_dw = SC.unpack_s1(SC.wgrad_plain(x, dy, ci, co), ci, co)
+    torch.cuda.synchronize()
+    _close_all([y.detach(), xg.grad], [SC.conv_padded_plain(
+        x, SC.pack_s1(wt).to(torch.bfloat16), ci, co), ref_dx], S2D_REL)
+    _close_all([wg.grad], [ref_dw], LINCOMB_REL)
+    with pytest.raises(ValueError, match="bfloat16"):
+        SC.s2dconv_fwd(x.float(), SC.pack_s1(wt).to(torch.bfloat16).contiguous(), ci, co)
+    with pytest.raises(ValueError, match="ci, co in"):
+        SC.s2dconv_fwd(x[..., :64].contiguous(), SC.pack_s1(wt[:, :, :16]).to(
+            torch.bfloat16).contiguous(), 16, co)

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from crog_tpu.data.synthetic import SyntheticOCIDVLG as JaxSynthetic
+from crog_tpu_torch.data.ocid_vlg import wire_kwargs
 from crog_tpu_torch.data.synthetic import SyntheticOCIDVLG
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -35,10 +36,23 @@ def test_synthetic_sample_equals_jax_package(size, index):
     assert got["sentence"] == ref["sentence"]
 
 
-def test_unported_wire_formats_raise():
-    for fmt in ("compact", "raw", "rawlb"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SyntheticOCIDVLG(num_samples=1, wire_format=fmt)
+@pytest.mark.parametrize("fmt", ["compact", "raw", "rawlb", "unknown"])
+def test_synthetic_wire_formats_equal_jax_package(fmt):
+    """Same seed and index -> bit-identical samples in each wire format the
+    configs name (uint8 planes, mask bits, raster parameters); an unknown
+    format raises ValueError."""
+    if fmt == "unknown":
+        with pytest.raises(ValueError, match="unknown wire_format"):
+            wire_kwargs("jpeg")
+        return
+    kw = wire_kwargs(fmt)
+    ref = JaxSynthetic(num_samples=4, split="val", input_size=128, **kw)[1]
+    got = SyntheticOCIDVLG(num_samples=4, split="val", input_size=128, **kw)[1]
+    assert set(got) == set(ref)
+    dense = [k for k, v in ref.items() if isinstance(v, np.ndarray)]
+    assert "img" not in dense and len(dense) >= 5
+    for k in dense:
+        np.testing.assert_array_equal(np.asarray(got[k]), ref[k], err_msg=k)
 
 
 def _port_files():
@@ -77,11 +91,11 @@ def test_port_imports_neither_jax_nor_crog_tpu_at_runtime():
     assert int(out.stdout.strip()) >= 20
 
 
-def _cli(*extra, tmp):
+def _cli(*extra, tmp, wire=("wire_format", "legacy")):
     return [
         sys.executable, "-m", "crog_tpu_torch.test_crog",
         "--config", "config/OCID-VLG/crog_synthetic_r50.yaml", *extra,
-        "--opts", "wire_format", "legacy", "synthetic_samples", "4",
+        "--opts", *wire, "synthetic_samples", "4",
         "batch_size_val", "3", "input_size", "128", "output_folder", str(tmp),
     ]
 
@@ -103,11 +117,15 @@ def test_cli_without_a_card_raises(tmp_path):
     assert "no CUDA device" in out.stderr
 
 
-def test_cli_rejects_unported_wire_format(tmp_path):
-    cmd = _cli("--device", "cpu", tmp=tmp_path)
-    cmd[cmd.index("legacy")] = "rawlb"
-    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300)
-    assert out.returncode != 0 and "NotImplementedError" in out.stderr
+def test_cli_on_cpu_runs_the_configs_rawlb_wire(tmp_path):
+    """The config as written: its rawlb wire unpacked on the device and its
+    s2d stem, with --fused-stem (the K6/K6b twins on the CPU)."""
+    out = subprocess.run(_cli("--device", "cpu", "--fused-stem", tmp=tmp_path, wire=()),
+                         cwd=ROOT, capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "wire_format: rawlb" in out.stderr and "stem_s2d: True" in out.stderr
+    m = re.search(r"Final: IoU=([-\d.naif]+)", out.stderr)
+    assert m and math.isfinite(float(m.group(1))), out.stderr[-3000:]
 
 
 def test_chip_smoke_refuses_without_a_card():

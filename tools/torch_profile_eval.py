@@ -2,11 +2,15 @@
 train step, or of SSG's train step, on one card.
 
     python3 tools/torch_profile_eval.py [--batch 24] [--steps 3] [--train | --ssg]
+        [--wire rawlb|raw|compact|legacy] [--fused-stem]
 
-Builds full-width CROG (config/OCID-VLG/crog_synthetic_r50.yaml, bf16,
-seeded random weights, as chip_smoke.py does), warms up, then traces
-``--steps`` forwards (with ``--train``: train steps -- forward, backward,
-Adam -- on one prepared synthetic train batch, dropout on; with ``--ssg``:
+Builds full-width CROG (config/OCID-VLG/crog_synthetic_r50.yaml, bf16, the
+s2d stem, seeded random weights, as chip_smoke.py does; ``--fused-stem``
+runs the stem's stride-1 convs through K6/K6b), warms up, then traces
+``--steps`` forwards on the unpacked batch (with ``--train``: train steps --
+the batch's host-to-device copy and unpack in the ``--wire`` format,
+default the config's rawlb, forward, backward, Adam -- on one prepared
+synthetic train batch, dropout on; with ``--ssg``:
 full-width SSG train steps (config/OCID-Grasp/ssg_r50.yaml, 544^2) on one
 prepared synthetic batch, AdamW) with torch.profiler and prints: device time by kernel (top 25), device time by
 group (the port's hand-written kernels, cuDNN convolutions, cuBLAS GEMMs,
@@ -40,6 +44,7 @@ GROUPS = (
     ("K2/K3 block: outproj_ln_residual", ("outproj_ln_residual_kernel",)),
     ("K4 ffn", ("ffn_fwd_kernel",)),
     ("K5/K5b lincomb", ("lincomb_", "sum_splits_kernel")),
+    ("K6/K6b s2dconv", ("s2dconv_",)),
     ("host-to-device copies", ("memcpy htod",)),
     ("pooling", ("avg_pool", "max_pool")),
     ("dtype casts and layout copies", ("copy_kernel",)),
@@ -63,13 +68,17 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke as cs
-    from crog_tpu_torch.engine.crog_engine import set_exact_fp32_matmul
+    from crog_tpu_torch.data.loader import SequentialLoader
+    from crog_tpu_torch.engine.crog_engine import device_batch, set_exact_fp32_matmul
+    from crog_tpu_torch.test_crog import build_dataset
 
     p = argparse.ArgumentParser()
     p.add_argument("--batch", type=int, default=24)
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--train", action="store_true")
     p.add_argument("--ssg", action="store_true")
+    p.add_argument("--wire", default="rawlb", choices=("rawlb", "raw", "compact", "legacy"))
+    p.add_argument("--fused-stem", action="store_true")
     a = p.parse_args()
     if not torch.cuda.is_available():
         print("torch_profile_eval: no CUDA device", file=sys.stderr)
@@ -80,12 +89,13 @@ def main() -> int:
     if a.ssg:
         run = ssg_train_step(cs, dev, a.batch)
     elif a.train:
-        run = train_step(cs, dev, a.batch)
+        run = train_step(cs, dev, a.batch, a.wire, a.fused_stem)
     else:
-        cfg, model, batches = cs.build_model_and_data(dev, samples=a.batch, batch=a.batch)
-        img = torch.as_tensor(batches[0]["img"]).to(dev)
-        word = torch.as_tensor(batches[0]["word"]).to(dev)
-        run = torch.no_grad()(lambda: model(img, word))
+        cfg = cs._cfg(a.batch, a.batch, ("wire_format", a.wire))
+        model = cs._model(cfg, dev, fused_stem=a.fused_stem).eval()
+        batch = next(iter(SequentialLoader(build_dataset(cfg, cfg.val_split), a.batch)))
+        one = device_batch(batch, dev, cfg.input_size, train=False)
+        run = torch.no_grad()(lambda: model(one["img"], one["word"]))
     unit = "step" if a.train or a.ssg else "fwd"
     for _ in range(3):
         run()
@@ -126,23 +136,25 @@ def main() -> int:
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"[group] {g:40s} {ms:9.4f} ms/{unit} ({100 * ms * a.steps / total:.1f}%)")
     print(json.dumps({"batch": a.batch, "card": smi, "mode": "ssg-train" if a.ssg else "train" if a.train else "eval",
+                      "wire": None if a.ssg else a.wire, "fused_stem": a.fused_stem,
                       f"{unit}_wall_ms": wall_ms / a.steps,
                       "device_busy_share": busy / 1e3 / wall_ms,
                       f"groups_ms_per_{unit}": groups}))
     return 0
 
 
-def train_step(cs, dev, batch: int):
-    """One prepared synthetic train batch and a train step over it."""
+def train_step(cs, dev, batch: int, wire: str, fused_stem: bool):
+    """One prepared synthetic train batch in ``wire`` and a train step over
+    it."""
     from crog_tpu_torch.data.loader import ShuffleLoader
     from crog_tpu_torch.engine.crog_engine import make_train_step
     from crog_tpu_torch.engine.optim import make_optimizer
     from crog_tpu_torch.test_crog import build_dataset
     from crog_tpu_torch.utils.seed import set_random_seed
 
-    cfg = cs._cfg(batch, batch)
+    cfg = cs._cfg(batch, batch, ("wire_format", wire))
     data = next(iter(ShuffleLoader(build_dataset(cfg, cfg.train_split), batch)))
-    model = cs._model(cfg, dev).train()
+    model = cs._model(cfg, dev, fused_stem=fused_stem).train()
     opt, sched = make_optimizer(model, cfg.base_lr, cfg.lr_multi, cfg.milestones,
                                 cfg.lr_decay, 1000, cfg.weight_decay)
     step = make_train_step(model, opt, sched, cfg.use_grasp_masks, cfg.max_norm,
