@@ -9,6 +9,8 @@ Phases, in order; any failure propagates and the exit code is not 0:
      one process per source, all at once: eight libraries): K1-K4, the
      backward kernels K1b-K4b, SSG's lincomb loss kernels K5/K5b, and the
      s2d stem's gathered conv K6 (forward and dgrad) and its wgrad K6b;
+     the registers, shared memory and spills of K1b's one-CTA-per-head
+     kernel and K6b's cluster kernel;
   3. hold each kernel against its plain PyTorch twin on the card, in bf16,
      at the shapes of CROG at batch 24 and 416^2 -- the forwards in eval,
      the K2-K4 forwards again with dropout on (the twins draw the same
@@ -16,7 +18,8 @@ Phases, in order; any failure propagates and the exit code is not 0:
      on -- and time kernel and twin (and, for K1 and K1b, PyTorch's
      scaled_dot_product_attention and its backward as a yardstick only);
      K1b's kernels with the decoder blocks' bf16 cast points must fail
-     K1b's tolerance; K5 and K5b in f32 at SSG's shapes at batch 8 and
+     K1b's tolerance, and K1b on a head of K1B_LONG tokens (its two-kernel
+     path) must meet it; K5 and K5b in f32 at SSG's shapes at batch 8 and
      544^2, for both of a train step's launches (instance masks: one task,
      BCE; grasp maps: four tasks, smooth-L1); K6 at the stem's conv2 and
      conv3 forward and both dgrads and K6b at conv2 and conv3, bf16, at
@@ -59,7 +62,10 @@ Phases, in order; any failure propagates and the exit code is not 0:
  11. one SSG train step at batch 2 and 256^2 (to bound the CPU's time),
      BatchNorm on running statistics, the same positive priorities, on the
      card (kernels, bf16) and on the CPU (plain PyTorch, fp32): the 8 loss
-     terms and each group's gradients must agree.
+     terms and each group's gradients must agree;
+ 12. K1b's and K6b's device time per call from torch.profiler's kernel rows,
+     and their library calls', beside the CUDA-event times of phase 3 (last,
+     so that the profiler runs in no timed phase).
 
 Precision: fp32 products on the card run in full fp32 (TF32 off for matmul
 and cuDNN) wherever fp32 is compared; the models compute in bf16.
@@ -145,6 +151,9 @@ BWD_REL_TOL = 2**-6
 # 2^-8; ``k1b_cast_check`` shows it on the kernels.
 K1B_REL_TOL = 2**-8
 K1B_DIFF_SHARE = 0.01
+# a head length beyond K1b's one-CTA-per-head kernel (ops/attention.py
+# HEAD_MAX_LEN), held to K1b's tolerance on its two-kernel path
+K1B_LONG = 300
 # card (bf16, kernels) vs CPU (fp32, plain) on one sample: bound on the
 # relative L2 error ||card - cpu|| / ||cpu|| of each logit map.  bf16 keeps
 # ~3 significant digits and the error grows through the ~70 layers of a
@@ -420,6 +429,43 @@ def _record(name, max_err, bms, by):
             "library_ms": None}
 
 
+def device_ms(fn, reps: int = 10):
+    """(device ms per call, kernel names): the time the card spends in the
+    kernels ``fn`` launches, from torch.profiler's kernel rows, so that host
+    time in a wrapper cannot pass for kernel time in ``cuda_ms``; None where
+    the profiler sees no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time > 0
+            and not getattr(e, "is_user_annotation", False)]
+    total = sum(e.device_time for e in rows) / 1e3 / reps
+    return (total if total > 0 else None), sorted({e.name.split("(")[0] for e in rows})
+
+
+# (label, CUDA-event ms, call) of K1b, K6b and their library calls, whose
+# device time ``print_device_times`` takes after the timed phases, so that
+# the profiler runs in none of them
+DEVICE_TIMED = []
+
+
+def print_device_times():
+    """Each DEVICE_TIMED call's CUDA-event time beside its kernels' device
+    time."""
+    for label, ms, fn in DEVICE_TIMED:
+        dev, names = device_ms(fn)
+        shown = "not measured (no device rows)" if dev is None else f"{dev:.4f} ms"
+        print(f"[kernels] {label}: device time {shown} per call in {names}; CUDA events "
+              f"{ms:.4f} ms", flush=True)
+
+
 def _time(rec, kern, plain, lib):
     rec["ms"] = cuda_ms(kern)
     rec["plain_ms"] = cuda_ms(plain, reps=5)
@@ -427,6 +473,10 @@ def _time(rec, kern, plain, lib):
     print(f"[kernels] {rec['name']}: {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f}"
           f", library {rec['library_ms']}, bound {rec['bound_ms']:.4f} by "
           f"{rec['bound_by']})", flush=True)
+    if rec["name"] == "attention_bwd":
+        DEVICE_TIMED.append(("attention_bwd (K1b)", rec["ms"], kern))
+        DEVICE_TIMED.append(("attention_bwd's library call (SDPA backward)",
+                             rec["library_ms"], lib))
 
 
 def _compare(name, got, ref, tol, share=1.0):
@@ -473,6 +523,7 @@ def check_kernels(device, timed: bool = True):
             if timed:
                 _time(records[name], kern, plain, lib)
         k1b_cast_check(inp)
+        k1b_long_check(device)
         records.update(check_lincomb(device, timed))
         records.update(check_s2dconv(device, timed))
     return records
@@ -497,6 +548,27 @@ def k1b_cast_check(inp):
           flush=True)
     if min(shares) <= K1B_DIFF_SHARE:
         raise AssertionError("K1b's tolerance does not see bf16 cast points")
+
+
+def k1b_long_check(device, b=4, l=K1B_LONG, heads=32):
+    """K1b on a head longer than the one-CTA-per-head kernel takes (its two
+    kernels, ``bwd_path`` "rows_cols"), against its twin under K1b's
+    tolerance."""
+    import torch
+
+    from crog_tpu_torch.ops import attention as A
+
+    if A.bwd_path(l) != "rows_cols":
+        raise AssertionError(f"a head of {l} tokens should take the two-kernel path")
+    g = torch.Generator().manual_seed(SEED + 8)
+    q, k, v, do = (torch.randn(b, l, heads * 64, generator=g).to(device, torch.bfloat16)
+                   for _ in range(4))
+    o = A.fused_attention(q, k, v, heads)
+    got = A.attention_bwd(q, k, v, o, do, heads)
+    ref = A.attention_bwd_plain(q, k, v, o, do, heads)
+    for name, g_, r in zip(("dq", "dk", "dv"), got, ref):
+        _compare(f"attention_bwd (L={l}, two-kernel path).{name}", g_, r,
+                 K1B_REL_TOL * float(r.float().abs().max()), K1B_DIFF_SHARE)
 
 
 def lincomb_cases(device, b=SSG_BATCH, ph=136, k=100, m=24):
@@ -674,6 +746,10 @@ def check_s2dconv(device, timed: bool = True):
                 print(f"[kernels] {name} ({label}): {ms:.4f} ms (plain {plain_ms:.4f}, "
                       f"cuDNN blocked {lib_ms:.4f}, cuDNN unblocked 208^2 {ub_ms:.4f}, "
                       f"bound {bms:.4f} by {by})", flush=True)
+                if name == "s2dconv_wgrad":
+                    DEVICE_TIMED.append((f"{name} (K6b, {label})", ms, kern))
+                    DEVICE_TIMED.append((f"{name}'s library call (conv2d_weight, {label})",
+                                         lib_ms, lib))
         if timed:
             print(f"[kernels] {name} per CROG train step: {rec['ms']:.4f} ms (plain "
                   f"{rec['plain_ms']:.4f}, cuDNN blocked {rec['library_ms']:.4f}, cuDNN "
@@ -1215,6 +1291,55 @@ def ssg_train_step_gap(device):
     return rel, groups
 
 
+def ptxas_entries(text: str):
+    """(kernel, registers, spill-store bytes) for each entry function of an
+    ``nvcc -Xptxas -v`` report."""
+    import re
+
+    out, name, spill = [], None, 0
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), spill))
+            name = None
+    return out
+
+
+def redesigned_resources(reports):
+    """The build's registers and spills of K1b's one-CTA-per-head kernel and
+    K6b's cluster kernel, and at the main path's shapes their registers,
+    shared memory per CTA (static + dynamic) and spills as the runtime loads
+    them (K6b also the clusters of its launch the card holds at once)."""
+    import ctypes
+
+    from crog_tpu_torch.ops import cuda_build
+
+    for lib, key in (("attention_bwd", "attn_bwd_head_kernel"),
+                     ("s2dconv", "s2dconv_wgrad_kernel")):
+        for entry, regs, spill in ptxas_entries(reports[lib]):
+            if key in entry:
+                print(f"[build] ptxas {entry}: {regs} registers, {spill} bytes spill stores",
+                      flush=True)
+    out = (ctypes.c_int * 4)()
+    ptr = ctypes.cast(out, ctypes.c_void_p)
+    lib = cuda_build.load("attention_bwd")
+    cuda_build.check_launch(lib, lib.crog_attention_bwd_head_attrs(169, ptr), "attrs")
+    print(f"[build] K1b one-CTA-per-head kernel at 169 tokens: {out[0]} registers, {out[1]} "
+          f"bytes shared memory per CTA, {out[2]} bytes local (spill) per thread", flush=True)
+    lib = cuda_build.load("s2dconv")
+    for ci, co in ((32, 32), (32, 64)):
+        cuda_build.check_launch(lib, lib.crog_s2dconv_wgrad_attrs(ci, co, ptr), "attrs")
+        print(f"[build] K6b cluster kernel ci={ci} co={co}: {out[0]} registers, {out[1]} bytes "
+              f"shared memory per CTA, {out[2]} bytes local (spill) per thread, {out[3]} "
+              f"clusters resident at once", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1239,6 +1364,7 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 print(f"[build] {name}: {line.strip()}", flush=True)
+    redesigned_resources(reports)
 
     records = check_kernels(device)
     cfg, model, batches = build_model_and_data(device)
@@ -1260,6 +1386,7 @@ def main() -> int:
     del ssg_model
     torch.cuda.empty_cache()
     ssg_train_step_gap(device)
+    print_device_times()
     # each kernel's launches on the main path that runs it: CROG training
     # for K1-K4b and K6/K6b, SSG training for K5/K5b
     for n, rec in records.items():

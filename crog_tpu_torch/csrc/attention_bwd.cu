@@ -2,21 +2,22 @@
 //
 // Replaces crog_tpu/ops/pallas_attention.py:133 `_fused_bwd_vjp` (the
 // pallas_call at :140, kernel `_bwd_kernel` :53): the backward of the CLIP
-// attention pool, in f32 throughout.  The kernels and their bound and
-// design notes are in attention_bwd.cuh, which the decoder block backward
-// shares.  The row statistics are recomputed from q and k instead of saved
-// by the forward.
-#include "attention_bwd.cuh"
+// attention pool, in f32 throughout.  Two paths, chosen by the wrapper
+// (crog_tpu_torch/ops/attention.py:bwd_path) from the shapes:
+//   - heads of at most kHbMaxL = 256 tokens: one CTA per (batch, head),
+//     attention_bwd_head.cuh (its bound and design notes are there);
+//   - longer heads, up to 768 tokens, and the decoder blocks' cast points:
+//     the two kernels of attention_bwd.cuh, which the decoder block backward
+//     shares.
+// Both recompute the row statistics from q and k instead of taking the
+// forward's.
+#include "attention_bwd_head.cuh"
 
-// q, k, v, o, dout, dq, dk, dv: [B, L, H*64] bf16, contiguous.
-// stats: [3, B*H, L] f32 workspace.  bf16_casts 0 is K1b; 1 runs the
-// decoder blocks' cast points (kBwdBf16) on the same interface, for the
-// checks that K1b's tolerance would see a lost f32 cast point.
-extern "C" int crog_attention_bwd(const void* q, const void* k, const void* v,
-                                  const void* o, const void* dout, void* dq,
-                                  void* dk, void* dv, float* stats, int batch,
-                                  int heads, int len, float scale, int bf16_casts,
-                                  void* stream) {
+namespace {
+
+crog::AttnBwdArgs self_args(const void* q, const void* k, const void* v, const void* o,
+                            const void* dout, void* dq, void* dk, void* dv, float* stats,
+                            int heads, int len, float scale) {
   using crog::bf16;
   crog::AttnBwdArgs a;
   a.q = static_cast<const bf16*>(q);
@@ -36,7 +37,45 @@ extern "C" int crog_attention_bwd(const void* q, const void* k, const void* v,
   a.q_bs = a.k_bs = a.v_bs = a.o_bs = a.do_bs = a.dq_bs = a.dk_bs = a.dv_bs = bs;
   a.q_rs = a.k_rs = a.v_rs = a.o_rs = a.do_rs = a.dq_rs = a.dk_rs = a.dv_rs = rs;
   a.scale = scale;
+  return a;
+}
+
+}  // namespace
+
+// q, k, v, o, dout, dq, dk, dv: [B, L, H*64] bf16, contiguous.
+// The two-kernel path.  stats: [3, B*H, L] f32 workspace.  bf16_casts 0 is
+// K1b; 1 runs the decoder blocks' cast points (kBwdBf16) on the same
+// interface, for the checks that K1b's tolerance would see a lost f32 cast
+// point.
+extern "C" int crog_attention_bwd(const void* q, const void* k, const void* v,
+                                  const void* o, const void* dout, void* dq,
+                                  void* dk, void* dv, float* stats, int batch,
+                                  int heads, int len, float scale, int bf16_casts,
+                                  void* stream) {
+  const crog::AttnBwdArgs a = self_args(q, k, v, o, dout, dq, dk, dv, stats, heads, len, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)(bf16_casts ? crog::launch_attention_bwd<crog::kBwdBf16>(a, batch, st)
                           : crog::launch_attention_bwd<crog::kBwdF32>(a, batch, st));
+}
+
+// The one-CTA-per-head path, 1 <= len <= 256; no workspace.
+extern "C" int crog_attention_bwd_head(const void* q, const void* k, const void* v,
+                                       const void* o, const void* dout, void* dq, void* dk,
+                                       void* dv, int batch, int heads, int len, float scale,
+                                       void* stream) {
+  const crog::AttnBwdArgs a =
+      self_args(q, k, v, o, dout, dq, dk, dv, nullptr, heads, len, scale);
+  return (int)crog::launch_attention_bwd_head(a, batch, static_cast<cudaStream_t>(stream));
+}
+
+// out[3]: registers per thread, shared memory bytes per CTA, spill bytes per
+// thread of the one-CTA-per-head kernel that takes len tokens
+extern "C" int crog_attention_bwd_head_attrs(int len, int* out) {
+  if (len < 1 || len > crog::kHbMaxL) return (int)cudaErrorInvalidValue;
+  switch (crog::round_up(len, 64)) {
+    case 64: return (int)crog::attn_bwd_head_attrs<64>(out);
+    case 128: return (int)crog::attn_bwd_head_attrs<128>(out);
+    case 192: return (int)crog::attn_bwd_head_attrs<192>(out);
+    default: return (int)crog::attn_bwd_head_attrs<256>(out);
+  }
 }

@@ -33,18 +33,51 @@
 // rows x 64 columns of f32 sums; the epilogue stages them through shared
 // memory and writes bf16 with 16-byte stores.
 //
-// K6b: Hopper's blocks run in parallel and in no order, so the TPU kernel's
-// weight gradient carried across its sequential grid becomes, per block
-// (128 columns, 128 rows of the packed gradient, split), a loop over the
-// split's cell tiles that keeps a [128, 128] f32 partial in registers and
-// writes it to part[split]; a second pass adds the splits in index order
-// (gemm.cuh:launch_reduce).  The same gradient in every run, no atomics.  A
-// block's 128 packed rows lie in one slot-row t, so it loads only the cell
-// rows and the slot pair that t reads (A fragments read column-major from
-// the halo, B from the dy tile).
+// K6b: the packed gradient is [16ci, 4co] = KB x NB blocks of [128, 128]
+// (KB = ci/8 row blocks, each within one slot-row t; NB = co/32 column
+// blocks), and every block sums over every cell of the batch.  Its bound is
+// its bytes, so the design first makes each activation byte cross device
+// memory once, with the loads behind the products:
+//   - A thread-block cluster holds all KB x NB blocks (4 CTAs for conv2, 8
+//     for conv3; at most 8, so ci = co = 64 takes two clusters per tile
+//     column pair).  For each 8 x 16 cell tile the cluster's CTAs issue
+//     between them one TMA load of each 64-channel chunk of the tile's
+//     10 x 18 cell halo (coordinates off the image read zeros: no padded
+//     copy, no masking) and of the dy tile, each multicast to the CTAs that
+//     read it (the slot pair of their t; the dy columns of their block):
+//     each activation byte leaves device memory once per tile.
+//   - The loads land in a ring of 3 stages (2 for ci = 64), each with a
+//     `full` mbarrier (the TMA bytes) and an `empty` one: a CTA that has
+//     read a stage arrives remotely on the `empty` barrier of each CTA whose
+//     chunks it receives, and a CTA refills a stage (tile m + 2, issued
+//     while tile m's products run) once every CTA it feeds has released
+//     it.  No CTA waits for the whole cluster inside the loop: a cluster
+//     barrier per tile held every CTA to the slowest one.
+//   - The products run on wgmma: two warpgroups, each [64 packed rows,
+//     128 columns] of f32 sums in registers, one m64n128k16 per cell row of
+//     the tile.  A (channel x cell) is read from the halo with
+//     ldmatrix.trans into registers: the gather costs nothing, and the
+//     128-byte swizzle of the TMA boxes keeps it conflict-free.  B (cell x
+//     column) is the dy stage itself, read by the tensor cores through a
+//     descriptor of the swizzled, column-major box (mma.sync, with B
+//     through ldmatrix too, was slower per tile).
+//   - The grid is persistent: as many clusters as 120 SMs hold at one CTA
+//     per SM (an H100 holds 30 clusters of 4 or 15 of 8 at once), each
+//     walking a fixed contiguous range of tiles (a function of the shapes
+//     alone, ops/s2dconv.py:wgrad_schedule) and writing one f32 partial of
+//     the packed gradient; a second pass adds the partials in index order
+//     (gemm.cuh:launch_reduce): 30 partials for conv2 and 15 for conv3
+//     (the split design wrote 65 and 33), the same bits in every run, no
+//     atomics.
+// The structural zeros of the packed weight get their (nonzero, unused)
+// gradient as in the twin, so the products are 16/9 of the real taps.  On
+// an H100 it takes about as long as cuDNN's conv2d_weight of the blocked
+// conv, several times its byte bound (PERF.md, PR 5): the loads' latency
+// through the ring, not the products, sets its pace.
 //
 // Limits: ci, co in {32, 64}, bf16 activations, any B, H, W (edges masked).
 #include "gemm.cuh"
+#include "sm90.cuh"
 
 namespace crog {
 
@@ -53,7 +86,6 @@ constexpr int kSW = 16;         // cell columns per tile: one fragment's 16 rows
 constexpr int kSHR = kSR + 2;   // halo rows
 constexpr int kSHC = kSW + 2;   // halo columns
 constexpr int kSN = 128;        // output columns per block
-constexpr int kSK = 128;        // K6b: packed-gradient rows per block
 constexpr int kSThreads = 256;  // 8 warps
 constexpr int kSWLd = kSN + 8;  // row stride of the weight chunk and the dy tile
 constexpr int kSCLd = kSN + 4;  // row stride of the f32 staging tile
@@ -72,9 +104,20 @@ constexpr size_t fwd_smem_bytes() {
   return in > stage ? in : stage;
 }
 
+// K6b's TMA boxes: a 64-channel chunk of a tile's halo [10][18][64] and of
+// its dy tile [8][16][64], each at a 1024-byte aligned offset (the 128-byte
+// swizzle repeats every 8 rows of 128 bytes)
+constexpr int kWxBox = 23552;  // 10 * 18 * 128 bytes, rounded up to 1024
+constexpr int kWxBoxTx = kSHR * kSHC * 128;
+constexpr int kWdBox = kSR * kSW * 128;  // 16384
+constexpr int kWThreads = 256;
 template <int CI>
-constexpr size_t wgrad_smem_bytes() {
-  return (size_t)(kSR * kSHC * halo_ld(2 * CI) + kSR * kSW * kSWLd) * sizeof(bf16);
+__host__ __device__ constexpr int wg_stages() { return CI == 32 ? 3 : 2; }
+template <int CI>
+__host__ __device__ constexpr int wg_stage_bytes() { return (CI / 32) * kWxBox + 2 * kWdBox; }
+template <int CI>
+__host__ __device__ constexpr size_t wgrad_smem_bytes() {
+  return (size_t)wg_stages<CI>() * wg_stage_bytes<CI>() + 1024 + 16 * wg_stages<CI>();
 }
 
 template <int CI>
@@ -168,101 +211,162 @@ __global__ void __launch_bounds__(kSThreads) s2dconv_fwd_kernel(
   }
 }
 
+// The cluster of K6b: KB row blocks x NBC column blocks of the packed
+// gradient, rank r = kb + KB * nbl.
 template <int CI>
-__global__ void __launch_bounds__(kSThreads) s2dconv_wgrad_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ dy, float* __restrict__ part,
-    int B, int H, int W, int N, int per_split) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int C4 = 4 * CI;
-  constexpr int C2 = 2 * CI;
-  constexpr int LD = halo_ld(C2);
-  bf16* xs = reinterpret_cast<bf16*>(smem);  // [kSR * kSHC][LD]: slot-row t's pair
-  bf16* ds = xs + kSR * kSHC * LD;           // [kSR * kSW][kSWLd]
-  const int n0 = blockIdx.x * kSN;
-  const int kb = blockIdx.y;  // rows kb*128 .. +128 of the packed gradient
-  const int split = blockIdx.z;
-  const int t = kb * kSK / C4;
-  const int k0 = kb * kSK - t * C4;  // the block's first row within slot-row t
-  const int warp = threadIdx.x / 32;
-  const int wk = (warp / 2) * 32;
-  const int wn = (warp % 2) * 64;
+struct WgCluster {
+  static constexpr int KB = CI / 8;     // [128, .] row blocks of the packed gradient
+  static constexpr int XB = CI / 32;    // 64-channel halo chunks of one slot pair
+  static constexpr int XQ = 2 * XB;     // 64-channel chunks of a whole cell (4ci)
+  int nbc;                              // column blocks per cluster
+  __host__ __device__ explicit WgCluster(int nb) : nbc(nb < 8 / KB ? nb : 8 / KB) {}
+  __host__ __device__ int size() const { return KB * nbc; }
+  __host__ __device__ static int slot_row(int kb) { return kb * 128 / (4 * CI); }
+};
+
+template <int CI>
+__global__ void __launch_bounds__(kWThreads, 1) s2dconv_wgrad_kernel(
+    const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap dymap,
+    float* __restrict__ part, int H, int W, int N, int tiles, int clusters, int per) {
+  using C = WgCluster<CI>;
+  constexpr int S = wg_stages<CI>();
+  constexpr int STAGE = wg_stage_bytes<CI>();
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + S * STAGE);  // a stage has landed
+  uint64_t* empty = full + S;  // every CTA this one feeds is done with a stage
+
+  const C cl(N / kSN);
+  const int R = cl.size();
+  const int rank = (int)cluster_rank();
+  const int cid = blockIdx.x / R;
+  const int g = cid % clusters;  // the partial this cluster writes
+  const int ng = cid / clusters; // its column group (ci = co = 64 only)
+  const int kb = rank % C::KB;
+  const int nbl = rank / C::KB;
+  const int nb = ng * cl.nbc + nbl;
+  const int t = C::slot_row(kb);
+  const int k0 = kb * 128 - t * 4 * CI;  // first packed row within slot-row t
+  const int tb = g * per;
+  const int count = min(tiles, tb + per) - tb;
   const int ntx = (W + kSW - 1) / kSW;
   const int nty = (H + kSR - 1) / kSR;
-  const int tiles = B * nty * ntx;
-  const int tb = split * per_split;
-  const int te = min(tiles, tb + per_split);
 
-  FragC acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  // the rows of the warp's two A fragments: slot-column s, channel c
-  int aoff[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int kk = k0 + wk + i * 16;
-    const int s = kk / CI;
-    aoff[i] = ofs(s) * LD + dslot(s) * CI + kk % CI;
+  // multicast masks: the halo chunks of slot pair p go to the CTAs whose t
+  // reads p; the dy chunks of column block nbl to that block's CTAs
+  uint16_t xmask[2] = {0, 0}, dmask[2] = {0, 0};
+  for (int r = 0; r < R; ++r) {
+    xmask[dslot(C::slot_row(r % C::KB))] |= (uint16_t)(1u << r);
+    dmask[r / C::KB] |= (uint16_t)(1u << r);
   }
-
-  constexpr int kVx = C2 / 8;
-#pragma unroll 1
-  for (int tile = tb; tile < te; ++tile) {
-    const long long bi = tile / (nty * ntx);
+  const int nq = C::XQ + 2 * cl.nbc;  // chunks per tile, issued round-robin by rank
+  auto chunk_mask = [&](int q) -> uint32_t {
+    return q < C::XQ ? xmask[q / C::XB] : dmask[(q - C::XQ) / 2];
+  };
+  uint32_t feeds = 0, fed_by = 0;  // the CTAs this one's chunks go to; whose come here
+  for (int q = 0; q < nq; ++q) {
+    if (q % R == rank) feeds |= chunk_mask(q);
+    if ((chunk_mask(q) >> rank) & 1) fed_by |= 1u << (q % R);
+  }
+  const CUtensorMap* xm = &xmap;
+  const CUtensorMap* dm = &dymap;
+  auto issue = [&](int m) {  // tile tb + m into stage m % S (one thread)
+    unsigned char* stage = sm + (m % S) * STAGE;
+    uint64_t* bar = &full[m % S];
+    mbar_arrive_expect_tx(bar, C::XB * kWxBoxTx + 2 * kWdBox);
+    const int tile = tb + m;
+    const int bi = tile / (nty * ntx);
     const int rem = tile % (nty * ntx);
     const int r0 = (rem / ntx) * kSR;
     const int c0 = (rem % ntx) * kSW;
-    __syncthreads();  // the previous tile's readers are done
-    for (int v = threadIdx.x; v < kSR * kSHC * kVx; v += kSThreads) {
-      const int cell = v / kVx;
-      const int q = (v % kVx) * 8;
-      const int gr = r0 + cell / kSHC + ofs(t) - 1;
-      const int gc = c0 + cell % kSHC - 1;
-      bf16* dst = xs + cell * LD + q;
-      if (gr >= 0 && gr < H && gc >= 0 && gc < W) {
-        copy8(dst, x + ((bi * H + gr) * W + gc) * C4 + dslot(t) * C2 + q);
+    for (int q = rank; q < nq; q += R) {
+      if (q < C::XQ) {
+        tma_load_4d_multicast(xm, smem_u32(stage + (q % C::XB) * kWxBox), bar, q * 64,
+                              c0 - 1, r0 - 1, bi, xmask[q / C::XB]);
       } else {
-        zero8(dst);
+        const int j = q - C::XQ;
+        tma_load_4d_multicast(dm, smem_u32(stage + C::XB * kWxBox + (j % 2) * kWdBox), bar,
+                              (ng * cl.nbc * 2 + j) * 64, c0, r0, bi, dmask[j / 2]);
       }
     }
-    for (int v = threadIdx.x; v < kSR * kSW * (kSN / 8); v += kSThreads) {
-      const int cell = v / (kSN / 8);
-      const int q = (v % (kSN / 8)) * 8;
-      const int gr = r0 + cell / kSW;
-      const int gc = c0 + cell % kSW;
-      bf16* dst = ds + cell * kSWLd + q;
-      if (gr < H && gc < W) {
-        copy8(dst, dy + ((bi * H + gr) * W + gc) * N + n0 + q);
-      } else {
-        zero8(dst);  // cells off the image add nothing
-      }
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], feeds ? __popc(feeds) : 1);
     }
-    __syncthreads();
-#pragma unroll 2
-    for (int rl = 0; rl < kSR; ++rl) {
-      FragACol fa[2];  // element (k, m) at xs[(rl, OFS[s] + m) cell + channel k]
-      FragBRow fb[4];  // element (m, n) at ds[(rl, m) cell + n]
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], xs + rl * kSHC * LD + aoff[i], LD);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(fb[j], ds + rl * kSW * kSWLd + wn + j * 16, kSWLd);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
+    fence_barrier_init();
   }
-  float* out = part + (long long)split * 16 * CI * N;
+  __syncwarp();
+  cluster_arrive();  // every CTA's barriers exist before any multicast lands
+  cluster_wait();
+  if (threadIdx.x == 0)
+    for (int m = 0; m < min(S, count); ++m) issue(m);
+  __syncwarp();
+
+  // warpgroup wg takes packed rows wg*64.. x all 128 columns; its warp w
+  // the A rows wg*64 + w*16.. (slot-column s, channels ch..)
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int wg = warp >> 2;
+  const int kl = k0 + wg * 64 + (warp & 3) * 16;
+  const int s = kl / CI;
+  const int ch = dslot(s) * CI + kl % CI;  // channel within t's slot pair
+  const int a_off = (ch / 64) * kWxBox;
+  const int a_cell = ofs(s) + (lane & 7) + ((lane >> 4) & 1) * 8;
+  const int a_chunk = (ch % 64) / 8 + ((lane >> 3) & 1);
+
+  float acc[64];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int e = 0; e < 64; ++e) acc[e] = 0.0f;
+
+#pragma unroll 1
+  for (int m = 0; m < count; ++m) {
+    mbar_wait(&full[m % S], (m / S) & 1);
+    const uint32_t st = smem_u32(sm + (m % S) * STAGE);
+    // per cell row rl: A [16 rows, 16 cells] from the halo (ldmatrix.trans:
+    // the gather), B [16 cells, 128 columns] = dy lines rl*16.., its two
+    // 64-column chunks kWdBox apart, 8-cell groups 1024 bytes apart
+    uint32_t a[kSR][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(out + (long long)(kb * kSK + wk + i * 16) * N + n0 + wn + j * 16,
-                              acc[i][j], N, wmma::mem_row_major);
+    for (int rl = 0; rl < kSR; ++rl) {
+      const int la = (rl + ofs(t)) * kSHC + a_cell;  // halo cell: 128-byte line
+      ldsm_x4_t(st + a_off + la * 128 + ((a_chunk ^ (la & 7)) << 4), a[rl]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int rl = 0; rl < kSR; ++rl)
+      wgmma_m64n128k16_rs(
+          acc, a[rl],
+          wgmma_desc_sw128(st + C::XB * kWxBox + rl * kSW * 128, kWdBox, 8 * 128));
+    wgmma_commit();
+    // while the products run: refill tile m - 1's stage with tile m + 2 once
+    // every CTA this one feeds has released it
+    if (threadIdx.x == 0 && m > 0 && m - 1 + S < count) {
+      if (feeds) mbar_wait(&empty[(m - 1) % S], ((m - 1) / S) & 1);
+      issue(m - 1 + S);
+    }
+    __syncwarp();
+    wgmma_wait_all();
+    __syncthreads();  // both warpgroups are done with tile m's stage: release it
+    if (threadIdx.x < R && ((fed_by >> threadIdx.x) & 1))
+      mbar_arrive_cluster(&empty[m % S], threadIdx.x);
+  }
+  cluster_arrive();  // no CTA leaves while a peer may still signal it
+  cluster_wait();
+
+  // the cluster's partial of rows kb*128.., columns nb*128..
+  const int gq = lane >> 2;
+  const int qd = lane & 3;
+  const int row = kb * 128 + wg * 64 + (warp & 3) * 16;
+  float* out = part + (long long)g * 16 * CI * N + (long long)row * N + nb * kSN + 2 * qd;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(out + (long long)(gq + 8 * h) * N + j * 8) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
 }
 
 template <int CI>
@@ -277,20 +381,107 @@ cudaError_t launch_s2dconv_fwd(const bf16* x, const bf16* wp, bf16* y, int B, in
   return cudaGetLastError();
 }
 
+typedef CUresult (*TensorMapEncodeFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                      const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                      const cuuint32_t*, CUtensorMapInterleave,
+                                      CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                      CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, looked up once (no link to libcuda)
+inline TensorMapEncodeFn tensor_map_encode() {
+  static const TensorMapEncodeFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+            cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      return (TensorMapEncodeFn) nullptr;
+    return reinterpret_cast<TensorMapEncodeFn>(p);
+  }();
+  return fn;
+}
+
+// a [B, H, W, C] bf16 tensor read in boxes of 64 channels x bw cells x bh
+// rows, 128-byte swizzled, zeros outside the tensor
+inline bool nhwc_box_map(CUtensorMap* map, const bf16* ptr, int B, int H, int W, int C, int bw,
+                         int bh) {
+  const TensorMapEncodeFn enc = tensor_map_encode();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
+                                 (cuuint64_t)H * W * C * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)bw, (cuuint32_t)bh, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(ptr), dims, strides,
+             box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int CI>
+cudaError_t wgrad_set_smem_once() {
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(s2dconv_wgrad_kernel<CI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)wgrad_smem_bytes<CI>());
+  return attr;
+}
+
+template <int CI>
+cudaLaunchConfig_t wgrad_config(int N, int clusters, cudaLaunchAttribute* attr,
+                                cudaStream_t st) {
+  const WgCluster<CI> cl(N / kSN);
+  const int groups = (N / kSN) / cl.nbc;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cl.size();
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cl.size() * clusters * groups);
+  cfg.blockDim = dim3(kWThreads);
+  cfg.dynamicSmemBytes = wgrad_smem_bytes<CI>();
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
 template <int CI>
 cudaError_t launch_s2dconv_wgrad(const bf16* x, const bf16* dy, float* part, float* dwp,
-                                 int B, int H, int W, int N, int splits, int per_split,
+                                 int B, int H, int W, int N, int clusters, int per,
                                  cudaStream_t st) {
-  constexpr size_t smem = wgrad_smem_bytes<CI>();
-  cudaError_t err = cudaFuncSetAttribute(
-      s2dconv_wgrad_kernel<CI>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = wgrad_set_smem_once<CI>();
   if (err != cudaSuccess) return err;
-  const dim3 grid(N / kSN, 16 * CI / kSK, splits);
-  s2dconv_wgrad_kernel<CI><<<grid, kSThreads, smem, st>>>(x, dy, part, B, H, W, N, per_split);
+  CUtensorMap xmap, dymap;
+  if (!nhwc_box_map(&xmap, x, B, H, W, 4 * CI, kSHC, kSHR) ||
+      !nhwc_box_map(&dymap, dy, B, H, W, N, kSW, kSR))
+    return cudaErrorInvalidValue;
+  const int tiles = B * ((H + kSR - 1) / kSR) * ((W + kSW - 1) / kSW);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = wgrad_config<CI>(N, clusters, &attr, st);
+  err = cudaLaunchKernelEx(&cfg, s2dconv_wgrad_kernel<CI>, xmap, dymap, part, H, W, N, tiles,
+                           clusters, per);
+  if (err != cudaSuccess) return err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long n = 16LL * CI * N;
-  return launch_reduce(part, splits, n, n, dwp, nullptr, st);
+  return launch_reduce(part, clusters, n, n, dwp, nullptr, st);
+}
+
+// out[4]: registers per thread, shared memory bytes per CTA, spill bytes per
+// thread, and how many clusters of its launch the card holds at once
+template <int CI>
+cudaError_t wgrad_attrs(int N, int* out) {
+  cudaError_t err = wgrad_set_smem_once<CI>();
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, s2dconv_wgrad_kernel<CI>);
+  if (err != cudaSuccess) return err;
+  out[0] = fa.numRegs;
+  out[1] = (int)(fa.sharedSizeBytes + wgrad_smem_bytes<CI>());
+  out[2] = (int)fa.localSizeBytes;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = wgrad_config<CI>(N, 1, &attr, nullptr);
+  return cudaOccupancyMaxActiveClusters(&out[3], s2dconv_wgrad_kernel<CI>, &cfg);
 }
 
 inline bool s2d_width_ok(int c) { return c == 32 || c == 64; }
@@ -317,26 +508,34 @@ extern "C" int crog_s2dconv_fwd(const void* x, const void* wp, void* y, int B, i
                   : launch_s2dconv_fwd<64>(xb, wb, yb, B, H, W, 4 * co, st);
 }
 
-// K6b: dwp [16ci, 4co] f32 = P(x)^T dy over every cell, through the split
-// partials part [splits, 16ci, 4co] f32 (splits * per_split >= the number of
-// 8 x 16 cell tiles).
+// K6b: dwp [16ci, 4co] f32 = P(x)^T dy over every cell, through one f32
+// partial per cluster, part [clusters, 16ci, 4co]: cluster g sums the 8 x 16
+// cell tiles [g * per, (g + 1) * per), and none is empty.
 extern "C" int crog_s2dconv_wgrad(const void* x, const void* dy, void* part, void* dwp, int B,
-                                  int H, int W, int ci, int co, int splits, int per_split,
+                                  int H, int W, int ci, int co, int clusters, int per,
                                   void* stream) {
   using namespace crog;
-  if (!s2d_width_ok(ci) || !s2d_width_ok(co) || B < 1 || H < 1 || W < 1 || splits < 1 ||
-      splits > 65535 || per_split < 1)
+  if (!s2d_width_ok(ci) || !s2d_width_ok(co) || B < 1 || H < 1 || W < 1 || clusters < 1 ||
+      per < 1)
     return cudaErrorInvalidValue;
   const long long tiles =
       (long long)B * ((H + kSR - 1) / kSR) * ((W + kSW - 1) / kSW);
-  if ((long long)splits * per_split < tiles || tiles > 0x7fffffffLL)
+  if ((long long)clusters * per < tiles || (long long)(clusters - 1) * per >= tiles ||
+      tiles > 0x7fffffffLL || clusters * 16 > 0x7fffffff / 8)
     return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   const auto* xb = static_cast<const bf16*>(x);
   const auto* db = static_cast<const bf16*>(dy);
   auto* pf = static_cast<float*>(part);
   auto* wf = static_cast<float*>(dwp);
-  return ci == 32
-             ? launch_s2dconv_wgrad<32>(xb, db, pf, wf, B, H, W, 4 * co, splits, per_split, st)
-             : launch_s2dconv_wgrad<64>(xb, db, pf, wf, B, H, W, 4 * co, splits, per_split, st);
+  return ci == 32 ? launch_s2dconv_wgrad<32>(xb, db, pf, wf, B, H, W, 4 * co, clusters, per, st)
+                  : launch_s2dconv_wgrad<64>(xb, db, pf, wf, B, H, W, 4 * co, clusters, per, st);
+}
+
+// out[4]: K6b's registers per thread, shared memory per CTA, spill bytes per
+// thread, and the clusters of its launch for (ci, co) the card holds at once
+extern "C" int crog_s2dconv_wgrad_attrs(int ci, int co, int* out) {
+  using namespace crog;
+  if (!s2d_width_ok(ci) || !s2d_width_ok(co)) return cudaErrorInvalidValue;
+  return ci == 32 ? wgrad_attrs<32>(4 * co, out) : wgrad_attrs<64>(4 * co, out);
 }

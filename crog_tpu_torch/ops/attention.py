@@ -24,6 +24,7 @@ from crog_tpu_torch.ops import cuda_build
 
 NEG = -1e30  # the kernels' mask value: finite, keeps all-masked rows finite
 MAX_KEYS = 768  # the kernel keeps a [64, Lk] score block in shared memory
+HEAD_MAX_LEN = 256  # K1b's one-CTA-per-head kernel holds a whole head
 HEAD_DIM = 64
 
 
@@ -158,13 +159,21 @@ def _check_bwd_width(q, num_heads: int) -> None:
         )
 
 
+def bwd_path(l: int, bf16_casts: bool = False) -> str:
+    """Which K1b kernel takes a head of ``l`` tokens: "head" (one CTA per
+    head, crog_attention_bwd_head) up to HEAD_MAX_LEN tokens, else
+    "rows_cols" (the two kernels of crog_attention_bwd, up to MAX_KEYS);
+    the decoder blocks' cast points exist only on the two-kernel path."""
+    return "head" if l <= HEAD_MAX_LEN and not bf16_casts else "rows_cols"
+
+
 def attention_bwd(q, k, v, o, do, num_heads: int, bf16_casts: bool = False):
     """K1b.  q, k, v, o, do [B, L, H*64] bf16 (contiguous) -> dq, dk, dv.
 
     On a CPU tensor this is ``attention_bwd_plain``; on a CUDA tensor it
-    launches crog_attention_bwd (csrc/attention_bwd.cu) or raises.
-    ``bf16_casts`` swaps in the decoder blocks' cast points (P and dS
-    rounded to bf16, twin ``mha_bwd_plain``); only the checks that K1b's
+    launches the kernel ``bwd_path`` names (csrc/attention_bwd.cu) or
+    raises.  ``bf16_casts`` swaps in the decoder blocks' cast points (P and
+    dS rounded to bf16, twin ``mha_bwd_plain``); only the checks that K1b's
     tolerance would see a lost f32 cast point set it (chip_smoke.py,
     tests/test_torch_cuda_kernels.py)."""
     if q.device.type == "cpu":
@@ -176,14 +185,17 @@ def attention_bwd(q, k, v, o, do, num_heads: int, bf16_casts: bool = False):
     for t, name in ((q, "q"), (k, "k"), (v, "v"), (o, "o"), (do, "do")):
         cuda_build.require(t, name, torch.bfloat16, (b, l, d))
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    stats = torch.empty(3, b * num_heads, l, dtype=torch.float32, device=q.device)
+    ptrs = [t.data_ptr() for t in (q, k, v, o, do, dq, dk, dv)]
     lib = cuda_build.load("attention_bwd")
-    rc = lib.crog_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
-        b, num_heads, l, HEAD_DIM**-0.5, int(bf16_casts), cuda_build.stream_ptr(q.device),
-    )
-    cuda_build.check_launch(lib, rc, "crog_attention_bwd")
+    stream = cuda_build.stream_ptr(q.device)
+    if bwd_path(l, bf16_casts) == "head":
+        rc = lib.crog_attention_bwd_head(*ptrs, b, num_heads, l, HEAD_DIM**-0.5, stream)
+        cuda_build.check_launch(lib, rc, "crog_attention_bwd_head")
+    else:
+        stats = torch.empty(3, b * num_heads, l, dtype=torch.float32, device=q.device)
+        rc = lib.crog_attention_bwd(*ptrs, stats.data_ptr(), b, num_heads, l,
+                                    HEAD_DIM**-0.5, int(bf16_casts), stream)
+        cuda_build.check_launch(lib, rc, "crog_attention_bwd")
     attention_bwd.launches += 1
     return dq, dk, dv
 

@@ -45,7 +45,11 @@ OFS = (0, 1, 1, 2)  # padded-input cell offset of slot-row t
 DY = (1, 0, 1, 0)  # block slot (dy or dx) of slot-row t
 KERNEL_WIDTHS = (32, 64)  # ci and co the kernels take
 TILE_CELLS = (8, 16)  # the kernels' cell tile (rows, columns)
-TARGET_BLOCKS = 2 * 132  # K6b: two blocks per H100 SM
+# K6b: the SMs its clusters take, one CTA each.  An H100 has 132, but its
+# GPCs hold at most 30 clusters of 4 and 15 of 8 at once
+# (cudaOccupancyMaxActiveClusters), so 120 keeps every cluster in one wave.
+CLUSTER_SMS = 120
+MAX_CLUSTER = 8  # K6b: CTAs per cluster, at most the portable size
 
 
 def pack_s1(w: torch.Tensor) -> torch.Tensor:
@@ -119,15 +123,27 @@ def _check(x: torch.Tensor, ci: int, co: int, name: str):
     return x.shape[:3]
 
 
-def wgrad_splits(b: int, h: int, w: int, ci: int, co: int):
-    """(splits, tiles per split) of K6b: the cell tiles are cut into
-    ``splits`` chunks so that K6b launches about TARGET_BLOCKS blocks; a
-    function of the shapes alone, so the order of the sums is too."""
+def wgrad_cluster(ci: int, co: int):
+    """(CTAs per cluster, column groups) of K6b: a CTA per [128, 128] block
+    of the packed [16ci, 4co] gradient; a cluster takes every row block and
+    as many column blocks as MAX_CLUSTER allows, and the remaining column
+    blocks take clusters of their own."""
+    kb, nb = 16 * ci // 128, 4 * co // 128
+    nbc = min(nb, MAX_CLUSTER // kb)
+    return kb * nbc, nb // nbc
+
+
+def wgrad_schedule(b: int, h: int, w: int, ci: int, co: int):
+    """(clusters, tiles per cluster) of K6b: cluster g sums the 8 x 16 cell
+    tiles [g * per, (g + 1) * per), none empty, with as many clusters as
+    CLUSTER_SMS hold at one CTA per SM; each writes one partial, added in
+    index order.  A function of the shapes alone, so the order of the sums
+    is too."""
     tr, tw = TILE_CELLS
     tiles = b * -(-h // tr) * -(-w // tw)
-    per_layer = (4 * co // 128) * (16 * ci // 128)
-    per_split = -(-tiles // max(1, -(-TARGET_BLOCKS // per_layer)))
-    return -(-tiles // per_split), per_split
+    size, groups = wgrad_cluster(ci, co)
+    per = -(-tiles // max(1, min(tiles, CLUSTER_SMS // (size * groups))))
+    return -(-tiles // per), per
 
 
 def s2dconv_fwd(x: torch.Tensor, wp: torch.Tensor, ci: int, co: int) -> torch.Tensor:
@@ -157,13 +173,13 @@ def s2dconv_wgrad(x: torch.Tensor, dy: torch.Tensor, ci: int, co: int) -> torch.
         return wgrad_plain(x, dy, ci, co)
     b, h, w = _check(x, ci, co, "x")
     cuda_build.require(dy, "dy", torch.bfloat16, (b, h, w, 4 * co))
-    splits, per_split = wgrad_splits(b, h, w, ci, co)
+    clusters, per = wgrad_schedule(b, h, w, ci, co)
     dev = x.device
-    part = torch.empty(splits, 16 * ci, 4 * co, dtype=torch.float32, device=dev)
+    part = torch.empty(clusters, 16 * ci, 4 * co, dtype=torch.float32, device=dev)
     dwp = torch.empty(16 * ci, 4 * co, dtype=torch.float32, device=dev)
     lib = cuda_build.load("s2dconv")
     rc = lib.crog_s2dconv_wgrad(x.data_ptr(), dy.data_ptr(), part.data_ptr(),
-                                dwp.data_ptr(), b, h, w, ci, co, splits, per_split,
+                                dwp.data_ptr(), b, h, w, ci, co, clusters, per,
                                 cuda_build.stream_ptr(dev))
     cuda_build.check_launch(lib, rc, "crog_s2dconv_wgrad")
     s2dconv_wgrad.launches += 1

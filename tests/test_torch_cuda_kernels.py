@@ -113,13 +113,23 @@ def _close_all(got, ref, rel=BWD_REL, share=1.0):
 
 
 @pytest.mark.cuda
-def test_cuda_attention_backward_matches_twin(card):
-    q, k, v, do = (_bf16(s, 2, 169, 512) for s in (1, 2, 3, 4))
-    o = A.fused_attention(q, k, v, 8)
-    got = A.attention_bwd(q, k, v, o, do, 8)
-    ref = A.attention_bwd_plain(q, k, v, o, do, 8)
+@pytest.mark.parametrize("b,l,heads,path", [
+    (2, 169, 8, "head"), (3, 169, 5, "head"), (1, 7, 3, "head"), (2, 256, 4, "head"),
+    (2, 300, 8, "rows_cols")])
+def test_cuda_attention_backward_matches_twin(card, b, l, heads, path):
+    """K1b against its twin on both paths: the one-CTA-per-head kernel at
+    the pool's 169 tokens (also with an odd batch x heads, 15), at a length
+    that is not a multiple of 16 and at its limit of 256; the two-kernel
+    path at 300 tokens.  A second call gives the same bits."""
+    assert A.bwd_path(l) == path
+    q, k, v, do = (_bf16(s, b, l, heads * 64) for s in (1, 2, 3, 4))
+    o = A.fused_attention(q, k, v, heads)
+    got = A.attention_bwd(q, k, v, o, do, heads)
+    again = A.attention_bwd(q, k, v, o, do, heads)
+    ref = A.attention_bwd_plain(q, k, v, o, do, heads)
     torch.cuda.synchronize()
     _close_all(got, ref, K1B_REL, K1B_SHARE)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
     with pytest.raises(ValueError, match="head dim 64"):
         A.attention_bwd(*(t[..., :96].contiguous() for t in (q, k, v, o, do)), 1)
 
@@ -280,3 +290,21 @@ def test_cuda_blocked_conv_autograd_matches_twins(card):
     with pytest.raises(ValueError, match="ci, co in"):
         SC.s2dconv_fwd(x[..., :64].contiguous(), SC.pack_s1(wt[:, :, :16]).to(
             torch.bfloat16).contiguous(), 16, co)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,ci,co", [(1, 13, 21, 32, 32), (3, 9, 35, 32, 64),
+                                         (3, 20, 7, 32, 32), (1, 5, 3, 32, 64)])
+def test_cuda_s2dconv_wgrad_ragged_planes(card, b, h, w, ci, co):
+    """K6b's cluster kernel against its twin where the planes are not
+    multiples of the 8 x 16 cell tile (and, at 5 x 3 cells, smaller than
+    one tile and its halo) for the stem's (32, 32) and (32, 64) at batch 1
+    and 3; a second call gives the same bits."""
+    g = torch.Generator().manual_seed(b * h + w)
+    x = torch.relu(torch.randn(b, h, w, 4 * ci, generator=g)).to(card, torch.bfloat16)
+    dy = torch.randn(b, h, w, 4 * co, generator=g).to(card, torch.bfloat16)
+    got = SC.s2dconv_wgrad(x, dy, ci, co)
+    again = SC.s2dconv_wgrad(x, dy, ci, co)
+    torch.cuda.synchronize()
+    _close_all([got], [SC.wgrad_plain(x, dy, ci, co)], LINCOMB_REL)
+    assert torch.equal(got, again)

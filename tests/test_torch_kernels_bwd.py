@@ -172,6 +172,17 @@ def test_attention_bwd_on_cpu_is_its_twin(bf16_casts):
     assert not all(torch.equal(g, w) for g, w in zip(got, other))
 
 
+@pytest.mark.parametrize("l,bf16_casts,path", [
+    (1, False, "head"), (169, False, "head"), (256, False, "head"), (257, False, "rows_cols"),
+    (300, False, "rows_cols"), (768, False, "rows_cols"), (169, True, "rows_cols")])
+def test_attention_bwd_path_switches_at_the_head_limit(l, bf16_casts, path):
+    """K1b's one-CTA-per-head kernel takes heads up to HEAD_MAX_LEN tokens;
+    longer heads, and the decoder blocks' cast points, take the two-kernel
+    path."""
+    assert A.HEAD_MAX_LEN == 256
+    assert A.bwd_path(l, bf16_casts) == path
+
+
 # --------------------------------------------------------------- dropout
 def test_dropout_mask_is_deterministic_and_keyed():
     a = DR.dropout_keep(123, 0.1, 64, 512)

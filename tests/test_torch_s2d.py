@@ -192,3 +192,40 @@ def test_s2d_stem_matches_plain_stem(train):
         ref.load_state_dict(m.state_dict())
         for a, b in zip(m(odd), ref(odd)):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("b,h,w,ci,co", [(24, 104, 104, 32, 32), (24, 104, 104, 32, 64),
+                                         (1, 20, 37, 32, 32), (3, 9, 17, 32, 64),
+                                         (2, 16, 24, 64, 32), (1, 5, 7, 64, 64),
+                                         (1, 1, 1, 32, 32), (5, 8, 16, 32, 32)])
+def test_wgrad_schedule_covers_every_tile_once(b, h, w, ci, co):
+    """K6b's schedule gives each of the ragged plane's 8 x 16 cell tiles to
+    exactly one cluster's contiguous range, leaves no cluster empty, and
+    fits the clusters' CTAs on CLUSTER_SMS SMs."""
+    clusters, per = SC.wgrad_schedule(b, h, w, ci, co)
+    tr, tw = SC.TILE_CELLS
+    tiles = b * -(-h // tr) * -(-w // tw)
+    owner = np.full(tiles, -1)
+    for g in range(clusters):
+        lo, hi = g * per, min(tiles, (g + 1) * per)
+        assert lo < hi, f"cluster {g} is empty"
+        assert (owner[lo:hi] == -1).all()
+        owner[lo:hi] = g
+    assert (owner >= 0).all()
+    size, groups = SC.wgrad_cluster(ci, co)
+    assert size <= SC.MAX_CLUSTER and size * groups == (16 * ci // 128) * (4 * co // 128)
+    assert clusters * size * groups <= max(SC.CLUSTER_SMS, size * groups)
+
+
+def test_wgrad_schedule_depends_on_the_shapes_alone():
+    """The schedule, and so the order of K6b's sums, is a function of (B, H,
+    W, ci, co): the same in every call, whatever the thread or device
+    state, and the main path's conv2 and conv3 take 30 and 15 clusters."""
+    shapes = [(24, 104, 104, 32, 32), (24, 104, 104, 32, 64), (3, 9, 17, 32, 64)]
+    first = [SC.wgrad_schedule(*s) for s in shapes]
+    torch.manual_seed(123)
+    with torch.no_grad():
+        again = [SC.wgrad_schedule(*s) for s in reversed(shapes)][::-1]
+    assert first == again
+    assert first[:2] == [(30, 73), (15, 146)]
+    assert SC.wgrad_schedule(24, 104, 104, 32, 32) != SC.wgrad_schedule(24, 96, 104, 32, 32)

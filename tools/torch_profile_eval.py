@@ -31,9 +31,13 @@ from collections import defaultdict
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 GROUPS = (
+    # first match wins: the s2d kernels before K2b/K3b's "wgrad_kernel"
+    ("K6b s2dconv wgrad (cluster kernel)", ("s2dconv_wgrad",)),
+    ("K6 s2dconv (forward, dgrad)", ("s2dconv_",)),
     # K1 itself (the attention pool) and the attention step inside K2/K3
     ("attention_kernel (K1 + K2/K3 inner)", ("attention_kernel",)),
-    ("attention backward (K1b + K2b/K3b inner)", ("attn_bwd_",)),
+    ("K1b attention-pool backward (one CTA per head)", ("attn_bwd_head",)),
+    ("attention backward (K2b/K3b inner; K1b past 256 tokens)", ("attn_bwd_",)),
     ("K2b/K3b: ln_post_bwd, ln_pre_bwd", ("ln_post_bwd", "ln_pre_bwd")),
     ("K2b/K3b: gemm_nn (dX)", ("gemm_nn_kernel",)),
     ("K2b/K3b: wgrad (dW)", ("wgrad_kernel",)),
@@ -44,7 +48,6 @@ GROUPS = (
     ("K2/K3 block: outproj_ln_residual", ("outproj_ln_residual_kernel",)),
     ("K4 ffn", ("ffn_fwd_kernel",)),
     ("K5/K5b lincomb", ("lincomb_", "sum_splits_kernel")),
-    ("K6/K6b s2dconv", ("s2dconv_",)),
     ("host-to-device copies", ("memcpy htod",)),
     ("pooling", ("avg_pool", "max_pool")),
     ("dtype casts and layout copies", ("copy_kernel",)),
@@ -110,7 +113,10 @@ def main() -> int:
     count = defaultdict(int)
     spans = []
     for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.device_time > 0:
+        # kernels only: a GPU user annotation (Optimizer.step#Adam.step) spans
+        # kernels already counted
+        if (ev.device_type == torch.autograd.DeviceType.CUDA and ev.device_time > 0
+                and not getattr(ev, "is_user_annotation", False)):
             per_kernel[ev.name] += ev.device_time / 1e3  # ms
             count[ev.name] += 1
             spans.append((ev.time_range.start, ev.time_range.end))
