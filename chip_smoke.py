@@ -26,6 +26,9 @@ Phases, in order; any failure propagates and the exit code is not 0:
      batch 24, 104x104 cells, each timed beside its twin, cuDNN's conv of
      the blocked tensor with the zero-embedded kernel (the function K6
      replaces) and cuDNN's plain 3x3 conv of the unblocked 208^2 tensor;
+     the attention kernel at the shapes K2 (676 tokens) and K3 (676
+     queries, 17 masked keys) launch it with, against its twin and timed
+     beside SDPA there;
   4. the eval main path: full-width CROG (config/OCID-VLG/
      crog_synthetic_r50.yaml as written: RN50 (3,4,6,3), 416^2, 12-layer
      text tower, 3 decoder layers, dim_ffn 2048, bf16, the rawlb wire
@@ -63,9 +66,11 @@ Phases, in order; any failure propagates and the exit code is not 0:
      BatchNorm on running statistics, the same positive priorities, on the
      card (kernels, bf16) and on the CPU (plain PyTorch, fp32): the 8 loss
      terms and each group's gradients must agree;
- 12. K1b's and K6b's device time per call from torch.profiler's kernel rows,
-     and their library calls', beside the CUDA-event times of phase 3 (last,
-     so that the profiler runs in no timed phase).
+ 12. the device time per call, from torch.profiler's kernel rows, of K1,
+     K1b, K2b, K3b, each K6 and K6b launch and their library calls, and of
+     the attention kernel and SDPA at K2's and K3's shapes, beside the
+     CUDA-event times of phase 3 (last, so that the profiler runs in no
+     timed phase).
 
 Precision: fp32 products on the card run in full fp32 (TF32 off for matmul
 and cuDNN) wherever fp32 is compared; the models compute in bf16.
@@ -430,40 +435,60 @@ def _record(name, max_err, bms, by):
 
 
 def device_ms(fn, reps: int = 10):
-    """(device ms per call, kernel names): the time the card spends in the
-    kernels ``fn`` launches, from torch.profiler's kernel rows, so that host
-    time in a wrapper cannot pass for kernel time in ``cuda_ms``; None where
-    the profiler sees no device time."""
+    """(device ms per call, {kernel name: device ms per call}): the time
+    the card spends in the kernels ``fn`` launches, from torch.profiler's
+    kernel rows, so that host time in a wrapper cannot pass for kernel time
+    in ``cuda_ms``; None where the profiler sees no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time > 0
-            and not getattr(e, "is_user_annotation", False)]
+    for _ in range(3):  # a trace now and then comes back without kernel rows
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time > 0
+                and not getattr(e, "is_user_annotation", False)]
+        if rows:
+            break
     total = sum(e.device_time for e in rows) / 1e3 / reps
-    return (total if total > 0 else None), sorted({e.name.split("(")[0] for e in rows})
+    by_name = {}
+    for e in rows:
+        name = e.name.split("(")[0]
+        by_name[name] = by_name.get(name, 0.0) + e.device_time / 1e3 / reps
+    return (total if total > 0 else None), by_name
 
 
-# (label, CUDA-event ms, call) of K1b, K6b and their library calls, whose
-# device time ``print_device_times`` takes after the timed phases, so that
-# the profiler runs in none of them
+# (label, CUDA-event ms, call, group or None) of K1, K1b, K2b, K3b, each K6
+# and K6b launch, their library calls, and the attention kernel at K2's and K3's
+# shapes beside SDPA there, whose device time ``print_device_times`` takes
+# after the timed phases, so that the profiler runs in none of them; calls
+# of one group are also summed (K6 and cuDNN per CROG step)
 DEVICE_TIMED = []
 
 
 def print_device_times():
     """Each DEVICE_TIMED call's CUDA-event time beside its kernels' device
-    time."""
-    for label, ms, fn in DEVICE_TIMED:
+    time, then each group's sum."""
+    sums = {}
+    for label, ms, fn, group in DEVICE_TIMED:
         dev, names = device_ms(fn)
         shown = "not measured (no device rows)" if dev is None else f"{dev:.4f} ms"
-        print(f"[kernels] {label}: device time {shown} per call in {names}; CUDA events "
+        parts = ", ".join(f"{n[:90]} {t:.4f}" for n, t in sorted(names.items(),
+                                                                   key=lambda kv: -kv[1]))
+        print(f"[kernels] {label}: device time {shown} per call ({parts}); CUDA events "
               f"{ms:.4f} ms", flush=True)
+        if group is not None:
+            dev_sum, ms_sum = sums.get(group, (0.0, 0.0))
+            sums[group] = (None if dev is None or dev_sum is None else dev_sum + dev,
+                           ms_sum + ms)
+    for group, (dev, ms) in sums.items():
+        shown = "not measured" if dev is None else f"{dev:.4f} ms"
+        print(f"[kernels] {group}: device time {shown}; CUDA events {ms:.4f} ms",
+              flush=True)
 
 
 def _time(rec, kern, plain, lib):
@@ -473,10 +498,71 @@ def _time(rec, kern, plain, lib):
     print(f"[kernels] {rec['name']}: {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f}"
           f", library {rec['library_ms']}, bound {rec['bound_ms']:.4f} by "
           f"{rec['bound_by']})", flush=True)
+    if rec["name"] == "attention":
+        DEVICE_TIMED.append(("attention (K1)", rec["ms"], kern, None))
+        DEVICE_TIMED.append(("attention's library call (SDPA forward)",
+                             rec["library_ms"], lib, None))
+    if rec["name"] in ("decoder_self_block_bwd", "decoder_cross_block_bwd"):
+        kid = "K2b" if rec["name"] == "decoder_self_block_bwd" else "K3b"
+        DEVICE_TIMED.append((f"{rec['name']} ({kid})", rec["ms"], kern, None))
     if rec["name"] == "attention_bwd":
-        DEVICE_TIMED.append(("attention_bwd (K1b)", rec["ms"], kern))
+        DEVICE_TIMED.append(("attention_bwd (K1b)", rec["ms"], kern, None))
         DEVICE_TIMED.append(("attention_bwd's library call (SDPA backward)",
-                             rec["library_ms"], lib))
+                             rec["library_ms"], lib, None))
+
+
+def attention_yardsticks(device, b=BATCH, l=676, t=17, heads=8, timed: bool = True):
+    """The attention kernel at the shapes K2 and K3 launch it with (self
+    attention over 676 tokens; 676 queries over 17 text keys with an
+    additive key mask, as the cross block's key padding makes it) against
+    its twin under K1's tolerance, and the two-kernel attention backward
+    that K2b and K3b run there (the decoder blocks' bf16 cast points)
+    against its twin under BWD_REL_TOL; each timed beside SDPA's forward or
+    backward at the same shapes (the mask as SDPA's ``attn_mask``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from crog_tpu_torch.ops import attention as A
+
+    g = torch.Generator().manual_seed(SEED + 9)
+    d = heads * 64
+    rnd = lambda *shape: torch.randn(*shape, generator=g).to(device, torch.bfloat16)
+    lengths = torch.randint(4, t + 1, (b,), generator=g)
+    mask = torch.where(torch.arange(t)[None, :] >= lengths[:, None], A.NEG, 0.0).to(device)
+    split = lambda x: x.view(b, x.shape[1], heads, 64).transpose(1, 2)
+    x = rnd(b, l, d)
+    cases = [("K2's self attention (L 676, 8 heads)", x, rnd(b, l, d), rnd(b, l, d), None)]
+    cases.append(("K3's cross attention (676 queries, 17 keys, key mask)", x,
+                  rnd(b, t, d), rnd(b, t, d), mask))
+    for label, q, k, v, m in cases:
+        kern = lambda q=q, k=k, v=v, m=m: A.fused_attention(q, k, v, heads, m)
+        o = kern()
+        _compare(f"attention at {label}", o, A.attention_plain(q, k, v, heads, m),
+                 TOL["attention"])
+        do = rnd(*q.shape)
+        bwd = lambda q=q, k=k, v=v, o=o, do=do, m=m: A.attention_bwd(
+            q, k, v, o, do, heads, bf16_casts=True, mask_add=m)
+        for name, g_, r in zip(("dq", "dk", "dv"), bwd(),
+                               A.mha_bwd_plain(q, k, v, do, heads, m)):
+            _compare(f"attention backward (bf16 cast points) at {label}.{name}", g_, r,
+                     BWD_REL_TOL * float(r.float().abs().max()))
+        if not timed:
+            continue
+        am = None if m is None else m[:, None, None, :].to(torch.bfloat16)
+        lib = lambda q=q, k=k, v=v, am=am: F.scaled_dot_product_attention(
+            split(q), split(k), split(v), attn_mask=am)
+        leaves = [split(t).detach().requires_grad_() for t in (q, k, v)]
+        with torch.enable_grad():
+            out = F.scaled_dot_product_attention(*leaves, attn_mask=am)
+        lib_bwd = lambda out=out, leaves=leaves, do=do: torch.autograd.grad(
+            out, leaves, split(do), retain_graph=True)
+        ms, lib_ms, bms, lib_bms = cuda_ms(kern), cuda_ms(lib), cuda_ms(bwd), cuda_ms(lib_bwd)
+        print(f"[kernels] attention at {label}: {ms:.4f} ms (SDPA {lib_ms:.4f}); backward "
+              f"with bf16 cast points {bms:.4f} ms (SDPA backward {lib_bms:.4f})", flush=True)
+        DEVICE_TIMED.append((f"attention at {label}", ms, kern, None))
+        DEVICE_TIMED.append((f"SDPA at {label}", lib_ms, lib, None))
+        DEVICE_TIMED.append((f"attention backward (K2b/K3b's step) at {label}", bms, bwd, None))
+        DEVICE_TIMED.append((f"SDPA backward at {label}", lib_bms, lib_bwd, None))
 
 
 def _compare(name, got, ref, tol, share=1.0):
@@ -522,6 +608,7 @@ def check_kernels(device, timed: bool = True):
             records[name] = _record(name, max_err, *bound(flops, nb))
             if timed:
                 _time(records[name], kern, plain, lib)
+        attention_yardsticks(device, timed=timed)
         k1b_cast_check(inp)
         k1b_long_check(device)
         records.update(check_lincomb(device, timed))
@@ -746,10 +833,12 @@ def check_s2dconv(device, timed: bool = True):
                 print(f"[kernels] {name} ({label}): {ms:.4f} ms (plain {plain_ms:.4f}, "
                       f"cuDNN blocked {lib_ms:.4f}, cuDNN unblocked 208^2 {ub_ms:.4f}, "
                       f"bound {bms:.4f} by {by})", flush=True)
-                if name == "s2dconv_wgrad":
-                    DEVICE_TIMED.append((f"{name} (K6b, {label})", ms, kern))
-                    DEVICE_TIMED.append((f"{name}'s library call (conv2d_weight, {label})",
-                                         lib_ms, lib))
+                kid = "K6b" if name == "s2dconv_wgrad" else "K6"
+                call = "conv2d_weight" if name == "s2dconv_wgrad" else "cuDNN blocked conv"
+                DEVICE_TIMED.append((f"{name} ({kid}, {label})", ms, kern,
+                                     f"{name} ({kid}) per CROG train step"))
+                DEVICE_TIMED.append((f"{name}'s library call ({call}, {label})", lib_ms, lib,
+                                     f"{name}'s library call ({call}) per CROG train step"))
         if timed:
             print(f"[kernels] {name} per CROG train step: {rec['ms']:.4f} ms (plain "
                   f"{rec['plain_ms']:.4f}, cuDNN blocked {rec['library_ms']:.4f}, cuDNN "
@@ -1312,27 +1401,39 @@ def ptxas_entries(text: str):
 
 
 def redesigned_resources(reports):
-    """The build's registers and spills of K1b's one-CTA-per-head kernel and
-    K6b's cluster kernel, and at the main path's shapes their registers,
-    shared memory per CTA (static + dynamic) and spills as the runtime loads
-    them (K6b also the clusters of its launch the card holds at once)."""
+    """The build's registers and spills of the redesigned kernels (K1b's
+    one-CTA-per-head kernel, the two-kernel attention backward that K2b and
+    K3b run, K6's persistent conv, K6b's cluster kernel), and at the main
+    path's shapes their registers, shared memory per CTA (static + dynamic)
+    and spills as the runtime loads them (K6b also the clusters of its
+    launch the card holds at once)."""
     import ctypes
 
     from crog_tpu_torch.ops import cuda_build
 
-    for lib, key in (("attention_bwd", "attn_bwd_head_kernel"),
-                     ("s2dconv", "s2dconv_wgrad_kernel")):
+    for lib, keys in (("attention_bwd", ("attn_bwd_head_kernel", "attn_bwd_rows_kernel",
+                                         "attn_bwd_cols_kernel")),
+                      ("s2dconv", ("s2dconv_fwd_kernel", "s2dconv_wgrad_kernel"))):
         for entry, regs, spill in ptxas_entries(reports[lib]):
-            if key in entry:
+            if any(k in entry for k in keys):
                 print(f"[build] ptxas {entry}: {regs} registers, {spill} bytes spill stores",
                       flush=True)
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 6)()
     ptr = ctypes.cast(out, ctypes.c_void_p)
     lib = cuda_build.load("attention_bwd")
     cuda_build.check_launch(lib, lib.crog_attention_bwd_head_attrs(169, ptr), "attrs")
     print(f"[build] K1b one-CTA-per-head kernel at 169 tokens: {out[0]} registers, {out[1]} "
           f"bytes shared memory per CTA, {out[2]} bytes local (spill) per thread", flush=True)
+    cuda_build.check_launch(lib, lib.crog_attention_bwd_attrs(1, ptr), "attrs")
+    for i, name in enumerate(("rows", "cols")):
+        print(f"[build] K2b/K3b attention backward, {name} kernel (bf16 cast points): "
+              f"{out[3 * i]} registers, {out[3 * i + 1]} bytes shared memory per CTA, "
+              f"{out[3 * i + 2]} bytes local (spill) per thread", flush=True)
     lib = cuda_build.load("s2dconv")
+    for ci in (32, 64):
+        cuda_build.check_launch(lib, lib.crog_s2dconv_fwd_attrs(ci, ptr), "attrs")
+        print(f"[build] K6 persistent kernel ci={ci}: {out[0]} registers, {out[1]} bytes "
+              f"shared memory per CTA, {out[2]} bytes local (spill) per thread", flush=True)
     for ci, co in ((32, 32), (32, 64)):
         cuda_build.check_launch(lib, lib.crog_s2dconv_wgrad_attrs(ci, co, ptr), "attrs")
         print(f"[build] K6b cluster kernel ci={ci} co={co}: {out[0]} registers, {out[1]} bytes "

@@ -42,17 +42,22 @@ crog::AttnBwdArgs self_args(const void* q, const void* k, const void* v, const v
 
 }  // namespace
 
-// q, k, v, o, dout, dq, dk, dv: [B, L, H*64] bf16, contiguous.
-// The two-kernel path.  stats: [3, B*H, L] f32 workspace.  bf16_casts 0 is
-// K1b; 1 runs the decoder blocks' cast points (kBwdBf16) on the same
-// interface, for the checks that K1b's tolerance would see a lost f32 cast
-// point.
+// The two-kernel path.  q, o, dout, dq: [B, Lq, H*64] bf16; k, v, dk, dv:
+// [B, Lk, H*64] bf16, contiguous; mask: [B, Lk] additive f32 or null.
+// stats: [3, B*H, Lq] f32 workspace.  bf16_casts 0 is K1b (unmasked self
+// attention, Lq = Lk); 1 runs the decoder blocks' cast points (kBwdBf16),
+// on which the checks of K2b's and K3b's attention step (and that K1b's
+// tolerance would see a lost f32 cast point) run.
 extern "C" int crog_attention_bwd(const void* q, const void* k, const void* v,
                                   const void* o, const void* dout, void* dq,
-                                  void* dk, void* dv, float* stats, int batch,
-                                  int heads, int len, float scale, int bf16_casts,
-                                  void* stream) {
-  const crog::AttnBwdArgs a = self_args(q, k, v, o, dout, dq, dk, dv, stats, heads, len, scale);
+                                  void* dk, void* dv, float* stats, const float* mask,
+                                  int batch, int heads, int lq, int lk, float scale,
+                                  int bf16_casts, void* stream) {
+  crog::AttnBwdArgs a = self_args(q, k, v, o, dout, dq, dk, dv, stats, heads, lq, scale);
+  if (!bf16_casts && (mask != nullptr || lq != lk)) return (int)cudaErrorInvalidValue;
+  a.mask = mask;
+  a.lk = lk;
+  a.k_bs = a.v_bs = a.dk_bs = a.dv_bs = a.k_rs * lk;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)(bf16_casts ? crog::launch_attention_bwd<crog::kBwdBf16>(a, batch, st)
                           : crog::launch_attention_bwd<crog::kBwdF32>(a, batch, st));
@@ -78,4 +83,12 @@ extern "C" int crog_attention_bwd_head_attrs(int len, int* out) {
     case 192: return (int)crog::attn_bwd_head_attrs<192>(out);
     default: return (int)crog::attn_bwd_head_attrs<256>(out);
   }
+}
+
+// out[6]: registers per thread, shared memory bytes per CTA and spill bytes
+// per thread of the two-kernel path's rows kernel, then its cols kernel,
+// with the decoder blocks' cast points (bf16_casts 1) or K1b's (0)
+extern "C" int crog_attention_bwd_attrs(int bf16_casts, int* out) {
+  return (int)(bf16_casts ? crog::attention_bwd_attrs<crog::kBwdBf16>(out)
+                          : crog::attention_bwd_attrs<crog::kBwdF32>(out));
 }

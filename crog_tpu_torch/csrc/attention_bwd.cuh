@@ -1,10 +1,11 @@
 // Softmax attention backward for head dim 64, in two kernels.
 //
 // Replaces the backward Pallas kernel `_bwd_kernel` of
-// crog_tpu/ops/pallas_attention.py:53 (pallas_call at :140, K1b) and the
-// all-head attention backward `_mha_bwd` inside the decoder block backward
-// kernels (crog_tpu/ops/pallas_decoder.py:126, K2b/K3b).  The two differ in
-// their cast points, so the mode is a template parameter:
+// crog_tpu/ops/pallas_attention.py:53 (pallas_call at :140, K1b, for heads
+// longer than the one-CTA-per-head kernel of attention_bwd_head.cuh takes)
+// and the all-head attention backward `_mha_bwd` inside the decoder block
+// backward kernels (crog_tpu/ops/pallas_decoder.py:126, K2b/K3b).  The two
+// differ in their cast points, so the mode is a template parameter:
 //   kBwdF32  (K1b): P, dP, dS in f32, delta = rowsum(dO * O); the f32
 //                   operands of dV = P^T dO, dQ = dS K and dK = dS^T Q are
 //                   split into bf16 hi + lo halves, so the tensor-core
@@ -17,39 +18,53 @@
 //   dP = dO V^T,  dS = P (dP - delta) * scale
 //   dQ = dS K,  dK = dS^T Q,  dV = P^T dO
 //
-// Bound on an H100: 2.5x the forward's products (five [L, L, 64] products
-// against the forward's two) over q, k, v, o, dO in and dq, dk, dv out.  At
-// the CLIP attention pool (B=24, 32 heads, L=169) that is 14 GFLOP against
-// 133 MB: memory-bound, about 40 us.
+// Bound on an H100 at the decoder's self block (B = 24, 8 heads, L = 676):
+// five [L, L, 64] products, 56 GFLOP, 0.057 ms at the bf16 peak, against
+// 58 MB of q, k, v, dO in and dq, dk, dv out, 0.017 ms: the products bound
+// it.  This design does nine product units (S three times, dP twice), and
+// its per-element softmax work (an exp2 per score and pass, the casts)
+// costs about as much as the products.
 //
 // Design.  Hopper blocks cannot carry a sum from one grid step to the next
 // as the TPU's sequential grid does, and dK/dV sum over queries while dQ
 // sums over keys.  So, as FlashAttention-2 does, one kernel owns query rows
 // and one owns key rows; neither uses atomics, so the result is the same in
-// every run.
-//   attn_bwd_rows: a block of 4 warps takes 64 query rows of one head,
-//     keeps their whole [64, Lk] score block in shared memory (Lk <= 768,
-//     as the forward), recomputes P exactly as the forward did, forms delta
-//     and dS in place, and writes dQ plus the row statistics (m, l, delta)
-//     for the second kernel.
-//   attn_bwd_cols: a block takes 64 key rows of one head, walks the query
-//     tiles, rebuilds P^T and dS^T for its keys from those statistics, and
-//     accumulates dK and dV in registers.
+// every run.  Both keep every score tile in registers (ldmatrix + mma.sync
+// m16n8k16, bf16 operands, f32 sums; the C fragments of S become the A
+// fragments of the next product without leaving the thread) and stream
+// their operand tiles through a two-stage cp.async ring, so a tile's loads
+// run behind the previous tile's products.  Scores are taken in the log2
+// domain (s * log2(e)), so each exponential is one exp2, and normalized by
+// a reciprocal.  Shared memory is 55-57 KB and registers at most 168, so
+// three CTAs of 4 warps share an SM.
+//   attn_bwd_rows: 4 warps take 64 query rows of one head, 16 each, and
+//     walk the key tiles twice.  The first pass keeps each row's running
+//     max and sum and (kBwdBf16) the running sum of dP exp2(s - max), all
+//     rescaled when the max grows, which gives delta = rowsum(dP * P) in
+//     the same pass (kBwdF32: delta = rowsum(dO * O) from dO and O).  The
+//     second forms dS and accumulates dQ = dS K in registers.  It writes dQ
+//     and the row statistics (max, 1 / sum, delta).
+//   attn_bwd_cols: 4 warps take 64 key rows of one head, 16 each, and walk
+//     the query tiles with their saved row statistics (flash-style): S^T =
+//     K Q^T and dP^T = V dO^T in registers, P^T and dS^T from them, and dV
+//     += P^T dO, dK += dS^T Q accumulated in registers across all query
+//     tiles.
+// Key and query n-tiles past the last row are skipped (the cross block's 17
+// keys take three of a tile's eight).
 #pragma once
 
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace crog {
 
 enum AttnBwdMode { kBwdF32 = 0, kBwdBf16 = 1 };
 
-constexpr int kAbBQ = 64;             // rows per block (queries or keys)
+constexpr int kAbBQ = 64;             // rows per block (queries or keys), and per tile
 constexpr int kAbDH = 64;             // head dim
-constexpr int kAbLdT = kAbDH + 8;     // bf16 tile row stride
+constexpr int kAbLdT = kAbDH + 8;     // bf16 tile row stride (conflict-free ldmatrix)
 constexpr int kAbMaxLk = 768;
-constexpr int kAbTileBytes = kAbBQ * kAbLdT * 2;  // 9216
-constexpr int kAbStLd = 36;           // row kernel: per-warp [16, 32] f32 staging
-constexpr int kAbCsLd = 68;           // col kernel: per-warp [16, 64] f32 staging
+constexpr int kAbTile = kAbBQ * kAbLdT;  // elements of one [64, 64] tile
 
 struct AttnBwdArgs {
   const bf16* q;
@@ -61,303 +76,303 @@ struct AttnBwdArgs {
   bf16* dq;
   bf16* dk;
   bf16* dv;
-  float* stats;       // [3][B*H][Lq]: row max, row sum, delta
+  float* stats;       // [3][B*H][Lq]: row max, 1 / row sum, delta (attn_bwd_rows)
   int heads, lq, lk;
   long long q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs, do_bs, do_rs;
   long long dq_bs, dq_rs, dk_bs, dk_rs, dv_bs, dv_rs;  // in elements
   float scale;
 };
 
-__host__ __device__ inline int ab_score_ld(int lk) { return round_up(lk, kAbBQ) + 8; }
+constexpr int kAbThreads = 128;  // 4 warps, 16 rows each
+constexpr size_t kAbRowsSmem = 6 * kAbTile * sizeof(bf16);
+constexpr size_t kAbColsSmem = 6 * kAbTile * sizeof(bf16) + 2 * 3 * kAbBQ * sizeof(float);
 
-__host__ __device__ inline size_t ab_rows_smem(int lk) {
-  return 2 * kAbTileBytes + 3 * kAbBQ * sizeof(float) +
-         (size_t)kAbBQ * ab_score_ld(lk) * sizeof(float);
+// rows [r0, r0 + rows) of a [L, 64] head slice into a [rows, kAbLdT] tile
+// by cp.async over THREADS threads, zeros for rows >= L
+template <int THREADS>
+__device__ __forceinline__ void ab_load_rows(bf16* tile, const bf16* base, long long rs,
+                                             int r0, int rows, int L) {
+  for (int v = threadIdx.x; v < rows * 8; v += THREADS) {
+    const int r = v >> 3;
+    const int c = (v & 7) * 8;
+    const bool ok = r0 + r < L;
+    cp_async16(smem_u32(tile + r * kAbLdT + c), base + (ok ? (long long)(r0 + r) * rs : 0) + c,
+               ok ? 16 : 0);
+  }
 }
 
-constexpr size_t kAbColsSmem =
-    2 * kAbTileBytes + 3 * kAbBQ * sizeof(float) +
-    4 * (2 * 16 * kAbCsLd * sizeof(float) + 4 * 16 * kAbLdT * sizeof(bf16));
+__device__ __forceinline__ void ab_load_async(bf16* tile, const bf16* base, long long rs,
+                                              int r0, int L) {
+  ab_load_rows<kAbThreads>(tile, base, rs, r0, kAbBQ, L);
+}
 
-// rows [r0, r0+64) of a [L, 64] head slice into a [64, kAbLdT] tile, zero
-// rows >= L
-__device__ __forceinline__ void ab_load_tile(bf16* tile, const bf16* base, long long rs,
-                                             int r0, int L) {
-  for (int v = threadIdx.x; v < kAbBQ * (kAbDH / 8); v += blockDim.x) {
-    const int r = v / (kAbDH / 8);
-    const int c = (v % (kAbDH / 8)) * 8;
-    if (r0 + r < L) {
-      copy8(tile + r * kAbLdT + c, base + (long long)(r0 + r) * rs + c);
-    } else {
-      zero8(tile + r * kAbLdT + c);
+// acc[j] (16 rows x 8 columns each) = rows r0.. of tile A times rows 8j.. of
+// tile B, transposed: A [., 64] and B [64, 64] both row-major with the head
+// dim inner, j < nv (the later n-tiles are left as they are)
+__device__ __forceinline__ void ab_nt(float (&acc)[8][4], const bf16* A, int r0, const bf16* B,
+                                      int nv) {
+  const int lane = threadIdx.x & 31;
+  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int a_col = (lane >> 4) * 8;
+#pragma unroll
+  for (int k2 = 0; k2 < 2; ++k2) {
+    uint32_t a0[4], a1[4];
+    ldsm_x4(smem_u32(A + (r0 + a_row) * kAbLdT + k2 * 32 + a_col), a0);
+    ldsm_x4(smem_u32(A + (r0 + a_row) * kAbLdT + k2 * 32 + 16 + a_col), a1);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (j < nv) {
+        uint32_t bb[4];
+        ldsm_x4(smem_u32(B + (j * 8 + (lane & 7)) * kAbLdT + k2 * 32 + (lane >> 3) * 8), bb);
+        mma_bf16(acc[j], a0, bb[0], bb[1]);
+        mma_bf16(acc[j], a1, bb[2], bb[3]);
+      }
     }
   }
 }
 
-// ------------------------------------------------------------- rows
-template <int MODE>
-__global__ void __launch_bounds__(128) attn_bwd_rows_kernel(AttnBwdArgs a) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // q, then dO, then staging
-  bf16* kvs = reinterpret_cast<bf16*>(smem_raw + kAbTileBytes);
-  float* rstat = reinterpret_cast<float*>(smem_raw + 2 * kAbTileBytes);  // m, l, delta
-  float* sc = rstat + 3 * kAbBQ;
+// acc (16 rows x 64 head columns as 8 C fragments) += a (16 x 16) times
+// rows k0..k0+15 of the row-major [64, 64] tile B
+__device__ __forceinline__ void ab_nn(float (&acc)[8][4], const uint32_t (&a)[4], const bf16* B,
+                                      int k0) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int n2 = 0; n2 < 4; ++n2) {
+    uint32_t r[4];
+    ldsm_x4_t(smem_u32(B + (k0 + (lane & 15)) * kAbLdT + (2 * n2 + (lane >> 4)) * 8), r);
+    mma_bf16(acc[2 * n2], a, r[0], r[1]);
+    mma_bf16(acc[2 * n2 + 1], a, r[2], r[3]);
+  }
+}
 
-  const int lkp = round_up(a.lk, kAbBQ);
-  const int ls = lkp + 8;
+// the A fragment of k-step kk from the f32 C fragments of n-tiles 2kk and
+// 2kk + 1: bf16(x), and for kBwdF32 also bf16(x - bf16(x))
+template <int MODE>
+__device__ __forceinline__ void ab_frag(const float (&c)[8][4], int kk, uint32_t (&hi)[4],
+                                        uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const float x0 = c[2 * kk + (u >> 1)][2 * (u & 1)];
+    const float x1 = c[2 * kk + (u >> 1)][2 * (u & 1) + 1];
+    hi[u] = pack_bf16(x0, x1);
+    if (MODE == kBwdF32) {
+      const float2 h = unpack_bf16(hi[u]);
+      lo[u] = pack_bf16(x0 - h.x, x1 - h.y);
+    }
+  }
+}
+
+// acc += P B for k-steps kk with 2kk < nv (the product of every live key or
+// query n-tile), P in f32 C fragments: hi (and lo) halves
+template <int MODE>
+__device__ __forceinline__ void ab_nn_all(float (&acc)[8][4], const float (&p)[8][4],
+                                          const bf16* B, int nv) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (2 * kk < nv) {
+      uint32_t hi[4], lo[4];
+      ab_frag<MODE>(p, kk, hi, lo);
+      ab_nn(acc, hi, B, kk * 16);
+      if (MODE == kBwdF32) ab_nn(acc, lo, B, kk * 16);
+    }
+  }
+}
+
+__device__ __forceinline__ void ab_zero(float (&acc)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+}
+
+// ------------------------------------------------------------- rows
+// The row statistics kept for the cols kernel, per query row: the row max of
+// s * log2(e), the reciprocal of the row sum of exp2(s * log2(e) - max), and
+// delta.  Scores are taken in the log2 domain so that each exponential is one
+// exp2 (the same function as exp(s - m), rounded differently).
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int MODE>
+__global__ void __launch_bounds__(kAbThreads) attn_bwd_rows_kernel(AttnBwdArgs a) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dos = qs + kAbTile;
+  bf16* ring = dos + kAbTile;  // [2 stages][K, V]
+
   const int bh = blockIdx.y;
   const int b = bh / a.heads;
   const int h = bh % a.heads;
   const int q0 = blockIdx.x * kAbBQ;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int qd = lane & 3;
   const int r0 = warp * 16;
-  float* stg = reinterpret_cast<float*>(qs) + warp * 16 * kAbStLd;
 
   const bf16* qb = a.q + b * a.q_bs + h * kAbDH;
   const bf16* kb = a.k + b * a.k_bs + h * kAbDH;
   const bf16* vb = a.v + b * a.v_bs + h * kAbDH;
   const bf16* db = a.dout + b * a.do_bs + h * kAbDH;
+  const float* mrow = a.mask ? a.mask + (long long)b * a.lk : nullptr;
+  const float sl2 = a.scale * kLog2e;
+  const int T = (a.lk + kAbBQ - 1) / kAbBQ;
+  // two passes over the key tiles: the statistics (kBwdBf16: with delta),
+  // then dS and dQ.  V is needed in the first pass for delta = rowsum(dP * P)
+  // (kBwdBf16) and in the second for dP.
+  auto load = [&](int i) {
+    bf16* st = ring + (i & 1) * 2 * kAbTile;
+    ab_load_async(st, kb, a.k_rs, (i % T) * kAbBQ, a.lk);
+    if (MODE == kBwdBf16 || i >= T)
+      ab_load_async(st + kAbTile, vb, a.v_rs, (i % T) * kAbBQ, a.lk);
+  };
+  ab_load_async(qs, qb, a.q_rs, q0, a.lq);
+  ab_load_async(dos, db, a.do_rs, q0, a.lq);
+  load(0);
+  cp_async_commit();
 
-  // ---- raw scores S[64, lkp] = Q K^T into sc (the forward's sums)
-  ab_load_tile(qs, qb, a.q_rs, q0, a.lq);
-  __syncthreads();
-  {
-    FragA fq[kAbDH / 16];
+  // per thread: rows r0 + g and r0 + g + 8, columns 2qd.. of each n-tile;
+  // running max, sum and (kBwdBf16) sum of dP exp2(s - max)
+  float m[2] = {-3.0e38f, -3.0e38f}, l[2] = {0.0f, 0.0f}, dl[2] = {0.0f, 0.0f};
+  if (MODE == kBwdF32) {  // delta = rowsum(dO * O): two lanes per row
+    const bf16* ob = a.o + b * a.o_bs + h * kAbDH;
+    const int row = q0 + r0 + (lane >> 1);
+    float t = 0.0f;
+    if (row < a.lq) {
 #pragma unroll
-    for (int kk = 0; kk < kAbDH / 16; ++kk)
-      wmma::load_matrix_sync(fq[kk], qs + r0 * kAbLdT + kk * 16, kAbLdT);
-    for (int kt = 0; kt < lkp; kt += kAbBQ) {
-      ab_load_tile(kvs, kb, a.k_rs, kt, a.lk);
-      __syncthreads();
-      FragC acc[kAbBQ / 16];
+      for (int c = 0; c < 32; c += 8) {
+        alignas(16) bf16 x[8], y[8];
+        copy8(x, db + (long long)row * a.do_rs + (lane & 1) * 32 + c);
+        copy8(y, ob + (long long)row * a.o_rs + (lane & 1) * 32 + c);
 #pragma unroll
-      for (int j = 0; j < kAbBQ / 16; ++j) wmma::fill_fragment(acc[j], 0.0f);
+        for (int e = 0; e < 8; ++e) t += bf2f(x[e]) * bf2f(y[e]);
+      }
+    }
+    t += __shfl_xor_sync(0xffffffffu, t, 1);
+    dl[0] = __shfl_sync(0xffffffffu, t, 2 * g);
+    dl[1] = __shfl_sync(0xffffffffu, t, 2 * g + 16);
+  }
+  float inv[2] = {0.0f, 0.0f};
+  float dq[8][4];
+  ab_zero(dq);
+
+#pragma unroll 1
+  for (int i = 0; i < 2 * T; ++i) {
+    if (i + 1 < 2 * T) load(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // tile i (and Q, dO) landed for every thread
+    const int kt = (i % T) * kAbBQ;
+    const int nv = min(8, (a.lk - kt + 7) / 8);
+    const bf16* ks = ring + (i & 1) * 2 * kAbTile;
+    float sc[8][4], dp[8][4];
+    ab_zero(sc);
+    ab_nt(sc, qs, r0, ks, nv);
+    if (MODE == kBwdBf16 || i >= T) {
+      ab_zero(dp);
+      ab_nt(dp, dos, r0, ks + kAbTile, nv);
+    }
 #pragma unroll
-      for (int kk = 0; kk < kAbDH / 16; ++kk) {
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int j = 0; j < kAbBQ / 16; ++j) {
-          FragBCol fk;
-          wmma::load_matrix_sync(fk, kvs + (j * 16) * kAbLdT + kk * 16, kAbLdT);
-          wmma::mma_sync(acc[j], fq[kk], fk, acc[j]);
+      for (int e = 0; e < 4; ++e) {
+        const int key = kt + j * 8 + 2 * qd + (e & 1);
+        // padded keys below any real score (a masked one is -1e30 * log2(e))
+        sc[j][e] = key < a.lk ? sc[j][e] * sl2 + (mrow ? mrow[key] * kLog2e : 0.0f) : -3.0e38f;
+      }
+    if (i < T) {  // the running statistics over this thread's keys
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mt = m[r];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) mt = fmaxf(mt, sc[j][2 * r + e]);
+        const float corr = exp2f(m[r] - mt);
+        float lt = 0.0f, dt = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            // padded keys weigh exactly 0
+            const float x = kt + j * 8 + 2 * qd + e < a.lk ? exp2f(sc[j][2 * r + e] - mt) : 0.0f;
+            lt += x;
+            if (MODE == kBwdBf16) dt += x * dp[j][2 * r + e];
+          }
+        m[r] = mt;
+        l[r] = l[r] * corr + lt;
+        if (MODE == kBwdBf16) dl[r] = dl[r] * corr + dt;
+      }
+      if (i == T - 1) {  // the quad's four partial statistics, in a fixed order
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float mq = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
+          mq = fmaxf(mq, __shfl_xor_sync(0xffffffffu, mq, 2));
+          const float f = exp2f(m[r] - mq);
+          float lq = l[r] * f;
+          lq += __shfl_xor_sync(0xffffffffu, lq, 1);
+          lq += __shfl_xor_sync(0xffffffffu, lq, 2);
+          m[r] = mq;
+          inv[r] = 1.0f / lq;
+          if (MODE == kBwdBf16) {  // delta = rowsum(dP * P) = (sum dP exp2(s - m)) / l
+            float dq_ = dl[r] * f;
+            dq_ += __shfl_xor_sync(0xffffffffu, dq_, 1);
+            dq_ += __shfl_xor_sync(0xffffffffu, dq_, 2);
+            dl[r] = dq_ * inv[r];
+          }
         }
       }
+    } else {  // P = exp2(s - m) / l, dS = P (dP - delta) * scale; dQ += dS K
 #pragma unroll
-      for (int j = 0; j < kAbBQ / 16; ++j)
-        wmma::store_matrix_sync(sc + r0 * ls + kt + j * 16, acc[j], ls,
-                                wmma::mem_row_major);
-      __syncthreads();
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = kt + j * 8 + 2 * qd + (e & 1);
+          const float p = key < a.lk ? exp2f(sc[j][e] - m[e >> 1]) * inv[e >> 1] : 0.0f;
+          sc[j][e] = p * (dp[j][e] - dl[e >> 1]) * a.scale;
+        }
+      ab_nn_all<MODE>(dq, sc, ks, nv);
     }
+    __syncthreads();  // every warp is done with stage i & 1 before it refills
   }
 
-  // ---- dO tile into qs, fragments into registers
-  ab_load_tile(qs, db, a.do_rs, q0, a.lq);
-  __syncthreads();
-  FragA fdo[kAbDH / 16];
-#pragma unroll
-  for (int kk = 0; kk < kAbDH / 16; ++kk)
-    wmma::load_matrix_sync(fdo[kk], qs + r0 * kAbLdT + kk * 16, kAbLdT);
-  __syncthreads();  // qs is staging from here on
-
-  // ---- P = exp(s - m) / l in place, f32 (the forward's arithmetic)
-  const float* mrow = a.mask ? a.mask + (long long)b * a.lk : nullptr;
-  for (int r = 0; r < 16; ++r) {
-    float* srow = sc + (r0 + r) * ls;
-    float m = -3.0e38f;
-    for (int c = lane; c < lkp; c += 32) {
-      float s = kNeg;
-      if (c < a.lk) {
-        s = srow[c] * a.scale;
-        if (mrow) s += mrow[c];
-      }
-      srow[c] = s;
-      m = fmaxf(m, s);
-    }
-    m = warp_max(m);
-    float l = 0.0f;
-    for (int c = lane; c < lkp; c += 32) {
-      const float e = c < a.lk ? expf(srow[c] - m) : 0.0f;
-      srow[c] = e;
-      l += e;
-    }
-    l = warp_sum(l);
-    for (int c = lane; c < lkp; c += 32) srow[c] = srow[c] / l;
-    if (lane == 0) {
-      rstat[r0 + r] = m;
-      rstat[kAbBQ + r0 + r] = l;
-    }
-  }
-  __syncwarp();
-
-  // dP for this warp's 16 rows against keys [kt + 32 half, +32) into stg
-  auto dp_half = [&](int half) {
-    FragC acc[2];
-    wmma::fill_fragment(acc[0], 0.0f);
-    wmma::fill_fragment(acc[1], 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < kAbDH / 16; ++kk) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        FragBCol fv;  // element (d, key) at kvs[key * ld + d]
-        wmma::load_matrix_sync(fv, kvs + (half * 32 + j * 16) * kAbLdT + kk * 16, kAbLdT);
-        wmma::mma_sync(acc[j], fdo[kk], fv, acc[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(stg + j * 16, acc[j], kAbStLd, wmma::mem_row_major);
-    __syncwarp();
-  };
-
-  // ---- delta per row
-  float delta[16];
-  if (MODE == kBwdF32) {
-    const bf16* ob = a.o + b * a.o_bs + h * kAbDH;
-    for (int r = 0; r < 16; ++r) {
-      const int row = q0 + r0 + r;
-      float t = 0.0f;
-      if (row < a.lq) {
-        for (int c = lane; c < kAbDH; c += 32)
-          t += bf2f(db[(long long)row * a.do_rs + c]) * bf2f(ob[(long long)row * a.o_rs + c]);
-      }
-      delta[r] = warp_sum(t);
-    }
-  } else {
-#pragma unroll
-    for (int r = 0; r < 16; ++r) delta[r] = 0.0f;
-    for (int kt = 0; kt < lkp; kt += kAbBQ) {
-      ab_load_tile(kvs, vb, a.v_rs, kt, a.lk);
-      __syncthreads();
-      for (int half = 0; half < 2; ++half) {
-        dp_half(half);
-        const int c = kt + half * 32 + lane;
-#pragma unroll
-        for (int r = 0; r < 16; ++r)
-          delta[r] += stg[r * kAbStLd + lane] * sc[(r0 + r) * ls + c];
-        __syncwarp();
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int r = 0; r < 16; ++r) delta[r] = warp_sum(delta[r]);
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int r = 0; r < 16; ++r) rstat[2 * kAbBQ + r0 + r] = delta[r];
-  }
-
-  // ---- dS = P (dP - delta) * scale, in place over P (f32)
-  for (int kt = 0; kt < lkp; kt += kAbBQ) {
-    ab_load_tile(kvs, vb, a.v_rs, kt, a.lk);
-    __syncthreads();
-    for (int half = 0; half < 2; ++half) {
-      dp_half(half);
-      const int c = kt + half * 32 + lane;
-#pragma unroll
-      for (int r = 0; r < 16; ++r) {
-        float* p = sc + (r0 + r) * ls + c;
-        *p = c < a.lk ? *p * (stg[r * kAbStLd + lane] - delta[r]) * a.scale : 0.0f;
-      }
-      __syncwarp();
-    }
-    __syncthreads();
-  }
-
-  // ---- dS to bf16 operands over the same rows: hi at bf16 [0, lkp),
-  // and for kBwdF32 lo = bf16(dS - hi) at bf16 [ls + 8, ls + 8 + lkp)
-  constexpr int kPer = kAbMaxLk / 32;
-  for (int r = 0; r < 16; ++r) {
-    float* srow = sc + (r0 + r) * ls;
-    float vals[kPer];
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) vals[i] = (i * 32 + lane < lkp) ? srow[i * 32 + lane] : 0.f;
-    __syncwarp();
-    bf16* hrow = reinterpret_cast<bf16*>(srow);
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int c = i * 32 + lane;
-      if (c < lkp) {
-        const bf16 hi = f2bf(vals[i]);
-        hrow[c] = hi;
-        if (MODE == kBwdF32) hrow[ls + 8 + c] = f2bf(vals[i] - bf2f(hi));
-      }
-    }
-    __syncwarp();
-  }
-  __syncthreads();
-
-  // ---- dQ = dS K
-  FragC dqacc[kAbDH / 16];
-#pragma unroll
-  for (int j = 0; j < kAbDH / 16; ++j) wmma::fill_fragment(dqacc[j], 0.0f);
-  const bf16* dsw = reinterpret_cast<const bf16*>(sc + r0 * ls);
-  for (int kt = 0; kt < lkp; kt += kAbBQ) {
-    ab_load_tile(kvs, kb, a.k_rs, kt, a.lk);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kAbBQ / 16; ++kk) {
-      FragA fs, fsl;
-      wmma::load_matrix_sync(fs, dsw + kt + kk * 16, 2 * ls);
-      if (MODE == kBwdF32) wmma::load_matrix_sync(fsl, dsw + ls + 8 + kt + kk * 16, 2 * ls);
-#pragma unroll
-      for (int j = 0; j < kAbDH / 16; ++j) {
-        FragBRow fk;  // element (key, d) at kvs[key * ld + d]
-        wmma::load_matrix_sync(fk, kvs + (kk * 16) * kAbLdT + j * 16, kAbLdT);
-        wmma::mma_sync(dqacc[j], fs, fk, dqacc[j]);
-        if (MODE == kBwdF32) wmma::mma_sync(dqacc[j], fsl, fk, dqacc[j]);
-      }
-    }
-    __syncthreads();
-  }
-
-  // ---- stage and store dQ (bf16) and the row statistics
-  float* ostage = sc + r0 * ls;
-#pragma unroll
-  for (int j = 0; j < kAbDH / 16; ++j)
-    wmma::store_matrix_sync(ostage + j * 16, dqacc[j], ls, wmma::mem_row_major);
-  __syncwarp();
+  // ---- dQ (bf16) and the row statistics
   bf16* dqb = a.dq + b * a.dq_bs + h * kAbDH;
-  for (int e = lane; e < 16 * kAbDH; e += 32) {
-    const int r = e / kAbDH;
-    const int c = e % kAbDH;
-    const int row = q0 + r0 + r;
-    if (row < a.lq) dqb[(long long)row * a.dq_rs + c] = f2bf(ostage[r * ls + c]);
-  }
-  if (lane < 16) {
-    const int row = q0 + r0 + lane;
-    if (row < a.lq) {
-      const long long n = (long long)gridDim.y * a.lq;
-      float* st = a.stats + (long long)bh * a.lq + row;
-      st[0] = rstat[r0 + lane];
-      st[n] = rstat[kAbBQ + r0 + lane];
-      st[2 * n] = rstat[2 * kAbBQ + r0 + lane];
+  const long long n = (long long)gridDim.y * a.lq;
+  float* stb = a.stats + (long long)bh * a.lq;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + g + 8 * r;
+    if (row >= a.lq) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<uint32_t*>(dqb + (long long)row * a.dq_rs + j * 8 + 2 * qd) =
+          pack_bf16(dq[j][2 * r], dq[j][2 * r + 1]);
+    if (qd == 0) {
+      stb[row] = m[r];
+      stb[n + row] = inv[r];
+      stb[2 * n + row] = dl[r];
     }
   }
 }
 
 // ------------------------------------------------------------- cols
 template <int MODE>
-__global__ void __launch_bounds__(128) attn_bwd_cols_kernel(AttnBwdArgs a) {
+__global__ void __launch_bounds__(kAbThreads, 3) attn_bwd_cols_kernel(AttnBwdArgs a) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* t0 = reinterpret_cast<bf16*>(smem_raw);                 // k, then q tiles
-  bf16* t1 = reinterpret_cast<bf16*>(smem_raw + kAbTileBytes);  // v, then dO tiles
-  float* qstat = reinterpret_cast<float*>(smem_raw + 2 * kAbTileBytes);  // m, l, delta
-  unsigned char* wbase = smem_raw + 2 * kAbTileBytes + 3 * kAbBQ * sizeof(float);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const size_t per_warp = 2 * 16 * kAbCsLd * sizeof(float) + 4 * 16 * kAbLdT * sizeof(bf16);
-  float* sst = reinterpret_cast<float*>(wbase + warp * per_warp);  // S^T [16, 64]
-  float* pst = sst + 16 * kAbCsLd;                                 // dP^T [16, 64]
-  bf16* ph = reinterpret_cast<bf16*>(pst + 16 * kAbCsLd);          // P^T hi
-  bf16* pl = ph + 16 * kAbLdT;                                     // P^T lo
-  bf16* dsh = pl + 16 * kAbLdT;                                    // dS^T hi
-  bf16* dsl = dsh + 16 * kAbLdT;                                   // dS^T lo
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* vs = ks + kAbTile;
+  bf16* ring = vs + kAbTile;  // [2 stages][Q, dO]
+  float* sring = reinterpret_cast<float*>(ring + 4 * kAbTile);  // [2 stages][m, l, delta][64]
 
   const int bh = blockIdx.y;
   const int b = bh / a.heads;
   const int h = bh % a.heads;
   const int k0 = blockIdx.x * kAbBQ;
-  const int kr = warp * 16;  // this warp's keys [k0 + kr, +16)
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int qd = lane & 3;
+  const int kr = warp * 16;  // this warp's keys k0 + kr..
 
   const bf16* qb = a.q + b * a.q_bs + h * kAbDH;
   const bf16* kb = a.k + b * a.k_bs + h * kAbDH;
@@ -365,150 +380,138 @@ __global__ void __launch_bounds__(128) attn_bwd_cols_kernel(AttnBwdArgs a) {
   const bf16* db = a.dout + b * a.do_bs + h * kAbDH;
   const long long n = (long long)gridDim.y * a.lq;
   const float* stb = a.stats + (long long)bh * a.lq;
-  const float* mrow = a.mask ? a.mask + (long long)b * a.lk : nullptr;
-
-  ab_load_tile(t0, kb, a.k_rs, k0, a.lk);
-  ab_load_tile(t1, vb, a.v_rs, k0, a.lk);
-  __syncthreads();
-  FragA fk[kAbDH / 16], fv[kAbDH / 16];
-#pragma unroll
-  for (int kk = 0; kk < kAbDH / 16; ++kk) {
-    wmma::load_matrix_sync(fk[kk], t0 + kr * kAbLdT + kk * 16, kAbLdT);
-    wmma::load_matrix_sync(fv[kk], t1 + kr * kAbLdT + kk * 16, kAbLdT);
-  }
-  FragC dkacc[kAbDH / 16], dvacc[kAbDH / 16];
-#pragma unroll
-  for (int j = 0; j < kAbDH / 16; ++j) {
-    wmma::fill_fragment(dkacc[j], 0.0f);
-    wmma::fill_fragment(dvacc[j], 0.0f);
-  }
-
-  for (int q0 = 0; q0 < a.lq; q0 += kAbBQ) {
-    __syncthreads();  // every warp is done with the previous tiles
-    ab_load_tile(t0, qb, a.q_rs, q0, a.lq);
-    ab_load_tile(t1, db, a.do_rs, q0, a.lq);
-    for (int i = threadIdx.x; i < kAbBQ; i += blockDim.x) {
-      const bool ok = q0 + i < a.lq;
-      qstat[i] = ok ? stb[q0 + i] : 0.0f;
-      qstat[kAbBQ + i] = ok ? stb[n + q0 + i] : 1.0f;
-      qstat[2 * kAbBQ + i] = ok ? stb[2 * n + q0 + i] : 0.0f;
+  const int T = (a.lq + kAbBQ - 1) / kAbBQ;
+  auto load = [&](int it) {  // query tile it: Q, dO and its rows' statistics
+    bf16* st = ring + (it & 1) * 2 * kAbTile;
+    ab_load_async(st, qb, a.q_rs, it * kAbBQ, a.lq);
+    ab_load_async(st + kAbTile, db, a.do_rs, it * kAbBQ, a.lq);
+    float* ss = sring + (it & 1) * 3 * kAbBQ;
+    for (int v = threadIdx.x; v < 3 * kAbBQ; v += kAbThreads) {
+      const int r = it * kAbBQ + v % kAbBQ;
+      const bool ok = r < a.lq;
+      cp_async4(smem_u32(ss + v), stb + (v / kAbBQ) * n + (ok ? r : 0), ok ? 4 : 0);
     }
+  };
+  ab_load_async(ks, kb, a.k_rs, k0, a.lk);
+  ab_load_async(vs, vb, a.v_rs, k0, a.lk);
+  load(0);
+  cp_async_commit();
+
+  const float sl2 = a.scale * kLog2e;
+  bool kv[2];   // keys k0 + kr + g (+ 8) exist
+  float mk[2];  // their additive mask, times log2(e)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + kr + g + 8 * r;
+    kv[r] = key < a.lk;
+    mk[r] = kv[r] && a.mask ? a.mask[(long long)b * a.lk + key] * kLog2e : 0.0f;
+  }
+  float dk[8][4], dv[8][4];
+  ab_zero(dk);
+  ab_zero(dv);
+
+#pragma unroll 1
+  for (int it = 0; it < T; ++it) {
+    if (it + 1 < T) load(it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
-
-    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x 64 queries
-    {
-      FragC sacc[kAbBQ / 16], pacc[kAbBQ / 16];
+    const bf16* qs = ring + (it & 1) * 2 * kAbTile;
+    const bf16* dos = qs + kAbTile;
+    const float* ss = sring + (it & 1) * 3 * kAbBQ;
+    const int q0 = it * kAbBQ;
+    const int nv = min(8, (a.lq - q0 + 7) / 8);
+    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x 64 queries
+    float sc[8][4], dp[8][4];
+    ab_zero(sc);
+    ab_zero(dp);
+    ab_nt(sc, ks, kr, qs, nv);
+    ab_nt(dp, vs, kr, dos, nv);
+    // P^T and dS^T from the rows' statistics
 #pragma unroll
-      for (int j = 0; j < kAbBQ / 16; ++j) {
-        wmma::fill_fragment(sacc[j], 0.0f);
-        wmma::fill_fragment(pacc[j], 0.0f);
-      }
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int kk = 0; kk < kAbDH / 16; ++kk) {
-#pragma unroll
-        for (int j = 0; j < kAbBQ / 16; ++j) {
-          FragBCol fb;  // element (d, query) at tile[query * ld + d]
-          wmma::load_matrix_sync(fb, t0 + (j * 16) * kAbLdT + kk * 16, kAbLdT);
-          wmma::mma_sync(sacc[j], fk[kk], fb, sacc[j]);
-          wmma::load_matrix_sync(fb, t1 + (j * 16) * kAbLdT + kk * 16, kAbLdT);
-          wmma::mma_sync(pacc[j], fv[kk], fb, pacc[j]);
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + 2 * qd + (e & 1);  // query within the tile
+        const int r = e >> 1;
+        float p = 0.0f, ds = 0.0f;
+        if (kv[r] && q0 + c < a.lq) {
+          p = exp2f(sc[j][e] * sl2 + mk[r] - ss[c]) * ss[kAbBQ + c];
+          ds = p * (dp[j][e] - ss[2 * kAbBQ + c]) * a.scale;
         }
+        sc[j][e] = p;
+        dp[j][e] = ds;
       }
-#pragma unroll
-      for (int j = 0; j < kAbBQ / 16; ++j) {
-        wmma::store_matrix_sync(sst + j * 16, sacc[j], kAbCsLd, wmma::mem_row_major);
-        wmma::store_matrix_sync(pst + j * 16, pacc[j], kAbCsLd, wmma::mem_row_major);
-      }
-    }
-    __syncwarp();
-
-    // P^T, dS^T elementwise, rounded to the bf16 operands
-    for (int e = lane; e < 16 * kAbBQ; e += 32) {
-      const int r = e / kAbBQ;  // key within the warp's 16
-      const int c = e % kAbBQ;  // query within the tile
-      const int key = k0 + kr + r;
-      const bool ok = key < a.lk && q0 + c < a.lq;
-      float p = 0.0f, ds = 0.0f;
-      if (ok) {
-        float s = sst[r * kAbCsLd + c] * a.scale;
-        if (mrow) s += mrow[key];
-        p = expf(s - qstat[c]) / qstat[kAbBQ + c];
-        ds = p * (pst[r * kAbCsLd + c] - qstat[2 * kAbBQ + c]) * a.scale;
-      }
-      const bf16 phi = f2bf(p);
-      const bf16 dhi = f2bf(ds);
-      ph[r * kAbLdT + c] = phi;
-      dsh[r * kAbLdT + c] = dhi;
-      if (MODE == kBwdF32) {
-        pl[r * kAbLdT + c] = f2bf(p - bf2f(phi));
-        dsl[r * kAbLdT + c] = f2bf(ds - bf2f(dhi));
-      }
-    }
-    __syncwarp();
-
-    // dV += P^T dO, dK += dS^T Q
-#pragma unroll
-    for (int kk = 0; kk < kAbBQ / 16; ++kk) {
-      FragA fp, fs, fpl, fsl;
-      wmma::load_matrix_sync(fp, ph + kk * 16, kAbLdT);
-      wmma::load_matrix_sync(fs, dsh + kk * 16, kAbLdT);
-      if (MODE == kBwdF32) {
-        wmma::load_matrix_sync(fpl, pl + kk * 16, kAbLdT);
-        wmma::load_matrix_sync(fsl, dsl + kk * 16, kAbLdT);
-      }
-#pragma unroll
-      for (int j = 0; j < kAbDH / 16; ++j) {
-        FragBRow fb;  // element (query, d) at tile[query * ld + d]
-        wmma::load_matrix_sync(fb, t1 + (kk * 16) * kAbLdT + j * 16, kAbLdT);
-        wmma::mma_sync(dvacc[j], fp, fb, dvacc[j]);
-        if (MODE == kBwdF32) wmma::mma_sync(dvacc[j], fpl, fb, dvacc[j]);
-        wmma::load_matrix_sync(fb, t0 + (kk * 16) * kAbLdT + j * 16, kAbLdT);
-        wmma::mma_sync(dkacc[j], fs, fb, dkacc[j]);
-        if (MODE == kBwdF32) wmma::mma_sync(dkacc[j], fsl, fb, dkacc[j]);
-      }
-    }
+    ab_nn_all<MODE>(dv, sc, dos, nv);  // dV += P^T dO
+    ab_nn_all<MODE>(dk, dp, qs, nv);   // dK += dS^T Q
+    __syncthreads();  // every warp is done with stage it & 1 before it refills
   }
 
-  // ---- dK, dV through the warp's f32 staging, bf16 out
   bf16* dkb = a.dk + b * a.dk_bs + h * kAbDH;
   bf16* dvb = a.dv + b * a.dv_bs + h * kAbDH;
 #pragma unroll
-  for (int j = 0; j < kAbDH / 16; ++j) {
-    wmma::store_matrix_sync(sst + j * 16, dkacc[j], kAbCsLd, wmma::mem_row_major);
-    wmma::store_matrix_sync(pst + j * 16, dvacc[j], kAbCsLd, wmma::mem_row_major);
-  }
-  __syncwarp();
-  for (int e = lane; e < 16 * kAbDH; e += 32) {
-    const int r = e / kAbDH;
-    const int c = e % kAbDH;
-    const int key = k0 + kr + r;
-    if (key < a.lk) {
-      dkb[(long long)key * a.dk_rs + c] = f2bf(sst[r * kAbCsLd + c]);
-      dvb[(long long)key * a.dv_rs + c] = f2bf(pst[r * kAbCsLd + c]);
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + kr + g + 8 * r;
+    if (!kv[r]) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      *reinterpret_cast<uint32_t*>(dkb + (long long)key * a.dk_rs + j * 8 + 2 * qd) =
+          pack_bf16(dk[j][2 * r], dk[j][2 * r + 1]);
+      *reinterpret_cast<uint32_t*>(dvb + (long long)key * a.dv_rs + j * 8 + 2 * qd) =
+          pack_bf16(dv[j][2 * r], dv[j][2 * r + 1]);
     }
   }
+}
+
+// the kernels' dynamic shared memory limits, set once per library and card.
+// Internal linkage: two libraries include this header (attention_bwd,
+// decoder_blocks_bwd), and the local static of an inline function would be
+// one object across them (a GNU unique symbol), set for one library's
+// kernels only.
+template <int MODE>
+static cudaError_t ab_set_smem_once() {
+  static const cudaError_t attr = [] {
+    const cudaError_t e = cudaFuncSetAttribute(attn_bwd_rows_kernel<MODE>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)kAbRowsSmem);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(attn_bwd_cols_kernel<MODE>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kAbColsSmem);
+  }();
+  return attr;
 }
 
 template <int MODE>
 inline cudaError_t launch_attention_bwd(const AttnBwdArgs& a, int batch,
                                         cudaStream_t stream) {
-  if (a.lk > kAbMaxLk || a.lk < 1 || a.lq < 1) return cudaErrorInvalidValue;
-  const size_t rows_smem = ab_rows_smem(a.lk);
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_rows_kernel<MODE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)rows_smem);
+  if (a.lk > kAbMaxLk || a.lk < 1 || a.lq < 1 || batch < 1) return cudaErrorInvalidValue;
+  const cudaError_t attr = ab_set_smem_once<MODE>();
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid_rows((a.lq + kAbBQ - 1) / kAbBQ, batch * a.heads);
+  attn_bwd_rows_kernel<MODE><<<grid_rows, kAbThreads, kAbRowsSmem, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(attn_bwd_cols_kernel<MODE>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)kAbColsSmem);
-  if (err != cudaSuccess) return err;
-  dim3 grid_rows((a.lq + kAbBQ - 1) / kAbBQ, batch * a.heads);
-  attn_bwd_rows_kernel<MODE><<<grid_rows, 128, rows_smem, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  dim3 grid_cols((a.lk + kAbBQ - 1) / kAbBQ, batch * a.heads);
-  attn_bwd_cols_kernel<MODE><<<grid_cols, 128, kAbColsSmem, stream>>>(a);
+  const dim3 grid_cols((a.lk + kAbBQ - 1) / kAbBQ, batch * a.heads);
+  attn_bwd_cols_kernel<MODE><<<grid_cols, kAbThreads, kAbColsSmem, stream>>>(a);
   return cudaGetLastError();
+}
+
+// out[6]: registers per thread, shared memory bytes per CTA and spill bytes
+// per thread of the rows kernel, then of the cols kernel
+template <int MODE>
+cudaError_t attention_bwd_attrs(int* out) {
+  const void* fns[2] = {reinterpret_cast<const void*>(attn_bwd_rows_kernel<MODE>),
+                        reinterpret_cast<const void*>(attn_bwd_cols_kernel<MODE>)};
+  const size_t dyn[2] = {kAbRowsSmem, kAbColsSmem};
+  for (int i = 0; i < 2; ++i) {
+    cudaFuncAttributes fa;
+    const cudaError_t err = cudaFuncGetAttributes(&fa, fns[i]);
+    if (err != cudaSuccess) return err;
+    out[3 * i] = fa.numRegs;
+    out[3 * i + 1] = (int)(fa.sharedSizeBytes + dyn[i]);
+    out[3 * i + 2] = (int)fa.localSizeBytes;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace crog

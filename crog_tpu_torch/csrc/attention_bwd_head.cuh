@@ -69,19 +69,6 @@ __host__ __device__ constexpr size_t hb_smem(int lp) {
          + (size_t)(2 * 8 * kHbQ + kHbQ) * 4;  // row max, row sum, delta
 }
 
-// rows [r0, r0 + rows) of a [L, 64] head slice into a [rows, kHbLd] tile,
-// zeros for rows >= L
-__device__ __forceinline__ void hb_load_rows(bf16* tile, const bf16* base, long long rs,
-                                             int r0, int rows, int L) {
-  for (int v = threadIdx.x; v < rows * 8; v += kHbThreads) {
-    const int r = v >> 3;
-    const int c = (v & 7) * 8;
-    const bool ok = r0 + r < L;
-    cp_async16(smem_u32(tile + r * kHbLd + c), base + (ok ? (long long)(r0 + r) * rs : 0) + c,
-               ok ? 16 : 0);
-  }
-}
-
 // the hi and lo bf16 halves of two f32 values, as packed pairs
 __device__ __forceinline__ void hb_split(float x0, float x1, uint32_t& hi, uint32_t& lo) {
   hi = pack_bf16(x0, x1);
@@ -123,12 +110,12 @@ __global__ void __launch_bounds__(kHbThreads, 1) attn_bwd_head_kernel(AttnBwdArg
 
   auto load_tile = [&](int t, int st) {
     bf16* base = stg + st * 3 * TILE;
-    hb_load_rows(base, qb, a.q_rs, t * kHbQ, kHbQ, L);
-    hb_load_rows(base + TILE, db, a.do_rs, t * kHbQ, kHbQ, L);
-    hb_load_rows(base + 2 * TILE, ob, a.o_rs, t * kHbQ, kHbQ, L);
+    ab_load_rows<kHbThreads>(base, qb, a.q_rs, t * kHbQ, kHbQ, L);
+    ab_load_rows<kHbThreads>(base + TILE, db, a.do_rs, t * kHbQ, kHbQ, L);
+    ab_load_rows<kHbThreads>(base + 2 * TILE, ob, a.o_rs, t * kHbQ, kHbQ, L);
   };
-  hb_load_rows(ks, kb, a.k_rs, 0, LP, L);
-  hb_load_rows(vs, vb, a.v_rs, 0, LP, L);
+  ab_load_rows<kHbThreads>(ks, kb, a.k_rs, 0, LP, L);
+  ab_load_rows<kHbThreads>(vs, vb, a.v_rs, 0, LP, L);
   load_tile(0, 0);
   cp_async_commit();
 

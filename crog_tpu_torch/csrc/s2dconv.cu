@@ -22,16 +22,40 @@
 // The packed product does 16/9 of the real taps (the 4x4 window's corners),
 // a quarter of what the zero-embedded [3,3,4ci,4co] conv multiplies.
 //
-// Design.  A K6 block owns an 8 x 16 tile of output cells and 128 output
-// columns.  It loads the tile's 10 x 18 cell halo with 16-byte loads into
-// shared memory, writing zeros off the image (so no padded copy of x is
-// made), and streams the packed weight in [ci, 128] chunks, one per (t, s).
-// The gather costs nothing: a 16-cell row segment of P's (t, s) block is a
-// row-major [16, ci] matrix in the halo with the cell stride as its leading
-// dimension, so the bf16 tensor-core fragments (wmma 16x16x16, f32
-// accumulate) load it straight from the halo.  Eight warps each hold 2 cell
-// rows x 64 columns of f32 sums; the epilogue stages them through shared
-// memory and writes bf16 with 16-byte stores.
+// K6 design.  Its bound is its bytes, so each CTA keeps the tensor cores
+// fed from loads that run behind the products:
+//   - The grid is persistent: about one CTA per SM (ops/s2dconv.py:
+//     fwd_schedule, a function of the shapes alone), each walking a fixed
+//     contiguous range of 8 x 16 cell tiles for one column slice of the
+//     output.  Each output element is summed by one CTA in a fixed order,
+//     so every run gives the same bits.
+//   - The CTA's slice of the packed weight stays resident in shared memory
+//     for its whole range, loaded once by TMA (128-byte swizzled [16ci][64]
+//     column chunks).  The slice is 128 KB: 128 columns at ci = 32 (the
+//     whole weight of conv2, half of conv3's forward) and 64 columns at ci
+//     = 64 (half of conv3's dgrad), whose full [1024, 128] weight (256 KB)
+//     cannot sit beside a ring.  Halving N was chosen over streaming the
+//     weight through the ring (256 KB per tile through shared memory, five
+//     times the halo) and over a cluster sharing the halo by multicast (the
+//     two CTAs of a tile range read the same halo boxes at the same time,
+//     so the second read comes from L2, not device memory).
+//   - The halo streams through a ring of 4 stages, each one 64-channel TMA
+//     box of a tile's 10 x 18 cell halo (23 KB; coordinates off the image
+//     read zeros: no padded copy, no masking), with a `full` mbarrier (its
+//     bytes) and an `empty` one (every warp has read it): 2 boxes per tile
+//     at ci = 32, 4 at ci = 64, so the loads run one or two tiles ahead.
+//     One thread refills a stage while the products of the next run.
+//   - The products run on wgmma m64nNk16 with A from registers: warp w
+//     holds tile row w's 16 cells, and a 16-cell row segment of the patch's
+//     (t, s) block is a row-major [16, 16] matrix in the halo, so one
+//     ldmatrix per k-step gathers it (the swizzle keeps it conflict-free).
+//     The k-steps run chunk by chunk: the 16 that read a chunk (the (t, s)
+//     blocks whose slot it holds), B the weight rows through a descriptor.
+//   - The epilogue rounds to bf16 in registers; four shuffles per quad turn
+//     the fragments into 16-byte row segments, stored straight to y.
+// The dgrad is the same kernel on dy with the flipped, ci/co-swapped
+// weight.  Shared memory: 128 KB of weight + 4 x 23 KB of ring, one CTA
+// per SM.
 //
 // K6b: the packed gradient is [16ci, 4co] = KB x NB blocks of [128, 128]
 // (KB = ci/8 row blocks, each within one slot-row t; NB = co/32 column
@@ -85,26 +109,13 @@ constexpr int kSR = 8;          // cell rows per tile
 constexpr int kSW = 16;         // cell columns per tile: one fragment's 16 rows
 constexpr int kSHR = kSR + 2;   // halo rows
 constexpr int kSHC = kSW + 2;   // halo columns
-constexpr int kSN = 128;        // output columns per block
-constexpr int kSThreads = 256;  // 8 warps
-constexpr int kSWLd = kSN + 8;  // row stride of the weight chunk and the dy tile
-constexpr int kSCLd = kSN + 4;  // row stride of the f32 staging tile
+constexpr int kSN = 128;        // K6b: packed-gradient columns per CTA
+constexpr int kSThreads = 256;  // K6: 8 warps, two warpgroups
 
 __host__ __device__ constexpr int ofs(int t) { return (t >> 1) + (t & 1); }
 __host__ __device__ constexpr int dslot(int t) { return (t + 1) & 1; }
 
-// cell stride of a halo holding `ch` channels: a multiple of 16 elements
-// keeps every fragment pointer 32-byte aligned
-__host__ __device__ constexpr int halo_ld(int ch) { return ch + 16; }
-
-template <int CI>
-constexpr size_t fwd_smem_bytes() {
-  const size_t in = (size_t)(kSHR * kSHC * halo_ld(4 * CI) + CI * kSWLd) * sizeof(bf16);
-  const size_t stage = (size_t)kSR * kSW * kSCLd * sizeof(float);
-  return in > stage ? in : stage;
-}
-
-// K6b's TMA boxes: a 64-channel chunk of a tile's halo [10][18][64] and of
+// K6's and K6b's TMA boxes: a 64-channel chunk of a tile's halo [10][18][64] and of
 // its dy tile [8][16][64], each at a 1024-byte aligned offset (the 128-byte
 // swizzle repeats every 8 rows of 128 bytes)
 constexpr int kWxBox = 23552;  // 10 * 18 * 128 bytes, rounded up to 1024
@@ -120,94 +131,182 @@ __host__ __device__ constexpr size_t wgrad_smem_bytes() {
   return (size_t)wg_stages<CI>() * wg_stage_bytes<CI>() + 1024 + 16 * wg_stages<CI>();
 }
 
+// K6's shared memory: the CTA's resident weight slice (kFwN columns of the
+// packed [16ci, 4co] weight: kFwN / 64 column chunks of [16ci][64], each
+// 128-byte swizzled, 128 KB for either ci), then a ring of kFwStages halo
+// chunks (one 64-channel TMA box of a tile's 10 x 18 cell halo each), then
+// the ring's full and empty mbarriers and the weight's
 template <int CI>
-__global__ void __launch_bounds__(kSThreads) s2dconv_fwd_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ wp, bf16* __restrict__ y, int H,
-    int W, int N) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int C4 = 4 * CI;
-  constexpr int LD = halo_ld(C4);
-  bf16* xs = reinterpret_cast<bf16*>(smem);  // [kSHR * kSHC][LD]
-  bf16* ws = xs + kSHR * kSHC * LD;          // [CI][kSWLd]
-  float* cs = reinterpret_cast<float*>(smem);  // epilogue [kSR * kSW][kSCLd]
-  const int n0 = blockIdx.x * kSN;
-  const int ntx = (W + kSW - 1) / kSW;
-  const int r0 = (blockIdx.y / ntx) * kSR;
-  const int c0 = (blockIdx.y % ntx) * kSW;
-  const long long b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int wr = (warp / 2) * 2;   // the warp's first tile row
-  const int wn = (warp % 2) * 64;  // the warp's first column in the block's 128
+__host__ __device__ constexpr int fwd_cols() { return CI == 32 ? 128 : 64; }
+constexpr int kFwWBytes = 131072;
+constexpr int kFwStages = 4;
+constexpr size_t kFwSmem = kFwWBytes + kFwStages * kWxBox + 1024 + 8 * (2 * kFwStages + 1);
 
-  constexpr int kVpc = C4 / 8;  // 16-byte vectors per cell
-  for (int v = threadIdx.x; v < kSHR * kSHC * kVpc; v += kSThreads) {
-    const int cell = v / kVpc;
-    const int q = (v % kVpc) * 8;
-    const int gr = r0 + cell / kSHC - 1;
-    const int gc = c0 + cell % kSHC - 1;
-    bf16* dst = xs + cell * LD + q;
-    if (gr >= 0 && gr < H && gc >= 0 && gc < W) {
-      copy8(dst, x + ((b * H + gr) * W + gc) * C4 + q);
-    } else {
-      zero8(dst);
+// k-step i (0..15) of halo chunk q, i.e. 16 packed rows that read chunk q:
+// slot-row t, slot-column s, the first channel within the chunk and the
+// first packed weight row.  ci = 32: chunk q holds slots (q, 0) and (q, 1),
+// read by the 8 blocks (t, s) with DY[t] = q, two k-steps each; ci = 64:
+// chunk q is slot (q >> 1, q & 1), read by 4 blocks, four k-steps each.
+template <int CI>
+__device__ __forceinline__ void fwd_kstep(int q, int i, int& t, int& s, int& ch, int& row) {
+  if (CI == 32) {
+    t = 2 * (i >> 3) + 1 - q;
+    s = (i >> 1) & 3;
+    ch = dslot(s) * 32 + (i & 1) * 16;
+    row = (t * 4 + s) * 32 + (i & 1) * 16;
+  } else {
+    t = 2 * (i >> 3) + 1 - (q >> 1);
+    s = 2 * ((i >> 2) & 1) + 1 - (q & 1);
+    ch = (i & 3) * 16;
+    row = (t * 4 + s) * 64 + (i & 3) * 16;
+  }
+}
+
+template <int NC>
+__device__ __forceinline__ void fwd_wgmma(float (&acc)[NC / 2], const uint32_t (&a)[4],
+                                          uint64_t desc) {
+  if constexpr (NC == 128) {
+    wgmma_m64n128k16_rs(acc, a, desc);
+  } else {
+    wgmma_m64n64k16_rs(acc, a, desc);
+  }
+}
+
+// the i-th of four packed values, without an indexed (local-memory) array
+__device__ __forceinline__ uint32_t pick4(const uint32_t (&v)[4], int i) {
+  return i == 0 ? v[0] : i == 1 ? v[1] : i == 2 ? v[2] : v[3];
+}
+
+template <int CI>
+__global__ void __launch_bounds__(kSThreads, 1) s2dconv_fwd_kernel(
+    const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+    bf16* __restrict__ y, int H, int W, int N, int tiles, int per) {
+  constexpr int NC = fwd_cols<CI>();
+  constexpr int CPT = CI / 16;  // 64-channel halo chunks per tile (4ci / 64)
+  constexpr int S = kFwStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ring = sm + kFwWBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S * kWxBox);  // a chunk has landed
+  uint64_t* empty = full + S;  // every warp has read a chunk into registers
+  uint64_t* wbar = empty + S;  // the weight slice has landed
+
+  const int nh = N / NC;  // CTAs per tile range, one per column slice
+  const int col0 = (blockIdx.x % nh) * NC;
+  const int tb = (blockIdx.x / nh) * per;
+  const int count = min(tiles, tb + per) - tb;
+  const int total = count * CPT;
+  const int ntx = (W + kSW - 1) / kSW;
+  const int nty = (H + kSR - 1) / kSR;
+  const CUtensorMap* xm = &xmap;
+  auto fetch = [&](int c) {  // chunk c: tile tb + c / CPT, channels (c % CPT) * 64..
+    const int tile = tb + c / CPT;
+    const int bi = tile / (nty * ntx);
+    const int rem = tile % (nty * ntx);
+    uint64_t* bar = &full[c % S];
+    mbar_arrive_expect_tx(bar, kWxBoxTx);
+    tma_load_4d(xm, smem_u32(ring + (c % S) * kWxBox), bar, (c % CPT) * 64,
+                (rem % ntx) * kSW - 1, (rem / ntx) * kSR - 1, bi);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kSThreads / 32);
     }
+    mbar_init(wbar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(wbar, kFwWBytes);
+    for (int wc = 0; wc < NC / 64; ++wc)
+      for (int r = 0; r < 16 * CI; r += 256)
+        tma_load_2d(&wmap, smem_u32(sm + wc * (16 * CI * 128) + r * 128), wbar,
+                    col0 + wc * 64, r);
+    for (int c = 0; c < min(S, total); ++c) fetch(c);
   }
 
-  FragC acc[2][4];
+  // warp w (warpgroup w / 4) holds the 16 cells of tile row w: its A rows
+  // are halo cells (w + OFS[t], OFS[s] + m), m = 0..15
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int a_cell = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int a_hi = lane >> 4;
+  const uint32_t wbase = smem_u32(sm);
+  float acc[NC / 2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+  for (int e = 0; e < NC / 2; ++e) acc[e] = 0.0f;
+  mbar_wait(wbar, 0);
 
 #pragma unroll 1
-  for (int ts = 0; ts < 16; ++ts) {
-    const int t = ts >> 2;
-    const int s = ts & 3;
-    __syncthreads();  // the halo is in; the previous chunk's readers are done
-    for (int v = threadIdx.x; v < CI * (kSN / 8); v += kSThreads) {
-      const int r = v / (kSN / 8);
-      const int c = (v % (kSN / 8)) * 8;
-      copy8(ws + r * kSWLd + c, wp + (long long)(ts * CI + r) * N + n0 + c);
+  for (int c = 0; c < total; ++c) {
+    const int q = c % CPT;
+    mbar_wait(&full[c % S], (c / S) & 1);
+    const uint32_t st = smem_u32(ring + (c % S) * kWxBox);
+    uint32_t a[16][4];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      int t, s, ch, row;
+      fwd_kstep<CI>(q, i, t, s, ch, row);
+      const int la = (warp + ofs(t)) * kSHC + ofs(s) + a_cell;  // halo cell: 128-byte line
+      ldsm_x4(st + la * 128 + ((((ch >> 3) + a_hi) ^ (la & 7)) << 4), a[i]);
     }
-    __syncthreads();
-    // block (t, s) of the patch for the warp's first cell row: row m of the
-    // fragment is halo cell (wr + OFS[t], OFS[s] + m)
-    const bf16* xa =
-        xs + ((wr + ofs(t)) * kSHC + ofs(s)) * LD + (dslot(t) * 2 + dslot(s)) * CI;
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[c % S]);  // the chunk is in registers
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < CI; kk += 16) {
-      FragA fa[2];
-      FragBRow fb[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(fa[i], xa + i * kSHC * LD + kk, LD);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(fb[j], ws + kk * kSWLd + wn + j * 16, kSWLd);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+    for (int i = 0; i < 16; ++i) {
+      int t, s, ch, row;
+      fwd_kstep<CI>(q, i, t, s, ch, row);
+      fwd_wgmma<NC>(acc, a[i], wgmma_desc_sw128(wbase + row * 128, 16 * CI * 128, 8 * 128));
     }
-  }
-  __syncthreads();
+    wgmma_commit();
+    // while the products run: refill chunk c - 1's stage with chunk c - 1 + S
+    // once every warp has read it
+    if (threadIdx.x == 0 && c > 0 && c - 1 + S < total) {
+      mbar_wait(&empty[(c - 1) % S], ((c - 1) / S) & 1);
+      fetch(c - 1 + S);
+    }
+    __syncwarp();
+    wgmma_wait_all();
+    if (q != CPT - 1) continue;
+
+    // epilogue of tile tb + c / CPT: bf16, 16-byte stores.  Per pair of 8-column
+    // fragments a quad holds four 16-byte row segments (rows g, g + 8 of each
+    // fragment); four shuffles give each of its threads one whole segment.
+    const int tile = tb + c / CPT;
+    const int bi = tile / (nty * ntx);
+    const int rem = tile % (nty * ntx);
+    const int gr = (rem / ntx) * kSR + warp;
+    const int qi = lane & 3;
+    const int cell = (rem % ntx) * kSW + (lane >> 2) + 8 * (qi & 1);
+    bf16* out = y + (((long long)bi * H + gr) * W + cell) * N + col0;
+    const bool ok = gr < H && cell < W;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+    for (int j = 0; j < NC / 8; j += 2) {
+      const uint32_t v[4] = {pack_bf16(acc[4 * j], acc[4 * j + 1]),
+                             pack_bf16(acc[4 * j + 2], acc[4 * j + 3]),
+                             pack_bf16(acc[4 * j + 4], acc[4 * j + 5]),
+                             pack_bf16(acc[4 * j + 6], acc[4 * j + 7])};
+      uint32_t seg[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(cs + (wr + i) * kSW * kSCLd + wn + j * 16, acc[i][j], kSCLd,
-                              wmma::mem_row_major);
-  __syncthreads();
-  for (int v = threadIdx.x; v < kSR * kSW * (kSN / 8); v += kSThreads) {
-    const int cell = v / (kSN / 8);
-    const int q = (v % (kSN / 8)) * 8;
-    const int gr = r0 + cell / kSW;
-    const int gc = c0 + cell % kSW;
-    if (gr >= H || gc >= W) continue;
-    const float4 lo = *reinterpret_cast<const float4*>(cs + cell * kSCLd + q);
-    const float4 hi = *reinterpret_cast<const float4*>(cs + cell * kSCLd + q + 4);
-    __align__(16) bf16 out[8] = {f2bf(lo.x), f2bf(lo.y), f2bf(lo.z), f2bf(lo.w),
-                                 f2bf(hi.x), f2bf(hi.y), f2bf(hi.z), f2bf(hi.w)};
-    copy8(y + ((b * H + gr) * W + gc) * N + n0 + q, out);
+      for (int r = 0; r < 4; ++r) {
+        // thread p sends its value (p - r) & 3; this thread takes from p = qi + r
+        const uint32_t got =
+            __shfl_sync(0xffffffffu, pick4(v, (qi - r) & 3), (lane & ~3) | ((qi + r) & 3));
+        const int p = (qi + r) & 3;
+        seg[0] = p == 0 ? got : seg[0];
+        seg[1] = p == 1 ? got : seg[1];
+        seg[2] = p == 2 ? got : seg[2];
+        seg[3] = p == 3 ? got : seg[3];
+      }
+      if (ok)
+        *reinterpret_cast<uint4*>(out + (j + (qi >> 1)) * 8) =
+            make_uint4(seg[0], seg[1], seg[2], seg[3]);
+    }
+#pragma unroll
+    for (int e = 0; e < NC / 2; ++e) acc[e] = 0.0f;
   }
 }
 
@@ -369,18 +468,6 @@ __global__ void __launch_bounds__(kWThreads, 1) s2dconv_wgrad_kernel(
           make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
 }
 
-template <int CI>
-cudaError_t launch_s2dconv_fwd(const bf16* x, const bf16* wp, bf16* y, int B, int H, int W,
-                               int N, cudaStream_t st) {
-  constexpr size_t smem = fwd_smem_bytes<CI>();
-  cudaError_t err = cudaFuncSetAttribute(
-      s2dconv_fwd_kernel<CI>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(N / kSN, ((H + kSR - 1) / kSR) * ((W + kSW - 1) / kSW), B);
-  s2dconv_fwd_kernel<CI><<<grid, kSThreads, smem, st>>>(x, wp, y, H, W, N);
-  return cudaGetLastError();
-}
-
 typedef CUresult (*TensorMapEncodeFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                       const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                       const cuuint32_t*, CUtensorMapInterleave,
@@ -416,6 +503,57 @@ inline bool nhwc_box_map(CUtensorMap* map, const bf16* ptr, int B, int H, int W,
              box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a row-major [rows, cols] bf16 matrix read in boxes of 64 columns x 256
+// rows, 128-byte swizzled
+inline bool matrix_box_map(CUtensorMap* map, const bf16* ptr, int rows, int cols) {
+  const TensorMapEncodeFn enc = tensor_map_encode();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, 256};
+  const cuuint32_t estr[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(ptr), dims, strides,
+             box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int CI>
+cudaError_t fwd_set_smem_once() {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      s2dconv_fwd_kernel<CI>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kFwSmem);
+  return attr;
+}
+
+template <int CI>
+cudaError_t launch_s2dconv_fwd(const bf16* x, const bf16* wp, bf16* y, int B, int H, int W,
+                               int N, int ctas, int per, cudaStream_t st) {
+  cudaError_t err = fwd_set_smem_once<CI>();
+  if (err != cudaSuccess) return err;
+  CUtensorMap xmap, wmap;
+  if (!nhwc_box_map(&xmap, x, B, H, W, 4 * CI, kSHC, kSHR) ||
+      !matrix_box_map(&wmap, wp, 16 * CI, N))
+    return cudaErrorInvalidValue;
+  const int tiles = B * ((H + kSR - 1) / kSR) * ((W + kSW - 1) / kSW);
+  s2dconv_fwd_kernel<CI><<<ctas, kSThreads, kFwSmem, st>>>(xmap, wmap, y, H, W, N, tiles, per);
+  return cudaGetLastError();
+}
+
+// out[3]: K6's registers per thread, shared memory bytes per CTA and spill
+// bytes per thread
+template <int CI>
+cudaError_t fwd_attrs(int* out) {
+  cudaError_t err = fwd_set_smem_once<CI>();
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, s2dconv_fwd_kernel<CI>);
+  if (err != cudaSuccess) return err;
+  out[0] = fa.numRegs;
+  out[1] = (int)(fa.sharedSizeBytes + kFwSmem);
+  out[2] = (int)fa.localSizeBytes;
+  return cudaSuccess;
 }
 
 template <int CI>
@@ -486,26 +624,37 @@ cudaError_t wgrad_attrs(int N, int* out) {
 
 inline bool s2d_width_ok(int c) { return c == 32 || c == 64; }
 
-inline bool s2d_grid_ok(int B, int H, int W) {
-  const long long cells = (long long)((H + kSR - 1) / kSR) * ((W + kSW - 1) / kSW);
-  return B >= 1 && H >= 1 && W >= 1 && B <= 65535 && cells <= 65535;
-}
-
 }  // namespace crog
 
 // K6: y [B, H, W, 4co] bf16 = blocked conv of x [B, H, W, 4ci] bf16 with the
-// packed weight wp [16ci, 4co] bf16.
+// packed weight wp [16ci, 4co] bf16, on `ctas` persistent CTAs: CTA i takes
+// column slice i % nh (nh = 4co / fwd_cols) of the 8 x 16 cell tiles
+// [(i / nh) * per, (i / nh + 1) * per), and none is empty.
 extern "C" int crog_s2dconv_fwd(const void* x, const void* wp, void* y, int B, int H, int W,
-                                int ci, int co, void* stream) {
+                                int ci, int co, int ctas, int per, void* stream) {
   using namespace crog;
-  if (!s2d_width_ok(ci) || !s2d_width_ok(co) || !s2d_grid_ok(B, H, W))
+  if (!s2d_width_ok(ci) || !s2d_width_ok(co) || B < 1 || H < 1 || W < 1 || per < 1)
+    return cudaErrorInvalidValue;
+  const int nh = 4 * co / (ci == 32 ? fwd_cols<32>() : fwd_cols<64>());
+  const long long tiles = (long long)B * ((H + kSR - 1) / kSR) * ((W + kSW - 1) / kSW);
+  const long long groups = ctas / nh;
+  if (ctas < nh || ctas % nh || groups * per < tiles || (groups - 1) * per >= tiles ||
+      tiles > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   const auto* xb = static_cast<const bf16*>(x);
   const auto* wb = static_cast<const bf16*>(wp);
   auto* yb = static_cast<bf16*>(y);
-  return ci == 32 ? launch_s2dconv_fwd<32>(xb, wb, yb, B, H, W, 4 * co, st)
-                  : launch_s2dconv_fwd<64>(xb, wb, yb, B, H, W, 4 * co, st);
+  return ci == 32 ? launch_s2dconv_fwd<32>(xb, wb, yb, B, H, W, 4 * co, ctas, per, st)
+                  : launch_s2dconv_fwd<64>(xb, wb, yb, B, H, W, 4 * co, ctas, per, st);
+}
+
+// out[3]: K6's registers per thread, shared memory per CTA, spill bytes per
+// thread, for input width ci
+extern "C" int crog_s2dconv_fwd_attrs(int ci, int* out) {
+  using namespace crog;
+  if (!s2d_width_ok(ci)) return cudaErrorInvalidValue;
+  return ci == 32 ? fwd_attrs<32>(out) : fwd_attrs<64>(out);
 }
 
 // K6b: dwp [16ci, 4co] f32 = P(x)^T dy over every cell, through one f32

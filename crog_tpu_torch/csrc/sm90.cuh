@@ -1,8 +1,9 @@
 // Register-level building blocks of the redesigned Hopper kernels (K1b's
-// one-CTA-per-head backward, K6b's cluster wgrad): ldmatrix, mma.sync
-// m16n8k16 bf16 -> f32, cp.async with zero fill, mbarriers, TMA tensor
-// loads multicast across a thread-block cluster, cluster barriers, and
-// wgmma with A in registers and B in shared memory.
+// one-CTA-per-head backward, the decoder blocks' attention backward, K6's
+// persistent conv and K6b's cluster wgrad): ldmatrix, mma.sync m16n8k16
+// bf16 -> f32, cp.async with zero fill, mbarriers, TMA tensor loads (to
+// one CTA, or multicast across a thread-block cluster), cluster barriers,
+// and wgmma with A in registers and B in shared memory.
 //
 // Fragment layouts of mma.m16n8k16.row.col (g = lane / 4, q = lane % 4):
 //   A 16x16: a0 (g, 2q..2q+1), a1 (g+8, 2q..), a2 (g, 2q+8..), a3 (g+8, 2q+8..)
@@ -60,6 +61,12 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
 // be a valid address)
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
+}
+
+// 4-byte global -> shared copy (through L1); src_bytes 0 writes zeros
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
                "r"(src_bytes));
 }
 
@@ -150,6 +157,39 @@ __device__ __forceinline__ void tma_load_4d_multicast(const CUtensorMap* map, ui
       : "memory");
 }
 
+// TMA: a 2-d / 4-d box of `map` at the given coordinates (innermost first;
+// out of the tensor reads zeros) into this CTA's shared memory at `dst`,
+// completing the mbarrier at `bar` by the box's bytes
+__device__ __forceinline__ void tma_load_2d(const CUtensorMap* map, uint32_t dst, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(const CUtensorMap* map, uint32_t dst, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// one arrival on a barrier of this CTA
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// cp.async: wait until at most N of this thread's committed groups are
+// still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 // ------------------------------------------------------------------ wgmma
 // A shared-memory matrix descriptor: a 128-byte swizzled operand at
@@ -211,6 +251,32 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d += A B over the warpgroup: wgmma m64n64k16, as wgmma_m64n128k16_rs
+// with 64 columns (8 C fragments per warp)
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 

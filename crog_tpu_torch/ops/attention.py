@@ -167,34 +167,47 @@ def bwd_path(l: int, bf16_casts: bool = False) -> str:
     return "head" if l <= HEAD_MAX_LEN and not bf16_casts else "rows_cols"
 
 
-def attention_bwd(q, k, v, o, do, num_heads: int, bf16_casts: bool = False):
-    """K1b.  q, k, v, o, do [B, L, H*64] bf16 (contiguous) -> dq, dk, dv.
+def attention_bwd(q, k, v, o, do, num_heads: int, bf16_casts: bool = False, mask_add=None):
+    """K1b.  q, o, do [B, Lq, H*64], k, v [B, Lk, H*64] bf16 (contiguous)
+    -> dq, dk, dv.
 
     On a CPU tensor this is ``attention_bwd_plain``; on a CUDA tensor it
     launches the kernel ``bwd_path`` names (csrc/attention_bwd.cu) or
     raises.  ``bf16_casts`` swaps in the decoder blocks' cast points (P and
-    dS rounded to bf16, twin ``mha_bwd_plain``); only the checks that K1b's
-    tolerance would see a lost f32 cast point set it (chip_smoke.py,
-    tests/test_torch_cuda_kernels.py)."""
+    dS rounded to bf16, twin ``mha_bwd_plain``) on the two-kernel path that
+    K2b and K3b run, which alone takes a key mask ``mask_add`` [B, Lk] f32
+    and Lk != Lq; only the checks of that path and of K1b's tolerance set
+    it (chip_smoke.py, tests/test_torch_cuda_kernels.py)."""
     if q.device.type == "cpu":
         if bf16_casts:
-            return mha_bwd_plain(q, k, v, do, num_heads)
+            return mha_bwd_plain(q, k, v, do, num_heads, mask_add)
         return attention_bwd_plain(q, k, v, o, do, num_heads)
     _check_bwd_width(q, num_heads)
-    b, l, d = q.shape
-    for t, name in ((q, "q"), (k, "k"), (v, "v"), (o, "o"), (do, "do")):
-        cuda_build.require(t, name, torch.bfloat16, (b, l, d))
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    _check_bwd_width(k, num_heads)
+    b, lq, d = q.shape
+    lk = k.shape[1]
+    if not bf16_casts and (mask_add is not None or lk != lq):
+        raise ValueError("K1b takes unmasked self attention; a key mask or Lk != Lq "
+                         "runs only with the decoder blocks' bf16 cast points")
+    for t, name in ((q, "q"), (o, "o"), (do, "do")):
+        cuda_build.require(t, name, torch.bfloat16, (b, lq, d))
+    for t, name in ((k, "k"), (v, "v")):
+        cuda_build.require(t, name, torch.bfloat16, (b, lk, d))
+    if mask_add is not None:
+        cuda_build.require(mask_add, "mask_add", torch.float32, (b, lk))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     ptrs = [t.data_ptr() for t in (q, k, v, o, do, dq, dk, dv)]
     lib = cuda_build.load("attention_bwd")
     stream = cuda_build.stream_ptr(q.device)
-    if bwd_path(l, bf16_casts) == "head":
-        rc = lib.crog_attention_bwd_head(*ptrs, b, num_heads, l, HEAD_DIM**-0.5, stream)
+    if lq == lk and bwd_path(lq, bf16_casts) == "head":
+        rc = lib.crog_attention_bwd_head(*ptrs, b, num_heads, lq, HEAD_DIM**-0.5, stream)
         cuda_build.check_launch(lib, rc, "crog_attention_bwd_head")
     else:
-        stats = torch.empty(3, b * num_heads, l, dtype=torch.float32, device=q.device)
-        rc = lib.crog_attention_bwd(*ptrs, stats.data_ptr(), b, num_heads, l,
-                                    HEAD_DIM**-0.5, int(bf16_casts), stream)
+        stats = torch.empty(3, b * num_heads, lq, dtype=torch.float32, device=q.device)
+        rc = lib.crog_attention_bwd(*ptrs, stats.data_ptr(),
+                                    None if mask_add is None else mask_add.data_ptr(),
+                                    b, num_heads, lq, lk, HEAD_DIM**-0.5, int(bf16_casts),
+                                    stream)
         cuda_build.check_launch(lib, rc, "crog_attention_bwd")
     attention_bwd.launches += 1
     return dq, dk, dv

@@ -48,9 +48,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         + [_L] * 8 + [_F, _P],
     },
     "attention_bwd": {
-        "crog_attention_bwd": [_P] * 9 + [_I] * 3 + [_F, _I, _P],
+        "crog_attention_bwd": [_P] * 10 + [_I] * 4 + [_F, _I, _P],
         "crog_attention_bwd_head": [_P] * 8 + [_I] * 3 + [_F, _P],
         "crog_attention_bwd_head_attrs": [_I, _P],
+        "crog_attention_bwd_attrs": [_I, _P],
     },
     "decoder_blocks": {
         "crog_self_block_fwd": [_P] * 17 + [_I] * 4 + _DROP + [_P],
@@ -71,7 +72,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "crog_lincomb_bwd": [_P] * 9 + [_I] * 9 + [_P],
     },
     "s2dconv": {
-        "crog_s2dconv_fwd": [_P] * 3 + [_I] * 5 + [_P],
+        "crog_s2dconv_fwd": [_P] * 3 + [_I] * 7 + [_P],
+        "crog_s2dconv_fwd_attrs": [_I, _P],
         "crog_s2dconv_wgrad": [_P] * 4 + [_I] * 7 + [_P],
         "crog_s2dconv_wgrad_attrs": [_I, _I, _P],
     },

@@ -50,6 +50,9 @@ TILE_CELLS = (8, 16)  # the kernels' cell tile (rows, columns)
 # (cudaOccupancyMaxActiveClusters), so 120 keeps every cluster in one wave.
 CLUSTER_SMS = 120
 MAX_CLUSTER = 8  # K6b: CTAs per cluster, at most the portable size
+# K6: its persistent CTAs, one per SM of an H100 (132); a card with fewer
+# SMs runs the rest as a second wave, with the same sums
+FWD_SMS = 132
 
 
 def pack_s1(w: torch.Tensor) -> torch.Tensor:
@@ -146,6 +149,24 @@ def wgrad_schedule(b: int, h: int, w: int, ci: int, co: int):
     return -(-tiles // per), per
 
 
+def fwd_cols(ci: int) -> int:
+    """Output columns of K6's resident 128 KB weight slice: [16ci, 128] at
+    ci 32, [16ci, 64] at ci 64."""
+    return 128 if ci == 32 else 64
+
+
+def fwd_schedule(b: int, h: int, w: int, ci: int, co: int):
+    """(CTAs, tiles per range) of K6: the 8 x 16 cell tiles in contiguous
+    ranges [g * per, (g + 1) * per), none empty, each taken by one CTA per
+    column slice (CTA i: range i // nh, slice i % nh, nh = 4co / fwd_cols),
+    with as many CTAs as FWD_SMS.  A function of the shapes alone."""
+    tr, tw = TILE_CELLS
+    tiles = b * -(-h // tr) * -(-w // tw)
+    nh = 4 * co // fwd_cols(ci)
+    per = -(-tiles // max(1, min(tiles, FWD_SMS // nh)))
+    return -(-tiles // per) * nh, per
+
+
 def s2dconv_fwd(x: torch.Tensor, wp: torch.Tensor, ci: int, co: int) -> torch.Tensor:
     """K6: blocked conv of x [B, H, W, 4ci] with the packed weight wp
     [16ci, 4co] -> [B, H, W, 4co] (the forward, and the dgrad with the
@@ -155,9 +176,10 @@ def s2dconv_fwd(x: torch.Tensor, wp: torch.Tensor, ci: int, co: int) -> torch.Te
     b, h, w = _check(x, ci, co, "x")
     cuda_build.require(wp, "wp", torch.bfloat16, (16 * ci, 4 * co))
     y = torch.empty(b, h, w, 4 * co, dtype=torch.bfloat16, device=x.device)
+    ctas, per = fwd_schedule(b, h, w, ci, co)
     lib = cuda_build.load("s2dconv")
     rc = lib.crog_s2dconv_fwd(x.data_ptr(), wp.data_ptr(), y.data_ptr(), b, h, w, ci,
-                              co, cuda_build.stream_ptr(x.device))
+                              co, ctas, per, cuda_build.stream_ptr(x.device))
     cuda_build.check_launch(lib, rc, "crog_s2dconv_fwd")
     s2dconv_fwd.launches += 1
     return y

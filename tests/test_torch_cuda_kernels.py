@@ -115,12 +115,13 @@ def _close_all(got, ref, rel=BWD_REL, share=1.0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,l,heads,path", [
     (2, 169, 8, "head"), (3, 169, 5, "head"), (1, 7, 3, "head"), (2, 256, 4, "head"),
-    (2, 300, 8, "rows_cols")])
+    (2, 300, 8, "rows_cols"), (1, 257, 4, "rows_cols"), (1, 768, 2, "rows_cols")])
 def test_cuda_attention_backward_matches_twin(card, b, l, heads, path):
     """K1b against its twin on both paths: the one-CTA-per-head kernel at
     the pool's 169 tokens (also with an odd batch x heads, 15), at a length
     that is not a multiple of 16 and at its limit of 256; the two-kernel
-    path at 300 tokens.  A second call gives the same bits."""
+    path at 300 tokens, just past the switch (257) and at its limit of 768.
+    A second call gives the same bits."""
     assert A.bwd_path(l) == path
     q, k, v, do = (_bf16(s, b, l, heads * 64) for s in (1, 2, 3, 4))
     o = A.fused_attention(q, k, v, heads)
@@ -150,6 +151,38 @@ def test_cuda_attention_backward_tolerance_sees_bf16_casts(card):
               for g, r in zip(lost, ref)]
     torch.cuda.synchronize()
     assert min(shares) > K1B_SHARE, shares
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,lq,lk,heads,mask", [
+    (2, 676, 676, 8, None), (2, 676, 17, 8, "ragged"), (1, 768, 768, 2, None),
+    (2, 70, 300, 4, "ragged"), (3, 65, 129, 3, None), (2, 100, 17, 8, "all"),
+    (1, 1, 1, 2, None)])
+def test_cuda_decoder_attention_backward_matches_twin(card, b, lq, lk, heads, mask):
+    """The two-kernel attention backward with the decoder blocks' bf16 cast
+    points (K2b's and K3b's attention step) against its twin: K2b's 676
+    tokens, K3b's 676 queries over 17 keys with per-sample key padding,
+    the 768-key limit, lengths just past a 64-row tile, one query over one
+    key, and a sample whose every key is masked (its rows average over the
+    Lk keys, as the forward's do).  A second call gives the same bits."""
+    q, do = _bf16(1, b, lq, heads * 64), _bf16(4, b, lq, heads * 64)
+    k, v = _bf16(2, b, lk, heads * 64), _bf16(3, b, lk, heads * 64)
+    mask_add = None
+    if mask is not None:
+        keep = torch.arange(lk)[None] < torch.tensor([[max(1, lk // 3)], [lk]] + [[lk]] * (b - 2))
+        if mask == "all":
+            keep[0] = False
+        mask_add = torch.where(keep, 0.0, A.NEG).to(card)
+    o = A.attention_plain(q, k, v, heads, mask_add)
+    got = A.attention_bwd(q, k, v, o, do, heads, bf16_casts=True, mask_add=mask_add)
+    again = A.attention_bwd(q, k, v, o, do, heads, bf16_casts=True, mask_add=mask_add)
+    ref = A.mha_bwd_plain(q, k, v, do, heads, mask_add)
+    torch.cuda.synchronize()
+    _close_all(got, ref)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    with pytest.raises(ValueError, match="bf16 cast points"):
+        A.attention_bwd(q, k, v, o, do, heads, mask_add=mask_add if mask else
+                        torch.zeros(b, lk, device=card))
 
 
 @pytest.mark.cuda
@@ -307,4 +340,25 @@ def test_cuda_s2dconv_wgrad_ragged_planes(card, b, h, w, ci, co):
     again = SC.s2dconv_wgrad(x, dy, ci, co)
     torch.cuda.synchronize()
     _close_all([got], [SC.wgrad_plain(x, dy, ci, co)], LINCOMB_REL)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,ci,co", [(1, 13, 21, 32, 32), (3, 9, 35, 32, 64),
+                                         (2, 20, 7, 64, 32), (1, 5, 3, 64, 64),
+                                         (3, 40, 70, 64, 64), (2, 33, 50, 32, 64)])
+def test_cuda_s2dconv_fwd_ragged_planes(card, b, h, w, ci, co):
+    """K6's persistent kernel against its twin where the planes are not
+    multiples of the 8 x 16 cell tile (at 5 x 3 cells smaller than one tile
+    and its halo), at ci = 32 (the forward's widths: one 128-column weight
+    slice, or two) and ci = 64 (the dgrad's: 64-column slices), with ranges
+    of one tile and of several; a second call gives the same bits."""
+    g = torch.Generator().manual_seed(b * h + w + ci)
+    x = torch.relu(torch.randn(b, h, w, 4 * ci, generator=g)).to(card, torch.bfloat16)
+    wt = (torch.randn(3, 3, ci, co, generator=g) * (9 * ci) ** -0.5).to(card)
+    wp = SC.pack_s1(wt).to(torch.bfloat16).contiguous()
+    got = SC.s2dconv_fwd(x, wp, ci, co)
+    again = SC.s2dconv_fwd(x, wp, ci, co)
+    torch.cuda.synchronize()
+    _close_all([got], [SC.conv_padded_plain(x, wp, ci, co)], S2D_REL)
     assert torch.equal(got, again)

@@ -172,6 +172,33 @@ def test_attention_bwd_on_cpu_is_its_twin(bf16_casts):
     assert not all(torch.equal(g, w) for g, w in zip(got, other))
 
 
+@pytest.mark.parametrize("lq,lk,mask", [(40, 17, "ragged"), (33, 70, None), (20, 9, "all")])
+def test_attention_bwd_with_a_key_mask_matches_pallas_decoder(lq, lk, mask):
+    """The wrapper of the two-kernel path with the decoder blocks' cast
+    points, a key mask and Lk != Lq (K3b's attention step) runs on a CPU
+    tensor the twin that the card tests hold the kernels to; in fp32 it
+    matches the Pallas decoder's ``_mha_bwd`` sample by sample, also where
+    every key of a sample is masked."""
+    from crog_tpu.ops.pallas_decoder import _mha_bwd
+
+    q, do = _rand(1, 2, lq, 128), _rand(4, 2, lq, 128)
+    k, v = _rand(2, 2, lk, 128), _rand(3, 2, lk, 128)
+    keep = np.ones((2, lk), bool)
+    if mask == "ragged":
+        keep[0, lk // 3:] = False
+    elif mask == "all":
+        keep[1] = False
+    madd = np.where(keep, 0.0, A.NEG).astype(np.float32)
+    t = lambda a: torch.from_numpy(a)
+    got = A.attention_bwd(t(q), t(k), t(v), t(q), t(do), 2, bf16_casts=True,
+                          mask_add=t(madd) if mask else None)
+    for b in range(2):
+        ref = _mha_bwd(*(jnp.asarray(a[b]) for a in (q, k, v, do)), 2,
+                       jnp.asarray(madd[b][None] if mask else np.zeros((1, lk), np.float32)))
+        for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+            assert_close_scaled(g[b].numpy(), np.asarray(r), TOL, f"{name}[{b}]")
+
+
 @pytest.mark.parametrize("l,bf16_casts,path", [
     (1, False, "head"), (169, False, "head"), (256, False, "head"), (257, False, "rows_cols"),
     (300, False, "rows_cols"), (768, False, "rows_cols"), (169, True, "rows_cols")])

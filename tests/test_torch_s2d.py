@@ -229,3 +229,46 @@ def test_wgrad_schedule_depends_on_the_shapes_alone():
     assert first == again
     assert first[:2] == [(30, 73), (15, 146)]
     assert SC.wgrad_schedule(24, 104, 104, 32, 32) != SC.wgrad_schedule(24, 96, 104, 32, 32)
+
+
+@pytest.mark.parametrize("b,h,w,ci,co", [(24, 104, 104, 32, 32), (24, 104, 104, 32, 64),
+                                         (24, 104, 104, 64, 32), (1, 20, 37, 32, 32),
+                                         (3, 9, 17, 32, 64), (2, 16, 24, 64, 32),
+                                         (1, 5, 7, 64, 64), (1, 1, 1, 32, 32),
+                                         (3, 40, 70, 64, 64)])
+def test_fwd_schedule_covers_every_tile_once(b, h, w, ci, co):
+    """K6's schedule gives each 8 x 16 cell tile of the ragged plane to
+    exactly one contiguous range, leaves no range empty, gives every range
+    one CTA per column slice of the output, and launches at most FWD_SMS
+    CTAs (one range per slice at least)."""
+    ctas, per = SC.fwd_schedule(b, h, w, ci, co)
+    nh = 4 * co // SC.fwd_cols(ci)
+    assert SC.fwd_cols(ci) * 16 * ci * 2 == 128 * 1024  # the resident 128 KB slice
+    assert ctas % nh == 0
+    tr, tw = SC.TILE_CELLS
+    tiles = b * -(-h // tr) * -(-w // tw)
+    owner = np.full((tiles, nh), -1)
+    for i in range(ctas):
+        g, s = divmod(i, nh)
+        lo, hi = g * per, min(tiles, (g + 1) * per)
+        assert lo < hi, f"range {g} is empty"
+        assert (owner[lo:hi, s] == -1).all()
+        owner[lo:hi, s] = i
+    assert (owner >= 0).all()
+    assert ctas <= max(SC.FWD_SMS, nh)
+
+
+def test_fwd_schedule_depends_on_the_shapes_alone():
+    """K6's schedule is a function of (B, H, W, ci, co): the same in every
+    call, whatever the thread or device state; the main path's conv2
+    forward and dgrad take 129 CTAs of 17 of its 2184 tiles, conv3's
+    forward and dgrad 130 CTAs (65 ranges of 34 tiles, two column slices
+    each)."""
+    shapes = [(24, 104, 104, 32, 32), (24, 104, 104, 32, 64), (24, 104, 104, 64, 32)]
+    first = [SC.fwd_schedule(*s) for s in shapes]
+    torch.manual_seed(7)
+    with torch.no_grad():
+        again = [SC.fwd_schedule(*s) for s in reversed(shapes)][::-1]
+    assert first == again
+    assert first == [(129, 17), (130, 34), (130, 34)]
+    assert SC.fwd_schedule(24, 104, 104, 32, 32) != SC.fwd_schedule(24, 96, 104, 32, 32)
