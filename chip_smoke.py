@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (crog_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py             # every phase below
+    python3 chip_smoke.py --kernels   # phases 1-3 and 12 only, no result line
 
 Phases, in order; any failure propagates and the exit code is not 0:
   1. the card's name and power limit (nvidia-smi);
@@ -9,14 +10,19 @@ Phases, in order; any failure propagates and the exit code is not 0:
      one process per source, all at once: eight libraries): K1-K4, the
      backward kernels K1b-K4b, SSG's lincomb loss kernels K5/K5b, and the
      s2d stem's gathered conv K6 (forward and dgrad) and its wgrad K6b;
-     the registers, shared memory and spills of K1b's one-CTA-per-head
-     kernel and K6b's cluster kernel;
+     the registers, shared memory and spills of the redesigned kernels (the
+     attention forward's one- and two-pass kernels at K1's, K2's and K3's
+     key counts, with the path ops/attention.py:fwd_path names; K4b's
+     cluster and dx kernels; K1b's one-CTA-per-head kernel; K6; K6b's
+     cluster kernel);
   3. hold each kernel against its plain PyTorch twin on the card, in bf16,
      at the shapes of CROG at batch 24 and 416^2 -- the forwards in eval,
      the K2-K4 forwards again with dropout on (the twins draw the same
      counter-based mask), and K1b-K4b on every gradient output with dropout
      on -- and time kernel and twin (and, for K1 and K1b, PyTorch's
      scaled_dot_product_attention and its backward as a yardstick only);
+     K4b again with dropout off, and twice at each rate: dx, dh, hn and its
+     four column sums must repeat with equal bits;
      K1b's kernels with the decoder blocks' bf16 cast points must fail
      K1b's tolerance, and K1b on a head of K1B_LONG tokens (its two-kernel
      path) must meet it; K5 and K5b in f32 at SSG's shapes at batch 8 and
@@ -67,10 +73,11 @@ Phases, in order; any failure propagates and the exit code is not 0:
      card (kernels, bf16) and on the CPU (plain PyTorch, fp32): the 8 loss
      terms and each group's gradients must agree;
  12. the device time per call, from torch.profiler's kernel rows, of K1,
-     K1b, K2b, K3b, each K6 and K6b launch and their library calls, and of
-     the attention kernel and SDPA at K2's and K3's shapes, beside the
-     CUDA-event times of phase 3 (last, so that the profiler runs in no
-     timed phase).
+     K1b, K2 and K3 (each with its attention step apart), K2b, K3b, K4b (its
+     own kernels apart from its fixed-order sums and the library dW GEMMs),
+     each K6 and K6b launch and their library calls, and of the attention
+     kernel and SDPA at K2's and K3's shapes, beside the CUDA-event times of
+     phase 3 (last, so that the profiler runs in no timed phase).
 
 Precision: fp32 products on the card run in full fp32 (TF32 off for matmul
 and cuDNN) wherever fp32 is compared; the models compute in bf16.
@@ -462,25 +469,48 @@ def device_ms(fn, reps: int = 10):
     return (total if total > 0 else None), by_name
 
 
-# (label, CUDA-event ms, call, group or None) of K1, K1b, K2b, K3b, each K6
-# and K6b launch, their library calls, and the attention kernel at K2's and K3's
-# shapes beside SDPA there, whose device time ``print_device_times`` takes
-# after the timed phases, so that the profiler runs in none of them; calls
-# of one group are also summed (K6 and cuDNN per CROG step)
+# (label, CUDA-event ms, call, group or None, split or None) of K1, K1b,
+# K2, K2b, K3, K3b, K4b, each K6 and K6b launch, their library calls, and
+# the attention kernel at K2's and K3's shapes beside SDPA there, whose
+# device time ``print_device_times`` takes after the timed phases, so that
+# the profiler runs in none of them; calls of one group are also summed (K6
+# and cuDNN per CROG step).  A split names parts of one call's device time
+# by kernel-name substrings, the rest under its last label.
 DEVICE_TIMED = []
+# K2's and K3's attention step apart from the rest of the block; K4b's own
+# kernels, its fixed-order sums and the two library dW GEMMs
+ATTN_SPLIT = ((("attention step", ("attn_fwd",)),), "rest of the block")
+FFN_BWD_SPLIT = ((("K4b's kernels", ("ffn_bwd", "ffn_dx")),
+                  ("reduce_rows", ("reduce_rows",)),
+                  ("dW1 and dW2 (library GEMMs)", ("gemm", "nvjet", "cutlass"))),
+                 "weight casts and copies")
+
+
+def _split_line(names, split) -> str:
+    parts, rest_label = split
+    total = sum(names.values())
+    out = []
+    for label, keys in parts:
+        t = sum(v for n, v in names.items() if any(k in n for k in keys))
+        out.append(f"{label} {t:.4f} ms")
+        total -= t
+    out.append(f"{rest_label} {total:.4f} ms")
+    return ", ".join(out)
 
 
 def print_device_times():
     """Each DEVICE_TIMED call's CUDA-event time beside its kernels' device
-    time, then each group's sum."""
+    time (and the parts of its split), then each group's sum."""
     sums = {}
-    for label, ms, fn, group in DEVICE_TIMED:
+    for label, ms, fn, group, split in DEVICE_TIMED:
         dev, names = device_ms(fn)
         shown = "not measured (no device rows)" if dev is None else f"{dev:.4f} ms"
         parts = ", ".join(f"{n[:90]} {t:.4f}" for n, t in sorted(names.items(),
                                                                    key=lambda kv: -kv[1]))
         print(f"[kernels] {label}: device time {shown} per call ({parts}); CUDA events "
               f"{ms:.4f} ms", flush=True)
+        if split is not None and dev is not None:
+            print(f"[kernels] {label} by part: {_split_line(names, split)}", flush=True)
         if group is not None:
             dev_sum, ms_sum = sums.get(group, (0.0, 0.0))
             sums[group] = (None if dev is None or dev_sum is None else dev_sum + dev,
@@ -499,16 +529,19 @@ def _time(rec, kern, plain, lib):
           f", library {rec['library_ms']}, bound {rec['bound_ms']:.4f} by "
           f"{rec['bound_by']})", flush=True)
     if rec["name"] == "attention":
-        DEVICE_TIMED.append(("attention (K1)", rec["ms"], kern, None))
+        DEVICE_TIMED.append(("attention (K1)", rec["ms"], kern, None, None))
         DEVICE_TIMED.append(("attention's library call (SDPA forward)",
-                             rec["library_ms"], lib, None))
-    if rec["name"] in ("decoder_self_block_bwd", "decoder_cross_block_bwd"):
-        kid = "K2b" if rec["name"] == "decoder_self_block_bwd" else "K3b"
-        DEVICE_TIMED.append((f"{rec['name']} ({kid})", rec["ms"], kern, None))
+                             rec["library_ms"], lib, None, None))
+    kid = {"decoder_self_block": "K2", "decoder_cross_block": "K3",
+           "decoder_self_block_bwd": "K2b", "decoder_cross_block_bwd": "K3b",
+           "ffn_bwd": "K4b"}.get(rec["name"])
+    if kid is not None:
+        split = {"K2": ATTN_SPLIT, "K3": ATTN_SPLIT, "K4b": FFN_BWD_SPLIT}.get(kid)
+        DEVICE_TIMED.append((f"{rec['name']} ({kid})", rec["ms"], kern, None, split))
     if rec["name"] == "attention_bwd":
-        DEVICE_TIMED.append(("attention_bwd (K1b)", rec["ms"], kern, None))
+        DEVICE_TIMED.append(("attention_bwd (K1b)", rec["ms"], kern, None, None))
         DEVICE_TIMED.append(("attention_bwd's library call (SDPA backward)",
-                             rec["library_ms"], lib, None))
+                             rec["library_ms"], lib, None, None))
 
 
 def attention_yardsticks(device, b=BATCH, l=676, t=17, heads=8, timed: bool = True):
@@ -559,10 +592,11 @@ def attention_yardsticks(device, b=BATCH, l=676, t=17, heads=8, timed: bool = Tr
         ms, lib_ms, bms, lib_bms = cuda_ms(kern), cuda_ms(lib), cuda_ms(bwd), cuda_ms(lib_bwd)
         print(f"[kernels] attention at {label}: {ms:.4f} ms (SDPA {lib_ms:.4f}); backward "
               f"with bf16 cast points {bms:.4f} ms (SDPA backward {lib_bms:.4f})", flush=True)
-        DEVICE_TIMED.append((f"attention at {label}", ms, kern, None))
-        DEVICE_TIMED.append((f"SDPA at {label}", lib_ms, lib, None))
-        DEVICE_TIMED.append((f"attention backward (K2b/K3b's step) at {label}", bms, bwd, None))
-        DEVICE_TIMED.append((f"SDPA backward at {label}", lib_bms, lib_bwd, None))
+        DEVICE_TIMED.append((f"attention at {label}", ms, kern, None, None))
+        DEVICE_TIMED.append((f"SDPA at {label}", lib_ms, lib, None, None))
+        DEVICE_TIMED.append((f"attention backward (K2b/K3b's step) at {label}", bms, bwd,
+                             None, None))
+        DEVICE_TIMED.append((f"SDPA backward at {label}", lib_bms, lib_bwd, None, None))
 
 
 def _compare(name, got, ref, tol, share=1.0):
@@ -608,12 +642,39 @@ def check_kernels(device, timed: bool = True):
             records[name] = _record(name, max_err, *bound(flops, nb))
             if timed:
                 _time(records[name], kern, plain, lib)
+        k4b_checks(inp)
         attention_yardsticks(device, timed=timed)
         k1b_cast_check(inp)
         k1b_long_check(device)
         records.update(check_lincomb(device, timed))
         records.update(check_s2dconv(device, timed))
     return records
+
+
+def k4b_checks(inp):
+    """K4b at the main path's M with dropout off (the backward cases run it
+    at RATE) against its twin under BWD_REL_TOL, and at both rates twice:
+    dx, dh, hn and the four column sums must come out with equal bits."""
+    import torch
+
+    from crog_tpu_torch.ops import ffn as FF
+
+    f = inp["ffn"]
+    args = (f["x"], f["w1"], f["b1"], f["g"], f["be"], f["w2"], inp["dy"]["ffn"])
+    names = ("dx", "dw1", "db1", "dgamma", "dbeta", "dw2", "db2")
+    for o, g, r in zip(names, FF.ffn_bwd(*args, SEED + 3, 0.0),
+                       FF.ffn_bwd_plain(*args, SEED + 3, 0.0)):
+        _compare(f"ffn_bwd (dropout 0).{o}", g, r, BWD_REL_TOL * float(r.float().abs().max()))
+    held = ("dx", "db1", "dgamma", "dbeta", "db2", "dh", "hn")
+    for rate in (0.0, RATE):
+        a, b = (FF.ffn_bwd(*args, SEED + 3, rate, with_hidden=True) for _ in range(2))
+        torch.cuda.synchronize()
+        both = dict(zip(names + ("dh", "hn"), zip(a, b)))
+        differ = [n for n in held if not torch.equal(*both[n])]
+        print(f"[kernels] ffn_bwd (dropout {rate}) twice: {', '.join(held)} "
+              f"{'equal bits' if not differ else 'differ: ' + ', '.join(differ)}", flush=True)
+        if differ:
+            raise AssertionError(f"K4b is not repeatable: {differ}")
 
 
 def k1b_cast_check(inp):
@@ -836,9 +897,10 @@ def check_s2dconv(device, timed: bool = True):
                 kid = "K6b" if name == "s2dconv_wgrad" else "K6"
                 call = "conv2d_weight" if name == "s2dconv_wgrad" else "cuDNN blocked conv"
                 DEVICE_TIMED.append((f"{name} ({kid}, {label})", ms, kern,
-                                     f"{name} ({kid}) per CROG train step"))
+                                     f"{name} ({kid}) per CROG train step", None))
                 DEVICE_TIMED.append((f"{name}'s library call ({call}, {label})", lib_ms, lib,
-                                     f"{name}'s library call ({call}) per CROG train step"))
+                                     f"{name}'s library call ({call}) per CROG train step",
+                                     None))
         if timed:
             print(f"[kernels] {name} per CROG train step: {rec['ms']:.4f} ms (plain "
                   f"{rec['plain_ms']:.4f}, cuDNN blocked {rec['library_ms']:.4f}, cuDNN "
@@ -1401,25 +1463,50 @@ def ptxas_entries(text: str):
 
 
 def redesigned_resources(reports):
-    """The build's registers and spills of the redesigned kernels (K1b's
-    one-CTA-per-head kernel, the two-kernel attention backward that K2b and
-    K3b run, K6's persistent conv, K6b's cluster kernel), and at the main
-    path's shapes their registers, shared memory per CTA (static + dynamic)
-    and spills as the runtime loads them (K6b also the clusters of its
-    launch the card holds at once)."""
+    """The build's registers and spills of the redesigned kernels (the
+    attention forward's one- and two-pass kernels that K1, K2 and K3 run,
+    K4b's cluster and dx kernels, K1b's one-CTA-per-head kernel, the
+    two-kernel attention backward that K2b and K3b run, K6's persistent
+    conv, K6b's cluster kernel), and at the main path's shapes their
+    registers, shared memory per CTA (static + dynamic) and spills as the
+    runtime loads them (the attention forward and K4b's dx kernel also
+    their CTAs per SM, K4b's and K6b's cluster kernels the clusters of
+    their launch the card holds at once)."""
     import ctypes
 
     from crog_tpu_torch.ops import cuda_build
 
-    for lib, keys in (("attention_bwd", ("attn_bwd_head_kernel", "attn_bwd_rows_kernel",
+    from crog_tpu_torch.ops import attention as A
+
+    for lib, keys in (("attention", ("attn_fwd_kernel",)),
+                      ("ffn_bwd", ("ffn_bwd_hidden_kernel", "ffn_dx_kernel")),
+                      ("attention_bwd", ("attn_bwd_head_kernel", "attn_bwd_rows_kernel",
                                          "attn_bwd_cols_kernel")),
                       ("s2dconv", ("s2dconv_fwd_kernel", "s2dconv_wgrad_kernel"))):
         for entry, regs, spill in ptxas_entries(reports[lib]):
             if any(k in entry for k in keys):
                 print(f"[build] ptxas {entry}: {regs} registers, {spill} bytes spill stores",
                       flush=True)
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * 8)()
     ptr = ctypes.cast(out, ctypes.c_void_p)
+    lib = cuda_build.load("attention")
+    for lk, who in ((169, "K1"), (676, "K2"), (17, "K3")):
+        cuda_build.check_launch(lib, lib.crog_attention_fwd_attrs(lk, ptr), "attrs")
+        path = "one_pass" if out[0] else "two_pass"
+        print(f"[build] attention forward at {who}'s {lk} keys: {path} kernel ({out[0]} key "
+              f"tiles in registers), {out[1]} registers, {out[2]} bytes shared memory per "
+              f"CTA, {out[3]} bytes local (spill) per thread, {out[4]} CTAs per SM", flush=True)
+        if path != A.fwd_path(lk):
+            raise AssertionError(f"the card takes the {path} kernel at {lk} keys, "
+                                 f"ops/attention.py:fwd_path says {A.fwd_path(lk)}")
+    lib = cuda_build.load("ffn_bwd")
+    cuda_build.check_launch(lib, lib.crog_ffn_bwd_attrs(ptr), "attrs")
+    print(f"[build] K4b cluster kernel (8 CTAs of 256 hidden columns, 128 rows): {out[0]} "
+          f"registers, {out[1]} bytes shared memory per CTA, {out[2]} bytes local (spill) "
+          f"per thread, {out[3]} clusters resident at once", flush=True)
+    print(f"[build] K4b dx kernel (128 x 256 tiles): {out[4]} registers, {out[5]} bytes "
+          f"shared memory per CTA, {out[6]} bytes local (spill) per thread, {out[7]} CTAs "
+          f"per SM", flush=True)
     lib = cuda_build.load("attention_bwd")
     cuda_build.check_launch(lib, lib.crog_attention_bwd_head_attrs(169, ptr), "attrs")
     print(f"[build] K1b one-CTA-per-head kernel at 169 tokens: {out[0]} registers, {out[1]} "
@@ -1441,9 +1528,16 @@ def redesigned_resources(reports):
               f"clusters resident at once", flush=True)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA card.")
+    ap.add_argument("--kernels", action="store_true",
+                    help="phases 1-3 and 12 only: build, hold every kernel against its "
+                         "twin, time it; no main path and no result line")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1468,6 +1562,10 @@ def main() -> int:
     redesigned_resources(reports)
 
     records = check_kernels(device)
+    if args.kernels:
+        print_device_times()
+        print(f"[done] kernels only, {time.perf_counter() - t_start:.1f} s", flush=True)
+        return 0
     cfg, model, batches = build_model_and_data(device)
     eval_step, eval_launches = main_path(device, cfg, model, batches)
     e2e_agreement(model, batches[0], cfg)

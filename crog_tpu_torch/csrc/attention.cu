@@ -2,8 +2,9 @@
 //
 // Replaces crog_tpu/ops/pallas_attention.py:104 `_fused_fwd` (the
 // pallas_call at :111, reached through `fused_self_attention` :98 and
-// `flash_attention_bhld` :156).  The kernel itself and its bound and design
-// notes are in attention.cuh, which the decoder block kernels share.
+// `flash_attention_bhld` :156).  The kernels themselves (one pass up to 192
+// keys, two passes beyond) and their bound and design notes are in
+// attention.cuh, which the decoder block kernels share.
 #include "attention.cuh"
 
 extern "C" int crog_attention_fwd(
@@ -31,4 +32,11 @@ extern "C" int crog_attention_fwd(
   a.o_rs = o_rs;
   a.scale = scale;
   return (int)crog::launch_attention(a, batch, static_cast<cudaStream_t>(stream));
+}
+
+// out[5] for the kernel that takes lk keys: key tiles held in registers (0:
+// the two-pass kernel), registers per thread, shared memory per CTA, spill
+// bytes per thread, CTAs per SM
+extern "C" int crog_attention_fwd_attrs(int lk, void* out) {
+  return (int)crog::attention_fwd_attrs(lk, static_cast<int*>(out));
 }

@@ -1,4 +1,5 @@
-// Softmax attention with exact (two-pass) softmax, for head dim 64.
+// Softmax attention with an exact (normalized, then rounded) softmax, for
+// head dim 64.
 //
 // Replaces the forward Pallas kernel `_fused_fwd` of
 // crog_tpu/ops/pallas_attention.py:104 (pallas_call at :111) and the
@@ -6,41 +7,73 @@
 // (crog_tpu/ops/pallas_decoder.py:99).
 //
 // What it computes, per (batch, head):
-//   s = (q k^T) * scale + mask[key]      (keys >= Lk score -1e30)
+//   s = (q k^T) * scale + mask[key]      (keys >= Lk weigh exactly 0, so an
+//                                         all-masked row averages over the
+//                                         Lk real keys)
 //   p = bf16( exp(s - max) / sum )       (normalized, then rounded, as the
 //                                         TPU kernel rounds p before P.V)
 //   o = bf16( p v )                      (f32 accumulation)
 // q/k/v/o are [B, L, H*64] with a free row and batch stride, so q and k can
-// be column slices of one packed projection.
+// be column slices of one packed projection.  1 <= Lk <= 768.
 //
-// Bound on an H100 (CLIP attention pool, B=24, 32 heads, L=169): 5.6 GFLOP
-// against 66 MB of q/k/v/o, so it is limited by memory, about 20 us.
+// Bound on an H100: the CLIP attention pool (B=24, 32 heads, L=169) is 5.6
+// GFLOP against 66 MB of q/k/v/o, about 20 us, limited by memory; the
+// decoder's self attention (B=24, 8 heads, L=676) 22.5 GFLOP (with the
+// second pass's QK^T, 34) against 66 MB, about 23-34 us.
 //
-// Design: one block of 4 warps takes 64 query rows of one head.  The whole
-// score row block [64, Lk] stays in shared memory (Lk <= 768), which makes
-// the softmax exact instead of online: each q/k/v tile is read from device
-// memory once per block, and the probabilities never leave the SM.  The
-// bf16 probabilities overwrite the first half of their own float score row,
-// so no second buffer is needed.  Products run on the tensor cores (WMMA).
+// Design.  Because p is normalized before P.V, a one-pass online softmax
+// does not compute this function: each query row needs its max and sum
+// before any p.  One CTA of 4 warps takes 64 query rows of one head, 16 per
+// warp; every product is ldmatrix + mma.sync m16n8k16 (bf16 operands, f32
+// sums) with the scores in registers (the C fragments of S become the A
+// fragments of P.V without leaving the thread), the Q fragments stay in
+// registers, and scores are taken in the log2 domain (s * log2(e)) so that
+// each exponential is one exp2 and the normalization one multiply by the
+// reciprocal sum.  Two paths, by key count (attn_fwd_key_tiles; the Python
+// mirror is ops/attention.py:fwd_path):
+//   one pass (Lk <= 192: K1's 169, K3's 17): the head's KT = ceil(Lk / 64)
+//     key tiles of scores stay in registers (8 KT fragments of 16 x 8 per
+//     warp).  All K and V tiles of the head are requested by cp.async at
+//     once, K first, so V lands while QK^T and the softmax run.  K/V rows
+//     are loaded up to the next multiple of 16 past Lk and n-tiles past Lk
+//     are skipped, so K3's 17 keys cost three n-tiles of 8, not 64 keys.
+//   two passes (Lk > 192: K2's 676): the key tiles stream through a
+//     two-stage cp.async ring twice.  The first pass keeps each row's
+//     running max and rescaled sum; the second recomputes QK^T, forms p =
+//     bf16(exp2(s - max) / sum) in registers and accumulates P.V.
+// Shared memory is 27-64 KB (one pass) or 36 KB (two passes: Q sits in the
+// ring slot the first pass leaves free), so three to five CTAs share an SM;
+// the output leaves the registers as 16-byte bf16 row segments after a
+// shuffle within each quad.
 #pragma once
 
+#include "attention_bwd.cuh"  // the ldmatrix / mma.sync fragment helpers ab_*
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace crog {
 
-constexpr int kAttnBQ = 64;   // query rows per block
-constexpr int kAttnBK = 64;   // key rows per tile
+constexpr int kAttnBQ = 64;   // query rows per CTA, and key rows per tile
 constexpr int kAttnDH = 64;   // head dim
-constexpr int kAttnLdT = kAttnDH + 8;  // bf16 tile row stride (pads banks)
+constexpr int kAttnLdT = kAttnDH + 8;  // bf16 tile row stride (conflict-free ldmatrix)
+constexpr int kAttnTile = kAttnBQ * kAttnLdT;
 constexpr int kAttnMaxLk = 768;
+constexpr int kAttnOnePassTiles = 3;  // the one-pass path holds up to 192 keys
+constexpr int kAttnThreads = 128;
+static_assert(kAttnLdT == kAbLdT && kAttnDH == kAbDH, "tiles shared with the ab_* helpers");
 
-__host__ __device__ inline int attn_score_ld(int lk) {
-  return round_up(lk, kAttnBK) + 8;
+// key tiles whose scores one CTA holds in registers (the one-pass path), or
+// 0 for the two-pass path
+__host__ __device__ inline int attn_fwd_key_tiles(int lk) {
+  const int t = (lk + kAttnBQ - 1) / kAttnBQ;
+  return t <= kAttnOnePassTiles ? t : 0;
 }
 
-__host__ __device__ inline size_t attn_smem_bytes(int lk) {
-  return 2 * kAttnBQ * kAttnLdT * sizeof(bf16) +
-         (size_t)kAttnBQ * attn_score_ld(lk) * sizeof(float);
+// Q, then KT K tiles and KT V tiles (one pass); or two ring stages of K and
+// V, Q in the second stage's V slot, which the first pass leaves unused (two
+// passes)
+__host__ __device__ constexpr size_t attn_fwd_smem_bytes(int kt) {
+  return (size_t)(kt > 0 ? 1 + 2 * kt : 4) * kAttnTile * sizeof(bf16);
 }
 
 struct AttnArgs {
@@ -54,156 +87,288 @@ struct AttnArgs {
   float scale;
 };
 
-// load rows [r0, r0+64) of a [L, 64] head slice into a [64, kAttnLdT] tile,
-// zero-filling rows >= L
-__device__ __forceinline__ void attn_load_tile(bf16* tile, const bf16* base,
-                                               long long rs, int r0, int L) {
-  for (int v = threadIdx.x; v < kAttnBK * (kAttnDH / 8); v += blockDim.x) {
-    int r = v / (kAttnDH / 8);
-    int c = (v % (kAttnDH / 8)) * 8;
-    if (r0 + r < L) {
-      copy8(tile + r * kAttnLdT + c, base + (long long)(r0 + r) * rs + c);
-    } else {
-      zero8(tile + r * kAttnLdT + c);
+// the A fragments of this warp's 16 query rows over the head dim
+__device__ __forceinline__ void attn_q_frags(const bf16* qs, int r0, uint32_t (&fq)[4][4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    ldsm_x4(smem_u32(qs + (r0 + (lane & 15)) * kAttnLdT + kk * 16 + (lane >> 4) * 8), fq[kk]);
+}
+
+// s = this warp's 16 query rows against the 64 keys of tile ks, in the log2
+// domain with the key mask: s * scale * log2(e) + mask * log2(e) for keys
+// < lk, -3e38 past it (below any real score; such keys weigh exactly 0).
+// n-tiles j >= nv are not multiplied.
+__device__ __forceinline__ void attn_scores(float (&s)[8][4], const uint32_t (&fq)[4][4],
+                                            const bf16* ks, int kt, int lk, const float* mrow,
+                                            float sl2) {
+  const int lane = threadIdx.x & 31;
+  const int qd = lane & 3;
+  const int nv = min(8, (lk - kt + 7) / 8);
+  ab_zero(s);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (j < nv) {
+#pragma unroll
+      for (int k2 = 0; k2 < 2; ++k2) {
+        uint32_t bb[4];
+        ldsm_x4(smem_u32(ks + (j * 8 + (lane & 7)) * kAttnLdT + k2 * 32 + (lane >> 3) * 8), bb);
+        mma_bf16(s[j], fq[2 * k2], bb[0], bb[1]);
+        mma_bf16(s[j], fq[2 * k2 + 1], bb[2], bb[3]);
+      }
     }
+  }
+  if (!mrow && kt + kAttnBQ <= lk) {  // a whole tile of unmasked keys
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] *= sl2;
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = kt + j * 8 + 2 * qd + (e & 1);
+      s[j][e] = key < lk ? s[j][e] * sl2 + (mrow ? mrow[key] * kLog2e : 0.0f) : -3.0e38f;
+    }
+}
+
+// 2^x on the special-function unit (flushes subnormal results to 0)
+__device__ __forceinline__ float attn_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the quad's row max and sum over its four threads' partials (rows g, g + 8),
+// in a fixed order; returns the reciprocal sums in inv
+__device__ __forceinline__ void attn_quad_stats(float (&m)[2], const float (&l)[2],
+                                                float (&inv)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mq = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
+    mq = fmaxf(mq, __shfl_xor_sync(0xffffffffu, mq, 2));
+    float lq = l[r] * attn_exp2(m[r] - mq);
+    lq += __shfl_xor_sync(0xffffffffu, lq, 1);
+    lq += __shfl_xor_sync(0xffffffffu, lq, 2);
+    m[r] = mq;
+    inv[r] = 1.0f / lq;
   }
 }
 
-__global__ void __launch_bounds__(128) attention_kernel(AttnArgs a) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* kvs = qs + kAttnBQ * kAttnLdT;
-  float* sc = reinterpret_cast<float*>(kvs + kAttnBQ * kAttnLdT);
+// the rows' bf16 outputs as 16-byte segments: per pair of 8-column fragments
+// a quad holds four row segments; quad_gather16 gives each thread one whole
+__device__ __forceinline__ void attn_store(const float (&o)[8][4], bf16* ob, long long rs,
+                                           int row0, int lq) {
+  const int lane = threadIdx.x & 31;
+  const int qi = lane & 3;
+  const int row = row0 + (lane >> 2) + 8 * (qi & 1);
+#pragma unroll
+  for (int j = 0; j < 8; j += 2) {
+    const uint32_t v[4] = {pack_bf16(o[j][0], o[j][1]), pack_bf16(o[j][2], o[j][3]),
+                           pack_bf16(o[j + 1][0], o[j + 1][1]),
+                           pack_bf16(o[j + 1][2], o[j + 1][3])};
+    const uint4 seg = quad_gather16(v);
+    if (row < lq) *reinterpret_cast<uint4*>(ob + (long long)row * rs + (j + (qi >> 1)) * 8) = seg;
+  }
+}
 
-  const int lkp = round_up(a.lk, kAttnBK);
-  const int ls = lkp + 8;  // float row stride of the score block
+// rows of a K or V tile a CTA loads: up to the next multiple of 16 past lk
+__device__ __forceinline__ int attn_tile_rows(int kt, int lk) {
+  return min(kAttnBQ, round_up(lk - kt, 16));
+}
+
+template <int KT>
+__global__ void __launch_bounds__(kAttnThreads, KT == 0 ? 5 : 2) attn_fwd_kernel(AttnArgs a) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  // one pass: Q, K tiles, V tiles; two passes: [2 stages][K, V], Q in stage 1's V
+  bf16* ts = reinterpret_cast<bf16*>(smem_raw) + (KT > 0 ? kAttnTile : 0);
+  bf16* qs = KT > 0 ? reinterpret_cast<bf16*>(smem_raw) : ts + 3 * kAttnTile;
+
   const int bh = blockIdx.y;
   const int b = bh / a.heads;
   const int h = bh % a.heads;
   const int q0 = blockIdx.x * kAttnBQ;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int r0 = warp * 16;
+  const int r0 = (threadIdx.x >> 5) * 16;  // this warp's query rows
 
   const bf16* qb = a.q + b * a.q_bs + h * kAttnDH;
   const bf16* kb = a.k + b * a.k_bs + h * kAttnDH;
   const bf16* vb = a.v + b * a.v_bs + h * kAttnDH;
-
-  attn_load_tile(qs, qb, a.q_rs, q0, a.lq);
-  __syncthreads();
-
-  // ---- scores: S[64, lkp] = Q K^T, raw f32 sums
-  FragA fq[kAttnDH / 16];
-#pragma unroll
-  for (int kk = 0; kk < kAttnDH / 16; ++kk)
-    wmma::load_matrix_sync(fq[kk], qs + r0 * kAttnLdT + kk * 16, kAttnLdT);
-  for (int kt = 0; kt < lkp; kt += kAttnBK) {
-    attn_load_tile(kvs, kb, a.k_rs, kt, a.lk);
-    __syncthreads();
-    FragC acc[kAttnBK / 16];
-#pragma unroll
-    for (int j = 0; j < kAttnBK / 16; ++j) wmma::fill_fragment(acc[j], 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < kAttnDH / 16; ++kk) {
-#pragma unroll
-      for (int j = 0; j < kAttnBK / 16; ++j) {
-        FragBCol fk;  // element (d, key) at kvs[key * ld + d]
-        wmma::load_matrix_sync(fk, kvs + (j * 16) * kAttnLdT + kk * 16, kAttnLdT);
-        wmma::mma_sync(acc[j], fq[kk], fk, acc[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kAttnBK / 16; ++j)
-      wmma::store_matrix_sync(sc + r0 * ls + kt + j * 16, acc[j], ls,
-                              wmma::mem_row_major);
-    __syncthreads();
-  }
-
-  // ---- exact softmax over each of this warp's 16 rows
   const float* mrow = a.mask ? a.mask + (long long)b * a.lk : nullptr;
-  for (int r = 0; r < 16; ++r) {
-    float* srow = sc + (r0 + r) * ls;
-    float m = -3.0e38f;
-    for (int c = lane; c < lkp; c += 32) {
-      float s = kNeg;
-      if (c < a.lk) {
-        s = srow[c] * a.scale;
-        if (mrow) s += mrow[c];
-      }
-      srow[c] = s;
-      m = fmaxf(m, s);
-    }
-    m = warp_max(m);
-    float l = 0.0f;
-    for (int c = lane; c < lkp; c += 32) {
-      // padded columns weigh exactly 0, so an all-masked row averages
-      // over the Lk real keys only
-      float e = c < a.lk ? expf(srow[c] - m) : 0.0f;
-      srow[c] = e;
-      l += e;
-    }
-    l = warp_sum(l);
-    __syncwarp();
-    // bf16 probabilities into the first half of the same row: the write of
-    // column c lands in float c/2, which no lane still has to read once
-    // every lane of this step has read its own column
-    bf16* prow = reinterpret_cast<bf16*>(srow);
-    for (int c = lane; c < lkp; c += 32) {
-      float p = srow[c] / l;
-      __syncwarp();
-      prow[c] = f2bf(p);
-      __syncwarp();
-    }
-  }
-  __syncthreads();
+  const float sl2 = a.scale * kLog2e;
 
-  // ---- O[64, 64] = P V
-  FragC oacc[kAttnDH / 16];
+  ab_load_rows<kAttnThreads>(qs, qb, a.q_rs, q0, kAttnBQ, a.lq);
+  uint32_t fq[4][4];
+  float m[2] = {-3.0e38f, -3.0e38f}, l[2] = {0.0f, 0.0f}, inv[2];
+  float o[8][4];
+  ab_zero(o);
+
+  if constexpr (KT > 0) {
+    // ---- one pass: every K tile (with Q) as one group, every V tile as a second
 #pragma unroll
-  for (int j = 0; j < kAttnDH / 16; ++j) wmma::fill_fragment(oacc[j], 0.0f);
-  const bf16* pw = reinterpret_cast<const bf16*>(sc + r0 * ls);
-  for (int kt = 0; kt < lkp; kt += kAttnBK) {
-    attn_load_tile(kvs, vb, a.v_rs, kt, a.lk);
+    for (int t = 0; t < KT; ++t)
+      ab_load_rows<kAttnThreads>(ts + t * kAttnTile, kb, a.k_rs, t * kAttnBQ,
+                                 attn_tile_rows(t * kAttnBQ, a.lk), a.lk);
+    cp_async_commit();
+#pragma unroll
+    for (int t = 0; t < KT; ++t)
+      ab_load_rows<kAttnThreads>(ts + (KT + t) * kAttnTile, vb, a.v_rs, t * kAttnBQ,
+                                 attn_tile_rows(t * kAttnBQ, a.lk), a.lk);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    attn_q_frags(qs, r0, fq);
+    float s[KT][8][4];
+#pragma unroll
+    for (int t = 0; t < KT; ++t)
+      attn_scores(s[t], fq, ts + t * kAttnTile, t * kAttnBQ, a.lk, mrow, sl2);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int t = 0; t < KT; ++t)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          m[r] = fmaxf(m[r], fmaxf(s[t][j][2 * r], s[t][j][2 * r + 1]));
+    }
+    // the quad's max first, so that every exp2 is taken once against it
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
+      m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 2));
+    }
+#pragma unroll
+    for (int t = 0; t < KT; ++t)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = s[t][j][e] > -3.0e38f ? attn_exp2(s[t][j][e] - m[e >> 1]) : 0.0f;
+          s[t][j][e] = x;
+          l[e >> 1] += x;
+        }
+    attn_quad_stats(m, l, inv);  // m is already the quad's: only the sums move
+#pragma unroll
+    for (int t = 0; t < KT; ++t)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[t][j][e] *= inv[e >> 1];
+    cp_async_wait<0>();
     __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < kAttnBK / 16; ++kk) {
-      FragA fp;
-      wmma::load_matrix_sync(fp, pw + kt + kk * 16, 2 * ls);
+    for (int t = 0; t < KT; ++t)
+      ab_nn_all<kBwdBf16>(o, s[t], ts + (KT + t) * kAttnTile, min(8, (a.lk - t * kAttnBQ + 7) / 8));
+  } else {
+    // ---- two passes over the key tiles: the statistics, then P.V
+    const int T = (a.lk + kAttnBQ - 1) / kAttnBQ;
+    auto load = [&](int i) {
+      bf16* st = ts + (i & 1) * 2 * kAttnTile;
+      const int kt = (i % T) * kAttnBQ;
+      const int rows = attn_tile_rows(kt, a.lk);
+      ab_load_rows<kAttnThreads>(st, kb, a.k_rs, kt, rows, a.lk);
+      if (i >= T) ab_load_rows<kAttnThreads>(st + kAttnTile, vb, a.v_rs, kt, rows, a.lk);
+    };
+    load(0);
+    cp_async_commit();
+#pragma unroll 1
+    for (int i = 0; i < 2 * T; ++i) {
+      if (i + 1 < 2 * T) load(i + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();  // tile i (and Q) landed for every thread
+      if (i == 0) attn_q_frags(qs, r0, fq);
+      const int kt = (i % T) * kAttnBQ;
+      const bf16* ks = ts + (i & 1) * 2 * kAttnTile;
+      float s[8][4];
+      attn_scores(s, fq, ks, kt, a.lk, mrow, sl2);
+      if (i < T) {  // running max and rescaled sum over this thread's keys
 #pragma unroll
-      for (int j = 0; j < kAttnDH / 16; ++j) {
-        FragBRow fv;  // element (key, d) at kvs[key * ld + d]
-        wmma::load_matrix_sync(fv, kvs + (kk * 16) * kAttnLdT + j * 16, kAttnLdT);
-        wmma::mma_sync(oacc[j], fp, fv, oacc[j]);
+        for (int r = 0; r < 2; ++r) {
+          float mt = m[r];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) mt = fmaxf(mt, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+          float lt = 0.0f;
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              lt += s[j][2 * r + e] > -3.0e38f ? attn_exp2(s[j][2 * r + e] - mt) : 0.0f;
+          l[r] = l[r] * attn_exp2(m[r] - mt) + lt;
+          m[r] = mt;
+        }
+        if (i == T - 1) attn_quad_stats(m, l, inv);
+      } else {  // p = bf16(exp2(s - max) / sum); o += P V
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[j][e] = s[j][e] > -3.0e38f ? attn_exp2(s[j][e] - m[e >> 1]) * inv[e >> 1] : 0.0f;
+        ab_nn_all<kBwdBf16>(o, s, ks + kAttnTile, min(8, (a.lk - kt + 7) / 8));
       }
+      __syncthreads();  // every warp is done with stage i & 1 before it refills
     }
-    __syncthreads();
   }
+  attn_store(o, a.o + b * a.o_bs + h * kAttnDH, a.o_rs, q0 + r0, a.lq);
+}
 
-  // ---- stage this warp's 16 x 64 output over its own score rows, store
-  float* ostage = sc + r0 * ls;
-#pragma unroll
-  for (int j = 0; j < kAttnDH / 16; ++j)
-    wmma::store_matrix_sync(ostage + j * 16, oacc[j], ls, wmma::mem_row_major);
-  __syncwarp();
-  bf16* ob = a.o + b * a.o_bs + h * kAttnDH;
-  for (int e = lane; e < 16 * kAttnDH; e += 32) {
-    int r = e / kAttnDH;
-    int c = e % kAttnDH;
-    int row = q0 + r0 + r;
-    if (row < a.lq) ob[(long long)row * a.o_rs + c] = f2bf(ostage[r * ls + c]);
+// Each kernel's dynamic shared memory limit, set once per library and card.
+// Internal linkage: two libraries include this header (attention,
+// decoder_blocks), and a function-local static of an inline function would
+// be one object across them.
+template <int KT>
+static cudaError_t attn_fwd_set_smem_once() {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      attn_fwd_kernel<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)attn_fwd_smem_bytes(KT));
+  return attr;
+}
+
+template <int KT>
+static cudaError_t launch_attn_fwd(const AttnArgs& a, int batch, cudaStream_t stream) {
+  const cudaError_t attr = attn_fwd_set_smem_once<KT>();
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((a.lq + kAttnBQ - 1) / kAttnBQ, batch * a.heads);
+  attn_fwd_kernel<KT><<<grid, kAttnThreads, attn_fwd_smem_bytes(KT), stream>>>(a);
+  return cudaGetLastError();
+}
+
+static cudaError_t launch_attention(const AttnArgs& a, int batch, cudaStream_t stream) {
+  if (a.lk > kAttnMaxLk || a.lk < 1 || a.lq < 1 || batch < 1) return cudaErrorInvalidValue;
+  switch (attn_fwd_key_tiles(a.lk)) {
+    case 1: return launch_attn_fwd<1>(a, batch, stream);
+    case 2: return launch_attn_fwd<2>(a, batch, stream);
+    case 3: return launch_attn_fwd<3>(a, batch, stream);
+    default: return launch_attn_fwd<0>(a, batch, stream);
   }
 }
 
-inline cudaError_t launch_attention(const AttnArgs& a, int batch,
-                                    cudaStream_t stream) {
-  if (a.lk > kAttnMaxLk || a.lk < 1 || a.lq < 1) return cudaErrorInvalidValue;
-  size_t smem = attn_smem_bytes(a.lk);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <int KT>
+static cudaError_t attn_fwd_attrs_of(int* out) {
+  cudaError_t err = attn_fwd_set_smem_once<KT>();
   if (err != cudaSuccess) return err;
-  dim3 grid((a.lq + kAttnBQ - 1) / kAttnBQ, batch * a.heads);
-  attention_kernel<<<grid, 128, smem, stream>>>(a);
-  return cudaGetLastError();
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, attn_fwd_kernel<KT>);
+  if (err != cudaSuccess) return err;
+  out[0] = KT;
+  out[1] = fa.numRegs;
+  out[2] = (int)(fa.sharedSizeBytes + attn_fwd_smem_bytes(KT));
+  out[3] = (int)fa.localSizeBytes;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4], attn_fwd_kernel<KT>,
+                                                        kAttnThreads, attn_fwd_smem_bytes(KT));
+}
+
+// out[5] for the kernel that takes lk keys: its key tiles held in registers
+// (0: the two-pass kernel), registers per thread, shared memory per CTA
+// (static + dynamic), spill bytes per thread, and CTAs per SM
+static cudaError_t attention_fwd_attrs(int lk, int* out) {
+  if (lk > kAttnMaxLk || lk < 1) return cudaErrorInvalidValue;
+  switch (attn_fwd_key_tiles(lk)) {
+    case 1: return attn_fwd_attrs_of<1>(out);
+    case 2: return attn_fwd_attrs_of<2>(out);
+    case 3: return attn_fwd_attrs_of<3>(out);
+    default: return attn_fwd_attrs_of<0>(out);
+  }
 }
 
 }  // namespace crog

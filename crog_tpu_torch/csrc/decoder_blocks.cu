@@ -25,7 +25,8 @@
 //      in the epilogue (the q/k/v projections; q and k come out of one
 //      launch as a packed [M, 2D] for the self block).
 //   3. attention (attention.cuh): q, k, v read in place from the projection
-//      outputs by stride, the score block kept in shared memory.
+//      outputs by stride; the two-pass kernel for the self block's 676
+//      keys, the one-pass kernel for the cross block's 17.
 //   4. outproj_ln_residual: a block owns 32 whole rows, so the post-LN
 //      statistics, the dropout (counter-based mask, common.cuh) and the
 //      residual add fuse into the projection's epilogue.  In training it also

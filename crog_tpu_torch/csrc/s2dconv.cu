@@ -172,11 +172,6 @@ __device__ __forceinline__ void fwd_wgmma(float (&acc)[NC / 2], const uint32_t (
   }
 }
 
-// the i-th of four packed values, without an indexed (local-memory) array
-__device__ __forceinline__ uint32_t pick4(const uint32_t (&v)[4], int i) {
-  return i == 0 ? v[0] : i == 1 ? v[1] : i == 2 ? v[2] : v[3];
-}
-
 template <int CI>
 __global__ void __launch_bounds__(kSThreads, 1) s2dconv_fwd_kernel(
     const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
@@ -289,21 +284,8 @@ __global__ void __launch_bounds__(kSThreads, 1) s2dconv_fwd_kernel(
                              pack_bf16(acc[4 * j + 2], acc[4 * j + 3]),
                              pack_bf16(acc[4 * j + 4], acc[4 * j + 5]),
                              pack_bf16(acc[4 * j + 6], acc[4 * j + 7])};
-      uint32_t seg[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        // thread p sends its value (p - r) & 3; this thread takes from p = qi + r
-        const uint32_t got =
-            __shfl_sync(0xffffffffu, pick4(v, (qi - r) & 3), (lane & ~3) | ((qi + r) & 3));
-        const int p = (qi + r) & 3;
-        seg[0] = p == 0 ? got : seg[0];
-        seg[1] = p == 1 ? got : seg[1];
-        seg[2] = p == 2 ? got : seg[2];
-        seg[3] = p == 3 ? got : seg[3];
-      }
-      if (ok)
-        *reinterpret_cast<uint4*>(out + (j + (qi >> 1)) * 8) =
-            make_uint4(seg[0], seg[1], seg[2], seg[3]);
+      const uint4 seg = quad_gather16(v);
+      if (ok) *reinterpret_cast<uint4*>(out + (j + (qi >> 1)) * 8) = seg;
     }
 #pragma unroll
     for (int e = 0; e < NC / 2; ++e) acc[e] = 0.0f;

@@ -1,9 +1,11 @@
-// Register-level building blocks of the redesigned Hopper kernels (K1b's
-// one-CTA-per-head backward, the decoder blocks' attention backward, K6's
-// persistent conv and K6b's cluster wgrad): ldmatrix, mma.sync m16n8k16
-// bf16 -> f32, cp.async with zero fill, mbarriers, TMA tensor loads (to
-// one CTA, or multicast across a thread-block cluster), cluster barriers,
-// and wgmma with A in registers and B in shared memory.
+// Register-level building blocks of the redesigned Hopper kernels (the
+// attention forward, K1b's one-CTA-per-head backward, the decoder blocks'
+// attention backward, K4b's cluster and dx kernels, K6's persistent conv and
+// K6b's cluster wgrad): ldmatrix, mma.sync m16n8k16 bf16 -> f32, cp.async
+// with zero fill, mbarriers, TMA tensor loads (to one CTA, or multicast
+// across a thread-block cluster), cluster barriers and distributed shared
+// memory loads, wgmma with A in registers and B in shared memory, and the
+// quad shuffle that turns C fragments into 16-byte row segments.
 //
 // Fragment layouts of mma.m16n8k16.row.col (g = lane / 4, q = lane % 4):
 //   A 16x16: a0 (g, 2q..2q+1), a1 (g+8, 2q..), a2 (g, 2q+8..), a3 (g+8, 2q+8..)
@@ -55,6 +57,30 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // the packed pair's values back in f32
 __device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
   return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
+}
+
+// v[i] for a runtime i < 4, by selects (no local-memory array)
+__device__ __forceinline__ uint32_t sel4(const uint32_t (&v)[4], int i) {
+  return i == 0 ? v[0] : i == 1 ? v[1] : i == 2 ? v[2] : v[3];
+}
+
+// A quad (lanes 4g..4g+3) holds four 16-byte segments, word q of each in
+// lane q (v[i]: this lane's word of segment i).  Returns segment q whole in
+// lane q: four shuffles, thread p sending its word (p - r) & 3 in round r.
+__device__ __forceinline__ uint4 quad_gather16(const uint32_t (&v)[4]) {
+  const int lane = threadIdx.x & 31;
+  const int qi = lane & 3;
+  uint32_t seg[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int p = (qi + r) & 3;
+    const uint32_t got = __shfl_sync(0xffffffffu, sel4(v, (qi - r) & 3), (lane & ~3) | p);
+    seg[0] = p == 0 ? got : seg[0];
+    seg[1] = p == 1 ? got : seg[1];
+    seg[2] = p == 2 ? got : seg[2];
+    seg[3] = p == 3 ? got : seg[3];
+  }
+  return make_uint4(seg[0], seg[1], seg[2], seg[3]);
 }
 
 // 16-byte global -> shared copy; src_bytes 0 writes zeros (src must still
@@ -138,6 +164,21 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
+// the f32 at `p`'s offset in the shared memory of CTA `cta` of the cluster
+__device__ __forceinline__ float ld_dsmem_f32(const float* p, uint32_t cta) {
+  float v;
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %1, %2;\n"
+      "ld.shared::cluster.f32 %0, [remote];\n"
+      "}\n"
+      : "=f"(v)
+      : "r"(smem_u32(p)), "r"(cta)
+      : "memory");
+  return v;
+}
+
 __device__ __forceinline__ void fence_barrier_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
@@ -211,6 +252,12 @@ __device__ __forceinline__ void wgmma_commit() {
 
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// wait until at most N of this warpgroup's committed wgmma groups are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // d += A B over the warpgroup: wgmma m64n128k16, bf16 operands, f32 sums.

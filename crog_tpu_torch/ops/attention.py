@@ -23,7 +23,8 @@ import torch.nn.functional as F
 from crog_tpu_torch.ops import cuda_build
 
 NEG = -1e30  # the kernels' mask value: finite, keeps all-masked rows finite
-MAX_KEYS = 768  # the kernel keeps a [64, Lk] score block in shared memory
+MAX_KEYS = 768  # the kernels' limit on keys per head
+ONE_PASS_MAX_KEYS = 192  # the forward's one-pass kernel holds 3 key tiles of scores
 HEAD_MAX_LEN = 256  # K1b's one-CTA-per-head kernel holds a whole head
 HEAD_DIM = 64
 
@@ -63,12 +64,24 @@ def _check_rows(t: torch.Tensor, name: str) -> None:
         )
 
 
+def fwd_path(lk: int) -> str:
+    """Which forward kernel takes a head of ``lk`` keys: "one_pass" (the
+    head's scores in registers, K1's 169 and K3's 17 keys) up to
+    ONE_PASS_MAX_KEYS, else "two_pass" (statistics, then P.V; K2's 676), up
+    to MAX_KEYS.  csrc/attention.cuh:attn_fwd_key_tiles makes the same
+    choice on the card."""
+    if not 1 <= lk <= MAX_KEYS:
+        raise ValueError(f"attention kernel takes 1..{MAX_KEYS} keys, got {lk}")
+    return "one_pass" if lk <= ONE_PASS_MAX_KEYS else "two_pass"
+
+
 def fused_attention(q, k, v, num_heads: int, mask_add=None):
     """K1.  q [B, Lq, H*64], k/v [B, Lk, H*64] bf16 (any row and batch
     stride, unit feature stride); ``mask_add`` [B, Lk] f32 or None.
 
     On a CPU tensor this is ``attention_plain``; on a CUDA tensor it launches
-    crog_attention_fwd (csrc/attention.cu) or raises."""
+    crog_attention_fwd (csrc/attention.cu), whose kernel ``fwd_path`` names,
+    or raises."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, num_heads, mask_add)
     b, lq, d = q.shape
@@ -80,8 +93,7 @@ def fused_attention(q, k, v, num_heads: int, mask_add=None):
             f"attention kernel takes head dim {HEAD_DIM}: q {tuple(q.shape)}, "
             f"k {tuple(k.shape)}, v {tuple(v.shape)}, {num_heads} heads"
         )
-    if not 1 <= lk <= MAX_KEYS:
-        raise ValueError(f"attention kernel takes 1..{MAX_KEYS} keys, got {lk}")
+    fwd_path(lk)  # raises past MAX_KEYS
     if mask_add is not None:
         cuda_build.require(mask_add, "mask_add", torch.float32, (b, lk))
     o = torch.empty(b, lq, d, dtype=torch.bfloat16, device=q.device)

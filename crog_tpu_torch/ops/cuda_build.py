@@ -46,6 +46,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "attention": {
         "crog_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I]
         + [_L] * 8 + [_F, _P],
+        "crog_attention_fwd_attrs": [_I, _P],
     },
     "attention_bwd": {
         "crog_attention_bwd": [_P] * 10 + [_I] * 4 + [_F, _I, _P],
@@ -66,6 +67,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "ffn_bwd": {
         "crog_ffn_bwd": [_P] + [_I] * 3 + _DROP + [_P],
+        "crog_ffn_bwd_attrs": [_P],
     },
     "lincomb": {
         "crog_lincomb_fwd": [_P] * 7 + [_I] * 9 + [_P],

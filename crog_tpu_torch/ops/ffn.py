@@ -5,9 +5,11 @@ Counterpart of crog_tpu/ops/pallas_ffn.py ``fused_ffn`` (176) and its custom
 VJP.  Weights in torch layout: ``w1`` [F, D], ``w2`` [D, F].  ``fused_ffn``
 is an autograd function.  On a CUDA tensor its forward launches csrc/ffn.cu,
 which keeps each row tile's [32, 2048] hidden in shared memory, and its
-backward csrc/ffn_bwd.cu, which recomputes the hidden and the dropout mask
-from x and the seed and emits dx, dh, hn and the column sums of db1, dgamma,
-dbeta, db2 (or raises); the two weight gradients dW1 = dh^T x and dW2 =
+backward csrc/ffn_bwd.cu, whose cluster kernel spreads each 128-row tile's
+hidden over 8 CTAs (``bwd_schedule``), recomputes the hidden and the dropout
+mask from x and the seed and emits dh, hn and the column sums of db1,
+dgamma, dbeta, db2, and whose second kernel computes dx from dh (or raises);
+the two weight gradients dW1 = dh^T x and dW2 =
 dy^T hn are library matrix products outside the kernel, as the JAX package
 leaves them to XLA: bf16 operands on the tensor cores with f32 sums and an
 f32 result, as the JAX einsums with ``preferred_element_type=float32``
@@ -28,7 +30,19 @@ from crog_tpu_torch.ops.decoder_blocks import dense, ln_fast, ln_stats
 from crog_tpu_torch.ops.dropout import apply_dropout, dropout_keep, kernel_args
 
 KERNEL_D, KERNEL_F = 512, 2048
-ROWS = 32  # rows per block of both kernels
+BWD_ROWS = 128  # rows per cluster tile of K4b (csrc/ffn_bwd.cu kBM); K4's are in ffn.cu
+BWD_CLUSTER = 8  # CTAs per K4b cluster, each with KERNEL_F // 8 hidden columns
+
+
+def bwd_schedule(m: int):
+    """K4b's work split over ``m`` rows, from the shapes alone: the row
+    range [r0, r1) of each cluster tile (one partial row of column sums
+    each, summed in this order), and the hidden column range [c0, c1) that
+    CTA k of every cluster owns.  csrc/ffn_bwd.cu launches one cluster per
+    tile and the dx kernel over the same row tiles."""
+    tiles = [(r, min(r + BWD_ROWS, m)) for r in range(0, m, BWD_ROWS)]
+    width = KERNEL_F // BWD_CLUSTER
+    return tiles, [(k * width, (k + 1) * width) for k in range(BWD_CLUSTER)]
 
 
 def ffn_plain(x, w1, b1, gamma, beta, w2, b2, seed: int = 0, rate: float = 0.0,
@@ -116,10 +130,13 @@ def ffn_fwd(x, w1, b1, gamma, beta, w2, b2, seed: int = 0, rate: float = 0.0):
 ffn_fwd.launches = 0
 
 
-def ffn_bwd(x, w1, b1, gamma, beta, w2, dy, seed: int = 0, rate: float = 0.0):
-    """K4b on a CUDA tensor (csrc/ffn_bwd.cu) plus the two weight-gradient
-    products (bf16 GEMMs with f32 results).  Returns (dx, dw1, db1, dgamma,
-    dbeta, dw2, db2)."""
+def ffn_bwd(x, w1, b1, gamma, beta, w2, dy, seed: int = 0, rate: float = 0.0,
+            with_hidden: bool = False):
+    """K4b on a CUDA tensor (csrc/ffn_bwd.cu: the cluster kernel, the dx
+    kernel and two fixed-order sums) plus the two weight-gradient products
+    (bf16 GEMMs with f32 results).  Returns (dx, dw1, db1, dgamma, dbeta,
+    dw2, db2), and with ``with_hidden`` also the kernels' dh and hn [M, F]
+    bf16 (the card tests hold them to equal bits across repeats)."""
     _check(x, w1)
     m, d = x.shape
     f = w1.shape[0]
@@ -127,7 +144,7 @@ def ffn_bwd(x, w1, b1, gamma, beta, w2, dy, seed: int = 0, rate: float = 0.0):
     dy = dy.to(torch.bfloat16).contiguous()
     cuda_build.require(dy, "dy", torch.bfloat16, (m, d))
     dev = x.device
-    nblk = -(-m // ROWS)
+    nblk = len(bwd_schedule(m)[0])
     dx = torch.empty_like(x)
     dh = torch.empty(m, f, dtype=torch.bfloat16, device=dev)
     hn = torch.empty(m, f, dtype=torch.bfloat16, device=dev)
@@ -135,7 +152,9 @@ def ffn_bwd(x, w1, b1, gamma, beta, w2, dy, seed: int = 0, rate: float = 0.0):
     db2 = torch.empty(d, dtype=torch.float32, device=dev)
     parts = torch.empty(nblk, 3 * f + d, dtype=torch.float32, device=dev)
     dseed, thresh, scale = kernel_args(seed, rate)
-    table = cuda_build.ptr_table(x, w1b, b1f, gf, bef, w2b, dy, dx, dh, hn, rows, db2, parts)
+    w1t = w1b.t().contiguous()  # the recompute's B, row-major along the hidden as w2 is
+    table = cuda_build.ptr_table(x, w1b, b1f, gf, bef, w2b, dy, dx, dh, hn, rows, db2, parts,
+                                 w1t)
     lib = cuda_build.load("ffn_bwd")
     rc = lib.crog_ffn_bwd(table, m, d, f, dseed, thresh, scale,
                           cuda_build.stream_ptr(dev))
@@ -146,7 +165,8 @@ def ffn_bwd(x, w1, b1, gamma, beta, w2, dy, seed: int = 0, rate: float = 0.0):
     # order of the sums
     dw1 = torch.mm(dh.t(), x, out_dtype=torch.float32)
     dw2 = torch.mm(dy.t(), hn, out_dtype=torch.float32)
-    return dx, dw1, rows[0], rows[1], rows[2], dw2, db2
+    out = (dx, dw1, rows[0], rows[1], rows[2], dw2, db2)
+    return out + (dh, hn) if with_hidden else out
 
 
 ffn_bwd.launches = 0

@@ -12,7 +12,9 @@ they differ only where a reordered f32 sum flips one bf16 rounding of an
 intermediate: 3e-2 on attention outputs of magnitude ~1.5, 0.125 (four bf16
 steps at magnitude 4-8) on the blocks' and FFN's outputs of magnitude ~6.
 The forwards with dropout draw the same counter-based mask in kernel and
-twin and are held alike.  Backward outputs are held to 2^-6 of each
+twin and are held alike.  The attention forward is held on both of its
+paths (one pass up to 192 keys, two beyond), with q and k packed as the self
+block passes them; K4b's outputs must also repeat with equal bits.  Backward outputs are held to 2^-6 of each
 gradient's largest magnitude (four bf16 steps: a flipped rounding of an
 intermediate such as P, dS or dh feeds many outputs).  K1b rounds only its
 outputs, as its twin does, so it is held to one bf16 step (2^-8 of the
@@ -47,17 +49,35 @@ def _bf16(seed, *shape, std=1.0, device="cuda"):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("l,lk,masked", [(169, 169, False), (676, 17, True), (70, 300, True)])
-def test_cuda_attention_kernel_matches_twin(card, l, lk, masked):
-    q, k, v = _bf16(1, 2, l, 512), _bf16(2, 2, lk, 512), _bf16(3, 2, lk, 512)
+@pytest.mark.parametrize("l,lk,masked,packed", [
+    (169, 169, False, False), (676, 17, True, False), (70, 300, True, False),
+    (676, 676, False, False), (676, 676, False, True),  # K2's shape; q, k packed as K2 passes them
+    (100, 768, False, False), (100, 768, True, False),  # the key limit
+    (130, 192, True, False), (130, 193, True, False),  # either side of the path switch
+    (64, 1, False, False), (65, 17, "all", False), (65, 300, "all", True)])
+def test_cuda_attention_kernel_matches_twin(card, l, lk, masked, packed):
+    """The attention forward on both of its paths (``fwd_path``) against its
+    twin.  ``masked``: sample 0 keeps its first lk // 2 keys, sample 1 all;
+    "all": every key of sample 0 is masked, so its rows average over the lk
+    keys.  ``packed``: q and k are the column halves of one [B, L, 2D]
+    projection (row stride 2D), as the self block passes them."""
+    if packed:
+        qk = _bf16(1, 2, max(l, lk), 1024)
+        q, k = qk[:, :l, :512], qk[:, :lk, 512:]
+    else:
+        q, k = _bf16(1, 2, l, 512), _bf16(2, 2, lk, 512)
+    v = _bf16(3, 2, lk, 512)
     mask = None
     if masked:
-        mask = torch.where(torch.arange(lk)[None] >= torch.tensor([[lk // 2], [lk]]),
-                           -1e30, 0.0).to(card)
+        keep = torch.tensor([[0 if masked == "all" else lk // 2], [lk]])
+        mask = torch.where(torch.arange(lk)[None] >= keep, -1e30, 0.0).to(card)
     got = A.fused_attention(q, k, v, 8, mask)
     ref = A.attention_plain(q, k, v, 8, mask)
     torch.cuda.synchronize()
     assert (got.float() - ref.float()).abs().max().item() <= 3e-2  # bf16 steps
+    if masked == "all":  # exactly the mean of v over the keys, up to bf16 steps
+        mean = v[0].float().mean(0)
+        assert (got[0].float() - mean).abs().max().item() <= 3e-2
 
 
 def _block_args(seed, d=512, device="cuda"):
@@ -211,9 +231,12 @@ def test_cuda_block_kernels_train_mode_match_twins(card, rate):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_cuda_ffn_train_mode_matches_twin(card, rate):
-    x, dy = _bf16(1, 1000, 512), _bf16(8, 1000, 512)
+@pytest.mark.parametrize("rate,m", [(0.0, 1000), (0.1, 1000), (0.1, 129)])
+def test_cuda_ffn_train_mode_matches_twin(card, rate, m):
+    """K4 and K4b against their twins at M not a multiple of K4b's 128-row
+    cluster tile; K4b twice gives equal bits in dx, dh, hn and the four
+    column sums."""
+    x, dy = _bf16(1, m, 512), _bf16(8, m, 512)
     f32 = lambda s, n, std: (torch.randn(n, generator=torch.Generator()
                                          .manual_seed(s)) * std).to(card)
     w1, b1 = _bf16(2, 2048, 512, std=512**-0.5), f32(3, 2048, 0.05)
@@ -224,7 +247,11 @@ def test_cuda_ffn_train_mode_matches_twin(card, rate):
             ).abs().max() <= 0.125
     _close_all(FF.ffn_bwd(x, w1, b1, g, be, w2, dy, 11, rate),
                FF.ffn_bwd_plain(x, w1, b1, g, be, w2, dy, 11, rate))
+    a, b = (FF.ffn_bwd(x, w1, b1, g, be, w2, dy, 11, rate, with_hidden=True)
+            for _ in range(2))
     torch.cuda.synchronize()
+    for i in (0, 2, 3, 4, 6, 7, 8):  # dx, db1, dgamma, dbeta, db2, dh, hn
+        assert torch.equal(a[i], b[i]), i
     with pytest.raises(ValueError, match="D=512, F=2048"):
         FF.ffn_bwd(x, w1[:1024], b1[:1024], g[:1024], be[:1024], w2[:, :1024], dy)
 

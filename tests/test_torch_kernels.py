@@ -54,6 +54,23 @@ def test_attention_core_matches_jax(l):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("lk,path", [
+    (1, "one_pass"), (17, "one_pass"), (64, "one_pass"), (169, "one_pass"), (192, "one_pass"),
+    (193, "two_pass"), (676, "two_pass"), (768, "two_pass")])
+def test_attention_fwd_path_switches_at_the_one_pass_limit(lk, path):
+    """The attention forward keeps a head's scores in registers in one pass
+    up to ONE_PASS_MAX_KEYS keys (K1's 169, K3's 17); longer heads (K2's
+    676) take the two-pass kernel, up to MAX_KEYS."""
+    assert A.ONE_PASS_MAX_KEYS == 192 and A.MAX_KEYS == 768
+    assert A.fwd_path(lk) == path
+
+
+@pytest.mark.parametrize("lk", [0, 769])
+def test_attention_fwd_path_rejects_what_no_kernel_takes(lk):
+    with pytest.raises(ValueError, match="1..768 keys"):
+        A.fwd_path(lk)
+
+
 def test_attention_core_masks_match_jax():
     """The text tower's causal mask and a key padding mask (plain path)."""
     b, l, heads, d = 2, 17, 8, 64

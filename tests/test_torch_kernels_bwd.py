@@ -210,6 +210,21 @@ def test_attention_bwd_path_switches_at_the_head_limit(l, bf16_casts, path):
     assert A.bwd_path(l, bf16_casts) == path
 
 
+@pytest.mark.parametrize("m", [1, 127, 128, 129, 1000, 16224])
+def test_ffn_bwd_schedule_covers_every_row_once(m):
+    """K4b's cluster tiles cover rows 0..m-1 once, in order, BWD_ROWS at a
+    time; its CTAs' column slices cover the hidden once; and the split
+    depends on m alone."""
+    tiles, slices = FF.bwd_schedule(m)
+    assert len(tiles) == -(-m // FF.BWD_ROWS)
+    rows = [r for r0, r1 in tiles for r in range(r0, r1)]
+    assert rows == list(range(m))
+    assert all(0 < r1 - r0 <= FF.BWD_ROWS for r0, r1 in tiles)
+    assert len(slices) == FF.BWD_CLUSTER
+    assert [c for c0, c1 in slices for c in range(c0, c1)] == list(range(FF.KERNEL_F))
+    assert FF.bwd_schedule(m) == (tiles, slices)
+
+
 # --------------------------------------------------------------- dropout
 def test_dropout_mask_is_deterministic_and_keyed():
     a = DR.dropout_keep(123, 0.1, 64, 512)

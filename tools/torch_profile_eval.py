@@ -34,15 +34,19 @@ GROUPS = (
     # first match wins: the s2d kernels before K2b/K3b's "wgrad_kernel"
     ("K6b s2dconv wgrad (cluster kernel)", ("s2dconv_wgrad",)),
     ("K6 s2dconv (forward, dgrad)", ("s2dconv_",)),
-    # K1 itself (the attention pool) and the attention step inside K2/K3
-    ("attention_kernel (K1 + K2/K3 inner)", ("attention_kernel",)),
+    # K1 itself (the attention pool, 169 keys: the one-pass kernel of 3 key
+    # tiles), then the attention step inside K2 (676 keys, two passes) and
+    # K3 (17 keys, one pass of 1 tile)
+    ("K1 attention pool (attn_fwd_kernel<3>)", ("attn_fwd_kernel<3>",)),
+    ("attention forward inside K2/K3 (attn_fwd_kernel<0>, <1>)", ("attn_fwd_kernel",)),
     ("K1b attention-pool backward (one CTA per head)", ("attn_bwd_head",)),
     ("attention backward (K2b/K3b inner; K1b past 256 tokens)", ("attn_bwd_",)),
     ("K2b/K3b: ln_post_bwd, ln_pre_bwd", ("ln_post_bwd", "ln_pre_bwd")),
     ("K2b/K3b: gemm_nn (dX)", ("gemm_nn_kernel",)),
     ("K2b/K3b: wgrad (dW)", ("wgrad_kernel",)),
     ("K2b/K3b/K4b: reduce_rows", ("reduce_rows_kernel",)),
-    ("K4b ffn_bwd", ("ffn_bwd_kernel",)),
+    ("K4b ffn_bwd: cluster kernel (recompute, hn, dh, column sums)", ("ffn_bwd_hidden",)),
+    ("K4b ffn_bwd: dx kernel", ("ffn_dx_kernel",)),
     ("K2/K3 block: ln_pos", ("ln_pos_kernel",)),
     ("K2/K3 block: gemm_bias", ("gemm_bias_kernel",)),
     ("K2/K3 block: outproj_ln_residual", ("outproj_ln_residual_kernel",)),
