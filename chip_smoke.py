@@ -12,9 +12,9 @@ Phases, in order; any failure propagates and the exit code is not 0:
      s2d stem's gathered conv K6 (forward and dgrad) and its wgrad K6b;
      the registers, shared memory and spills of the redesigned kernels (the
      attention forward's one- and two-pass kernels at K1's, K2's and K3's
-     key counts, with the path ops/attention.py:fwd_path names; K4b's
-     cluster and dx kernels; K1b's one-CTA-per-head kernel; K6; K6b's
-     cluster kernel);
+     key counts, with the path ops/attention.py:fwd_path names; K4's and
+     K4b's cluster kernels and their y / dx GEMM; K2b's and K3b's dX and dW
+     GEMMs; K1b's one-CTA-per-head kernel; K6; K6b's cluster kernel);
   3. hold each kernel against its plain PyTorch twin on the card, in bf16,
      at the shapes of CROG at batch 24 and 416^2 -- the forwards in eval,
      the K2-K4 forwards again with dropout on (the twins draw the same
@@ -22,7 +22,8 @@ Phases, in order; any failure propagates and the exit code is not 0:
      on -- and time kernel and twin (and, for K1 and K1b, PyTorch's
      scaled_dot_product_attention and its backward as a yardstick only);
      K4b again with dropout off, and twice at each rate: dx, dh, hn and its
-     four column sums must repeat with equal bits;
+     four column sums must repeat with equal bits; K4, K2b and K3b twice at
+     each rate: every output must repeat with equal bits;
      K1b's kernels with the decoder blocks' bf16 cast points must fail
      K1b's tolerance, and K1b on a head of K1B_LONG tokens (its two-kernel
      path) must meet it; K5 and K5b in f32 at SSG's shapes at batch 8 and
@@ -34,7 +35,8 @@ Phases, in order; any failure propagates and the exit code is not 0:
      replaces) and cuDNN's plain 3x3 conv of the unblocked 208^2 tensor;
      the attention kernel at the shapes K2 (676 tokens) and K3 (676
      queries, 17 masked keys) launch it with, against its twin and timed
-     beside SDPA there;
+     beside SDPA there; torch.mm at the shapes of the GEMMs inside K2b, K3b
+     and K4, timed as a yardstick only;
   4. the eval main path: full-width CROG (config/OCID-VLG/
      crog_synthetic_r50.yaml as written: RN50 (3,4,6,3), 416^2, 12-layer
      text tower, 3 decoder layers, dim_ffn 2048, bf16, the rawlb wire
@@ -73,10 +75,13 @@ Phases, in order; any failure propagates and the exit code is not 0:
      card (kernels, bf16) and on the CPU (plain PyTorch, fp32): the 8 loss
      terms and each group's gradients must agree;
  12. the device time per call, from torch.profiler's kernel rows, of K1,
-     K1b, K2 and K3 (each with its attention step apart), K2b, K3b, K4b (its
-     own kernels apart from its fixed-order sums and the library dW GEMMs),
-     each K6 and K6b launch and their library calls, and of the attention
-     kernel and SDPA at K2's and K3's shapes, beside the CUDA-event times of
+     K1b, K2 and K3 (each with its attention step apart), K2b and K3b (by
+     part: the LN kernels, the dO and dX GEMMs, the attention step, the dW
+     GEMMs and the fixed-order sums), K4 (its cluster kernel, its y GEMM,
+     the rest), K4b (its own kernels apart from its fixed-order sums and the
+     library dW GEMMs), each K5 and K5b launch, each K6 and K6b launch and
+     their library calls, of the attention kernel and SDPA at K2's and K3's
+     shapes, and of the torch.mm yardsticks, beside the CUDA-event times of
      phase 3 (last, so that the profiler runs in no timed phase).
 
 Precision: fp32 products on the card run in full fp32 (TF32 off for matmul
@@ -466,27 +471,79 @@ def device_ms(fn, reps: int = 10):
     for e in rows:
         name = e.name.split("(")[0]
         by_name[name] = by_name.get(name, 0.0) + e.device_time / 1e3 / reps
-    return (total if total > 0 else None), by_name
+    return (total if total > 0 else None), by_name, _one_call(rows, reps)
+
+
+def _one_call(rows, reps: int):
+    """[(kernel name, device ms)] of one call in launch order, the mean over
+    ``reps`` calls; None unless every call launched the same sequence."""
+    rows = sorted(rows, key=lambda e: e.time_range.start)
+    if not rows or len(rows) % reps:
+        return None
+    n = len(rows) // reps
+    names = [e.name.split("(")[0] for e in rows[:n]]
+    if any(e.name.split("(")[0] != names[i % n] for i, e in enumerate(rows)):
+        return None
+    return [(name, sum(rows[r * n + i].device_time for r in range(reps)) / 1e3 / reps)
+            for i, name in enumerate(names)]
 
 
 # (label, CUDA-event ms, call, group or None, split or None) of K1, K1b,
-# K2, K2b, K3, K3b, K4b, each K6 and K6b launch, their library calls, and
-# the attention kernel at K2's and K3's shapes beside SDPA there, whose
-# device time ``print_device_times`` takes after the timed phases, so that
-# the profiler runs in none of them; calls of one group are also summed (K6
-# and cuDNN per CROG step).  A split names parts of one call's device time
-# by kernel-name substrings, the rest under its last label.
+# K2, K2b, K3, K3b, K4, K4b, each K5, K5b, K6 and K6b launch, K6's and
+# K6b's library calls, the attention kernel at K2's and K3's shapes beside
+# SDPA there, and torch.mm at the shapes of the GEMMs inside K2b, K3b and
+# K4, whose device time ``print_device_times`` takes after the timed
+# phases, so that the profiler runs in none of them; calls of one group are
+# also summed (K5 and K5b per SSG step, K6 and cuDNN per CROG step).  A
+# split names parts of one call's device time: by kernel-name substrings,
+# the rest under its last label, or by a function of the call's kernels in
+# launch order.
 DEVICE_TIMED = []
-# K2's and K3's attention step apart from the rest of the block; K4b's own
-# kernels, its fixed-order sums and the two library dW GEMMs
+# K2's and K3's attention step apart from the rest of the block; K4's
+# cluster kernel and y GEMM; K4b's own kernels, its fixed-order sums and the
+# two library dW GEMMs
 ATTN_SPLIT = ((("attention step", ("attn_fwd",)),), "rest of the block")
-FFN_BWD_SPLIT = ((("K4b's kernels", ("ffn_bwd", "ffn_dx")),
+FFN_FWD_SPLIT = ((("hidden (cluster kernel)", ("ffn_fwd_hidden",)),
+                  ("y GEMM", ("ffn_out",))),
+                 "the rest (weight casts and transposes)")
+FFN_BWD_SPLIT = ((("K4b's kernels", ("ffn_bwd", "ffn_out")),
                   ("reduce_rows", ("reduce_rows",)),
                   ("dW1 and dW2 (library GEMMs)", ("gemm", "nvjet", "cutlass"))),
-                 "weight casts and copies")
+                 "weight casts and transposes")
 
 
-def _split_line(names, split) -> str:
+def block_bwd_parts(seq):
+    """K2b's and K3b's kernels in launch order -> [(part, device ms)]: the
+    post-LN backward, the dO GEMM (the GEMM before the attention step), the
+    attention step, the dX GEMMs (after it), the pre-LN backward, the dW
+    GEMMs, and the fixed-order sums of the LN column partials apart from
+    those of the dW partials (the sums after a dW GEMM)."""
+    parts, after_attn, last = {}, False, ""
+    for name, t in seq:
+        if "ln_post_bwd" in name or "ln_pre_bwd" in name:
+            part = "ln_post_bwd" if "ln_post_bwd" in name else "ln_pre_bwd"
+        elif "attn_bwd" in name:
+            part, after_attn = "attention", True
+        elif "wgrad" in name:
+            part = "dW wgrad"
+        elif "reduce_rows" in name:
+            part = ("dW reduce_rows" if last == "dW wgrad"
+                    else "LN column sums reduce_rows")
+        elif "gemm" in name:
+            part = "dX gemm" if after_attn else "dO gemm"
+        else:
+            part = "other"
+        if part not in ("dW reduce_rows", "LN column sums reduce_rows"):
+            last = part
+        parts[part] = parts.get(part, 0.0) + t
+    return list(parts.items())
+
+
+def _split_line(names, seq, split) -> str:
+    if callable(split):
+        if seq is None:
+            return "not split (the calls launched different sequences)"
+        return ", ".join(f"{label} {t:.4f} ms" for label, t in split(seq))
     parts, rest_label = split
     total = sum(names.values())
     out = []
@@ -503,14 +560,14 @@ def print_device_times():
     time (and the parts of its split), then each group's sum."""
     sums = {}
     for label, ms, fn, group, split in DEVICE_TIMED:
-        dev, names = device_ms(fn)
+        dev, names, seq = device_ms(fn)
         shown = "not measured (no device rows)" if dev is None else f"{dev:.4f} ms"
         parts = ", ".join(f"{n[:90]} {t:.4f}" for n, t in sorted(names.items(),
                                                                    key=lambda kv: -kv[1]))
         print(f"[kernels] {label}: device time {shown} per call ({parts}); CUDA events "
               f"{ms:.4f} ms", flush=True)
         if split is not None and dev is not None:
-            print(f"[kernels] {label} by part: {_split_line(names, split)}", flush=True)
+            print(f"[kernels] {label} by part: {_split_line(names, seq, split)}", flush=True)
         if group is not None:
             dev_sum, ms_sum = sums.get(group, (0.0, 0.0))
             sums[group] = (None if dev is None or dev_sum is None else dev_sum + dev,
@@ -534,9 +591,10 @@ def _time(rec, kern, plain, lib):
                              rec["library_ms"], lib, None, None))
     kid = {"decoder_self_block": "K2", "decoder_cross_block": "K3",
            "decoder_self_block_bwd": "K2b", "decoder_cross_block_bwd": "K3b",
-           "ffn_bwd": "K4b"}.get(rec["name"])
+           "ffn": "K4", "ffn_bwd": "K4b"}.get(rec["name"])
     if kid is not None:
-        split = {"K2": ATTN_SPLIT, "K3": ATTN_SPLIT, "K4b": FFN_BWD_SPLIT}.get(kid)
+        split = {"K2": ATTN_SPLIT, "K3": ATTN_SPLIT, "K2b": block_bwd_parts,
+                 "K3b": block_bwd_parts, "K4": FFN_FWD_SPLIT, "K4b": FFN_BWD_SPLIT}.get(kid)
         DEVICE_TIMED.append((f"{rec['name']} ({kid})", rec["ms"], kern, None, split))
     if rec["name"] == "attention_bwd":
         DEVICE_TIMED.append(("attention_bwd (K1b)", rec["ms"], kern, None, None))
@@ -599,6 +657,36 @@ def attention_yardsticks(device, b=BATCH, l=676, t=17, heads=8, timed: bool = Tr
         DEVICE_TIMED.append((f"SDPA backward at {label}", lib_bms, lib_bwd, None, None))
 
 
+def gemm_yardsticks(device, b=BATCH, l=676, t=17, d=512, f=2048):
+    """torch.mm at the shapes of the GEMMs inside K2b, K3b and K4, bf16 in
+    and out, timed as a yardstick only (the port computes these products in
+    its own kernels): dO and each dX product [B*L, D] x [D, D]; K2b's three
+    fused dX products as one [B*L, 3D] x [3D, D] product; dW = A^T B over
+    B*L rows and over K3b's B*T text rows; K4's hidden product [B*L, D] x
+    [D, F] and its y product [B*L, F] x [F, D]."""
+    import torch
+
+    g = torch.Generator().manual_seed(SEED + 10)
+    rnd = lambda *shape: torch.randn(*shape, generator=g).to(device, torch.bfloat16)
+    m, mt = b * l, b * t
+    cases = (
+        (f"[{m}, {d}] x [{d}, {d}] (dO, each dX product)", rnd(m, d), rnd(d, d), False),
+        (f"[{m}, {3 * d}] x [{3 * d}, {d}] (K2b's three dX products as one)",
+         rnd(m, 3 * d), rnd(3 * d, d), False),
+        (f"A^T B over {m} rows, [{d}, {d}] (each dW)", rnd(m, d), rnd(m, d), True),
+        (f"A^T B over {mt} rows, [{d}, {d}] (K3b's dW of k and v)", rnd(mt, d), rnd(mt, d),
+         True),
+        (f"[{m}, {d}] x [{d}, {f}] (K4's hidden product)", rnd(m, d), rnd(d, f), False),
+        (f"[{m}, {f}] x [{f}, {d}] (K4's y product)", rnd(m, f), rnd(f, d), False),
+    )
+    for label, a, w, trans in cases:
+        call = ((lambda a=a, w=w: torch.mm(a.t(), w)) if trans
+                else (lambda a=a, w=w: torch.mm(a, w)))
+        ms = cuda_ms(call)
+        print(f"[kernels] torch.mm yardstick {label}: {ms:.4f} ms", flush=True)
+        DEVICE_TIMED.append((f"torch.mm yardstick {label}", ms, call, None, None))
+
+
 def _compare(name, got, ref, tol, share=1.0):
     """Max-abs error of ``got`` against ``ref``, which must be within
     ``tol``, with at most a ``share`` of the elements differing at all."""
@@ -643,7 +731,10 @@ def check_kernels(device, timed: bool = True):
             if timed:
                 _time(records[name], kern, plain, lib)
         k4b_checks(inp)
+        repeat_checks(inp)
         attention_yardsticks(device, timed=timed)
+        if timed:
+            gemm_yardsticks(device)
         k1b_cast_check(inp)
         k1b_long_check(device)
         records.update(check_lincomb(device, timed))
@@ -675,6 +766,38 @@ def k4b_checks(inp):
               f"{'equal bits' if not differ else 'differ: ' + ', '.join(differ)}", flush=True)
         if differ:
             raise AssertionError(f"K4b is not repeatable: {differ}")
+
+
+def repeat_checks(inp):
+    """K4, K2b and K3b at the main path's shapes, each twice at dropout 0 and
+    RATE: every output must come out with equal bits (no atomics, sums in a
+    fixed order)."""
+    import torch
+
+    from crog_tpu_torch.ops import decoder_blocks as DB
+    from crog_tpu_torch.ops import ffn as FF
+
+    sargs, cargs, fargs = _args(inp)
+    x, xc = sargs[0], cargs[0]
+    dys, dyc = inp["dy"]["decoder_self_block"], inp["dy"]["decoder_cross_block"]
+    for rate in (0.0, RATE):
+        _, ssaved = DB.self_block_fwd(*sargs, SEED + 1, rate, save=True)
+        _, csaved = DB.cross_block_fwd(*cargs, SEED + 2, rate, save=True)
+        calls = {
+            "ffn (K4)": lambda: (FF.ffn_fwd(*fargs, SEED + 3, rate),),
+            "decoder_self_block_bwd (K2b)":
+                lambda: DB.self_block_bwd(x, ssaved, dys, 8, SEED + 1, rate),
+            "decoder_cross_block_bwd (K3b)":
+                lambda: DB.cross_block_bwd(xc, csaved, dyc, 8, SEED + 2, rate),
+        }
+        for name, call in calls.items():
+            a, b = call(), call()
+            torch.cuda.synchronize()
+            differ = [i for i, (u, v) in enumerate(zip(a, b)) if not torch.equal(u, v)]
+            print(f"[kernels] {name} (dropout {rate}) twice: {len(a)} outputs "
+                  f"{'equal bits' if not differ else f'differ at {differ}'}", flush=True)
+            if differ:
+                raise AssertionError(f"{name} is not repeatable: outputs {differ}")
 
 
 def k1b_cast_check(inp):
@@ -777,13 +900,16 @@ def check_lincomb(device, timed: bool = True):
             rec.update(ms=0.0, plain_ms=0.0)
         for kind, (args, t, gsum) in cases.items():
             flops, fwd_b, bwd_b = lincomb_work(args, t)
+            # default arguments bind this kind's inputs: DEVICE_TIMED calls
+            # the kernel again after the loop
             if name == "lincomb":
-                kern = lambda: LC.lincomb_fwd(*args, t, loss_kind=kind)
+                kern = lambda args=args, t=t, kind=kind: LC.lincomb_fwd(*args, t, loss_kind=kind)
                 plain = lambda: LC.lincomb_task_sums_plain(*args, t, loss_kind=kind)
                 got, ref = [kern()], [plain()]
                 outs, work = ("sums",), bound(flops, fwd_b, PEAK_F32_FLOPS)
             else:
-                kern = lambda: LC.lincomb_bwd(*args, gsum, t, loss_kind=kind)
+                kern = lambda args=args, gsum=gsum, t=t, kind=kind: LC.lincomb_bwd(
+                    *args, gsum, t, loss_kind=kind)
                 plain = lambda: LC.lincomb_bwd_plain(*args, gsum, t, loss_kind=kind)
                 got, ref = kern(), plain()
                 outs, work = ("dcoef", "dprotos"), bound(3 * flops, bwd_b, PEAK_F32_FLOPS)
@@ -800,6 +926,9 @@ def check_lincomb(device, timed: bool = True):
                 rec["plain_ms"] += plain_ms
                 print(f"[kernels] {name} ({kind}, T={t}): {ms:.4f} ms (plain "
                       f"{plain_ms:.4f}, bound {work[0]:.4f} by {work[1]})", flush=True)
+                kid = "K5b" if name == "lincomb_bwd" else "K5"
+                DEVICE_TIMED.append((f"{name} ({kid}, {kind}, T={t})", ms, kern,
+                                     f"{name} ({kid}) per SSG train step", None))
         if timed:
             print(f"[kernels] {name} per SSG train step: {rec['ms']:.4f} ms (plain "
                   f"{rec['plain_ms']:.4f}, library none, bound {rec['bound_ms']:.4f} by "
@@ -1465,13 +1594,13 @@ def ptxas_entries(text: str):
 def redesigned_resources(reports):
     """The build's registers and spills of the redesigned kernels (the
     attention forward's one- and two-pass kernels that K1, K2 and K3 run,
-    K4b's cluster and dx kernels, K1b's one-CTA-per-head kernel, the
-    two-kernel attention backward that K2b and K3b run, K6's persistent
-    conv, K6b's cluster kernel), and at the main path's shapes their
-    registers, shared memory per CTA (static + dynamic) and spills as the
-    runtime loads them (the attention forward and K4b's dx kernel also
-    their CTAs per SM, K4b's and K6b's cluster kernels the clusters of
-    their launch the card holds at once)."""
+    K4's and K4b's cluster kernels and their y / dx GEMM, K2b's and K3b's
+    dX and dW GEMMs, K1b's one-CTA-per-head kernel, the two-kernel
+    attention backward that K2b and K3b run, K6's persistent conv, K6b's
+    cluster kernel), and at the main path's shapes their registers, shared
+    memory per CTA (static + dynamic) and spills as the runtime loads them
+    (the attention forward and the GEMMs also their CTAs per SM, the
+    cluster kernels the clusters of their launch the card holds at once)."""
     import ctypes
 
     from crog_tpu_torch.ops import cuda_build
@@ -1479,7 +1608,9 @@ def redesigned_resources(reports):
     from crog_tpu_torch.ops import attention as A
 
     for lib, keys in (("attention", ("attn_fwd_kernel",)),
-                      ("ffn_bwd", ("ffn_bwd_hidden_kernel", "ffn_dx_kernel")),
+                      ("ffn", ("ffn_fwd_hidden_kernel", "ffn_out_kernel")),
+                      ("ffn_bwd", ("ffn_bwd_hidden_kernel", "ffn_out_kernel")),
+                      ("decoder_blocks_bwd", ("gemm_nn_kernel", "wgrad_kernel")),
                       ("attention_bwd", ("attn_bwd_head_kernel", "attn_bwd_rows_kernel",
                                          "attn_bwd_cols_kernel")),
                       ("s2dconv", ("s2dconv_fwd_kernel", "s2dconv_wgrad_kernel"))):
@@ -1499,14 +1630,23 @@ def redesigned_resources(reports):
         if path != A.fwd_path(lk):
             raise AssertionError(f"the card takes the {path} kernel at {lk} keys, "
                                  f"ops/attention.py:fwd_path says {A.fwd_path(lk)}")
-    lib = cuda_build.load("ffn_bwd")
-    cuda_build.check_launch(lib, lib.crog_ffn_bwd_attrs(ptr), "attrs")
-    print(f"[build] K4b cluster kernel (8 CTAs of 256 hidden columns, 128 rows): {out[0]} "
-          f"registers, {out[1]} bytes shared memory per CTA, {out[2]} bytes local (spill) "
-          f"per thread, {out[3]} clusters resident at once", flush=True)
-    print(f"[build] K4b dx kernel (128 x 256 tiles): {out[4]} registers, {out[5]} bytes "
-          f"shared memory per CTA, {out[6]} bytes local (spill) per thread, {out[7]} CTAs "
-          f"per SM", flush=True)
+    for lib_name, entry, kid, out_name in (("ffn", "crog_ffn_fwd_attrs", "K4", "y"),
+                                           ("ffn_bwd", "crog_ffn_bwd_attrs", "K4b", "dx")):
+        lib = cuda_build.load(lib_name)
+        cuda_build.check_launch(lib, getattr(lib, entry)(ptr), "attrs")
+        print(f"[build] {kid} cluster kernel (8 CTAs of 256 hidden columns, 128 rows): "
+              f"{out[0]} registers, {out[1]} bytes shared memory per CTA, {out[2]} bytes "
+              f"local (spill) per thread, {out[3]} clusters resident at once", flush=True)
+        print(f"[build] {kid} {out_name} kernel (ffn_out_kernel, 128 x 256 tiles): {out[4]} "
+              f"registers, {out[5]} bytes shared memory per CTA, {out[6]} bytes local (spill) "
+              f"per thread, {out[7]} CTAs per SM", flush=True)
+    lib = cuda_build.load("decoder_blocks_bwd")
+    cuda_build.check_launch(lib, lib.crog_decoder_bwd_attrs(ptr), "attrs")
+    for i, name in enumerate(("gemm_nn (three dX products fused, 128 x 128 tiles)",
+                              "wgrad (128 x 256 tiles of a row chunk)")):
+        print(f"[build] K2b/K3b {name}: {out[4 * i]} registers, {out[4 * i + 1]} bytes "
+              f"shared memory per CTA, {out[4 * i + 2]} bytes local (spill) per thread, "
+              f"{out[4 * i + 3]} CTAs per SM", flush=True)
     lib = cuda_build.load("attention_bwd")
     cuda_build.check_launch(lib, lib.crog_attention_bwd_head_attrs(169, ptr), "attrs")
     print(f"[build] K1b one-CTA-per-head kernel at 169 tokens: {out[0]} registers, {out[1]} "
@@ -1557,7 +1697,8 @@ def main(argv=None) -> int:
           flush=True)
     for name, text in reports.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            if ("registers" in line or "spill" in line or "error" in line.lower()
+                    or "Performance Loss" in line):
                 print(f"[build] {name}: {line.strip()}", flush=True)
     redesigned_resources(reports)
 

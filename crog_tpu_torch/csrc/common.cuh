@@ -3,9 +3,9 @@
 // The first design of each kernel multiplies bf16 tiles on the tensor cores
 // through the WMMA API (mma.sync, 16x16x16 bf16 -> f32) out of shared
 // memory: right before fast.  The redesigned ones (the attention forward,
-// K1b's one-CTA-per-head kernel, the two-kernel attention backward, K4b,
-// K6, K6b) build on sm90.cuh's register-level mma.sync, cp.async, TMA and
-// wgmma instead.
+// K1b's one-CTA-per-head kernel, the two-kernel attention backward, K4,
+// K4b, the decoder blocks' backward GEMMs, K6, K6b) build on sm90.cuh's
+// register-level mma.sync, cp.async, TMA and wgmma instead.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -24,14 +24,20 @@
 //      dB_post, dB_out;
 //   2. gemm_nn: dO = dOP W_out;
 //   3. attention backward (two kernels, attention_bwd.cuh) -> dQ, dK, dV;
-//   4. gemm_nn x3: dXL = bf16(dQ Wq) + bf16(dK Wk) + bf16(dV Wv) in f32
-//      (cross block: dXL from dQ, d(txt) from dK and dV);
+//   4. gemm_nn, one launch: dXL = bf16(dQ Wq) + bf16(dK Wk) + bf16(dV Wv),
+//      the three products into one accumulator set in turn, each rounded
+//      to bf16 and added into an f32 register sum, dXL written once in f32
+//      (cross block: dXL from dQ; d(txt) = bf16(bf16(dK Wk) + bf16(dV Wv))
+//      over the B*T text rows, the same way);
 //   5. ln_pre_bwd: one warp per row: pre-LN backward plus the residual dy
 //      -> dX; partial column sums of dG_pre, dB_pre;
-//   6. wgrad x4: dW = dY^T X for q, k, v, out (and the q/k/v bias sums),
-//      split over row chunks, then summed in a fixed order (gemm.cuh).
-// Every reduction over rows is a first pass of partials and a second pass
-// in index order, so two runs give the same gradient.
+//   6. wgrad x4: dW = dY^T X for q, k, v, out (and the q/k/v bias sums in
+//      the same pass), split over row chunks, then summed in a fixed order.
+// The GEMMs (gemm.cuh) run wgmma fed by a 4-stage cp.async ring: gemm_nn
+// a [128, 128] tile per CTA, wgrad a [128, 256] tile of one row chunk with
+// dY^T from ldmatrix.trans.  Every reduction over rows is a first pass of
+// partials and a second pass in index order, so two runs give the same
+// gradient.
 #include "attention_bwd.cuh"
 #include "gemm.cuh"
 
@@ -220,9 +226,9 @@ static cudaError_t launch_ln_pre_bwd(const bf16* x, const float* dxl, const bf16
 
 }  // namespace crog
 
-#define CROG_TRY(expr)                      \
+#define CROG_TRY(...)                       \
   do {                                      \
-    cudaError_t e_ = (expr);                \
+    cudaError_t e_ = (__VA_ARGS__);         \
     if (e_ != cudaSuccess) return (int)e_;  \
   } while (0)
 
@@ -232,6 +238,19 @@ namespace {
 template <typename T>
 T* P(void* const* t, int i) {
   return static_cast<T*>(t[i]);
+}
+
+// bf16(dy W) for dy [M, D] and a torch-layout weight W [out D, in D] (the
+// TPU kernels' `_dense_t`, pallas_decoder.py:92), to the bf16 output `out`
+crog::GemmArgs dense_t(const bf16* dy, const bf16* w, int M, int D, bf16* out = nullptr) {
+  crog::GemmArgs g = {};
+  g.a[0] = dy;
+  g.b[0] = w;
+  g.cb = out;
+  g.lda = g.ldb = g.ldc = D;
+  g.M = M;
+  g.K = D;
+  return g;
 }
 }  // namespace
 
@@ -257,8 +276,8 @@ extern "C" int crog_self_block_bwd(void* const* t, int B, int L, int D, int head
   CROG_TRY(crog::launch_ln_post_bwd(P<bf16>(t, 10), P<bf16>(t, 11), P<float>(t, 4),
                                     P<bf16>(t, 16), lnpart, dvec, M,
                                     crog::Dropout{seed, thresh, scale}, st));
-  CROG_TRY(crog::launch_gemm_nn(P<bf16>(t, 16), D, P<bf16>(t, 2), D, P<bf16>(t, 17),
-                                nullptr, D, M, D, D, crog::kOutBf16, st));
+  CROG_TRY(crog::launch_gemm_nn<1, false>(  // dO
+      dense_t(P<bf16>(t, 16), P<bf16>(t, 2), M, D, P<bf16>(t, 17)), D, st));
   crog::AttnBwdArgs a;
   a.q = P<bf16>(t, 7);
   a.k = P<bf16>(t, 7) + D;
@@ -279,11 +298,13 @@ extern "C" int crog_self_block_bwd(void* const* t, int B, int L, int D, int head
   a.scale = 1.0f / 8.0f;  // head dim 64
   CROG_TRY(crog::launch_attention_bwd<crog::kBwdBf16>(a, B, st));
   float* dxl = P<float>(t, 21);
-  CROG_TRY(crog::launch_gemm_nn(a.dq, D, wi, D, nullptr, dxl, D, M, D, D, crog::kOutF32, st));
-  CROG_TRY(crog::launch_gemm_nn(a.dk, D, wi + DD, D, nullptr, dxl, D, M, D, D,
-                                crog::kOutAddF32, st));
-  CROG_TRY(crog::launch_gemm_nn(a.dv, D, wi + 2 * DD, D, nullptr, dxl, D, M, D, D,
-                                crog::kOutAddF32, st));
+  crog::GemmArgs g = dense_t(a.dq, wi, M, D);
+  g.a[1] = a.dk;
+  g.b[1] = wi + DD;
+  g.a[2] = a.dv;
+  g.b[2] = wi + 2 * DD;
+  g.cf = dxl;
+  CROG_TRY(crog::launch_gemm_nn<3, true>(g, D, st));
   CROG_TRY(crog::launch_ln_pre_bwd(P<bf16>(t, 0), dxl, P<bf16>(t, 11), P<float>(t, 3),
                                    P<bf16>(t, 12), lnpart, dvec, M, st));
   bf16* dwi = P<bf16>(t, 13);
@@ -306,8 +327,8 @@ extern "C" int crog_self_block_bwd(void* const* t, int B, int L, int D, int head
 //   12 v [B*T, D], 13 op, 14 dy;
 //   outputs 15 dx, 16 dkv bf16 [B*T, D], 17 dw_in, 18 dw_out, 19 dvec;
 //   workspace 20 dop, 21 do, 22 dq (bf16 [B*L, D]), 23 dk, 24 dv (bf16
-//   [B*T, D]), 25 dxl f32 [B*L, D], 26 dkv f32 [B*T, D], 27 stats f32
-//   [3, B*H, L], 28 wpart, 29 cpart, 30 lnpart as for the self block.
+//   [B*T, D]), 25 dxl f32 [B*L, D], 26 stats f32 [3, B*H, L], 27 wpart,
+//   28 cpart, 29 lnpart as for the self block.
 extern "C" int crog_cross_block_bwd(void* const* t, int B, int L, int T, int D,
                                     int heads, int splits, unsigned seed,
                                     unsigned thresh, float scale, void* stream) {
@@ -318,12 +339,12 @@ extern "C" int crog_cross_block_bwd(void* const* t, int B, int L, int T, int D,
   const long long DD = (long long)D * D;
   const bf16* wi = P<const bf16>(t, 3);
   float* dvec = P<float>(t, 19);
-  float* lnpart = P<float>(t, 30);
+  float* lnpart = P<float>(t, 29);
   CROG_TRY(crog::launch_ln_post_bwd(P<bf16>(t, 13), P<bf16>(t, 14), P<float>(t, 6),
                                     P<bf16>(t, 20), lnpart, dvec, M,
                                     crog::Dropout{seed, thresh, scale}, st));
-  CROG_TRY(crog::launch_gemm_nn(P<bf16>(t, 20), D, P<bf16>(t, 4), D, P<bf16>(t, 21),
-                                nullptr, D, M, D, D, crog::kOutBf16, st));
+  CROG_TRY(crog::launch_gemm_nn<1, false>(  // dO
+      dense_t(P<bf16>(t, 20), P<bf16>(t, 4), M, D, P<bf16>(t, 21)), D, st));
   crog::AttnBwdArgs a;
   a.q = P<bf16>(t, 8);
   a.k = P<bf16>(t, 11);
@@ -334,7 +355,7 @@ extern "C" int crog_cross_block_bwd(void* const* t, int B, int L, int T, int D,
   a.dq = P<bf16>(t, 22);
   a.dk = P<bf16>(t, 23);
   a.dv = P<bf16>(t, 24);
-  a.stats = P<float>(t, 27);
+  a.stats = P<float>(t, 26);
   a.heads = heads;
   a.lq = L;
   a.lk = T;
@@ -344,17 +365,19 @@ extern "C" int crog_cross_block_bwd(void* const* t, int B, int L, int T, int D,
   a.scale = 1.0f / 8.0f;  // head dim 64
   CROG_TRY(crog::launch_attention_bwd<crog::kBwdBf16>(a, B, st));
   float* dxl = P<float>(t, 25);
-  float* dkvf = P<float>(t, 26);
-  CROG_TRY(crog::launch_gemm_nn(a.dq, D, wi, D, nullptr, dxl, D, M, D, D, crog::kOutF32, st));
-  CROG_TRY(crog::launch_gemm_nn(a.dk, D, wi + DD, D, nullptr, dkvf, D, MT, D, D,
-                                crog::kOutF32, st));
-  CROG_TRY(crog::launch_gemm_nn(a.dv, D, wi + 2 * DD, D, P<bf16>(t, 16), dkvf, D, MT, D, D,
-                                crog::kOutAddBf16, st));
+  crog::GemmArgs g = dense_t(a.dq, wi, M, D);
+  g.cf = dxl;
+  CROG_TRY(crog::launch_gemm_nn<1, true>(g, D, st));
+  g = dense_t(a.dk, wi + DD, MT, D);
+  g.a[1] = a.dv;
+  g.b[1] = wi + 2 * DD;
+  g.cb = P<bf16>(t, 16);
+  CROG_TRY(crog::launch_gemm_nn<2, false>(g, D, st));
   CROG_TRY(crog::launch_ln_pre_bwd(P<bf16>(t, 0), dxl, P<bf16>(t, 14), P<float>(t, 5),
                                    P<bf16>(t, 15), lnpart, dvec, M, st));
   bf16* dwi = P<bf16>(t, 17);
-  float* wpart = P<float>(t, 28);
-  float* cpart = P<float>(t, 29);
+  float* wpart = P<float>(t, 27);
+  float* cpart = P<float>(t, 28);
   CROG_TRY(crog::launch_wgrad(a.dq, D, P<bf16>(t, 7), D, dwi, dvec, wpart, cpart, M, D, D,
                               splits, st));
   CROG_TRY(crog::launch_wgrad(a.dk, D, P<bf16>(t, 10), D, dwi + DD, dvec + D, wpart, cpart,
@@ -364,4 +387,27 @@ extern "C" int crog_cross_block_bwd(void* const* t, int B, int L, int T, int D,
   CROG_TRY(crog::launch_wgrad(P<bf16>(t, 20), D, P<bf16>(t, 9), D, P<bf16>(t, 18), nullptr,
                               wpart, cpart, M, D, D, splits, st));
   return 0;
+}
+
+// out[8]: the fused dX GEMM's (gemm_nn_kernel, three products, f32 out)
+// registers per thread, shared memory per CTA (static + dynamic), spill
+// bytes per thread and CTAs per SM; then the same of wgrad_kernel
+extern "C" int crog_decoder_bwd_attrs(void* out_) {
+  using Ring = crog::GemmRing<64, false, crog::kGKDeep>;
+  int* out = static_cast<int*>(out_);
+  CROG_TRY(crog::gemm_nn_smem_once<3, true>());
+  CROG_TRY(crog::wgrad_smem_once());
+  cudaFuncAttributes fa;
+  CROG_TRY(cudaFuncGetAttributes(&fa, crog::gemm_nn_kernel<3, true>));
+  out[0] = fa.numRegs;
+  out[1] = (int)(fa.sharedSizeBytes + Ring::kSmem);
+  out[2] = (int)fa.localSizeBytes;
+  CROG_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[3], crog::gemm_nn_kernel<3, true>, crog::kGThreads, Ring::kSmem));
+  CROG_TRY(cudaFuncGetAttributes(&fa, crog::wgrad_kernel));
+  out[4] = fa.numRegs;
+  out[5] = (int)(fa.sharedSizeBytes + crog::WgradRing::kSmem);
+  out[6] = (int)fa.localSizeBytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[7], crog::wgrad_kernel, crog::kGThreads, crog::WgradRing::kSmem);
 }

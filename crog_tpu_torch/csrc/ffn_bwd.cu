@@ -48,178 +48,29 @@
 //     rows stream W1 and W2 once per cluster: 64 FLOP per weight byte from
 //     L2, four times the 32-row design's.  One CTA of 16 warps per SM
 //     (about 200 KB of shared memory).
-//   ffn_dx_kernel: dx = bf16(dh W1), a [128 x 256] tile per CTA over the dh
-//     the first kernel wrote (K = 2048), with the same ring and products;
-//     the output leaves as 16-byte bf16 rows after a shuffle in each quad.
-#include "gemm.cuh"
-#include "sm90.cuh"
+//   ffn_out_kernel (ffn.cuh, also K4's y GEMM): dx = bf16(dh W1), a
+//     [128 x 256] tile per CTA over the dh the first kernel wrote (K =
+//     2048), with the same ring and products; the output leaves as 16-byte
+//     bf16 rows after a shuffle in each quad.
+// The recompute (product, epilogue, the LN statistics' cluster exchange)
+// and hn out are ffn.cuh's, the code K4 runs, and the ring and products
+// gemm.cuh's mainloop: K4 and K4b hold the same hidden by construction.
+#include "ffn.cuh"
 
 namespace crog {
 
-constexpr int kBD = 512;             // model width
-constexpr int kBF = 2048;            // hidden width
-constexpr int kBM = 128;             // rows per cluster tile and per dx tile
-constexpr int kBCl = 8;              // CTAs per cluster
-constexpr int kBN = kBF / kBCl;      // hidden columns per CTA, and dx tile columns
-constexpr int kBK = 32;              // k chunk of the ring
-constexpr int kBS = 4;               // ring stages
-constexpr int kBThreads = 512;       // 4 warpgroups: 2 (rows) x 2 (columns) of 64 x 128
-constexpr int kBNT = 16;             // n-tiles of 8 columns per warp (one wgmma N = 128)
-constexpr int kBALd = kBK + 8;       // A chunk [128][40] (conflict-free ldmatrix)
-constexpr int kBHLd = kBN + 8;       // h / dh slice [128][264]
-constexpr float kBEps = 1e-5f;
-
-// one ring stage: the A chunk, then the B chunk as 128-byte swizzled
-// [32 k][64 n] blocks (1024-byte aligned: stage sizes are multiples of 1024)
-constexpr int kBAStage = kBM * kBALd * 2;
-constexpr int kBBlock = kBK * 128;
-constexpr int kBStage = kBAStage + (kBN / 64) * kBBlock;
-static_assert(kBAStage % 1024 == 0 && kBStage % 1024 == 0, "swizzled blocks need 1024-byte alignment");
-constexpr size_t kBRingBytes = (size_t)kBS * kBStage;
-constexpr size_t kHHBytes = (size_t)kBM * kBHLd * sizeof(bf16);
-constexpr int kHRedF = 2 * kBM * 2;  // [column warpgroup][row][2] row partials
-constexpr int kHXchF = 4 * kBM;      // [exchange][2][row], read by the cluster
-constexpr int kHRowF = 4 * kBM;      // mu, rstd, m1, m2 per row
 constexpr int kHColF = 8 * 3 * kBN;  // [row warp][db1, dgamma, dbeta][column]
 constexpr int kHDb2F = 8 * 64;       // [row group][column] db2 partials
 constexpr size_t kFfnHiddenSmem =
     1024 + kBRingBytes + kHHBytes +
     (size_t)(kHRedF + kHXchF + kHRowF + kHColF + kHDb2F) * sizeof(float);
-constexpr size_t kFfnDxSmem = 1024 + kBRingBytes;
 
-// the ring at the first 1024-byte boundary of the dynamic shared memory
-__device__ __forceinline__ unsigned char* ffn_smem_base() {
-  extern __shared__ unsigned char smem_raw[];
-  return smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-}
-
-struct NoChunkHook {
-  __device__ void operator()(int, const bf16*) const {}
-};
-
-// acc[nt] += A[m0 + rows, :] B[:, n0 + columns] over K for this warp's 16
-// rows of its warpgroup's 64 (warpgroup / 2) and the warpgroup's 128 columns
-// (warpgroup % 2) of a [128, 256] CTA tile, as mma.m16n8k16 C fragments.
-// A [M, K] row-major (lda; rows >= M read as zeros), B [K, N] row-major
-// (ldb), K a multiple of 64.  32-deep chunks through a kBS-stage cp.async
-// ring: one barrier per chunk, one chunk's products in flight behind the
-// next one's fragment loads; hook(c, A chunk) runs once the chunk has
-// landed.
-template <typename Hook>
-__device__ __forceinline__ void ffn_mainloop(float (&acc)[kBNT][4], const bf16* __restrict__ A,
-                                             long long lda, int m0, int M,
-                                             const bf16* __restrict__ B, long long ldb, int n0,
-                                             int K, unsigned char* ring, const Hook& hook) {
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int wg = tid >> 7;
-  const int arow = (wg >> 1) * 64 + ((tid >> 5) & 3) * 16 + (lane & 15);
-  const int nch = K / kBK;
-  // this thread's copies: one 16-byte A segment, two B segments
-  const int ar = tid >> 2, as8 = (tid & 3) * 8;
-  const bool aok = m0 + ar < M;
-  const bf16* asrc = A + (aok ? (long long)(m0 + ar) * lda : 0) + as8;
-  auto load = [&](int c) {
-    unsigned char* st = ring + (c % kBS) * kBStage;
-    const int k0 = c * kBK;
-    cp_async16(smem_u32(st) + (ar * kBALd + as8) * 2, asrc + k0, aok ? 16 : 0);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int v = tid + i * kBThreads;  // 32 rows x 32 segments of 8 columns
-      const int k = v >> 5, cs = v & 31;
-      const uint32_t dst = smem_u32(st + kBAStage + (cs >> 3) * kBBlock + k * 128 +
-                                    (((cs & 7) ^ (k & 7)) << 4));
-      cp_async16(dst, B + (long long)(k0 + k) * ldb + n0 + cs * 8, 16);
-    }
-  };
-  // chunk c's products stay in flight while chunk c + 1 loads its A
-  // fragments, so the stage refilled at chunk c is chunk c - 2's and the
-  // loads run kBS - 2 chunks ahead
-  constexpr int kAhead = kBS - 2;
-#pragma unroll
-  for (int c = 0; c < kAhead; ++c) {
-    if (c < nch) load(c);
-    cp_async_commit();
-  }
-  float(&d)[64] = reinterpret_cast<float(&)[64]>(acc);
-  auto step = [&](int c, uint32_t(&a)[2][4]) {
-    cp_async_wait<kAhead - 1>();
-    __syncthreads();  // chunk c landed for every thread; chunk c - 2's products are done
-    if (c + kAhead < nch) load(c + kAhead);
-    cp_async_commit();
-    const unsigned char* st = ring + (c % kBS) * kBStage;
-    const bf16* as = reinterpret_cast<const bf16*>(st);
-    hook(c, as);
-#pragma unroll
-    for (int k16 = 0; k16 < 2; ++k16)
-      ldsm_x4(smem_u32(as + arow * kBALd + k16 * 16 + (lane >> 4) * 8), a[k16]);
-    const uint32_t b0 = smem_u32(st + kBAStage) + (wg & 1) * 2 * kBBlock;
-    wgmma_fence();
-#pragma unroll
-    for (int k16 = 0; k16 < 2; ++k16)
-      wgmma_m64n128k16_rs(d, a[k16], wgmma_desc_sw128(b0 + k16 * 16 * 128, kBBlock, 8 * 128));
-    wgmma_commit();
-    wgmma_wait<1>();  // chunk c - 1's products are done: its A registers are free
-  };
-  uint32_t a0[2][4], a1[2][4];  // A fragments of even and odd chunks
-#pragma unroll 1
-  for (int c = 0; c < nch; c += 2) {
-    step(c, a0);
-    step(c + 1, a1);
-  }
-  wgmma_wait_all();
-  __syncthreads();  // every warp is done with the ring
-}
-
-__device__ __forceinline__ void ffn_zero(float (&acc)[kBNT][4]) {
-#pragma unroll
-  for (int nt = 0; nt < kBNT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
-}
-
-// v summed over the quad's four threads (one row's columns), in a fixed order
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// v summed over the warp's eight row groups (one column's rows)
-__device__ __forceinline__ float rows_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 4);
-  v += __shfl_xor_sync(0xffffffffu, v, 8);
-  return v + __shfl_xor_sync(0xffffffffu, v, 16);
-}
-
-// The cluster's row sums: this CTA's two per-row partials (over its 256
-// columns) from the two column warpgroups' partials in `red`, published in
-// `xch`; after the cluster barrier every CTA adds the 8 CTAs' in rank order.
-// Threads < kBM return the totals of row threadIdx.x.
-__device__ __forceinline__ float2 ffn_cluster_rows(const float* red, float* xch) {
-  const int t = threadIdx.x;
-  if (t < kBM) {
-    xch[t] = red[t * 2] + red[(kBM + t) * 2];
-    xch[kBM + t] = red[t * 2 + 1] + red[(kBM + t) * 2 + 1];
-  }
-  cluster_arrive();
-  cluster_wait();
-  float2 tot = make_float2(0.0f, 0.0f);
-  if (t < kBM) {
-#pragma unroll
-    for (int r = 0; r < kBCl; ++r) {
-      tot.x += ld_dsmem_f32(xch + t, r);
-      tot.y += ld_dsmem_f32(xch + kBM + t, r);
-    }
-  }
-  return tot;
-}
-
-__global__ void __launch_bounds__(kBThreads, 1) ffn_bwd_hidden_kernel(
+__global__ void __launch_bounds__(kGThreads, 1) ffn_bwd_hidden_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ w1t, const float* __restrict__ b1,
     const float* __restrict__ g, const float* __restrict__ be, const bf16* __restrict__ w2,
     const bf16* __restrict__ dy, bf16* __restrict__ dh_out, bf16* __restrict__ hn_out,
     float* __restrict__ part, int M, Dropout drop) {
-  unsigned char* ring = ffn_smem_base();
+  unsigned char* ring = gemm_smem_base();
   bf16* hs = reinterpret_cast<bf16*>(ring + kBRingBytes);  // h, then dh: [128][kBHLd]
   float* red = reinterpret_cast<float*>(ring + kBRingBytes + kHHBytes);
   float* xch = red + kHRedF;
@@ -238,90 +89,30 @@ __global__ void __launch_bounds__(kBThreads, 1) ffn_bwd_hidden_kernel(
   const int g8 = lane >> 2;
   const int qd = lane & 3;
   float* prow = part + (long long)tile * (3 * kBF + kBD);
-  // this thread's rows (16 rw + g8 + 8 hf) and columns (128 (wg % 2) + 8 nt +
-  // 2 qd, + 1) of the CTA's [128, 256] slice
-  auto row_of = [&](int hf) { return rw * 16 + g8 + 8 * hf; };
-  auto col_of = [&](int nt) { return (wg & 1) * 128 + nt * 8 + 2 * qd; };
 
   float acc[kBNT][4];
-  // bit 2 nt + e of keep[hf] is the dropout mask of element (row_of(hf),
-  // col_of(nt) + e), drawn once for the recompute and the backward
+  // bit 2 nt + e of keep[hf] is the dropout mask of element (ffn_row(hf),
+  // ffn_col(nt) + e), drawn once for the recompute and the backward
   uint32_t keep[2] = {0u, 0u};
 
-  // ---- h = drop(relu(bf16(x W1^T + b1))) for this CTA's columns, into hs
-  ffn_zero(acc);
-  ffn_mainloop(acc, x, kBD, m0, M, w1t, kBF, n0, kBD, ring, NoChunkHook());
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int r = row_of(hf);
-    // the row's part of the counter hash, mix(mix(seed) ^ row), once
-    const uint32_t rowbits = mix32(mix32(drop.seed) ^ (uint32_t)(m0 + r));
-    float s = 0.0f, ss = 0.0f;
-#pragma unroll
-    for (int nt = 0; nt < kBNT; ++nt) {
-      const int c = col_of(nt);
-      float h[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        h[e] = fmaxf(bf2f(f2bf(acc[nt][2 * hf + e] + b1[n0 + c + e])), 0.0f);
-        if (drop.thresh) {
-          const bool k = mix32(rowbits ^ (uint32_t)(n0 + c + e)) >= drop.thresh;
-          keep[hf] |= (uint32_t)k << (2 * nt + e);
-          h[e] = k ? bf2f(f2bf(h[e] * drop.scale)) : 0.0f;
-        }
-        s += h[e];
-        ss += h[e] * h[e];
-      }
-      *reinterpret_cast<uint32_t*>(hs + r * kBHLd + c) = pack_bf16(h[0], h[1]);
-    }
-    s = quad_sum(s);
-    ss = quad_sum(ss);
-    if (qd == 0) {
-      red[((wg & 1) * kBM + r) * 2] = s;
-      red[((wg & 1) * kBM + r) * 2 + 1] = ss;
-    }
-  }
-  __syncthreads();
-  {  // LN statistics of the whole rows, from the 8 CTAs' partials
-    const float2 tot = ffn_cluster_rows(red, xch);
-    if (tid < kBM) {
-      const float mu = tot.x / kBF;
-      rowst[tid] = mu;
-      rowst[kBM + tid] = rsqrtf(fmaxf(0.0f, tot.y / kBF - mu * mu) + kBEps);
-    }
-  }
-  __syncthreads();
+  // ---- h = drop(relu(bf16(x W1^T + b1))) for this CTA's columns, into hs,
+  // and the LN statistics of the whole rows (ffn.cuh, as K4 computes them)
+  ffn_hidden<true>(acc, keep, x, w1t, b1, m0, M, n0, drop, ring, hs, red, xch, rowst);
 
   // ---- hn = bf16(LN(h)) out, 16-byte row segments
-  {
-    const int c = (tid & 31) * 8;  // the same 8 columns in every step
-    float gv[8], bv[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      gv[e] = g[n0 + c + e];
-      bv[e] = be[n0 + c + e];
-    }
-    for (int r = tid >> 5; r < kBM; r += kBThreads / 32) {
-      if (m0 + r >= M) break;
-      alignas(16) bf16 hv[8], out[8];
-      copy8(hv, hs + r * kBHLd + c);
-      const float mu = rowst[r], rstd = rowst[kBM + r];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) out[e] = f2bf((bf2f(hv[e]) - mu) * rstd * gv[e] + bv[e]);
-      copy8(hn_out + (long long)(m0 + r) * kBF + n0 + c, out);
-    }
-  }
+  ffn_write_hn(hs, rowst, g, be, hn_out, m0, M, n0);
 
   // ---- dhn = bf16(dy) W2[:, n0..] stays in the f32 accumulators; the db2
   // partials of dy's columns [64 rank, 64 rank + 64) from the dy chunks 2
   // rank and 2 rank + 1 as they pass (rows >= M are zeros there)
-  ffn_zero(acc);
-  ffn_mainloop(acc, dy, kBD, m0, M, w2, kBF, n0, kBD, ring, [&](int c, const bf16* as) {
+  gemm_zero(acc);
+  gemm_mainloop<128, false, kGK>(acc, dy, kBD, m0, M, w2, kBF, n0, 0, kBD, ring,
+                            [&](int c, const bf16* as, const uint32_t (&)[2][4]) {
     if ((c >> 1) == rank && tid < 256) {
       const int col = tid & 31, grp = tid >> 5;  // 16 rows each
       float s = 0.0f;
 #pragma unroll
-      for (int r = 0; r < 16; ++r) s += bf2f(as[(grp * 16 + r) * kBALd + col]);
+      for (int r = 0; r < 16; ++r) s += bf2f(as[(grp * 16 + r) * FfnRing::kALd + col]);
       db2p[grp * 64 + (c & 1) * 32 + col] = s;
     }
   });
@@ -337,19 +128,19 @@ __global__ void __launch_bounds__(kBThreads, 1) ffn_bwd_hidden_kernel(
     bool valid[2];
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
-      mu[hf] = rowst[row_of(hf)];
-      rstd[hf] = rowst[kBM + row_of(hf)];
-      valid[hf] = m0 + row_of(hf) < M;
+      mu[hf] = rowst[ffn_row(hf)];
+      rstd[hf] = rowst[kBM + ffn_row(hf)];
+      valid[hf] = m0 + ffn_row(hf) < M;
     }
 #pragma unroll
     for (int nt = 0; nt < kBNT; ++nt) {
-      const int c = col_of(nt);
+      const int c = ffn_col(nt);
       const float gg[2] = {g[n0 + c], g[n0 + c + 1]};
       float dg[2] = {0.0f, 0.0f}, db[2] = {0.0f, 0.0f};
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
         const float2 hv =
-            unpack_bf16(*reinterpret_cast<const uint32_t*>(hs + row_of(hf) * kBHLd + c));
+            unpack_bf16(*reinterpret_cast<const uint32_t*>(hs + ffn_row(hf) * kBHLd + c));
         const float hh[2] = {(hv.x - mu[hf]) * rstd[hf], (hv.y - mu[hf]) * rstd[hf]};
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
@@ -376,8 +167,8 @@ __global__ void __launch_bounds__(kBThreads, 1) ffn_bwd_hidden_kernel(
     for (int hf = 0; hf < 2; ++hf) {
       const float t1 = quad_sum(a1[hf]), t2 = quad_sum(a2[hf]);
       if (qd == 0) {
-        red[((wg & 1) * kBM + row_of(hf)) * 2] = t1;
-        red[((wg & 1) * kBM + row_of(hf)) * 2 + 1] = t2;
+        red[((wg & 1) * kBM + ffn_row(hf)) * 2] = t1;
+        red[((wg & 1) * kBM + ffn_row(hf)) * 2 + 1] = t2;
       }
     }
   }
@@ -398,7 +189,7 @@ __global__ void __launch_bounds__(kBThreads, 1) ffn_bwd_hidden_kernel(
     bool valid[2];
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
-      const int r = row_of(hf);
+      const int r = ffn_row(hf);
       mu[hf] = rowst[r];
       rstd[hf] = rowst[kBM + r];
       m1[hf] = rowst[2 * kBM + r];
@@ -407,12 +198,12 @@ __global__ void __launch_bounds__(kBThreads, 1) ffn_bwd_hidden_kernel(
     }
 #pragma unroll
     for (int nt = 0; nt < kBNT; ++nt) {
-      const int c = col_of(nt);
+      const int c = ffn_col(nt);
       const float gg[2] = {g[n0 + c], g[n0 + c + 1]};
       float s1[2] = {0.0f, 0.0f};
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
-        uint32_t* hp = reinterpret_cast<uint32_t*>(hs + row_of(hf) * kBHLd + c);
+        uint32_t* hp = reinterpret_cast<uint32_t*>(hs + ffn_row(hf) * kBHLd + c);
         const float2 hv = unpack_bf16(*hp);
         const float h[2] = {hv.x, hv.y};
         float d[2];
@@ -450,7 +241,7 @@ __global__ void __launch_bounds__(kBThreads, 1) ffn_bwd_hidden_kernel(
       }
     }
     const int c8 = (tid & 31) * 8;
-    for (int r = tid >> 5; r < kBM; r += kBThreads / 32) {
+    for (int r = tid >> 5; r < kBM; r += kGThreads / 32) {
       if (m0 + r >= M) break;
       copy8(dh_out + (long long)(m0 + r) * kBF + n0 + c8, hs + r * kBHLd + c8);
     }
@@ -458,62 +249,12 @@ __global__ void __launch_bounds__(kBThreads, 1) ffn_bwd_hidden_kernel(
   cluster_wait();  // no CTA leaves while a peer may still read its exchange
 }
 
-// dx = bf16(dh W1): dh [M, 2048], W1 [2048, 512] (torch layout [F, D]), a
-// [128, 256] tile per CTA
-__global__ void __launch_bounds__(kBThreads, 1) ffn_dx_kernel(const bf16* __restrict__ dh,
-                                                              const bf16* __restrict__ w1,
-                                                              bf16* __restrict__ dx, int M) {
-  unsigned char* ring = ffn_smem_base();
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
-  const int lane = threadIdx.x & 31;
-  const int wg = threadIdx.x >> 7;
-  const int qi = lane & 3;
-  float acc[kBNT][4];
-  ffn_zero(acc);
-  ffn_mainloop(acc, dh, kBF, m0, M, w1, kBD, n0, kBF, ring, NoChunkHook());
-  // per pair of 8-column fragments the quad holds four 16-byte row segments
-  // (rows g, g + 8 of each); quad_gather16 gives each thread one whole
-  const int row = m0 + ((wg >> 1) * 4 + ((threadIdx.x >> 5) & 3)) * 16 + (lane >> 2) +
-                  8 * (qi & 1);
-#pragma unroll
-  for (int j = 0; j < kBNT; j += 2) {
-    const uint32_t v[4] = {pack_bf16(acc[j][0], acc[j][1]), pack_bf16(acc[j][2], acc[j][3]),
-                           pack_bf16(acc[j + 1][0], acc[j + 1][1]),
-                           pack_bf16(acc[j + 1][2], acc[j + 1][3])};
-    const uint4 seg = quad_gather16(v);
-    if (row < M)
-      *reinterpret_cast<uint4*>(dx + (long long)row * kBD + n0 + (wg & 1) * 128 +
-                                (j + (qi >> 1)) * 8) = seg;
-  }
-}
-
-// the kernels' dynamic shared memory limits, set once per library and card
+// the cluster kernel's dynamic shared memory limit, set once per library
+// and card
 static cudaError_t ffn_bwd_set_smem_once() {
-  static const cudaError_t attr = [] {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ffn_bwd_hidden_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)kFfnHiddenSmem);
-    if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(ffn_dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)kFfnDxSmem);
-  }();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      ffn_bwd_hidden_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kFfnHiddenSmem);
   return attr;
-}
-
-static cudaLaunchConfig_t hidden_config(int tiles, cudaLaunchAttribute* attr, cudaStream_t st) {
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = kBCl;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kBCl * tiles);
-  cfg.blockDim = dim3(kBThreads);
-  cfg.dynamicSmemBytes = kFfnHiddenSmem;
-  cfg.stream = st;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
 }
 
 }  // namespace crog
@@ -536,7 +277,7 @@ extern "C" int crog_ffn_bwd(void* const* t, int M, int D, int F, unsigned seed,
   const int tiles = (M + crog::kBM - 1) / crog::kBM;
   float* part = static_cast<float*>(t[12]);
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = crog::hidden_config(tiles, &attr, st);
+  const cudaLaunchConfig_t cfg = crog::ffn_cluster_config(tiles, crog::kFfnHiddenSmem, &attr, st);
   err = cudaLaunchKernelEx(&cfg, crog::ffn_bwd_hidden_kernel, static_cast<const bf16*>(t[0]),
                            static_cast<const bf16*>(t[13]), static_cast<const float*>(t[2]),
                            static_cast<const float*>(t[3]), static_cast<const float*>(t[4]),
@@ -546,10 +287,8 @@ extern "C" int crog_ffn_bwd(void* const* t, int M, int D, int F, unsigned seed,
   if (err != cudaSuccess) return (int)err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  crog::ffn_dx_kernel<<<dim3(crog::kBD / crog::kBN, tiles), crog::kBThreads, crog::kFfnDxSmem,
-                        st>>>(static_cast<const bf16*>(t[8]), static_cast<const bf16*>(t[1]),
-                              static_cast<bf16*>(t[7]), M);
-  err = cudaGetLastError();
+  err = crog::launch_ffn_out(static_cast<const bf16*>(t[8]), static_cast<const bf16*>(t[1]),
+                             nullptr, static_cast<bf16*>(t[7]), M, tiles, st);
   if (err != cudaSuccess) return (int)err;
   const long long stride = 3LL * F + D;
   err = crog::launch_reduce(part, tiles, stride, 3LL * F, static_cast<float*>(t[10]),
@@ -559,28 +298,15 @@ extern "C" int crog_ffn_bwd(void* const* t, int M, int D, int F, unsigned seed,
                                   static_cast<float*>(t[11]), nullptr, st);
 }
 
-// out[8]: the hidden kernel's registers per thread, shared memory per CTA
+// out[8]: the cluster kernel's registers per thread, shared memory per CTA
 // (static + dynamic), spill bytes per thread and clusters resident at once;
-// then the dx kernel's registers, shared memory, spills and CTAs per SM
+// then the dx kernel's (ffn_out_kernel) registers, shared memory, spills
+// and CTAs per SM
 extern "C" int crog_ffn_bwd_attrs(void* out_) {
   int* out = static_cast<int*>(out_);
   cudaError_t err = crog::ffn_bwd_set_smem_once();
   if (err != cudaSuccess) return (int)err;
-  cudaFuncAttributes fa;
-  err = cudaFuncGetAttributes(&fa, crog::ffn_bwd_hidden_kernel);
+  err = crog::ffn_cluster_attrs(crog::ffn_bwd_hidden_kernel, crog::kFfnHiddenSmem, out);
   if (err != cudaSuccess) return (int)err;
-  out[0] = fa.numRegs;
-  out[1] = (int)(fa.sharedSizeBytes + crog::kFfnHiddenSmem);
-  out[2] = (int)fa.localSizeBytes;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = crog::hidden_config(1, &attr, nullptr);
-  err = cudaOccupancyMaxActiveClusters(&out[3], crog::ffn_bwd_hidden_kernel, &cfg);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncGetAttributes(&fa, crog::ffn_dx_kernel);
-  if (err != cudaSuccess) return (int)err;
-  out[4] = fa.numRegs;
-  out[5] = (int)(fa.sharedSizeBytes + crog::kFfnDxSmem);
-  out[6] = (int)fa.localSizeBytes;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[7], crog::ffn_dx_kernel,
-                                                            crog::kBThreads, crog::kFfnDxSmem);
+  return (int)crog::ffn_out_attrs(out + 4);
 }

@@ -1,7 +1,8 @@
 // Register-level building blocks of the redesigned Hopper kernels (the
 // attention forward, K1b's one-CTA-per-head backward, the decoder blocks'
-// attention backward, K4b's cluster and dx kernels, K6's persistent conv and
-// K6b's cluster wgrad): ldmatrix, mma.sync m16n8k16 bf16 -> f32, cp.async
+// attention backward, gemm.cuh's wgmma mainloop behind K4, K4b and the
+// decoder blocks' backward GEMMs, K6's persistent conv and K6b's cluster
+// wgrad): ldmatrix, mma.sync m16n8k16 bf16 -> f32, cp.async
 // with zero fill, mbarriers, TMA tensor loads (to one CTA, or multicast
 // across a thread-block cluster), cluster barriers and distributed shared
 // memory loads, wgmma with A in registers and B in shared memory, and the

@@ -61,9 +61,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "decoder_blocks_bwd": {
         "crog_self_block_bwd": [_P] + [_I] * 5 + _DROP + [_P],
         "crog_cross_block_bwd": [_P] + [_I] * 6 + _DROP + [_P],
+        "crog_decoder_bwd_attrs": [_P],
     },
     "ffn": {
-        "crog_ffn_fwd": [_P] * 8 + [_I] * 3 + _DROP + [_P],
+        "crog_ffn_fwd": [_P] + [_I] * 4 + _DROP + [_P],
+        "crog_ffn_fwd_attrs": [_P],
     },
     "ffn_bwd": {
         "crog_ffn_bwd": [_P] + [_I] * 3 + _DROP + [_P],

@@ -228,7 +228,8 @@ def _weights(x, in_w, in_b, out_w, out_b, g_pre, b_pre, g_post, b_post):
 
 def _wgrad_splits(m: int) -> int:
     """Row chunks of the dW kernels' first pass (summed in a fixed order by
-    the second pass): enough blocks to fill the card at M = 16224."""
+    the second pass): at M = 16224, 16 chunks of the 8 [128, 256] tiles of a
+    [512, 512] dW are 128 CTAs, one per SM of an H100."""
     return max(1, min(16, -(-m // 1024)))
 
 
@@ -359,9 +360,9 @@ def cross_block_bwd(x, saved, dy, nheads: int, seed: int = 0, rate: float = 0.0)
     f32 = lambda *s: torch.empty(*s, dtype=torch.float32, device=dev)
     splits = _wgrad_splits(m)
     dx, dkv, dwi, dwo, dvec = bf(b, l, d), bf(b, t, d), bf(3 * d, d), bf(d, d), f32(8, d)
-    ws = (bf(m, d), bf(m, d), bf(m, d), bf(mt, d), bf(mt, d), f32(m, d), f32(mt, d),
+    ws = (bf(m, d), bf(m, d), bf(m, d), bf(mt, d), bf(mt, d), f32(m, d),
           f32(3, b * nheads, l), f32(splits, d, d), f32(splits, d),
-          f32(-(-m // 64), 3, d))  # dop, do, dq, dk, dv, dxl, dkv f32, stats, parts
+          f32(-(-m // 64), 3, d))  # dop, do, dq, dk, dv, dxl, stats, parts
     dseed, thresh, scale = kernel_args(seed, rate)
     table = cuda_build.ptr_table(x, kv, mask, wi, wo, g_pre, g_post, qin, q, o, kin, k, v, op, dy,
                   dx, dkv, dwi, dwo, dvec, *ws)

@@ -4,11 +4,13 @@ forward and backward.
 Counterpart of crog_tpu/ops/pallas_ffn.py ``fused_ffn`` (176) and its custom
 VJP.  Weights in torch layout: ``w1`` [F, D], ``w2`` [D, F].  ``fused_ffn``
 is an autograd function.  On a CUDA tensor its forward launches csrc/ffn.cu,
-which keeps each row tile's [32, 2048] hidden in shared memory, and its
-backward csrc/ffn_bwd.cu, whose cluster kernel spreads each 128-row tile's
-hidden over 8 CTAs (``bwd_schedule``), recomputes the hidden and the dropout
-mask from x and the seed and emits dh, hn and the column sums of db1,
-dgamma, dbeta, db2, and whose second kernel computes dx from dh (or raises);
+whose cluster kernel spreads each 128-row tile's hidden over 8 CTAs
+(``fwd_schedule``) and writes hn, and whose second kernel computes y from
+hn; its backward launches csrc/ffn_bwd.cu, whose cluster kernel
+(``bwd_schedule``) recomputes the hidden with the forward's code
+(csrc/ffn.cuh) and the dropout mask from x and the seed and emits dh, hn and
+the column sums of db1, dgamma, dbeta, db2, and whose second kernel (the
+forward's y kernel) computes dx from dh (or raises);
 the two weight gradients dW1 = dh^T x and dW2 =
 dy^T hn are library matrix products outside the kernel, as the JAX package
 leaves them to XLA: bf16 operands on the tensor cores with f32 sums and an
@@ -30,8 +32,20 @@ from crog_tpu_torch.ops.decoder_blocks import dense, ln_fast, ln_stats
 from crog_tpu_torch.ops.dropout import apply_dropout, dropout_keep, kernel_args
 
 KERNEL_D, KERNEL_F = 512, 2048
-BWD_ROWS = 128  # rows per cluster tile of K4b (csrc/ffn_bwd.cu kBM); K4's are in ffn.cu
-BWD_CLUSTER = 8  # CTAs per K4b cluster, each with KERNEL_F // 8 hidden columns
+BWD_ROWS = 128  # rows per cluster tile of K4 and K4b (csrc/ffn.cuh kBM)
+BWD_CLUSTER = 8  # CTAs per K4 / K4b cluster, each with KERNEL_F // 8 hidden columns
+OUT_COLS = 256  # output columns per CTA of K4's y and K4b's dx GEMM (csrc/ffn.cuh)
+
+
+def fwd_schedule(m: int):
+    """K4's work split over ``m`` rows, from the shapes alone: the row range
+    [r0, r1) of each cluster tile, the hidden column range [c0, c1) that CTA
+    k of every cluster owns (both as ``bwd_schedule``: K4b recomputes the
+    same hidden), and the output column range [c0, c1) of each CTA of the y
+    GEMM, which runs over the same row tiles.  csrc/ffn.cu launches one
+    cluster per tile and the y GEMM over len(tiles) x len(out_cols) CTAs."""
+    tiles, slices = bwd_schedule(m)
+    return tiles, slices, [(c, c + OUT_COLS) for c in range(0, KERNEL_D, OUT_COLS)]
 
 
 def bwd_schedule(m: int):
@@ -113,15 +127,17 @@ def ffn_fwd(x, w1, b1, gamma, beta, w2, b2, seed: int = 0, rate: float = 0.0):
     _check(x, w1)
     m, d = x.shape
     f = w1.shape[0]
-    w1b, w2b, vecs = _params(w1, w2, d, f, b1=b1, gamma=gamma, beta=beta, b2=b2)
+    w1b, w2b, (b1f, gf, bef, b2f) = _params(w1, w2, d, f, b1=b1, gamma=gamma, beta=beta,
+                                            b2=b2)
     y = torch.empty_like(x)
+    hn = torch.empty(m, f, dtype=torch.bfloat16, device=x.device)
     dseed, thresh, scale = kernel_args(seed, rate)
+    # both products read a B that is row-major along their output columns
+    w1t, w2t = w1b.t().contiguous(), w2b.t().contiguous()
+    table = cuda_build.ptr_table(x, w1t, b1f, gf, bef, w2t, b2f, y, hn)
     lib = cuda_build.load("ffn")
-    rc = lib.crog_ffn_fwd(
-        x.data_ptr(), w1b.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(),
-        vecs[2].data_ptr(), w2b.data_ptr(), vecs[3].data_ptr(), y.data_ptr(),
-        m, d, f, dseed, thresh, scale, cuda_build.stream_ptr(x.device),
-    )
+    rc = lib.crog_ffn_fwd(table, m, d, f, len(fwd_schedule(m)[0]), dseed, thresh, scale,
+                          cuda_build.stream_ptr(x.device))
     cuda_build.check_launch(lib, rc, "crog_ffn_fwd")
     ffn_fwd.launches += 1
     return y

@@ -14,7 +14,8 @@ steps at magnitude 4-8) on the blocks' and FFN's outputs of magnitude ~6.
 The forwards with dropout draw the same counter-based mask in kernel and
 twin and are held alike.  The attention forward is held on both of its
 paths (one pass up to 192 keys, two beyond), with q and k packed as the self
-block passes them; K4b's outputs must also repeat with equal bits.  Backward outputs are held to 2^-6 of each
+block passes them; K4's, K4b's, K2b's and K3b's outputs must also repeat
+with equal bits.  Backward outputs are held to 2^-6 of each
 gradient's largest magnitude (four bf16 steps: a flipped rounding of an
 intermediate such as P, dS or dh feeds many outputs).  K1b rounds only its
 outputs, as its twin does, so it is held to one bf16 step (2^-8 of the
@@ -254,6 +255,54 @@ def test_cuda_ffn_train_mode_matches_twin(card, rate, m):
         assert torch.equal(a[i], b[i]), i
     with pytest.raises(ValueError, match="D=512, F=2048"):
         FF.ffn_bwd(x, w1[:1024], b1[:1024], g[:1024], be[:1024], w2[:, :1024], dy)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("m", [128, 1000, 16224])
+def test_cuda_ffn_forward_matches_twin_and_repeats(card, m, rate):
+    """K4 (its cluster kernel and y GEMM) against its twin at one 128-row
+    cluster tile, at M off the tile (1000) and at the main path's 24 x 676
+    rows, under 0.125; two runs give equal bits."""
+    x = _bf16(1, m, 512)
+    f32 = lambda s, n, std: (torch.randn(n, generator=torch.Generator()
+                                         .manual_seed(s)) * std).to(card)
+    args = (x, _bf16(2, 2048, 512, std=512**-0.5), f32(3, 2048, 0.05),
+            1 + f32(4, 2048, 0.1), f32(5, 2048, 0.05),
+            _bf16(6, 512, 2048, std=2048**-0.5), f32(7, 512, 0.05))
+    got, again = FF.ffn_fwd(*args, 13, rate), FF.ffn_fwd(*args, 13, rate)
+    ref = FF.ffn_plain(*args, 13, rate)
+    torch.cuda.synchronize()
+    assert (got.float() - ref.float()).abs().max().item() <= 0.125
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,rate", [(24, 676, 0.1), (3, 301, 0.0), (3, 301, 0.1)])
+def test_cuda_block_backward_gemms_match_twins_and_repeat(card, b, l, rate):
+    """K2b and K3b, whose dO, fused dX and dW GEMMs are the wgmma kernels
+    of csrc/gemm.cuh, against their twins under BWD_REL at the main path's
+    shape (24 x 676 rows, 24 x 17 text rows) and at 3 x 301 rows (not a
+    multiple of the 128-row tile); two runs give equal bits in every output
+    (dx, d txt, dW, the bias and LayerNorm column sums)."""
+    x, txt = _bf16(21, b, l, 512), _bf16(22, b, 17, 512)
+    pos, tpos = _bf16(23, l, 512, std=0.5), _bf16(24, 17, 512, std=0.5)
+    dy = _bf16(25, b, l, 512)
+    lengths = torch.tensor([[4 + 13 * i // max(1, b - 1)] for i in range(b)], device=card)
+    pad = torch.arange(17, device=card)[None].expand(b, 17) >= lengths
+    w = _block_args(30)
+    _, saved = DB.self_block_fwd(x, pos, *w, 8, 7, rate, save=True)
+    got = DB.self_block_bwd(x, saved, dy, 8, 7, rate)
+    _close_all(got, DB.self_block_bwd_plain(x, pos, *w, dy, 8, 7, rate))
+    again = DB.self_block_bwd(x, saved, dy, 8, 7, rate)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    _, saved = DB.cross_block_fwd(x, txt, pos, tpos, pad, *w, 8, 8, rate, save=True)
+    got = DB.cross_block_bwd(x, saved, dy, 8, 8, rate)
+    _close_all(got, DB.cross_block_bwd_plain(x, txt, pos, tpos, pad, *w, dy, 8, 8, rate))
+    again = DB.cross_block_bwd(x, saved, dy, 8, 8, rate)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
 
 
 LINCOMB_REL = 1e-4  # both f32; only the order of the pixel and column sums differs

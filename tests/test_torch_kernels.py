@@ -156,6 +156,24 @@ def test_ffn_matches_pallas_kernel(m):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=2e-5)
 
 
+@pytest.mark.parametrize("m", [1, 127, 128, 129, 1000, 16224])
+def test_ffn_fwd_schedule_covers_every_row_once(m):
+    """K4's cluster tiles cover rows 0..m-1 once, in order, BWD_ROWS at a
+    time, as K4b's do (K4b recomputes the same hidden); its CTAs' column
+    slices cover the hidden once; its y GEMM's column tiles cover the output
+    once; and the split depends on m alone."""
+    tiles, slices, out_cols = FF.fwd_schedule(m)
+    assert (tiles, slices) == FF.bwd_schedule(m)
+    assert len(tiles) == -(-m // FF.BWD_ROWS)
+    assert [r for r0, r1 in tiles for r in range(r0, r1)] == list(range(m))
+    assert all(0 < r1 - r0 <= FF.BWD_ROWS for r0, r1 in tiles)
+    assert len(slices) == FF.BWD_CLUSTER
+    assert [c for c0, c1 in slices for c in range(c0, c1)] == list(range(FF.KERNEL_F))
+    assert [c for c0, c1 in out_cols for c in range(c0, c1)] == list(range(FF.KERNEL_D))
+    assert all(c1 - c0 == FF.OUT_COLS for c0, c1 in out_cols)
+    assert FF.fwd_schedule(m) == (tiles, slices, out_cols)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take():
     """CUDA-side argument checks run before any launch."""
     x = torch.zeros(2, 8, 64)

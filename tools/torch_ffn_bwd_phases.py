@@ -2,8 +2,9 @@
 
     python3 tools/torch_ffn_bwd_phases.py
 
-Builds a copy of crog_tpu_torch/csrc/ffn_bwd.cu with a clock64() stamp
-(behind a CTA barrier) at each phase boundary of ffn_bwd_hidden_kernel,
+Builds a copy of crog_tpu_torch/csrc/ffn_bwd.cu, with the FFN code it shares
+with K4 (csrc/ffn.cuh) inlined, with a clock64() stamp (behind a CTA
+barrier) at each phase boundary of ffn_bwd_hidden_kernel,
 runs K4b at the main path's shape (M = 24 x 676, chip_smoke.py's seeded
 inputs) with dropout 0.1 and 0, and prints the mean SM cycles per CTA of
 each phase: the recompute's product, its epilogue, the first cluster
@@ -22,18 +23,22 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-# (anchor line in ffn_bwd.cu, stamp index before it, stamp index after it)
-ANCHORS = (
-    ("  ffn_mainloop(acc, x, ", 0, 1),
-    ("  {  // LN statistics of the whole rows", 2, None),
-    ("  // ---- hn = bf16(LN(h)) out", 3, None),
-    ("  ffn_mainloop(acc, dy, ", 4, None),
-    ("  if (tid < 64) {", 5, None),
-    ("  {  // the row means over the whole rows", 6, None),
-    ("  // ---- dh = bf16(relu'", 7, None),
-    ("  {  // column partials out", 8, None),
-    ("  cluster_wait();  // no CTA leaves", 9, 10),
-)
+# source -> (anchor line, stamp index before it, stamp index after it)
+ANCHORS = {
+    "ffn.cuh": (
+        ("  gemm_mainloop<128, false, kGK>(acc, x, ", 0, 1),
+        ("  {  // LN statistics of the whole rows", 2, None),
+    ),
+    "ffn_bwd.cu": (
+        ("  // ---- hn = bf16(LN(h)) out", 3, None),
+        ("  gemm_mainloop<128, false, kGK>(acc, dy, ", 4, None),
+        ("  if (tid < 64) {", 5, None),
+        ("  {  // the row means over the whole rows", 6, None),
+        ("  // ---- dh = bf16(relu'", 7, None),
+        ("  {  // column partials out", 8, None),
+        ("  cluster_wait();  // no CTA leaves", 9, 10),
+    ),
+}
 PHASES = ("recompute product", "recompute epilogue (h, row partials)",
           "cluster exchange 1 (LN statistics)", "hn out",
           "dhn product (+ db2 sums)", "dhn epilogue (m1/m2, dgamma/dbeta partials)",
@@ -42,28 +47,39 @@ PHASES = ("recompute product", "recompute epilogue (h, row partials)",
 SLOTS = 2048
 
 
+def _stamped(text: str, anchors, name: str) -> str:
+    lines = text.split("\n")
+    missing = [a[0] for a in anchors if not any(l.startswith(a[0]) for l in lines)]
+    if missing:
+        raise SystemExit(f"{name} no longer has the phase anchors {missing}")
+    out, after = [], None
+    for line in lines:
+        hit = next((a for a in anchors if line.startswith(a[0])), None)
+        if hit is not None:
+            out.append(f"STAMP({hit[1]});")
+            after = hit[2]
+        out.append(line)
+        if after is not None and line.split("//")[0].rstrip().endswith(";"):  # its end
+            out.append(f"STAMP({after});")
+            after = None
+    return "\n".join(out)
+
+
 def instrumented_source(csrc: str) -> str:
-    text = open(os.path.join(csrc, "ffn_bwd.cu")).read()
+    read = lambda name: open(os.path.join(csrc, name)).read()
     head = (f'__device__ long long g_stamp[{SLOTS}][12];\n'
             '#define STAMP(i) do { __syncthreads(); if (threadIdx.x == 0) '
             f'g_stamp[blockIdx.x % {SLOTS}][i] = clock64(); }} while (0)\n')
-    text = text.replace('#include "sm90.cuh"\n', '#include "sm90.cuh"\n' + head, 1)
-    lines = text.split("\n")
-    out = []
-    for line in lines:
-        hit = next((a for a in ANCHORS if line.startswith(a[0])), None)
-        if hit is not None:
-            out.append(f"STAMP({hit[1]});")
-        out.append(line)
-        if hit is not None and hit[2] is not None:
-            out.append(f"STAMP({hit[2]});")
-    missing = [a[0] for a in ANCHORS if not any(l.startswith(a[0]) for l in lines)]
-    if missing:
-        raise SystemExit(f"ffn_bwd.cu no longer has the phase anchors {missing}")
-    out.append('extern "C" int phase_stamps(void* out) {\n'
-               f'  return (int)cudaMemcpyFromSymbol(out, g_stamp, sizeof(long long) * {SLOTS} * 12);\n'
-               '}\n')
-    return "\n".join(out)
+    include = '#include "ffn.cuh"\n'
+    text = read("ffn_bwd.cu")
+    if include not in text:
+        raise SystemExit("ffn_bwd.cu no longer includes ffn.cuh")
+    shared = _stamped(read("ffn.cuh"), ANCHORS["ffn.cuh"], "ffn.cuh")
+    text = _stamped(text, ANCHORS["ffn_bwd.cu"], "ffn_bwd.cu")
+    text = text.replace(include, head + shared + "\n", 1)
+    return text + ('\nextern "C" int phase_stamps(void* out) {\n'
+                   '  return (int)cudaMemcpyFromSymbol(out, g_stamp, '
+                   f'sizeof(long long) * {SLOTS} * 12);\n}}\n')
 
 
 def main() -> int:
@@ -81,8 +97,11 @@ def main() -> int:
     src = cuda_build.BUILD_DIR / "ffn_bwd_phases.cu"
     lib_path = cuda_build.BUILD_DIR / "libffn_bwd_phases.so"
     src.write_text(instrumented_source(str(cuda_build.CSRC)))
-    subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, f"-I{cuda_build.CSRC}",
-                    "-o", str(lib_path), str(src)], check=True, capture_output=True)
+    build = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS,
+                            f"-I{cuda_build.CSRC}", "-o", str(lib_path), str(src)],
+                           capture_output=True, text=True)
+    if build.returncode:
+        raise SystemExit(f"nvcc failed on {src}:\n{build.stdout}{build.stderr}")
     lib = ctypes.CDLL(str(lib_path))
     lib.crog_ffn_bwd.argtypes = cuda_build.SIGNATURES["ffn_bwd"]["crog_ffn_bwd"]
     lib.phase_stamps.argtypes = [ctypes.c_void_p]

@@ -42,15 +42,15 @@ GROUPS = (
     ("K1b attention-pool backward (one CTA per head)", ("attn_bwd_head",)),
     ("attention backward (K2b/K3b inner; K1b past 256 tokens)", ("attn_bwd_",)),
     ("K2b/K3b: ln_post_bwd, ln_pre_bwd", ("ln_post_bwd", "ln_pre_bwd")),
-    ("K2b/K3b: gemm_nn (dX)", ("gemm_nn_kernel",)),
+    ("K2b/K3b: gemm_nn (dO, dX)", ("gemm_nn_kernel",)),
     ("K2b/K3b: wgrad (dW)", ("wgrad_kernel",)),
     ("K2b/K3b/K4b: reduce_rows", ("reduce_rows_kernel",)),
     ("K4b ffn_bwd: cluster kernel (recompute, hn, dh, column sums)", ("ffn_bwd_hidden",)),
-    ("K4b ffn_bwd: dx kernel", ("ffn_dx_kernel",)),
+    ("K4 y GEMM and K4b dx GEMM (ffn_out_kernel)", ("ffn_out_kernel",)),
     ("K2/K3 block: ln_pos", ("ln_pos_kernel",)),
     ("K2/K3 block: gemm_bias", ("gemm_bias_kernel",)),
     ("K2/K3 block: outproj_ln_residual", ("outproj_ln_residual_kernel",)),
-    ("K4 ffn", ("ffn_fwd_kernel",)),
+    ("K4 ffn: cluster kernel (hidden, hn)", ("ffn_fwd_hidden",)),
     ("K5/K5b lincomb", ("lincomb_", "sum_splits_kernel")),
     ("host-to-device copies", ("memcpy htod",)),
     ("pooling", ("avg_pool", "max_pool")),
