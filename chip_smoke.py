@@ -13,7 +13,8 @@ Phases, in order; any failure propagates and the exit code is not 0:
      the registers, shared memory and spills of the redesigned kernels (the
      attention forward's one- and two-pass kernels at K1's, K2's and K3's
      key counts, with the path ops/attention.py:fwd_path names; K4's and
-     K4b's cluster kernels and their y / dx GEMM; K2b's and K3b's dX and dW
+     K4b's cluster kernels and their y / dx GEMM; K2's and K3's projection
+     GEMM and out-projection cluster kernel; K2b's and K3b's dX and dW
      GEMMs; K1b's one-CTA-per-head kernel; K6; K6b's cluster kernel);
   3. hold each kernel against its plain PyTorch twin on the card, in bf16,
      at the shapes of CROG at batch 24 and 416^2 -- the forwards in eval,
@@ -36,7 +37,10 @@ Phases, in order; any failure propagates and the exit code is not 0:
      the attention kernel at the shapes K2 (676 tokens) and K3 (676
      queries, 17 masked keys) launch it with, against its twin and timed
      beside SDPA there; torch.mm at the shapes of the GEMMs inside K2b, K3b
-     and K4, timed as a yardstick only;
+     and K4, and F.linear at those of K2's and K3's projections, timed as
+     yardsticks only; K2 and K3 in train mode (dropout on, intermediates
+     saved) twice: the output and every saved intermediate must repeat
+     with equal bits;
   4. the eval main path: full-width CROG (config/OCID-VLG/
      crog_synthetic_r50.yaml as written: RN50 (3,4,6,3), 416^2, 12-layer
      text tower, 3 decoder layers, dim_ffn 2048, bf16, the rawlb wire
@@ -75,13 +79,14 @@ Phases, in order; any failure propagates and the exit code is not 0:
      card (kernels, bf16) and on the CPU (plain PyTorch, fp32): the 8 loss
      terms and each group's gradients must agree;
  12. the device time per call, from torch.profiler's kernel rows, of K1,
-     K1b, K2 and K3 (each with its attention step apart), K2b and K3b (by
+     K1b, K2 and K3 in eval and in train mode (by part: ln_pos, the
+     projections, the attention step, the out-projection), K2b and K3b (by
      part: the LN kernels, the dO and dX GEMMs, the attention step, the dW
      GEMMs and the fixed-order sums), K4 (its cluster kernel, its y GEMM,
      the rest), K4b (its own kernels apart from its fixed-order sums and the
      library dW GEMMs), each K5 and K5b launch, each K6 and K6b launch and
      their library calls, of the attention kernel and SDPA at K2's and K3's
-     shapes, and of the torch.mm yardsticks, beside the CUDA-event times of
+     shapes, and of the torch.mm and F.linear yardsticks, beside the CUDA-event times of
      phase 3 (last, so that the profiler runs in no timed phase).
 
 Precision: fp32 products on the card run in full fp32 (TF32 off for matmul
@@ -499,10 +504,16 @@ def _one_call(rows, reps: int):
 # the rest under its last label, or by a function of the call's kernels in
 # launch order.
 DEVICE_TIMED = []
-# K2's and K3's attention step apart from the rest of the block; K4's
+# K2's and K3's parts in launch order (LN_pre and the positional add, the
+# q/k/v projections, the attention step, the out-projection with LN_post,
+# dropout and the residual; the rest is the cross block's key mask); K4's
 # cluster kernel and y GEMM; K4b's own kernels, its fixed-order sums and the
 # two library dW GEMMs
-ATTN_SPLIT = ((("attention step", ("attn_fwd",)),), "rest of the block")
+BLOCK_FWD_SPLIT = ((("ln_pos", ("ln_pos",)),
+                    ("projections (proj_gemm)", ("proj_gemm",)),
+                    ("attention step", ("attn_fwd",)),
+                    ("outproj_ln_cluster", ("outproj",))),
+                   "the rest (key mask)")
 FFN_FWD_SPLIT = ((("hidden (cluster kernel)", ("ffn_fwd_hidden",)),
                   ("y GEMM", ("ffn_out",))),
                  "the rest (weight casts and transposes)")
@@ -593,7 +604,7 @@ def _time(rec, kern, plain, lib):
            "decoder_self_block_bwd": "K2b", "decoder_cross_block_bwd": "K3b",
            "ffn": "K4", "ffn_bwd": "K4b"}.get(rec["name"])
     if kid is not None:
-        split = {"K2": ATTN_SPLIT, "K3": ATTN_SPLIT, "K2b": block_bwd_parts,
+        split = {"K2": BLOCK_FWD_SPLIT, "K3": BLOCK_FWD_SPLIT, "K2b": block_bwd_parts,
                  "K3b": block_bwd_parts, "K4": FFN_FWD_SPLIT, "K4b": FFN_BWD_SPLIT}.get(kid)
         DEVICE_TIMED.append((f"{rec['name']} ({kid})", rec["ms"], kern, None, split))
     if rec["name"] == "attention_bwd":
@@ -685,6 +696,32 @@ def gemm_yardsticks(device, b=BATCH, l=676, t=17, d=512, f=2048):
         ms = cuda_ms(call)
         print(f"[kernels] torch.mm yardstick {label}: {ms:.4f} ms", flush=True)
         DEVICE_TIMED.append((f"torch.mm yardstick {label}", ms, call, None, None))
+    linear_yardsticks(device, b, l, t, d)
+
+
+def linear_yardsticks(device, b=BATCH, l=676, t=17, d=512):
+    """F.linear(x, W, b), bf16 in and out with the bias, at the shapes of K2's
+    and K3's projections, timed as a yardstick only (the port computes them
+    in its own kernels, as the TPU kernel computes them in its body): K2's
+    q, k and v as one [B*L, D] -> 3D product; K3's q and the out-projection
+    [B*L, D] -> D; K3's k and v over B*T text rows, [B*T, D] -> D."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator().manual_seed(SEED + 11)
+    rnd = lambda *shape: torch.randn(*shape, generator=g).to(device, torch.bfloat16)
+    m, mt = b * l, b * t
+    cases = (
+        (f"[{m}, {d}] -> {3 * d} (K2's q, k and v)", m, 3 * d),
+        (f"[{m}, {d}] -> {d} (K3's q, the out-projection)", m, d),
+        (f"[{mt}, {d}] -> {d} (K3's k, v)", mt, d),
+    )
+    for label, rows, n in cases:
+        x, w, bias = rnd(rows, d), rnd(n, d), rnd(n)
+        call = lambda x=x, w=w, bias=bias: F.linear(x, w, bias)
+        ms = cuda_ms(call)
+        print(f"[kernels] F.linear yardstick {label}: {ms:.4f} ms", flush=True)
+        DEVICE_TIMED.append((f"F.linear yardstick {label}", ms, call, None, None))
 
 
 def _compare(name, got, ref, tol, share=1.0):
@@ -732,6 +769,7 @@ def check_kernels(device, timed: bool = True):
                 _time(records[name], kern, plain, lib)
         k4b_checks(inp)
         repeat_checks(inp)
+        block_fwd_train_checks(inp, timed)
         attention_yardsticks(device, timed=timed)
         if timed:
             gemm_yardsticks(device)
@@ -798,6 +836,39 @@ def repeat_checks(inp):
                   f"{'equal bits' if not differ else f'differ at {differ}'}", flush=True)
             if differ:
                 raise AssertionError(f"{name} is not repeatable: outputs {differ}")
+
+
+def block_fwd_train_checks(inp, timed: bool = True):
+    """K2 and K3 in train mode at the main path's shapes (dropout RATE, the
+    intermediates K2b and K3b read saved), twice: the output and every
+    saved intermediate must come out with equal bits; then each timed, its
+    device time split by part as in eval."""
+    import torch
+
+    from crog_tpu_torch.ops import decoder_blocks as DB
+
+    sargs, cargs, _ = _args(inp)
+    calls = {
+        "decoder_self_block (K2)":
+            lambda: DB.self_block_fwd(*sargs, SEED + 1, RATE, save=True),
+        "decoder_cross_block (K3)":
+            lambda: DB.cross_block_fwd(*cargs, SEED + 2, RATE, save=True),
+    }
+    for name, call in calls.items():
+        (ya, sa), (yb, sb) = call(), call()
+        torch.cuda.synchronize()
+        a, b = (ya, *sa), (yb, *sb)
+        differ = [i for i, (u, v) in enumerate(zip(a, b)) if not torch.equal(u, v)]
+        print(f"[kernels] {name} train mode (dropout {RATE}, saved) twice: y and "
+              f"{len(a) - 1} saved tensors {'equal bits' if not differ else f'differ at {differ}'}",
+              flush=True)
+        if differ:
+            raise AssertionError(f"{name} in train mode is not repeatable: outputs {differ}")
+        if timed:
+            ms = cuda_ms(call)
+            label = f"{name} train mode (dropout {RATE}, saved)"
+            print(f"[kernels] {label}: {ms:.4f} ms", flush=True)
+            DEVICE_TIMED.append((label, ms, call, None, BLOCK_FWD_SPLIT))
 
 
 def k1b_cast_check(inp):
@@ -1610,6 +1681,7 @@ def redesigned_resources(reports):
     for lib, keys in (("attention", ("attn_fwd_kernel",)),
                       ("ffn", ("ffn_fwd_hidden_kernel", "ffn_out_kernel")),
                       ("ffn_bwd", ("ffn_bwd_hidden_kernel", "ffn_out_kernel")),
+                      ("decoder_blocks", ("proj_gemm_kernel", "outproj_ln_cluster_kernel")),
                       ("decoder_blocks_bwd", ("gemm_nn_kernel", "wgrad_kernel")),
                       ("attention_bwd", ("attn_bwd_head_kernel", "attn_bwd_rows_kernel",
                                          "attn_bwd_cols_kernel")),
@@ -1640,6 +1712,14 @@ def redesigned_resources(reports):
         print(f"[build] {kid} {out_name} kernel (ffn_out_kernel, 128 x 256 tiles): {out[4]} "
               f"registers, {out[5]} bytes shared memory per CTA, {out[6]} bytes local (spill) "
               f"per thread, {out[7]} CTAs per SM", flush=True)
+    lib = cuda_build.load("decoder_blocks")
+    cuda_build.check_launch(lib, lib.crog_decoder_fwd_attrs(ptr), "attrs")
+    print(f"[build] K2/K3 proj_gemm (q/k/v projections, 128 x 256 tiles, K-major in_proj_weight): "
+          f"{out[0]} registers, {out[1]} bytes shared memory per CTA, {out[2]} bytes local "
+          f"(spill) per thread, {out[3]} CTAs per SM", flush=True)
+    print(f"[build] K2/K3 outproj_ln_cluster (2 CTAs of 256 columns, 128 rows): {out[4]} "
+          f"registers, {out[5]} bytes shared memory per CTA, {out[6]} bytes local (spill) per "
+          f"thread, {out[7]} clusters resident at once", flush=True)
     lib = cuda_build.load("decoder_blocks_bwd")
     cuda_build.check_launch(lib, lib.crog_decoder_bwd_attrs(ptr), "attrs")
     for i, name in enumerate(("gemm_nn (three dX products fused, 128 x 128 tiles)",

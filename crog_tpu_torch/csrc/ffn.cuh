@@ -35,37 +35,10 @@ constexpr int kHRowF = 4 * kBM;      // mu, rstd (and K4b's m1, m2) per row
 
 // this thread's rows (16 rw + g8 + 8 hf) and columns (128 (wg % 2) + 8 nt +
 // 2 qd, + 1) of a CTA's [128, 256] slice, as the mainloop's C fragments
-__device__ __forceinline__ int ffn_row(int hf) {
-  const int t = threadIdx.x;
-  return (((t >> 7) >> 1) * 4 + ((t >> 5) & 3)) * 16 + ((t & 31) >> 2) + 8 * hf;
-}
+__device__ __forceinline__ int ffn_row(int hf) { return frag_row() + 8 * hf; }
 
 __device__ __forceinline__ int ffn_col(int nt) {
-  const int t = threadIdx.x;
-  return ((t >> 7) & 1) * 128 + nt * 8 + 2 * (t & 3);
-}
-
-// The cluster's row sums: this CTA's two per-row partials (over its 256
-// columns) from the two column warpgroups' partials in `red`, published in
-// `xch`; after the cluster barrier every CTA adds the 8 CTAs' in rank order.
-// Threads < kBM return the totals of row threadIdx.x.
-__device__ __forceinline__ float2 ffn_cluster_rows(const float* red, float* xch) {
-  const int t = threadIdx.x;
-  if (t < kBM) {
-    xch[t] = red[t * 2] + red[(kBM + t) * 2];
-    xch[kBM + t] = red[t * 2 + 1] + red[(kBM + t) * 2 + 1];
-  }
-  cluster_arrive();
-  cluster_wait();
-  float2 tot = make_float2(0.0f, 0.0f);
-  if (t < kBM) {
-#pragma unroll
-    for (int r = 0; r < kBCl; ++r) {
-      tot.x += ld_dsmem_f32(xch + t, r);
-      tot.y += ld_dsmem_f32(xch + kBM + t, r);
-    }
-  }
-  return tot;
+  return ((threadIdx.x >> 7) & 1) * 128 + nt * 8 + frag_col();
 }
 
 // The hidden of rows m0 .. m0 + 127, columns n0 .. n0 + 255 (CTA `rank` of
@@ -121,7 +94,7 @@ __device__ __forceinline__ void ffn_hidden(float (&acc)[kBNT][4], uint32_t (&kee
   }
   __syncthreads();
   {  // LN statistics of the whole rows, from the 8 CTAs' partials
-    const float2 tot = ffn_cluster_rows(red, xch);
+    const float2 tot = cluster_row_sums<kBCl>(red, xch);
     if (tid < kBM) {
       const float mu = tot.x / kBF;
       rowst[tid] = mu;

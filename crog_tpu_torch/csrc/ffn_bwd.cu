@@ -174,7 +174,7 @@ __global__ void __launch_bounds__(kGThreads, 1) ffn_bwd_hidden_kernel(
   }
   __syncthreads();
   {  // the row means over the whole rows, from the 8 CTAs' partials
-    const float2 tot = ffn_cluster_rows(red, xch + 2 * kBM);
+    const float2 tot = cluster_row_sums<kBCl>(red, xch + 2 * kBM);
     if (tid < kBM) {
       rowst[2 * kBM + tid] = tot.x / kBF;
       rowst[3 * kBM + tid] = tot.y / kBF;

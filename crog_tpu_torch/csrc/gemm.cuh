@@ -1,9 +1,11 @@
-// Building blocks of the backward kernels and of K4: a wgmma GEMM mainloop
-// (a CTA tile of 128 rows, A row-major or transposed, B row-major, fed by a
-// cp.async ring), the input-gradient GEMM of the decoder blocks (several
-// products rounded one by one and summed in f32 registers), the
-// weight-gradient (A^T B) row reduction in two deterministic passes, and the
-// fixed-order sum of per-block partial rows.
+// Building blocks of the backward kernels, of K4 and of K2/K3's projections:
+// a wgmma GEMM mainloop (a CTA tile of 128 rows, A row-major or transposed,
+// B row-major or K-major, fed by a cp.async ring), the C fragments out as
+// 16-byte bf16 row segments, row sums across a thread-block cluster, the
+// input-gradient GEMM of the decoder blocks (several products rounded one
+// by one and summed in f32 registers), the weight-gradient (A^T B) row
+// reduction in two deterministic passes, and the fixed-order sum of
+// per-block partial rows.
 //
 // The TPU kernels accumulate dW and the bias / LayerNorm column sums across
 // their sequential grid in VMEM.  Hopper blocks run in parallel and in no
@@ -11,11 +13,13 @@
 // partial row (or [N, K] tile) per row chunk, and a second pass that adds
 // the partials in index order: the same gradient in every run, no atomics.
 //
-// The mainloop (K4's and K4b's products, the decoder blocks' dX and dW):
-// four warpgroups, 2 (rows) x 2 (columns) of [64, WN] f32 accumulator tiles
-// in registers, wgmma m64nWNk16 with A from registers (ldmatrix, or
-// ldmatrix.trans for a transposed A) and B from shared memory in 128-byte
-// swizzled [KC][64] blocks through a descriptor; KC-deep chunks through a
+// The mainloop (K4's and K4b's products, the decoder blocks' projections,
+// dX and dW): four warpgroups, 2 (rows) x 2 (columns) of [64, WN] f32
+// accumulator tiles in registers, wgmma m64nWNk16 with A from registers
+// (ldmatrix, or ldmatrix.trans for a transposed A) and B from shared memory
+// through a descriptor, in 128-byte swizzled [KC][64] blocks (B row-major
+// [K, N]) or as [2 WN][64] rows of 64 k (BK: B K-major [N, K], a torch
+// Linear weight as it is, wgmma's native B layout); KC-deep chunks through a
 // 4-stage cp.async ring, one barrier per chunk, loads two chunks ahead, each
 // group of two k16 products in flight while the next group's fragments
 // load.  KC is 32 in the FFN cluster kernels, whose ring sits beside the
@@ -40,20 +44,21 @@ constexpr int kGTLd = kGM + 8;      // transposed A chunk [KC][136] (conflict-fr
 constexpr int kGKDeep = 64;         // k per ring stage of the stand-alone GEMM kernels
 
 // A ring of kGS stages of KC rows of the reduction, each the A chunk, then
-// the B chunk's [KC][64] blocks, at 1024-byte aligned offsets (the 128-byte
-// swizzle repeats every 8 rows).
-template <int WN, bool TA, int KC>
+// the B chunk's [KC][64] blocks (or, BK, its [2 WN] rows of 64 k), at
+// 1024-byte aligned offsets (the 128-byte swizzle repeats every 8 rows).
+template <int WN, bool TA, int KC, bool BK = false>
 struct GemmRing {
   static constexpr int kN = 2 * WN;                // CTA tile columns
   static constexpr int kNT = WN / 8;               // 8-column C fragments per warp
   static constexpr int kALd = TA ? kGTLd : KC + 8;  // A chunk row stride (conflict-free)
   static constexpr int kAStage = round_up((TA ? KC : kGM) * kALd * 2, 1024);
   static constexpr int kBlock = KC * 128;          // one swizzled [KC][64] bf16 B block
-  static constexpr int kStage = kAStage + (kN / 64) * kBlock;
+  static constexpr int kStage = kAStage + (kN / 64) * kBlock;  // BK: kN rows of 128 bytes
   static constexpr size_t kBytes = (size_t)kGS * kStage;
   static constexpr size_t kSmem = 1024 + kBytes;  // + the alignment slack
   static_assert(WN == 64 || WN == 128, "wgmma widths of the mainloop");
   static_assert(KC == 32 || KC == 64, "ring stage depths of the mainloop");
+  static_assert(!BK || (KC == 64 && !TA), "a K-major B takes 64-deep stages and a row-major A");
 };
 
 // the ring at the first 1024-byte boundary of the dynamic shared memory
@@ -90,7 +95,8 @@ struct NoChunkHook {
 // acc += this warp's 16 rows of its warpgroup's 64 (warpgroup / 2) and the
 // warpgroup's WN columns (warpgroup % 2) of a CTA's [128, 2 WN] tile, as
 // mma.m16n8k16 C fragments.  B [*, N] row-major (ldb), the tile's columns
-// n0 ..; the sum runs over the KC-row chunks of B's rows [k0, k1):
+// n0 .. (BK: B [N, *] K-major, its rows n0 .. n0 + 2 WN - 1, all inside B);
+// the sum runs over the KC-row chunks of B's rows [k0, k1) (BK: columns):
 //   TA false: A [M, *] row-major (lda), the tile's rows m0 .. (rows >= M
 //     read as zeros); B's row k meets A's column k (k1 - k0 a multiple of KC).
 //   TA true: the transposed A, whose tile rows are A's columns m0 ..
@@ -99,13 +105,13 @@ struct NoChunkHook {
 // Each chunk runs as KC / 32 groups of two wgmma k16 steps, a group's A
 // fragments in their own registers; hook(g, A chunk, A fragments) runs once
 // group g's fragments are loaded (group g covers rows k0 + 32 g ..).
-template <int WN, bool TA, int KC, typename Hook>
+template <int WN, bool TA, int KC, bool BK = false, typename Hook>
 __device__ __forceinline__ void gemm_mainloop(float (&acc)[WN / 8][4], const bf16* __restrict__ A,
                                               long long lda, int m0, int M,
                                               const bf16* __restrict__ B, long long ldb, int n0,
                                               int k0, int k1, unsigned char* ring,
                                               const Hook& hook) {
-  using R = GemmRing<WN, TA, KC>;
+  using R = GemmRing<WN, TA, KC, BK>;
   constexpr int kG = KC / kGK;     // groups per chunk
   constexpr int kSpr = R::kN / 8;  // 16-byte B segments per row
   constexpr int kAspr = KC / 8;    // 16-byte A segments per row (TA false)
@@ -132,14 +138,24 @@ __device__ __forceinline__ void gemm_mainloop(float (&acc)[WN / 8][4], const bf1
                    ok ? A + (long long)(m0 + r) * lda + kc + cs : A, ok ? 16 : 0);
       }
     }
+    if constexpr (BK) {
 #pragma unroll
-    for (int i = 0; i < KC * kSpr / kGThreads; ++i) {  // [KC rows][2 WN columns] of B
-      const int v = tid + i * kGThreads;
-      const int k = v / kSpr, cs = v % kSpr;
-      const bool ok = !TA || kc + k < k1;
-      const uint32_t dst = smem_u32(st + R::kAStage + (cs >> 3) * R::kBlock + k * 128 +
-                                    (((cs & 7) ^ (k & 7)) << 4));
-      cp_async16(dst, ok ? B + (long long)(kc + k) * ldb + n0 + cs * 8 : B, ok ? 16 : 0);
+      for (int i = 0; i < R::kN * 8 / kGThreads; ++i) {  // [2 WN rows][64 k] of B
+        const int v = tid + i * kGThreads;
+        const int n = v >> 3, cs = v & 7;
+        cp_async16(smem_u32(st + R::kAStage + n * 128 + ((cs ^ (n & 7)) << 4)),
+                   B + (long long)(n0 + n) * ldb + kc + cs * 8, 16);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < KC * kSpr / kGThreads; ++i) {  // [KC rows][2 WN columns] of B
+        const int v = tid + i * kGThreads;
+        const int k = v / kSpr, cs = v % kSpr;
+        const bool ok = !TA || kc + k < k1;
+        const uint32_t dst = smem_u32(st + R::kAStage + (cs >> 3) * R::kBlock + k * 128 +
+                                      (((cs & 7) ^ (k & 7)) << 4));
+        cp_async16(dst, ok ? B + (long long)(kc + k) * ldb + n0 + cs * 8 : B, ok ? 16 : 0);
+      }
     }
   };
   // a group's products stay in flight while the next group loads its A
@@ -159,6 +175,8 @@ __device__ __forceinline__ void gemm_mainloop(float (&acc)[WN / 8][4], const bf1
     cp_async_commit();
     const unsigned char* st = ring + (c % kGS) * R::kStage;
     const bf16* as = reinterpret_cast<const bf16*>(st);
+    // the warpgroup's WN columns of B: WN / 64 blocks (BK, KC 64: the same
+    // bytes, WN rows of 128)
     const uint32_t b0 = smem_u32(st + R::kAStage) + (wg & 1) * (WN / 64) * R::kBlock;
 #pragma unroll
     for (int g = 0; g < kG; ++g) {
@@ -177,12 +195,16 @@ __device__ __forceinline__ void gemm_mainloop(float (&acc)[WN / 8][4], const bf1
       wgmma_fence();
 #pragma unroll
       for (int k16 = 0; k16 < 2; ++k16) {
-        const uint64_t desc =
-            wgmma_desc_sw128(b0 + (g * kGK + k16 * 16) * 128, R::kBlock, 8 * 128);
+        const int kr = g * kGK + k16 * 16;
+        // row-major B: the k16 step's rows, 64-column blocks kBlock apart;
+        // K-major B: its 32 bytes of every row (the swizzle's 8-row groups
+        // 1024 bytes apart; no second stride within a 128-byte row)
+        const uint64_t desc = BK ? wgmma_desc_sw128(b0 + kr * 2, 16, 8 * 128)
+                                 : wgmma_desc_sw128(b0 + kr * 128, R::kBlock, 8 * 128);
         if constexpr (WN == 128)
-          wgmma_m64n128k16_rs(d, a[g][k16], desc);
+          wgmma_m64n128k16_rs<BK ? 0 : 1>(d, a[g][k16], desc);
         else
-          wgmma_m64n64k16_rs(d, a[g][k16], desc);
+          wgmma_m64n64k16_rs<BK ? 0 : 1>(d, a[g][k16], desc);
       }
       wgmma_commit();
       wgmma_wait<1>();  // the group before is done: its A registers are free
@@ -206,6 +228,71 @@ __device__ __forceinline__ void gemm_mainloop(float (&acc)[WN / 8][4], const bf1
                              // serialize every product)
   wgmma_wait_all();
   __syncthreads();  // every warp is done with the ring
+}
+
+// This thread's first row of C fragments in its CTA's [128, 2 WN] tile (the
+// second is 8 below) and its first column in its warpgroup's WN columns:
+// element e of fragment nt lies at row frag_row() + 8 (e / 2), column
+// (warpgroup % 2) WN + 8 nt + frag_col() + e % 2.
+__device__ __forceinline__ int frag_row() {
+  const int t = threadIdx.x;
+  return (((t >> 7) >> 1) * 4 + ((t >> 5) & 3)) * 16 + ((t & 31) >> 2);
+}
+
+__device__ __forceinline__ int frag_col() { return 2 * (threadIdx.x & 3); }
+
+// pair(nt, hf), this thread's C fragment elements (nt, 2 hf) and (nt, 2 hf +
+// 1) of its warpgroup's NT fragments as a packed bf16 pair, out to C in
+// 16-byte row segments: C points at the warpgroup's first column, row0 is
+// the global row of frag_row(), and rows >= M are not written.  Per pair of
+// fragments the quad holds four 16-byte row segments (rows g, g + 8 of
+// each); quad_gather16 gives each thread one.
+template <int NT, typename Pair>
+__device__ __forceinline__ void store_pairs_bf16(const Pair& pair, bf16* __restrict__ C,
+                                                 long long ldc, int row0, int M) {
+  const int qd = threadIdx.x & 3;
+  const int row = row0 + 8 * (qd & 1);
+#pragma unroll
+  for (int j = 0; j < NT; j += 2) {
+    const uint32_t v[4] = {pair(j, 0), pair(j, 1), pair(j + 1, 0), pair(j + 1, 1)};
+    const uint4 seg = quad_gather16(v);
+    if (row < M) *reinterpret_cast<uint4*>(C + (long long)row * ldc + (j + (qd >> 1)) * 8) = seg;
+  }
+}
+
+// the same from value(nt, e), each element rounded once to bf16 (nearest even)
+template <int NT, typename Value>
+__device__ __forceinline__ void store_frags_bf16(const Value& value, bf16* __restrict__ C,
+                                                 long long ldc, int row0, int M) {
+  store_pairs_bf16<NT>(
+      [&](int nt, int hf) { return pack_bf16(value(nt, 2 * hf), value(nt, 2 * hf + 1)); }, C,
+      ldc, row0, M);
+}
+
+// Row sums across a cluster of CL CTAs that each own a column slice of the
+// same kGM rows: this CTA's two per-row partials (over its columns) from the
+// two column warpgroups' partials in `red` ([warpgroup % 2][row][2]),
+// published in `xch` ([2][row]); after the cluster barrier every CTA adds
+// the CL CTAs' in rank order.  Threads < kGM return the totals of row
+// threadIdx.x.
+template <int CL>
+__device__ __forceinline__ float2 cluster_row_sums(const float* red, float* xch) {
+  const int t = threadIdx.x;
+  if (t < kGM) {
+    xch[t] = red[t * 2] + red[(kGM + t) * 2];
+    xch[kGM + t] = red[t * 2 + 1] + red[(kGM + t) * 2 + 1];
+  }
+  cluster_arrive();
+  cluster_wait();
+  float2 tot = make_float2(0.0f, 0.0f);
+  if (t < kGM) {
+#pragma unroll
+    for (int r = 0; r < CL; ++r) {
+      tot.x += ld_dsmem_f32(xch + t, r);
+      tot.y += ld_dsmem_f32(xch + kGM + t, r);
+    }
+  }
+  return tot;
 }
 
 // ------------------------------------------------------------- gemm_tile
@@ -253,17 +340,15 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& g) {
         }
     }
   }
-  const int lane = threadIdx.x & 31;
-  const int wg = threadIdx.x >> 7;
-  const int qd = lane & 3;
-  const int row0 = m0 + ((wg >> 1) * 4 + ((threadIdx.x >> 5) & 3)) * 16 + (lane >> 2);
-  const int cbase = n0 + (wg & 1) * WN;  // the warpgroup's columns
+  const int row0 = m0 + frag_row();
+  const int cbase = n0 + ((threadIdx.x >> 7) & 1) * WN;  // the warpgroup's columns
+  const int col0 = cbase + frag_col();
   // the value of fragment element (nt, e): rows row0 + 8 (e / 2), column
-  // cbase + 8 nt + 2 qd + e % 2
+  // col0 + 8 nt + e % 2
   auto value = [&](int nt, int e) -> float {
     if constexpr (NP > 1) return sum[nt][e];
     float v = acc[nt][e];
-    if (!F32OUT && g.bias) v += g.bias[cbase + nt * 8 + 2 * qd + (e & 1)];
+    if (!F32OUT && g.bias) v += g.bias[col0 + nt * 8 + (e & 1)];
     return F32OUT ? bf2f(f2bf(v)) : v;
   };
   if (F32OUT) {
@@ -273,24 +358,11 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& g) {
       for (int hf = 0; hf < 2; ++hf) {
         const int row = row0 + 8 * hf;
         if (row < g.M)
-          *reinterpret_cast<float2*>(g.cf + (long long)row * g.ldc + cbase + nt * 8 + 2 * qd) =
+          *reinterpret_cast<float2*>(g.cf + (long long)row * g.ldc + col0 + nt * 8) =
               make_float2(value(nt, 2 * hf), value(nt, 2 * hf + 1));
       }
   } else {
-    // per pair of 8-column fragments the quad holds four 16-byte row
-    // segments (rows g, g + 8 of each); quad_gather16 gives each thread one
-    const int row = row0 + 8 * (qd & 1);
-#pragma unroll
-    for (int j = 0; j < NT; j += 2) {
-      const uint32_t v[4] = {pack_bf16(value(j, 0), value(j, 1)),
-                             pack_bf16(value(j, 2), value(j, 3)),
-                             pack_bf16(value(j + 1, 0), value(j + 1, 1)),
-                             pack_bf16(value(j + 1, 2), value(j + 1, 3))};
-      const uint4 seg = quad_gather16(v);
-      if (row < g.M)
-        *reinterpret_cast<uint4*>(g.cb + (long long)row * g.ldc + cbase + (j + (qd >> 1)) * 8) =
-            seg;
-    }
+    store_frags_bf16<NT>(value, g.cb + cbase, g.ldc, row0, g.M);
   }
 }
 

@@ -237,7 +237,8 @@ __device__ __forceinline__ void cp_async_wait() {
 // A shared-memory matrix descriptor: a 128-byte swizzled operand at
 // `addr` (1024-byte aligned where its swizzle pattern starts), `lbo` bytes
 // between its 64-element blocks along M or N and `sbo` bytes between its
-// 8-row groups along K (the MN-major canonical layout)
+// 8-row groups along K (the MN-major canonical layout); K-major, `sbo`
+// bytes between its 8-row groups along M or N and `lbo` unused
 __device__ __forceinline__ uint64_t wgmma_desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)1 << 62);
@@ -264,8 +265,10 @@ __device__ __forceinline__ void wgmma_wait() {
 // d += A B over the warpgroup: wgmma m64n128k16, bf16 operands, f32 sums.
 // A: this warp's 16 of the 64 rows x 16, in registers as an mma.m16n8k16 A
 // fragment; B [16, 128] in shared memory through `desc_b`, N-major
-// (transposed).  d holds this warp's 16 rows as 16 C fragments of 8
-// columns (mma.m16n8k16's layout).
+// (transposed, TB 1) or K-major (TB 0: B's columns are rows of 16 k, as a
+// torch Linear weight [N, K] holds them).  d holds this warp's 16 rows as
+// 16 C fragments of 8 columns (mma.m16n8k16's layout).
+template <int TB = 1>
 __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
                                                     uint64_t desc_b) {
   asm volatile(
@@ -281,7 +284,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -299,11 +302,12 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(TB));
 }
 
 // d += A B over the warpgroup: wgmma m64n64k16, as wgmma_m64n128k16_rs
 // with 64 columns (8 C fragments per warp)
+template <int TB = 1>
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
                                                    uint64_t desc_b) {
   asm volatile(
@@ -315,7 +319,7 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -325,7 +329,7 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(TB));
 }
 
 }  // namespace crog

@@ -55,8 +55,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "crog_attention_bwd_attrs": [_I, _P],
     },
     "decoder_blocks": {
-        "crog_self_block_fwd": [_P] * 17 + [_I] * 4 + _DROP + [_P],
-        "crog_cross_block_fwd": [_P] * 21 + [_I] * 5 + _DROP + [_P],
+        "crog_self_block_fwd": [_P] * 17 + [_I] * 6 + _DROP + [_P],
+        "crog_cross_block_fwd": [_P] * 21 + [_I] * 7 + _DROP + [_P],
+        "crog_decoder_fwd_attrs": [_P],
     },
     "decoder_blocks_bwd": {
         "crog_self_block_bwd": [_P] + [_I] * 5 + _DROP + [_P],

@@ -11,8 +11,10 @@ Weights are in torch layout: ``in_w`` [3D, D] packs the q/k/v projections
 (nn.MultiheadAttention's ``in_proj_weight``), ``out_w`` [D, D]; biases and
 LN affines are 1-D.  ``decoder_self_block`` / ``decoder_cross_block`` are
 autograd functions.  On a CUDA tensor their forward launches the kernel
-sequence of csrc/decoder_blocks.cu and their backward that of
-csrc/decoder_blocks_bwd.cu (or raises); on a CPU tensor both run the plain
+sequence of csrc/decoder_blocks.cu (its projection GEMM over the tiles of
+``proj_plan``, its out-projection clusters over those of ``out_schedule``)
+and their backward that of csrc/decoder_blocks_bwd.cu (or raises); on a CPU
+tensor both run the plain
 twins, which keep the TPU kernels' cast points: bf16 after every Dense and
 every LN, f32 LN statistics with flax's fast variance, f32 softmax; in the
 backward P and dS rounded before their products, the LN backward on f32
@@ -24,6 +26,8 @@ ops/dropout.py keyed by ``seed``, over rows b*L + l and columns of D.
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import torch
 
 from crog_tpu_torch.ops import cuda_build
@@ -32,6 +36,48 @@ from crog_tpu_torch.ops.dropout import apply_dropout, dropout_keep, kernel_args
 
 EPS = 1e-5
 MAX_TOKENS = 768
+KERNEL_D = 512  # the width the block kernels take
+PROJ_ROWS = 128  # rows per CTA tile of the forward's GEMM kernels (csrc/gemm.cuh kGM)
+PROJ_COLS = 256  # output columns per CTA tile (csrc/decoder_blocks.cu kPN)
+OUT_CLUSTER = KERNEL_D // PROJ_COLS  # CTAs per out-projection cluster
+
+
+@lru_cache(maxsize=64)
+def proj_plan(segments):
+    """The forward's projection launch over its products, from the shapes
+    alone: ``segments`` is a tuple of products (rows m, first output column
+    w0 of in_w's 3D, columns n), each A [m, D] times in_w rows w0 .. w0 + n
+    - 1.  Returns one (product, (r0, r1), (c0, c1)) per CTA in launch order:
+    product by product, row tiles of PROJ_ROWS outer, column tiles of
+    PROJ_COLS inner (c in in_w's rows).  csrc/decoder_blocks.cu launches
+    len(plan) CTAs and walks the same order."""
+    plan = []
+    for s, (m, w0, n) in enumerate(segments):
+        for r in range(0, m, PROJ_ROWS):
+            for c in range(w0, w0 + n, PROJ_COLS):
+                plan.append((s, (r, min(r + PROJ_ROWS, m)), (c, c + PROJ_COLS)))
+    return tuple(plan)
+
+
+def self_proj_segments(m: int, d: int = KERNEL_D):
+    """K2's products: q and k from qin into the packed [M, 2D] qk (in_w's
+    first 2D rows), v from xl (the last D rows), both over the M rows."""
+    return ((m, 0, 2 * d), (m, 2 * d, d))
+
+
+def cross_proj_segments(m: int, mt: int, d: int = KERNEL_D):
+    """K3's products: q from qin over the M image rows; k from kin and v
+    from the text over the MT = B*T text rows."""
+    return ((m, 0, d), (mt, d, d), (mt, 2 * d, d))
+
+
+def out_schedule(m: int):
+    """The out-projection's clusters over ``m`` rows: the row range [r0, r1)
+    of each cluster tile, and the column range [c0, c1) that CTA k of every
+    cluster owns (together a whole row, so the LayerNorm's statistics stay
+    in the cluster)."""
+    tiles = [(r, min(r + PROJ_ROWS, m)) for r in range(0, m, PROJ_ROWS)]
+    return tiles, [(k * PROJ_COLS, (k + 1) * PROJ_COLS) for k in range(OUT_CLUSTER)]
 
 
 def ln_fast(x, g, b, eps: float = EPS):
@@ -198,7 +244,7 @@ def cross_block_bwd_plain(x, txt, pos, tpos, pad_mask, in_w, in_b, out_w, out_b,
 # ------------------------------------------------------------ CUDA side
 def kernel_supported(d_model: int, nheads: int) -> bool:
     """Widths the block kernels take: 64-wide heads, D = 512."""
-    return d_model == 512 and d_model == nheads * HEAD_DIM
+    return d_model == KERNEL_D and d_model == nheads * HEAD_DIM
 
 
 def _check_block_input(x, nheads):
@@ -257,7 +303,8 @@ def self_block_fwd(x, pos, in_w, in_b, out_w, out_b, g_pre, b_pre, g_post, b_pos
         wo.data_ptr(), bo.data_ptr(), gp.data_ptr(), bp.data_ptr(),
         gq.data_ptr(), bq.data_ptr(), y.data_ptr(),
         *(t.data_ptr() for t in ws), None if op is None else op.data_ptr(),
-        b, l, d, nheads, dseed, thresh, scale, cuda_build.stream_ptr(x.device),
+        b, l, d, nheads, len(proj_plan(self_proj_segments(b * l))),
+        len(out_schedule(b * l)[0]), dseed, thresh, scale, cuda_build.stream_ptr(x.device),
     )
     cuda_build.check_launch(lib, rc, "crog_self_block_fwd")
     self_block_fwd.launches += 1
@@ -335,7 +382,8 @@ def cross_block_fwd(x, txt, pos, tpos, pad_mask, in_w, in_b, out_w, out_b, g_pre
         bo.data_ptr(), gp.data_ptr(), bp.data_ptr(), gq.data_ptr(),
         bq.data_ptr(), y.data_ptr(), *(w.data_ptr() for w in ws),
         None if op is None else op.data_ptr(),
-        b, l, t, d, nheads, dseed, thresh, scale, cuda_build.stream_ptr(x.device),
+        b, l, t, d, nheads, len(proj_plan(cross_proj_segments(b * l, b * t))),
+        len(out_schedule(b * l)[0]), dseed, thresh, scale, cuda_build.stream_ptr(x.device),
     )
     cuda_build.check_launch(lib, rc, "crog_cross_block_fwd")
     cross_block_fwd.launches += 1

@@ -14,8 +14,11 @@ steps at magnitude 4-8) on the blocks' and FFN's outputs of magnitude ~6.
 The forwards with dropout draw the same counter-based mask in kernel and
 twin and are held alike.  The attention forward is held on both of its
 paths (one pass up to 192 keys, two beyond), with q and k packed as the self
-block passes them; K4's, K4b's, K2b's and K3b's outputs must also repeat
-with equal bits.  Backward outputs are held to 2^-6 of each
+block passes them; K4's, K4b's, K2b's and K3b's outputs, and K2's and K3's
+in train mode with every saved intermediate, must also repeat with equal
+bits.  The intermediates K2 and K3 save for their backward are held, like
+backward outputs, to 2^-6 of each one's largest magnitude.  Backward
+outputs are held to 2^-6 of each
 gradient's largest magnitude (four bf16 steps: a flipped rounding of an
 intermediate such as P, dS or dh feeds many outputs).  K1b rounds only its
 outputs, as its twin does, so it is held to one bf16 step (2^-8 of the
@@ -303,6 +306,97 @@ def test_cuda_block_backward_gemms_match_twins_and_repeat(card, b, l, rate):
     again = DB.cross_block_bwd(x, saved, dy, 8, 8, rate)
     torch.cuda.synchronize()
     assert all(torch.equal(u, v) for u, v in zip(got, again))
+
+
+def _block_inputs(b, l, t, seed=40):
+    x, txt = _bf16(seed, b, l, 512), _bf16(seed + 1, b, t, 512)
+    pos, tpos = _bf16(seed + 2, l, 512, std=0.5), _bf16(seed + 3, t, 512, std=0.5)
+    lengths = torch.tensor([[1 + (t - 1) * i // max(1, b - 1)] for i in range(b)])
+    pad = (torch.arange(t)[None].expand(b, t) >= lengths).to("cuda")
+    return x, txt, pos, tpos, pad
+
+
+def _saved_refs(x, txt, pos, tpos, pad, w, rate, seed, cross):
+    """The intermediates K2b / K3b read, from the plain twins' arithmetic:
+    (name, reference) in the order of the saved tuple after its weights."""
+    in_w, in_b, out_w, out_b, g_pre, b_pre = w[:6]
+    b, l, d = x.shape
+    x2 = x.reshape(b * l, d)
+    xl = DB.ln_fast(x2, g_pre, b_pre)
+    qin = xl + pos.repeat(b, 1)
+    if cross:
+        kv = txt.reshape(-1, d)
+        kin = kv + tpos.repeat(b, 1)
+        q = DB.dense(qin, in_w[:d], in_b[:d])
+        k = DB.dense(kin, in_w[d:2 * d], in_b[d:2 * d])
+        v = DB.dense(kv, in_w[2 * d:], in_b[2 * d:])
+        mask = DB.key_mask(pad, b, txt.shape[1], x.device)
+        o = A.attention_plain(q.view(b, l, d), k.view(b, -1, d), v.view(b, -1, d), 8,
+                              mask).reshape(b * l, d)
+        refs = [("qin", qin), ("q", q), ("o", o), ("kin", kin), ("k", k), ("v", v)]
+    else:
+        qk = DB.dense(qin, in_w[:2 * d], in_b[:2 * d])
+        v = DB.dense(xl, in_w[2 * d:], in_b[2 * d:])
+        o = A.attention_plain(qk[:, :d].reshape(b, l, d), qk[:, d:].reshape(b, l, d),
+                              v.view(b, l, d), 8).reshape(b * l, d)
+        refs = [("xl", xl), ("qin", qin), ("qk", qk), ("v", v), ("o", o)]
+    return refs + [("op", DB.dense(o, out_w, out_b))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,t", [(24, 676, 17), (3, 301, 17), (1, 676, 9)])
+@pytest.mark.parametrize("train", [False, True])
+def test_cuda_block_forward_kernels_match_twins(card, b, l, t, train):
+    """K2 and K3 (the wgmma projection GEMM over K-major in_proj_weight and
+    the 2-CTA cluster out-projection with LN, dropout and the residual)
+    against their twins at the main path's shape (24 x 676 rows, 24 x 17
+    text rows), at 3 x 301 rows (M = 903, MT = 51: neither a multiple of the
+    128-row tile) and at one sample of 9 text tokens (MT < 128), in eval and
+    in train mode (dropout 0.1, the intermediates K2b and K3b read saved):
+    the output under 0.125, each saved intermediate within 2^-6 of its
+    largest magnitude (one or two bf16 steps of a flipped rounding);
+    op is held to the twin's projection of the kernel's own o, so that a
+    flip inside the attention step does not count twice."""
+    x, txt, pos, tpos, pad = _block_inputs(b, l, t)
+    w = _block_args(50)
+    rate = 0.1 if train else 0.0
+    for cross in (False, True):
+        if cross:
+            y, saved = DB.cross_block_fwd(x, txt, pos, tpos, pad, *w, 8, 9, rate, save=train)
+            ref = DB.cross_block_plain(x, txt, pos, tpos, pad, *w, 8, 9, rate)
+        else:
+            y, saved = DB.self_block_fwd(x, pos, *w, 8, 9, rate, save=train)
+            ref = DB.self_block_plain(x, pos, *w, 8, 9, rate)
+        torch.cuda.synchronize()
+        assert (y.float() - ref.float()).abs().max().item() <= 0.125, cross
+        if not train:
+            assert saved is None
+            continue
+        inter = saved[6:] if cross else saved[4:]
+        refs = _saved_refs(x, txt, pos, tpos, pad, w, rate, 9, cross)
+        assert len(inter) == len(refs)
+        for got, (name, r) in zip(inter, refs):
+            if name == "op":
+                r = DB.dense(inter[-5 if cross else -2], w[2], w[3])
+            assert got.shape == r.shape, name
+            tol = BWD_REL * r.float().abs().max().item()
+            assert (got.float() - r.float()).abs().max().item() <= tol, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,t", [(24, 676, 17), (3, 301, 17)])
+def test_cuda_block_forward_kernels_repeat(card, b, l, t):
+    """K2 and K3 in train mode (dropout 0.1, saved) twice: the output and
+    every saved intermediate come out with equal bits (no atomics, the LN
+    row sums added in rank order across the cluster)."""
+    x, txt, pos, tpos, pad = _block_inputs(b, l, t)
+    w = _block_args(60)
+    calls = (lambda: DB.self_block_fwd(x, pos, *w, 8, 5, 0.1, save=True),
+             lambda: DB.cross_block_fwd(x, txt, pos, tpos, pad, *w, 8, 6, 0.1, save=True))
+    for call in calls:
+        (ya, sa), (yb, sb) = call(), call()
+        torch.cuda.synchronize()
+        assert all(torch.equal(u, v) for u, v in zip((ya, *sa), (yb, *sb)))
 
 
 LINCOMB_REL = 1e-4  # both f32; only the order of the pixel and column sums differs

@@ -174,6 +174,53 @@ def test_ffn_fwd_schedule_covers_every_row_once(m):
     assert FF.fwd_schedule(m) == (tiles, slices, out_cols)
 
 
+def _covered_once(plan, segments):
+    """Each product's [m, n] covered by its tiles exactly once."""
+    for s, (m, w0, n) in enumerate(segments):
+        count = np.zeros((m, n), np.uint8)
+        for _, (r0, r1), (c0, c1) in (t for t in plan if t[0] == s):
+            assert 0 < r1 - r0 <= DB.PROJ_ROWS and c1 - c0 == DB.PROJ_COLS
+            count[r0:r1, c0 - w0:c1 - w0] += 1
+        assert (count == 1).all(), s
+
+
+@pytest.mark.parametrize("m,mt", [(1, 1), (127, 9), (128, 17), (129, 51), (903, 51),
+                                  (16224, 408)])
+def test_proj_plan_covers_every_row_and_column_once(m, mt):
+    """K2's and K3's projection launch (one CTA per plan entry, walked in
+    the plan's order by csrc/decoder_blocks.cu): every row and column of
+    each product is covered once; K2's column tiles below 2D read qin and
+    write the packed qk, the rest read xl and write v; K3's q runs over the
+    M image rows, its k and v over the MT text rows; the products' columns
+    are in_w's 3D rows, each once; the order is product by product, row
+    tiles outer."""
+    d = DB.KERNEL_D
+    for segments in (DB.self_proj_segments(m), DB.cross_proj_segments(m, mt)):
+        plan = DB.proj_plan(segments)
+        _covered_once(plan, segments)
+        cols = sorted(c for _, w0, n in segments for c in range(w0, w0 + n))
+        assert cols == list(range(3 * d))
+        assert [t[0] for t in plan] == sorted(t[0] for t in plan)
+        assert len(plan) == sum(-(-sm // DB.PROJ_ROWS) * (n // DB.PROJ_COLS)
+                                for sm, _, n in segments)
+    self_plan = DB.proj_plan(DB.self_proj_segments(m))
+    assert all((s == 0) == (c0 < 2 * d) for s, _, (c0, _c1) in self_plan)
+    assert [sm for sm, _, _ in DB.cross_proj_segments(m, mt)] == [m, mt, mt]
+
+
+@pytest.mark.parametrize("m", [1, 127, 128, 129, 903, 16224])
+def test_out_schedule_covers_every_row_once_with_whole_rows(m):
+    """The out-projection's cluster tiles cover rows 0..m-1 once, in order,
+    PROJ_ROWS at a time, and the CTAs of a cluster cover the D = 512
+    columns once between them, so each row's LayerNorm statistics stay
+    inside one cluster."""
+    tiles, slices = DB.out_schedule(m)
+    assert [r for r0, r1 in tiles for r in range(r0, r1)] == list(range(m))
+    assert all(0 < r1 - r0 <= DB.PROJ_ROWS for r0, r1 in tiles)
+    assert len(slices) == DB.OUT_CLUSTER == 2
+    assert [c for c0, c1 in slices for c in range(c0, c1)] == list(range(DB.KERNEL_D))
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take():
     """CUDA-side argument checks run before any launch."""
     x = torch.zeros(2, 8, 64)

@@ -48,8 +48,9 @@ GROUPS = (
     ("K4b ffn_bwd: cluster kernel (recompute, hn, dh, column sums)", ("ffn_bwd_hidden",)),
     ("K4 y GEMM and K4b dx GEMM (ffn_out_kernel)", ("ffn_out_kernel",)),
     ("K2/K3 block: ln_pos", ("ln_pos_kernel",)),
-    ("K2/K3 block: gemm_bias", ("gemm_bias_kernel",)),
-    ("K2/K3 block: outproj_ln_residual", ("outproj_ln_residual_kernel",)),
+    ("K2/K3 block: projections (proj_gemm)", ("proj_gemm_kernel",)),
+    ("K2/K3 block: out-projection, LN, residual (outproj_ln_cluster)",
+     ("outproj_ln_cluster_kernel",)),
     ("K4 ffn: cluster kernel (hidden, hn)", ("ffn_fwd_hidden",)),
     ("K5/K5b lincomb", ("lincomb_", "sum_splits_kernel")),
     ("host-to-device copies", ("memcpy htod",)),
