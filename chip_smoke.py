@@ -29,7 +29,12 @@ Phases, in order; any failure propagates and the exit code is not 0:
      K1b's tolerance, and K1b on a head of K1B_LONG tokens (its two-kernel
      path) must meet it; K5 and K5b in f32 at SSG's shapes at batch 8 and
      544^2, for both of a train step's launches (instance masks: one task,
-     BCE; grasp maps: four tasks, smooth-L1); K6 at the stem's conv2 and
+     BCE; grasp maps: four tasks, smooth-L1), with the boxes, GT rows and
+     GT maps the main path's first SSG step hands them, with made-up boxes,
+     and with every box over the whole map (the dense case), each twice
+     for equal bits, timed with the bound of the work the function needs
+     beside the dense bound and the share of points inside a box; K6 at the
+     stem's conv2 and
      conv3 forward and both dgrads and K6b at conv2 and conv3, bf16, at
      batch 24, 104x104 cells, each timed beside its twin, cuDNN's conv of
      the blocked tensor with the zero-embedded kernel (the function K6
@@ -84,7 +89,8 @@ Phases, in order; any failure propagates and the exit code is not 0:
      part: the LN kernels, the dO and dX GEMMs, the attention step, the dW
      GEMMs and the fixed-order sums), K4 (its cluster kernel, its y GEMM,
      the rest), K4b (its own kernels apart from its fixed-order sums and the
-     library dW GEMMs), each K5 and K5b launch, each K6 and K6b launch and
+     library dW GEMMs), each K5 and K5b launch in each box case (by
+     kernel), each K6 and K6b launch and
      their library calls, of the attention kernel and SDPA at K2's and K3's
      shapes, and of the torch.mm and F.linear yardsticks, beside the CUDA-event times of
      phase 3 (last, so that the profiler runs in no timed phase).
@@ -117,9 +123,10 @@ SSG_BATCH = 8
 SSG_VAL_SAMPLES = 16
 SSG_E2E_SIZE = 256
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): bf16 tensor cores, f32
-# on the CUDA cores, device memory
+# products on the tensor cores (TF32's 495 TFLOP/s over the three TF32
+# products of the 3xTF32 split, which keeps f32 accuracy), device memory
 PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12
+PEAK_F32_TC_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12
 FWD = ("attention", "decoder_self_block", "decoder_cross_block", "ffn")
 BWD = tuple(n + "_bwd" for n in FWD)
@@ -913,14 +920,59 @@ def k1b_long_check(device, b=4, l=K1B_LONG, heads=32):
                  K1B_REL_TOL * float(r.float().abs().max()), K1B_DIFF_SHARE)
 
 
-def lincomb_cases(device, b=SSG_BATCH, ph=136, k=100, m=24):
+def ssg_batch_lincomb_args(device, protos, g):
+    """{T: (protos, coefficients, GT rows, GT index, boxes)} as ``ssg_losses``
+    hands them to K5/K5b (T=1 the instance masks, T=4 the grasp maps) on the
+    first batch ``ssg_train_path`` trains: its synthetic scenes, the model's
+    anchors and the step's first priority draw, matched, selected and
+    downsampled by the loss's own code.  Only the network's outputs are
+    random (``protos``; coefficients from ``g``, tanh'd): they decide no
+    box, GT row or crop."""
+    import torch
+
+    from crog_tpu_torch.engine.ssg_engine import DENSE_KEYS, _dense
+    from crog_tpu_torch.models import ssg_loss
+    from crog_tpu_torch.models.ssg import build_ssg
+    from crog_tpu_torch.train_ssg import loss_config
+
+    cfg = _ssg_cfg(("batch_size", str(SSG_BATCH)))
+    batch = _ssg_batches(cfg, cfg.train_split, 2 * SSG_BATCH, SSG_BATCH, True)[0]
+    batch = _dense(batch, DENSE_KEYS, device)
+    anchors = torch.as_tensor(build_ssg(cfg).anchors()).to(device)
+    b, n, c = protos.shape[0], anchors.shape[0], int(cfg.num_classes)
+    output = {"protos": protos,
+              "cls_logits": torch.randn(b, n, c, generator=g).to(device),
+              "box_pred": torch.randn(b, n, 4, generator=g).to(device),
+              "seg_pred": torch.randn(b, 8, 8, c, generator=g).to(device),
+              "ins_coef_pred": torch.tanh(torch.randn(b, n, 32, generator=g)).to(device),
+              "grasp_coef_pred": torch.tanh(torch.randn(b, n, 4, 32, generator=g)).to(device)}
+    taken = {}
+
+    def record(protos, sel_coef, ds_flat, sel_gt, sel_box, num_tasks, **_):
+        taken[num_tasks] = (protos, sel_coef, ds_flat, sel_gt, sel_box)
+        return torch.zeros(sel_coef.shape[:3], device=sel_coef.device)
+
+    real, ssg_loss.lincomb_task_sums = ssg_loss.lincomb_task_sums, record
+    try:
+        ssg_loss.ssg_losses(output, batch, anchors, torch.Generator().manual_seed(SEED),
+                            **loss_config(cfg))
+    finally:
+        ssg_loss.lincomb_task_sums = real
+    return taken
+
+
+def lincomb_cases(device, case: str = "synthetic", b=SSG_BATCH, ph=136, k=100, m=24):
     """loss kind -> (kernel arguments, tasks, gradient of the sums): K5/K5b's
     inputs at SSG's main path (batch 8, 544^2: 136^2 prototypes,
     masks_to_train 100, max_objs 24) for the instance-mask launch (T=1,
-    binary GT, 24 rows) and the grasp launch (T=4, 96 rows; both row counts
-    are multiples of 8).  Prototypes are ReLU'd and coefficients tanh'd, as
-    the model emits them; three anchors' boxes lie off the map, so their
-    crops are empty."""
+    binary GT, 24 rows) and the grasp launch (T=4, 96 rows).  Prototypes
+    are ReLU'd and coefficients tanh'd, as the model emits them.  The
+    boxes, GT rows and GT maps by ``case``: "ssg-batch", those the main
+    path's first step hands the kernels (``ssg_batch_lincomb_args``);
+    "synthetic", made-up boxes of 0.05-0.30 of the map, three of them off
+    it, with random GT; "full-map", the synthetic case with every box over
+    the whole map, the dense worst case of a kernel that skips points
+    outside the boxes."""
     import torch
 
     from crog_tpu_torch.ops import lincomb as LC
@@ -930,81 +982,150 @@ def lincomb_cases(device, b=SSG_BATCH, ph=136, k=100, m=24):
     lo = torch.rand(b, k, 2, generator=g) * 0.7
     box = torch.cat([lo, lo + 0.05 + 0.25 * torch.rand(b, k, 2, generator=g)], -1)
     box[:, :3] = torch.tensor([-0.5, -0.5, -0.4, -0.4])
+    if case == "full-map":
+        box[:] = torch.tensor([0.0, 0.0, 1.0, 1.0])
     sel_gt = torch.randint(0, m, (b, k), generator=g)
+    taken = (ssg_batch_lincomb_args(device, protos.to(device), g) if case == "ssg-batch"
+             else {})
     cases = {}
     for kind, t in (("bce", 1), ("smooth_l1", 4)):
         coef = torch.tanh(torch.randn(b, k, t, 32, generator=g))
         ds = torch.rand(b, t * m, ph * ph, generator=g)
         if t == 1:
             ds = (ds > 0.5).float()
-        args = LC.kernel_args(*(x.to(device) for x in (protos, coef, ds, sel_gt, box)), t)
+        inputs = taken.get(t, [x.to(device) for x in (protos, coef, ds, sel_gt, box)])
+        args = LC.kernel_args(*inputs, t)
         cases[kind] = (args, t, torch.randn(b, k * t, generator=g).to(device))
     return cases
 
 
+def lincomb_inside(args, t):
+    """[B, KT, HW] bool: the points (column, pixel) inside their column's
+    sanitized box, the pixels p with x1 <= p_x < x2 and y1 <= p_y < y2
+    (``box_inside_mask``), T columns per box."""
+    import torch
+
+    protos, _, _, _, boxes = args
+    ph, pw = protos.shape[1:3]
+    x1, x2, y1, y2 = (v.repeat_interleave(t, 1)[..., None] for v in boxes.unbind(-1))
+    p = torch.arange(ph * pw, device=boxes.device)
+    px, py = (p % pw).float(), (p // pw).float()
+    return (px >= x1) & (px < x2) & (py >= y1) & (py < y2)
+
+
 def lincomb_work(args, t):
-    """(flops, fwd bytes, bwd bytes) of one K5 / K5b call: the products
-    2·B·KT·HW·C (K5b three times that: the prediction, dcoef and dprotos;
-    the elementwise work is not counted), and each input read once -- of
-    the GT, only the rows the columns name -- and each output written
-    once."""
+    """(flops, dense flops, fwd bytes, bwd bytes, inside share) of one K5 /
+    K5b call.  The products the function needs are 2·C per point inside its
+    column's box: outside, the loss takes the constant outside_t and the
+    gradient is 0.  The dense count charges every point, 2·B·KT·HW·C.  K5b
+    needs three products per point (the prediction, dcoef and dprotos); the
+    elementwise work is not counted.  Bytes: each input read once and each
+    output written once, and of the inputs only what this call's boxes
+    need.  Of the prototypes, the pixels inside some box of their image.
+    Of the GT, K5 reads each row a column names in full (its outside sum
+    needs every pixel); K5b only a named row's pixels inside the union of
+    the boxes of the columns that name it."""
+    import torch
+
     protos, coef, ds, idx, boxes = args
-    b, kt, c = coef.shape
-    hw = ds.shape[2]
-    rows = sum(int(idx[i].unique().numel()) for i in range(b))
-    read = nbytes(protos, coef, idx, boxes) + rows * hw * 4
-    return (2.0 * b * kt * hw * c, read + b * kt * 4,
-            read + b * kt * 4 + nbytes(coef, protos))
+    b, _, _, c = protos.shape
+    kt = coef.shape[1]
+    tm, hw = ds.shape[1:]
+    inside = lincomb_inside(args, t)
+    rows = gt_inside = 0
+    for i in range(b):
+        named = torch.zeros(tm, hw, dtype=torch.int32, device=inside.device)
+        named.index_add_(0, idx[i].long(), inside[i].int())
+        rows += int(idx[i].unique().numel())
+        gt_inside += int((named > 0).sum())
+    px_inside = int(inside.any(1).sum())
+    read = px_inside * c * 4 + nbytes(coef, idx, boxes)
+    out = b * kt * 4  # the sums (K5) or their gradient g (K5b)
+    share = float(inside.float().mean())
+    return (2.0 * c * float(inside.sum()), 2.0 * b * kt * hw * c, read + rows * hw * 4 + out,
+            read + gt_inside * 4 + out + nbytes(coef, protos), share)
+
+
+def lincomb_parts(seq):
+    """One K5 / K5b call's kernels in launch order -> [(kernel, device ms)],
+    each kernel's launches summed."""
+    parts = {}
+    for name, t in seq:
+        parts[name] = parts.get(name, 0.0) + t
+    return list(parts.items())
+
+
+# K5/K5b's box cases (``lincomb_cases``); the first is the main path's and
+# fills the records
+LINCOMB_CASES = ("ssg-batch", "synthetic", "full-map")
 
 
 def check_lincomb(device, timed: bool = True):
     """K5 and K5b against their twins at the main path's shapes, both loss
-    kinds; a record's times, bound and work are per SSG train step, i.e.
-    the mask launch plus the grasp launch."""
+    kinds, in each box case, each twice for equal bits.  Per case and SSG
+    train step (the mask launch plus the grasp launch): the time, the bound
+    of the work the function needs beside the dense bound, and the share of
+    points inside a box.  The records carry the ssg-batch case's numbers,
+    and the largest error of any case."""
+    import torch
+
     from crog_tpu_torch.ops import lincomb as LC
 
-    cases = lincomb_cases(device)
-    records = {}
-    for name in ("lincomb", "lincomb_bwd"):
-        rec = _record(name, 0.0, 0.0, "operations")
-        if timed:
-            rec.update(ms=0.0, plain_ms=0.0)
-        for kind, (args, t, gsum) in cases.items():
-            flops, fwd_b, bwd_b = lincomb_work(args, t)
-            # default arguments bind this kind's inputs: DEVICE_TIMED calls
-            # the kernel again after the loop
-            if name == "lincomb":
-                kern = lambda args=args, t=t, kind=kind: LC.lincomb_fwd(*args, t, loss_kind=kind)
-                plain = lambda: LC.lincomb_task_sums_plain(*args, t, loss_kind=kind)
-                got, ref = [kern()], [plain()]
-                outs, work = ("sums",), bound(flops, fwd_b, PEAK_F32_FLOPS)
-            else:
-                kern = lambda args=args, gsum=gsum, t=t, kind=kind: LC.lincomb_bwd(
-                    *args, gsum, t, loss_kind=kind)
-                plain = lambda: LC.lincomb_bwd_plain(*args, gsum, t, loss_kind=kind)
-                got, ref = kern(), plain()
-                outs, work = ("dcoef", "dprotos"), bound(3 * flops, bwd_b, PEAK_F32_FLOPS)
-            for o, gt_, r in zip(outs, got, ref):
-                tol = LINCOMB_REL_TOL * float(r.abs().max())
-                err = _compare(f"{name} ({kind}, T={t}).{o}", gt_, r, tol)
-                rec["max_abs_err"] = max(rec["max_abs_err"], err)
-            rec["bound_ms"] += work[0]
-            if work[1] == "bytes":
-                rec["bound_by"] = "bytes"
-            if timed:
+    records = {n: _record(n, 0.0, 0.0, "operations") for n in ("lincomb", "lincomb_bwd")}
+    for case in LINCOMB_CASES:
+        inputs = lincomb_cases(device, case)
+        work = {kind: lincomb_work(args, t) for kind, (args, t, _) in inputs.items()}
+        for name, rec in records.items():
+            kid = "K5b" if name == "lincomb_bwd" else "K5"
+            step = {"ms": 0.0, "plain": 0.0, "bound": 0.0, "dense": 0.0, "by": "operations"}
+            for kind, (args, t, gsum) in inputs.items():
+                flops, dense, fwd_b, bwd_b, share = work[kind]
+                # default arguments bind this kind's inputs: DEVICE_TIMED calls
+                # the kernel again after the loop
+                if name == "lincomb":
+                    kern = lambda args=args, t=t, kind=kind: LC.lincomb_fwd(*args, t, loss_kind=kind)
+                    plain = lambda: LC.lincomb_task_sums_plain(*args, t, loss_kind=kind)
+                    got, again, ref = [kern()], [kern()], [plain()]
+                    outs, mult, nb = ("sums",), 1, fwd_b
+                else:
+                    kern = lambda args=args, gsum=gsum, t=t, kind=kind: LC.lincomb_bwd(
+                        *args, gsum, t, loss_kind=kind)
+                    plain = lambda: LC.lincomb_bwd_plain(*args, gsum, t, loss_kind=kind)
+                    got, again, ref = kern(), kern(), plain()
+                    outs, mult, nb = ("dcoef", "dprotos"), 3, bwd_b
+                need = bound(mult * flops, nb, PEAK_F32_TC_FLOPS)
+                dense_need = bound(mult * dense, nb, PEAK_F32_TC_FLOPS)
+                label = f"{name} ({kind}, T={t}, {case})"
+                for o, gt_, r, r2 in zip(outs, got, ref, again):
+                    tol = LINCOMB_REL_TOL * float(r.abs().max())
+                    err = _compare(f"{label}.{o}", gt_, r, tol)
+                    if not torch.equal(gt_, r2):
+                        raise AssertionError(f"{label}.{o} differs between two runs")
+                    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                step["bound"] += need[0]
+                step["dense"] += dense_need[0]
+                if need[1] == "bytes":
+                    step["by"] = "bytes"
+                if not timed:
+                    continue
                 ms, plain_ms = cuda_ms(kern), cuda_ms(plain, reps=5)
-                rec["ms"] += ms
-                rec["plain_ms"] += plain_ms
-                print(f"[kernels] {name} ({kind}, T={t}): {ms:.4f} ms (plain "
-                      f"{plain_ms:.4f}, bound {work[0]:.4f} by {work[1]})", flush=True)
-                kid = "K5b" if name == "lincomb_bwd" else "K5"
-                DEVICE_TIMED.append((f"{name} ({kid}, {kind}, T={t})", ms, kern,
-                                     f"{name} ({kid}) per SSG train step", None))
-        if timed:
-            print(f"[kernels] {name} per SSG train step: {rec['ms']:.4f} ms (plain "
-                  f"{rec['plain_ms']:.4f}, library none, bound {rec['bound_ms']:.4f} by "
-                  f"{rec['bound_by']})", flush=True)
-        records[name] = rec
+                step["ms"] += ms
+                step["plain"] += plain_ms
+                print(f"[kernels] {label}: {ms:.4f} ms (plain {plain_ms:.4f}, bound "
+                      f"{need[0]:.4f} by {need[1]} over {mult * flops:.4g} flop and {nb:.4g} "
+                      f"bytes; dense bound {dense_need[0]:.4f} over {mult * dense:.4g} flop; "
+                      f"{100 * share:.2f}% of the points inside a box)", flush=True)
+                DEVICE_TIMED.append((f"{name} ({kid}, {kind}, T={t}, {case})", ms, kern,
+                                     f"{name} ({kid}) per SSG train step, {case}",
+                                     lincomb_parts))
+            if case == LINCOMB_CASES[0]:
+                rec["bound_ms"], rec["bound_by"] = step["bound"], step["by"]
+                if timed:
+                    rec["ms"], rec["plain_ms"] = step["ms"], step["plain"]
+            if timed:
+                print(f"[kernels] {name} per SSG train step, {case}: {step['ms']:.4f} ms "
+                      f"(plain {step['plain']:.4f}, library none, bound {step['bound']:.4f} "
+                      f"by {step['by']}, dense bound {step['dense']:.4f})", flush=True)
     return records
 
 
@@ -1668,10 +1789,11 @@ def redesigned_resources(reports):
     K4's and K4b's cluster kernels and their y / dx GEMM, K2b's and K3b's
     dX and dW GEMMs, K1b's one-CTA-per-head kernel, the two-kernel
     attention backward that K2b and K3b run, K6's persistent conv, K6b's
-    cluster kernel), and at the main path's shapes their registers, shared
-    memory per CTA (static + dynamic) and spills as the runtime loads them
-    (the attention forward and the GEMMs also their CTAs per SM, the
-    cluster kernels the clusters of their launch the card holds at once)."""
+    cluster kernel, K5's and K5b's region kernels), and at the main path's
+    shapes their registers, shared memory per CTA (static + dynamic) and
+    spills as the runtime loads them (the attention forward, the GEMMs and
+    K5/K5b also their CTAs per SM, the cluster kernels the clusters of
+    their launch the card holds at once)."""
     import ctypes
 
     from crog_tpu_torch.ops import cuda_build
@@ -1685,7 +1807,8 @@ def redesigned_resources(reports):
                       ("decoder_blocks_bwd", ("gemm_nn_kernel", "wgrad_kernel")),
                       ("attention_bwd", ("attn_bwd_head_kernel", "attn_bwd_rows_kernel",
                                          "attn_bwd_cols_kernel")),
-                      ("s2dconv", ("s2dconv_fwd_kernel", "s2dconv_wgrad_kernel"))):
+                      ("s2dconv", ("s2dconv_fwd_kernel", "s2dconv_wgrad_kernel")),
+                      ("lincomb", ("lincomb_region",))):
         for entry, regs, spill in ptxas_entries(reports[lib]):
             if any(k in entry for k in keys):
                 print(f"[build] ptxas {entry}: {regs} registers, {spill} bytes spill stores",
@@ -1736,6 +1859,16 @@ def redesigned_resources(reports):
         print(f"[build] K2b/K3b attention backward, {name} kernel (bf16 cast points): "
               f"{out[3 * i]} registers, {out[3 * i + 1]} bytes shared memory per CTA, "
               f"{out[3 * i + 2]} bytes local (spill) per thread", flush=True)
+    from crog_tpu_torch.ops import lincomb as LC
+
+    lib = cuda_build.load("lincomb")
+    fwd, bwd = LC.region_plan(136, 136, LC.FWD_PIXELS), LC.region_plan(136, 136, LC.BWD_PIXELS)
+    cuda_build.check_launch(lib, lib.crog_lincomb_attrs(100, *fwd, *bwd, ptr), "attrs")
+    for i, (kid, (rh, rw)) in enumerate((("K5", fwd), ("K5b", bwd))):
+        print(f"[build] {kid} region kernel at 136^2 ({rh} x {rw} pixel regions, 100 "
+              f"anchors): {out[4 * i]} registers, {out[4 * i + 1]} bytes shared memory per "
+              f"CTA, {out[4 * i + 2]} bytes local (spill) per thread, {out[4 * i + 3]} CTAs "
+              f"per SM", flush=True)
     lib = cuda_build.load("s2dconv")
     for ci in (32, 64):
         cuda_build.check_launch(lib, lib.crog_s2dconv_fwd_attrs(ci, ptr), "attrs")

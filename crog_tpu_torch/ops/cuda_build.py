@@ -73,8 +73,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "crog_ffn_bwd_attrs": [_P],
     },
     "lincomb": {
-        "crog_lincomb_fwd": [_P] * 7 + [_I] * 9 + [_P],
-        "crog_lincomb_bwd": [_P] * 9 + [_I] * 9 + [_P],
+        "crog_lincomb_fwd": [_P] * 8 + [_I] * 10 + [_P],
+        "crog_lincomb_bwd": [_P] * 9 + [_I] * 10 + [_P],
+        "crog_lincomb_attrs": [_I] * 5 + [_P],
     },
     "s2dconv": {
         "crog_s2dconv_fwd": [_P] * 3 + [_I] * 7 + [_P],

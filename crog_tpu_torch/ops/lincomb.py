@@ -17,7 +17,12 @@ crog_tpu/models/ssg_loss.py:280-302 in f32, over the kernels' interface.
 
 The kernels take the prototypes in the model's channels-last layout
 [B, ph, pw, C] and read each column's GT row directly; nothing is padded,
-so a column can never point at a GT row other than its own.
+so a column can never point at a GT row other than its own.  They work
+only inside the boxes: the map is cut into regions (``region_plan``), each
+region's block lists the anchors whose box reaches it and computes their
+columns there (csrc/lincomb.cu:list_anchors), and a second pass adds each
+column's region partials in region order (csrc/lincomb.cu:region_range);
+K5 adds them to each GT row's full-map loss at outside_t.
 """
 
 from __future__ import annotations
@@ -28,9 +33,15 @@ from crog_tpu_torch.ops import cuda_build
 from crog_tpu_torch.ops.boxes import sanitize_boxes
 
 KERNEL_C = 32  # prototypes per pixel
-COLS, PIXELS = 32, 128  # the kernels' column tile and pixel chunk
-TARGET_BLOCKS = 4 * 132  # four blocks per H100 SM
 LOSS_KINDS = {"bce": 0, "smooth_l1": 1}
+
+
+def _outside(kt: int, num_tasks: int, cos_idx: int, device):
+    """outside_t of each column j*T + t: 1 for the cos task, else 0."""
+    col = torch.arange(kt, device=device)
+    if num_tasks > 1:
+        return ((col % num_tasks) == cos_idx).float()
+    return torch.zeros(kt, device=device)
 
 
 def _points(protos, coef, ds, idx, boxes, num_tasks, cos_idx):
@@ -46,12 +57,18 @@ def _points(protos, coef, ds, idx, boxes, num_tasks, cos_idx):
     px, py = (p % pw).float(), (p // pw).float()
     inside = ((px >= x1[..., None]) & (px < x2[..., None])
               & (py >= y1[..., None]) & (py < y2[..., None]))
-    col = torch.arange(kt, device=dev)
-    outside = ((col % num_tasks) == cos_idx).float() if num_tasks > 1 else \
-        torch.zeros(kt, device=dev)
-    m = torch.where(inside, s, outside[:, None])
+    m = torch.where(inside, s, _outside(kt, num_tasks, cos_idx, dev)[:, None])
     gt = torch.gather(ds, 1, idx.long()[..., None].expand(b, kt, hw))
     return s, inside, m, gt
+
+
+def _loss(m, gt, loss_kind):
+    """BCE with a 1e-7 log clip, or smooth-L1, per point."""
+    if loss_kind == "bce":
+        return -(gt * torch.log(m.clamp_min(1e-7))
+                 + (1.0 - gt) * torch.log((1.0 - m).clamp_min(1e-7)))
+    d = (m - gt).abs()
+    return torch.where(d < 1.0, 0.5 * d * d, d - 0.5)
 
 
 def lincomb_task_sums_plain(protos, coef, ds, idx, boxes, num_tasks: int,
@@ -60,13 +77,7 @@ def lincomb_task_sums_plain(protos, coef, ds, idx, boxes, num_tasks: int,
     [B, ph, pw, C], coef [B, KT, C], ds [B, TM, HW], idx [B, KT], sanitized
     boxes [B, KT/T, 4] as x1, x2, y1, y2)."""
     _, _, m, gt = _points(protos, coef, ds, idx, boxes, num_tasks, cos_idx)
-    if loss_kind == "bce":
-        loss = -(gt * torch.log(m.clamp_min(1e-7))
-                 + (1.0 - gt) * torch.log((1.0 - m).clamp_min(1e-7)))
-    else:
-        d = (m - gt).abs()
-        loss = torch.where(d < 1.0, 0.5 * d * d, d - 0.5)
-    return loss.sum(-1)
+    return _loss(m, gt, loss_kind).sum(-1)
 
 
 def lincomb_bwd_plain(protos, coef, ds, idx, boxes, g, num_tasks: int,
@@ -88,12 +99,29 @@ def lincomb_bwd_plain(protos, coef, ds, idx, boxes, g, num_tasks: int,
     return dcoef, dprotos
 
 
-def splits_for(b: int, kt: int, hw: int) -> int:
-    """Pixel splits of the column-tile kernels: enough blocks to fill the
-    card, a function of the shapes alone (so the sums' order is too)."""
-    tiles = -(-kt // COLS)
-    chunks = -(-hw // PIXELS)
-    return max(1, min(chunks, -(-TARGET_BLOCKS // (b * tiles))))
+# pixels of a region, about, timed on the boxes SSG's train step hands the
+# kernels (tools/torch_lincomb_cases.py --pixels).  There an image's 100
+# anchors share its few objects' boxes, so a block's time is the chain of
+# anchors its region lists: K5 takes small regions (1360 blocks at batch 8,
+# 136^2), which split the busy ones; K5b keeps 3 blocks per SM (75 KB of
+# shared memory each) in one wave of 680 blocks, since its smaller regions
+# cost more with large boxes than they gain with small ones
+FWD_PIXELS, BWD_PIXELS = 112, 224
+
+
+def region_plan(ph: int, pw: int, pixels: int = FWD_PIXELS):
+    """(rh, rw): the kernels' regions of rh x rw pixels, a function of the
+    map's shape alone.  Regions about 32 pixels wide and ``pixels`` in all:
+    small enough that a box reaches few of them, large enough that a
+    region's prototypes serve many columns.  The last row and column of
+    regions may be cut by the map."""
+    rw = -(-pw // -(-pw // 32))
+    return max(1, min(ph, pixels // rw)), rw
+
+
+def _regions(ph: int, pw: int, pixels: int) -> int:
+    rh, rw = region_plan(ph, pw, pixels)
+    return -(-ph // rh) * -(-pw // rw)
 
 
 def _check(protos, coef, ds, idx, boxes, num_tasks):
@@ -119,15 +147,18 @@ def lincomb_fwd(protos, coef, ds, idx, boxes, num_tasks: int, cos_idx: int = 2,
         return lincomb_task_sums_plain(protos, coef, ds, idx, boxes, num_tasks,
                                        cos_idx, loss_kind)
     b, hw, pw, kt, tm = _check(protos, coef, ds, idx, boxes, num_tasks)
-    splits = splits_for(b, kt, hw)
-    part = torch.empty(splits, b, kt, dtype=torch.float32, device=protos.device)
-    sums = torch.empty(b, kt, dtype=torch.float32, device=protos.device)
+    rh, rw = region_plan(hw // pw, pw, FWD_PIXELS)
+    dev = protos.device
+    rowsum = torch.empty(b, tm, 2, dtype=torch.float32, device=dev)
+    part = torch.empty(b, _regions(hw // pw, pw, FWD_PIXELS), kt, dtype=torch.float32,
+                       device=dev)
+    sums = torch.empty(b, kt, dtype=torch.float32, device=dev)
     lib = cuda_build.load("lincomb")
     rc = lib.crog_lincomb_fwd(
         protos.data_ptr(), coef.data_ptr(), ds.data_ptr(), idx.data_ptr(),
-        boxes.data_ptr(), part.data_ptr(), sums.data_ptr(), b, hw, pw, kt, tm,
-        num_tasks, cos_idx, LOSS_KINDS[loss_kind], splits,
-        cuda_build.stream_ptr(protos.device),
+        boxes.data_ptr(), rowsum.data_ptr(), part.data_ptr(), sums.data_ptr(), b, hw,
+        pw, kt, tm, num_tasks, cos_idx, LOSS_KINDS[loss_kind], rh, rw,
+        cuda_build.stream_ptr(dev),
     )
     cuda_build.check_launch(lib, rc, "crog_lincomb_fwd")
     lincomb_fwd.launches += 1
@@ -147,9 +178,10 @@ def lincomb_bwd(protos, coef, ds, idx, boxes, g, num_tasks: int, cos_idx: int = 
     b, hw, pw, kt, tm = _check(protos, coef, ds, idx, boxes, num_tasks)
     g = g.float().contiguous()
     cuda_build.require(g, "g", torch.float32, (b, kt))
-    splits = splits_for(b, kt, hw)
+    rh, rw = region_plan(hw // pw, pw, BWD_PIXELS)
     dev = protos.device
-    part = torch.empty(splits, b, kt, KERNEL_C, dtype=torch.float32, device=dev)
+    part = torch.empty(b, _regions(hw // pw, pw, BWD_PIXELS), kt, KERNEL_C, dtype=torch.float32,
+                       device=dev)
     dcoef = torch.empty_like(coef)
     dprotos = torch.empty_like(protos)
     lib = cuda_build.load("lincomb")
@@ -157,7 +189,7 @@ def lincomb_bwd(protos, coef, ds, idx, boxes, g, num_tasks: int, cos_idx: int = 
         protos.data_ptr(), coef.data_ptr(), ds.data_ptr(), idx.data_ptr(),
         boxes.data_ptr(), g.data_ptr(), part.data_ptr(), dcoef.data_ptr(),
         dprotos.data_ptr(), b, hw, pw, kt, tm, num_tasks, cos_idx,
-        LOSS_KINDS[loss_kind], splits, cuda_build.stream_ptr(dev),
+        LOSS_KINDS[loss_kind], rh, rw, cuda_build.stream_ptr(dev),
     )
     cuda_build.check_launch(lib, rc, "crog_lincomb_bwd")
     lincomb_bwd.launches += 1

@@ -23,8 +23,9 @@ gradient's largest magnitude (four bf16 steps: a flipped rounding of an
 intermediate such as P, dS or dh feeds many outputs).  K1b rounds only its
 outputs, as its twin does, so it is held to one bf16 step (2^-8 of the
 largest magnitude) with at most 1% of the elements differing at all, as in
-chip_smoke.py.  K5/K5b and their twins are f32 with the same products, so
-each output is held to 1e-4 of its largest magnitude.  K6 and its twin take
+chip_smoke.py.  K5/K5b and their twins are f32 (K5/K5b's products are
+3xTF32, f32-exact), so each output is held to 1e-4 of its largest
+magnitude.  K6 and its twin take
 the same bf16 operands and sum in f32 in another order, so a bf16 output
 differs by at most one bf16 step where a sum lands on a rounding boundary:
 2^-7 of the largest magnitude.  K6b's f32 gradient is held to 1e-4 of its
@@ -403,13 +404,21 @@ LINCOMB_REL = 1e-4  # both f32; only the order of the pixel and column sums diff
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("boxes", ["some", "full-map", "off-map", "ragged"])
 @pytest.mark.parametrize("kind,t", [("bce", 1), ("smooth_l1", 4)])
-def test_cuda_lincomb_kernels_match_twins(card, kind, t):
-    """K5 and K5b against their twins on ragged shapes: 40x44 pixels (not a
-    multiple of the 128-pixel chunk), 37 anchors (kt not a multiple of the
-    32-column tile), T*M = 8 rows, two anchors whose boxes lie off the map
-    (empty crops); the results are the same in a second run."""
+def test_cuda_lincomb_kernels_match_twins(card, kind, t, boxes):
+    """K5 and K5b against their twins on ragged shapes: 40x44 pixels (regions
+    of 5 x 22 for K5 and 10 x 22 for K5b, not multiples of the 8-pixel
+    tile), 37 anchors
+    (kt not a multiple of the 16-column tile), T*M = 8 rows.  ``some``: two
+    anchors' boxes lie off the map (empty crops), the rest are 0.05-0.30 of
+    it; ``full-map``: every box covers the map (nothing is skipped);
+    ``off-map``: every box lies off the map (the sums are the outside loss
+    alone, the gradients 0); ``ragged``: 37 x 29 pixels and 7 anchors.  The
+    results are the same in a second run."""
     b, ph, pw, k, m = 2, 40, 44, 37, 8 // t
+    if boxes == "ragged":
+        ph, pw, k = 37, 29, 7
     g = torch.Generator().manual_seed(t)
     protos = torch.relu(torch.randn(b, ph, pw, 32, generator=g))
     coef = torch.tanh(torch.randn(b, k, t, 32, generator=g))
@@ -419,6 +428,10 @@ def test_cuda_lincomb_kernels_match_twins(card, kind, t):
     lo = torch.rand(b, k, 2, generator=g) * 0.7
     box = torch.cat([lo, lo + 0.05 + 0.25 * torch.rand(b, k, 2, generator=g)], -1)
     box[:, :2] = torch.tensor([1.2, 1.2, 1.5, 1.5])
+    if boxes == "full-map":
+        box[:] = torch.tensor([0.0, 0.0, 1.0, 1.0])
+    elif boxes == "off-map":
+        box[:] = torch.tensor([-0.6, 1.1, -0.3, 1.4])
     sel_gt = torch.randint(0, m, (b, k), generator=g)
     gsum = torch.randn(b, k * t, generator=g).to(card)
     args = LC.kernel_args(*(x.to(card) for x in (protos, coef, ds, sel_gt, box)), t)
@@ -432,7 +445,10 @@ def test_cuda_lincomb_kernels_match_twins(card, kind, t):
     _close_all(got, ref, LINCOMB_REL)
     for a, r in zip(got, again):
         assert torch.equal(a, r)
-    assert (got[1][:, :2 * t] == 0).all()  # an empty crop takes no gradient
+    if boxes == "off-map":
+        assert (got[1] == 0).all() and (got[2] == 0).all()
+    elif boxes != "full-map":
+        assert (got[1][:, :2 * t] == 0).all()  # an empty crop takes no gradient
     with pytest.raises(ValueError, match="int32"):
         LC.lincomb_fwd(*args[:3], args[3].long(), args[4], t, loss_kind=kind)
     with pytest.raises(ValueError, match="prototypes"):

@@ -280,4 +280,149 @@ def test_lincomb_wrapper_rejects_what_the_kernel_cannot_take():
         LC.lincomb_task_sums(torch.zeros(1, 4, 4, 32), torch.zeros(1, 2, 4, 32),
                              torch.zeros(1, 4, 16), torch.zeros(1, 2, dtype=torch.int32),
                              torch.zeros(1, 2, 4), num_tasks=1)
-    assert LC.splits_for(8, 400, 18496) == 6 and LC.splits_for(8, 100, 18496) == 17
+    assert LC.region_plan(136, 136) == (4, 28) and LC.region_plan(16, 16) == (7, 16)
+    assert LC.region_plan(136, 136, LC.BWD_PIXELS) == (8, 28)
+
+
+# A model of the lincomb kernels' plan in plain PyTorch: the anchors each
+# region's block lists (csrc/lincomb.cu:list_anchors), the regions whose
+# partials the second pass adds for each anchor (region_range) and K5's
+# decomposition of the sums.  The card tests hold the CUDA plan itself
+# against the twins (tests/test_torch_cuda_kernels.py); these hold the
+# model against a brute-force box mask at sizes the card tests do not reach.
+def _anchor_cells(boxes, ph, pw):
+    """Integer pixel rectangles (x1, x2, y1, y2), [B, A] each, of sanitized
+    boxes: the pixels p with x1 <= p_x < x2, y1 <= p_y < y2 are those
+    ``box_inside_mask`` sets (csrc/lincomb.cu:cell)."""
+    x1, x2, y1, y2 = boxes.float().unbind(-1)
+
+    def cell(v, size):
+        return torch.ceil(v.clamp(0.0, float(size))).long()
+
+    return cell(x1, pw), cell(x2, pw), cell(y1, ph), cell(y2, ph)
+
+
+def _region_anchors(boxes, ph, pw, pixels=LC.FWD_PIXELS):
+    """For each image and region (row-major), the anchors whose box reaches
+    the region, in index order ([B][regions] lists)."""
+    rh, rw = LC.region_plan(ph, pw, pixels)
+    x1, x2, y1, y2 = _anchor_cells(boxes, ph, pw)
+    nonempty = (x1 < x2) & (y1 < y2)
+    out = []
+    for b in range(boxes.shape[0]):
+        rows = []
+        for y0 in range(0, ph, rh):
+            for x0 in range(0, pw, rw):
+                hit = (nonempty[b] & (x1[b] < min(x0 + rw, pw)) & (x2[b] > x0)
+                       & (y1[b] < min(y0 + rh, ph)) & (y2[b] > y0))
+                rows.append(torch.nonzero(hit).flatten().tolist())
+        out.append(rows)
+    return out
+
+
+def _anchor_regions(boxes, ph, pw, pixels=LC.FWD_PIXELS):
+    """For each image and anchor, the regions whose partials the second pass
+    adds for its columns, in that order: the rectangle of regions its box
+    reaches, none for an empty box."""
+    rh, rw = LC.region_plan(ph, pw, pixels)
+    nrx = -(-pw // rw)
+    x1, x2, y1, y2 = (v.tolist() for v in _anchor_cells(boxes, ph, pw))
+    return [[[] if a >= c or e >= f else
+             [ry * nrx + rx for ry in range(e // rh, (f - 1) // rh + 1)
+              for rx in range(a // rw, (c - 1) // rw + 1)]
+             for a, c, e, f in zip(*rows)] for rows in zip(x1, x2, y1, y2)]
+
+
+def _sums_by_regions(protos, coef, ds, idx, boxes, num_tasks, cos_idx=2,
+                     loss_kind="smooth_l1"):
+    """K5's decomposition: each column's full-row sum of loss(outside_t, gt)
+    plus, region by region in the second pass's order, its inside points'
+    loss(s, gt) - loss(outside_t, gt), over the regions that list it."""
+    b, ph, pw, _ = protos.shape
+    kt = coef.shape[1]
+    rh, rw = LC.region_plan(ph, pw)
+    nrx = -(-pw // rw)
+    s, inside, _, gt = LC._points(protos, coef, ds, idx, boxes, num_tasks, cos_idx)
+    out = LC._outside(kt, num_tasks, cos_idx, gt.device)[None, :, None].expand_as(gt)
+    rows = LC._loss(out, gt, loss_kind).sum(-1)
+    diff = torch.where(inside, LC._loss(s, gt, loss_kind) - LC._loss(out, gt, loss_kind), 0.0)
+    diff = diff.reshape(b, kt, ph, pw)
+    sums = rows.clone()
+    for i, lists in enumerate(_region_anchors(boxes, ph, pw)):
+        for r, anchors in enumerate(lists):
+            y0, x0 = (r // nrx) * rh, (r % nrx) * rw
+            for j in anchors:
+                cols = slice(j * num_tasks, (j + 1) * num_tasks)
+                sums[i, cols] += diff[i, cols, y0:y0 + rh, x0:x0 + rw].sum((-2, -1))
+    return sums
+
+
+def _plan_boxes(rng, b, k, mode):
+    """Relative boxes of ``mode``: "some" (two off the map, one of zero size,
+    the rest 0.05-0.45 of it), "off-map", "full-map"."""
+    box = _boxes(rng, b, k, lo=0.7, span=0.15)
+    if mode == "some":
+        box[:, 0] = [1.2, 1.2, 1.5, 1.5]
+        box[:, 1] = [-0.5, -0.5, -0.2, -0.2]
+        box[:, 2] = [0.5, 0.5, 0.5, 0.5]
+    elif mode == "off-map":
+        box[:] = [-0.6, 1.1, -0.3, 1.4]
+    elif mode == "full-map":
+        box[:] = [0.0, 0.0, 1.0, 1.0]
+    return box
+
+
+@pytest.mark.parametrize("pixels", [LC.FWD_PIXELS, LC.BWD_PIXELS])
+@pytest.mark.parametrize("mode", ["some", "off-map", "full-map"])
+@pytest.mark.parametrize("ph,pw,k", [(40, 44, 9), (37, 29, 7), (136, 136, 6)])
+def test_lincomb_region_plan_covers_every_inside_point_once(mode, ph, pw, k, pixels):
+    """The kernels' plan against a brute-force box mask: every inside point
+    lies in exactly one region that lists its anchor; a region that does not
+    list an anchor holds none of its inside points, and one that does holds
+    some; the second pass adds, for each anchor, exactly the regions that
+    list it, in region order."""
+    rng = np.random.RandomState(ph + k)
+    boxes = torch.stack(TB.sanitize_boxes(T(_plan_boxes(rng, 2, k, mode)), ph, pw), -1)
+    rh, rw = LC.region_plan(ph, pw, pixels)
+    nrx = -(-pw // rw)
+    lists = _region_anchors(boxes, ph, pw, pixels)
+    ranges = _anchor_regions(boxes, ph, pw, pixels)
+    x1, x2, y1, y2 = (v[..., None, None] for v in boxes.unbind(-1))
+    px = torch.arange(pw, dtype=torch.float32)[None, None, None, :]
+    py = torch.arange(ph, dtype=torch.float32)[None, None, :, None]
+    inside = (px >= x1) & (px < x2) & (py >= y1) & (py < y2)  # [B, k, ph, pw]
+    region = ((torch.arange(ph)[:, None] // rh) * nrx + torch.arange(pw)[None, :] // rw)
+    for b in range(2):
+        assert len(lists[b]) == -(-ph // rh) * nrx
+        covered = torch.zeros(k, ph, pw, dtype=torch.int32)
+        for r, anchors in enumerate(lists[b]):
+            assert anchors == sorted(anchors)
+            in_r = region == r
+            for j in range(k):
+                held = bool((inside[b, j] & in_r).any())
+                assert held == (j in anchors), (b, r, j)
+                if j in anchors:
+                    covered[j] += (inside[b, j] & in_r).int()
+        assert torch.equal(covered, inside[b].int())
+        for j in range(k):
+            assert ranges[b][j] == [r for r, anchors in enumerate(lists[b]) if j in anchors]
+    if mode == "off-map":
+        assert all(not a for rows in lists for a in rows)
+    if mode == "full-map":
+        assert all(a == list(range(k)) for rows in lists for a in rows)
+
+
+@pytest.mark.parametrize("kind,t", [("bce", 1), ("smooth_l1", 4)])
+@pytest.mark.parametrize("mode", ["some", "off-map", "full-map"])
+def test_lincomb_outside_loss_decomposition_matches_twin(kind, t, mode):
+    """K5's sums as the kernel forms them -- each GT row's full-map loss at
+    outside_t, plus the inside points' loss(s, gt) - loss(outside_t, gt)
+    region by region -- equal the twin's within 1e-5 of their largest
+    magnitude."""
+    rng = np.random.RandomState(11)
+    protos, coef, ds, sel_gt, _, _ = _lincomb_case(11, 2, 40, 44, 9, t, 3)
+    box = _plan_boxes(rng, 2, 9, mode)
+    args = LC.kernel_args(T(protos), T(coef), T(ds), T(sel_gt), T(box), t)
+    ref = LC.lincomb_task_sums_plain(*args, t, loss_kind=kind)
+    got = _sums_by_regions(*args, t, loss_kind=kind)
+    assert_close_scaled(got.numpy(), ref.numpy(), 1e-5)
