@@ -69,20 +69,31 @@ Phases, in order; any failure propagates and the exit code is not 0:
      running statistics, on the card (kernels, bf16) and on the CPU (plain
      PyTorch, fp32);
   8. forward latency at batch 1 and eval samples/s at batch 24;
-  9. SSG training at full width (config/OCID-Grasp/ssg_r50.yaml: RN50
-     (3,4,6,3), RGB-D, 544^2, 32 classes, 32 prototypes, bf16) with seeded
-     random weights through ``train_one_epoch`` for 4 steps at batch 8 (2
-     prepared synthetic batches, reused; the config's batch 32 would carry
-     4.7 GB of f32 legacy targets per step), with the launch counters
-     checked (2 K5 and 2 K5b per step, nothing else); the loss and its 8
-     terms are finite and every trainable parameter and BatchNorm statistic
-     moved; then SSG train samples/s over 4 more steps;
- 10. SSG eval: ``validate`` (batched post-processing, J@1/J@5) over 16
-     synthetic val samples at the config's batch_size_val 2, no K5 launch;
+  9. SSG training at full width (config/OCID-Grasp/ssg_r50.yaml as
+     written: RN50 (3,4,6,3), RGB-D, 544^2, 32 classes, 32 prototypes,
+     bf16, the raw wire at batch 32) with seeded random weights through
+     ``train_one_epoch`` for 4 steps (2 prepared batches of 480x640
+     synthetic frames, packed with ``pack_ssg_raw`` and collated with
+     ``collate_ssg_raw``, reused: the card augments, rasterizes and resizes
+     them), with the launch counters checked (2 K5 and 2 K5b per step,
+     nothing else); the loss and its 8 terms are finite and every trainable
+     parameter and BatchNorm statistic moved; host bytes per sample and the
+     peak device memory; then SSG train samples/s over 4 more steps (a
+     batch of 32 that does not fit in memory runs at 16, then 8, said so on
+     the ``[ssg-train]`` line); the share of K5/K5b's points inside a box on
+     the first raw batch; one more step on a prepared legacy-wire batch of
+     8 (finite loss, host bytes per sample, step time);
+ 10. SSG eval: ``validate`` on the raw wire (batched post-processing into
+     the frames' 480x640, J@1/J@5) over 16 synthetic val frames at the
+     config's batch_size_val 2, no K5 launch;
  11. one SSG train step at batch 2 and 256^2 (to bound the CPU's time),
      BatchNorm on running statistics, the same positive priorities, on the
      card (kernels, bf16) and on the CPU (plain PyTorch, fp32): the 8 loss
-     terms and each group's gradients must agree;
+     terms and each group's gradients must agree; then one raw batch of 4
+     frames unpacked as the train step does on the card and on the CPU,
+     both f32: every plane within ``UNPACK_TOL`` (sin and cos
+     ``UNPACK_SIN_COS_TOL``), the binarized maps differing only at 0.5
+     ties;
  12. the device time per call, from torch.profiler's kernel rows, of K1,
      K1b, K2 and K3 in eval and in train mode (by part: ln_pos, the
      projections, the attention step, the out-projection), K2b and K3b (by
@@ -119,9 +130,25 @@ CONFIG = "config/OCID-VLG/crog_synthetic_r50.yaml"
 TRAIN_STEPS = 4
 RATE = 0.1  # the config's decoder dropout
 SSG_CONFIG = "config/OCID-Grasp/ssg_r50.yaml"
-SSG_BATCH = 8
+SSG_BATCH = 32  # the config's batch_size, on its raw wire
+# one legacy-wire SSG step after the main path's, and the batch of K5/K5b's
+# ``ssg-batch`` case (the first legacy batch at 8)
+SSG_LEGACY_BATCH = 8
 SSG_VAL_SAMPLES = 16
 SSG_E2E_SIZE = 256
+SSG_UNPACK_BATCH = 4
+# SSG's raw unpack on the card vs the CPU, both f32 with TF32 off: the same
+# arithmetic with the products summed in another order.  Image, depth,
+# masks, quality and width are of order 1 and each output sums a few
+# products: 1e-5.  sin / cos take the warped degree-unit angle canvas
+# (values up to 180, a few roundings of 180 * 2^-24 apart) times 2: 2e-4.
+# The binarized ins_ds / sem_ds may differ only where the downsampled mask
+# sits within UNPACK_TIE of the 0.5 threshold, on at most UNPACK_FLIP_SHARE
+# of the elements.
+UNPACK_TOL = 1e-5
+UNPACK_SIN_COS_TOL = 2e-4
+UNPACK_TIE = 1e-5
+UNPACK_FLIP_SHARE = 1e-3
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): bf16 tensor cores, f32
 # products on the tensor cores (TF32's 495 TFLOP/s over the three TF32
 # products of the 3xTF32 split, which keeps f32 accuracy), device memory
@@ -920,30 +947,39 @@ def k1b_long_check(device, b=4, l=K1B_LONG, heads=32):
                  K1B_REL_TOL * float(r.float().abs().max()), K1B_DIFF_SHARE)
 
 
-def ssg_batch_lincomb_args(device, protos, g):
+def ssg_batch_lincomb_args(device, protos, g, batch=None):
     """{T: (protos, coefficients, GT rows, GT index, boxes)} as ``ssg_losses``
-    hands them to K5/K5b (T=1 the instance masks, T=4 the grasp maps) on the
-    first batch ``ssg_train_path`` trains: its synthetic scenes, the model's
-    anchors and the step's first priority draw, matched, selected and
-    downsampled by the loss's own code.  Only the network's outputs are
+    hands them to K5/K5b (T=1 the instance masks, T=4 the grasp maps) on a
+    host ``batch`` of SSG's config: by default the first legacy batch of
+    ``SSG_LEGACY_BATCH`` synthetic scenes (the ``ssg-batch`` case), or the
+    first raw batch of phase 9 (``ssg-raw``, unpacked with ``emit_ds`` as
+    the train step does, so the loss takes its ``ins_ds`` / ``sem_ds`` /
+    ``grasp_ds``): its scenes, the model's anchors and the step's first
+    priority draw, matched, selected and downsampled by the loss's own
+    code.  Only the network's outputs are
     random (``protos``; coefficients from ``g``, tanh'd): they decide no
     box, GT row or crop."""
     import torch
 
-    from crog_tpu_torch.engine.ssg_engine import DENSE_KEYS, _dense
+    from crog_tpu_torch.engine.ssg_engine import device_batch
     from crog_tpu_torch.models import ssg_loss
     from crog_tpu_torch.models.ssg import build_ssg
     from crog_tpu_torch.train_ssg import loss_config
 
-    cfg = _ssg_cfg(("batch_size", str(SSG_BATCH)))
-    batch = _ssg_batches(cfg, cfg.train_split, 2 * SSG_BATCH, SSG_BATCH, True)[0]
-    batch = _dense(batch, DENSE_KEYS, device)
+    cfg = _ssg_cfg(("wire_format", "legacy"))
+    if batch is None:
+        batch = _ssg_data(cfg, cfg.train_split, 2 * SSG_LEGACY_BATCH, SSG_LEGACY_BATCH,
+                          True)[0][0]
+    batch = device_batch(batch, device, cfg.img_size, max_objs=cfg.max_objs)
     anchors = torch.as_tensor(build_ssg(cfg).anchors()).to(device)
     b, n, c = protos.shape[0], anchors.shape[0], int(cfg.num_classes)
+    # the semantic head's map at the size of a raw batch's sem_ds (a legacy
+    # batch's full maps are downsampled to it in the loss)
+    sh = batch["sem_ds"].shape[-1] if "sem_ds" in batch else 8
     output = {"protos": protos,
               "cls_logits": torch.randn(b, n, c, generator=g).to(device),
               "box_pred": torch.randn(b, n, 4, generator=g).to(device),
-              "seg_pred": torch.randn(b, 8, 8, c, generator=g).to(device),
+              "seg_pred": torch.randn(b, sh, sh, c, generator=g).to(device),
               "ins_coef_pred": torch.tanh(torch.randn(b, n, 32, generator=g)).to(device),
               "grasp_coef_pred": torch.tanh(torch.randn(b, n, 4, 32, generator=g)).to(device)}
     taken = {}
@@ -961,15 +997,16 @@ def ssg_batch_lincomb_args(device, protos, g):
     return taken
 
 
-def lincomb_cases(device, case: str = "synthetic", b=SSG_BATCH, ph=136, k=100, m=24):
+def lincomb_cases(device, case: str = "synthetic", ph=136, k=100, m=24):
     """loss kind -> (kernel arguments, tasks, gradient of the sums): K5/K5b's
-    inputs at SSG's main path (batch 8, 544^2: 136^2 prototypes,
-    masks_to_train 100, max_objs 24) for the instance-mask launch (T=1,
-    binary GT, 24 rows) and the grasp launch (T=4, 96 rows).  Prototypes
-    are ReLU'd and coefficients tanh'd, as the model emits them.  The
-    boxes, GT rows and GT maps by ``case``: "ssg-batch", those the main
-    path's first step hands the kernels (``ssg_batch_lincomb_args``);
-    "synthetic", made-up boxes of 0.05-0.30 of the map, three of them off
+    inputs at SSG's shapes (544^2: 136^2 prototypes, masks_to_train 100,
+    max_objs 24) for the instance-mask launch (T=1, binary GT, 24 rows)
+    and the grasp launch (T=4, 96 rows).  Prototypes are ReLU'd and
+    coefficients tanh'd, as the model emits them.  The boxes, GT rows and
+    GT maps by ``case`` (``ssg_batch_lincomb_args``): "ssg-raw", those the
+    main path's first step hands the kernels (the first raw batch at
+    SSG_BATCH); "ssg-batch", those of the first legacy batch at
+    SSG_LEGACY_BATCH; at that batch, "synthetic", made-up boxes of 0.05-0.30 of the map, three of them off
     it, with random GT; "full-map", the synthetic case with every box over
     the whole map, the dense worst case of a kernel that skips points
     outside the boxes."""
@@ -977,6 +1014,7 @@ def lincomb_cases(device, case: str = "synthetic", b=SSG_BATCH, ph=136, k=100, m
 
     from crog_tpu_torch.ops import lincomb as LC
 
+    b = SSG_BATCH if case == "ssg-raw" else SSG_LEGACY_BATCH
     g = torch.Generator().manual_seed(SEED + 5)
     protos = torch.relu(torch.randn(b, ph, ph, 32, generator=g))
     lo = torch.rand(b, k, 2, generator=g) * 0.7
@@ -985,8 +1023,11 @@ def lincomb_cases(device, case: str = "synthetic", b=SSG_BATCH, ph=136, k=100, m
     if case == "full-map":
         box[:] = torch.tensor([0.0, 0.0, 1.0, 1.0])
     sel_gt = torch.randint(0, m, (b, k), generator=g)
-    taken = (ssg_batch_lincomb_args(device, protos.to(device), g) if case == "ssg-batch"
-             else {})
+    taken = {}
+    if case == "ssg-raw":
+        taken = ssg_batch_lincomb_args(device, protos.to(device), g, ssg_raw_batches()[0])
+    elif case == "ssg-batch":
+        taken = ssg_batch_lincomb_args(device, protos.to(device), g)
     cases = {}
     for kind, t in (("bce", 1), ("smooth_l1", 4)):
         coef = torch.tanh(torch.randn(b, k, t, 32, generator=g))
@@ -1057,7 +1098,7 @@ def lincomb_parts(seq):
 
 # K5/K5b's box cases (``lincomb_cases``); the first is the main path's and
 # fills the records
-LINCOMB_CASES = ("ssg-batch", "synthetic", "full-map")
+LINCOMB_CASES = ("ssg-raw", "ssg-batch", "synthetic", "full-map")
 
 
 def check_lincomb(device, timed: bool = True):
@@ -1065,7 +1106,7 @@ def check_lincomb(device, timed: bool = True):
     kinds, in each box case, each twice for equal bits.  Per case and SSG
     train step (the mask launch plus the grasp launch): the time, the bound
     of the work the function needs beside the dense bound, and the share of
-    points inside a box.  The records carry the ssg-batch case's numbers,
+    points inside a box.  The records carry the ssg-raw case's numbers,
     and the largest error of any case."""
     import torch
 
@@ -1582,10 +1623,12 @@ def timings(model, eval_step, batch, cfg, smi: str):
 
 
 def _ssg_cfg(opts=()):
+    """SSG's config as written (raw wire, batch 32) on the synthetic data;
+    ``opts`` override further keys."""
     from crog_tpu_torch.config import load_cfg_from_cfg_file, merge_cfg_from_list
 
-    return merge_cfg_from_list(load_cfg_from_cfg_file(SSG_CONFIG), [
-        "dataset", "synthetic", "wire_format", "legacy", *opts])
+    return merge_cfg_from_list(load_cfg_from_cfg_file(SSG_CONFIG),
+                               ["dataset", "synthetic", *opts])
 
 
 def _ssg_model(cfg, device, dtype=None):
@@ -1598,27 +1641,51 @@ def _ssg_model(cfg, device, dtype=None):
     return model.to(device)
 
 
-def _ssg_batches(cfg, split: str, samples: int, batch: int, shuffle: bool):
-    from functools import partial
+def ssg_host_bytes(batch) -> int:
+    """Bytes per sample that an SSG train step sends to the card."""
+    from crog_tpu_torch.data.ssg_rawwire import SSG_RAW_STEP_KEYS, is_ssg_raw
+    from crog_tpu_torch.engine.ssg_engine import DENSE_KEYS
 
+    keys = SSG_RAW_STEP_KEYS if is_ssg_raw(batch) else DENSE_KEYS
+    return sum(batch[k].nbytes for k in keys if k in batch) // len(batch["obj_valid"])
+
+
+def _ssg_data(cfg, split: str, samples: int, batch: int, shuffle: bool):
+    """(prepared host batches in the config's wire, the frame its ground
+    truth lives in): the synthetic data through the train CLI's own dataset
+    and collate, the augmentation seeded by SEED."""
+    import random
+
+    from crog_tpu_torch.config import merge_cfg_from_list
     from crog_tpu_torch.data.loader import SequentialLoader, ShuffleLoader
-    from crog_tpu_torch.data.ocid_grasp import collate_ssg
-    from crog_tpu_torch.data.synthetic_ssg import SyntheticOCIDGrasp
+    from crog_tpu_torch.train_ssg import build_ssg_dataset, ssg_collate
 
-    ds = SyntheticOCIDGrasp(samples, split, cfg.img_size, cfg.num_classes)
-    collate = partial(collate_ssg, max_objs=cfg.max_objs)
+    cfg = merge_cfg_from_list(cfg, ["synthetic_samples", str(samples)])
+    ds = build_ssg_dataset(cfg, split, random.Random(SEED))
     t0 = time.perf_counter()
-    loader = (ShuffleLoader(ds, batch, seed=SEED, collate_fn=collate) if shuffle
-              else SequentialLoader(ds, batch, pad_last_batch=False, collate_fn=collate))
+    loader = (ShuffleLoader(ds, batch, seed=SEED, collate_fn=ssg_collate(cfg)) if shuffle
+              else SequentialLoader(ds, batch, pad_last_batch=False,
+                                    collate_fn=ssg_collate(cfg)))
     batches = list(loader)
-    print(f"[ssg] {samples} synthetic {split} samples at {cfg.img_size}^2 prepared in "
+    print(f"[ssg] {samples} synthetic {split} samples ({cfg.wire_format} wire, frame "
+          f"{ds.ori_hw[0]}x{ds.ori_hw[1]} -> {cfg.img_size}^2, {ssg_host_bytes(batches[0])} "
+          f"host bytes per sample to the card) prepared in "
           f"{time.perf_counter() - t0:.1f} s (host)", flush=True)
-    return batches
+    return batches, ds.ori_hw
+
+
+def ssg_raw_batches():
+    """Phase 9's prepared host batches: 2 * SSG_BATCH synthetic frames on the
+    config's raw wire, in batches of SSG_BATCH.  The first is also what
+    K5/K5b's ``ssg-raw`` case takes its boxes from."""
+    cfg = _ssg_cfg(("batch_size", str(SSG_BATCH)))
+    return _ssg_data(cfg, cfg.train_split, 2 * SSG_BATCH, SSG_BATCH, True)[0]
 
 
 def ssg_train_path(device, smi: str):
-    """Phase 9: SSG's train_one_epoch at full width, batch 8; returns
-    (launches, samples/s, model, cfg)."""
+    """Phase 9: SSG's train_one_epoch at full width on the config's raw
+    wire at SSG_BATCH (out of memory fails the phase); returns (launches,
+    samples/s, model, cfg)."""
     import torch
 
     from crog_tpu_torch.engine.optim import make_optimizer
@@ -1626,24 +1693,30 @@ def ssg_train_path(device, smi: str):
     from crog_tpu_torch.train_ssg import loss_config
     from crog_tpu_torch.utils.seed import set_random_seed
 
-    cfg = _ssg_cfg(("batch_size", str(SSG_BATCH), "print_freq", "2", "epochs", "1"))
-    prepared = _ssg_batches(cfg, cfg.train_split, 2 * SSG_BATCH, SSG_BATCH, True)
+    batch = SSG_BATCH
+    cfg = _ssg_cfg(("batch_size", str(batch), "print_freq", "2", "epochs", "1"))
+    prepared = ssg_raw_batches()
     batches = [prepared[i % len(prepared)] for i in range(TRAIN_STEPS)]
     model = _ssg_model(cfg, device).train()
     opt, sched = make_optimizer(model, cfg.base_lr, 1.0, cfg.milestones, cfg.lr_decay,
                                 TRAIN_STEPS, cfg.weight_decay)
     step = make_ssg_train_step(model, opt, sched, model.anchors(), loss_config(cfg),
-                               set_random_seed(SEED), cfg.max_norm, device)
+                               set_random_seed(SEED), cfg.max_norm, device,
+                               max_objs=cfg.max_objs)
     params0, stats0 = snapshot(model)
     wrappers = launch_counts()
+    torch.cuda.reset_peak_memory_stats()
     _reset(wrappers)
     metrics = train_one_epoch(batches, step, 1, cfg, TRAIN_STEPS)
     torch.cuda.synchronize()
     launches = {n: w.launches for n, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
     terms = {k: float(v) for k, v in metrics.items()}
-    print(f"[ssg-train] {TRAIN_STEPS} steps at batch {SSG_BATCH}, {cfg.img_size}^2: last "
+    print(f"[ssg-train] {TRAIN_STEPS} steps at batch {batch} ({cfg.wire_format} wire, "
+          f"{ssg_host_bytes(prepared[0])} host bytes per sample), {cfg.img_size}^2: last "
           + ", ".join(f"{k} {v:.6g}" for k, v in terms.items())
-          + f"; launches {launches}", flush=True)
+          + f"; launches {launches}; peak memory {peak / 2**30:.2f} GiB allocated",
+          flush=True)
     if len(terms) != 9 or not all(math.isfinite(v) for v in terms.values()):
         raise AssertionError(f"SSG loss terms not all finite: {terms}")
     check_launches(launches, SSG_PER_STEP, TRAIN_STEPS)
@@ -1653,22 +1726,45 @@ def ssg_train_path(device, smi: str):
     train_one_epoch(batches, step, 1, cfg, TRAIN_STEPS)
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / TRAIN_STEPS
-    print(f"[time] SSG train step batch {SSG_BATCH}: {dt * 1e3:.2f} ms = "
-          f"{SSG_BATCH / dt:.2f} samples/s (prepared host batches in) on {smi}", flush=True)
-    return launches, SSG_BATCH / dt, model, cfg
+    print(f"[time] SSG train step batch {batch}: {dt * 1e3:.2f} ms = {batch / dt:.2f} "
+          f"samples/s (prepared {cfg.wire_format} host batches in) on {smi}", flush=True)
+    ssg_legacy_step(step, smi)
+    return launches, batch / dt, model, cfg
+
+
+def ssg_legacy_step(step, smi: str):
+    """One prepared legacy-wire batch of SSG_LEGACY_BATCH through the main
+    path's train step, twice: the loss is finite; host bytes per sample and
+    the second step's time."""
+    import torch
+
+    cfg = _ssg_cfg(("wire_format", "legacy"))
+    t0 = time.perf_counter()
+    batch = _ssg_data(cfg, cfg.train_split, SSG_LEGACY_BATCH, SSG_LEGACY_BATCH, True)[0][0]
+    prep = time.perf_counter() - t0
+    step(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = float(step(batch)["loss"])
+    dt = time.perf_counter() - t0
+    print(f"[ssg-wire] legacy: loss {loss:.6g}; {ssg_host_bytes(batch)} host bytes per "
+          f"sample; train step {dt * 1e3:.2f} ms at batch {SSG_LEGACY_BATCH} (host "
+          f"prepared the batch in {prep:.1f} s) on {smi}", flush=True)
+    if not math.isfinite(loss):
+        raise AssertionError(f"SSG legacy-wire loss is not finite: {loss}")
 
 
 def ssg_eval_path(device, model, cfg, smi: str):
-    """Phase 10: ``validate`` through the batched post-processing; returns
-    eval samples/s."""
+    """Phase 10: ``validate`` on the config's wire through the batched
+    post-processing, into the frames' own size; returns eval samples/s."""
     import torch
 
     from crog_tpu_torch.engine.ssg_engine import make_ssg_eval_fwd, validate
     from crog_tpu_torch.train_ssg import post_processing
 
     bval = int(cfg.batch_size_val)
-    batches = _ssg_batches(cfg, cfg.val_split, SSG_VAL_SAMPLES, bval, False)
-    post = post_processing(cfg, model.anchors(), batched=bval > 1)
+    batches, ori_hw = _ssg_data(cfg, cfg.val_split, SSG_VAL_SAMPLES, bval, False)
+    post = post_processing(cfg, model.anchors(), bval > 1, ori_hw)
     fwd = make_ssg_eval_fwd(model, device)
     validate(batches[:1], post, fwd, 1, cfg)  # warm-up
     wrappers = launch_counts()
@@ -1680,13 +1776,77 @@ def ssg_eval_path(device, model, cfg, smi: str):
     dt = time.perf_counter() - t0
     launches = {n: w.launches for n, w in wrappers.items()}
     print(f"[ssg-eval] J@1={j1:.6f} J@5={j5:.6f} over {SSG_VAL_SAMPLES} samples at batch "
-          f"{bval} (random weights: near 0 expected); launches {launches}", flush=True)
+          f"{bval} ({cfg.wire_format} wire, post-processing into {ori_hw[0]}x{ori_hw[1]}; "
+          f"random weights: near 0 expected); launches {launches}", flush=True)
     print(f"[time] SSG eval (validate, batch {bval}): {SSG_VAL_SAMPLES / dt:.2f} samples/s "
           f"(host arrays in, Jacquard check on the host) on {smi}", flush=True)
     if not (math.isfinite(j1) and math.isfinite(j5)):
         raise AssertionError(f"SSG J@1/J@5 not finite: {j1}, {j5}")
     check_launches(launches, {}, 0)
     return SSG_VAL_SAMPLES / dt
+
+
+def unpack_gap(batch, device, img_size: int, max_objs: int):
+    """SSG's raw unpack of one host ``batch`` as the train step calls it
+    (pad_objs, emit_ds), on ``device`` and on the CPU, both f32: each
+    plane's max abs difference; raises where one exceeds UNPACK_TOL (sin and
+    cos: UNPACK_SIN_COS_TOL) or a binarized map differs off a 0.5 tie or
+    on more than UNPACK_FLIP_SHARE of its elements."""
+    import torch
+
+    from crog_tpu_torch.data.loader import device_put_crog
+    from crog_tpu_torch.data.ssg_rawwire import SSG_RAW_STEP_KEYS, unpack_ssg_raw
+    from crog_tpu_torch.ops.resize import downsample_masks
+
+    cpu = torch.device("cpu")
+    kw = dict(pad_objs=max_objs, emit_ds=True)
+    with torch.no_grad():
+        got = unpack_ssg_raw(device_put_crog(batch, SSG_RAW_STEP_KEYS, device), img_size,
+                             **kw)
+        raw = device_put_crog(batch, SSG_RAW_STEP_KEYS, cpu)
+        ref = unpack_ssg_raw(raw, img_size, **kw)
+        full = unpack_ssg_raw(raw, img_size, pad_objs=max_objs)["ins_masks"]
+    errs, bad = {}, []
+    for k, r in ref.items():
+        g = got[k].cpu()
+        if g.shape != r.shape or g.dtype != r.dtype:
+            raise AssertionError(f"unpack {k}: {g.shape} {g.dtype} vs {r.shape} {r.dtype}")
+        if k in ("ins_ds", "sem_ds"):
+            diff = g != r
+            near = downsample_masks(full, r.shape[-2:], False)
+            errs[k] = float(diff.float().mean())
+            if errs[k] > UNPACK_FLIP_SHARE or (diff & ((near - 0.5).abs() > UNPACK_TIE)).any():
+                bad.append(k)
+            continue
+        if k == "grasp_ds":  # qua, sin, cos, wid
+            for i, name in enumerate(("qua", "sin", "cos", "wid")):
+                errs[f"grasp_ds.{name}"] = float((g[:, i] - r[:, i]).abs().max())
+                tol = UNPACK_SIN_COS_TOL if name in ("sin", "cos") else UNPACK_TOL
+                if errs[f"grasp_ds.{name}"] > tol:
+                    bad.append(f"grasp_ds.{name}")
+            continue
+        errs[k] = float((g.double() - r.double()).abs().max()) if g.numel() else 0.0
+        if errs[k] > UNPACK_TOL:
+            bad.append(k)
+    if bad:
+        raise AssertionError(f"SSG raw unpack, card vs CPU: {bad}; {errs}")
+    return errs
+
+
+def ssg_unpack_check(device):
+    """The SSG card-vs-CPU phase's unpack check: one raw train batch of
+    SSG_UNPACK_BATCH frames at 480x640 -> 544^2 (``unpack_gap``)."""
+    cfg = _ssg_cfg()
+    batch = _ssg_data(cfg, cfg.train_split, SSG_UNPACK_BATCH, SSG_UNPACK_BATCH, True)[0][0]
+    errs = unpack_gap(batch, device, cfg.img_size, cfg.max_objs)
+    print("[ssg-e2e] raw unpack card vs cpu, f32, batch "
+          f"{SSG_UNPACK_BATCH}: max abs " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()
+                                                      if k not in ("ins_ds", "sem_ds"))
+          + f"; binarized maps differing: ins_ds {errs['ins_ds']:.3g}, sem_ds "
+          f"{errs['sem_ds']:.3g} of the elements (tols {UNPACK_TOL}, sin/cos "
+          f"{UNPACK_SIN_COS_TOL}, flips {UNPACK_FLIP_SHARE} at ties within {UNPACK_TIE})",
+          flush=True)
+    return errs
 
 
 # SSG card (bf16, kernels) vs CPU (fp32, plain) on one train step at batch
@@ -1939,6 +2099,7 @@ def main(argv=None) -> int:
     del ssg_model
     torch.cuda.empty_cache()
     ssg_train_step_gap(device)
+    ssg_unpack_check(device)
     print_device_times()
     # each kernel's launches on the main path that runs it: CROG training
     # for K1-K4b and K6/K6b, SSG training for K5/K5b

@@ -9,18 +9,29 @@ BatchNorm running statistics updated in place; it returns device tensors
 and never syncs.  Eval is the forward in eval mode and
 ``models/ssg_eval.py`` post-processing on the device, then the host-side
 per-object Jacquard check: a ground-truth object counts as hit if any
-predicted instance's grasps match it.  Only the legacy (dense) batch is
-ported; a raw-wire batch raises.
+predicted instance's grasps match it.  A batch is either the legacy dense
+one (``data/ocid_grasp.py:collate_ssg``) or the raw wire
+(``data/ssg_rawwire.py:collate_ssg_raw``), which the step copies to the
+device pinned and non-blocking and unpacks there (augmentation, raster,
+targets downsampled as the loss takes them); eval unpacks only the image.
 """
 
 from __future__ import annotations
 
+import random
 import time
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
+from crog_tpu_torch.data.loader import device_put_crog
+from crog_tpu_torch.data.ssg_rawwire import (
+    SSG_RAW_EVAL_KEYS,
+    SSG_RAW_STEP_KEYS,
+    is_ssg_raw,
+    unpack_ssg_raw,
+)
 from crog_tpu_torch.engine.crog_engine import jacquard_index
 from crog_tpu_torch.engine.optim import clip_by_global_norm_
 from crog_tpu_torch.models.ssg_loss import ssg_losses
@@ -31,28 +42,36 @@ DENSE_KEYS = ("img", "boxes", "labels", "obj_valid", "ins_masks", "grasp_qua",
               "grasp_sin", "grasp_cos", "grasp_wid")
 
 
-def _dense(batch: Dict, keys, device) -> Dict[str, torch.Tensor]:
-    if "ssg_img_u8" in batch:
-        raise NotImplementedError(
-            "the SSG raw wire is not ported yet (ROADMAP queue 1); use wire_format legacy")
-    return {k: torch.as_tensor(batch[k]).to(device, non_blocking=True)
-            for k in keys if k in batch}
+def device_batch(batch: Dict, device, img_size: int, with_depth: bool = True,
+                 targets: bool = True, max_objs: int = 0) -> Dict[str, torch.Tensor]:
+    """A host batch's fields as the model and the loss take them, on
+    ``device``: a raw wire batch is copied and unpacked there (with
+    ``targets``, padded to ``max_objs`` instances and downsampled as the
+    loss consumes them), a legacy batch copied."""
+    if is_ssg_raw(batch):
+        raw = device_put_crog(batch, SSG_RAW_STEP_KEYS if targets else SSG_RAW_EVAL_KEYS,
+                              device)
+        with torch.no_grad():
+            return unpack_ssg_raw(raw, img_size, with_depth, targets=targets,
+                                  pad_objs=max_objs, emit_ds=targets)
+    return device_put_crog(batch, DENSE_KEYS if targets else ("img",), device)
 
 
 def make_ssg_train_step(model, optimizer, scheduler, anchors: np.ndarray,
                         loss_cfg: Dict[str, Any], generator: Optional[torch.Generator] = None,
-                        max_norm: float = 0.0, device=None):
-    """Returns ``step(batch) -> metrics`` for a legacy numpy batch of
-    ``data/ocid_grasp.py:collate_ssg``; the metrics (``loss`` and the 8
-    terms) are device tensors.  ``generator`` (a CPU ``torch.Generator``)
-    draws each step's positive priorities."""
+                        max_norm: float = 0.0, device=None, max_objs: int = 24):
+    """Returns ``step(batch) -> metrics`` for a host batch, legacy or raw
+    wire; the metrics (``loss`` and the 8 terms) are device tensors.
+    ``generator`` (a CPU ``torch.Generator``) draws each step's positive
+    priorities; a raw batch's targets are padded to ``max_objs`` instances."""
     device = torch.device(device) if device is not None else next(
         model.parameters()).device
     anchors_t = torch.as_tensor(np.asarray(anchors, np.float32)).to(device)
     params = [p for p in model.parameters() if p.requires_grad]
 
     def step(batch: Dict) -> Dict[str, torch.Tensor]:
-        dense = _dense(batch, DENSE_KEYS, device)
+        dense = device_batch(batch, device, model.img_size, model.with_depth,
+                             max_objs=max_objs)
         model.train()
         output = model(dense["img"])
         loss, loss_dict = ssg_losses(output, dense, anchors_t, generator, **loss_cfg)
@@ -82,7 +101,7 @@ def train_one_epoch(loader, train_step, epoch: int, args,
         metrics = train_step(batch)
         if (i + 1) % args.print_freq == 0:
             m = {k: float(v) for k, v in metrics.items()}
-            meters["loss"].update(m["loss"], len(batch["img"]))
+            meters["loss"].update(m["loss"], len(batch["obj_valid"]))
             now = time.perf_counter()
             meters["batch_time"].update((now - win_start) / args.print_freq)
             win_start = now
@@ -93,14 +112,15 @@ def train_one_epoch(loader, train_step, epoch: int, args,
 
 def make_ssg_eval_fwd(model, device=None):
     """Returns ``fwd(batch) -> (output, img)``: the eval-mode forward of
-    every sample in a legacy batch (pair batch-N loaders with
-    ``make_ssg_post_processing(batched=True)``)."""
+    every sample in a legacy or raw batch, and the image it saw (pair
+    batch-N loaders with ``make_ssg_post_processing(batched=True)``)."""
     device = torch.device(device) if device is not None else next(
         model.parameters()).device
 
     @torch.no_grad()
     def fwd(batch: Dict):
-        img = _dense(batch, ("img",), device)["img"]
+        img = device_batch(batch, device, model.img_size, model.with_depth,
+                           targets=False)["img"]
         model.eval()
         return model(img), img
 
@@ -112,6 +132,33 @@ def _batched_post(post: Dict) -> Dict:
     if post["det_valid"].dim() == 1:
         return {k: v[None] if torch.is_tensor(v) else v for k, v in post.items()}
     return post
+
+
+def visualization(loader, post_fn, fwd, epoch: int, vis_dir: str, rng: random.Random):
+    """Render the first sample of one val batch, drawn from ``rng``: RGB,
+    predicted grasps, instance mask and grasp maps, written to
+    ``<vis_dir>/ssg_epoch<epoch>.png`` (needs matplotlib).  ``post_fn`` is
+    the batch-1 post-processing with its full-resolution maps."""
+    from crog_tpu_torch.utils.visualization import visualize_grasp_prediction
+
+    idx = rng.randint(0, max(len(loader) - 1, 0))
+    for i, batch in enumerate(loader):
+        if i < idx:
+            continue
+        output, img = fwd(batch)
+        post = _batched_post(post_fn({k: v[:1] for k, v in output.items()}))
+        rects = post["grasp_rects"][0].cpu().numpy()
+        gvalid = post["grasp_valid"][0].cpu().numpy()
+        dvalid = post["det_valid"][0].cpu().numpy()
+        all_rects = [rects[k, j] for k in range(rects.shape[0]) if dvalid[k]
+                     for j in range(rects.shape[1]) if gvalid[k, j]]
+        maps = [m.cpu().numpy() for m in post["grasp_masks"]]  # each [K, H, W]
+        mask = post["ins_masks"][0].cpu().numpy().any(axis=0)
+        return visualize_grasp_prediction(
+            (img[0, :, :, :3].cpu().numpy() * 255).astype(np.uint8), mask.astype(float),
+            tuple(m.max(axis=0) if m.ndim == 3 else m for m in maps), all_rects,
+            f"epoch {epoch}", save_path=f"{vis_dir}/ssg_epoch{epoch:04d}.png")
+    return None
 
 
 def validate(loader, post_fn, fwd, epoch: int, args, max_batches: int = 101):

@@ -177,6 +177,7 @@ class SSG(nn.Module):
         super().__init__()
         self.num_classes = num_classes
         self.img_size = img_size
+        self.with_depth = with_depth
         self.anchor_strides = tuple(anchor_strides)
         self.aspect_ratios = tuple(aspect_ratios)
         self.with_grasp_masks = with_grasp_masks

@@ -25,7 +25,7 @@ import torch
 
 from crog_tpu_torch.ops.boxes import match
 from crog_tpu_torch.ops.lincomb import lincomb_task_sums
-from crog_tpu_torch.ops.resize import resize_bilinear
+from crog_tpu_torch.ops.resize import downsample_masks
 
 GRASP_KEYS = ("qua", "sin", "cos", "wid")
 
@@ -82,13 +82,6 @@ def _gather_rows(x, idx):
     """x [B, N, ...] at idx [B, k] -> [B, k, ...]."""
     shape = idx.shape + x.shape[2:]
     return torch.gather(x, 1, idx.reshape(idx.shape + (1,) * (x.dim() - 2)).expand(shape))
-
-
-def downsample_masks(masks, hw, binarize: bool = True):
-    """[..., S, S] ground-truth maps -> [..., h, w] by fp32 bilinear resize,
-    thresholded at 0.5 when ``binarize``."""
-    ds = resize_bilinear(masks.float()[..., None], hw, False)[..., 0]
-    return (ds > 0.5).float() if binarize else ds
 
 
 def _per_anchor_scale(sums, sel_box, sel_valid, old_num_pos, num_pos):

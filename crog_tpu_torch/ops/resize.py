@@ -73,6 +73,18 @@ def interp_matrix(
     return w.astype(np.float32)
 
 
+def resize_np(x: np.ndarray, out_hw, mode: str = "linear", align_corners=False):
+    """Host-side resize of [H, W] or [H, W, C] numpy with the same weight
+    matrices, in float64 (crog_tpu/ops/resize.py:202; cv2.resize's
+    INTER_LINEAR is align_corners=False)."""
+    out_h, out_w = out_hw
+    wh = interp_matrix(x.shape[0], out_h, mode, align_corners)
+    ww = interp_matrix(x.shape[1], out_w, mode, align_corners)
+    y = np.tensordot(wh, x.astype(np.float64), axes=[[1], [0]])
+    y = np.tensordot(ww, y, axes=[[1], [1]])
+    return np.swapaxes(y, 0, 1).astype(np.float32)
+
+
 def resize2d(x: torch.Tensor, out_hw, mode: str, align_corners: bool = False,
              exact: bool = True) -> torch.Tensor:
     """Resize an NHWC (or HWC / HW) tensor to ``out_hw`` with torch semantics.
@@ -100,6 +112,14 @@ def resize_bilinear(x, out_hw, align_corners: bool = False):
     """Bilinear resize in fp32 (crog_tpu/ops/resize.py:214), e.g. SSG's
     ground-truth downsample to prototype resolution."""
     return resize2d(x, out_hw, "linear", align_corners)
+
+
+def downsample_masks(masks, hw, binarize: bool = True):
+    """[..., S, S] ground-truth maps -> [..., h, w] by fp32 bilinear resize,
+    thresholded at 0.5 when ``binarize``: SSG's loss and its raw wire's
+    ``emit_ds`` maps."""
+    ds = resize_bilinear(masks.float()[..., None], hw, False)[..., 0]
+    return (ds > 0.5).float() if binarize else ds
 
 
 def resize_bicubic(x, out_hw, align_corners: bool = True):

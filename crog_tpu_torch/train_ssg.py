@@ -1,7 +1,7 @@
 """SSG training entry point of the port (counterpart of train_ssg.py).
 
     python -m crog_tpu_torch.train_ssg --config config/OCID-Grasp/ssg_r50.yaml \\
-        [--device cpu] --opts dataset synthetic wire_format legacy synthetic_samples 32
+        [--device cpu] --opts dataset synthetic synthetic_samples 32
 
 Per epoch: ``train_one_epoch`` over shuffled train batches (AdamW,
 MultiStepLR by epoch milestones, BatchNorm statistics), then every
@@ -11,15 +11,28 @@ through the batched post-processing when ``batch_size_val`` > 1), then
 improvement.  ``--device`` defaults to ``cuda`` and raises when there is no
 card; on the CPU the model computes in fp32.  Weights start from
 ``random_init_`` seeded by ``manual_seed``; a ``resume`` checkpoint written
-by this CLI restores the model, the optimizer and the schedule.  Only the
-legacy wire format is ported: the config's ``wire_format: raw`` raises.
-One process, one device: no tracker and no mesh.
+by this CLI restores the model, the optimizer and the schedule.
+
+``wire_format`` picks what the host sends: ``raw`` (the config's) ships the
+uint8 frame, bit-packed instance masks, grasp raster parameters and the
+drawn augmentation, and the card augments, rasterizes and resizes
+(``data/ssg_rawwire.py``); ``legacy`` ships the dense 544^2 targets made on
+the host.  ``dataset synthetic`` makes 480 x 640 frames that go through the
+reader's host pipeline on the raw wire (``SyntheticOCIDGraspFrames``) and
+544^2 scenes on the legacy one (``SyntheticOCIDGrasp``); ``dataset
+OCID-Grasp`` reads the tree at ``root_dir``.  The augmentation draws from a
+``random.Random`` seeded by ``manual_seed``.  The post-processing maps
+predictions into the dataset's frame (``ori_hw``), where its ground-truth
+rects are.  With ``visualize``, each validation also writes one figure
+under ``<output_folder>/<exp_name>/vis`` (needs matplotlib).  One process,
+one device: no tracker and no mesh.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import random
 import time
 from functools import partial
 
@@ -28,6 +41,8 @@ import torch
 from crog_tpu_torch.config import load_cfg_from_cfg_file, merge_cfg_from_list
 from crog_tpu_torch.data.loader import SequentialLoader, ShuffleLoader
 from crog_tpu_torch.data.ocid_grasp import OCIDGraspDataset, collate_ssg
+from crog_tpu_torch.data.ssg_rawwire import collate_ssg_raw
+from crog_tpu_torch.data.synthetic_ssg import SyntheticOCIDGrasp, SyntheticOCIDGraspFrames
 from crog_tpu_torch.engine import checkpoint as ckpt
 from crog_tpu_torch.engine.crog_engine import set_exact_fp32_matmul
 from crog_tpu_torch.engine.optim import make_optimizer, set_schedule_step
@@ -36,6 +51,7 @@ from crog_tpu_torch.engine.ssg_engine import (
     make_ssg_train_step,
     train_one_epoch,
     validate,
+    visualization,
 )
 from crog_tpu_torch.models.ssg import build_ssg, random_init_
 from crog_tpu_torch.models.ssg_eval import make_ssg_post_processing
@@ -56,18 +72,35 @@ def get_parser(argv=None):
     return cfg, args.device
 
 
-def build_ssg_dataset(args, split: str):
+def is_raw_wire(args) -> bool:
     wire = args.get("wire_format", "legacy")
-    if wire != "legacy":
-        raise NotImplementedError(
-            f"wire_format {wire!r} is not ported yet; pass wire_format legacy")
-    if args.dataset == "synthetic":
-        from crog_tpu_torch.data.synthetic_ssg import SyntheticOCIDGrasp
+    if wire not in ("raw", "legacy"):
+        raise ValueError(f"wire_format {wire!r}: SSG takes raw or legacy")
+    return wire == "raw"
 
-        return SyntheticOCIDGrasp(num_samples=int(args.get("synthetic_samples", 128)),
-                                  split=split, img_size=args.img_size,
+
+def build_ssg_dataset(args, split: str, rng: random.Random):
+    """The split's dataset in the config's wire format; ``rng`` feeds its
+    augmentor."""
+    kw = dict(raw=is_raw_wire(args), max_objs=int(args.get("max_objs", 24)),
+              max_rects=int(args.get("max_rects", 16)), rng=rng)
+    if args.dataset == "synthetic":
+        n = int(args.get("synthetic_samples", 128))
+        if kw["raw"]:
+            return SyntheticOCIDGraspFrames(num_samples=n, split=split,
+                                            img_size=args.img_size,
+                                            num_classes=args.num_classes, **kw)
+        return SyntheticOCIDGrasp(num_samples=n, split=split, img_size=args.img_size,
                                   num_classes=args.num_classes)
-    return OCIDGraspDataset(args.root_dir, split)
+    return OCIDGraspDataset(args.root_dir, split, img_size=args.img_size,
+                            depth_factor=args.depth_factor, with_depth=args.with_depth,
+                            with_grasp_masks=args.with_grasp_masks, **kw)
+
+
+def ssg_collate(args):
+    if is_raw_wire(args):
+        return collate_ssg_raw
+    return partial(collate_ssg, max_objs=int(args.get("max_objs", 24)))
 
 
 def loss_config(args):
@@ -78,13 +111,13 @@ def loss_config(args):
                 with_grasp_masks=args.with_grasp_masks)
 
 
-def post_processing(args, anchors, batched: bool):
+def post_processing(args, anchors, batched: bool, ori_hw):
+    """Post-processing into the ``ori_hw`` frame of the dataset's
+    ground-truth rects."""
     return make_ssg_post_processing(
         anchors, num_protos=args.num_protos, nms_score_thre=args.nms_score_thre,
         nms_iou_thre=args.nms_iou_thre, top_k=args.top_k,
-        max_detections=args.max_detections,
-        ori_hw=(480, 640) if args.dataset != "synthetic" else (args.img_size,) * 2,
-        batched=batched)
+        max_detections=args.max_detections, ori_hw=ori_hw, batched=batched)
 
 
 def main(argv=None):
@@ -98,14 +131,14 @@ def main(argv=None):
     logger.info(f"Device: {device}")
     logger.info(str(args))
 
-    train_ds = build_ssg_dataset(args, args.train_split)
-    val_ds = build_ssg_dataset(args, args.val_split)
+    train_ds = build_ssg_dataset(args, args.train_split, random.Random(args.manual_seed))
+    val_ds = build_ssg_dataset(args, args.val_split, random.Random(args.manual_seed))
     # the plain path on the CPU computes in fp32, whatever compute_dtype says
     model = build_ssg(args, torch.float32 if device.type == "cpu" else None)
     random_init_(model, torch.Generator().manual_seed(args.manual_seed))
     model = model.to(device)
     anchors = model.anchors()
-    collate = partial(collate_ssg, max_objs=int(args.get("max_objs", 24)))
+    collate = ssg_collate(args)
     train_loader = ShuffleLoader(train_ds, args.batch_size, seed=args.manual_seed,
                                  collate_fn=collate)
     bval = int(args.get("batch_size_val", 1))
@@ -126,8 +159,10 @@ def main(argv=None):
         logger.info(f"=> resumed from '{resume}' (epoch {start_epoch})")
 
     train_step = make_ssg_train_step(model, optimizer, scheduler, anchors,
-                                     loss_config(args), generator, args.max_norm, device)
-    post_fn = post_processing(args, anchors, batched=bval > 1)
+                                     loss_config(args), generator, args.max_norm, device,
+                                     max_objs=int(args.get("max_objs", 24)))
+    post_fn = post_processing(args, anchors, bval > 1, val_ds.ori_hw)
+    vis_rng = random.Random(args.manual_seed)
     eval_fwd = make_ssg_eval_fwd(model, device)
     for epoch in range(start_epoch, args.epochs):
         train_loader.set_epoch(epoch)
@@ -141,6 +176,10 @@ def main(argv=None):
         step = scheduler.last_epoch
         if args.get("evaluate", True) and (epoch + 1) % args.val_freq == 0:
             j1, _ = validate(val_loader, post_fn, eval_fwd, epoch + 1, args)
+            if args.get("visualize", False):
+                # batch-1 post-processing: it keeps the full-resolution maps
+                visualization(val_loader, post_processing(args, anchors, False, val_ds.ori_hw),
+                              eval_fwd, epoch + 1, os.path.join(out_dir, "vis"), vis_rng)
             model.train()
             ckpt.save_checkpoint(out_dir, model, optimizer, step, epoch + 1,
                                  best_jindex=best_j1)

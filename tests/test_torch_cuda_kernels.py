@@ -1,5 +1,6 @@
 """The port's CUDA kernels K1-K4, K1b-K4b, SSG's K5/K5b and the s2d stem's
-K6/K6b against their plain PyTorch twins, on a card.
+K6/K6b against their plain PyTorch twins, on a card; and SSG's raw wire
+unpack on the card against the CPU.
 
 Marked ``cuda``: they skip where ``torch.cuda.is_available()`` is false (the
 kernels have no CPU mode).  This file imports neither jax nor crog_tpu, so
@@ -454,6 +455,29 @@ def test_cuda_lincomb_kernels_match_twins(card, kind, t, boxes):
     with pytest.raises(ValueError, match="prototypes"):
         LC.lincomb_fwd(args[0][..., :16].contiguous(), args[1][..., :16].contiguous(),
                        *args[2:], t, loss_kind=kind)
+
+
+@pytest.mark.cuda
+def test_cuda_ssg_raw_unpack_matches_cpu(card):
+    """SSG's raw unpack (plain PyTorch on the card, no hand-written kernel)
+    of one batch of 2 augmented synthetic frames at 480 x 640 -> 544^2, as
+    the train step calls it (pad_objs 24, emit_ds), against the CPU, both
+    f32 with TF32 off: chip_smoke.py's ``unpack_gap`` and its UNPACK_*
+    tolerances."""
+    import random
+
+    import chip_smoke as cs
+    from crog_tpu_torch.data.ssg_rawwire import collate_ssg_raw
+    from crog_tpu_torch.data.synthetic_ssg import SyntheticOCIDGraspFrames
+
+    ds = SyntheticOCIDGraspFrames(num_samples=2, raw=True, rng=random.Random(0))
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        errs = cs.unpack_gap(collate_ssg_raw([ds[0], ds[1]]), card, 544, 24)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    assert set(errs) >= {"img", "ins_ds", "sem_ds", "grasp_ds.sin"}
 
 
 S2D_REL = 2**-7  # K6: one bf16 step at the top binade; K6b: LINCOMB_REL

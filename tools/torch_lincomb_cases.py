@@ -3,8 +3,9 @@
     python3 tools/torch_lincomb_cases.py [--tree DIR] [--pixels FWD:BWD ...]
 
 Runs chip_smoke.py's lincomb phase alone: each box case of
-``lincomb_cases`` (the boxes, GT rows and GT maps the main path's first SSG
-step hands the kernels; made-up boxes; every box over the whole map), both
+``lincomb_cases`` (the boxes, GT rows and GT maps that the first SSG step
+hands the kernels on the raw wire at batch 32 and on the legacy wire at
+batch 8; made-up boxes; every box over the whole map), both
 loss kinds, each kernel against its twin twice for equal bits, timed with
 its bounds and the share of points inside a box, then the profiler's
 device time of each launch by kernel.  ``--tree DIR`` takes the package
