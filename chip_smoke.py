@@ -2,7 +2,7 @@
 """Drive the PyTorch port (crog_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py             # every phase below
-    python3 chip_smoke.py --kernels   # phases 1-3 and 12 only, no result line
+    python3 chip_smoke.py --kernels   # phases 1-3 and 13 only, no result line
 
 Phases, in order; any failure propagates and the exit code is not 0:
   1. the card's name and power limit (nvidia-smi);
@@ -94,7 +94,31 @@ Phases, in order; any failure propagates and the exit code is not 0:
      both f32: every plane within ``UNPACK_TOL`` (sin and cos
      ``UNPACK_SIN_COS_TOL``), the binarized maps differing only at 0.5
      ties;
- 12. the device time per call, from torch.profiler's kernel rows, of K1,
+ 12. the OCID-VLG configs as written, from disk: an OCID tree of 12 scenes
+     (48 referring expressions, tests/ocid_fixture.py:build_ocid_tree,
+     imported by path) in a temporary directory, read by
+     ``data/ocid_vlg.py:OCIDVLGDataset`` under config/OCID-VLG/
+     crog_multiple_r50.yaml as written (RN50 at 416^2, 3 decoder layers,
+     d_model 512, the rawlb wire, the s2d stem on K6, batch 24, workers 8,
+     workers_val 4) with seeded random weights (the CLIP archive is absent):
+     the val split through a one-thread loader without the put stage (the
+     reference host batches, and the reader's host time per sample), then
+     through the eval CLI's loader (workers_val threads, the put stage)
+     over a ``SampleCache``, cold and warm: every host batch equal bit for
+     bit to the reference's, the per-sample IoU within READER_IOU_TOL and
+     J@1, J@5 and Pr@K equal to the reference run's, the launch counts per
+     forward as in phase 4; two refer-type subsets (READER_TYPES of
+     refer_types.json) through ``evaluate_refer_types`` with padded tails;
+     4 train steps through the train CLI's loader (shuffle, drop_last,
+     workers 8, the put stage): finite loss, every parameter and statistic
+     moved, the launch counts per step as in phase 5; then the rates over
+     a larger tree (READER_RATE_SCENES, 12 batches of 24 per epoch): eval
+     samples/s cold and warm over two fresh caches, train samples/s with
+     the loader on threads and on READER_PROCS processes, one epoch each
+     in turn for READER_RATE_ROUNDS rounds, with the loader's wait per
+     batch and its share of the pass; the ``[reader]`` line (means with
+     the least and the largest run);
+ 13. the device time per call, from torch.profiler's kernel rows, of K1,
      K1b, K2 and K3 in eval and in train mode (by part: ln_pos, the
      projections, the attention step, the out-projection), K2b and K3b (by
      part: the LN kernels, the dO and dX GEMMs, the attention step, the dW
@@ -1319,14 +1343,14 @@ def host_bytes(batch) -> int:
 
 
 def build_model_and_data(device, samples=SAMPLES, batch=BATCH, opts=()):
-    from crog_tpu_torch.data.loader import SequentialLoader
+    from crog_tpu_torch.data.loader import DataLoader
     from crog_tpu_torch.test_crog import build_dataset
 
     cfg = _cfg(samples, batch, opts)
     model = _model(cfg, device).eval()
     ds = build_dataset(cfg, cfg.val_split)
     t0 = time.perf_counter()
-    batches = list(SequentialLoader(ds, batch, pad_last_batch=True))
+    batches = list(DataLoader(ds, batch, pad_last_batch=True))
     print(f"[data] {samples} synthetic val samples prepared in "
           f"{time.perf_counter() - t0:.1f} s (host)", flush=True)
     return cfg, model, batches
@@ -1395,7 +1419,7 @@ def train_path(device, smi: str):
     a prepared train batch, cfg, the train step)."""
     import torch
 
-    from crog_tpu_torch.data.loader import ShuffleLoader
+    from crog_tpu_torch.data.loader import DataLoader
     from crog_tpu_torch.engine.crog_engine import make_train_step, train_one_epoch
     from crog_tpu_torch.engine.optim import make_optimizer
     from crog_tpu_torch.test_crog import build_dataset
@@ -1403,7 +1427,8 @@ def train_path(device, smi: str):
 
     cfg = _cfg(2 * BATCH, BATCH, ("print_freq", "2", "epochs", "1"))
     t0 = time.perf_counter()
-    loader = ShuffleLoader(build_dataset(cfg, cfg.train_split), BATCH, seed=SEED)
+    loader = DataLoader(build_dataset(cfg, cfg.train_split), BATCH, shuffle=True,
+                        drop_last=True, seed=SEED)
     prepared = list(loader)
     print(f"[train] {2 * BATCH} synthetic train samples ({cfg.wire_format} wire, "
           f"{host_bytes(prepared[0])} host bytes per sample to the card) prepared in "
@@ -1443,14 +1468,14 @@ def wire_phase(step, smi: str):
     the step time (the second of two steps on the batch)."""
     import torch
 
-    from crog_tpu_torch.data.loader import ShuffleLoader
+    from crog_tpu_torch.data.loader import DataLoader
     from crog_tpu_torch.test_crog import build_dataset
 
     for wire in WIRES:
         cfg = _cfg(BATCH, BATCH, ("wire_format", wire))
         t0 = time.perf_counter()
-        batch = next(iter(ShuffleLoader(build_dataset(cfg, cfg.train_split), BATCH,
-                                        seed=SEED)))
+        batch = next(iter(DataLoader(build_dataset(cfg, cfg.train_split), BATCH,
+                                     shuffle=True, drop_last=True, seed=SEED)))
         prep = time.perf_counter() - t0
         step(batch)
         torch.cuda.synchronize()
@@ -1657,16 +1682,15 @@ def _ssg_data(cfg, split: str, samples: int, batch: int, shuffle: bool):
     import random
 
     from crog_tpu_torch.config import merge_cfg_from_list
-    from crog_tpu_torch.data.loader import SequentialLoader, ShuffleLoader
+    from crog_tpu_torch.data.loader import DataLoader
     from crog_tpu_torch.train_ssg import build_ssg_dataset, ssg_collate
 
     cfg = merge_cfg_from_list(cfg, ["synthetic_samples", str(samples)])
     ds = build_ssg_dataset(cfg, split, random.Random(SEED))
     t0 = time.perf_counter()
-    loader = (ShuffleLoader(ds, batch, seed=SEED, collate_fn=ssg_collate(cfg)) if shuffle
-              else SequentialLoader(ds, batch, pad_last_batch=False,
-                                    collate_fn=ssg_collate(cfg)))
-    batches = list(loader)
+    # one loading thread, as the train CLI: the augmentation draws in order
+    batches = list(DataLoader(ds, batch, shuffle=shuffle, drop_last=shuffle, seed=SEED,
+                              num_workers=1, collate_fn=ssg_collate(cfg)))
     print(f"[ssg] {samples} synthetic {split} samples ({cfg.wire_format} wire, frame "
           f"{ds.ori_hw[0]}x{ds.ori_hw[1]} -> {cfg.img_size}^2, {ssg_host_bytes(batches[0])} "
           f"host bytes per sample to the card) prepared in "
@@ -1923,6 +1947,301 @@ def ssg_train_step_gap(device):
     return rel, groups
 
 
+# phase 12: the OCID-VLG configs as written, read from an on-disk tree
+READER_CONFIG = "config/OCID-VLG/crog_multiple_r50.yaml"
+READER_SCENES = 12  # 4 referring expressions each: 48 samples, 2 batches of 24
+# the rates come from a larger tree (288 samples, 12 batches of 24 per
+# epoch), so that the pipeline's fill at each epoch's start weighs little
+READER_RATE_SCENES = 72
+READER_RATE_ROUNDS = 3  # timed train epochs on threads and on processes, alternating
+READER_TYPES = ("loc", "attr")  # refer_types.json's types with indices below 48
+READER_PROCS = 4
+# the loader's eval run vs the one-thread run without the put stage: the
+# same host batches and the same forwards, so the per-sample IoU may differ
+# only by a reordered sum (none expected); the refer-type sweep batches the
+# samples otherwise, so it is held as the CPU tests hold IoU
+READER_IOU_TOL = 1e-6
+SWEEP_IOU_TOL = 1e-3
+
+
+def _ocid_fixture():
+    """tests/ocid_fixture.py (numpy and PIL only), imported by path."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "ocid_fixture.py")
+    spec = importlib.util.spec_from_file_location("ocid_fixture", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _reader_cfg(root: str):
+    """READER_CONFIG as written, its ``root_path`` the tree at ``root``."""
+    from crog_tpu_torch.config import load_cfg_from_cfg_file, merge_cfg_from_list
+
+    return merge_cfg_from_list(load_cfg_from_cfg_file(READER_CONFIG), ["root_path", root])
+
+
+def _same_batch(got, ref, tag: str, device):
+    """A loader batch (dense fields on ``device``) equals a host batch bit
+    for bit."""
+    import torch
+
+    if set(got) != set(ref):
+        raise AssertionError(f"{tag}: keys {sorted(got)} vs {sorted(ref)}")
+    for k, r in ref.items():
+        g = got[k]
+        if isinstance(r, np.ndarray):
+            if not torch.is_tensor(g) or g.device.type != device.type:
+                raise AssertionError(f"{tag}: {k} did not reach {device}")
+            if not np.array_equal(g.cpu().numpy(), r):
+                raise AssertionError(f"{tag}: {k} differs from the one-thread loader's")
+        elif isinstance(r, list):  # grasps, bbox, sentence, ids
+            if len(g) != len(r) or not all(np.array_equal(a, b) for a, b in zip(g, r)):
+                raise AssertionError(f"{tag}: {k} differs")
+        elif g != r:
+            raise AssertionError(f"{tag}: {k} differs")
+
+
+def _same_result(got, ref, tag: str, tol: float = READER_IOU_TOL):
+    gap = float(np.abs(np.asarray(got["iou_list"]) - np.asarray(ref["iou_list"])).max())
+    if len(got["iou_list"]) != len(ref["iou_list"]) or gap > tol:
+        raise AssertionError(f"{tag}: per-sample IoU off by {gap} (tol {tol})")
+    for key in ("j_index@1", "j_index@5", "prec"):
+        if got[key] != ref[key]:
+            raise AssertionError(f"{tag}: {key} {got[key]} vs {ref[key]}")
+    return gap
+
+
+def reader_eval(device, cfg, rate_cfg, smi: str):
+    """The val split from the tree: a one-thread loader without the put
+    stage gives the reference host batches (and the reader's host time);
+    then the CLI's loader (workers_val threads, the put stage) over a
+    SampleCache, cold and warm, through ``validate_with_grasp``; then the
+    refer-type sweep; then the eval rates on ``rate_cfg``'s larger tree
+    (``reader_eval_rates``).  Returns the figures of the ``[reader]``
+    line."""
+    import json as _json
+    import os
+
+    import torch
+
+    from crog_tpu_torch.data.cache import SampleCache
+    from crog_tpu_torch.data.loader import DataLoader, DevicePut
+    from crog_tpu_torch.engine.crog_engine import make_eval_step, validate_with_grasp
+    from crog_tpu_torch.test_crog import build_dataset, eval_loader
+    from crog_tpu_torch.test_diff_refer_types import Subset, evaluate_refer_types
+
+    batch = cfg.batch_size_val
+    plain = build_dataset(cfg, cfg.val_split)
+    t0 = time.perf_counter()
+    with DataLoader(plain, batch, pad_last_batch=True, num_workers=1) as one:
+        ref_batches = list(one)
+    reader_s = (time.perf_counter() - t0) / len(plain)
+    model = _model(cfg, device).eval()
+    eval_step = make_eval_step(model, input_size=cfg.input_size, ori_hw=plain.max_ori_size,
+                               device=device)
+    ref = validate_with_grasp(ref_batches, eval_step)
+
+    ds = SampleCache(build_dataset(cfg, cfg.val_split))
+    wrappers = launch_counts()
+    with eval_loader(cfg, ds, batch, device) as loader:
+        for run in ("cold", "warm"):
+            seen = []
+            _reset(wrappers)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = validate_with_grasp(loader, eval_step,
+                                         on_batch=lambda b, out, n: seen.append(b))
+            dt = time.perf_counter() - t0
+            launches = {n: w.launches for n, w in wrappers.items()}
+            check_launches(launches, PER_FORWARD, len(ref_batches))
+            for i, (got, want) in enumerate(zip(seen, ref_batches)):
+                _same_batch(got, want, f"{run} batch {i}", device)
+            if len(seen) != len(ref_batches):
+                raise AssertionError(f"{run}: {len(seen)} batches, expected "
+                                     f"{len(ref_batches)}")
+            gap = _same_result(result, ref, run)
+            print(f"[reader] eval {run} (checks): {len(plain)} samples in {dt:.3f} s "
+                  f"(workers_val {cfg.workers_val}, put stage); IoU={result['iou']:.6f} "
+                  f"J@1={result['j_index@1']:.6f} J@5={result['j_index@5']:.6f}; batches "
+                  f"and results equal to the one-thread loader's (max IoU gap {gap}); "
+                  f"launches {launches}", flush=True)
+    if ds.cached_count != len(plain):
+        raise AssertionError(f"the cache holds {ds.cached_count} of {len(plain)} samples")
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "refer_types.json")) as f:
+        all_types = _json.load(f)
+    types = {t: all_types[t] for t in READER_TYPES}
+    sweep = evaluate_refer_types(ds, types, eval_step, batch_size=batch,
+                                 num_workers=cfg.workers_val,
+                                 device_put_fn=DevicePut(device))
+    for t, idx in types.items():
+        idx = [i for i in idx if i < len(plain)]
+        if t not in sweep or not idx:
+            raise AssertionError(f"refer type {t}: no samples swept")
+        want = {"iou_list": [ref["iou_list"][i] for i in idx]}
+        got = sweep[t]
+        gap = float(np.abs(np.asarray(got["iou_list"]) - np.asarray(want["iou_list"])).max())
+        if len(got["iou_list"]) != len(idx) or gap > SWEEP_IOU_TOL:
+            raise AssertionError(f"refer type {t}: IoU off the full split's by {gap}")
+        print(f"[reader] refer type {t}: {len(idx)} samples ({-len(idx) % batch} padded), "
+              f"IoU={got['iou']:.6f} J@1={got['j_index@1']:.6f} "
+              f"J@5={got['j_index@5']:.6f}; per-sample IoU within {gap} of the full "
+              f"split's", flush=True)
+    runs = reader_eval_rates(device, rate_cfg, eval_step, wrappers)
+    del model, eval_step
+    torch.cuda.empty_cache()
+    return reader_s, runs
+
+
+def reader_eval_rates(device, cfg, eval_step, wrappers):
+    """Eval samples/s end to end over the val split of ``cfg``'s tree
+    through the CLI's loader, twice over a fresh ``SampleCache``: each time
+    cold (the reader), then warm (the cache); the loader's wait per batch
+    and its share of the pass.  Launch counts as phase 4."""
+    import torch
+
+    from crog_tpu_torch.data.cache import SampleCache
+    from crog_tpu_torch.engine.crog_engine import validate_with_grasp
+    from crog_tpu_torch.test_crog import build_dataset, eval_loader
+
+    runs = {"cold": [], "warm": []}
+    for _ in range(2):
+        ds = SampleCache(build_dataset(cfg, cfg.val_split))
+        with eval_loader(cfg, ds, cfg.batch_size_val, device) as loader:
+            for run in ("cold", "warm"):
+                _reset(wrappers)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                validate_with_grasp(loader, eval_step)
+                dt = time.perf_counter() - t0
+                check_launches({n: w.launches for n, w in wrappers.items()}, PER_FORWARD,
+                               loader.batch_count)
+                runs[run].append((len(ds) / dt, loader.wait_seconds / loader.batch_count,
+                                  loader.wait_seconds / dt))
+                print(f"[reader] eval {run}: {len(ds)} samples ({loader.batch_count} "
+                      f"batches) in {dt:.3f} s = {runs[run][-1][0]:.2f} samples/s end to "
+                      f"end (reader, workers_val {cfg.workers_val}, put stage, eval step, "
+                      f"Jacquard); loader wait {runs[run][-1][1] * 1e3:.1f} ms per batch, "
+                      f"{runs[run][-1][2] * 100:.1f}% of the pass (host clock)", flush=True)
+    return runs
+
+
+def reader_train(device, cfg, rate_cfg, smi: str):
+    """Four train steps through the train CLI's loader (shuffle, drop_last,
+    ``workers`` threads, the put stage) on the tree's train split: finite
+    loss, every parameter and statistic moved, the launch counts; then
+    train samples/s over ``rate_cfg``'s larger tree with the loader on
+    threads and on ``READER_PROCS`` processes, one epoch each in turn for
+    READER_RATE_ROUNDS rounds (after one untimed epoch that starts the
+    processes)."""
+    import torch
+
+    from crog_tpu_torch.data.loader import DataLoader, DevicePut
+    from crog_tpu_torch.engine.crog_engine import make_train_step, train_one_epoch
+    from crog_tpu_torch.engine.optim import make_optimizer
+    from crog_tpu_torch.test_crog import build_dataset
+    from crog_tpu_torch.utils.seed import set_random_seed
+
+    ds = build_dataset(cfg, cfg.train_split)
+    steps = len(ds) // cfg.batch_size
+    model = _model(cfg, device).train()
+    opt, sched = make_optimizer(model, cfg.base_lr, cfg.lr_multi, cfg.milestones,
+                                cfg.lr_decay, steps, cfg.weight_decay)
+    step = make_train_step(model, opt, sched, cfg.use_grasp_masks, cfg.max_norm,
+                           set_random_seed(SEED), device)
+
+    def loader(data, procs: int):
+        return DataLoader(data, cfg.batch_size, shuffle=True, drop_last=True, seed=SEED,
+                          num_workers=cfg.workers, num_procs=procs,
+                          device_put_fn=DevicePut(device))
+
+    params0, stats0 = snapshot(model)
+    wrappers = launch_counts()
+    with loader(ds, 0) as threads:
+        _reset(wrappers)
+        for epoch in range(TRAIN_STEPS // steps):
+            threads.set_epoch(epoch)
+            metrics = train_one_epoch(threads, step, 1, cfg, steps)
+        torch.cuda.synchronize()
+        launches = {n: w.launches for n, w in wrappers.items()}
+        loss = float(metrics["loss"])
+        print(f"[reader] train: {TRAIN_STEPS} steps at batch {cfg.batch_size} through the "
+              f"loader (workers {cfg.workers}): last loss {loss:.6g}; launches {launches}",
+              flush=True)
+        if not math.isfinite(loss):
+            raise AssertionError(f"train loss is not finite: {loss}")
+        check_launches(launches, PER_STEP, TRAIN_STEPS)
+        check_moved(model, params0, stats0, "reader-train")
+    big = build_dataset(rate_cfg, rate_cfg.train_split)
+    steps = len(big) // cfg.batch_size
+    rates = {"threads": [], "procs": []}
+    with loader(big, 0) as threads, loader(big, READER_PROCS) as procs:
+        train_one_epoch(procs, step, 1, cfg, steps)  # starts the worker processes
+        for r in range(READER_RATE_ROUNDS):
+            for kind, ld in (("threads", threads), ("procs", procs)):
+                ld.set_epoch(10 + r)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                train_one_epoch(ld, step, 1, cfg, steps)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                rates[kind].append((steps * cfg.batch_size / dt,
+                                    ld.wait_seconds / ld.batch_count, ld.wait_seconds / dt))
+                print(f"[reader] train round {r}, {kind}: {steps} steps in {dt:.3f} s = "
+                      f"{rates[kind][-1][0]:.2f} samples/s; loader wait "
+                      f"{rates[kind][-1][1] * 1e3:.1f} ms per batch, "
+                      f"{rates[kind][-1][2] * 100:.1f}% of the epoch (host clock)",
+                      flush=True)
+    del model, step, opt
+    torch.cuda.empty_cache()
+    return rates
+
+
+def _spread(runs, i: int, scale: float = 1.0, fmt: str = ".2f") -> str:
+    """The mean of field ``i`` over ``runs`` with its least and largest."""
+    v = [r[i] * scale for r in runs]
+    return (f"{sum(v) / len(v):{fmt}} ({min(v):{fmt}}-{max(v):{fmt}} over "
+            f"{len(v)})")
+
+
+def reader_phase(device, smi: str):
+    """Phase 12: write the tree, run ``reader_eval`` and ``reader_train``,
+    print the ``[reader]`` summary line."""
+    import tempfile
+
+    fixture = _ocid_fixture()
+    with tempfile.TemporaryDirectory(prefix="ocid_vlg_") as root, \
+            tempfile.TemporaryDirectory(prefix="ocid_vlg_rates_") as rate_root:
+        t0 = time.perf_counter()
+        fixture.build_ocid_tree(root, num_scenes=READER_SCENES)
+        fixture.build_ocid_tree(rate_root, num_scenes=READER_RATE_SCENES)
+        cfg, rate_cfg = _reader_cfg(root), _reader_cfg(rate_root)
+        print(f"[reader] {READER_CONFIG} as written (root_path: OCID-VLG trees of "
+              f"{READER_SCENES} scenes for the checks and {READER_RATE_SCENES} for the rates, "
+              f"written in {time.perf_counter() - t0:.1f} s; {cfg.wire_format} wire, "
+              f"stem_s2d {cfg.stem_s2d}, batch {cfg.batch_size}, workers {cfg.workers}, "
+              f"workers_val {cfg.workers_val})", flush=True)
+        reader_s, runs = reader_eval(device, cfg, rate_cfg, smi)
+        rates = reader_train(device, cfg, rate_cfg, smi)
+    print(f"[reader] mean (least-largest over runs) from the {READER_RATE_SCENES}-scene tree: "
+          f"eval {_spread(runs['cold'], 0)} samples/s cold, {_spread(runs['warm'], 0)} warm "
+          f"(SampleCache) end to end at batch {cfg.batch_size_val}; reader alone "
+          f"{reader_s * 1e3:.2f} ms per sample on one thread (decode, preprocess, collate; "
+          f"{READER_SCENES}-scene tree); loader wait {_spread(runs['cold'], 1, 1e3, '.1f')} ms "
+          f"cold, {_spread(runs['warm'], 1, 1e3, '.1f')} ms warm per eval batch; train "
+          f"{_spread(rates['threads'], 0)} samples/s with {cfg.workers} threads (wait "
+          f"{_spread(rates['threads'], 1, 1e3, '.1f')} ms per batch), "
+          f"{_spread(rates['procs'], 0)} with workers_procs {READER_PROCS} (wait "
+          f"{_spread(rates['procs'], 1, 1e3, '.1f')} ms) at batch {cfg.batch_size} on {smi}",
+          flush=True)
+    return runs, rates
+
+
 def ptxas_entries(text: str):
     """(kernel, registers, spill-store bytes) for each entry function of an
     ``nvcc -Xptxas -v`` report."""
@@ -2048,7 +2367,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA card.")
     ap.add_argument("--kernels", action="store_true",
-                    help="phases 1-3 and 12 only: build, hold every kernel against its "
+                    help="phases 1-3 and 13 only: build, hold every kernel against its "
                          "twin, time it; no main path and no result line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -2100,6 +2419,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     ssg_train_step_gap(device)
     ssg_unpack_check(device)
+    reader_runs, reader_rates = reader_phase(device, smi)
     print_device_times()
     # each kernel's launches on the main path that runs it: CROG training
     # for K1-K4b and K6/K6b, SSG training for K5/K5b
@@ -2108,7 +2428,8 @@ def main(argv=None) -> int:
     print(f"[done] {time.perf_counter() - t_start:.1f} s; CROG train {train_rate:.2f} "
           f"and eval {eval_rate:.2f} samples/s at batch {BATCH}; SSG train "
           f"{ssg_train_rate:.2f} samples/s at batch {SSG_BATCH}, eval {ssg_eval_rate:.2f} "
-          f"samples/s", flush=True)
+          f"samples/s; from the OCID tree: CROG eval {reader_runs['warm'][0][0]:.2f} (warm) "
+          f"and train {reader_rates['threads'][0][0]:.2f} samples/s", flush=True)
 
     print(json.dumps({"kernels": list(records.values())}))
     print(smi)

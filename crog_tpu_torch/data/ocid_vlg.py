@@ -1,4 +1,6 @@
-"""OCID-VLG sample preprocessing (reference utils/dataset.py:843-914,
+"""OCID-VLG: the on-disk reader ``OCIDVLGDataset`` (counterpart of
+crog_tpu/data/ocid_vlg.py:33) and the sample preprocessing it shares with
+the synthetic scenes (reference utils/dataset.py:843-914,
 crog_tpu/data/ocid_vlg.py:183 ``preprocess``) in the four wire formats,
 what the host ships to the card per sample:
 
@@ -14,10 +16,15 @@ what the host ships to the card per sample:
 
 from __future__ import annotations
 
-from typing import Dict
+import json
+import os
+from typing import Dict, Optional
 
 import numpy as np
+from PIL import Image
 
+from crog_tpu_torch.data.grasp_transforms import GraspTransforms
+from crog_tpu_torch.data.ocid_classes import CNAMES, SUBNAMES, SUB_TO_CLASS
 from crog_tpu_torch.ops.affine import letterbox_transform, warp_affine_np
 from crog_tpu_torch.utils.tokenizer import tokenize
 
@@ -107,3 +114,122 @@ def preprocess(
             cos=np.cos(2.0 * ang_rad),
         )
     return out
+
+
+class OCIDVLGDataset:
+    """An OCID-VLG tree: ``refer/<version>/<split>_expressions.json`` lists
+    the referring expressions (scene "seq,image", target box x, y, w, h,
+    grasp corner points, target instance id and name, sentence); each scene
+    holds rgb/, depth/ and seg_mask_instances_combi/ PNGs.  Images decode
+    with PIL.  ``compact`` and ``raw`` (True, or "lb") pick the wire format
+    (``preprocess``)."""
+
+    split_map = {
+        "train": "train_expressions.json",
+        "val": "val_expressions.json",
+        "test": "test_expressions.json",
+        # the reference's test configs name the test split 'val-test'
+        "val-test": "test_expressions.json",
+    }
+
+    def __init__(self, root_dir: str, split: str, input_size: int = 416,
+                 word_length: int = 17, with_depth: bool = True,
+                 with_segm_mask: bool = True, with_grasp_masks: bool = True,
+                 version: str = "multiple",
+                 transform_grasp: Optional[GraspTransforms] = None,
+                 compact: bool = False, raw=False, max_rects: int = 16):
+        self.compact = compact
+        self.raw = raw
+        self.max_rects = max_rects
+        self.root_dir = root_dir
+        self.split = split
+        self.refer_dir = os.path.join(root_dir, "refer", version)
+        self.input_size = (input_size, input_size)
+        self.word_length = word_length
+        self.with_depth = with_depth
+        self.with_segm_mask = with_segm_mask
+        self.with_grasp_masks = with_grasp_masks
+        self.transform_grasp = transform_grasp or GraspTransforms()
+        self.class_instance_names = SUBNAMES
+        self.class_names = CNAMES
+        self.instance_idx_to_class_idx = SUB_TO_CLASS
+        # every OCID capture is 480x640; the eval step un-warps each sample
+        # inside a canvas of this size
+        self.max_ori_size = (480, 640)
+        self._load_split()
+
+    def _load_split(self):
+        with open(os.path.join(self.refer_dir, self.split_map[self.split])) as f:
+            refer_data = json.load(f)
+        self.items = []
+        self.sent_to_index = {}
+        for n, item in enumerate(refer_data["data"]):
+            seq_path, im_name = item["image_filename"].split(",")
+            self.items.append(dict(
+                seq_path=seq_path, im_name=im_name, scene_id=item["image_filename"],
+                bbox=item["box"], grasps=item["grasps"], objID=item["answer"],
+                target=item["target"], sentence=item["question"],
+                program=item.get("program"), sent_id=item["question_index"],
+            ))
+            self.sent_to_index[item["question_index"]] = n
+
+    def __len__(self):
+        return len(self.items)
+
+    def _png(self, it, sub: str) -> np.ndarray:
+        return np.asarray(Image.open(
+            os.path.join(self.root_dir, it["seq_path"], sub, it["im_name"])))
+
+    def _rgb(self, it) -> np.ndarray:
+        p = os.path.join(self.root_dir, it["seq_path"], "rgb", it["im_name"])
+        return np.asarray(Image.open(p).convert("RGB"))
+
+    def _grasps(self, it) -> np.ndarray:
+        """The item's grasps as [M, 6] (cx, cy, w, h, theta, instance)."""
+        return self.transform_grasp(np.asarray(it["grasps"], np.float64),
+                                    self.class_instance_names[it["target"]])
+
+    def __getitem__(self, n: int) -> Dict:
+        it = self.items[n]
+        img = self._rgb(it)
+        grasps = self._grasps(it)
+        msk = self._png(it, "seg_mask_instances_combi") == it["objID"]
+        # the raw wires rasterize the grasp maps on the card
+        grasp_masks = (self.transform_grasp.generate_masks(grasps)
+                       if self.with_grasp_masks and not self.raw else None)
+        sample = preprocess(
+            img, msk, grasp_masks, it["sentence"], self.input_size, self.word_length,
+            self.compact, self.raw, grasps if self.with_grasp_masks else None,
+            self.max_rects, self.transform_grasp.width_factor,
+        )
+        x, y, w, h = it["bbox"]
+        sample.update(
+            grasps=grasps, sentence=it["sentence"], target=it["target"],
+            objID=it["objID"], bbox=np.asarray([x, y, x + w, y + h]),
+            sent_id=it["sent_id"], scene_id=it["scene_id"],
+        )
+        if self.with_depth:
+            sample["depth"] = self._png(it, "depth").astype(np.float32) / 1000.0
+        return sample
+
+    def get_annotated_image(self, n: int) -> np.ndarray:
+        """The RGB frame with the target box (green) and the ground-truth
+        grasp rects drawn."""
+        from crog_tpu_torch.utils.visualization import _draw_line, draw_grasp_rects
+
+        it = self.items[n]
+        out = draw_grasp_rects(self._rgb(it), self._grasps(it))
+        x, y, w, h = it["bbox"]
+        for p0, p1 in (((x, y), (x + w, y)), ((x + w, y), (x + w, y + h)),
+                       ((x + w, y + h), (x, y + h)), ((x, y + h), (x, y))):
+            _draw_line(out, p0, p1, (0, 255, 0))
+        return out
+
+    def visualization(self, n: int, save_path: str):
+        """Ground-truth figure of sample ``n`` (RGB, depth, mask, annotated
+        frame, grasp maps) as ``<save_path>/sample_<n>.png``.  Needs
+        matplotlib and a legacy sample."""
+        from crog_tpu_torch.utils.visualization import visualize_gt_sample
+
+        return visualize_gt_sample(self[n], os.path.join(save_path, f"sample_{n}.png"),
+                                   annotated=self.get_annotated_image(n))

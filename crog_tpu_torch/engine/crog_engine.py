@@ -2,12 +2,14 @@
 
 Counterpart of crog_tpu/engine/crog_engine.py: ``train_metrics`` (62),
 ``make_train_step`` (108), ``train_one_epoch`` (429), ``make_eval_step``
-(167), ``jacquard_index`` (264), ``summarize_eval`` (282) and
-``validate_with_grasp`` (306).
+(167), ``jacquard_index`` (264), ``summarize_eval`` (282),
+``validate_with_grasp`` (306), ``validate_without_grasp`` (359) and
+``inference_with_grasp`` (367).
 
-Both steps take a collated numpy batch in any of the four wire formats
+Both steps take a collated batch in any of the four wire formats
 (``data/ocid_vlg.py``): its dense fields go to the card through
-``device_put_crog`` (pinned memory, non-blocking) and are unpacked there by
+``device_put_crog`` (pinned memory, non-blocking; fields that the loader's
+put stage already moved pass unchanged) and are unpacked there by
 ``_unpack`` (compact: ``data/compact.py``; raw and rawlb:
 ``data/rawwire.py``; legacy: as they are).
 
@@ -32,7 +34,7 @@ import numpy as np
 import torch
 
 from crog_tpu_torch.data.compact import is_compact, unpack_compact
-from crog_tpu_torch.data.loader import device_put_crog
+from crog_tpu_torch.data.loader import device_put_crog, to_host
 from crog_tpu_torch.data.rawwire import is_raw, unpack_raw
 from crog_tpu_torch.engine.optim import clip_by_global_norm_
 from crog_tpu_torch.models.crog import crog_losses
@@ -84,8 +86,18 @@ def step_keys(batch: Dict, train: bool = True):
 
 
 def device_batch(batch: Dict, device, input_size: int, train: bool = True) -> Dict:
-    """Those fields of a numpy batch on ``device``, unpacked there."""
+    """Those fields of a batch on ``device``, unpacked there."""
     return _unpack(device_put_crog(batch, step_keys(batch, train), device), input_size)
+
+
+def dense_host_batch(batch: Dict, input_size: int) -> Dict[str, np.ndarray]:
+    """The dense float fields of a batch in any wire format (img, mask and
+    the grasp maps, those it has), as numpy: unpacked on the device its
+    tensors are on, or on the CPU for host arrays."""
+    keys = step_keys(batch)
+    dev = next((batch[k].device for k in keys if torch.is_tensor(batch[k])), "cpu")
+    dense = device_batch(batch, dev, input_size)
+    return {k: to_host(dense[k]) for k in ("img",) + TARGET_KEYS if k in dense}
 
 
 def set_exact_fp32_matmul() -> None:
@@ -310,7 +322,7 @@ def validate_with_grasp(loader, eval_step, epoch: int = 0, args=None,
         if with_grasps:
             rects = out["rects"].cpu().numpy()
             valid = out["rects_valid"].cpu().numpy()
-            ori_sizes = np.asarray(batch["ori_size"]) if "ori_size" in batch \
+            ori_sizes = to_host(batch["ori_size"]) if "ori_size" in batch \
                 else np.full((rects.shape[0], 2), (480, 640))
             for i in range(n_valid):
                 preds5 = [rects[i, k].tolist() for k in range(rects.shape[1])
@@ -325,3 +337,53 @@ def validate_with_grasp(loader, eval_step, epoch: int = 0, args=None,
     result = summarize_eval(iou_list, j1_hits, j5_hits, epoch, epochs)
     result.update(iou_list=iou_list, j1_hits=j1_hits, j5_hits=j5_hits)
     return result
+
+
+def validate_without_grasp(loader, eval_step, epoch: int = 0, args=None):
+    """Mask-only eval (reference engine/crog_engine.py:289-381): the same
+    device pipeline with the Jacquard check skipped (the use_grasp_masks
+    ablation, RefCOCO)."""
+    return validate_with_grasp(loader, eval_step, epoch, args, with_grasps=False)
+
+
+def inference_with_grasp(loader, eval_step, args=None, visualize: bool = False,
+                         vis_dir: str = "vis"):
+    """Test-split inference (reference engine/crog_engine.py:386-558):
+    ``validate_with_grasp``, and with ``visualize`` one PNG per real sample
+    of the whole split (``<vis_dir>/<batch>_<sample>.png``: the image, the
+    predicted rects and the ground-truth mask and grasp maps), rendered in
+    the same pass over the loader.  Every wire format is unpacked first:
+    raw and rawlb batches on their own path, which the JAX package's
+    version misses (crog_tpu/engine/crog_engine.py:390 tests only
+    ``raw_img_u8``, so a rawlb batch reaches the render packed and raises
+    KeyError on ``img``)."""
+    on_batch = None
+    if visualize:
+        from crog_tpu_torch.utils.visualization import visualize_grasp_prediction
+
+        size = int(args.get("input_size", 416)) if args is not None else 416
+        counter = {"batch": 0}
+
+        def on_batch(batch, out, n_valid):
+            dense = dense_host_batch(batch, size)
+            bi = counter["batch"]
+            counter["batch"] += 1
+            rects = out["rects"].cpu().numpy()
+            valid = out["rects_valid"].cpu().numpy()
+            sentences = batch.get("sentence", [""] * rects.shape[0])
+            for i in range(n_valid):
+                img = dense["img"][i]
+                img = (img - img.min()) / max(img.max() - img.min(), 1e-6)
+                mask = dense["mask"][i]
+                visualize_grasp_prediction(
+                    (img * 255).astype(np.uint8), mask,
+                    tuple(dense.get(k, dense["mask"])[i] for k in ("qua", "sin", "wid")),
+                    [r for k, r in enumerate(rects[i]) if valid[i, k]],
+                    sentences[i], save_path=f"{vis_dir}/{bi:04d}_{i:02d}.png",
+                )
+
+    return validate_with_grasp(
+        loader, eval_step, 0, args,
+        with_grasps=args is None or args.get("use_grasp_masks", True),
+        on_batch=on_batch,
+    )

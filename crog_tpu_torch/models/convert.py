@@ -12,12 +12,17 @@ for the CLIP attention pool), which the port's ``CROG`` loads with plain
 
 Layouts: flax conv kernels (kH, kW, I, O) -> torch (O, I, kH, kW); flax
 Dense kernels (I, O) -> torch (O, I).
+
+``load_torch_state_dict`` and ``merge_pretrained_clip`` are the
+counterparts of crog_tpu/models/convert.py:27 and :314: a CLIP archive
+(the OpenAI torch.jit release, or a plain state dict) loads non-strictly
+into ``model.backbone``, whose keys already follow that schema.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping
 
 import numpy as np
 import torch
@@ -232,3 +237,47 @@ def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
         if v.is_floating_point() else v
         for k, v in sd.items()
     }
+
+
+def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A torch.jit archive (the OpenAI CLIP release), else a plain
+    state-dict checkpoint (``{'state_dict': ...}`` or bare), as tensors on
+    the CPU, floating ones in fp32 (the release stores fp16)."""
+    try:
+        sd = torch.jit.load(path, map_location="cpu").eval().state_dict()
+    except RuntimeError:  # not a TorchScript archive
+        sd = torch.load(path, map_location="cpu", weights_only=False)
+        if isinstance(sd, dict) and "state_dict" in sd:
+            sd = sd["state_dict"]
+    return {k: v.float() if v.is_floating_point() else v
+            for k, v in sd.items() if torch.is_tensor(v)}
+
+
+def merge_pretrained_clip(model: torch.nn.Module, sd: Mapping[str, torch.Tensor]
+                          ) -> List[str]:
+    """Load a CLIP state dict into ``model.backbone`` non-strictly, as the
+    reference does (model/clip.py:554, strict=False): the backbone's keys
+    that the archive lacks keep their initialization (the attention pool's
+    ``connect`` branch, which CROG adds to CLIP), and the archive's keys
+    that the backbone lacks (``input_resolution``, ``context_length``,
+    ``vocab_size``) are skipped.  Any other backbone key the archive lacks
+    raises, naming the keys, as the JAX package's conversion reads every
+    CLIP key by name (``num_batches_tracked`` and ``logit_scale``, which it
+    does not read, may be absent).  A shape mismatch raises, naming the
+    key.  Returns the keys loaded."""
+    own = model.backbone.state_dict()
+    take = {}
+    for k, v in sd.items():
+        if k not in own:
+            continue
+        if tuple(own[k].shape) != tuple(v.shape):
+            raise ValueError(f"CLIP archive key {k!r}: shape {tuple(v.shape)}, "
+                             f"the backbone holds {tuple(own[k].shape)}")
+        take[k] = v
+    missing = sorted(k for k in own if k not in take and ".connect." not in k
+                     and not k.endswith(("num_batches_tracked", "logit_scale")))
+    if missing:
+        raise KeyError(f"the CLIP archive lacks {len(missing)} backbone keys, e.g. "
+                       f"{missing[:5]} (it holds {len(take)} of them)")
+    model.backbone.load_state_dict(take, strict=False)
+    return sorted(take)

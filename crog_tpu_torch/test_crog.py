@@ -2,11 +2,16 @@
 
 Runs the eval split and reports mask IoU, Pr@50-90, J@1 and J@5:
 
-    python -m crog_tpu_torch.test_crog --config config/OCID-VLG/crog_synthetic_r50.yaml \\
-        [--device cpu] [--fused-stem] --opts synthetic_samples 48
+    python -m crog_tpu_torch.test_crog --config config/OCID-VLG/crog_multiple_r50.yaml \\
+        [--device cpu] [--fused-stem] --opts root_path DIR
 
-The batches come in the config's ``wire_format`` (rawlb in every OCID-VLG
-config) and are unpacked on the device; ``stem_s2d`` comes from the config
+The split comes from the OCID-VLG tree at ``root_path`` (or the synthetic
+scenes of ``dataset synthetic``) through ``DataLoader``: ``workers_val``
+threads (``workers_procs`` processes when set), the tail padded, each
+batch copied to the device on the loader's put stage.  The batches come in
+the config's ``wire_format`` (rawlb in every OCID-VLG config) and are
+unpacked on the device; ``visualize`` writes one PNG per sample under
+``<output_folder>/<exp_name>/vis``; ``stem_s2d`` comes from the config
 and ``--fused-stem`` runs the s2d stem's stride-1 convs through K6/K6b.
 ``--device`` defaults to ``cuda`` and raises when there is no card.  A
 ``resume`` file (a reference CROG ``.pth`` or a checkpoint of
@@ -22,11 +27,11 @@ import os
 import torch
 
 from crog_tpu_torch.config import load_cfg_from_cfg_file, merge_cfg_from_list
-from crog_tpu_torch.data.loader import SequentialLoader
+from crog_tpu_torch.data.loader import DataLoader, DevicePut
 from crog_tpu_torch.data.ocid_vlg import wire_kwargs
-from crog_tpu_torch.engine.crog_engine import make_eval_step, validate_with_grasp
+from crog_tpu_torch.engine.crog_engine import inference_with_grasp, make_eval_step
 from crog_tpu_torch.models.convert import load_checkpoint
-from crog_tpu_torch.models.crog import build_crog
+from crog_tpu_torch.models.crog import build_crog, random_init_
 from crog_tpu_torch.utils.logging import get_logger, setup_logger
 
 
@@ -59,28 +64,51 @@ def resolve_device(name: str) -> torch.device:
 
 
 def build_dataset(args, split: str):
-    """The split's dataset, emitting batches in the config's
-    ``wire_format`` (legacy when the config has none)."""
-    kw = wire_kwargs(args.get("wire_format", "legacy"))
-    if args.dataset != "synthetic":
-        raise NotImplementedError(
-            "the OCID-VLG reader is not ported yet (ROADMAP queue 1); use "
-            "dataset synthetic"
-        )
-    from crog_tpu_torch.data.synthetic import SyntheticOCIDVLG
+    """The split's dataset (counterpart of train_crog.py:60-115): the
+    synthetic scenes, or the OCID-VLG tree at ``root_path``, emitting
+    batches in the config's ``wire_format`` (without one: compact, or
+    legacy when ``compact_transfer`` is False).  ``cache_samples`` (True:
+    a 4 GiB bound, or a byte count) wraps it in a ``SampleCache``."""
+    kw = wire_kwargs(args.get(
+        "wire_format", "compact" if args.get("compact_transfer", True) else "legacy"))
+    if args.dataset == "synthetic":
+        from crog_tpu_torch.data.synthetic import SyntheticOCIDVLG
 
-    return SyntheticOCIDVLG(
-        num_samples=int(args.get("synthetic_samples", 128)),
-        split=split,
-        input_size=args.input_size,
-        word_length=args.word_len,
-        **kw,
+        n = {"train": 512, "val": 128}.get(split, 128)
+        ds = SyntheticOCIDVLG(
+            num_samples=int(args.get("synthetic_samples", n)), split=split,
+            input_size=args.input_size, word_length=args.word_len, **kw,
+        )
+    else:
+        from crog_tpu_torch.data.ocid_vlg import OCIDVLGDataset
+
+        ds = OCIDVLGDataset(
+            root_dir=args.root_path, split=split, input_size=args.input_size,
+            word_length=args.word_len, version=args.get("version", "multiple"), **kw,
+        )
+    cache = args.get("cache_samples", False)
+    if cache:
+        from crog_tpu_torch.data.cache import SampleCache
+
+        ds = SampleCache(ds, max_bytes=(4 << 30) if cache is True else int(cache))
+    return ds
+
+
+def eval_loader(args, ds, batch_size: int, device) -> DataLoader:
+    """The eval split's loader: in order, the tail padded to a full batch,
+    ``workers_val`` threads (``workers_procs`` processes when set), and the
+    copy to ``device`` on the put stage (test_crog.py:88-96)."""
+    return DataLoader(
+        ds, batch_size, shuffle=False, drop_last=False, pad_last_batch=True,
+        num_workers=int(args.get("workers_val", 4)),
+        num_procs=int(args.get("workers_procs", 0)), device_put_fn=DevicePut(device),
     )
 
 
 def load_eval_variables(args, model):
     """Load the ``resume`` checkpoint into ``model`` (reference
-    test_crog.py:76-80 loads it strictly)."""
+    test_crog.py:76-80 loads it strictly); without one, seeded fresh
+    weights."""
     logger = get_logger()
     resume = args.get("resume")
     if resume and os.path.exists(resume):
@@ -92,7 +120,10 @@ def load_eval_variables(args, model):
         model.load_state_dict(load_checkpoint(resume), strict=True)
         logger.info(f"=> loaded checkpoint '{resume}'")
     else:
-        logger.warning(f"checkpoint {resume!r} not found — evaluating fresh weights")
+        # fresh weights seeded as train_crog seeds them, so that two runs agree
+        random_init_(model, torch.Generator().manual_seed(args.manual_seed))
+        logger.warning(f"checkpoint {resume!r} not found — evaluating fresh weights "
+                       f"(random_init_, seed {args.manual_seed})")
     return model
 
 
@@ -108,15 +139,16 @@ def main(argv=None):
                        fused_stem)
     load_eval_variables(args, model)
     model = model.to(device).eval()
-    loader = SequentialLoader(
-        ds, int(args.get("batch_size_test", args.get("batch_size_val", 16))),
-        pad_last_batch=True,
-    )
     eval_step = make_eval_step(
         model, input_size=args.input_size,
         ori_hw=getattr(ds, "max_ori_size", (480, 640)), device=device,
     )
-    result = validate_with_grasp(loader, eval_step, with_grasps=args.use_grasp_masks)
+    with eval_loader(args, ds, int(args.get("batch_size_test",
+                                            args.get("batch_size_val", 16))),
+                     device) as loader:
+        result = inference_with_grasp(
+            loader, eval_step, args, visualize=bool(args.get("visualize", False)),
+            vis_dir=os.path.join(args.output_folder, args.exp_name, "vis"))
     logger.info(
         f"Final: IoU={100 * result['iou']:.2f} "
         + "  ".join(f"{k}={100 * v:.2f}" for k, v in result["prec"].items())

@@ -1,10 +1,15 @@
 """CROG training entry point of the port (counterpart of train_crog.py).
 
-    python -m crog_tpu_torch.train_crog --config config/OCID-VLG/crog_synthetic_r50.yaml \\
-        [--device cpu] [--fused-stem] --opts synthetic_samples 48 batch_size 24
+    python -m crog_tpu_torch.train_crog --config config/OCID-VLG/crog_multiple_r50.yaml \\
+        [--device cpu] [--fused-stem] --opts root_path DIR
 
-Batches come in the config's ``wire_format`` (rawlb in every OCID-VLG
-config), unpacked on the device; ``--fused-stem`` runs the s2d stem's
+The splits come from ``test_crog.build_dataset`` (the OCID-VLG tree at
+``root_path``, or the synthetic scenes) through ``DataLoader``: train
+shuffled with drop_last on ``workers`` threads, val in order with the tail
+padded on ``workers_val`` (``workers_procs`` processes for both when set),
+each batch copied to the device on the loader's put stage.  Batches come in
+the config's ``wire_format`` (rawlb in every OCID-VLG config), unpacked on
+the device; ``--fused-stem`` runs the s2d stem's
 stride-1 convs through the K6/K6b kernels.
 
 Per epoch: ``train_one_epoch`` over shuffled train batches, then (with
@@ -12,7 +17,10 @@ Per epoch: ``train_one_epoch`` over shuffled train batches, then (with
 eval mode, then ``last_model`` is saved and copied to ``best_iou_model`` /
 ``best_jindex_model`` on an improvement.  ``--device`` defaults to ``cuda``
 and raises when there is no card; on the CPU the model computes in fp32.
-Weights start from ``random_init_`` seeded by ``manual_seed``; a ``resume``
+Weights start from ``random_init_`` seeded by ``manual_seed``, the backbone
+then from the ``clip_pretrain`` archive when ``use_pretrained_clip`` is set
+and the file exists (non-strict: the ``connect`` branch keeps its init); a
+``resume``
 checkpoint written by this CLI restores the model, the optimizer and the
 schedule.  One process, one device: no tracker and no mesh.
 """
@@ -26,7 +34,7 @@ import time
 import torch
 
 from crog_tpu_torch.config import load_cfg_from_cfg_file, merge_cfg_from_list
-from crog_tpu_torch.data.loader import SequentialLoader, ShuffleLoader
+from crog_tpu_torch.data.loader import DataLoader, DevicePut
 from crog_tpu_torch.engine import checkpoint as ckpt
 from crog_tpu_torch.engine.crog_engine import (
     make_eval_step,
@@ -36,8 +44,9 @@ from crog_tpu_torch.engine.crog_engine import (
     validate_with_grasp,
 )
 from crog_tpu_torch.engine.optim import make_optimizer, set_schedule_step
+from crog_tpu_torch.models.convert import load_torch_state_dict, merge_pretrained_clip
 from crog_tpu_torch.models.crog import build_crog, random_init_
-from crog_tpu_torch.test_crog import build_dataset, resolve_device
+from crog_tpu_torch.test_crog import build_dataset, eval_loader, resolve_device
 from crog_tpu_torch.utils.logging import get_logger, setup_logger
 from crog_tpu_torch.utils.seed import set_random_seed
 
@@ -60,10 +69,11 @@ def get_parser(argv=None):
     return cfg, args.device, args.fused_stem
 
 
-def check_pretrained_clip(args) -> None:
-    """use_pretrained_clip semantics (reference model/crog.py:20-23): a
+def load_pretrained_clip(args, model) -> None:
+    """use_pretrained_clip semantics (reference model/crog.py:20-23): the
+    ``clip_pretrain`` archive loads into the backbone non-strictly; a
     missing archive keeps the fresh initialization, as the JAX package
-    does; loading a CLIP archive into the port is not ported yet."""
+    does."""
     logger = get_logger()
     path = args.get("clip_pretrain")
     if not args.get("use_pretrained_clip", True):
@@ -72,10 +82,8 @@ def check_pretrained_clip(args) -> None:
         logger.warning(f"clip_pretrain checkpoint not found at {path!r}; "
                        "backbone keeps fresh initialization")
     else:
-        raise NotImplementedError(
-            f"{path!r}: loading a pretrained CLIP archive is not ported yet "
-            "(pass use_pretrained_clip False)"
-        )
+        keys = merge_pretrained_clip(model, load_torch_state_dict(path))
+        logger.info(f"Load pretrained CLIP: True ({path}, {len(keys)} tensors)")
 
 
 def main(argv=None):
@@ -93,12 +101,15 @@ def main(argv=None):
     model = build_crog(args, torch.float32 if device.type == "cpu" else None,
                        fused_stem)
     random_init_(model, torch.Generator().manual_seed(args.manual_seed))
-    check_pretrained_clip(args)
+    load_pretrained_clip(args, model)
     model = model.to(device)
-    train_loader = ShuffleLoader(build_dataset(args, args.train_split), args.batch_size,
-                                 seed=args.manual_seed)
+    train_loader = DataLoader(
+        build_dataset(args, args.train_split), args.batch_size, shuffle=True,
+        drop_last=True, seed=args.manual_seed, num_workers=int(args.get("workers", 4)),
+        num_procs=int(args.get("workers_procs", 0)), device_put_fn=DevicePut(device),
+    )
     val_ds = build_dataset(args, args.val_split)
-    val_loader = SequentialLoader(val_ds, args.batch_size_val, pad_last_batch=True)
+    val_loader = eval_loader(args, val_ds, args.batch_size_val, device)
     steps_per_epoch = len(train_loader)
     optimizer, scheduler = make_optimizer(
         model, base_lr=args.base_lr, lr_multi=args.lr_multi, milestones=args.milestones,
@@ -123,34 +134,35 @@ def main(argv=None):
     eval_step = make_eval_step(model, input_size=args.input_size,
                                ori_hw=getattr(val_ds, "max_ori_size", (480, 640)),
                                device=device)
-    for epoch in range(start_epoch, args.epochs):
-        train_loader.set_epoch(epoch)
-        t0 = time.perf_counter()
-        train_one_epoch(train_loader, train_step, epoch + 1, args, steps_per_epoch)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        dt = time.perf_counter() - t0
-        seen = steps_per_epoch * args.batch_size
-        logger.info(f"Epoch {epoch + 1}: {dt:.1f}s, {seen / dt:.2f} samples/s")
-        step = scheduler.last_epoch
-        if args.get("evaluate", True):
-            model.eval()
-            result = validate_with_grasp(val_loader, eval_step, epoch + 1, args,
-                                         with_grasps=args.use_grasp_masks)
-            model.train()
-            ckpt.save_checkpoint(out_dir, model, optimizer, step, epoch + 1, best_iou,
-                                 best_jindex, result["prec"])
-            if result["iou"] > best_iou:
-                best_iou = result["iou"]
-                ckpt.copy_best(out_dir, ckpt.LAST, ckpt.BEST_IOU)
-                logger.info(f"=> new best IoU {100 * best_iou:.2f}")
-            if result["j_index@1"] > best_jindex:
-                best_jindex = result["j_index@1"]
-                ckpt.copy_best(out_dir, ckpt.LAST, ckpt.BEST_J)
-                logger.info(f"=> new best J@1 {100 * best_jindex:.2f}")
-        else:
-            ckpt.save_checkpoint(out_dir, model, optimizer, step, epoch + 1, best_iou,
-                                 best_jindex)
+    with train_loader, val_loader:
+        for epoch in range(start_epoch, args.epochs):
+            train_loader.set_epoch(epoch)
+            t0 = time.perf_counter()
+            train_one_epoch(train_loader, train_step, epoch + 1, args, steps_per_epoch)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            dt = time.perf_counter() - t0
+            seen = steps_per_epoch * args.batch_size
+            logger.info(f"Epoch {epoch + 1}: {dt:.1f}s, {seen / dt:.2f} samples/s")
+            step = scheduler.last_epoch
+            if args.get("evaluate", True):
+                model.eval()
+                result = validate_with_grasp(val_loader, eval_step, epoch + 1, args,
+                                             with_grasps=args.use_grasp_masks)
+                model.train()
+                ckpt.save_checkpoint(out_dir, model, optimizer, step, epoch + 1, best_iou,
+                                     best_jindex, result["prec"])
+                if result["iou"] > best_iou:
+                    best_iou = result["iou"]
+                    ckpt.copy_best(out_dir, ckpt.LAST, ckpt.BEST_IOU)
+                    logger.info(f"=> new best IoU {100 * best_iou:.2f}")
+                if result["j_index@1"] > best_jindex:
+                    best_jindex = result["j_index@1"]
+                    ckpt.copy_best(out_dir, ckpt.LAST, ckpt.BEST_J)
+                    logger.info(f"=> new best J@1 {100 * best_jindex:.2f}")
+            else:
+                ckpt.save_checkpoint(out_dir, model, optimizer, step, epoch + 1, best_iou,
+                                     best_jindex)
     logger.info("* Training finished *")
 
 

@@ -39,7 +39,7 @@ from functools import partial
 import torch
 
 from crog_tpu_torch.config import load_cfg_from_cfg_file, merge_cfg_from_list
-from crog_tpu_torch.data.loader import SequentialLoader, ShuffleLoader
+from crog_tpu_torch.data.loader import DataLoader
 from crog_tpu_torch.data.ocid_grasp import OCIDGraspDataset, collate_ssg
 from crog_tpu_torch.data.ssg_rawwire import collate_ssg_raw
 from crog_tpu_torch.data.synthetic_ssg import SyntheticOCIDGrasp, SyntheticOCIDGraspFrames
@@ -139,10 +139,12 @@ def main(argv=None):
     model = model.to(device)
     anchors = model.anchors()
     collate = ssg_collate(args)
-    train_loader = ShuffleLoader(train_ds, args.batch_size, seed=args.manual_seed,
-                                 collate_fn=collate)
+    # one loading thread: the augmentor draws from one random.Random, so
+    # the draws stay in sample order
+    train_loader = DataLoader(train_ds, args.batch_size, shuffle=True, drop_last=True,
+                              seed=args.manual_seed, num_workers=1, collate_fn=collate)
     bval = int(args.get("batch_size_val", 1))
-    val_loader = SequentialLoader(val_ds, bval, pad_last_batch=False, collate_fn=collate)
+    val_loader = DataLoader(val_ds, bval, num_workers=1, collate_fn=collate)
     steps_per_epoch = len(train_loader)
     optimizer, scheduler = make_optimizer(
         model, base_lr=args.base_lr, lr_multi=1.0, milestones=args.milestones,

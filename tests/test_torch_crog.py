@@ -20,7 +20,7 @@ import jax.numpy as jnp
 from crog_tpu.engine.crog_engine import make_eval_step as jax_make_eval_step
 from crog_tpu.engine.crog_engine import validate_with_grasp as jax_validate
 from crog_tpu.models.convert import convert_crog_state_dict
-from crog_tpu_torch.data.loader import SequentialLoader
+from crog_tpu_torch.data.loader import DataLoader
 from crog_tpu_torch.data.synthetic import SyntheticOCIDVLG
 from crog_tpu_torch.engine.crog_engine import make_eval_step, validate_with_grasp
 from crog_tpu_torch.models.convert import state_dict_from_flax
@@ -35,7 +35,7 @@ def pair():
 @pytest.fixture(scope="module")
 def batches():
     ds = SyntheticOCIDVLG(num_samples=4, split="val", input_size=RES)
-    return list(SequentialLoader(ds, 3, pad_last_batch=True))  # 3 + (1 padded)
+    return list(DataLoader(ds, 3, pad_last_batch=True))  # 3 + (1 padded)
 
 
 @pytest.fixture(scope="module")

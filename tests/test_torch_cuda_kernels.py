@@ -572,3 +572,40 @@ def test_cuda_s2dconv_fwd_ragged_planes(card, b, h, w, ci, co):
     torch.cuda.synchronize()
     _close_all([got], [SC.conv_padded_plain(x, wp, ci, co)], S2D_REL)
     assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_cuda_put_stage_batches_equal_host_arrays(card):
+    """DataLoader's put stage (copies on a side stream from the put thread,
+    an event the consumer's stream waits on, ``record_stream``) over one
+    epoch of rawlb batches at 416^2 with prefetch 2 and a padded tail: every
+    dense key of every batch, read back on the consumer's stream after work
+    queued on it, equals the host arrays; the ragged fields pass unchanged."""
+    import numpy as np
+
+    from crog_tpu_torch.data.loader import DataLoader, DevicePut
+    from crog_tpu_torch.data.synthetic import SyntheticOCIDVLG
+
+    ds = SyntheticOCIDVLG(num_samples=10, split="val", input_size=416, raw="lb")
+    host = list(DataLoader(ds, 4, pad_last_batch=True, num_workers=1))
+    got = []
+    with DataLoader(ds, 4, pad_last_batch=True, num_workers=4, prefetch=2,
+                    device_put_fn=DevicePut(card)) as loader:
+        for batch in loader:
+            dense = {k: v for k, v in batch.items() if torch.is_tensor(v)}
+            assert all(v.is_cuda for v in dense.values())
+            # consumer work on the current stream, queued behind the copies
+            sums = {k: v.double().sum() for k, v in dense.items()}
+            got.append(({k: v.cpu().numpy() for k, v in dense.items()},
+                        {k: float(s) for k, s in sums.items()}, batch))
+    assert len(got) == len(host) == 3
+    for (dense, sums, batch), ref in zip(got, host):
+        keys = sorted(k for k, v in ref.items() if isinstance(v, np.ndarray))
+        assert sorted(dense) == keys and "lb_img_u8" in keys
+        for k in keys:
+            np.testing.assert_array_equal(dense[k], ref[k], err_msg=k)
+            # f64 sums of the same values in another order
+            assert sums[k] == pytest.approx(float(ref[k].astype(np.float64).sum()),
+                                            rel=1e-12), k
+        assert batch["sentence"] == ref["sentence"]
+        assert batch.get("n_valid") == ref.get("n_valid")

@@ -56,7 +56,16 @@ def test_synthetic_wire_formats_equal_jax_package(fmt):
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "tools").glob("torch_*.py")))
+
+
+def test_import_checks_cover_the_readers_loader_and_tools():
+    names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for f in ("data/ocid_vlg.py", "data/cache.py", "data/loader.py", "data/shards.py",
+              "data/refcoco.py", "data/ref_ocid.py", "test_diff_refer_types.py"):
+        assert f"crog_tpu_torch/{f}" in names, f
+    assert "tools/torch_latency.py" in names
 
 
 def test_port_imports_neither_jax_nor_crog_tpu_ast():
@@ -80,6 +89,7 @@ def test_port_imports_neither_jax_nor_crog_tpu_at_runtime():
         "'crog_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "import chip_smoke\n"
+        "sys.path.insert(0, 'tools'); import torch_latency\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'crog_tpu'))\n"
         "assert not bad, bad\n"
@@ -147,3 +157,62 @@ def test_chip_smoke_alone_fails(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def _synthetic_cfg(*opts):
+    from crog_tpu_torch.config import load_cfg_from_cfg_file, merge_cfg_from_list
+
+    cfg = load_cfg_from_cfg_file("config/OCID-VLG/crog_synthetic_r50.yaml")
+    cfg = merge_cfg_from_list(cfg, ["input_size", "64", *opts])
+    del cfg["wire_format"]
+    cfg.pop("synthetic_samples", None)
+    return cfg
+
+
+@pytest.mark.parametrize("compact_transfer,wire", [(None, "compact"), (True, "compact"),
+                                                   (False, "legacy")])
+def test_build_dataset_wire_default_as_jax_package(compact_transfer, wire):
+    """Without ``wire_format`` the JAX package's train_crog.py:73-76 ships
+    compact (``compact_transfer``, default True), legacy only when
+    ``compact_transfer`` is False."""
+    from crog_tpu_torch.test_crog import build_dataset
+
+    cfg = _synthetic_cfg()
+    if compact_transfer is not None:
+        cfg["compact_transfer"] = compact_transfer
+    sample = build_dataset(cfg, "val")[0]
+    assert ("img_u8" in sample) == (wire == "compact")
+    assert ("img" in sample) == (wire == "legacy")
+
+
+def test_build_dataset_synthetic_sizes_as_jax_package():
+    """train_crog.py:87: 512 train samples, 128 for any other split, unless
+    ``synthetic_samples`` says otherwise."""
+    from crog_tpu_torch.test_crog import build_dataset
+
+    cfg = _synthetic_cfg()
+    assert [len(build_dataset(cfg, s)) for s in ("train", "val", "test")] == [512, 128, 128]
+    cfg["synthetic_samples"] = 6
+    assert len(build_dataset(cfg, "train")) == 6
+
+
+def test_build_dataset_reads_the_tree_and_caches(tmp_path):
+    """``dataset OCID-VLG`` reads the tree at ``root_path`` (the config's
+    version); ``cache_samples`` True wraps it in a 4 GiB SampleCache, a
+    number in a cache of that many bytes."""
+    from crog_tpu_torch.data.cache import SampleCache
+    from crog_tpu_torch.data.ocid_vlg import OCIDVLGDataset
+    from crog_tpu_torch.test_crog import build_dataset
+    from tests.ocid_fixture import build_ocid_tree
+
+    build_ocid_tree(tmp_path, num_scenes=1)
+    cfg = _synthetic_cfg("dataset", "OCID-VLG")
+    cfg["root_path"] = str(tmp_path)
+    ds = build_dataset(cfg, "val-test")
+    assert isinstance(ds, OCIDVLGDataset) and len(ds) == 4
+    cfg["cache_samples"] = True
+    ds = build_dataset(cfg, "val")
+    assert isinstance(ds, SampleCache) and ds.max_bytes == 4 << 30
+    assert ds.max_ori_size == (480, 640)
+    cfg["cache_samples"] = 1000
+    assert build_dataset(cfg, "val").max_bytes == 1000

@@ -33,7 +33,7 @@ from crog_tpu.data.loader import EpochSampler as JaxEpochSampler
 from crog_tpu.engine import crog_engine as JE
 from crog_tpu.engine import optim as JO
 from crog_tpu.models import crog as JM
-from crog_tpu_torch.data.loader import EpochSampler, ShuffleLoader
+from crog_tpu_torch.data.loader import DataLoader, EpochSampler
 from crog_tpu_torch.data.synthetic import SyntheticOCIDVLG
 from crog_tpu_torch.engine import checkpoint as ckpt
 from crog_tpu_torch.engine import optim as TO
@@ -222,8 +222,8 @@ def test_epoch_sampler_order_matches_jax(epoch, drop_last):
 
 
 def test_shuffle_loader_collates_train_batches():
-    loader = ShuffleLoader(SyntheticOCIDVLG(num_samples=5, split="train", input_size=64),
-                           2, seed=1)
+    loader = DataLoader(SyntheticOCIDVLG(num_samples=5, split="train", input_size=64),
+                        2, shuffle=True, drop_last=True, seed=1)
     batches = list(loader)
     assert len(batches) == len(loader) == 2
     assert batches[0]["img"].shape == (2, 64, 64, 3)
@@ -237,7 +237,7 @@ def _train_batch():
     ``inputs`` (two unlike sentences: near-equal text states would make the
     FPN's 2-sample txt_proj BatchNorm divide by a vanishing variance)."""
     ds = SyntheticOCIDVLG(num_samples=2, split="train", input_size=RES)
-    batch = next(iter(ShuffleLoader(ds, 2, shuffle=False)))
+    batch = next(iter(DataLoader(ds, 2)))
     batch["img"], batch["word"] = inputs(2)
     return batch
 

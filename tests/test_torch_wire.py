@@ -29,7 +29,7 @@ from crog_tpu.engine import optim as JO
 from crog_tpu.models import crog as JM
 from crog_tpu_torch.data import rawwire as TR
 from crog_tpu_torch.data.compact import unpack_compact, unpack_compact_host
-from crog_tpu_torch.data.loader import ShuffleLoader, collate_crog, device_put_crog
+from crog_tpu_torch.data.loader import DataLoader, collate_crog, device_put_crog
 from crog_tpu_torch.data.synthetic import SyntheticOCIDVLG
 from crog_tpu_torch.engine import optim as TO
 from crog_tpu_torch.engine.crog_engine import make_eval_step, make_train_step
@@ -162,8 +162,8 @@ def tiny_s2d():
 
 
 def _rawlb_batch(split, n, noise: bool):
-    batch = next(iter(ShuffleLoader(
-        SyntheticOCIDVLG(n, split=split, input_size=RES, raw="lb"), n, shuffle=False,
+    batch = next(iter(DataLoader(
+        SyntheticOCIDVLG(n, split=split, input_size=RES, raw="lb"), n,
         collate_fn=collate_crog)))
     # for the train step random pixels and unlike sentences, as
     # tests/test_torch_train.py feeds: the synthetic scenes' flat colour

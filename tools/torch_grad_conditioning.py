@@ -28,7 +28,7 @@ def main() -> int:
     import torch
 
     import chip_smoke as cs
-    from crog_tpu_torch.data.loader import ShuffleLoader
+    from crog_tpu_torch.data.loader import DataLoader
     from crog_tpu_torch.test_crog import build_dataset
 
     p = argparse.ArgumentParser()
@@ -36,7 +36,7 @@ def main() -> int:
     a = p.parse_args()
     size = ("input_size", str(a.size))
     cfg = cs._cfg(4, 2, size)
-    batch = next(iter(ShuffleLoader(build_dataset(cfg, cfg.train_split), 4, shuffle=False)))
+    batch = next(iter(DataLoader(build_dataset(cfg, cfg.train_split), 4)))
     result = {}
     for running in (False, True):
         label = "running-stat BN" if running else "train-mode BN"

@@ -120,7 +120,7 @@ def main() -> int:
     import torch
 
     import chip_smoke as cs
-    from crog_tpu_torch.data.loader import SequentialLoader
+    from crog_tpu_torch.data.loader import DataLoader
     from crog_tpu_torch.engine.crog_engine import device_batch, set_exact_fp32_matmul
     from crog_tpu_torch.test_crog import build_dataset
 
@@ -153,7 +153,7 @@ def main() -> int:
     else:
         cfg = cs._cfg(a.batch, a.batch, ("wire_format", wire))
         model = cs._model(cfg, dev, fused_stem=a.fused_stem).eval()
-        batch = next(iter(SequentialLoader(build_dataset(cfg, cfg.val_split), a.batch)))
+        batch = next(iter(DataLoader(build_dataset(cfg, cfg.val_split), a.batch)))
         one = device_batch(batch, dev, cfg.input_size, train=False)
         run = torch.no_grad()(lambda: model(one["img"], one["word"]))
     unit = "step" if a.train or a.ssg else "fwd"
@@ -200,14 +200,15 @@ def main() -> int:
 def train_step(cs, dev, batch: int, wire: str, fused_stem: bool):
     """One prepared synthetic train batch in ``wire`` and a train step over
     it."""
-    from crog_tpu_torch.data.loader import ShuffleLoader
+    from crog_tpu_torch.data.loader import DataLoader
     from crog_tpu_torch.engine.crog_engine import make_train_step
     from crog_tpu_torch.engine.optim import make_optimizer
     from crog_tpu_torch.test_crog import build_dataset
     from crog_tpu_torch.utils.seed import set_random_seed
 
     cfg = cs._cfg(batch, batch, ("wire_format", wire))
-    data = next(iter(ShuffleLoader(build_dataset(cfg, cfg.train_split), batch)))
+    data = next(iter(DataLoader(build_dataset(cfg, cfg.train_split), batch, shuffle=True,
+                                   drop_last=True)))
     model = cs._model(cfg, dev, fused_stem=fused_stem).train()
     opt, sched = make_optimizer(model, cfg.base_lr, cfg.lr_multi, cfg.milestones,
                                 cfg.lr_decay, 1000, cfg.weight_decay)
