@@ -2,7 +2,7 @@
 """Drive the PyTorch port (crog_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py             # every phase below
-    python3 chip_smoke.py --kernels   # phases 1-3 and 13 only, no result line
+    python3 chip_smoke.py --kernels   # phases 1-3 and 14 only, no result line
 
 Phases, in order; any failure propagates and the exit code is not 0:
   1. the card's name and power limit (nvidia-smi);
@@ -118,7 +118,32 @@ Phases, in order; any failure propagates and the exit code is not 0:
      in turn for READER_RATE_ROUNDS rounds, with the loader's wait per
      batch and its share of the pass; the ``[reader]`` line (means with
      the least and the largest run);
- 13. the device time per call, from torch.profiler's kernel rows, of K1,
+ 13. data parallelism (crog_tpu_torch/parallel/dist.py): (a) two ranks
+     on this one card, in processes of their own over gloo (NCCL refuses
+     two ranks on one device), through ``wrap_model`` (DDP) and the train
+     steps: 2 CROG steps of crog_multiple_r50.yaml's model (RN50, 416^2,
+     3 decoder layers, the s2d stem on K6/K6b, dropout 0, seeded weights) on
+     phase 5's first two rawlb batches at 12 per rank, against the same
+     steps at 24 in one process: each step's loss terms within
+     TRAIN_LOSS_TOL, the first step's per-group gradient rel-L2 within
+     TRAIN_GRAD_TOL, the running statistics after both within DDP_STAT_TOL, the
+     parameters and buffers of the two ranks equal bit for bit, and each
+     kernel's launches over the two steps; the first step's loss terms
+     within DDP_TERM_TOL and its BatchNorm batch statistics within
+     DDP_BATCH_STAT_TOL; then the same for SSG's config on phase 9's raw
+     batches at 16 per rank against 32 (SSG_LOSS_TOL, SSG_GRAD_TOL), and
+     SSG's loss alone in fp32 on seeded outputs of its first batch
+     (``ssg_loss_case``: the global positive count, DDP_FP32_TOL); every
+     limit lies between the sound code and planted faults
+     (tools/torch_ddp_faults.py); (b) ``torchrun --nproc_per_node 1`` (NCCL) of
+     ``crog_tpu_torch.train_crog`` on the synthetic config (2 steps of 24,
+     one eval over 48; at world 1 no DDP and no collective): exit 0 and
+     ``metrics.jsonl``; its ``last_model``
+     through the one-process ``crog_tpu_torch.test_crog``; (c) the ``[ddp]``
+     line: ms per CROG train step at 24 on one NCCL rank through DDP beside
+     the model itself (the wrapper's cost on one card, not a scaling
+     figure), and the phase's wall time;
+ 14. the device time per call, from torch.profiler's kernel rows, of K1,
      K1b, K2 and K3 in eval and in train mode (by part: ln_pos, the
      projections, the attention step, the out-projection), K2b and K3b (by
      part: the LN kernels, the dO and dX GEMMs, the attention step, the dW
@@ -1416,7 +1441,7 @@ def check_moved(model, params0, stats0, tag: str):
 def train_path(device, smi: str):
     """Phase 5: train_one_epoch at full width, batch 24, rawlb batches,
     through every forward and backward kernel; returns (launches, samples/s,
-    a prepared train batch, cfg, the train step)."""
+    the prepared train batches, cfg, the train step)."""
     import torch
 
     from crog_tpu_torch.data.loader import DataLoader
@@ -1459,7 +1484,7 @@ def train_path(device, smi: str):
     dt = (time.perf_counter() - t0) / TRAIN_STEPS
     print(f"[time] train step batch {BATCH}: {dt * 1e3:.2f} ms = {BATCH / dt:.2f} "
           f"samples/s (prepared {cfg.wire_format} host batches in) on {smi}", flush=True)
-    return launches, BATCH / dt, prepared[0], cfg, step
+    return launches, BATCH / dt, prepared, cfg, step
 
 
 def wire_phase(step, smi: str):
@@ -1709,7 +1734,7 @@ def ssg_raw_batches():
 def ssg_train_path(device, smi: str):
     """Phase 9: SSG's train_one_epoch at full width on the config's raw
     wire at SSG_BATCH (out of memory fails the phase); returns (launches,
-    samples/s, model, cfg)."""
+    samples/s, model, cfg, the prepared batches)."""
     import torch
 
     from crog_tpu_torch.engine.optim import make_optimizer
@@ -1753,7 +1778,7 @@ def ssg_train_path(device, smi: str):
     print(f"[time] SSG train step batch {batch}: {dt * 1e3:.2f} ms = {batch / dt:.2f} "
           f"samples/s (prepared {cfg.wire_format} host batches in) on {smi}", flush=True)
     ssg_legacy_step(step, smi)
-    return launches, batch / dt, model, cfg
+    return launches, batch / dt, model, cfg, prepared
 
 
 def ssg_legacy_step(step, smi: str):
@@ -2242,6 +2267,499 @@ def reader_phase(device, smi: str):
     return runs, rates
 
 
+# phase 13: data parallelism (crog_tpu_torch/parallel/dist.py)
+DDP_STEPS = 2
+DDP_WORLD = 2
+# Phase 13a's limits, each between the sound code's reading and those of
+# faults planted in the ranks by tools/torch_ddp_faults.py (on an NVIDIA
+# H100 80GB HBM3; PERF.md, PR 13).  Two ranks and one process differ only
+# in the order of fp32 sums, which bf16 rounding amplifies through
+# train-mode BatchNorm.  Sound, CROG / SSG: the first step's loss terms
+# 0.38% / 0.57%, its BatchNorm batch statistics 0.71% / 0.23% (rel-L2 of
+# the worst buffer), the running statistics after 2 steps 3.5% / 3.4% of a
+# buffer's scale, gradients 0.194 / 0.215.  No all-reduce of the
+# BatchNorm sums: 22% / 7.9%, 40% / 14%, 20% / 10%, 1.34 / 0.73, and the
+# ranks' buffers differ.  The all-reduce without its backward: terms and
+# batch statistics as sound, 29% / 11%, 1.09 / 0.52.  The gradients are
+# held to TRAIN_GRAD_TOL / SSG_GRAD_TOL (0.25), which lies between.
+DDP_TERM_TOL = 0.02
+DDP_BATCH_STAT_TOL = 0.03
+DDP_STAT_TOL = 0.06
+# SSG's loss alone in fp32 on seeded outputs (``ssg_loss_case``): two
+# ranks and one process differ in the order of fp32 sums only, while a
+# rank that divides by its own positive count scales its rows' gradients
+# by the two counts' ratio (176 and 185 positives in the halves of SSG's
+# first batch; in the bf16 steps above that fault reads as sound).
+DDP_FP32_TOL = 1e-4
+DDP_TIMEOUT = 600  # seconds for a rank's run, or a CLI's
+DDP_TIMED_STEPS = 6  # of each kind, in turns
+
+
+def _ddp_cfg():
+    """crog_multiple_r50.yaml's model as written, dropout 0."""
+    from crog_tpu_torch.config import load_cfg_from_cfg_file, merge_cfg_from_list
+
+    return merge_cfg_from_list(load_cfg_from_cfg_file(READER_CONFIG), ["dropout", "0.0"])
+
+
+def _rank_rows(batch, rank: int, world: int):
+    """A rank's rows of a global host batch (rank-major)."""
+    n = len(batch["word"] if "word" in batch else batch["obj_valid"]) // world
+    return {k: v[rank * n:(rank + 1) * n] if isinstance(v, (np.ndarray, list)) else v
+            for k, v in batch.items()}
+
+
+def _digest(model) -> str:
+    """sha256 of every parameter's and buffer's bytes: equal iff bit-equal."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for t in list(model.parameters()) + list(model.buffers()):
+        h.update(t.detach().reshape(-1).cpu().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _running_stats(net):
+    """The BatchNorm running statistics, on the host in fp32."""
+    return {n: b.float().cpu() for n, b in net.named_buffers() if "running" in n}
+
+
+def _ddp_steps(net, step, batches, keep: bool):
+    """``step`` over ``batches`` with the launch counters read around them:
+    per step the terms averaged over the ranks; with ``keep`` (on the host)
+    the first step's gradients and its change to the BatchNorm running
+    statistics (momentum times the batch's statistic less the start value:
+    the first forward's alone, from equal weights), and the statistics
+    after the last step; a digest of the model; the launches."""
+    import torch
+
+    from crog_tpu_torch.parallel.dist import mean_over_ranks
+
+    wrappers = launch_counts()
+    _reset(wrappers)
+    out = {"terms": [], "grads": None, "stats": None, "batch_stats": None}
+    start = _running_stats(net) if keep else None
+    for i, batch in enumerate(batches):
+        out["terms"].append({k: float(v) for k, v in mean_over_ranks(step(batch)).items()})
+        if i == 0 and keep:
+            out["grads"] = {n: p.grad.float().cpu() for n, p in net.named_parameters()
+                            if p.grad is not None}
+            out["batch_stats"] = {n: b - start[n] for n, b in _running_stats(net).items()}
+    torch.cuda.synchronize()
+    out["launches"] = {n: w.launches for n, w in wrappers.items()}
+    if keep:
+        out["stats"] = _running_stats(net)
+    out["digest"] = _digest(net)
+    return out
+
+
+def ddp_crog_steps(device, batches, keep: bool = True):
+    """DDP_STEPS train steps of ``_ddp_cfg``'s model (seeded weights, the
+    s2d stem on K6/K6b) through ``wrap_model`` and ``make_train_step``:
+    DDP under a process group of world > 1, the model itself in one
+    process."""
+    from crog_tpu_torch.engine.crog_engine import make_train_step
+    from crog_tpu_torch.engine.optim import make_optimizer
+    from crog_tpu_torch.parallel.dist import wrap_model
+    from crog_tpu_torch.utils.seed import set_random_seed
+
+    cfg = _ddp_cfg()
+    net = _model(cfg, device).train()
+    opt, sched = make_optimizer(net, cfg.base_lr, cfg.lr_multi, cfg.milestones,
+                                cfg.lr_decay, DDP_STEPS, cfg.weight_decay)
+    step = make_train_step(wrap_model(net, device), opt, sched, cfg.use_grasp_masks,
+                           cfg.max_norm, set_random_seed(SEED), device)
+    return _ddp_steps(net, step, batches, keep)
+
+
+def ddp_ssg_steps(device, batches, keep: bool = True):
+    """As ``ddp_crog_steps`` for SSG's config as written (raw wire)."""
+    from crog_tpu_torch.engine.optim import make_optimizer
+    from crog_tpu_torch.engine.ssg_engine import make_ssg_train_step
+    from crog_tpu_torch.parallel.dist import wrap_model
+    from crog_tpu_torch.train_ssg import loss_config
+    from crog_tpu_torch.utils.seed import set_random_seed
+
+    cfg = _ssg_cfg()
+    net = _ssg_model(cfg, device).train()
+    opt, sched = make_optimizer(net, cfg.base_lr, 1.0, cfg.milestones, cfg.lr_decay,
+                                DDP_STEPS, cfg.weight_decay)
+    step = make_ssg_train_step(wrap_model(net, device), opt, sched, net.anchors(),
+                               loss_config(cfg), set_random_seed(SEED), cfg.max_norm,
+                               device, max_objs=cfg.max_objs)
+    return _ddp_steps(net, step, batches, keep)
+
+
+def ddp_worker(workdir: str) -> int:
+    """One rank of phase 13's two on one card (``--ddp-worker DIR``, with
+    RANK / WORLD_SIZE / LOCAL_RANK / MASTER_ADDR / MASTER_PORT set): gloo
+    over CUDA tensors, as NCCL refuses two ranks on one device.  Its rows
+    of DIR/batches.pt through ``ddp_crog_steps`` and ``ddp_ssg_steps``,
+    the results to DIR/rank<R>.pt."""
+    import os
+
+    import torch
+
+    from crog_tpu_torch.engine.crog_engine import set_exact_fp32_matmul
+    from crog_tpu_torch.parallel import dist
+
+    set_exact_fp32_matmul()
+    device = dist.init_from_env("cuda", "gloo")
+    rank, world = dist.rank(), dist.world()
+    data = torch.load(os.path.join(workdir, "batches.pt"), weights_only=False)
+    out = {"crog": ddp_crog_steps(device, [_rank_rows(b, rank, world) for b in data["crog"]],
+                                  keep=rank == 0)}
+    torch.cuda.empty_cache()
+    out["ssg"] = ddp_ssg_steps(device, [_rank_rows(b, rank, world) for b in data["ssg"]],
+                               keep=rank == 0)
+    torch.cuda.empty_cache()
+    out["ssg_loss"] = ssg_loss_case(device, data["ssg"][0], data["ssg_loss"], rank, world)
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    dist.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_ranks(workdir: str, worker=None):
+    """Phase 13a's two ranks in processes of their own, each running
+    ``python <worker...> DIR`` (by default this script's ``--ddp-worker``);
+    their results."""
+    import os
+
+    import torch
+
+    port, procs = _free_port(), []
+    try:
+        for rank in range(DDP_WORLD):
+            env = {**os.environ, "RANK": str(rank), "LOCAL_RANK": "0",
+                   "WORLD_SIZE": str(DDP_WORLD), "MASTER_ADDR": "127.0.0.1",
+                   "MASTER_PORT": str(port)}
+            log = open(os.path.join(workdir, f"rank{rank}.log"), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, *(worker or [__file__, "--ddp-worker"]), workdir], env=env,
+                stdout=log, stderr=subprocess.STDOUT), log))
+        codes = [p.wait(timeout=DDP_TIMEOUT) for p, _ in procs]
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    if codes != [0] * DDP_WORLD:
+        for rank in range(DDP_WORLD):
+            with open(os.path.join(workdir, f"rank{rank}.log")) as f:
+                print(f"[ddp] rank {rank}:\n{f.read()[-6000:]}", flush=True)
+        raise AssertionError(f"phase 13 ranks exited {codes}")
+    return [torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=False)
+            for r in range(DDP_WORLD)]
+
+
+def _rel_l2(got, want) -> float:
+    num = sum(float((got[n] - want[n]).pow(2).sum()) for n in want)
+    den = sum(float(want[n].pow(2).sum()) for n in want)
+    return (num / max(den, 1e-30)) ** 0.5
+
+
+def ddp_readings(ref, got, keys, group_of, groups):
+    """Phase 13a's readings of a rank (``got``) against one process
+    (``ref``): ``terms1``, the first step's largest relative gap of a loss
+    term in ``keys``; ``grads``, the first step's gradient rel-L2 per
+    group; ``batch_stats``, the worst rel-L2 over the buffers of the first
+    step's change to the running statistics; ``stats``, the worst gap of a
+    buffer after the last step over that buffer's largest magnitude."""
+    gc, gp = got["grads"], ref["grads"]
+    if set(gc) != set(gp):
+        raise AssertionError("gradients for different parameters")
+    t1, w1 = got["terms"][0], ref["terms"][0]
+    return {
+        "terms1": max(abs(t1[k] - w1[k]) / abs(w1[k]) for k in keys),
+        "grads": {g: _rel_l2(gc, {n: x for n, x in gp.items() if group_of(n) == g})
+                  for g in groups},
+        "batch_stats": max(_rel_l2(got["batch_stats"], {n: b})
+                           for n, b in ref["batch_stats"].items()),
+        "stats": max(float((got["stats"][n] - b).abs().max()
+                           / b.abs().max().clamp_min(1e-12))
+                     for n, b in ref["stats"].items()),
+    }
+
+
+def _ddp_compare(tag, ref, ranks, keys, loss_bad, group_of, groups, grad_tol, per_step):
+    """Phase 13a's checks of one model: the ranks bit-equal, the launches,
+    each step's terms (``loss_bad(got, ref) -> bad keys``), the first
+    step's loss terms (``keys``) within DDP_TERM_TOL, its per-group
+    gradient rel-L2 within ``grad_tol`` and its BatchNorm batch statistics
+    within DDP_BATCH_STAT_TOL, the running statistics within DDP_STAT_TOL."""
+    r0, r1 = ranks
+    if r0["digest"] != r1["digest"]:
+        raise AssertionError(f"[{tag}] the two ranks' parameters or buffers differ")
+    check_launches(r0["launches"], per_step, DDP_STEPS)
+    for i, (got, want) in enumerate(zip(r0["terms"], ref["terms"])):
+        print(f"[{tag}] step {i + 1}: 2 ranks / 1 process " + ", ".join(
+            f"{k} {got[k]:.6g}/{want[k]:.6g}" for k in want), flush=True)
+        bad = loss_bad(got, want)
+        if bad:
+            raise AssertionError(f"[{tag}] step {i + 1}: terms {bad} differ")
+    r = ddp_readings(ref, r0, keys, group_of, groups)
+    print(f"[{tag}] first step: terms worst {r['terms1']:.4g} (tol {DDP_TERM_TOL}), "
+          f"BatchNorm batch statistics worst rel_l2 {r['batch_stats']:.4g} (tol "
+          f"{DDP_BATCH_STAT_TOL}), grad rel_l2 " + ", ".join(
+              f"{g} {x:.4g}" for g, x in r["grads"].items())
+          + f" (tol {grad_tol}); BatchNorm statistics after step {DDP_STEPS} worst "
+          f"{r['stats']:.4g} of the buffer's scale (tol {DDP_STAT_TOL}); parameters and "
+          f"buffers bit-equal across the ranks; launches {r0['launches']}", flush=True)
+    if (r["terms1"] > DDP_TERM_TOL or r["batch_stats"] > DDP_BATCH_STAT_TOL
+            or max(r["grads"].values()) > grad_tol or r["stats"] > DDP_STAT_TOL):
+        raise AssertionError(f"[{tag}] 2 ranks vs 1 process: {r}")
+
+
+# per model of phase 13a: its loss terms, and its gradient groups
+DDP_KEYS = {"crog": ("loss", "m_ins", "m_qua", "m_sin", "m_cos", "m_wid"),
+            "ssg": ("loss", "loss_cls", "loss_box", "loss_ins", "loss_sem", "loss_qua",
+                    "loss_sin", "loss_cos", "loss_wid")}
+DDP_GROUPS = {"crog": (_group, [g for g, _ in GROUPS]),
+              "ssg": (lambda n: n.split(".")[0], SSG_GROUPS)}
+
+
+def ssg_loss_inputs(device, batch):
+    """The shapes of SSG's train-mode outputs on the global ``batch`` (one
+    forward of the seeded model) and its anchors: what ``ssg_loss_case``
+    needs besides the batch."""
+    import torch
+
+    from crog_tpu_torch.engine.ssg_engine import device_batch
+
+    net = _ssg_model(_ssg_cfg(), device).train()
+    with torch.no_grad():
+        out = net(device_batch(batch, device, net.img_size, net.with_depth,
+                               targets=False)["img"])
+    return {"shapes": {k: tuple(v.shape) for k, v in out.items()}, "anchors": net.anchors()}
+
+
+def ssg_loss_case(device, batch, inputs, rank: int = 0, world: int = 1):
+    """SSG's loss alone in fp32, no network: seeded normal outputs of the
+    global batch (``inputs``' shapes), this rank's rows of them and of
+    ``batch``, through ``ssg_losses`` (priorities from a generator seeded
+    alike on every rank) and its backward; the terms and the gradients of
+    the output rows."""
+    import torch
+
+    from crog_tpu_torch.engine.ssg_engine import device_batch
+    from crog_tpu_torch.models.ssg_loss import ssg_losses
+    from crog_tpu_torch.train_ssg import loss_config
+
+    cfg = _ssg_cfg()
+    gen = torch.Generator(device).manual_seed(SEED)
+    out = {}
+    for k, shape in sorted(inputs["shapes"].items()):
+        n = shape[0] // world
+        out[k] = torch.randn(shape, generator=gen, device=device)[
+            rank * n:(rank + 1) * n].clone().requires_grad_()
+    dense = device_batch(_rank_rows(batch, rank, world), device, cfg.img_size,
+                         cfg.with_depth, max_objs=cfg.max_objs)
+    anchors = torch.as_tensor(inputs["anchors"], dtype=torch.float32, device=device)
+    loss, terms = ssg_losses(out, dense, anchors, torch.Generator().manual_seed(SEED),
+                             **loss_config(cfg))
+    loss.backward()
+    return {"terms": {"loss": float(loss.detach()),
+                      **{k: float(v.detach()) for k, v in terms.items()}},
+            "grads": {k: v.grad.cpu() for k, v in out.items()}}
+
+
+def ssg_loss_readings(ref, ranks):
+    """``ssg_loss_case`` of the ranks against one process: the worst
+    relative gap of a term's mean over the ranks, and the worst rel-L2 of
+    an output's gradient (each rank's rows over ``world``: DDP's mean)."""
+    import torch
+
+    world = len(ranks)
+    return {
+        "terms": max(abs(sum(r["terms"][k] for r in ranks) / world - v) / abs(v)
+                     for k, v in ref["terms"].items() if v),
+        "grads": max(_rel_l2({k: torch.cat([r["grads"][k] for r in ranks]) / world},
+                             {k: g}) for k, g in ref["grads"].items()),
+    }
+
+
+def ddp_reference(device, crog_batches, ssg_batches, workdir: str):
+    """Phase 13a's one-process runs: DDP_STEPS steps of CROG at BATCH and
+    of SSG at SSG_BATCH, and ``ssg_loss_case`` on SSG's first batch; the
+    batches and that case's inputs saved in ``workdir`` for the ranks."""
+    import os
+
+    import torch
+
+    crog_batches, ssg_batches = crog_batches[:DDP_STEPS], ssg_batches[:DDP_STEPS]
+    loss_inputs = ssg_loss_inputs(device, ssg_batches[0])
+    torch.cuda.empty_cache()
+    torch.save({"crog": crog_batches, "ssg": ssg_batches, "ssg_loss": loss_inputs},
+               os.path.join(workdir, "batches.pt"))
+    ref = {"crog": ddp_crog_steps(device, crog_batches)}
+    torch.cuda.empty_cache()
+    ref["ssg"] = ddp_ssg_steps(device, ssg_batches)
+    torch.cuda.empty_cache()
+    ref["ssg_loss"] = ssg_loss_case(device, ssg_batches[0], loss_inputs)
+    torch.cuda.empty_cache()
+    return ref
+
+
+def ddp_two_ranks(device, crog_batches, ssg_batches, workdir: str):
+    """Phase 13a: the steps of ``ddp_reference`` in one process, then on
+    two ranks of half the batch on this card."""
+    ref = ddp_reference(device, crog_batches, ssg_batches, workdir)
+    ranks = _run_ranks(workdir)
+    _ddp_compare(
+        "ddp-crog", ref["crog"], [r["crog"] for r in ranks], DDP_KEYS["crog"],
+        lambda got, want: [k for k in DDP_KEYS["crog"]
+                           if abs(got[k] - want[k]) > TRAIN_LOSS_TOL * abs(want[k])],
+        *DDP_GROUPS["crog"], TRAIN_GRAD_TOL, PER_STEP)
+    _ddp_compare(
+        "ddp-ssg", ref["ssg"], [r["ssg"] for r in ranks], DDP_KEYS["ssg"],
+        lambda got, want: [k for k in want if abs(got[k] - want[k])
+                           > SSG_LOSS_TOL * abs(want[k]) + SSG_LOSS_FLOOR * abs(want["loss"])],
+        *DDP_GROUPS["ssg"], SSG_GRAD_TOL, SSG_PER_STEP)
+    r = ssg_loss_readings(ref["ssg_loss"], [x["ssg_loss"] for x in ranks])
+    print(f"[ddp-ssg] the loss alone in fp32 on seeded outputs of SSG's first batch, 2 "
+          f"ranks / 1 process: terms worst {r['terms']:.4g}, output gradients worst rel_l2 "
+          f"{r['grads']:.4g} (tol {DDP_FP32_TOL})", flush=True)
+    if max(r.values()) > DDP_FP32_TOL:
+        raise AssertionError(f"[ddp-ssg] the loss alone: {r}")
+
+
+def _run_cli(args, workdir: str, log_name: str) -> str:
+    """A CLI in a process of its own; its log (the command fails the phase
+    when it exits other than 0)."""
+    import os
+    import signal
+
+    path = os.path.join(workdir, log_name)
+    with open(path, "w") as log:
+        # a session of its own, so that a timeout also stops torchrun's workers
+        proc = subprocess.Popen([sys.executable, *args], stdout=log, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=DDP_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            rc = "timeout"
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    with open(path) as f:
+        text = f.read()
+    if rc != 0:
+        print(text[-6000:], flush=True)
+        raise AssertionError(f"{' '.join(args[:6])} ...: exit {rc}")
+    return text
+
+
+def ddp_cli(workdir: str):
+    """Phase 13b: torchrun of train_crog on one rank over NCCL (the
+    synthetic config as written, 2 steps of 24 and one eval over 48), then
+    the one-process test_crog on its last_model.  At world 1 ``wrap_model``
+    returns the model itself and every collective of ``parallel/dist.py``
+    is the identity: this runs torchrun's environment, NCCL's init and the
+    CLI's rank-0 writes, no DDP and no collective."""
+    import json
+    import os
+
+    exp = os.path.join(workdir, "cli")
+    opts = ["synthetic_samples", str(2 * BATCH), "epochs", "1", "print_freq", "1",
+            "output_folder", workdir, "exp_name", "cli"]
+    t0 = time.perf_counter()
+    text = _run_cli(["-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+                     "-m", "crog_tpu_torch.train_crog", "--config", CONFIG, "--fused-stem",
+                     "--opts", *opts], workdir, "train.out")
+    dt = time.perf_counter() - t0
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    val = next(r for r in records if "val/iou" in r)
+    ckpt = os.path.join(exp, "last_model")
+    if "Device: cuda:0; 1 rank(s)" not in text or not os.path.isfile(ckpt):
+        raise AssertionError("train_crog under torchrun: no rank line or no last_model")
+    t1 = time.perf_counter()
+    text = _run_cli(["-m", "crog_tpu_torch.test_crog", "--config", CONFIG, "--fused-stem",
+                     "--opts", "synthetic_samples", str(BATCH), "resume", ckpt,
+                     "output_folder", workdir, "exp_name", "cli"], workdir, "test.out")
+    final = next(line for line in text.splitlines() if "Final:" in line)
+    if "=> loaded checkpoint" not in text:
+        raise AssertionError("test_crog did not load train_crog's last_model")
+    print(f"[ddp-cli] torchrun --nproc_per_node 1 (nccl; world 1: no DDP, no collective) "
+          f"train_crog: 2 steps at {BATCH} and "
+          f"eval over {2 * BATCH}, exit 0 in {dt:.1f} s, metrics.jsonl val/iou "
+          f"{val['val/iou']:.6f} J@1 {val['val/j_index@1']:.6f}; its last_model through "
+          f"test_crog in one process, exit 0 in {time.perf_counter() - t1:.1f} s: "
+          f"{final.split('|')[-1].strip()}", flush=True)
+
+
+def ddp_step_times(device, batch):
+    """Phase 13c: ms per CROG train step at BATCH, one rank under NCCL,
+    through DDP beside the model itself, DDP_TIMED_STEPS of each in turns
+    after one of each; (ddp ms, plain ms) lists."""
+    import statistics
+
+    import torch
+    import torch.distributed as tdist
+
+    from crog_tpu_torch.engine.crog_engine import make_train_step
+    from crog_tpu_torch.engine.optim import make_optimizer
+    from crog_tpu_torch.parallel.dist import ddp
+    from crog_tpu_torch.utils.seed import set_random_seed
+
+    tdist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                             world_size=1, rank=0, device_id=device)
+    try:
+        cfg = _ddp_cfg()
+        steps = {}
+        for kind in ("plain", "ddp"):
+            net = _model(cfg, device).train()
+            opt, sched = make_optimizer(net, cfg.base_lr, cfg.lr_multi, cfg.milestones,
+                                        cfg.lr_decay, 100, cfg.weight_decay)
+            steps[kind] = make_train_step(ddp(net, device) if kind == "ddp" else net, opt,
+                                          sched, cfg.use_grasp_masks, cfg.max_norm,
+                                          set_random_seed(SEED), device)
+        ms = {"plain": [], "ddp": []}
+        for i in range(DDP_TIMED_STEPS + 1):
+            for kind in (("plain", "ddp") if i % 2 == 0 else ("ddp", "plain")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                steps[kind](batch)
+                torch.cuda.synchronize()
+                if i > 0:
+                    ms[kind].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        tdist.destroy_process_group()
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    return ms, med
+
+
+def ddp_phase(device, crog_batches, ssg_batches, smi: str):
+    """Phase 13: 13a, 13b, 13c; the ``[ddp]`` line."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="ddp_") as workdir:
+        ddp_two_ranks(device, crog_batches, ssg_batches, workdir)
+        ddp_cli(workdir)
+    ms, med = ddp_step_times(device, crog_batches[0])
+    spread = {k: f"{min(v):.2f}-{max(v):.2f}" for k, v in ms.items()}
+    print(f"[ddp] one rank under NCCL, CROG train step at batch {BATCH} "
+          f"({READER_CONFIG}'s model, dropout 0): DDP {med['ddp']:.2f} ms (median; "
+          f"{spread['ddp']} over {DDP_TIMED_STEPS}), the model itself {med['plain']:.2f} ms "
+          f"({spread['plain']}): the wrapper's cost on one card "
+          f"{med['ddp'] - med['plain']:.2f} ms, not a scaling figure; phase 13 took "
+          f"{time.perf_counter() - t0:.1f} s on {smi}", flush=True)
+
+
 def ptxas_entries(text: str):
     """(kernel, registers, spill-store bytes) for each entry function of an
     ``nvcc -Xptxas -v`` report."""
@@ -2367,12 +2885,16 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA card.")
     ap.add_argument("--kernels", action="store_true",
-                    help="phases 1-3 and 13 only: build, hold every kernel against its "
+                    help="phases 1-3 and 14 only: build, hold every kernel against its "
                          "twin, time it; no main path and no result line")
+    ap.add_argument("--ddp-worker", metavar="DIR",
+                    help="run one rank of phase 13 (started by phase 13 itself)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.ddp_worker:
+        return ddp_worker(args.ddp_worker)
     from crog_tpu_torch.engine.crog_engine import set_exact_fp32_matmul
     from crog_tpu_torch.ops import cuda_build
 
@@ -2405,21 +2927,22 @@ def main(argv=None) -> int:
     fwd_ms, eval_rate = timings(model, eval_step, batches[0], cfg, smi)
     del model, eval_step
     torch.cuda.empty_cache()
-    launches, train_rate, train_batch, train_cfg, step = train_path(device, smi)
+    launches, train_rate, train_batches, train_cfg, step = train_path(device, smi)
     wire_phase(step, smi)
     del step
     torch.cuda.empty_cache()
     stem_timings(device, smi)
-    e2e_train_step(train_batch, device)
-    del train_batch
+    e2e_train_step(train_batches[0], device)
     torch.cuda.empty_cache()
-    ssg_launches, ssg_train_rate, ssg_model, ssg_cfg = ssg_train_path(device, smi)
+    ssg_launches, ssg_train_rate, ssg_model, ssg_cfg, ssg_batches = ssg_train_path(device,
+                                                                                  smi)
     ssg_eval_rate = ssg_eval_path(device, ssg_model, ssg_cfg, smi)
     del ssg_model
     torch.cuda.empty_cache()
     ssg_train_step_gap(device)
     ssg_unpack_check(device)
     reader_runs, reader_rates = reader_phase(device, smi)
+    ddp_phase(device, train_batches, ssg_batches, smi)
     print_device_times()
     # each kernel's launches on the main path that runs it: CROG training
     # for K1-K4b and K6/K6b, SSG training for K5/K5b

@@ -137,9 +137,27 @@ def pad_batch(batch: Dict, batch_size: int, n_valid: int) -> Dict:
     return out
 
 
+class Subset:
+    """The samples of ``dataset`` at ``indices``, in that order."""
+
+    def __init__(self, dataset, indices):
+        self.dataset = dataset
+        self.indices = list(indices)
+
+    def __len__(self):
+        return len(self.indices)
+
+    def __getitem__(self, i):
+        return self.dataset[self.indices[i]]
+
+
 class EpochSampler:
     """DistributedSampler semantics: seeded shuffle reseeded per epoch
-    (``set_epoch``), per-host strides, optional ``drop_last``."""
+    (``set_epoch``), per-host strides, optional ``drop_last``.  With
+    ``drop_last`` the hosts stride over the first ``num_samples -
+    num_samples % num_hosts`` indices of the order, so that every host
+    takes the same number of steps (the ranks of a train step meet in its
+    collectives)."""
 
     def __init__(self, num_samples: int, shuffle: bool = True, seed: int = 0,
                  drop_last: bool = False, batch_size: int = 1, num_hosts: int = 1,
@@ -160,12 +178,18 @@ class EpochSampler:
         idx = np.arange(self.num_samples)
         if self.shuffle:
             np.random.RandomState(self.seed + self.epoch).shuffle(idx)
-        idx = idx[self.host_id::self.num_hosts]
+        idx = idx[:self._strided()][self.host_id::self.num_hosts]
         for i in range(0, len(self) * self.batch_size, self.batch_size):
             yield idx[i : i + self.batch_size].tolist()
 
+    def _strided(self) -> int:
+        """How many indices of the order the hosts share out."""
+        if self.drop_last:
+            return self.num_samples - self.num_samples % self.num_hosts
+        return self.num_samples
+
     def __len__(self):
-        n = len(range(self.host_id, self.num_samples, self.num_hosts))
+        n = len(range(self.host_id, self._strided(), self.num_hosts))
         if self.drop_last:
             return n // self.batch_size
         return -(-n // self.batch_size)

@@ -45,6 +45,13 @@ from crog_tpu_torch.ops.resize import (
     interp_matrix,
     resize_nearest,
 )
+from crog_tpu_torch.parallel.dist import (
+    gather_metrics,
+    mean_over_ranks,
+    rank,
+    unwrap,
+    world,
+)
 from crog_tpu_torch.utils.logging import get_logger
 from crog_tpu_torch.utils.meters import AverageMeter, ProgressMeter
 
@@ -125,16 +132,21 @@ def make_train_step(model, optimizer, scheduler, use_grasp_masks: bool = True,
                     device=None):
     """Returns ``step(batch) -> metrics`` for a numpy batch in any wire
     format; the metrics (``loss``, ``iou``, ``prec@50`` and the ``m_*`` loss
-    terms) are device tensors.  ``generator`` (a CPU ``torch.Generator``)
-    gives the dropout seeds of every step."""
+    terms) are device tensors, this rank's (``mean_over_ranks`` gives the
+    global batch's).  ``generator`` (a CPU ``torch.Generator``) gives the
+    dropout seeds of every step.  ``model`` may be a ``wrap_model`` result:
+    the losses are plain means, so with equal per-rank batches DDP's mean
+    of the ranks' gradients is the global batch's, and the clipping after
+    it clips the global gradient."""
     set_exact_fp32_matmul()  # the raw wire's warp products
     device = torch.device(device) if device is not None else next(
         model.parameters()).device
     params = [p for p in model.parameters() if p.requires_grad]
+    input_size = unwrap(model).input_resolution
 
     def step(batch: Dict) -> Dict[str, torch.Tensor]:
         model.train()
-        dense = device_batch(batch, device, model.input_resolution)
+        dense = device_batch(batch, device, input_size)
         targets = {k: dense.get(k, dense["mask"]) for k in TARGET_KEYS}
         preds = model(dense["img"], dense["word"], generator=generator)
         loss, loss_dict = crog_losses(preds, targets, use_grasp_masks)
@@ -158,7 +170,8 @@ def make_train_step(model, optimizer, scheduler, use_grasp_masks: bool = True,
 def train_one_epoch(loader, train_step, epoch: int, args,
                     steps_per_epoch: Optional[int] = None):
     """One training epoch (reference train_with_grasp, :17-122).  Syncs with
-    the device once per ``print_freq`` window only."""
+    the device once per ``print_freq`` window only; the logged metrics, and
+    the last step's that it returns, are means over the ranks."""
     logger = get_logger()
     num_batches = steps_per_epoch or len(loader)
     meters = {
@@ -181,14 +194,15 @@ def train_one_epoch(loader, train_step, epoch: int, args,
         metrics = train_step(batch)
         if (i + 1) % args.print_freq == 0:
             bsz = len(batch["word"])
+            logged = mean_over_ranks(metrics)
             for key in ("loss", "iou", "prec@50"):
-                meters[key].update(float(metrics[key]), bsz)
+                meters[key].update(float(logged[key]), bsz)
             now = time.perf_counter()
             meters["batch_time"].update((now - win_start) / args.print_freq)
             win_start = now
             logger.info(progress.display(i + 1))
         end = time.perf_counter()
-    return metrics
+    return None if metrics is None else mean_over_ranks(metrics)
 
 
 def make_eval_step(
@@ -307,7 +321,9 @@ def validate_with_grasp(loader, eval_step, epoch: int = 0, args=None,
 
     ``loader`` yields legacy batches whose host-side ``grasps`` are a list
     of [Mi, 6] arrays; a padded tail batch carries ``n_valid``.
-    ``on_batch(batch, out, n_valid)`` is called after each step.  Returns
+    ``on_batch(batch, out, n_valid)`` is called after each step.  Under a
+    process group the per-sample values of every rank's shard are gathered
+    (rank-major) before the summary, each sample counted once.  Returns
     the summary dict; its ``"iou_list"``, ``"j1_hits"`` and ``"j5_hits"``
     hold the per-sample values.
     """
@@ -333,6 +349,9 @@ def validate_with_grasp(loader, eval_step, epoch: int = 0, args=None,
                 j5_hits.append(jacquard_index(preds5, gts, shape=shape))
         if on_batch is not None:
             on_batch(batch, out, n_valid)
+    iou_list = gather_metrics(np.asarray(iou_list, np.float64)).tolist()
+    j1_hits = gather_metrics(np.asarray(j1_hits, np.int64)).tolist()
+    j5_hits = gather_metrics(np.asarray(j5_hits, np.int64)).tolist()
     epochs = getattr(args, "epochs", 0) if args is not None else 0
     result = summarize_eval(iou_list, j1_hits, j5_hits, epoch, epochs)
     result.update(iou_list=iou_list, j1_hits=j1_hits, j5_hits=j5_hits)
@@ -350,9 +369,10 @@ def inference_with_grasp(loader, eval_step, args=None, visualize: bool = False,
                          vis_dir: str = "vis"):
     """Test-split inference (reference engine/crog_engine.py:386-558):
     ``validate_with_grasp``, and with ``visualize`` one PNG per real sample
-    of the whole split (``<vis_dir>/<batch>_<sample>.png``: the image, the
-    predicted rects and the ground-truth mask and grasp maps), rendered in
-    the same pass over the loader.  Every wire format is unpacked first:
+    of the whole split (``<vis_dir>/<batch>_<sample>.png``, under a process
+    group ``r<rank>_<batch>_<sample>.png`` over the rank's shard: the
+    image, the predicted rects and the ground-truth mask and grasp maps),
+    rendered in the same pass over the loader.  Every wire format is unpacked first:
     raw and rawlb batches on their own path, which the JAX package's
     version misses (crog_tpu/engine/crog_engine.py:390 tests only
     ``raw_img_u8``, so a rawlb batch reaches the render packed and raises
@@ -363,6 +383,7 @@ def inference_with_grasp(loader, eval_step, args=None, visualize: bool = False,
 
         size = int(args.get("input_size", 416)) if args is not None else 416
         counter = {"batch": 0}
+        prefix = "" if world() == 1 else f"r{rank()}_"
 
         def on_batch(batch, out, n_valid):
             dense = dense_host_batch(batch, size)
@@ -379,7 +400,7 @@ def inference_with_grasp(loader, eval_step, args=None, visualize: bool = False,
                     (img * 255).astype(np.uint8), mask,
                     tuple(dense.get(k, dense["mask"])[i] for k in ("qua", "sin", "wid")),
                     [r for k, r in enumerate(rects[i]) if valid[i, k]],
-                    sentences[i], save_path=f"{vis_dir}/{bi:04d}_{i:02d}.png",
+                    sentences[i], save_path=f"{vis_dir}/{prefix}{bi:04d}_{i:02d}.png",
                 )
 
     return validate_with_grasp(

@@ -35,6 +35,7 @@ from crog_tpu_torch.data.ssg_rawwire import (
 from crog_tpu_torch.engine.crog_engine import jacquard_index
 from crog_tpu_torch.engine.optim import clip_by_global_norm_
 from crog_tpu_torch.models.ssg_loss import ssg_losses
+from crog_tpu_torch.parallel.dist import gather_metrics, mean_over_ranks, unwrap
 from crog_tpu_torch.utils.logging import get_logger
 from crog_tpu_torch.utils.meters import AverageMeter, ProgressMeter
 
@@ -61,16 +62,20 @@ def make_ssg_train_step(model, optimizer, scheduler, anchors: np.ndarray,
                         loss_cfg: Dict[str, Any], generator: Optional[torch.Generator] = None,
                         max_norm: float = 0.0, device=None, max_objs: int = 24):
     """Returns ``step(batch) -> metrics`` for a host batch, legacy or raw
-    wire; the metrics (``loss`` and the 8 terms) are device tensors.
-    ``generator`` (a CPU ``torch.Generator``) draws each step's positive
-    priorities; a raw batch's targets are padded to ``max_objs`` instances."""
+    wire; the metrics (``loss`` and the 8 terms) are device tensors, this
+    rank's (``mean_over_ranks`` gives the global batch's).  ``generator``
+    (a CPU ``torch.Generator``) draws each step's positive priorities; a
+    raw batch's targets are padded to ``max_objs`` instances.  ``model``
+    may be a ``wrap_model`` result (``ssg_losses`` then normalizes by the
+    global batch's positive count)."""
     device = torch.device(device) if device is not None else next(
         model.parameters()).device
     anchors_t = torch.as_tensor(np.asarray(anchors, np.float32)).to(device)
     params = [p for p in model.parameters() if p.requires_grad]
+    net = unwrap(model)
 
     def step(batch: Dict) -> Dict[str, torch.Tensor]:
-        dense = device_batch(batch, device, model.img_size, model.with_depth,
+        dense = device_batch(batch, device, net.img_size, net.with_depth,
                              max_objs=max_objs)
         model.train()
         output = model(dense["img"])
@@ -89,7 +94,8 @@ def make_ssg_train_step(model, optimizer, scheduler, anchors: np.ndarray,
 def train_one_epoch(loader, train_step, epoch: int, args,
                     steps_per_epoch: Optional[int] = None):
     """One training epoch; syncs with the device once per ``print_freq``
-    window only."""
+    window only; the logged metrics, and the last step's that it returns,
+    are means over the ranks."""
     logger = get_logger()
     meters = {"batch_time": AverageMeter("Batch", ":2.2f"),
               "loss": AverageMeter("Loss", ":2.4f")}
@@ -100,14 +106,14 @@ def train_one_epoch(loader, train_step, epoch: int, args,
     for i, batch in enumerate(loader):
         metrics = train_step(batch)
         if (i + 1) % args.print_freq == 0:
-            m = {k: float(v) for k, v in metrics.items()}
+            m = {k: float(v) for k, v in mean_over_ranks(metrics).items()}
             meters["loss"].update(m["loss"], len(batch["obj_valid"]))
             now = time.perf_counter()
             meters["batch_time"].update((now - win_start) / args.print_freq)
             win_start = now
             logger.info(progress.display(i + 1) + "  " + "  ".join(
                 f"{k}={v:.3f}" for k, v in m.items() if k != "loss"))
-    return metrics
+    return None if metrics is None else mean_over_ranks(metrics)
 
 
 def make_ssg_eval_fwd(model, device=None):
@@ -163,7 +169,10 @@ def visualization(loader, post_fn, fwd, epoch: int, vis_dir: str, rng: random.Ra
 
 def validate(loader, post_fn, fwd, epoch: int, args, max_batches: int = 101):
     """Per-object J@1 / J@5 over at most ``max_batches`` val batches;
-    returns [j1, j5]."""
+    returns [j1, j5].  Under a process group each rank reads its shard of
+    what is validated (``train_ssg.ssg_val_loader``), and the hit counts
+    are summed over the ranks at the end, the one collective here, so the
+    ranks' batch counts may differ."""
     logger = get_logger()
     hits, totals = [0, 0], [0, 0]
     for i, batch in enumerate(loader):
@@ -186,6 +195,8 @@ def validate(loader, post_fn, fwd, epoch: int, args, max_batches: int = 101):
                     totals[gi] += 1
         if i >= max_batches - 1:
             break
+    hits[0], hits[1], totals[0], totals[1] = gather_metrics(
+        np.asarray([hits + totals], np.int64)).sum(0).tolist()
     j1 = hits[0] / max(totals[0], 1)
     j5 = hits[1] / max(totals[1], 1)
     logger.info(f"SSG Evaluation: Epoch=[{epoch}/{args.epochs}]  "

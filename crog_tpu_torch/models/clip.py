@@ -37,6 +37,7 @@ from crog_tpu_torch.ops.s2d import (
     space_to_depth,
 )
 from crog_tpu_torch.ops.s2dconv import blocked_conv3x3_s1
+from crog_tpu_torch.parallel.dist import all_reduce_sum, world
 
 
 def quick_gelu(x):
@@ -53,6 +54,26 @@ class Conv2d(nn.Conv2d):
         return y.permute(0, 2, 3, 1)
 
 
+def batch_moments(xf: torch.Tensor, blocks: int = 1):
+    """Per-channel (E[x], E[x^2]) of ``xf`` [..., blocks * c] over every
+    axis but the last and over the ``blocks`` slot groups of the last: of
+    this process's batch, or under a process group of world > 1 of every
+    rank's, from [sum x, sum x^2, count] summed over the ranks by a
+    differentiable all-reduce (so dx also carries the other ranks' terms)."""
+    dims = tuple(range(xf.dim() - 1))
+    if world() == 1:
+        m1, m2 = xf.mean(dims), (xf * xf).mean(dims)
+        if blocks == 1:
+            return m1, m2
+        return m1.reshape(blocks, -1).mean(0), m2.reshape(blocks, -1).mean(0)
+    c = xf.shape[-1] // blocks
+    count = xf.new_full((1,), xf.numel() // c)
+    sums = all_reduce_sum(torch.cat([xf.sum(dims).reshape(blocks, c).sum(0),
+                                     (xf * xf).sum(dims).reshape(blocks, c).sum(0),
+                                     count]))
+    return sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
+
+
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm over the last axis (NHWC or [B, C]), computed in fp32 (eps
     1e-5) and cast back to the input dtype.
@@ -61,7 +82,9 @@ class BatchNorm(nn.BatchNorm2d):
     f32 with the fast variance E[x^2] - E[x]^2 clipped at 0, and running
     statistics updated with that *biased* variance (torch momentum 0.1 is
     flax momentum 0.9), where ``nn.BatchNorm2d`` would store the unbiased
-    one.  Eval mode uses the running statistics."""
+    one.  Under a process group of world > 1 the statistics are the global
+    batch's (``batch_moments``), as on the JAX package's mesh.  Eval mode
+    uses the running statistics."""
 
     def forward(self, x):
         if not self.training:
@@ -69,9 +92,8 @@ class BatchNorm(nn.BatchNorm2d):
             y = (x.float() - self.running_mean) * mul + self.bias
             return y.to(x.dtype)
         xf = x.float()
-        dims = tuple(range(x.dim() - 1))
-        mean = xf.mean(dims)
-        var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
+        mean, sq = batch_moments(xf)
+        var = (sq - mean * mean).clamp_min(0.0)
         with torch.no_grad():
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
@@ -86,10 +108,8 @@ def blocked_bn_relu(bn: BatchNorm, x: torch.Tensor, c: int) -> torch.Tensor:
     (crog_tpu/models/clip.py:136 ``_blocked_bn_relu``), i.e. ``bn`` of the
     un-blocked tensor, with the same running update."""
     if bn.training:
-        xf = x.float()
-        dims = tuple(range(x.dim() - 1))
-        mean = xf.mean(dims).reshape(4, c).mean(0)
-        var = ((xf * xf).mean(dims).reshape(4, c).mean(0) - mean * mean).clamp_min(0.0)
+        mean, sq = batch_moments(x.float(), blocks=4)
+        var = (sq - mean * mean).clamp_min(0.0)
         with torch.no_grad():
             bn.running_mean.lerp_(mean, bn.momentum)
             bn.running_var.lerp_(var, bn.momentum)

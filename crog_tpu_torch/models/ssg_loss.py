@@ -26,6 +26,7 @@ import torch
 from crog_tpu_torch.ops.boxes import match
 from crog_tpu_torch.ops.lincomb import lincomb_task_sums
 from crog_tpu_torch.ops.resize import downsample_masks
+from crog_tpu_torch.parallel import dist
 
 GRASP_KEYS = ("qua", "sin", "cos", "wid")
 
@@ -35,9 +36,15 @@ def smooth_l1_sum(pred, target):
     return torch.where(d < 1.0, 0.5 * d * d, d - 0.5)
 
 
-def category_loss(class_logits, conf_gt, pos, np_ratio: int = 3):
+def _norm(pos, norm):
+    return pos.sum().clamp_min(1) if norm is None else norm
+
+
+def category_loss(class_logits, conf_gt, pos, np_ratio: int = 3, norm=None):
     """Softmax CE with 3:1 hard-negative mining.  class_logits [B, N, C];
-    conf_gt [B, N] (-1 neutral, 0 background, > 0 class); pos [B, N]."""
+    conf_gt [B, N] (-1 neutral, 0 background, > 0 class); pos [B, N].
+    ``norm``: the divisor, by default the batch's positive count (at least
+    1); the same holds for the losses below."""
     _, n, c = class_logits.shape
     logits = class_logits.float()
     lse = torch.logsumexp(logits, dim=-1)
@@ -51,13 +58,13 @@ def category_loss(class_logits, conf_gt, pos, np_ratio: int = 3):
     labels = conf_gt.clamp(0, c - 1).long()
     ce = lse - torch.gather(logits, -1, labels[..., None])[..., 0]
     loss = torch.where(pos | neg, ce, 0.0).sum()
-    return loss / num_pos.sum().clamp_min(1)
+    return loss / _norm(pos, norm)
 
 
-def box_loss(box_pred, offsets, pos):
+def box_loss(box_pred, offsets, pos, norm=None):
     """Smooth-L1 on the positive anchors."""
     per = smooth_l1_sum(box_pred, offsets).sum(-1)
-    return torch.where(pos, per, 0.0).sum() / pos.sum().clamp_min(1)
+    return torch.where(pos, per, 0.0).sum() / _norm(pos, norm)
 
 
 def _select_positives(pos, priority, k: int):
@@ -97,7 +104,7 @@ def _per_anchor_scale(sums, sel_box, sel_valid, old_num_pos, num_pos):
 
 
 def lincomb_mask_loss(ins_coef, protos, ins_masks_gt, pos, anchor_max_i, anchor_max_gt,
-                      sel_idx, sel_valid, old_num_pos, num_pos, ins_ds=None):
+                      sel_idx, sel_valid, old_num_pos, num_pos, ins_ds=None, norm=None):
     """Instance-mask loss: sigmoid(protos @ coef) cropped to the matched GT
     box, BCE against the GT mask at prototype resolution, normalized by box
     area.  ``ins_ds`` [B, M, ph, pw]: the GT already downsampled and
@@ -111,12 +118,12 @@ def lincomb_mask_loss(ins_coef, protos, ins_masks_gt, pos, anchor_max_i, anchor_
     sums = lincomb_task_sums(protos, sel_coef, ds.reshape(b, ds.shape[1], ph * pw),
                              sel_gt, sel_box, num_tasks=1, loss_kind="bce")[..., 0]
     losses = _per_anchor_scale(sums, sel_box, sel_valid, old_num_pos, num_pos)
-    return losses.sum() / ph / pw / pos.sum().clamp_min(1)
+    return losses.sum() / ph / pw / _norm(pos, norm)
 
 
 def lincomb_grasp_masks_loss(grasp_coef, protos, grasp_masks_gt, pos, anchor_max_i,
                              anchor_max_gt, sel_idx, sel_valid, old_num_pos, num_pos,
-                             grasp_ds=None):
+                             grasp_ds=None, norm=None):
     """Grasp-map loss: smooth-L1 of sigmoid(protos @ coef) against the GT
     maps at prototype resolution; the cos map is 1 outside the box, the
     others 0.  ``grasp_ds`` [B, 4, M, ph, pw]: the GT maps already
@@ -134,7 +141,7 @@ def lincomb_grasp_masks_loss(grasp_coef, protos, grasp_masks_gt, pos, anchor_max
                              grasp_ds.reshape(b, 4 * grasp_ds.shape[2], ph * pw),
                              sel_gt, sel_box, num_tasks=4)  # [B, k, 4]
     losses = _per_anchor_scale(sums, sel_box, sel_valid, old_num_pos, num_pos)
-    per_task = losses.sum(0) / ph / pw / pos.sum().clamp_min(1)
+    per_task = losses.sum(0) / ph / pw / _norm(pos, norm)
     return {k: per_task[i] for i, k in enumerate(GRASP_KEYS)}
 
 
@@ -161,22 +168,37 @@ def ssg_losses(output: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
     """(total, the 8-term loss dict).  ``priority`` [B, N] orders the
     positives that train the mask losses; without it, it is drawn uniform
     from ``generator`` on the host.  The alpha defaults are
-    config/OCID-Grasp/ssg_r50.yaml's."""
+    config/OCID-Grasp/ssg_r50.yaml's.
+
+    Under a process group of world > 1 each rank holds its rows of the
+    global batch (rank-major): the priorities are drawn for the global
+    batch (every rank's generator is seeded alike) and the rank takes its
+    rows, and the positive-count normalizers are the global batch's count
+    over ``world``, so that DDP's mean of the ranks' gradients is the
+    gradient of the global loss, and the mean of the ranks' terms
+    (``mean_over_ranks``) the global terms.  The semantic loss is a mean
+    over images and stays per rank."""
     boxes, labels, obj_valid = batch["boxes"], batch["labels"], batch["obj_valid"]
     offsets, conf_gt, anchor_max_gt, anchor_max_i = match(
         boxes.float(), obj_valid.bool(), labels, anchors, pos_iou_thre, neg_iou_thre)
     pos = conf_gt > 0
+    world, rank = dist.world(), dist.rank()
+    b = pos.shape[0]
     if priority is None:
-        priority = draw_priority(pos.shape, generator)
+        priority = draw_priority((world * b, pos.shape[1]), generator)[rank * b:(rank + 1) * b]
+    norm = None
+    if world > 1:
+        norm = dist.all_reduce_sum(pos.sum()).clamp_min(1) / world
     sel_idx, sel_valid, old_np, num_np = _select_positives(
         pos, priority.to(pos.device), masks_to_train)
     loss = {
-        "loss_cls": alpha_conf * category_loss(output["cls_logits"], conf_gt, pos),
-        "loss_box": alpha_bbox * box_loss(output["box_pred"], offsets, pos),
+        "loss_cls": alpha_conf * category_loss(output["cls_logits"], conf_gt, pos,
+                                               norm=norm),
+        "loss_box": alpha_bbox * box_loss(output["box_pred"], offsets, pos, norm),
         "loss_ins": alpha_ins * lincomb_mask_loss(
             output["ins_coef_pred"], output["protos"], batch.get("ins_masks"), pos,
             anchor_max_i, anchor_max_gt, sel_idx, sel_valid, old_np, num_np,
-            ins_ds=batch.get("ins_ds")),
+            ins_ds=batch.get("ins_ds"), norm=norm),
         "loss_sem": alpha_sem * semantic_seg_loss(
             output["seg_pred"], batch.get("ins_masks"), labels, obj_valid,
             sem_ds=batch.get("sem_ds")),
@@ -186,7 +208,7 @@ def ssg_losses(output: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
             output["grasp_coef_pred"], output["protos"],
             None if "grasp_ds" in batch else {k: batch[f"grasp_{k}"] for k in GRASP_KEYS},
             pos, anchor_max_i, anchor_max_gt, sel_idx, sel_valid, old_np, num_np,
-            grasp_ds=batch.get("grasp_ds"))
+            grasp_ds=batch.get("grasp_ds"), norm=norm)
         for k in GRASP_KEYS:
             loss[f"loss_{k}"] = alpha_grasp * g[k]
     return sum(loss.values()), loss

@@ -24,6 +24,8 @@ from __future__ import annotations
 
 import torch
 
+from crog_tpu_torch.parallel.dist import rank, rank_seed, world
+
 _MASK = 0xFFFFFFFF
 _MUL = 0x45D9F3B
 
@@ -74,5 +76,9 @@ def kernel_args(seed: int, rate: float):
 
 
 def draw_seed(generator: torch.Generator) -> int:
-    """One kernel seed from the step's (CPU) generator: no device sync."""
-    return int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
+    """One kernel seed from the step's (CPU) generator: no device sync.
+    Every rank's generator is seeded alike, so under a process group of
+    world > 1 the draw is folded with the rank (``rank_seed``): ranks never
+    share a mask."""
+    seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
+    return seed if world() == 1 else rank_seed(seed, rank())

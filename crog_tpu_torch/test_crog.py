@@ -4,6 +4,8 @@ Runs the eval split and reports mask IoU, Pr@50-90, J@1 and J@5:
 
     python -m crog_tpu_torch.test_crog --config config/OCID-VLG/crog_multiple_r50.yaml \\
         [--device cpu] [--fused-stem] --opts root_path DIR
+    torchrun --standalone --nproc_per_node N -m crog_tpu_torch.test_crog \\
+        --config config/OCID-VLG/crog_multiple_r50.yaml --opts root_path DIR
 
 The split comes from the OCID-VLG tree at ``root_path`` (or the synthetic
 scenes of ``dataset synthetic``) through ``DataLoader``: ``workers_val``
@@ -16,7 +18,11 @@ and ``--fused-stem`` runs the s2d stem's stride-1 convs through K6/K6b.
 ``--device`` defaults to ``cuda`` and raises when there is no card.  A
 ``resume`` file (a reference CROG ``.pth`` or a checkpoint of
 ``crog_tpu_torch.train_crog``) loads directly; an orbax checkpoint
-directory of the JAX package is not supported yet.
+directory of the JAX package is not supported yet.  Under torchrun each of
+the N ranks evaluates every N-th sample of the split at ``batch_size_val //
+N`` (``parallel/dist.py``), and the per-sample metrics are gathered before
+the summary, so the result is the whole split's, each sample counted once;
+rank 0 alone logs.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from crog_tpu_torch.data.ocid_vlg import wire_kwargs
 from crog_tpu_torch.engine.crog_engine import inference_with_grasp, make_eval_step
 from crog_tpu_torch.models.convert import load_checkpoint
 from crog_tpu_torch.models.crog import build_crog, random_init_
+from crog_tpu_torch.parallel import dist
 from crog_tpu_torch.utils.logging import get_logger, setup_logger
 
 
@@ -51,16 +58,6 @@ def get_parser(argv=None):
     if args.opts:
         cfg = merge_cfg_from_list(cfg, args.opts)
     return cfg, args.device, args.fused_stem
-
-
-def resolve_device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "--device cuda: no CUDA device is available (pass --device cpu to "
-            "run the plain PyTorch path)"
-        )
-    return device
 
 
 def build_dataset(args, split: str):
@@ -97,11 +94,14 @@ def build_dataset(args, split: str):
 def eval_loader(args, ds, batch_size: int, device) -> DataLoader:
     """The eval split's loader: in order, the tail padded to a full batch,
     ``workers_val`` threads (``workers_procs`` processes when set), and the
-    copy to ``device`` on the put stage (test_crog.py:88-96)."""
+    copy to ``device`` on the put stage (test_crog.py:88-96); under a
+    process group the rank's shard (every ``world``-th sample) at
+    ``batch_size // world``."""
     return DataLoader(
-        ds, batch_size, shuffle=False, drop_last=False, pad_last_batch=True,
-        num_workers=int(args.get("workers_val", 4)),
+        ds, max(1, batch_size // dist.world()), shuffle=False, drop_last=False,
+        pad_last_batch=True, num_workers=int(args.get("workers_val", 4)),
         num_procs=int(args.get("workers_procs", 0)), device_put_fn=DevicePut(device),
+        num_hosts=dist.world(), host_id=dist.rank(),
     )
 
 
@@ -129,8 +129,9 @@ def load_eval_variables(args, model):
 
 def main(argv=None):
     args, device_name, fused_stem = get_parser(argv)
-    device = resolve_device(device_name)
-    setup_logger(os.path.join(args.output_folder, args.exp_name), filename="test.log")
+    device = dist.init_from_env(device_name)
+    setup_logger(os.path.join(args.output_folder, args.exp_name),
+                 distributed_rank=dist.rank(), filename="test.log")
     logger = get_logger()
     logger.info(str(args))
     ds = build_dataset(args, args.test_split)

@@ -4,13 +4,16 @@ test_diff_refer_types.py).
     python -m crog_tpu_torch.test_diff_refer_types \\
         --config config/OCID-VLG/crog_multiple_r50.yaml [--device cpu] [--fused-stem] \\
         [--refer-types refer_types.json] --opts root_path DIR
+    torchrun --standalone --nproc_per_node N -m crog_tpu_torch.test_diff_refer_types \\
+        --config config/OCID-VLG/crog_multiple_r50.yaml --opts root_path DIR
 
 ``--refer-types`` maps each expression type (name / loc / attr / rel /
 mixed) to indices of the test split; each type's subset (the indices the
 split has) is evaluated through ``validate_with_grasp``, in order with the
 tail padded, and its IoU, Pr@K, J@1 and J@5 are reported.  The model, the
-``resume`` checkpoint, the dataset and the device are as in
-``crog_tpu_torch.test_crog``.
+``resume`` checkpoint, the dataset, the device and the ranks under
+torchrun (each evaluates every N-th sample of a subset, the metrics
+gathered) are as in ``crog_tpu_torch.test_crog``.
 """
 
 from __future__ import annotations
@@ -22,23 +25,12 @@ import os
 import torch
 
 from crog_tpu_torch.config import load_cfg_from_cfg_file, merge_cfg_from_list
-from crog_tpu_torch.data.loader import DataLoader, DevicePut
+from crog_tpu_torch.data.loader import DataLoader, DevicePut, Subset
 from crog_tpu_torch.engine.crog_engine import make_eval_step, validate_with_grasp
 from crog_tpu_torch.models.crog import build_crog
-from crog_tpu_torch.test_crog import build_dataset, load_eval_variables, resolve_device
+from crog_tpu_torch.parallel import dist
+from crog_tpu_torch.test_crog import build_dataset, load_eval_variables
 from crog_tpu_torch.utils.logging import get_logger, setup_logger
-
-
-class Subset:
-    def __init__(self, dataset, indices):
-        self.dataset = dataset
-        self.indices = list(indices)
-
-    def __len__(self):
-        return len(self.indices)
-
-    def __getitem__(self, i):
-        return self.dataset[self.indices[i]]
 
 
 def get_parser(argv=None):
@@ -64,7 +56,9 @@ def evaluate_refer_types(base_ds, refer_types, eval_step, batch_size: int = 16,
                          device_put_fn=None, num_procs: int = 0):
     """Each type's subset of ``base_ds`` through ``validate_with_grasp``:
     {type: result}.  Tails are padded, so every batch has one shape; a
-    type with no index in the split is skipped."""
+    type with no index in the split is skipped.  Under a process group
+    each rank reads every ``world``-th sample of a subset at ``batch_size
+    // world``."""
     logger = get_logger()
     results = {}
     for rtype, indices in refer_types.items():
@@ -73,17 +67,19 @@ def evaluate_refer_types(base_ds, refer_types, eval_step, batch_size: int = 16,
             logger.warning(f"refer type {rtype}: no samples in split, skipped")
             continue
         logger.info(f"=== refer type: {rtype} ({len(subset)} samples) ===")
-        with DataLoader(subset, batch_size, num_workers=num_workers, num_procs=num_procs,
-                        pad_last_batch=True, device_put_fn=device_put_fn) as loader:
+        with DataLoader(subset, max(1, batch_size // dist.world()), num_workers=num_workers,
+                        num_procs=num_procs, pad_last_batch=True,
+                        device_put_fn=device_put_fn, num_hosts=dist.world(),
+                        host_id=dist.rank()) as loader:
             results[rtype] = validate_with_grasp(loader, eval_step, with_grasps=with_grasps)
     return results
 
 
 def main(argv=None):
     args, device_name, fused_stem, refer_types_path = get_parser(argv)
-    device = resolve_device(device_name)
+    device = dist.init_from_env(device_name)
     setup_logger(os.path.join(args.output_folder, args.exp_name),
-                 filename="test_refer_types.log")
+                 distributed_rank=dist.rank(), filename="test_refer_types.log")
     logger = get_logger()
     with open(refer_types_path) as f:
         refer_types = json.load(f)

@@ -73,7 +73,7 @@ def main(argv=None):
     from crog_tpu_torch.config import load_cfg_from_cfg_file, merge_cfg_from_list
     from crog_tpu_torch.engine.crog_engine import set_exact_fp32_matmul
     from crog_tpu_torch.models.crog import build_crog, random_init_
-    from crog_tpu_torch.test_crog import resolve_device
+    from crog_tpu_torch.parallel.dist import resolve_device
 
     parser = argparse.ArgumentParser(description="CROG inference latency (PyTorch)")
     parser.add_argument("--config", default="config/OCID-VLG/crog_multiple_r50.yaml")
