@@ -2,7 +2,7 @@
 """Drive the PyTorch port (crog_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py             # every phase below
-    python3 chip_smoke.py --kernels   # phases 1-3 and 14 only, no result line
+    python3 chip_smoke.py --kernels   # phases 1-3 and 15 only, no result line
 
 Phases, in order; any failure propagates and the exit code is not 0:
   1. the card's name and power limit (nvidia-smi);
@@ -16,6 +16,8 @@ Phases, in order; any failure propagates and the exit code is not 0:
      K4b's cluster kernels and their y / dx GEMM; K2's and K3's projection
      GEMM and out-projection cluster kernel; K2b's and K3b's dX and dW
      GEMMs; K1b's one-CTA-per-head kernel; K6; K6b's cluster kernel);
+     then the readers' host ops from crog_tpu_torch/native/hostops.cpp (g++
+     -O3 -march=native -ffp-contract=off), with the build time;
   3. hold each kernel against its plain PyTorch twin on the card, in bf16,
      at the shapes of CROG at batch 24 and 416^2 -- the forwards in eval,
      the K2-K4 forwards again with dropout on (the twins draw the same
@@ -111,7 +113,11 @@ Phases, in order; any failure propagates and the exit code is not 0:
      refer_types.json) through ``evaluate_refer_types`` with padded tails;
      4 train steps through the train CLI's loader (shuffle, drop_last,
      workers 8, the put stage): finite loss, every parameter and statistic
-     moved, the launch counts per step as in phase 5; then the rates over
+     moved, the launch counts per step as in phase 5; the readers run on
+     the native host ops: the reader's time per sample by part over 12
+     frames (the PNG decodes, the rawlb letterbox on the native library, the
+     same letterbox in its numpy twin, held against each other on this
+     host: within 1 on at most 1e-4 of the pixels); then the rates over
      a larger tree (READER_RATE_SCENES, 12 batches of 24 per epoch): eval
      samples/s cold and warm over two fresh caches, train samples/s with
      the loader on threads and on READER_PROCS processes, one epoch each
@@ -143,7 +149,19 @@ Phases, in order; any failure propagates and the exit code is not 0:
      line: ms per CROG train step at 24 on one NCCL rank through DDP beside
      the model itself (the wrapper's cost on one card, not a scaling
      figure), and the phase's wall time;
- 14. the device time per call, from torch.profiler's kernel rows, of K1,
+ 14. the CLIP ViT family (models/clip.py ``CLIPViT``) at the published
+     widths of the CLIP paper (Radford et al. 2021, Table 20): ViT-B/16 at
+     224^2 (197 tokens x 12 heads, 12 blocks) and ViT-L/14 at 336^2 (577
+     tokens x 16 heads, 24 blocks), each with its text tower, seeded
+     weights, bf16, batch 16: the forward (K1's launches: one per vision
+     block, no K1b) and a backward from the image features (one K1 and one
+     K1b per block) checked, every vision gradient finite and nonzero; the
+     forward and an AdamW train step timed, the peak memory; K1 (two passes)
+     and K1b (one CTA per head at 197, two kernels at 577) at those shapes
+     against their twins under K1's and K1b's tolerances, timed beside
+     their twins and SDPA's forward and backward (a yardstick only); one
+     sample against the CPU in fp32 (VIT_E2E_TOL); the ``[vit]`` lines;
+ 15. the device time per call, from torch.profiler's kernel rows, of K1,
      K1b, K2 and K3 in eval and in train mode (by part: ln_pos, the
      projections, the attention step, the out-projection), K2b and K3b (by
      part: the LN kernels, the dO and dX GEMMs, the attention step, the dW
@@ -1981,6 +1999,7 @@ READER_RATE_SCENES = 72
 READER_RATE_ROUNDS = 3  # timed train epochs on threads and on processes, alternating
 READER_TYPES = ("loc", "attr")  # refer_types.json's types with indices below 48
 READER_PROCS = 4
+READER_SPLIT_FRAMES = 12  # frames timed by part (decodes, letterbox, numpy twin)
 # the loader's eval run vs the one-thread run without the put stage: the
 # same host batches and the same forwards, so the per-sample IoU may differ
 # only by a reordered sum (none expected); the refer-type sweep batches the
@@ -2227,6 +2246,53 @@ def reader_train(device, cfg, rate_cfg, smi: str):
     return rates
 
 
+def reader_split(cfg, frames: int = READER_SPLIT_FRAMES):
+    """The reader's host time per sample by part over the first ``frames``
+    samples of ``cfg``'s val split: the PNG decodes (rgb, instance mask,
+    depth), the rawlb letterbox on the native host ops (what the readers
+    call), and the same letterbox in its numpy twin
+    (``ops/affine.py:warp_affine_np``, which no reader calls), held against
+    each other on this host (the library is built with -march=native):
+    equal bits, as tests/test_torch_hostops.py holds them on its host.
+    Returns ms per sample of each part ("decode", "native", "numpy")."""
+    from crog_tpu_torch.data.ocid_vlg import CLIP_MEAN
+    from crog_tpu_torch.native import warp_affine
+    from crog_tpu_torch.ops.affine import letterbox_transform, warp_affine_np
+    from crog_tpu_torch.test_crog import build_dataset
+
+    ds = build_dataset(cfg, cfg.val_split)
+    border = tuple((CLIP_MEAN * 255).tolist())
+    t = {"decode": 0.0, "native": 0.0, "numpy": 0.0}
+    differing = 0
+    for it in ds.items[:frames]:
+        t0 = time.perf_counter()
+        img = ds._rgb(it)
+        ds._png(it, "seg_mask_instances_combi")
+        ds._png(it, "depth")
+        t1 = time.perf_counter()
+        mat, _ = letterbox_transform(img.shape[:2], ds.input_size)
+        got = warp_affine(img, mat, ds.input_size, "cubic", border)
+        t2 = time.perf_counter()
+        ref = warp_affine_np(img, mat, ds.input_size, "cubic", border)
+        t3 = time.perf_counter()
+        t["decode"] += t1 - t0
+        t["native"] += t2 - t1
+        t["numpy"] += t3 - t2
+        diff = np.abs(got.astype(np.int16) - ref)
+        differing += int((diff > 0).sum())
+        if differing:
+            raise AssertionError(f"native letterbox of {it['scene_id']} off the numpy twin "
+                                 f"by {diff.max()} on {(diff > 0).mean():.3g} of the pixels")
+    ms = {k: v / frames * 1e3 for k, v in t.items()}
+    print(f"[reader] the readers warp, fill and blur on the native host ops "
+          f"(crog_tpu_torch/native, g++ -march=native of this host); over {frames} frames "
+          f"of the val split: PNG decodes (rgb, mask, depth) {ms['decode']:.2f} ms per "
+          f"sample, the rawlb letterbox {ms['native']:.2f} ms, its numpy twin "
+          f"{ms['numpy']:.2f} ms ({ms['numpy'] / ms['native']:.1f}x); native vs twin: "
+          f"{differing} differing pixels", flush=True)
+    return ms
+
+
 def _spread(runs, i: int, scale: float = 1.0, fmt: str = ".2f") -> str:
     """The mean of field ``i`` over ``runs`` with its least and largest."""
     v = [r[i] * scale for r in runs]
@@ -2251,13 +2317,15 @@ def reader_phase(device, smi: str):
               f"written in {time.perf_counter() - t0:.1f} s; {cfg.wire_format} wire, "
               f"stem_s2d {cfg.stem_s2d}, batch {cfg.batch_size}, workers {cfg.workers}, "
               f"workers_val {cfg.workers_val})", flush=True)
+        split = reader_split(cfg)
         reader_s, runs = reader_eval(device, cfg, rate_cfg, smi)
         rates = reader_train(device, cfg, rate_cfg, smi)
     print(f"[reader] mean (least-largest over runs) from the {READER_RATE_SCENES}-scene tree: "
           f"eval {_spread(runs['cold'], 0)} samples/s cold, {_spread(runs['warm'], 0)} warm "
           f"(SampleCache) end to end at batch {cfg.batch_size_val}; reader alone "
-          f"{reader_s * 1e3:.2f} ms per sample on one thread (decode, preprocess, collate; "
-          f"{READER_SCENES}-scene tree); loader wait {_spread(runs['cold'], 1, 1e3, '.1f')} ms "
+          f"{reader_s * 1e3:.2f} ms per sample on one thread (decode, preprocess on the "
+          f"native host ops, collate; {READER_SCENES}-scene tree; the letterbox "
+          f"{split['native']:.2f} ms of it, its numpy twin {split['numpy']:.2f}); loader wait {_spread(runs['cold'], 1, 1e3, '.1f')} ms "
           f"cold, {_spread(runs['warm'], 1, 1e3, '.1f')} ms warm per eval batch; train "
           f"{_spread(rates['threads'], 0)} samples/s with {cfg.workers} threads (wait "
           f"{_spread(rates['threads'], 1, 1e3, '.1f')} ms per batch), "
@@ -2760,6 +2828,210 @@ def ddp_phase(device, crog_batches, ssg_batches, smi: str):
           f"{time.perf_counter() - t0:.1f} s on {smi}", flush=True)
 
 
+# phase 14: the CLIP ViT family (models/clip.py ``CLIPViT``) at the published
+# widths of the CLIP paper (Radford et al. 2021, Table 20), seeded weights,
+# bf16, batch VIT_BATCH: its unmasked self-attention over 197 and 577 tokens
+# runs K1 (two passes past 192 keys) and K1b (one CTA per head up to 256
+# tokens, two kernels beyond) at key counts the CROG path never gives them
+VIT_CONFIGS = {
+    "ViT-B/16": dict(embed_dim=512, image_resolution=224, vision_layers=12,
+                     vision_width=768, vision_patch_size=16, transformer_width=512,
+                     transformer_heads=8, transformer_layers=12),
+    "ViT-L/14@336px": dict(embed_dim=768, image_resolution=336, vision_layers=24,
+                           vision_width=1024, vision_patch_size=14, transformer_width=768,
+                           transformer_heads=12, transformer_layers=12),
+}
+VIT_BATCH = 16
+VIT_TIMED_STEPS = 3
+# card (bf16, kernels) vs CPU (fp32, plain) on one sample: bound on the
+# relative L2 error of the patch features and of the EOT state.  bf16 keeps
+# ~3 significant digits, and the error of each of the 12 or 24 pre-LN
+# blocks adds to the residual stream (bf16 against fp32 on the CPU, both
+# plain: 0.010 and 0.012 for ViT-B/16 and ViT-L/14); a wrong kernel, head
+# split or positional slice is off by order 1
+VIT_E2E_TOL = 0.05
+
+
+def _vit_text(g, b: int, context: int, vocab: int = 49408):
+    """[b, context] token ids: SOT, 4..40 random words, EOT (the largest
+    id), zero padding."""
+    import torch
+
+    text = torch.zeros(b, context, dtype=torch.long)
+    for i in range(b):
+        n = int(torch.randint(4, 41, (1,), generator=g))
+        text[i, 0] = vocab - 2
+        text[i, 1:n + 1] = torch.randint(1, vocab - 2, (n,), generator=g)
+        text[i, n + 1] = vocab - 1
+    return text
+
+
+def vit_kernel_checks(device, label: str, tokens: int, heads: int, b: int = VIT_BATCH):
+    """K1 and K1b at a ViT's attention shape against their twins (K1's and
+    K1b's tolerances), each timed beside its twin and SDPA's forward or
+    backward (a yardstick only), with its bound; returns the figures."""
+    import torch
+    import torch.nn.functional as F
+
+    from crog_tpu_torch.ops import attention as A
+
+    g = torch.Generator().manual_seed(SEED + 21)
+    d = heads * 64
+    q, k, v, do = (torch.randn(b, tokens, d, generator=g).to(device, torch.bfloat16)
+                   for _ in range(4))
+    shape = f"{label}: L {tokens}, {heads} heads, batch {b}"
+    kern = lambda: A.fused_attention(q, k, v, heads)
+    plain = lambda: A.attention_plain(q, k, v, heads)
+    o = kern()
+    fwd_err = _compare(f"attention ({A.fwd_path(tokens)}) at {shape}", o, plain(),
+                       TOL["attention"])
+    bwd = lambda: A.attention_bwd(q, k, v, o, do, heads)
+    bwd_plain = lambda: A.attention_bwd_plain(q, k, v, o, do, heads)
+    bwd_err = 0.0
+    for name, got, ref in zip(("dq", "dk", "dv"), bwd(), bwd_plain()):
+        bwd_err = max(bwd_err, _compare(
+            f"attention_bwd ({A.bwd_path(tokens)}) at {shape}.{name}", got, ref,
+            K1B_REL_TOL * float(ref.float().abs().max()), K1B_DIFF_SHARE))
+    split = lambda x: x.view(b, tokens, heads, 64).transpose(1, 2)
+    leaves = [split(t).detach().requires_grad_() for t in (q, k, v)]
+    with torch.enable_grad():
+        out = F.scaled_dot_product_attention(*leaves)
+    sdpa = lambda: F.scaled_dot_product_attention(split(q), split(k), split(v))
+    sdpa_bwd = lambda: torch.autograd.grad(out, leaves, split(do), retain_graph=True)
+    flops = 4.0 * b * heads * tokens * tokens * 64
+    fig = {"k1_path": A.fwd_path(tokens), "k1_err": fwd_err, "k1_ms": cuda_ms(kern),
+           "k1_plain_ms": cuda_ms(plain, reps=5), "sdpa_ms": cuda_ms(sdpa),
+           "k1_bound": bound(flops, 4 * nbytes(q)),
+           "k1b_path": A.bwd_path(tokens), "k1b_err": bwd_err, "k1b_ms": cuda_ms(bwd),
+           "k1b_plain_ms": cuda_ms(bwd_plain, reps=5), "sdpa_bwd_ms": cuda_ms(sdpa_bwd),
+           "k1b_bound": bound(2.5 * flops, 8 * nbytes(q))}
+    print(f"[vit] K1 at {shape}: {fig['k1_ms']:.4f} ms (plain {fig['k1_plain_ms']:.4f}, "
+          f"SDPA {fig['sdpa_ms']:.4f}, bound {fig['k1_bound'][0]:.4f} by "
+          f"{fig['k1_bound'][1]}); K1b {fig['k1b_ms']:.4f} ms (plain "
+          f"{fig['k1b_plain_ms']:.4f}, SDPA backward {fig['sdpa_bwd_ms']:.4f}, bound "
+          f"{fig['k1b_bound'][0]:.4f} by {fig['k1b_bound'][1]})", flush=True)
+    return fig
+
+
+def vit_e2e(model, cfg, img, text, card_vis, card_state):
+    """One sample through the same weights on the CPU in fp32 (plain
+    attention) against the card's bf16 output (the kernels): rel-L2 of the
+    patch features and of the EOT state, each within VIT_E2E_TOL."""
+    import torch
+
+    from crog_tpu_torch.models.clip import CLIPViT
+
+    cpu = CLIPViT(dtype=torch.float32, **cfg)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    with torch.no_grad():
+        vis, _, state = cpu.eval()(img, text)
+    rel = {}
+    for name, got, want in (("features", card_vis, vis), ("state", card_state, state)):
+        d = got.float().cpu() - want
+        rel[name] = float(d.norm() / want.norm().clamp_min(1e-6))
+    if max(rel.values()) > VIT_E2E_TOL:
+        raise AssertionError(f"ViT card vs CPU rel_l2 {rel} > {VIT_E2E_TOL}")
+    return rel
+
+
+def _ms(t) -> str:
+    return "not measured" if t is None else f"{t:.2f} ms"
+
+
+def _share(dev, wall) -> str:
+    return "not measured" if dev is None else f"{100 * dev / wall:.1f}%"
+
+
+def vit_phase(device, smi: str):
+    """Phase 14: each of VIT_CONFIGS built as ``CLIPViT`` with seeded
+    weights in bf16 at VIT_BATCH: the forward (image and text) with K1's
+    launches checked (one per vision block, no K1b), one sample of it
+    against the CPU in fp32 on the same weights, a backward from the image
+    features with K1's and K1b's launches (one each per block), the
+    forward and a train step timed (AdamW, which moves the weights: after
+    the comparison) by CUDA events, then their kernel time on the card by
+    torch.profiler (the card's busy share), K1 and K1b at its attention
+    shape against their twins; the ``[vit]`` line."""
+    import torch
+
+    from crog_tpu_torch.models.clip import CLIPViT
+    from crog_tpu_torch.models.crog import random_init_
+
+    t_phase = time.perf_counter()
+    wrappers = launch_counts()
+    for label, cfg in VIT_CONFIGS.items():
+        layers, res = cfg["vision_layers"], cfg["image_resolution"]
+        heads = cfg["vision_width"] // 64
+        tokens = (res // cfg["vision_patch_size"]) ** 2 + 1
+        model = CLIPViT(dtype=torch.bfloat16, **cfg)
+        random_init_(model, torch.Generator().manual_seed(SEED))
+        model = model.to(device)
+        torch.cuda.reset_peak_memory_stats()
+        g = torch.Generator().manual_seed(SEED + 20)
+        img = torch.randn(VIT_BATCH, res, res, 3, generator=g)
+        text = _vit_text(g, VIT_BATCH, model.context_length)
+        target = torch.randn(VIT_BATCH, tokens - 1, cfg["embed_dim"], generator=g).to(device)
+        img_d, text_d = img.to(device), text.to(device)
+
+        _reset(wrappers)
+        with torch.no_grad():
+            vis, word, state = model(img_d, text_d)
+        torch.cuda.synchronize()
+        fwd_launches = {n: w.launches for n, w in wrappers.items()}
+        check_launches(fwd_launches, {"attention": layers}, 1)
+        if (vis.shape != (VIT_BATCH, tokens - 1, cfg["embed_dim"])
+                or not all(bool(torch.isfinite(t.float()).all()) for t in (vis, word, state))):
+            raise AssertionError(f"{label}: features {tuple(vis.shape)} not finite/shaped")
+        rel = vit_e2e(model, cfg, img[:1], text[:1], vis[:1], state[:1])
+
+        _reset(wrappers)
+        (model.encode_image(img_d).float() * target).sum().backward()
+        torch.cuda.synchronize()
+        bwd_launches = {n: w.launches for n, w in wrappers.items()}
+        check_launches(bwd_launches, {"attention": layers, "attention_bwd": layers}, 1)
+        grads = [p.grad for p in model.visual.parameters()]
+        if any(g_ is None or not bool(torch.isfinite(g_).all()) or not bool(g_.any())
+               for g_ in grads):
+            raise AssertionError(f"{label}: a vision gradient is missing, zero or not finite")
+        model.zero_grad(set_to_none=True)
+
+        def forward():
+            with torch.no_grad():
+                return model(img_d, text_d)
+
+        opt = torch.optim.AdamW([p for p in model.parameters() if p.requires_grad], lr=1e-5)
+
+        def train_step():
+            opt.zero_grad(set_to_none=True)
+            v, _, s = model(img_d, text_d)
+            ((v.float() * target).mean() + s.float().pow(2).mean()).backward()
+            opt.step()
+
+        fwd_ms = cuda_ms(forward, reps=5, warmup=1)
+        step_ms = cuda_ms(train_step, reps=VIT_TIMED_STEPS, warmup=1)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        # the card's kernel time per call (torch.profiler), after the timed calls
+        fwd_dev = device_ms(forward, reps=3)[0]
+        step_dev = device_ms(train_step, reps=2)[0]
+        fig = vit_kernel_checks(device, label, tokens, heads)
+        print(f"[vit] {label} ({res}^2, {tokens} tokens x {heads} heads, {layers} blocks of "
+              f"width {cfg['vision_width']}, text {cfg['transformer_layers']} x "
+              f"{cfg['transformer_width']}; seeded weights, bf16, batch {VIT_BATCH}): forward "
+              f"{fwd_ms:.2f} ms = {VIT_BATCH / fwd_ms * 1e3:.1f} samples/s (device "
+              f"{_ms(fwd_dev)}, busy {_share(fwd_dev, fwd_ms)}); train step (AdamW) "
+              f"{step_ms:.2f} ms = {VIT_BATCH / step_ms * 1e3:.1f} samples/s (device "
+              f"{_ms(step_dev)}, busy {_share(step_dev, step_ms)}); peak "
+              f"{peak:.2f} GiB; launches forward {fwd_launches['attention']} K1, backward "
+              f"{bwd_launches['attention_bwd']} K1b ({fig['k1_path']} / {fig['k1b_path']}); "
+              f"K1 {fig['k1_ms']:.4f} ms (SDPA {fig['sdpa_ms']:.4f}), K1b {fig['k1b_ms']:.4f} "
+              f"ms (SDPA backward {fig['sdpa_bwd_ms']:.4f}); card vs CPU rel_l2 features "
+              f"{rel['features']:.4g}, state {rel['state']:.4g} (tol {VIT_E2E_TOL}) on {smi}",
+              flush=True)
+        del model, opt, vis, word, state, target
+        torch.cuda.empty_cache()
+    print(f"[vit] phase 14 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def ptxas_entries(text: str):
     """(kernel, registers, spill-store bytes) for each entry function of an
     ``nvcc -Xptxas -v`` report."""
@@ -2885,7 +3157,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA card.")
     ap.add_argument("--kernels", action="store_true",
-                    help="phases 1-3 and 14 only: build, hold every kernel against its "
+                    help="phases 1-3 and 15 only: build, hold every kernel against its "
                          "twin, time it; no main path and no result line")
     ap.add_argument("--ddp-worker", metavar="DIR",
                     help="run one rank of phase 13 (started by phase 13 itself)")
@@ -2895,6 +3167,7 @@ def main(argv=None) -> int:
         return 2
     if args.ddp_worker:
         return ddp_worker(args.ddp_worker)
+    from crog_tpu_torch import native
     from crog_tpu_torch.engine.crog_engine import set_exact_fp32_matmul
     from crog_tpu_torch.ops import cuda_build
 
@@ -2909,6 +3182,10 @@ def main(argv=None) -> int:
     reports = cuda_build.build_all()
     print(f"[build] {len(reports)} libraries in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    hostops = native.build()
+    print(f"[build] host ops {hostops.name} (g++ {' '.join(native.CXX_FLAGS)}) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, text in reports.items():
         for line in text.splitlines():
             if ("registers" in line or "spill" in line or "error" in line.lower()
@@ -2943,6 +3220,7 @@ def main(argv=None) -> int:
     ssg_unpack_check(device)
     reader_runs, reader_rates = reader_phase(device, smi)
     ddp_phase(device, train_batches, ssg_batches, smi)
+    vit_phase(device, smi)
     print_device_times()
     # each kernel's launches on the main path that runs it: CROG training
     # for K1-K4b and K6/K6b, SSG training for K5/K5b

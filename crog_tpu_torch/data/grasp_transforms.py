@@ -3,15 +3,18 @@
 Parity target: ``GraspTransforms`` (reference utils/dataset.py:607-682):
 4-corner-point grasps <-> (cx, cy, w, h, theta, cls) with theta in (-90, 90],
 and rasterized quality/angle/width maps (rects drawn at HALF width, gaussian
-sigma 3 on quality and width, width normalized by ``width_factor``).
+sigma 3 on quality and width, width normalized by ``width_factor``).  The
+polygon fill and the blur run in the C++ host ops of crog_tpu_torch/native,
+as crog_tpu's do; ``ops/rects.py:polygon_indices`` and
+``ops/filters.py:gaussian_blur_np`` are their numpy twins.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from crog_tpu_torch.ops.filters import gaussian_blur_np
-from crog_tpu_torch.ops.rects import box_points, polygon_indices
+from crog_tpu_torch import native
+from crog_tpu_torch.ops.rects import box_points
 
 
 class GraspTransforms:
@@ -59,13 +62,11 @@ class GraspTransforms:
             ang_v = float(int(theta + 180) if theta < 0 else int(theta))
             wid_v = np.clip(w_rect, 0.0, self.width_factor) / self.width_factor
             # the reference clips rr<width and cc<height after rasterizing
-            # (utils/dataset.py:658-664)
-            rr, cc = polygon_indices(box[:, 0], box[:, 1])
-            keep = (rr < self.width) & (cc < self.height)
-            rr, cc = rr[keep], cc[keep]
-            pos[cc, rr] = 1.0
-            ang[cc, rr] = ang_v
-            wid[cc, rr] = wid_v
+            # (utils/dataset.py:658-664); the native fill skips the canvas
+            # [cc, rr] writes off the canvas, which is the same set of pixels
+            native.polygon_fill(pos, box[:, 0], box[:, 1], 1.0)
+            native.polygon_fill(ang, box[:, 0], box[:, 1], ang_v)
+            native.polygon_fill(wid, box[:, 0], box[:, 1], float(wid_v))
         qua = (_blur_dirty(pos, 3.0, dirty) * 255).astype(np.uint8)
         pos8 = (pos * 255).astype(np.uint8)
         ang8 = ang.astype(np.uint8)
@@ -91,5 +92,5 @@ def _blur_dirty(m: np.ndarray, sigma: float, dirty) -> np.ndarray:
     cx0 = max(0, x0 - 2 * r)
     cx1 = min(w, x1 + 2 * r + 1)
     out = np.zeros_like(m)
-    out[cy0:cy1, cx0:cx1] = gaussian_blur_np(m[cy0:cy1, cx0:cx1], sigma)
+    out[cy0:cy1, cx0:cx1] = native.gaussian_blur(m[cy0:cy1, cx0:cx1], sigma)
     return out

@@ -25,7 +25,8 @@ from PIL import Image
 
 from crog_tpu_torch.data.grasp_transforms import GraspTransforms
 from crog_tpu_torch.data.ocid_classes import CNAMES, SUBNAMES, SUB_TO_CLASS
-from crog_tpu_torch.ops.affine import letterbox_transform, warp_affine_np
+from crog_tpu_torch.native import warp_affine
+from crog_tpu_torch.ops.affine import letterbox_transform
 from crog_tpu_torch.utils.tokenizer import tokenize
 
 CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
@@ -84,19 +85,19 @@ def preprocess(
                 raise ValueError(
                     f"the rawlb wire reads the source frame off the mask bit "
                     f"plane; width {ori_size[1]} is not a multiple of 8")
-            out["lb_img_u8"] = warp_affine_np(img, mat, input_size, "cubic",
-                                              border_value=border)
+            out["lb_img_u8"] = warp_affine(img, mat, input_size, "cubic",
+                                           border_value=border)
         else:
             out["raw_img_u8"] = np.ascontiguousarray(img)
         if rects is not None:
             out["rect_corners"], out["rect_vals"] = pack_raster_params(
                 np.asarray(rects), max_rects, width_factor)
         return out
-    img_w = warp_affine_np(img, mat, input_size, "cubic", border_value=border)
+    img_w = warp_affine(img, mat, input_size, "cubic", border_value=border)
     planes = [ins_mask]
     if grasp_masks is not None:
         planes += [grasp_masks["qua"], grasp_masks["ang"], grasp_masks["wid"]]
-    planes_w = warp_affine_np(np.stack(planes, axis=-1), mat, input_size, "linear")
+    planes_w = warp_affine(np.stack(planes, axis=-1), mat, input_size, "linear")
     if compact:
         out["img_u8"] = img_w
         out["planes_u8"] = planes_w

@@ -19,7 +19,8 @@ from PIL import Image
 
 from crog_tpu_torch.data.ocid_vlg import CLIP_MEAN, CLIP_STD
 from crog_tpu_torch.data.shards import ShardReader
-from crog_tpu_torch.ops.affine import letterbox_transform, warp_affine_np
+from crog_tpu_torch.native import warp_affine
+from crog_tpu_torch.ops.affine import letterbox_transform
 from crog_tpu_torch.utils.tokenizer import tokenize
 
 
@@ -56,9 +57,9 @@ class RefCOCODataset:
         ori_size = img.shape[:2]
         mat, mat_inv = letterbox_transform(ori_size, self.input_size)
         border = tuple((CLIP_MEAN * 255).tolist())
-        img_w = warp_affine_np(img, mat, self.input_size, "cubic", border)
-        mask_w = warp_affine_np((mask * 255).astype(np.uint8) if mask.max() <= 1 else mask,
-                                mat, self.input_size, "linear")
+        img_w = warp_affine(img, mat, self.input_size, "cubic", border)
+        mask_w = warp_affine((mask * 255).astype(np.uint8) if mask.max() <= 1 else mask,
+                             mat, self.input_size, "linear")
         return {
             "img": (img_w.astype(np.float32) / 255.0 - CLIP_MEAN) / CLIP_STD,
             "mask": mask_w.astype(np.float32) / 255.0,

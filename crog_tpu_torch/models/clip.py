@@ -1,9 +1,12 @@
-"""CLIP RN50 dual encoder in PyTorch.
+"""CLIP dual encoders in PyTorch: RN50 and the ViT family.
 
 Counterpart of crog_tpu/models/clip.py: a ModifiedResNet vision tower
 (3-conv stem, anti-aliased bottlenecks, attention pooling that keeps the
-spatial map) emitting (x2, x3, x4-pooled), and a causal text transformer
-returning per-token features plus the projected EOT sentence embedding.
+spatial map) emitting (x2, x3, x4-pooled), or a VisionTransformer tower
+emitting projected patch tokens (``CLIPViT``, the checkpoint family the
+reference's build_model also accepts; CROG builds RN50 only), and a causal
+text transformer returning per-token features plus the projected EOT
+sentence embedding.
 
 Module and parameter names follow the reference torch CLIP (model/clip.py),
 so a reference state_dict loads with plain ``load_state_dict``.  Tensors are
@@ -329,6 +332,40 @@ class _QuickGELU(nn.Module):
         return quick_gelu(x)
 
 
+class VisionTransformer(nn.Module):
+    """CLIP ViT tower (reference model/clip.py:286-332,
+    crog_tpu/models/clip.py:456 ``VisionTransformer``): a patch conv without
+    bias, the class token, the positional embedding's first gh*gw+1 rows
+    (sliced, not resized, for an input smaller than ``input_resolution``,
+    as the JAX package does), ``ln_pre``, pre-LN residual attention blocks,
+    then ``ln_post`` on the patch tokens only (the reference's modified
+    variant drops only the class token) and ``@ proj``.  NHWC image in,
+    [B, gh*gw, output_dim] out.  Its unmasked self-attention over at least
+    64 tokens goes through ``attention_core`` to K1 / K1b on the card."""
+
+    def __init__(self, input_resolution: int, patch_size: int, width: int,
+                 layers: int, heads: int, output_dim: int):
+        super().__init__()
+        scale = width**-0.5
+        self.conv1 = Conv2d(3, width, patch_size, stride=patch_size, bias=False)
+        self.class_embedding = nn.Parameter(scale * torch.randn(width))
+        self.positional_embedding = nn.Parameter(
+            scale * torch.randn((input_resolution // patch_size) ** 2 + 1, width))
+        self.ln_pre = LayerNormFp32(width)
+        self.transformer = Transformer(width, layers, heads)
+        self.ln_post = LayerNormFp32(width)
+        self.proj = nn.Parameter(scale * torch.randn(width, output_dim))
+
+    def forward(self, x):
+        x = self.conv1(x)
+        b, gh, gw, w = x.shape
+        x = x.reshape(b, gh * gw, w)
+        cls = self.class_embedding.to(x.dtype).expand(b, 1, w)
+        x = torch.cat([cls, x], 1) + self.positional_embedding[:gh * gw + 1].to(x.dtype)
+        x = self.transformer(self.ln_pre(x))
+        return self.ln_post(x[:, 1:]) @ self.proj.to(x.dtype)
+
+
 class Transformer(nn.Module):
     def __init__(self, width: int, layers: int, heads: int):
         super().__init__()
@@ -348,25 +385,18 @@ def causal_mask(length: int, device=None) -> torch.Tensor:
     return torch.triu(mask, diagonal=1)
 
 
-class CLIPRN50(nn.Module):
-    """Dual encoder; field names mirror what the reference's build_model
-    infers from a checkpoint (model/clip.py:503-546).  ``dtype`` is the
-    compute dtype."""
+class _CLIP(nn.Module):
+    """The dual encoder around a ``visual`` tower: the causal text tower
+    and the forward both CLIP families share.  ``dtype`` is the compute
+    dtype."""
 
-    def __init__(self, embed_dim: int = 1024, image_resolution: int = 224,
-                 vision_layers: Tuple[int, int, int, int] = (3, 4, 6, 3),
-                 vision_width: int = 64, context_length: int = 77,
-                 vocab_size: int = 49408, transformer_width: int = 512,
-                 transformer_heads: int = 8, transformer_layers: int = 12,
-                 dtype: torch.dtype = torch.float32, stem_s2d: bool = False,
-                 fused_stem: bool = False):
+    def __init__(self, visual: nn.Module, embed_dim: int, context_length: int,
+                 vocab_size: int, transformer_width: int, transformer_heads: int,
+                 transformer_layers: int, dtype: torch.dtype):
         super().__init__()
         self.dtype = dtype
         self.context_length = context_length
-        self.visual = ModifiedResNet(
-            vision_layers, embed_dim, vision_width * 32 // 64,
-            image_resolution, vision_width, stem_s2d, fused_stem,
-        )
+        self.visual = visual
         self.transformer = Transformer(
             transformer_width, transformer_layers, transformer_heads
         )
@@ -399,3 +429,43 @@ class CLIPRN50(nn.Module):
 
     def forward(self, image, text):
         return self.encode_image(image), *self.encode_text(text)
+
+
+class CLIPRN50(_CLIP):
+    """Dual encoder with the ModifiedResNet tower; field names mirror what
+    the reference's build_model infers from a checkpoint
+    (model/clip.py:503-546)."""
+
+    def __init__(self, embed_dim: int = 1024, image_resolution: int = 224,
+                 vision_layers: Tuple[int, int, int, int] = (3, 4, 6, 3),
+                 vision_width: int = 64, context_length: int = 77,
+                 vocab_size: int = 49408, transformer_width: int = 512,
+                 transformer_heads: int = 8, transformer_layers: int = 12,
+                 dtype: torch.dtype = torch.float32, stem_s2d: bool = False,
+                 fused_stem: bool = False):
+        visual = ModifiedResNet(
+            vision_layers, embed_dim, vision_width * 32 // 64,
+            image_resolution, vision_width, stem_s2d, fused_stem,
+        )
+        super().__init__(visual, embed_dim, context_length, vocab_size,
+                         transformer_width, transformer_heads, transformer_layers, dtype)
+
+
+class CLIPViT(_CLIP):
+    """Dual encoder with the ViT tower (crog_tpu/models/clip.py:621
+    ``CLIPViT``, reference model/clip.py:506-521); vision heads follow the
+    reference rule vision_width // 64.  ``encode_image`` returns the
+    projected patch tokens [B, gh*gw, embed_dim]."""
+
+    def __init__(self, embed_dim: int = 512, image_resolution: int = 224,
+                 vision_layers: int = 12, vision_width: int = 768,
+                 vision_patch_size: int = 32, context_length: int = 77,
+                 vocab_size: int = 49408, transformer_width: int = 512,
+                 transformer_heads: int = 8, transformer_layers: int = 12,
+                 dtype: torch.dtype = torch.float32):
+        visual = VisionTransformer(
+            image_resolution, vision_patch_size, vision_width, vision_layers,
+            vision_width // 64, embed_dim,
+        )
+        super().__init__(visual, embed_dim, context_length, vocab_size,
+                         transformer_width, transformer_heads, transformer_layers, dtype)

@@ -13,10 +13,20 @@ for the CLIP attention pool), which the port's ``CROG`` loads with plain
 Layouts: flax conv kernels (kH, kW, I, O) -> torch (O, I, kH, kW); flax
 Dense kernels (I, O) -> torch (O, I).
 
+``clip_state_dict_from_flax`` does the same for a stand-alone CLIP of
+either family (crog_tpu's ``CLIPRN50`` or ``CLIPViT`` variables, the
+inverse of ``convert_clip_state_dict``, crog_tpu/models/convert.py:163),
+in the OpenAI CLIP key schema (``visual.conv1.weight``,
+``visual.transformer.resblocks.{i}.attn.in_proj_weight``, ...).
+
 ``load_torch_state_dict`` and ``merge_pretrained_clip`` are the
 counterparts of crog_tpu/models/convert.py:27 and :314: a CLIP archive
 (the OpenAI torch.jit release, or a plain state dict) loads non-strictly
 into ``model.backbone``, whose keys already follow that schema.
+``infer_clip_config`` and ``build_clip`` (crog_tpu/models/convert.py:45,
+:106) read a CLIP family's architecture off its keys and build it;
+``clip_from_state_dict`` loads such an archive strictly into the CLIP it
+describes.
 """
 
 from __future__ import annotations
@@ -92,8 +102,45 @@ class _Builder:
         self.bn(f"{dst}.1", *path, "bn")
 
 
-def _clip(b: _Builder, pre: str):
-    vi = ("backbone", "visual")
+def _resblocks(b: _Builder, pre: str, *tower):
+    """A flax tower's ``resblock_{i}`` -> ``{pre}resblocks.{i}``."""
+    n_blocks = sum(1 for k in b.p(*tower) if k.startswith("resblock_"))
+    for i in range(n_blocks):
+        src = tower + (f"resblock_{i}",)
+        dst = f"{pre}resblocks.{i}"
+        b.mha_packed(f"{dst}.attn", *src, "attn")
+        b.ln(f"{dst}.ln_1", *src, "ln_1")
+        b.ln(f"{dst}.ln_2", *src, "ln_2")
+        b.dense(f"{dst}.mlp.c_fc", *src, "mlp_c_fc")
+        b.dense(f"{dst}.mlp.c_proj", *src, "mlp_c_proj")
+
+
+def _vit(b: _Builder, pre: str, *vi):
+    b.conv(f"{pre}visual.conv1", *vi, "conv1")
+    for name in ("class_embedding", "positional_embedding", "proj"):
+        b.put(f"{pre}visual.{name}", b.p(*vi, name))
+    b.ln(f"{pre}visual.ln_pre", *vi, "ln_pre")
+    b.ln(f"{pre}visual.ln_post", *vi, "ln_post")
+    _resblocks(b, f"{pre}visual.transformer.", *vi)
+
+
+def _clip(b: _Builder, pre: str, *root):
+    """A CLIP's ``visual`` (either family) and ``transformer`` subtrees
+    under ``root`` -> keys under ``pre``."""
+    vi = root + ("visual",)
+    if "proj" in b.p(*vi):
+        _vit(b, pre, *vi)
+    else:
+        _resnet(b, pre, *vi)
+    tr = root + ("transformer",)
+    b.put(f"{pre}token_embedding.weight", b.p(*tr, "token_embedding"))
+    b.put(f"{pre}positional_embedding", b.p(*tr, "positional_embedding"))
+    b.put(f"{pre}text_projection", b.p(*tr, "text_projection"))
+    b.ln(f"{pre}ln_final", *tr, "ln_final")
+    _resblocks(b, f"{pre}transformer.", *tr)
+
+
+def _resnet(b: _Builder, pre: str, *vi):
     for i in (1, 2, 3):
         b.conv(f"{pre}visual.conv{i}", *vi, f"conv{i}")
         b.bn(f"{pre}visual.bn{i}", *vi, f"bn{i}")
@@ -119,20 +166,17 @@ def _clip(b: _Builder, pre: str):
     b.conv(f"{pre}visual.attnpool.connect.0", *ap, "connect_conv")
     b.bn(f"{pre}visual.attnpool.connect.1", *ap, "connect_bn")
 
-    tr = ("backbone", "transformer")
-    b.put(f"{pre}token_embedding.weight", b.p(*tr, "token_embedding"))
-    b.put(f"{pre}positional_embedding", b.p(*tr, "positional_embedding"))
-    b.put(f"{pre}text_projection", b.p(*tr, "text_projection"))
-    b.ln(f"{pre}ln_final", *tr, "ln_final")
-    n_blocks = sum(1 for k in b.p(*tr) if k.startswith("resblock_"))
-    for i in range(n_blocks):
-        src = tr + (f"resblock_{i}",)
-        dst = f"{pre}transformer.resblocks.{i}"
-        b.mha_packed(f"{dst}.attn", *src, "attn")
-        b.ln(f"{dst}.ln_1", *src, "ln_1")
-        b.ln(f"{dst}.ln_2", *src, "ln_2")
-        b.dense(f"{dst}.mlp.c_fc", *src, "mlp_c_fc")
-        b.dense(f"{dst}.mlp.c_proj", *src, "mlp_c_proj")
+
+def clip_state_dict_from_flax(params: Mapping, batch_stats: Mapping,
+                              logit_scale: float = float(np.log(1 / 0.07))
+                              ) -> Dict[str, np.ndarray]:
+    """The JAX package's ``CLIPRN50`` or ``CLIPViT`` variables -> the
+    port's state_dict (numpy) of the same family, which ``build_clip`` of
+    its ``infer_clip_config`` loads strictly."""
+    b = _Builder(params, batch_stats)
+    _clip(b, "")
+    b.put("logit_scale", np.asarray(logit_scale))
+    return b.sd
 
 
 def state_dict_from_flax(params: Mapping, batch_stats: Mapping,
@@ -140,7 +184,7 @@ def state_dict_from_flax(params: Mapping, batch_stats: Mapping,
                          ) -> Dict[str, np.ndarray]:
     """The JAX package's CROG variables -> the port's state_dict (numpy)."""
     b = _Builder(params, batch_stats)
-    _clip(b, "backbone.")
+    _clip(b, "backbone.", "backbone")
     b.put("backbone.logit_scale", np.asarray(logit_scale))
 
     nk = ("neck",)
@@ -251,6 +295,82 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
             sd = sd["state_dict"]
     return {k: v.float() if v.is_floating_point() else v
             for k, v in sd.items() if torch.is_tensor(v)}
+
+
+def _count(sd: Mapping, prefix: str, field: int) -> int:
+    """How many distinct values the key path's ``field``-th part takes over
+    the keys under ``prefix``: blocks of a tower or a stage."""
+    return len({k.split(".")[field] for k in sd if k.startswith(prefix)})
+
+
+def infer_clip_config(sd: Mapping) -> Dict:
+    """A CLIP's architecture from its state_dict's keys and shapes
+    (crog_tpu/models/convert.py:45, reference model/clip.py:503-542, both
+    families): the constructor fields of ``CLIPViT`` or ``CLIPRN50`` and a
+    ``vision_arch`` discriminator ('vit' or 'resnet') for ``build_clip``."""
+    common = dict(
+        embed_dim=sd["text_projection"].shape[1],
+        context_length=sd["positional_embedding"].shape[0],
+        vocab_size=sd["token_embedding.weight"].shape[0],
+        transformer_width=sd["ln_final.weight"].shape[0],
+        transformer_heads=sd["ln_final.weight"].shape[0] // 64,
+        transformer_layers=_count(sd, "transformer.resblocks", 2),
+    )
+    if "visual.proj" in sd:
+        patch = sd["visual.conv1.weight"].shape[-1]
+        grid = round((sd["visual.positional_embedding"].shape[0] - 1) ** 0.5)
+        return dict(
+            vision_arch="vit",
+            image_resolution=patch * grid,
+            vision_layers=_count(sd, "visual.transformer.resblocks", 3),
+            vision_width=sd["visual.conv1.weight"].shape[0],
+            vision_patch_size=patch,
+            **common,
+        )
+    if "visual.layer1.0.conv1.weight" not in sd:
+        raise KeyError("unrecognized CLIP family: neither visual.proj (ViT) nor "
+                       "visual.layer1.0.conv1.weight (ResNet) in the state dict")
+    output_width = round((sd["visual.attnpool.positional_embedding"].shape[0] - 1) ** 0.5)
+    return dict(
+        vision_arch="resnet",
+        image_resolution=output_width * 32,
+        vision_layers=tuple(_count(sd, f"visual.layer{i}", 2) for i in (1, 2, 3, 4)),
+        vision_width=sd["visual.layer1.0.conv1.weight"].shape[0],
+        **common,
+    )
+
+
+def build_clip(cfg: Mapping, dtype: torch.dtype = torch.float32) -> torch.nn.Module:
+    """The CLIP of an ``infer_clip_config`` result (the reference
+    build_model's class dispatch, model/clip.py:540-546); ``dtype`` is the
+    compute dtype."""
+    from crog_tpu_torch.models.clip import CLIPRN50, CLIPViT
+
+    cfg = dict(cfg)
+    cls = CLIPViT if cfg.pop("vision_arch", "resnet") == "vit" else CLIPRN50
+    return cls(dtype=dtype, **cfg)
+
+
+# what the OpenAI archive holds beside the weights; its build_model drops them
+CLIP_ARCHIVE_META = ("input_resolution", "context_length", "vocab_size")
+
+
+def clip_from_state_dict(sd: Mapping[str, torch.Tensor],
+                         dtype: torch.dtype = torch.float32) -> torch.nn.Module:
+    """The CLIP that ``sd`` (``load_torch_state_dict`` of a CLIP archive, of
+    either family) describes, with its weights (the reference's build_model,
+    model/clip.py:503-556).  Every key must match but those of the RN50
+    attention pool's ``connect`` branch, which CROG adds to CLIP and an
+    archive lacks (they keep their initialization): a ViT archive loads
+    strictly."""
+    sd = {k: v for k, v in sd.items() if k not in CLIP_ARCHIVE_META}
+    model = build_clip(infer_clip_config(sd), dtype)
+    missing, unexpected = model.load_state_dict(sd, strict=False)
+    missing = [k for k in missing if ".attnpool.connect." not in k]
+    if missing or unexpected:
+        raise KeyError(f"CLIP state dict: missing {missing[:5]}, unexpected "
+                       f"{unexpected[:5]}")
+    return model
 
 
 def merge_pretrained_clip(model: torch.nn.Module, sd: Mapping[str, torch.Tensor]

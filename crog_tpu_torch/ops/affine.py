@@ -1,7 +1,10 @@
-"""Host-side affine warps (numpy).
+"""Host-side affine warps.
 
 Replacements for the OpenCV calls of the reference input pipeline
 (cv2.getAffineTransform / cv2.warpAffine at utils/dataset.py:825-890).
+The readers warp with ``crog_tpu_torch.native.warp_affine``, the C++
+kernel (crog_tpu/ops/affine.py dispatches to the same); ``warp_affine_np``
+here is its numpy twin, the tests' reference.
 
 Interpolation numerics: bicubic uses the kernel with A = -0.75 (the OpenCV
 INTER_CUBIC constant), bilinear is standard.  Out-of-range samples take a
@@ -94,7 +97,7 @@ def warp_affine_np(
     img: np.ndarray,
     mat: np.ndarray,
     out_size,
-    interpolation: str = "linear",  # or "cubic"
+    interpolation: str = "linear",  # or "cubic", "nearest"
     border_value=0.0,
 ) -> np.ndarray:
     """Host warpAffine with cv2 (OpenCV 5) arithmetic parity.
@@ -111,6 +114,7 @@ def warp_affine_np(
         contraction;
       * cubic: float32 coefficient polynomials (c3 = 1-c0-c1-c2) and
         FMA-chained 4-tap dot products, rows then columns;
+      * nearest: round-half-even of the float32 coordinates;
       * uint8: borderValue saturate_cast to uint8 first; final value
         round-half-even then clipped.
     """
@@ -144,7 +148,9 @@ def warp_affine_np(
             border,
         )
 
-    if interpolation == "linear":
+    if interpolation == "nearest":
+        out = tap(np.rint(sx).astype(np.int64), np.rint(sy).astype(np.int64))
+    elif interpolation == "linear":
         v00, v01 = tap(x0, y0), tap(x0 + 1, y0)
         v10, v11 = tap(x0, y0 + 1), tap(x0 + 1, y0 + 1)
         p0 = _fma32(fx, v01 - v00, v00)

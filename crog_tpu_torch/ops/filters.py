@@ -2,7 +2,10 @@
 
 The host path mirrors skimage.filters.gaussian defaults (mode='nearest',
 truncate=4.0) used in grasp-mask generation (reference
-utils/dataset.py:673-676); ``gaussian_blur`` is the separable device version
+utils/dataset.py:673-676): the grasp maps take the C++ blur
+``native.gaussian_blur`` (crog_tpu/ops/filters.py ``gaussian_blur_np``
+dispatches to the same), and ``gaussian_blur_np`` here is its scipy twin,
+the tests' reference; ``gaussian_blur`` is the separable device version
 of crog_tpu/ops/filters.py ``gaussian_blur_jax`` (38) that smooths SSG's
 quality maps in eval (reference utils/grasp_eval.py:198).
 """

@@ -26,9 +26,8 @@ LEGACY_KEYS = ("img", "mask", "inverse", "ori_size", "word", "grasps",
 
 @pytest.mark.parametrize("size,index", [(128, 0), (128, 3), (416, 1)])
 def test_synthetic_sample_equals_jax_package(size, index):
-    """Same seed and index -> bit-identical legacy sample (the JAX package
-    warps through its native host ops where built; the port's numpy warp
-    reproduces them exactly on these scenes)."""
+    """Same seed and index -> bit-identical legacy sample (both packages
+    warp, fill and blur through their native host ops, the same C++)."""
     ref = JaxSynthetic(num_samples=8, split="val", input_size=size)[index]
     got = SyntheticOCIDVLG(num_samples=8, split="val", input_size=size)[index]
     for k in LEGACY_KEYS:
@@ -63,7 +62,8 @@ def _port_files():
 def test_import_checks_cover_the_readers_loader_and_tools():
     names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     for f in ("data/ocid_vlg.py", "data/cache.py", "data/loader.py", "data/shards.py",
-              "data/refcoco.py", "data/ref_ocid.py", "test_diff_refer_types.py"):
+              "data/refcoco.py", "data/ref_ocid.py", "test_diff_refer_types.py",
+              "native/__init__.py", "utils/metrics.py", "utils/profiling.py"):
         assert f"crog_tpu_torch/{f}" in names, f
     assert "tools/torch_latency.py" in names
 

@@ -7,8 +7,8 @@ global ``random.seed(s)``), and shards written by either package read by
 the other.
 
 Tolerances: integer and uint8 fields exact; float fields to 1e-6 (the
-same numpy arithmetic; the JAX package warps through its native host ops
-where built, which the port's numpy warp reproduces).
+same numpy arithmetic; both packages warp, fill and blur through their
+native host ops, the same C++).
 """
 
 import io

@@ -10,19 +10,20 @@ unpacked commit, built into its own ``_build``) and runs that
 config, 48 synthetic samples evaluated at batch 24 with the launch counts
 checked, the batch-1 forward and the batch-24 eval step timed, then 4 train
 steps and 4 timed (``train_path``).  It prints the script's own ``[time]``
-lines and, last, one JSON object with the eval and train samples/s and the
-forward's ms.
+lines and, last, one JSON object with the eval and train samples/s, the
+forward's ms and the card (nvidia-smi's name and power limit).
 
 With two trees, each run is a process of its own, the order alternating
 A B, B A, ... so that drift in the card or the host falls on both trees
-alike; the summary gives each tree's mean, least and largest figure and the
-pairs in which B read below A.
+alike; the summary gives each tree's mean, least and largest figure, its
+median and quartiles, and the pairs in which B read below A.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 
@@ -64,7 +65,8 @@ def one_run(tree: str) -> dict:
     del model, eval_step
     torch.cuda.empty_cache()
     train_rate = cs.train_path(device, smi)[1]
-    return {"tree": tree, "train": train_rate, "eval": eval_rate, "fwd_ms": fwd_ms}
+    return {"tree": tree, "train": train_rate, "eval": eval_rate, "fwd_ms": fwd_ms,
+            "card": smi}
 
 
 def alternate(a: str, b: str) -> int:
@@ -83,7 +85,10 @@ def alternate(a: str, b: str) -> int:
         for m in METRICS:
             v = [r[m] for r in runs[tree]]
             print(f"[rates] {tag} {m}: mean {sum(v) / len(v):.2f}, least {min(v):.2f}, "
-                  f"largest {max(v):.2f} over {len(v)} runs ({tree})", flush=True)
+                  f"largest {max(v):.2f} over {len(v)} runs ({tree}), median "
+                  f"{statistics.median(v):.2f}, quartiles "
+                  f"{' - '.join(f'{q:.2f}' for q in statistics.quantiles(v, n=4)[::2])}",
+                  flush=True)
     for m in METRICS:
         below = sum(rb[m] < ra[m] for ra, rb in zip(runs[a], runs[b]))
         print(f"[rates] {m}: B below A in {below} of {PAIRS} pairs", flush=True)
