@@ -2,7 +2,8 @@
 """Drive the PyTorch port (crog_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py             # every phase below
-    python3 chip_smoke.py --kernels   # phases 1-3 and 15 only, no result line
+    python3 chip_smoke.py --kernels   # phases 1-3 and 16 only, no result line
+    python3 chip_smoke.py --tools     # phases 1, 2 and 15 only, no result line
 
 Phases, in order; any failure propagates and the exit code is not 0:
   1. the card's name and power limit (nvidia-smi);
@@ -161,7 +162,27 @@ Phases, in order; any failure propagates and the exit code is not 0:
      against their twins under K1's and K1b's tolerances, timed beside
      their twins and SDPA's forward and backward (a yardstick only); one
      sample against the CPU in fp32 (VIT_E2E_TOL); the ``[vit]`` lines;
- 15. the device time per call, from torch.profiler's kernel rows, of K1,
+ 15. the tools: (b) tools/torch_roofline.py on crog_multiple_r50.yaml's
+     eval forward at batch 1 with the s2d stem on K6 (FlopCounterMode over
+     the aten ops plus the kernels' work from their shapes, the least bytes,
+     the bound, ROOFLINE_ITERS chained forwards by CUDA events): the share
+     at most ROOFLINE_SHARE_MAX, and the FLOP count equal to a CPU copy's;
+     (a) tools/torch_profile_step.py's region rollup of TOOLS_STEPS CROG
+     train steps at batch 24 (the s2d stem on K6/K6b) and TOOLS_STEPS SSG
+     train steps at 32 (raw wire): the ``[regions]`` lines, the regions'
+     sum within ROLLUP_TOL of the profiler events' device time, fwdbwd
+     flows in the trace, K1/K1b and K6/K6b in ``backbone``, K2-K4 and their
+     backward kernels in ``decoder``, K5's and K5b's region kernels once per
+     step in ``lins`` and in ``lgrasp``, none in ``<other>``, and the launch
+     counts per step as in phases 5 and 9; (c) a full-width SSG run through
+     tools/torch_ssg_train_supervisor.py (synthetic frames, 2 epochs, no
+     validation) whose child (SUPERVISED_TRAINER) faults with an
+     out-of-memory error after epoch 1's last_model at any batch above
+     SUPERVISED_MAX_OK: two launches, at 8 and 4, the second resumed from
+     epoch 1; (d) tools/torch_realdata_drill.py --fixture on the card: the
+     metric table of the eval CLI on the 2-scene tree and a seeded
+     reference-schema .pth;
+ 16. the device time per call, from torch.profiler's kernel rows, of K1,
      K1b, K2 and K3 in eval and in train mode (by part: ln_pos, the
      projections, the attention step, the out-projection), K2b and K3b (by
      part: the LN kernels, the dO and dX GEMMs, the attention step, the dW
@@ -190,6 +211,9 @@ import time
 
 import numpy as np
 
+from crog_tpu_torch.ops import work
+from crog_tpu_torch.ops.work import PEAK_F32_TC_FLOPS, bound, lincomb_work, nbytes
+
 SEED = 0
 BATCH = 24
 SAMPLES = 48
@@ -216,12 +240,6 @@ UNPACK_TOL = 1e-5
 UNPACK_SIN_COS_TOL = 2e-4
 UNPACK_TIE = 1e-5
 UNPACK_FLIP_SHARE = 1e-3
-# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): bf16 tensor cores, f32
-# products on the tensor cores (TF32's 495 TFLOP/s over the three TF32
-# products of the 3xTF32 split, which keeps f32 accuracy), device memory
-PEAK_BF16_FLOPS = 989e12
-PEAK_F32_TC_FLOPS = 495e12 / 3
-PEAK_BYTES = 3.35e12
 FWD = ("attention", "decoder_self_block", "decoder_cross_block", "ffn")
 BWD = tuple(n + "_bwd" for n in FWD)
 # launches of each kernel in one CROG forward, and one train step's forward
@@ -310,19 +328,6 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
-    """(ms, limiter): the least time for ``flops`` operations at ``peak``
-    (the bf16 tensor-core rate unless the operands are f32) and ``nbytes``
-    of device-memory traffic on an H100."""
-    t_ops = flops / peak * 1e3
-    t_mem = nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
-
-
-def nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts)
-
-
 def kernel_inputs(device, b=BATCH, l=676, t=17, d=512, f=2048, lp=169, dp=2048):
     """Seeded inputs at the main path's shapes: B=24 at 416^2 gives a 13x13
     attention pool (169 tokens, width 2048, 32 heads) and a 26x26 decoder
@@ -396,18 +401,17 @@ def kernel_cases(inp):
         lambda: A.fused_attention(q, k, v, h),
         lambda: A.attention_plain(q, k, v, h),
         sdpa,
-        4.0 * b * h * l * l * (d // h),
+        work.attention_flops(b, l, l, d),
         nbytes(q, k, v) + nbytes(q),
     )
     sargs, cargs, fargs = _args(inp)
     x = sargs[0]
     b, l, d = x.shape
-    m = b * l
     cases["decoder_self_block"] = (
         lambda: DB.self_block_fwd(*sargs)[0],
         lambda: DB.self_block_plain(*sargs),
         None,
-        8.0 * m * d * d + 4.0 * b * l * l * d,
+        work.self_block_flops(b, l, d),
         nbytes(*(t for t in sargs[:-1])) + nbytes(x),
     )
     c = inp["decoder_cross_block"]
@@ -416,7 +420,7 @@ def kernel_cases(inp):
         lambda: DB.cross_block_fwd(*cargs)[0],
         lambda: DB.cross_block_plain(*cargs),
         None,
-        4.0 * m * d * d + 4.0 * b * t * d * d + 4.0 * b * l * t * d,
+        work.cross_block_flops(b, l, t, d),
         nbytes(*(x_ for x_ in cargs[:-1] if x_ is not c["pad"]))
         + b * t * 4 + nbytes(x),  # key mask as f32
     )
@@ -426,7 +430,7 @@ def kernel_cases(inp):
         lambda: FF.ffn_fwd(*fargs),
         lambda: FF.ffn_plain(*fargs),
         None,
-        4.0 * mm * dd * ff,
+        work.ffn_flops(mm, dd, ff),
         nbytes(*fargs) + nbytes(fargs[0]),
     )
     return cases
@@ -477,19 +481,18 @@ def backward_cases(inp):
         lambda: A.attention_bwd(q, k, v, o, do, h),
         lambda: A.attention_bwd_plain(q, k, v, o, do, h),
         lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), dos, retain_graph=True),
-        10.0 * b * l * l * d, 8 * nbytes(q), ("dq", "dk", "dv"),
+        work.attention_bwd_flops(b, l, d), 8 * nbytes(q), ("dq", "dk", "dv"),
     )
     sargs, cargs, fargs = _args(inp)
     x = sargs[0]
     b, l, d = x.shape
-    m = b * l
     wbytes = 4 * d * d * 2 + 8 * d * 4  # dW (bf16) and the bias / LN rows
     _, ssaved = DB.self_block_fwd(*sargs, SEED + 1, RATE, save=True)
     dys = dy["decoder_self_block"]
     cases["decoder_self_block_bwd"] = (
         lambda: DB.self_block_bwd(x, ssaved, dys, 8, SEED + 1, RATE),
         lambda: DB.self_block_bwd_plain(*sargs[:-1], dys, 8, SEED + 1, RATE),
-        None, 16.0 * m * d * d + 10.0 * b * l * l * d,
+        None, work.self_block_bwd_flops(b, l, d),
         nbytes(x, dys, *ssaved) + nbytes(x) + wbytes,
         ("dx", "d_in_w", "d_in_b", "d_out_w", "d_out_b", "d_g_pre", "d_b_pre",
          "d_g_post", "d_b_post"),
@@ -500,7 +503,7 @@ def backward_cases(inp):
     cases["decoder_cross_block_bwd"] = (
         lambda: DB.cross_block_bwd(cargs[0], csaved, dyc, 8, SEED + 2, RATE),
         lambda: DB.cross_block_bwd_plain(*cargs[:-1], dyc, 8, SEED + 2, RATE),
-        None, 8.0 * m * d * d + 8.0 * b * t * d * d + 10.0 * b * l * t * d,
+        None, work.cross_block_bwd_flops(b, l, t, d),
         nbytes(cargs[0], dyc, *csaved) + nbytes(cargs[0]) + b * t * d * 2 + wbytes,
         ("dx", "dtxt", "d_in_w", "d_in_b", "d_out_w", "d_out_b", "d_g_pre", "d_b_pre",
          "d_g_post", "d_b_post"),
@@ -513,7 +516,7 @@ def backward_cases(inp):
         lambda: FF.ffn_bwd(xf, w1, b1, g, be, w2, dyf, SEED + 3, RATE),
         lambda: FF.ffn_bwd_plain(xf, w1, b1, g, be, w2, dyf, SEED + 3, RATE),
         # recompute, dhn, dx in the kernel; dW1, dW2 outside it
-        None, 10.0 * mm * dd * ff,
+        None, work.ffn_bwd_flops(mm, dd, ff),
         nbytes(xf, dyf, w1, w2, b1, g, be) + nbytes(xf) + 2 * dd * ff * 4
         + (3 * ff + dd) * 4,
         ("dx", "dw1", "db1", "dgamma", "dbeta", "dw2", "db2"),
@@ -1107,53 +1110,6 @@ def lincomb_cases(device, case: str = "synthetic", ph=136, k=100, m=24):
     return cases
 
 
-def lincomb_inside(args, t):
-    """[B, KT, HW] bool: the points (column, pixel) inside their column's
-    sanitized box, the pixels p with x1 <= p_x < x2 and y1 <= p_y < y2
-    (``box_inside_mask``), T columns per box."""
-    import torch
-
-    protos, _, _, _, boxes = args
-    ph, pw = protos.shape[1:3]
-    x1, x2, y1, y2 = (v.repeat_interleave(t, 1)[..., None] for v in boxes.unbind(-1))
-    p = torch.arange(ph * pw, device=boxes.device)
-    px, py = (p % pw).float(), (p // pw).float()
-    return (px >= x1) & (px < x2) & (py >= y1) & (py < y2)
-
-
-def lincomb_work(args, t):
-    """(flops, dense flops, fwd bytes, bwd bytes, inside share) of one K5 /
-    K5b call.  The products the function needs are 2·C per point inside its
-    column's box: outside, the loss takes the constant outside_t and the
-    gradient is 0.  The dense count charges every point, 2·B·KT·HW·C.  K5b
-    needs three products per point (the prediction, dcoef and dprotos); the
-    elementwise work is not counted.  Bytes: each input read once and each
-    output written once, and of the inputs only what this call's boxes
-    need.  Of the prototypes, the pixels inside some box of their image.
-    Of the GT, K5 reads each row a column names in full (its outside sum
-    needs every pixel); K5b only a named row's pixels inside the union of
-    the boxes of the columns that name it."""
-    import torch
-
-    protos, coef, ds, idx, boxes = args
-    b, _, _, c = protos.shape
-    kt = coef.shape[1]
-    tm, hw = ds.shape[1:]
-    inside = lincomb_inside(args, t)
-    rows = gt_inside = 0
-    for i in range(b):
-        named = torch.zeros(tm, hw, dtype=torch.int32, device=inside.device)
-        named.index_add_(0, idx[i].long(), inside[i].int())
-        rows += int(idx[i].unique().numel())
-        gt_inside += int((named > 0).sum())
-    px_inside = int(inside.any(1).sum())
-    read = px_inside * c * 4 + nbytes(coef, idx, boxes)
-    out = b * kt * 4  # the sums (K5) or their gradient g (K5b)
-    share = float(inside.float().mean())
-    return (2.0 * c * float(inside.sum()), 2.0 * b * kt * hw * c, read + rows * hw * 4 + out,
-            read + gt_inside * 4 + out + nbytes(coef, protos), share)
-
-
 def lincomb_parts(seq):
     """One K5 / K5b call's kernels in launch order -> [(kernel, device ms)],
     each kernel's launches summed."""
@@ -1182,12 +1138,13 @@ def check_lincomb(device, timed: bool = True):
     records = {n: _record(n, 0.0, 0.0, "operations") for n in ("lincomb", "lincomb_bwd")}
     for case in LINCOMB_CASES:
         inputs = lincomb_cases(device, case)
-        work = {kind: lincomb_work(args, t) for kind, (args, t, _) in inputs.items()}
+        needs = {kind: lincomb_work(args, t)
+                 for kind, (args, t, _) in inputs.items()}
         for name, rec in records.items():
             kid = "K5b" if name == "lincomb_bwd" else "K5"
             step = {"ms": 0.0, "plain": 0.0, "bound": 0.0, "dense": 0.0, "by": "operations"}
             for kind, (args, t, gsum) in inputs.items():
-                flops, dense, fwd_b, bwd_b, share = work[kind]
+                flops, dense, fwd_b, bwd_b, share = needs[kind]
                 # default arguments bind this kind's inputs: DEVICE_TIMED calls
                 # the kernel again after the loop
                 if name == "lincomb":
@@ -1261,8 +1218,7 @@ def s2dconv_cases(device, b=BATCH, cells=104):
         x = torch.relu(torch.randn(b, cells, cells, 4 * ci, generator=g)).to(device, bf)
         dy = torch.randn(b, cells, cells, 4 * co, generator=g).to(device, bf)
         w = (torch.randn(3, 3, ci, co, generator=g) * (2.0 / (9 * ci)) ** 0.5).to(device)
-        pixels = b * (2 * cells) ** 2
-        flops = 2.0 * 9 * ci * co * pixels
+        flops = work.s2dconv_flops(b, cells, cells, ci, co)
         wt = torch.flip(w, (0, 1)).permute(0, 1, 3, 2)
         for label, inp, kern_w, c_in, c_out in ((f"{name} forward", x, w, ci, co),
                                                 (f"{name} dgrad", dy, wt, co, ci)):
@@ -2898,13 +2854,12 @@ def vit_kernel_checks(device, label: str, tokens: int, heads: int, b: int = VIT_
         out = F.scaled_dot_product_attention(*leaves)
     sdpa = lambda: F.scaled_dot_product_attention(split(q), split(k), split(v))
     sdpa_bwd = lambda: torch.autograd.grad(out, leaves, split(do), retain_graph=True)
-    flops = 4.0 * b * heads * tokens * tokens * 64
     fig = {"k1_path": A.fwd_path(tokens), "k1_err": fwd_err, "k1_ms": cuda_ms(kern),
            "k1_plain_ms": cuda_ms(plain, reps=5), "sdpa_ms": cuda_ms(sdpa),
-           "k1_bound": bound(flops, 4 * nbytes(q)),
+           "k1_bound": bound(work.attention_flops(b, tokens, tokens, d), 4 * nbytes(q)),
            "k1b_path": A.bwd_path(tokens), "k1b_err": bwd_err, "k1b_ms": cuda_ms(bwd),
            "k1b_plain_ms": cuda_ms(bwd_plain, reps=5), "sdpa_bwd_ms": cuda_ms(sdpa_bwd),
-           "k1b_bound": bound(2.5 * flops, 8 * nbytes(q))}
+           "k1b_bound": bound(work.attention_bwd_flops(b, tokens, d), 8 * nbytes(q))}
     print(f"[vit] K1 at {shape}: {fig['k1_ms']:.4f} ms (plain {fig['k1_plain_ms']:.4f}, "
           f"SDPA {fig['sdpa_ms']:.4f}, bound {fig['k1_bound'][0]:.4f} by "
           f"{fig['k1_bound'][1]}); K1b {fig['k1b_ms']:.4f} ms (plain "
@@ -3032,6 +2987,209 @@ def vit_phase(device, smi: str):
     print(f"[vit] phase 14 took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# phase 15: the tools (tools/torch_roofline.py, torch_profile_step.py,
+# torch_ssg_train_supervisor.py, torch_realdata_drill.py) on the card
+TOOLS_STEPS = 3  # traced train steps of each model, after one warm-up step
+ROLLUP_TOL = 0.01  # the regions' sum against the profiler events' device time
+ROOFLINE_ITERS = 200  # chained batch-1 forwards, the first ROOFLINE_WARMUP untimed
+ROOFLINE_WARMUP = 50
+ROOFLINE_SHARE_MAX = 1.05  # bound over measured: above 1, the bound is wrong
+SUPERVISED_BATCH = 8  # the supervised SSG run's first batch
+SUPERVISED_MAX_OK = 4  # a child above this batch faults after epoch 1's checkpoint
+# crog_tpu_torch.train_ssg with a planted fault, for the supervisor: the run
+# logs its batch, and a run above MAX_OK raises torch.OutOfMemoryError as
+# soon as epoch 1's last_model is written
+SUPERVISED_TRAINER = """
+import sys
+
+import torch
+
+from crog_tpu_torch import train_ssg
+from crog_tpu_torch.engine import checkpoint as ckpt
+
+MAX_OK = {max_ok}
+argv = sys.argv[1:]
+opts = argv[argv.index("--opts") + 1:]
+batch = int([v for k, v in zip(opts[::2], opts[1::2]) if k == "batch_size"][-1])
+print(f"[trainer] batch_size={{batch}}", flush=True)
+save = ckpt.save_checkpoint
+
+
+def save_then_fault(*args, **kw):
+    path = save(*args, **kw)
+    if batch > MAX_OK and kw.get("epoch") == 1:
+        raise torch.OutOfMemoryError("CUDA out of memory (planted after epoch 1's last_model)")
+    return path
+
+
+ckpt.save_checkpoint = save_then_fault
+train_ssg.main(argv)
+"""
+
+
+def tools_roofline(device, smi: str, argv=()):
+    """(b): the batch-1 roofline of crog_multiple_r50.yaml's eval forward
+    with the s2d stem on K6; the share must not pass ROOFLINE_SHARE_MAX and
+    the card's FLOP count must equal the CPU's."""
+    from tools import torch_roofline
+
+    c = torch_roofline.main(["--fused-stem", "--cpu-count", "--device", str(device),
+                             "--iters", str(ROOFLINE_ITERS), "--warmup",
+                             str(ROOFLINE_WARMUP), *argv])
+    if c["flops"] != c["cpu_flops"]:
+        raise AssertionError(f"roofline FLOPs on the card {c['flops']} != on the CPU "
+                             f"{c['cpu_flops']}")
+    if c["share"] is not None and not c["share"] <= ROOFLINE_SHARE_MAX:
+        raise AssertionError(f"roofline share {c['share']} above {ROOFLINE_SHARE_MAX}")
+    return c
+
+
+def _handwritten_home(group: str):
+    """The regions where a CROG train step's hand-written kernel belongs:
+    K1/K1b (the attention pool) and K6/K6b (the stem) in the backbone, the
+    rest (K2-K4 and their backward kernels) in the decoder; the ordered
+    sums of gemm.cuh in either (K6b's and K2b/K3b/K4b's)."""
+    if "reduce_rows" in group:
+        return ("backbone", "decoder")
+    return ("backbone",) if group.startswith(("K1 ", "K1b", "K6")) else ("decoder",)
+
+
+def check_regions(r, steps: int, model: str, events_us: float):
+    """The rollup's regions add up to the profiler events' device time
+    within ROLLUP_TOL, and every hand-written kernel sits in its region:
+    CROG's as ``_handwritten_home`` says, SSG's K5/K5b one region kernel
+    each per step in ``lins`` and in ``lgrasp``."""
+    from tools.torch_profile_eval import group_of
+    from tools.torch_profile_step import handwritten_in
+
+    total = sum(r.region_us().values())
+    if events_us and abs(total - events_us) > ROLLUP_TOL * events_us:
+        raise AssertionError(f"{model}: regions sum {total:.1f} us, profiler events "
+                             f"{events_us:.1f} us")
+    if r.links["flows"] == 0:
+        raise AssertionError(f"{model}: the trace has no fwdbwd flows")
+    found = {}
+    for region in r.regions:
+        for name in handwritten_in(r, region):
+            found.setdefault(region, set()).add(group_of(name))
+    if model == "crog":
+        for region, groups in found.items():
+            wrong = [g for g in groups if region not in _handwritten_home(g)]
+            if wrong:
+                raise AssertionError(f"crog: hand-written kernels {wrong} in {region!r}")
+        want = {"K1 attention pool (attn_fwd_kernel<3>)",
+                "K1b attention-pool backward (one CTA per head)",
+                "K6 s2dconv (forward, dgrad)", "K6b s2dconv wgrad (cluster kernel)"}
+        if not want <= found.get("backbone", set()) or not found.get("decoder"):
+            raise AssertionError(f"crog: hand-written kernels by region {found}")
+    else:
+        if set(found) != {"lins", "lgrasp"}:
+            raise AssertionError(f"ssg: hand-written kernels by region {found}")
+        for region in ("lins", "lgrasp"):
+            kernels = handwritten_in(r, region)
+            for kern in ("lincomb_region_fwd_kernel", "lincomb_region_bwd_kernel"):
+                calls = sum(c for n, (_, c) in kernels.items() if kern in n)
+                if calls != steps:
+                    raise AssertionError(f"ssg: {kern} x{calls} in {region!r} over "
+                                         f"{steps} steps")
+
+
+def tools_regions(device, smi: str, crog_batch=BATCH, ssg_batch=SSG_BATCH):
+    """(a): the region rollup over TOOLS_STEPS CROG train steps (the s2d stem
+    on K6/K6b) and TOOLS_STEPS SSG train steps, each held by
+    ``check_regions``; prints the ``[regions]`` lines."""
+    import torch
+
+    from tools import torch_profile_eval as pe
+    from tools import torch_profile_step as ps
+
+    wrappers = launch_counts()
+    for model, run in (("crog", lambda: pe.train_step(sys.modules[__name__], device,
+                                                        crog_batch, "rawlb", True)),
+                       ("ssg", lambda: pe.ssg_train_step(sys.modules[__name__], device,
+                                                         ssg_batch, "raw")[0])):
+        step = run()
+        _reset(wrappers)
+        trace, events_us = ps.trace_steps(step, TOOLS_STEPS, device)
+        launches = {n: w.launches for n, w in wrappers.items()}
+        r = ps.rollup(trace)
+        batch = crog_batch if model == "crog" else ssg_batch
+        ps.report(r, TOOLS_STEPS, f"{model} train batch {batch}",
+                  events_us if device.type == "cuda" else None, smi, top=10)
+        check_regions(r, TOOLS_STEPS, model, events_us)
+        check_launches(launches, PER_STEP if model == "crog" else SSG_PER_STEP,
+                       TOOLS_STEPS + 1)
+        del step, trace
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
+
+def supervised_run(device: str, workdir: str, opts=()):
+    """(c): a full-width SSG run (synthetic frames, 2 epochs, no validation)
+    through tools/torch_ssg_train_supervisor.py with SUPERVISED_TRAINER:
+    two launches, SUPERVISED_BATCH then half of it, the second resumed
+    from epoch 1's last_model; ``opts`` override further config keys.
+    Returns the children's log."""
+    import os
+    import re
+
+    from tools.torch_ssg_train_supervisor import supervise
+
+    script = os.path.join(workdir, "planted_fault_trainer.py")
+    with open(script, "w") as f:
+        f.write(SUPERVISED_TRAINER.format(max_ok=SUPERVISED_MAX_OK))
+    log_path = os.path.join(workdir, "children.log")
+    with open(log_path, "w") as log:
+        rc = supervise(SSG_CONFIG, ["dataset", "synthetic", "synthetic_samples",
+                                    str(SUPERVISED_BATCH), "epochs", "2", "val_freq", "3",
+                                    "print_freq", "1", "output_folder", workdir,
+                                    "exp_name", "supervised", *opts],
+                       script=script, max_restarts=2, batch_size=SUPERVISED_BATCH,
+                       device=device, log=log)
+    with open(log_path) as f:
+        text = f.read()
+    batches = [int(b) for b in re.findall(r"\[trainer\] batch_size=(\d+)", text)]
+    last = os.path.join(workdir, "supervised", "last_model")
+    resumed = re.findall(r"=> resumed from '([^']+)' \(epoch (\d+)\)", text)
+    print(f"[tools] supervisor: rc {rc}, launches at batch {batches}, resumed "
+          f"{resumed}, planted faults {text.count('OutOfMemoryError: CUDA out of memory')}",
+          flush=True)
+    if (rc != 0 or batches != [SUPERVISED_BATCH, SUPERVISED_BATCH // 2]
+            or resumed != [(last, "1")] or "OutOfMemoryError" not in text):
+        raise AssertionError(f"supervised run: rc {rc}, batches {batches}, resumed "
+                             f"{resumed}; log tail:\n{text[-3000:]}")
+    return text
+
+
+def tools_phase(device, smi: str):
+    """Phase 15: (b) the roofline, (a) the region rollup, (c) the
+    supervisor, (d) the real-data drill's fixture."""
+    import tempfile
+
+    from tools import torch_realdata_drill
+
+    t_phase = t0 = time.perf_counter()
+    took = {}
+
+    def lap(part):
+        nonlocal t0
+        took[part] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+
+    tools_roofline(device, smi)  # timed before this phase's profiler runs
+    lap("roofline")
+    tools_regions(device, smi)
+    lap("regions")
+    with tempfile.TemporaryDirectory() as tmp:
+        supervised_run(str(device), tmp)
+    lap("supervisor")
+    table = torch_realdata_drill.main(["--fixture", "--device", str(device), "--opts",
+                                       "batch_size_val", str(BATCH), "workers_val", "2"])
+    lap("drill")
+    print(f"[tools] drill fixture table {table}; phase 15 took "
+          f"{time.perf_counter() - t_phase:.1f} s ({took} s) on {smi}", flush=True)
+
+
 def ptxas_entries(text: str):
     """(kernel, registers, spill-store bytes) for each entry function of an
     ``nvcc -Xptxas -v`` report."""
@@ -3157,8 +3315,11 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA card.")
     ap.add_argument("--kernels", action="store_true",
-                    help="phases 1-3 and 15 only: build, hold every kernel against its "
+                    help="phases 1-3 and 16 only: build, hold every kernel against its "
                          "twin, time it; no main path and no result line")
+    ap.add_argument("--tools", action="store_true",
+                    help="phases 1, 2 and 15 only: build, then the tools on the card; "
+                         "no result line")
     ap.add_argument("--ddp-worker", metavar="DIR",
                     help="run one rank of phase 13 (started by phase 13 itself)")
     args = ap.parse_args(argv)
@@ -3193,6 +3354,10 @@ def main(argv=None) -> int:
                 print(f"[build] {name}: {line.strip()}", flush=True)
     redesigned_resources(reports)
 
+    if args.tools:
+        tools_phase(device, smi)
+        print(f"[done] tools only, {time.perf_counter() - t_start:.1f} s", flush=True)
+        return 0
     records = check_kernels(device)
     if args.kernels:
         print_device_times()
@@ -3221,6 +3386,7 @@ def main(argv=None) -> int:
     reader_runs, reader_rates = reader_phase(device, smi)
     ddp_phase(device, train_batches, ssg_batches, smi)
     vit_phase(device, smi)
+    tools_phase(device, smi)
     print_device_times()
     # each kernel's launches on the main path that runs it: CROG training
     # for K1-K4b and K6/K6b, SSG training for K5/K5b

@@ -32,6 +32,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from crog_tpu_torch.data.compact import is_compact, unpack_compact
 from crog_tpu_torch.data.loader import device_put_crog, to_host
@@ -146,15 +147,17 @@ def make_train_step(model, optimizer, scheduler, use_grasp_masks: bool = True,
 
     def step(batch: Dict) -> Dict[str, torch.Tensor]:
         model.train()
-        dense = device_batch(batch, device, input_size)
+        with record_function("unpack"):
+            dense = device_batch(batch, device, input_size)
         targets = {k: dense.get(k, dense["mask"]) for k in TARGET_KEYS}
         preds = model(dense["img"], dense["word"], generator=generator)
         loss, loss_dict = crog_losses(preds, targets, use_grasp_masks)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        if max_norm and max_norm > 0:
-            clip_by_global_norm_(params, max_norm)
-        optimizer.step()
+        with record_function("opt_update"):
+            if max_norm and max_norm > 0:
+                clip_by_global_norm_(params, max_norm)
+            optimizer.step()
         scheduler.step()
         with torch.no_grad():
             mask = targets["mask"]

@@ -24,6 +24,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from crog_tpu_torch.data.loader import device_put_crog
 from crog_tpu_torch.data.ssg_rawwire import (
@@ -75,16 +76,18 @@ def make_ssg_train_step(model, optimizer, scheduler, anchors: np.ndarray,
     net = unwrap(model)
 
     def step(batch: Dict) -> Dict[str, torch.Tensor]:
-        dense = device_batch(batch, device, net.img_size, net.with_depth,
-                             max_objs=max_objs)
+        with record_function("unpack"):
+            dense = device_batch(batch, device, net.img_size, net.with_depth,
+                                 max_objs=max_objs)
         model.train()
         output = model(dense["img"])
         loss, loss_dict = ssg_losses(output, dense, anchors_t, generator, **loss_cfg)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        if max_norm and max_norm > 0:
-            clip_by_global_norm_(params, max_norm)
-        optimizer.step()
+        with record_function("opt_update"):
+            if max_norm and max_norm > 0:
+                clip_by_global_norm_(params, max_norm)
+            optimizer.step()
         scheduler.step()
         return {"loss": loss.detach(), **{k: v.detach() for k, v in loss_dict.items()}}
 
@@ -125,8 +128,9 @@ def make_ssg_eval_fwd(model, device=None):
 
     @torch.no_grad()
     def fwd(batch: Dict):
-        img = device_batch(batch, device, model.img_size, model.with_depth,
-                           targets=False)["img"]
+        with record_function("unpack"):
+            img = device_batch(batch, device, model.img_size, model.with_depth,
+                               targets=False)["img"]
         model.eval()
         return model(img), img
 

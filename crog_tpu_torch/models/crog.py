@@ -13,6 +13,7 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn as nn
+from torch.profiler import record_function
 
 from crog_tpu_torch.models.clip import CLIPRN50
 from crog_tpu_torch.models.layers import (
@@ -82,15 +83,21 @@ class CROG(nn.Module):
     def forward(self, img, word, generator=None):
         """img [B,H,W,3] normalized; word [B,L] int padded token ids.
         Returns [B,H/4,W/4,5] (or [...,1] without grasp masks) fp32 logits.
-        In train mode the decoder's dropout seeds come from ``generator``."""
+        In train mode the decoder's dropout seeds come from ``generator``.
+        Each submodule runs in a profiler range of its name, the regions of
+        tools/torch_profile_step.py."""
         word = word.long()
         pad_mask = word == 0
-        vis = self.backbone.encode_image(img)
-        word_feat, state = self.backbone.encode_text(word)
-        fq = self.neck(vis, state)
+        with record_function("backbone"):
+            vis = self.backbone.encode_image(img)
+            word_feat, state = self.backbone.encode_text(word)
+        with record_function("neck"):
+            fq = self.neck(vis, state)
         if self.use_contrastive:
-            fq = self.decoder(fq, word_feat, pad_mask, generator)
-        return self.proj(fq, state)
+            with record_function("decoder"):
+                fq = self.decoder(fq, word_feat, pad_mask, generator)
+        with record_function("proj"):
+            return self.proj(fq, state)
 
 
 def smooth_l1(pred, target, beta: float = 1.0):

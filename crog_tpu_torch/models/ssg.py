@@ -24,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from crog_tpu_torch.models.clip import BatchNorm, Conv2d
 from crog_tpu_torch.models.crog import random_init_  # noqa: F401  (seeded weights)
@@ -201,11 +202,17 @@ class SSG(nn.Module):
         """img [B, S, S, 3 (+1 depth)] -> the output dict.  In train mode the
         coefficient stacks stay in the compute dtype (the loss converts the
         gathered rows to f32) and ``seg_pred`` is added; in eval mode the
-        stacks are f32 and ``cls_pred`` is the softmax."""
-        _, c3, c4, c5 = self.backbone(img.to(self.dtype))
-        feats = self.fpn(c3, c4, c5)
-        protos = self.proto_net(feats[0])
-        heads = [self.prediction_layers(f) for f in feats]
+        stacks are f32 and ``cls_pred`` is the softmax.  Each submodule runs
+        in a profiler range of its name, the regions of
+        tools/torch_profile_step.py."""
+        with record_function("backbone"):
+            _, c3, c4, c5 = self.backbone(img.to(self.dtype))
+        with record_function("fpn"):
+            feats = self.fpn(c3, c4, c5)
+        with record_function("proto_net"):
+            protos = self.proto_net(feats[0])
+        with record_function("prediction_layers"):
+            heads = [self.prediction_layers(f) for f in feats]
         cls_logits = torch.cat([h[0] for h in heads], dim=1).float()
         output = OrderedDict(
             protos=protos.float(), cls_logits=cls_logits,
@@ -218,7 +225,8 @@ class SSG(nn.Module):
             grasp = torch.cat([h[3] for h in heads], dim=1)
             output["grasp_coef_pred"] = grasp if self.training else grasp.float()
         if self.training:
-            output["seg_pred"] = self.semantic_seg_conv(feats[0]).float()
+            with record_function("semantic_seg_conv"):
+                output["seg_pred"] = self.semantic_seg_conv(feats[0]).float()
         return output
 
 

@@ -22,6 +22,7 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+from torch.profiler import record_function
 
 from crog_tpu_torch.ops.boxes import match
 from crog_tpu_torch.ops.lincomb import lincomb_task_sums
@@ -177,38 +178,49 @@ def ssg_losses(output: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
     over ``world``, so that DDP's mean of the ranks' gradients is the
     gradient of the global loss, and the mean of the ranks' terms
     (``mean_over_ranks``) the global terms.  The semantic loss is a mean
-    over images and stays per rank."""
+    over images and stays per rank.
+
+    Each term runs in a profiler range named as the JAX package's scopes
+    (``lmatch``, ``lcls``, ``lbox``, ``lins``, ``lsem``, ``lgrasp``), the
+    regions of tools/torch_profile_step.py."""
     boxes, labels, obj_valid = batch["boxes"], batch["labels"], batch["obj_valid"]
-    offsets, conf_gt, anchor_max_gt, anchor_max_i = match(
-        boxes.float(), obj_valid.bool(), labels, anchors, pos_iou_thre, neg_iou_thre)
-    pos = conf_gt > 0
-    world, rank = dist.world(), dist.rank()
-    b = pos.shape[0]
-    if priority is None:
-        priority = draw_priority((world * b, pos.shape[1]), generator)[rank * b:(rank + 1) * b]
-    norm = None
-    if world > 1:
-        norm = dist.all_reduce_sum(pos.sum()).clamp_min(1) / world
-    sel_idx, sel_valid, old_np, num_np = _select_positives(
-        pos, priority.to(pos.device), masks_to_train)
-    loss = {
-        "loss_cls": alpha_conf * category_loss(output["cls_logits"], conf_gt, pos,
-                                               norm=norm),
-        "loss_box": alpha_bbox * box_loss(output["box_pred"], offsets, pos, norm),
-        "loss_ins": alpha_ins * lincomb_mask_loss(
+    with record_function("lmatch"):
+        offsets, conf_gt, anchor_max_gt, anchor_max_i = match(
+            boxes.float(), obj_valid.bool(), labels, anchors, pos_iou_thre, neg_iou_thre)
+        pos = conf_gt > 0
+        world, rank = dist.world(), dist.rank()
+        b = pos.shape[0]
+        if priority is None:
+            priority = draw_priority((world * b, pos.shape[1]),
+                                     generator)[rank * b:(rank + 1) * b]
+        norm = None
+        if world > 1:
+            norm = dist.all_reduce_sum(pos.sum()).clamp_min(1) / world
+        sel_idx, sel_valid, old_np, num_np = _select_positives(
+            pos, priority.to(pos.device), masks_to_train)
+    loss = {}
+    with record_function("lcls"):
+        loss["loss_cls"] = alpha_conf * category_loss(output["cls_logits"], conf_gt, pos,
+                                                      norm=norm)
+    with record_function("lbox"):
+        loss["loss_box"] = alpha_bbox * box_loss(output["box_pred"], offsets, pos, norm)
+    with record_function("lins"):
+        loss["loss_ins"] = alpha_ins * lincomb_mask_loss(
             output["ins_coef_pred"], output["protos"], batch.get("ins_masks"), pos,
             anchor_max_i, anchor_max_gt, sel_idx, sel_valid, old_np, num_np,
-            ins_ds=batch.get("ins_ds"), norm=norm),
-        "loss_sem": alpha_sem * semantic_seg_loss(
+            ins_ds=batch.get("ins_ds"), norm=norm)
+    with record_function("lsem"):
+        loss["loss_sem"] = alpha_sem * semantic_seg_loss(
             output["seg_pred"], batch.get("ins_masks"), labels, obj_valid,
-            sem_ds=batch.get("sem_ds")),
-    }
+            sem_ds=batch.get("sem_ds"))
     if with_grasp_masks:
-        g = lincomb_grasp_masks_loss(
-            output["grasp_coef_pred"], output["protos"],
-            None if "grasp_ds" in batch else {k: batch[f"grasp_{k}"] for k in GRASP_KEYS},
-            pos, anchor_max_i, anchor_max_gt, sel_idx, sel_valid, old_np, num_np,
-            grasp_ds=batch.get("grasp_ds"), norm=norm)
-        for k in GRASP_KEYS:
-            loss[f"loss_{k}"] = alpha_grasp * g[k]
+        with record_function("lgrasp"):
+            g = lincomb_grasp_masks_loss(
+                output["grasp_coef_pred"], output["protos"],
+                None if "grasp_ds" in batch else {k: batch[f"grasp_{k}"]
+                                                  for k in GRASP_KEYS},
+                pos, anchor_max_i, anchor_max_gt, sel_idx, sel_valid, old_np, num_np,
+                grasp_ds=batch.get("grasp_ds"), norm=norm)
+            for k in GRASP_KEYS:
+                loss[f"loss_{k}"] = alpha_grasp * g[k]
     return sum(loss.values()), loss

@@ -20,7 +20,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from crog_tpu_torch.ops import cuda_build
+from crog_tpu_torch.ops import cuda_build, work
 
 NEG = -1e30  # the kernels' mask value: finite, keeps all-masked rows finite
 MAX_KEYS = 768  # the kernels' limit on keys per head
@@ -82,8 +82,12 @@ def fused_attention(q, k, v, num_heads: int, mask_add=None):
     On a CPU tensor this is ``attention_plain``; on a CUDA tensor it launches
     crog_attention_fwd (csrc/attention.cu), whose kernel ``fwd_path`` names,
     or raises."""
+    work.note("attention", lambda: (
+        work.attention_flops(*q.shape[:2], k.shape[1], q.shape[2]),
+        work.nbytes(q, k, v, q) + (0 if mask_add is None else work.nbytes(mask_add))))
     if q.device.type == "cpu":
-        return attention_plain(q, k, v, num_heads, mask_add)
+        with work.uncounted():
+            return attention_plain(q, k, v, num_heads, mask_add)
     b, lq, d = q.shape
     lk = k.shape[1]
     for t, name in ((q, "q"), (k, "k"), (v, "v")):

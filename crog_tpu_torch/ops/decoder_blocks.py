@@ -30,7 +30,7 @@ from functools import lru_cache
 
 import torch
 
-from crog_tpu_torch.ops import cuda_build
+from crog_tpu_torch.ops import cuda_build, work
 from crog_tpu_torch.ops.attention import HEAD_DIM, NEG, attention_plain, mha_bwd_plain
 from crog_tpu_torch.ops.dropout import apply_dropout, dropout_keep, kernel_args
 
@@ -283,9 +283,13 @@ def self_block_fwd(x, pos, in_w, in_b, out_w, out_b, g_pre, b_pre, g_post, b_pos
                    nheads: int, seed: int = 0, rate: float = 0.0, save: bool = False):
     """K2.  x [B, L, D]; pos [L, D].  Returns (x + block(x), saved), where
     ``saved`` holds what K2b reads when ``save`` (else None)."""
+    work.note("decoder_self_block", lambda: (
+        work.self_block_flops(*x.shape),
+        work.nbytes(x, pos, in_w, in_b, out_w, out_b, g_pre, b_pre, g_post, b_post, x)))
     if x.device.type == "cpu":
-        return self_block_plain(x, pos, in_w, in_b, out_w, out_b, g_pre, b_pre,
-                                g_post, b_post, nheads, seed, rate), None
+        with work.uncounted():
+            return self_block_plain(x, pos, in_w, in_b, out_w, out_b, g_pre, b_pre,
+                                    g_post, b_post, nheads, seed, rate), None
     _check_block_input(x, nheads)
     b, l, d = x.shape
     posb = pos.to(torch.bfloat16).contiguous()
@@ -352,10 +356,15 @@ def cross_block_fwd(x, txt, pos, tpos, pad_mask, in_w, in_b, out_w, out_b, g_pre
                     rate: float = 0.0, save: bool = False):
     """K3.  x [B, L, D]; txt [B, T, D]; pos [L, D]; tpos [T, D]; pad_mask
     [B, T] bool (True = ignore that key) or None.  Returns (y, saved)."""
+    work.note("decoder_cross_block", lambda: (
+        work.cross_block_flops(*x.shape[:2], txt.shape[1], x.shape[2]),
+        work.nbytes(x, txt, pos, tpos, in_w, in_b, out_w, out_b, g_pre, b_pre, g_post,
+                    b_post, x) + (0 if pad_mask is None else work.nbytes(pad_mask))))
     if x.device.type == "cpu":
-        return cross_block_plain(x, txt, pos, tpos, pad_mask, in_w, in_b, out_w,
-                                 out_b, g_pre, b_pre, g_post, b_post, nheads, seed,
-                                 rate), None
+        with work.uncounted():
+            return cross_block_plain(x, txt, pos, tpos, pad_mask, in_w, in_b, out_w,
+                                     out_b, g_pre, b_pre, g_post, b_post, nheads, seed,
+                                     rate), None
     _check_block_input(x, nheads)
     b, l, d = x.shape
     t = txt.shape[1]

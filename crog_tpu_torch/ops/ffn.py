@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from crog_tpu_torch.ops import cuda_build
+from crog_tpu_torch.ops import cuda_build, work
 from crog_tpu_torch.ops.decoder_blocks import dense, ln_fast, ln_stats
 from crog_tpu_torch.ops.dropout import apply_dropout, dropout_keep, kernel_args
 
@@ -122,8 +122,11 @@ def _params(w1, w2, d, f, **vecs):
 
 def ffn_fwd(x, w1, b1, gamma, beta, w2, b2, seed: int = 0, rate: float = 0.0):
     """K4 over x [M, D] tokens."""
+    work.note("ffn", lambda: (work.ffn_flops(*x.shape, w1.shape[0]),
+                              work.nbytes(x, w1, b1, gamma, beta, w2, b2, x)))
     if x.device.type == "cpu":
-        return ffn_plain(x, w1, b1, gamma, beta, w2, b2, seed, rate)
+        with work.uncounted():
+            return ffn_plain(x, w1, b1, gamma, beta, w2, b2, seed, rate)
     _check(x, w1)
     m, d = x.shape
     f = w1.shape[0]

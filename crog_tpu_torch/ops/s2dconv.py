@@ -38,7 +38,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from crog_tpu_torch.ops import cuda_build
+from crog_tpu_torch.ops import cuda_build, work
 from crog_tpu_torch.ops.s2d import assemble
 
 OFS = (0, 1, 1, 2)  # padded-input cell offset of slot-row t
@@ -171,8 +171,12 @@ def s2dconv_fwd(x: torch.Tensor, wp: torch.Tensor, ci: int, co: int) -> torch.Te
     """K6: blocked conv of x [B, H, W, 4ci] with the packed weight wp
     [16ci, 4co] -> [B, H, W, 4co] (the forward, and the dgrad with the
     flipped, swapped kernel)."""
+    work.note("s2dconv", lambda: (
+        work.s2dconv_flops(*x.shape[:3], ci, co),
+        work.nbytes(x, wp) + x.numel() // ci * co * x.element_size()))
     if x.device.type == "cpu":
-        return conv_padded_plain(x, wp, ci, co)
+        with work.uncounted():
+            return conv_padded_plain(x, wp, ci, co)
     b, h, w = _check(x, ci, co, "x")
     cuda_build.require(wp, "wp", torch.bfloat16, (16 * ci, 4 * co))
     y = torch.empty(b, h, w, 4 * co, dtype=torch.bfloat16, device=x.device)

@@ -50,7 +50,7 @@ GROUPS = (
     ("K2b/K3b: ln_post_bwd, ln_pre_bwd", ("ln_post_bwd", "ln_pre_bwd")),
     ("K2b/K3b: gemm_nn (dO, dX)", ("gemm_nn_kernel",)),
     ("K2b/K3b: wgrad (dW)", ("wgrad_kernel",)),
-    ("K2b/K3b/K4b: reduce_rows", ("reduce_rows_kernel",)),
+    ("K2b/K3b/K4b/K6b: reduce_rows", ("reduce_rows_kernel",)),
     ("K4b ffn_bwd: cluster kernel (recompute, hn, dh, column sums)", ("ffn_bwd_hidden",)),
     ("K4 y GEMM and K4b dx GEMM (ffn_out_kernel)", ("ffn_out_kernel",)),
     ("K2/K3 block: ln_pos", ("ln_pos_kernel",)),
