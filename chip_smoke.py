@@ -4,8 +4,10 @@
     python3 chip_smoke.py             # every phase below
     python3 chip_smoke.py --kernels   # phases 1-3 and 16 only, no result line
     python3 chip_smoke.py --tools     # phases 1, 2 and 15 only, no result line
+    python3 chip_smoke.py --remat     # phases 1, 2 and 17 only, no result line
 
-Phases, in order; any failure propagates and the exit code is not 0:
+Phases, in order (phase 17 runs after phase 7); any failure propagates and
+the exit code is not 0:
   1. the card's name and power limit (nvidia-smi);
   2. build the hand-written kernels from crog_tpu_torch/csrc (nvcc, sm_90a,
      one process per source, all at once: eight libraries): K1-K4, the
@@ -71,6 +73,19 @@ Phases, in order; any failure propagates and the exit code is not 0:
   7. one train step's loss and gradients at batch 2, dropout 0, BatchNorm on
      running statistics, on the card (kernels, bf16) and on the CPU (plain
      PyTorch, fp32);
+ 17. remat (models/clip.py ``checkpointed``): the same model at dropout 0,
+     seeded, on phase 5's first prepared batch at 24, one train step with
+     remat off, off again (the card's own spread), full and selective from
+     the same weights: each mode's loss and per-group gradient rel-L2
+     against off within REMAT_GRAD_TOL, its running statistics within
+     REMAT_STAT_TOL and its ``num_batches_tracked`` equal to off's, its
+     launches equal to off's (PER_STEP); then each mode's ms per train step
+     (CUDA events over REMAT_TIMED_STEPS after a warm-up) and the peak
+     memory over those steps, full's and selective's at most
+     REMAT_PEAK_SHARE of off's; then
+     crog_multiple_r50_wo_contrastive.yaml's model (no decoder), seeded:
+     one eval forward and one train step on the same batch, finite, with
+     no K2-K4b launch; the ``[remat]`` lines;
   8. forward latency at batch 1 and eval samples/s at batch 24;
   9. SSG training at full width (config/OCID-Grasp/ssg_r50.yaml as
      written: RN50 (3,4,6,3), RGB-D, 544^2, 32 classes, 32 prototypes,
@@ -1644,6 +1659,217 @@ def timings(model, eval_step, batch, cfg, smi: str):
           f"{dt * 1e3:.2f} ms = {n / dt:.2f} samples/s ({cfg.wire_format} host arrays in, "
           f"metrics out) on {smi}", flush=True)
     return fwd_ms, n / dt
+
+
+# phase 17: remat (models/clip.py ``checkpointed``): the RN50 bottlenecks
+# checkpointed, full and selective, against no remat on the same weights
+# and prepared batch at batch 24, dropout 0
+REMAT_MODES = {"off": False, "full": True, "selective": "selective"}
+REMAT_TIMED_STEPS = 3  # after one warm-up step
+# remat vs off, both on the card in bf16: bound on the loss's relative gap
+# and on each group's gradient rel-L2.  The recompute reruns the forward's
+# ops on the same inputs, so the sound reading is the card's own
+# run-to-run spread of a step (``off again``; 0 on an H100, bits equal);
+# a recompute that drops the gradient through the batch statistics reads
+# 0.978 in the vision group (tools/torch_remat_faults.py's
+# ``stats-detached``)
+REMAT_GRAD_TOL = 0.02
+# remat vs off: bound on each running statistic's largest gap over its
+# largest magnitude.  The forward is the same code on the same values, so
+# the statistics repeat bit for bit (0 on an H100); a recompute that
+# updates them again moves them a further momentum (0.1) of the way to the
+# batch's (``stats-twice`` reads 0.828)
+REMAT_STAT_TOL = 1e-6
+# bound on a remat mode's peak memory over off's: a remat that recomputes
+# nothing holds what off holds (tools/torch_remat_faults.py's
+# ``no-recompute`` read 1.0006, the sound full and selective 0.54 and 0.65)
+REMAT_PEAK_SHARE = 0.9
+WO_CONTRASTIVE_CONFIG = "config/OCID-VLG/crog_multiple_r50_wo_contrastive.yaml"
+
+
+def remat_batch():
+    """One prepared rawlb train batch at BATCH, as phase 5 prepares them
+    (``chip_smoke.py --remat`` runs phase 17 without phase 5)."""
+    from crog_tpu_torch.data.loader import DataLoader
+    from crog_tpu_torch.test_crog import build_dataset
+
+    cfg = _cfg(BATCH, BATCH)
+    return next(iter(DataLoader(build_dataset(cfg, cfg.train_split), BATCH, shuffle=True,
+                                drop_last=True, seed=SEED)))
+
+
+def remat_run(model, cfg, batch, device):
+    """One train step of ``model`` (its ``remat`` set) on ``batch``: its
+    loss, launches, and gradients and buffers copied to the host (so that
+    no mode's peak holds another's); then the ms per step over
+    REMAT_TIMED_STEPS more after a warm-up step (CUDA events), the peak
+    memory over them and the memory held before them."""
+    import torch
+
+    from crog_tpu_torch.engine.crog_engine import make_train_step
+    from crog_tpu_torch.engine.optim import make_optimizer
+    from crog_tpu_torch.utils.seed import set_random_seed
+
+    model.zero_grad(set_to_none=True)
+    opt, sched = make_optimizer(model, cfg.base_lr, cfg.lr_multi, cfg.milestones,
+                                cfg.lr_decay, REMAT_TIMED_STEPS + 2, cfg.weight_decay)
+    step = make_train_step(model, opt, sched, cfg.use_grasp_masks, cfg.max_norm,
+                           set_random_seed(SEED), device)
+    wrappers = launch_counts()
+    _reset(wrappers)
+    loss = float(step(batch)["loss"])
+    torch.cuda.synchronize()
+    out = {"loss": loss, "launches": {n: w.launches for n, w in wrappers.items()},
+           "grads": {n: p.grad.to("cpu", torch.float32, copy=True)
+                     for n, p in model.named_parameters() if p.grad is not None},
+           "buffers": {n: b.to("cpu", copy=True) for n, b in model.named_buffers()}}
+    step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out["held"] = torch.cuda.memory_allocated()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(REMAT_TIMED_STEPS):
+        step(batch)
+    end.record()
+    torch.cuda.synchronize()
+    out["ms"] = start.elapsed_time(end) / REMAT_TIMED_STEPS
+    out["peak"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def remat_readings(device, batch, modes=("off again", "full", "selective")):
+    """Phase 17's readings: the off run, then each of ``modes`` from the
+    same weights (``off again`` is no remat a second time, the card's own
+    spread) against it: the loss's relative gap, each group's gradient
+    rel-L2, the worst running statistic's gap over its largest magnitude,
+    whether every ``num_batches_tracked`` equals off's, the launches, ms
+    per step and the peak memory."""
+    import torch
+
+    cfg = _cfg(opts=("dropout", "0.0"))
+    model = _model(cfg, device).train()
+    state0 = {k: v.to("cpu", copy=True) for k, v in model.state_dict().items()}
+    runs = {}
+    for label in ("off", *modes):
+        model.load_state_dict(state0)
+        model.backbone.visual.remat = REMAT_MODES.get(label, False)
+        runs[label] = remat_run(model, cfg, batch, device)
+    del model, state0
+    off = runs["off"]
+    readings = {}
+    for label, run in runs.items():
+        r = {k: run[k] for k in ("loss", "launches", "ms", "peak", "held")}
+        if label != "off":
+            r["loss_rel"] = abs(run["loss"] - off["loss"]) / abs(off["loss"])
+            r["grads"] = {g: _rel_l2(run["grads"], {n: x for n, x in off["grads"].items()
+                                                    if _group(n) == g})
+                          for g, _ in GROUPS}
+            stats = [n for n in off["buffers"] if "running" in n]
+            r["stats"] = max(float((run["buffers"][n] - off["buffers"][n]).abs().max()
+                                   / off["buffers"][n].abs().max().clamp_min(1e-12))
+                             for n in stats)
+            r["tracked"] = all(torch.equal(run["buffers"][n], b)
+                               for n, b in off["buffers"].items()
+                               if n.endswith("num_batches_tracked"))
+        readings[label] = r
+    return readings
+
+
+def check_remat(readings):
+    """Phase 17's limits on its readings: every remat mode within
+    REMAT_GRAD_TOL and REMAT_STAT_TOL of off, ``num_batches_tracked`` and
+    the launches equal to off's (PER_STEP), and its peak at most
+    REMAT_PEAK_SHARE of off's."""
+    off = readings["off"]
+    check_launches(off["launches"], PER_STEP, 1)
+    for label in ("full", "selective"):
+        r = readings[label]
+        worst = max(r["grads"].values())
+        if not (r["loss_rel"] <= REMAT_GRAD_TOL and worst <= REMAT_GRAD_TOL):
+            raise AssertionError(f"remat {label} vs off: loss rel {r['loss_rel']:.4g}, "
+                                 f"grad rel_l2 {worst:.4g} > {REMAT_GRAD_TOL}")
+        if not (r["stats"] <= REMAT_STAT_TOL and r["tracked"]):
+            raise AssertionError(f"remat {label} vs off: running statistics gap "
+                                 f"{r['stats']:.4g}, num_batches_tracked equal {r['tracked']}")
+        if r["launches"] != off["launches"]:
+            raise AssertionError(f"remat {label}: launches {r['launches']} != off's "
+                                 f"{off['launches']}")
+        if not r["peak"] <= REMAT_PEAK_SHARE * off["peak"]:
+            raise AssertionError(f"remat {label}: peak {r['peak']} B is above "
+                                 f"{REMAT_PEAK_SHARE} of off's {off['peak']} B")
+
+
+def _launched(launches):
+    return {n: k for n, k in launches.items() if k}
+
+
+def _wo_contrastive_cfg():
+    from crog_tpu_torch.config import load_cfg_from_cfg_file
+
+    return load_cfg_from_cfg_file(WO_CONTRASTIVE_CONFIG)
+
+
+def wo_contrastive_step(device, batch, smi: str):
+    """crog_multiple_r50_wo_contrastive.yaml's model (no decoder), seeded:
+    one eval forward and one train step on ``batch``; the output and the
+    loss are finite, and no decoder kernel (K2-K4b) launches."""
+    import torch
+
+    from crog_tpu_torch.engine.crog_engine import device_batch
+
+    cfg = _wo_contrastive_cfg()
+    model = _model(cfg, device)
+    dense = device_batch(batch, device, cfg.input_size, train=False)
+    wrappers = launch_counts()
+    _reset(wrappers)
+    with torch.no_grad():
+        out = model.eval()(dense["img"], dense["word"])
+    torch.cuda.synchronize()
+    fwd = {n: w.launches for n, w in wrappers.items()}
+    size = cfg.input_size // 4
+    if tuple(out.shape) != (BATCH, size, size, 5) or not torch.isfinite(out).all():
+        raise AssertionError(f"wo_contrastive output {tuple(out.shape)} not finite/shaped")
+    check_launches(fwd, {"attention": 1, "s2dconv": 2}, 1)
+    run = remat_run(model.train(), cfg, batch, device)
+    if not math.isfinite(run["loss"]):
+        raise AssertionError(f"wo_contrastive train loss is not finite: {run['loss']}")
+    check_launches(run["launches"], {"attention": 1, "attention_bwd": 1, "s2dconv": 4,
+                                     "s2dconv_wgrad": 2}, 1)
+    print(f"[remat] wo_contrastive (no decoder): eval forward finite {tuple(out.shape)}, "
+          f"launches {_launched(fwd)}; train step loss {run['loss']:.6g}, launches "
+          f"{_launched(run['launches'])}, "
+          f"{run['ms']:.2f} ms, peak {run['peak'] / 2**30:.2f} GiB at batch {BATCH} on {smi}",
+          flush=True)
+
+
+def remat_phase(device, batch, smi: str):
+    """Phase 17: remat off, full and selective, then the wo_contrastive
+    model's eval forward and train step."""
+    import torch
+
+    t0 = time.perf_counter()
+    readings = remat_readings(device, batch)
+    torch.cuda.empty_cache()
+    for label, r in readings.items():
+        if label == "off":
+            gap = f"; launches {_launched(r['launches'])}"
+        else:
+            gap = (f"; vs off: loss rel {r['loss_rel']:.4g}, grad rel_l2 "
+                   + ", ".join(f"{g} {x:.4g}" for g, x in r["grads"].items())
+                   + f", running statistics gap {r['stats']:.4g}, num_batches_tracked "
+                   f"equal {r['tracked']}, launches equal "
+                   f"{r['launches'] == readings['off']['launches']}")
+        print(f"[remat] {label}: {r['ms']:.2f} ms per train step, peak "
+              f"{r['peak'] / 2**30:.2f} GiB (held before the step {r['held'] / 2**30:.2f} "
+              f"GiB), loss {r['loss']:.6g}{gap}; batch {BATCH} on {smi}", flush=True)
+    check_remat(readings)
+    wo_contrastive_step(device, batch, smi)
+    torch.cuda.empty_cache()
+    print(f"[remat] phase 17 took {time.perf_counter() - t0:.1f} s; limits: "
+          f"REMAT_GRAD_TOL {REMAT_GRAD_TOL}, REMAT_STAT_TOL {REMAT_STAT_TOL}, "
+          f"REMAT_PEAK_SHARE {REMAT_PEAK_SHARE}", flush=True)
+    return readings
 
 
 def _ssg_cfg(opts=()):
@@ -3320,6 +3546,9 @@ def main(argv=None) -> int:
     ap.add_argument("--tools", action="store_true",
                     help="phases 1, 2 and 15 only: build, then the tools on the card; "
                          "no result line")
+    ap.add_argument("--remat", action="store_true",
+                    help="phases 1, 2 and 17 only: build, then remat off / full / selective "
+                         "on the card; no result line")
     ap.add_argument("--ddp-worker", metavar="DIR",
                     help="run one rank of phase 13 (started by phase 13 itself)")
     args = ap.parse_args(argv)
@@ -3358,6 +3587,10 @@ def main(argv=None) -> int:
         tools_phase(device, smi)
         print(f"[done] tools only, {time.perf_counter() - t_start:.1f} s", flush=True)
         return 0
+    if args.remat:
+        remat_phase(device, remat_batch(), smi)
+        print(f"[done] remat only, {time.perf_counter() - t_start:.1f} s", flush=True)
+        return 0
     records = check_kernels(device)
     if args.kernels:
         print_device_times()
@@ -3376,6 +3609,7 @@ def main(argv=None) -> int:
     stem_timings(device, smi)
     e2e_train_step(train_batches[0], device)
     torch.cuda.empty_cache()
+    remat_phase(device, train_batches[0], smi)
     ssg_launches, ssg_train_rate, ssg_model, ssg_cfg, ssg_batches = ssg_train_path(device,
                                                                                   smi)
     ssg_eval_rate = ssg_eval_path(device, ssg_model, ssg_cfg, smi)

@@ -22,10 +22,11 @@ update in train mode, the running statistics in eval mode.
 
 from __future__ import annotations
 
+import contextlib
+import math
+import threading
 from collections import OrderedDict
 from typing import Sequence, Tuple
-
-import math
 
 import torch
 import torch.nn as nn
@@ -40,7 +41,7 @@ from crog_tpu_torch.ops.s2d import (
     space_to_depth,
 )
 from crog_tpu_torch.ops.s2dconv import blocked_conv3x3_s1
-from crog_tpu_torch.parallel.dist import all_reduce_sum, world
+from crog_tpu_torch.parallel.dist import all_reduce_sum, replayed_sum, world
 
 
 def quick_gelu(x):
@@ -57,6 +58,56 @@ class Conv2d(nn.Conv2d):
         return y.permute(0, 2, 3, 1)
 
 
+class _RematFrame:
+    """What the BatchNorms of one checkpointed bottleneck share between its
+    forward and its recompute: the recompute (``replay``) updates no
+    running statistic and, under a process group of world > 1, reads the
+    all-reduced sums of the forward (``sums``, in call order) instead of
+    reducing again."""
+
+    def __init__(self):
+        self.replay = False
+        self.sums = []
+        self.at = 0
+
+    @contextlib.contextmanager
+    def run(self, replay: bool, inner):
+        """``inner`` (a checkpoint context) with this frame current on this
+        thread (the recompute runs on the autograd engine's)."""
+        prev = _REMAT.frame
+        _REMAT.frame, self.replay, self.at = self, replay, 0
+        try:
+            with inner:
+                yield
+        finally:
+            _REMAT.frame = prev
+
+
+class _RematState(threading.local):
+    frame = None  # the _RematFrame of the bottleneck running on this thread
+
+
+_REMAT = _RematState()
+
+
+def _replaying() -> bool:
+    return _REMAT.frame is not None and _REMAT.frame.replay
+
+
+def _reduced(sums: torch.Tensor) -> torch.Tensor:
+    """``all_reduce_sum(sums)``; in a checkpointed bottleneck's recompute,
+    the value its forward reduced (``replayed_sum``)."""
+    frame = _REMAT.frame
+    if frame is None:
+        return all_reduce_sum(sums)
+    if frame.replay:
+        frame.at += 1
+        return replayed_sum(sums, frame.sums[frame.at - 1])
+    total = all_reduce_sum(sums)
+    frame.sums.append(total.detach())
+    return total
+
+
 def batch_moments(xf: torch.Tensor, blocks: int = 1):
     """Per-channel (E[x], E[x^2]) of ``xf`` [..., blocks * c] over every
     axis but the last and over the ``blocks`` slot groups of the last: of
@@ -71,10 +122,21 @@ def batch_moments(xf: torch.Tensor, blocks: int = 1):
         return m1.reshape(blocks, -1).mean(0), m2.reshape(blocks, -1).mean(0)
     c = xf.shape[-1] // blocks
     count = xf.new_full((1,), xf.numel() // c)
-    sums = all_reduce_sum(torch.cat([xf.sum(dims).reshape(blocks, c).sum(0),
-                                     (xf * xf).sum(dims).reshape(blocks, c).sum(0),
-                                     count]))
+    sums = _reduced(torch.cat([xf.sum(dims).reshape(blocks, c).sum(0),
+                               (xf * xf).sum(dims).reshape(blocks, c).sum(0),
+                               count]))
     return sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
+
+
+def _update_running(bn: nn.BatchNorm2d, mean: torch.Tensor, var: torch.Tensor) -> None:
+    """The running-average update of a train-mode forward; none in a
+    checkpointed bottleneck's recompute, so each statistic moves once."""
+    if _replaying():
+        return
+    with torch.no_grad():
+        bn.running_mean.lerp_(mean, bn.momentum)
+        bn.running_var.lerp_(var, bn.momentum)
+        bn.num_batches_tracked += 1
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -97,10 +159,7 @@ class BatchNorm(nn.BatchNorm2d):
         xf = x.float()
         mean, sq = batch_moments(xf)
         var = (sq - mean * mean).clamp_min(0.0)
-        with torch.no_grad():
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var, self.momentum)
-            self.num_batches_tracked += 1
+        _update_running(self, mean, var)
         y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
         return y.to(x.dtype)
 
@@ -113,10 +172,7 @@ def blocked_bn_relu(bn: BatchNorm, x: torch.Tensor, c: int) -> torch.Tensor:
     if bn.training:
         mean, sq = batch_moments(x.float(), blocks=4)
         var = (sq - mean * mean).clamp_min(0.0)
-        with torch.no_grad():
-            bn.running_mean.lerp_(mean, bn.momentum)
-            bn.running_var.lerp_(var, bn.momentum)
-            bn.num_batches_tracked += 1
+        _update_running(bn, mean, var)
     else:
         mean, var = bn.running_mean, bn.running_var
     mul = torch.rsqrt(var + bn.eps) * bn.weight
@@ -195,6 +251,49 @@ class Bottleneck(nn.Module):
         return F.relu(out + identity)
 
 
+REMAT_MODES = (False, True, "selective")
+
+
+def remat_mode(remat):
+    """``remat`` if it is one of ``REMAT_MODES`` (crog_tpu's ``False``,
+    ``True`` or ``"selective"``); anything else raises."""
+    if isinstance(remat, bool) or remat == "selective":
+        return remat
+    raise ValueError(f"remat must be one of {REMAT_MODES}, got {remat!r}")
+
+
+def _save_convs(ctx, op, *args, **kwargs):
+    """Selective remat's policy: keep the conv outputs (crog_tpu's
+    ``"bottleneck_conv"`` names), recompute every other op."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op is torch.ops.aten.convolution.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def checkpointed(block: Bottleneck, x: torch.Tensor, remat) -> torch.Tensor:
+    """``block(x)`` under activation checkpointing (non-reentrant): full
+    remat saves ``x`` and recomputes the block in the backward; selective
+    saves its conv outputs too and recomputes the rest (the permutes, the
+    fp32 casts, BatchNorm, ReLU, the avgpool).  The recompute updates no
+    running statistic and issues no forward all-reduce (``_RematFrame``);
+    the backward runs through the forward's own graph, so the gradient
+    through the batch statistics is kept."""
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    def contexts():
+        frame = _RematFrame()
+        if remat == "selective":
+            fwd, again = create_selective_checkpoint_contexts(_save_convs)
+        else:
+            fwd, again = contextlib.nullcontext(), contextlib.nullcontext()
+        return frame.run(False, fwd), frame.run(True, again)
+
+    return checkpoint(block, x, use_reentrant=False, context_fn=contexts,
+                      preserve_rng_state=False)
+
+
 class AttentionPool2d(nn.Module):
     """Spatial attention pooling that keeps the spatial map (reference
     model/clip.py:60-144): q=k=v = features + bicubic-resized positional
@@ -244,15 +343,21 @@ class ModifiedResNet(nn.Module):
     counterpart of CROG_FUSED_STEM=1) runs conv2 and conv3 through
     ``blocked_conv3x3_s1``, the gathered K6/K6b kernels on the card;
     without it they are ``F.conv2d`` with ``block_kernel_s1`` of the weight.
-    An input whose H or W is not a multiple of 4 takes the plain stem."""
+    An input whose H or W is not a multiple of 4 takes the plain stem.
+
+    ``remat`` (crog_tpu/models/clip.py:377 ``remat``): ``True`` checkpoints
+    every bottleneck of layer1-layer4, ``"selective"`` keeps their conv
+    outputs (``checkpointed``); the stem and the attention pool are never
+    recomputed, and an eval-mode or no-grad forward is not checkpointed."""
 
     def __init__(self, layers: Sequence[int], output_dim: int, heads: int,
                  input_resolution: int = 224, width: int = 64,
-                 stem_s2d: bool = False, fused_stem: bool = False):
+                 stem_s2d: bool = False, fused_stem: bool = False, remat=False):
         super().__init__()
         self.width = width
         self.stem_s2d = stem_s2d
         self.fused_stem = fused_stem
+        self.remat = remat_mode(remat)
         self.conv1 = Conv2d(3, width // 2, 3, stride=2, padding=1, bias=False)
         self.bn1 = BatchNorm(width // 2)
         self.conv2 = Conv2d(width // 2, width // 2, 3, padding=1, bias=False)
@@ -300,11 +405,19 @@ class ModifiedResNet(nn.Module):
             x = self._stem_s2d(x)
         else:
             x = self._stem_plain(x)
-        x = self.layer1(x)
-        x2 = self.layer2(x)
-        x3 = self.layer3(x2)
-        x4 = self.attnpool(self.layer4(x3))
+        x = self._layer(self.layer1, x)
+        x2 = self._layer(self.layer2, x)
+        x3 = self._layer(self.layer3, x2)
+        x4 = self.attnpool(self._layer(self.layer4, x3))
         return x2, x3, x4
+
+    def _layer(self, layer: nn.Sequential, x):
+        remat = remat_mode(self.remat)
+        if not (remat and self.training and torch.is_grad_enabled()):
+            return layer(x)
+        for block in layer:
+            x = checkpointed(block, x, remat)
+        return x
 
 
 class ResidualAttentionBlock(nn.Module):
@@ -442,10 +555,10 @@ class CLIPRN50(_CLIP):
                  vocab_size: int = 49408, transformer_width: int = 512,
                  transformer_heads: int = 8, transformer_layers: int = 12,
                  dtype: torch.dtype = torch.float32, stem_s2d: bool = False,
-                 fused_stem: bool = False):
+                 fused_stem: bool = False, remat=False):
         visual = ModifiedResNet(
             vision_layers, embed_dim, vision_width * 32 // 64,
-            image_resolution, vision_width, stem_s2d, fused_stem,
+            image_resolution, vision_width, stem_s2d, fused_stem, remat,
         )
         super().__init__(visual, embed_dim, context_length, vocab_size,
                          transformer_width, transformer_heads, transformer_layers, dtype)

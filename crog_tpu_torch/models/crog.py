@@ -29,8 +29,9 @@ class CROG(nn.Module):
     """Config fields mirror config/OCID-VLG/*.yaml TRAIN keys.  ``dtype`` is
     the compute dtype; parameters stay fp32.  ``stem_s2d`` (default on, as
     in the JAX package) runs the vision stem in the space-to-depth domain;
-    ``fused_stem`` runs its two stride-1 convs through the K6/K6b kernels
-    (``clip.ModifiedResNet``)."""
+    ``fused_stem`` runs its two stride-1 convs through the K6/K6b kernels;
+    ``remat`` (``False``, ``True`` or ``"selective"``) checkpoints the RN50
+    bottlenecks in training (``clip.ModifiedResNet``)."""
 
     def __init__(
         self,
@@ -54,6 +55,7 @@ class CROG(nn.Module):
         clip_resolution: int = 224,
         stem_s2d: bool = True,
         fused_stem: bool = False,
+        remat=False,
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
@@ -71,6 +73,7 @@ class CROG(nn.Module):
             dtype=dtype,
             stem_s2d=stem_s2d,
             fused_stem=fused_stem,
+            remat=remat,
         )
         self.neck = FPN(in_channels=tuple(fpn_in), out_channels=tuple(fpn_out))
         if use_contrastive:
@@ -144,7 +147,9 @@ def build_crog(cfg, dtype: torch.dtype | None = None, fused_stem: bool = False) 
     """The model of a flattened config (reference model/__init__.py:6-23);
     ``dtype`` overrides the config's ``compute_dtype``; ``stem_s2d`` comes
     from the config (default True), ``fused_stem`` from the caller (the
-    counterpart of the JAX package's CROG_FUSED_STEM=1)."""
+    counterpart of the JAX package's CROG_FUSED_STEM=1); ``remat`` from the
+    config as a bool, as crog_tpu/models/crog.py:182 reads it (a true value
+    is full remat; ``"selective"`` is the constructor's alone)."""
     if dtype is None:
         bf16 = cfg.get("compute_dtype", "bfloat16") == "bfloat16"
         dtype = torch.bfloat16 if bf16 else torch.float32
@@ -163,6 +168,7 @@ def build_crog(cfg, dtype: torch.dtype | None = None, fused_stem: bool = False) 
         use_grasp_masks=cfg.use_grasp_masks,
         stem_s2d=bool(cfg.get("stem_s2d", True)),
         fused_stem=fused_stem,
+        remat=bool(cfg.get("remat", False)),
         dtype=dtype,
     )
 

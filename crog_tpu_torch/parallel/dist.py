@@ -121,6 +121,29 @@ def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
     return _AllReduceSum.apply(x) if world() > 1 else x
 
 
+class _ReplayedSum(torch.autograd.Function):
+    """``total`` as the forward value, with ``_AllReduceSum``'s gradient to
+    ``x``; saves no tensor, as ``_AllReduceSum`` saves none."""
+
+    @staticmethod
+    def forward(ctx, x, total):
+        return total.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad)
+        return grad, None
+
+
+def replayed_sum(x: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
+    """``all_reduce_sum(x)`` without the collective, where ``total`` is what
+    an earlier pass's ``all_reduce_sum`` of the same ``x`` returned: the
+    recompute of a checkpointed block reads its forward's sums, so the
+    ranks issue no second forward all-reduce and get the same bits."""
+    return _ReplayedSum.apply(x, total)
+
+
 def mean_over_ranks(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Each scalar metric averaged over the ranks (with equal per-rank
     batches, the global batch's mean), on the device: no host sync under

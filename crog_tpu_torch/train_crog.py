@@ -118,6 +118,8 @@ def main(argv=None):
 
     # the plain path on the CPU computes in fp32, whatever compute_dtype says
     net = build_crog(args, torch.float32 if device.type == "cpu" else None, fused_stem)
+    logger.info("Remat (activation checkpointing of the RN50 bottlenecks): "
+                + {False: "off", True: "full"}[net.backbone.visual.remat])
     random_init_(net, torch.Generator().manual_seed(args.manual_seed))
     load_pretrained_clip(args, net)
     net = net.to(device)

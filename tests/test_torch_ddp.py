@@ -10,7 +10,10 @@ rank-major global batch and hand back numpy results; the JAX references
 are computed here while they run.  Cases: train-mode BatchNorm and the s2d
 stem's blocked_bn_relu with global statistics (output, running statistics,
 dx and the ranks' summed dscale / dbias); one CROG train step of the tiny
-model (2 ranks x 2 samples against ``make_train_step`` on 4, dropout 0);
+model (2 ranks x 2 samples against ``make_train_step`` on 4, dropout 0),
+without remat and with the RN50 bottlenecks checkpointed (``remat=True``:
+the same reference, each running statistic updated once, the statistics'
+all-reduces as many as without);
 one SSG train step (2 x 2 against 4, the global batch's priorities);
 ``validate_with_grasp`` over a 9-sample val split whose shards both end in
 a padded batch, against one process at the global batch and against
@@ -54,6 +57,7 @@ from crog_tpu_torch import test_crog as port_test_crog
 from crog_tpu_torch.data.loader import DataLoader
 from crog_tpu_torch.data.synthetic import SyntheticOCIDVLG
 from crog_tpu_torch.engine.crog_engine import make_eval_step, validate_with_grasp
+from crog_tpu_torch.models.clip import BatchNorm
 from crog_tpu_torch.models.convert import (
     load_numpy_state_dict,
     ssg_state_dict_from_flax,
@@ -223,10 +227,10 @@ def ranks(tmp_path_factory, crog_models, crog_batch, ssg_models):
     procs.close()
 
 
-def test_crog_train_step_on_two_ranks_matches_jax(ranks, crog_models, crog_batch):
-    """2 ranks x 2 samples against the JAX step on the 4: the loss terms,
-    iou / prec@50, every parameter's gradient after DDP's mean and the
-    BatchNorm statistics; parameters and buffers equal across the ranks."""
+@pytest.fixture(scope="module")
+def crog_reference(crog_models, crog_batch):
+    """The JAX step on the global batch of 4 in one process: (gradients,
+    metrics, the state after the step)."""
     jm, v = crog_models
     dense = {k: jnp.asarray(crog_batch[k]) for k in JE._TRAIN_KEYS}
     targets = {k: dense[k] for k in ("mask", "qua", "sin", "cos", "wid")}
@@ -242,8 +246,32 @@ def test_crog_train_step_on_two_ranks_matches_jax(ranks, crog_models, crog_batch
     state = JE.TrainState.create(apply_fn=jm.apply, params=v["params"],
                                  batch_stats=v["batch_stats"], tx=tx)
     new_state, jmetrics = JE.make_train_step(jm, tx)(state, crog_batch, jax.random.PRNGKey(0))
-    r0, r1 = (r["crog"] for r in ranks.results())
+    return jgrads, jmetrics, new_state
 
+
+@pytest.mark.parametrize("case", ["crog", "crog_remat"])
+def test_crog_train_step_on_two_ranks_matches_jax(ranks, crog_models, crog_reference, case):
+    """2 ranks x 2 samples against the JAX step on the 4: the loss terms,
+    iou / prec@50, every parameter's gradient after DDP's mean and the
+    BatchNorm statistics; parameters and buffers equal across the ranks.
+    ``crog_remat`` checkpoints the RN50 bottlenecks (``remat=True``), held
+    against the same reference: its running statistics equal bit for bit
+    those of the step without remat, every ``num_batches_tracked`` went up
+    by 1, and its step issued as many all-reduces as the step without (one
+    per train-mode BatchNorm forward and one per backward: the recompute
+    replays the forward's sums)."""
+    jm, v = crog_models
+    jgrads, jmetrics, new_state = crog_reference
+    results = ranks.results()
+    r0, r1 = (r[case] for r in results)
+
+    if case == "crog_remat":
+        off = results[0]["crog"]
+        for name, stat in r0["stats"].items():
+            np.testing.assert_array_equal(stat, off["stats"][name], err_msg=name)
+        assert set(r0["tracked"].values()) == {1}
+        n_bn = sum(isinstance(m, BatchNorm) for m in CROG(**GEOMETRY, **CFG).modules())
+        assert r0["all_reduces"] == off["all_reduces"] == 2 * n_bn
     assert r0["digest"] == r1["digest"]
     for name, stat in r0["stats"].items():
         np.testing.assert_array_equal(stat, r1["stats"][name], err_msg=name)

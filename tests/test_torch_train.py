@@ -46,8 +46,8 @@ from tests.torch_port_helpers import (
     RES,
     TINY,
     assert_close_scaled,
-    inputs,
     randomize,
+    train_batch,
 )
 
 T = torch.from_numpy
@@ -232,23 +232,13 @@ def test_shuffle_loader_collates_train_batches():
 
 
 # ------------------------------------------------------ whole train step
-def _train_batch():
-    """Synthetic train targets at 128^2; images and sentences from
-    ``inputs`` (two unlike sentences: near-equal text states would make the
-    FPN's 2-sample txt_proj BatchNorm divide by a vanishing variance)."""
-    ds = SyntheticOCIDVLG(num_samples=2, split="train", input_size=RES)
-    batch = next(iter(DataLoader(ds, 2)))
-    batch["img"], batch["word"] = inputs(2)
-    return batch
-
-
 def test_train_step_matches_jax(tiny):
     """One step of the tiny CROG: loss and loss dict, iou/prec@50, every
     parameter's gradient (the flax grad tree carried to torch layout by
     ``state_dict_from_flax``), the updated params and BatchNorm stats."""
     jm, v, tm = tiny
     tm = copy.deepcopy(tm)
-    batch = _train_batch()
+    batch = train_batch()
     lr, lr_multi = 1e-3, 0.1
     dense = {k: jnp.asarray(batch[k]) for k in JE._TRAIN_KEYS}
     targets = {k: dense[k] for k in ("mask", "qua", "sin", "cos", "wid")}

@@ -66,20 +66,42 @@ def _stats(model):
             if n.endswith(("running_mean", "running_var"))}
 
 
-def crog_case(inp, rank, world):
-    """One DDP train step of the tiny CROG on this rank's rows."""
+def _tracked(model):
+    return {n: int(b) for n, b in model.named_buffers()
+            if n.endswith("num_batches_tracked")}
+
+
+def crog_case(inp, rank, world, remat=False):
+    """One DDP train step of the tiny CROG on this rank's rows, with the
+    RN50 bottlenecks checkpointed under ``remat``; counts the step's
+    ``torch.distributed.all_reduce`` calls (the BatchNorm statistics'
+    forward and backward: DDP's gradient buckets go through the reducer)."""
     from crog_tpu_torch.engine.crog_engine import make_train_step
     from crog_tpu_torch.engine.optim import make_optimizer
     from crog_tpu_torch.models.convert import load_numpy_state_dict
     from crog_tpu_torch.models.crog import CROG
 
-    net = CROG(**inp["geometry"], **inp["cfg"])
+    net = CROG(**inp["geometry"], **inp["cfg"], remat=remat)
     load_numpy_state_dict(net, inp["state_dict"])
+    tracked0 = _tracked(net)
     opt, sched = make_optimizer(net, inp["lr"], inp["lr_multi"], [5], 0.1, 1)
     model = dist.wrap_model(net, torch.device("cpu"))
-    metrics = dist.mean_over_ranks(make_train_step(model, opt, sched, device="cpu")(
-        shard(inp["batch"], rank, world)))
+    reduce, calls = torch.distributed.all_reduce, []
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return reduce(*args, **kwargs)
+
+    torch.distributed.all_reduce = counted
+    try:
+        metrics = make_train_step(model, opt, sched, device="cpu")(
+            shard(inp["batch"], rank, world))
+    finally:
+        torch.distributed.all_reduce = reduce
+    metrics = dist.mean_over_ranks(metrics)
     out = {"metrics": {k: float(v) for k, v in metrics.items()}, "stats": _stats(net),
+           "all_reduces": len(calls),
+           "tracked": {n: t - tracked0[n] for n, t in _tracked(net).items()},
            "digest": digest([p for p in net.parameters()] + list(net.buffers()))}
     if rank == 0:
         out["grads"] = {n: p.grad.numpy() for n, p in net.named_parameters()
@@ -174,6 +196,7 @@ def main(indir: str):
     for kind in ("bn", "blocked"):
         out[kind] = bn_case(inp[kind], rank, world)
     out["crog"] = crog_case(inp["crog"], rank, world)
+    out["crog_remat"] = crog_case(inp["crog"], rank, world, remat=True)
     out["ssg"] = ssg_case(inp["ssg"], rank, world)
     out["val"] = validate_case(inp["val"])
     out["ssg_val"] = ssg_validate_case(inp["ssg_val"], rank, world)

@@ -197,9 +197,9 @@ def main() -> int:
     return 0
 
 
-def train_step(cs, dev, batch: int, wire: str, fused_stem: bool):
+def train_step(cs, dev, batch: int, wire: str, fused_stem: bool, remat=False):
     """One prepared synthetic train batch in ``wire`` and a train step over
-    it."""
+    it, the RN50 bottlenecks checkpointed under ``remat``."""
     from crog_tpu_torch.data.loader import DataLoader
     from crog_tpu_torch.engine.crog_engine import make_train_step
     from crog_tpu_torch.engine.optim import make_optimizer
@@ -210,6 +210,7 @@ def train_step(cs, dev, batch: int, wire: str, fused_stem: bool):
     data = next(iter(DataLoader(build_dataset(cfg, cfg.train_split), batch, shuffle=True,
                                    drop_last=True)))
     model = cs._model(cfg, dev, fused_stem=fused_stem).train()
+    model.backbone.visual.remat = remat
     opt, sched = make_optimizer(model, cfg.base_lr, cfg.lr_multi, cfg.milestones,
                                 cfg.lr_decay, 1000, cfg.weight_decay)
     step = make_train_step(model, opt, sched, cfg.use_grasp_masks, cfg.max_norm,

@@ -2,12 +2,14 @@
 (counterpart of tools/profile_step.py).
 
     python3 tools/torch_profile_step.py [--model crog|ssg|ssg_eval|all] [--steps 3]
-        [--batch N] [--fused-stem] [--device cuda]
+        [--batch N] [--fused-stem] [--remat off|full|selective ...] [--device cuda]
 
 Models, each full width with seeded random weights (chip_smoke.py's
 builders): ``crog``, CROG train steps on one prepared synthetic batch of
 config/OCID-VLG/crog_synthetic_r50.yaml (batch 24, the config's rawlb wire,
-the s2d stem; ``--fused-stem`` runs its convs through K6/K6b); ``ssg``,
+the s2d stem; ``--fused-stem`` runs its convs through K6/K6b; ``--remat``
+traces it once per mode named, its RN50 bottlenecks checkpointed);
+``ssg``,
 SSG train steps of config/OCID-Grasp/ssg_r50.yaml as written (batch 32, the
 raw wire); ``ssg_eval``, SSG's eval forward and batched post-processing
 (batch 8, the raw wire, into the frames' 480x640).  After one warm-up step
@@ -285,11 +287,14 @@ def ssg_eval_step(cs, dev, batch: int):
     return run
 
 
-def build(cs, which: str, dev, batch: int, fused_stem: bool):
+REMAT = {"off": False, "full": True, "selective": "selective"}
+
+
+def build(cs, which: str, dev, batch: int, fused_stem: bool, remat: str = "off"):
     from tools import torch_profile_eval as pe
 
     if which == "crog":
-        return pe.train_step(cs, dev, batch, "rawlb", fused_stem)
+        return pe.train_step(cs, dev, batch, "rawlb", fused_stem, REMAT[remat])
     if which == "ssg":
         return pe.ssg_train_step(cs, dev, batch, "raw")[0]
     return ssg_eval_step(cs, dev, batch)
@@ -308,20 +313,25 @@ def main(argv=None) -> int:
                    help="default 24 (crog), 32 (ssg), 8 (ssg_eval)")
     p.add_argument("--fused-stem", action="store_true",
                    help="CROG's s2d stem convs through K6/K6b")
+    p.add_argument("--remat", nargs="+", default=["off"], choices=tuple(REMAT),
+                   help="crog: one trace per remat mode of the RN50 bottlenecks")
     p.add_argument("--device", default="cuda")
     a = p.parse_args(argv)
     dev = resolve_device(a.device)
     set_exact_fp32_matmul()
     card = device_name(dev)
-    for which in (("crog", "ssg", "ssg_eval") if a.model == "all" else (a.model,)):
+    runs = [(which, remat) for which in (("crog", "ssg", "ssg_eval") if a.model == "all"
+                                         else (a.model,))
+            for remat in (a.remat if which == "crog" else ["off"])]
+    for which, remat in runs:
         batch = a.batch or DEFAULT_BATCH[which]
-        run = build(cs, which, dev, batch, a.fused_stem)
+        run = build(cs, which, dev, batch, a.fused_stem, remat)
         trace, events_us = trace_steps(run, a.steps, dev)
         r = rollup(trace)
-        label = f"{which} batch {batch}"
+        label = f"{which} batch {batch}" + ("" if remat == "off" else f" remat {remat}")
         regions = report(r, a.steps, label, events_us if dev.type == "cuda" else None, card)
-        print(json.dumps({"model": which, "batch": batch, "card": card, "steps": a.steps,
-                          "device_ms_per_step": r.total / 1e3 / a.steps,
+        print(json.dumps({"model": which, "batch": batch, "remat": remat, "card": card,
+                          "steps": a.steps, "device_ms_per_step": r.total / 1e3 / a.steps,
                           "regions_ms_per_step": regions, "links": r.links}), flush=True)
         del run
         if dev.type == "cuda":
