@@ -5,12 +5,14 @@
     python3 chip_smoke.py --kernels   # phases 1-3 and 16 only, no result line
     python3 chip_smoke.py --tools     # phases 1, 2 and 15 only, no result line
     python3 chip_smoke.py --remat     # phases 1, 2 and 17 only, no result line
+    python3 chip_smoke.py --fp32      # phases 1, 2 and 18 only, no result line
 
-Phases, in order (phase 17 runs after phase 7); any failure propagates and
-the exit code is not 0:
+Phases, in order (phase 17 runs after phase 7, phase 18 after phase 17);
+any failure propagates and the exit code is not 0:
   1. the card's name and power limit (nvidia-smi);
   2. build the hand-written kernels from crog_tpu_torch/csrc (nvcc, sm_90a,
-     one process per source, all at once: eight libraries): K1-K4, the
+     one process per source, all at once: eleven libraries): K1-K4 (and
+     their fp32 builds K1-f32..K4-f32), the
      backward kernels K1b-K4b, SSG's lincomb loss kernels K5/K5b, and the
      s2d stem's gathered conv K6 (forward and dgrad) and its wgrad K6b;
      the registers, shared memory and spills of the redesigned kernels (the
@@ -86,6 +88,26 @@ the exit code is not 0:
      crog_multiple_r50_wo_contrastive.yaml's model (no decoder), seeded:
      one eval forward and one train step on the same batch, finite, with
      no K2-K4b launch; the ``[remat]`` lines;
+ 18. compute_dtype float32 (after phase 17): (a) K1-f32..K4-f32 (3xTF32,
+     csrc/*_f32.cu) against their fp32 twins (TF32 off) at the main path's
+     shapes, in eval and (K2-K4) with dropout RATE, within F32_REL_L2 on
+     the relative L2 error; each of their products formed by one TF32 pass
+     or from bf16-staged operands must read above it; each timed beside
+     its twin, SDPA (K1) and F.linear at the projections' and the FFN's
+     shapes, all fp32; (b) crog_synthetic_r50.yaml with compute_dtype
+     float32 (plain stem convs, the bf16 model's seeded state_dict): one
+     forward at batch 1 on the card against the CPU in fp32, each logit
+     map within F32_E2E_TOL, launching K1-f32 once, K2-f32, K3-f32 and
+     K4-f32 three times each and no other kernel; (c) make_eval_step over
+     phase 4's first prepared batch at 24 against the CPU: per-sample IoU
+     within F32_IOU_TOL, grasp rects equal in validity and position on at
+     least F32_RECT_SHARE; (d) an fp32 train step raises before its first
+     launch (the fp32 backward kernels are queued); (e) the fp32 and the
+     bf16 model's batch-1 forward latency, eval samples/s at 24 and peak
+     memory, in turns; (f) ssg_r50.yaml with compute_dtype float32: one
+     frame through the validate path's eval forward, card vs CPU, every
+     output within F32_E2E_TOL; (g) tools/torch_roofline.py on
+     crog_multiple_r50.yaml at compute_dtype float32; the ``[fp32]`` lines;
   8. forward latency at batch 1 and eval samples/s at batch 24;
   9. SSG training at full width (config/OCID-Grasp/ssg_r50.yaml as
      written: RN50 (3,4,6,3), RGB-D, 544^2, 32 classes, 32 prototypes,
@@ -210,7 +232,8 @@ the exit code is not 0:
      phase 3 (last, so that the profiler runs in no timed phase).
 
 Precision: fp32 products on the card run in full fp32 (TF32 off for matmul
-and cuDNN) wherever fp32 is compared; the models compute in bf16.
+and cuDNN) wherever fp32 is compared; the models compute in bf16 but in
+phase 18, where they compute in fp32 (the kernels' products 3xTF32).
 
 The second-to-last lines are a JSON ``kernels`` record and the nvidia-smi
 line; the last line is ``{"ok": true, "device": {...}}``.
@@ -343,16 +366,20 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_inputs(device, b=BATCH, l=676, t=17, d=512, f=2048, lp=169, dp=2048):
+def kernel_inputs(device, b=BATCH, l=676, t=17, d=512, f=2048, lp=169, dp=2048,
+                  dtype=None):
     """Seeded inputs at the main path's shapes: B=24 at 416^2 gives a 13x13
     attention pool (169 tokens, width 2048, 32 heads) and a 26x26 decoder
     (676 tokens, width 512, 8 heads, 17 text tokens, FFN 2048); ``dy``
-    holds an output gradient for each kernel."""
+    holds an output gradient for each kernel.  Activations and weights in
+    ``dtype`` (bf16 unless given; fp32 for phase 18, full fp32 values, so
+    that rounding an operand to TF32 or bf16 changes it), vectors f32."""
     import torch
 
     g = torch.Generator().manual_seed(SEED)
+    act = torch.bfloat16 if dtype is None else dtype
 
-    def rnd(*shape, std=1.0, dtype=torch.bfloat16):
+    def rnd(*shape, std=1.0, dtype=act):
         return (torch.randn(*shape, generator=g) * std).to(device, dtype)
 
     lengths = torch.randint(4, t + 1, (b,), generator=g)
@@ -560,6 +587,13 @@ SOURCES = {
     "s2dconv": ("crog_tpu_torch/csrc/s2dconv.cu", "crog_tpu/ops/pallas_s2dconv.py:348"),
     "s2dconv_wgrad": ("crog_tpu_torch/csrc/s2dconv.cu",
                       "crog_tpu/ops/pallas_s2dconv.py:373"),
+    "attention_f32": ("crog_tpu_torch/csrc/attention_f32.cu",
+                      "crog_tpu/ops/pallas_attention.py:111"),
+    "decoder_self_block_f32": ("crog_tpu_torch/csrc/decoder_blocks_f32.cu",
+                               "crog_tpu/ops/pallas_decoder.py:422"),
+    "decoder_cross_block_f32": ("crog_tpu_torch/csrc/decoder_blocks_f32.cu",
+                                "crog_tpu/ops/pallas_decoder.py:511"),
+    "ffn_f32": ("crog_tpu_torch/csrc/ffn_f32.cu", "crog_tpu/ops/pallas_ffn.py:197"),
 }
 
 
@@ -636,6 +670,14 @@ BLOCK_FWD_SPLIT = ((("ln_pos", ("ln_pos",)),
 FFN_FWD_SPLIT = ((("hidden (cluster kernel)", ("ffn_fwd_hidden",)),
                   ("y GEMM", ("ffn_out",))),
                  "the rest (weight casts and transposes)")
+F32_BLOCK_SPLIT = ((("ln_pos", ("ln_pos",)),
+                    ("projections and out-projection (gemm_f32)", ("gemm_f32",)),
+                    ("attention step", ("attn_f32",)),
+                    ("ln_residual", ("ln_residual",))),
+                   "the rest (key mask)")
+F32_FFN_SPLIT = ((("hidden and output GEMMs (gemm_f32)", ("gemm_f32",)),
+                  ("LayerNorm over 2048", ("ln_rows",))),
+                 "the rest")
 FFN_BWD_SPLIT = ((("K4b's kernels", ("ffn_bwd", "ffn_out")),
                   ("reduce_rows", ("reduce_rows",)),
                   ("dW1 and dW2 (library GEMMs)", ("gemm", "nvjet", "cutlass"))),
@@ -715,16 +757,20 @@ def _time(rec, kern, plain, lib):
     print(f"[kernels] {rec['name']}: {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f}"
           f", library {rec['library_ms']}, bound {rec['bound_ms']:.4f} by "
           f"{rec['bound_by']})", flush=True)
-    if rec["name"] == "attention":
-        DEVICE_TIMED.append(("attention (K1)", rec["ms"], kern, None, None))
-        DEVICE_TIMED.append(("attention's library call (SDPA forward)",
+    if rec["name"] in ("attention", "attention_f32"):
+        kid = "K1" if rec["name"] == "attention" else "K1-f32"
+        DEVICE_TIMED.append((f"{rec['name']} ({kid})", rec["ms"], kern, None, None))
+        DEVICE_TIMED.append((f"{rec['name']}'s library call (SDPA forward)",
                              rec["library_ms"], lib, None, None))
     kid = {"decoder_self_block": "K2", "decoder_cross_block": "K3",
            "decoder_self_block_bwd": "K2b", "decoder_cross_block_bwd": "K3b",
-           "ffn": "K4", "ffn_bwd": "K4b"}.get(rec["name"])
+           "ffn": "K4", "ffn_bwd": "K4b", "decoder_self_block_f32": "K2-f32",
+           "decoder_cross_block_f32": "K3-f32", "ffn_f32": "K4-f32"}.get(rec["name"])
     if kid is not None:
         split = {"K2": BLOCK_FWD_SPLIT, "K3": BLOCK_FWD_SPLIT, "K2b": block_bwd_parts,
-                 "K3b": block_bwd_parts, "K4": FFN_FWD_SPLIT, "K4b": FFN_BWD_SPLIT}.get(kid)
+                 "K3b": block_bwd_parts, "K4": FFN_FWD_SPLIT, "K4b": FFN_BWD_SPLIT,
+                 "K2-f32": F32_BLOCK_SPLIT, "K3-f32": F32_BLOCK_SPLIT,
+                 "K4-f32": F32_FFN_SPLIT}.get(kid)
         DEVICE_TIMED.append((f"{rec['name']} ({kid})", rec["ms"], kern, None, split))
     if rec["name"] == "attention_bwd":
         DEVICE_TIMED.append(("attention_bwd (K1b)", rec["ms"], kern, None, None))
@@ -818,29 +864,36 @@ def gemm_yardsticks(device, b=BATCH, l=676, t=17, d=512, f=2048):
     linear_yardsticks(device, b, l, t, d)
 
 
-def linear_yardsticks(device, b=BATCH, l=676, t=17, d=512):
-    """F.linear(x, W, b), bf16 in and out with the bias, at the shapes of K2's
-    and K3's projections, timed as a yardstick only (the port computes them
-    in its own kernels, as the TPU kernel computes them in its body): K2's
-    q, k and v as one [B*L, D] -> 3D product; K3's q and the out-projection
-    [B*L, D] -> D; K3's k and v over B*T text rows, [B*T, D] -> D."""
+def linear_yardsticks(device, b=BATCH, l=676, t=17, d=512, dtype=None, f=None):
+    """F.linear(x, W, b), bf16 in and out with the bias (or ``dtype``), at
+    the shapes of K2's and K3's projections, timed as a yardstick only (the
+    port computes them in its own kernels, as the TPU kernel computes them
+    in its body): K2's q, k and v as one [B*L, D] -> 3D product; K3's q and
+    the out-projection [B*L, D] -> D; K3's k and v over B*T text rows,
+    [B*T, D] -> D; with ``f`` also K4's two products, [B*L, D] -> F and
+    [B*L, F] -> D."""
     import torch
     import torch.nn.functional as F
 
+    dtype = torch.bfloat16 if dtype is None else dtype
+    tag = "" if dtype == torch.bfloat16 else f" {str(dtype).split('.')[-1]}"
     g = torch.Generator().manual_seed(SEED + 11)
-    rnd = lambda *shape: torch.randn(*shape, generator=g).to(device, torch.bfloat16)
+    rnd = lambda *shape: torch.randn(*shape, generator=g).to(device, dtype)
     m, mt = b * l, b * t
-    cases = (
-        (f"[{m}, {d}] -> {3 * d} (K2's q, k and v)", m, 3 * d),
-        (f"[{m}, {d}] -> {d} (K3's q, the out-projection)", m, d),
-        (f"[{mt}, {d}] -> {d} (K3's k, v)", mt, d),
-    )
-    for label, rows, n in cases:
-        x, w, bias = rnd(rows, d), rnd(n, d), rnd(n)
+    cases = [
+        (f"[{m}, {d}] -> {3 * d} (K2's q, k and v)", m, d, 3 * d),
+        (f"[{m}, {d}] -> {d} (K3's q, the out-projection)", m, d, d),
+        (f"[{mt}, {d}] -> {d} (K3's k, v)", mt, d, d),
+    ]
+    if f is not None:
+        cases += [(f"[{m}, {d}] -> {f} (K4's hidden product)", m, d, f),
+                  (f"[{m}, {f}] -> {d} (K4's output product)", m, f, d)]
+    for label, rows, k, n in cases:
+        x, w, bias = rnd(rows, k), rnd(n, k), rnd(n)
         call = lambda x=x, w=w, bias=bias: F.linear(x, w, bias)
         ms = cuda_ms(call)
-        print(f"[kernels] F.linear yardstick {label}: {ms:.4f} ms", flush=True)
-        DEVICE_TIMED.append((f"F.linear yardstick {label}", ms, call, None, None))
+        print(f"[kernels] F.linear{tag} yardstick {label}: {ms:.4f} ms", flush=True)
+        DEVICE_TIMED.append((f"F.linear{tag} yardstick {label}", ms, call, None, None))
 
 
 def _compare(name, got, ref, tol, share=1.0):
@@ -1323,7 +1376,10 @@ def launch_counts():
             "decoder_self_block_bwd": DB.self_block_bwd,
             "decoder_cross_block_bwd": DB.cross_block_bwd, "ffn_bwd": FF.ffn_bwd,
             "lincomb": LC.lincomb_fwd, "lincomb_bwd": LC.lincomb_bwd,
-            "s2dconv": SC.s2dconv_fwd, "s2dconv_wgrad": SC.s2dconv_wgrad}
+            "s2dconv": SC.s2dconv_fwd, "s2dconv_wgrad": SC.s2dconv_wgrad,
+            "attention_f32": A.fused_attention_f32,
+            "decoder_self_block_f32": DB.self_block_f32_fwd,
+            "decoder_cross_block_f32": DB.cross_block_f32_fwd, "ffn_f32": FF.ffn_f32_fwd}
 
 
 def _cfg(samples=SAMPLES, batch=BATCH, opts=()):
@@ -1870,6 +1926,307 @@ def remat_phase(device, batch, smi: str):
           f"REMAT_GRAD_TOL {REMAT_GRAD_TOL}, REMAT_STAT_TOL {REMAT_STAT_TOL}, "
           f"REMAT_PEAK_SHARE {REMAT_PEAK_SHARE}", flush=True)
     return readings
+
+
+# phase 18: the CROG eval path at compute_dtype float32 on the card, through
+# the fp32 kernels K1-f32..K4-f32 (csrc/attention_f32.cu,
+# decoder_blocks_f32.cu, ffn_f32.cu)
+PER_FORWARD_F32 = {"attention_f32": 1, "decoder_self_block_f32": 3,
+                   "decoder_cross_block_f32": 3, "ffn_f32": 3}
+# fp32 kernel vs its fp32 twin on the card (TF32 off), relative L2 error of
+# each output.  The kernels form every product as 3xTF32, which keeps f32
+# accuracy (the dropped lo*lo term is below 2^-21 of each product), and sum
+# in another order than the library's fp32 GEMMs and softmax: ~1e-6.  One
+# TF32 pass rounds each operand to 2^-11, bf16 staging to 2^-9, and either
+# moves the outputs by ~1e-4..1e-3 (``fp32_fault_readings``; the readings
+# of both are in PERF.md).
+F32_REL_L2 = 1e-5
+# the products of each fp32 kernel, in the order of the bits of its
+# ``products`` argument (two bits each), and the faults a product can carry
+F32_PRODUCTS = {"attention_f32": ("QK^T", "P.V"),
+                "decoder_self_block_f32": ("projections", "QK^T", "P.V", "out-projection"),
+                "decoder_cross_block_f32": ("projections", "QK^T", "P.V", "out-projection"),
+                "ffn_f32": ("hidden product", "output product")}
+F32_FAULTS = {"1xTF32": 1, "bf16-staged": 2}
+# card (fp32 kernels, cuDNN and cuBLAS with TF32 off) vs CPU (fp32 plain)
+# on one sample: relative L2 error of each logit map (and of each SSG
+# output).  Both compute the same fp32 function; sums in another order
+# grow through the ~70 layers of a random network to ~1e-5; bf16 anywhere
+# (E2E_TOL's 0.15) or one TF32 pass is off by more than 1e-3.
+F32_E2E_TOL = 1e-3
+# the eval step at batch 24, card vs CPU: per-sample IoU (thresholded maps,
+# where a pixel at the threshold can flip), and the share of (sample, peak)
+# grasp rects with equal validity and position (two peaks whose qualities
+# differ by less than the card-CPU gap can swap rank)
+F32_IOU_TOL = 2e-3
+F32_RECT_SHARE = 0.95
+
+
+def rel_l2(got, ref) -> float:
+    got, ref = got.double().cpu(), ref.double().cpu()
+    return float((got - ref).norm() / ref.norm().clamp_min(1e-30))
+
+
+def _f32_case_calls(inp, products: int = 0):
+    """name -> kernel call on phase 18's fp32 inputs in eval, with
+    ``products`` (0: the kernels' 3xTF32)."""
+    from crog_tpu_torch.ops import attention as A
+    from crog_tpu_torch.ops import decoder_blocks as DB
+    from crog_tpu_torch.ops import ffn as FF
+
+    a = inp["attention"]
+    sargs, cargs, fargs = _args(inp)
+    return {
+        "attention_f32": lambda: A.fused_attention_f32(a["q"], a["k"], a["v"], a["heads"],
+                                                       None, products),
+        "decoder_self_block_f32": lambda: DB.self_block_f32_fwd(
+            *sargs, 0, 0.0, False, products)[0],
+        "decoder_cross_block_f32": lambda: DB.cross_block_f32_fwd(
+            *cargs, 0, 0.0, False, products)[0],
+        "ffn_f32": lambda: FF.ffn_f32_fwd(*fargs, 0, 0.0, products),
+    }
+
+
+def fp32_fault_readings(inp, refs):
+    """Each fp32 kernel with one product at a time formed by one TF32 pass
+    or from bf16-staged operands: {kernel: {product: {fault: rel-L2 against
+    the twin ``refs[kernel]``}}}."""
+    out = {}
+    for name, products in F32_PRODUCTS.items():
+        out[name] = {}
+        for i, product in enumerate(products):
+            out[name][product] = {}
+            for fault, code in F32_FAULTS.items():
+                got = _f32_case_calls(inp, code << (2 * i))[name]()
+                out[name][product][fault] = rel_l2(got, refs[name])
+    return out
+
+
+def fp32_kernels(device, timed: bool = True):
+    """Phase 18 (a): K1-f32..K4-f32 against their fp32 twins at the main
+    path's shapes in eval and with train-mode dropout (RATE, the same
+    counter-based mask), within F32_REL_L2; each planted product fault
+    above it; timed beside the twin, SDPA (K1) and F.linear at the
+    projections' and the FFN's shapes, all fp32.  Returns the records."""
+    import torch
+
+    inp = kernel_inputs(device, dtype=torch.float32)
+    records, refs = {}, {}
+    with torch.no_grad():
+        cases = kernel_cases(inp)
+        for name, (kern, plain, lib, flops, nb) in cases.items():
+            n32 = name + "_f32"
+            got, refs[n32] = kern(), plain()
+            torch.cuda.synchronize()
+            rel = rel_l2(got, refs[n32])
+            err = float((got - refs[n32]).abs().max())
+            print(f"[fp32] {n32} (eval): rel_l2 {rel:.3g} (limit {F32_REL_L2}), max_abs_err "
+                  f"{err:.3g}, max|ref| {float(refs[n32].abs().max()):.4g}", flush=True)
+            if not (bool(torch.isfinite(got).all()) and rel <= F32_REL_L2):
+                raise AssertionError(f"{n32} disagrees with its fp32 twin: rel_l2 {rel:.3g}")
+            records[n32] = _record(n32, err, *bound(flops, nb, PEAK_F32_TC_FLOPS))
+            if timed:
+                _time(records[n32], kern, plain, lib if name == "attention" else None)
+        for name, (kern, plain) in dropout_cases(inp).items():
+            got, ref = kern(), plain()
+            rel = rel_l2(got, ref)
+            print(f"[fp32] {name}_f32 (dropout {RATE}): rel_l2 {rel:.3g} (limit "
+                  f"{F32_REL_L2})", flush=True)
+            if not (bool(torch.isfinite(got).all()) and rel <= F32_REL_L2):
+                raise AssertionError(f"{name}_f32 in train mode disagrees with its twin")
+        faults = fp32_fault_readings(inp, refs)
+        for name, by_product in faults.items():
+            print(f"[fp32] {name} faults (rel_l2 against the twin, limit {F32_REL_L2}): "
+                  + "; ".join(f"{p} " + ", ".join(f"{f} {r:.3g}" for f, r in fr.items())
+                              for p, fr in by_product.items()), flush=True)
+        seen = [(n, p, f) for n, bp in faults.items() for p, fr in bp.items()
+                for f, r in fr.items() if not r > F32_REL_L2]
+        if seen:
+            raise AssertionError(f"F32_REL_L2 does not see these planted faults: {seen}")
+        if timed:
+            linear_yardsticks(device, dtype=torch.float32, f=2048)
+    return records
+
+
+def fp32_batch():
+    """One prepared rawlb val batch at BATCH, as phase 4 prepares them
+    (``chip_smoke.py --fp32`` runs phase 18 without phase 4)."""
+    from crog_tpu_torch.data.loader import DataLoader
+    from crog_tpu_torch.test_crog import build_dataset
+
+    cfg = _cfg(BATCH, BATCH)
+    return next(iter(DataLoader(build_dataset(cfg, cfg.val_split), BATCH,
+                                pad_last_batch=True)))
+
+
+def _eval_rate(eval_step, batch, reps: int = 5):
+    """(samples/s of ``eval_step`` over ``batch``, peak device bytes)."""
+    import torch
+
+    eval_step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = eval_step(batch)
+    out["iou"].cpu()
+    dt = (time.perf_counter() - t0) / reps
+    return len(batch["word"]) / dt, torch.cuda.max_memory_allocated()
+
+
+def fp32_e2e(device, batch, smi: str):
+    """Phase 18 (b)-(e): crog_synthetic_r50.yaml with compute_dtype float32
+    (the plain stem convs, as the config runs without ``--fused-stem``),
+    the bf16 model's seeded weights: one forward at batch 1 against the CPU
+    in fp32, its launches; make_eval_step over ``batch`` against the CPU;
+    an fp32 train step raises before its first launch; the fp32 and bf16
+    models' batch-1 latency, eval samples/s at 24 and peak memory.  Returns
+    the launches of one fp32 forward."""
+    import torch
+
+    from crog_tpu_torch.engine.crog_engine import (device_batch, make_eval_step,
+                                                   make_train_step)
+    from crog_tpu_torch.engine.optim import make_optimizer
+    from crog_tpu_torch.models.crog import build_crog
+
+    cfg32 = _cfg(BATCH, BATCH, ("compute_dtype", "float32"))
+    model16 = _model(_cfg(), device, fused_stem=False).eval()
+    model32 = build_crog(cfg32).to(device).eval()
+    cpu32 = build_crog(cfg32).eval()
+    state = model16.state_dict()
+    model32.load_state_dict(state)
+    cpu32.load_state_dict({k: v.cpu() for k, v in state.items()})
+    if (model16.dtype, model32.dtype, cpu32.dtype) != (torch.bfloat16,) + (torch.float32,) * 2:
+        raise AssertionError("build_crog did not read compute_dtype")
+
+    one = device_batch({k: v[:1] for k, v in batch.items() if isinstance(v, np.ndarray)},
+                       torch.device("cpu"), cfg32.input_size, train=False)
+    img, word = one["img"], one["word"]
+    wrappers = launch_counts()
+    with torch.no_grad():
+        _reset(wrappers)
+        card = model32(img.to(device), word.to(device))
+        torch.cuda.synchronize()
+        launches = {n: w.launches for n, w in wrappers.items()}
+        cpu = cpu32(img, word)
+    card = card.float().cpu()
+    print(f"[fp32] one fp32 forward launches {_launched(launches)}", flush=True)
+    check_launches(launches, PER_FORWARD_F32, 1)
+    if card.shape != cpu.shape or not torch.isfinite(card).all():
+        raise AssertionError(f"fp32 card output {tuple(card.shape)} not finite/shaped")
+    worst = 0.0
+    for i, name in enumerate(("mask", "qua", "sin", "cos", "wid")):
+        rel = rel_l2(card[..., i], cpu[..., i])
+        worst = max(worst, rel)
+        print(f"[fp32] e2e {name}: rel_l2 {rel:.4g} (limit {F32_E2E_TOL}), "
+              f"max|card-cpu| {float((card[..., i] - cpu[..., i]).abs().max()):.4g}",
+              flush=True)
+    if worst > F32_E2E_TOL:
+        raise AssertionError(f"fp32 card vs CPU logits rel_l2 {worst:.4g} > {F32_E2E_TOL}")
+
+    step32 = make_eval_step(model32, input_size=cfg32.input_size, device=device)
+    got = step32(batch)
+    ref = make_eval_step(cpu32, input_size=cfg32.input_size, device="cpu")(batch)
+    iou_gap = float((got["iou"].cpu() - ref["iou"]).abs().max())
+    gv, rv = got["rects_valid"].cpu(), ref["rects_valid"]
+    same = (gv == rv) & ((got["rects"].cpu()[..., :2] == ref["rects"][..., :2]).all(-1) | ~rv)
+    share = float(same.float().mean())
+    both = gv & rv
+    rect_gap = float((got["rects"].cpu()[both] - ref["rects"][both]).abs().max()) \
+        if bool(both.any()) else 0.0
+    print(f"[fp32] eval step at batch {len(batch['word'])}, card vs CPU: per-sample IoU gap "
+          f"{iou_gap:.3g} (limit {F32_IOU_TOL}); grasp rects with equal validity and "
+          f"position {share:.4f} (limit {F32_RECT_SHARE}), largest rect gap where both are "
+          f"valid {rect_gap:.4g}; mean IoU {float(got['iou'].mean()):.6f}", flush=True)
+    if not (iou_gap <= F32_IOU_TOL and share >= F32_RECT_SHARE):
+        raise AssertionError("fp32 eval step on the card disagrees with the CPU")
+
+    _reset(wrappers)
+    opt, sched = make_optimizer(model32, 1e-4, 0.1, [35], 0.1, 100, 0.0)
+    try:
+        make_train_step(model32, opt, sched, device=device)
+    except NotImplementedError as e:
+        print(f"[fp32] train step refused before any launch: {e}", flush=True)
+    else:
+        raise AssertionError("an fp32 train step on the card did not raise")
+    check_launches({n: w.launches for n, w in wrappers.items()}, {}, 0)
+
+    step16 = make_eval_step(model16, input_size=cfg32.input_size, device=device)
+    img1, word1 = img.to(device), word.to(device)
+    readings = {}
+    with torch.no_grad():
+        for label, model, step in (("fp32", model32, step32), ("bf16", model16, step16),
+                                   ("bf16", model16, step16), ("fp32", model32, step32)):
+            fwd_ms = cuda_ms(lambda: model(img1, word1), reps=10)
+            rate, peak = _eval_rate(step, batch)
+            readings.setdefault(label, []).append((fwd_ms, rate, peak))
+    for label, runs in readings.items():
+        print(f"[fp32] {label} model (plain stem convs): forward batch 1 "
+              + ", ".join(f"{r[0]:.3f}" for r in runs) + " ms; eval step batch "
+              f"{len(batch['word'])} " + ", ".join(f"{r[1]:.2f}" for r in runs)
+              + " samples/s; peak " + ", ".join(f"{r[2] / 2**30:.3f}" for r in runs)
+              + f" GiB (two runs, in turns fp32 bf16 bf16 fp32) on {smi}", flush=True)
+    return launches
+
+
+def fp32_ssg(device):
+    """Phase 18 (f): ssg_r50.yaml with compute_dtype float32: one frame
+    through the validate path's eval forward on the card and on the CPU,
+    both fp32, seeded weights: every output within F32_E2E_TOL; no kernel
+    launches (SSG reaches K5/K5b only in training)."""
+    import torch
+
+    from crog_tpu_torch.engine.ssg_engine import make_ssg_eval_fwd
+    from crog_tpu_torch.models.ssg import build_ssg
+
+    cfg = _ssg_cfg(("compute_dtype", "float32"))
+    model = _ssg_model(cfg, device).eval()
+    cpu = build_ssg(cfg).eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    if (model.dtype, cpu.dtype) != (torch.float32, torch.float32):
+        raise AssertionError("build_ssg did not read compute_dtype")
+    batches, _ = _ssg_data(cfg, cfg.val_split, 1, 1, False)
+    wrappers = launch_counts()
+    _reset(wrappers)
+    got, _ = make_ssg_eval_fwd(model, device)(batches[0])
+    torch.cuda.synchronize()
+    check_launches({n: w.launches for n, w in wrappers.items()}, {}, 0)
+    ref, _ = make_ssg_eval_fwd(cpu, "cpu")(batches[0])
+    gaps = {k: rel_l2(got[k].float(), ref[k].float()) for k in sorted(ref)
+            if torch.is_tensor(ref[k]) and ref[k].is_floating_point()}
+    print("[fp32] SSG validate forward, one frame, card vs CPU (fp32): rel_l2 "
+          + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items())
+          + f" (limit {F32_E2E_TOL})", flush=True)
+    bad = {k: v for k, v in gaps.items() if not v <= F32_E2E_TOL}
+    if bad:
+        raise AssertionError(f"fp32 SSG card vs CPU: {bad}")
+
+
+def fp32_phase(device, batch, smi: str):
+    """Phase 18: the fp32 kernels, the fp32 CROG eval path against the
+    CPU, the fp32 train step's refusal, fp32 vs bf16 rates, SSG at fp32,
+    the fp32 roofline; returns the fp32 kernels' records with their
+    launches per forward."""
+    import torch
+
+    from tools import torch_roofline
+
+    t0 = time.perf_counter()
+    records = fp32_kernels(device)
+    torch.cuda.empty_cache()
+    launches = fp32_e2e(device, batch, smi)
+    torch.cuda.empty_cache()
+    fp32_ssg(device)
+    torch.cuda.empty_cache()
+    torch_roofline.main(["--device", str(device), "--iters", str(ROOFLINE_ITERS),
+                         "--warmup", str(ROOFLINE_WARMUP), "--opts", "compute_dtype",
+                         "float32"])
+    for n, rec in records.items():
+        rec["launches"] = launches[n]
+    print(f"[fp32] phase 18 took {time.perf_counter() - t0:.1f} s; limits: F32_REL_L2 "
+          f"{F32_REL_L2}, F32_E2E_TOL {F32_E2E_TOL}, F32_IOU_TOL {F32_IOU_TOL}, "
+          f"F32_RECT_SHARE {F32_RECT_SHARE}", flush=True)
+    return records
 
 
 def _ssg_cfg(opts=()):
@@ -3549,6 +3906,9 @@ def main(argv=None) -> int:
     ap.add_argument("--remat", action="store_true",
                     help="phases 1, 2 and 17 only: build, then remat off / full / selective "
                          "on the card; no result line")
+    ap.add_argument("--fp32", action="store_true",
+                    help="phases 1, 2 and 18 only: build, then compute_dtype float32 on the "
+                         "card; no result line")
     ap.add_argument("--ddp-worker", metavar="DIR",
                     help="run one rank of phase 13 (started by phase 13 itself)")
     args = ap.parse_args(argv)
@@ -3591,6 +3951,11 @@ def main(argv=None) -> int:
         remat_phase(device, remat_batch(), smi)
         print(f"[done] remat only, {time.perf_counter() - t_start:.1f} s", flush=True)
         return 0
+    if args.fp32:
+        fp32_phase(device, fp32_batch(), smi)
+        print_device_times()
+        print(f"[done] fp32 only, {time.perf_counter() - t_start:.1f} s", flush=True)
+        return 0
     records = check_kernels(device)
     if args.kernels:
         print_device_times()
@@ -3610,6 +3975,9 @@ def main(argv=None) -> int:
     e2e_train_step(train_batches[0], device)
     torch.cuda.empty_cache()
     remat_phase(device, train_batches[0], smi)
+    torch.cuda.empty_cache()
+    fp32_records = fp32_phase(device, batches[0], smi)
+    torch.cuda.empty_cache()
     ssg_launches, ssg_train_rate, ssg_model, ssg_cfg, ssg_batches = ssg_train_path(device,
                                                                                   smi)
     ssg_eval_rate = ssg_eval_path(device, ssg_model, ssg_cfg, smi)
@@ -3626,6 +3994,8 @@ def main(argv=None) -> int:
     # for K1-K4b and K6/K6b, SSG training for K5/K5b
     for n, rec in records.items():
         rec["launches"] = ssg_launches[n] if n in SSG_PER_STEP else launches[n]
+    # the fp32 kernels' launches per fp32 eval forward (phase 18)
+    records.update(fp32_records)
     print(f"[done] {time.perf_counter() - t_start:.1f} s; CROG train {train_rate:.2f} "
           f"and eval {eval_rate:.2f} samples/s at batch {BATCH}; SSG train "
           f"{ssg_train_rate:.2f} samples/s at batch {SSG_BATCH}, eval {ssg_eval_rate:.2f} "

@@ -59,6 +59,7 @@
 // KB of shared memory): K5's 1360 blocks run in a little over two waves,
 // K5b's 680 in one.
 #include "common.cuh"
+#include "tf32.cuh"  // to_tf32, split_tf32, mma_tf32, mma_3xtf32
 
 namespace crog {
 
@@ -77,38 +78,6 @@ struct Lincomb {
   int B, HW, ph, pw, KT, TM, T, cos_idx, kind;  // kind 0: BCE, 1: smooth-L1
   int rh, rw, nrx, nry;                         // regions of rh x rw pixels
 };
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo, both TF32, lo the rounding error of hi
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a b in f32 accuracy: the small cross terms first, then hi * hi
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4], float b0, float b1) {
-  uint32_t bh0, bl0, bh1, bl1;
-  split_tf32(b0, bh0, bl0);
-  split_tf32(b1, bh1, bl1);
-  mma_tf32(d, al, bh0, bh1);
-  mma_tf32(d, ah, bl0, bl1);
-  mma_tf32(d, ah, bh0, bh1);
-}
 
 __device__ __forceinline__ void split4(const float (&v)[4], uint32_t (&h)[4], uint32_t (&l)[4]) {
 #pragma unroll

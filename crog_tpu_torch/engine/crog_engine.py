@@ -117,6 +117,19 @@ def set_exact_fp32_matmul() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def check_train_kernels(device, dtype: torch.dtype, train: bool = True) -> None:
+    """Raise before any launch where the card has no kernel for the step:
+    a train step computing in fp32 on a CUDA device needs the fp32 backward
+    kernels K1b-f32..K4b-f32, which are queued (ROADMAP); the fp32 eval
+    forward has its kernels (K1-f32..K4-f32), and the CPU runs the plain
+    twins in any dtype."""
+    if train and torch.device(device).type == "cuda" and dtype == torch.float32:
+        raise NotImplementedError(
+            "a compute_dtype float32 train step on the card needs the fp32 backward "
+            "kernels K1b-f32, K2b-f32, K3b-f32 and K4b-f32, which are queued (ROADMAP); "
+            "the card runs compute_dtype float32 in eval only")
+
+
 def train_metrics(pred_logits, target_mask, threshold: float = 0.35,
                   pr_iou: float = 0.5):
     """Batch mask IoU and Pr@50 (reference utils/misc.py:115-131), x100."""
@@ -139,9 +152,10 @@ def make_train_step(model, optimizer, scheduler, use_grasp_masks: bool = True,
     the losses are plain means, so with equal per-rank batches DDP's mean
     of the ranks' gradients is the global batch's, and the clipping after
     it clips the global gradient."""
-    set_exact_fp32_matmul()  # the raw wire's warp products
     device = torch.device(device) if device is not None else next(
         model.parameters()).device
+    check_train_kernels(device, unwrap(model).dtype)
+    set_exact_fp32_matmul()  # the raw wire's warp products
     params = [p for p in model.parameters() if p.requires_grad]
     input_size = unwrap(model).input_resolution
 

@@ -59,6 +59,7 @@ class CROG(nn.Module):
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        self.dtype = dtype
         self.input_resolution = input_resolution
         self.use_contrastive = use_contrastive
         self.backbone = CLIPRN50(

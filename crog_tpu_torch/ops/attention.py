@@ -8,8 +8,11 @@ attention over at least 64 tokens (the CLIP attention pool's 169) goes to
 ``FusedAttention``, as ``_use_fused`` routes it to the Pallas kernel on a
 TPU: its forward is ``fused_attention`` (K1, csrc/attention.cu) and its
 backward ``attention_bwd`` (K1b, csrc/attention_bwd.cu) on a CUDA tensor,
-their plain PyTorch twins on a CPU tensor.  Masked or short attention (the
-17-token causal text tower) stays a plain matmul + fp32 softmax.
+their plain PyTorch twins on a CPU tensor.  On fp32 operands (a model
+built with ``compute_dtype: float32``) the forward launches K1-f32
+(csrc/attention_f32.cu) instead; the fp32 backward is not yet ported and
+raises on the card.  Masked or short attention (the 17-token causal text
+tower) stays a plain matmul + fp32 softmax.
 """
 
 from __future__ import annotations
@@ -55,12 +58,13 @@ def attention_plain(q, k, v, num_heads: int, mask_add=None):
     return o.transpose(1, 2).reshape(b, lq, d).to(q.dtype)
 
 
-def _check_rows(t: torch.Tensor, name: str) -> None:
-    cuda_build.require(t, name, torch.bfloat16, contiguous=False)
-    if t.dim() != 3 or t.stride(2) != 1 or t.stride(1) % 8 or t.stride(0) % 8:
+def _check_rows(t: torch.Tensor, name: str, dtype: torch.dtype = torch.bfloat16) -> None:
+    cuda_build.require(t, name, dtype, contiguous=False)
+    per16 = 16 // t.element_size()  # elements in a 16-byte row segment
+    if t.dim() != 3 or t.stride(2) != 1 or t.stride(1) % per16 or t.stride(0) % per16:
         raise ValueError(
             f"{name}: expected [B, L, D] with unit feature stride and row and "
-            f"batch strides divisible by 8, got strides {t.stride()}"
+            f"batch strides divisible by {per16}, got strides {t.stride()}"
         )
 
 
@@ -75,23 +79,29 @@ def fwd_path(lk: int) -> str:
     return "one_pass" if lk <= ONE_PASS_MAX_KEYS else "two_pass"
 
 
-def fused_attention(q, k, v, num_heads: int, mask_add=None):
-    """K1.  q [B, Lq, H*64], k/v [B, Lk, H*64] bf16 (any row and batch
-    stride, unit feature stride); ``mask_add`` [B, Lk] f32 or None.
+def fused_attention(q, k, v, num_heads: int, mask_add=None, products: int = 0):
+    """K1.  q [B, Lq, H*64], k/v [B, Lk, H*64], all bf16 or all fp32 (any
+    row and batch stride, unit feature stride); ``mask_add`` [B, Lk] f32 or
+    None.
 
     On a CPU tensor this is ``attention_plain``; on a CUDA tensor it launches
-    crog_attention_fwd (csrc/attention.cu), whose kernel ``fwd_path`` names,
-    or raises."""
+    the build for q's dtype (``cuda_build.library_for``): crog_attention_fwd
+    (csrc/attention.cu, bf16), whose kernel ``fwd_path`` names, or
+    crog_attention_f32_fwd (csrc/attention_f32.cu, fp32, counted by
+    ``fused_attention_f32``); or raises.  ``products`` other than 0 plants
+    a fault in the fp32 kernel's products (csrc/tf32.cuh; only the checks of
+    its tolerance set it)."""
     work.note("attention", lambda: (
         work.attention_flops(*q.shape[:2], k.shape[1], q.shape[2]),
         work.nbytes(q, k, v, q) + (0 if mask_add is None else work.nbytes(mask_add))))
     if q.device.type == "cpu":
         with work.uncounted():
             return attention_plain(q, k, v, num_heads, mask_add)
+    name = cuda_build.library_for("attention", q.dtype)
     b, lq, d = q.shape
     lk = k.shape[1]
-    for t, name in ((q, "q"), (k, "k"), (v, "v")):
-        _check_rows(t, name)
+    for t, n in ((q, "q"), (k, "k"), (v, "v")):
+        _check_rows(t, n, q.dtype)
     if d != num_heads * HEAD_DIM or k.shape != (b, lk, d) or v.shape != (b, lk, d):
         raise ValueError(
             f"attention kernel takes head dim {HEAD_DIM}: q {tuple(q.shape)}, "
@@ -100,21 +110,36 @@ def fused_attention(q, k, v, num_heads: int, mask_add=None):
     fwd_path(lk)  # raises past MAX_KEYS
     if mask_add is not None:
         cuda_build.require(mask_add, "mask_add", torch.float32, (b, lk))
-    o = torch.empty(b, lq, d, dtype=torch.bfloat16, device=q.device)
-    lib = cuda_build.load("attention")
-    rc = lib.crog_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if mask_add is None else mask_add.data_ptr(),
-        o.data_ptr(), b, num_heads, lq, lk,
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), o.stride(0), o.stride(1),
-        HEAD_DIM**-0.5, cuda_build.stream_ptr(q.device),
-    )
+    o = torch.empty(b, lq, d, dtype=q.dtype, device=q.device)
+    lib = cuda_build.load(name)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if mask_add is None else mask_add.data_ptr(),
+            o.data_ptr(), b, num_heads, lq, lk,
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), o.stride(0), o.stride(1), HEAD_DIM**-0.5)
+    stream = cuda_build.stream_ptr(q.device)
+    if q.dtype == torch.float32:
+        rc = lib.crog_attention_f32_fwd(*args, products, stream)
+        cuda_build.check_launch(lib, rc, "crog_attention_f32_fwd")
+        fused_attention_f32.launches += 1
+        return o
+    if products:
+        raise ValueError("planted product faults exist only in the fp32 kernels")
+    rc = lib.crog_attention_fwd(*args, stream)
     cuda_build.check_launch(lib, rc, "crog_attention_fwd")
     fused_attention.launches += 1
     return o
 
 
+def fused_attention_f32(q, k, v, num_heads: int, mask_add=None, products: int = 0):
+    """K1-f32: ``fused_attention`` on fp32 operands (its launches are
+    counted here)."""
+    if q.dtype != torch.float32:
+        raise ValueError(f"K1-f32 takes fp32 operands, got {q.dtype}")
+    return fused_attention(q, k, v, num_heads, mask_add, products)
+
+
+fused_attention_f32.launches = 0
 fused_attention.launches = 0
 
 
@@ -198,6 +223,7 @@ def attention_bwd(q, k, v, o, do, num_heads: int, bf16_casts: bool = False, mask
         if bf16_casts:
             return mha_bwd_plain(q, k, v, do, num_heads, mask_add)
         return attention_bwd_plain(q, k, v, o, do, num_heads)
+    cuda_build.library_for("attention_bwd", q.dtype)  # raises for fp32: queued
     _check_bwd_width(q, num_heads)
     _check_bwd_width(k, num_heads)
     b, lq, d = q.shape

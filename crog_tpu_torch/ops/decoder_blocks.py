@@ -20,6 +20,11 @@ every LN, f32 LN statistics with flax's fast variance, f32 softmax; in the
 backward P and dS rounded before their products, the LN backward on f32
 x-hat, dW summed in f32 and rounded once to the compute dtype.
 
+On fp32 x (a model built with ``compute_dtype: float32``) the forward
+launches K2-f32 / K3-f32 (csrc/decoder_blocks_f32.cu: every product 3xTF32,
+nothing rounded to bf16, the twins' f32 function); the fp32 backward
+kernels are not yet ported, and the backward raises on the card.
+
 Dropout (``rate`` > 0, training) uses the counter-based mask of
 ops/dropout.py keyed by ``seed``, over rows b*L + l and columns of D.
 """
@@ -256,16 +261,18 @@ def _check_block_input(x, nheads):
     if x.shape[1] > MAX_TOKENS:
         raise ValueError(
             f"decoder block kernels take at most {MAX_TOKENS} tokens, got {x.shape[1]}")
-    cuda_build.require(x, "x", torch.bfloat16)
+    cuda_build.require(x, "x", x.dtype)
 
 
 def _weights(x, in_w, in_b, out_w, out_b, g_pre, b_pre, g_post, b_post):
+    """The projection weights in x's dtype (the bf16 kernels' operands, or
+    the fp32 parameters as they are) and the f32 vectors, checked."""
     d = x.shape[-1]
-    wi = in_w.to(torch.bfloat16).contiguous()
-    wo = out_w.to(torch.bfloat16).contiguous()
+    wi = in_w.to(x.dtype).contiguous()
+    wo = out_w.to(x.dtype).contiguous()
     vecs = [t.float().contiguous() for t in (in_b, out_b, g_pre, b_pre, g_post, b_post)]
-    cuda_build.require(wi, "in_w", torch.bfloat16, (3 * d, d))
-    cuda_build.require(wo, "out_w", torch.bfloat16, (d, d))
+    cuda_build.require(wi, "in_w", x.dtype, (3 * d, d))
+    cuda_build.require(wo, "out_w", x.dtype, (d, d))
     for t, n, size in zip(vecs, ("in_b", "out_b", "g_pre", "b_pre", "g_post", "b_post"),
                           (3 * d, d, d, d, d, d)):
         cuda_build.require(t, n, torch.float32, (size,))
@@ -280,9 +287,13 @@ def _wgrad_splits(m: int) -> int:
 
 
 def self_block_fwd(x, pos, in_w, in_b, out_w, out_b, g_pre, b_pre, g_post, b_post,
-                   nheads: int, seed: int = 0, rate: float = 0.0, save: bool = False):
-    """K2.  x [B, L, D]; pos [L, D].  Returns (x + block(x), saved), where
-    ``saved`` holds what K2b reads when ``save`` (else None)."""
+                   nheads: int, seed: int = 0, rate: float = 0.0, save: bool = False,
+                   products: int = 0):
+    """K2.  x [B, L, D] bf16 or fp32; pos [L, D].  Returns (x + block(x),
+    saved), where ``saved`` holds what K2b reads when ``save`` (else None).
+    fp32 x goes to K2-f32 (csrc/decoder_blocks_f32.cu, counted by
+    ``self_block_f32_fwd``), which saves nothing; ``products`` other than 0
+    plants a fault in its products (csrc/tf32.cuh)."""
     work.note("decoder_self_block", lambda: (
         work.self_block_flops(*x.shape),
         work.nbytes(x, pos, in_w, in_b, out_w, out_b, g_pre, b_pre, g_post, b_post, x)))
@@ -290,25 +301,38 @@ def self_block_fwd(x, pos, in_w, in_b, out_w, out_b, g_pre, b_pre, g_post, b_pos
         with work.uncounted():
             return self_block_plain(x, pos, in_w, in_b, out_w, out_b, g_pre, b_pre,
                                     g_post, b_post, nheads, seed, rate), None
+    lib_name = cuda_build.library_for("decoder_self_block", x.dtype)
     _check_block_input(x, nheads)
     b, l, d = x.shape
-    posb = pos.to(torch.bfloat16).contiguous()
-    cuda_build.require(posb, "pos", torch.bfloat16, (l, d))
+    posb = pos.to(x.dtype).contiguous()
+    cuda_build.require(posb, "pos", x.dtype, (l, d))
     wi, wo, (bi, bo, gp, bp, gq, bq) = _weights(
         x, in_w, in_b, out_w, out_b, g_pre, b_pre, g_post, b_post)
-    new = lambda n: torch.empty(b * l, n, dtype=torch.bfloat16, device=x.device)
+    new = lambda n: torch.empty(b * l, n, dtype=x.dtype, device=x.device)
     y = torch.empty_like(x)
+    dseed, thresh, scale = kernel_args(seed, rate)
+    lib = cuda_build.load(lib_name)
+    stream = cuda_build.stream_ptr(x.device)
+    if x.dtype == torch.float32:
+        # xl, qin, qk, v, o, op; nothing is saved: the fp32 backward is queued
+        ws = (new(d), new(d), new(2 * d), new(d), new(d), new(d))
+        table = cuda_build.ptr_table(x, posb, wi, bi, wo, bo, gp, bp, gq, bq, y, *ws)
+        rc = lib.crog_self_block_f32_fwd(table, b, l, d, nheads, dseed, thresh, scale,
+                                         products, stream)
+        cuda_build.check_launch(lib, rc, "crog_self_block_f32_fwd")
+        self_block_f32_fwd.launches += 1
+        return y, None
+    if products:
+        raise ValueError("planted product faults exist only in the fp32 kernels")
     ws = (new(d), new(d), new(2 * d), new(d), new(d))  # xl, qin, qk, v, o
     op = new(d) if save else None
-    dseed, thresh, scale = kernel_args(seed, rate)
-    lib = cuda_build.load("decoder_blocks")
     rc = lib.crog_self_block_fwd(
         x.data_ptr(), posb.data_ptr(), wi.data_ptr(), bi.data_ptr(),
         wo.data_ptr(), bo.data_ptr(), gp.data_ptr(), bp.data_ptr(),
         gq.data_ptr(), bq.data_ptr(), y.data_ptr(),
         *(t.data_ptr() for t in ws), None if op is None else op.data_ptr(),
         b, l, d, nheads, len(proj_plan(self_proj_segments(b * l))),
-        len(out_schedule(b * l)[0]), dseed, thresh, scale, cuda_build.stream_ptr(x.device),
+        len(out_schedule(b * l)[0]), dseed, thresh, scale, stream,
     )
     cuda_build.check_launch(lib, rc, "crog_self_block_fwd")
     self_block_fwd.launches += 1
@@ -318,10 +342,22 @@ def self_block_fwd(x, pos, in_w, in_b, out_w, out_b, g_pre, b_pre, g_post, b_pos
 self_block_fwd.launches = 0
 
 
+def self_block_f32_fwd(x, *args, **kw):
+    """K2-f32: ``self_block_fwd`` on fp32 x (its launches are counted
+    here)."""
+    if x.dtype != torch.float32:
+        raise ValueError(f"K2-f32 takes fp32 x, got {x.dtype}")
+    return self_block_fwd(x, *args, **kw)
+
+
+self_block_f32_fwd.launches = 0
+
+
 def self_block_bwd(x, saved, dy, nheads: int, seed: int = 0, rate: float = 0.0):
     """K2b on a CUDA tensor: the backward kernels of csrc/decoder_blocks_bwd.cu
     over what ``self_block_fwd(save=True)`` kept.  Returns (dx, d in_w,
     d in_b, d out_w, d out_b, d g_pre, d b_pre, d g_post, d b_post)."""
+    cuda_build.library_for("decoder_self_block_bwd", x.dtype)  # raises for fp32: queued
     _check_block_input(x, nheads)
     b, l, d = x.shape
     m = b * l
@@ -353,9 +389,12 @@ self_block_bwd.launches = 0
 
 def cross_block_fwd(x, txt, pos, tpos, pad_mask, in_w, in_b, out_w, out_b, g_pre,
                     b_pre, g_post, b_post, nheads: int, seed: int = 0,
-                    rate: float = 0.0, save: bool = False):
-    """K3.  x [B, L, D]; txt [B, T, D]; pos [L, D]; tpos [T, D]; pad_mask
-    [B, T] bool (True = ignore that key) or None.  Returns (y, saved)."""
+                    rate: float = 0.0, save: bool = False, products: int = 0):
+    """K3.  x [B, L, D] bf16 or fp32; txt [B, T, D]; pos [L, D]; tpos
+    [T, D]; pad_mask [B, T] bool (True = ignore that key) or None.  Returns
+    (y, saved).  fp32 x goes to K3-f32 (csrc/decoder_blocks_f32.cu, counted
+    by ``cross_block_f32_fwd``), which saves nothing; ``products`` as in
+    ``self_block_fwd``."""
     work.note("decoder_cross_block", lambda: (
         work.cross_block_flops(*x.shape[:2], txt.shape[1], x.shape[2]),
         work.nbytes(x, txt, pos, tpos, in_w, in_b, out_w, out_b, g_pre, b_pre, g_post,
@@ -365,26 +404,41 @@ def cross_block_fwd(x, txt, pos, tpos, pad_mask, in_w, in_b, out_w, out_b, g_pre
             return cross_block_plain(x, txt, pos, tpos, pad_mask, in_w, in_b, out_w,
                                      out_b, g_pre, b_pre, g_post, b_post, nheads, seed,
                                      rate), None
+    lib_name = cuda_build.library_for("decoder_cross_block", x.dtype)
     _check_block_input(x, nheads)
     b, l, d = x.shape
     t = txt.shape[1]
-    kv = txt.to(torch.bfloat16).contiguous()
-    cuda_build.require(kv, "txt", torch.bfloat16, (b, t, d))
-    posb = pos.to(torch.bfloat16).contiguous()
-    tposb = tpos.to(torch.bfloat16).contiguous()
-    cuda_build.require(posb, "pos", torch.bfloat16, (l, d))
-    cuda_build.require(tposb, "tpos", torch.bfloat16, (t, d))
+    kv = txt.to(x.dtype).contiguous()
+    cuda_build.require(kv, "txt", x.dtype, (b, t, d))
+    posb = pos.to(x.dtype).contiguous()
+    tposb = tpos.to(x.dtype).contiguous()
+    cuda_build.require(posb, "pos", x.dtype, (l, d))
+    cuda_build.require(tposb, "tpos", x.dtype, (t, d))
     mask = key_mask(pad_mask, b, t, x.device).contiguous()
     cuda_build.require(mask, "key mask", torch.float32, (b, t))
     wi, wo, (bi, bo, gp, bp, gq, bq) = _weights(
         x, in_w, in_b, out_w, out_b, g_pre, b_pre, g_post, b_post)
-    new = lambda n: torch.empty(n, d, dtype=torch.bfloat16, device=x.device)
+    new = lambda n: torch.empty(n, d, dtype=x.dtype, device=x.device)
     y = torch.empty_like(x)
+    dseed, thresh, scale = kernel_args(seed, rate)
+    lib = cuda_build.load(lib_name)
+    stream = cuda_build.stream_ptr(x.device)
+    if x.dtype == torch.float32:
+        # qin, q, kin, k, v, o, op; nothing is saved: the fp32 backward is queued
+        ws = (new(b * l), new(b * l), new(b * t), new(b * t), new(b * t), new(b * l),
+              new(b * l))
+        table = cuda_build.ptr_table(x, kv, posb, tposb, mask, wi, bi, wo, bo, gp, bp, gq,
+                                     bq, y, *ws)
+        rc = lib.crog_cross_block_f32_fwd(table, b, l, t, d, nheads, dseed, thresh, scale,
+                                          products, stream)
+        cuda_build.check_launch(lib, rc, "crog_cross_block_f32_fwd")
+        cross_block_f32_fwd.launches += 1
+        return y, None
+    if products:
+        raise ValueError("planted product faults exist only in the fp32 kernels")
     # qin, q, o [B*L, D]; kin, k, v [B*T, D]
     ws = (new(b * l), new(b * l), new(b * l), new(b * t), new(b * t), new(b * t))
     op = new(b * l) if save else None
-    dseed, thresh, scale = kernel_args(seed, rate)
-    lib = cuda_build.load("decoder_blocks")
     rc = lib.crog_cross_block_fwd(
         x.data_ptr(), kv.data_ptr(), posb.data_ptr(), tposb.data_ptr(),
         mask.data_ptr(), wi.data_ptr(), bi.data_ptr(), wo.data_ptr(),
@@ -392,7 +446,7 @@ def cross_block_fwd(x, txt, pos, tpos, pad_mask, in_w, in_b, out_w, out_b, g_pre
         bq.data_ptr(), y.data_ptr(), *(w.data_ptr() for w in ws),
         None if op is None else op.data_ptr(),
         b, l, t, d, nheads, len(proj_plan(cross_proj_segments(b * l, b * t))),
-        len(out_schedule(b * l)[0]), dseed, thresh, scale, cuda_build.stream_ptr(x.device),
+        len(out_schedule(b * l)[0]), dseed, thresh, scale, stream,
     )
     cuda_build.check_launch(lib, rc, "crog_cross_block_fwd")
     cross_block_fwd.launches += 1
@@ -402,9 +456,21 @@ def cross_block_fwd(x, txt, pos, tpos, pad_mask, in_w, in_b, out_w, out_b, g_pre
 cross_block_fwd.launches = 0
 
 
+def cross_block_f32_fwd(x, *args, **kw):
+    """K3-f32: ``cross_block_fwd`` on fp32 x (its launches are counted
+    here)."""
+    if x.dtype != torch.float32:
+        raise ValueError(f"K3-f32 takes fp32 x, got {x.dtype}")
+    return cross_block_fwd(x, *args, **kw)
+
+
+cross_block_f32_fwd.launches = 0
+
+
 def cross_block_bwd(x, saved, dy, nheads: int, seed: int = 0, rate: float = 0.0):
     """K3b on a CUDA tensor.  Returns (dx, d txt, d in_w, d in_b, d out_w,
     d out_b, d g_pre, d b_pre, d g_post, d b_post)."""
+    cuda_build.library_for("decoder_cross_block_bwd", x.dtype)  # raises for fp32: queued
     _check_block_input(x, nheads)
     b, l, d = x.shape
     kv, mask, wi, wo, g_pre, g_post, qin, q, o, kin, k, v, op = saved

@@ -21,6 +21,11 @@ bias, after the dropout scale and again after the f32-statistics LayerNorm,
 one rounding of the output after the bias; in the backward dh rounded
 before db1 and dx, dy rounded for dW2 but f32 for db2, the ReLU mask taken
 from the post-dropout hidden.
+
+On fp32 x (``compute_dtype: float32``) the forward launches K4-f32
+(csrc/ffn_f32.cu: the hidden GEMM with ReLU and dropout in its epilogue,
+the LayerNorm over 2048, the output GEMM; 3xTF32 products reading W1 and
+W2 as stored); the fp32 backward is not yet ported and raises on the card.
 """
 
 from __future__ import annotations
@@ -103,15 +108,16 @@ def _check(x, w1):
         raise ValueError(
             f"FFN kernels take D={KERNEL_D}, F={KERNEL_F}, got D={d}, F={f}"
         )
-    cuda_build.require(x, "x", torch.bfloat16, (m, d))
+    cuda_build.require(x, "x", x.dtype, (m, d))
 
 
-def _params(w1, w2, d, f, **vecs):
-    """bf16 weights and f32 vectors, checked for the kernels."""
-    w1b = w1.to(torch.bfloat16).contiguous()
-    w2b = w2.to(torch.bfloat16).contiguous()
-    cuda_build.require(w1b, "w1", torch.bfloat16, (f, d))
-    cuda_build.require(w2b, "w2", torch.bfloat16, (d, f))
+def _params(w1, w2, d, f, dtype=torch.bfloat16, **vecs):
+    """Weights in ``dtype`` (the bf16 kernels' operands, or the fp32
+    parameters as they are) and f32 vectors, checked for the kernels."""
+    w1b = w1.to(dtype).contiguous()
+    w2b = w2.to(dtype).contiguous()
+    cuda_build.require(w1b, "w1", dtype, (f, d))
+    cuda_build.require(w2b, "w2", dtype, (d, f))
     out = []
     for n, t in vecs.items():
         t = t.float().contiguous()
@@ -120,33 +126,57 @@ def _params(w1, w2, d, f, **vecs):
     return w1b, w2b, out
 
 
-def ffn_fwd(x, w1, b1, gamma, beta, w2, b2, seed: int = 0, rate: float = 0.0):
-    """K4 over x [M, D] tokens."""
+def ffn_fwd(x, w1, b1, gamma, beta, w2, b2, seed: int = 0, rate: float = 0.0,
+            products: int = 0):
+    """K4 over x [M, D] tokens, bf16 or fp32.  fp32 x goes to K4-f32
+    (csrc/ffn_f32.cu, counted by ``ffn_f32_fwd``); ``products`` other than 0
+    plants a fault in its products (csrc/tf32.cuh)."""
     work.note("ffn", lambda: (work.ffn_flops(*x.shape, w1.shape[0]),
                               work.nbytes(x, w1, b1, gamma, beta, w2, b2, x)))
     if x.device.type == "cpu":
         with work.uncounted():
             return ffn_plain(x, w1, b1, gamma, beta, w2, b2, seed, rate)
+    name = cuda_build.library_for("ffn", x.dtype)
     _check(x, w1)
     m, d = x.shape
     f = w1.shape[0]
-    w1b, w2b, (b1f, gf, bef, b2f) = _params(w1, w2, d, f, b1=b1, gamma=gamma, beta=beta,
-                                            b2=b2)
+    w1b, w2b, (b1f, gf, bef, b2f) = _params(w1, w2, d, f, x.dtype, b1=b1, gamma=gamma,
+                                            beta=beta, b2=b2)
     y = torch.empty_like(x)
-    hn = torch.empty(m, f, dtype=torch.bfloat16, device=x.device)
+    hn = torch.empty(m, f, dtype=x.dtype, device=x.device)
     dseed, thresh, scale = kernel_args(seed, rate)
+    lib = cuda_build.load(name)
+    stream = cuda_build.stream_ptr(x.device)
+    if x.dtype == torch.float32:
+        # both products read W1 and W2 as stored; hn holds the hidden
+        table = cuda_build.ptr_table(x, w1b, b1f, gf, bef, w2b, b2f, y, hn)
+        rc = lib.crog_ffn_f32_fwd(table, m, d, f, dseed, thresh, scale, products, stream)
+        cuda_build.check_launch(lib, rc, "crog_ffn_f32_fwd")
+        ffn_f32_fwd.launches += 1
+        return y
+    if products:
+        raise ValueError("planted product faults exist only in the fp32 kernels")
     # both products read a B that is row-major along their output columns
     w1t, w2t = w1b.t().contiguous(), w2b.t().contiguous()
     table = cuda_build.ptr_table(x, w1t, b1f, gf, bef, w2t, b2f, y, hn)
-    lib = cuda_build.load("ffn")
     rc = lib.crog_ffn_fwd(table, m, d, f, len(fwd_schedule(m)[0]), dseed, thresh, scale,
-                          cuda_build.stream_ptr(x.device))
+                          stream)
     cuda_build.check_launch(lib, rc, "crog_ffn_fwd")
     ffn_fwd.launches += 1
     return y
 
 
 ffn_fwd.launches = 0
+
+
+def ffn_f32_fwd(x, *args, **kw):
+    """K4-f32: ``ffn_fwd`` on fp32 x (its launches are counted here)."""
+    if x.dtype != torch.float32:
+        raise ValueError(f"K4-f32 takes fp32 x, got {x.dtype}")
+    return ffn_fwd(x, *args, **kw)
+
+
+ffn_f32_fwd.launches = 0
 
 
 def ffn_bwd(x, w1, b1, gamma, beta, w2, dy, seed: int = 0, rate: float = 0.0,
@@ -156,6 +186,7 @@ def ffn_bwd(x, w1, b1, gamma, beta, w2, dy, seed: int = 0, rate: float = 0.0,
     (bf16 GEMMs with f32 results).  Returns (dx, dw1, db1, dgamma, dbeta,
     dw2, db2), and with ``with_hidden`` also the kernels' dh and hn [M, F]
     bf16 (the card tests hold them to equal bits across repeats)."""
+    cuda_build.library_for("ffn_bwd", x.dtype)  # raises for fp32: queued
     _check(x, w1)
     m, d = x.shape
     f = w1.shape[0]

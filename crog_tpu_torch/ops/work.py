@@ -23,10 +23,24 @@ import torch
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): bf16 tensor cores, f32
 # products on the tensor cores (TF32's 495 TFLOP/s over the three TF32
-# products of the 3xTF32 split, which keeps f32 accuracy), device memory
+# products of the 3xTF32 split, which keeps f32 accuracy: K5/K5b and the
+# fp32 kernels K1-f32..K4-f32), f32 FMA outside the tensor cores (the
+# library's fp32 products with TF32 off), device memory
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_TC_FLOPS = 495e12 / 3
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+
+
+def peaks(dtype: torch.dtype):
+    """(library ops' peak, hand-written kernels' peak) of a program that
+    computes in ``dtype``: bf16 runs both on the bf16 tensor cores; fp32
+    runs the library's products on the FMA units (TF32 off) and the
+    kernels' as 3xTF32.  Bytes are counted in the operands' own dtype
+    (``nbytes``), so an fp32 kernel's bound counts its fp32 bytes."""
+    if dtype == torch.float32:
+        return PEAK_F32_FLOPS, PEAK_F32_TC_FLOPS
+    return PEAK_BF16_FLOPS, PEAK_BF16_FLOPS
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS,

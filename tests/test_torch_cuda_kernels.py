@@ -30,7 +30,10 @@ magnitude.  K6 and its twin take
 the same bf16 operands and sum in f32 in another order, so a bf16 output
 differs by at most one bf16 step where a sum lands on a rounding boundary:
 2^-7 of the largest magnitude.  K6b's f32 gradient is held to 1e-4 of its
-largest magnitude, as K5/K5b.
+largest magnitude, as K5/K5b.  The fp32 kernels K1-f32..K4-f32 and their
+twins are f32 throughout (3xTF32 products in the kernels, TF32 off in the
+twins), so each output is held to a relative L2 error of 1e-5; a planted
+single-pass-TF32 or bf16-staged product must read above it.
 """
 
 import pytest
@@ -609,3 +612,166 @@ def test_cuda_put_stage_batches_equal_host_arrays(card):
                                             rel=1e-12), k
         assert batch["sentence"] == ref["sentence"]
         assert batch.get("n_valid") == ref.get("n_valid")
+
+
+# ------------------------------------------------------------ fp32 kernels
+# K1-f32..K4-f32 (compute_dtype float32) against their fp32 twins, TF32 off:
+# the kernels form every product as 3xTF32 (f32 accuracy) and sum in
+# another order than the library, so each output is held to a relative L2
+# error of 1e-5 (chip_smoke.F32_REL_L2); one TF32 pass or bf16-staged
+# operands in any single product read above it.
+F32_REL = 1e-5
+F32_FAULTS = (1, 2)  # csrc/tf32.cuh: k1xTF32, kBf16Staged
+
+
+def _f32(seed, *shape, std=1.0, device="cuda"):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(*shape, generator=g) * std).to(device)
+
+
+def _rel_l2(got, ref):
+    got, ref = got.double(), ref.double()
+    return ((got - ref).norm() / ref.norm()).item()
+
+
+@pytest.fixture
+def exact_f32(card):
+    from crog_tpu_torch.engine.crog_engine import set_exact_fp32_matmul
+
+    set_exact_fp32_matmul()
+    return card
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l,lk,heads,masked,layout", [
+    (169, 169, 32, False, "plain"), (169, 169, 32, False, "packed"),  # K1's shape
+    (169, 169, 32, False, "strided"), (676, 17, 8, True, "plain"),  # K3's step
+    (676, 676, 8, False, "packed"), (70, 300, 4, True, "plain"),  # K2's step
+    (100, 768, 8, True, "strided"), (64, 1, 8, False, "plain"),
+    (65, 17, 8, "all", "plain"), (1, 5, 2, False, "packed")])
+def test_cuda_attention_f32_matches_twin(exact_f32, l, lk, heads, masked, layout):
+    """K1-f32 against its fp32 twin.  "packed": q, k and v are column thirds
+    of one [B, L, 3D] projection (row stride 3D); "strided": they are the
+    first rows of longer sequences (batch stride past L rows).  ``masked``
+    as in the bf16 test; "all" masks every key of sample 0, whose rows are
+    then the mean of v."""
+    d = heads * 64
+    if layout == "packed":
+        qkv = _f32(1, 2, max(l, lk), 3 * d)
+        q, k, v = qkv[:, :l, :d], qkv[:, :lk, d:2 * d], qkv[:, :lk, 2 * d:]
+    elif layout == "strided":
+        q = _f32(1, 2, l + 7, d)[:, :l]
+        k, v = _f32(2, 2, lk + 3, d)[:, :lk], _f32(3, 2, lk + 3, d)[:, :lk]
+    else:
+        q, k, v = _f32(1, 2, l, d), _f32(2, 2, lk, d), _f32(3, 2, lk, d)
+    mask = None
+    if masked:
+        keep = torch.tensor([[0 if masked == "all" else lk // 2], [lk]])
+        mask = torch.where(torch.arange(lk)[None] >= keep, -1e30, 0.0).to(exact_f32)
+    before = A.fused_attention_f32.launches
+    got = A.fused_attention(q, k, v, heads, mask)
+    ref = A.attention_plain(q, k, v, heads, mask)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and A.fused_attention_f32.launches == before + 1
+    assert _rel_l2(got, ref) <= F32_REL
+    if masked == "all":
+        assert _rel_l2(got[0], v[0].mean(0).expand(l, d)) <= F32_REL
+
+
+def _f32_block(b, l, t, seed=60, d=512):
+    x, txt = _f32(seed, b, l, d), _f32(seed + 1, b, t, d)
+    pos, tpos = _f32(seed + 2, l, d, std=0.5), _f32(seed + 3, t, d, std=0.5)
+    lengths = torch.tensor([[1 + (t - 1) * i // max(1, b - 1)] for i in range(b)])
+    pad = (torch.arange(t)[None].expand(b, t) >= lengths).to("cuda")
+    w = [_f32(seed + 4, 3 * d, d, std=d**-0.5), _f32(seed + 5, 3 * d, std=0.05),
+         _f32(seed + 6, d, d, std=d**-0.5), _f32(seed + 7, d, std=0.05),
+         1 + _f32(seed + 8, d, std=0.1), _f32(seed + 9, d, std=0.05),
+         1 + _f32(seed + 10, d, std=0.1), _f32(seed + 11, d, std=0.05)]
+    return x, txt, pos, tpos, pad, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,t", [(24, 676, 17), (3, 301, 17), (1, 676, 9), (2, 5, 1)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_cuda_block_f32_kernels_match_twins(exact_f32, b, l, t, rate):
+    """K2-f32 and K3-f32 against their fp32 twins, in eval and with
+    train-mode dropout (the same counter-based mask), at the main path's
+    shapes and at ragged ones; a second call gives the same bits."""
+    x, txt, pos, tpos, pad, w = _f32_block(b, l, t)
+    cases = ((lambda: DB.self_block_fwd(x, pos, *w, 8, 7, rate)[0],
+              lambda: DB.self_block_plain(x, pos, *w, 8, 7, rate)),
+             (lambda: DB.cross_block_fwd(x, txt, pos, tpos, pad, *w, 8, 8, rate)[0],
+              lambda: DB.cross_block_plain(x, txt, pos, tpos, pad, *w, 8, 8, rate)))
+    for kern, plain in cases:
+        got, again, ref = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and torch.isfinite(got).all()
+        assert _rel_l2(got, ref) <= F32_REL
+        assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate,m", [(0.0, 16224), (0.1, 16224), (0.1, 1000), (0.0, 129),
+                                    (0.1, 1)])
+def test_cuda_ffn_f32_matches_twin(exact_f32, rate, m):
+    """K4-f32 against its fp32 twin, eval and train-mode dropout, at the main
+    path's 16224 rows and at row counts off the 128-row tile."""
+    args = (_f32(1, m, 512), _f32(2, 2048, 512, std=512**-0.5), _f32(3, 2048, std=0.05),
+            1 + _f32(4, 2048, std=0.1), _f32(5, 2048, std=0.05),
+            _f32(6, 512, 2048, std=2048**-0.5), _f32(7, 512, std=0.05))
+    before = FF.ffn_f32_fwd.launches
+    got = FF.fused_ffn(*args, 3, rate)
+    ref = FF.ffn_plain(*args, 3, rate)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and FF.ffn_f32_fwd.launches == before + 1
+    assert _rel_l2(got, ref) <= F32_REL
+
+
+@pytest.mark.cuda
+def test_cuda_fp32_kernels_tolerance_sees_tf32(exact_f32):
+    """At the main path's shapes (B=24: K1 over 169 tokens and 32 heads; K2
+    and K3 over 676 tokens, 17 masked text keys; K4 over 16224 rows), each
+    fp32 kernel meets F32_REL, and with any one of its products formed by
+    one TF32 pass or from bf16-staged operands (tools/torch_fp32_faults.py
+    prints the readings) it does not: a kernel that lost f32 accuracy in
+    any product would fail the tolerance."""
+    q, k, v = (_f32(s, 24, 169, 2048) for s in (1, 2, 3))
+    x, txt, pos, tpos, pad, w = _f32_block(24, 676, 17)
+    f = (_f32(1, 16224, 512), _f32(2, 2048, 512, std=512**-0.5), _f32(3, 2048, std=0.05),
+         1 + _f32(4, 2048, std=0.1), _f32(5, 2048, std=0.05),
+         _f32(6, 512, 2048, std=2048**-0.5), _f32(7, 512, std=0.05))
+    kernels = {
+        "K1-f32": (2, lambda p: A.fused_attention(q, k, v, 32, None, p),
+                   A.attention_plain(q, k, v, 32)),
+        "K2-f32": (4, lambda p: DB.self_block_fwd(x, pos, *w, 8, 0, 0.0, False, p)[0],
+                   DB.self_block_plain(x, pos, *w, 8)),
+        "K3-f32": (4, lambda p: DB.cross_block_fwd(x, txt, pos, tpos, pad, *w, 8, 0, 0.0,
+                                                   False, p)[0],
+                   DB.cross_block_plain(x, txt, pos, tpos, pad, *w, 8)),
+        "K4-f32": (2, lambda p: FF.ffn_fwd(*f, 0, 0.0, p), FF.ffn_plain(*f)),
+    }
+    for name, (products, call, ref) in kernels.items():
+        assert _rel_l2(call(0), ref) <= F32_REL, name
+        for i in range(products):
+            for fault in F32_FAULTS:
+                assert _rel_l2(call(fault << (2 * i)), ref) > F32_REL, (name, i, fault)
+
+
+@pytest.mark.cuda
+def test_cuda_fp32_backward_raises_naming_the_queued_kernels(exact_f32):
+    """The fp32 forwards run; their backward on the card raises before any
+    launch, naming the fp32 backward kernel that is not yet ported."""
+    q = _f32(1, 1, 70, 128).requires_grad_()
+    with pytest.raises(NotImplementedError, match="K1b-f32"):
+        A.FusedAttention.apply(q, q, q, 2).sum().backward()
+    x, txt, pos, tpos, pad, w = _f32_block(1, 20, 5)
+    x.requires_grad_()
+    with pytest.raises(NotImplementedError, match="K2b-f32"):
+        DB.decoder_self_block(x, pos, *w, 8).sum().backward()
+    with pytest.raises(NotImplementedError, match="K3b-f32"):
+        DB.decoder_cross_block(x, txt, pos, tpos, pad, *w, 8).sum().backward()
+    xf = _f32(1, 20, 512).requires_grad_()
+    fw = (_f32(2, 2048, 512), _f32(3, 2048), _f32(4, 2048), _f32(5, 2048),
+          _f32(6, 512, 2048), _f32(7, 512))
+    with pytest.raises(NotImplementedError, match="K4b-f32"):
+        FF.fused_ffn(xf, *fw).sum().backward()

@@ -17,10 +17,14 @@ must move, the parameters and buffers as held, the inputs and the output,
 each once.  The per-op input + output bytes of the eager program are
 printed beside it, labelled, and not used for the bound.
 
-    bound = max(FLOPs / peak, bytes / memory rate)
+    bound = max(aten FLOPs / peak + kernel FLOPs / kernel peak, bytes / memory rate)
 
-with the H100 SXM's dense bf16 tensor-core peak (989 TFLOP/s, the model
-computes in bf16) and its 3.35 TB/s, both overridable.  The measured
+with the H100 SXM's peaks for the model's compute dtype
+(``work.peaks``): in bf16 the dense bf16 tensor-core peak (989 TFLOP/s)
+for both; in fp32 (``compute_dtype: float32``) 67 TFLOP/s for the aten
+ops (fp32 on the FMA units, TF32 off) and 165 TFLOP/s for the kernels'
+3xTF32 products; and its 3.35 TB/s.  ``--peak-tflops`` overrides both
+FLOP peaks, ``--hbm-gbps`` the memory rate.  The measured
 latency is the mean of ``--iters - --warmup`` chained batch-1 forwards by
 CUDA events (tools/torch_latency.py's ``chained_ms``); the share is bound
 over measured.  The card's ``nvidia-smi`` name and power limit stand beside
@@ -98,16 +102,20 @@ def count(model, img, word) -> Dict:
             "op_bytes": byte_mode.total + sum(m for _, _, m in calls)}
 
 
-def roofline(model, img, word, card: str, peak_flops: float = work.PEAK_BF16_FLOPS,
+def roofline(model, img, word, card: str, peak_flops=None,
              peak_bytes: float = work.PEAK_BYTES, iters: int = 500, warmup: int = 100,
              label: str = "") -> Dict:
-    """Count, bound, time (on a card) and print the ``[roofline]`` line."""
+    """Count, bound, time (on a card) and print the ``[roofline]`` line.
+    ``peak_flops`` (one rate for aten ops and kernels) defaults to
+    ``work.peaks`` of the model's compute dtype."""
     from tools.torch_latency import chained_ms
 
     c = count(model, img, word)
-    t_ops = c["flops"] / peak_flops * 1e3
+    aten_peak, kernel_peak = ((peak_flops, peak_flops) if peak_flops is not None
+                              else work.peaks(getattr(model, "dtype", torch.bfloat16)))
+    t_ops = (c["aten_flops"] / aten_peak + (c["flops"] - c["aten_flops"]) / kernel_peak) * 1e3
     t_bytes = c["least_bytes"] / peak_bytes * 1e3
-    bound_ms, limiter = work.bound(c["flops"], c["least_bytes"], peak_flops, peak_bytes)
+    bound_ms, limiter = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
     measured = chained_ms(model, img, word, iters, warmup) if img.is_cuda else None
     c.update(t_flops_ms=t_ops, t_bytes_ms=t_bytes, bound_ms=bound_ms, limited_by=limiter,
              measured_ms=measured, share=None if measured is None else bound_ms / measured,
@@ -120,7 +128,8 @@ def roofline(model, img, word, card: str, peak_flops: float = work.PEAK_BF16_FLO
           f"{c['aten_flops'] / 1e9:.3f} + kernels from shapes: {kern} GFLOP); least bytes "
           f"{c['least_bytes'] / 1e6:.3f} MB (parameters and buffers "
           f"{c['param_bytes'] / 1e6:.3f}, inputs, output); t_flops {t_ops:.4f} ms at "
-          f"{peak_flops / 1e12:.0f} TFLOP/s, t_bytes {t_bytes:.4f} ms at "
+          f"{aten_peak / 1e12:.0f} (aten) and {kernel_peak / 1e12:.0f} (kernels) "
+          f"TFLOP/s, t_bytes {t_bytes:.4f} ms at "
           f"{peak_bytes / 1e9:.0f} GB/s; bound {bound_ms:.4f} ms, limited by {limiter}; "
           f"measured {timed}; eager per-op input+output bytes {c['op_bytes'] / 1e6:.3f} MB "
           f"(not in the bound); {card}", flush=True)
@@ -139,7 +148,9 @@ def main(argv=None):
     p.add_argument("--device", default="cuda")
     p.add_argument("--fused-stem", action="store_true",
                    help="run the s2d stem's stride-1 convs through K6")
-    p.add_argument("--peak-tflops", type=float, default=work.PEAK_BF16_FLOPS / 1e12)
+    p.add_argument("--peak-tflops", type=float, default=None,
+                   help="one FLOP peak for aten ops and kernels (default: work.peaks of "
+                        "the config's compute_dtype)")
     p.add_argument("--hbm-gbps", type=float, default=work.PEAK_BYTES / 1e9)
     p.add_argument("--iters", type=int, default=500)
     p.add_argument("--warmup", type=int, default=100)
@@ -156,7 +167,8 @@ def main(argv=None):
     random_init_(model, torch.Generator().manual_seed(cfg.manual_seed))
     model = model.to(device).eval()
     img, word = inputs(cfg, device)
-    c = roofline(model, img, word, device_name(device), a.peak_tflops * 1e12,
+    peak = None if a.peak_tflops is None else a.peak_tflops * 1e12
+    c = roofline(model, img, word, device_name(device), peak,
                  a.hbm_gbps * 1e9, a.iters, a.warmup, f"CROG eval forward ({a.config}) ")
     if a.cpu_count:
         cpu = build_crog(cfg, torch.float32, a.fused_stem)
