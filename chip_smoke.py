@@ -91,8 +91,9 @@ any failure propagates and the exit code is not 0:
  18. compute_dtype float32 (after phase 17): (a) K1-f32..K4-f32 (3xTF32,
      csrc/*_f32.cu) against their fp32 twins (TF32 off) at the main path's
      shapes, in eval and (K2-K4) with dropout RATE, within F32_REL_L2 on
-     the relative L2 error; each of their products formed by one TF32 pass
-     or from bf16-staged operands must read above it; each timed beside
+     the relative L2 error; each twin with one of its products formed by
+     one TF32 pass or from bf16-staged operands must read above it against
+     the sound twin; each timed beside
      its twin, SDPA (K1) and F.linear at the projections' and the FFN's
      shapes, all fp32; (b) crog_synthetic_r50.yaml with compute_dtype
      float32 (plain stem convs, the bf16 model's seeded state_dict): one
@@ -1364,22 +1365,25 @@ def check_s2dconv(device, timed: bool = True):
 
 
 def launch_counts():
+    """name -> (wrapper, attribute) of every kernel's launch count: each
+    forward wrapper of K1-K4 counts its fp32 build's launches apart."""
     from crog_tpu_torch.ops import attention as A
     from crog_tpu_torch.ops import decoder_blocks as DB
     from crog_tpu_torch.ops import ffn as FF
     from crog_tpu_torch.ops import lincomb as LC
     from crog_tpu_torch.ops import s2dconv as SC
 
-    return {"attention": A.fused_attention, "decoder_self_block": DB.self_block_fwd,
-            "decoder_cross_block": DB.cross_block_fwd, "ffn": FF.ffn_fwd,
-            "attention_bwd": A.attention_bwd,
-            "decoder_self_block_bwd": DB.self_block_bwd,
-            "decoder_cross_block_bwd": DB.cross_block_bwd, "ffn_bwd": FF.ffn_bwd,
-            "lincomb": LC.lincomb_fwd, "lincomb_bwd": LC.lincomb_bwd,
-            "s2dconv": SC.s2dconv_fwd, "s2dconv_wgrad": SC.s2dconv_wgrad,
-            "attention_f32": A.fused_attention_f32,
-            "decoder_self_block_f32": DB.self_block_f32_fwd,
-            "decoder_cross_block_f32": DB.cross_block_f32_fwd, "ffn_f32": FF.ffn_f32_fwd}
+    wrappers = {"attention": A.fused_attention, "decoder_self_block": DB.self_block_fwd,
+                "decoder_cross_block": DB.cross_block_fwd, "ffn": FF.ffn_fwd,
+                "attention_bwd": A.attention_bwd,
+                "decoder_self_block_bwd": DB.self_block_bwd,
+                "decoder_cross_block_bwd": DB.cross_block_bwd, "ffn_bwd": FF.ffn_bwd,
+                "lincomb": LC.lincomb_fwd, "lincomb_bwd": LC.lincomb_bwd,
+                "s2dconv": SC.s2dconv_fwd, "s2dconv_wgrad": SC.s2dconv_wgrad}
+    counts = {n: (w, "launches") for n, w in wrappers.items()}
+    for n in ("attention", "decoder_self_block", "decoder_cross_block", "ffn"):
+        counts[n + "_f32"] = (wrappers[n], "launches_f32")
+    return counts
 
 
 def _cfg(samples=SAMPLES, batch=BATCH, opts=()):
@@ -1427,8 +1431,12 @@ def build_model_and_data(device, samples=SAMPLES, batch=BATCH, opts=()):
 
 
 def _reset(wrappers):
-    for w in wrappers.values():
-        w.launches = 0
+    for w, attr in wrappers.values():
+        setattr(w, attr, 0)
+
+
+def _read(wrappers):
+    return {n: getattr(w, attr) for n, (w, attr) in wrappers.items()}
 
 
 def main_path(device, cfg, model, batches):
@@ -1439,7 +1447,7 @@ def main_path(device, cfg, model, batches):
     wrappers = launch_counts()
     _reset(wrappers)
     result = validate_with_grasp(batches, eval_step)
-    launches = {n: w.launches for n, w in wrappers.items()}
+    launches = _read(wrappers)
     forwards = len(batches)
     print(f"[main] IoU={result['iou']:.6f} J@1={result['j_index@1']:.6f} "
           f"J@5={result['j_index@5']:.6f} over {len(result['iou_list'])} samples; "
@@ -1514,7 +1522,7 @@ def train_path(device, smi: str):
     _reset(wrappers)
     metrics = train_one_epoch(batches, step, 1, cfg, TRAIN_STEPS)
     torch.cuda.synchronize()
-    launches = {n: w.launches for n, w in wrappers.items()}
+    launches = _read(wrappers)
     loss = float(metrics["loss"])
     print(f"[train] {TRAIN_STEPS} steps at batch {BATCH}: last loss {loss:.6g}, iou "
           f"{float(metrics['iou']):.4g}; launches {launches}", flush=True)
@@ -1775,7 +1783,7 @@ def remat_run(model, cfg, batch, device):
     _reset(wrappers)
     loss = float(step(batch)["loss"])
     torch.cuda.synchronize()
-    out = {"loss": loss, "launches": {n: w.launches for n, w in wrappers.items()},
+    out = {"loss": loss, "launches": _read(wrappers),
            "grads": {n: p.grad.to("cpu", torch.float32, copy=True)
                      for n, p in model.named_parameters() if p.grad is not None},
            "buffers": {n: b.to("cpu", copy=True) for n, b in model.named_buffers()}}
@@ -1882,7 +1890,7 @@ def wo_contrastive_step(device, batch, smi: str):
     with torch.no_grad():
         out = model.eval()(dense["img"], dense["word"])
     torch.cuda.synchronize()
-    fwd = {n: w.launches for n, w in wrappers.items()}
+    fwd = _read(wrappers)
     size = cfg.input_size // 4
     if tuple(out.shape) != (BATCH, size, size, 5) or not torch.isfinite(out).all():
         raise AssertionError(f"wo_contrastive output {tuple(out.shape)} not finite/shaped")
@@ -1938,16 +1946,68 @@ PER_FORWARD_F32 = {"attention_f32": 1, "decoder_self_block_f32": 3,
 # accuracy (the dropped lo*lo term is below 2^-21 of each product), and sum
 # in another order than the library's fp32 GEMMs and softmax: ~1e-6.  One
 # TF32 pass rounds each operand to 2^-11, bf16 staging to 2^-9, and either
-# moves the outputs by ~1e-4..1e-3 (``fp32_fault_readings``; the readings
-# of both are in PERF.md).
+# moves the outputs by ~1e-4..1e-3: the twin with one product so formed
+# (``fp32_twin_controls``) must read above the limit against the sound twin.
+# tools/torch_fp32_faults.py plants the same faults in the kernels
+# themselves; PERF.md has both readings.
 F32_REL_L2 = 1e-5
-# the products of each fp32 kernel, in the order of the bits of its
-# ``products`` argument (two bits each), and the faults a product can carry
-F32_PRODUCTS = {"attention_f32": ("QK^T", "P.V"),
-                "decoder_self_block_f32": ("projections", "QK^T", "P.V", "out-projection"),
-                "decoder_cross_block_f32": ("projections", "QK^T", "P.V", "out-projection"),
-                "ffn_f32": ("hidden product", "output product")}
-F32_FAULTS = {"1xTF32": 1, "bf16-staged": 2}
+# the products of each fp32 kernel's twin, by the order of the twin's
+# torch.matmul calls (``dense`` and ``attention_plain`` form each product
+# with one)
+_BLOCK_PRODUCTS = {"projections": (0, 1, 2), "QK^T": (3,), "P.V": (4,),
+                   "out-projection": (5,)}
+F32_PRODUCTS = {"attention_f32": {"QK^T": (0,), "P.V": (1,)},
+                "decoder_self_block_f32": _BLOCK_PRODUCTS,
+                "decoder_cross_block_f32": _BLOCK_PRODUCTS,
+                "ffn_f32": {"hidden product": (0,), "output product": (1,)}}
+
+
+def round_tf32(x):
+    """x rounded to TF32 as cvt.rna.tf32.f32 rounds it (10 explicit
+    mantissa bits, to nearest, ties away from zero), as f32."""
+    import torch
+
+    i = x.float().contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
+
+
+def round_bf16(x):
+    """x rounded to bf16 (to nearest even), as f32."""
+    return x.bfloat16().float()
+
+
+# a product's operands as one TF32 pass or bf16 staging forms them
+F32_FAULTS = {"1xTF32": round_tf32, "bf16-staged": round_bf16}
+
+
+class lossy_products:
+    """Within the block, torch.matmul rounds the operands of its calls
+    number ``calls`` (counted from 0) by ``rnd``: a twin with those products
+    formed at lower precision.  ``count`` is the calls made."""
+
+    def __init__(self, calls=(), rnd=round_tf32):
+        self.calls, self.rnd, self.count = set(calls), rnd, 0
+
+    def __enter__(self):
+        import torch
+
+        self.matmul = torch.matmul
+
+        def matmul(a, b, *args, **kw):
+            if self.count in self.calls:
+                a, b = self.rnd(a), self.rnd(b)
+            self.count += 1
+            return self.matmul(a, b, *args, **kw)
+
+        torch.matmul = matmul
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.matmul = self.matmul
+
+
 # card (fp32 kernels, cuDNN and cuBLAS with TF32 off) vs CPU (fp32 plain)
 # on one sample: relative L2 error of each logit map (and of each SSG
 # output).  Both compute the same fp32 function; sums in another order
@@ -1967,37 +2027,23 @@ def rel_l2(got, ref) -> float:
     return float((got - ref).norm() / ref.norm().clamp_min(1e-30))
 
 
-def _f32_case_calls(inp, products: int = 0):
-    """name -> kernel call on phase 18's fp32 inputs in eval, with
-    ``products`` (0: the kernels' 3xTF32)."""
-    from crog_tpu_torch.ops import attention as A
-    from crog_tpu_torch.ops import decoder_blocks as DB
-    from crog_tpu_torch.ops import ffn as FF
-
-    a = inp["attention"]
-    sargs, cargs, fargs = _args(inp)
-    return {
-        "attention_f32": lambda: A.fused_attention_f32(a["q"], a["k"], a["v"], a["heads"],
-                                                       None, products),
-        "decoder_self_block_f32": lambda: DB.self_block_f32_fwd(
-            *sargs, 0, 0.0, False, products)[0],
-        "decoder_cross_block_f32": lambda: DB.cross_block_f32_fwd(
-            *cargs, 0, 0.0, False, products)[0],
-        "ffn_f32": lambda: FF.ffn_f32_fwd(*fargs, 0, 0.0, products),
-    }
-
-
-def fp32_fault_readings(inp, refs):
-    """Each fp32 kernel with one product at a time formed by one TF32 pass
-    or from bf16-staged operands: {kernel: {product: {fault: rel-L2 against
-    the twin ``refs[kernel]``}}}."""
+def fp32_twin_controls(twins, refs):
+    """Each fp32 twin (``twins``: name -> plain call) with one product at a
+    time formed by one TF32 pass or from bf16-staged operands:
+    {kernel: {product: {fault: rel-L2 against the sound twin
+    ``refs[kernel]``}}}."""
     out = {}
     for name, products in F32_PRODUCTS.items():
         out[name] = {}
-        for i, product in enumerate(products):
+        calls_made = 1 + max(max(calls) for calls in products.values())
+        for product, calls in products.items():
             out[name][product] = {}
-            for fault, code in F32_FAULTS.items():
-                got = _f32_case_calls(inp, code << (2 * i))[name]()
+            for fault, rnd in F32_FAULTS.items():
+                with lossy_products(calls, rnd) as lossy:
+                    got = twins[name]()
+                if lossy.count != calls_made:
+                    raise AssertionError(f"{name}'s twin made {lossy.count} matmul calls, "
+                                         f"F32_PRODUCTS names {calls_made}")
                 out[name][product][fault] = rel_l2(got, refs[name])
     return out
 
@@ -2005,9 +2051,10 @@ def fp32_fault_readings(inp, refs):
 def fp32_kernels(device, timed: bool = True):
     """Phase 18 (a): K1-f32..K4-f32 against their fp32 twins at the main
     path's shapes in eval and with train-mode dropout (RATE, the same
-    counter-based mask), within F32_REL_L2; each planted product fault
-    above it; timed beside the twin, SDPA (K1) and F.linear at the
-    projections' and the FFN's shapes, all fp32.  Returns the records."""
+    counter-based mask), within F32_REL_L2; each twin with one product
+    formed at lower precision above it; timed beside the twin, SDPA (K1)
+    and F.linear at the projections' and the FFN's shapes, all fp32.
+    Returns the records."""
     import torch
 
     inp = kernel_inputs(device, dtype=torch.float32)
@@ -2034,15 +2081,16 @@ def fp32_kernels(device, timed: bool = True):
                   f"{F32_REL_L2})", flush=True)
             if not (bool(torch.isfinite(got).all()) and rel <= F32_REL_L2):
                 raise AssertionError(f"{name}_f32 in train mode disagrees with its twin")
-        faults = fp32_fault_readings(inp, refs)
+        faults = fp32_twin_controls({n + "_f32": c[1] for n, c in cases.items()}, refs)
         for name, by_product in faults.items():
-            print(f"[fp32] {name} faults (rel_l2 against the twin, limit {F32_REL_L2}): "
+            print(f"[fp32] {name}'s twin, one product lossy (rel_l2 against the sound twin, "
+                  f"limit {F32_REL_L2}): "
                   + "; ".join(f"{p} " + ", ".join(f"{f} {r:.3g}" for f, r in fr.items())
                               for p, fr in by_product.items()), flush=True)
         seen = [(n, p, f) for n, bp in faults.items() for p, fr in bp.items()
                 for f, r in fr.items() if not r > F32_REL_L2]
         if seen:
-            raise AssertionError(f"F32_REL_L2 does not see these planted faults: {seen}")
+            raise AssertionError(f"F32_REL_L2 does not see these lossy products: {seen}")
         if timed:
             linear_yardsticks(device, dtype=torch.float32, f=2048)
     return records
@@ -2107,7 +2155,7 @@ def fp32_e2e(device, batch, smi: str):
         _reset(wrappers)
         card = model32(img.to(device), word.to(device))
         torch.cuda.synchronize()
-        launches = {n: w.launches for n, w in wrappers.items()}
+        launches = _read(wrappers)
         cpu = cpu32(img, word)
     card = card.float().cpu()
     print(f"[fp32] one fp32 forward launches {_launched(launches)}", flush=True)
@@ -2149,7 +2197,7 @@ def fp32_e2e(device, batch, smi: str):
         print(f"[fp32] train step refused before any launch: {e}", flush=True)
     else:
         raise AssertionError("an fp32 train step on the card did not raise")
-    check_launches({n: w.launches for n, w in wrappers.items()}, {}, 0)
+    check_launches(_read(wrappers), {}, 0)
 
     step16 = make_eval_step(model16, input_size=cfg32.input_size, device=device)
     img1, word1 = img.to(device), word.to(device)
@@ -2190,7 +2238,7 @@ def fp32_ssg(device):
     _reset(wrappers)
     got, _ = make_ssg_eval_fwd(model, device)(batches[0])
     torch.cuda.synchronize()
-    check_launches({n: w.launches for n, w in wrappers.items()}, {}, 0)
+    check_launches(_read(wrappers), {}, 0)
     ref, _ = make_ssg_eval_fwd(cpu, "cpu")(batches[0])
     gaps = {k: rel_l2(got[k].float(), ref[k].float()) for k in sorted(ref)
             if torch.is_tensor(ref[k]) and ref[k].is_floating_point()}
@@ -2315,7 +2363,7 @@ def ssg_train_path(device, smi: str):
     _reset(wrappers)
     metrics = train_one_epoch(batches, step, 1, cfg, TRAIN_STEPS)
     torch.cuda.synchronize()
-    launches = {n: w.launches for n, w in wrappers.items()}
+    launches = _read(wrappers)
     peak = torch.cuda.max_memory_allocated()
     terms = {k: float(v) for k, v in metrics.items()}
     print(f"[ssg-train] {TRAIN_STEPS} steps at batch {batch} ({cfg.wire_format} wire, "
@@ -2380,7 +2428,7 @@ def ssg_eval_path(device, model, cfg, smi: str):
     j1, j5 = validate(batches, post, fwd, 1, cfg)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {n: w.launches for n, w in wrappers.items()}
+    launches = _read(wrappers)
     print(f"[ssg-eval] J@1={j1:.6f} J@5={j5:.6f} over {SSG_VAL_SAMPLES} samples at batch "
           f"{bval} ({cfg.wire_format} wire, post-processing into {ori_hw[0]}x{ori_hw[1]}; "
           f"random weights: near 0 expected); launches {launches}", flush=True)
@@ -2639,7 +2687,7 @@ def reader_eval(device, cfg, rate_cfg, smi: str):
             result = validate_with_grasp(loader, eval_step,
                                          on_batch=lambda b, out, n: seen.append(b))
             dt = time.perf_counter() - t0
-            launches = {n: w.launches for n, w in wrappers.items()}
+            launches = _read(wrappers)
             check_launches(launches, PER_FORWARD, len(ref_batches))
             for i, (got, want) in enumerate(zip(seen, ref_batches)):
                 _same_batch(got, want, f"{run} batch {i}", device)
@@ -2702,7 +2750,7 @@ def reader_eval_rates(device, cfg, eval_step, wrappers):
                 t0 = time.perf_counter()
                 validate_with_grasp(loader, eval_step)
                 dt = time.perf_counter() - t0
-                check_launches({n: w.launches for n, w in wrappers.items()}, PER_FORWARD,
+                check_launches(_read(wrappers), PER_FORWARD,
                                loader.batch_count)
                 runs[run].append((len(ds) / dt, loader.wait_seconds / loader.batch_count,
                                   loader.wait_seconds / dt))
@@ -2751,7 +2799,7 @@ def reader_train(device, cfg, rate_cfg, smi: str):
             threads.set_epoch(epoch)
             metrics = train_one_epoch(threads, step, 1, cfg, steps)
         torch.cuda.synchronize()
-        launches = {n: w.launches for n, w in wrappers.items()}
+        launches = _read(wrappers)
         loss = float(metrics["loss"])
         print(f"[reader] train: {TRAIN_STEPS} steps at batch {cfg.batch_size} through the "
               f"loader (workers {cfg.workers}): last loss {loss:.6g}; launches {launches}",
@@ -2955,7 +3003,7 @@ def _ddp_steps(net, step, batches, keep: bool):
                             if p.grad is not None}
             out["batch_stats"] = {n: b - start[n] for n, b in _running_stats(net).items()}
     torch.cuda.synchronize()
-    out["launches"] = {n: w.launches for n, w in wrappers.items()}
+    out["launches"] = _read(wrappers)
     if keep:
         out["stats"] = _running_stats(net)
     out["digest"] = _digest(net)
@@ -3515,7 +3563,7 @@ def vit_phase(device, smi: str):
         with torch.no_grad():
             vis, word, state = model(img_d, text_d)
         torch.cuda.synchronize()
-        fwd_launches = {n: w.launches for n, w in wrappers.items()}
+        fwd_launches = _read(wrappers)
         check_launches(fwd_launches, {"attention": layers}, 1)
         if (vis.shape != (VIT_BATCH, tokens - 1, cfg["embed_dim"])
                 or not all(bool(torch.isfinite(t.float()).all()) for t in (vis, word, state))):
@@ -3525,7 +3573,7 @@ def vit_phase(device, smi: str):
         _reset(wrappers)
         (model.encode_image(img_d).float() * target).sum().backward()
         torch.cuda.synchronize()
-        bwd_launches = {n: w.launches for n, w in wrappers.items()}
+        bwd_launches = _read(wrappers)
         check_launches(bwd_launches, {"attention": layers, "attention_bwd": layers}, 1)
         grads = [p.grad for p in model.visual.parameters()]
         if any(g_ is None or not bool(torch.isfinite(g_).all()) or not bool(g_.any())
@@ -3694,7 +3742,7 @@ def tools_regions(device, smi: str, crog_batch=BATCH, ssg_batch=SSG_BATCH):
         step = run()
         _reset(wrappers)
         trace, events_us = ps.trace_steps(step, TOOLS_STEPS, device)
-        launches = {n: w.launches for n, w in wrappers.items()}
+        launches = _read(wrappers)
         r = ps.rollup(trace)
         batch = crog_batch if model == "crog" else ssg_batch
         ps.report(r, TOOLS_STEPS, f"{model} train batch {batch}",

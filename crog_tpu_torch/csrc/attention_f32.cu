@@ -6,14 +6,12 @@
 // share.
 #include "attention_f32.cuh"
 
-// products: tf32.cuh Products of QK^T (bits 0-1) and P.V (bits 2-3); 0 is
-// the kernel's 3xTF32
 extern "C" int crog_attention_f32_fwd(
     const float* q, const float* k, const float* v, const float* mask, float* o,
     int batch, int heads, int lq, int lk,
     long long q_bs, long long q_rs, long long k_bs, long long k_rs,
     long long v_bs, long long v_rs, long long o_bs, long long o_rs,
-    float scale, int products, void* stream) {
+    float scale, void* stream) {
   crog::AttnF32Args a;
   a.q = q;
   a.k = k;
@@ -32,5 +30,5 @@ extern "C" int crog_attention_f32_fwd(
   a.o_bs = o_bs;
   a.o_rs = o_rs;
   a.scale = scale;
-  return (int)crog::launch_attention_f32(a, batch, products, static_cast<cudaStream_t>(stream));
+  return (int)crog::launch_attention_f32(a, batch, static_cast<cudaStream_t>(stream));
 }

@@ -248,21 +248,11 @@ static cudaError_t launch_attn_f32_p(const AttnF32Args& a, int batch, cudaStream
   return cudaGetLastError();
 }
 
-// products: bits 0-1 how QK^T forms its products, bits 2-3 P.V's (0: 3xTF32,
-// the kernel; a planted fault changes one of them)
-static cudaError_t launch_attention_f32(const AttnF32Args& a, int batch, int products,
-                                        cudaStream_t stream) {
+static cudaError_t launch_attention_f32(const AttnF32Args& a, int batch, cudaStream_t stream) {
   if (a.lk > kF32MaxLk || a.lk < 1 || a.lq < 1 || batch < 1) return cudaErrorInvalidValue;
   if ((a.q_rs | a.k_rs | a.v_rs | a.o_rs | a.q_bs | a.k_bs | a.v_bs | a.o_bs) & 3)
     return cudaErrorInvalidValue;
-  switch (products) {
-    case 0: return launch_attn_f32_p<k3xTF32, k3xTF32>(a, batch, stream);
-    case k1xTF32: return launch_attn_f32_p<k1xTF32, k3xTF32>(a, batch, stream);
-    case kBf16Staged: return launch_attn_f32_p<kBf16Staged, k3xTF32>(a, batch, stream);
-    case k1xTF32 << 2: return launch_attn_f32_p<k3xTF32, k1xTF32>(a, batch, stream);
-    case kBf16Staged << 2: return launch_attn_f32_p<k3xTF32, kBf16Staged>(a, batch, stream);
-    default: return cudaErrorInvalidValue;
-  }
+  return launch_attn_f32_p<products_of(kProdScores), products_of(kProdPV)>(a, batch, stream);
 }
 
 }  // namespace crog

@@ -95,23 +95,21 @@ __global__ void __launch_bounds__(kLnF32Warps * 32)
 
 static int row_blocks(int rows) { return (rows + kLnF32Warps - 1) / kLnF32Warps; }
 
+template <int PRODUCT>
 static cudaError_t gemm(const float* a, const float* w, const float* bias, float* c, int m, int n,
-                        long long ldc, int products, cudaStream_t s) {
+                        long long ldc, cudaStream_t s) {
   GemmF32 p{a, w, bias, c, kBlkD, kBlkD, ldc, m, n, kBlkD, Dropout{0u, 0u, 1.0f}};
-  return launch_gemm_f32<kEpiBias>(p, products, s);
+  return launch_gemm_f32<kEpiBias, PRODUCT>(p, s);
 }
 
 }  // namespace crog
-
-// products (tf32.cuh Products, 0 is the kernels' 3xTF32): bits 0-1 the q/k/v
-// projections, 2-3 QK^T, 4-5 P.V, 6-7 the out-projection
 
 // table: x [B, L, D], pos [L, D], in_w [3D, D], in_b [3D], out_w [D, D],
 // out_b [D], g_pre, b_pre, g_post, b_post [D], y [B, L, D]; work: xl, qin
 // [M, D], qk [M, 2D], v, o, op [M, D] (M = B*L)
 extern "C" int crog_self_block_f32_fwd(const void* const* table, int b, int l, int d, int heads,
                                        unsigned seed, unsigned thresh, float scale,
-                                       int products, void* stream) {
+                                       void* stream) {
   using namespace crog;
   if (d != kBlkD || heads * kF32DH != d || l < 1 || l > kF32MaxLk || b < 1)
     return (int)cudaErrorInvalidValue;
@@ -123,14 +121,12 @@ extern "C" int crog_self_block_f32_fwd(const void* const* table, int b, int l, i
         *op = out(16);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m = b * l;
-  const int pp = products & 3, ps = (products >> 2) & 3, po = (products >> 4) & 3,
-            pout = (products >> 6) & 3;
 
   ln_pos_f32_kernel<true><<<row_blocks(m), kLnF32Warps * 32, 0, s>>>(x, g_pre, b_pre, pos, l,
                                                                        xl, qin, m);
   cudaError_t err = cudaGetLastError();
-  if (err == cudaSuccess) err = gemm(qin, in_w, in_b, qk, m, 2 * d, 2 * d, pp, s);
-  if (err == cudaSuccess) err = gemm(xl, in_w + 2 * d * d, in_b + 2 * d, v, m, d, d, pp, s);
+  if (err == cudaSuccess) err = gemm<kProdProj>(qin, in_w, in_b, qk, m, 2 * d, 2 * d, s);
+  if (err == cudaSuccess) err = gemm<kProdProj>(xl, in_w + 2 * d * d, in_b + 2 * d, v, m, d, d, s);
   if (err != cudaSuccess) return (int)err;
   AttnF32Args a;
   a.q = qk;
@@ -146,8 +142,8 @@ extern "C" int crog_self_block_f32_fwd(const void* const* table, int b, int l, i
   a.v_bs = a.o_bs = (long long)l * d;
   a.v_rs = a.o_rs = d;
   a.scale = kAttnScale;
-  err = launch_attention_f32(a, b, ps | (po << 2), s);
-  if (err == cudaSuccess) err = gemm(o, out_w, out_b, op, m, d, d, pout, s);
+  err = launch_attention_f32(a, b, s);
+  if (err == cudaSuccess) err = gemm<kProdOut>(o, out_w, out_b, op, m, d, d, s);
   if (err != cudaSuccess) return (int)err;
   ln_residual_f32_kernel<<<row_blocks(m), kLnF32Warps * 32, 0, s>>>(
       op, x, g_post, b_post, Dropout{seed, thresh, scale}, y, m);
@@ -159,7 +155,7 @@ extern "C" int crog_self_block_f32_fwd(const void* const* table, int b, int l, i
 // y [B, L, D]; work: qin, q [M, D], kin, k, v [B*T, D], o, op [M, D]
 extern "C" int crog_cross_block_f32_fwd(const void* const* table, int b, int l, int t, int d,
                                         int heads, unsigned seed, unsigned thresh, float scale,
-                                        int products, void* stream) {
+                                        void* stream) {
   using namespace crog;
   if (d != kBlkD || heads * kF32DH != d || l < 1 || t < 1 || t > kF32MaxLk || b < 1)
     return (int)cudaErrorInvalidValue;
@@ -172,17 +168,16 @@ extern "C" int crog_cross_block_f32_fwd(const void* const* table, int b, int l, 
         *o = out(19), *op = out(20);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m = b * l, mt = b * t;
-  const int pp = products & 3, ps = (products >> 2) & 3, po = (products >> 4) & 3,
-            pout = (products >> 6) & 3;
 
   ln_pos_f32_kernel<true><<<row_blocks(m), kLnF32Warps * 32, 0, s>>>(x, g_pre, b_pre, pos, l,
                                                                        nullptr, qin, m);
   ln_pos_f32_kernel<false><<<row_blocks(mt), kLnF32Warps * 32, 0, s>>>(
       txt, nullptr, nullptr, tpos, t, nullptr, kin, mt);
   cudaError_t err = cudaGetLastError();
-  if (err == cudaSuccess) err = gemm(qin, in_w, in_b, q, m, d, d, pp, s);
-  if (err == cudaSuccess) err = gemm(kin, in_w + d * d, in_b + d, k, mt, d, d, pp, s);
-  if (err == cudaSuccess) err = gemm(txt, in_w + 2 * d * d, in_b + 2 * d, v, mt, d, d, pp, s);
+  if (err == cudaSuccess) err = gemm<kProdProj>(qin, in_w, in_b, q, m, d, d, s);
+  if (err == cudaSuccess) err = gemm<kProdProj>(kin, in_w + d * d, in_b + d, k, mt, d, d, s);
+  if (err == cudaSuccess)
+    err = gemm<kProdProj>(txt, in_w + 2 * d * d, in_b + 2 * d, v, mt, d, d, s);
   if (err != cudaSuccess) return (int)err;
   AttnF32Args a;
   a.q = q;
@@ -197,8 +192,8 @@ extern "C" int crog_cross_block_f32_fwd(const void* const* table, int b, int l, 
   a.k_bs = a.v_bs = (long long)t * d;
   a.q_rs = a.k_rs = a.v_rs = a.o_rs = d;
   a.scale = kAttnScale;
-  err = launch_attention_f32(a, b, ps | (po << 2), s);
-  if (err == cudaSuccess) err = gemm(o, out_w, out_b, op, m, d, d, pout, s);
+  err = launch_attention_f32(a, b, s);
+  if (err == cudaSuccess) err = gemm<kProdOut>(o, out_w, out_b, op, m, d, d, s);
   if (err != cudaSuccess) return (int)err;
   ln_residual_f32_kernel<<<row_blocks(m), kLnF32Warps * 32, 0, s>>>(
       op, x, g_post, b_post, Dropout{seed, thresh, scale}, y, m);

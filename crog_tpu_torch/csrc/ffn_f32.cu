@@ -26,12 +26,9 @@
 #include "ln_f32.cuh"
 
 // table: x [M, D], w1 [F, D], b1 [F], gamma [F], beta [F], w2 [D, F],
-// b2 [D], y [M, D], h [M, F] (work).  products: tf32.cuh Products of the
-// first product (bits 0-1) and the second (bits 2-3); 0 is the kernel's
-// 3xTF32.
+// b2 [D], y [M, D], h [M, F] (work).
 extern "C" int crog_ffn_f32_fwd(const void* const* table, int m, int d, int f,
-                                unsigned seed, unsigned thresh, float scale, int products,
-                                void* stream) {
+                                unsigned seed, unsigned thresh, float scale, void* stream) {
   using namespace crog;
   if (f != 2048 || d < kGF32K || m < 1) return (int)cudaErrorInvalidValue;
   const float* x = static_cast<const float*>(table[0]);
@@ -46,10 +43,10 @@ extern "C" int crog_ffn_f32_fwd(const void* const* table, int m, int d, int f,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 
   GemmF32 g1{x, w1, b1, h, d, d, f, m, f, d, Dropout{seed, thresh, scale}};
-  cudaError_t err = launch_gemm_f32<kEpiReluDropout>(g1, products & 3, s);
+  cudaError_t err = launch_gemm_f32<kEpiReluDropout, kProdHidden>(g1, s);
   if (err != cudaSuccess) return (int)err;
   err = launch_ln_rows_f32<2048>(h, gamma, beta, m, s);
   if (err != cudaSuccess) return (int)err;
   GemmF32 g2{h, w2, b2, y, f, f, d, m, d, f, Dropout{0u, 0u, 1.0f}};
-  return (int)launch_gemm_f32<kEpiBias>(g2, (products >> 2) & 3, s);
+  return (int)launch_gemm_f32<kEpiBias, kProdY>(g2, s);
 }

@@ -168,18 +168,13 @@ static cudaError_t launch_gemm_f32_p(const GemmF32& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// products: the tf32.cuh Products of this product (0: 3xTF32, the kernel)
-template <int EPI>
-static cudaError_t launch_gemm_f32(const GemmF32& p, int products, cudaStream_t stream) {
+// PRODUCT: which F32Product this is (tf32.cuh products_of)
+template <int EPI, int PRODUCT>
+static cudaError_t launch_gemm_f32(const GemmF32& p, cudaStream_t stream) {
   if (p.m < 1 || p.n < 2 || p.n % 2 || p.k < kGF32K || p.k % kGF32K || (p.lda | p.ldb) & 3 ||
       p.ldc & 1)
     return cudaErrorInvalidValue;
-  switch (products) {
-    case k3xTF32: return launch_gemm_f32_p<k3xTF32, EPI>(p, stream);
-    case k1xTF32: return launch_gemm_f32_p<k1xTF32, EPI>(p, stream);
-    case kBf16Staged: return launch_gemm_f32_p<kBf16Staged, EPI>(p, stream);
-    default: return cudaErrorInvalidValue;
-  }
+  return launch_gemm_f32_p<products_of(PRODUCT), EPI>(p, stream);
 }
 
 }  // namespace crog

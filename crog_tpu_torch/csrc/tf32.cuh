@@ -53,12 +53,36 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4
   mma_tf32(d, ah, bh0, bh1);
 }
 
-// How an fp32 kernel forms a product.  k3xTF32 is the kernels' arithmetic;
-// the other two exist so that a check can show its tolerance sees a kernel
-// that lost f32 accuracy (tools/torch_fp32_faults.py): one TF32 pass, or
-// both operands rounded to bf16 first (bf16 staging; a bf16 value is a TF32
+// How an fp32 kernel forms a product.  k3xTF32 is the kernels' arithmetic.
+// The other two exist only in a fault-check build, which shows that a
+// tolerance sees a kernel that lost f32 accuracy: one TF32 pass, or both
+// operands rounded to bf16 first (bf16 staging; a bf16 value is a TF32
 // value, and a product of two is exact in f32).
 enum Products : int { k3xTF32 = 0, k1xTF32 = 1, kBf16Staged = 2 };
+
+// The products of the fp32 forward kernels.
+enum F32Product : int {
+  kProdProj = 0,    // K2/K3-f32: the q/k/v projections
+  kProdScores = 1,  // K1/K2/K3-f32: QK^T
+  kProdPV = 2,      // K1/K2/K3-f32: P.V
+  kProdOut = 3,     // K2/K3-f32: the out-projection
+  kProdHidden = 4,  // K4-f32: x W1^T
+  kProdY = 5,       // K4-f32: hn W2^T
+};
+
+// A fault-check build (tools/torch_fp32_faults.py) compiles with
+// -DCROG_F32_FAULT_PRODUCT=<F32Product> -DCROG_F32_FAULT_MODE=<Products>,
+// and that one product loses f32 accuracy.  The port's builds define
+// neither, and every product is 3xTF32.
+#ifndef CROG_F32_FAULT_PRODUCT
+#define CROG_F32_FAULT_PRODUCT -1
+#define CROG_F32_FAULT_MODE k3xTF32
+#endif
+
+// how the fp32 kernels form product `product` (an F32Product)
+constexpr int products_of(int product) {
+  return product == CROG_F32_FAULT_PRODUCT ? CROG_F32_FAULT_MODE : k3xTF32;
+}
 
 template <int P>
 __device__ __forceinline__ void split_p(float x, uint32_t& hi, uint32_t& lo) {

@@ -117,13 +117,13 @@ def set_exact_fp32_matmul() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def check_train_kernels(device, dtype: torch.dtype, train: bool = True) -> None:
+def check_train_kernels(device, dtype: torch.dtype) -> None:
     """Raise before any launch where the card has no kernel for the step:
     a train step computing in fp32 on a CUDA device needs the fp32 backward
     kernels K1b-f32..K4b-f32, which are queued (ROADMAP); the fp32 eval
     forward has its kernels (K1-f32..K4-f32), and the CPU runs the plain
     twins in any dtype."""
-    if train and torch.device(device).type == "cuda" and dtype == torch.float32:
+    if torch.device(device).type == "cuda" and dtype == torch.float32:
         raise NotImplementedError(
             "a compute_dtype float32 train step on the card needs the fp32 backward "
             "kernels K1b-f32, K2b-f32, K3b-f32 and K4b-f32, which are queued (ROADMAP); "

@@ -79,7 +79,7 @@ def fwd_path(lk: int) -> str:
     return "one_pass" if lk <= ONE_PASS_MAX_KEYS else "two_pass"
 
 
-def fused_attention(q, k, v, num_heads: int, mask_add=None, products: int = 0):
+def fused_attention(q, k, v, num_heads: int, mask_add=None):
     """K1.  q [B, Lq, H*64], k/v [B, Lk, H*64], all bf16 or all fp32 (any
     row and batch stride, unit feature stride); ``mask_add`` [B, Lk] f32 or
     None.
@@ -87,10 +87,8 @@ def fused_attention(q, k, v, num_heads: int, mask_add=None, products: int = 0):
     On a CPU tensor this is ``attention_plain``; on a CUDA tensor it launches
     the build for q's dtype (``cuda_build.library_for``): crog_attention_fwd
     (csrc/attention.cu, bf16), whose kernel ``fwd_path`` names, or
-    crog_attention_f32_fwd (csrc/attention_f32.cu, fp32, counted by
-    ``fused_attention_f32``); or raises.  ``products`` other than 0 plants
-    a fault in the fp32 kernel's products (csrc/tf32.cuh; only the checks of
-    its tolerance set it)."""
+    crog_attention_f32_fwd (csrc/attention_f32.cu, fp32, counted in
+    ``fused_attention.launches_f32``); or raises."""
     work.note("attention", lambda: (
         work.attention_flops(*q.shape[:2], k.shape[1], q.shape[2]),
         work.nbytes(q, k, v, q) + (0 if mask_add is None else work.nbytes(mask_add))))
@@ -119,28 +117,18 @@ def fused_attention(q, k, v, num_heads: int, mask_add=None, products: int = 0):
             v.stride(0), v.stride(1), o.stride(0), o.stride(1), HEAD_DIM**-0.5)
     stream = cuda_build.stream_ptr(q.device)
     if q.dtype == torch.float32:
-        rc = lib.crog_attention_f32_fwd(*args, products, stream)
+        rc = lib.crog_attention_f32_fwd(*args, stream)
         cuda_build.check_launch(lib, rc, "crog_attention_f32_fwd")
-        fused_attention_f32.launches += 1
+        fused_attention.launches_f32 += 1
         return o
-    if products:
-        raise ValueError("planted product faults exist only in the fp32 kernels")
     rc = lib.crog_attention_fwd(*args, stream)
     cuda_build.check_launch(lib, rc, "crog_attention_fwd")
     fused_attention.launches += 1
     return o
 
 
-def fused_attention_f32(q, k, v, num_heads: int, mask_add=None, products: int = 0):
-    """K1-f32: ``fused_attention`` on fp32 operands (its launches are
-    counted here)."""
-    if q.dtype != torch.float32:
-        raise ValueError(f"K1-f32 takes fp32 operands, got {q.dtype}")
-    return fused_attention(q, k, v, num_heads, mask_add, products)
-
-
-fused_attention_f32.launches = 0
 fused_attention.launches = 0
+fused_attention.launches_f32 = 0
 
 
 def _split_heads(t, num_heads: int):

@@ -42,9 +42,7 @@ _DROP = [_U, _U, _F]  # dropout seed, uint32 threshold (0: off), keep scale
 # C signature of every entry point, by library.  The backward entry points
 # and the fp32 decoder blocks and FFN take a table of device pointers (one
 # host array of void*) as their first argument; its order is documented at
-# each C function.  The fp32 entry points take ``products`` before the
-# stream: 0 is the kernels' 3xTF32 (csrc/tf32.cuh), other values plant the
-# faults that tools/torch_fp32_faults.py reads.
+# each C function.
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "attention": {
         "crog_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I]
@@ -52,7 +50,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "crog_attention_fwd_attrs": [_I, _P],
     },
     "attention_f32": {
-        "crog_attention_f32_fwd": [_P] * 5 + [_I] * 4 + [_L] * 8 + [_F, _I, _P],
+        "crog_attention_f32_fwd": [_P] * 5 + [_I] * 4 + [_L] * 8 + [_F, _P],
     },
     "attention_bwd": {
         "crog_attention_bwd": [_P] * 10 + [_I] * 4 + [_F, _I, _P],
@@ -66,8 +64,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "crog_decoder_fwd_attrs": [_P],
     },
     "decoder_blocks_f32": {
-        "crog_self_block_f32_fwd": [_P] + [_I] * 4 + _DROP + [_I, _P],
-        "crog_cross_block_f32_fwd": [_P] + [_I] * 5 + _DROP + [_I, _P],
+        "crog_self_block_f32_fwd": [_P] + [_I] * 4 + _DROP + [_P],
+        "crog_cross_block_f32_fwd": [_P] + [_I] * 5 + _DROP + [_P],
     },
     "decoder_blocks_bwd": {
         "crog_self_block_bwd": [_P] + [_I] * 5 + _DROP + [_P],
@@ -79,7 +77,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "crog_ffn_fwd_attrs": [_P],
     },
     "ffn_f32": {
-        "crog_ffn_f32_fwd": [_P] + [_I] * 3 + _DROP + [_I, _P],
+        "crog_ffn_f32_fwd": [_P] + [_I] * 3 + _DROP + [_P],
     },
     "ffn_bwd": {
         "crog_ffn_bwd": [_P] + [_I] * 3 + _DROP + [_P],

@@ -287,13 +287,11 @@ def _wgrad_splits(m: int) -> int:
 
 
 def self_block_fwd(x, pos, in_w, in_b, out_w, out_b, g_pre, b_pre, g_post, b_post,
-                   nheads: int, seed: int = 0, rate: float = 0.0, save: bool = False,
-                   products: int = 0):
+                   nheads: int, seed: int = 0, rate: float = 0.0, save: bool = False):
     """K2.  x [B, L, D] bf16 or fp32; pos [L, D].  Returns (x + block(x),
     saved), where ``saved`` holds what K2b reads when ``save`` (else None).
-    fp32 x goes to K2-f32 (csrc/decoder_blocks_f32.cu, counted by
-    ``self_block_f32_fwd``), which saves nothing; ``products`` other than 0
-    plants a fault in its products (csrc/tf32.cuh)."""
+    fp32 x goes to K2-f32 (csrc/decoder_blocks_f32.cu, counted in
+    ``self_block_fwd.launches_f32``), which saves nothing."""
     work.note("decoder_self_block", lambda: (
         work.self_block_flops(*x.shape),
         work.nbytes(x, pos, in_w, in_b, out_w, out_b, g_pre, b_pre, g_post, b_post, x)))
@@ -318,12 +316,10 @@ def self_block_fwd(x, pos, in_w, in_b, out_w, out_b, g_pre, b_pre, g_post, b_pos
         ws = (new(d), new(d), new(2 * d), new(d), new(d), new(d))
         table = cuda_build.ptr_table(x, posb, wi, bi, wo, bo, gp, bp, gq, bq, y, *ws)
         rc = lib.crog_self_block_f32_fwd(table, b, l, d, nheads, dseed, thresh, scale,
-                                         products, stream)
+                                         stream)
         cuda_build.check_launch(lib, rc, "crog_self_block_f32_fwd")
-        self_block_f32_fwd.launches += 1
+        self_block_fwd.launches_f32 += 1
         return y, None
-    if products:
-        raise ValueError("planted product faults exist only in the fp32 kernels")
     ws = (new(d), new(d), new(2 * d), new(d), new(d))  # xl, qin, qk, v, o
     op = new(d) if save else None
     rc = lib.crog_self_block_fwd(
@@ -340,17 +336,7 @@ def self_block_fwd(x, pos, in_w, in_b, out_w, out_b, g_pre, b_pre, g_post, b_pos
 
 
 self_block_fwd.launches = 0
-
-
-def self_block_f32_fwd(x, *args, **kw):
-    """K2-f32: ``self_block_fwd`` on fp32 x (its launches are counted
-    here)."""
-    if x.dtype != torch.float32:
-        raise ValueError(f"K2-f32 takes fp32 x, got {x.dtype}")
-    return self_block_fwd(x, *args, **kw)
-
-
-self_block_f32_fwd.launches = 0
+self_block_fwd.launches_f32 = 0
 
 
 def self_block_bwd(x, saved, dy, nheads: int, seed: int = 0, rate: float = 0.0):
@@ -389,12 +375,11 @@ self_block_bwd.launches = 0
 
 def cross_block_fwd(x, txt, pos, tpos, pad_mask, in_w, in_b, out_w, out_b, g_pre,
                     b_pre, g_post, b_post, nheads: int, seed: int = 0,
-                    rate: float = 0.0, save: bool = False, products: int = 0):
+                    rate: float = 0.0, save: bool = False):
     """K3.  x [B, L, D] bf16 or fp32; txt [B, T, D]; pos [L, D]; tpos
     [T, D]; pad_mask [B, T] bool (True = ignore that key) or None.  Returns
     (y, saved).  fp32 x goes to K3-f32 (csrc/decoder_blocks_f32.cu, counted
-    by ``cross_block_f32_fwd``), which saves nothing; ``products`` as in
-    ``self_block_fwd``."""
+    in ``cross_block_fwd.launches_f32``), which saves nothing."""
     work.note("decoder_cross_block", lambda: (
         work.cross_block_flops(*x.shape[:2], txt.shape[1], x.shape[2]),
         work.nbytes(x, txt, pos, tpos, in_w, in_b, out_w, out_b, g_pre, b_pre, g_post,
@@ -430,12 +415,10 @@ def cross_block_fwd(x, txt, pos, tpos, pad_mask, in_w, in_b, out_w, out_b, g_pre
         table = cuda_build.ptr_table(x, kv, posb, tposb, mask, wi, bi, wo, bo, gp, bp, gq,
                                      bq, y, *ws)
         rc = lib.crog_cross_block_f32_fwd(table, b, l, t, d, nheads, dseed, thresh, scale,
-                                          products, stream)
+                                          stream)
         cuda_build.check_launch(lib, rc, "crog_cross_block_f32_fwd")
-        cross_block_f32_fwd.launches += 1
+        cross_block_fwd.launches_f32 += 1
         return y, None
-    if products:
-        raise ValueError("planted product faults exist only in the fp32 kernels")
     # qin, q, o [B*L, D]; kin, k, v [B*T, D]
     ws = (new(b * l), new(b * l), new(b * l), new(b * t), new(b * t), new(b * t))
     op = new(b * l) if save else None
@@ -454,17 +437,7 @@ def cross_block_fwd(x, txt, pos, tpos, pad_mask, in_w, in_b, out_w, out_b, g_pre
 
 
 cross_block_fwd.launches = 0
-
-
-def cross_block_f32_fwd(x, *args, **kw):
-    """K3-f32: ``cross_block_fwd`` on fp32 x (its launches are counted
-    here)."""
-    if x.dtype != torch.float32:
-        raise ValueError(f"K3-f32 takes fp32 x, got {x.dtype}")
-    return cross_block_fwd(x, *args, **kw)
-
-
-cross_block_f32_fwd.launches = 0
+cross_block_fwd.launches_f32 = 0
 
 
 def cross_block_bwd(x, saved, dy, nheads: int, seed: int = 0, rate: float = 0.0):

@@ -126,11 +126,9 @@ def _params(w1, w2, d, f, dtype=torch.bfloat16, **vecs):
     return w1b, w2b, out
 
 
-def ffn_fwd(x, w1, b1, gamma, beta, w2, b2, seed: int = 0, rate: float = 0.0,
-            products: int = 0):
+def ffn_fwd(x, w1, b1, gamma, beta, w2, b2, seed: int = 0, rate: float = 0.0):
     """K4 over x [M, D] tokens, bf16 or fp32.  fp32 x goes to K4-f32
-    (csrc/ffn_f32.cu, counted by ``ffn_f32_fwd``); ``products`` other than 0
-    plants a fault in its products (csrc/tf32.cuh)."""
+    (csrc/ffn_f32.cu, counted in ``ffn_fwd.launches_f32``)."""
     work.note("ffn", lambda: (work.ffn_flops(*x.shape, w1.shape[0]),
                               work.nbytes(x, w1, b1, gamma, beta, w2, b2, x)))
     if x.device.type == "cpu":
@@ -150,12 +148,10 @@ def ffn_fwd(x, w1, b1, gamma, beta, w2, b2, seed: int = 0, rate: float = 0.0,
     if x.dtype == torch.float32:
         # both products read W1 and W2 as stored; hn holds the hidden
         table = cuda_build.ptr_table(x, w1b, b1f, gf, bef, w2b, b2f, y, hn)
-        rc = lib.crog_ffn_f32_fwd(table, m, d, f, dseed, thresh, scale, products, stream)
+        rc = lib.crog_ffn_f32_fwd(table, m, d, f, dseed, thresh, scale, stream)
         cuda_build.check_launch(lib, rc, "crog_ffn_f32_fwd")
-        ffn_f32_fwd.launches += 1
+        ffn_fwd.launches_f32 += 1
         return y
-    if products:
-        raise ValueError("planted product faults exist only in the fp32 kernels")
     # both products read a B that is row-major along their output columns
     w1t, w2t = w1b.t().contiguous(), w2b.t().contiguous()
     table = cuda_build.ptr_table(x, w1t, b1f, gf, bef, w2t, b2f, y, hn)
@@ -167,16 +163,7 @@ def ffn_fwd(x, w1, b1, gamma, beta, w2, b2, seed: int = 0, rate: float = 0.0,
 
 
 ffn_fwd.launches = 0
-
-
-def ffn_f32_fwd(x, *args, **kw):
-    """K4-f32: ``ffn_fwd`` on fp32 x (its launches are counted here)."""
-    if x.dtype != torch.float32:
-        raise ValueError(f"K4-f32 takes fp32 x, got {x.dtype}")
-    return ffn_fwd(x, *args, **kw)
-
-
-ffn_f32_fwd.launches = 0
+ffn_fwd.launches_f32 = 0
 
 
 def ffn_bwd(x, w1, b1, gamma, beta, w2, dy, seed: int = 0, rate: float = 0.0,

@@ -32,9 +32,12 @@ differs by at most one bf16 step where a sum lands on a rounding boundary:
 2^-7 of the largest magnitude.  K6b's f32 gradient is held to 1e-4 of its
 largest magnitude, as K5/K5b.  The fp32 kernels K1-f32..K4-f32 and their
 twins are f32 throughout (3xTF32 products in the kernels, TF32 off in the
-twins), so each output is held to a relative L2 error of 1e-5; a planted
-single-pass-TF32 or bf16-staged product must read above it.
+twins), so each output is held to a relative L2 error of 1e-5; a twin
+with one single-pass-TF32 or bf16-staged product must read above it.
 """
+
+import sys
+from pathlib import Path
 
 import pytest
 import torch
@@ -621,7 +624,6 @@ def test_cuda_put_stage_batches_equal_host_arrays(card):
 # error of 1e-5 (chip_smoke.F32_REL_L2); one TF32 pass or bf16-staged
 # operands in any single product read above it.
 F32_REL = 1e-5
-F32_FAULTS = (1, 2)  # csrc/tf32.cuh: k1xTF32, kBf16Staged
 
 
 def _f32(seed, *shape, std=1.0, device="cuda"):
@@ -668,11 +670,11 @@ def test_cuda_attention_f32_matches_twin(exact_f32, l, lk, heads, masked, layout
     if masked:
         keep = torch.tensor([[0 if masked == "all" else lk // 2], [lk]])
         mask = torch.where(torch.arange(lk)[None] >= keep, -1e30, 0.0).to(exact_f32)
-    before = A.fused_attention_f32.launches
+    before = A.fused_attention.launches_f32
     got = A.fused_attention(q, k, v, heads, mask)
     ref = A.attention_plain(q, k, v, heads, mask)
     torch.cuda.synchronize()
-    assert got.dtype == torch.float32 and A.fused_attention_f32.launches == before + 1
+    assert got.dtype == torch.float32 and A.fused_attention.launches_f32 == before + 1
     assert _rel_l2(got, ref) <= F32_REL
     if masked == "all":
         assert _rel_l2(got[0], v[0].mean(0).expand(l, d)) <= F32_REL
@@ -719,11 +721,11 @@ def test_cuda_ffn_f32_matches_twin(exact_f32, rate, m):
     args = (_f32(1, m, 512), _f32(2, 2048, 512, std=512**-0.5), _f32(3, 2048, std=0.05),
             1 + _f32(4, 2048, std=0.1), _f32(5, 2048, std=0.05),
             _f32(6, 512, 2048, std=2048**-0.5), _f32(7, 512, std=0.05))
-    before = FF.ffn_f32_fwd.launches
+    before = FF.ffn_fwd.launches_f32
     got = FF.fused_ffn(*args, 3, rate)
     ref = FF.ffn_plain(*args, 3, rate)
     torch.cuda.synchronize()
-    assert got.dtype == torch.float32 and FF.ffn_f32_fwd.launches == before + 1
+    assert got.dtype == torch.float32 and FF.ffn_fwd.launches_f32 == before + 1
     assert _rel_l2(got, ref) <= F32_REL
 
 
@@ -731,30 +733,39 @@ def test_cuda_ffn_f32_matches_twin(exact_f32, rate, m):
 def test_cuda_fp32_kernels_tolerance_sees_tf32(exact_f32):
     """At the main path's shapes (B=24: K1 over 169 tokens and 32 heads; K2
     and K3 over 676 tokens, 17 masked text keys; K4 over 16224 rows), each
-    fp32 kernel meets F32_REL, and with any one of its products formed by
-    one TF32 pass or from bf16-staged operands (tools/torch_fp32_faults.py
-    prints the readings) it does not: a kernel that lost f32 accuracy in
-    any product would fail the tolerance."""
+    fp32 kernel meets F32_REL, and its twin with any one of its products
+    formed by one TF32 pass or from bf16-staged operands
+    (chip_smoke.fp32_twin_controls) does not: a kernel that lost f32
+    accuracy in any product would fail the tolerance.
+    tools/torch_fp32_faults.py reads the same faults planted in the
+    kernels."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke as cs
+
     q, k, v = (_f32(s, 24, 169, 2048) for s in (1, 2, 3))
     x, txt, pos, tpos, pad, w = _f32_block(24, 676, 17)
     f = (_f32(1, 16224, 512), _f32(2, 2048, 512, std=512**-0.5), _f32(3, 2048, std=0.05),
          1 + _f32(4, 2048, std=0.1), _f32(5, 2048, std=0.05),
          _f32(6, 512, 2048, std=2048**-0.5), _f32(7, 512, std=0.05))
     kernels = {
-        "K1-f32": (2, lambda p: A.fused_attention(q, k, v, 32, None, p),
-                   A.attention_plain(q, k, v, 32)),
-        "K2-f32": (4, lambda p: DB.self_block_fwd(x, pos, *w, 8, 0, 0.0, False, p)[0],
-                   DB.self_block_plain(x, pos, *w, 8)),
-        "K3-f32": (4, lambda p: DB.cross_block_fwd(x, txt, pos, tpos, pad, *w, 8, 0, 0.0,
-                                                   False, p)[0],
-                   DB.cross_block_plain(x, txt, pos, tpos, pad, *w, 8)),
-        "K4-f32": (2, lambda p: FF.ffn_fwd(*f, 0, 0.0, p), FF.ffn_plain(*f)),
+        "attention_f32": (lambda: A.fused_attention(q, k, v, 32),
+                          lambda: A.attention_plain(q, k, v, 32)),
+        "decoder_self_block_f32": (lambda: DB.self_block_fwd(x, pos, *w, 8)[0],
+                                   lambda: DB.self_block_plain(x, pos, *w, 8)),
+        "decoder_cross_block_f32": (
+            lambda: DB.cross_block_fwd(x, txt, pos, tpos, pad, *w, 8)[0],
+            lambda: DB.cross_block_plain(x, txt, pos, tpos, pad, *w, 8)),
+        "ffn_f32": (lambda: FF.ffn_fwd(*f), lambda: FF.ffn_plain(*f)),
     }
-    for name, (products, call, ref) in kernels.items():
-        assert _rel_l2(call(0), ref) <= F32_REL, name
-        for i in range(products):
-            for fault in F32_FAULTS:
-                assert _rel_l2(call(fault << (2 * i)), ref) > F32_REL, (name, i, fault)
+    refs = {name: plain() for name, (_, plain) in kernels.items()}
+    for name, (kern, _) in kernels.items():
+        assert _rel_l2(kern(), refs[name]) <= F32_REL, name
+    controls = cs.fp32_twin_controls({n: plain for n, (_, plain) in kernels.items()}, refs)
+    assert set(controls) == set(kernels)
+    for name, by_product in controls.items():
+        for product, by_fault in by_product.items():
+            for fault, rel in by_fault.items():
+                assert rel > F32_REL, (name, product, fault)
 
 
 @pytest.mark.cuda

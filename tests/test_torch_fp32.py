@@ -13,6 +13,7 @@ models compute in fp32 and differ only in the order of their sums.
 
 import functools
 import re
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -124,19 +125,33 @@ def test_backward_kernels_raise_at_fp32_naming_the_queued_kernel(kernel):
         cuda_build.library_for(kernel, torch.float16)
 
 
-@pytest.mark.parametrize("device,dtype,train,refused", [
-    ("cuda", torch.float32, True, True),
-    ("cuda", torch.float32, False, False),
-    ("cuda", torch.bfloat16, True, False),
-    ("cpu", torch.float32, True, False),
-    ("cpu", torch.bfloat16, True, False),
+@pytest.mark.parametrize("device,dtype,refused", [
+    ("cuda", torch.float32, True),
+    ("cuda", torch.bfloat16, False),
+    ("cpu", torch.float32, False),
+    ("cpu", torch.bfloat16, False),
 ])
-def test_fp32_train_step_guard(device, dtype, train, refused):
+def test_fp32_train_step_guard(device, dtype, refused):
     if refused:
         with pytest.raises(NotImplementedError, match="K1b-f32, K2b-f32, K3b-f32 and K4b-f32"):
-            check_train_kernels(device, dtype, train)
+            check_train_kernels(device, dtype)
     else:
-        check_train_kernels(device, dtype, train)
+        check_train_kernels(device, dtype)
+
+
+def test_make_eval_step_builds_for_an_fp32_model(monkeypatch):
+    """The guard is the train step's alone: make_eval_step builds for an
+    fp32 CROG and never asks it."""
+    from crog_tpu_torch.engine import crog_engine
+    from crog_tpu_torch.models.crog import CROG
+
+    def refuse(*args):
+        raise AssertionError("make_eval_step asked the train step's guard")
+
+    monkeypatch.setattr(crog_engine, "check_train_kernels", refuse)
+    model = CROG(**GEOMETRY, **TINY, dtype=torch.float32)
+    assert model.dtype == torch.float32
+    assert callable(crog_engine.make_eval_step(model, input_size=RES, device="cpu"))
 
 
 def test_make_train_step_refuses_an_fp32_model_on_the_card_before_any_launch():
@@ -185,20 +200,88 @@ def test_peaks_follow_the_compute_dtype(dtype, aten, kernels):
 
 
 def test_fp32_wrappers_run_their_twins_on_the_cpu():
-    """On CPU tensors the fp32 wrappers are the plain twins, in fp32, and
-    launch nothing."""
+    """On CPU tensors the wrappers are the plain twins, in fp32, and launch
+    nothing."""
     from crog_tpu_torch.ops import attention as A
     from crog_tpu_torch.ops import ffn as FF
 
     r = np.random.RandomState(0)
     q, k, v = (torch.from_numpy(r.randn(2, 70, 128).astype(np.float32)) for _ in range(3))
-    before = A.fused_attention_f32.launches
-    got = A.fused_attention_f32(q, k, v, 2)
+    before = A.fused_attention.launches_f32, FF.ffn_fwd.launches_f32
+    got = A.fused_attention(q, k, v, 2)
     assert got.dtype == torch.float32 and torch.equal(got, A.attention_plain(q, k, v, 2))
     args = [torch.from_numpy(r.randn(*s).astype(np.float32)) for s in
             ((5, 512), (2048, 512), (2048,), (2048,), (2048,), (512, 2048), (512,))]
-    assert torch.equal(FF.ffn_f32_fwd(*args, 3, 0.1), FF.ffn_plain(*args, 3, 0.1))
-    assert A.fused_attention_f32.launches == before
-    with pytest.raises(ValueError, match="fp32"):
-        A.fused_attention_f32(q.bfloat16(), k.bfloat16(), v.bfloat16(), 2)
+    assert torch.equal(FF.ffn_fwd(*args, 3, 0.1), FF.ffn_plain(*args, 3, 0.1))
+    assert (A.fused_attention.launches_f32, FF.ffn_fwd.launches_f32) == before
 
+
+def _chip_smoke():
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    return chip_smoke
+
+
+def test_round_tf32_rounds_as_cvt_rna():
+    """chip_smoke.round_tf32 keeps 10 explicit mantissa bits, rounds to
+    nearest with ties away from zero, and leaves TF32 values as they are."""
+    cs = _chip_smoke()
+    ulp = 2.0**-10
+    x = torch.tensor([1 + ulp / 2, -(1 + ulp / 2), 1 + 3 * ulp / 2, 1 + ulp / 2 - 2.0**-20,
+                      3 + 2 * ulp, 0.0, -0.0, 2.0**-100], dtype=torch.float32)
+    want = torch.tensor([1 + ulp, -(1 + ulp), 1 + 2 * ulp, 1.0, 3 + 2 * ulp, 0.0, -0.0,
+                         2.0**-100], dtype=torch.float32)
+    assert torch.equal(cs.round_tf32(x), want)
+    r = torch.from_numpy(np.random.RandomState(1).randn(4096).astype(np.float32))
+    got = cs.round_tf32(r)
+    assert (got.view(torch.int32) & 0x1FFF == 0).all()
+    assert ((got - r).abs() <= r.abs() * 2.0**-11).all()
+    assert torch.equal(cs.round_tf32(got), got)
+
+
+def _small_twins():
+    """Each fp32 kernel's twin at a small shape on the CPU."""
+    from crog_tpu_torch.ops import attention as A
+    from crog_tpu_torch.ops import decoder_blocks as DB
+    from crog_tpu_torch.ops import ffn as FF
+
+    r = np.random.RandomState(2)
+    t = lambda *s, std=1.0: torch.from_numpy((r.randn(*s) * std).astype(np.float32))
+    d = 128
+    q, k, v = t(2, 70, d), t(2, 70, d), t(2, 70, d)
+    x, txt, pos, tpos = t(2, 20, d), t(2, 5, d), t(20, d, std=0.5), t(5, d, std=0.5)
+    pad = torch.tensor([[False] * 5, [False, False, True, True, True]])
+    w = [t(3 * d, d, std=d**-0.5), t(3 * d, std=0.05), t(d, d, std=d**-0.5), t(d, std=0.05),
+         1 + t(d, std=0.1), t(d, std=0.05), 1 + t(d, std=0.1), t(d, std=0.05)]
+    f = (t(9, d), t(256, d, std=d**-0.5), t(256, std=0.05), 1 + t(256, std=0.1),
+         t(256, std=0.05), t(d, 256, std=256**-0.5), t(d, std=0.05))
+    return {"attention_f32": lambda: A.attention_plain(q, k, v, 2),
+            "decoder_self_block_f32": lambda: DB.self_block_plain(x, pos, *w, 2),
+            "decoder_cross_block_f32": lambda: DB.cross_block_plain(x, txt, pos, tpos, pad,
+                                                                    *w, 2),
+            "ffn_f32": lambda: FF.ffn_plain(*f)}
+
+
+def test_fp32_twin_controls_read_above_the_limit():
+    """Phase 18's control: each fp32 twin with any one product formed by one
+    TF32 pass or from bf16-staged operands reads above F32_REL_L2 against
+    the sound twin (fp32_twin_controls also checks that each twin makes as
+    many torch.matmul calls as F32_PRODUCTS names); torch.matmul is itself
+    again afterwards."""
+    cs = _chip_smoke()
+    matmul = torch.matmul
+    twins = _small_twins()
+    refs = {n: twin() for n, twin in twins.items()}
+    controls = cs.fp32_twin_controls(twins, refs)
+    assert torch.matmul is matmul
+    assert {n: set(c) for n, c in controls.items()} == {
+        n: set(p) for n, p in cs.F32_PRODUCTS.items()}
+    for name, by_product in controls.items():
+        for product, by_fault in by_product.items():
+            assert set(by_fault) == {"1xTF32", "bf16-staged"}
+            for fault, rel in by_fault.items():
+                assert rel > cs.F32_REL_L2, (name, product, fault)
+    with cs.lossy_products() as sound:
+        again = twins["decoder_self_block_f32"]()
+    assert sound.count == 6 and torch.equal(again, refs["decoder_self_block_f32"])
