@@ -11,9 +11,9 @@ Phases, in order (phase 17 runs after phase 7, phase 18 after phase 17);
 any failure propagates and the exit code is not 0:
   1. the card's name and power limit (nvidia-smi);
   2. build the hand-written kernels from crog_tpu_torch/csrc (nvcc, sm_90a,
-     one process per source, all at once: eleven libraries): K1-K4 (and
-     their fp32 builds K1-f32..K4-f32), the
-     backward kernels K1b-K4b, SSG's lincomb loss kernels K5/K5b, and the
+     one process per source, all at once: fourteen libraries): K1-K4 and
+     the backward kernels K1b-K4b (and their fp32 builds K1-f32..K4b-f32),
+     SSG's lincomb loss kernels K5/K5b, and the
      s2d stem's gathered conv K6 (forward and dgrad) and its wgrad K6b;
      the registers, shared memory and spills of the redesigned kernels (the
      attention forward's one- and two-pass kernels at K1's, K2's and K3's
@@ -88,26 +88,41 @@ any failure propagates and the exit code is not 0:
      crog_multiple_r50_wo_contrastive.yaml's model (no decoder), seeded:
      one eval forward and one train step on the same batch, finite, with
      no K2-K4b launch; the ``[remat]`` lines;
- 18. compute_dtype float32 (after phase 17): (a) K1-f32..K4-f32 (3xTF32,
-     csrc/*_f32.cu) against their fp32 twins (TF32 off) at the main path's
-     shapes, in eval and (K2-K4) with dropout RATE, within F32_REL_L2 on
-     the relative L2 error; each twin with one of its products formed by
-     one TF32 pass or from bf16-staged operands must read above it against
-     the sound twin; each timed beside
-     its twin, SDPA (K1) and F.linear at the projections' and the FFN's
-     shapes, all fp32; (b) crog_synthetic_r50.yaml with compute_dtype
+ 18. compute_dtype float32 (after phase 17): (a) K1-f32..K4-f32 and
+     K1b-f32..K4b-f32 (3xTF32, csrc/*_f32.cu) against their fp32 twins
+     (TF32 off) at the main path's shapes, in eval and (K2-K4) with dropout
+     RATE, within F32_REL_L2 on the relative L2 error, and every gradient
+     output of the backward with dropout RATE and 0 within F32_BWD_REL_L2
+     (K4b's twin on K4b-f32's ReLU decision, which may differ from the
+     twin's own only at pre-activations within F32_RELU_TIE of 0); K2b-f32,
+     K3b-f32 and K4b-f32 twice at both rates with equal bits; each twin
+     with one of its products formed by one TF32 pass or from bf16-staged
+     operands must read above its limit against the sound twin; each timed
+     beside its twin, SDPA (K1) or its backward (K1b), F.linear at the
+     projections' and the FFN's shapes, SDPA's backward at K2b's and K3b's
+     attention shapes and torch.mm at those of K2b's, K3b's and K4b's
+     products, all fp32; (b) crog_synthetic_r50.yaml with compute_dtype
      float32 (plain stem convs, the bf16 model's seeded state_dict): one
      forward at batch 1 on the card against the CPU in fp32, each logit
      map within F32_E2E_TOL, launching K1-f32 once, K2-f32, K3-f32 and
      K4-f32 three times each and no other kernel; (c) make_eval_step over
      phase 4's first prepared batch at 24 against the CPU: per-sample IoU
      within F32_IOU_TOL, grasp rects equal in validity and position on at
-     least F32_RECT_SHARE; (d) an fp32 train step raises before its first
-     launch (the fp32 backward kernels are queued); (e) the fp32 and the
-     bf16 model's batch-1 forward latency, eval samples/s at 24 and peak
-     memory, in turns; (f) ssg_r50.yaml with compute_dtype float32: one
-     frame through the validate path's eval forward, card vs CPU, every
-     output within F32_E2E_TOL; (g) tools/torch_roofline.py on
+     least F32_RECT_SHARE; (d) the fp32 and the bf16 model's batch-1
+     forward latency, eval samples/s at 24 and peak memory, in turns; (e)
+     one fp32 train step at batch 2 (phase 5's first batch), dropout 0,
+     BatchNorm on running statistics, plain stem, card vs CPU: the loss
+     within F32_TRAIN_LOSS_TOL and each group's gradient within
+     F32_TRAIN_GRAD_TOL, launching K1-f32 and K1b-f32 once and K2-K4(b)-f32
+     three times each and no bf16 kernel; (f) the fp32 model through
+     ``train_one_epoch`` for 4 steps at 24 on phase 5's rawlb batches: the
+     loss finite, every parameter and BatchNorm statistic moved, the same
+     launches per step; then fp32 against bf16 train samples/s and peak
+     memory, both on the plain stem, in turns; (g) ``python -m
+     crog_tpu_torch.train_crog --opts compute_dtype float32`` for 3 steps
+     at 8 and one eval exits 0; (h) ssg_r50.yaml with compute_dtype
+     float32: one frame through the validate path's eval forward, card vs
+     CPU, every output within F32_E2E_TOL; (i) tools/torch_roofline.py on
      crog_multiple_r50.yaml at compute_dtype float32; the ``[fp32]`` lines;
   8. forward latency at batch 1 and eval samples/s at batch 24;
   9. SSG training at full width (config/OCID-Grasp/ssg_r50.yaml as
@@ -234,7 +249,9 @@ any failure propagates and the exit code is not 0:
 
 Precision: fp32 products on the card run in full fp32 (TF32 off for matmul
 and cuDNN) wherever fp32 is compared; the models compute in bf16 but in
-phase 18, where they compute in fp32 (the kernels' products 3xTF32).
+phase 18, where they compute in fp32 (the kernels' products 3xTF32).  The
+JSON line's fp32 rows count their launches on phase 18's fp32 train path
+(f), the bf16 rows theirs on phase 5's.
 
 The second-to-last lines are a JSON ``kernels`` record and the nvidia-smi
 line; the last line is ``{"ok": true, "device": {...}}``.
@@ -499,8 +516,8 @@ def dropout_cases(inp):
 def backward_cases(inp):
     """name -> (kernel call, plain call, library call or None, flops, bytes,
     output names): K1b-K4b with dropout on (K1 has none), each kernel call on
-    what its forward kernel saved.  Every product takes bf16 operands, as in
-    the JAX package, so all count at the bf16 peak."""
+    what its forward kernel saved; the bytes in the operands' dtype (bf16,
+    or fp32 in phase 18), the weight and bias gradients f32 at fp32."""
     import torch
     import torch.nn.functional as F
 
@@ -529,7 +546,8 @@ def backward_cases(inp):
     sargs, cargs, fargs = _args(inp)
     x = sargs[0]
     b, l, d = x.shape
-    wbytes = 4 * d * d * 2 + 8 * d * 4  # dW (bf16) and the bias / LN rows
+    es = x.element_size()
+    wbytes = 4 * d * d * es + 8 * d * 4  # dW (in x's dtype) and the bias / LN rows
     _, ssaved = DB.self_block_fwd(*sargs, SEED + 1, RATE, save=True)
     dys = dy["decoder_self_block"]
     cases["decoder_self_block_bwd"] = (
@@ -547,7 +565,7 @@ def backward_cases(inp):
         lambda: DB.cross_block_bwd(cargs[0], csaved, dyc, 8, SEED + 2, RATE),
         lambda: DB.cross_block_bwd_plain(*cargs[:-1], dyc, 8, SEED + 2, RATE),
         None, work.cross_block_bwd_flops(b, l, t, d),
-        nbytes(cargs[0], dyc, *csaved) + nbytes(cargs[0]) + b * t * d * 2 + wbytes,
+        nbytes(cargs[0], dyc, *csaved) + nbytes(cargs[0]) + b * t * d * es + wbytes,
         ("dx", "dtxt", "d_in_w", "d_in_b", "d_out_w", "d_out_b", "d_g_pre", "d_b_pre",
          "d_g_post", "d_b_post"),
     )
@@ -595,6 +613,13 @@ SOURCES = {
     "decoder_cross_block_f32": ("crog_tpu_torch/csrc/decoder_blocks_f32.cu",
                                 "crog_tpu/ops/pallas_decoder.py:511"),
     "ffn_f32": ("crog_tpu_torch/csrc/ffn_f32.cu", "crog_tpu/ops/pallas_ffn.py:197"),
+    "attention_bwd_f32": ("crog_tpu_torch/csrc/attention_bwd_f32.cu",
+                          "crog_tpu/ops/pallas_attention.py:140"),
+    "decoder_self_block_bwd_f32": ("crog_tpu_torch/csrc/decoder_blocks_bwd_f32.cu",
+                                   "crog_tpu/ops/pallas_decoder.py:457"),
+    "decoder_cross_block_bwd_f32": ("crog_tpu_torch/csrc/decoder_blocks_bwd_f32.cu",
+                                    "crog_tpu/ops/pallas_decoder.py:550"),
+    "ffn_bwd_f32": ("crog_tpu_torch/csrc/ffn_bwd_f32.cu", "crog_tpu/ops/pallas_ffn.py:234"),
 }
 
 
@@ -679,6 +704,17 @@ F32_BLOCK_SPLIT = ((("ln_pos", ("ln_pos",)),
 F32_FFN_SPLIT = ((("hidden and output GEMMs (gemm_f32)", ("gemm_f32",)),
                   ("LayerNorm over 2048", ("ln_rows",))),
                  "the rest")
+F32_BLOCK_BWD_SPLIT = ((("LayerNorm backward", ("ln_p",)),
+                        ("attention step (dq and dkv kernels)", ("attn_bwd_f32",)),
+                        ("dO, dX and dW products (gemm_kn_f32)", ("gemm_kn",)),
+                        ("fixed-order sums", ("reduce_parts", "colsum"))),
+                       "the rest")
+F32_FFN_BWD_SPLIT = ((("recompute (gemm_f32)", ("gemm_f32_kernel",)),
+                      ("dhn and dx (gemm_kn_f32)", ("gemm_kn",)),
+                      ("LayerNorm backward", ("ffn_ln_bwd",)),
+                      ("fixed-order sums", ("reduce_parts", "colsum")),
+                      ("dW1 and dW2 (library GEMMs)", ("sgemm", "xmma", "nvjet", "cutlass"))),
+                     "the rest")
 FFN_BWD_SPLIT = ((("K4b's kernels", ("ffn_bwd", "ffn_out")),
                   ("reduce_rows", ("reduce_rows",)),
                   ("dW1 and dW2 (library GEMMs)", ("gemm", "nvjet", "cutlass"))),
@@ -766,16 +802,20 @@ def _time(rec, kern, plain, lib):
     kid = {"decoder_self_block": "K2", "decoder_cross_block": "K3",
            "decoder_self_block_bwd": "K2b", "decoder_cross_block_bwd": "K3b",
            "ffn": "K4", "ffn_bwd": "K4b", "decoder_self_block_f32": "K2-f32",
-           "decoder_cross_block_f32": "K3-f32", "ffn_f32": "K4-f32"}.get(rec["name"])
+           "decoder_cross_block_f32": "K3-f32", "ffn_f32": "K4-f32",
+           "decoder_self_block_bwd_f32": "K2b-f32", "decoder_cross_block_bwd_f32": "K3b-f32",
+           "ffn_bwd_f32": "K4b-f32"}.get(rec["name"])
     if kid is not None:
         split = {"K2": BLOCK_FWD_SPLIT, "K3": BLOCK_FWD_SPLIT, "K2b": block_bwd_parts,
                  "K3b": block_bwd_parts, "K4": FFN_FWD_SPLIT, "K4b": FFN_BWD_SPLIT,
                  "K2-f32": F32_BLOCK_SPLIT, "K3-f32": F32_BLOCK_SPLIT,
-                 "K4-f32": F32_FFN_SPLIT}.get(kid)
+                 "K4-f32": F32_FFN_SPLIT, "K2b-f32": F32_BLOCK_BWD_SPLIT,
+                 "K3b-f32": F32_BLOCK_BWD_SPLIT, "K4b-f32": F32_FFN_BWD_SPLIT}.get(kid)
         DEVICE_TIMED.append((f"{rec['name']} ({kid})", rec["ms"], kern, None, split))
-    if rec["name"] == "attention_bwd":
-        DEVICE_TIMED.append(("attention_bwd (K1b)", rec["ms"], kern, None, None))
-        DEVICE_TIMED.append(("attention_bwd's library call (SDPA backward)",
+    if rec["name"] in ("attention_bwd", "attention_bwd_f32"):
+        kid = "K1b" if rec["name"] == "attention_bwd" else "K1b-f32"
+        DEVICE_TIMED.append((f"{rec['name']} ({kid})", rec["ms"], kern, None, None))
+        DEVICE_TIMED.append((f"{rec['name']}'s library call (SDPA backward)",
                              rec["library_ms"], lib, None, None))
 
 
@@ -1366,7 +1406,7 @@ def check_s2dconv(device, timed: bool = True):
 
 def launch_counts():
     """name -> (wrapper, attribute) of every kernel's launch count: each
-    forward wrapper of K1-K4 counts its fp32 build's launches apart."""
+    wrapper of K1-K4b counts its fp32 build's launches apart."""
     from crog_tpu_torch.ops import attention as A
     from crog_tpu_torch.ops import decoder_blocks as DB
     from crog_tpu_torch.ops import ffn as FF
@@ -1381,8 +1421,9 @@ def launch_counts():
                 "lincomb": LC.lincomb_fwd, "lincomb_bwd": LC.lincomb_bwd,
                 "s2dconv": SC.s2dconv_fwd, "s2dconv_wgrad": SC.s2dconv_wgrad}
     counts = {n: (w, "launches") for n, w in wrappers.items()}
-    for n in ("attention", "decoder_self_block", "decoder_cross_block", "ffn"):
+    for n in FWD:
         counts[n + "_f32"] = (wrappers[n], "launches_f32")
+        counts[n + "_bwd_f32"] = (wrappers[n + "_bwd"], "launches_f32")
     return counts
 
 
@@ -1491,23 +1532,30 @@ def check_moved(model, params0, stats0, tag: str):
         raise AssertionError(f"did not move: {frozen[:5]} {still[:5]}")
 
 
+def prepared_train_batches():
+    """Two prepared synthetic train batches at BATCH on the config's wire
+    (rawlb), as phases 5 and 18 train on them."""
+    from crog_tpu_torch.data.loader import DataLoader
+    from crog_tpu_torch.test_crog import build_dataset
+
+    cfg = _cfg(2 * BATCH, BATCH)
+    return list(DataLoader(build_dataset(cfg, cfg.train_split), BATCH, shuffle=True,
+                           drop_last=True, seed=SEED))
+
+
 def train_path(device, smi: str):
     """Phase 5: train_one_epoch at full width, batch 24, rawlb batches,
     through every forward and backward kernel; returns (launches, samples/s,
     the prepared train batches, cfg, the train step)."""
     import torch
 
-    from crog_tpu_torch.data.loader import DataLoader
     from crog_tpu_torch.engine.crog_engine import make_train_step, train_one_epoch
     from crog_tpu_torch.engine.optim import make_optimizer
-    from crog_tpu_torch.test_crog import build_dataset
     from crog_tpu_torch.utils.seed import set_random_seed
 
     cfg = _cfg(2 * BATCH, BATCH, ("print_freq", "2", "epochs", "1"))
     t0 = time.perf_counter()
-    loader = DataLoader(build_dataset(cfg, cfg.train_split), BATCH, shuffle=True,
-                        drop_last=True, seed=SEED)
-    prepared = list(loader)
+    prepared = prepared_train_batches()
     print(f"[train] {2 * BATCH} synthetic train samples ({cfg.wire_format} wire, "
           f"{host_bytes(prepared[0])} host bytes per sample to the card) prepared in "
           f"{time.perf_counter() - t0:.1f} s (host)", flush=True)
@@ -1613,36 +1661,50 @@ def _group(name):
     return next(g for g, prefix in GROUPS if name.startswith(prefix))
 
 
-def train_step_gap(batch, device, running_bn: bool = True, opts=()):
-    """(loss rel error, {group: grad rel-L2}) of one train step at batch 2,
-    dropout 0, compute dtype on ``device`` vs fp32 on the CPU; ``opts``
-    override further config keys."""
+def mini_batch(batch, input_size: int):
+    """Two samples of ``batch`` with different sentences (near-equal text
+    states would leave the 2-sample txt_proj BatchNorm a vanishing
+    variance), unpacked on the CPU."""
     import torch
 
     from crog_tpu_torch.engine.crog_engine import device_batch
-    from crog_tpu_torch.models.clip import BatchNorm
-    from crog_tpu_torch.models.crog import crog_losses
 
-    cfg = _cfg(opts=("dropout", "0.0", *opts))
-    # two samples with different sentences (near-equal text states would
-    # leave the 2-sample txt_proj BatchNorm a vanishing variance)
     words = [tuple(w) for w in batch["word"]]
     j = next((i for i in range(1, len(words)) if words[i] != words[0]), 1)
-    mini = device_batch({k: v[[0, j]] for k, v in batch.items()
-                         if isinstance(v, np.ndarray)}, torch.device("cpu"), cfg.input_size)
-    out = []
-    for dev, dtype in ((device, None), (torch.device("cpu"), torch.float32)):
-        model = _model(cfg, dev, dtype).train()
-        for mod in model.modules():
-            if running_bn and isinstance(mod, BatchNorm):
-                mod.eval()
-        put = lambda k: mini[k].to(dev)
-        loss, _ = crog_losses(model(put("img"), put("word")),
-                              {k: put(k) for k in ("mask", "qua", "sin", "cos", "wid")})
-        loss.backward()
-        out.append((loss.item(), {n: p.grad.float().cpu() for n, p in
-                                  model.named_parameters() if p.grad is not None}))
-    (lc, gc), (lp, gp) = out
+    return device_batch({k: v[[0, j]] for k, v in batch.items() if isinstance(v, np.ndarray)},
+                        torch.device("cpu"), input_size)
+
+
+def grad_model(cfg, dev, dtype=None, running_bn: bool = True, fused_stem: bool = True):
+    """The seeded model of ``cfg`` in train mode on ``dev``, its BatchNorm
+    layers on their running statistics when ``running_bn``."""
+    from crog_tpu_torch.models.clip import BatchNorm
+
+    model = _model(cfg, dev, dtype, fused_stem=fused_stem).train()
+    for mod in model.modules():
+        if running_bn and isinstance(mod, BatchNorm):
+            mod.eval()
+    return model
+
+
+def train_grads(model, mini):
+    """(loss, {name: gradient on the CPU}) of one forward and backward of
+    ``model`` on ``mini`` (the gradients are zeroed first)."""
+    from crog_tpu_torch.models.crog import crog_losses
+
+    model.zero_grad(set_to_none=True)
+    dev = next(model.parameters()).device
+    put = lambda k: mini[k].to(dev)
+    loss, _ = crog_losses(model(put("img"), put("word")),
+                          {k: put(k) for k in ("mask", "qua", "sin", "cos", "wid")})
+    loss.backward()
+    return loss.item(), {n: p.grad.float().cpu() for n, p in model.named_parameters()
+                         if p.grad is not None}
+
+
+def grad_gap(card, cpu, tag: str = "[e2e-train]"):
+    """(loss rel error, {group: grad rel-L2}) of ``train_grads`` results."""
+    (lc, gc), (lp, gp) = card, cpu
     if set(gc) != set(gp):
         raise AssertionError("the two runs give gradients for different parameters")
     groups = {}
@@ -1651,9 +1713,22 @@ def train_step_gap(batch, device, running_bn: bool = True, opts=()):
         num = sum(float((gc[n] - gp[n]).pow(2).sum()) for n in names)
         den = sum(float(gp[n].pow(2).sum()) for n in names)
         groups[g] = (num / max(den, 1e-30)) ** 0.5
-    print(f"[e2e-train] loss {lc:.6g} vs cpu fp32 {lp:.6g}; grad rel_l2 "
+    print(f"{tag} loss {lc:.6g} vs cpu fp32 {lp:.6g}; grad rel_l2 "
           + ", ".join(f"{g} {r:.4g}" for g, r in groups.items()), flush=True)
     return abs(lc - lp) / abs(lp), groups
+
+
+def train_step_gap(batch, device, running_bn: bool = True, opts=()):
+    """(loss rel error, {group: grad rel-L2}) of one train step at batch 2,
+    dropout 0, compute dtype on ``device`` vs fp32 on the CPU; ``opts``
+    override further config keys."""
+    import torch
+
+    cfg = _cfg(opts=("dropout", "0.0", *opts))
+    mini = mini_batch(batch, cfg.input_size)
+    card = train_grads(grad_model(cfg, device, None, running_bn), mini)
+    cpu = train_grads(grad_model(cfg, torch.device("cpu"), torch.float32, running_bn), mini)
+    return grad_gap(card, cpu)
 
 
 def e2e_train_step(batch, device):
@@ -1936,11 +2011,14 @@ def remat_phase(device, batch, smi: str):
     return readings
 
 
-# phase 18: the CROG eval path at compute_dtype float32 on the card, through
-# the fp32 kernels K1-f32..K4-f32 (csrc/attention_f32.cu,
-# decoder_blocks_f32.cu, ffn_f32.cu)
+# phase 18: the CROG eval and train paths at compute_dtype float32 on the
+# card, through the fp32 kernels K1-f32..K4-f32 (csrc/attention_f32.cu,
+# decoder_blocks_f32.cu, ffn_f32.cu) and K1b-f32..K4b-f32
+# (csrc/attention_bwd_f32.cu, decoder_blocks_bwd_f32.cu, ffn_bwd_f32.cu)
 PER_FORWARD_F32 = {"attention_f32": 1, "decoder_self_block_f32": 3,
                    "decoder_cross_block_f32": 3, "ffn_f32": 3}
+PER_STEP_F32 = {**PER_FORWARD_F32, **{n.replace("_f32", "_bwd_f32"): k
+                                      for n, k in PER_FORWARD_F32.items()}}
 # fp32 kernel vs its fp32 twin on the card (TF32 off), relative L2 error of
 # each output.  The kernels form every product as 3xTF32, which keeps f32
 # accuracy (the dropped lo*lo term is below 2^-21 of each product), and sum
@@ -1960,6 +2038,34 @@ F32_PRODUCTS = {"attention_f32": {"QK^T": (0,), "P.V": (1,)},
                 "decoder_self_block_f32": _BLOCK_PRODUCTS,
                 "decoder_cross_block_f32": _BLOCK_PRODUCTS,
                 "ffn_f32": {"hidden product": (0,), "output product": (1,)}}
+# fp32 backward kernel vs its fp32 twin on the card (TF32 off), relative L2
+# error of each gradient output, every output within it; set between the
+# sound kernels and the twins with one product formed by one TF32 pass or
+# from bf16-staged operands (the control reads the worst output), as
+# F32_REL_L2 is.  tools/torch_fp32_faults.py plants the same faults in the
+# kernels; PERF.md has both readings.
+F32_BWD_REL_L2 = 1e-5
+# the products of each fp32 backward kernel in its twin's torch.matmul
+# calls: the block twins first recompute the forward (calls 0-5), which the
+# kernels read from the forward's intermediates
+_BLOCK_BWD_PRODUCTS = {"dO": (6,), "QK^T": (7,), "dV": (8,), "dP": (9,), "dQ": (10,),
+                       "dK": (11,), "dX": (12, 13, 14), "dW": (15, 16, 17, 18)}
+F32_BWD_PRODUCTS = {"attention_bwd_f32": {"QK^T": (0,), "dV": (1,), "dP": (2,), "dQ": (3,),
+                                          "dK": (4,)},
+                    "decoder_self_block_bwd_f32": _BLOCK_BWD_PRODUCTS,
+                    "decoder_cross_block_bwd_f32": _BLOCK_BWD_PRODUCTS,
+                    "ffn_bwd_f32": {"recompute": (0,), "dhn": (1,), "dx": (2,)}}
+# torch.matmul calls of a twin where it makes more than its products name:
+# the FFN twin's last two are dW1 and dW2, library products in the port too
+F32_MATMULS = {"ffn_bwd_f32": 5}
+# K4b-f32 against its twin: the ReLU's decision h > 0 is discontinuous, and
+# a pre-activation within rounding of 0 may take one sign in the kernel's
+# recompute (3xTF32, the forward's own sums) and the other in the twin's
+# fp32 GEMM; one such element moves a whole row of dx by order 1 (about
+# 2.5e-4 of dx's norm at the main path).  So the twin takes the kernel's
+# decision, and every element where the two decisions differ must have a
+# pre-activation |x W1^T + b1| (of order 1 here) within F32_RELU_TIE of 0.
+F32_RELU_TIE = 1e-5
 
 
 def round_tf32(x):
@@ -2020,6 +2126,21 @@ F32_E2E_TOL = 1e-3
 # differ by less than the card-CPU gap can swap rank)
 F32_IOU_TOL = 2e-3
 F32_RECT_SHARE = 0.95
+# one fp32 train step at batch 2, dropout 0, BatchNorm on running
+# statistics, card (fp32 kernels, cuDNN and cuBLAS with TF32 off) vs CPU
+# (fp32 plain): the loss's relative error and each group's gradient
+# relative L2 error.  Both compute the same fp32 function and differ in the
+# order of their sums, which the attention pool's softmax gradient (dS =
+# P (dP - delta), cancelling) amplifies in the vision group to 1.2e-3 (its
+# q and k projections); the card repeats itself to 3e-7.  Each group's
+# limit lies between its sound reading and the step with the library's
+# TF32 on (cuBLAS and cuDNN); the decoder's, whose gradients K2b-K4b-f32
+# compute, also below every backward kernel product planted bf16-staged
+# and K4b-f32's recompute planted as one TF32 pass (tools/torch_fp32_faults.py;
+# PERF.md has the readings).
+F32_TRAIN_LOSS_TOL = 3e-5
+F32_TRAIN_GRAD_TOL = {"vision": 3e-3, "text": 1e-3, "neck": 1.5e-3, "decoder": 2.5e-4,
+                      "projector": 2e-4}
 
 
 def rel_l2(got, ref) -> float:
@@ -2027,25 +2148,64 @@ def rel_l2(got, ref) -> float:
     return float((got - ref).norm() / ref.norm().clamp_min(1e-30))
 
 
-def fp32_twin_controls(twins, refs):
+def worst_rel_l2(got, ref) -> float:
+    """rel_l2 of a tensor, or the largest over the outputs of a tuple (a
+    backward's gradients; extra outputs of ``got`` are not compared)."""
+    if isinstance(ref, (tuple, list)):
+        return max(rel_l2(g, r) for g, r in zip(got, ref))
+    return rel_l2(got, ref)
+
+
+def fp32_twin_controls(twins, refs, products=None):
     """Each fp32 twin (``twins``: name -> plain call) with one product at a
     time formed by one TF32 pass or from bf16-staged operands:
     {kernel: {product: {fault: rel-L2 against the sound twin
-    ``refs[kernel]``}}}."""
+    ``refs[kernel]`` (of a backward, its worst output)}}}, over the
+    kernels of ``products`` (F32_PRODUCTS, or F32_BWD_PRODUCTS)."""
     out = {}
-    for name, products in F32_PRODUCTS.items():
+    for name, by_product in (F32_PRODUCTS if products is None else products).items():
         out[name] = {}
-        calls_made = 1 + max(max(calls) for calls in products.values())
-        for product, calls in products.items():
+        calls_made = F32_MATMULS.get(name, 1 + max(max(c) for c in by_product.values()))
+        for product, calls in by_product.items():
             out[name][product] = {}
             for fault, rnd in F32_FAULTS.items():
                 with lossy_products(calls, rnd) as lossy:
                     got = twins[name]()
                 if lossy.count != calls_made:
                     raise AssertionError(f"{name}'s twin made {lossy.count} matmul calls, "
-                                         f"F32_PRODUCTS names {calls_made}")
-                out[name][product][fault] = rel_l2(got, refs[name])
+                                         f"expected {calls_made}")
+                out[name][product][fault] = worst_rel_l2(got, refs[name])
     return out
+
+
+def check_controls(controls, limit: float, tag: str = "[fp32]"):
+    """Print each twin control; raise unless every one reads above ``limit``."""
+    for name, by_product in controls.items():
+        print(f"{tag} {name}'s twin, one product lossy (rel_l2 against the sound twin, "
+              f"limit {limit}): "
+              + "; ".join(f"{p} " + ", ".join(f"{f} {r:.3g}" for f, r in fr.items())
+                          for p, fr in by_product.items()), flush=True)
+    seen = [(n, p, f) for n, bp in controls.items() for p, fr in bp.items()
+            for f, r in fr.items() if not r > limit]
+    if seen:
+        raise AssertionError(f"limit {limit} does not see these lossy products: {seen}")
+
+
+def check_f32_grads(label: str, outs, got, ref):
+    """Each gradient output of an fp32 backward kernel finite and within
+    F32_BWD_REL_L2 of its twin's; returns the largest abs error."""
+    import torch
+
+    torch.cuda.synchronize()
+    rels = {o: rel_l2(g, r) for o, g, r in zip(outs, got, ref)}
+    err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    print(f"[fp32] {label}: rel_l2 " + ", ".join(f"{o} {r:.3g}" for o, r in rels.items())
+          + f" (limit {F32_BWD_REL_L2}), max_abs_err {err:.3g}", flush=True)
+    bad = [o for o, g in zip(outs, got)
+           if not (bool(torch.isfinite(g).all()) and rels[o] <= F32_BWD_REL_L2)]
+    if bad:
+        raise AssertionError(f"{label} disagrees with its fp32 twin at {bad}")
+    return err
 
 
 def fp32_kernels(device, timed: bool = True):
@@ -2081,19 +2241,181 @@ def fp32_kernels(device, timed: bool = True):
                   f"{F32_REL_L2})", flush=True)
             if not (bool(torch.isfinite(got).all()) and rel <= F32_REL_L2):
                 raise AssertionError(f"{name}_f32 in train mode disagrees with its twin")
-        faults = fp32_twin_controls({n + "_f32": c[1] for n, c in cases.items()}, refs)
-        for name, by_product in faults.items():
-            print(f"[fp32] {name}'s twin, one product lossy (rel_l2 against the sound twin, "
-                  f"limit {F32_REL_L2}): "
-                  + "; ".join(f"{p} " + ", ".join(f"{f} {r:.3g}" for f, r in fr.items())
-                              for p, fr in by_product.items()), flush=True)
-        seen = [(n, p, f) for n, bp in faults.items() for p, fr in bp.items()
-                for f, r in fr.items() if not r > F32_REL_L2]
-        if seen:
-            raise AssertionError(f"F32_REL_L2 does not see these lossy products: {seen}")
+        check_controls(fp32_twin_controls({n + "_f32": c[1] for n, c in cases.items()},
+                                          refs), F32_REL_L2)
         if timed:
             linear_yardsticks(device, dtype=torch.float32, f=2048)
+        records.update(fp32_backward_kernels(inp, timed))
     return records
+
+
+def ffn_f32_relu_decision(args, seed: int, rate: float):
+    """K4b-f32's ReLU decision over ``args`` (x, w1, b1, gamma, beta, w2,
+    dy) for ffn_bwd_plain's ``relu_mask``: its dh != 0 (0 where dropout
+    drops an element, whatever the decision), after checking that it
+    differs from the twin's only at pre-activations within F32_RELU_TIE."""
+    from crog_tpu_torch.ops import decoder_blocks as DB
+    from crog_tpu_torch.ops import ffn as FF
+    from crog_tpu_torch.ops.dropout import dropout_keep
+
+    active = FF.ffn_bwd(*args, seed, rate, with_hidden=True)[7] != 0
+    pre = DB.dense(*args[:3])
+    differ = ((pre > 0) & dropout_keep(seed, rate, *pre.shape, pre.device)) != active
+    n = int(differ.sum())
+    tie = float(pre[differ].abs().max()) if n else 0.0
+    print(f"[fp32] ffn_bwd_f32's ReLU decision at M={pre.shape[0]}, dropout {rate}: differs "
+          f"from the twin's at {n} of {active.numel()} hidden elements, largest "
+          f"|pre-activation| there {tie:.3g} (limit {F32_RELU_TIE})", flush=True)
+    if tie > F32_RELU_TIE:
+        raise AssertionError(f"K4b-f32's ReLU decision differs from the twin's at "
+                             f"|pre-activation| {tie:.3g}")
+    return active
+
+
+def f32_backward_cases(inp):
+    """``backward_cases`` for phase 18 (fp32 ``inp``), K4b's twin on K4b-f32's
+    ReLU decision (``ffn_f32_relu_decision``)."""
+    from crog_tpu_torch.ops import ffn as FF
+
+    cases = backward_cases(inp)
+    fa = (*_args(inp)[2][:6], inp["dy"]["ffn"])
+    active = ffn_f32_relu_decision(fa, SEED + 3, RATE)
+    kern, _, lib, flops, nb, outs = cases["ffn_bwd"]
+    twin = lambda: FF.ffn_bwd_plain(*fa, SEED + 3, RATE, relu_mask=active)
+    cases["ffn_bwd"] = (kern, twin, lib, flops, nb, outs)
+    return cases
+
+
+def fp32_backward_kernels(inp, timed: bool = True):
+    """Phase 18 (a), the backward: K1b-f32..K4b-f32 at the main path's
+    shapes against their fp32 twins, every gradient output within
+    F32_BWD_REL_L2, with dropout RATE (K1b has none) and at dropout 0;
+    K2b-f32, K3b-f32 and K4b-f32 twice at both rates with equal bits; each
+    twin with one product formed at lower precision above the limit; each
+    kernel timed beside its twin (K1b-f32 beside SDPA's fp32 backward),
+    SDPA's fp32 backward at K2b's and K3b's attention shapes and fp32
+    torch.mm at the shapes of K2b's, K3b's and K4b's products.  Returns the
+    records."""
+    records, refs = {}, {}
+    cases = f32_backward_cases(inp)
+    for name, (kern, plain, lib, flops, nb, outs) in cases.items():
+        n32 = name + "_f32"
+        got, refs[n32] = kern(), plain()
+        rate = 0.0 if name == "attention_bwd" else RATE
+        err = check_f32_grads(f"{n32} (dropout {rate})", outs, got, refs[n32])
+        records[n32] = _record(n32, err, *bound(flops, nb, PEAK_F32_TC_FLOPS))
+        if timed:
+            _time(records[n32], kern, plain, lib if name == "attention_bwd" else None)
+    del got
+    f32_bwd_rate_checks(inp)
+    check_controls(fp32_twin_controls({n + "_f32": c[1] for n, c in cases.items()}, refs,
+                                      F32_BWD_PRODUCTS), F32_BWD_REL_L2)
+    if timed:
+        f32_grad_yardsticks(inp["ffn"]["x"].device)
+    return records
+
+
+def f32_bwd_rate_checks(inp):
+    """K2b-f32, K3b-f32 and K4b-f32 at dropout 0 against their twins, and
+    at dropout 0 and RATE twice each: every output, and K4b-f32's dh and
+    hn, with equal bits."""
+    import torch
+
+    from crog_tpu_torch.ops import decoder_blocks as DB
+    from crog_tpu_torch.ops import ffn as FF
+
+    sargs, cargs, fargs = _args(inp)
+    x, xc = sargs[0], cargs[0]
+    dys, dyc, dyf = (inp["dy"][n] for n in ("decoder_self_block", "decoder_cross_block", "ffn"))
+    fa = (*fargs[:6], dyf)
+    outs = {"decoder_self_block_bwd_f32": ("dx", "d_in_w", "d_in_b", "d_out_w", "d_out_b",
+                                           "d_g_pre", "d_b_pre", "d_g_post", "d_b_post"),
+            "decoder_cross_block_bwd_f32": ("dx", "dtxt", "d_in_w", "d_in_b", "d_out_w",
+                                            "d_out_b", "d_g_pre", "d_b_pre", "d_g_post",
+                                            "d_b_post"),
+            "ffn_bwd_f32": ("dx", "dw1", "db1", "dgamma", "dbeta", "dw2", "db2")}
+    for rate in (0.0, RATE):
+        _, ssaved = DB.self_block_fwd(*sargs, SEED + 1, rate, save=True)
+        _, csaved = DB.cross_block_fwd(*cargs, SEED + 2, rate, save=True)
+        calls = {
+            "decoder_self_block_bwd_f32": (
+                lambda: DB.self_block_bwd(x, ssaved, dys, 8, SEED + 1, rate),
+                lambda: DB.self_block_bwd_plain(*sargs[:-1], dys, 8, SEED + 1, rate)),
+            "decoder_cross_block_bwd_f32": (
+                lambda: DB.cross_block_bwd(xc, csaved, dyc, 8, SEED + 2, rate),
+                lambda: DB.cross_block_bwd_plain(*cargs[:-1], dyc, 8, SEED + 2, rate)),
+            "ffn_bwd_f32": (lambda: FF.ffn_bwd(*fa, SEED + 3, rate, with_hidden=True),
+                            lambda: FF.ffn_bwd_plain(*fa, SEED + 3, rate, relu_mask=active)),
+        }
+        if rate == 0.0:
+            active = ffn_f32_relu_decision(fa, SEED + 3, rate)
+        for name, (kern, plain) in calls.items():
+            a, b = kern(), kern()
+            torch.cuda.synchronize()
+            differ = [i for i, (u, v) in enumerate(zip(a, b)) if not torch.equal(u, v)]
+            print(f"[fp32] {name} (dropout {rate}) twice: {len(a)} outputs "
+                  f"{'equal bits' if not differ else f'differ at {differ}'}", flush=True)
+            if differ:
+                raise AssertionError(f"{name} is not repeatable: outputs {differ}")
+            if rate == 0.0:
+                check_f32_grads(f"{name} (dropout 0)", outs[name], a, plain())
+            del a, b
+        del ssaved, csaved
+
+
+def f32_grad_yardsticks(device, b=BATCH, l=676, t=17, d=512, f=2048):
+    """Timed as yardsticks only (the port computes these in its own
+    kernels, but K4b-f32's dW1 and dW2): SDPA's fp32 backward at K2b's self
+    attention (676 tokens, 8 heads) and K3b's cross attention (676 queries
+    over 17 keys, the key mask as ``attn_mask``), and fp32 torch.mm, TF32
+    off, at the shapes of the products of K2b-f32 (dO and each dX [B*L, D] x
+    [D, D], the three dX as one [B*L, 3D] x [3D, D], each dW over B*L
+    rows), K3b-f32 (dW over B*T rows) and K4b-f32 (dhn [B*L, D] x [D, F],
+    dx [B*L, F] x [F, D], dW1 and dW2 over B*L rows)."""
+    import torch
+    import torch.nn.functional as F
+
+    from crog_tpu_torch.ops import attention as A
+
+    g = torch.Generator().manual_seed(SEED + 12)
+    rnd = lambda *shape: torch.randn(*shape, generator=g).to(device)
+    heads = d // 64
+    lengths = torch.randint(4, t + 1, (b,), generator=g)
+    mask = torch.where(torch.arange(t)[None, :] >= lengths[:, None], A.NEG, 0.0).to(device)
+    split = lambda x: x.view(b, x.shape[1], heads, 64).transpose(1, 2)
+    for label, lk, m in ((f"K2b's self attention (L {l}, {heads} heads)", l, None),
+                         (f"K3b's cross attention ({l} queries, {t} keys, key mask)", t,
+                          mask[:, None, None, :])):
+        leaves = [split(x).detach().requires_grad_()
+                  for x in (rnd(b, l, d), rnd(b, lk, d), rnd(b, lk, d))]
+        with torch.enable_grad():
+            out = F.scaled_dot_product_attention(*leaves, attn_mask=m)
+        do = split(rnd(b, l, d))
+        call = lambda out=out, leaves=leaves, do=do: torch.autograd.grad(
+            out, leaves, do, retain_graph=True)
+        ms = cuda_ms(call)
+        print(f"[fp32] SDPA fp32 backward yardstick at {label}: {ms:.4f} ms", flush=True)
+        DEVICE_TIMED.append((f"SDPA fp32 backward at {label}", ms, call, None, None))
+        del out, leaves
+    m, mt = b * l, b * t
+    cases = (
+        (f"[{m}, {d}] x [{d}, {d}] (dO, each dX product)", rnd(m, d), rnd(d, d), False),
+        (f"[{m}, {3 * d}] x [{3 * d}, {d}] (K2b's three dX products as one)",
+         rnd(m, 3 * d), rnd(3 * d, d), False),
+        (f"A^T B over {m} rows, [{d}, {d}] (each dW)", rnd(m, d), rnd(m, d), True),
+        (f"A^T B over {mt} rows, [{d}, {d}] (K3b's dW of k and v)", rnd(mt, d), rnd(mt, d),
+         True),
+        (f"[{m}, {d}] x [{d}, {f}] (K4b's dhn)", rnd(m, d), rnd(d, f), False),
+        (f"[{m}, {f}] x [{f}, {d}] (K4b's dx)", rnd(m, f), rnd(f, d), False),
+        (f"A^T B over {m} rows, [{f}, {d}] (K4b's dW1, the port's own call)", rnd(m, f),
+         rnd(m, d), True),
+    )
+    for label, a, w, trans in cases:
+        call = ((lambda a=a, w=w: torch.mm(a.t(), w)) if trans
+                else (lambda a=a, w=w: torch.mm(a, w)))
+        ms = cuda_ms(call)
+        print(f"[fp32] torch.mm fp32 yardstick {label}: {ms:.4f} ms", flush=True)
+        DEVICE_TIMED.append((f"torch.mm fp32 yardstick {label}", ms, call, None, None))
 
 
 def fp32_batch():
@@ -2123,18 +2445,15 @@ def _eval_rate(eval_step, batch, reps: int = 5):
 
 
 def fp32_e2e(device, batch, smi: str):
-    """Phase 18 (b)-(e): crog_synthetic_r50.yaml with compute_dtype float32
-    (the plain stem convs, as the config runs without ``--fused-stem``),
-    the bf16 model's seeded weights: one forward at batch 1 against the CPU
-    in fp32, its launches; make_eval_step over ``batch`` against the CPU;
-    an fp32 train step raises before its first launch; the fp32 and bf16
-    models' batch-1 latency, eval samples/s at 24 and peak memory.  Returns
-    the launches of one fp32 forward."""
+    """Phase 18 (b)-(d): crog_synthetic_r50.yaml with compute_dtype
+    float32 (the plain stem convs, as the config runs without
+    ``--fused-stem``), the bf16 model's seeded weights: one forward at
+    batch 1 against the CPU in fp32, its launches; make_eval_step over
+    ``batch`` against the CPU; the fp32 and bf16 models' batch-1 latency,
+    eval samples/s at 24 and peak memory."""
     import torch
 
-    from crog_tpu_torch.engine.crog_engine import (device_batch, make_eval_step,
-                                                   make_train_step)
-    from crog_tpu_torch.engine.optim import make_optimizer
+    from crog_tpu_torch.engine.crog_engine import device_batch, make_eval_step
     from crog_tpu_torch.models.crog import build_crog
 
     cfg32 = _cfg(BATCH, BATCH, ("compute_dtype", "float32"))
@@ -2189,16 +2508,6 @@ def fp32_e2e(device, batch, smi: str):
     if not (iou_gap <= F32_IOU_TOL and share >= F32_RECT_SHARE):
         raise AssertionError("fp32 eval step on the card disagrees with the CPU")
 
-    _reset(wrappers)
-    opt, sched = make_optimizer(model32, 1e-4, 0.1, [35], 0.1, 100, 0.0)
-    try:
-        make_train_step(model32, opt, sched, device=device)
-    except NotImplementedError as e:
-        print(f"[fp32] train step refused before any launch: {e}", flush=True)
-    else:
-        raise AssertionError("an fp32 train step on the card did not raise")
-    check_launches(_read(wrappers), {}, 0)
-
     step16 = make_eval_step(model16, input_size=cfg32.input_size, device=device)
     img1, word1 = img.to(device), word.to(device)
     readings = {}
@@ -2214,11 +2523,132 @@ def fp32_e2e(device, batch, smi: str):
               f"{len(batch['word'])} " + ", ".join(f"{r[1]:.2f}" for r in runs)
               + " samples/s; peak " + ", ".join(f"{r[2] / 2**30:.3f}" for r in runs)
               + f" GiB (two runs, in turns fp32 bf16 bf16 fp32) on {smi}", flush=True)
+
+
+def fp32_train_gap(device, batch):
+    """Phase 18 (e): one fp32 train step at batch 2 (two samples of
+    ``batch``), dropout 0, BatchNorm on running statistics, plain stem, on
+    the card and on the CPU: the loss within F32_TRAIN_LOSS_TOL and each
+    group's gradient within its F32_TRAIN_GRAD_TOL; the card's forward and
+    backward launch K1-f32..K4b-f32 (PER_STEP_F32) and no bf16 kernel."""
+    import torch
+
+    cfg = _cfg(opts=("dropout", "0.0", "compute_dtype", "float32"))
+    mini = mini_batch(batch, cfg.input_size)
+    wrappers = launch_counts()
+    model = grad_model(cfg, device, fused_stem=False)
+    _reset(wrappers)
+    card = train_grads(model, mini)
+    torch.cuda.synchronize()
+    launches = _read(wrappers)
+    del model
+    cpu = train_grads(grad_model(cfg, torch.device("cpu"), torch.float32, fused_stem=False),
+                      mini)
+    rel, groups = grad_gap(card, cpu, "[fp32] train step at batch 2, card vs CPU:")
+    print(f"[fp32] train step: loss rel {rel:.4g} (limit {F32_TRAIN_LOSS_TOL}), grad rel_l2 "
+          f"limits {F32_TRAIN_GRAD_TOL}; launches {_launched(launches)}", flush=True)
+    check_launches(launches, PER_STEP_F32, 1)
+    over = {g: r for g, r in groups.items() if not r <= F32_TRAIN_GRAD_TOL[g]}
+    if not rel <= F32_TRAIN_LOSS_TOL or over:
+        raise AssertionError(f"fp32 train step card vs CPU: loss rel {rel:.4g}, grad {over}")
+
+
+def _train_rate(step, batches, cfg):
+    """(samples/s of ``train_one_epoch`` over ``batches``, peak device
+    bytes)."""
+    import torch
+
+    from crog_tpu_torch.engine.crog_engine import train_one_epoch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    train_one_epoch(batches, step, 1, cfg, len(batches))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return BATCH * len(batches) / dt, torch.cuda.max_memory_allocated()
+
+
+def fp32_train_path(device, prepared, smi: str):
+    """Phase 18 (f): the fp32 model (plain stem) through ``train_one_epoch``
+    for TRAIN_STEPS steps at BATCH on ``prepared`` rawlb batches: the loss
+    is finite, every trainable parameter and BatchNorm statistic moved, and
+    the counters read PER_STEP_F32 per step; then, after one untimed bf16
+    step, fp32 against bf16 train samples/s and peak memory (both plain
+    stem, the same seeded weights), in turns fp32 bf16 bf16 fp32.  Returns
+    the launches of the TRAIN_STEPS steps."""
+    import torch
+
+    from crog_tpu_torch.engine.crog_engine import make_train_step, train_one_epoch
+    from crog_tpu_torch.engine.optim import make_optimizer
+    from crog_tpu_torch.utils.seed import set_random_seed
+
+    batches = [prepared[i % len(prepared)] for i in range(TRAIN_STEPS)]
+    steps = {}
+    for label, opts in (("fp32", ("compute_dtype", "float32")), ("bf16", ())):
+        cfg = _cfg(2 * BATCH, BATCH, ("print_freq", "2", "epochs", "1", *opts))
+        model = _model(cfg, device, fused_stem=False).train()
+        opt, sched = make_optimizer(model, cfg.base_lr, cfg.lr_multi, cfg.milestones,
+                                    cfg.lr_decay, 4 * TRAIN_STEPS, cfg.weight_decay)
+        steps[label] = (model, cfg, make_train_step(model, opt, sched, cfg.use_grasp_masks,
+                                                    cfg.max_norm, set_random_seed(SEED),
+                                                    device))
+    model32, cfg32, step32 = steps["fp32"]
+    if model32.dtype != torch.float32:
+        raise AssertionError("build_crog did not read compute_dtype float32")
+    params0, stats0 = snapshot(model32)
+    wrappers = launch_counts()
+    _reset(wrappers)
+    metrics = train_one_epoch(batches, step32, 1, cfg32, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    launches = _read(wrappers)
+    loss = float(metrics["loss"])
+    print(f"[fp32] {TRAIN_STEPS} fp32 train steps at batch {BATCH} (plain stem): last loss "
+          f"{loss:.6g}; launches {_launched(launches)}", flush=True)
+    if not math.isfinite(loss):
+        raise AssertionError(f"fp32 train loss is not finite: {loss}")
+    check_launches(launches, PER_STEP_F32, TRAIN_STEPS)
+    check_moved(model32, params0, stats0, "fp32")
+    del params0, stats0
+    steps["bf16"][2](batches[0])  # its first step (cuDNN's and the allocator's warm-up)
+    readings = {}
+    for label in ("fp32", "bf16", "bf16", "fp32"):
+        _, cfg, step = steps[label]
+        readings.setdefault(label, []).append(_train_rate(step, batches, cfg))
+    for label, runs in readings.items():
+        print(f"[fp32] {label} train step at batch {BATCH} (plain stem): "
+              + ", ".join(f"{r[0]:.2f}" for r in runs) + " samples/s; peak "
+              + ", ".join(f"{r[1] / 2**30:.3f}" for r in runs)
+              + f" GiB (two runs of {TRAIN_STEPS} steps, in turns fp32 bf16 bf16 fp32) on {smi}",
+              flush=True)
     return launches
 
 
+def fp32_cli(workdir: str):
+    """Phase 18 (g): ``python -m crog_tpu_torch.train_crog`` on
+    crog_synthetic_r50.yaml with ``--opts compute_dtype float32`` (plain
+    stem) over a small synthetic split: 3 steps at 8, one eval; exit 0, a
+    Loss line per step and a last_model."""
+    import os
+
+    t0 = time.perf_counter()
+    text = _run_cli(["-m", "crog_tpu_torch.train_crog", "--config", CONFIG, "--opts",
+                     "compute_dtype", "float32", "synthetic_samples", "24", "batch_size", "8",
+                     "batch_size_val", "8", "epochs", "1", "print_freq", "1",
+                     "output_folder", workdir, "exp_name", "fp32"], workdir, "train_fp32.out")
+    losses = [line for line in text.splitlines() if "Loss" in line]
+    if ("compute_dtype: float32" not in text or len(losses) < 3
+            or not os.path.isfile(os.path.join(workdir, "fp32", "last_model"))):
+        print(text[-4000:], flush=True)
+        raise AssertionError("train_crog at compute_dtype float32: no fp32 config, Loss lines "
+                             "or last_model")
+    print(f"[fp32] train_crog --opts compute_dtype float32: exit 0 in "
+          f"{time.perf_counter() - t0:.1f} s, {len(losses)} Loss lines, last: "
+          f"{losses[-1].strip()[-90:]}", flush=True)
+
+
 def fp32_ssg(device):
-    """Phase 18 (f): ssg_r50.yaml with compute_dtype float32: one frame
+    """Phase 18 (h): ssg_r50.yaml with compute_dtype float32: one frame
     through the validate path's eval forward on the card and on the CPU,
     both fp32, seeded weights: every output within F32_E2E_TOL; no kernel
     launches (SSG reaches K5/K5b only in training)."""
@@ -2250,11 +2680,15 @@ def fp32_ssg(device):
         raise AssertionError(f"fp32 SSG card vs CPU: {bad}")
 
 
-def fp32_phase(device, batch, smi: str):
-    """Phase 18: the fp32 kernels, the fp32 CROG eval path against the
-    CPU, the fp32 train step's refusal, fp32 vs bf16 rates, SSG at fp32,
-    the fp32 roofline; returns the fp32 kernels' records with their
-    launches per forward."""
+def fp32_phase(device, batch, train_batches, smi: str):
+    """Phase 18: the fp32 kernels forward and backward, the fp32 CROG eval
+    path against the CPU, fp32 vs bf16 eval rates, one fp32 train step
+    against the CPU, fp32 training at 24 and fp32 vs bf16 train rates, the
+    fp32 train CLI, SSG at fp32, the fp32 roofline; returns the fp32
+    kernels' records with their launches over the fp32 train path's
+    TRAIN_STEPS steps."""
+    import tempfile
+
     import torch
 
     from tools import torch_roofline
@@ -2262,8 +2696,14 @@ def fp32_phase(device, batch, smi: str):
     t0 = time.perf_counter()
     records = fp32_kernels(device)
     torch.cuda.empty_cache()
-    launches = fp32_e2e(device, batch, smi)
+    fp32_e2e(device, batch, smi)
     torch.cuda.empty_cache()
+    fp32_train_gap(device, train_batches[0])
+    torch.cuda.empty_cache()
+    launches = fp32_train_path(device, train_batches, smi)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as workdir:
+        fp32_cli(workdir)
     fp32_ssg(device)
     torch.cuda.empty_cache()
     torch_roofline.main(["--device", str(device), "--iters", str(ROOFLINE_ITERS),
@@ -2272,8 +2712,9 @@ def fp32_phase(device, batch, smi: str):
     for n, rec in records.items():
         rec["launches"] = launches[n]
     print(f"[fp32] phase 18 took {time.perf_counter() - t0:.1f} s; limits: F32_REL_L2 "
-          f"{F32_REL_L2}, F32_E2E_TOL {F32_E2E_TOL}, F32_IOU_TOL {F32_IOU_TOL}, "
-          f"F32_RECT_SHARE {F32_RECT_SHARE}", flush=True)
+          f"{F32_REL_L2}, F32_BWD_REL_L2 {F32_BWD_REL_L2}, F32_E2E_TOL {F32_E2E_TOL}, "
+          f"F32_IOU_TOL {F32_IOU_TOL}, F32_RECT_SHARE {F32_RECT_SHARE}, F32_TRAIN_LOSS_TOL "
+          f"{F32_TRAIN_LOSS_TOL}, F32_TRAIN_GRAD_TOL {F32_TRAIN_GRAD_TOL}", flush=True)
     return records
 
 
@@ -4000,7 +4441,7 @@ def main(argv=None) -> int:
         print(f"[done] remat only, {time.perf_counter() - t_start:.1f} s", flush=True)
         return 0
     if args.fp32:
-        fp32_phase(device, fp32_batch(), smi)
+        fp32_phase(device, fp32_batch(), prepared_train_batches(), smi)
         print_device_times()
         print(f"[done] fp32 only, {time.perf_counter() - t_start:.1f} s", flush=True)
         return 0
@@ -4024,7 +4465,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     remat_phase(device, train_batches[0], smi)
     torch.cuda.empty_cache()
-    fp32_records = fp32_phase(device, batches[0], smi)
+    fp32_records = fp32_phase(device, batches[0], train_batches, smi)
     torch.cuda.empty_cache()
     ssg_launches, ssg_train_rate, ssg_model, ssg_cfg, ssg_batches = ssg_train_path(device,
                                                                                   smi)
@@ -4042,7 +4483,7 @@ def main(argv=None) -> int:
     # for K1-K4b and K6/K6b, SSG training for K5/K5b
     for n, rec in records.items():
         rec["launches"] = ssg_launches[n] if n in SSG_PER_STEP else launches[n]
-    # the fp32 kernels' launches per fp32 eval forward (phase 18)
+    # the fp32 kernels' launches on the fp32 train path (phase 18)
     records.update(fp32_records)
     print(f"[done] {time.perf_counter() - t_start:.1f} s; CROG train {train_rate:.2f} "
           f"and eval {eval_rate:.2f} samples/s at batch {BATCH}; SSG train "

@@ -1,6 +1,7 @@
 // f32 products on the tensor cores: mma.sync m16n8k8 TF32 with the 3xTF32
-// split, shared by K5/K5b (lincomb.cu) and the fp32 forward kernels
-// (attention_f32.cuh, gemm_f32.cuh).
+// split, shared by K5/K5b (lincomb.cu), the fp32 forward kernels
+// (attention_f32.cuh, gemm_f32.cuh) and the fp32 backward kernels
+// (attention_bwd_f32.cuh, grad_f32.cuh).
 //
 // A TF32 value keeps 10 explicit mantissa bits.  x = hi + lo with hi =
 // cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi) keeps about 21 of f32's 23;
@@ -60,7 +61,7 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4
 // value, and a product of two is exact in f32).
 enum Products : int { k3xTF32 = 0, k1xTF32 = 1, kBf16Staged = 2 };
 
-// The products of the fp32 forward kernels.
+// The products of the fp32 forward and backward kernels.
 enum F32Product : int {
   kProdProj = 0,    // K2/K3-f32: the q/k/v projections
   kProdScores = 1,  // K1/K2/K3-f32: QK^T
@@ -68,6 +69,17 @@ enum F32Product : int {
   kProdOut = 3,     // K2/K3-f32: the out-projection
   kProdHidden = 4,  // K4-f32: x W1^T
   kProdY = 5,       // K4-f32: hn W2^T
+  kProdBwdScores = 6,  // K1b/K2b/K3b-f32: QK^T again
+  kProdDV = 7,         // K1b/K2b/K3b-f32: dV = P^T dO
+  kProdDP = 8,         // K1b/K2b/K3b-f32: dP = dO V^T
+  kProdDQ = 9,         // K1b/K2b/K3b-f32: dQ = dS K
+  kProdDK = 10,        // K1b/K2b/K3b-f32: dK = dS^T Q
+  kProdDO = 11,        // K2b/K3b-f32: dO = dOP W_out
+  kProdDX = 12,        // K2b/K3b-f32: dXL = dQ Wq + dK Wk + dV Wv (K3b: and d(txt))
+  kProdDW = 13,        // K2b/K3b-f32: dW = dY^T X of the four projections
+  kProdRecompute = 14, // K4b-f32: x W1^T again
+  kProdDHn = 15,       // K4b-f32: dhn = dy W2
+  kProdDx = 16,        // K4b-f32: dx = dh W1
 };
 
 // A fault-check build (tools/torch_fp32_faults.py) compiles with

@@ -9,10 +9,10 @@ attention over at least 64 tokens (the CLIP attention pool's 169) goes to
 TPU: its forward is ``fused_attention`` (K1, csrc/attention.cu) and its
 backward ``attention_bwd`` (K1b, csrc/attention_bwd.cu) on a CUDA tensor,
 their plain PyTorch twins on a CPU tensor.  On fp32 operands (a model
-built with ``compute_dtype: float32``) the forward launches K1-f32
-(csrc/attention_f32.cu) instead; the fp32 backward is not yet ported and
-raises on the card.  Masked or short attention (the 17-token causal text
-tower) stays a plain matmul + fp32 softmax.
+built with ``compute_dtype: float32``) they launch K1-f32
+(csrc/attention_f32.cu) and K1b-f32 (csrc/attention_bwd_f32.cu) instead.
+Masked or short attention (the 17-token causal text tower) stays a plain
+matmul + fp32 softmax.
 """
 
 from __future__ import annotations
@@ -197,25 +197,31 @@ def bwd_path(l: int, bf16_casts: bool = False) -> str:
 
 
 def attention_bwd(q, k, v, o, do, num_heads: int, bf16_casts: bool = False, mask_add=None):
-    """K1b.  q, o, do [B, Lq, H*64], k, v [B, Lk, H*64] bf16 (contiguous)
-    -> dq, dk, dv.
+    """K1b.  q, o, do [B, Lq, H*64], k, v [B, Lk, H*64], all bf16 or all
+    fp32 (contiguous) -> dq, dk, dv.
 
     On a CPU tensor this is ``attention_bwd_plain``; on a CUDA tensor it
-    launches the kernel ``bwd_path`` names (csrc/attention_bwd.cu) or
-    raises.  ``bf16_casts`` swaps in the decoder blocks' cast points (P and
-    dS rounded to bf16, twin ``mha_bwd_plain``) on the two-kernel path that
-    K2b and K3b run, which alone takes a key mask ``mask_add`` [B, Lk] f32
-    and Lk != Lq; only the checks of that path and of K1b's tolerance set
-    it (chip_smoke.py, tests/test_torch_cuda_kernels.py)."""
+    launches the build for q's dtype (``cuda_build.library_for``): the bf16
+    kernel ``bwd_path`` names (csrc/attention_bwd.cu), or K1b-f32
+    (csrc/attention_bwd_f32.cu, counted in ``attention_bwd.launches_f32``);
+    or raises.  ``bf16_casts`` swaps in the decoder blocks' cast points (P
+    and dS rounded to bf16, twin ``mha_bwd_plain``) on the two-kernel path
+    that K2b and K3b run, which alone of the bf16 kernels takes a key mask
+    ``mask_add`` [B, Lk] f32 and Lk != Lq; only the checks of that path and
+    of K1b's tolerance set it (chip_smoke.py,
+    tests/test_torch_cuda_kernels.py).  At fp32 the cast points do nothing
+    and K1b-f32 takes a key mask and Lk != Lq in any case."""
     if q.device.type == "cpu":
         if bf16_casts:
             return mha_bwd_plain(q, k, v, do, num_heads, mask_add)
         return attention_bwd_plain(q, k, v, o, do, num_heads)
-    cuda_build.library_for("attention_bwd", q.dtype)  # raises for fp32: queued
+    name = cuda_build.library_for("attention_bwd", q.dtype)
     _check_bwd_width(q, num_heads)
     _check_bwd_width(k, num_heads)
     b, lq, d = q.shape
     lk = k.shape[1]
+    if q.dtype == torch.float32:
+        return _attention_bwd_f32(name, q, k, v, o, do, num_heads, mask_add)
     if not bf16_casts and (mask_add is not None or lk != lq):
         raise ValueError("K1b takes unmasked self attention; a key mask or Lk != Lq "
                          "runs only with the decoder blocks' bf16 cast points")
@@ -244,6 +250,32 @@ def attention_bwd(q, k, v, o, do, num_heads: int, bf16_casts: bool = False, mask
 
 
 attention_bwd.launches = 0
+attention_bwd.launches_f32 = 0
+
+
+def _attention_bwd_f32(name, q, k, v, o, do, num_heads: int, mask_add=None):
+    """K1b-f32: crog_attention_f32_bwd (a dQ kernel that also writes each
+    row's statistics, then a dK/dV kernel), all fp32."""
+    b, lq, d = q.shape
+    lk = k.shape[1]
+    for t, n in ((q, "q"), (o, "o"), (do, "do")):
+        cuda_build.require(t, n, torch.float32, (b, lq, d))
+    for t, n in ((k, "k"), (v, "v")):
+        cuda_build.require(t, n, torch.float32, (b, lk, d))
+    if mask_add is not None:
+        cuda_build.require(mask_add, "mask_add", torch.float32, (b, lk))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stats = torch.empty(b * num_heads, 3, lq, dtype=torch.float32, device=q.device)
+    lib = cuda_build.load(name)
+    strides = [s for t in (q, k, v, o, do, dq, dk, dv) for s in (t.stride(0), t.stride(1))]
+    rc = lib.crog_attention_f32_bwd(
+        *(t.data_ptr() for t in (q, k, v, o, do)),
+        None if mask_add is None else mask_add.data_ptr(),
+        *(t.data_ptr() for t in (dq, dk, dv, stats)), b, num_heads, lq, lk, *strides,
+        HEAD_DIM**-0.5, cuda_build.stream_ptr(q.device))
+    cuda_build.check_launch(lib, rc, "crog_attention_f32_bwd")
+    attention_bwd.launches_f32 += 1
+    return dq, dk, dv
 
 
 class FusedAttention(torch.autograd.Function):

@@ -39,10 +39,10 @@ _F = ctypes.c_float
 _U = ctypes.c_uint
 _DROP = [_U, _U, _F]  # dropout seed, uint32 threshold (0: off), keep scale
 
-# C signature of every entry point, by library.  The backward entry points
-# and the fp32 decoder blocks and FFN take a table of device pointers (one
-# host array of void*) as their first argument; its order is documented at
-# each C function.
+# C signature of every entry point, by library.  The decoder blocks' and
+# the FFN's entry points, but the bf16 blocks' forward, take a table of
+# device pointers (one host array of void*) as their first argument; its
+# order is documented at each C function.
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "attention": {
         "crog_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I]
@@ -51,6 +51,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "attention_f32": {
         "crog_attention_f32_fwd": [_P] * 5 + [_I] * 4 + [_L] * 8 + [_F, _P],
+    },
+    "attention_bwd_f32": {
+        "crog_attention_f32_bwd": [_P] * 10 + [_I] * 4 + [_L] * 16 + [_F, _P],
     },
     "attention_bwd": {
         "crog_attention_bwd": [_P] * 10 + [_I] * 4 + [_F, _I, _P],
@@ -67,6 +70,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "crog_self_block_f32_fwd": [_P] + [_I] * 4 + _DROP + [_P],
         "crog_cross_block_f32_fwd": [_P] + [_I] * 5 + _DROP + [_P],
     },
+    "decoder_blocks_bwd_f32": {
+        "crog_self_block_f32_bwd": [_P] + [_I] * 5 + _DROP + [_P],
+        "crog_cross_block_f32_bwd": [_P] + [_I] * 6 + _DROP + [_P],
+    },
     "decoder_blocks_bwd": {
         "crog_self_block_bwd": [_P] + [_I] * 5 + _DROP + [_P],
         "crog_cross_block_bwd": [_P] + [_I] * 6 + _DROP + [_P],
@@ -78,6 +85,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "ffn_f32": {
         "crog_ffn_f32_fwd": [_P] + [_I] * 3 + _DROP + [_P],
+    },
+    "ffn_bwd_f32": {
+        "crog_ffn_f32_bwd": [_P] + [_I] * 3 + _DROP + [_P],
     },
     "ffn_bwd": {
         "crog_ffn_bwd": [_P] + [_I] * 3 + _DROP + [_P],
@@ -97,33 +107,27 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
 }
 
 # The library of each forward and backward kernel K1-K4(b), by the dtype of
-# its operands: (bf16 build, fp32 build or None while it is queued, id).
+# its operands: (bf16 build, fp32 build, id).
 KERNELS = {
     "attention": ("attention", "attention_f32", "K1"),
-    "attention_bwd": ("attention_bwd", None, "K1b"),
+    "attention_bwd": ("attention_bwd", "attention_bwd_f32", "K1b"),
     "decoder_self_block": ("decoder_blocks", "decoder_blocks_f32", "K2"),
-    "decoder_self_block_bwd": ("decoder_blocks_bwd", None, "K2b"),
+    "decoder_self_block_bwd": ("decoder_blocks_bwd", "decoder_blocks_bwd_f32", "K2b"),
     "decoder_cross_block": ("decoder_blocks", "decoder_blocks_f32", "K3"),
-    "decoder_cross_block_bwd": ("decoder_blocks_bwd", None, "K3b"),
+    "decoder_cross_block_bwd": ("decoder_blocks_bwd", "decoder_blocks_bwd_f32", "K3b"),
     "ffn": ("ffn", "ffn_f32", "K4"),
-    "ffn_bwd": ("ffn_bwd", None, "K4b"),
+    "ffn_bwd": ("ffn_bwd", "ffn_bwd_f32", "K4b"),
 }
 
 
 def library_for(kernel: str, dtype: torch.dtype) -> str:
     """The library whose build of ``kernel`` takes operands of ``dtype``:
     the bf16 kernels, or the fp32 ones (``compute_dtype: float32``).
-    Raises NotImplementedError for an fp32 kernel not yet ported and
-    ValueError for any other dtype."""
+    Raises ValueError for any other dtype."""
     bf16, f32, kid = KERNELS[kernel]
     if dtype == torch.bfloat16:
         return bf16
     if dtype == torch.float32:
-        if f32 is None:
-            raise NotImplementedError(
-                f"{kid}-f32 ({kernel} on fp32 operands) is not yet ported: the card runs "
-                f"compute_dtype float32 in eval only; the fp32 backward kernels "
-                f"K1b-f32..K4b-f32 are queued (ROADMAP)")
         return f32
     raise ValueError(f"{kid} takes bf16 or fp32 operands, got {dtype}")
 

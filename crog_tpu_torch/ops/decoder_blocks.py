@@ -21,9 +21,10 @@ backward P and dS rounded before their products, the LN backward on f32
 x-hat, dW summed in f32 and rounded once to the compute dtype.
 
 On fp32 x (a model built with ``compute_dtype: float32``) the forward
-launches K2-f32 / K3-f32 (csrc/decoder_blocks_f32.cu: every product 3xTF32,
-nothing rounded to bf16, the twins' f32 function); the fp32 backward
-kernels are not yet ported, and the backward raises on the card.
+launches K2-f32 / K3-f32 (csrc/decoder_blocks_f32.cu) and the backward
+K2b-f32 / K3b-f32 (csrc/decoder_blocks_bwd_f32.cu): every product 3xTF32,
+nothing rounded to bf16, the twins' f32 function; the backward reads the
+intermediates the fp32 forward wrote.
 
 Dropout (``rate`` > 0, training) uses the counter-based mask of
 ops/dropout.py keyed by ``seed``, over rows b*L + l and columns of D.
@@ -291,7 +292,7 @@ def self_block_fwd(x, pos, in_w, in_b, out_w, out_b, g_pre, b_pre, g_post, b_pos
     """K2.  x [B, L, D] bf16 or fp32; pos [L, D].  Returns (x + block(x),
     saved), where ``saved`` holds what K2b reads when ``save`` (else None).
     fp32 x goes to K2-f32 (csrc/decoder_blocks_f32.cu, counted in
-    ``self_block_fwd.launches_f32``), which saves nothing."""
+    ``self_block_fwd.launches_f32``), whose intermediates K2b-f32 reads."""
     work.note("decoder_self_block", lambda: (
         work.self_block_flops(*x.shape),
         work.nbytes(x, pos, in_w, in_b, out_w, out_b, g_pre, b_pre, g_post, b_post, x)))
@@ -312,14 +313,13 @@ def self_block_fwd(x, pos, in_w, in_b, out_w, out_b, g_pre, b_pre, g_post, b_pos
     lib = cuda_build.load(lib_name)
     stream = cuda_build.stream_ptr(x.device)
     if x.dtype == torch.float32:
-        # xl, qin, qk, v, o, op; nothing is saved: the fp32 backward is queued
-        ws = (new(d), new(d), new(2 * d), new(d), new(d), new(d))
+        ws = (new(d), new(d), new(2 * d), new(d), new(d), new(d))  # xl, qin, qk, v, o, op
         table = cuda_build.ptr_table(x, posb, wi, bi, wo, bo, gp, bp, gq, bq, y, *ws)
         rc = lib.crog_self_block_f32_fwd(table, b, l, d, nheads, dseed, thresh, scale,
                                          stream)
         cuda_build.check_launch(lib, rc, "crog_self_block_f32_fwd")
         self_block_fwd.launches_f32 += 1
-        return y, None
+        return y, ((wi, wo, gp, gq) + ws if save else None)
     ws = (new(d), new(d), new(2 * d), new(d), new(d))  # xl, qin, qk, v, o
     op = new(d) if save else None
     rc = lib.crog_self_block_fwd(
@@ -341,10 +341,14 @@ self_block_fwd.launches_f32 = 0
 
 def self_block_bwd(x, saved, dy, nheads: int, seed: int = 0, rate: float = 0.0):
     """K2b on a CUDA tensor: the backward kernels of csrc/decoder_blocks_bwd.cu
-    over what ``self_block_fwd(save=True)`` kept.  Returns (dx, d in_w,
-    d in_b, d out_w, d out_b, d g_pre, d b_pre, d g_post, d b_post)."""
-    cuda_build.library_for("decoder_self_block_bwd", x.dtype)  # raises for fp32: queued
+    (bf16) or csrc/decoder_blocks_bwd_f32.cu (fp32 x, counted in
+    ``self_block_bwd.launches_f32``) over what ``self_block_fwd(save=True)``
+    kept.  Returns (dx, d in_w, d in_b, d out_w, d out_b, d g_pre, d b_pre,
+    d g_post, d b_post)."""
+    name = cuda_build.library_for("decoder_self_block_bwd", x.dtype)
     _check_block_input(x, nheads)
+    if x.dtype == torch.float32:
+        return _self_block_bwd_f32(name, x, saved, dy, nheads, seed, rate)
     b, l, d = x.shape
     m = b * l
     wi, wo, g_pre, g_post, xl, qin, qk, v, o, op = saved
@@ -371,6 +375,45 @@ def self_block_bwd(x, saved, dy, nheads: int, seed: int = 0, rate: float = 0.0):
 
 
 self_block_bwd.launches = 0
+self_block_bwd.launches_f32 = 0
+
+
+def _ln_bwd_blocks(m: int) -> int:
+    """Row blocks of the fp32 blocks' LayerNorm backward kernels (32 rows
+    each, csrc/decoder_blocks_bwd_f32.cu kLnBwdRows)."""
+    return -(-m // 32)
+
+
+def _colsum_blocks(m: int) -> int:
+    """Row blocks of csrc/grad_f32.cuh's column sums (kColRows rows each)."""
+    return -(-m // 256)
+
+
+def _self_block_bwd_f32(name, x, saved, dy, nheads, seed, rate):
+    """K2b-f32: crog_self_block_f32_bwd over the fp32 forward's
+    intermediates; every output f32."""
+    b, l, d = x.shape
+    m = b * l
+    wi, wo, g_pre, g_post, xl, qin, qk, v, o, op = saved
+    dy = dy.to(torch.float32).contiguous()
+    cuda_build.require(dy, "dy", torch.float32, (b, l, d))
+    f32 = lambda *s: torch.empty(*s, dtype=torch.float32, device=x.device)
+    splits = _wgrad_splits(m)
+    dx, dwi, dwo, dvec = f32(b, l, d), f32(3 * d, d), f32(d, d), f32(8, d)
+    ws = (f32(m, d), f32(m, d), f32(m, 3 * d), f32(m, d), f32(b * nheads, 3, l),
+          f32(splits, 2 * d, d), f32(_ln_bwd_blocks(m), 3, d),
+          f32(_colsum_blocks(m), 3 * d))
+    # dop, do, dqkv, dxl, stats, parts (dW, LayerNorm and bias sums)
+    dseed, thresh, scale = kernel_args(seed, rate)
+    table = cuda_build.ptr_table(x, wi, wo, g_pre, g_post, xl, qin, qk, v, o, op, dy,
+                                 dx, dwi, dwo, dvec, *ws)
+    lib = cuda_build.load(name)
+    rc = lib.crog_self_block_f32_bwd(table, b, l, d, nheads, splits, dseed, thresh, scale,
+                                     cuda_build.stream_ptr(x.device))
+    cuda_build.check_launch(lib, rc, "crog_self_block_f32_bwd")
+    self_block_bwd.launches_f32 += 1
+    return (dx, dwi, dvec[:3].reshape(-1), dwo, dvec[3], dvec[4], dvec[5], dvec[6],
+            dvec[7])
 
 
 def cross_block_fwd(x, txt, pos, tpos, pad_mask, in_w, in_b, out_w, out_b, g_pre,
@@ -379,7 +422,8 @@ def cross_block_fwd(x, txt, pos, tpos, pad_mask, in_w, in_b, out_w, out_b, g_pre
     """K3.  x [B, L, D] bf16 or fp32; txt [B, T, D]; pos [L, D]; tpos
     [T, D]; pad_mask [B, T] bool (True = ignore that key) or None.  Returns
     (y, saved).  fp32 x goes to K3-f32 (csrc/decoder_blocks_f32.cu, counted
-    in ``cross_block_fwd.launches_f32``), which saves nothing."""
+    in ``cross_block_fwd.launches_f32``), whose intermediates K3b-f32
+    reads."""
     work.note("decoder_cross_block", lambda: (
         work.cross_block_flops(*x.shape[:2], txt.shape[1], x.shape[2]),
         work.nbytes(x, txt, pos, tpos, in_w, in_b, out_w, out_b, g_pre, b_pre, g_post,
@@ -409,16 +453,16 @@ def cross_block_fwd(x, txt, pos, tpos, pad_mask, in_w, in_b, out_w, out_b, g_pre
     lib = cuda_build.load(lib_name)
     stream = cuda_build.stream_ptr(x.device)
     if x.dtype == torch.float32:
-        # qin, q, kin, k, v, o, op; nothing is saved: the fp32 backward is queued
-        ws = (new(b * l), new(b * l), new(b * t), new(b * t), new(b * t), new(b * l),
-              new(b * l))
+        qin, q, kin, k, v, o, op = (new(b * l), new(b * l), new(b * t), new(b * t),
+                                    new(b * t), new(b * l), new(b * l))
         table = cuda_build.ptr_table(x, kv, posb, tposb, mask, wi, bi, wo, bo, gp, bp, gq,
-                                     bq, y, *ws)
+                                     bq, y, qin, q, kin, k, v, o, op)
         rc = lib.crog_cross_block_f32_fwd(table, b, l, t, d, nheads, dseed, thresh, scale,
                                           stream)
         cuda_build.check_launch(lib, rc, "crog_cross_block_f32_fwd")
         cross_block_fwd.launches_f32 += 1
-        return y, None
+        # the layout the bf16 path saves
+        return y, ((kv, mask, wi, wo, gp, gq, qin, q, o, kin, k, v, op) if save else None)
     # qin, q, o [B*L, D]; kin, k, v [B*T, D]
     ws = (new(b * l), new(b * l), new(b * l), new(b * t), new(b * t), new(b * t))
     op = new(b * l) if save else None
@@ -441,10 +485,14 @@ cross_block_fwd.launches_f32 = 0
 
 
 def cross_block_bwd(x, saved, dy, nheads: int, seed: int = 0, rate: float = 0.0):
-    """K3b on a CUDA tensor.  Returns (dx, d txt, d in_w, d in_b, d out_w,
-    d out_b, d g_pre, d b_pre, d g_post, d b_post)."""
-    cuda_build.library_for("decoder_cross_block_bwd", x.dtype)  # raises for fp32: queued
+    """K3b on a CUDA tensor: csrc/decoder_blocks_bwd.cu (bf16) or
+    csrc/decoder_blocks_bwd_f32.cu (fp32 x, counted in
+    ``cross_block_bwd.launches_f32``).  Returns (dx, d txt, d in_w, d in_b,
+    d out_w, d out_b, d g_pre, d b_pre, d g_post, d b_post)."""
+    name = cuda_build.library_for("decoder_cross_block_bwd", x.dtype)
     _check_block_input(x, nheads)
+    if x.dtype == torch.float32:
+        return _cross_block_bwd_f32(name, x, saved, dy, nheads, seed, rate)
     b, l, d = x.shape
     kv, mask, wi, wo, g_pre, g_post, qin, q, o, kin, k, v, op = saved
     t = kv.shape[1]
@@ -472,6 +520,35 @@ def cross_block_bwd(x, saved, dy, nheads: int, seed: int = 0, rate: float = 0.0)
 
 
 cross_block_bwd.launches = 0
+cross_block_bwd.launches_f32 = 0
+
+
+def _cross_block_bwd_f32(name, x, saved, dy, nheads, seed, rate):
+    """K3b-f32: crog_cross_block_f32_bwd over the fp32 forward's
+    intermediates; every output f32."""
+    b, l, d = x.shape
+    kv, mask, wi, wo, g_pre, g_post, qin, q, o, kin, k, v, op = saved
+    t = kv.shape[1]
+    m, mt = b * l, b * t
+    dy = dy.to(torch.float32).contiguous()
+    cuda_build.require(dy, "dy", torch.float32, (b, l, d))
+    f32 = lambda *s: torch.empty(*s, dtype=torch.float32, device=x.device)
+    splits = _wgrad_splits(m)
+    dx, dkv, dwi, dwo, dvec = f32(b, l, d), f32(b, t, d), f32(3 * d, d), f32(d, d), f32(8, d)
+    ws = (f32(m, d), f32(m, d), f32(m, d), f32(mt, 2 * d), f32(m, d),
+          f32(b * nheads, 3, l), f32(splits, d, d), f32(_ln_bwd_blocks(m), 3, d),
+          f32(max(_colsum_blocks(m), 2 * _colsum_blocks(mt)), d))
+    # dop, do, dq, dk|dv, dxl, stats, parts (dW, LayerNorm and bias sums)
+    dseed, thresh, scale = kernel_args(seed, rate)
+    table = cuda_build.ptr_table(x, kv, mask, wi, wo, g_pre, g_post, qin, q, o, kin, k, v,
+                                 op, dy, dx, dkv, dwi, dwo, dvec, *ws)
+    lib = cuda_build.load(name)
+    rc = lib.crog_cross_block_f32_bwd(table, b, l, t, d, nheads, splits, dseed, thresh,
+                                      scale, cuda_build.stream_ptr(x.device))
+    cuda_build.check_launch(lib, rc, "crog_cross_block_f32_bwd")
+    cross_block_bwd.launches_f32 += 1
+    return (dx, dkv, dwi, dvec[:3].reshape(-1), dwo, dvec[3], dvec[4], dvec[5], dvec[6],
+            dvec[7])
 
 
 # ------------------------------------------------------------- autograd

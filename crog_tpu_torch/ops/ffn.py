@@ -25,7 +25,9 @@ from the post-dropout hidden.
 On fp32 x (``compute_dtype: float32``) the forward launches K4-f32
 (csrc/ffn_f32.cu: the hidden GEMM with ReLU and dropout in its epilogue,
 the LayerNorm over 2048, the output GEMM; 3xTF32 products reading W1 and
-W2 as stored); the fp32 backward is not yet ported and raises on the card.
+W2 as stored) and the backward K4b-f32 (csrc/ffn_bwd_f32.cu: the hidden
+recomputed as K4-f32 computes it, dhn, the LayerNorm backward with the
+column sums, dx), with dW1 and dW2 as fp32 library products, TF32 off.
 """
 
 from __future__ import annotations
@@ -71,10 +73,13 @@ def ffn_plain(x, w1, b1, gamma, beta, w2, b2, seed: int = 0, rate: float = 0.0,
 
 
 def ffn_bwd_plain(x, w1, b1, gamma, beta, w2, dy, seed: int = 0, rate: float = 0.0,
-                  eps: float = 1e-5):
+                  eps: float = 1e-5, relu_mask=None):
     """Plain twin of K4b (``_bwd_kernel`` of pallas_ffn.py plus the two
     weight-gradient products).  Returns (dx, dw1, db1, dgamma, dbeta, dw2,
-    db2), the weight gradients in f32."""
+    db2), the weight gradients in f32.  ``relu_mask`` [M, F] bool, if
+    given, replaces the ReLU's decision h > 0 (a kernel's, where a
+    pre-activation within rounding of 0 takes the other sign in another
+    order of summation)."""
     dt = x.dtype
     m, _ = x.shape
     f = w1.shape[0]
@@ -92,7 +97,7 @@ def ffn_bwd_plain(x, w1, b1, gamma, beta, w2, dy, seed: int = 0, rate: float = 0
     if rate > 0.0:
         keep = dropout_keep(seed, rate, m, f, x.device)
         dh = torch.where(keep, dh * (1.0 / (1.0 - rate)), 0.0)
-    dh = torch.where(hf > 0, dh, 0.0).to(dt)
+    dh = torch.where(hf > 0 if relu_mask is None else relu_mask, dh, 0.0).to(dt)
     dx = torch.matmul(dh.float(), w1.to(dt).float()).to(dt)
     # dW1 = dh^T x [F, D], dW2 = dy^T hn [D, F]: f32 products of the
     # compute-dtype values (the JAX package's einsums with f32 results)
@@ -172,9 +177,12 @@ def ffn_bwd(x, w1, b1, gamma, beta, w2, dy, seed: int = 0, rate: float = 0.0,
     kernel and two fixed-order sums) plus the two weight-gradient products
     (bf16 GEMMs with f32 results).  Returns (dx, dw1, db1, dgamma, dbeta,
     dw2, db2), and with ``with_hidden`` also the kernels' dh and hn [M, F]
-    bf16 (the card tests hold them to equal bits across repeats)."""
-    cuda_build.library_for("ffn_bwd", x.dtype)  # raises for fp32: queued
+    bf16 (the card tests hold them to equal bits across repeats).  fp32 x
+    goes to K4b-f32 (``_ffn_bwd_f32``)."""
+    name = cuda_build.library_for("ffn_bwd", x.dtype)
     _check(x, w1)
+    if x.dtype == torch.float32:
+        return _ffn_bwd_f32(name, x, w1, b1, gamma, beta, w2, dy, seed, rate, with_hidden)
     m, d = x.shape
     f = w1.shape[0]
     w1b, w2b, (b1f, gf, bef) = _params(w1, w2, d, f, b1=b1, gamma=gamma, beta=beta)
@@ -207,6 +215,38 @@ def ffn_bwd(x, w1, b1, gamma, beta, w2, dy, seed: int = 0, rate: float = 0.0,
 
 
 ffn_bwd.launches = 0
+ffn_bwd.launches_f32 = 0
+
+
+def _ffn_bwd_f32(name, x, w1, b1, gamma, beta, w2, dy, seed, rate, with_hidden):
+    """K4b-f32: crog_ffn_f32_bwd (csrc/ffn_bwd_f32.cu, counted in
+    ``ffn_bwd.launches_f32``) for dx, dh, hn and the column sums, then dW1
+    = dh^T x and dW2 = dy^T hn as fp32 library products with TF32 off (the
+    JAX package computes them outside its kernel); dh and hn [M, F] f32."""
+    m, d = x.shape
+    f = w1.shape[0]
+    w1f, w2f, (b1f, gf, bef) = _params(w1, w2, d, f, torch.float32, b1=b1, gamma=gamma,
+                                       beta=beta)
+    dy = dy.to(torch.float32).contiguous()
+    cuda_build.require(dy, "dy", torch.float32, (m, d))
+    new = lambda *s: torch.empty(*s, dtype=torch.float32, device=x.device)
+    dx, dh, hn, rows, db2 = new(m, d), new(m, f), new(m, f), new(3, f), new(d)
+    part = new(max(-(-m // 64) * 3 * f, -(-m // 256) * d))  # column partials
+    dseed, thresh, scale = kernel_args(seed, rate)
+    table = cuda_build.ptr_table(x, w1f, b1f, gf, bef, w2f, dy, dx, dh, hn, rows, db2, part)
+    lib = cuda_build.load(name)
+    rc = lib.crog_ffn_f32_bwd(table, m, d, f, dseed, thresh, scale,
+                              cuda_build.stream_ptr(x.device))
+    cuda_build.check_launch(lib, rc, "crog_ffn_f32_bwd")
+    ffn_bwd.launches_f32 += 1
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        dw1, dw2 = torch.mm(dh.t(), x), torch.mm(dy.t(), hn)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    out = (dx, dw1, rows[0], rows[1], rows[2], dw2, db2)
+    return out + (dh, hn) if with_hidden else out
 
 
 class _FusedFFN(torch.autograd.Function):

@@ -24,7 +24,7 @@ import torch
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): bf16 tensor cores, f32
 # products on the tensor cores (TF32's 495 TFLOP/s over the three TF32
 # products of the 3xTF32 split, which keeps f32 accuracy: K5/K5b and the
-# fp32 kernels K1-f32..K4-f32), f32 FMA outside the tensor cores (the
+# fp32 kernels K1-f32..K4b-f32), f32 FMA outside the tensor cores (the
 # library's fp32 products with TF32 off), device memory
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_TC_FLOPS = 495e12 / 3

@@ -33,7 +33,10 @@ differs by at most one bf16 step where a sum lands on a rounding boundary:
 largest magnitude, as K5/K5b.  The fp32 kernels K1-f32..K4-f32 and their
 twins are f32 throughout (3xTF32 products in the kernels, TF32 off in the
 twins), so each output is held to a relative L2 error of 1e-5; a twin
-with one single-pass-TF32 or bf16-staged product must read above it.
+with one single-pass-TF32 or bf16-staged product must read above it.  The
+fp32 backward kernels K1b-f32..K4b-f32 are held alike, every gradient
+output to F32_BWD_REL (chip_smoke.F32_BWD_REL_L2), and repeat with equal
+bits.
 """
 
 import sys
@@ -632,8 +635,9 @@ def _f32(seed, *shape, std=1.0, device="cuda"):
 
 
 def _rel_l2(got, ref):
+    """as chip_smoke.rel_l2: 0 where both are exactly 0"""
     got, ref = got.double(), ref.double()
-    return ((got - ref).norm() / ref.norm()).item()
+    return ((got - ref).norm() / ref.norm().clamp_min(1e-30)).item()
 
 
 @pytest.fixture
@@ -768,21 +772,142 @@ def test_cuda_fp32_kernels_tolerance_sees_tf32(exact_f32):
                 assert rel > F32_REL, (name, product, fault)
 
 
+# the fp32 backward kernels: each gradient output within a relative L2
+# error of chip_smoke.F32_BWD_REL_L2 of its twin's
+F32_BWD_REL = 1e-5
+
+
+def _close_rel(got, ref, names, rel=F32_BWD_REL):
+    for n, g, r in zip(names, got, ref):
+        assert g.dtype == torch.float32 and torch.isfinite(g).all(), n
+        assert _rel_l2(g, r) <= rel, (n, _rel_l2(g, r))
+
+
 @pytest.mark.cuda
-def test_cuda_fp32_backward_raises_naming_the_queued_kernels(exact_f32):
-    """The fp32 forwards run; their backward on the card raises before any
-    launch, naming the fp32 backward kernel that is not yet ported."""
-    q = _f32(1, 1, 70, 128).requires_grad_()
-    with pytest.raises(NotImplementedError, match="K1b-f32"):
-        A.FusedAttention.apply(q, q, q, 2).sum().backward()
-    x, txt, pos, tpos, pad, w = _f32_block(1, 20, 5)
-    x.requires_grad_()
-    with pytest.raises(NotImplementedError, match="K2b-f32"):
-        DB.decoder_self_block(x, pos, *w, 8).sum().backward()
-    with pytest.raises(NotImplementedError, match="K3b-f32"):
-        DB.decoder_cross_block(x, txt, pos, tpos, pad, *w, 8).sum().backward()
-    xf = _f32(1, 20, 512).requires_grad_()
-    fw = (_f32(2, 2048, 512), _f32(3, 2048), _f32(4, 2048), _f32(5, 2048),
-          _f32(6, 512, 2048), _f32(7, 512))
-    with pytest.raises(NotImplementedError, match="K4b-f32"):
-        FF.fused_ffn(xf, *fw).sum().backward()
+@pytest.mark.parametrize("b,lq,lk,heads,masked", [
+    (24, 169, 169, 32, False),  # K1b's shape (the attention pool)
+    (2, 676, 676, 8, False), (2, 676, 17, 8, True),  # K2b's and K3b's steps
+    (2, 70, 300, 4, True), (1, 768, 768, 2, False), (3, 1, 5, 2, True),
+    (2, 65, 17, 8, "all")])
+def test_cuda_attention_bwd_f32_matches_twin(exact_f32, b, lq, lk, heads, masked):
+    """K1b-f32 against its fp32 twin (mha_bwd_plain, which at fp32 is
+    attention_bwd_plain with a key mask and Lk != Lq), on o from K1-f32;
+    "all" masks every key of sample 0; a second call gives the same bits."""
+    d = heads * 64
+    q, do = _f32(1, b, lq, d), _f32(4, b, lq, d)
+    k, v = _f32(2, b, lk, d), _f32(3, b, lk, d)
+    mask = None
+    if masked:
+        keep = torch.tensor([[0 if masked == "all" else lk // 2]] + [[lk]] * (b - 1))
+        mask = torch.where(torch.arange(lk)[None] >= keep, -1e30, 0.0).to(exact_f32)
+    o = A.fused_attention(q, k, v, heads, mask)
+    before = A.attention_bwd.launches_f32
+    got = A.attention_bwd(q, k, v, o, do, heads, mask_add=mask)
+    again = A.attention_bwd(q, k, v, o, do, heads, mask_add=mask)
+    ref = A.mha_bwd_plain(q, k, v, do, heads, mask)
+    torch.cuda.synchronize()
+    assert A.attention_bwd.launches_f32 == before + 2
+    _close_rel(got, ref, ("dq", "dk", "dv"))
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,t", [(24, 676, 17), (3, 301, 17), (1, 5, 9)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_cuda_block_bwd_f32_kernels_match_twins(exact_f32, b, l, t, rate):
+    """K2b-f32 and K3b-f32 on the intermediates K2-f32 and K3-f32 saved,
+    against their fp32 twins, in eval and with train-mode dropout, at the
+    main path's shapes and at ragged ones; a second call gives the same
+    bits."""
+    x, txt, pos, tpos, pad, w = _f32_block(b, l, t)
+    dy = _f32(99, b, l, 512)
+    _, ssaved = DB.self_block_fwd(x, pos, *w, 8, 7, rate, save=True)
+    _, csaved = DB.cross_block_fwd(x, txt, pos, tpos, pad, *w, 8, 8, rate, save=True)
+    before = DB.self_block_bwd.launches_f32, DB.cross_block_bwd.launches_f32
+    cases = (
+        (lambda: DB.self_block_bwd(x, ssaved, dy, 8, 7, rate),
+         lambda: DB.self_block_bwd_plain(x, pos, *w, dy, 8, 7, rate),
+         ("dx", "d_in_w", "d_in_b", "d_out_w", "d_out_b", "d_g_pre", "d_b_pre",
+          "d_g_post", "d_b_post")),
+        (lambda: DB.cross_block_bwd(x, csaved, dy, 8, 8, rate),
+         lambda: DB.cross_block_bwd_plain(x, txt, pos, tpos, pad, *w, dy, 8, 8, rate),
+         ("dx", "dtxt", "d_in_w", "d_in_b", "d_out_w", "d_out_b", "d_g_pre", "d_b_pre",
+          "d_g_post", "d_b_post")))
+    for kern, plain, names in cases:
+        got, again, ref = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        _close_rel(got, ref, names)
+        assert all(torch.equal(u, v) for u, v in zip(got, again)), names
+    assert (DB.self_block_bwd.launches_f32, DB.cross_block_bwd.launches_f32) == (
+        before[0] + 2, before[1] + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate,m", [(0.0, 16224), (0.1, 16224), (0.1, 1000), (0.0, 129),
+                                    (0.1, 1)])
+def test_cuda_ffn_bwd_f32_matches_twin(exact_f32, rate, m):
+    """K4b-f32 against its fp32 twin at the main path's 16224 rows and off
+    the row blocks, eval and train-mode dropout, the twin on the kernel's
+    ReLU decision (chip_smoke.ffn_f32_relu_decision: it differs from the
+    twin's own only at pre-activations within rounding of 0); dx, dh, hn
+    and the column sums repeat with equal bits."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke as cs
+
+    args = (_f32(1, m, 512), _f32(2, 2048, 512, std=512**-0.5), _f32(3, 2048, std=0.05),
+            1 + _f32(4, 2048, std=0.1), _f32(5, 2048, std=0.05),
+            _f32(6, 512, 2048, std=2048**-0.5), _f32(8, m, 512))
+    before = FF.ffn_bwd.launches_f32
+    got = FF.ffn_bwd(*args, 3, rate, with_hidden=True)
+    again = FF.ffn_bwd(*args, 3, rate, with_hidden=True)
+    ref = FF.ffn_bwd_plain(*args, 3, rate,
+                           relu_mask=cs.ffn_f32_relu_decision(args, 3, rate))
+    torch.cuda.synchronize()
+    assert FF.ffn_bwd.launches_f32 == before + 3
+    _close_rel(got, ref, ("dx", "dw1", "db1", "dgamma", "dbeta", "dw2", "db2"))
+    held = (0, 2, 3, 4, 6, 7, 8)  # dx, the column sums, dh, hn
+    assert all(torch.equal(got[i], again[i]) for i in held)
+
+
+def _autograd_calls(dev):
+    """name -> (function of one fp32 leaf, the leaf's value) on ``dev``,
+    every other operand seeded alike on any device."""
+    f = lambda seed, *shape, std=1.0: _f32(seed, *shape, std=std, device=dev)
+    d = 512
+    pos, tpos, txt = f(62, 20, d, std=0.5), f(63, 5, d, std=0.5), f(61, 1, 5, d)
+    pad = torch.tensor([[False, False, False, True, True]], device=dev)
+    w = [f(64, 3 * d, d, std=d**-0.5), f(65, 3 * d, std=0.05), f(66, d, d, std=d**-0.5),
+         f(67, d, std=0.05), 1 + f(68, d, std=0.1), f(69, d, std=0.05), 1 + f(70, d, std=0.1),
+         f(71, d, std=0.05)]
+    fw = (f(2, 2048, d, std=d**-0.5), f(3, 2048, std=0.05), 1 + f(4, 2048, std=0.1),
+          f(5, 2048, std=0.05), f(6, d, 2048, std=2048**-0.5), f(7, d, std=0.05))
+    return {
+        "attention": (lambda a: A.FusedAttention.apply(a, a, a, 2), f(1, 1, 70, 128)),
+        "self": (lambda a: DB.decoder_self_block(a, pos, *w, 8), f(60, 1, 20, d)),
+        "cross": (lambda a: DB.decoder_cross_block(a, txt, pos, tpos, pad, *w, 8),
+                  f(60, 1, 20, d)),
+        "ffn": (lambda a: FF.fused_ffn(a, *fw), f(1, 20, d)),
+    }
+
+
+@pytest.mark.cuda
+def test_cuda_fp32_autograd_runs_the_fp32_backward_kernels(exact_f32):
+    """Through autograd: FusedAttention, decoder_self_block,
+    decoder_cross_block and fused_ffn on fp32 leaves launch their fp32
+    forward and backward kernels once each and no bf16 kernel, and each
+    leaf's gradient matches the same function's on the CPU (the twins)."""
+    counters = [(fn, attr) for fn in (A.fused_attention, A.attention_bwd, DB.self_block_fwd,
+                                      DB.self_block_bwd, DB.cross_block_fwd,
+                                      DB.cross_block_bwd, FF.ffn_fwd, FF.ffn_bwd)
+                for attr in ("launches", "launches_f32")]
+    before = [getattr(fn, attr) for fn, attr in counters]
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        for name, (fn, leaf) in _autograd_calls(dev).items():
+            leaf.requires_grad_()
+            fn(leaf).pow(2).sum().backward()
+            grads.setdefault(name, []).append(leaf.grad.cpu())
+    for name, (got, ref) in grads.items():
+        assert _rel_l2(got, ref) <= F32_BWD_REL, name
+    launched = [getattr(fn, attr) - b0 for (fn, attr), b0 in zip(counters, before)]
+    assert launched == [0, 1] * 8, launched

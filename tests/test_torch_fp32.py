@@ -1,14 +1,17 @@
 """compute_dtype float32 in the port, on the CPU: the configs' key read as
 crog_tpu reads it, the tiny CROG built from an fp32 config against
-crog_tpu's built from the same config, the routing of each kernel's
+crog_tpu's built from the same config (its eval forward, and one train
+step of make_train_step against crog_tpu's), the routing of each kernel's
 operands to its bf16 or fp32 build, the guard that refuses an fp32 train
-step on the card, and the C signatures of every kernel entry point.
+step on the fused s2d stem on the card, the C signatures of every kernel
+entry point, and phase 18's twin controls.
 
 The fp32 kernels themselves run only on a card
 (tests/test_torch_cuda_kernels.py, chip_smoke.py phase 18); their plain
-twins are the ones tests/test_torch_kernels.py holds against crog_tpu's
-Pallas kernels.  Logits are held to 1e-5 of their largest magnitude: both
-models compute in fp32 and differ only in the order of their sums.
+twins are the ones tests/test_torch_kernels.py and
+tests/test_torch_kernels_bwd.py hold against crog_tpu's Pallas kernels.
+Logits are held to 1e-5 of their largest magnitude: both models compute in
+fp32 and differ only in the order of their sums.
 """
 
 import functools
@@ -78,23 +81,41 @@ def test_build_ssg_reads_compute_dtype_as_crog_tpu(compute_dtype):
     assert build_ssg(cfg).dtype == TORCH_DTYPE[jm.dtype]
 
 
-def test_tiny_crog_from_fp32_config_matches_crog_tpu(monkeypatch):
+@pytest.fixture(scope="module")
+def fp32_tiny():
+    """(config, crog_tpu's CROG from it, its randomized variables as numpy):
+    crog_synthetic_r50.yaml with compute_dtype float32 and dropout 0 at the
+    tests' tiny geometry, built by crog_tpu's build_crog."""
+    with pytest.MonkeyPatch.context() as mp:
+        jc, _ = _tiny(mp)
+        cfg = _cfg(CROG_CONFIG, "float32", TINY_OPTS + ("dropout", "0.0"))
+        jm, _ = jc.build_crog(cfg)
+    img, word = inputs()
+    v = jax.jit(jm.init, static_argnames=("train",))(
+        jax.random.PRNGKey(0), jnp.asarray(img), jnp.asarray(word), train=False)
+    return cfg, jm, randomize(jax.tree_util.tree_map(np.asarray, v))
+
+
+def _port_crog(monkeypatch, cfg, v):
+    """The port's CROG built by its build_crog from ``cfg`` (tiny geometry),
+    holding the weights ``v``."""
+    from crog_tpu_torch.models.convert import load_numpy_state_dict, state_dict_from_flax
+
+    _, tc = _tiny(monkeypatch)
+    tm = tc.build_crog(cfg)
+    load_numpy_state_dict(tm, state_dict_from_flax(v["params"], v["batch_stats"]))
+    return tm
+
+
+def test_tiny_crog_from_fp32_config_matches_crog_tpu(monkeypatch, fp32_tiny):
     """The port's CROG and crog_tpu's, each built by its build_crog from
     crog_synthetic_r50.yaml with compute_dtype float32 (tiny geometry),
     crog_tpu's randomized weights carried into the port: the eval logits
     agree."""
-    from crog_tpu_torch.models.convert import load_numpy_state_dict, state_dict_from_flax
-
-    jc, tc = _tiny(monkeypatch)
-    cfg = _cfg(CROG_CONFIG, "float32", TINY_OPTS)
-    jm, _ = jc.build_crog(cfg)
-    tm = tc.build_crog(cfg).eval()
+    cfg, jm, v = fp32_tiny
+    tm = _port_crog(monkeypatch, cfg, v).eval()
     assert jm.dtype == jnp.float32 and tm.dtype == torch.float32
     img, word = inputs()
-    v = jax.jit(jm.init, static_argnames=("train",))(
-        jax.random.PRNGKey(0), jnp.asarray(img), jnp.asarray(word), train=False)
-    v = randomize(jax.tree_util.tree_map(np.asarray, v))
-    load_numpy_state_dict(tm, state_dict_from_flax(v["params"], v["batch_stats"]))
     ref = np.asarray(jm.apply(v, jnp.asarray(img), jnp.asarray(word), train=False))
     with torch.no_grad():
         got = tm(torch.from_numpy(img), torch.from_numpy(word))
@@ -116,27 +137,26 @@ def test_forward_kernels_route_bf16_and_fp32_to_their_builds(kernel):
 
 
 @pytest.mark.parametrize("kernel", [k + "_bwd" for k in FORWARD])
-def test_backward_kernels_raise_at_fp32_naming_the_queued_kernel(kernel):
+def test_backward_kernels_route_bf16_and_fp32_to_their_builds(kernel):
     bf16, f32, kid = cuda_build.KERNELS[kernel]
-    assert f32 is None and cuda_build.library_for(kernel, torch.bfloat16) == bf16
-    with pytest.raises(NotImplementedError, match=f"{kid}-f32"):
-        cuda_build.library_for(kernel, torch.float32)
-    with pytest.raises(ValueError):
+    assert cuda_build.library_for(kernel, torch.bfloat16) == bf16
+    assert cuda_build.library_for(kernel, torch.float32) == f32 == bf16 + "_f32"
+    assert f32 in cuda_build.SIGNATURES and bf16 in cuda_build.SIGNATURES
+    with pytest.raises(ValueError, match=f"{kid} takes bf16 or fp32"):
         cuda_build.library_for(kernel, torch.float16)
 
 
-@pytest.mark.parametrize("device,dtype,refused", [
-    ("cuda", torch.float32, True),
-    ("cuda", torch.bfloat16, False),
-    ("cpu", torch.float32, False),
-    ("cpu", torch.bfloat16, False),
-])
-def test_fp32_train_step_guard(device, dtype, refused):
-    if refused:
-        with pytest.raises(NotImplementedError, match="K1b-f32, K2b-f32, K3b-f32 and K4b-f32"):
-            check_train_kernels(device, dtype)
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fused_stem", [True, False])
+def test_fp32_train_step_guard(device, dtype, fused_stem):
+    """Only the fused s2d stem at fp32 on the card is refused (K6-f32 and
+    K6b-f32 are queued); K1-K4b have fp32 builds."""
+    if device == "cuda" and dtype == torch.float32 and fused_stem:
+        with pytest.raises(NotImplementedError, match="K6-f32 and K6b-f32"):
+            check_train_kernels(device, dtype, fused_stem)
     else:
-        check_train_kernels(device, dtype)
+        check_train_kernels(device, dtype, fused_stem)
 
 
 def test_make_eval_step_builds_for_an_fp32_model(monkeypatch):
@@ -154,15 +174,44 @@ def test_make_eval_step_builds_for_an_fp32_model(monkeypatch):
     assert callable(crog_engine.make_eval_step(model, input_size=RES, device="cpu"))
 
 
+def _launch_counts():
+    from crog_tpu_torch.ops import attention as A
+    from crog_tpu_torch.ops import decoder_blocks as DB
+    from crog_tpu_torch.ops import ffn as FF
+    from crog_tpu_torch.ops import s2dconv as SC
+
+    return [getattr(w, a) for w in (A.fused_attention, A.attention_bwd, DB.self_block_fwd,
+                                     DB.self_block_bwd, DB.cross_block_fwd,
+                                     DB.cross_block_bwd, FF.ffn_fwd, FF.ffn_bwd)
+            for a in ("launches", "launches_f32")] + [SC.s2dconv_fwd.launches,
+                                                      SC.s2dconv_wgrad.launches]
+
+
 def test_make_train_step_refuses_an_fp32_model_on_the_card_before_any_launch():
-    """The guard runs inside make_train_step, before the step exists (no
-    card is needed: the device is only named)."""
+    """An fp32 model whose s2d stem runs on K6/K6b (queued at fp32): the
+    guard runs inside make_train_step, before the step exists (no card is
+    needed: the device is only named)."""
     from crog_tpu_torch.engine.crog_engine import make_train_step
     from crog_tpu_torch.models.crog import CROG
 
-    model = CROG(**GEOMETRY, **TINY)
-    with pytest.raises(NotImplementedError, match="K4b-f32"):
+    model = CROG(**GEOMETRY, **TINY, fused_stem=True)
+    before = _launch_counts()
+    with pytest.raises(NotImplementedError, match="K6-f32"):
         make_train_step(model, None, None, device="cuda")
+    assert _launch_counts() == before
+
+
+def test_make_train_step_builds_an_fp32_plain_stem_step_for_the_card():
+    """An fp32 model on the plain stem gets its train step with the card
+    named: nothing is refused and nothing is launched until a batch comes."""
+    from crog_tpu_torch.engine.crog_engine import make_train_step
+    from crog_tpu_torch.models.crog import CROG
+
+    model = CROG(**GEOMETRY, **TINY, dtype=torch.float32)
+    assert model.dtype == torch.float32 and not model.backbone.visual.fused_stem
+    before = _launch_counts()
+    assert callable(make_train_step(model, None, None, device="cuda"))
+    assert _launch_counts() == before
 
 
 def _entry_points(src: str):
@@ -285,3 +334,111 @@ def test_fp32_twin_controls_read_above_the_limit():
     with cs.lossy_products() as sound:
         again = twins["decoder_self_block_f32"]()
     assert sound.count == 6 and torch.equal(again, refs["decoder_self_block_f32"])
+
+
+def _small_bwd_twins():
+    """Each fp32 backward kernel's twin at a small shape on the CPU, with
+    dropout in the blocks and the FFN."""
+    from crog_tpu_torch.ops import attention as A
+    from crog_tpu_torch.ops import decoder_blocks as DB
+    from crog_tpu_torch.ops import ffn as FF
+
+    r = np.random.RandomState(3)
+    t = lambda *s, std=1.0: torch.from_numpy((r.randn(*s) * std).astype(np.float32))
+    d = 128
+    q, k, v, do = t(2, 70, d), t(2, 70, d), t(2, 70, d), t(2, 70, d)
+    o = A.attention_plain(q, k, v, 2)
+    x, txt, pos, tpos = t(2, 20, d), t(2, 5, d), t(20, d, std=0.5), t(5, d, std=0.5)
+    dy = t(2, 20, d)
+    pad = torch.tensor([[False] * 5, [False, False, True, True, True]])
+    w = [t(3 * d, d, std=d**-0.5), t(3 * d, std=0.05), t(d, d, std=d**-0.5), t(d, std=0.05),
+         1 + t(d, std=0.1), t(d, std=0.05), 1 + t(d, std=0.1), t(d, std=0.05)]
+    f = (t(9, d), t(256, d, std=d**-0.5), t(256, std=0.05), 1 + t(256, std=0.1),
+         t(256, std=0.05), t(d, 256, std=256**-0.5), t(9, d))
+    return {"attention_bwd_f32": lambda: A.attention_bwd_plain(q, k, v, o, do, 2),
+            "decoder_self_block_bwd_f32": lambda: DB.self_block_bwd_plain(
+                x, pos, *w, dy, 2, 5, 0.1),
+            "decoder_cross_block_bwd_f32": lambda: DB.cross_block_bwd_plain(
+                x, txt, pos, tpos, pad, *w, dy, 2, 6, 0.1),
+            "ffn_bwd_f32": lambda: FF.ffn_bwd_plain(*f, 7, 0.1)}
+
+
+@pytest.mark.parametrize("name", ["attention_bwd_f32", "decoder_self_block_bwd_f32",
+                                  "decoder_cross_block_bwd_f32", "ffn_bwd_f32"])
+def test_fp32_backward_twin_controls_read_above_the_limit(name):
+    """Phase 18's control for a backward kernel: its fp32 twin with any one
+    of the kernel's products (F32_BWD_PRODUCTS) formed by one TF32 pass or
+    from bf16-staged operands reads above F32_BWD_REL_L2 on its worst
+    gradient output against the sound twin."""
+    cs = _chip_smoke()
+    twin = _small_bwd_twins()[name]
+    ref = twin()
+    controls = cs.fp32_twin_controls({name: twin}, {name: ref},
+                                     {name: cs.F32_BWD_PRODUCTS[name]})
+    assert set(controls[name]) == set(cs.F32_BWD_PRODUCTS[name])
+    for product, by_fault in controls[name].items():
+        assert set(by_fault) == {"1xTF32", "bf16-staged"}
+        for fault, rel in by_fault.items():
+            assert rel > cs.F32_BWD_REL_L2, (product, fault, rel)
+    assert cs.worst_rel_l2(twin(), ref) == 0.0
+
+
+def test_tiny_fp32_train_step_matches_crog_tpu(monkeypatch, fp32_tiny):
+    """The slice on the CPU: the tiny CROG built by each package's
+    build_crog from crog_synthetic_r50.yaml with compute_dtype float32 and
+    dropout 0, crog_tpu's randomized weights in both; one step of the
+    port's make_train_step against crog_tpu's loss and gradients on the same
+    batch and its optimizer's update of them: the loss to 1e-4 relative,
+    every gradient and BatchNorm statistic as tests/test_torch_train.py
+    holds them (assert_step_matches_jax), and each parameter's Adam update
+    to within twice the step's learning rate everywhere and to 5% of it on
+    average where the gradient is not zero up to rounding."""
+    import optax
+
+    from crog_tpu.engine import crog_engine as JE
+    from crog_tpu.engine import optim as JO
+    from crog_tpu.models import crog as JM
+
+    from crog_tpu_torch.engine import optim as TO
+    from crog_tpu_torch.engine.crog_engine import make_train_step
+    from crog_tpu_torch.models.convert import state_dict_from_flax
+    from tests.torch_port_helpers import assert_step_matches_jax, train_batch
+
+    cfg, jm, v = fp32_tiny
+    tm = _port_crog(monkeypatch, cfg, v)
+    assert jm.dtype == jnp.float32 and tm.dtype == torch.float32
+    batch = train_batch()
+    dense = {k: jnp.asarray(batch[k]) for k in JE._TRAIN_KEYS}
+    targets = {k: dense[k] for k in ("mask", "qua", "sin", "cos", "wid")}
+
+    def loss_fn(params):
+        preds, mut = jm.apply({"params": params, "batch_stats": v["batch_stats"]},
+                              dense["img"], dense["word"], train=True,
+                              mutable=["batch_stats"], rngs={"dropout": jax.random.PRNGKey(0)})
+        return JM.crog_losses(preds, targets, jm.use_grasp_masks)[0], mut["batch_stats"]
+
+    (loss, stats), jgrads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(v["params"])
+    lr, lr_multi = 1e-3, 0.1
+    tx = JO.make_optimizer(v["params"], lr, lr_multi, [5], 0.1, 1)
+    stepped = jax.jit(lambda g, p: optax.apply_updates(p, tx.update(g, tx.init(p), p)[0]))
+    as_np = lambda tree: jax.tree_util.tree_map(np.asarray, tree)  # noqa: E731
+    zeros = jax.tree_util.tree_map(np.zeros_like, v["batch_stats"])
+    gref = state_dict_from_flax(as_np(jgrads), zeros)
+    new = state_dict_from_flax(as_np(stepped(jgrads, v["params"])), as_np(stats))
+
+    before = {n: p.detach().clone() for n, p in tm.named_parameters()}
+    opt, sched = TO.make_optimizer(tm, lr, lr_multi, [5], 0.1, 1)
+    metrics = make_train_step(tm, opt, sched, device="cpu")(batch)
+    grads = {n: p.grad.clone() for n, p in tm.named_parameters() if p.requires_grad}
+    assert_step_matches_jax((metrics["loss"].item(), grads,
+                             {n: b.clone() for n, b in tm.named_buffers()}),
+                            (float(loss), gref, new))
+    gnorm = np.sqrt(sum(float(np.sum(np.square(gref[n]))) for n in grads))
+    for name in grads:
+        step_lr = lr * (lr_multi if TO.param_group_label(name) == "backbone" else 1.0)
+        moved = (dict(tm.named_parameters())[name].detach() - before[name]).numpy()
+        upd_err = np.abs(moved - (new[name] - before[name].numpy()))
+        assert upd_err.max() <= 2 * step_lr * (1 + 1e-3), f"update {name}"
+        real = np.abs(gref[name]) > 1e-6 * gnorm
+        if real.any():
+            assert upd_err[real].mean() <= 0.05 * step_lr, f"update {name}"

@@ -1,23 +1,30 @@
-"""Phase 18's kernel readings on one card, sound and with planted faults.
+"""Phase 18's kernel and train-step readings on one card, sound and with
+planted faults.
 
     python3 tools/torch_fp32_faults.py
 
 Runs the fp32 kernels K1-f32..K4-f32 (csrc/attention_f32.cu,
-decoder_blocks_f32.cu, ffn_f32.cu) on chip_smoke.py's phase-18 inputs (the
-main path's shapes at batch 24, full fp32 values) and prints each one's
-relative L2 error against its fp32 twin (TF32 off): first as built (every
-product 3xTF32), then with one product at a time formed by
+decoder_blocks_f32.cu, ffn_f32.cu) and K1b-f32..K4b-f32
+(csrc/attention_bwd_f32.cu, decoder_blocks_bwd_f32.cu, ffn_bwd_f32.cu) on
+chip_smoke.py's phase-18 inputs (the main path's shapes at batch 24, full
+fp32 values) and prints each one's relative L2 error against its fp32 twin
+(TF32 off; of a backward, its worst gradient output): first as built
+(every product 3xTF32), then with one product at a time formed by
 
 - ``1xTF32``: one TF32 pass, each operand rounded to 10 mantissa bits;
 - ``bf16-staged``: both operands rounded to bf16 first;
 
-so that chip_smoke.F32_REL_L2 can be set between the sound kernels and
-the faults.  Each fault is a build of its kernel's library with
-``-DCROG_F32_FAULT_PRODUCT`` and ``-DCROG_F32_FAULT_MODE`` (csrc/tf32.cuh),
-compiled into ``crog_tpu_torch/_build/faults/`` and swapped in for the
-library the wrapper loads while the fault is read; no file of the repo
-changes.  Beside each fault it prints phase 18's control: the twin with
-the same product formed the same way (``chip_smoke.fp32_twin_controls``).
+so that chip_smoke.F32_REL_L2 and F32_BWD_REL_L2 can be set between the
+sound kernels and the faults.  Each fault is a build of its kernel's
+library with ``-DCROG_F32_FAULT_PRODUCT`` and ``-DCROG_F32_FAULT_MODE``
+(csrc/tf32.cuh), compiled into ``crog_tpu_torch/_build/faults/`` and
+swapped in for the library the wrapper loads while the fault is read; no
+file of the repo changes.  Beside each fault it prints phase 18's control:
+the twin with the same product formed the same way
+(``chip_smoke.fp32_twin_controls``).  Then phase 18's fp32 train step at
+batch 2 (``chip_smoke.fp32_train_gap``'s model and batch) against the CPU:
+sound, with each backward library's products planted one at a time, and
+with the library's TF32 on (cuBLAS and cuDNN), for F32_TRAIN_GRAD_TOL.
 JSON to ``chiprun_out/fp32_faults.json``.
 """
 
@@ -35,12 +42,25 @@ from contextlib import contextmanager
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # kernel -> (library, {product: csrc/tf32.cuh F32Product}); the products
-# are chip_smoke.F32_PRODUCTS'
+# are chip_smoke.F32_PRODUCTS' and F32_BWD_PRODUCTS'
 _BLOCK = {"projections": 0, "QK^T": 1, "P.V": 2, "out-projection": 3}
+_ATTN_BWD = {"QK^T": 6, "dV": 7, "dP": 8, "dQ": 9, "dK": 10}
+_BLOCK_BWD = {"dO": 11, **_ATTN_BWD, "dX": 12, "dW": 13}
 FAULT_PRODUCTS = {"attention_f32": ("attention_f32", {"QK^T": 1, "P.V": 2}),
                   "decoder_self_block_f32": ("decoder_blocks_f32", _BLOCK),
                   "decoder_cross_block_f32": ("decoder_blocks_f32", _BLOCK),
                   "ffn_f32": ("ffn_f32", {"hidden product": 4, "output product": 5})}
+BWD_FAULT_PRODUCTS = {
+    "attention_bwd_f32": ("attention_bwd_f32", _ATTN_BWD),
+    "decoder_self_block_bwd_f32": ("decoder_blocks_bwd_f32", _BLOCK_BWD),
+    "decoder_cross_block_bwd_f32": ("decoder_blocks_bwd_f32", _BLOCK_BWD),
+    "ffn_bwd_f32": ("ffn_bwd_f32", {"recompute": 14, "dhn": 15, "dx": 16})}
+# the fp32 train step is read with every backward library's products
+# planted (the forward's are phase 18's eval readings)
+STEP_FAULTS = dict(BWD_FAULT_PRODUCTS.values())
+# fault builds at a time: one per core of the card's machine (48 at once
+# could exhaust its memory)
+PARALLEL_BUILDS = 8
 MODES = {"1xTF32": 1, "bf16-staged": 2}  # csrc/tf32.cuh Products
 
 
@@ -55,25 +75,30 @@ def load_chip_smoke():
 
 def build_faults():
     """{(library, product id, mode id): loaded fault build}, one ``nvcc``
-    per build, all started together."""
+    per build, PARALLEL_BUILDS at a time."""
     from crog_tpu_torch.ops import cuda_build as CB
 
     out_dir = CB.BUILD_DIR / "faults"
     out_dir.mkdir(parents=True, exist_ok=True)
-    keys = sorted({(lib, pid, mid) for lib, products in FAULT_PRODUCTS.values()
+    keys = sorted({(lib, pid, mid)
+                   for lib, products in (*FAULT_PRODUCTS.values(), *BWD_FAULT_PRODUCTS.values())
                    for pid in products.values() for mid in MODES.values()})
     t0 = time.perf_counter()
-    procs = {}
-    for lib, pid, mid in keys:
-        path = out_dir / f"lib{lib}-p{pid}-m{mid}.so"
-        cmd = [CB._nvcc(), *CB.NVCC_FLAGS, f"-DCROG_F32_FAULT_PRODUCT={pid}",
-               f"-DCROG_F32_FAULT_MODE={mid}", "-o", str(path), str(CB.CSRC / f"{lib}.cu")]
-        procs[lib, pid, mid] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                 stderr=subprocess.STDOUT, text=True), path)
+    done = []
+    for i in range(0, len(keys), PARALLEL_BUILDS):
+        procs = {}
+        for lib, pid, mid in keys[i:i + PARALLEL_BUILDS]:
+            path = out_dir / f"lib{lib}-p{pid}-m{mid}.so"
+            cmd = [CB._nvcc(), *CB.NVCC_FLAGS, f"-DCROG_F32_FAULT_PRODUCT={pid}",
+                   f"-DCROG_F32_FAULT_MODE={mid}", "-o", str(path),
+                   str(CB.CSRC / f"{lib}.cu")]
+            procs[lib, pid, mid] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                     stderr=subprocess.STDOUT, text=True), path)
+        for key, (proc, path) in procs.items():
+            done.append((key, proc.communicate()[0], proc.returncode, path))
     libs, failed = {}, []
-    for key, (proc, path) in procs.items():
-        text, _ = proc.communicate()
-        if proc.returncode != 0:
+    for key, text, rc, path in done:
+        if rc != 0:
             failed.append(f"--- nvcc {key}\n{text}")
             continue
         dll = ctypes.CDLL(str(path))
@@ -103,31 +128,84 @@ def planted(lib: str, dll):
         CB._LIBS[lib] = sound
 
 
+def _kernel_readings(cs, cases, fault_products, libs, products):
+    """(sound, faults, controls) of ``cases`` (name -> (kernel call, twin
+    call, ...)) as ``readings`` documents them."""
+    refs = {name: c[1]() for name, c in cases.items()}
+    sound = {name: cs.worst_rel_l2(c[0](), refs[name]) for name, c in cases.items()}
+    faults = {}
+    for name, (lib, by_product) in fault_products.items():
+        faults[name] = {}
+        for product, pid in by_product.items():
+            faults[name][product] = {}
+            for fault, mid in MODES.items():
+                with planted(lib, libs[lib, pid, mid]):
+                    got = cases[name][0]()
+                faults[name][product][fault] = cs.worst_rel_l2(got, refs[name])
+    controls = cs.fp32_twin_controls({n: c[1] for n, c in cases.items()}, refs, products)
+    return sound, faults, controls
+
+
+def step_readings(cs, device, libs):
+    """{"sound": (loss rel, {group: grad rel-L2}), "faults": {library:
+    {product: {fault: the same}}}, "tf32": the same with the library's TF32
+    on} of phase 18's fp32 train step at batch 2 against the CPU."""
+    import torch
+
+    cfg = cs._cfg(opts=("dropout", "0.0", "compute_dtype", "float32"))
+    mini = cs.mini_batch(cs.prepared_train_batches()[0], cfg.input_size)
+    cpu = cs.train_grads(cs.grad_model(cfg, torch.device("cpu"), torch.float32,
+                                       fused_stem=False), mini)
+    model = cs.grad_model(cfg, device, fused_stem=False)
+    out = {"sound": cs.grad_gap(cs.train_grads(model, mini), cpu, "[fp32-faults] sound:"),
+           "faults": {}}
+    for lib, by_product in STEP_FAULTS.items():
+        out["faults"][lib] = {}
+        for product, pid in by_product.items():
+            out["faults"][lib][product] = {}
+            for fault, mid in MODES.items():
+                with planted(lib, libs[lib, pid, mid]):
+                    card = cs.train_grads(model, mini)
+                out["faults"][lib][product][fault] = cs.grad_gap(
+                    card, cpu, f"[fp32-faults] {lib} {product} {fault}:")
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        out["tf32"] = cs.grad_gap(cs.train_grads(model, mini), cpu,
+                                  "[fp32-faults] library TF32 on:")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    return out
+
+
 def readings(cs, device):
     """{"sound": {kernel: rel-L2}, "faults": {kernel: {product: {fault:
-    rel-L2}}}, "controls": the same for the twins} at phase 18's inputs."""
+    rel-L2}}}, "controls": the same for the twins, "step": step_readings}
+    at phase 18's inputs; a backward kernel's rel-L2 is its worst
+    output's."""
     import torch
 
     from crog_tpu_torch.engine.crog_engine import set_exact_fp32_matmul
 
     set_exact_fp32_matmul()
     inp = cs.kernel_inputs(device, dtype=torch.float32)
-    cases = {name + "_f32": c for name, c in cs.kernel_cases(inp).items()}
     libs = build_faults()
+    out = {"sound": {}, "faults": {}, "controls": {}}
     with torch.no_grad():
-        refs = {name: plain() for name, (_, plain, *_) in cases.items()}
-        sound = {name: cs.rel_l2(kern(), refs[name]) for name, (kern, *_) in cases.items()}
-        faults = {}
-        for name, (lib, products) in FAULT_PRODUCTS.items():
-            faults[name] = {}
-            for product, pid in products.items():
-                faults[name][product] = {}
-                for fault, mid in MODES.items():
-                    with planted(lib, libs[lib, pid, mid]):
-                        got = cases[name][0]()
-                    faults[name][product][fault] = cs.rel_l2(got, refs[name])
-        controls = cs.fp32_twin_controls({n: c[1] for n, c in cases.items()}, refs)
-    return {"sound": sound, "faults": faults, "controls": controls}
+        fwd = {name + "_f32": c for name, c in cs.kernel_cases(inp).items()}
+        bwd = {name + "_f32": c for name, c in cs.f32_backward_cases(inp).items()}
+        for cases, fault_products, products in ((fwd, FAULT_PRODUCTS, cs.F32_PRODUCTS),
+                                                (bwd, BWD_FAULT_PRODUCTS,
+                                                 cs.F32_BWD_PRODUCTS)):
+            sound, faults, controls = _kernel_readings(cs, cases, fault_products, libs,
+                                                       products)
+            out["sound"].update(sound)
+            out["faults"].update(faults)
+            out["controls"].update(controls)
+    del inp, fwd, bwd
+    torch.cuda.empty_cache()
+    out["step"] = step_readings(cs, device, libs)
+    return out
 
 
 def main(argv=None) -> int:
@@ -146,13 +224,28 @@ def main(argv=None) -> int:
             print(f"[fp32-faults] {name} {product}: "
                   + ", ".join(f"{f} {r:.4g} (twin control {control[f]:.4g})"
                               for f, r in by_fault.items()), flush=True)
-    print(f"[fp32-faults] limit F32_REL_L2 {cs.F32_REL_L2}; {smi}", flush=True)
+    step = out["step"]
+    grad_limits = cs.F32_TRAIN_GRAD_TOL
+    over = lambda gap: [g for g, r in gap[1].items() if r > grad_limits[g]]  # noqa: E731
+    print(f"[fp32-faults] train step (loss rel; groups over their F32_TRAIN_GRAD_TOL "
+          f"{grad_limits}): sound {step['sound'][0]:.4g}, {over(step['sound'])}; library TF32 on "
+          f"{step['tf32'][0]:.4g}, {over(step['tf32'])}", flush=True)
+    for lib, by_product in step["faults"].items():
+        print(f"[fp32-faults] train step, {lib} planted (groups over their limits): "
+              + "; ".join(f"{p} " + ", ".join(f"{f} {over(g)}" for f, g in fr.items())
+                          for p, fr in by_product.items()), flush=True)
+    limits = {"F32_REL_L2": cs.F32_REL_L2, "F32_BWD_REL_L2": cs.F32_BWD_REL_L2,
+              "F32_TRAIN_LOSS_TOL": cs.F32_TRAIN_LOSS_TOL,
+              "F32_TRAIN_GRAD_TOL": cs.F32_TRAIN_GRAD_TOL}
+    print(f"[fp32-faults] limits {limits}; {smi}", flush=True)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "fp32_faults.json"), "w") as fh:
-        json.dump({**out, "limit": cs.F32_REL_L2, "card": smi}, fh, indent=1)
+        json.dump({**out, "limits": limits, "card": smi}, fh, indent=1)
+    limit = lambda name: cs.F32_REL_L2 if name in FAULT_PRODUCTS else cs.F32_BWD_REL_L2  # noqa
     low = [(n, p, f) for n, bp in out["faults"].items() for p, fr in bp.items()
-           for f, r in fr.items() if not r > cs.F32_REL_L2]
-    return 1 if low or max(out["sound"].values()) > cs.F32_REL_L2 else 0
+           for f, r in fr.items() if not r > limit(n)]
+    loud = [n for n, r in out["sound"].items() if r > limit(n)]
+    return 1 if low or loud else 0
 
 
 if __name__ == "__main__":
