@@ -11,16 +11,18 @@ Phases, in order (phase 17 runs after phase 7, phase 18 after phase 17);
 any failure propagates and the exit code is not 0:
   1. the card's name and power limit (nvidia-smi);
   2. build the hand-written kernels from crog_tpu_torch/csrc (nvcc, sm_90a,
-     one process per source, all at once: fourteen libraries): K1-K4 and
+     one process per source, all at once: fifteen libraries): K1-K4 and
      the backward kernels K1b-K4b (and their fp32 builds K1-f32..K4b-f32),
      SSG's lincomb loss kernels K5/K5b, and the
-     s2d stem's gathered conv K6 (forward and dgrad) and its wgrad K6b;
+     s2d stem's gathered conv K6 (forward and dgrad) and its wgrad K6b (and
+     their fp32 builds K6-f32 and K6b-f32);
      the registers, shared memory and spills of the redesigned kernels (the
      attention forward's one- and two-pass kernels at K1's, K2's and K3's
      key counts, with the path ops/attention.py:fwd_path names; K4's and
      K4b's cluster kernels and their y / dx GEMM; K2's and K3's projection
      GEMM and out-projection cluster kernel; K2b's and K3b's dX and dW
-     GEMMs; K1b's one-CTA-per-head kernel; K6; K6b's cluster kernel);
+     GEMMs; K1b's one-CTA-per-head kernel; K6; K6b's cluster kernel;
+     K6-f32's and K6b-f32's gathered GEMMs);
      then the readers' host ops from crog_tpu_torch/native/hostops.cpp (g++
      -O3 -march=native -ffp-contract=off), with the build time;
   3. hold each kernel against its plain PyTorch twin on the card, in bf16,
@@ -101,29 +103,42 @@ any failure propagates and the exit code is not 0:
      beside its twin, SDPA (K1) or its backward (K1b), F.linear at the
      projections' and the FFN's shapes, SDPA's backward at K2b's and K3b's
      attention shapes and torch.mm at those of K2b's, K3b's and K4b's
-     products, all fp32; (b) crog_synthetic_r50.yaml with compute_dtype
-     float32 (plain stem convs, the bf16 model's seeded state_dict): one
-     forward at batch 1 on the card against the CPU in fp32, each logit
-     map within F32_E2E_TOL, launching K1-f32 once, K2-f32, K3-f32 and
-     K4-f32 three times each and no other kernel; (c) make_eval_step over
+     products, all fp32; K6-f32 at the stem's conv2 and conv3 forward and
+     both dgrads and K6b-f32 at conv2 and conv3 (batch 24, 104x104 cells,
+     full fp32 values) within F32_REL_L2 and F32_BWD_REL_L2 of their twins,
+     twice with equal bits, their twin controls above the limits, each
+     timed beside its twin, cuDNN's fp32 conv of the blocked tensor (K6b:
+     conv2d_weight of it) and cuDNN's plain 3x3 conv of the unblocked 208^2
+     tensor; (b) crog_synthetic_r50.yaml with compute_dtype float32 (the
+     bf16 model's seeded state_dict), on the plain stem convs and on the
+     fused stem: one forward at batch 1 each on the card against the CPU in
+     fp32, each logit map within F32_E2E_TOL, launching K1-f32 once,
+     K2-f32, K3-f32 and K4-f32 three times each, K6-f32 twice on the fused
+     stem and no other kernel; (c) the fused stem's make_eval_step over
      phase 4's first prepared batch at 24 against the CPU: per-sample IoU
      within F32_IOU_TOL, grasp rects equal in validity and position on at
-     least F32_RECT_SHARE; (d) the fp32 and the bf16 model's batch-1
-     forward latency, eval samples/s at 24 and peak memory, in turns; (e)
-     one fp32 train step at batch 2 (phase 5's first batch), dropout 0,
-     BatchNorm on running statistics, plain stem, card vs CPU: the loss
-     within F32_TRAIN_LOSS_TOL and each group's gradient within
-     F32_TRAIN_GRAD_TOL, launching K1-f32 and K1b-f32 once and K2-K4(b)-f32
-     three times each and no bf16 kernel; (f) the fp32 model through
+     least F32_RECT_SHARE; (d) the fp32 (plain stem) and the bf16 model's
+     batch-1 forward latency, eval samples/s at 24 and peak memory, in
+     turns; (e) one fp32 train step at batch 2 (phase 5's first batch),
+     dropout 0, BatchNorm on running statistics, the fused stem, card vs
+     CPU: the loss within F32_TRAIN_LOSS_TOL and each group's gradient
+     within F32_TRAIN_GRAD_TOL, launching K1-f32 and K1b-f32 once,
+     K2-K4(b)-f32 three times each, K6-f32 four times, K6b-f32 twice and no
+     bf16 kernel; (f) the fp32 model on the fused stem through
      ``train_one_epoch`` for 4 steps at 24 on phase 5's rawlb batches: the
      loss finite, every parameter and BatchNorm statistic moved, the same
-     launches per step; then fp32 against bf16 train samples/s and peak
-     memory, both on the plain stem, in turns; (g) ``python -m
-     crog_tpu_torch.train_crog --opts compute_dtype float32`` for 3 steps
-     at 8 and one eval exits 0; (h) ssg_r50.yaml with compute_dtype
-     float32: one frame through the validate path's eval forward, card vs
-     CPU, every output within F32_E2E_TOL; (i) tools/torch_roofline.py on
-     crog_multiple_r50.yaml at compute_dtype float32; the ``[fp32]`` lines;
+     launches per step; then train samples/s and peak memory of the fp32
+     model on the fused stem, on the plain stem and of the bf16 model, in
+     turns; the ``[stem]`` line in fp32 (plain stem, s2d on cuDNN, s2d on
+     K6-f32/K6b-f32); (g) ``python -m crog_tpu_torch.train_crog
+     --fused-stem --opts compute_dtype float32`` for 3 steps at 8 and one
+     eval exits 0; (h) ssg_r50.yaml with compute_dtype float32: one frame
+     through the validate path's eval forward, card vs CPU, every output
+     within F32_E2E_TOL, and one train step at batch 2 and 256^2 as phase
+     11 (K5 and K5b twice each, the loss terms within SSG_LOSS_TOL and
+     each group's gradients within SSG_GRAD_TOL); (i) tools/torch_roofline.py
+     --fused-stem on crog_multiple_r50.yaml at compute_dtype float32; the
+     ``[fp32]`` lines;
   8. forward latency at batch 1 and eval samples/s at batch 24;
   9. SSG training at full width (config/OCID-Grasp/ssg_r50.yaml as
      written: RN50 (3,4,6,3), RGB-D, 544^2, 32 classes, 32 prototypes,
@@ -144,8 +159,9 @@ any failure propagates and the exit code is not 0:
      config's batch_size_val 2, no K5 launch;
  11. one SSG train step at batch 2 and 256^2 (to bound the CPU's time),
      BatchNorm on running statistics, the same positive priorities, on the
-     card (kernels, bf16) and on the CPU (plain PyTorch, fp32): the 8 loss
-     terms and each group's gradients must agree; then one raw batch of 4
+     card (kernels, bf16; K5 and K5b launched twice each) and on the CPU
+     (plain PyTorch, fp32): the 8 loss terms and each group's gradients
+     must agree; then one raw batch of 4
      frames unpacked as the train step does on the card and on the CPU,
      both f32: every plane within ``UNPACK_TOL`` (sin and cos
      ``UNPACK_SIN_COS_TOL``), the binarized maps differing only at 0.5
@@ -251,7 +267,7 @@ Precision: fp32 products on the card run in full fp32 (TF32 off for matmul
 and cuDNN) wherever fp32 is compared; the models compute in bf16 but in
 phase 18, where they compute in fp32 (the kernels' products 3xTF32).  The
 JSON line's fp32 rows count their launches on phase 18's fp32 train path
-(f), the bf16 rows theirs on phase 5's.
+(f, the fused stem), the bf16 rows theirs on phase 5's.
 
 The second-to-last lines are a JSON ``kernels`` record and the nvidia-smi
 line; the last line is ``{"ok": true, "device": {...}}``.
@@ -620,6 +636,10 @@ SOURCES = {
     "decoder_cross_block_bwd_f32": ("crog_tpu_torch/csrc/decoder_blocks_bwd_f32.cu",
                                     "crog_tpu/ops/pallas_decoder.py:550"),
     "ffn_bwd_f32": ("crog_tpu_torch/csrc/ffn_bwd_f32.cu", "crog_tpu/ops/pallas_ffn.py:234"),
+    "s2dconv_f32": ("crog_tpu_torch/csrc/s2dconv_f32.cu",
+                    "crog_tpu/ops/pallas_s2dconv.py:348"),
+    "s2dconv_wgrad_f32": ("crog_tpu_torch/csrc/s2dconv_f32.cu",
+                          "crog_tpu/ops/pallas_s2dconv.py:373"),
 }
 
 
@@ -1303,7 +1323,7 @@ def check_lincomb(device, timed: bool = True):
     return records
 
 
-def s2dconv_cases(device, b=BATCH, cells=104):
+def s2dconv_cases(device, b=BATCH, cells=104, dtype=None):
     """K6/K6b's launches in one train step of the main path (batch 24,
     416^2: the stem's 2x2-blocked tensors have 104x104 cells; conv2 ci = co
     = 32, conv3 ci = 32, co = 64), each as (label, kernel call, plain call,
@@ -1311,7 +1331,8 @@ def s2dconv_cases(device, b=BATCH, cells=104):
     relative to the largest |output|).  Activations are ReLU'd as the stem's
     BN+ReLU emits them; weights He-scaled.  The flops count the real taps,
     2*9*ci*co per original output pixel; the bytes each input once and each
-    output once."""
+    output once.  Operands in ``dtype``: bf16 unless given (fp32 for phase
+    18, full fp32 values; the tolerance is then phase 18's own)."""
     import torch
     import torch.nn.functional as F
     from torch.nn.grad import conv2d_weight
@@ -1320,7 +1341,7 @@ def s2dconv_cases(device, b=BATCH, cells=104):
     from crog_tpu_torch.ops.s2d import block_kernel_s1, depth_to_space
 
     g = torch.Generator().manual_seed(SEED + 6)
-    bf = torch.bfloat16
+    bf = torch.bfloat16 if dtype is None else dtype
     nchw = lambda t: t.permute(0, 3, 1, 2)
     k6, k6b = [], []
     for name, ci, co in (("conv2", 32, 32), ("conv3", 32, 64)):
@@ -1342,7 +1363,7 @@ def s2dconv_cases(device, b=BATCH, cells=104):
                            SC.conv_padded_plain(inp, wp, c_in, c_out),
                        lambda inp=inp, k=blocked: F.conv2d(nchw(inp), k, padding=1),
                        lambda u=unblocked, k=plain_w: F.conv2d(u, k, padding=1),
-                       flops, nbytes(inp, wp) + inp.numel() // c_in * c_out * 2,
+                       flops, nbytes(inp, wp) + inp.numel() // c_in * c_out * inp.element_size(),
                        S2D_REL_TOL))
         ub_x = nchw(depth_to_space(x, 2)).contiguous(memory_format=torch.channels_last)
         ub_dy = nchw(depth_to_space(dy, 2)).contiguous(memory_format=torch.channels_last)
@@ -1379,34 +1400,49 @@ def check_s2dconv(device, timed: bool = True):
             if by == "operations":
                 rec["bound_by"] = "operations"
             if timed:
-                ms, plain_ms = cuda_ms(kern), cuda_ms(plain, reps=5)
-                lib_ms, ub_ms = cuda_ms(lib), cuda_ms(lib_plain)
-                rec["ms"] += ms
-                rec["plain_ms"] += plain_ms
-                rec["library_ms"] += lib_ms
-                unblocked_ms += ub_ms
-                print(f"[kernels] {name} ({label}): {ms:.4f} ms (plain {plain_ms:.4f}, "
-                      f"cuDNN blocked {lib_ms:.4f}, cuDNN unblocked 208^2 {ub_ms:.4f}, "
-                      f"bound {bms:.4f} by {by})", flush=True)
                 kid = "K6b" if name == "s2dconv_wgrad" else "K6"
-                call = "conv2d_weight" if name == "s2dconv_wgrad" else "cuDNN blocked conv"
-                DEVICE_TIMED.append((f"{name} ({kid}, {label})", ms, kern,
-                                     f"{name} ({kid}) per CROG train step", None))
-                DEVICE_TIMED.append((f"{name}'s library call ({call}, {label})", lib_ms, lib,
-                                     f"{name}'s library call ({call}) per CROG train step",
-                                     None))
+                unblocked_ms += time_s2d(rec, kid, label, kern, plain, lib, lib_plain, bms,
+                                         by, "[kernels]", "")
         if timed:
-            print(f"[kernels] {name} per CROG train step: {rec['ms']:.4f} ms (plain "
-                  f"{rec['plain_ms']:.4f}, cuDNN blocked {rec['library_ms']:.4f}, cuDNN "
-                  f"unblocked {unblocked_ms:.4f}, bound {rec['bound_ms']:.4f} by "
-                  f"{rec['bound_by']})", flush=True)
+            s2d_step_line(rec, unblocked_ms, "[kernels]", "")
         records[name] = rec
     return records
 
 
+def time_s2d(rec, kid, label, kern, plain, lib, lib_plain, bms, by, tag, prec):
+    """One K6/K6b launch (``kid``, ``label``) timed beside its twin, its
+    library call (cuDNN's conv of the blocked tensor, or conv2d_weight of
+    it) and cuDNN's plain conv of the unblocked tensor, ``prec`` naming
+    their dtype (" fp32", or "" for bf16); the times are added to ``rec``
+    (per CROG train step) and the kernel's and the library call's queued
+    for ``print_device_times``.  Returns the unblocked conv's ms."""
+    name = rec["name"]
+    ms, plain_ms = cuda_ms(kern), cuda_ms(plain, reps=5)
+    lib_ms, ub_ms = cuda_ms(lib), cuda_ms(lib_plain)
+    rec["ms"] += ms
+    rec["plain_ms"] += plain_ms
+    rec["library_ms"] += lib_ms
+    print(f"{tag} {name} ({label}): {ms:.4f} ms (plain {plain_ms:.4f}, cuDNN blocked{prec} "
+          f"{lib_ms:.4f}, cuDNN unblocked 208^2{prec} {ub_ms:.4f}, bound {bms:.4f} by {by})",
+          flush=True)
+    call = ("conv2d_weight" if kid.startswith("K6b") else "cuDNN blocked conv") + prec
+    DEVICE_TIMED.append((f"{name} ({kid}, {label})", ms, kern,
+                         f"{name} ({kid}) per CROG train step", None))
+    DEVICE_TIMED.append((f"{name}'s library call ({call}, {label})", lib_ms, lib,
+                         f"{name}'s library call ({call}) per CROG train step", None))
+    return ub_ms
+
+
+def s2d_step_line(rec, unblocked_ms, tag, prec):
+    print(f"{tag} {rec['name']} per CROG train step: {rec['ms']:.4f} ms (plain "
+          f"{rec['plain_ms']:.4f}, cuDNN blocked{prec} {rec['library_ms']:.4f}, cuDNN "
+          f"unblocked{prec} {unblocked_ms:.4f}, bound {rec['bound_ms']:.4f} by "
+          f"{rec['bound_by']})", flush=True)
+
+
 def launch_counts():
     """name -> (wrapper, attribute) of every kernel's launch count: each
-    wrapper of K1-K4b counts its fp32 build's launches apart."""
+    wrapper of K1-K4b and K6/K6b counts its fp32 build's launches apart."""
     from crog_tpu_torch.ops import attention as A
     from crog_tpu_torch.ops import decoder_blocks as DB
     from crog_tpu_torch.ops import ffn as FF
@@ -1421,9 +1457,11 @@ def launch_counts():
                 "lincomb": LC.lincomb_fwd, "lincomb_bwd": LC.lincomb_bwd,
                 "s2dconv": SC.s2dconv_fwd, "s2dconv_wgrad": SC.s2dconv_wgrad}
     counts = {n: (w, "launches") for n, w in wrappers.items()}
-    for n in FWD:
+    for n in FWD + ("s2dconv",):
         counts[n + "_f32"] = (wrappers[n], "launches_f32")
+    for n in FWD:
         counts[n + "_bwd_f32"] = (wrappers[n + "_bwd"], "launches_f32")
+    counts["s2dconv_wgrad_f32"] = (SC.s2dconv_wgrad, "launches_f32")
     return counts
 
 
@@ -1615,29 +1653,33 @@ def wire_phase(step, smi: str):
             raise AssertionError(f"{wire} wire: train loss is not finite: {loss}")
 
 
-def stem_timings(device, smi: str):
+def stem_timings(device, smi: str, dtype=None):
     """Forward and forward+backward of the stem alone at batch 24, 416^2,
-    train mode: the plain stem, the s2d stem on cuDNN and the s2d stem on
-    K6/K6b (the same modules and weights)."""
+    train mode, in ``dtype`` (bf16 unless given; phase 18: fp32): the plain
+    stem, the s2d stem on cuDNN and the s2d stem on K6/K6b (K6-f32/K6b-f32
+    in fp32; the same modules and weights)."""
     import torch
 
     from crog_tpu_torch.models.clip import ModifiedResNet
 
+    dtype = torch.bfloat16 if dtype is None else dtype
+    f32 = dtype == torch.float32
     m = ModifiedResNet((1, 1, 1, 1), 1024, 32, 416, 64).to(device).train()
     g = torch.Generator().manual_seed(SEED + 7)
-    x = torch.randn(BATCH, 416, 416, 3, generator=g).to(device, torch.bfloat16)
-    dy = torch.randn(BATCH, 104, 104, 64, generator=g).to(device, torch.bfloat16)
+    x = torch.randn(BATCH, 416, 416, 3, generator=g).to(device, dtype)
+    dy = torch.randn(BATCH, 104, 104, 64, generator=g).to(device, dtype)
     out = []
     for label, s2d, fused in (("plain", False, False), ("s2d cuDNN", True, False),
-                              ("s2d K6/K6b", True, True)):
+                              ("s2d K6-f32/K6b-f32" if f32 else "s2d K6/K6b", True, True)):
         m.fused_stem = fused
         stem = m._stem_s2d if s2d else m._stem_plain
         with torch.no_grad():
             fwd = cuda_ms(lambda: stem(x))
         both = cuda_ms(lambda: stem(x).backward(dy))
         out.append(f"{label} {fwd:.3f} / {both:.3f}")
-    print(f"[stem] forward / forward+backward ms at batch {BATCH}, 416^2, bf16: "
-          + "; ".join(out) + f" on {smi}", flush=True)
+    print(f"[stem] forward / forward+backward ms at batch {BATCH}, 416^2, "
+          f"{'fp32 (TF32 off)' if f32 else 'bf16'}: " + "; ".join(out) + f" on {smi}",
+          flush=True)
 
 
 # card (bf16, kernels) vs CPU (fp32, plain) on one train step at batch 2,
@@ -1716,6 +1758,19 @@ def grad_gap(card, cpu, tag: str = "[e2e-train]"):
     print(f"{tag} loss {lc:.6g} vs cpu fp32 {lp:.6g}; grad rel_l2 "
           + ", ".join(f"{g} {r:.4g}" for g, r in groups.items()), flush=True)
     return abs(lc - lp) / abs(lp), groups
+
+
+# the stem's conv weights: K6b-f32 computes conv2's and conv3's gradients
+# and K6-f32's dgrads feed conv1's (a small part of the vision group)
+STEM_PARAMS = tuple(f"backbone.visual.conv{i}.weight" for i in (1, 2, 3))
+
+
+def stem_grad_gap(card, cpu) -> float:
+    """The rel-L2 of ``train_grads`` results over the stem's conv weights."""
+    (_, gc), (_, gp) = card, cpu
+    num = sum(float((gc[n] - gp[n]).pow(2).sum()) for n in STEM_PARAMS)
+    den = sum(float(gp[n].pow(2).sum()) for n in STEM_PARAMS)
+    return (num / max(den, 1e-30)) ** 0.5
 
 
 def train_step_gap(batch, device, running_bn: bool = True, opts=()):
@@ -2019,6 +2074,10 @@ PER_FORWARD_F32 = {"attention_f32": 1, "decoder_self_block_f32": 3,
                    "decoder_cross_block_f32": 3, "ffn_f32": 3}
 PER_STEP_F32 = {**PER_FORWARD_F32, **{n.replace("_f32", "_bwd_f32"): k
                                       for n, k in PER_FORWARD_F32.items()}}
+# and with the fused s2d stem (``--fused-stem``): K6-f32 for conv2 and conv3
+# (in a step also their dgrads) and K6b-f32 for their weight gradients
+PER_FORWARD_F32_FUSED = {**PER_FORWARD_F32, "s2dconv_f32": 2}
+PER_STEP_F32_FUSED = {**PER_STEP_F32, "s2dconv_f32": 4, "s2dconv_wgrad_f32": 2}
 # fp32 kernel vs its fp32 twin on the card (TF32 off), relative L2 error of
 # each output.  The kernels form every product as 3xTF32, which keeps f32
 # accuracy (the dropped lo*lo term is below 2^-21 of each product), and sum
@@ -2055,6 +2114,11 @@ F32_BWD_PRODUCTS = {"attention_bwd_f32": {"QK^T": (0,), "dV": (1,), "dP": (2,), 
                     "decoder_self_block_bwd_f32": _BLOCK_BWD_PRODUCTS,
                     "decoder_cross_block_bwd_f32": _BLOCK_BWD_PRODUCTS,
                     "ffn_bwd_f32": {"recompute": (0,), "dhn": (1,), "dx": (2,)}}
+# K6-f32's and K6b-f32's one product each in their twins' torch.matmul
+# calls (conv_padded_plain, wgrad_plain): held to F32_REL_L2 and
+# F32_BWD_REL_L2 as the other forward and backward kernels are
+F32_S2D_PRODUCTS = {"s2dconv_f32": {"patch product": (0,)},
+                    "s2dconv_wgrad_f32": {"patch^T dy": (0,)}}
 # torch.matmul calls of a twin where it makes more than its products name:
 # the FFN twin's last two are dW1 and dW2, library products in the port too
 F32_MATMULS = {"ffn_bwd_f32": 5}
@@ -2246,6 +2310,60 @@ def fp32_kernels(device, timed: bool = True):
         if timed:
             linear_yardsticks(device, dtype=torch.float32, f=2048)
         records.update(fp32_backward_kernels(inp, timed))
+        del inp
+        records.update(fp32_s2dconv(device, timed))
+    return records
+
+
+def fp32_s2dconv(device, timed: bool = True):
+    """Phase 18 (a), the stem: K6-f32 at the stem's four launches of a train
+    step (conv2 and conv3 forward, both dgrads) and K6b-f32 at conv2 and
+    conv3, batch 24 on 104 x 104 cells, full fp32 values, against their fp32
+    twins within F32_REL_L2 (K6-f32) and F32_BWD_REL_L2 (K6b-f32), each
+    twice with equal bits, its twin with the product formed by one TF32 pass
+    or from bf16-staged operands above the limit; each timed beside its
+    twin, cuDNN's fp32 conv of the blocked tensor with block_kernel_s1 (for
+    K6b-f32 conv2d_weight of it; TF32 off) and cuDNN's plain 3x3 conv of
+    the unblocked 208^2 tensor.  Records per CROG train step, as
+    ``check_s2dconv``'s."""
+    import torch
+
+    records = {}
+    for name, cases in s2dconv_cases(device, dtype=torch.float32).items():
+        n32 = name + "_f32"
+        kid = "K6b-f32" if name == "s2dconv_wgrad" else "K6-f32"
+        limit = F32_BWD_REL_L2 if name == "s2dconv_wgrad" else F32_REL_L2
+        rec = _record(n32, 0.0, 0.0, "bytes")
+        if timed:
+            rec.update(ms=0.0, plain_ms=0.0, library_ms=0.0)
+        unblocked_ms = 0.0
+        for label, kern, plain, lib, lib_plain, flops, nb, _ in cases:
+            got, again, ref = kern(), kern(), plain()
+            torch.cuda.synchronize()
+            rel, err = rel_l2(got, ref), float((got - ref).abs().max())
+            same = torch.equal(got, again)
+            print(f"[fp32] {n32} ({label}): rel_l2 {rel:.3g} (limit {limit}), max_abs_err "
+                  f"{err:.3g}, max|ref| {float(ref.abs().max()):.4g}; twice: "
+                  f"{'equal bits' if same else 'DIFFERENT bits'}", flush=True)
+            if not (bool(torch.isfinite(got).all()) and rel <= limit and same):
+                raise AssertionError(f"{n32} ({label}) disagrees with its fp32 twin or is "
+                                     f"not repeatable: rel_l2 {rel:.3g}")
+            del got, again
+            key = f"{n32} ({label})"
+            check_controls(fp32_twin_controls({key: plain}, {key: ref},
+                                              {key: F32_S2D_PRODUCTS[n32]}), limit)
+            del ref
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            bms, by = bound(flops, nb, PEAK_F32_TC_FLOPS)
+            rec["bound_ms"] += bms
+            if by == "operations":
+                rec["bound_by"] = "operations"
+            if timed:
+                unblocked_ms += time_s2d(rec, kid, label, kern, plain, lib, lib_plain, bms,
+                                         by, "[fp32]", " fp32")
+        if timed:
+            s2d_step_line(rec, unblocked_ms, "[fp32]", " fp32")
+        records[n32] = rec
     return records
 
 
@@ -2446,11 +2564,12 @@ def _eval_rate(eval_step, batch, reps: int = 5):
 
 def fp32_e2e(device, batch, smi: str):
     """Phase 18 (b)-(d): crog_synthetic_r50.yaml with compute_dtype
-    float32 (the plain stem convs, as the config runs without
-    ``--fused-stem``), the bf16 model's seeded weights: one forward at
-    batch 1 against the CPU in fp32, its launches; make_eval_step over
-    ``batch`` against the CPU; the fp32 and bf16 models' batch-1 latency,
-    eval samples/s at 24 and peak memory."""
+    float32, the bf16 model's seeded weights, on the plain stem convs (as
+    the config runs without ``--fused-stem``) and on the fused stem (K6-f32):
+    one forward at batch 1 of each against the CPU in fp32, its launches;
+    the fused stem's make_eval_step over ``batch`` against the CPU; the
+    fp32 (plain stem) and bf16 models' batch-1 latency, eval samples/s at
+    24 and peak memory."""
     import torch
 
     from crog_tpu_torch.engine.crog_engine import device_batch, make_eval_step
@@ -2459,11 +2578,14 @@ def fp32_e2e(device, batch, smi: str):
     cfg32 = _cfg(BATCH, BATCH, ("compute_dtype", "float32"))
     model16 = _model(_cfg(), device, fused_stem=False).eval()
     model32 = build_crog(cfg32).to(device).eval()
+    fused32 = build_crog(cfg32, fused_stem=True).to(device).eval()
     cpu32 = build_crog(cfg32).eval()
     state = model16.state_dict()
     model32.load_state_dict(state)
+    fused32.load_state_dict(state)
     cpu32.load_state_dict({k: v.cpu() for k, v in state.items()})
-    if (model16.dtype, model32.dtype, cpu32.dtype) != (torch.bfloat16,) + (torch.float32,) * 2:
+    if (model16.dtype, model32.dtype, fused32.dtype, cpu32.dtype) != (
+            (torch.bfloat16,) + (torch.float32,) * 3):
         raise AssertionError("build_crog did not read compute_dtype")
 
     one = device_batch({k: v[:1] for k, v in batch.items() if isinstance(v, np.ndarray)},
@@ -2471,28 +2593,32 @@ def fp32_e2e(device, batch, smi: str):
     img, word = one["img"], one["word"]
     wrappers = launch_counts()
     with torch.no_grad():
-        _reset(wrappers)
-        card = model32(img.to(device), word.to(device))
-        torch.cuda.synchronize()
-        launches = _read(wrappers)
         cpu = cpu32(img, word)
-    card = card.float().cpu()
-    print(f"[fp32] one fp32 forward launches {_launched(launches)}", flush=True)
-    check_launches(launches, PER_FORWARD_F32, 1)
-    if card.shape != cpu.shape or not torch.isfinite(card).all():
-        raise AssertionError(f"fp32 card output {tuple(card.shape)} not finite/shaped")
-    worst = 0.0
-    for i, name in enumerate(("mask", "qua", "sin", "cos", "wid")):
-        rel = rel_l2(card[..., i], cpu[..., i])
-        worst = max(worst, rel)
-        print(f"[fp32] e2e {name}: rel_l2 {rel:.4g} (limit {F32_E2E_TOL}), "
-              f"max|card-cpu| {float((card[..., i] - cpu[..., i]).abs().max()):.4g}",
-              flush=True)
-    if worst > F32_E2E_TOL:
-        raise AssertionError(f"fp32 card vs CPU logits rel_l2 {worst:.4g} > {F32_E2E_TOL}")
+    for stem, model, per_forward in (("plain stem", model32, PER_FORWARD_F32),
+                                     ("fused stem", fused32, PER_FORWARD_F32_FUSED)):
+        with torch.no_grad():
+            _reset(wrappers)
+            card = model(img.to(device), word.to(device))
+            torch.cuda.synchronize()
+            launches = _read(wrappers)
+        card = card.float().cpu()
+        print(f"[fp32] one fp32 forward ({stem}) launches {_launched(launches)}", flush=True)
+        check_launches(launches, per_forward, 1)
+        if card.shape != cpu.shape or not torch.isfinite(card).all():
+            raise AssertionError(f"fp32 card output {tuple(card.shape)} not finite/shaped")
+        worst = 0.0
+        for i, name in enumerate(("mask", "qua", "sin", "cos", "wid")):
+            rel = rel_l2(card[..., i], cpu[..., i])
+            worst = max(worst, rel)
+            print(f"[fp32] e2e ({stem}) {name}: rel_l2 {rel:.4g} (limit {F32_E2E_TOL}), "
+                  f"max|card-cpu| {float((card[..., i] - cpu[..., i]).abs().max()):.4g}",
+                  flush=True)
+        if worst > F32_E2E_TOL:
+            raise AssertionError(f"fp32 card vs CPU logits ({stem}) rel_l2 {worst:.4g} > "
+                                 f"{F32_E2E_TOL}")
 
-    step32 = make_eval_step(model32, input_size=cfg32.input_size, device=device)
-    got = step32(batch)
+    got = make_eval_step(fused32, input_size=cfg32.input_size, device=device)(batch)
+    del fused32
     ref = make_eval_step(cpu32, input_size=cfg32.input_size, device="cpu")(batch)
     iou_gap = float((got["iou"].cpu() - ref["iou"]).abs().max())
     gv, rv = got["rects_valid"].cpu(), ref["rects_valid"]
@@ -2501,13 +2627,15 @@ def fp32_e2e(device, batch, smi: str):
     both = gv & rv
     rect_gap = float((got["rects"].cpu()[both] - ref["rects"][both]).abs().max()) \
         if bool(both.any()) else 0.0
-    print(f"[fp32] eval step at batch {len(batch['word'])}, card vs CPU: per-sample IoU gap "
+    print(f"[fp32] eval step at batch {len(batch['word'])}, fused stem, card vs CPU: "
+          f"per-sample IoU gap "
           f"{iou_gap:.3g} (limit {F32_IOU_TOL}); grasp rects with equal validity and "
           f"position {share:.4f} (limit {F32_RECT_SHARE}), largest rect gap where both are "
           f"valid {rect_gap:.4g}; mean IoU {float(got['iou'].mean()):.6f}", flush=True)
     if not (iou_gap <= F32_IOU_TOL and share >= F32_RECT_SHARE):
         raise AssertionError("fp32 eval step on the card disagrees with the CPU")
 
+    step32 = make_eval_step(model32, input_size=cfg32.input_size, device=device)
     step16 = make_eval_step(model16, input_size=cfg32.input_size, device=device)
     img1, word1 = img.to(device), word.to(device)
     readings = {}
@@ -2527,16 +2655,18 @@ def fp32_e2e(device, batch, smi: str):
 
 def fp32_train_gap(device, batch):
     """Phase 18 (e): one fp32 train step at batch 2 (two samples of
-    ``batch``), dropout 0, BatchNorm on running statistics, plain stem, on
-    the card and on the CPU: the loss within F32_TRAIN_LOSS_TOL and each
-    group's gradient within its F32_TRAIN_GRAD_TOL; the card's forward and
-    backward launch K1-f32..K4b-f32 (PER_STEP_F32) and no bf16 kernel."""
+    ``batch``), dropout 0, BatchNorm on running statistics, on the card with
+    the fused s2d stem and on the CPU (the plain stem's convs, the same
+    function): the loss within F32_TRAIN_LOSS_TOL and each group's gradient
+    within its F32_TRAIN_GRAD_TOL; the card's forward and backward launch
+    K1-f32..K4b-f32, K6-f32 and K6b-f32 (PER_STEP_F32_FUSED) and no bf16
+    kernel."""
     import torch
 
     cfg = _cfg(opts=("dropout", "0.0", "compute_dtype", "float32"))
     mini = mini_batch(batch, cfg.input_size)
     wrappers = launch_counts()
-    model = grad_model(cfg, device, fused_stem=False)
+    model = grad_model(cfg, device, fused_stem=True)
     _reset(wrappers)
     card = train_grads(model, mini)
     torch.cuda.synchronize()
@@ -2544,10 +2674,12 @@ def fp32_train_gap(device, batch):
     del model
     cpu = train_grads(grad_model(cfg, torch.device("cpu"), torch.float32, fused_stem=False),
                       mini)
-    rel, groups = grad_gap(card, cpu, "[fp32] train step at batch 2, card vs CPU:")
+    rel, groups = grad_gap(card, cpu, "[fp32] train step at batch 2 (fused stem), card vs CPU:")
+    stem = stem_grad_gap(card, cpu)
     print(f"[fp32] train step: loss rel {rel:.4g} (limit {F32_TRAIN_LOSS_TOL}), grad rel_l2 "
-          f"limits {F32_TRAIN_GRAD_TOL}; launches {_launched(launches)}", flush=True)
-    check_launches(launches, PER_STEP_F32, 1)
+          f"limits {F32_TRAIN_GRAD_TOL}; the stem's conv weights' gradients rel_l2 {stem:.4g}; "
+          f"launches {_launched(launches)}", flush=True)
+    check_launches(launches, PER_STEP_F32_FUSED, 1)
     over = {g: r for g, r in groups.items() if not r <= F32_TRAIN_GRAD_TOL[g]}
     if not rel <= F32_TRAIN_LOSS_TOL or over:
         raise AssertionError(f"fp32 train step card vs CPU: loss rel {rel:.4g}, grad {over}")
@@ -2570,13 +2702,15 @@ def _train_rate(step, batches, cfg):
 
 
 def fp32_train_path(device, prepared, smi: str):
-    """Phase 18 (f): the fp32 model (plain stem) through ``train_one_epoch``
-    for TRAIN_STEPS steps at BATCH on ``prepared`` rawlb batches: the loss
-    is finite, every trainable parameter and BatchNorm statistic moved, and
-    the counters read PER_STEP_F32 per step; then, after one untimed bf16
-    step, fp32 against bf16 train samples/s and peak memory (both plain
-    stem, the same seeded weights), in turns fp32 bf16 bf16 fp32.  Returns
-    the launches of the TRAIN_STEPS steps."""
+    """Phase 18 (f): the fp32 model on the fused s2d stem through
+    ``train_one_epoch`` for TRAIN_STEPS steps at BATCH on ``prepared`` rawlb
+    batches: the loss is finite, every trainable parameter and BatchNorm
+    statistic moved, and the counters read PER_STEP_F32_FUSED per step;
+    then, after one untimed step of each other model, train samples/s and
+    peak memory of the fp32 model on the fused stem, on the plain stem and
+    the bf16 model (fused stem, as phase 5), the same seeded weights, in
+    turns fused plain bf16 bf16 plain fused.  Returns the launches of the
+    TRAIN_STEPS steps."""
     import torch
 
     from crog_tpu_torch.engine.crog_engine import make_train_step, train_one_epoch
@@ -2585,17 +2719,19 @@ def fp32_train_path(device, prepared, smi: str):
 
     batches = [prepared[i % len(prepared)] for i in range(TRAIN_STEPS)]
     steps = {}
-    for label, opts in (("fp32", ("compute_dtype", "float32")), ("bf16", ())):
+    for label, opts, fused in (("fp32 fused stem", ("compute_dtype", "float32"), True),
+                               ("fp32 plain stem", ("compute_dtype", "float32"), False),
+                               ("bf16 fused stem", (), True)):
         cfg = _cfg(2 * BATCH, BATCH, ("print_freq", "2", "epochs", "1", *opts))
-        model = _model(cfg, device, fused_stem=False).train()
+        model = _model(cfg, device, fused_stem=fused).train()
         opt, sched = make_optimizer(model, cfg.base_lr, cfg.lr_multi, cfg.milestones,
                                     cfg.lr_decay, 4 * TRAIN_STEPS, cfg.weight_decay)
         steps[label] = (model, cfg, make_train_step(model, opt, sched, cfg.use_grasp_masks,
                                                     cfg.max_norm, set_random_seed(SEED),
                                                     device))
-    model32, cfg32, step32 = steps["fp32"]
-    if model32.dtype != torch.float32:
-        raise AssertionError("build_crog did not read compute_dtype float32")
+    model32, cfg32, step32 = steps["fp32 fused stem"]
+    if model32.dtype != torch.float32 or not model32.backbone.visual.fused_stem:
+        raise AssertionError("build_crog did not read compute_dtype float32 or fused_stem")
     params0, stats0 = snapshot(model32)
     wrappers = launch_counts()
     _reset(wrappers)
@@ -2603,46 +2739,50 @@ def fp32_train_path(device, prepared, smi: str):
     torch.cuda.synchronize()
     launches = _read(wrappers)
     loss = float(metrics["loss"])
-    print(f"[fp32] {TRAIN_STEPS} fp32 train steps at batch {BATCH} (plain stem): last loss "
+    print(f"[fp32] {TRAIN_STEPS} fp32 train steps at batch {BATCH} (fused stem): last loss "
           f"{loss:.6g}; launches {_launched(launches)}", flush=True)
     if not math.isfinite(loss):
         raise AssertionError(f"fp32 train loss is not finite: {loss}")
-    check_launches(launches, PER_STEP_F32, TRAIN_STEPS)
+    check_launches(launches, PER_STEP_F32_FUSED, TRAIN_STEPS)
     check_moved(model32, params0, stats0, "fp32")
     del params0, stats0
-    steps["bf16"][2](batches[0])  # its first step (cuDNN's and the allocator's warm-up)
+    for label in ("fp32 plain stem", "bf16 fused stem"):
+        steps[label][2](batches[0])  # its first step (cuDNN's and the allocator's warm-up)
     readings = {}
-    for label in ("fp32", "bf16", "bf16", "fp32"):
+    order = ("fp32 fused stem", "fp32 plain stem", "bf16 fused stem")
+    for label in order + order[::-1]:
         _, cfg, step = steps[label]
         readings.setdefault(label, []).append(_train_rate(step, batches, cfg))
     for label, runs in readings.items():
-        print(f"[fp32] {label} train step at batch {BATCH} (plain stem): "
+        print(f"[fp32] {label} train step at batch {BATCH}: "
               + ", ".join(f"{r[0]:.2f}" for r in runs) + " samples/s; peak "
               + ", ".join(f"{r[1] / 2**30:.3f}" for r in runs)
-              + f" GiB (two runs of {TRAIN_STEPS} steps, in turns fp32 bf16 bf16 fp32) on {smi}",
-              flush=True)
+              + f" GiB (two runs of {TRAIN_STEPS} steps, in turns fp32 fused, fp32 plain, "
+              f"bf16, bf16, fp32 plain, fp32 fused) on {smi}", flush=True)
     return launches
 
 
 def fp32_cli(workdir: str):
-    """Phase 18 (g): ``python -m crog_tpu_torch.train_crog`` on
-    crog_synthetic_r50.yaml with ``--opts compute_dtype float32`` (plain
-    stem) over a small synthetic split: 3 steps at 8, one eval; exit 0, a
-    Loss line per step and a last_model."""
+    """Phase 18 (g): ``python -m crog_tpu_torch.train_crog --fused-stem`` on
+    crog_synthetic_r50.yaml with ``--opts compute_dtype float32`` over a
+    small synthetic split: 3 steps at 8, one eval; exit 0, the fused stem
+    named in the log, a Loss line per step and a last_model."""
     import os
 
     t0 = time.perf_counter()
-    text = _run_cli(["-m", "crog_tpu_torch.train_crog", "--config", CONFIG, "--opts",
+    text = _run_cli(["-m", "crog_tpu_torch.train_crog", "--config", CONFIG, "--fused-stem",
+                     "--opts",
                      "compute_dtype", "float32", "synthetic_samples", "24", "batch_size", "8",
                      "batch_size_val", "8", "epochs", "1", "print_freq", "1",
                      "output_folder", workdir, "exp_name", "fp32"], workdir, "train_fp32.out")
     losses = [line for line in text.splitlines() if "Loss" in line]
-    if ("compute_dtype: float32" not in text or len(losses) < 3
+    if ("compute_dtype: float32" not in text or "through K6/K6b" not in text
+            or len(losses) < 3
             or not os.path.isfile(os.path.join(workdir, "fp32", "last_model"))):
         print(text[-4000:], flush=True)
-        raise AssertionError("train_crog at compute_dtype float32: no fp32 config, Loss lines "
-                             "or last_model")
-    print(f"[fp32] train_crog --opts compute_dtype float32: exit 0 in "
+        raise AssertionError("train_crog --fused-stem at compute_dtype float32: no fp32 "
+                             "config, fused stem, Loss lines or last_model")
+    print(f"[fp32] train_crog --fused-stem --opts compute_dtype float32: exit 0 in "
           f"{time.perf_counter() - t0:.1f} s, {len(losses)} Loss lines, last: "
           f"{losses[-1].strip()[-90:]}", flush=True)
 
@@ -2651,7 +2791,10 @@ def fp32_ssg(device):
     """Phase 18 (h): ssg_r50.yaml with compute_dtype float32: one frame
     through the validate path's eval forward on the card and on the CPU,
     both fp32, seeded weights: every output within F32_E2E_TOL; no kernel
-    launches (SSG reaches K5/K5b only in training)."""
+    launches (SSG reaches K5/K5b only in training).  Then one fp32 train
+    step at batch 2 and 256^2, card vs CPU, as phase 11 (K5 and K5b twice
+    each, the 8 loss terms and each group's gradient printed and held to
+    SSG_LOSS_TOL / SSG_GRAD_TOL; no fp32 limit is set yet)."""
     import torch
 
     from crog_tpu_torch.engine.ssg_engine import make_ssg_eval_fwd
@@ -2678,15 +2821,20 @@ def fp32_ssg(device):
     bad = {k: v for k, v in gaps.items() if not v <= F32_E2E_TOL}
     if bad:
         raise AssertionError(f"fp32 SSG card vs CPU: {bad}")
+    del model, cpu
+    torch.cuda.empty_cache()
+    ssg_train_step_gap(device, ("compute_dtype", "float32"), "[fp32] SSG train step,")
 
 
 def fp32_phase(device, batch, train_batches, smi: str):
-    """Phase 18: the fp32 kernels forward and backward, the fp32 CROG eval
-    path against the CPU, fp32 vs bf16 eval rates, one fp32 train step
-    against the CPU, fp32 training at 24 and fp32 vs bf16 train rates, the
-    fp32 train CLI, SSG at fp32, the fp32 roofline; returns the fp32
-    kernels' records with their launches over the fp32 train path's
-    TRAIN_STEPS steps."""
+    """Phase 18: the fp32 kernels forward and backward (K6-f32/K6b-f32 at
+    the stem's shapes too), the fp32 CROG eval path against the CPU on both
+    stems, fp32 vs bf16 eval rates, one fp32 train step on the fused stem
+    against the CPU, fp32 training at 24 on the fused stem and its train
+    rates beside the plain stem's and bf16's, the fp32 stem timing line,
+    the fp32 train CLI with ``--fused-stem``, SSG at fp32 (eval forward and
+    one train step), the fp32 roofline; returns the fp32 kernels' records
+    with their launches over the fp32 train path's TRAIN_STEPS steps."""
     import tempfile
 
     import torch
@@ -2702,13 +2850,14 @@ def fp32_phase(device, batch, train_batches, smi: str):
     torch.cuda.empty_cache()
     launches = fp32_train_path(device, train_batches, smi)
     torch.cuda.empty_cache()
+    stem_timings(device, smi, torch.float32)
     with tempfile.TemporaryDirectory() as workdir:
         fp32_cli(workdir)
     fp32_ssg(device)
     torch.cuda.empty_cache()
     torch_roofline.main(["--device", str(device), "--iters", str(ROOFLINE_ITERS),
-                         "--warmup", str(ROOFLINE_WARMUP), "--opts", "compute_dtype",
-                         "float32"])
+                         "--warmup", str(ROOFLINE_WARMUP), "--fused-stem", "--opts",
+                         "compute_dtype", "float32"])
     for n, rec in records.items():
         rec["launches"] = launches[n]
     print(f"[fp32] phase 18 took {time.perf_counter() - t0:.1f} s; limits: F32_REL_L2 "
@@ -2963,9 +3112,11 @@ SSG_GRAD_TOL = 0.25
 SSG_GROUPS = ("backbone", "fpn", "proto_net", "prediction_layers", "semantic_seg_conv")
 
 
-def ssg_train_step_gap(device):
+def ssg_train_step_gap(device, opts=(), tag: str = "[ssg-e2e]"):
     """Phase 11: ({term: rel error}, {group: grad rel-L2}) of one SSG train
-    step at batch 2 and 256^2, card vs CPU."""
+    step at batch 2 and 256^2, card vs CPU (fp32), the card's step launching
+    K5 and K5b twice each (SSG_PER_STEP); ``opts`` override config keys
+    (phase 18 (h): ``compute_dtype float32``)."""
     import torch
 
     from crog_tpu_torch.data.ocid_grasp import collate_ssg
@@ -2975,7 +3126,7 @@ def ssg_train_step_gap(device):
     from crog_tpu_torch.models.ssg_loss import ssg_losses
     from crog_tpu_torch.train_ssg import loss_config
 
-    cfg = _ssg_cfg(("img_size", str(SSG_E2E_SIZE)))
+    cfg = _ssg_cfg(("img_size", str(SSG_E2E_SIZE), *opts))
     ds = SyntheticOCIDGrasp(2, cfg.train_split, cfg.img_size, cfg.num_classes)
     batch = collate_ssg([ds[0], ds[1]], cfg.max_objs)
     cpu = torch.device("cpu")
@@ -2983,18 +3134,25 @@ def ssg_train_step_gap(device):
     anchors = torch.as_tensor(ref.anchors())
     priority = torch.rand(2, len(anchors), generator=torch.Generator().manual_seed(SEED))
     out = []
-    for dev, model in ((device, _ssg_model(cfg, device)), (cpu, ref)):
+    wrappers = launch_counts()
+    card = _ssg_model(cfg, device)
+    for dev, model in ((device, card), (cpu, ref)):
         model.train()
         for mod in model.modules():
             if isinstance(mod, BatchNorm):
                 mod.eval()
         dense = {k: torch.as_tensor(batch[k]).to(dev) for k in DENSE_KEYS}
+        _reset(wrappers)
         loss, terms = ssg_losses(model(dense["img"]), dense, anchors.to(dev),
                                  priority=priority, **loss_config(cfg))
         loss.backward()
         terms = {k: float(v.detach()) for k, v in {"loss": loss, **terms}.items()}
+        if dev == device:
+            launches = _read(wrappers)
         out.append((terms, {n: p.grad.float().cpu() for n, p in model.named_parameters()
                             if p.grad is not None}))
+    print(f"{tag} card step ({card.dtype}) launches {_launched(launches)}", flush=True)
+    check_launches(launches, SSG_PER_STEP, 1)
     (tc, gc), (tp, gp) = out
     if set(gc) != set(gp):
         raise AssertionError("the two runs give gradients for different parameters")
@@ -3007,9 +3165,9 @@ def ssg_train_step_gap(device):
         num = sum(float((gc[n] - gp[n]).pow(2).sum()) for n in names)
         den = sum(float(gp[n].pow(2).sum()) for n in names)
         groups[g] = (num / max(den, 1e-30)) ** 0.5
-    print("[ssg-e2e] card vs cpu fp32: " + ", ".join(
+    print(f"{tag} card vs cpu fp32: " + ", ".join(
         f"{k} {tc[k]:.6g}/{tp[k]:.6g} (rel {rel[k]:.3g})" for k in tp), flush=True)
-    print("[ssg-e2e] grad rel_l2 " + ", ".join(f"{g} {r:.4g}" for g, r in groups.items())
+    print(f"{tag} grad rel_l2 " + ", ".join(f"{g} {r:.4g}" for g, r in groups.items())
           + f" (tols: loss terms {SSG_LOSS_TOL} + {SSG_LOSS_FLOOR} of the total, grads "
           f"{SSG_GRAD_TOL})", flush=True)
     if bad or max(groups.values()) > SSG_GRAD_TOL:
@@ -4288,7 +4446,8 @@ def redesigned_resources(reports):
     K4's and K4b's cluster kernels and their y / dx GEMM, K2b's and K3b's
     dX and dW GEMMs, K1b's one-CTA-per-head kernel, the two-kernel
     attention backward that K2b and K3b run, K6's persistent conv, K6b's
-    cluster kernel, K5's and K5b's region kernels), and at the main path's
+    cluster kernel, K6-f32's and K6b-f32's gathered GEMMs, K5's and K5b's
+    region kernels), and at the main path's
     shapes their registers, shared memory per CTA (static + dynamic) and
     spills as the runtime loads them (the attention forward, the GEMMs and
     K5/K5b also their CTAs per SM, the cluster kernels the clusters of
@@ -4307,6 +4466,7 @@ def redesigned_resources(reports):
                       ("attention_bwd", ("attn_bwd_head_kernel", "attn_bwd_rows_kernel",
                                          "attn_bwd_cols_kernel")),
                       ("s2dconv", ("s2dconv_fwd_kernel", "s2dconv_wgrad_kernel")),
+                      ("s2dconv_f32", ("s2dconv_f32_fwd_kernel", "s2dconv_f32_wgrad_kernel")),
                       ("lincomb", ("lincomb_region",))):
         for entry, regs, spill in ptxas_entries(reports[lib]):
             if any(k in entry for k in keys):
@@ -4378,6 +4538,13 @@ def redesigned_resources(reports):
         print(f"[build] K6b cluster kernel ci={ci} co={co}: {out[0]} registers, {out[1]} bytes "
               f"shared memory per CTA, {out[2]} bytes local (spill) per thread, {out[3]} "
               f"clusters resident at once", flush=True)
+    lib = cuda_build.load("s2dconv_f32")
+    for ci in (32, 64):
+        cuda_build.check_launch(lib, lib.crog_s2dconv_f32_attrs(ci, ptr), "attrs")
+        for i, kid in enumerate(("K6-f32", "K6b-f32")):
+            print(f"[build] {kid} kernel ci={ci} (128 x 128 tiles, gathered patch): "
+                  f"{out[3 * i]} registers, {out[3 * i + 1]} bytes shared memory per CTA, "
+                  f"{out[3 * i + 2]} bytes local (spill) per thread", flush=True)
 
 
 def main(argv=None) -> int:

@@ -5,7 +5,8 @@
 // batch), split over K in fixed chunks; a fixed-order sum of such partials;
 // fixed-order column sums over rows; and the LayerNorm backward of a row
 // block.  Shared by K2b-f32 / K3b-f32 (decoder_blocks_bwd_f32.cu) and
-// K4b-f32 (ffn_bwd_f32.cu).
+// K4b-f32 (ffn_bwd_f32.cu); the main loop, the tile store and the
+// fixed-order sum also by K6-f32 / K6b-f32 (s2dconv_f32.cu).
 //
 // Every product is mma.sync m16n8k8 TF32 with the 3xTF32 split (tf32.cuh)
 // and each 32-deep K slice accumulates into fresh registers that an IEEE
@@ -49,11 +50,116 @@ struct GemmKN {
 
 inline size_t gemm_kn_smem_bytes() { return 2u * kGKStage * sizeof(float); }
 
+// acc += A B over one kGKK-deep slice held in shared memory (A's tile at
+// `as`, [m][kGKLdRow] or, ATRANS, [k][kGKLdCol]; B's at `bs`, [k][kGKLdCol]),
+// for the warp's 64 x 32 block at (wm, wn): the slice's products sum in
+// fresh registers that one f32 add then joins to acc.  Also K6-f32's and
+// K6b-f32's (s2dconv_f32.cu), whose loaders gather A.
+template <int P, bool ATRANS>
+__device__ __forceinline__ void kn_slice_products(const float* as, const float* bs, int wm,
+                                                  int wn, float (&acc)[4][4][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float part[4][4][4];  // this K slice's products
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[i][j][e] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < kGKK; kk += 8) {
+    uint32_t ah[4][4], al[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = wm + 16 * i + g;
+      if (ATRANS) {
+        const float* ar = as + (kk + t) * kGKLdCol + r;
+        split_p<P>(ar[0], ah[i][0], al[i][0]);                     // (g, t)
+        split_p<P>(ar[8], ah[i][1], al[i][1]);                     // (g + 8, t)
+        split_p<P>(ar[4 * kGKLdCol], ah[i][2], al[i][2]);          // (g, t + 4)
+        split_p<P>(ar[4 * kGKLdCol + 8], ah[i][3], al[i][3]);      // (g + 8, t + 4)
+      } else {
+        const float* ar = as + r * kGKLdRow + kk + t;
+        split_p<P>(ar[0], ah[i][0], al[i][0]);
+        split_p<P>(ar[8 * kGKLdRow], ah[i][1], al[i][1]);
+        split_p<P>(ar[4], ah[i][2], al[i][2]);
+        split_p<P>(ar[8 * kGKLdRow + 4], ah[i][3], al[i][3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float* br = bs + (kk + t) * kGKLdCol + wn + 8 * j + g;
+      uint32_t bh0, bl0, bh1, bl1;
+      split_p<P>(br[0], bh0, bl0);              // (k t, n g)
+      split_p<P>(br[4 * kGKLdCol], bh1, bl1);   // (k t + 4, n g)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) mma_p<P>(part[i][j], ah[i], al[i], bh0, bl0, bh1, bl1);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+}
+
+// C[m0 + wm + .., n0 + wn + ..] = the warp's acc, rows past m and columns
+// past n not stored (n even)
+__device__ __forceinline__ void store_kn_block(float* c, long long ldc, int m, int n, int row0,
+                                               int col0, const float (&acc)[4][4][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int col = col0 + 8 * j + 2 * t;
+    if (col >= n) continue;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = row0 + 16 * i + g + 8 * hr;
+        if (row >= m) continue;
+        *reinterpret_cast<float2*>(c + (long long)row * ldc + col) =
+            make_float2(acc[i][j][2 * hr], acc[i][j][2 * hr + 1]);
+      }
+  }
+}
+
+// acc = A B over `nk` kGKK-deep K slices from k0, for the warp's 64 x 32
+// block of the tile: `load(k, stage)` issues and commits the cp.async
+// copies of the slice at k into ring stage `stage` (of two at smem,
+// kGKStage floats each), one slice in flight while the other's products
+// run.
+template <int P, bool ATRANS, class Load>
+__device__ __forceinline__ void kn_mainloop(const float* smem, int k0, int nk, Load&& load,
+                                            float (&acc)[4][4][4]) {
+  const int warp = threadIdx.x >> 5;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+  if (nk > 0) load(k0, 0);
+  for (int kt = 0; kt < nk; ++kt) {
+    if (kt + 1 < nk) {
+      load(k0 + (kt + 1) * kGKK, (kt + 1) & 1);
+      cp_async_wait_one();
+    } else {
+      cp_async_wait_all();
+    }
+    __syncthreads();
+    const float* as = smem + (kt & 1) * kGKStage;
+    kn_slice_products<P, ATRANS>(as, as + kGKATile, wm, wn, acc);
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+}
+
 template <int P, bool ATRANS>
 __global__ void __launch_bounds__(kGKThreads) gemm_kn_f32_kernel(const GemmKN p) {
   extern __shared__ __align__(16) float smem[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
+  const int warp = threadIdx.x >> 5;
   const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
   const int m0 = blockIdx.y * kGKM, n0 = blockIdx.x * kGKN;
   const int kbeg = blockIdx.z * p.kchunk;
@@ -83,86 +189,9 @@ __global__ void __launch_bounds__(kGKThreads) gemm_kn_f32_kernel(const GemmKN p)
   };
 
   float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-
-  const int nk = kend > kbeg ? (kend - kbeg + kGKK - 1) / kGKK : 0;
-  if (nk > 0) load(kbeg, 0);
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) {
-      load(kbeg + (kt + 1) * kGKK, (kt + 1) & 1);
-      cp_async_wait_one();
-    } else {
-      cp_async_wait_all();
-    }
-    __syncthreads();
-    const float* as = smem + (kt & 1) * kGKStage;
-    const float* bs = as + kGKATile;
-    float part[4][4][4];  // this K slice's products
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) part[i][j][e] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < kGKK; kk += 8) {
-      uint32_t ah[4][4], al[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = wm + 16 * i + g;
-        if (ATRANS) {
-          const float* ar = as + (kk + t) * kGKLdCol + r;
-          split_p<P>(ar[0], ah[i][0], al[i][0]);                     // (g, t)
-          split_p<P>(ar[8], ah[i][1], al[i][1]);                     // (g + 8, t)
-          split_p<P>(ar[4 * kGKLdCol], ah[i][2], al[i][2]);          // (g, t + 4)
-          split_p<P>(ar[4 * kGKLdCol + 8], ah[i][3], al[i][3]);      // (g + 8, t + 4)
-        } else {
-          const float* ar = as + r * kGKLdRow + kk + t;
-          split_p<P>(ar[0], ah[i][0], al[i][0]);
-          split_p<P>(ar[8 * kGKLdRow], ah[i][1], al[i][1]);
-          split_p<P>(ar[4], ah[i][2], al[i][2]);
-          split_p<P>(ar[8 * kGKLdRow + 4], ah[i][3], al[i][3]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float* br = bs + (kk + t) * kGKLdCol + wn + 8 * j + g;
-        uint32_t bh0, bl0, bh1, bl1;
-        split_p<P>(br[0], bh0, bl0);              // (k t, n g)
-        split_p<P>(br[4 * kGKLdCol], bh1, bl1);   // (k t + 4, n g)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) mma_p<P>(part[i][j], ah[i], al[i], bh0, bl0, bh1, bl1);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
-    __syncthreads();  // every warp is done with this stage before it is refilled
-  }
-
-  float* c = p.c + blockIdx.z * p.c_zs;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int col = n0 + wn + 8 * j + 2 * t;
-    if (col >= p.n) continue;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const int row = m0 + wm + 16 * i + g + 8 * hr;
-        if (row >= p.m) continue;
-        *reinterpret_cast<float2*>(c + (long long)row * p.ldc + col) =
-            make_float2(acc[i][j][2 * hr], acc[i][j][2 * hr + 1]);
-      }
-  }
+  kn_mainloop<P, ATRANS>(smem, kbeg, kend > kbeg ? (kend - kbeg + kGKK - 1) / kGKK : 0, load,
+                         acc);
+  store_kn_block(p.c + blockIdx.z * p.c_zs, p.ldc, p.m, p.n, m0 + wm, n0 + wn, acc);
 }
 
 template <int P, bool ATRANS>

@@ -1,7 +1,7 @@
 // f32 products on the tensor cores: mma.sync m16n8k8 TF32 with the 3xTF32
 // split, shared by K5/K5b (lincomb.cu), the fp32 forward kernels
 // (attention_f32.cuh, gemm_f32.cuh) and the fp32 backward kernels
-// (attention_bwd_f32.cuh, grad_f32.cuh).
+// (attention_bwd_f32.cuh, grad_f32.cuh, s2dconv_f32.cu).
 //
 // A TF32 value keeps 10 explicit mantissa bits.  x = hi + lo with hi =
 // cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi) keeps about 21 of f32's 23;
@@ -80,6 +80,8 @@ enum F32Product : int {
   kProdRecompute = 14, // K4b-f32: x W1^T again
   kProdDHn = 15,       // K4b-f32: dhn = dy W2
   kProdDx = 16,        // K4b-f32: dx = dh W1
+  kProdS2dConv = 17,   // K6-f32: the gathered patch times the packed weight
+  kProdS2dWgrad = 18,  // K6b-f32: patch^T dy
 };
 
 // A fault-check build (tools/torch_fp32_faults.py) compiles with

@@ -117,25 +117,6 @@ def set_exact_fp32_matmul() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def fused_stem_of(model) -> bool:
-    """Whether ``model``'s vision stem runs its convs through K6/K6b."""
-    visual = unwrap(model).backbone.visual
-    return bool(getattr(visual, "stem_s2d", False) and getattr(visual, "fused_stem", False))
-
-
-def check_train_kernels(device, dtype: torch.dtype, fused_stem: bool) -> None:
-    """Raise before any launch where the card has no kernel for the step:
-    the s2d stem's fused convs computing in fp32 need K6-f32 and K6b-f32,
-    which are queued (ROADMAP).  K1-K4b have fp32 builds, the plain stem
-    runs the library's convs in any dtype, and the CPU runs the plain twins
-    in any dtype."""
-    if torch.device(device).type == "cuda" and dtype == torch.float32 and fused_stem:
-        raise NotImplementedError(
-            "a compute_dtype float32 train step with the fused s2d stem needs K6-f32 and "
-            "K6b-f32 (the stem's gathered conv and its wgrad on fp32 operands), which are "
-            "queued (ROADMAP); train at float32 on the plain stem (no --fused-stem)")
-
-
 def train_metrics(pred_logits, target_mask, threshold: float = 0.35,
                   pr_iou: float = 0.5):
     """Batch mask IoU and Pr@50 (reference utils/misc.py:115-131), x100."""
@@ -160,7 +141,6 @@ def make_train_step(model, optimizer, scheduler, use_grasp_masks: bool = True,
     it clips the global gradient."""
     device = torch.device(device) if device is not None else next(
         model.parameters()).device
-    check_train_kernels(device, unwrap(model).dtype, fused_stem_of(model))
     set_exact_fp32_matmul()  # the raw wire's warp products
     params = [p for p in model.parameters() if p.requires_grad]
     input_size = unwrap(model).input_resolution

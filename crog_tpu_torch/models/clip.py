@@ -341,8 +341,10 @@ class ModifiedResNet(nn.Module):
     stride-1 convs of 2x2-blocked tensors, the BatchNorms reduce over the
     block slots too, and the pool is ``block_mean``.  ``fused_stem`` (the
     counterpart of CROG_FUSED_STEM=1) runs conv2 and conv3 through
-    ``blocked_conv3x3_s1``, the gathered K6/K6b kernels on the card;
-    without it they are ``F.conv2d`` with ``block_kernel_s1`` of the weight.
+    ``blocked_conv3x3_s1``, the gathered K6/K6b kernels on the card, in
+    bf16 or, at ``compute_dtype: float32``, K6-f32/K6b-f32 (3xTF32): the
+    JAX package hands that op the stem's activations in either dtype.
+    Without it they are ``F.conv2d`` with ``block_kernel_s1`` of the weight.
     An input whose H or W is not a multiple of 4 takes the plain stem.
 
     ``remat`` (crog_tpu/models/clip.py:377 ``remat``): ``True`` checkpoints

@@ -104,10 +104,15 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "crog_s2dconv_wgrad": [_P] * 4 + [_I] * 7 + [_P],
         "crog_s2dconv_wgrad_attrs": [_I, _I, _P],
     },
+    "s2dconv_f32": {
+        "crog_s2dconv_f32_fwd": [_P] * 3 + [_I] * 5 + [_P],
+        "crog_s2dconv_f32_wgrad": [_P] * 4 + [_I] * 7 + [_P],
+        "crog_s2dconv_f32_attrs": [_I, _P],
+    },
 }
 
-# The library of each forward and backward kernel K1-K4(b), by the dtype of
-# its operands: (bf16 build, fp32 build, id).
+# The library of each forward and backward kernel K1-K4(b) and K6/K6b, by
+# the dtype of its operands: (bf16 build, fp32 build, id).
 KERNELS = {
     "attention": ("attention", "attention_f32", "K1"),
     "attention_bwd": ("attention_bwd", "attention_bwd_f32", "K1b"),
@@ -117,6 +122,8 @@ KERNELS = {
     "decoder_cross_block_bwd": ("decoder_blocks_bwd", "decoder_blocks_bwd_f32", "K3b"),
     "ffn": ("ffn", "ffn_f32", "K4"),
     "ffn_bwd": ("ffn_bwd", "ffn_bwd_f32", "K4b"),
+    "s2dconv": ("s2dconv", "s2dconv_f32", "K6"),
+    "s2dconv_wgrad": ("s2dconv", "s2dconv_f32", "K6b"),
 }
 
 

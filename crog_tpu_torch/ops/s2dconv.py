@@ -22,15 +22,20 @@ dgrad is the same op with the flipped, ci/co-swapped kernel, and the wgrad
 is patch^T @ dy in the packed layout, folded back to [3, 3, ci, co] by
 ``unpack_s1``.
 
-Cast points, as in the JAX package: bf16 operands, f32 sums, the output in
-x's dtype; the weight gradient stays f32 until it is folded and cast to w's
-dtype.  On a CUDA tensor the forward and the dgrad launch csrc/s2dconv.cu's
-K6 (``crog_s2dconv_fwd``) and the wgrad K6b (``crog_s2dconv_wgrad``), or
-raise; on a CPU tensor they run the plain twins ``conv_padded_plain`` and
-``wgrad_plain``.  The TPU kernel's VMEM split planner and its fallback to
-the XLA conv follow from the TPU's memory and are not carried over: on the
-card a shape the kernels do not take (ci, co not in {32, 64}, activations
-not bf16) raises before any launch.
+Cast points, as in the JAX package: the operands in the model's compute
+dtype (bf16, or fp32 under ``compute_dtype: float32``), f32 sums, the
+output in x's dtype; the weight gradient stays f32 until it is folded and
+cast to w's dtype.  On a CUDA tensor the forward and the dgrad launch K6,
+the wgrad K6b, from the build for x's dtype (``cuda_build.library_for``):
+bf16 csrc/s2dconv.cu (``crog_s2dconv_fwd``, ``crog_s2dconv_wgrad``) or fp32
+csrc/s2dconv_f32.cu (``crog_s2dconv_f32_fwd``, ``crog_s2dconv_f32_wgrad``,
+3xTF32 products, counted in ``launches_f32``), or raise; on a CPU tensor
+they run the plain twins ``conv_padded_plain`` and ``wgrad_plain``.  The TPU
+kernel's VMEM split planner and its fallback to the XLA conv follow from
+the TPU's memory and are not carried over (at 416^2 the fp32 stem takes
+that fallback on a TPU, which computes the same function): on the card a
+shape the kernels do not take (ci, co not in {32, 64}, activations neither
+bf16 nor fp32, operands of mixed dtypes) raises before any launch.
 """
 
 from __future__ import annotations
@@ -53,6 +58,8 @@ MAX_CLUSTER = 8  # K6b: CTAs per cluster, at most the portable size
 # K6: its persistent CTAs, one per SM of an H100 (132); a card with fewer
 # SMs runs the rest as a second wave, with the same sums
 FWD_SMS = 132
+# K6b-f32: the CTAs its cell chunks aim at, two on each of an H100's 132 SMs
+WGRAD_F32_CTAS = 264
 
 
 def pack_s1(w: torch.Tensor) -> torch.Tensor:
@@ -106,14 +113,14 @@ def conv_padded_plain(x: torch.Tensor, wp: torch.Tensor, ci: int, co: int) -> to
     """Plain twin of K6: y [B, H, W, 4co] in x's dtype, f32 sums."""
     b, h, w, _ = x.shape
     p = gather_patch(x, ci).reshape(-1, 16 * ci)
-    y = p.float() @ wp.float()
+    y = torch.matmul(p.float(), wp.float())
     return y.reshape(b, h, w, 4 * co).to(x.dtype)
 
 
 def wgrad_plain(x: torch.Tensor, dy: torch.Tensor, ci: int, co: int) -> torch.Tensor:
     """Plain twin of K6b: the packed weight gradient [16ci, 4co] in f32."""
     p = gather_patch(x, ci).reshape(-1, 16 * ci)
-    return p.float().t() @ dy.reshape(-1, 4 * co).float()
+    return torch.matmul(p.float().t(), dy.reshape(-1, 4 * co).float())
 
 
 def _check(x: torch.Tensor, ci: int, co: int, name: str):
@@ -122,7 +129,7 @@ def _check(x: torch.Tensor, ci: int, co: int, name: str):
                          f"got {ci}, {co}")
     if x.dim() != 4 or x.shape[-1] != 4 * ci:
         raise ValueError(f"{name}: expected [B, H, W, {4 * ci}], got {tuple(x.shape)}")
-    cuda_build.require(x, name, torch.bfloat16)
+    cuda_build.require(x, name, x.dtype)
     return x.shape[:3]
 
 
@@ -149,6 +156,19 @@ def wgrad_schedule(b: int, h: int, w: int, ci: int, co: int):
     return -(-tiles // per), per
 
 
+def wgrad_f32_schedule(b: int, h: int, w: int, ci: int, co: int):
+    """(chunks, cells per chunk) of K6b-f32: each [128, 128] block of the
+    packed gradient takes one CTA per chunk of cells, as many chunks as
+    bring the CTAs to WGRAD_F32_CTAS, each a multiple of 32 cells and none
+    empty; each chunk writes one partial, added in chunk order.  A function
+    of the shapes alone, so the order of the sums is too."""
+    cells = b * h * w
+    blocks = (16 * ci // 128) * (4 * co // 128)
+    want = max(1, min(-(-cells // 32), WGRAD_F32_CTAS // blocks))
+    chunk = (-(-cells // want) + 31) // 32 * 32
+    return -(-cells // chunk), chunk
+
+
 def fwd_cols(ci: int) -> int:
     """Output columns of K6's resident 128 KB weight slice: [16ci, 128] at
     ci 32, [16ci, 64] at ci 64."""
@@ -169,50 +189,68 @@ def fwd_schedule(b: int, h: int, w: int, ci: int, co: int):
 
 def s2dconv_fwd(x: torch.Tensor, wp: torch.Tensor, ci: int, co: int) -> torch.Tensor:
     """K6: blocked conv of x [B, H, W, 4ci] with the packed weight wp
-    [16ci, 4co] -> [B, H, W, 4co] (the forward, and the dgrad with the
-    flipped, swapped kernel)."""
+    [16ci, 4co] -> [B, H, W, 4co] in x's dtype (the forward, and the dgrad
+    with the flipped, swapped kernel); fp32 x goes to K6-f32
+    (csrc/s2dconv_f32.cu, counted in ``s2dconv_fwd.launches_f32``)."""
     work.note("s2dconv", lambda: (
         work.s2dconv_flops(*x.shape[:3], ci, co),
         work.nbytes(x, wp) + x.numel() // ci * co * x.element_size()))
     if x.device.type == "cpu":
         with work.uncounted():
             return conv_padded_plain(x, wp, ci, co)
+    name = cuda_build.library_for("s2dconv", x.dtype)
     b, h, w = _check(x, ci, co, "x")
-    cuda_build.require(wp, "wp", torch.bfloat16, (16 * ci, 4 * co))
-    y = torch.empty(b, h, w, 4 * co, dtype=torch.bfloat16, device=x.device)
+    cuda_build.require(wp, "wp", x.dtype, (16 * ci, 4 * co))
+    y = torch.empty(b, h, w, 4 * co, dtype=x.dtype, device=x.device)
+    lib = cuda_build.load(name)
+    stream = cuda_build.stream_ptr(x.device)
+    if x.dtype == torch.float32:
+        rc = lib.crog_s2dconv_f32_fwd(x.data_ptr(), wp.data_ptr(), y.data_ptr(), b, h, w, ci,
+                                      co, stream)
+        cuda_build.check_launch(lib, rc, "crog_s2dconv_f32_fwd")
+        s2dconv_fwd.launches_f32 += 1
+        return y
     ctas, per = fwd_schedule(b, h, w, ci, co)
-    lib = cuda_build.load("s2dconv")
     rc = lib.crog_s2dconv_fwd(x.data_ptr(), wp.data_ptr(), y.data_ptr(), b, h, w, ci,
-                              co, ctas, per, cuda_build.stream_ptr(x.device))
+                              co, ctas, per, stream)
     cuda_build.check_launch(lib, rc, "crog_s2dconv_fwd")
     s2dconv_fwd.launches += 1
     return y
 
 
 s2dconv_fwd.launches = 0
+s2dconv_fwd.launches_f32 = 0
 
 
 def s2dconv_wgrad(x: torch.Tensor, dy: torch.Tensor, ci: int, co: int) -> torch.Tensor:
     """K6b: the packed weight gradient [16ci, 4co] f32 of the blocked conv
-    from its input x [B, H, W, 4ci] and output gradient dy [B, H, W, 4co]."""
+    from its input x [B, H, W, 4ci] and output gradient dy [B, H, W, 4co];
+    fp32 operands go to K6b-f32 (csrc/s2dconv_f32.cu, counted in
+    ``s2dconv_wgrad.launches_f32``)."""
     if x.device.type == "cpu":
         return wgrad_plain(x, dy, ci, co)
+    name = cuda_build.library_for("s2dconv_wgrad", x.dtype)
     b, h, w = _check(x, ci, co, "x")
-    cuda_build.require(dy, "dy", torch.bfloat16, (b, h, w, 4 * co))
-    clusters, per = wgrad_schedule(b, h, w, ci, co)
+    cuda_build.require(dy, "dy", x.dtype, (b, h, w, 4 * co))
     dev = x.device
-    part = torch.empty(clusters, 16 * ci, 4 * co, dtype=torch.float32, device=dev)
+    f32 = x.dtype == torch.float32
+    parts, per = (wgrad_f32_schedule if f32 else wgrad_schedule)(b, h, w, ci, co)
+    part = torch.empty(parts, 16 * ci, 4 * co, dtype=torch.float32, device=dev)
     dwp = torch.empty(16 * ci, 4 * co, dtype=torch.float32, device=dev)
-    lib = cuda_build.load("s2dconv")
-    rc = lib.crog_s2dconv_wgrad(x.data_ptr(), dy.data_ptr(), part.data_ptr(),
-                                dwp.data_ptr(), b, h, w, ci, co, clusters, per,
-                                cuda_build.stream_ptr(dev))
-    cuda_build.check_launch(lib, rc, "crog_s2dconv_wgrad")
-    s2dconv_wgrad.launches += 1
+    lib = cuda_build.load(name)
+    entry = "crog_s2dconv_f32_wgrad" if f32 else "crog_s2dconv_wgrad"
+    rc = getattr(lib, entry)(x.data_ptr(), dy.data_ptr(), part.data_ptr(), dwp.data_ptr(), b,
+                             h, w, ci, co, parts, per, cuda_build.stream_ptr(dev))
+    cuda_build.check_launch(lib, rc, entry)
+    if f32:
+        s2dconv_wgrad.launches_f32 += 1
+    else:
+        s2dconv_wgrad.launches += 1
     return dwp
 
 
 s2dconv_wgrad.launches = 0
+s2dconv_wgrad.launches_f32 = 0
 
 
 class _BlockedConv(torch.autograd.Function):

@@ -14,7 +14,8 @@ batch copied to the device on the loader's put stage.  The batches come in
 the config's ``wire_format`` (rawlb in every OCID-VLG config) and are
 unpacked on the device; ``visualize`` writes one PNG per sample under
 ``<output_folder>/<exp_name>/vis``; ``stem_s2d`` comes from the config
-and ``--fused-stem`` runs the s2d stem's stride-1 convs through K6/K6b.
+and ``--fused-stem`` runs the s2d stem's stride-1 convs through K6/K6b
+(K6-f32 under ``--opts compute_dtype float32``).
 ``--device`` defaults to ``cuda`` and raises when there is no card.  A
 ``resume`` file (a reference CROG ``.pth`` or a checkpoint of
 ``crog_tpu_torch.train_crog``) loads directly; an orbax checkpoint
@@ -50,7 +51,8 @@ def get_parser(argv=None):
     parser.add_argument("--device", default="cuda", type=str)
     parser.add_argument(
         "--fused-stem", action="store_true",
-        help="run the s2d stem's stride-1 convs through the K6/K6b kernels",
+        help="run the s2d stem's stride-1 convs through the K6/K6b kernels "
+             "(K6-f32/K6b-f32 at compute_dtype float32)",
     )
     parser.add_argument("--opts", default=None, nargs=argparse.REMAINDER)
     args = parser.parse_args(argv)

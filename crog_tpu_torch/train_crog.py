@@ -12,7 +12,8 @@ padded on ``workers_val`` (``workers_procs`` processes for both when set),
 each batch copied to the device on the loader's put stage.  Batches come in
 the config's ``wire_format`` (rawlb in every OCID-VLG config), unpacked on
 the device; ``--fused-stem`` runs the s2d stem's
-stride-1 convs through the K6/K6b kernels.
+stride-1 convs through the K6/K6b kernels, in the model's compute dtype
+(K6-f32/K6b-f32 under ``--opts compute_dtype float32``).
 
 Per epoch: ``train_one_epoch`` over shuffled train batches, then (with
 ``evaluate``) ``validate_with_grasp`` over the val split with the model in
@@ -77,7 +78,8 @@ def get_parser(argv=None):
     parser.add_argument("--device", default="cuda", type=str)
     parser.add_argument(
         "--fused-stem", action="store_true",
-        help="run the s2d stem's stride-1 convs through the K6/K6b kernels",
+        help="run the s2d stem's stride-1 convs through the K6/K6b kernels "
+             "(K6-f32/K6b-f32 at compute_dtype float32)",
     )
     parser.add_argument("--opts", default=None, nargs=argparse.REMAINDER)
     args = parser.parse_args(argv)
@@ -120,6 +122,10 @@ def main(argv=None):
     net = build_crog(args, torch.float32 if device.type == "cpu" else None, fused_stem)
     logger.info("Remat (activation checkpointing of the RN50 bottlenecks): "
                 + {False: "off", True: "full"}[net.backbone.visual.remat])
+    visual = net.backbone.visual
+    logger.info("Stem: " + ("plain" if not visual.stem_s2d else
+                            "s2d, conv2 and conv3 through K6/K6b" if visual.fused_stem else
+                            "s2d, conv2 and conv3 on the library's conv"))
     random_init_(net, torch.Generator().manual_seed(args.manual_seed))
     load_pretrained_clip(args, net)
     net = net.to(device)

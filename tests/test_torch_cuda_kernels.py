@@ -36,7 +36,9 @@ twins), so each output is held to a relative L2 error of 1e-5; a twin
 with one single-pass-TF32 or bf16-staged product must read above it.  The
 fp32 backward kernels K1b-f32..K4b-f32 are held alike, every gradient
 output to F32_BWD_REL (chip_smoke.F32_BWD_REL_L2), and repeat with equal
-bits.
+bits.  K6-f32 and K6b-f32 (the s2d stem's gathered conv on fp32 operands)
+are held to F32_REL and F32_BWD_REL, repeat with equal bits, and operands
+of mixed dtypes raise.
 """
 
 import sys
@@ -537,8 +539,16 @@ def test_cuda_blocked_conv_autograd_matches_twins(card):
     _close_all([y.detach(), xg.grad], [SC.conv_padded_plain(
         x, SC.pack_s1(wt).to(torch.bfloat16), ci, co), ref_dx], S2D_REL)
     _close_all([wg.grad], [ref_dw], LINCOMB_REL)
-    with pytest.raises(ValueError, match="bfloat16"):
-        SC.s2dconv_fwd(x.float(), SC.pack_s1(wt).to(torch.bfloat16).contiguous(), ci, co)
+    # operands of mixed dtypes raise, before any launch
+    wp16 = SC.pack_s1(wt).to(torch.bfloat16).contiguous()
+    with pytest.raises(ValueError, match="wp: expected torch.float32"):
+        SC.s2dconv_fwd(x.float(), wp16, ci, co)
+    with pytest.raises(ValueError, match="wp: expected torch.bfloat16"):
+        SC.s2dconv_fwd(x, wp16.float(), ci, co)
+    with pytest.raises(ValueError, match="dy: expected torch.float32"):
+        SC.s2dconv_wgrad(x.float(), dy, ci, co)
+    with pytest.raises(ValueError, match="K6 takes bf16 or fp32"):
+        SC.s2dconv_fwd(x.half(), wp16.half(), ci, co)
     with pytest.raises(ValueError, match="ci, co in"):
         SC.s2dconv_fwd(x[..., :64].contiguous(), SC.pack_s1(wt[:, :, :16]).to(
             torch.bfloat16).contiguous(), 16, co)
@@ -775,6 +785,85 @@ def test_cuda_fp32_kernels_tolerance_sees_tf32(exact_f32):
 # the fp32 backward kernels: each gradient output within a relative L2
 # error of chip_smoke.F32_BWD_REL_L2 of its twin's
 F32_BWD_REL = 1e-5
+
+
+def _s2d_counts():
+    return [getattr(f, a) for f in (SC.s2dconv_fwd, SC.s2dconv_wgrad)
+            for a in ("launches", "launches_f32")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ci,co", [(32, 32), (32, 64), (64, 32), (64, 64)])
+@pytest.mark.parametrize("b,h,w", [(2, 20, 37), (3, 9, 35), (1, 5, 3)])
+def test_cuda_s2dconv_f32_kernels_match_twins_and_repeat(exact_f32, ci, co, b, h, w):
+    """K6-f32 and K6b-f32 against their fp32 twins on ragged planes (neither
+    dimension a multiple of anything the kernels tile by; 5 x 3 cells fewer
+    than one 128-cell tile), full fp32 values: within F32_REL (forward) and
+    F32_BWD_REL (wgrad), equal bits on repeat, counted in launches_f32 and
+    not in the bf16 counters."""
+    x = torch.relu(_f32(ci + co + h, b, h, w, 4 * ci))
+    wp = SC.pack_s1(_f32(w, 3, 3, ci, co, std=(9 * ci) ** -0.5))
+    dy = _f32(b + w, b, h, w, 4 * co)
+    before = _s2d_counts()
+    y, y2 = SC.s2dconv_fwd(x, wp, ci, co), SC.s2dconv_fwd(x, wp, ci, co)
+    dwp, dwp2 = SC.s2dconv_wgrad(x, dy, ci, co), SC.s2dconv_wgrad(x, dy, ci, co)
+    torch.cuda.synchronize()
+    assert y.dtype == dwp.dtype == torch.float32
+    assert _rel_l2(y, SC.conv_padded_plain(x, wp, ci, co)) <= F32_REL
+    assert _rel_l2(dwp, SC.wgrad_plain(x, dy, ci, co)) <= F32_BWD_REL
+    assert torch.equal(y, y2) and torch.equal(dwp, dwp2)
+    assert _s2d_counts() == [before[0], before[1] + 2, before[2], before[3] + 2]
+
+
+@pytest.mark.cuda
+def test_cuda_s2dconv_f32_tolerance_sees_tf32(exact_f32):
+    """At conv3's shape on the main path (batch 24, 104 x 104 cells, ci 32,
+    co 64), K6-f32 and K6b-f32 meet their limits, and their twins with the
+    product formed by one TF32 pass or from bf16-staged operands
+    (chip_smoke.fp32_twin_controls) do not."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke as cs
+
+    ci, co = 32, 64
+    x = torch.relu(_f32(1, 24, 104, 104, 4 * ci))
+    wp = SC.pack_s1(_f32(2, 3, 3, ci, co, std=(9 * ci) ** -0.5))
+    dy = _f32(3, 24, 104, 104, 4 * co)
+    kernels = {"s2dconv_f32": (lambda: SC.s2dconv_fwd(x, wp, ci, co),
+                               lambda: SC.conv_padded_plain(x, wp, ci, co), F32_REL),
+               "s2dconv_wgrad_f32": (lambda: SC.s2dconv_wgrad(x, dy, ci, co),
+                                     lambda: SC.wgrad_plain(x, dy, ci, co), F32_BWD_REL)}
+    for name, (kern, plain, limit) in kernels.items():
+        ref = plain()
+        assert _rel_l2(kern(), ref) <= limit, name
+        controls = cs.fp32_twin_controls({name: plain}, {name: ref},
+                                         {name: cs.F32_S2D_PRODUCTS[name]})
+        for product, by_fault in controls[name].items():
+            for fault, rel in by_fault.items():
+                assert rel > limit, (name, product, fault)
+
+
+@pytest.mark.cuda
+def test_cuda_blocked_conv_f32_autograd_matches_twins(exact_f32):
+    """blocked_conv3x3_s1 at fp32 on the card: forward K6-f32, dgrad K6-f32
+    with the flipped, swapped kernel, wgrad K6b-f32 folded by unpack_s1,
+    each against the fp32 twins; two K6-f32 and one K6b-f32 launch, no bf16
+    one."""
+    ci, co = 32, 64
+    x = torch.relu(_f32(5, 2, 16, 24, 4 * ci))
+    wt = _f32(6, 3, 3, ci, co, std=(9 * ci) ** -0.5)
+    dy = _f32(7, 2, 16, 24, 4 * co)
+    xg, wg = x.clone().requires_grad_(), wt.clone().requires_grad_()
+    before = _s2d_counts()
+    y = SC.blocked_conv3x3_s1(xg, wg)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert _s2d_counts() == [before[0], before[1] + 2, before[2], before[3] + 1]
+    flip = SC.pack_s1(torch.flip(wt, (0, 1)).permute(0, 1, 3, 2))
+    assert y.dtype == xg.grad.dtype == wg.grad.dtype == torch.float32
+    assert _rel_l2(y.detach(), SC.conv_padded_plain(x, SC.pack_s1(wt), ci, co)) <= F32_REL
+    assert _rel_l2(xg.grad, SC.conv_padded_plain(dy, flip, co, ci)) <= F32_REL
+    ref_dw = SC.unpack_s1(SC.wgrad_plain(x, dy, ci, co), ci, co)
+    assert _rel_l2(wg.grad, ref_dw) <= F32_BWD_REL
 
 
 def _close_rel(got, ref, names, rel=F32_BWD_REL):

@@ -1,10 +1,10 @@
 """compute_dtype float32 in the port, on the CPU: the configs' key read as
 crog_tpu reads it, the tiny CROG built from an fp32 config against
 crog_tpu's built from the same config (its eval forward, and one train
-step of make_train_step against crog_tpu's), the routing of each kernel's
-operands to its bf16 or fp32 build, the guard that refuses an fp32 train
-step on the fused s2d stem on the card, the C signatures of every kernel
-entry point, and phase 18's twin controls.
+step of make_train_step against crog_tpu's), on the plain and on the fused
+s2d stem, the routing of each kernel's operands to its bf16 or fp32 build,
+the train step built for the card at every dtype and stem, the C
+signatures of every kernel entry point, and phase 18's twin controls.
 
 The fp32 kernels themselves run only on a card
 (tests/test_torch_cuda_kernels.py, chip_smoke.py phase 18); their plain
@@ -27,7 +27,6 @@ import jax
 import jax.numpy as jnp
 
 from crog_tpu_torch.config import load_cfg_from_cfg_file, merge_cfg_from_list
-from crog_tpu_torch.engine.crog_engine import check_train_kernels
 from crog_tpu_torch.ops import cuda_build, work
 from tests.torch_port_helpers import GEOMETRY, RES, TINY, assert_close_scaled, inputs, randomize
 
@@ -96,31 +95,62 @@ def fp32_tiny():
     return cfg, jm, randomize(jax.tree_util.tree_map(np.asarray, v))
 
 
-def _port_crog(monkeypatch, cfg, v):
+def _port_crog(monkeypatch, cfg, v, fused_stem: bool = False):
     """The port's CROG built by its build_crog from ``cfg`` (tiny geometry),
-    holding the weights ``v``."""
+    holding the weights ``v``; ``fused_stem`` runs its s2d stem's conv2 and
+    conv3 through ``blocked_conv3x3_s1`` (K6/K6b, their twins on the CPU)."""
     from crog_tpu_torch.models.convert import load_numpy_state_dict, state_dict_from_flax
 
     _, tc = _tiny(monkeypatch)
-    tm = tc.build_crog(cfg)
+    tm = tc.build_crog(cfg, fused_stem=fused_stem)
+    visual = tm.backbone.visual
+    assert visual.stem_s2d and visual.fused_stem == fused_stem
     load_numpy_state_dict(tm, state_dict_from_flax(v["params"], v["batch_stats"]))
     return tm
 
 
-def test_tiny_crog_from_fp32_config_matches_crog_tpu(monkeypatch, fp32_tiny):
-    """The port's CROG and crog_tpu's, each built by its build_crog from
-    crog_synthetic_r50.yaml with compute_dtype float32 (tiny geometry),
-    crog_tpu's randomized weights carried into the port: the eval logits
-    agree."""
-    cfg, jm, v = fp32_tiny
-    tm = _port_crog(monkeypatch, cfg, v).eval()
-    assert jm.dtype == jnp.float32 and tm.dtype == torch.float32
+@pytest.fixture(scope="module")
+def fp32_eval_ref(fp32_tiny):
+    """crog_tpu's eval logits of ``fp32_tiny`` on the tests' inputs.  The
+    JAX model takes XLA's conv in its stem off a TPU, so one reference
+    serves the port's plain and fused stems."""
+    _, jm, v = fp32_tiny
     img, word = inputs()
-    ref = np.asarray(jm.apply(v, jnp.asarray(img), jnp.asarray(word), train=False))
+    return np.asarray(jm.apply(v, jnp.asarray(img), jnp.asarray(word), train=False))
+
+
+def _check_eval(monkeypatch, fp32_tiny, ref, fused_stem: bool):
+    from crog_tpu_torch.ops import s2dconv as SC
+
+    cfg, jm, v = fp32_tiny
+    tm = _port_crog(monkeypatch, cfg, v, fused_stem).eval()
+    assert jm.dtype == jnp.float32 and tm.dtype == torch.float32
+    calls = []
+    twin = SC.conv_padded_plain
+    monkeypatch.setattr(SC, "conv_padded_plain", lambda *a: calls.append(a[0].dtype) or twin(*a))
+    img, word = inputs()
     with torch.no_grad():
         got = tm(torch.from_numpy(img), torch.from_numpy(word))
     assert got.dtype == torch.float32 and got.shape == ref.shape == (2, RES // 4, RES // 4, 5)
     assert_close_scaled(got.numpy(), ref, 1e-5)
+    # the fused stem's conv2 and conv3 went through K6's wrapper, in fp32
+    assert calls == ([torch.float32] * 2 if fused_stem else [])
+
+
+def test_tiny_crog_from_fp32_config_matches_crog_tpu(monkeypatch, fp32_tiny, fp32_eval_ref):
+    """The port's CROG and crog_tpu's, each built by its build_crog from
+    crog_synthetic_r50.yaml with compute_dtype float32 (tiny geometry),
+    crog_tpu's randomized weights carried into the port: the eval logits
+    agree."""
+    _check_eval(monkeypatch, fp32_tiny, fp32_eval_ref, False)
+
+
+def test_tiny_crog_from_fp32_config_on_the_fused_stem_matches_crog_tpu(monkeypatch, fp32_tiny,
+                                                                       fp32_eval_ref):
+    """As above with the port's s2d stem fused (``--fused-stem``): conv2 and
+    conv3 in fp32 through K6's wrapper (its twin on the CPU) against the
+    function crog_tpu computes there."""
+    _check_eval(monkeypatch, fp32_tiny, fp32_eval_ref, True)
 
 
 FORWARD = ("attention", "decoder_self_block", "decoder_cross_block", "ffn")
@@ -146,31 +176,26 @@ def test_backward_kernels_route_bf16_and_fp32_to_their_builds(kernel):
         cuda_build.library_for(kernel, torch.float16)
 
 
-@pytest.mark.parametrize("device", ["cuda", "cpu"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("fused_stem", [True, False])
-def test_fp32_train_step_guard(device, dtype, fused_stem):
-    """Only the fused s2d stem at fp32 on the card is refused (K6-f32 and
-    K6b-f32 are queued); K1-K4b have fp32 builds."""
-    if device == "cuda" and dtype == torch.float32 and fused_stem:
-        with pytest.raises(NotImplementedError, match="K6-f32 and K6b-f32"):
-            check_train_kernels(device, dtype, fused_stem)
-    else:
-        check_train_kernels(device, dtype, fused_stem)
+@pytest.mark.parametrize("kernel", ["s2dconv", "s2dconv_wgrad"])
+def test_s2d_kernels_route_bf16_and_fp32_to_their_builds(kernel):
+    """K6 and K6b: bf16 operands to csrc/s2dconv.cu, fp32 to
+    csrc/s2dconv_f32.cu, any other dtype refused."""
+    bf16, f32, kid = cuda_build.KERNELS[kernel]
+    assert cuda_build.library_for(kernel, torch.bfloat16) == bf16 == "s2dconv"
+    assert cuda_build.library_for(kernel, torch.float32) == f32 == "s2dconv_f32"
+    assert f32 in cuda_build.SIGNATURES and bf16 in cuda_build.SIGNATURES
+    assert kid == ("K6b" if kernel == "s2dconv_wgrad" else "K6")
+    with pytest.raises(ValueError, match=f"{kid} takes bf16 or fp32"):
+        cuda_build.library_for(kernel, torch.float16)
 
 
-def test_make_eval_step_builds_for_an_fp32_model(monkeypatch):
-    """The guard is the train step's alone: make_eval_step builds for an
-    fp32 CROG and never asks it."""
+def test_make_eval_step_builds_for_an_fp32_model():
+    """make_eval_step builds for an fp32 CROG on the fused s2d stem."""
     from crog_tpu_torch.engine import crog_engine
     from crog_tpu_torch.models.crog import CROG
 
-    def refuse(*args):
-        raise AssertionError("make_eval_step asked the train step's guard")
-
-    monkeypatch.setattr(crog_engine, "check_train_kernels", refuse)
-    model = CROG(**GEOMETRY, **TINY, dtype=torch.float32)
-    assert model.dtype == torch.float32
+    model = CROG(**GEOMETRY, **TINY, dtype=torch.float32, fused_stem=True)
+    assert model.dtype == torch.float32 and model.backbone.visual.fused_stem
     assert callable(crog_engine.make_eval_step(model, input_size=RES, device="cpu"))
 
 
@@ -183,21 +208,26 @@ def _launch_counts():
     return [getattr(w, a) for w in (A.fused_attention, A.attention_bwd, DB.self_block_fwd,
                                      DB.self_block_bwd, DB.cross_block_fwd,
                                      DB.cross_block_bwd, FF.ffn_fwd, FF.ffn_bwd)
-            for a in ("launches", "launches_f32")] + [SC.s2dconv_fwd.launches,
-                                                      SC.s2dconv_wgrad.launches]
+            for a in ("launches", "launches_f32")] + [
+        getattr(w, a) for w in (SC.s2dconv_fwd, SC.s2dconv_wgrad)
+        for a in ("launches", "launches_f32")]
 
 
-def test_make_train_step_refuses_an_fp32_model_on_the_card_before_any_launch():
-    """An fp32 model whose s2d stem runs on K6/K6b (queued at fp32): the
-    guard runs inside make_train_step, before the step exists (no card is
-    needed: the device is only named)."""
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fused_stem", [True, False])
+def test_make_train_step_builds_for_every_device_dtype_and_stem(device, dtype, fused_stem):
+    """Every kernel of the train step has a build at both dtypes (K6-f32 and
+    K6b-f32 for the fused s2d stem at fp32), so make_train_step builds for
+    each (device, dtype, stem), with the card only named, and launches
+    nothing until a batch comes."""
     from crog_tpu_torch.engine.crog_engine import make_train_step
     from crog_tpu_torch.models.crog import CROG
 
-    model = CROG(**GEOMETRY, **TINY, fused_stem=True)
+    model = CROG(**GEOMETRY, **TINY, dtype=dtype, fused_stem=fused_stem)
+    assert model.dtype == dtype and model.backbone.visual.fused_stem == fused_stem
     before = _launch_counts()
-    with pytest.raises(NotImplementedError, match="K6-f32"):
-        make_train_step(model, None, None, device="cuda")
+    assert callable(make_train_step(model, None, None, device=device))
     assert _launch_counts() == before
 
 
@@ -383,30 +413,26 @@ def test_fp32_backward_twin_controls_read_above_the_limit(name):
     assert cs.worst_rel_l2(twin(), ref) == 0.0
 
 
-def test_tiny_fp32_train_step_matches_crog_tpu(monkeypatch, fp32_tiny):
-    """The slice on the CPU: the tiny CROG built by each package's
-    build_crog from crog_synthetic_r50.yaml with compute_dtype float32 and
-    dropout 0, crog_tpu's randomized weights in both; one step of the
-    port's make_train_step against crog_tpu's loss and gradients on the same
-    batch and its optimizer's update of them: the loss to 1e-4 relative,
-    every gradient and BatchNorm statistic as tests/test_torch_train.py
-    holds them (assert_step_matches_jax), and each parameter's Adam update
-    to within twice the step's learning rate everywhere and to 5% of it on
-    average where the gradient is not zero up to rounding."""
+LR, LR_MULTI = 1e-3, 0.1
+
+
+@pytest.fixture(scope="module")
+def fp32_step_ref(fp32_tiny):
+    """(batch, loss, gradients, parameters and BatchNorm statistics after
+    the Adam step) of one crog_tpu train step of ``fp32_tiny`` on the tests'
+    train batch, as the port's state_dict names them.  The JAX model takes
+    XLA's conv in its stem off a TPU, so one reference serves the port's
+    plain and fused stems."""
     import optax
 
     from crog_tpu.engine import crog_engine as JE
     from crog_tpu.engine import optim as JO
     from crog_tpu.models import crog as JM
 
-    from crog_tpu_torch.engine import optim as TO
-    from crog_tpu_torch.engine.crog_engine import make_train_step
     from crog_tpu_torch.models.convert import state_dict_from_flax
-    from tests.torch_port_helpers import assert_step_matches_jax, train_batch
+    from tests.torch_port_helpers import train_batch
 
-    cfg, jm, v = fp32_tiny
-    tm = _port_crog(monkeypatch, cfg, v)
-    assert jm.dtype == jnp.float32 and tm.dtype == torch.float32
+    _, jm, v = fp32_tiny
     batch = train_batch()
     dense = {k: jnp.asarray(batch[k]) for k in JE._TRAIN_KEYS}
     targets = {k: dense[k] for k in ("mask", "qua", "sin", "cos", "wid")}
@@ -418,27 +444,103 @@ def test_tiny_fp32_train_step_matches_crog_tpu(monkeypatch, fp32_tiny):
         return JM.crog_losses(preds, targets, jm.use_grasp_masks)[0], mut["batch_stats"]
 
     (loss, stats), jgrads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(v["params"])
-    lr, lr_multi = 1e-3, 0.1
-    tx = JO.make_optimizer(v["params"], lr, lr_multi, [5], 0.1, 1)
+    tx = JO.make_optimizer(v["params"], LR, LR_MULTI, [5], 0.1, 1)
     stepped = jax.jit(lambda g, p: optax.apply_updates(p, tx.update(g, tx.init(p), p)[0]))
     as_np = lambda tree: jax.tree_util.tree_map(np.asarray, tree)  # noqa: E731
     zeros = jax.tree_util.tree_map(np.zeros_like, v["batch_stats"])
     gref = state_dict_from_flax(as_np(jgrads), zeros)
     new = state_dict_from_flax(as_np(stepped(jgrads, v["params"])), as_np(stats))
+    return batch, float(loss), gref, new
 
+
+def _check_train_step(monkeypatch, fp32_tiny, ref, fused_stem: bool):
+    from crog_tpu_torch.engine import optim as TO
+    from crog_tpu_torch.engine.crog_engine import make_train_step
+    from crog_tpu_torch.ops import s2dconv as SC
+    from tests.torch_port_helpers import assert_step_matches_jax
+
+    cfg, jm, v = fp32_tiny
+    batch, loss, gref, new = ref
+    tm = _port_crog(monkeypatch, cfg, v, fused_stem)
+    assert jm.dtype == jnp.float32 and tm.dtype == torch.float32
+    calls = []
+    for name in ("conv_padded_plain", "wgrad_plain"):
+        twin = getattr(SC, name)
+        monkeypatch.setattr(SC, name, lambda *a, name=name, twin=twin: calls.append(
+            (name, a[0].dtype)) or twin(*a))
     before = {n: p.detach().clone() for n, p in tm.named_parameters()}
-    opt, sched = TO.make_optimizer(tm, lr, lr_multi, [5], 0.1, 1)
+    opt, sched = TO.make_optimizer(tm, LR, LR_MULTI, [5], 0.1, 1)
     metrics = make_train_step(tm, opt, sched, device="cpu")(batch)
     grads = {n: p.grad.clone() for n, p in tm.named_parameters() if p.requires_grad}
     assert_step_matches_jax((metrics["loss"].item(), grads,
                              {n: b.clone() for n, b in tm.named_buffers()}),
-                            (float(loss), gref, new))
+                            (loss, gref, new))
     gnorm = np.sqrt(sum(float(np.sum(np.square(gref[n]))) for n in grads))
     for name in grads:
-        step_lr = lr * (lr_multi if TO.param_group_label(name) == "backbone" else 1.0)
+        step_lr = LR * (LR_MULTI if TO.param_group_label(name) == "backbone" else 1.0)
         moved = (dict(tm.named_parameters())[name].detach() - before[name]).numpy()
         upd_err = np.abs(moved - (new[name] - before[name].numpy()))
         assert upd_err.max() <= 2 * step_lr * (1 + 1e-3), f"update {name}"
         real = np.abs(gref[name]) > 1e-6 * gnorm
         if real.any():
             assert upd_err[real].mean() <= 0.05 * step_lr, f"update {name}"
+    # the fused stem: conv2 and conv3 forward, their dgrads (K6) and their
+    # weight gradients (K6b), all in fp32; the plain stem: none
+    want = ([("conv_padded_plain", torch.float32)] * 4 + [("wgrad_plain", torch.float32)] * 2
+            if fused_stem else [])
+    assert sorted(calls) == want
+
+
+def test_tiny_fp32_train_step_matches_crog_tpu(monkeypatch, fp32_tiny, fp32_step_ref):
+    """The slice on the CPU: the tiny CROG built by each package's
+    build_crog from crog_synthetic_r50.yaml with compute_dtype float32 and
+    dropout 0, crog_tpu's randomized weights in both; one step of the
+    port's make_train_step against crog_tpu's loss and gradients on the same
+    batch and its optimizer's update of them: the loss to 1e-4 relative,
+    every gradient and BatchNorm statistic as tests/test_torch_train.py
+    holds them (assert_step_matches_jax), and each parameter's Adam update
+    to within twice the step's learning rate everywhere and to 5% of it on
+    average where the gradient is not zero up to rounding."""
+    _check_train_step(monkeypatch, fp32_tiny, fp32_step_ref, False)
+
+
+def test_tiny_fp32_train_step_on_the_fused_stem_matches_crog_tpu(monkeypatch, fp32_tiny,
+                                                                  fp32_step_ref):
+    """As above with the port's s2d stem fused (``--fused-stem``): the stem's
+    conv2 and conv3, their dgrads and weight gradients in fp32 through K6's
+    and K6b's wrappers (their twins on the CPU)."""
+    _check_train_step(monkeypatch, fp32_tiny, fp32_step_ref, True)
+
+
+def _small_s2d_twins():
+    """K6-f32's and K6b-f32's twins at a small ragged shape on the CPU
+    (conv3's widths, ci 32 and co 64), on ReLU'd activations as the stem
+    hands them over."""
+    from crog_tpu_torch.ops import s2dconv as SC
+
+    r = np.random.RandomState(4)
+    t = lambda *s, std=1.0: torch.from_numpy((r.randn(*s) * std).astype(np.float32))
+    x, dy = torch.relu(t(2, 5, 7, 128)), t(2, 5, 7, 256)
+    wp = SC.pack_s1(t(3, 3, 32, 64, std=(2.0 / 288) ** 0.5))
+    return {"s2dconv_f32": lambda: SC.conv_padded_plain(x, wp, 32, 64),
+            "s2dconv_wgrad_f32": lambda: SC.wgrad_plain(x, dy, 32, 64)}
+
+
+@pytest.mark.parametrize("name", ["s2dconv_f32", "s2dconv_wgrad_f32"])
+def test_s2d_fp32_twin_controls_read_above_the_limit(name):
+    """Phase 18's control for K6-f32 and K6b-f32: the twin with its one
+    product (F32_S2D_PRODUCTS) formed by one TF32 pass or from bf16-staged
+    operands reads above the kernel's limit (F32_REL_L2 forward,
+    F32_BWD_REL_L2 wgrad) against the sound twin."""
+    cs = _chip_smoke()
+    twin = _small_s2d_twins()[name]
+    ref = twin()
+    products = {name: cs.F32_S2D_PRODUCTS[name]}
+    controls = cs.fp32_twin_controls({name: twin}, {name: ref}, products)
+    limit = cs.F32_BWD_REL_L2 if name == "s2dconv_wgrad_f32" else cs.F32_REL_L2
+    assert set(controls[name]) == set(products[name])
+    for product, by_fault in controls[name].items():
+        assert set(by_fault) == {"1xTF32", "bf16-staged"}
+        for fault, rel in by_fault.items():
+            assert rel > limit, (product, fault, rel)
+    assert cs.worst_rel_l2(twin(), ref) == 0.0

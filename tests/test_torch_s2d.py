@@ -272,3 +272,37 @@ def test_fwd_schedule_depends_on_the_shapes_alone():
     assert first == again
     assert first == [(129, 17), (130, 34), (130, 34)]
     assert SC.fwd_schedule(24, 104, 104, 32, 32) != SC.fwd_schedule(24, 96, 104, 32, 32)
+
+
+@pytest.mark.parametrize("b,h,w,ci,co", [(24, 104, 104, 32, 32), (24, 104, 104, 32, 64),
+                                         (24, 104, 104, 64, 32), (24, 104, 104, 64, 64),
+                                         (2, 5, 7, 32, 32), (1, 1, 1, 64, 64)])
+def test_wgrad_f32_schedule_covers_every_cell_once(b, h, w, ci, co):
+    """K6b-f32's chunks: multiples of 32 cells that cover every cell once,
+    none empty, at most WGRAD_F32_CTAS CTAs (one per chunk and [128, 128]
+    block of the packed gradient), and a function of the shapes alone."""
+    chunks, chunk = SC.wgrad_f32_schedule(b, h, w, ci, co)
+    cells = b * h * w
+    assert chunk % 32 == 0 and chunk >= 32
+    assert (chunks - 1) * chunk < cells <= chunks * chunk
+    blocks = (16 * ci // 128) * (4 * co // 128)
+    assert chunks * blocks <= max(SC.WGRAD_F32_CTAS, blocks)
+    assert SC.wgrad_f32_schedule(b, h, w, ci, co) == (chunks, chunk)
+
+
+def test_fp32_s2d_wrappers_run_their_twins_on_the_cpu():
+    """On CPU tensors K6's and K6b's wrappers are the plain twins, in fp32
+    (the output fp32, the packed gradient f32), and launch nothing at either
+    dtype's counter."""
+    ci, co = 32, 64
+    x = torch.relu(T(_rand(9, 2, 5, 7, 4 * ci)))
+    dy = T(_rand(10, 2, 5, 7, 4 * co))
+    wp = SC.pack_s1(T(_rand(11, 3, 3, ci, co, scale=0.1)))
+    counts = lambda: [getattr(f, a) for f in (SC.s2dconv_fwd, SC.s2dconv_wgrad)  # noqa: E731
+                      for a in ("launches", "launches_f32")]
+    before = counts()
+    y = SC.s2dconv_fwd(x, wp, ci, co)
+    assert y.dtype == torch.float32 and torch.equal(y, SC.conv_padded_plain(x, wp, ci, co))
+    dwp = SC.s2dconv_wgrad(x, dy, ci, co)
+    assert dwp.dtype == torch.float32 and torch.equal(dwp, SC.wgrad_plain(x, dy, ci, co))
+    assert counts() == before

@@ -4,10 +4,12 @@ planted faults.
     python3 tools/torch_fp32_faults.py
 
 Runs the fp32 kernels K1-f32..K4-f32 (csrc/attention_f32.cu,
-decoder_blocks_f32.cu, ffn_f32.cu) and K1b-f32..K4b-f32
-(csrc/attention_bwd_f32.cu, decoder_blocks_bwd_f32.cu, ffn_bwd_f32.cu) on
-chip_smoke.py's phase-18 inputs (the main path's shapes at batch 24, full
-fp32 values) and prints each one's relative L2 error against its fp32 twin
+decoder_blocks_f32.cu, ffn_f32.cu), K1b-f32..K4b-f32
+(csrc/attention_bwd_f32.cu, decoder_blocks_bwd_f32.cu, ffn_bwd_f32.cu) and
+the s2d stem's K6-f32 and K6b-f32 (csrc/s2dconv_f32.cu, at each of a train
+step's launches) on chip_smoke.py's phase-18 inputs (the main path's shapes
+at batch 24, full fp32 values) and prints each one's relative L2 error
+against its fp32 twin
 (TF32 off; of a backward, its worst gradient output): first as built
 (every product 3xTF32), then with one product at a time formed by
 
@@ -24,7 +26,10 @@ the twin with the same product formed the same way
 (``chip_smoke.fp32_twin_controls``).  Then phase 18's fp32 train step at
 batch 2 (``chip_smoke.fp32_train_gap``'s model and batch) against the CPU:
 sound, with each backward library's products planted one at a time, and
-with the library's TF32 on (cuBLAS and cuDNN), for F32_TRAIN_GRAD_TOL.
+with the library's TF32 on (cuBLAS and cuDNN), for F32_TRAIN_GRAD_TOL; and
+the same step on the fused s2d stem (phase 18 (e)), sound and with K6-f32's
+and K6b-f32's products planted (the vision group's stem gradients come
+from K6b-f32).
 JSON to ``chiprun_out/fp32_faults.json``.
 """
 
@@ -55,9 +60,15 @@ BWD_FAULT_PRODUCTS = {
     "decoder_self_block_bwd_f32": ("decoder_blocks_bwd_f32", _BLOCK_BWD),
     "decoder_cross_block_bwd_f32": ("decoder_blocks_bwd_f32", _BLOCK_BWD),
     "ffn_bwd_f32": ("ffn_bwd_f32", {"recompute": 14, "dhn": 15, "dx": 16})}
+# K6-f32 and K6b-f32, read at each launch of a train step (chip_smoke's
+# s2dconv_cases); products chip_smoke.F32_S2D_PRODUCTS'
+S2D_FAULT_PRODUCTS = {"s2dconv_f32": ("s2dconv_f32", {"patch product": 17}),
+                      "s2dconv_wgrad_f32": ("s2dconv_f32", {"patch^T dy": 18})}
 # the fp32 train step is read with every backward library's products
-# planted (the forward's are phase 18's eval readings)
+# planted (the forward's are phase 18's eval readings); on the fused stem
+# with K6-f32's and K6b-f32's
 STEP_FAULTS = dict(BWD_FAULT_PRODUCTS.values())
+FUSED_STEP_FAULTS = {"s2dconv_f32": {"patch product": 17, "patch^T dy": 18}}
 # fault builds at a time: one per core of the card's machine (48 at once
 # could exhaust its memory)
 PARALLEL_BUILDS = 8
@@ -81,7 +92,8 @@ def build_faults():
     out_dir = CB.BUILD_DIR / "faults"
     out_dir.mkdir(parents=True, exist_ok=True)
     keys = sorted({(lib, pid, mid)
-                   for lib, products in (*FAULT_PRODUCTS.values(), *BWD_FAULT_PRODUCTS.values())
+                   for lib, products in (*FAULT_PRODUCTS.values(), *BWD_FAULT_PRODUCTS.values(),
+                                         *S2D_FAULT_PRODUCTS.values())
                    for pid in products.values() for mid in MODES.values()})
     t0 = time.perf_counter()
     done = []
@@ -146,33 +158,55 @@ def _kernel_readings(cs, cases, fault_products, libs, products):
     return sound, faults, controls
 
 
+def _gaps(cs, card, cpu, tag):
+    """(loss rel, {group: grad rel-L2}, the stem's conv weights' rel-L2)."""
+    rel, groups = cs.grad_gap(card, cpu, tag)
+    return rel, groups, cs.stem_grad_gap(card, cpu)
+
+
+def _planted_steps(cs, model, mini, cpu, libs, step_faults, tag):
+    """{library: {product: {fault: _gaps}}} of the train step with each
+    product of ``step_faults`` planted in turn."""
+    out = {}
+    for lib, by_product in step_faults.items():
+        out[lib] = {}
+        for product, pid in by_product.items():
+            out[lib][product] = {}
+            for fault, mid in MODES.items():
+                with planted(lib, libs[lib, pid, mid]):
+                    card = cs.train_grads(model, mini)
+                out[lib][product][fault] = _gaps(
+                    cs, card, cpu, f"[fp32-faults] {tag}{lib} {product} {fault}:")
+    return out
+
+
 def step_readings(cs, device, libs):
     """{"sound": (loss rel, {group: grad rel-L2}), "faults": {library:
     {product: {fault: the same}}}, "tf32": the same with the library's TF32
-    on} of phase 18's fp32 train step at batch 2 against the CPU."""
+    on, "fused_sound" and "fused_faults": the same on the fused s2d stem
+    (K6-f32 and K6b-f32 planted)} of phase 18's fp32 train step at batch 2
+    against the CPU."""
     import torch
 
     cfg = cs._cfg(opts=("dropout", "0.0", "compute_dtype", "float32"))
     mini = cs.mini_batch(cs.prepared_train_batches()[0], cfg.input_size)
     cpu = cs.train_grads(cs.grad_model(cfg, torch.device("cpu"), torch.float32,
                                        fused_stem=False), mini)
+    fused = cs.grad_model(cfg, device, fused_stem=True)
+    out = {"fused_sound": _gaps(cs, cs.train_grads(fused, mini), cpu,
+                                "[fp32-faults] fused stem, sound:"),
+           "fused_faults": _planted_steps(cs, fused, mini, cpu, libs, FUSED_STEP_FAULTS,
+                                          "fused stem, ")}
+    del fused
+    torch.cuda.empty_cache()
     model = cs.grad_model(cfg, device, fused_stem=False)
-    out = {"sound": cs.grad_gap(cs.train_grads(model, mini), cpu, "[fp32-faults] sound:"),
-           "faults": {}}
-    for lib, by_product in STEP_FAULTS.items():
-        out["faults"][lib] = {}
-        for product, pid in by_product.items():
-            out["faults"][lib][product] = {}
-            for fault, mid in MODES.items():
-                with planted(lib, libs[lib, pid, mid]):
-                    card = cs.train_grads(model, mini)
-                out["faults"][lib][product][fault] = cs.grad_gap(
-                    card, cpu, f"[fp32-faults] {lib} {product} {fault}:")
+    out["sound"] = _gaps(cs, cs.train_grads(model, mini), cpu, "[fp32-faults] sound:")
+    out["faults"] = _planted_steps(cs, model, mini, cpu, libs, STEP_FAULTS, "")
     flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
     try:
-        out["tf32"] = cs.grad_gap(cs.train_grads(model, mini), cpu,
-                                  "[fp32-faults] library TF32 on:")
+        out["tf32"] = _gaps(cs, cs.train_grads(model, mini), cpu,
+                            "[fp32-faults] library TF32 on:")
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
     return out
@@ -202,6 +236,17 @@ def readings(cs, device):
             out["sound"].update(sound)
             out["faults"].update(faults)
             out["controls"].update(controls)
+        for name, cases in cs.s2dconv_cases(device, dtype=torch.float32).items():
+            n32 = name + "_f32"
+            lib, by_product = S2D_FAULT_PRODUCTS[n32]
+            at = {f"{n32} ({c[0]})": c[1:3] for c in cases}
+            sound, faults, controls = _kernel_readings(
+                cs, at, {k: (lib, by_product) for k in at}, libs,
+                {k: cs.F32_S2D_PRODUCTS[n32] for k in at})
+            out["sound"].update(sound)
+            out["faults"].update(faults)
+            out["controls"].update(controls)
+            del at, cases
     del inp, fwd, bwd
     torch.cuda.empty_cache()
     out["step"] = step_readings(cs, device, libs)
@@ -234,6 +279,14 @@ def main(argv=None) -> int:
         print(f"[fp32-faults] train step, {lib} planted (groups over their limits): "
               + "; ".join(f"{p} " + ", ".join(f"{f} {over(g)}" for f, g in fr.items())
                           for p, fr in by_product.items()), flush=True)
+    print(f"[fp32-faults] train step on the fused stem: sound {step['fused_sound'][0]:.4g}, "
+          f"{over(step['fused_sound'])}, stem convs {step['fused_sound'][2]:.4g} (plain stem "
+          f"{step['sound'][2]:.4g}, library TF32 on {step['tf32'][2]:.4g})", flush=True)
+    for lib, by_product in step["fused_faults"].items():
+        print(f"[fp32-faults] train step on the fused stem, {lib} planted (groups over their "
+              "limits; the stem convs' rel_l2): " + "; ".join(
+                  f"{p} " + ", ".join(f"{f} {over(g)} {g[2]:.4g}" for f, g in fr.items())
+                  for p, fr in by_product.items()), flush=True)
     limits = {"F32_REL_L2": cs.F32_REL_L2, "F32_BWD_REL_L2": cs.F32_BWD_REL_L2,
               "F32_TRAIN_LOSS_TOL": cs.F32_TRAIN_LOSS_TOL,
               "F32_TRAIN_GRAD_TOL": cs.F32_TRAIN_GRAD_TOL}
@@ -241,7 +294,9 @@ def main(argv=None) -> int:
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "fp32_faults.json"), "w") as fh:
         json.dump({**out, "limits": limits, "card": smi}, fh, indent=1)
-    limit = lambda name: cs.F32_REL_L2 if name in FAULT_PRODUCTS else cs.F32_BWD_REL_L2  # noqa
+    limit = lambda name: (cs.F32_REL_L2  # noqa: E731
+                          if name in FAULT_PRODUCTS or name.startswith("s2dconv_f32 ")
+                          else cs.F32_BWD_REL_L2)
     low = [(n, p, f) for n, bp in out["faults"].items() for p, fr in bp.items()
            for f, r in fr.items() if not r > limit(n)]
     loud = [n for n, r in out["sound"].items() if r > limit(n)]

@@ -5,7 +5,8 @@ port's CROG (counterpart of tools/latency.py).
         [--params-dtype float32|bfloat16|both] [--fused-stem] [--device cuda] [--opts ...]
 
 The model is the config's (its compute dtype, its stem; ``--fused-stem``
-runs the s2d stem's convs through K6) with weights seeded by
+runs the s2d stem's convs through K6, or K6-f32 at ``compute_dtype:
+float32``) with weights seeded by
 ``manual_seed``, in eval mode.  500 forwards at batch 1 of one seeded image
 and word-id row, each input chained on the last output (``img + 0 *
 out[0, 0, 0, 0]``), so that the forwards run one after another on the
@@ -81,7 +82,8 @@ def main(argv=None):
                         choices=("float32", "bfloat16", "both"))
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--fused-stem", action="store_true",
-                        help="run the s2d stem's stride-1 convs through K6")
+                        help="run the s2d stem's stride-1 convs through K6 (K6-f32 "
+                             "at compute_dtype float32)")
     parser.add_argument("--opts", default=None, nargs=argparse.REMAINDER)
     a = parser.parse_args(argv)
     cfg = load_cfg_from_cfg_file(a.config)

@@ -147,7 +147,8 @@ def main(argv=None):
     p.add_argument("--config", default="config/OCID-VLG/crog_multiple_r50.yaml")
     p.add_argument("--device", default="cuda")
     p.add_argument("--fused-stem", action="store_true",
-                   help="run the s2d stem's stride-1 convs through K6")
+                   help="run the s2d stem's stride-1 convs through K6 (K6-f32 at "
+                        "compute_dtype float32)")
     p.add_argument("--peak-tflops", type=float, default=None,
                    help="one FLOP peak for aten ops and kernels (default: work.peaks of "
                         "the config's compute_dtype)")
