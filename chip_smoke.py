@@ -547,15 +547,17 @@ def backward_cases(inp):
     q, k, v, h = a["q"], a["k"], a["v"], a["heads"]
     b, l, d = q.shape
     do = dy["attention"]
-    o = A.fused_attention(q, k, v, h)
+    # at fp32 K1b-f32 reads K1-f32's logsumexp, and its twin the same
+    o, lse = (A.fused_attention(q, k, v, h, with_lse=True) if q.dtype == torch.float32
+              else (A.fused_attention(q, k, v, h), None))
     split = lambda x: x.view(b, l, h, d // h).transpose(1, 2).detach().requires_grad_()
     qs, ks, vs = split(q), split(k), split(v)
     with torch.enable_grad():
         sdpa_out = F.scaled_dot_product_attention(qs, ks, vs)
     dos = do.view(b, l, h, d // h).transpose(1, 2)
     cases["attention_bwd"] = (
-        lambda: A.attention_bwd(q, k, v, o, do, h),
-        lambda: A.attention_bwd_plain(q, k, v, o, do, h),
+        lambda: A.attention_bwd(q, k, v, o, do, h, lse=lse),
+        lambda: A.attention_bwd_plain(q, k, v, o, do, h, lse),
         lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), dos, retain_graph=True),
         work.attention_bwd_flops(b, l, d), 8 * nbytes(q), ("dq", "dk", "dv"),
     )
@@ -2429,8 +2431,74 @@ def fp32_backward_kernels(inp, timed: bool = True):
     check_controls(fp32_twin_controls({n + "_f32": c[1] for n, c in cases.items()}, refs,
                                       F32_BWD_PRODUCTS), F32_BWD_REL_L2)
     if timed:
-        f32_grad_yardsticks(inp["ffn"]["x"].device)
+        dev = inp["ffn"]["x"].device
+        f32_attention_bwd_steps(dev, smi_line())
+        f32_grad_yardsticks(dev)
     return records
+
+
+def f32_attention_bwd_steps(device, smi: str, b=BATCH, l=676, t=17, heads=8):
+    """The fp32 attention backward at each shape it runs, beside SDPA's fp32
+    backward (TF32 off; the key mask as ``attn_mask``) at the same shape:
+    K1b-f32 on K1-f32's logsumexp at the CLIP attention pool (B 24, 169
+    tokens, 32 heads) and at the ViTs' 197 (ViT-B/16, 12 heads) and 577
+    tokens (ViT-L/14 at 336, 16 heads), batch VIT_BATCH; and the attention
+    step of K2b-f32 (676 tokens, 8 heads) and K3b-f32 (676 queries over 17
+    masked text keys) on its pre-pass.  Each within F32_BWD_REL_L2 of its
+    twin, twice with equal bits, timed by CUDA events (device time in
+    ``print_device_times``) beside its bound; every line names the card."""
+    import torch
+    import torch.nn.functional as F
+
+    from crog_tpu_torch.ops import attention as A
+
+    g = torch.Generator().manual_seed(SEED + 13)
+    rnd = lambda *shape: torch.randn(*shape, generator=g).to(device)
+    lengths = torch.randint(4, t + 1, (b,), generator=g)
+    mask = torch.where(torch.arange(t)[None, :] >= lengths[:, None], A.NEG, 0.0).to(device)
+    cases = ((f"K1b-f32 at the attention pool (B {b}, 169 tokens, 32 heads)", b, 169, 169, 32,
+              None, True),
+             (f"K1b-f32 at ViT-B/16 (B {VIT_BATCH}, 197 tokens, 12 heads)", VIT_BATCH, 197,
+              197, 12, None, True),
+             (f"K1b-f32 at ViT-L/14 336 (B {VIT_BATCH}, 577 tokens, 16 heads)", VIT_BATCH,
+              577, 577, 16, None, True),
+             (f"K2b-f32's attention step (B {b}, {l} tokens, {heads} heads)", b, l, l, heads,
+              None, False),
+             (f"K3b-f32's attention step (B {b}, {l} queries, {t} keys, key mask)", b, l, t,
+              heads, mask, False))
+    for label, bb, lq, lk, hh, m, k1b in cases:
+        d = hh * 64
+        q, do, k, v = rnd(bb, lq, d), rnd(bb, lq, d), rnd(bb, lk, d), rnd(bb, lk, d)
+        o, lse = A.fused_attention(q, k, v, hh, m, with_lse=True)
+        if k1b:
+            kern = lambda q=q, k=k, v=v, o=o, do=do, m=m, lse=lse, hh=hh: A.attention_bwd(
+                q, k, v, o, do, hh, mask_add=m, lse=lse)
+            ref = A.attention_bwd_plain(q, k, v, o, do, hh, lse, m)
+        else:
+            kern = lambda q=q, k=k, v=v, o=o, do=do, m=m, hh=hh: A.attention_bwd(
+                q, k, v, o, do, hh, bf16_casts=True, mask_add=m)
+            ref = A.mha_bwd_plain(q, k, v, do, hh, m)
+        got, again = kern(), kern()
+        check_f32_grads(label, ("dq", "dk", "dv"), got, ref)
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"{label} is not repeatable")
+        del got, again, ref
+        split = lambda x, hh=hh, bb=bb: x.view(bb, x.shape[1], hh, 64).transpose(1, 2)
+        leaves = [split(x).detach().requires_grad_() for x in (q, k, v)]
+        am = None if m is None else m[:, None, None, :]
+        with torch.enable_grad():
+            out = F.scaled_dot_product_attention(*leaves, attn_mask=am)
+        lib = lambda out=out, leaves=leaves, do=do, split=split: torch.autograd.grad(
+            out, leaves, split(do), retain_graph=True)
+        bms, by = bound(10.0 * bb * lq * lk * d, nbytes(q, k, v, do, q, k, v)
+                        + (nbytes(o, lse) if k1b else 0), PEAK_F32_TC_FLOPS)
+        ms, lib_ms = cuda_ms(kern), cuda_ms(lib)
+        print(f"[fp32] {label}: {ms:.4f} ms, SDPA fp32 backward {lib_ms:.4f} ms "
+              f"({ms / lib_ms:.3f}x), bound {bms:.4f} ms by {by}; {smi}", flush=True)
+        DEVICE_TIMED.append((f"{label} (the fp32 attention backward)", ms, kern, None, None))
+        DEVICE_TIMED.append((f"SDPA fp32 backward at {label[label.index('('):]}", lib_ms, lib,
+                             None, None))
+        del out, leaves
 
 
 def f32_bwd_rate_checks(inp):
@@ -2483,38 +2551,16 @@ def f32_bwd_rate_checks(inp):
 
 def f32_grad_yardsticks(device, b=BATCH, l=676, t=17, d=512, f=2048):
     """Timed as yardsticks only (the port computes these in its own
-    kernels, but K4b-f32's dW1 and dW2): SDPA's fp32 backward at K2b's self
-    attention (676 tokens, 8 heads) and K3b's cross attention (676 queries
-    over 17 keys, the key mask as ``attn_mask``), and fp32 torch.mm, TF32
-    off, at the shapes of the products of K2b-f32 (dO and each dX [B*L, D] x
-    [D, D], the three dX as one [B*L, 3D] x [3D, D], each dW over B*L
-    rows), K3b-f32 (dW over B*T rows) and K4b-f32 (dhn [B*L, D] x [D, F],
-    dx [B*L, F] x [F, D], dW1 and dW2 over B*L rows)."""
+    kernels, but K4b-f32's dW1 and dW2): fp32 torch.mm, TF32 off, at the
+    shapes of the products of K2b-f32 (dO and each dX [B*L, D] x [D, D], the
+    three dX as one [B*L, 3D] x [3D, D], each dW over B*L rows), K3b-f32 (dW
+    over B*T rows) and K4b-f32 (dhn [B*L, D] x [D, F], dx [B*L, F] x [F, D],
+    dW1 and dW2 over B*L rows).  SDPA's fp32 backward at the attention
+    steps' shapes is timed beside them (``f32_attention_bwd_steps``)."""
     import torch
-    import torch.nn.functional as F
-
-    from crog_tpu_torch.ops import attention as A
 
     g = torch.Generator().manual_seed(SEED + 12)
     rnd = lambda *shape: torch.randn(*shape, generator=g).to(device)
-    heads = d // 64
-    lengths = torch.randint(4, t + 1, (b,), generator=g)
-    mask = torch.where(torch.arange(t)[None, :] >= lengths[:, None], A.NEG, 0.0).to(device)
-    split = lambda x: x.view(b, x.shape[1], heads, 64).transpose(1, 2)
-    for label, lk, m in ((f"K2b's self attention (L {l}, {heads} heads)", l, None),
-                         (f"K3b's cross attention ({l} queries, {t} keys, key mask)", t,
-                          mask[:, None, None, :])):
-        leaves = [split(x).detach().requires_grad_()
-                  for x in (rnd(b, l, d), rnd(b, lk, d), rnd(b, lk, d))]
-        with torch.enable_grad():
-            out = F.scaled_dot_product_attention(*leaves, attn_mask=m)
-        do = split(rnd(b, l, d))
-        call = lambda out=out, leaves=leaves, do=do: torch.autograd.grad(
-            out, leaves, do, retain_graph=True)
-        ms = cuda_ms(call)
-        print(f"[fp32] SDPA fp32 backward yardstick at {label}: {ms:.4f} ms", flush=True)
-        DEVICE_TIMED.append((f"SDPA fp32 backward at {label}", ms, call, None, None))
-        del out, leaves
     m, mt = b * l, b * t
     cases = (
         (f"[{m}, {d}] x [{d}, {d}] (dO, each dX product)", rnd(m, d), rnd(d, d), False),

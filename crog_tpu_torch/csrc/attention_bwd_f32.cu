@@ -3,14 +3,19 @@
 // Replaces crog_tpu/ops/pallas_attention.py:133 `_fused_bwd_vjp`
 // (pallas_call at :140) where the model computes in fp32.  The kernels,
 // their bound and their design notes are in attention_bwd_f32.cuh, which
-// the fp32 decoder blocks' backward shares.
+// the fp32 decoder blocks' backward shares.  With the forward's logsumexp
+// (lse) this is K1b-f32, delta = rowsum(do * o); without it the decoder
+// blocks' attention backward (o unused, the statistics and delta =
+// rowsum(dP * P) from the pre-pass).
 #include "attention_bwd_f32.cuh"
 
 // q, o, do, dq [B, Lq, H*64]; k, v, dk, dv [B, Lk, H*64]; mask [B, Lk]
-// additive f32 or null; stats [B*H, 3, Lq] (work); strides in floats
+// additive f32 or null; lse [B*H, Lq] or null; stats [B*H, 3, Lq] and
+// dqpart [ceil(Lk / 64), B*H, Lq, 64] (work); strides in floats
 extern "C" int crog_attention_f32_bwd(
     const float* q, const float* k, const float* v, const float* o, const float* dout,
-    const float* mask, float* dq, float* dk, float* dv, float* stats,
+    const float* mask, const float* lse, float* dq, float* dk, float* dv, float* stats,
+    float* dqpart,
     int batch, int heads, int lq, int lk,
     long long q_bs, long long q_rs, long long k_bs, long long k_rs,
     long long v_bs, long long v_rs, long long o_bs, long long o_rs,
@@ -24,10 +29,12 @@ extern "C" int crog_attention_f32_bwd(
   a.o = o;
   a.dout = dout;
   a.mask = mask;
+  a.lse = lse;
   a.dq = dq;
   a.dk = dk;
   a.dv = dv;
   a.stats = stats;
+  a.dqpart = dqpart;
   a.heads = heads;
   a.lq = lq;
   a.lk = lk;

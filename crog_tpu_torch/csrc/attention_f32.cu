@@ -3,11 +3,12 @@
 // Replaces crog_tpu/ops/pallas_attention.py:104 `_fused_fwd` (pallas_call
 // at :111) where the model computes in fp32.  The kernel, its bound and its
 // design notes are in attention_f32.cuh, which the fp32 decoder blocks
-// share.
+// share.  lse, if not null, receives each row's logsumexp [B*H, Lq] for
+// K1b-f32.
 #include "attention_f32.cuh"
 
 extern "C" int crog_attention_f32_fwd(
-    const float* q, const float* k, const float* v, const float* mask, float* o,
+    const float* q, const float* k, const float* v, const float* mask, float* o, float* lse,
     int batch, int heads, int lq, int lk,
     long long q_bs, long long q_rs, long long k_bs, long long k_rs,
     long long v_bs, long long v_rs, long long o_bs, long long o_rs,
@@ -18,6 +19,7 @@ extern "C" int crog_attention_f32_fwd(
   a.v = v;
   a.mask = mask;
   a.o = o;
+  a.lse = lse;
   a.heads = heads;
   a.lq = lq;
   a.lk = lk;

@@ -12,6 +12,7 @@
 //                                        all-masked row averages over the Lk
 //                                        real keys, as the twin's does)
 //   o = softmax(s) v                    (all in f32)
+//   lse = logsumexp(s) over the keys     (K1-f32 only, for K1b-f32)
 // q/k/v/o are [B, L, H*64] f32 with a free row and batch stride (multiples
 // of 4 floats), so q and k can be column slices of one packed projection;
 // 1 <= Lk <= 768, Lq free.  The twin is ops/attention.py:attention_plain.
@@ -63,6 +64,7 @@ struct AttnF32Args {
   const float* v;
   const float* mask;  // [B, Lk] additive, or null
   float* o;
+  float* lse = nullptr;  // [B*H, Lq]: each row's logsumexp of s, or null (K2/K3-f32)
   int heads, lq, lk;
   long long q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs;
   float scale;
@@ -221,6 +223,11 @@ __global__ void __launch_bounds__(kF32AttnThreads) attn_f32_kernel(const AttnF32
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = 1.0f / l[r];
+  }
+  if (a.lse != nullptr && t == 0) {  // m + log(l), as `_fwd_kernel` saves it
+    float* ls = a.lse + (long long)blockIdx.y * a.lq;
+    if (ra < a.lq) ls[ra] = m[0] + logf(l[0]);
+    if (rb < a.lq) ls[rb] = m[1] + logf(l[1]);
   }
   float* ob = a.o + b * a.o_bs + h * kF32DH + 2 * t;
 #pragma unroll

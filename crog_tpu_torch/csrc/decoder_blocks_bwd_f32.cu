@@ -26,7 +26,15 @@
 //      partials of dG_post, dB_post, dB_out = sum(dOP), summed in order
 //   2. dO = dOP W_out                               grad_f32.cuh gemm_nn
 //   3. the attention backward -> dQ, dK, dV         attention_bwd_f32.cuh
-//      (delta = rowsum(dP * P), as pallas_decoder.py's `_mha_bwd`)
+//      (delta = rowsum(dP * P), as pallas_decoder.py's `_mha_bwd`): a
+//      pre-pass forms QK^T and dO V^T once for each row's max, sum and
+//      delta; the main pass, a CTA per 64 keys streaming 32-query tiles,
+//      forms QK^T, dO V^T, P^T dO, dS^T Q and dS K once each (wgmma .tf32,
+//      3xTF32: 7 products per pair in all, 10 before; 115,456 bytes of
+//      shared memory, two CTAs per SM) and writes one dQ partial per key
+//      block, which a third kernel adds in order; bound by the products
+//      (56 GFLOP, 0.34 ms at K2b's 676 tokens), the 11 partials add 0.22
+//      ms of bytes
 //      (self: into one [M, 3D] buffer; cross: dQ [M, D], dK | dV [B*T, 2D])
 //   4. dXL = [dQ dK dV] W_in, one product over K = 3D (in_w's rows are Wq,
 //      Wk, Wv in order); cross: dXL = dQ Wq, d(txt) = [dK dV] [Wk; Wv]
@@ -166,7 +174,8 @@ float* P(void* const* t, int i) { return static_cast<float*>(t[i]); }
 //   (d b_q, b_k, b_v, b_out, g_pre, b_pre, g_post, b_post);
 //   workspace 16 dop, 17 do [B*L, D], 18 dqkv [B*L, 3D], 19 dxl [B*L, D],
 //   20 stats [B*H, 3, L], 21 wpart [splits, 2D, D], 22 lnpart
-//   [ceil(B*L/32), 3, D], 23 cpart [ceil(B*L/256), 3D].
+//   [ceil(B*L/32), 3, D], 23 cpart [ceil(B*L/256), 3D], 24 dqpart
+//   [ceil(L/64), B*H, L, 64].
 extern "C" int crog_self_block_f32_bwd(void* const* t, int b, int l, int d, int heads,
                                        int splits, unsigned seed, unsigned thresh, float scale,
                                        void* stream) {
@@ -181,7 +190,7 @@ extern "C" int crog_self_block_f32_bwd(void* const* t, int b, int l, int d, int 
         *op = P(t, 10), *dy = P(t, 11);
   float *dx = P(t, 12), *dwi = P(t, 13), *dwo = P(t, 14), *dvec = P(t, 15);
   float *dop = P(t, 16), *dO = P(t, 17), *dqkv = P(t, 18), *dxl = P(t, 19), *stats = P(t, 20),
-        *wpart = P(t, 21), *lnpart = P(t, 22), *cpart = P(t, 23);
+        *wpart = P(t, 21), *lnpart = P(t, 22), *cpart = P(t, 23), *dqpart = P(t, 24);
 
   CROG_TRY(ln_post_bwd(op, dy, g_post, Dropout{seed, thresh, scale}, dop, lnpart, dvec, m, s));
   CROG_TRY(gemm_nn_f32<kProdDO>(dop, d, wo, d, dO, d, m, d, d, s));
@@ -196,6 +205,7 @@ extern "C" int crog_self_block_f32_bwd(void* const* t, int b, int l, int d, int 
   a.dk = dqkv + d;
   a.dv = dqkv + 2 * d;
   a.stats = stats;
+  a.dqpart = dqpart;
   a.q_bs = a.k_bs = (long long)l * 2 * d;
   a.q_rs = a.k_rs = 2 * d;
   a.v_bs = a.o_bs = a.do_bs = (long long)l * d;
@@ -221,7 +231,8 @@ extern "C" int crog_self_block_f32_bwd(void* const* t, int b, int l, int d, int 
 //   outputs 15 dx, 16 dkv [B*T, D] (d txt), 17 dw_in, 18 dw_out, 19 dvec;
 //   workspace 20 dop, 21 do, 22 dq [B*L, D], 23 dkv2 [B*T, 2D] (dk | dv),
 //   24 dxl [B*L, D], 25 stats [B*H, 3, L], 26 wpart [splits, D, D],
-//   27 lnpart, 28 cpart [ceil(B*L/256), D] as for the self block.
+//   27 lnpart, 28 cpart [ceil(B*L/256), D] as for the self block, 29 dqpart
+//   [ceil(T/64), B*H, L, 64].
 extern "C" int crog_cross_block_f32_bwd(void* const* t, int b, int l, int tt, int d, int heads,
                                         int splits, unsigned seed, unsigned thresh, float scale,
                                         void* stream) {
@@ -237,7 +248,8 @@ extern "C" int crog_cross_block_f32_bwd(void* const* t, int b, int l, int tt, in
         *kin = P(t, 10), *k = P(t, 11), *v = P(t, 12), *op = P(t, 13), *dy = P(t, 14);
   float *dx = P(t, 15), *dkv = P(t, 16), *dwi = P(t, 17), *dwo = P(t, 18), *dvec = P(t, 19);
   float *dop = P(t, 20), *dO = P(t, 21), *dq = P(t, 22), *dkv2 = P(t, 23), *dxl = P(t, 24),
-        *stats = P(t, 25), *wpart = P(t, 26), *lnpart = P(t, 27), *cpart = P(t, 28);
+        *stats = P(t, 25), *wpart = P(t, 26), *lnpart = P(t, 27), *cpart = P(t, 28),
+        *dqpart = P(t, 29);
 
   CROG_TRY(ln_post_bwd(op, dy, g_post, Dropout{seed, thresh, scale}, dop, lnpart, dvec, m, s));
   CROG_TRY(gemm_nn_f32<kProdDO>(dop, d, wo, d, dO, d, m, d, d, s));
@@ -252,6 +264,7 @@ extern "C" int crog_cross_block_f32_bwd(void* const* t, int b, int l, int tt, in
   a.dk = dkv2;
   a.dv = dkv2 + d;
   a.stats = stats;
+  a.dqpart = dqpart;
   a.q_bs = a.o_bs = a.do_bs = a.dq_bs = (long long)l * d;
   a.k_bs = a.v_bs = (long long)tt * d;
   a.dk_bs = a.dv_bs = (long long)tt * 2 * d;

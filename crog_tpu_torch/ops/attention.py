@@ -36,13 +36,15 @@ def _use_fused(lq, lk, attn_mask, key_padding_mask) -> bool:
     return attn_mask is None and key_padding_mask is None and lq == lk and lq >= 64
 
 
-def attention_plain(q, k, v, num_heads: int, mask_add=None):
+def attention_plain(q, k, v, num_heads: int, mask_add=None, with_lse: bool = False):
     """Plain twin of the kernel: softmax(q k^T / sqrt(dh) + mask) v per head.
 
     q [B, Lq, H*dh], k/v [B, Lk, H*dh]; ``mask_add`` [B, Lk] additive f32 or
     None.  Scores and softmax in f32 on the operands' values; the normalized
     probabilities are rounded to v's dtype before P.V (f32 accumulation),
     and the result is rounded to q's dtype — the TPU kernel's cast points.
+    ``with_lse`` also returns each row's logsumexp of the scores, [B, H, Lq]
+    f32, as ``_fwd_kernel`` saves it for the backward (K1-f32's twin).
     """
     b, lq, d = q.shape
     lk = k.shape[1]
@@ -54,8 +56,8 @@ def attention_plain(q, k, v, num_heads: int, mask_add=None):
     if mask_add is not None:
         s = s + mask_add.float()[:, None, None, :]
     p = torch.softmax(s, dim=-1).to(v.dtype).float()
-    o = torch.matmul(p, vh)
-    return o.transpose(1, 2).reshape(b, lq, d).to(q.dtype)
+    o = torch.matmul(p, vh).transpose(1, 2).reshape(b, lq, d).to(q.dtype)
+    return (o, torch.logsumexp(s, dim=-1)) if with_lse else o
 
 
 def _check_rows(t: torch.Tensor, name: str, dtype: torch.dtype = torch.bfloat16) -> None:
@@ -79,7 +81,7 @@ def fwd_path(lk: int) -> str:
     return "one_pass" if lk <= ONE_PASS_MAX_KEYS else "two_pass"
 
 
-def fused_attention(q, k, v, num_heads: int, mask_add=None):
+def fused_attention(q, k, v, num_heads: int, mask_add=None, with_lse: bool = False):
     """K1.  q [B, Lq, H*64], k/v [B, Lk, H*64], all bf16 or all fp32 (any
     row and batch stride, unit feature stride); ``mask_add`` [B, Lk] f32 or
     None.
@@ -88,14 +90,17 @@ def fused_attention(q, k, v, num_heads: int, mask_add=None):
     the build for q's dtype (``cuda_build.library_for``): crog_attention_fwd
     (csrc/attention.cu, bf16), whose kernel ``fwd_path`` names, or
     crog_attention_f32_fwd (csrc/attention_f32.cu, fp32, counted in
-    ``fused_attention.launches_f32``); or raises."""
+    ``fused_attention.launches_f32``); or raises.  ``with_lse`` (fp32 only)
+    also returns each row's logsumexp [B, H, Lq] f32, which K1b-f32 reads."""
     work.note("attention", lambda: (
         work.attention_flops(*q.shape[:2], k.shape[1], q.shape[2]),
         work.nbytes(q, k, v, q) + (0 if mask_add is None else work.nbytes(mask_add))))
     if q.device.type == "cpu":
         with work.uncounted():
-            return attention_plain(q, k, v, num_heads, mask_add)
+            return attention_plain(q, k, v, num_heads, mask_add, with_lse)
     name = cuda_build.library_for("attention", q.dtype)
+    if with_lse and q.dtype != torch.float32:
+        raise ValueError("K1 writes a logsumexp only at fp32 (K1-f32)")
     b, lq, d = q.shape
     lk = k.shape[1]
     for t, n in ((q, "q"), (k, "k"), (v, "v")):
@@ -110,18 +115,21 @@ def fused_attention(q, k, v, num_heads: int, mask_add=None):
         cuda_build.require(mask_add, "mask_add", torch.float32, (b, lk))
     o = torch.empty(b, lq, d, dtype=q.dtype, device=q.device)
     lib = cuda_build.load(name)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if mask_add is None else mask_add.data_ptr(),
-            o.data_ptr(), b, num_heads, lq, lk,
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if mask_add is None else mask_add.data_ptr(), o.data_ptr())
+    args = (b, num_heads, lq, lk,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), o.stride(0), o.stride(1), HEAD_DIM**-0.5)
     stream = cuda_build.stream_ptr(q.device)
     if q.dtype == torch.float32:
-        rc = lib.crog_attention_f32_fwd(*args, stream)
+        lse = (torch.empty(b, num_heads, lq, dtype=torch.float32, device=q.device)
+               if with_lse else None)
+        rc = lib.crog_attention_f32_fwd(*ptrs, None if lse is None else lse.data_ptr(), *args,
+                                        stream)
         cuda_build.check_launch(lib, rc, "crog_attention_f32_fwd")
         fused_attention.launches_f32 += 1
-        return o
-    rc = lib.crog_attention_fwd(*args, stream)
+        return (o, lse) if with_lse else o
+    rc = lib.crog_attention_fwd(*ptrs, *args, stream)
     cuda_build.check_launch(lib, rc, "crog_attention_fwd")
     fused_attention.launches += 1
     return o
@@ -141,13 +149,19 @@ def _merge_heads(t, dtype):
     return t.transpose(1, 2).reshape(b, l, h * dh).to(dtype)
 
 
-def attention_bwd_plain(q, k, v, o, do, num_heads: int):
+def attention_bwd_plain(q, k, v, o, do, num_heads: int, lse=None, mask_add=None):
     """Plain twin of K1b (``_bwd_kernel`` of pallas_attention.py): everything
     in f32 -- q, k, v, o and do upcast, P, dP and dS f32, delta =
-    rowsum(do * o) -- and only dq, dk, dv rounded to q's dtype."""
+    rowsum(do * o) -- and only dq, dk, dv rounded to q's dtype.  With the
+    forward's logsumexp ``lse`` [B, H, Lq] (K1b-f32's twin) P = exp(s -
+    lse), as ``_bwd_kernel`` takes it; without, softmax(s).  ``mask_add``
+    [B, Lk] additive f32 or None."""
     qh, kh, vh, oh, doh = (_split_heads(t, num_heads).float() for t in (q, k, v, o, do))
     scale = qh.shape[-1] ** -0.5
-    p = torch.softmax(torch.matmul(qh, kh.transpose(-1, -2)) * scale, dim=-1)
+    s = torch.matmul(qh, kh.transpose(-1, -2)) * scale
+    if mask_add is not None:
+        s = s + mask_add.float()[:, None, None, :]
+    p = torch.softmax(s, dim=-1) if lse is None else torch.exp(s - lse[..., None])
     dv = torch.matmul(p.transpose(-1, -2), doh)
     dp = torch.matmul(doh, vh.transpose(-1, -2))
     delta = (doh * oh).sum(-1, keepdim=True)
@@ -179,6 +193,59 @@ def mha_bwd_plain(q, k, v, do, num_heads: int, mask_add=None):
     return tuple(_merge_heads(t, dt) for t in (dq, dk, dv))
 
 
+def attention_bwd_f32_plain(q, k, v, do, num_heads: int, mask_add=None, o=None, lse=None):
+    """The decomposition of the fp32 attention backward's kernels
+    (csrc/attention_bwd_f32.cuh) in plain PyTorch, all f32, for the CPU
+    tests only (nothing on the card path calls it; the kernels' twins are
+    ``attention_bwd_plain`` and ``mha_bwd_plain``).  Each row's statistics:
+    with the forward's logsumexp ``lse`` [B, H, Lq] (K1b-f32) m = lse, r =
+    1, delta = rowsum(do * o); without it (the blocks) m, r = 1 / l and
+    delta = sum(p dp) / l from a pass over 64-key tiles with online
+    rescaling.  Then, per 64-key block over 32-query tiles, p = exp(x - m)
+    r, dS, dV and dK (each tile's sums added to the running ones) and the
+    block's dQ partial; dq is the partials added in key-block order."""
+    qh, kh, vh, doh = (_split_heads(t, num_heads).float() for t in (q, k, v, do))
+    b, h, lq, dh = qh.shape
+    lk = kh.shape[2]
+    scale = dh**-0.5
+    madd = (torch.zeros(b, 1, 1, lk) if mask_add is None
+            else mask_add.float()[:, None, None, :])
+    x_of = lambda qs, k0, k1: (torch.matmul(qs, kh[:, :, k0:k1].transpose(-1, -2)) * scale
+                               + madd[..., k0:k1])
+    if lse is not None:
+        m, r = lse.float(), torch.ones(b, h, lq)
+        delta = (doh * _split_heads(o, num_heads).float()).sum(-1)
+    else:
+        m = torch.full((b, h, lq), float("-inf"))
+        l, w = torch.zeros(b, h, lq), torch.zeros(b, h, lq)
+        for k0 in range(0, lk, 64):
+            k1 = min(k0 + 64, lk)
+            x = x_of(qh, k0, k1)
+            dp = torch.matmul(doh, vh[:, :, k0:k1].transpose(-1, -2))
+            mnew = torch.maximum(m, x.amax(-1))
+            c, e = torch.exp(m - mnew), torch.exp(x - mnew[..., None])
+            l, w, m = l * c + e.sum(-1), w * c + (e * dp).sum(-1), mnew
+        r, delta = 1.0 / l, w / l
+    dq, dks, dvs = None, [], []
+    for k0 in range(0, lk, 64):
+        k1 = min(k0 + 64, lk)
+        dk, dv = torch.zeros(b, h, k1 - k0, dh), torch.zeros(b, h, k1 - k0, dh)
+        part = torch.zeros(b, h, lq, dh)
+        for q0 in range(0, lq, 32):
+            q1 = min(q0 + 32, lq)
+            rows = slice(q0, q1)
+            p = torch.exp(x_of(qh[:, :, rows], k0, k1) - m[..., rows, None]) * r[..., rows, None]
+            dp = torch.matmul(doh[:, :, rows], vh[:, :, k0:k1].transpose(-1, -2))
+            ds = p * (dp - delta[..., rows, None]) * scale
+            dv = dv + torch.matmul(p.transpose(-1, -2), doh[:, :, rows])
+            dk = dk + torch.matmul(ds.transpose(-1, -2), qh[:, :, rows])
+            part[:, :, rows] = torch.matmul(ds, kh[:, :, k0:k1])
+        dq = part if dq is None else dq + part
+        dks.append(dk)
+        dvs.append(dv)
+    return tuple(_merge_heads(t, q.dtype) for t in (dq, torch.cat(dks, 2), torch.cat(dvs, 2)))
+
+
 def _check_bwd_width(q, num_heads: int) -> None:
     b, l, d = q.shape
     if d != num_heads * HEAD_DIM or not 1 <= l <= MAX_KEYS:
@@ -196,7 +263,8 @@ def bwd_path(l: int, bf16_casts: bool = False) -> str:
     return "head" if l <= HEAD_MAX_LEN and not bf16_casts else "rows_cols"
 
 
-def attention_bwd(q, k, v, o, do, num_heads: int, bf16_casts: bool = False, mask_add=None):
+def attention_bwd(q, k, v, o, do, num_heads: int, bf16_casts: bool = False, mask_add=None,
+                  lse=None):
     """K1b.  q, o, do [B, Lq, H*64], k, v [B, Lk, H*64], all bf16 or all
     fp32 (contiguous) -> dq, dk, dv.
 
@@ -204,24 +272,32 @@ def attention_bwd(q, k, v, o, do, num_heads: int, bf16_casts: bool = False, mask
     launches the build for q's dtype (``cuda_build.library_for``): the bf16
     kernel ``bwd_path`` names (csrc/attention_bwd.cu), or K1b-f32
     (csrc/attention_bwd_f32.cu, counted in ``attention_bwd.launches_f32``);
-    or raises.  ``bf16_casts`` swaps in the decoder blocks' cast points (P
-    and dS rounded to bf16, twin ``mha_bwd_plain``) on the two-kernel path
-    that K2b and K3b run, which alone of the bf16 kernels takes a key mask
-    ``mask_add`` [B, Lk] f32 and Lk != Lq; only the checks of that path and
-    of K1b's tolerance set it (chip_smoke.py,
-    tests/test_torch_cuda_kernels.py).  At fp32 the cast points do nothing
-    and K1b-f32 takes a key mask and Lk != Lq in any case."""
+    or raises.  ``bf16_casts`` swaps in the decoder blocks' attention
+    backward (``_mha_bwd``, twin ``mha_bwd_plain``): its cast points (P and
+    dS rounded to bf16; nothing at fp32) and, at fp32, its statistics
+    recomputed by a pre-pass with delta = rowsum(dP P), as K2b-f32 and
+    K3b-f32 run it.  In bf16 that is the two-kernel path that K2b and K3b
+    run, which alone of the bf16 kernels takes a key mask ``mask_add`` [B,
+    Lk] f32 and Lk != Lq; only the checks of that path and of K1b's
+    tolerance set it (chip_smoke.py, tests/test_torch_cuda_kernels.py).
+    K1b-f32 reads the forward's logsumexp ``lse`` [B, H, Lq] (from
+    ``fused_attention(..., with_lse=True)``) and takes a key mask and Lk !=
+    Lq."""
     if q.device.type == "cpu":
         if bf16_casts:
             return mha_bwd_plain(q, k, v, do, num_heads, mask_add)
-        return attention_bwd_plain(q, k, v, o, do, num_heads)
+        return attention_bwd_plain(q, k, v, o, do, num_heads, lse, mask_add)
     name = cuda_build.library_for("attention_bwd", q.dtype)
     _check_bwd_width(q, num_heads)
     _check_bwd_width(k, num_heads)
     b, lq, d = q.shape
     lk = k.shape[1]
     if q.dtype == torch.float32:
-        return _attention_bwd_f32(name, q, k, v, o, do, num_heads, mask_add)
+        if not bf16_casts and lse is None:
+            raise ValueError("K1b-f32 reads the forward's logsumexp: pass lse from "
+                             "fused_attention(..., with_lse=True)")
+        return _attention_bwd_f32(name, q, k, v, o, do, num_heads, mask_add,
+                                  None if bf16_casts else lse)
     if not bf16_casts and (mask_add is not None or lk != lq):
         raise ValueError("K1b takes unmasked self attention; a key mask or Lk != Lq "
                          "runs only with the decoder blocks' bf16 cast points")
@@ -253,25 +329,36 @@ attention_bwd.launches = 0
 attention_bwd.launches_f32 = 0
 
 
-def _attention_bwd_f32(name, q, k, v, o, do, num_heads: int, mask_add=None):
-    """K1b-f32: crog_attention_f32_bwd (a dQ kernel that also writes each
-    row's statistics, then a dK/dV kernel), all fp32."""
+def _attention_bwd_f32(name, q, k, v, o, do, num_heads: int, mask_add=None, lse=None):
+    """crog_attention_f32_bwd, all fp32: with ``lse`` K1b-f32 (each row's
+    delta = rowsum(do * o) beside the forward's logsumexp), without it the
+    decoder blocks' attention backward (a pre-pass for each row's
+    statistics, delta = rowsum(dP P); ``o`` unused); then the main kernel,
+    one CTA per 64 keys writing a dQ partial each, and their sum in
+    key-block order."""
     b, lq, d = q.shape
     lk = k.shape[1]
-    for t, n in ((q, "q"), (o, "o"), (do, "do")):
+    for t, n in ((q, "q"), (do, "do")) + (((o, "o"),) if lse is not None else ()):
         cuda_build.require(t, n, torch.float32, (b, lq, d))
     for t, n in ((k, "k"), (v, "v")):
         cuda_build.require(t, n, torch.float32, (b, lk, d))
     if mask_add is not None:
         cuda_build.require(mask_add, "mask_add", torch.float32, (b, lk))
+    if lse is not None:
+        cuda_build.require(lse, "lse", torch.float32, (b, num_heads, lq))
+    else:
+        o = q  # not read
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     stats = torch.empty(b * num_heads, 3, lq, dtype=torch.float32, device=q.device)
+    dqpart = torch.empty(-(-lk // 64), b * num_heads, lq, HEAD_DIM, dtype=torch.float32,
+                         device=q.device)
     lib = cuda_build.load(name)
     strides = [s for t in (q, k, v, o, do, dq, dk, dv) for s in (t.stride(0), t.stride(1))]
     rc = lib.crog_attention_f32_bwd(
-        *(t.data_ptr() for t in (q, k, v, o, do)),
-        None if mask_add is None else mask_add.data_ptr(),
-        *(t.data_ptr() for t in (dq, dk, dv, stats)), b, num_heads, lq, lk, *strides,
+        *(t.data_ptr() for t in (q, k, v)), None if lse is None else o.data_ptr(),
+        do.data_ptr(), None if mask_add is None else mask_add.data_ptr(),
+        None if lse is None else lse.data_ptr(),
+        *(t.data_ptr() for t in (dq, dk, dv, stats, dqpart)), b, num_heads, lq, lk, *strides,
         HEAD_DIM**-0.5, cuda_build.stream_ptr(q.device))
     cuda_build.check_launch(lib, rc, "crog_attention_f32_bwd")
     attention_bwd.launches_f32 += 1
@@ -280,20 +367,24 @@ def _attention_bwd_f32(name, q, k, v, o, do, num_heads: int, mask_add=None):
 
 class FusedAttention(torch.autograd.Function):
     """K1 forward, K1b backward (``fused_self_attention``'s custom VJP).
-    The backward recomputes the row statistics from q and k instead of
-    saving the forward's logsumexp."""
+    At fp32 the forward saves each row's logsumexp, which K1b-f32 reads as
+    ``_bwd_kernel`` reads the Pallas forward's; the bf16 backward recomputes
+    the row statistics from q and k."""
 
     @staticmethod
     def forward(ctx, q, k, v, num_heads: int):
-        o = fused_attention(q, k, v, num_heads)
+        if q.dtype == torch.float32:
+            o, lse = fused_attention(q, k, v, num_heads, with_lse=True)
+        else:
+            o, lse = fused_attention(q, k, v, num_heads), None
         ctx.num_heads = num_heads
-        ctx.save_for_backward(q, k, v, o)
+        ctx.save_for_backward(q, k, v, o, lse)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
-        return (*attention_bwd(q, k, v, o, do.contiguous(), ctx.num_heads), None)
+        q, k, v, o, lse = ctx.saved_tensors
+        return (*attention_bwd(q, k, v, o, do.contiguous(), ctx.num_heads, lse=lse), None)
 
 
 def attention_core(

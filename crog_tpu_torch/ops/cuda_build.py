@@ -50,10 +50,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "crog_attention_fwd_attrs": [_I, _P],
     },
     "attention_f32": {
-        "crog_attention_f32_fwd": [_P] * 5 + [_I] * 4 + [_L] * 8 + [_F, _P],
+        "crog_attention_f32_fwd": [_P] * 6 + [_I] * 4 + [_L] * 8 + [_F, _P],
     },
     "attention_bwd_f32": {
-        "crog_attention_f32_bwd": [_P] * 10 + [_I] * 4 + [_L] * 16 + [_F, _P],
+        "crog_attention_f32_bwd": [_P] * 12 + [_I] * 4 + [_L] * 16 + [_F, _P],
     },
     "attention_bwd": {
         "crog_attention_bwd": [_P] * 10 + [_I] * 4 + [_F, _I, _P],

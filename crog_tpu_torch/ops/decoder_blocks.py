@@ -402,8 +402,9 @@ def _self_block_bwd_f32(name, x, saved, dy, nheads, seed, rate):
     dx, dwi, dwo, dvec = f32(b, l, d), f32(3 * d, d), f32(d, d), f32(8, d)
     ws = (f32(m, d), f32(m, d), f32(m, 3 * d), f32(m, d), f32(b * nheads, 3, l),
           f32(splits, 2 * d, d), f32(_ln_bwd_blocks(m), 3, d),
-          f32(_colsum_blocks(m), 3 * d))
-    # dop, do, dqkv, dxl, stats, parts (dW, LayerNorm and bias sums)
+          f32(_colsum_blocks(m), 3 * d), f32(-(-l // 64), b * nheads, l, 64))
+    # dop, do, dqkv, dxl, stats, parts (dW, LayerNorm and bias sums), the
+    # attention step's dQ partials (one per 64 keys)
     dseed, thresh, scale = kernel_args(seed, rate)
     table = cuda_build.ptr_table(x, wi, wo, g_pre, g_post, xl, qin, qk, v, o, op, dy,
                                  dx, dwi, dwo, dvec, *ws)
@@ -537,8 +538,10 @@ def _cross_block_bwd_f32(name, x, saved, dy, nheads, seed, rate):
     dx, dkv, dwi, dwo, dvec = f32(b, l, d), f32(b, t, d), f32(3 * d, d), f32(d, d), f32(8, d)
     ws = (f32(m, d), f32(m, d), f32(m, d), f32(mt, 2 * d), f32(m, d),
           f32(b * nheads, 3, l), f32(splits, d, d), f32(_ln_bwd_blocks(m), 3, d),
-          f32(max(_colsum_blocks(m), 2 * _colsum_blocks(mt)), d))
-    # dop, do, dq, dk|dv, dxl, stats, parts (dW, LayerNorm and bias sums)
+          f32(max(_colsum_blocks(m), 2 * _colsum_blocks(mt)), d),
+          f32(-(-t // 64), b * nheads, l, 64))
+    # dop, do, dq, dk|dv, dxl, stats, parts (dW, LayerNorm and bias sums), the
+    # attention step's dQ partials (one per 64 keys)
     dseed, thresh, scale = kernel_args(seed, rate)
     table = cuda_build.ptr_table(x, kv, mask, wi, wo, g_pre, g_post, qin, q, o, kin, k, v,
                                  op, dy, dx, dkv, dwi, dwo, dvec, *ws)

@@ -873,31 +873,51 @@ def _close_rel(got, ref, names, rel=F32_BWD_REL):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["k1b", "blocks"])
 @pytest.mark.parametrize("b,lq,lk,heads,masked", [
     (24, 169, 169, 32, False),  # K1b's shape (the attention pool)
     (2, 676, 676, 8, False), (2, 676, 17, 8, True),  # K2b's and K3b's steps
     (2, 70, 300, 4, True), (1, 768, 768, 2, False), (3, 1, 5, 2, True),
-    (2, 65, 17, 8, "all")])
-def test_cuda_attention_bwd_f32_matches_twin(exact_f32, b, lq, lk, heads, masked):
-    """K1b-f32 against its fp32 twin (mha_bwd_plain, which at fp32 is
-    attention_bwd_plain with a key mask and Lk != Lq), on o from K1-f32;
-    "all" masks every key of sample 0; a second call gives the same bits."""
+    (2, 65, 17, 8, "all"),
+    # either side of the 64-key blocks and 32-query tiles, Lq != Lk both ways
+    (2, 63, 63, 2, False), (2, 64, 64, 2, True), (2, 65, 65, 2, False),
+    (2, 129, 129, 2, True), (2, 100, 768, 2, True), (2, 768, 129, 2, False),
+    (2, 33, 64, 2, False), (2, 64, 65, 2, True), (2, 97, 63, 2, "peak")])
+def test_cuda_attention_bwd_f32_matches_twin(exact_f32, mode, b, lq, lk, heads, masked):
+    """The fp32 attention backward against its fp32 twin, on o from K1-f32:
+    "k1b", K1b-f32 on K1-f32's logsumexp (twin attention_bwd_plain with the
+    same logsumexp; K1-f32's logsumexp itself within F32_REL of its twin's);
+    "blocks", the decoder blocks' step with its pre-pass (twin
+    mha_bwd_plain).  "all" masks every key of sample 0; "peak" makes key 5
+    of sample 0 take all the weight of query 0 (its score 8 |q_0|^2 / 8
+    above the others' ~1).  A second call gives the same bits."""
     d = heads * 64
     q, do = _f32(1, b, lq, d), _f32(4, b, lq, d)
     k, v = _f32(2, b, lk, d), _f32(3, b, lk, d)
     mask = None
-    if masked:
+    if masked == "peak":
+        k[0, 5] = 8 * q[0, 0]
+    elif masked:
         keep = torch.tensor([[0 if masked == "all" else lk // 2]] + [[lk]] * (b - 1))
         mask = torch.where(torch.arange(lk)[None] >= keep, -1e30, 0.0).to(exact_f32)
-    o = A.fused_attention(q, k, v, heads, mask)
+    o, lse = A.fused_attention(q, k, v, heads, mask, with_lse=True)
     before = A.attention_bwd.launches_f32
-    got = A.attention_bwd(q, k, v, o, do, heads, mask_add=mask)
-    again = A.attention_bwd(q, k, v, o, do, heads, mask_add=mask)
-    ref = A.mha_bwd_plain(q, k, v, do, heads, mask)
+    if mode == "k1b":
+        _, ref_lse = A.attention_plain(q, k, v, heads, mask, with_lse=True)
+        assert _rel_l2(lse, ref_lse) <= F32_REL
+        call = lambda: A.attention_bwd(q, k, v, o, do, heads, mask_add=mask, lse=lse)
+        ref = A.attention_bwd_plain(q, k, v, o, do, heads, lse, mask)
+    else:
+        call = lambda: A.attention_bwd(q, k, v, o, do, heads, bf16_casts=True, mask_add=mask)
+        ref = A.mha_bwd_plain(q, k, v, do, heads, mask)
+    got, again = call(), call()
     torch.cuda.synchronize()
     assert A.attention_bwd.launches_f32 == before + 2
     _close_rel(got, ref, ("dq", "dk", "dv"))
     assert all(torch.equal(x, y) for x, y in zip(got, again))
+    if mode == "k1b":
+        with pytest.raises(ValueError, match="logsumexp"):
+            A.attention_bwd(q, k, v, o, do, heads, mask_add=mask)
 
 
 @pytest.mark.cuda
