@@ -101,10 +101,12 @@ any failure propagates and the exit code is not 0:
      with one of its products formed by one TF32 pass or from bf16-staged
      operands must read above its limit against the sound twin; each timed
      beside its twin, SDPA (K1) or its backward (K1b), F.linear at the
-     projections' and the FFN's shapes, SDPA's backward at K2b's and K3b's
-     attention shapes and torch.mm at those of K2b's, K3b's and K4b's
-     products, all fp32; K6-f32 at the stem's conv2 and conv3 forward and
-     both dgrads and K6b-f32 at conv2 and conv3 (batch 24, 104x104 cells,
+     projections' shapes, SDPA's backward at K2b's and K3b's attention
+     shapes and torch.mm at those of K2b's and K3b's products, all fp32;
+     each product of K4-f32 and K4b-f32 (dW1 and dW2 included) by device
+     time beside fp32 cuBLAS at its shape; K6-f32 at the stem's conv2 and
+     conv3 forward and both dgrads and K6b-f32 at conv2 and conv3 (batch
+     24, 104x104 cells,
      full fp32 values) within F32_REL_L2 and F32_BWD_REL_L2 of their twins,
      twice with equal bits, their twin controls above the limits, each
      timed beside its twin, cuDNN's fp32 conv of the blocked tensor (K6b:
@@ -594,7 +596,7 @@ def backward_cases(inp):
     cases["ffn_bwd"] = (
         lambda: FF.ffn_bwd(xf, w1, b1, g, be, w2, dyf, SEED + 3, RATE),
         lambda: FF.ffn_bwd_plain(xf, w1, b1, g, be, w2, dyf, SEED + 3, RATE),
-        # recompute, dhn, dx in the kernel; dW1, dW2 outside it
+        # recompute, dhn, dx, dW1, dW2 (K4b forms dW1 and dW2 as library GEMMs)
         None, work.ffn_bwd_flops(mm, dd, ff),
         nbytes(xf, dyf, w1, w2, b1, g, be) + nbytes(xf) + 2 * dd * ff * 4
         + (3 * ff + dd) * 4,
@@ -723,24 +725,49 @@ F32_BLOCK_SPLIT = ((("ln_pos", ("ln_pos",)),
                     ("attention step", ("attn_f32",)),
                     ("ln_residual", ("ln_residual",))),
                    "the rest (key mask)")
-F32_FFN_SPLIT = ((("hidden and output GEMMs (gemm_f32)", ("gemm_f32",)),
-                  ("LayerNorm over 2048", ("ln_rows",))),
-                 "the rest")
 F32_BLOCK_BWD_SPLIT = ((("LayerNorm backward", ("ln_p",)),
                         ("attention step (dq and dkv kernels)", ("attn_bwd_f32",)),
                         ("dO, dX and dW products (gemm_kn_f32)", ("gemm_kn",)),
                         ("fixed-order sums", ("reduce_parts", "colsum"))),
                        "the rest")
-F32_FFN_BWD_SPLIT = ((("recompute (gemm_f32)", ("gemm_f32_kernel",)),
-                      ("dhn and dx (gemm_kn_f32)", ("gemm_kn",)),
-                      ("LayerNorm backward", ("ffn_ln_bwd",)),
-                      ("fixed-order sums", ("reduce_parts", "colsum")),
-                      ("dW1 and dW2 (library GEMMs)", ("sgemm", "xmma", "nvjet", "cutlass"))),
-                     "the rest")
 FFN_BWD_SPLIT = ((("K4b's kernels", ("ffn_bwd", "ffn_out")),
                   ("reduce_rows", ("reduce_rows",)),
                   ("dW1 and dW2 (library GEMMs)", ("gemm", "nvjet", "cutlass"))),
                  "weight casts and transposes")
+
+
+def f32_ffn_parts(products):
+    """The split of K4-f32's or K4b-f32's kernels in launch order ->
+    [(part, device ms)]: the n-th GEMM launch (gemm_wgmma_f32.cuh's kernel,
+    or a library GEMM in an older tree) is the n-th of ``products``; then
+    the splits of the products' B into TF32 planes, the LayerNorm kernels,
+    the fixed-order sums and the rest."""
+    def split(seq):
+        parts, n = {}, 0
+        for name, t in seq:
+            if any(k in name for k in ("gemm", "nvjet", "cutlass", "xmma")):
+                part = products[n] if n < len(products) else "other GEMMs"
+                n += 1
+            elif "split_b" in name:
+                part = "B's TF32 planes"
+            elif "ln_" in name:
+                part = "LayerNorm"
+            elif "reduce_parts" in name or "colsum" in name:
+                part = "fixed-order sums"
+            else:
+                part = "the rest"
+            parts[part] = parts.get(part, 0.0) + t
+        return list(parts.items())
+
+    return split
+
+
+# K4-f32's and K4b-f32's products (csrc/ffn_f32.cu, ffn_bwd_f32.cu), in
+# launch order, each on gemm_wgmma_f32.cuh's kernel
+F32_FFN_PRODUCTS = {"K4-f32": ("hidden", "y"),
+                    "K4b-f32": ("recompute", "dhn", "dx", "dW1", "dW2")}
+F32_FFN_SPLIT = f32_ffn_parts(F32_FFN_PRODUCTS["K4-f32"])
+F32_FFN_BWD_SPLIT = f32_ffn_parts(F32_FFN_PRODUCTS["K4b-f32"])
 
 
 def block_bwd_parts(seq):
@@ -927,14 +954,13 @@ def gemm_yardsticks(device, b=BATCH, l=676, t=17, d=512, f=2048):
     linear_yardsticks(device, b, l, t, d)
 
 
-def linear_yardsticks(device, b=BATCH, l=676, t=17, d=512, dtype=None, f=None):
+def linear_yardsticks(device, b=BATCH, l=676, t=17, d=512, dtype=None):
     """F.linear(x, W, b), bf16 in and out with the bias (or ``dtype``), at
     the shapes of K2's and K3's projections, timed as a yardstick only (the
     port computes them in its own kernels, as the TPU kernel computes them
     in its body): K2's q, k and v as one [B*L, D] -> 3D product; K3's q and
     the out-projection [B*L, D] -> D; K3's k and v over B*T text rows,
-    [B*T, D] -> D; with ``f`` also K4's two products, [B*L, D] -> F and
-    [B*L, F] -> D."""
+    [B*T, D] -> D.  K4-f32's are ``f32_ffn_products``'."""
     import torch
     import torch.nn.functional as F
 
@@ -948,9 +974,6 @@ def linear_yardsticks(device, b=BATCH, l=676, t=17, d=512, dtype=None, f=None):
         (f"[{m}, {d}] -> {d} (K3's q, the out-projection)", m, d, d),
         (f"[{mt}, {d}] -> {d} (K3's k, v)", mt, d, d),
     ]
-    if f is not None:
-        cases += [(f"[{m}, {d}] -> {f} (K4's hidden product)", m, d, f),
-                  (f"[{m}, {f}] -> {d} (K4's output product)", m, f, d)]
     for label, rows, k, n in cases:
         x, w, bias = rnd(rows, k), rnd(n, k), rnd(n)
         call = lambda x=x, w=w, bias=bias: F.linear(x, w, bias)
@@ -2115,15 +2138,13 @@ F32_BWD_PRODUCTS = {"attention_bwd_f32": {"QK^T": (0,), "dV": (1,), "dP": (2,), 
                                           "dK": (4,)},
                     "decoder_self_block_bwd_f32": _BLOCK_BWD_PRODUCTS,
                     "decoder_cross_block_bwd_f32": _BLOCK_BWD_PRODUCTS,
-                    "ffn_bwd_f32": {"recompute": (0,), "dhn": (1,), "dx": (2,)}}
+                    "ffn_bwd_f32": {"recompute": (0,), "dhn": (1,), "dx": (2,), "dW1": (3,),
+                                    "dW2": (4,)}}
 # K6-f32's and K6b-f32's one product each in their twins' torch.matmul
 # calls (conv_padded_plain, wgrad_plain): held to F32_REL_L2 and
 # F32_BWD_REL_L2 as the other forward and backward kernels are
 F32_S2D_PRODUCTS = {"s2dconv_f32": {"patch product": (0,)},
                     "s2dconv_wgrad_f32": {"patch^T dy": (0,)}}
-# torch.matmul calls of a twin where it makes more than its products name:
-# the FFN twin's last two are dW1 and dW2, library products in the port too
-F32_MATMULS = {"ffn_bwd_f32": 5}
 # K4b-f32 against its twin: the ReLU's decision h > 0 is discontinuous, and
 # a pre-activation within rounding of 0 may take one sign in the kernel's
 # recompute (3xTF32, the forward's own sums) and the other in the twin's
@@ -2201,9 +2222,11 @@ F32_RECT_SHARE = 0.95
 # q and k projections); the card repeats itself to 3e-7.  Each group's
 # limit lies between its sound reading and the step with the library's
 # TF32 on (cuBLAS and cuDNN); the decoder's, whose gradients K2b-K4b-f32
-# compute, also below every backward kernel product planted bf16-staged
-# and K4b-f32's recompute planted as one TF32 pass (tools/torch_fp32_faults.py;
-# PERF.md has the readings).
+# compute, also below K2b-f32's dO, dX and dW and K4b-f32's recompute, dhn
+# and dx planted bf16-staged and K4b-f32's recompute planted as one TF32
+# pass.  The attention products and K4b-f32's dW1 and dW2 planted move no
+# group over its limit: phase 18 (a) alone holds them
+# (tools/torch_fp32_faults.py; PERF.md has the readings).
 F32_TRAIN_LOSS_TOL = 3e-5
 F32_TRAIN_GRAD_TOL = {"vision": 3e-3, "text": 1e-3, "neck": 1.5e-3, "decoder": 2.5e-4,
                       "projector": 2e-4}
@@ -2231,7 +2254,7 @@ def fp32_twin_controls(twins, refs, products=None):
     out = {}
     for name, by_product in (F32_PRODUCTS if products is None else products).items():
         out[name] = {}
-        calls_made = F32_MATMULS.get(name, 1 + max(max(c) for c in by_product.values()))
+        calls_made = 1 + max(max(c) for c in by_product.values())
         for product, calls in by_product.items():
             out[name][product] = {}
             for fault, rnd in F32_FAULTS.items():
@@ -2310,7 +2333,7 @@ def fp32_kernels(device, timed: bool = True):
         check_controls(fp32_twin_controls({n + "_f32": c[1] for n, c in cases.items()},
                                           refs), F32_REL_L2)
         if timed:
-            linear_yardsticks(device, dtype=torch.float32, f=2048)
+            linear_yardsticks(device, dtype=torch.float32)
         records.update(fp32_backward_kernels(inp, timed))
         del inp
         records.update(fp32_s2dconv(device, timed))
@@ -2432,8 +2455,10 @@ def fp32_backward_kernels(inp, timed: bool = True):
                                       F32_BWD_PRODUCTS), F32_BWD_REL_L2)
     if timed:
         dev = inp["ffn"]["x"].device
-        f32_attention_bwd_steps(dev, smi_line())
+        smi = smi_line()
+        f32_attention_bwd_steps(dev, smi)
         f32_grad_yardsticks(dev)
+        f32_ffn_products(inp, smi)
     return records
 
 
@@ -2501,6 +2526,61 @@ def f32_attention_bwd_steps(device, smi: str, b=BATCH, l=676, t=17, heads=8):
         del out, leaves
 
 
+def f32_ffn_products(inp, smi: str):
+    """Phase 18 (a): each product of K4-f32 and K4b-f32 at the main path's
+    shapes (dropout RATE) by the profiler's device time, split in launch
+    order (``f32_ffn_parts``), with its rate and bound, beside fp32 cuBLAS
+    (TF32 off) at its shape: F.linear with the bias for the hidden, its
+    recompute and y, torch.mm for dhn, dx, dW1 and dW2; every line names
+    the card.  Returns {(kernel, product): (device ms, cuBLAS device ms)}
+    and {(kernel, "device"): (the call's device ms, None)}, None where the
+    profiler saw no device time."""
+    import torch
+    import torch.nn.functional as F
+
+    from crog_tpu_torch.ops import ffn as FF
+
+    x, w1, b1, g, be, w2, b2 = _args(inp)[2]
+    dy = inp["dy"]["ffn"]
+    m, d = x.shape
+    f = w1.shape[0]
+    gen = torch.Generator().manual_seed(SEED + 15)
+    hid = torch.randn(m, f, generator=gen).to(x.device)  # an operand of the hidden's shape
+    calls = {"K4-f32": lambda: FF.ffn_fwd(x, w1, b1, g, be, w2, b2, SEED + 3, RATE),
+             "K4b-f32": lambda: FF.ffn_bwd(x, w1, b1, g, be, w2, dy, SEED + 3, RATE)}
+    shapes = {"hidden": f"[{m}, {d}] x [{f}, {d}]^T", "y": f"[{m}, {f}] x [{d}, {f}]^T",
+              "dhn": f"[{m}, {d}] x [{d}, {f}]", "dx": f"[{m}, {f}] x [{f}, {d}]",
+              "dW1": f"[{m}, {f}]^T x [{m}, {d}]", "dW2": f"[{m}, {d}]^T x [{m}, {f}]"}
+    shapes["recompute"] = shapes["hidden"]
+    cublas = {"hidden": ("F.linear", lambda: F.linear(x, w1, b1)),
+              "y": ("F.linear", lambda: F.linear(hid, w2, b2)),
+              "dhn": ("torch.mm", lambda: torch.mm(dy, w2)),
+              "dx": ("torch.mm", lambda: torch.mm(hid, w1)),
+              "dW1": ("torch.mm", lambda: torch.mm(hid.t(), x)),
+              "dW2": ("torch.mm", lambda: torch.mm(dy.t(), hid))}
+    lib_ms = {p: device_ms(call)[0] for p, (_, call) in cublas.items()}
+    lib_ms["recompute"] = lib_ms["hidden"]
+    cublas["recompute"] = cublas["hidden"]
+    flops = 2.0 * m * d * f
+    bms, by = bound(flops, 0, PEAK_F32_TC_FLOPS)
+    shown = lambda t: "not measured" if t is None else f"{t:.4f} ms"  # noqa: E731
+    out = {}
+    for kid, call in calls.items():
+        dev, _, seq = device_ms(call)
+        out[kid, "device"] = (dev, None)
+        parts = dict(f32_ffn_parts(F32_FFN_PRODUCTS[kid])(seq)) if seq is not None else {}
+        print(f"[fp32] {kid} at M={m}: device time {shown(dev)} (" + ", ".join(
+            f"{p} {t:.4f}" for p, t in parts.items()) + f"); {smi}", flush=True)
+        for p in F32_FFN_PRODUCTS[kid]:
+            ms, lib = parts.get(p), lib_ms[p]
+            rate = "" if ms is None else f", {flops / ms / 1e9:.1f} TFLOP/s"
+            ratio = "" if ms is None or lib is None else f", {ms / lib:.3f}x"
+            print(f"[fp32] {kid} {p} {shapes[p]}: {shown(ms)}{rate} (bound {bms:.4f} ms by "
+                  f"{by}); fp32 cuBLAS {cublas[p][0]} {shown(lib)}{ratio}; {smi}", flush=True)
+            out[kid, p] = (ms, lib)
+    return out
+
+
 def f32_bwd_rate_checks(inp):
     """K2b-f32, K3b-f32 and K4b-f32 at dropout 0 against their twins, and
     at dropout 0 and RATE twice each: every output, and K4b-f32's dh and
@@ -2549,14 +2629,14 @@ def f32_bwd_rate_checks(inp):
         del ssaved, csaved
 
 
-def f32_grad_yardsticks(device, b=BATCH, l=676, t=17, d=512, f=2048):
+def f32_grad_yardsticks(device, b=BATCH, l=676, t=17, d=512):
     """Timed as yardsticks only (the port computes these in its own
-    kernels, but K4b-f32's dW1 and dW2): fp32 torch.mm, TF32 off, at the
-    shapes of the products of K2b-f32 (dO and each dX [B*L, D] x [D, D], the
-    three dX as one [B*L, 3D] x [3D, D], each dW over B*L rows), K3b-f32 (dW
-    over B*T rows) and K4b-f32 (dhn [B*L, D] x [D, F], dx [B*L, F] x [F, D],
-    dW1 and dW2 over B*L rows).  SDPA's fp32 backward at the attention
-    steps' shapes is timed beside them (``f32_attention_bwd_steps``)."""
+    kernels): fp32 torch.mm, TF32 off, at the shapes of the products of
+    K2b-f32 (dO and each dX [B*L, D] x [D, D], the three dX as one [B*L, 3D]
+    x [3D, D], each dW over B*L rows) and K3b-f32 (dW over B*T rows).  SDPA's
+    fp32 backward at the attention steps' shapes is timed beside them
+    (``f32_attention_bwd_steps``), cuBLAS at K4-f32's and K4b-f32's
+    products in ``f32_ffn_products``."""
     import torch
 
     g = torch.Generator().manual_seed(SEED + 12)
@@ -2569,10 +2649,6 @@ def f32_grad_yardsticks(device, b=BATCH, l=676, t=17, d=512, f=2048):
         (f"A^T B over {m} rows, [{d}, {d}] (each dW)", rnd(m, d), rnd(m, d), True),
         (f"A^T B over {mt} rows, [{d}, {d}] (K3b's dW of k and v)", rnd(mt, d), rnd(mt, d),
          True),
-        (f"[{m}, {d}] x [{d}, {f}] (K4b's dhn)", rnd(m, d), rnd(d, f), False),
-        (f"[{m}, {f}] x [{f}, {d}] (K4b's dx)", rnd(m, f), rnd(f, d), False),
-        (f"A^T B over {m} rows, [{f}, {d}] (K4b's dW1, the port's own call)", rnd(m, f),
-         rnd(m, d), True),
     )
     for label, a, w, trans in cases:
         call = ((lambda a=a, w=w: torch.mm(a.t(), w)) if trans
@@ -4492,8 +4568,9 @@ def redesigned_resources(reports):
     K4's and K4b's cluster kernels and their y / dx GEMM, K2b's and K3b's
     dX and dW GEMMs, K1b's one-CTA-per-head kernel, the two-kernel
     attention backward that K2b and K3b run, K6's persistent conv, K6b's
-    cluster kernel, K6-f32's and K6b-f32's gathered GEMMs, K5's and K5b's
-    region kernels), and at the main path's
+    cluster kernel, K6-f32's and K6b-f32's gathered GEMMs, K4-f32's and
+    K4b-f32's wgmma GEMM, K5's and K5b's region kernels), and at the main
+    path's
     shapes their registers, shared memory per CTA (static + dynamic) and
     spills as the runtime loads them (the attention forward, the GEMMs and
     K5/K5b also their CTAs per SM, the cluster kernels the clusters of
@@ -4513,6 +4590,7 @@ def redesigned_resources(reports):
                                          "attn_bwd_cols_kernel")),
                       ("s2dconv", ("s2dconv_fwd_kernel", "s2dconv_wgrad_kernel")),
                       ("s2dconv_f32", ("s2dconv_f32_fwd_kernel", "s2dconv_f32_wgrad_kernel")),
+                      ("ffn_f32", ("gemm_wgmma_f32",)), ("ffn_bwd_f32", ("gemm_wgmma_f32",)),
                       ("lincomb", ("lincomb_region",))):
         for entry, regs, spill in ptxas_entries(reports[lib]):
             if any(k in entry for k in keys):

@@ -98,8 +98,8 @@ static int row_blocks(int rows) { return (rows + kLnF32Warps - 1) / kLnF32Warps;
 template <int PRODUCT>
 static cudaError_t gemm(const float* a, const float* w, const float* bias, float* c, int m, int n,
                         long long ldc, cudaStream_t s) {
-  GemmF32 p{a, w, bias, c, kBlkD, kBlkD, ldc, m, n, kBlkD, Dropout{0u, 0u, 1.0f}};
-  return launch_gemm_f32<kEpiBias, PRODUCT>(p, s);
+  GemmF32 p{a, w, bias, c, kBlkD, kBlkD, ldc, m, n, kBlkD};
+  return launch_gemm_f32<PRODUCT>(p, s);
 }
 
 }  // namespace crog

@@ -11,26 +11,29 @@
 // D 512, F 2048: 68 GFLOP, about 0.41 ms at 3xTF32's third of TF32's 495
 // TFLOP/s; x and y are 66 MB (20 us), so operations bound it.
 //
-// Design: right and simple first, three launches.  The bf16 kernel keeps a
-// 128 x 2048 row block of the hidden in the shared memory of an 8-CTA
-// cluster; in f32 that block is twice the size.  Here the hidden h [M, F]
-// goes through device memory (133 MB at the main path: about 80 us of
-// traffic each way against the products' 0.41 ms):
-//   1. h = drop(relu(x W1^T + b1))   gemm_f32.cuh, ReLU and dropout in its
-//                                   epilogue (dropout over (row, hidden
-//                                   column), ops/dropout.py's mask)
+// Design: both products on gemm_wgmma_f32.cuh (wgmma .tf32, A split in
+// registers, W1 and W2 split once per call into TF32 hi and lo planes that
+// TMA brings into shared memory).  The bf16 kernel keeps a 128 x 2048 row
+// block of the hidden in the shared memory of an 8-CTA cluster; in f32
+// that block is twice the size, so here the hidden h [M, F] goes through
+// device memory (133 MB at the main path: about 80 us of traffic each way):
+//   1. h = drop(relu(x W1^T + b1))   ffn_hidden_f32: ReLU and dropout in
+//                                   the epilogue (dropout over (row, hidden
+//                                   column), ops/dropout.py's mask); K4b-f32
+//                                   recomputes h with the same kernels
 //   2. h = LN(h) * gamma + beta      ln_f32.cuh, in place, one warp a row
-//   3. y = h W2^T + b2               gemm_f32.cuh
-// W1 [F, D] and W2 [D, F] are read as torch stores them.
-#include "gemm_f32.cuh"
+//   3. y = h W2^T + b2               gw_weight_gemm, bias in the epilogue
+// W1 [F, D] and W2 [D, F] are read as torch stores them (K-major B).
+#include "gemm_wgmma_f32.cuh"
 #include "ln_f32.cuh"
 
 // table: x [M, D], w1 [F, D], b1 [F], gamma [F], beta [F], w2 [D, F],
-// b2 [D], y [M, D], h [M, F] (work).
+// b2 [D], y [M, D], h [M, F] (work; hn when the call returns), planes [4 F
+// D] (work: W1's and W2's TF32 hi and lo planes).
 extern "C" int crog_ffn_f32_fwd(const void* const* table, int m, int d, int f,
                                 unsigned seed, unsigned thresh, float scale, void* stream) {
   using namespace crog;
-  if (f != 2048 || d < kGF32K || m < 1) return (int)cudaErrorInvalidValue;
+  if (f != 2048 || d < kGwN || d % kGwN || m < 1) return (int)cudaErrorInvalidValue;
   const float* x = static_cast<const float*>(table[0]);
   const float* w1 = static_cast<const float*>(table[1]);
   const float* b1 = static_cast<const float*>(table[2]);
@@ -40,13 +43,15 @@ extern "C" int crog_ffn_f32_fwd(const void* const* table, int m, int d, int f,
   const float* b2 = static_cast<const float*>(table[6]);
   float* y = static_cast<float*>(const_cast<void*>(table[7]));
   float* h = static_cast<float*>(const_cast<void*>(table[8]));
+  float* planes = static_cast<float*>(const_cast<void*>(table[9]));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long fd = (long long)f * d;
 
-  GemmF32 g1{x, w1, b1, h, d, d, f, m, f, d, Dropout{seed, thresh, scale}};
-  cudaError_t err = launch_gemm_f32<kEpiReluDropout, kProdHidden>(g1, s);
+  cudaError_t err = ffn_hidden_f32<kProdHidden>(x, w1, b1, h, planes, m, d, f,
+                                                Dropout{seed, thresh, scale}, s);
   if (err != cudaSuccess) return (int)err;
   err = launch_ln_rows_f32<2048>(h, gamma, beta, m, s);
   if (err != cudaSuccess) return (int)err;
-  GemmF32 g2{h, w2, b2, y, f, f, d, m, d, f, Dropout{0u, 0u, 1.0f}};
-  return (int)launch_gemm_f32<kEpiBias, kProdY>(g2, s);
+  return (int)gw_weight_gemm<false, kGwBias, kProdY>(h, f, w2, planes + 2 * fd, y, d, b2, m, d,
+                                                     f, Dropout{0u, 0u, 1.0f}, s);
 }

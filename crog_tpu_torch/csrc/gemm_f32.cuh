@@ -1,19 +1,16 @@
-// The fp32 forward kernels' products: C[M, N] = A[M, K] B[N, K]^T + bias[N]
-// with f32 accuracy, B as torch stores a Linear weight ([out, in], so W1,
-// W2 and the in/out projection weights are read as they are, never
-// transposed), and an epilogue that adds the bias and, for the FFN's
-// hidden, applies ReLU and the counter-based dropout (common.cuh) in f32.
-// Shared by K2-f32 / K3-f32 (decoder_blocks_f32.cu: the q/k/v projections
-// and the out-projection) and K4-f32 (ffn_f32.cu: both of the FFN's
-// products).
+// The fp32 decoder blocks' products: C[M, N] = A[M, K] B[N, K]^T + bias[N]
+// with f32 accuracy, B as torch stores a Linear weight ([out, in], so the
+// in/out projection weights are read as they are, never transposed), and
+// an epilogue that adds the bias in f32.  K2-f32 / K3-f32
+// (decoder_blocks_f32.cu: the q/k/v projections and the out-projection).
+// The fp32 FFN runs on gemm_wgmma_f32.cuh.
 //
-// Bound on an H100: operations, at 3xTF32's third of TF32's 495 TFLOP/s
-// (the FFN's two products at B=24: 68 GFLOP, about 0.41 ms).
+// Bound on an H100: operations, at 3xTF32's third of TF32's 495 TFLOP/s.
 //
 // Design: right and simple first.  wgmma takes TF32 only K-major, which
 // both operands are here (rows of A and of the torch-layout B), but the
 // 3xTF32 split needs a hi and a lo copy of each operand, staged twice in
-// shared memory; that is later work.  So
+// shared memory (gemm_wgmma_f32.cuh does that for the FFN).  So
 // each CTA (8 warps) computes a 128 x 128 tile with mma.sync m16n8k8 TF32,
 // three products per step (tf32.cuh), over 32-deep K slices that a
 // two-stage cp.async ring brings into shared memory (rows padded to 36
@@ -39,8 +36,6 @@ constexpr int kGF32Ld = kGF32K + 4;
 constexpr int kGF32Threads = 256;
 constexpr int kGF32Stage = 2 * kGF32M * kGF32Ld;  // floats of one stage (A and B tiles)
 
-enum GemmF32Epilogue : int { kEpiBias = 0, kEpiReluDropout = 1 };
-
 struct GemmF32 {
   const float* a;  // [M, K], row stride lda
   const float* b;  // [N, K], row stride ldb
@@ -48,12 +43,11 @@ struct GemmF32 {
   float* c;  // [M, N], row stride ldc
   long long lda, ldb, ldc;
   int m, n, k;
-  Dropout drop;  // kEpiReluDropout: over (row, column) of C
 };
 
 inline size_t gemm_f32_smem_bytes() { return 2u * kGF32Stage * sizeof(float); }
 
-template <int P, int EPI>
+template <int P>
 __global__ void __launch_bounds__(kGF32Threads) gemm_f32_kernel(const GemmF32 p) {
   extern __shared__ __align__(16) float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -143,38 +137,30 @@ __global__ void __launch_bounds__(kGF32Threads) gemm_f32_kernel(const GemmF32 p)
       for (int hr = 0; hr < 2; ++hr) {
         const int row = m0 + wm + 16 * i + g + 8 * hr;
         if (row >= p.m) continue;
-        float x0 = acc[i][j][2 * hr] + b0, x1 = acc[i][j][2 * hr + 1] + b1;
-        if (EPI == kEpiReluDropout) {
-          x0 = fmaxf(x0, 0.0f);
-          x1 = fmaxf(x1, 0.0f);
-          if (p.drop.thresh != 0u) {  // x * keep / (1 - rate) in f32, as the twin
-            x0 = dropout_keep(p.drop, row, col) ? x0 * p.drop.scale : 0.0f;
-            x1 = dropout_keep(p.drop, row, col + 1) ? x1 * p.drop.scale : 0.0f;
-          }
-        }
+        const float x0 = acc[i][j][2 * hr] + b0, x1 = acc[i][j][2 * hr + 1] + b1;
         *reinterpret_cast<float2*>(p.c + (long long)row * p.ldc + col) = make_float2(x0, x1);
       }
   }
 }
 
-template <int P, int EPI>
+template <int P>
 static cudaError_t launch_gemm_f32_p(const GemmF32& p, cudaStream_t stream) {
   static const cudaError_t attr =
-      cudaFuncSetAttribute(gemm_f32_kernel<P, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      cudaFuncSetAttribute(gemm_f32_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)gemm_f32_smem_bytes());
   if (attr != cudaSuccess) return attr;
   const dim3 grid((p.n + kGF32N - 1) / kGF32N, (p.m + kGF32M - 1) / kGF32M);
-  gemm_f32_kernel<P, EPI><<<grid, kGF32Threads, gemm_f32_smem_bytes(), stream>>>(p);
+  gemm_f32_kernel<P><<<grid, kGF32Threads, gemm_f32_smem_bytes(), stream>>>(p);
   return cudaGetLastError();
 }
 
 // PRODUCT: which F32Product this is (tf32.cuh products_of)
-template <int EPI, int PRODUCT>
+template <int PRODUCT>
 static cudaError_t launch_gemm_f32(const GemmF32& p, cudaStream_t stream) {
   if (p.m < 1 || p.n < 2 || p.n % 2 || p.k < kGF32K || p.k % kGF32K || (p.lda | p.ldb) & 3 ||
       p.ldc & 1)
     return cudaErrorInvalidValue;
-  return launch_gemm_f32_p<products_of(PRODUCT), EPI>(p, stream);
+  return launch_gemm_f32_p<products_of(PRODUCT)>(p, stream);
 }
 
 }  // namespace crog

@@ -450,26 +450,6 @@ __global__ void __launch_bounds__(kWThreads, 1) s2dconv_wgrad_kernel(
           make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
 }
 
-typedef CUresult (*TensorMapEncodeFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                      const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                      const cuuint32_t*, CUtensorMapInterleave,
-                                      CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                      CUtensorMapFloatOOBfill);
-
-// the driver's cuTensorMapEncodeTiled, looked up once (no link to libcuda)
-inline TensorMapEncodeFn tensor_map_encode() {
-  static const TensorMapEncodeFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
-            cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      return (TensorMapEncodeFn) nullptr;
-    return reinterpret_cast<TensorMapEncodeFn>(p);
-  }();
-  return fn;
-}
-
 // a [B, H, W, C] bf16 tensor read in boxes of 64 channels x bw cells x bh
 // rows, 128-byte swizzled, zeros outside the tensor
 inline bool nhwc_box_map(CUtensorMap* map, const bf16* ptr, int B, int H, int W, int C, int bw,

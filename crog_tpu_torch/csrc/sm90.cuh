@@ -238,6 +238,26 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+typedef CUresult (*TensorMapEncodeFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                      const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                      const cuuint32_t*, CUtensorMapInterleave,
+                                      CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                      CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, looked up once (no link to libcuda)
+inline TensorMapEncodeFn tensor_map_encode() {
+  static const TensorMapEncodeFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+            cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      return (TensorMapEncodeFn) nullptr;
+    return reinterpret_cast<TensorMapEncodeFn>(p);
+  }();
+  return fn;
+}
+
 // ------------------------------------------------------------------ wgmma
 // A shared-memory matrix descriptor: a 128-byte swizzled operand at
 // `addr` (1024-byte aligned where its swizzle pattern starts), `lbo` bytes

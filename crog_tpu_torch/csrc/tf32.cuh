@@ -1,7 +1,8 @@
-// f32 products on the tensor cores: mma.sync m16n8k8 TF32 with the 3xTF32
-// split, shared by K5/K5b (lincomb.cu), the fp32 forward kernels
+// f32 products on the tensor cores: TF32 with the 3xTF32 split, on
+// mma.sync m16n8k8 in K5/K5b (lincomb.cu), the fp32 forward kernels
 // (attention_f32.cuh, gemm_f32.cuh) and the fp32 backward kernels
-// (attention_bwd_f32.cuh, grad_f32.cuh, s2dconv_f32.cu).
+// (grad_f32.cuh, s2dconv_f32.cu), and on wgmma in the fp32 attention
+// backward (attention_bwd_f32.cuh) and the fp32 FFN (gemm_wgmma_f32.cuh).
 //
 // A TF32 value keeps 10 explicit mantissa bits.  x = hi + lo with hi =
 // cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi) keeps about 21 of f32's 23;
@@ -67,7 +68,7 @@ enum F32Product : int {
   kProdScores = 1,  // K1/K2/K3-f32: QK^T
   kProdPV = 2,      // K1/K2/K3-f32: P.V
   kProdOut = 3,     // K2/K3-f32: the out-projection
-  kProdHidden = 4,  // K4-f32: x W1^T
+  kProdHidden = 4,  // K4-f32: x W1^T (gemm_wgmma_f32.cuh, as K4b-f32's)
   kProdY = 5,       // K4-f32: hn W2^T
   kProdBwdScores = 6,  // K1b/K2b/K3b-f32: QK^T again
   kProdDV = 7,         // K1b/K2b/K3b-f32: dV = P^T dO
@@ -82,6 +83,8 @@ enum F32Product : int {
   kProdDx = 16,        // K4b-f32: dx = dh W1
   kProdS2dConv = 17,   // K6-f32: the gathered patch times the packed weight
   kProdS2dWgrad = 18,  // K6b-f32: patch^T dy
+  kProdDW1 = 19,       // K4b-f32: dW1 = dh^T x
+  kProdDW2 = 20,       // K4b-f32: dW2 = dy^T hn
 };
 
 // A fault-check build (tools/torch_fp32_faults.py) compiles with

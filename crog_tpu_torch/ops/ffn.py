@@ -24,10 +24,12 @@ from the post-dropout hidden.
 
 On fp32 x (``compute_dtype: float32``) the forward launches K4-f32
 (csrc/ffn_f32.cu: the hidden GEMM with ReLU and dropout in its epilogue,
-the LayerNorm over 2048, the output GEMM; 3xTF32 products reading W1 and
-W2 as stored) and the backward K4b-f32 (csrc/ffn_bwd_f32.cu: the hidden
-recomputed as K4-f32 computes it, dhn, the LayerNorm backward with the
-column sums, dx), with dW1 and dW2 as fp32 library products, TF32 off.
+the LayerNorm over 2048, the output GEMM) and the backward K4b-f32
+(csrc/ffn_bwd_f32.cu: the hidden recomputed by K4-f32's own GEMM, dhn,
+the LayerNorm backward with the column sums, dx, dW1 and dW2 over row
+chunks summed in order), every product 3xTF32 on one wgmma GEMM
+(csrc/gemm_wgmma_f32.cuh, ``f32_schedule``) whose B (W1, W2 and, for dW,
+x and dy) is split once per call into TF32 planes.
 """
 
 from __future__ import annotations
@@ -42,6 +44,12 @@ KERNEL_D, KERNEL_F = 512, 2048
 BWD_ROWS = 128  # rows per cluster tile of K4 and K4b (csrc/ffn.cuh kBM)
 BWD_CLUSTER = 8  # CTAs per K4 / K4b cluster, each with KERNEL_F // 8 hidden columns
 OUT_COLS = 256  # output columns per CTA of K4's y and K4b's dx GEMM (csrc/ffn.cuh)
+# K4-f32's and K4b-f32's GEMM (csrc/gemm_wgmma_f32.cuh): a CTA's output tile
+# (kGwM = kGwN), its K slice (kGwK) and dW's rows per chunk at most
+# (kGwChunkRows)
+F32_TILE = 128
+F32_SLICE = 32
+F32_CHUNK_ROWS = 8192
 
 
 def fwd_schedule(m: int):
@@ -64,6 +72,46 @@ def bwd_schedule(m: int):
     tiles = [(r, min(r + BWD_ROWS, m)) for r in range(0, m, BWD_ROWS)]
     width = KERNEL_F // BWD_CLUSTER
     return tiles, [(k * width, (k + 1) * width) for k in range(BWD_CLUSTER)]
+
+
+def f32_dw_chunks(m: int):
+    """The row chunks [r0, r1) over ``m`` rows of K4b-f32's dW1 and dW2
+    (csrc/gemm_wgmma_f32.cuh ``gw_dw_chunk``), from m alone: ceil(m /
+    F32_CHUNK_ROWS) chunks of equal length rounded up to F32_SLICE, the last
+    one shorter.  Each chunk's partial is summed in this order."""
+    n = -(-m // F32_CHUNK_ROWS)
+    chunk = -(-(-(-m // n)) // F32_SLICE) * F32_SLICE
+    return [(r, min(r + chunk, m)) for r in range(0, m, chunk)]
+
+
+def f32_schedule(m: int, d: int = KERNEL_D, f: int = KERNEL_F):
+    """K4-f32's and K4b-f32's products over ``m`` rows, in launch order:
+    {product: ((rows, cols) of its output, its CTAs' output tiles ((r0, r1),
+    (c0, c1)) in launch order, its K chunks [k0, k1))}.  A CTA computes one
+    tile over one chunk; csrc/gemm_wgmma_f32.cuh launches a grid of column
+    tiles (fastest), row tiles and chunks.  dW2's product is its transpose
+    hn^T dy, [F, D] as dW1's."""
+    def tiles(rows, cols):
+        return [((r, min(r + F32_TILE, rows)), (c, c + F32_TILE))
+                for r in range(0, rows, F32_TILE) for c in range(0, cols, F32_TILE)]
+
+    dw = f32_dw_chunks(m)
+    return {"hidden": ((m, f), tiles(m, f), [(0, d)]),
+            "y": ((m, d), tiles(m, d), [(0, f)]),
+            "recompute": ((m, f), tiles(m, f), [(0, d)]),
+            "dhn": ((m, f), tiles(m, f), [(0, d)]),
+            "dx": ((m, d), tiles(m, d), [(0, f)]),
+            "dw1": ((f, d), tiles(f, d), dw),
+            "dw2": ((f, d), tiles(f, d), dw)}
+
+
+def f32_bwd_work(m: int, d: int = KERNEL_D, f: int = KERNEL_F):
+    """Floats of K4b-f32's two workspaces: part (the LayerNorm backward's
+    column partials, 64 rows a block, 3F each; db2's, 256 rows a block; dW's
+    chunk partials, F D each) and planes (the TF32 hi and lo planes of W1,
+    W2^T and W1^T, then of x and of dy, rows padded to 4 floats)."""
+    part = max(-(-m // 64) * 3 * f, -(-m // 256) * d, len(f32_dw_chunks(m)) * f * d)
+    return part, max(6 * f * d, 2 * d * -(-m // 4) * 4)
 
 
 def ffn_plain(x, w1, b1, gamma, beta, w2, b2, seed: int = 0, rate: float = 0.0,
@@ -131,12 +179,17 @@ def _params(w1, w2, d, f, dtype=torch.bfloat16, **vecs):
     return w1b, w2b, out
 
 
-def ffn_fwd(x, w1, b1, gamma, beta, w2, b2, seed: int = 0, rate: float = 0.0):
+def ffn_fwd(x, w1, b1, gamma, beta, w2, b2, seed: int = 0, rate: float = 0.0,
+            with_hidden: bool = False):
     """K4 over x [M, D] tokens, bf16 or fp32.  fp32 x goes to K4-f32
-    (csrc/ffn_f32.cu, counted in ``ffn_fwd.launches_f32``)."""
+    (csrc/ffn_f32.cu, counted in ``ffn_fwd.launches_f32``).  With
+    ``with_hidden`` (a CUDA tensor only; for the card tests) also the hn
+    [M, F] the kernels leave in their workspace."""
     work.note("ffn", lambda: (work.ffn_flops(*x.shape, w1.shape[0]),
                               work.nbytes(x, w1, b1, gamma, beta, w2, b2, x)))
     if x.device.type == "cpu":
+        if with_hidden:
+            raise ValueError("with_hidden reads the kernels' workspace: a CUDA tensor only")
         with work.uncounted():
             return ffn_plain(x, w1, b1, gamma, beta, w2, b2, seed, rate)
     name = cuda_build.library_for("ffn", x.dtype)
@@ -151,12 +204,14 @@ def ffn_fwd(x, w1, b1, gamma, beta, w2, b2, seed: int = 0, rate: float = 0.0):
     lib = cuda_build.load(name)
     stream = cuda_build.stream_ptr(x.device)
     if x.dtype == torch.float32:
-        # both products read W1 and W2 as stored; hn holds the hidden
-        table = cuda_build.ptr_table(x, w1b, b1f, gf, bef, w2b, b2f, y, hn)
+        # both products read W1 and W2 as stored, split into their TF32
+        # planes (work); hn holds the hidden
+        planes = torch.empty(4 * f * d, dtype=torch.float32, device=x.device)
+        table = cuda_build.ptr_table(x, w1b, b1f, gf, bef, w2b, b2f, y, hn, planes)
         rc = lib.crog_ffn_f32_fwd(table, m, d, f, dseed, thresh, scale, stream)
         cuda_build.check_launch(lib, rc, "crog_ffn_f32_fwd")
         ffn_fwd.launches_f32 += 1
-        return y
+        return (y, hn) if with_hidden else y
     # both products read a B that is row-major along their output columns
     w1t, w2t = w1b.t().contiguous(), w2b.t().contiguous()
     table = cuda_build.ptr_table(x, w1t, b1f, gf, bef, w2t, b2f, y, hn)
@@ -164,7 +219,7 @@ def ffn_fwd(x, w1, b1, gamma, beta, w2, b2, seed: int = 0, rate: float = 0.0):
                           stream)
     cuda_build.check_launch(lib, rc, "crog_ffn_fwd")
     ffn_fwd.launches += 1
-    return y
+    return (y, hn) if with_hidden else y
 
 
 ffn_fwd.launches = 0
@@ -220,9 +275,8 @@ ffn_bwd.launches_f32 = 0
 
 def _ffn_bwd_f32(name, x, w1, b1, gamma, beta, w2, dy, seed, rate, with_hidden):
     """K4b-f32: crog_ffn_f32_bwd (csrc/ffn_bwd_f32.cu, counted in
-    ``ffn_bwd.launches_f32``) for dx, dh, hn and the column sums, then dW1
-    = dh^T x and dW2 = dy^T hn as fp32 library products with TF32 off (the
-    JAX package computes them outside its kernel); dh and hn [M, F] f32."""
+    ``ffn_bwd.launches_f32``) for every output, dW1 and dW2 included; dh
+    and hn [M, F] f32."""
     m, d = x.shape
     f = w1.shape[0]
     w1f, w2f, (b1f, gf, bef) = _params(w1, w2, d, f, torch.float32, b1=b1, gamma=gamma,
@@ -231,20 +285,16 @@ def _ffn_bwd_f32(name, x, w1, b1, gamma, beta, w2, dy, seed, rate, with_hidden):
     cuda_build.require(dy, "dy", torch.float32, (m, d))
     new = lambda *s: torch.empty(*s, dtype=torch.float32, device=x.device)
     dx, dh, hn, rows, db2 = new(m, d), new(m, f), new(m, f), new(3, f), new(d)
-    part = new(max(-(-m // 64) * 3 * f, -(-m // 256) * d))  # column partials
+    part, planes = (new(n) for n in f32_bwd_work(m, d, f))
+    dw1, dw2 = new(f, d), new(d, f)
     dseed, thresh, scale = kernel_args(seed, rate)
-    table = cuda_build.ptr_table(x, w1f, b1f, gf, bef, w2f, dy, dx, dh, hn, rows, db2, part)
+    table = cuda_build.ptr_table(x, w1f, b1f, gf, bef, w2f, dy, dx, dh, hn, rows, db2, dw1,
+                                 dw2, part, planes)
     lib = cuda_build.load(name)
     rc = lib.crog_ffn_f32_bwd(table, m, d, f, dseed, thresh, scale,
                               cuda_build.stream_ptr(x.device))
     cuda_build.check_launch(lib, rc, "crog_ffn_f32_bwd")
     ffn_bwd.launches_f32 += 1
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        dw1, dw2 = torch.mm(dh.t(), x), torch.mm(dy.t(), hn)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
     out = (dx, dw1, rows[0], rows[1], rows[2], dw2, db2)
     return out + (dh, hn) if with_hidden else out
 

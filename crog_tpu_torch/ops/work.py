@@ -96,7 +96,8 @@ def ffn_flops(m: int, d: int, f: int) -> float:
 
 
 def ffn_bwd_flops(m: int, d: int, f: int) -> float:
-    """K4b: the recompute, dhn and dx in the kernel; dW1, dW2 outside it."""
+    """K4b: the recompute, dhn, dx, dW1 and dW2 (K4b-f32 forms all five in
+    its kernels; K4b's call forms dW1 and dW2 as library GEMMs)."""
     return 10.0 * m * d * f
 
 

@@ -726,21 +726,35 @@ def test_cuda_block_f32_kernels_match_twins(exact_f32, b, l, t, rate):
         assert torch.equal(got, again)
 
 
+# K4-f32's and K4b-f32's row counts: the main path's 16224 (two dW chunks),
+# and counts on, just off and inside the GEMM's 128-row tiles and its
+# warpgroups' 64 rows
+FFN_F32_ROWS = [1, 63, 64, 65, 129, 1000, 16224]
+
+
+def _ffn_f32_args(m, dy: bool = False):
+    """K4-f32's (x, w1, b1, gamma, beta, w2, b2) over m rows, or K4b-f32's
+    with dy in place of b2."""
+    return (_f32(1, m, 512), _f32(2, 2048, 512, std=512**-0.5), _f32(3, 2048, std=0.05),
+            1 + _f32(4, 2048, std=0.1), _f32(5, 2048, std=0.05),
+            _f32(6, 512, 2048, std=2048**-0.5), _f32(8, m, 512) if dy else _f32(7, 512, std=0.05))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("rate,m", [(0.0, 16224), (0.1, 16224), (0.1, 1000), (0.0, 129),
-                                    (0.1, 1)])
+@pytest.mark.parametrize("m", FFN_F32_ROWS)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_cuda_ffn_f32_matches_twin(exact_f32, rate, m):
     """K4-f32 against its fp32 twin, eval and train-mode dropout, at the main
-    path's 16224 rows and at row counts off the 128-row tile."""
-    args = (_f32(1, m, 512), _f32(2, 2048, 512, std=512**-0.5), _f32(3, 2048, std=0.05),
-            1 + _f32(4, 2048, std=0.1), _f32(5, 2048, std=0.05),
-            _f32(6, 512, 2048, std=2048**-0.5), _f32(7, 512, std=0.05))
+    path's 16224 rows and at row counts off the 128-row tile; a second call
+    gives the same bits."""
+    args = _ffn_f32_args(m)
     before = FF.ffn_fwd.launches_f32
     got = FF.fused_ffn(*args, 3, rate)
     ref = FF.ffn_plain(*args, 3, rate)
     torch.cuda.synchronize()
     assert got.dtype == torch.float32 and FF.ffn_fwd.launches_f32 == before + 1
     assert _rel_l2(got, ref) <= F32_REL
+    assert torch.equal(FF.fused_ffn(*args, 3, rate), got)
 
 
 @pytest.mark.cuda
@@ -952,20 +966,18 @@ def test_cuda_block_bwd_f32_kernels_match_twins(exact_f32, b, l, t, rate):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rate,m", [(0.0, 16224), (0.1, 16224), (0.1, 1000), (0.0, 129),
-                                    (0.1, 1)])
+@pytest.mark.parametrize("m", FFN_F32_ROWS)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_cuda_ffn_bwd_f32_matches_twin(exact_f32, rate, m):
     """K4b-f32 against its fp32 twin at the main path's 16224 rows and off
     the row blocks, eval and train-mode dropout, the twin on the kernel's
     ReLU decision (chip_smoke.ffn_f32_relu_decision: it differs from the
-    twin's own only at pre-activations within rounding of 0); dx, dh, hn
-    and the column sums repeat with equal bits."""
+    twin's own only at pre-activations within rounding of 0); every output
+    (dW1 and dW2 included), dh and hn repeat with equal bits."""
     sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
     import chip_smoke as cs
 
-    args = (_f32(1, m, 512), _f32(2, 2048, 512, std=512**-0.5), _f32(3, 2048, std=0.05),
-            1 + _f32(4, 2048, std=0.1), _f32(5, 2048, std=0.05),
-            _f32(6, 512, 2048, std=2048**-0.5), _f32(8, m, 512))
+    args = _ffn_f32_args(m, dy=True)
     before = FF.ffn_bwd.launches_f32
     got = FF.ffn_bwd(*args, 3, rate, with_hidden=True)
     again = FF.ffn_bwd(*args, 3, rate, with_hidden=True)
@@ -974,8 +986,22 @@ def test_cuda_ffn_bwd_f32_matches_twin(exact_f32, rate, m):
     torch.cuda.synchronize()
     assert FF.ffn_bwd.launches_f32 == before + 3
     _close_rel(got, ref, ("dx", "dw1", "db1", "dgamma", "dbeta", "dw2", "db2"))
-    held = (0, 2, 3, 4, 6, 7, 8)  # dx, the column sums, dh, hn
-    assert all(torch.equal(got[i], again[i]) for i in held)
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [65, 16224])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_cuda_ffn_bwd_f32_hn_is_the_forwards(exact_f32, rate, m):
+    """K4b-f32 recomputes the hidden with K4-f32's own GEMM and epilogue and
+    its LayerNorm statistics in K4-f32's order: its hn equals, bit for bit,
+    the hn K4-f32 leaves in its workspace for the same inputs and seed."""
+    args = _ffn_f32_args(m)
+    _, hn_fwd = FF.ffn_fwd(*args, 5, rate, with_hidden=True)
+    hn_bwd = FF.ffn_bwd(*args[:6], _f32(8, m, 512), 5, rate, with_hidden=True)[8]
+    torch.cuda.synchronize()
+    assert hn_fwd.dtype == hn_bwd.dtype == torch.float32 and hn_fwd.shape == (m, 2048)
+    assert torch.equal(hn_fwd, hn_bwd)
 
 
 def _autograd_calls(dev):

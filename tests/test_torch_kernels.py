@@ -174,6 +174,38 @@ def test_ffn_fwd_schedule_covers_every_row_once(m):
     assert FF.fwd_schedule(m) == (tiles, slices, out_cols)
 
 
+@pytest.mark.parametrize("m", [1, 63, 64, 65, 127, 128, 129, 1000, 16224])
+def test_f32_gemm_schedule_covers_every_output_once(m):
+    """K4-f32's and K4b-f32's wgmma GEMM: each product's output tiles cover
+    its output once, row tiles outer and column tiles inner, F32_TILE
+    square but the last rows; the hidden and its recompute share one
+    schedule; dW1's and dW2's row chunks cover rows 0..m-1 once, in order,
+    each a multiple of F32_SLICE rows but the last and at most
+    F32_CHUNK_ROWS; and all of it depends on m alone."""
+    sched = FF.f32_schedule(m)
+    assert list(sched) == ["hidden", "y", "recompute", "dhn", "dx", "dw1", "dw2"]
+    d, f = FF.KERNEL_D, FF.KERNEL_F
+    assert sched["hidden"] == sched["recompute"]
+    for name, ((rows, cols), tiles, chunks) in sched.items():
+        count = np.zeros((rows, cols), np.uint8)
+        for (r0, r1), (c0, c1) in tiles:
+            assert 0 < r1 - r0 <= FF.F32_TILE and c1 - c0 == FF.F32_TILE, name
+            count[r0:r1, c0:c1] += 1
+        assert (count == 1).all(), name
+        assert tiles == sorted(tiles), name
+        k = {"hidden": d, "recompute": d, "dhn": d, "y": f, "dx": f}.get(name, m)
+        assert [r for r0, r1 in chunks for r in range(r0, r1)] == list(range(k)), name
+    assert sched["dw1"][0] == sched["dw2"][0] == (f, d)  # dW2 formed as its transpose
+    chunks = FF.f32_dw_chunks(m)
+    assert sched["dw1"][2] == sched["dw2"][2] == chunks
+    assert len(chunks) == -(-m // FF.F32_CHUNK_ROWS)
+    assert all((r1 - r0) % FF.F32_SLICE == 0 for r0, r1 in chunks[:-1])
+    assert all(0 < r1 - r0 <= FF.F32_CHUNK_ROWS for r0, r1 in chunks)
+    assert FF.f32_schedule(m) == sched
+    part, planes = FF.f32_bwd_work(m)
+    assert part >= len(chunks) * f * d and planes >= max(6 * f * d, 2 * d * m)
+
+
 def _covered_once(plan, segments):
     """Each product's [m, n] covered by its tiles exactly once."""
     for s, (m, w0, n) in enumerate(segments):

@@ -1,0 +1,101 @@
+"""K4-f32 and K4b-f32 on one card, product by product, beside fp32 cuBLAS.
+
+    python3 tools/torch_ffn_f32.py [--tree DIR ...] [--rounds N]
+
+On chip_smoke.py's phase-18 inputs (the main path's M = 16224 rows, D 512,
+F 2048, full fp32 values, dropout 0.1) runs ``chip_smoke.f32_ffn_products``:
+K4-f32 (csrc/ffn_f32.cu) and K4b-f32 (csrc/ffn_bwd_f32.cu) by the
+profiler's device time per call, split by launch order into their products
+(the hidden and y; the recompute, dhn, dx, dW1 and dW2), the LayerNorm
+kernels and the fixed-order sums, beside fp32 cuBLAS (TF32 off) at each
+product's shape.  Each ``--tree DIR`` (an unpacked other commit; default
+this checkout) is measured in a process of its own with its own
+``crog_tpu_torch`` (built into its own ``_build``) and this checkout's
+``chip_smoke.py`` for the inputs, the split and the profiler, the trees in
+turns (A B B A for two) over ``--rounds``, so that their readings come from
+one card in one call.  Prints chip_smoke's ``[fp32]`` lines and one
+``[ffn-f32]`` line per tree and round, and a JSON summary to
+``chiprun_out/ffn_f32.json``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def load_chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  os.path.join(ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+def one_tree(tree: str) -> dict:
+    """This process's readings with ``tree``'s crog_tpu_torch: {"kernel
+    product": [device ms, cuBLAS device ms]}."""
+    sys.path[:0] = [os.path.abspath(tree), ROOT]
+    import torch
+
+    from crog_tpu_torch.engine.crog_engine import set_exact_fp32_matmul
+
+    set_exact_fp32_matmul()
+    cs = load_chip_smoke()
+    inp = cs.kernel_inputs(torch.device("cuda", 0), dtype=torch.float32)
+    with torch.no_grad():
+        got = cs.f32_ffn_products(inp, cs.smi_line())
+    return {f"{kid} {p}": list(v) for (kid, p), v in got.items()}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", nargs="*", default=[ROOT],
+                    help="directories whose crog_tpu_torch is measured, in turns")
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="rounds of turns (two trees: A B B A per round)")
+    ap.add_argument("--one", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.one:
+        print(json.dumps(one_tree(args.one)), flush=True)
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_ffn_f32: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    cs = load_chip_smoke()
+    smi = cs.smi_line()
+    trees = [os.path.abspath(t) for t in args.tree]
+    order = []
+    for _ in range(args.rounds):
+        order += trees + trees[::-1] if len(trees) == 2 else trees
+    runs = []
+    for tree in order:
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree],
+                             capture_output=True, text=True, timeout=900)
+        print(res.stdout.rsplit("\n", 2)[0], flush=True)
+        if res.returncode != 0:
+            print(res.stderr[-4000:], file=sys.stderr)
+            return 1
+        got = json.loads(res.stdout.strip().splitlines()[-1])
+        runs.append({"tree": tree, "readings": got})
+        shown = lambda t: "not measured" if t is None else f"{t:.4f}"  # noqa: E731
+        print(f"[ffn-f32] {tree}: " + "; ".join(
+            f"{k} {shown(ms)} ms (cuBLAS {shown(lib)})" for k, (ms, lib) in got.items())
+            + f"; {smi}", flush=True)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "ffn_f32.json"), "w") as fh:
+        json.dump({"card": smi, "runs": runs}, fh, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -59,7 +59,8 @@ BWD_FAULT_PRODUCTS = {
     "attention_bwd_f32": ("attention_bwd_f32", _ATTN_BWD),
     "decoder_self_block_bwd_f32": ("decoder_blocks_bwd_f32", _BLOCK_BWD),
     "decoder_cross_block_bwd_f32": ("decoder_blocks_bwd_f32", _BLOCK_BWD),
-    "ffn_bwd_f32": ("ffn_bwd_f32", {"recompute": 14, "dhn": 15, "dx": 16})}
+    "ffn_bwd_f32": ("ffn_bwd_f32", {"recompute": 14, "dhn": 15, "dx": 16, "dW1": 19,
+                                    "dW2": 20})}
 # K6-f32 and K6b-f32, read at each launch of a train step (chip_smoke's
 # s2dconv_cases); products chip_smoke.F32_S2D_PRODUCTS'
 S2D_FAULT_PRODUCTS = {"s2dconv_f32": ("s2dconv_f32", {"patch product": 17}),
