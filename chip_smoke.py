@@ -720,11 +720,6 @@ BLOCK_FWD_SPLIT = ((("ln_pos", ("ln_pos",)),
 FFN_FWD_SPLIT = ((("hidden (cluster kernel)", ("ffn_fwd_hidden",)),
                   ("y GEMM", ("ffn_out",))),
                  "the rest (weight casts and transposes)")
-F32_BLOCK_SPLIT = ((("ln_pos", ("ln_pos",)),
-                    ("projections and out-projection (gemm_f32)", ("gemm_f32",)),
-                    ("attention step", ("attn_f32",)),
-                    ("ln_residual", ("ln_residual",))),
-                   "the rest (key mask)")
 F32_BLOCK_BWD_SPLIT = ((("LayerNorm backward", ("ln_p",)),
                         ("attention step (dq and dkv kernels)", ("attn_bwd_f32",)),
                         ("dO, dX and dW products (gemm_kn_f32)", ("gemm_kn",)),
@@ -736,20 +731,26 @@ FFN_BWD_SPLIT = ((("K4b's kernels", ("ffn_bwd", "ffn_out")),
                  "weight casts and transposes")
 
 
-def f32_ffn_parts(products):
-    """The split of K4-f32's or K4b-f32's kernels in launch order ->
-    [(part, device ms)]: the n-th GEMM launch (gemm_wgmma_f32.cuh's kernel,
-    or a library GEMM in an older tree) is the n-th of ``products``; then
-    the splits of the products' B into TF32 planes, the LayerNorm kernels,
-    the fixed-order sums and the rest."""
+def f32_parts(products):
+    """The split of an fp32 kernel's launches (K1-f32..K4-f32, K4b-f32) in
+    launch order -> [(part, device ms)]: the attention kernel is the
+    attention step; the n-th GEMM launch (gemm_wgmma_f32.cuh's kernel, or
+    gemm_f32.cuh's or a library GEMM in an older tree) is the n-th of
+    ``products``; then the splits of the products' B into TF32 planes, the
+    blocks' ln_pos and ln_residual, the other LayerNorm kernels, the
+    fixed-order sums and the rest (the cross block's key mask)."""
     def split(seq):
         parts, n = {}, 0
         for name, t in seq:
-            if any(k in name for k in ("gemm", "nvjet", "cutlass", "xmma")):
+            if "attn" in name:
+                part = "attention step"
+            elif any(k in name for k in ("gemm", "nvjet", "cutlass", "xmma")):
                 part = products[n] if n < len(products) else "other GEMMs"
                 n += 1
             elif "split_b" in name:
                 part = "B's TF32 planes"
+            elif "ln_pos" in name or "ln_residual" in name:
+                part = "ln_pos" if "ln_pos" in name else "ln_residual"
             elif "ln_" in name:
                 part = "LayerNorm"
             elif "reduce_parts" in name or "colsum" in name:
@@ -762,12 +763,19 @@ def f32_ffn_parts(products):
     return split
 
 
-# K4-f32's and K4b-f32's products (csrc/ffn_f32.cu, ffn_bwd_f32.cu), in
+# K2-f32's and K3-f32's products (csrc/decoder_blocks_f32.cu), each
+# (name, its rows: "m"
+# the B*L image rows or "mt" the B*T text rows, its output columns over
+# D), and K4-f32's and K4b-f32's (csrc/ffn_f32.cu, ffn_bwd_f32.cu), in
 # launch order, each on gemm_wgmma_f32.cuh's kernel
+F32_BLOCK_PRODUCTS = {"K2-f32": (("q | k", "m", 2), ("v", "m", 1), ("out-projection", "m", 1)),
+                      "K3-f32": (("q", "m", 1), ("k", "mt", 1), ("v", "mt", 1),
+                                 ("out-projection", "m", 1))}
 F32_FFN_PRODUCTS = {"K4-f32": ("hidden", "y"),
                     "K4b-f32": ("recompute", "dhn", "dx", "dW1", "dW2")}
-F32_FFN_SPLIT = f32_ffn_parts(F32_FFN_PRODUCTS["K4-f32"])
-F32_FFN_BWD_SPLIT = f32_ffn_parts(F32_FFN_PRODUCTS["K4b-f32"])
+F32_PARTS = {"K1-f32": f32_parts(()),
+             **{k: f32_parts(tuple(p[0] for p in v)) for k, v in F32_BLOCK_PRODUCTS.items()},
+             **{k: f32_parts(v) for k, v in F32_FFN_PRODUCTS.items()}}
 
 
 def block_bwd_parts(seq):
@@ -845,7 +853,8 @@ def _time(rec, kern, plain, lib):
           f"{rec['bound_by']})", flush=True)
     if rec["name"] in ("attention", "attention_f32"):
         kid = "K1" if rec["name"] == "attention" else "K1-f32"
-        DEVICE_TIMED.append((f"{rec['name']} ({kid})", rec["ms"], kern, None, None))
+        DEVICE_TIMED.append((f"{rec['name']} ({kid})", rec["ms"], kern, None,
+                             F32_PARTS.get(kid)))
         DEVICE_TIMED.append((f"{rec['name']}'s library call (SDPA forward)",
                              rec["library_ms"], lib, None, None))
     kid = {"decoder_self_block": "K2", "decoder_cross_block": "K3",
@@ -857,9 +866,9 @@ def _time(rec, kern, plain, lib):
     if kid is not None:
         split = {"K2": BLOCK_FWD_SPLIT, "K3": BLOCK_FWD_SPLIT, "K2b": block_bwd_parts,
                  "K3b": block_bwd_parts, "K4": FFN_FWD_SPLIT, "K4b": FFN_BWD_SPLIT,
-                 "K2-f32": F32_BLOCK_SPLIT, "K3-f32": F32_BLOCK_SPLIT,
-                 "K4-f32": F32_FFN_SPLIT, "K2b-f32": F32_BLOCK_BWD_SPLIT,
-                 "K3b-f32": F32_BLOCK_BWD_SPLIT, "K4b-f32": F32_FFN_BWD_SPLIT}.get(kid)
+                 "K2-f32": F32_PARTS["K2-f32"], "K3-f32": F32_PARTS["K3-f32"],
+                 "K4-f32": F32_PARTS["K4-f32"], "K2b-f32": F32_BLOCK_BWD_SPLIT,
+                 "K3b-f32": F32_BLOCK_BWD_SPLIT, "K4b-f32": F32_PARTS["K4b-f32"]}.get(kid)
         DEVICE_TIMED.append((f"{rec['name']} ({kid})", rec["ms"], kern, None, split))
     if rec["name"] in ("attention_bwd", "attention_bwd_f32"):
         kid = "K1b" if rec["name"] == "attention_bwd" else "K1b-f32"
@@ -954,20 +963,19 @@ def gemm_yardsticks(device, b=BATCH, l=676, t=17, d=512, f=2048):
     linear_yardsticks(device, b, l, t, d)
 
 
-def linear_yardsticks(device, b=BATCH, l=676, t=17, d=512, dtype=None):
-    """F.linear(x, W, b), bf16 in and out with the bias (or ``dtype``), at
-    the shapes of K2's and K3's projections, timed as a yardstick only (the
-    port computes them in its own kernels, as the TPU kernel computes them
-    in its body): K2's q, k and v as one [B*L, D] -> 3D product; K3's q and
-    the out-projection [B*L, D] -> D; K3's k and v over B*T text rows,
-    [B*T, D] -> D.  K4-f32's are ``f32_ffn_products``'."""
+def linear_yardsticks(device, b=BATCH, l=676, t=17, d=512):
+    """F.linear(x, W, b), bf16 in and out with the bias, at the shapes of
+    K2's and K3's projections, timed as a yardstick only (the port computes
+    them in its own kernels, as the TPU kernel computes them in its body):
+    K2's q, k and v as one [B*L, D] -> 3D product; K3's q and the
+    out-projection [B*L, D] -> D; K3's k and v over B*T text rows, [B*T, D]
+    -> D.  The fp32 kernels' are ``f32_block_products``' and
+    ``f32_ffn_products``'."""
     import torch
     import torch.nn.functional as F
 
-    dtype = torch.bfloat16 if dtype is None else dtype
-    tag = "" if dtype == torch.bfloat16 else f" {str(dtype).split('.')[-1]}"
     g = torch.Generator().manual_seed(SEED + 11)
-    rnd = lambda *shape: torch.randn(*shape, generator=g).to(device, dtype)
+    rnd = lambda *shape: torch.randn(*shape, generator=g).to(device, torch.bfloat16)
     m, mt = b * l, b * t
     cases = [
         (f"[{m}, {d}] -> {3 * d} (K2's q, k and v)", m, d, 3 * d),
@@ -978,8 +986,8 @@ def linear_yardsticks(device, b=BATCH, l=676, t=17, d=512, dtype=None):
         x, w, bias = rnd(rows, k), rnd(n, k), rnd(n)
         call = lambda x=x, w=w, bias=bias: F.linear(x, w, bias)
         ms = cuda_ms(call)
-        print(f"[kernels] F.linear{tag} yardstick {label}: {ms:.4f} ms", flush=True)
-        DEVICE_TIMED.append((f"F.linear{tag} yardstick {label}", ms, call, None, None))
+        print(f"[kernels] F.linear yardstick {label}: {ms:.4f} ms", flush=True)
+        DEVICE_TIMED.append((f"F.linear yardstick {label}", ms, call, None, None))
 
 
 def _compare(name, got, ref, tol, share=1.0):
@@ -2301,9 +2309,10 @@ def fp32_kernels(device, timed: bool = True):
     """Phase 18 (a): K1-f32..K4-f32 against their fp32 twins at the main
     path's shapes in eval and with train-mode dropout (RATE, the same
     counter-based mask), within F32_REL_L2; each twin with one product
-    formed at lower precision above it; timed beside the twin, SDPA (K1)
-    and F.linear at the projections' and the FFN's shapes, all fp32.
-    Returns the records."""
+    formed at lower precision above it; timed beside the twin and SDPA
+    (K1), and K1-f32..K3-f32 by part beside F.linear and SDPA at each
+    product's and attention step's shape (``f32_block_products``), all
+    fp32.  Returns the records."""
     import torch
 
     inp = kernel_inputs(device, dtype=torch.float32)
@@ -2333,7 +2342,7 @@ def fp32_kernels(device, timed: bool = True):
         check_controls(fp32_twin_controls({n + "_f32": c[1] for n, c in cases.items()},
                                           refs), F32_REL_L2)
         if timed:
-            linear_yardsticks(device, dtype=torch.float32)
+            f32_block_products(inp, smi_line())
         records.update(fp32_backward_kernels(inp, timed))
         del inp
         records.update(fp32_s2dconv(device, timed))
@@ -2529,7 +2538,7 @@ def f32_attention_bwd_steps(device, smi: str, b=BATCH, l=676, t=17, heads=8):
 def f32_ffn_products(inp, smi: str):
     """Phase 18 (a): each product of K4-f32 and K4b-f32 at the main path's
     shapes (dropout RATE) by the profiler's device time, split in launch
-    order (``f32_ffn_parts``), with its rate and bound, beside fp32 cuBLAS
+    order (``f32_parts``), with its rate and bound, beside fp32 cuBLAS
     (TF32 off) at its shape: F.linear with the bias for the hidden, its
     recompute and y, torch.mm for dhn, dx, dW1 and dW2; every line names
     the card.  Returns {(kernel, product): (device ms, cuBLAS device ms)}
@@ -2568,7 +2577,7 @@ def f32_ffn_products(inp, smi: str):
     for kid, call in calls.items():
         dev, _, seq = device_ms(call)
         out[kid, "device"] = (dev, None)
-        parts = dict(f32_ffn_parts(F32_FFN_PRODUCTS[kid])(seq)) if seq is not None else {}
+        parts = dict(F32_PARTS[kid](seq)) if seq is not None else {}
         print(f"[fp32] {kid} at M={m}: device time {shown(dev)} (" + ", ".join(
             f"{p} {t:.4f}" for p, t in parts.items()) + f"); {smi}", flush=True)
         for p in F32_FFN_PRODUCTS[kid]:
@@ -2578,6 +2587,73 @@ def f32_ffn_products(inp, smi: str):
             print(f"[fp32] {kid} {p} {shapes[p]}: {shown(ms)}{rate} (bound {bms:.4f} ms by "
                   f"{by}); fp32 cuBLAS {cublas[p][0]} {shown(lib)}{ratio}; {smi}", flush=True)
             out[kid, p] = (ms, lib)
+    return out
+
+
+def f32_block_products(inp, smi: str):
+    """Phase 18 (a): K1-f32 at the attention pool, and K2-f32 and K3-f32
+    (train mode, dropout RATE) at the main path's shapes, by the profiler's
+    device time, split in launch order (``F32_PARTS``): each product beside
+    fp32 cuBLAS (``F.linear`` with the bias, TF32 off) at its shape, each
+    attention step beside SDPA's fp32 forward at its shape (the key mask as
+    ``attn_mask``), with its rate and bound; every line names the card.
+    Returns {(kernel, part): (device ms, library device ms)} and {(kernel,
+    "device"): (the call's device ms, None)}, as ``f32_ffn_products``."""
+    import torch
+    import torch.nn.functional as F
+
+    from crog_tpu_torch.ops import attention as A
+    from crog_tpu_torch.ops import decoder_blocks as DB
+
+    sargs, cargs, _ = _args(inp)
+    a = inp["attention"]
+    b, l, d = sargs[0].shape
+    t = cargs[1].shape[1]
+    rows = {"m": b * l, "mt": b * t}
+    mask = DB.key_mask(cargs[4], b, t, sargs[0].device)
+    gen = torch.Generator().manual_seed(SEED + 16)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen).to(sargs[0].device)  # noqa: E731
+    calls = {"K1-f32": lambda: A.fused_attention(a["q"], a["k"], a["v"], a["heads"]),
+             "K2-f32": lambda: DB.self_block_fwd(*sargs, SEED + 1, RATE)[0],
+             "K3-f32": lambda: DB.cross_block_fwd(*cargs, SEED + 2, RATE)[0]}
+    # (batch, queries, keys, heads, key mask) of each attention step
+    steps = {"K1-f32": (b, a["q"].shape[1], a["q"].shape[1], a["heads"], None),
+             "K2-f32": (b, l, l, 8, None), "K3-f32": (b, l, t, 8, mask)}
+    shown = lambda x: "not measured" if x is None else f"{x:.4f} ms"  # noqa: E731
+    out = {}
+    for kid, call in calls.items():
+        dev, _, seq = device_ms(call)
+        out[kid, "device"] = (dev, None)
+        parts = dict(F32_PARTS[kid](seq)) if seq is not None else {}
+        print(f"[fp32] {kid} at B={b}: device time {shown(dev)} (" + ", ".join(
+            f"{p} {x:.4f}" for p, x in parts.items()) + f"); {smi}", flush=True)
+        for name, rk, cols in F32_BLOCK_PRODUCTS.get(kid, ()):
+            m, n = rows[rk], cols * d
+            x, w, bias = rnd(m, d), rnd(n, d), rnd(n)
+            lib = device_ms(lambda x=x, w=w, bias=bias: F.linear(x, w, bias))[0]
+            ms, flops = parts.get(name), 2.0 * m * d * n
+            bms, by = bound(flops, 0, PEAK_F32_TC_FLOPS)
+            rate = "" if ms is None else f", {flops / ms / 1e9:.1f} TFLOP/s"
+            ratio = "" if ms is None or lib is None else f", {ms / lib:.3f}x"
+            print(f"[fp32] {kid} {name} [{m}, {d}] -> {n}: {shown(ms)}{rate} (bound "
+                  f"{bms:.4f} ms by {by}); fp32 cuBLAS F.linear {shown(lib)}{ratio}; {smi}",
+                  flush=True)
+            out[kid, name] = (ms, lib)
+        bb, lq, lk, hh, am = steps[kid]
+        split = lambda x, hh=hh: x.view(bb, x.shape[1], hh, 64).transpose(1, 2)  # noqa: E731
+        q, k, v = rnd(bb, lq, hh * 64), rnd(bb, lk, hh * 64), rnd(bb, lk, hh * 64)
+        am = None if am is None else am[:, None, None, :]
+        lib = device_ms(lambda q=q, k=k, v=v, am=am: F.scaled_dot_product_attention(
+            split(q), split(k), split(v), attn_mask=am))[0]
+        ms, flops = parts.get("attention step"), work.attention_flops(bb, lq, lk, hh * 64)
+        bms, by = bound(flops, nbytes(q, k, v, q), PEAK_F32_TC_FLOPS)
+        rate = "" if ms is None else f", {flops / ms / 1e9:.1f} TFLOP/s"
+        ratio = "" if ms is None or lib is None else f", {ms / lib:.3f}x"
+        print(f"[fp32] {kid} attention step ({lq} queries, {lk} keys, {hh} heads): "
+              f"{shown(ms)}{rate} (bound {bms:.4f} ms by {by}); SDPA fp32 forward "
+              f"{shown(lib)}{ratio}; {smi}", flush=True)
+        out[kid, "attention step"] = (ms, lib)
+        del q, k, v
     return out
 
 
@@ -4568,8 +4644,9 @@ def redesigned_resources(reports):
     K4's and K4b's cluster kernels and their y / dx GEMM, K2b's and K3b's
     dX and dW GEMMs, K1b's one-CTA-per-head kernel, the two-kernel
     attention backward that K2b and K3b run, K6's persistent conv, K6b's
-    cluster kernel, K6-f32's and K6b-f32's gathered GEMMs, K4-f32's and
-    K4b-f32's wgmma GEMM, K5's and K5b's region kernels), and at the main
+    cluster kernel, K6-f32's and K6b-f32's gathered GEMMs, the wgmma GEMM
+    of K2-f32, K3-f32, K4-f32 and K4b-f32, the fp32 attention forward of
+    K1-f32, K2-f32 and K3-f32, K5's and K5b's region kernels), and at the main
     path's
     shapes their registers, shared memory per CTA (static + dynamic) and
     spills as the runtime loads them (the attention forward, the GEMMs and
@@ -4591,6 +4668,8 @@ def redesigned_resources(reports):
                       ("s2dconv", ("s2dconv_fwd_kernel", "s2dconv_wgrad_kernel")),
                       ("s2dconv_f32", ("s2dconv_f32_fwd_kernel", "s2dconv_f32_wgrad_kernel")),
                       ("ffn_f32", ("gemm_wgmma_f32",)), ("ffn_bwd_f32", ("gemm_wgmma_f32",)),
+                      ("attention_f32", ("attn_fwd_f32",)),
+                      ("decoder_blocks_f32", ("gemm_wgmma_f32", "attn_fwd_f32")),
                       ("lincomb", ("lincomb_region",))):
         for entry, regs, spill in ptxas_entries(reports[lib]):
             if any(k in entry for k in keys):

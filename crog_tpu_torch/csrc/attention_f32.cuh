@@ -23,40 +23,56 @@
 // attention (B=24, 8 heads, L=676) 22.5 GFLOP, about 136 us, limited by
 // the products.
 //
-// Design: right and simple first.  One CTA of 4 warps takes 64 query rows
-// of one head, 16 per warp, and streams the head's keys in tiles of 64
-// through a two-stage cp.async ring (K and V tiles, rows padded to 68
-// floats so that every fragment load below is free of bank conflicts).
-// Every product is mma.sync m16n8k8 TF32 with the 3xTF32 split (tf32.cuh),
-// so it keeps f32 accuracy; the Q fragments are split once and stay in
-// registers.  Unlike the bf16 kernel, whose twin rounds the normalized p to
-// bf16 before P.V (which an online softmax cannot reproduce), nothing here
-// is rounded, so one pass with an online softmax computes the function:
-// each row keeps its running max and sum, rescales its accumulators when
-// the max grows, and divides by the sum once at the end.  Each key tile's
-// P.V accumulates into fresh registers and joins the running output by an
-// IEEE f32 multiply-add, so that the tensor cores' truncating accumulation
-// sees 24 additions, not one per 8 keys of the head (gemm_f32.cuh).  The C fragments
-// of S become the A fragments of P.V without leaving the thread by
-// relabelling the keys within each 8-key step (logical column t is key 2t,
-// t + 4 is key 2t + 1; V's rows are read in the same order).
+// Design: the forward of the fp32 backward's statistics pre-pass
+// (attention_bwd_f32.cuh, whose wgmma and plane helpers it shares).  A CTA
+// of one warpgroup owns 64 query rows of one head, 16 a warp; their Q
+// fragments are split once into TF32 hi and lo registers.  The head's keys
+// stream in tiles of 64 (cp.async into raw [64][64] tiles, K and V apart),
+// and each tile is split once into 128-byte-swizzled hi and lo planes in
+// the orientation its product reads (TF32 wgmma reads B only K-major):
+//   K as [key][d], the B of S = Q K^T (8 steps of wgmma m64n64k8);
+//   V as V^T [d][key'], the B of P V, the keys of each 8-step relabelled
+//     (position t holds key 2t, t + 4 holds key 2t + 1), so that the C
+//     fragments of S, after the online softmax in registers, are the A
+//     fragments of P V without leaving the thread; a thread transposes
+//     four keys by four columns in registers and stores 16-byte chunks.
+// The splits overlap the products: V's split runs while S's wgmmas do, the
+// next tile's K while P V's do (both planes single, the raw tiles loaded
+// one stage ahead).  Every product is 3xTF32 (tf32.cuh: lo.hi, hi.lo,
+// hi.hi), so it keeps f32 accuracy; each row keeps its running max and
+// sum, rescales when the max grows, and divides by the sum once at the
+// end; it works in log2 units, its exponentials ex2.approx (fw_exp2).  Each tile's P V sums in
+// fresh registers (scale-d 0) joined to the running output by an IEEE f32
+// multiply-add, so that the tensor cores' truncating accumulation sees at
+// most 64 keys.  Every wgmma is issued by the whole warpgroup under no
+// branch (ptxas may serialize the products of a wgmma under a branch);
+// keys past Lk weigh 0 and load zeros.  No product falls back to mma.sync.
+// Shared memory: K's planes 32 KiB, V^T's 32 KiB, the raw K and V tiles 32
+// KiB: 98,304 bytes, two CTAs an SM (240 registers).  A CTA of two
+// warpgroups sharing each tile's split (one CTA an SM) measured slower on
+// an H100 at the decoder's 676 keys and at the attention pool's 169.
 #pragma once
 
+#include "attention_bwd_f32.cuh"  // the wgmma .tf32 and plane helpers ab_*, wg_step
 #include "common.cuh"
 #include "sm90.cuh"
 #include "tf32.cuh"
 
 namespace crog {
 
-constexpr int kF32BQ = 64;             // query rows per CTA, key rows per tile
-constexpr int kF32DH = 64;             // head dim
-constexpr int kF32Ld = kF32DH + 4;     // smem row stride in floats
-constexpr int kF32Tile = kF32BQ * kF32Ld;
+constexpr int kF32BQ = 64;  // query rows per CTA, one warpgroup
+constexpr int kF32BK = 64;  // key rows per tile
+constexpr int kF32DH = 64;  // head dim
 constexpr int kF32AttnThreads = 128;
 constexpr int kF32MaxLk = 768;
-
-// -inf: the score of a key past Lk (exp gives exactly 0)
-__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+static_assert(kF32AttnThreads == kAbF32Threads, "ab_load_raw and ab_split_tile stride by it");
+// shared memory (bytes): planes hi at +0, lo at +kFwPlane
+constexpr int kFwPlane = 16384;           // one [64][64] f32 plane
+constexpr int kFwK = 0;                   // K [key][d] planes
+constexpr int kFwVt = 2 * kFwPlane;       // V^T [d][key'] planes
+constexpr int kFwRawK = 4 * kFwPlane;     // the raw K tile [64][64]
+constexpr int kFwRawV = 5 * kFwPlane;     // the raw V tile
+constexpr int kFwSmem = 6 * kFwPlane;
 
 struct AttnF32Args {
   const float* q;
@@ -70,41 +86,106 @@ struct AttnF32Args {
   float scale;
 };
 
-inline size_t attn_f32_smem_bytes() { return 4u * kF32Tile * sizeof(float); }
+// keeps the compiler from moving register accesses across the wgmma
+// issue and wait (no instruction)
+__device__ __forceinline__ void fw_fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
+
+// 2^x: one instruction, about 2 ulp (expf takes about ten); 2^-inf = 0
+__device__ __forceinline__ float fw_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The raw K tile is loaded and split by the backward's ab_load_raw and
+// ab_split_tile (ab_raw_off's swizzle; its hi / lo planes [key][d]).
+// The raw V tile [64][64]: 16-byte chunk c of key row r at r * 256 + (c ^
+// fw_vswz(r)) * 16, so that the split below reads keys 8j + 2w + e (j of
+// one quad of j, e 0 or 1) of one chunk from 8 distinct bank groups
+__device__ __forceinline__ int fw_vswz(int r) { return ((r >> 2) & 6) | (r & 1); }
+
+__device__ __forceinline__ void fw_load_v(uint32_t dst, const float* src, long long rs, int r0,
+                                          int limit) {
+  for (int i = threadIdx.x; i < kF32BK * 16; i += kF32AttnThreads) {
+    const int r = i >> 4, c4 = i & 15;
+    const bool in = r0 + r < limit;
+    cp_async16(dst + r * 256 + ((c4 ^ fw_vswz(r)) << 4),
+               src + (in ? (long long)(r0 + r) * rs : 0) + c4 * 4, in ? 16 : 0);
+  }
+}
+
+// the raw V tile split once into its transposed hi / lo planes [d][key']:
+// key 8j + 2w + e at column 8j + 4e + w, so that a thread takes keys 8j +
+// e, + 2, + 4, + 6 of four columns d and writes each d's four keys as one
+// 16-byte chunk of each plane (the same planes as ab_split_tile's
+// transposed ones); a quarter-warp covers 8 chunks of one d
+template <int P>
+__device__ __forceinline__ void fw_split_vt(unsigned char* smem) {
+#pragma unroll
+  for (int u = threadIdx.x; u < kF32BK * 4; u += kF32AttnThreads) {
+    const int je = u & 15, c4 = u >> 4;  // key chunk 8j + 4e (je = 2j + e), columns 4 c4 ..
+    const int r0 = 8 * (je >> 1) + (je & 1);
+    float x[4][4];  // [w][i]: key r0 + 2w, column 4 c4 + i
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const int r = r0 + 2 * w;
+      const float4 v = *reinterpret_cast<const float4*>(smem + kFwRawV + r * 256 +
+                                                        ((c4 ^ fw_vswz(r)) << 4));
+      x[w][0] = v.x;
+      x[w][1] = v.y;
+      x[w][2] = v.z;
+      x[w][3] = v.w;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int w = 0; w < 4; ++w) split_p<P>(x[w][i], hi[w], lo[w]);
+      const uint32_t off = ab_plane_off(kF32DH, 4 * c4 + i, 4 * je);
+      st_u4(smem + kFwVt + off, hi);
+      st_u4(smem + kFwVt + kFwPlane + off, lo);
+    }
+  }
+}
 
 // PS, PO: how QK^T and P.V form their products (tf32.cuh Products)
 template <int PS, int PO>
-__global__ void __launch_bounds__(kF32AttnThreads) attn_f32_kernel(const AttnF32Args a) {
-  extern __shared__ __align__(16) float smem[];  // 2 stages x (K tile, V tile)
+__global__ void __launch_bounds__(kF32AttnThreads, 2) attn_fwd_f32_kernel(const AttnF32Args a) {
+  extern __shared__ __align__(1024) unsigned char fw_smem[];
+  unsigned char* smem = fw_smem;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int b = blockIdx.y / a.heads, h = blockIdx.y % a.heads;
+  const uint32_t sbase = smem_u32(smem);
+  if (sbase & 1023) __trap();  // the planes' swizzle needs 1024-byte alignment
   const float* kb = a.k + b * a.k_bs + h * kF32DH;
   const float* vb = a.v + b * a.v_bs + h * kF32DH;
   const float* mk = a.mask != nullptr ? a.mask + (long long)b * a.lk : nullptr;
-  const int ntiles = (a.lk + kF32BQ - 1) / kF32BQ;
-
-  auto load_tile = [&](int kt, int stage) {
-    float* ks = smem + stage * 2 * kF32Tile;
-    float* vs = ks + kF32Tile;
-    for (int i = threadIdx.x; i < kF32BQ * (kF32DH / 4); i += kF32AttnThreads) {
-      const int r = i >> 4, c = (i & 15) * 4;
-      const int key = kt * kF32BQ + r;
-      const bool in = key < a.lk;
-      const long long kr = in ? key : 0;  // rows past Lk are zero-filled
-      cp_async16(smem_u32(ks + r * kF32Ld + c), kb + kr * a.k_rs + c, in ? 16 : 0);
-      cp_async16(smem_u32(vs + r * kF32Ld + c), vb + kr * a.v_rs + c, in ? 16 : 0);
-    }
+  const int ntiles = (a.lk + kF32BK - 1) / kF32BK;
+  // one cp.async group each, empty past the last tile, so that the waits
+  // below count alike on every tile: K(kt + 1) is committed before V(kt + 1)
+  auto load_k = [&](int kt) {
+    if (kt < ntiles) ab_load_raw(sbase + kFwRawK, kb, a.k_rs, kt * kF32BK, kF32BK, a.lk);
     cp_async_commit();
   };
-  load_tile(0, 0);
+  auto load_v = [&](int kt) {
+    if (kt < ntiles) fw_load_v(sbase + kFwRawV, vb, a.v_rs, kt * kF32BK, a.lk);
+    cp_async_commit();
+  };
+  load_k(0);
+  load_v(0);
 
-  // the warp's Q fragments (rows ra, rb), split once
+  // this thread's rows ra, rb: their Q A fragments, split once
   const int ra = blockIdx.x * kF32BQ + warp * 16 + g, rb = ra + 8;
   uint32_t qh[8][4], ql[8][4];
   {
-    const float* qa = a.q + b * a.q_bs + h * kF32DH + (long long)ra * a.q_rs;
-    const float* qc = qa + 8 * a.q_rs;
+    const float* qa = a.q + b * a.q_bs + h * kF32DH + (long long)(ra < a.lq ? ra : 0) * a.q_rs;
+    const float* qc = a.q + b * a.q_bs + h * kF32DH + (long long)(rb < a.lq ? rb : 0) * a.q_rs;
 #pragma unroll
     for (int s = 0; s < 8; ++s) {
       const int c = 8 * s + t;
@@ -114,108 +195,115 @@ __global__ void __launch_bounds__(kF32AttnThreads) attn_f32_kernel(const AttnF32
       split_p<PS>(rb < a.lq ? qc[c + 4] : 0.0f, qh[s][3], ql[s][3]);
     }
   }
+  cp_async_wait<1>();  // K(0) landed
+  __syncthreads();
+  ab_split_tile<PS, PS, false>(smem, kFwRawK, kFwK, 0, kF32BK, kFwPlane);
+  fence_proxy_async();
+  __syncthreads();  // K(0)'s planes are whole; the raw K tile is free
+  load_k(1);
 
-  float o[8][4];
+  float o[32];
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
-  float m[2] = {neg_inf(), neg_inf()};  // running max of rows ra, rb
-  float l[2] = {0.0f, 0.0f};            // this thread's share of the running sums
-
+  for (int i = 0; i < 32; ++i) o[i] = 0.0f;
+  // the softmax in log2 units: x = (s * scale + mask[key]) log2(e)
+  const float sl2 = a.scale * kLog2e;
+  float m[2] = {ab_neg_inf(), ab_neg_inf()};  // running max of rows ra, rb (the quad's)
+  float l[2] = {0.0f, 0.0f};                  // this thread's share of the running sums
   for (int kt = 0; kt < ntiles; ++kt) {
-    if (kt + 1 < ntiles) {
-      load_tile(kt + 1, (kt + 1) & 1);
-      cp_async_wait_one();
-    } else {
-      cp_async_wait_all();
-    }
+    // S = Q K^T over the tile, on K(kt)'s planes (scale-d 0: s is written
+    // afresh)
+    float s[32];
+    fw_fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      wg_step<PS, 64>(s, qh[kk], ql[kk], ab_desc(sbase + kFwK, kF32BK, kk),
+                      ab_desc(sbase + kFwK + kFwPlane, kF32BK, kk), kk > 0);
+    wgmma_commit();
+    // while they run: V(kt) into its transposed planes (P V of tile kt - 1
+    // is done with them)
+    cp_async_wait<1>();  // V(kt) landed (K(kt + 1) may be in flight)
     __syncthreads();
-    const float* ks = smem + (kt & 1) * 2 * kF32Tile;
-    const float* vs = ks + kF32Tile;
-    const int k0 = kt * kF32BQ;
-    const int nt = min(8, (a.lk - k0 + 7) / 8);  // 8-key steps that hold a real key
+    fw_split_vt<PO>(smem);
+    fence_proxy_async();
+    wgmma_wait<0>();
+    fw_fence_regs(s);
 
-    float s[8][4];
+    // scale, key mask, keys past Lk (-inf); then the online softmax
+    const int k0 = kt * kF32BK;
+    float tmax[2] = {ab_neg_inf(), ab_neg_inf()};
+    if (mk == nullptr && k0 + kF32BK <= a.lk) {  // alike in the CTA: no mask, every key real
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
-      if (j < nt) {
-#pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
-          const float* kr = ks + (8 * j + g) * kF32Ld + 8 * kk + t;
-          uint32_t bh0, bl0, bh1, bl1;
-          split_p<PS>(kr[0], bh0, bl0);
-          split_p<PS>(kr[4], bh1, bl1);
-          mma_p<PS>(s[j], qh[kk], ql[kk], bh0, bl0, bh1, bl1);
-        }
+      for (int i = 0; i < 32; ++i) {
+        s[i] *= sl2;
+        tmax[(i >> 1) & 1] = fmaxf(tmax[(i >> 1) & 1], s[i]);
       }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * j + 2 * t + (e & 1);
+          float x = ab_neg_inf();
+          if (key < a.lk) x = mk != nullptr ? fmaf(s[4 * j + e], sl2, mk[key] * kLog2e)
+                                            : s[4 * j + e] * sl2;
+          s[4 * j + e] = x;
+          tmax[e >> 1] = fmaxf(tmax[e >> 1], x);
+        }
     }
-
-    // scale, key mask, keys past Lk; then the online softmax
-    float tmax[2] = {neg_inf(), neg_inf()};
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + 8 * j + 2 * t + (e & 1);
-        float x = neg_inf();
-        if (key < a.lk) {
-          x = s[j][e] * a.scale;
-          if (mk != nullptr) x += mk[key];
-        }
-        s[j][e] = x;
-        tmax[e >> 1] = fmaxf(tmax[e >> 1], x);
-      }
     float corr[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
       tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
       const float mnew = fmaxf(m[r], tmax[r]);  // finite: key 0 is in the first tile
-      corr[r] = expf(m[r] - mnew);
+      corr[r] = fw_exp2(m[r] - mnew);
       m[r] = mnew;
       l[r] *= corr[r];
     }
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = expf(s[j][e] - m[e >> 1]);
-        l[e >> 1] += s[j][e];
-      }
-    // this tile's P V over its real 8-key steps, keys relabelled within
-    // each step; then o = o * corr + P V
-    float ot[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ot[n][e] = 0.0f;
+    // P's A fragments of the 8-key steps, keys relabelled within each step
+    uint32_t ph[8][4], pl[8][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      if (j < nt) {
-        uint32_t ph[4], pl[4];
-        split_p<PO>(s[j][0], ph[0], pl[0]);  // (row g,     key 2t)
-        split_p<PO>(s[j][2], ph[1], pl[1]);  // (row g + 8, key 2t)
-        split_p<PO>(s[j][1], ph[2], pl[2]);  // (row g,     key 2t + 1)
-        split_p<PO>(s[j][3], ph[3], pl[3]);  // (row g + 8, key 2t + 1)
-        const float* vr = vs + (8 * j + 2 * t) * kF32Ld + g;
+      float p[4];
 #pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          uint32_t bh0, bl0, bh1, bl1;
-          split_p<PO>(vr[8 * n], bh0, bl0);           // key 2t,     dim 8n + g
-          split_p<PO>(vr[kF32Ld + 8 * n], bh1, bl1);  // key 2t + 1, dim 8n + g
-          mma_p<PO>(ot[n], ph, pl, bh0, bl0, bh1, bl1);
-        }
+      for (int e = 0; e < 4; ++e) {
+        p[e] = fw_exp2(s[4 * j + e] - m[e >> 1]);
+        l[e >> 1] += p[e];
       }
+      split_p<PO>(p[0], ph[j][0], pl[j][0]);  // (row g,     key 2t)
+      split_p<PO>(p[2], ph[j][1], pl[j][1]);  // (row g + 8, key 2t)
+      split_p<PO>(p[1], ph[j][2], pl[j][2]);  // (row g,     key 2t + 1)
+      split_p<PO>(p[3], ph[j][3], pl[j][3]);  // (row g + 8, key 2t + 1)
     }
+    __syncthreads();  // V(kt)'s planes are whole; the raw V tile is free
+    load_v(kt + 1);
+
+    // this tile's P V (keys past Lk weigh 0, their V rows load zeros),
+    // written afresh
+    float pv[32];
+    fw_fence_regs(pv);
+    wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int kk = 0; kk < 8; ++kk)
+      wg_step<PO, 64>(pv, ph[kk], pl[kk], ab_desc(sbase + kFwVt, kF32DH, kk),
+                      ab_desc(sbase + kFwVt + kFwPlane, kF32DH, kk), kk > 0);
+    wgmma_commit();
+    // while they run: K(kt + 1) into its planes (S of tile kt is done)
+    if (kt + 1 < ntiles) {
+      cp_async_wait<1>();  // K(kt + 1) landed (V(kt + 1) may be in flight)
+      __syncthreads();
+      ab_split_tile<PS, PS, false>(smem, kFwRawK, kFwK, 0, kF32BK, kFwPlane);
+      fence_proxy_async();
+    }
+    wgmma_wait<0>();
+    fw_fence_regs(pv);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) o[n][e] = o[n][e] * corr[e >> 1] + ot[n][e];
-    __syncthreads();  // every warp is done with this stage before it is refilled
+    for (int i = 0; i < 32; ++i) o[i] = o[i] * corr[(i >> 1) & 1] + pv[i];
+    __syncthreads();  // K(kt + 1)'s planes are whole, V^T's free; the raw K tile is free
+    load_k(kt + 2);
   }
+  cp_async_wait<0>();  // no copy outlives the CTA
 
   float inv[2];
 #pragma unroll
@@ -224,20 +312,20 @@ __global__ void __launch_bounds__(kF32AttnThreads) attn_f32_kernel(const AttnF32
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = 1.0f / l[r];
   }
-  if (a.lse != nullptr && t == 0) {  // m + log(l), as `_fwd_kernel` saves it
+  if (a.lse != nullptr && t == 0) {  // m + log(l) in natural units, as `_fwd_kernel` saves it
     float* ls = a.lse + (long long)blockIdx.y * a.lq;
-    if (ra < a.lq) ls[ra] = m[0] + logf(l[0]);
-    if (rb < a.lq) ls[rb] = m[1] + logf(l[1]);
+    if (ra < a.lq) ls[ra] = m[0] * kLn2 + logf(l[0]);
+    if (rb < a.lq) ls[rb] = m[1] * kLn2 + logf(l[1]);
   }
   float* ob = a.o + b * a.o_bs + h * kF32DH + 2 * t;
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
+  for (int j = 0; j < 8; ++j) {
     if (ra < a.lq)
-      *reinterpret_cast<float2*>(ob + (long long)ra * a.o_rs + 8 * n) =
-          make_float2(o[n][0] * inv[0], o[n][1] * inv[0]);
+      *reinterpret_cast<float2*>(ob + (long long)ra * a.o_rs + 8 * j) =
+          make_float2(o[4 * j] * inv[0], o[4 * j + 1] * inv[0]);
     if (rb < a.lq)
-      *reinterpret_cast<float2*>(ob + (long long)rb * a.o_rs + 8 * n) =
-          make_float2(o[n][2] * inv[1], o[n][3] * inv[1]);
+      *reinterpret_cast<float2*>(ob + (long long)rb * a.o_rs + 8 * j) =
+          make_float2(o[4 * j + 2] * inv[1], o[4 * j + 3] * inv[1]);
   }
 }
 
@@ -246,12 +334,18 @@ __global__ void __launch_bounds__(kF32AttnThreads) attn_f32_kernel(const AttnF32
 // would be one object across them.
 template <int PS, int PO>
 static cudaError_t launch_attn_f32_p(const AttnF32Args& a, int batch, cudaStream_t stream) {
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(attn_f32_kernel<PS, PO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)attn_f32_smem_bytes());
+  auto kernel = attn_fwd_f32_kernel<PS, PO>;
+  static const cudaError_t attr = [&] {
+    cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwSmem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    return e;
+  }();
   if (attr != cudaSuccess) return attr;
   const dim3 grid((a.lq + kF32BQ - 1) / kF32BQ, batch * a.heads);
-  attn_f32_kernel<PS, PO><<<grid, kF32AttnThreads, attn_f32_smem_bytes(), stream>>>(a);
+  kernel<<<grid, kF32AttnThreads, kFwSmem, stream>>>(a);
   return cudaGetLastError();
 }
 

@@ -16,21 +16,26 @@
 // TFLOP/s; K3 18 GFLOP, about 0.11 ms; x and y are 66 MB (20 us), so
 // operations bound both.
 //
-// Design: right and simple first, a few launches per block, every
-// intermediate [M, D] in device memory:
+// Design: a few launches per block, every intermediate [M, D] in device
+// memory (K2b-f32 / K3b-f32 read xl, qin, the q/k/v products, o and op):
 //   ln_pos     xl = LN_pre(x), qin = xl + pos      (ln_f32.cuh helpers)
 //              (cross: kin = txt + tpos, the same kernel without the LN)
-//   projections, gemm_f32.cuh with the bias in its epilogue, reading
-//              in_w's rows in place:  self: [q | k] = qin W[0:2D]^T (one
-//              product, N = 2D), v = xl W[2D:3D]^T;  cross: q = qin W_q^T,
-//              k = kin W_k^T, v = txt W_v^T over the B*T text rows
-//   attention  attention_f32.cuh (q and k as column slices of the packed
-//              [M, 2D] product; cross: the 17 keys with the key mask)
-//   op = o W_out^T + b_out                          gemm_f32.cuh
+//   projections, each on gemm_wgmma_f32.cuh (wgmma .tf32, A split in
+//              registers, TMA-fed) with the bias in its epilogue, the
+//              weight's rows split once per call into TF32 hi and lo planes
+//              in the `planes` workspace (ops/decoder_blocks.py
+//              f32_planes): self: [q | k] = qin W[0:2D]^T (one product,
+//              N = 2D), v = xl W[2D:3D]^T;  cross: q = qin W_q^T, k = kin
+//              W_k^T, v = txt W_v^T over the B*T text rows
+//   attention  attention_f32.cuh's wgmma kernel (q and k as column slices
+//              of the packed [M, 2D] product; cross: the 17 keys with the
+//              key mask)
+//   op = o W_out^T + b_out                          gemm_wgmma_f32.cuh
 //   ln_res     y = x + drop(LN_post(op))            dropout over (b*L + l,
 //              column), ops/dropout.py's mask, x * keep / (1 - rate) in f32
+// No product falls back to mma.sync.
 #include "attention_f32.cuh"
-#include "gemm_f32.cuh"
+#include "gemm_wgmma_f32.cuh"
 #include "ln_f32.cuh"
 
 namespace crog {
@@ -95,18 +100,21 @@ __global__ void __launch_bounds__(kLnF32Warps * 32)
 
 static int row_blocks(int rows) { return (rows + kLnF32Warps - 1) / kLnF32Warps; }
 
+// c = a W^T + bias over m rows, a [m, D] and W [n, D] as stored (rows of
+// in_w or out_w), W split first into its planes at `planes` (2 n D floats)
 template <int PRODUCT>
-static cudaError_t gemm(const float* a, const float* w, const float* bias, float* c, int m, int n,
-                        long long ldc, cudaStream_t s) {
-  GemmF32 p{a, w, bias, c, kBlkD, kBlkD, ldc, m, n, kBlkD};
-  return launch_gemm_f32<PRODUCT>(p, s);
+static cudaError_t gemm(const float* a, const float* w, float* planes, const float* bias,
+                        float* c, int m, int n, long long ldc, cudaStream_t s) {
+  return gw_weight_gemm<false, kGwBias, PRODUCT>(a, kBlkD, w, planes, c, ldc, bias, m, n, kBlkD,
+                                                 Dropout{0u, 0u, 1.0f}, s);
 }
 
 }  // namespace crog
 
 // table: x [B, L, D], pos [L, D], in_w [3D, D], in_b [3D], out_w [D, D],
 // out_b [D], g_pre, b_pre, g_post, b_post [D], y [B, L, D]; work: xl, qin
-// [M, D], qk [M, 2D], v, o, op [M, D] (M = B*L)
+// [M, D], qk [M, 2D], v, o, op [M, D] (M = B*L), planes [8 D D] (the TF32
+// planes of in_w's first 2D rows, its last D rows and out_w, in order)
 extern "C" int crog_self_block_f32_fwd(const void* const* table, int b, int l, int d, int heads,
                                        unsigned seed, unsigned thresh, float scale,
                                        void* stream) {
@@ -118,15 +126,17 @@ extern "C" int crog_self_block_f32_fwd(const void* const* table, int b, int l, i
   const float *x = in(0), *pos = in(1), *in_w = in(2), *in_b = in(3), *out_w = in(4),
               *out_b = in(5), *g_pre = in(6), *b_pre = in(7), *g_post = in(8), *b_post = in(9);
   float *y = out(10), *xl = out(11), *qin = out(12), *qk = out(13), *v = out(14), *o = out(15),
-        *op = out(16);
+        *op = out(16), *planes = out(17);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m = b * l;
+  const long long dd = (long long)d * d;
 
   ln_pos_f32_kernel<true><<<row_blocks(m), kLnF32Warps * 32, 0, s>>>(x, g_pre, b_pre, pos, l,
                                                                        xl, qin, m);
   cudaError_t err = cudaGetLastError();
-  if (err == cudaSuccess) err = gemm<kProdProj>(qin, in_w, in_b, qk, m, 2 * d, 2 * d, s);
-  if (err == cudaSuccess) err = gemm<kProdProj>(xl, in_w + 2 * d * d, in_b + 2 * d, v, m, d, d, s);
+  if (err == cudaSuccess) err = gemm<kProdProj>(qin, in_w, planes, in_b, qk, m, 2 * d, 2 * d, s);
+  if (err == cudaSuccess)
+    err = gemm<kProdProj>(xl, in_w + 2 * dd, planes + 4 * dd, in_b + 2 * d, v, m, d, d, s);
   if (err != cudaSuccess) return (int)err;
   AttnF32Args a;
   a.q = qk;
@@ -143,7 +153,8 @@ extern "C" int crog_self_block_f32_fwd(const void* const* table, int b, int l, i
   a.v_rs = a.o_rs = d;
   a.scale = kAttnScale;
   err = launch_attention_f32(a, b, s);
-  if (err == cudaSuccess) err = gemm<kProdOut>(o, out_w, out_b, op, m, d, d, s);
+  if (err == cudaSuccess)
+    err = gemm<kProdOut>(o, out_w, planes + 6 * dd, out_b, op, m, d, d, s);
   if (err != cudaSuccess) return (int)err;
   ln_residual_f32_kernel<<<row_blocks(m), kLnF32Warps * 32, 0, s>>>(
       op, x, g_post, b_post, Dropout{seed, thresh, scale}, y, m);
@@ -152,7 +163,8 @@ extern "C" int crog_self_block_f32_fwd(const void* const* table, int b, int l, i
 
 // table: x [B, L, D], txt [B, T, D], pos [L, D], tpos [T, D], mask [B, T]
 // (additive f32), in_w, in_b, out_w, out_b, g_pre, b_pre, g_post, b_post,
-// y [B, L, D]; work: qin, q [M, D], kin, k, v [B*T, D], o, op [M, D]
+// y [B, L, D]; work: qin, q [M, D], kin, k, v [B*T, D], o, op [M, D],
+// planes [8 D D] (the TF32 planes of W_q, W_k, W_v and out_w, in order)
 extern "C" int crog_cross_block_f32_fwd(const void* const* table, int b, int l, int t, int d,
                                         int heads, unsigned seed, unsigned thresh, float scale,
                                         void* stream) {
@@ -165,19 +177,21 @@ extern "C" int crog_cross_block_f32_fwd(const void* const* table, int b, int l, 
               *in_w = in(5), *in_b = in(6), *out_w = in(7), *out_b = in(8), *g_pre = in(9),
               *b_pre = in(10), *g_post = in(11), *b_post = in(12);
   float *y = out(13), *qin = out(14), *q = out(15), *kin = out(16), *k = out(17), *v = out(18),
-        *o = out(19), *op = out(20);
+        *o = out(19), *op = out(20), *planes = out(21);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m = b * l, mt = b * t;
+  const long long dd = (long long)d * d;
 
   ln_pos_f32_kernel<true><<<row_blocks(m), kLnF32Warps * 32, 0, s>>>(x, g_pre, b_pre, pos, l,
                                                                        nullptr, qin, m);
   ln_pos_f32_kernel<false><<<row_blocks(mt), kLnF32Warps * 32, 0, s>>>(
       txt, nullptr, nullptr, tpos, t, nullptr, kin, mt);
   cudaError_t err = cudaGetLastError();
-  if (err == cudaSuccess) err = gemm<kProdProj>(qin, in_w, in_b, q, m, d, d, s);
-  if (err == cudaSuccess) err = gemm<kProdProj>(kin, in_w + d * d, in_b + d, k, mt, d, d, s);
+  if (err == cudaSuccess) err = gemm<kProdProj>(qin, in_w, planes, in_b, q, m, d, d, s);
   if (err == cudaSuccess)
-    err = gemm<kProdProj>(txt, in_w + 2 * d * d, in_b + 2 * d, v, mt, d, d, s);
+    err = gemm<kProdProj>(kin, in_w + dd, planes + 2 * dd, in_b + d, k, mt, d, d, s);
+  if (err == cudaSuccess)
+    err = gemm<kProdProj>(txt, in_w + 2 * dd, planes + 4 * dd, in_b + 2 * d, v, mt, d, d, s);
   if (err != cudaSuccess) return (int)err;
   AttnF32Args a;
   a.q = q;
@@ -193,7 +207,8 @@ extern "C" int crog_cross_block_f32_fwd(const void* const* table, int b, int l, 
   a.q_rs = a.k_rs = a.v_rs = a.o_rs = d;
   a.scale = kAttnScale;
   err = launch_attention_f32(a, b, s);
-  if (err == cudaSuccess) err = gemm<kProdOut>(o, out_w, out_b, op, m, d, d, s);
+  if (err == cudaSuccess)
+    err = gemm<kProdOut>(o, out_w, planes + 6 * dd, out_b, op, m, d, d, s);
   if (err != cudaSuccess) return (int)err;
   ln_residual_f32_kernel<<<row_blocks(m), kLnF32Warps * 32, 0, s>>>(
       op, x, g_post, b_post, Dropout{seed, thresh, scale}, y, m);

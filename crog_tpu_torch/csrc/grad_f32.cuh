@@ -10,7 +10,7 @@
 //
 // Every product is mma.sync m16n8k8 TF32 with the 3xTF32 split (tf32.cuh)
 // and each 32-deep K slice accumulates into fresh registers that an IEEE
-// f32 add joins to the running sum, as gemm_f32.cuh does: the tensor cores'
+// f32 add joins to the running sum, as gemm_wgmma_f32.cuh does: the tensor cores'
 // truncating accumulation then sees 12 additions, not one per 8 of K (a dW
 // sums over 16224 rows).  A split writes its partial [M, N]; the partials
 // are summed in split order by `reduce_parts_kernel`, and a column sum adds

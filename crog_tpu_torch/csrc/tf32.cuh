@@ -1,6 +1,6 @@
 // f32 products on the tensor cores: TF32 with the 3xTF32 split, on
 // mma.sync m16n8k8 in K5/K5b (lincomb.cu), the fp32 forward kernels
-// (attention_f32.cuh, gemm_f32.cuh) and the fp32 backward kernels
+// (attention_f32.cuh, gemm_wgmma_f32.cuh) and the fp32 backward kernels
 // (grad_f32.cuh, s2dconv_f32.cu), and on wgmma in the fp32 attention
 // backward (attention_bwd_f32.cuh) and the fp32 FFN (gemm_wgmma_f32.cuh).
 //

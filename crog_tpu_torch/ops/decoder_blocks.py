@@ -21,10 +21,12 @@ backward P and dS rounded before their products, the LN backward on f32
 x-hat, dW summed in f32 and rounded once to the compute dtype.
 
 On fp32 x (a model built with ``compute_dtype: float32``) the forward
-launches K2-f32 / K3-f32 (csrc/decoder_blocks_f32.cu) and the backward
-K2b-f32 / K3b-f32 (csrc/decoder_blocks_bwd_f32.cu): every product 3xTF32,
-nothing rounded to bf16, the twins' f32 function; the backward reads the
-intermediates the fp32 forward wrote.
+launches K2-f32 / K3-f32 (csrc/decoder_blocks_f32.cu: its products on
+csrc/gemm_wgmma_f32.cuh, its attention step on csrc/attention_f32.cuh's
+wgmma kernel) and the backward K2b-f32 / K3b-f32
+(csrc/decoder_blocks_bwd_f32.cu): every product 3xTF32, nothing rounded to
+bf16, the twins' f32 function; the backward reads the intermediates the
+fp32 forward wrote.
 
 Dropout (``rate`` > 0, training) uses the counter-based mask of
 ops/dropout.py keyed by ``seed``, over rows b*L + l and columns of D.
@@ -75,6 +77,14 @@ def cross_proj_segments(m: int, mt: int, d: int = KERNEL_D):
     """K3's products: q from qin over the M image rows; k from kin and v
     from the text over the MT = B*T text rows."""
     return ((m, 0, d), (mt, d, d), (mt, 2 * d, d))
+
+
+def f32_planes(d: int = KERNEL_D) -> int:
+    """Floats of K2-f32's and K3-f32's planes workspace: the TF32 hi and lo
+    planes (2 N D floats) of each product's weight rows, end to end in
+    launch order (csrc/decoder_blocks_f32.cu): self [q | k] (N = 2D), v,
+    out-projection; cross q, k, v, out-projection; 8 D^2 either way."""
+    return 2 * (3 * d + d) * d
 
 
 def out_schedule(m: int):
@@ -314,7 +324,8 @@ def self_block_fwd(x, pos, in_w, in_b, out_w, out_b, g_pre, b_pre, g_post, b_pos
     stream = cuda_build.stream_ptr(x.device)
     if x.dtype == torch.float32:
         ws = (new(d), new(d), new(2 * d), new(d), new(d), new(d))  # xl, qin, qk, v, o, op
-        table = cuda_build.ptr_table(x, posb, wi, bi, wo, bo, gp, bp, gq, bq, y, *ws)
+        planes = torch.empty(f32_planes(d), dtype=torch.float32, device=x.device)
+        table = cuda_build.ptr_table(x, posb, wi, bi, wo, bo, gp, bp, gq, bq, y, *ws, planes)
         rc = lib.crog_self_block_f32_fwd(table, b, l, d, nheads, dseed, thresh, scale,
                                          stream)
         cuda_build.check_launch(lib, rc, "crog_self_block_f32_fwd")
@@ -456,8 +467,9 @@ def cross_block_fwd(x, txt, pos, tpos, pad_mask, in_w, in_b, out_w, out_b, g_pre
     if x.dtype == torch.float32:
         qin, q, kin, k, v, o, op = (new(b * l), new(b * l), new(b * t), new(b * t),
                                     new(b * t), new(b * l), new(b * l))
+        planes = torch.empty(f32_planes(d), dtype=torch.float32, device=x.device)
         table = cuda_build.ptr_table(x, kv, posb, tposb, mask, wi, bi, wo, bo, gp, bp, gq,
-                                     bq, y, qin, q, kin, k, v, o, op)
+                                     bq, y, qin, q, kin, k, v, o, op, planes)
         rc = lib.crog_cross_block_f32_fwd(table, b, l, t, d, nheads, dseed, thresh, scale,
                                           stream)
         cuda_build.check_launch(lib, rc, "crog_cross_block_f32_fwd")

@@ -664,13 +664,18 @@ def exact_f32(card):
     (169, 169, 32, False, "strided"), (676, 17, 8, True, "plain"),  # K3's step
     (676, 676, 8, False, "packed"), (70, 300, 4, True, "plain"),  # K2's step
     (100, 768, 8, True, "strided"), (64, 1, 8, False, "plain"),
-    (65, 17, 8, "all", "plain"), (1, 5, 2, False, "packed")])
+    (65, 17, 8, "all", "plain"), (1, 5, 2, False, "packed"),
+    # on and just off the 64-key tiles and 64-query CTAs
+    (63, 63, 2, False, "plain"), (64, 64, 2, True, "packed"), (65, 65, 2, False, "strided"),
+    (129, 676, 2, True, "plain")])
 def test_cuda_attention_f32_matches_twin(exact_f32, l, lk, heads, masked, layout):
-    """K1-f32 against its fp32 twin.  "packed": q, k and v are column thirds
-    of one [B, L, 3D] projection (row stride 3D); "strided": they are the
-    first rows of longer sequences (batch stride past L rows).  ``masked``
-    as in the bf16 test; "all" masks every key of sample 0, whose rows are
-    then the mean of v."""
+    """K1-f32 against its fp32 twin, o and the row logsumexp (the one
+    attention forward of K1-f32, K2-f32 and K3-f32; K1b-f32 reads the
+    logsumexp), a second call with the logsumexp giving o's bits again.
+    "packed": q, k and v are column thirds of one [B, L, 3D] projection
+    (row stride 3D); "strided": they are the first rows of longer sequences
+    (batch stride past L rows).  ``masked`` as in the bf16 test; "all"
+    masks every key of sample 0, whose rows are then the mean of v."""
     d = heads * 64
     if layout == "packed":
         qkv = _f32(1, 2, max(l, lk), 3 * d)
@@ -686,10 +691,13 @@ def test_cuda_attention_f32_matches_twin(exact_f32, l, lk, heads, masked, layout
         mask = torch.where(torch.arange(lk)[None] >= keep, -1e30, 0.0).to(exact_f32)
     before = A.fused_attention.launches_f32
     got = A.fused_attention(q, k, v, heads, mask)
-    ref = A.attention_plain(q, k, v, heads, mask)
+    again, lse = A.fused_attention(q, k, v, heads, mask, with_lse=True)
+    ref, ref_lse = A.attention_plain(q, k, v, heads, mask, with_lse=True)
     torch.cuda.synchronize()
-    assert got.dtype == torch.float32 and A.fused_attention.launches_f32 == before + 1
+    assert got.dtype == torch.float32 and A.fused_attention.launches_f32 == before + 2
     assert _rel_l2(got, ref) <= F32_REL
+    assert lse.shape == (2, heads, l) and _rel_l2(lse, ref_lse) <= F32_REL
+    assert torch.equal(got, again)
     if masked == "all":
         assert _rel_l2(got[0], v[0].mean(0).expand(l, d)) <= F32_REL
 
@@ -707,7 +715,12 @@ def _f32_block(b, l, t, seed=60, d=512):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,l,t", [(24, 676, 17), (3, 301, 17), (1, 676, 9), (2, 5, 1)])
+@pytest.mark.parametrize("b,l,t", [
+    (24, 676, 17), (3, 301, 17), (1, 676, 9), (2, 5, 1),
+    # B*L on and off the GEMM's 128-row tiles and the 64-row warpgroups
+    (1, 1, 17), (1, 63, 17), (1, 64, 17), (1, 65, 17), (1, 129, 17),
+    # the cross block's k and v over B*T = 408 text rows, not a multiple of 128
+    (24, 5, 17)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_cuda_block_f32_kernels_match_twins(exact_f32, b, l, t, rate):
     """K2-f32 and K3-f32 against their fp32 twins, in eval and with
@@ -724,6 +737,37 @@ def test_cuda_block_f32_kernels_match_twins(exact_f32, b, l, t, rate):
         assert got.dtype == torch.float32 and torch.isfinite(got).all()
         assert _rel_l2(got, ref) <= F32_REL
         assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_cuda_block_f32_autograd_reads_the_forwards_intermediates(exact_f32, rate):
+    """Through autograd at the main path's shape (B 24, 676 tokens, 17 text
+    tokens): decoder_self_block and decoder_cross_block on fp32 leaves run
+    K2-f32 / K3-f32 forward and K2b-f32 / K3b-f32 backward on the
+    intermediates that forward saved (the wgmma products' and the wgmma
+    attention's), once each; every gradient within F32_BWD_REL of the twins'
+    (self_block_bwd_plain, cross_block_bwd_plain)."""
+    x, txt, pos, tpos, pad, w = _f32_block(24, 676, 17)
+    dy = _f32(98, 24, 676, 512)
+    counters = [(fn, "launches_f32") for fn in (DB.self_block_fwd, DB.self_block_bwd,
+                                                DB.cross_block_fwd, DB.cross_block_bwd)]
+    before = [getattr(fn, a) for fn, a in counters]
+    leaves = [t.clone().requires_grad_() for t in (x, *w)]
+    with torch.enable_grad():
+        y = DB.decoder_self_block(leaves[0], pos, *leaves[1:], 8, 7, rate)
+    got = torch.autograd.grad(y, leaves, dy)
+    ref = DB.self_block_bwd_plain(x, pos, *w, dy, 8, 7, rate)
+    _close_rel(got, ref, ("dx", "d_in_w", "d_in_b", "d_out_w", "d_out_b", "d_g_pre",
+                          "d_b_pre", "d_g_post", "d_b_post"))
+    leaves = [t.clone().requires_grad_() for t in (x, txt, *w)]
+    with torch.enable_grad():
+        y = DB.decoder_cross_block(leaves[0], leaves[1], pos, tpos, pad, *leaves[2:], 8, 8, rate)
+    got = torch.autograd.grad(y, leaves, dy)
+    ref = DB.cross_block_bwd_plain(x, txt, pos, tpos, pad, *w, dy, 8, 8, rate)
+    _close_rel(got, ref, ("dx", "dtxt", "d_in_w", "d_in_b", "d_out_w", "d_out_b", "d_g_pre",
+                          "d_b_pre", "d_g_post", "d_b_post"))
+    assert [getattr(fn, a) - b0 for (fn, a), b0 in zip(counters, before)] == [1, 1, 1, 1]
 
 
 # K4-f32's and K4b-f32's row counts: the main path's 16224 (two dW chunks),

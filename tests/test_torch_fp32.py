@@ -267,6 +267,51 @@ def test_every_entry_point_has_a_signature_with_its_argument_count():
     assert {"attention_f32", "decoder_blocks_f32", "ffn_f32"} <= set(sources)
 
 
+@pytest.mark.parametrize("kid", ["K2-f32", "K3-f32"])
+def test_f32_block_products_fill_the_planes_workspace(kid):
+    """K2-f32's and K3-f32's products as chip_smoke splits them, in launch
+    order: their weights' rows are in_w's 3D and out_w's D, whose TF32 hi
+    and lo planes (2 N D floats a product) fill the planes workspace the
+    wrapper allocates, ops/decoder_blocks.py:f32_planes = 8 D^2 floats;
+    the out-projection comes last, and only K3-f32's k and v run over the
+    B*T text rows."""
+    from crog_tpu_torch.ops import decoder_blocks as DB
+
+    d = DB.KERNEL_D
+    prods = _chip_smoke().F32_BLOCK_PRODUCTS[kid]
+    assert sum(2 * cols * d * d for *_, cols in prods) == DB.f32_planes() == 8 * d * d
+    assert prods[-1] == ("out-projection", "m", 1)
+    text = ("k", "v") if kid == "K3-f32" else ()
+    assert [rows for _, rows, _ in prods] == ["mt" if p[0] in text else "m" for p in prods]
+
+
+def test_f32_parts_split_each_launch_sequence_by_name():
+    """chip_smoke.F32_PARTS: the n-th GEMM launch of an fp32 kernel is its
+    n-th product, the attention kernel its attention step, whatever tree
+    launched them (gemm_wgmma_f32.cuh and the wgmma attention, or the
+    mma.sync kernels before them), and nothing is lost."""
+    cs = _chip_smoke()
+    new = [("ln_pos_f32_kernel<true>", 1.0), ("gw_split_b_kernel<0, false>", 0.5),
+           ("gemm_wgmma_f32_kernel<0, false, 1>", 4.0), ("gw_split_b_kernel<0, false>", 0.5),
+           ("gemm_wgmma_f32_kernel<0, false, 1>", 2.0), ("attn_fwd_f32_kernel<0, 0>", 8.0),
+           ("gw_split_b_kernel<0, false>", 0.5), ("gemm_wgmma_f32_kernel<0, false, 1>", 2.0),
+           ("ln_residual_f32_kernel", 1.0)]
+    old = [("ln_pos_f32_kernel<true>", 1.0), ("gemm_f32_kernel<0>", 5.0),
+           ("gemm_f32_kernel<0>", 3.0), ("attn_f32_kernel<0, 0>", 9.0),
+           ("gemm_f32_kernel<0>", 3.0), ("ln_residual_f32_kernel", 1.0)]
+    for seq, planes in ((new, 1.5), (old, None)):
+        parts = dict(cs.F32_PARTS["K2-f32"](seq))
+        want = {"ln_pos": 1.0, "q | k": seq[2 if planes else 1][1], "v": 2.0 if planes else 3.0,
+                "attention step": 8.0 if planes else 9.0, "out-projection": 2.0 if planes else 3.0,
+                "ln_residual": 1.0}
+        if planes:
+            want["B's TF32 planes"] = planes
+        assert parts == want
+        assert sum(parts.values()) == sum(t for _, t in seq)
+    assert dict(cs.F32_PARTS["K1-f32"]([("attn_fwd_f32_kernel<0, 0>", 0.2)])) == {
+        "attention step": 0.2}
+
+
 @pytest.mark.parametrize("dtype,aten,kernels", [
     (torch.bfloat16, work.PEAK_BF16_FLOPS, work.PEAK_BF16_FLOPS),
     (torch.float32, work.PEAK_F32_FLOPS, work.PEAK_F32_TC_FLOPS),

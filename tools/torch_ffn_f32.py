@@ -1,14 +1,21 @@
-"""K4-f32 and K4b-f32 on one card, product by product, beside fp32 cuBLAS.
+"""The fp32 kernels K1-f32..K4-f32 and K4b-f32 on one card, product by
+product, beside fp32 cuBLAS and SDPA.
 
     python3 tools/torch_ffn_f32.py [--tree DIR ...] [--rounds N]
 
-On chip_smoke.py's phase-18 inputs (the main path's M = 16224 rows, D 512,
-F 2048, full fp32 values, dropout 0.1) runs ``chip_smoke.f32_ffn_products``:
-K4-f32 (csrc/ffn_f32.cu) and K4b-f32 (csrc/ffn_bwd_f32.cu) by the
-profiler's device time per call, split by launch order into their products
-(the hidden and y; the recompute, dhn, dx, dW1 and dW2), the LayerNorm
-kernels and the fixed-order sums, beside fp32 cuBLAS (TF32 off) at each
-product's shape.  Each ``--tree DIR`` (an unpacked other commit; default
+On chip_smoke.py's phase-18 inputs (the main path's B 24: M = 16224 rows,
+D 512, F 2048, 8 heads over 676 tokens, 17 text tokens; the attention pool's
+169 tokens of 32 heads; full fp32 values, dropout 0.1) runs
+``chip_smoke.f32_block_products`` and ``chip_smoke.f32_ffn_products``:
+K1-f32 (csrc/attention_f32.cu), K2-f32 and K3-f32
+(csrc/decoder_blocks_f32.cu), K4-f32 (csrc/ffn_f32.cu) and K4b-f32
+(csrc/ffn_bwd_f32.cu) by the profiler's device time per call, split by
+launch order into their products (K2-f32's [q | k], v and out-projection;
+K3-f32's q, k, v and out-projection; the attention steps; K4-f32's hidden
+and y; K4b-f32's recompute, dhn, dx, dW1 and dW2), the weights' TF32
+planes, the LayerNorm kernels and the fixed-order sums, beside fp32 cuBLAS
+(TF32 off) at each product's shape and SDPA's fp32 forward at each
+attention step's.  Each ``--tree DIR`` (an unpacked other commit; default
 this checkout) is measured in a process of its own with its own
 ``crog_tpu_torch`` (built into its own ``_build``) and this checkout's
 ``chip_smoke.py`` for the inputs, the split and the profiler, the trees in
@@ -40,7 +47,7 @@ def load_chip_smoke():
 
 def one_tree(tree: str) -> dict:
     """This process's readings with ``tree``'s crog_tpu_torch: {"kernel
-    product": [device ms, cuBLAS device ms]}."""
+    product": [device ms, cuBLAS or SDPA device ms]}."""
     sys.path[:0] = [os.path.abspath(tree), ROOT]
     import torch
 
@@ -50,7 +57,8 @@ def one_tree(tree: str) -> dict:
     cs = load_chip_smoke()
     inp = cs.kernel_inputs(torch.device("cuda", 0), dtype=torch.float32)
     with torch.no_grad():
-        got = cs.f32_ffn_products(inp, cs.smi_line())
+        got = cs.f32_block_products(inp, cs.smi_line())
+        got.update(cs.f32_ffn_products(inp, cs.smi_line()))
     return {f"{kid} {p}": list(v) for (kid, p), v in got.items()}
 
 
@@ -89,7 +97,7 @@ def main(argv=None) -> int:
         runs.append({"tree": tree, "readings": got})
         shown = lambda t: "not measured" if t is None else f"{t:.4f}"  # noqa: E731
         print(f"[ffn-f32] {tree}: " + "; ".join(
-            f"{k} {shown(ms)} ms (cuBLAS {shown(lib)})" for k, (ms, lib) in got.items())
+            f"{k} {shown(ms)} ms (library {shown(lib)})" for k, (ms, lib) in got.items())
             + f"; {smi}", flush=True)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "ffn_f32.json"), "w") as fh:
