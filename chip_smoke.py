@@ -22,7 +22,7 @@ any failure propagates and the exit code is not 0:
      K4b's cluster kernels and their y / dx GEMM; K2's and K3's projection
      GEMM and out-projection cluster kernel; K2b's and K3b's dX and dW
      GEMMs; K1b's one-CTA-per-head kernel; K6; K6b's cluster kernel;
-     K6-f32's and K6b-f32's gathered GEMMs);
+     K6-f32's and K6b-f32's wgmma GEMM with a gathered A);
      then the readers' host ops from crog_tpu_torch/native/hostops.cpp (g++
      -O3 -march=native -ffp-contract=off), with the build time;
   3. hold each kernel against its plain PyTorch twin on the card, in bf16,
@@ -111,7 +111,8 @@ any failure propagates and the exit code is not 0:
      twice with equal bits, their twin controls above the limits, each
      timed beside its twin, cuDNN's fp32 conv of the blocked tensor (K6b:
      conv2d_weight of it) and cuDNN's plain 3x3 conv of the unblocked 208^2
-     tensor; (b) crog_synthetic_r50.yaml with compute_dtype float32 (the
+     tensor, and by device time split into product, planes and sums beside
+     both cuDNN convs' device time; (b) crog_synthetic_r50.yaml with compute_dtype float32 (the
      bf16 model's seeded state_dict), on the plain stem convs and on the
      fused stem: one forward at batch 1 each on the card against the CPU in
      fp32, each logit map within F32_E2E_TOL, launching K1-f32 once,
@@ -1356,6 +1357,18 @@ def check_lincomb(device, timed: bool = True):
     return records
 
 
+# the stem's two blocked convs on the main path: (name, ci, co)
+STEM_CONVS = (("conv2", 32, 32), ("conv3", 32, 64))
+
+
+def s2d_launch_widths(label: str):
+    """(input, output) channels of an ``s2dconv_cases`` launch: a conv's
+    forward and wgrad take (ci, co), its dgrad (co, ci)."""
+    name, kind = label.split()
+    ci, co = dict((n, (a, b)) for n, a, b in STEM_CONVS)[name]
+    return (co, ci) if kind == "dgrad" else (ci, co)
+
+
 def s2dconv_cases(device, b=BATCH, cells=104, dtype=None):
     """K6/K6b's launches in one train step of the main path (batch 24,
     416^2: the stem's 2x2-blocked tensors have 104x104 cells; conv2 ci = co
@@ -1377,7 +1390,7 @@ def s2dconv_cases(device, b=BATCH, cells=104, dtype=None):
     bf = torch.bfloat16 if dtype is None else dtype
     nchw = lambda t: t.permute(0, 3, 1, 2)
     k6, k6b = [], []
-    for name, ci, co in (("conv2", 32, 32), ("conv3", 32, 64)):
+    for name, ci, co in STEM_CONVS:
         x = torch.relu(torch.randn(b, cells, cells, 4 * ci, generator=g)).to(device, bf)
         dy = torch.randn(b, cells, cells, 4 * co, generator=g).to(device, bf)
         w = (torch.randn(3, 3, ci, co, generator=g) * (2.0 / (9 * ci)) ** 0.5).to(device)
@@ -2397,8 +2410,80 @@ def fp32_s2dconv(device, timed: bool = True):
                                          by, "[fp32]", " fp32")
         if timed:
             s2d_step_line(rec, unblocked_ms, "[fp32]", " fp32")
+            f32_s2d_products({name: cases}, smi_line())
         records[n32] = rec
     return records
+
+
+def s2d_f32_parts(seq):
+    """The kernels of one K6-f32 or K6b-f32 launch in launch order ->
+    [(part, device ms)]: the product (gemm_wgmma_f32.cuh's kernel, or an
+    older tree's s2dconv_f32 kernel), the split of wp or dy into TF32
+    planes, the fixed-order sum of K6b-f32's partials."""
+    parts = {}
+    for name, t in seq:
+        if "split_b" in name:
+            part = "planes"
+        elif "reduce_parts" in name:
+            part = "sums"
+        elif "gemm" in name or "s2dconv" in name:
+            part = "product"
+        else:
+            part = "the rest"
+        parts[part] = parts.get(part, 0.0) + t
+    return list(parts.items())
+
+
+def s2d_f32_executed(label: str, b=BATCH, cells=104) -> float:
+    """The FLOPs K6-f32 or K6b-f32 executes at an ``s2dconv_cases``
+    launch: the whole packed [16ci, 4co] weight over every cell, less the
+    slot-rows K6-f32 skips in each 128-column tile (ops/s2dconv.py
+    fwd_f32_slot_rows); K6b-f32 forms every block."""
+    from crog_tpu_torch.ops import s2dconv as SC
+
+    c_in, c_out = s2d_launch_widths(label)
+    full = 2.0 * b * cells * cells * 16 * c_in * 4 * c_out
+    slot_rows = getattr(SC, "fwd_f32_slot_rows", None)  # an older tree skips none
+    if label.endswith("wgrad") or slot_rows is None:
+        return full
+    rows = [slot_rows(c_out, n0) for n0 in range(0, 4 * c_out, 128)]
+    return full * sum(hi - lo for lo, hi in rows) / (4 * len(rows))
+
+
+def f32_s2d_products(cases, smi: str):
+    """Phase 18 (a), the stem: each K6-f32 and K6b-f32 launch of a train
+    step (``cases``: ``s2dconv_cases`` at fp32) by the profiler's device
+    time, split in launch order (``s2d_f32_parts``) into the product, wp's
+    or dy's TF32 planes and the fixed-order sums, with the product's rate
+    over the FLOPs it executes (``s2d_f32_executed``) and its bound (the
+    real taps), beside cuDNN's fp32 conv of the blocked and of the
+    unblocked 208^2 tensor (``conv2d_weight`` for K6b-f32; TF32 off); every
+    line names the card.  Returns {(kernel, "label part"): (device ms,
+    cuDNN blocked device ms)}, the part "device" for the launch's whole
+    device time, None where the profiler saw none."""
+    shown = lambda t: "not measured" if t is None else f"{t:.4f} ms"  # noqa: E731
+    out = {}
+    for name, launches in cases.items():
+        kid = "K6b-f32" if name == "s2dconv_wgrad" else "K6-f32"
+        call = "conv2d_weight" if kid == "K6b-f32" else "F.conv2d"
+        for label, kern, _, lib, lib_plain, flops, nb, _ in launches:
+            dev, _, seq = device_ms(kern)
+            lib_ms, ub_ms = device_ms(lib)[0], device_ms(lib_plain)[0]
+            parts = dict(s2d_f32_parts(seq)) if seq is not None else {}
+            prod = parts.get("product")
+            rate = ("" if prod is None else
+                    f", {s2d_f32_executed(label) / prod / 1e9:.1f} TFLOP/s executed, "
+                    f"{flops / prod / 1e9:.1f} real taps")
+            bms, by = bound(flops, nb, PEAK_F32_TC_FLOPS)
+            print(f"[fp32] {kid} {label}: device {shown(dev)} (" + ", ".join(
+                f"{p} {t:.4f}" for p, t in parts.items()) + f"{rate}; bound {bms:.4f} ms by "
+                f"{by}); cuDNN fp32 {call} blocked {shown(lib_ms)}, unblocked 208^2 "
+                f"{shown(ub_ms)}; {smi}", flush=True)
+            out[kid, f"{label} device"] = (dev, lib_ms)
+            for p in ("product", "planes", "sums"):
+                if p in parts:
+                    out[kid, f"{label} {p}"] = (parts[p], None)
+    return out
 
 
 def ffn_f32_relu_decision(args, seed: int, rate: float):
@@ -4644,8 +4729,8 @@ def redesigned_resources(reports):
     K4's and K4b's cluster kernels and their y / dx GEMM, K2b's and K3b's
     dX and dW GEMMs, K1b's one-CTA-per-head kernel, the two-kernel
     attention backward that K2b and K3b run, K6's persistent conv, K6b's
-    cluster kernel, K6-f32's and K6b-f32's gathered GEMMs, the wgmma GEMM
-    of K2-f32, K3-f32, K4-f32 and K4b-f32, the fp32 attention forward of
+    cluster kernel, the wgmma GEMM of K2-f32, K3-f32, K4-f32 and K4b-f32 and,
+    with a gathered A, of K6-f32 and K6b-f32, the fp32 attention forward of
     K1-f32, K2-f32 and K3-f32, K5's and K5b's region kernels), and at the main
     path's
     shapes their registers, shared memory per CTA (static + dynamic) and
@@ -4666,7 +4751,7 @@ def redesigned_resources(reports):
                       ("attention_bwd", ("attn_bwd_head_kernel", "attn_bwd_rows_kernel",
                                          "attn_bwd_cols_kernel")),
                       ("s2dconv", ("s2dconv_fwd_kernel", "s2dconv_wgrad_kernel")),
-                      ("s2dconv_f32", ("s2dconv_f32_fwd_kernel", "s2dconv_f32_wgrad_kernel")),
+                      ("s2dconv_f32", ("gemm_wgmma_f32",)),
                       ("ffn_f32", ("gemm_wgmma_f32",)), ("ffn_bwd_f32", ("gemm_wgmma_f32",)),
                       ("attention_f32", ("attn_fwd_f32",)),
                       ("decoder_blocks_f32", ("gemm_wgmma_f32", "attn_fwd_f32")),
@@ -4744,10 +4829,11 @@ def redesigned_resources(reports):
     lib = cuda_build.load("s2dconv_f32")
     for ci in (32, 64):
         cuda_build.check_launch(lib, lib.crog_s2dconv_f32_attrs(ci, ptr), "attrs")
-        for i, kid in enumerate(("K6-f32", "K6b-f32")):
-            print(f"[build] {kid} kernel ci={ci} (128 x 128 tiles, gathered patch): "
-                  f"{out[3 * i]} registers, {out[3 * i + 1]} bytes shared memory per CTA, "
-                  f"{out[3 * i + 2]} bytes local (spill) per thread", flush=True)
+        for i, (kid, policy) in enumerate((("K6-f32", "S2dPatch"), ("K6b-f32", "S2dPatchT"))):
+            print(f"[build] {kid} kernel ci={ci} (gemm_wgmma_f32_kernel with the {policy} "
+                  f"A policy: the patch gathered by shifted TMA boxes of x, masked in "
+                  f"registers): {out[3 * i]} registers, {out[3 * i + 1]} bytes shared memory "
+                  f"per CTA, {out[3 * i + 2]} bytes local (spill) per thread", flush=True)
 
 
 def main(argv=None) -> int:

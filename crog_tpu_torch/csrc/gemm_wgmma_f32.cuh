@@ -1,14 +1,18 @@
-// The fp32 FFN's products on Hopper's wgmma: C = A B (+ an epilogue) with
-// f32 accuracy, every product 3xTF32 (tf32.cuh).  A is read as stored,
-// [M, K] (AT false), or transposed from a [K, M] matrix (AT true: dW = dY^T
-// X, K the rows of the batch, split in fixed chunks); B arrives as its TF32
-// hi and lo planes [N, K], split once per call by gw_split_b_kernel from a
-// B stored [N, K] (a torch Linear weight) or [K, N] (a weight read with its
-// rows as K, or the batch's rows).  K4-f32 (ffn_f32.cu) forms its hidden x
-// W1^T and its output hn W2^T here, K4b-f32 (ffn_bwd_f32.cu) the recompute
-// of that hidden (`ffn_hidden_f32`, the same kernels, tile, K order and
-// epilogue, so the two agree bit for bit), dhn = dy W2, dx = dh W1, dW1 =
-// dh^T x and dW2 as its transpose hn^T dy.
+// The fp32 products on Hopper's wgmma: C = A B (+ an epilogue) with f32
+// accuracy, every product 3xTF32 (tf32.cuh).  Where A comes from is the
+// kernel's A policy: a matrix read as stored, [M, K] (GwAMatrix<false>), or
+// transposed from a [K, M] matrix (GwAMatrix<true>: dW = dY^T X, K the rows
+// of the batch, split in fixed chunks), or a patch gathered from an
+// activation tensor (s2dconv_f32.cu's policies: the s2d stem's conv K6-f32
+// and its wgrad K6b-f32); B arrives as its TF32 hi and lo planes [N, K],
+// split once per call by gw_split_b_kernel from a B stored [N, K] (a torch
+// Linear weight) or [K, N] (a weight read with its rows as K, or the
+// batch's rows).  K4-f32 (ffn_f32.cu) forms its hidden x W1^T and its
+// output hn W2^T here, K4b-f32 (ffn_bwd_f32.cu) the recompute of that
+// hidden (`ffn_hidden_f32`, the same kernels, tile, K order and epilogue,
+// so the two agree bit for bit), dhn = dy W2, dx = dh W1, dW1 = dh^T x and
+// dW2 as its transpose hn^T dy; K2-f32 and K3-f32 (decoder_blocks_f32.cu)
+// their projections.
 //
 // Bound on an H100: operations, at 3xTF32's third of TF32's 495 TFLOP/s
 // (each of the six products at the main path's M = 16224, D 512, F 2048:
@@ -29,7 +33,9 @@
 //     its fragments from the TMA-landed tile (128-byte swizzled; read
 //     transposed for dW, as two boxes whose swizzle keeps the fragment
 //     loads on 32 banks) and splits them once per use, the next slice's
-//     while this slice's products run.
+//     while this slice's products run.  The policy says which of a
+//     thread's values lie inside A (GwKeep); the others are split as 0,
+//     so a gathered A with zeros off an image costs a select, no pass.
 //   - each 8-deep step is three wgmma m64n128k8 .tf32: lo.hi, hi.lo, hi.hi.
 // A CTA of two warpgroups computes a 128 x 128 tile of C, 64 rows each,
 // over 32-deep K slices that a four-stage TMA ring (an mbarrier a stage,
@@ -45,7 +51,9 @@
 // (`gw_dw_chunk`, a function of M alone), each chunk's partial written to
 // a workspace and the partials summed in chunk order (grad_f32.cuh
 // reduce_parts): no atomics, two calls give the same bits.  Rows of C past
-// M are not stored; rows of A past M and K past its chunk load zeros.
+// M are not stored; rows of A past M and K past its chunk load zeros.  The
+// grid's x runs over the tiles, columns fastest (so a row tile's CTAs start
+// together), z over the chunks of K.
 #pragma once
 
 #include "common.cuh"
@@ -69,7 +77,7 @@ constexpr int kGwSmem = kGwStages * kGwStage + 1024;
 enum GwEpilogue : int { kGwStore = 0, kGwBias = 1, kGwBiasReluDrop = 2 };
 
 struct GemmWgF32 {
-  const float* a;     // AT false: A[m][k] at a + m lda + k; true: at a + k lda + m
+  const float* a;     // GwAMatrix<false>: A[m][k] at a + m lda + k; <true>: at a + k lda + m
   const float* b;     // B's hi plane [n][k] at b + n ldb + k, its lo plane N ldb after
   float* c;           // C[m][n] of chunk z at c + z c_zs + m ldc + n
   const float* bias;  // [N]: kGwBias, kGwBiasReluDrop
@@ -77,6 +85,7 @@ struct GemmWgF32 {
   int m, n, k;
   int kchunk;    // K per chunk, a multiple of kGwK; gridDim.z chunks
   Dropout drop;  // kGwBiasReluDrop: over (row, column) of C
+  int img_h = 0, img_w = 0;  // a gathered A's image, in cells (s2dconv_f32.cu)
 };
 
 // dW's row chunks over m rows: ceil(m / kGwChunkRows) of equal length
@@ -182,49 +191,92 @@ __device__ __forceinline__ uint64_t gw_desc(uint32_t plane, int s) {
   return wgmma_desc_sw128(plane + 32 * s, 16, 8 * 128);
 }
 
+// Which of a thread's A values of a slice lie inside A: those of its tile
+// rows 16 warp + g (r0) and 16 warp + g + 8 (r1) whose k (0..31 in the
+// slice) has its bit set in `k`.  The others are split as 0.
+struct GwKeep {
+  bool r0, r1;
+  uint32_t k;
+};
+
+// An A policy tells gemm_wgmma_f32_kernel where A comes from:
+//   k_range        the CTA's K range [kbeg, kend), narrowed where A B is
+//                  known to vanish (a uniform decision of the CTA)
+//   Rows           what a thread keeps about its rows and the slice's K,
+//                  from rows(p, m0, kbeg)
+//   row(r)         the row of A and C (in the tile) that the wgmma's tile
+//                  row r holds: a permutation, so that fragment loads avoid
+//                  bank conflicts
+//   load           thread 0: the TMA loads of the slice at k0's A tile
+//   off(r, k)      the byte offset of A (wgmma tile row r, k) in the tile
+//   keep           the GwKeep of each slice in turn, k0 = kbeg, kbeg + 32,
+//                  ... (every thread of the warp calls it; it may advance Rows)
+//   map, ok        the host's TMA map of A, and whether p suits the policy
+// GwAMatrix is A as a matrix: [M, K] as stored, or (AT) [K, M] read
+// transposed in tiles of 32 rows x 128 as two boxes of [32 k][64] (a 4-d
+// view of 32-float lines, gw_krows_off).
+template <bool AT_>
+struct GwAMatrix {
+  static constexpr bool AT = AT_;
+  struct Rows {};
+  __device__ __forceinline__ static void k_range(const GemmWgF32&, int, int&, int&) {}
+  __device__ __forceinline__ static Rows rows(const GemmWgF32&, int, int) { return {}; }
+  __device__ __forceinline__ static int row(int r) { return r; }
+  __device__ __forceinline__ static void load(const CUtensorMap* map, uint32_t dst,
+                                              uint64_t* bar, const GemmWgF32&, int m0, int k0) {
+    if (AT) {
+      tma_load_4d(map, dst, bar, 0, m0 / 32, k0, 0);
+      tma_load_4d(map, dst + kGwTile / 2, bar, 0, m0 / 32 + 2, k0, 0);
+    } else {
+      tma_load_2d(map, dst, bar, k0, m0);
+    }
+  }
+  __device__ __forceinline__ static uint32_t off(int r, int k) {
+    return AT ? gw_krows_off(k, r) : gw_kmajor_off(r, k >> 2) + (k & 3) * 4;
+  }
+  __device__ __forceinline__ static GwKeep keep(const GemmWgF32&, Rows&, int) {
+    return {true, true, 0xffffffffu};
+  }
+  static bool map(CUtensorMap* amap, const GemmWgF32& p);
+  static bool ok(const GemmWgF32& p) { return !AT || p.m % kGwM == 0; }
+};
+
 // thread 0: the TMA loads of the slice at k0 into the ring stage at `st`,
-// completing `bar` by their bytes: A's tile at (m0, k0), B's hi and lo
-// planes at (n0, k0); what lies outside the matrices loads zeros
-template <bool AT>
+// completing `bar` by their bytes: A's tile (the policy's), B's hi and lo
+// planes at (n0, k0); what lies outside the tensors loads zeros
+template <class A>
 __device__ __forceinline__ void gw_load(const CUtensorMap* amap, const CUtensorMap* bmap,
                                         const CUtensorMap* blmap, uint32_t st, uint64_t* bar,
-                                        int m0, int n0, int k0) {
+                                        const GemmWgF32& p, int m0, int n0, int k0) {
   mbar_arrive_expect_tx(bar, 3 * kGwTile);
-  if (AT) {
-    tma_load_4d(amap, st + kGwOffA, bar, 0, m0 / 32, k0, 0);
-    tma_load_4d(amap, st + kGwOffA + kGwTile / 2, bar, 0, m0 / 32 + 2, k0, 0);
-  } else {
-    tma_load_2d(amap, st + kGwOffA, bar, k0, m0);
-  }
+  A::load(amap, st + kGwOffA, bar, p, m0, k0);
   tma_load_2d(bmap, st + kGwOffBh, bar, k0, n0);
   tma_load_2d(blmap, st + kGwOffBl, bar, k0, n0);
 }
 
-// A (tile row r, k) from the tile at `sa`
-template <bool AT>
-__device__ __forceinline__ float gw_a_val(const unsigned char* sa, int r, int k) {
-  const uint32_t off = AT ? gw_krows_off(k, r) : gw_kmajor_off(r, k >> 2) + (k & 3) * 4;
-  return *reinterpret_cast<const float*>(sa + off);
-}
-
 // this warp's A fragments of the slice's four 8-deep steps, split: rows
-// 16 warp + g (+ 8) of the CTA's tile, k 8 s + t (+ 4)
-template <int P, bool AT>
-__device__ __forceinline__ void gw_a_frags(const unsigned char* sa, uint32_t (&hi)[4][4],
-                                           uint32_t (&lo)[4][4]) {
+// 16 warp + g (+ 8) of the CTA's tile, k 8 s + t (+ 4); values outside A
+// (`keep`) as 0
+template <int P, class A>
+__device__ __forceinline__ void gw_a_frags(const unsigned char* sa, const GwKeep& keep,
+                                           uint32_t (&hi)[4][4], uint32_t (&lo)[4][4]) {
   const int lane = threadIdx.x & 31;
   const int r = (threadIdx.x >> 5) * 16 + (lane >> 2), t = lane & 3;
+  auto val = [&](int rr, int k, bool row) {
+    const float v = *reinterpret_cast<const float*>(sa + A::off(rr, k));
+    return row && ((keep.k >> k) & 1u) ? v : 0.0f;
+  };
 #pragma unroll
   for (int s = 0; s < 4; ++s) {
     const int k = 8 * s + t;
-    split_p<P>(gw_a_val<AT>(sa, r, k), hi[s][0], lo[s][0]);
-    split_p<P>(gw_a_val<AT>(sa, r + 8, k), hi[s][1], lo[s][1]);
-    split_p<P>(gw_a_val<AT>(sa, r, k + 4), hi[s][2], lo[s][2]);
-    split_p<P>(gw_a_val<AT>(sa, r + 8, k + 4), hi[s][3], lo[s][3]);
+    split_p<P>(val(r, k, keep.r0), hi[s][0], lo[s][0]);
+    split_p<P>(val(r + 8, k, keep.r1), hi[s][1], lo[s][1]);
+    split_p<P>(val(r, k + 4, keep.r0), hi[s][2], lo[s][2]);
+    split_p<P>(val(r + 8, k + 4, keep.r1), hi[s][3], lo[s][3]);
   }
 }
 
-template <int P, bool AT, int EPI>
+template <int P, class A, int EPI>
 __global__ void __launch_bounds__(kGwThreads, 1) gemm_wgmma_f32_kernel(
     const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap bmap,
     const __grid_constant__ CUtensorMap blmap, const GemmWgF32 p) {
@@ -235,21 +287,25 @@ __global__ void __launch_bounds__(kGwThreads, 1) gemm_wgmma_f32_kernel(
   const uint32_t pad = ((base + 1023) & ~1023u) - base;
   const unsigned char* smem = gw_smem + pad;
   const uint32_t sbase = base + pad;
-  const int m0 = blockIdx.y * kGwM, n0 = blockIdx.x * kGwN;
-  const int kbeg = blockIdx.z * p.kchunk, kend = min(p.k, kbeg + p.kchunk);
-  const int nk = (kend - kbeg + kGwK - 1) / kGwK;
+  const int ntiles = p.n / kGwN;
+  const int m0 = (int)(blockIdx.x / ntiles) * kGwM, n0 = (int)(blockIdx.x % ntiles) * kGwN;
+  int kbeg = blockIdx.z * p.kchunk, kend = min(p.k, kbeg + p.kchunk);
+  A::k_range(p, n0, kbeg, kend);
+  const int nk = kend > kbeg ? (kend - kbeg + kGwK - 1) / kGwK : 0;
+  typename A::Rows rows = A::rows(p, m0, kbeg);
   // thread 0: slice kt's loads into stage kt % kGwStages
   auto load = [&](int kt) {
     if (kt < nk)
-      gw_load<AT>(&amap, &bmap, &blmap, sbase + (kt % kGwStages) * kGwStage,
-                  &full[kt % kGwStages], m0, n0, kbeg + kt * kGwK);
+      gw_load<A>(&amap, &bmap, &blmap, sbase + (kt % kGwStages) * kGwStage,
+                 &full[kt % kGwStages], p, m0, n0, kbeg + kt * kGwK);
   };
   // every thread: wait for slice kt, take its A fragments
   auto prepare = [&](int kt, uint32_t(&ah)[4][4], uint32_t(&al)[4][4]) {
     if (kt < nk) {
       const int stage = kt % kGwStages;
+      const GwKeep keep = A::keep(p, rows, kbeg + kt * kGwK);
       mbar_wait(&full[stage], (kt / kGwStages) & 1);
-      gw_a_frags<P, AT>(smem + stage * kGwStage + kGwOffA, ah, al);
+      gw_a_frags<P, A>(smem + stage * kGwStage + kGwOffA, keep, ah, al);
     }
   };
   if (threadIdx.x == 0) {
@@ -300,7 +356,7 @@ __global__ void __launch_bounds__(kGwThreads, 1) gemm_wgmma_f32_kernel(
   }
 
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int row0 = m0 + (threadIdx.x >> 5) * 16 + g;
+  const int r0 = (threadIdx.x >> 5) * 16 + g;  // this thread's wgmma tile rows r0, r0 + 8
   float* c = p.c + blockIdx.z * p.c_zs;
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
@@ -312,7 +368,7 @@ __global__ void __launch_bounds__(kGwThreads, 1) gemm_wgmma_f32_kernel(
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int row = row0 + 8 * h;
+      const int row = m0 + A::row(r0 + 8 * h);
       if (row >= p.m) continue;
       float x0 = acc[4 * j + 2 * h], x1 = acc[4 * j + 2 * h + 1];
       if (EPI != kGwStore) {
@@ -333,11 +389,12 @@ __global__ void __launch_bounds__(kGwThreads, 1) gemm_wgmma_f32_kernel(
 }
 
 // The TMA map of a row-major matrix (row stride ld floats) read in tiles of
-// 128 rows x 32 columns (K-major: `rows` x `cols` = M or N x K), or (krows:
-// A transposed) in tiles of 32 rows x 128 columns as two boxes of 32 x 64 (a
-// 4-d view of 32-float lines); 128-byte swizzled, zeros outside the matrix
+// box_rows rows x 32 columns (K-major: `rows` x `cols` = M or N x K), or
+// (krows: A transposed) in tiles of 32 rows x 128 columns as two boxes of 32
+// x 64 (a 4-d view of 32-float lines); 128-byte swizzled, zeros outside the
+// matrix
 inline bool gw_map(CUtensorMap* map, const float* ptr, long long ld, int rows, int cols,
-                   bool krows) {
+                   bool krows, int box_rows = kGwM) {
   const TensorMapEncodeFn enc = tensor_map_encode();
   if (enc == nullptr) return false;
   const cuuint64_t ldb = (cuuint64_t)ld * 4;
@@ -353,7 +410,7 @@ inline bool gw_map(CUtensorMap* map, const float* ptr, long long ld, int rows, i
   }
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {ldb};
-  const cuuint32_t box[2] = {kGwK, kGwM};
+  const cuuint32_t box[2] = {kGwK, (cuuint32_t)box_rows};
   const cuuint32_t estr[2] = {1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(ptr), dims, strides,
              box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
@@ -361,36 +418,50 @@ inline bool gw_map(CUtensorMap* map, const float* ptr, long long ld, int rows, i
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int P, bool AT, int EPI>
+// A: [M, K] as stored, or K rows of M
+template <bool AT_>
+bool GwAMatrix<AT_>::map(CUtensorMap* amap, const GemmWgF32& p) {
+  return AT ? gw_map(amap, p.a, p.lda, p.k, p.m, true) : gw_map(amap, p.a, p.lda, p.m, p.k, false);
+}
+
+template <int P, class A, int EPI>
 static cudaError_t launch_gemm_wgmma_f32_p(const GemmWgF32& p, int chunks,
                                            cudaStream_t stream) {
-  auto kernel = gemm_wgmma_f32_kernel<P, AT, EPI>;
+  auto kernel = gemm_wgmma_f32_kernel<P, A, EPI>;
   static const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kGwSmem);
   if (attr != cudaSuccess) return attr;
-  // A: [M, K] as stored, or K rows of M; B's hi and lo planes [N, K]
+  // A's map from its policy; B's hi and lo planes [N, K]
   CUtensorMap amap, bmap, blmap;
-  const bool ok = (AT ? gw_map(&amap, p.a, p.lda, p.k, p.m, true)
-                      : gw_map(&amap, p.a, p.lda, p.m, p.k, false)) &&
-                  gw_map(&bmap, p.b, p.ldb, p.n, p.k, false) &&
+  const bool ok = A::map(&amap, p) && gw_map(&bmap, p.b, p.ldb, p.n, p.k, false) &&
                   gw_map(&blmap, p.b + (long long)p.n * p.ldb, p.ldb, p.n, p.k, false);
   if (!ok) return cudaErrorInvalidValue;
-  const dim3 grid(p.n / kGwN, (p.m + kGwM - 1) / kGwM, chunks);
+  const long long tiles = (long long)(p.n / kGwN) * ((p.m + kGwM - 1) / kGwM);
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)tiles, 1, chunks);
   kernel<<<grid, kGwThreads, kGwSmem, stream>>>(amap, bmap, blmap, p);
   return cudaGetLastError();
 }
 
 // C = A B and the epilogue over gridDim.z = ceil(k / kchunk) chunks of K,
-// B's planes split by gw_split_b_planes.  PRODUCT: which F32Product this is
-// (tf32.cuh products_of).
+// A from policy A, B's planes split by gw_split_b_planes.  PRODUCT: which
+// F32Product this is (tf32.cuh products_of).
+template <class A, int EPI, int PRODUCT>
+static cudaError_t gemm_wgmma_f32_a(const GemmWgF32& p, cudaStream_t stream) {
+  // the TMA maps' rows 16-byte aligned
+  if (p.m < 1 || p.n < kGwN || p.n % kGwN || p.k < 1 || p.kchunk < kGwK || p.kchunk % kGwK ||
+      (p.lda | p.ldb) & 3 || p.ldc & 1 || !A::ok(p))
+    return cudaErrorInvalidValue;
+  const int chunks = (p.k + p.kchunk - 1) / p.kchunk;
+  if (chunks > 65535) return cudaErrorInvalidValue;
+  return launch_gemm_wgmma_f32_p<products_of(PRODUCT), A, EPI>(p, chunks, stream);
+}
+
+// C = A B with A a matrix: [M, K] as stored (AT false) or read transposed
+// from [K, M] in 128-wide tiles (AT true)
 template <bool AT, int EPI, int PRODUCT>
 static cudaError_t gemm_wgmma_f32(const GemmWgF32& p, cudaStream_t stream) {
-  // the TMA maps' rows 16-byte aligned, A transposed in 128-wide tiles
-  if (p.m < 1 || p.n < kGwN || p.n % kGwN || p.k < 1 || p.kchunk < kGwK || p.kchunk % kGwK ||
-      (p.lda | p.ldb) & 3 || p.ldc & 1 || (AT && p.m % kGwM))
-    return cudaErrorInvalidValue;
-  return launch_gemm_wgmma_f32_p<products_of(PRODUCT), AT, EPI>(
-      p, (p.k + p.kchunk - 1) / p.kchunk, stream);
+  return gemm_wgmma_f32_a<GwAMatrix<AT>, EPI, PRODUCT>(p, stream);
 }
 
 // row stride of a B operand's planes of K columns: 16-byte aligned rows
@@ -401,13 +472,13 @@ __host__ __device__ inline int gw_planes_ld(int k) { return round_up(k, 4); }
 // B), split once per call from B [N][K] as stored (TRANS false: a
 // torch Linear weight) or [K][N] (TRANS true: a weight read with its rows
 // as K, or the batch's rows; through a 32 x 32 tile in shared memory).  N a
-// multiple of 32, K any.
+// multiple of 32, K any; a CTA per 32 x 32 block, grid (K / 32, N / 32).
 template <int P, bool TRANS>
 __global__ void __launch_bounds__(256) gw_split_b_kernel(const float* __restrict__ b,
                                                          float* __restrict__ hi, int n, int k) {
   __shared__ float tile[32][33];
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  const int n0 = blockIdx.x * 32, k0 = blockIdx.y * 32;
+  const int n0 = blockIdx.y * 32, k0 = blockIdx.x * 32;
   const long long ldp = gw_planes_ld(k);
   float x[4];
 #pragma unroll
@@ -440,8 +511,8 @@ __global__ void __launch_bounds__(256) gw_split_b_kernel(const float* __restrict
 template <bool TRANS, int PRODUCT>
 static cudaError_t gw_split_b_planes(const float* b, float* planes, int n, int k,
                                      cudaStream_t stream) {
-  if (n % 32 || k < 1) return cudaErrorInvalidValue;
-  gw_split_b_kernel<products_of(PRODUCT), TRANS><<<dim3(n / 32, (k + 31) / 32), 256, 0, stream>>>(
+  if (n % 32 || n / 32 > 65535 || k < 1) return cudaErrorInvalidValue;
+  gw_split_b_kernel<products_of(PRODUCT), TRANS><<<dim3((k + 31) / 32, n / 32), 256, 0, stream>>>(
       b, planes, n, k);
   return cudaGetLastError();
 }

@@ -4,9 +4,11 @@
 // A read transposed from a [K, M] matrix (dW = dY^T X, K the rows of the
 // batch), split over K in fixed chunks; a fixed-order sum of such partials;
 // fixed-order column sums over rows; and the LayerNorm backward of a row
-// block.  Shared by K2b-f32 / K3b-f32 (decoder_blocks_bwd_f32.cu) and
-// K4b-f32 (ffn_bwd_f32.cu); the main loop, the tile store and the
-// fixed-order sum also by K6-f32 / K6b-f32 (s2dconv_f32.cu).
+// block.  The GEMM (kn_mainloop, gemm_kn_f32_kernel) is K2b-f32's and
+// K3b-f32's (decoder_blocks_bwd_f32.cu); the fixed-order sums and the
+// LayerNorm rows also serve K4b-f32 (ffn_bwd_f32.cu), and reduce_parts
+// K6b-f32 (s2dconv_f32.cu), whose products, like K4-f32's and K4b-f32's,
+// run on gemm_wgmma_f32.cuh.
 //
 // Every product is mma.sync m16n8k8 TF32 with the 3xTF32 split (tf32.cuh)
 // and each 32-deep K slice accumulates into fresh registers that an IEEE
@@ -53,8 +55,7 @@ inline size_t gemm_kn_smem_bytes() { return 2u * kGKStage * sizeof(float); }
 // acc += A B over one kGKK-deep slice held in shared memory (A's tile at
 // `as`, [m][kGKLdRow] or, ATRANS, [k][kGKLdCol]; B's at `bs`, [k][kGKLdCol]),
 // for the warp's 64 x 32 block at (wm, wn): the slice's products sum in
-// fresh registers that one f32 add then joins to acc.  Also K6-f32's and
-// K6b-f32's (s2dconv_f32.cu), whose loaders gather A.
+// fresh registers that one f32 add then joins to acc.
 template <int P, bool ATRANS>
 __device__ __forceinline__ void kn_slice_products(const float* as, const float* bs, int wm,
                                                   int wn, float (&acc)[4][4][4]) {

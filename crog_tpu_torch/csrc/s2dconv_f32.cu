@@ -26,30 +26,53 @@
 // 0.079 and 0.119 ms at 3.35 TB/s: operations bound every launch (bf16 K6
 // is bound by its bytes).
 //
-// Design: right and simple first.  Both kernels are grad_f32.cuh's GEMM (8
-// warps on a 128 x 128 tile, 32-deep K slices through a two-stage cp.async
-// ring, mma.sync m16n8k8 with the 3xTF32 split, each slice summed in fresh
-// registers that one f32 add joins to the running sum: kn_mainloop)
-// with loaders that gather the patch from x instead of reading a stored
-// matrix, so no patch goes through device memory:
-//   K6-f32: A = P [cells, 16ci] held [m][k], B = wp held [k][n]; a CTA per
-//     128 cells and 128 output columns.  A 32-deep K slice is one (t, s)
-//     block of ci channels (ci 32) or half of one (ci 64), so each tile row
-//     reads 32 contiguous floats of one neighbouring cell, zero-filled where
-//     that cell is off the image.  Each thread keeps the cells of its four
-//     tile rows in registers.
-//   K6b-f32: A = P read transposed, held [k = cell][m = patch channel], B
-//     = dy held [k = cell][n]; a CTA per 128 x 128 block of dwp and chunk of
-//     cells (ops/s2dconv.py:wgrad_f32_schedule, from the shapes alone)
-//     writes one f32 partial, and reduce_parts adds the partials in chunk
-//     order: no atomics, two runs give equal bits.
-// Each output element of either sums its K slices in one fixed order.  The
-// packed weight's structural zeros are multiplied as in the twin (16/9 of
-// the real taps; K6b-f32's gradient there is nonzero and unused).  x is
-// read once per 4x4 window that covers it, up to 4 times, mostly from L2.
+// Design: both kernels are gemm_wgmma_f32.cuh's GEMM (two warpgroups on a
+// 128 x 128 tile, wgmma m64n128k8 .tf32 with the 3xTF32 split, a four-stage
+// TMA ring of 32-deep K slices, A split in registers, B split once per call
+// into TF32 hi / lo planes, each slice summed in fresh registers), with an
+// A policy that gathers the patch from x instead of reading a stored
+// matrix, so no patch goes through device memory.  A 32-deep K slice of
+// the patch is one (t, s) block of 32 channels (ci 32) or half of one (ci
+// 64): 32 contiguous floats of each cell's neighbour at the block's shift
+// (OFS[t] - 1, OFS[s] - 1).  TMA lands it as a shifted 2-D box of x viewed
+// flat as [B*H*W, 4ci], 128-byte swizzled (zeros above the first row and
+// past the last); the rows whose neighbour lies off the image (across an
+// image's edge, into the row or image before or after) are zeroed in
+// registers where the fragments are split (GwKeep).  TMA's im2col mode
+// would zero-fill those in the load, but a box of 128 cells x 32 channels
+// at a shift is all this needs, so the one tiled map of x serves every
+// slice, and the mask costs a select per fragment value.
+//   K6-f32 (S2dPatch): A = P [cells, 16ci] held [m][k], B = wp's planes
+//     [4co][16ci] (gw_split_b_planes from wp as [K, N], 1 MB at most); a
+//     CTA per 128 cells and 128 output columns.  Each thread's two tile
+//     rows are fixed, so their (i, j) are worked out once per CTA.  A wp
+//     block (t, s) x (dy', dx') is zero unless t - dy' and s - dx' lie in
+//     0..2: where every column of the CTA's tile has the same dy' (co 64),
+//     the slices of t = dy' + 3 or t = dy' - 1 are skipped.  That is the
+//     CTA's K range (k_range), a uniform decision; the sum changes by no
+//     bit but the sign of a zero.  At co 32 a tile holds both dy' and
+//     multiplies every block.
+//   K6b-f32 (S2dPatchT): A = P read transposed, [k = cell][m = patch
+//     channel]: a slice is 32 cells x 128 patch channels, four (t, s)
+//     blocks of 32 channels at ci 32 (two halves of two at ci 64), each its
+//     own box of 32 cells at its own shift.  Each warp's 16 patch channels
+//     lie in one block, so a warp masks its slice's cells with one ballot
+//     (each lane steps its cell on by 32 a slice); the tile rows take each
+//     group's channels permuted, so that the fragment loads from a group's
+//     [32 k][32] box hit 32 banks (S2dPatchT::row).
+//     B = dy's planes [4co][cells] (gw_split_b_planes from dy as [K, N]:
+//     266 MB at conv2, 532 MB at conv3, the wrapper's workspace); a CTA per
+//     128 x 128 block of dwp and chunk of cells (ops/s2dconv.py:
+//     wgrad_f32_schedule, from the shapes alone) writes one f32 partial,
+//     and reduce_parts adds the partials in chunk order: no atomics, two
+//     runs give equal bits.  Every block of dwp is formed, the structural
+//     zeros' too, as the twin and the TPU kernel form them.
+// Each output element sums its K slices in one fixed order.  x is read
+// once per (t, s) block that covers it, 4 times, mostly from L2.
 //
 // Limits: ci, co in {32, 64}; fp32 x, wp, dy; any B, H, W with B*H*W
-// below 2^31 (rows past the last cell load zeros and are not stored).
+// below 2^31 - 128 (rows past the last cell load zeros and are not stored).
+#include "gemm_wgmma_f32.cuh"
 #include "grad_f32.cuh"
 
 namespace crog {
@@ -61,179 +84,206 @@ __device__ __forceinline__ int s2d_slot(int t, int s) {
   return ((t + 1) & 1) * 2 + ((s + 1) & 1);
 }
 
-// y [cells, n] = P(x) wp, n = 4co; grid (cell tiles, n / kGKN)
-template <int P, int CI>
-__global__ void __launch_bounds__(kGKThreads) s2dconv_f32_fwd_kernel(
-    const float* __restrict__ x, const float* __restrict__ wp, float* __restrict__ y, int B,
-    int H, int W, int n) {
-  extern __shared__ __align__(16) float smem[];
-  const int warp = threadIdx.x >> 5;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-  const int cells = B * H * W;
-  const int m0 = blockIdx.x * kGKM, n0 = blockIdx.y * kGKN;
-  // this thread's tile rows r = threadIdx.x / 8 + 32 q read 4 floats at c4
-  const int c4 = (threadIdx.x & 7) * 4;
-  int cy[4], cx[4];
-  long long cbase[4];  // the cell's first float in x
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int cell = m0 + (threadIdx.x >> 3) + 32 * q;
-    cx[q] = cell % W;
-    cy[q] = cell < cells ? (cell / W) % H : -(1 << 20);  // past the last cell: never inside
-    cbase[q] = (long long)cell * (4 * CI);
+// (row, column) of `cell` in its image; the row far outside past the last
+// cell, so that no shift brings it in
+__device__ __forceinline__ void s2d_cell(const GemmWgF32& p, int cells, int cell, int& i,
+                                         int& j) {
+  const int q = cell / p.img_w;
+  j = cell - q * p.img_w;
+  i = cell < cells ? q % p.img_h : -(1 << 20);
+}
+
+__device__ __forceinline__ bool s2d_inside(const GemmWgF32& p, int i, int j) {
+  return (unsigned)i < (unsigned)p.img_h && (unsigned)j < (unsigned)p.img_w;
+}
+
+// K6-f32's A: the patch P [cells, 16CI] of x [cells, 4CI] (p.a, p.m = cells),
+// K slice k0 in (t, s) block k0 / CI
+template <int CI>
+struct S2dPatch {
+  struct Rows {
+    int i0, j0, i1, j1;  // the thread's tile rows' cells (s2d_cell)
+  };
+  __device__ __forceinline__ static Rows rows(const GemmWgF32& p, int m0, int) {
+    const int r = m0 + (threadIdx.x >> 5) * 16 + ((threadIdx.x & 31) >> 2);
+    Rows o;
+    s2d_cell(p, p.m, r, o.i0, o.j0);
+    s2d_cell(p, p.m, r + 8, o.i1, o.j1);
+    return o;
   }
-
-  auto load = [&](int k0, int stage) {
-    float* as = smem + stage * kGKStage;
-    float* bs = as + kGKATile;
+  // the slot-rows t whose block of wp is nonzero in some column of the
+  // tile at n0: t - dy' in 0..2 for a dy' = n / (2 co) of the tile
+  __device__ __forceinline__ static void k_range(const GemmWgF32& p, int n0, int& kbeg,
+                                                 int& kend) {
+    const int half = p.n / 2;  // 2 co columns a dy'
+    const int dlo = n0 / half, dhi = (n0 + kGwN - 1) / half;
+    kbeg = max(kbeg, dlo * 4 * CI);
+    kend = min(kend, min(4, dhi + 3) * 4 * CI);
+  }
+  __device__ __forceinline__ static int row(int r) { return r; }
+  __device__ __forceinline__ static void load(const CUtensorMap* map, uint32_t dst,
+                                              uint64_t* bar, const GemmWgF32& p, int m0,
+                                              int k0) {
     const int blk = k0 / CI, t = blk >> 2, s = blk & 3;
-    const int dyo = s2d_shift(t), dxo = s2d_shift(s);
-    const long long shift =
-        ((long long)dyo * W + dxo) * (4 * CI) + s2d_slot(t, s) * CI + k0 % CI + c4;
+    tma_load_2d(map, dst, bar, s2d_slot(t, s) * CI + k0 % CI,
+                m0 + s2d_shift(t) * p.img_w + s2d_shift(s));
+  }
+  __device__ __forceinline__ static uint32_t off(int r, int k) {
+    return gw_kmajor_off(r, k >> 2) + (k & 3) * 4;
+  }
+  __device__ __forceinline__ static GwKeep keep(const GemmWgF32& p, Rows& o, int k0) {
+    const int blk = k0 / CI, dy = s2d_shift(blk >> 2), dx = s2d_shift(blk & 3);
+    return {s2d_inside(p, o.i0 + dy, o.j0 + dx), s2d_inside(p, o.i1 + dy, o.j1 + dx),
+            0xffffffffu};
+  }
+  static bool map(CUtensorMap* amap, const GemmWgF32& p) {
+    return gw_map(amap, p.a, 4 * CI, p.m, 4 * CI, false);
+  }
+  static bool ok(const GemmWgF32& p) {
+    return p.lda == 4 * CI && p.k == 16 * CI && p.img_h > 0 && p.img_w > 0;
+  }
+};
+
+// K6b-f32's A: P read transposed, [k = cell][m = patch channel] of x [cells,
+// 4CI] (p.a, p.k = cells); a slice's four 32-channel groups land as four
+// boxes of [32 cells][32 channels], group q at q kGwTile / 4.  In a group's
+// box, a fragment load (k = t, and rows 16-byte chunks apart) would meet
+// 2-way bank conflicts, so the wgmma's tile rows take the group's channels
+// permuted (row): warp half h of the group (tile rows 16 h..16 h + 15) holds
+// channels 4 h + (0..3, 16.., 8.., 24..), whose chunks XOR-ed with t fill
+// 32 banks.
+template <int CI>
+struct S2dPatchT {
+  struct Rows {
+    int dy, dx;  // the shift of the warp's (t, s) block
+    int i, j;    // lane l's cell k0 + l of the next slice (s2d_cell)
+  };
+  __device__ __forceinline__ static void k_range(const GemmWgF32&, int, int&, int&) {}
+  __device__ __forceinline__ static Rows rows(const GemmWgF32& p, int m0, int kbeg) {
+    const int blk = (m0 + (threadIdx.x >> 5) * 16) / CI;
+    Rows o{s2d_shift(blk >> 2), s2d_shift(blk & 3), 0, 0};
+    s2d_cell(p, p.k, kbeg + (threadIdx.x & 31), o.i, o.j);
+    return o;
+  }
+  __device__ __forceinline__ static int row(int r) {
+    const int q = r & 15;
+    return (r & ~31) + ((q >> 2) & 1) * 16 + (q >> 3) * 8 + ((r >> 4) & 1) * 4 + (q & 3);
+  }
+  __device__ __forceinline__ static void load(const CUtensorMap* map, uint32_t dst,
+                                              uint64_t* bar, const GemmWgF32& p, int m0,
+                                              int k0) {
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      const int r = (threadIdx.x >> 3) + 32 * q;
-      const bool in =
-          (unsigned)(cy[q] + dyo) < (unsigned)H && (unsigned)(cx[q] + dxo) < (unsigned)W;
-      cp_async16(smem_u32(as + r * kGKLdRow + c4), in ? x + cbase[q] + shift : x, in ? 16 : 0);
+      const int mq = m0 + 32 * q, blk = mq / CI, t = blk >> 2, s = blk & 3;
+      tma_load_2d(map, dst + q * (kGwTile / 4), bar, s2d_slot(t, s) * CI + mq % CI,
+                  k0 + s2d_shift(t) * p.img_w + s2d_shift(s));
     }
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {  // 32 k rows of 128 n
-      const int i = threadIdx.x + kGKThreads * q;
-      const int r = i >> 5, c = (i & 31) * 4;
-      cp_async16(smem_u32(bs + r * kGKLdCol + c), wp + (long long)(k0 + r) * n + n0 + c, 16);
+  }
+  __device__ __forceinline__ static uint32_t off(int r, int k) {
+    const int ch = row(r) & 31;
+    return (r >> 5) * (kGwTile / 4) + gw_kmajor_off(k, ch >> 2) + (ch & 3) * 4;
+  }
+  // lane l: is cell k0 + l's neighbour at the warp's shift inside?  Then
+  // the lane's cell steps 32 on (no division a slice)
+  __device__ __forceinline__ static GwKeep keep(const GemmWgF32& p, Rows& o, int k0) {
+    const bool in = k0 + (int)(threadIdx.x & 31) < p.k && s2d_inside(p, o.i + o.dy, o.j + o.dx);
+    o.j += kGwK;
+    while (o.j >= p.img_w) {
+      o.j -= p.img_w;
+      if (++o.i == p.img_h) o.i = 0;
     }
-    cp_async_commit();
-  };
+    return {true, true, __ballot_sync(0xffffffffu, in)};
+  }
+  static bool map(CUtensorMap* amap, const GemmWgF32& p) {
+    return gw_map(amap, p.a, 4 * CI, p.k, 4 * CI, false, kGwK);
+  }
+  static bool ok(const GemmWgF32& p) {
+    return p.lda == 4 * CI && p.m == 16 * CI && p.img_h > 0 && p.img_w > 0;
+  }
+};
 
-  float acc[4][4][4];
-  kn_mainloop<P, false>(smem, 0, 16 * CI / kGKK, load, acc);
-  store_kn_block(y, n, cells, n, m0 + wm, n0 + wn, acc);
-}
-
-// part[z] [16CI, n] = P(x)^T dy over cells [z chunk, (z + 1) chunk), n =
-// 4co; grid (n / kGKN, 16CI / kGKM, chunks)
-template <int P, int CI>
-__global__ void __launch_bounds__(kGKThreads) s2dconv_f32_wgrad_kernel(
-    const float* __restrict__ x, const float* __restrict__ dy, float* __restrict__ part, int B,
-    int H, int W, int n, int chunk) {
-  extern __shared__ __align__(16) float smem[];
-  const int warp = threadIdx.x >> 5;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-  const int cells = B * H * W;
-  const int m0 = blockIdx.y * kGKM, n0 = blockIdx.x * kGKN;
-  const int kbeg = blockIdx.z * chunk, kend = min(cells, kbeg + chunk);
-  // this thread's 4 patch channels m0 + c4 .. lie in one (t, s) block, read
-  // for cells k0 + threadIdx.x / 32 + 8 q
-  const int c4 = (threadIdx.x & 31) * 4;
-  const int blk = (m0 + c4) / CI, t = blk >> 2, s = blk & 3;
-  const int dyo = s2d_shift(t), dxo = s2d_shift(s);
-  const long long shift =
-      ((long long)dyo * W + dxo) * (4 * CI) + s2d_slot(t, s) * CI + (m0 + c4) % CI;
-
-  auto load = [&](int k0, int stage) {
-    float* as = smem + stage * kGKStage;
-    float* bs = as + kGKATile;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int r = (threadIdx.x >> 5) + 8 * q, cell = k0 + r;
-      const bool row = cell < kend;
-      const int yy = (cell / W) % H + dyo, xx = cell % W + dxo;
-      const bool in = row && (unsigned)yy < (unsigned)H && (unsigned)xx < (unsigned)W;
-      cp_async16(smem_u32(as + r * kGKLdCol + c4),
-                 in ? x + (long long)cell * (4 * CI) + shift : x, in ? 16 : 0);
-      cp_async16(smem_u32(bs + r * kGKLdCol + c4),
-                 row ? dy + (long long)cell * n + n0 + c4 : dy, row ? 16 : 0);
-    }
-    cp_async_commit();
-  };
-
-  float acc[4][4][4];
-  kn_mainloop<P, true>(smem, kbeg, kend > kbeg ? (kend - kbeg + kGKK - 1) / kGKK : 0, load,
-                       acc);
-  store_kn_block(part + (long long)blockIdx.z * (16 * CI) * n, n, 16 * CI, n, m0 + wm, n0 + wn,
-                 acc);
-}
-
+// y [cells, n] = P(x) wp, n = 4co; wp's planes into `planes` (2 n 16CI floats)
 template <int CI>
-static cudaError_t launch_s2dconv_f32_fwd(const float* x, const float* wp, float* y, int B, int H,
-                                          int W, int n, cudaStream_t stream) {
-  constexpr int P = products_of(kProdS2dConv);
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(s2dconv_f32_fwd_kernel<P, CI>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)gemm_kn_smem_bytes());
-  if (attr != cudaSuccess) return attr;
-  const dim3 grid((unsigned)(((long long)B * H * W + kGKM - 1) / kGKM), n / kGKN);
-  s2dconv_f32_fwd_kernel<P, CI><<<grid, kGKThreads, gemm_kn_smem_bytes(), stream>>>(x, wp, y, B, H,
-                                                                                   W, n);
-  return cudaGetLastError();
-}
-
-template <int CI>
-static cudaError_t launch_s2dconv_f32_wgrad(const float* x, const float* dy, float* part,
-                                            float* dwp, int B, int H, int W, int n, int chunks,
-                                            int chunk, cudaStream_t stream) {
-  constexpr int P = products_of(kProdS2dWgrad);
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(s2dconv_f32_wgrad_kernel<P, CI>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)gemm_kn_smem_bytes());
-  if (attr != cudaSuccess) return attr;
-  const dim3 grid(n / kGKN, 16 * CI / kGKM, chunks);
-  s2dconv_f32_wgrad_kernel<P, CI><<<grid, kGKThreads, gemm_kn_smem_bytes(), stream>>>(
-      x, dy, part, B, H, W, n, chunk);
-  cudaError_t err = cudaGetLastError();
+static cudaError_t launch_s2dconv_f32_fwd(const float* x, const float* wp, float* planes,
+                                          float* y, int B, int H, int W, int n,
+                                          cudaStream_t stream) {
+  const int k = 16 * CI;
+  cudaError_t err = gw_split_b_planes<true, kProdS2dConv>(wp, planes, n, k, stream);
   if (err != cudaSuccess) return err;
-  const long long mn = 16LL * CI * n;
+  const GemmWgF32 p{x,    planes, y, nullptr, 4 * CI, gw_planes_ld(k), n, 0, B * H * W, n, k,
+                    k, Dropout{0u, 0u, 1.0f}, H, W};
+  return gemm_wgmma_f32_a<S2dPatch<CI>, kGwStore, kProdS2dConv>(p, stream);
+}
+
+// dwp [16CI, n] = P(x)^T dy through part [chunks, 16CI, n] (a partial per
+// `chunk` cells), dy's planes into `planes` (2 n gw_planes_ld(cells) floats)
+template <int CI>
+static cudaError_t launch_s2dconv_f32_wgrad(const float* x, const float* dy, float* planes,
+                                            float* part, float* dwp, int B, int H, int W, int n,
+                                            int chunks, int chunk, cudaStream_t stream) {
+  const int cells = B * H * W, m = 16 * CI;
+  cudaError_t err = gw_split_b_planes<true, kProdS2dWgrad>(dy, planes, n, cells, stream);
+  if (err != cudaSuccess) return err;
+  const long long mn = (long long)m * n;
+  const GemmWgF32 p{x,     planes, part, nullptr, 4 * CI, gw_planes_ld(cells), n, mn, m, n,
+                    cells, chunk,  Dropout{0u, 0u, 1.0f}, H, W};
+  err = gemm_wgmma_f32_a<S2dPatchT<CI>, kGwStore, kProdS2dWgrad>(p, stream);
+  if (err != cudaSuccess) return err;
   return reduce_parts(part, chunks, mn, mn, dwp, stream);
 }
 
 template <int CI>
 static int s2dconv_f32_attrs(int* out) {
   cudaFuncAttributes fa;
-  cudaError_t err =
-      cudaFuncGetAttributes(&fa, s2dconv_f32_fwd_kernel<products_of(kProdS2dConv), CI>);
+  cudaError_t err = cudaFuncGetAttributes(
+      &fa, gemm_wgmma_f32_kernel<products_of(kProdS2dConv), S2dPatch<CI>, kGwStore>);
   if (err != cudaSuccess) return (int)err;
   out[0] = fa.numRegs;
-  out[1] = (int)(fa.sharedSizeBytes + gemm_kn_smem_bytes());
+  out[1] = (int)(fa.sharedSizeBytes + kGwSmem);
   out[2] = (int)fa.localSizeBytes;
-  err = cudaFuncGetAttributes(&fa, s2dconv_f32_wgrad_kernel<products_of(kProdS2dWgrad), CI>);
+  err = cudaFuncGetAttributes(
+      &fa, gemm_wgmma_f32_kernel<products_of(kProdS2dWgrad), S2dPatchT<CI>, kGwStore>);
   if (err != cudaSuccess) return (int)err;
   out[3] = fa.numRegs;
-  out[4] = (int)(fa.sharedSizeBytes + gemm_kn_smem_bytes());
+  out[4] = (int)(fa.sharedSizeBytes + kGwSmem);
   out[5] = (int)fa.localSizeBytes;
   return 0;
 }
 
 inline bool s2d_f32_shape_ok(int ci, int co, int B, int H, int W) {
   return (ci == 32 || ci == 64) && (co == 32 || co == 64) && B >= 1 && H >= 1 && W >= 1 &&
-         (long long)B * H * W < 0x7fffffffLL - kGKM;
+         (long long)B * H * W < 0x7fffffffLL - kGwM;
 }
 
 }  // namespace crog
 
 // K6-f32: y [B, H, W, 4co] f32 = blocked conv of x [B, H, W, 4ci] f32 with the
-// packed weight wp [16ci, 4co] f32.
-extern "C" int crog_s2dconv_f32_fwd(const void* x, const void* wp, void* y, int B, int H, int W,
-                                    int ci, int co, void* stream) {
+// packed weight wp [16ci, 4co] f32 (pack_s1's layout: its structural zeros
+// are skipped where a tile's columns allow), wp's TF32 planes split into
+// `planes` (2 * 4co * 16ci floats, work).
+extern "C" int crog_s2dconv_f32_fwd(const void* x, const void* wp, void* planes, void* y, int B,
+                                    int H, int W, int ci, int co, void* stream) {
   using namespace crog;
   if (!s2d_f32_shape_ok(ci, co, B, H, W)) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   const auto* xf = static_cast<const float*>(x);
   const auto* wf = static_cast<const float*>(wp);
+  auto* pf = static_cast<float*>(planes);
   auto* yf = static_cast<float*>(y);
-  return (int)(ci == 32 ? launch_s2dconv_f32_fwd<32>(xf, wf, yf, B, H, W, 4 * co, st)
-                        : launch_s2dconv_f32_fwd<64>(xf, wf, yf, B, H, W, 4 * co, st));
+  return (int)(ci == 32 ? launch_s2dconv_f32_fwd<32>(xf, wf, pf, yf, B, H, W, 4 * co, st)
+                        : launch_s2dconv_f32_fwd<64>(xf, wf, pf, yf, B, H, W, 4 * co, st));
 }
 
-// K6b-f32: dwp [16ci, 4co] f32 = P(x)^T dy over every cell, through one f32
-// partial per chunk of `chunk` cells, part [chunks, 16ci, 4co], added in
-// chunk order; chunk a multiple of 32, and no chunk empty.
-extern "C" int crog_s2dconv_f32_wgrad(const void* x, const void* dy, void* part, void* dwp,
-                                      int B, int H, int W, int ci, int co, int chunks, int chunk,
-                                      void* stream) {
+// K6b-f32: dwp [16ci, 4co] f32 = P(x)^T dy over every cell, dy's TF32 planes
+// split into `planes` (2 * 4co * round_up(B*H*W, 4) floats, work), through
+// one f32 partial per chunk of `chunk` cells, part [chunks, 16ci, 4co],
+// added in chunk order; chunk a multiple of 32, and no chunk empty.
+extern "C" int crog_s2dconv_f32_wgrad(const void* x, const void* dy, void* planes, void* part,
+                                      void* dwp, int B, int H, int W, int ci, int co, int chunks,
+                                      int chunk, void* stream) {
   using namespace crog;
-  if (!s2d_f32_shape_ok(ci, co, B, H, W) || chunks < 1 || chunks > 65535 || chunk < kGKK ||
-      chunk % kGKK)
+  if (!s2d_f32_shape_ok(ci, co, B, H, W) || chunks < 1 || chunks > 65535 || chunk < kGwK ||
+      chunk % kGwK)
     return (int)cudaErrorInvalidValue;
   const long long cells = (long long)B * H * W;
   if ((long long)chunks * chunk < cells || (long long)(chunks - 1) * chunk >= cells)
@@ -241,16 +291,19 @@ extern "C" int crog_s2dconv_f32_wgrad(const void* x, const void* dy, void* part,
   auto st = static_cast<cudaStream_t>(stream);
   const auto* xf = static_cast<const float*>(x);
   const auto* df = static_cast<const float*>(dy);
+  auto* lf = static_cast<float*>(planes);
   auto* pf = static_cast<float*>(part);
   auto* wf = static_cast<float*>(dwp);
   const int n = 4 * co;
-  return (int)(ci == 32
-                   ? launch_s2dconv_f32_wgrad<32>(xf, df, pf, wf, B, H, W, n, chunks, chunk, st)
-                   : launch_s2dconv_f32_wgrad<64>(xf, df, pf, wf, B, H, W, n, chunks, chunk, st));
+  return (int)(ci == 32 ? launch_s2dconv_f32_wgrad<32>(xf, df, lf, pf, wf, B, H, W, n, chunks,
+                                                       chunk, st)
+                        : launch_s2dconv_f32_wgrad<64>(xf, df, lf, pf, wf, B, H, W, n, chunks,
+                                                       chunk, st));
 }
 
 // out[6]: K6-f32's registers per thread, shared memory per CTA and spill
-// bytes per thread, then K6b-f32's, for input width ci
+// bytes per thread, then K6b-f32's (gemm_wgmma_f32_kernel with the
+// S2dPatch and S2dPatchT policies), for input width ci
 extern "C" int crog_s2dconv_f32_attrs(int ci, int* out) {
   using namespace crog;
   if (ci != 32 && ci != 64) return (int)cudaErrorInvalidValue;

@@ -1,8 +1,8 @@
 // f32 products on the tensor cores: TF32 with the 3xTF32 split, on
-// mma.sync m16n8k8 in K5/K5b (lincomb.cu), the fp32 forward kernels
-// (attention_f32.cuh, gemm_wgmma_f32.cuh) and the fp32 backward kernels
-// (grad_f32.cuh, s2dconv_f32.cu), and on wgmma in the fp32 attention
-// backward (attention_bwd_f32.cuh) and the fp32 FFN (gemm_wgmma_f32.cuh).
+// mma.sync m16n8k8 in K5/K5b (lincomb.cu) and K2b-f32/K3b-f32's GEMMs
+// (grad_f32.cuh), and on wgmma in the fp32 attention forward and backward
+// (attention_f32.cuh, attention_bwd_f32.cuh) and gemm_wgmma_f32.cuh (the
+// products of K2-f32, K3-f32, K4-f32, K4b-f32, K6-f32 and K6b-f32).
 //
 // A TF32 value keeps 10 explicit mantissa bits.  x = hi + lo with hi =
 // cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi) keeps about 21 of f32's 23;

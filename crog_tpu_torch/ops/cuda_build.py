@@ -105,8 +105,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "crog_s2dconv_wgrad_attrs": [_I, _I, _P],
     },
     "s2dconv_f32": {
-        "crog_s2dconv_f32_fwd": [_P] * 3 + [_I] * 5 + [_P],
-        "crog_s2dconv_f32_wgrad": [_P] * 4 + [_I] * 7 + [_P],
+        "crog_s2dconv_f32_fwd": [_P] * 4 + [_I] * 5 + [_P],
+        "crog_s2dconv_f32_wgrad": [_P] * 5 + [_I] * 7 + [_P],
         "crog_s2dconv_f32_attrs": [_I, _P],
     },
 }

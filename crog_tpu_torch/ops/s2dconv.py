@@ -58,8 +58,9 @@ MAX_CLUSTER = 8  # K6b: CTAs per cluster, at most the portable size
 # K6: its persistent CTAs, one per SM of an H100 (132); a card with fewer
 # SMs runs the rest as a second wave, with the same sums
 FWD_SMS = 132
-# K6b-f32: the CTAs its cell chunks aim at, two on each of an H100's 132 SMs
-WGRAD_F32_CTAS = 264
+# K6b-f32: the CTAs its cell chunks aim at, one on each of an H100's 132 SMs
+# (csrc/gemm_wgmma_f32.cuh's kernel takes one SM's shared memory)
+WGRAD_F32_CTAS = 132
 
 
 def pack_s1(w: torch.Tensor) -> torch.Tensor:
@@ -159,14 +160,38 @@ def wgrad_schedule(b: int, h: int, w: int, ci: int, co: int):
 def wgrad_f32_schedule(b: int, h: int, w: int, ci: int, co: int):
     """(chunks, cells per chunk) of K6b-f32: each [128, 128] block of the
     packed gradient takes one CTA per chunk of cells, as many chunks as
-    bring the CTAs to WGRAD_F32_CTAS, each a multiple of 32 cells and none
-    empty; each chunk writes one partial, added in chunk order.  A function
-    of the shapes alone, so the order of the sums is too."""
+    bring the CTAs to WGRAD_F32_CTAS (one wave of CTAs), each a multiple of
+    32 cells (the GEMM's K slice) and none empty; each chunk writes one
+    partial, added in chunk order.  A function of the shapes alone, so the
+    order of the sums is too."""
     cells = b * h * w
     blocks = (16 * ci // 128) * (4 * co // 128)
     want = max(1, min(-(-cells // 32), WGRAD_F32_CTAS // blocks))
     chunk = (-(-cells // want) + 31) // 32 * 32
     return -(-cells // chunk), chunk
+
+
+def fwd_f32_planes(ci: int, co: int) -> int:
+    """Floats of K6-f32's workspace: the packed weight's TF32 hi and lo
+    planes, each [4co, 16ci] (K-major, as the GEMM reads B)."""
+    return 2 * 4 * co * 16 * ci
+
+
+def fwd_f32_slot_rows(co: int, n0: int):
+    """[t_lo, t_hi): the slot-rows t of the packed weight that K6-f32's
+    128-column tile at output column n0 multiplies (csrc/s2dconv_f32.cu
+    ``S2dPatch::k_range``).  Block (t, s) x (dy', dx') of ``pack_s1``'s
+    layout is a structural zero unless t - dy' lies in 0..2, and the tile's
+    columns n hold dy' = n // (2co): at co 64 one dy' a tile, so a quarter
+    of the slices are skipped; at co 32 none."""
+    dlo, dhi = n0 // (2 * co), (n0 + 127) // (2 * co)
+    return dlo, min(4, dhi + 3)
+
+
+def wgrad_f32_planes(b: int, h: int, w: int, co: int) -> int:
+    """Floats of K6b-f32's workspace: dy's TF32 hi and lo planes, each [4co,
+    cells] with its rows rounded up to 4 floats (16 bytes, for TMA)."""
+    return 2 * 4 * co * (-(-b * h * w // 4) * 4)
 
 
 def fwd_cols(ci: int) -> int:
@@ -189,9 +214,11 @@ def fwd_schedule(b: int, h: int, w: int, ci: int, co: int):
 
 def s2dconv_fwd(x: torch.Tensor, wp: torch.Tensor, ci: int, co: int) -> torch.Tensor:
     """K6: blocked conv of x [B, H, W, 4ci] with the packed weight wp
-    [16ci, 4co] -> [B, H, W, 4co] in x's dtype (the forward, and the dgrad
-    with the flipped, swapped kernel); fp32 x goes to K6-f32
-    (csrc/s2dconv_f32.cu, counted in ``s2dconv_fwd.launches_f32``)."""
+    [16ci, 4co] (``pack_s1``'s layout) -> [B, H, W, 4co] in x's dtype (the
+    forward, and the dgrad with the flipped, swapped kernel); fp32 x goes
+    to K6-f32 (csrc/s2dconv_f32.cu, counted in ``s2dconv_fwd.launches_f32``;
+    it skips wp's structural-zero blocks where a tile's columns allow, and
+    splits wp into a workspace of ``fwd_f32_planes`` floats)."""
     work.note("s2dconv", lambda: (
         work.s2dconv_flops(*x.shape[:3], ci, co),
         work.nbytes(x, wp) + x.numel() // ci * co * x.element_size()))
@@ -205,8 +232,9 @@ def s2dconv_fwd(x: torch.Tensor, wp: torch.Tensor, ci: int, co: int) -> torch.Te
     lib = cuda_build.load(name)
     stream = cuda_build.stream_ptr(x.device)
     if x.dtype == torch.float32:
-        rc = lib.crog_s2dconv_f32_fwd(x.data_ptr(), wp.data_ptr(), y.data_ptr(), b, h, w, ci,
-                                      co, stream)
+        planes = torch.empty(fwd_f32_planes(ci, co), dtype=torch.float32, device=x.device)
+        rc = lib.crog_s2dconv_f32_fwd(x.data_ptr(), wp.data_ptr(), planes.data_ptr(),
+                                      y.data_ptr(), b, h, w, ci, co, stream)
         cuda_build.check_launch(lib, rc, "crog_s2dconv_f32_fwd")
         s2dconv_fwd.launches_f32 += 1
         return y
@@ -226,7 +254,8 @@ def s2dconv_wgrad(x: torch.Tensor, dy: torch.Tensor, ci: int, co: int) -> torch.
     """K6b: the packed weight gradient [16ci, 4co] f32 of the blocked conv
     from its input x [B, H, W, 4ci] and output gradient dy [B, H, W, 4co];
     fp32 operands go to K6b-f32 (csrc/s2dconv_f32.cu, counted in
-    ``s2dconv_wgrad.launches_f32``)."""
+    ``s2dconv_wgrad.launches_f32``; dy split into a workspace of
+    ``wgrad_f32_planes`` floats, 532 MB at conv3 of the main path)."""
     if x.device.type == "cpu":
         return wgrad_plain(x, dy, ci, co)
     name = cuda_build.library_for("s2dconv_wgrad", x.dtype)
@@ -238,14 +267,19 @@ def s2dconv_wgrad(x: torch.Tensor, dy: torch.Tensor, ci: int, co: int) -> torch.
     part = torch.empty(parts, 16 * ci, 4 * co, dtype=torch.float32, device=dev)
     dwp = torch.empty(16 * ci, 4 * co, dtype=torch.float32, device=dev)
     lib = cuda_build.load(name)
-    entry = "crog_s2dconv_f32_wgrad" if f32 else "crog_s2dconv_wgrad"
-    rc = getattr(lib, entry)(x.data_ptr(), dy.data_ptr(), part.data_ptr(), dwp.data_ptr(), b,
-                             h, w, ci, co, parts, per, cuda_build.stream_ptr(dev))
-    cuda_build.check_launch(lib, rc, entry)
+    stream = cuda_build.stream_ptr(dev)
     if f32:
+        planes = torch.empty(wgrad_f32_planes(b, h, w, co), dtype=torch.float32, device=dev)
+        rc = lib.crog_s2dconv_f32_wgrad(x.data_ptr(), dy.data_ptr(), planes.data_ptr(),
+                                        part.data_ptr(), dwp.data_ptr(), b, h, w, ci, co,
+                                        parts, per, stream)
+        cuda_build.check_launch(lib, rc, "crog_s2dconv_f32_wgrad")
         s2dconv_wgrad.launches_f32 += 1
-    else:
-        s2dconv_wgrad.launches += 1
+        return dwp
+    rc = lib.crog_s2dconv_wgrad(x.data_ptr(), dy.data_ptr(), part.data_ptr(), dwp.data_ptr(), b,
+                                h, w, ci, co, parts, per, stream)
+    cuda_build.check_launch(lib, rc, "crog_s2dconv_wgrad")
+    s2dconv_wgrad.launches += 1
     return dwp
 
 

@@ -852,13 +852,21 @@ def _s2d_counts():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("ci,co", [(32, 32), (32, 64), (64, 32), (64, 64)])
-@pytest.mark.parametrize("b,h,w", [(2, 20, 37), (3, 9, 35), (1, 5, 3)])
+@pytest.mark.parametrize("b,h,w", [(2, 20, 37), (3, 9, 35), (1, 5, 3),
+                                   (2, 8, 8), (1, 3, 43),  # one 128-cell tile, one cell past
+                                   (1, 9, 127),  # an image edge in every tile, each shift
+                                   (24, 104, 104)])  # the main path's cells
 def test_cuda_s2dconv_f32_kernels_match_twins_and_repeat(exact_f32, ci, co, b, h, w):
     """K6-f32 and K6b-f32 against their fp32 twins on ragged planes (neither
     dimension a multiple of anything the kernels tile by; 5 x 3 cells fewer
-    than one 128-cell tile), full fp32 values: within F32_REL (forward) and
-    F32_BWD_REL (wgrad), equal bits on repeat, counted in launches_f32 and
-    not in the bf16 counters."""
+    than one 128-cell tile), on exactly one 128-cell tile and one cell past
+    it, at W = 127 (an image's left and right edge inside every 128-cell
+    tile, at another row of it each time, so each shift of the gathered
+    patch crosses one) and at the main path's B*H*W, full fp32 values:
+    within F32_REL (forward) and F32_BWD_REL (wgrad), equal bits on repeat,
+    counted in launches_f32 and not in the bf16 counters.  The twin
+    multiplies every block of the packed weight, so at co 64, where K6-f32
+    skips the structural zeros, this also holds the skip against no skip."""
     x = torch.relu(_f32(ci + co + h, b, h, w, 4 * ci))
     wp = SC.pack_s1(_f32(w, 3, 3, ci, co, std=(9 * ci) ** -0.5))
     dy = _f32(b + w, b, h, w, 4 * co)
@@ -871,6 +879,29 @@ def test_cuda_s2dconv_f32_kernels_match_twins_and_repeat(exact_f32, ci, co, b, h
     assert _rel_l2(dwp, SC.wgrad_plain(x, dy, ci, co)) <= F32_BWD_REL
     assert torch.equal(y, y2) and torch.equal(dwp, dwp2)
     assert _s2d_counts() == [before[0], before[1] + 2, before[2], before[3] + 2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ci,co", [(32, 32), (32, 64), (64, 32), (64, 64)])
+def test_cuda_s2dconv_f32_skips_only_zero_blocks(exact_f32, ci, co):
+    """K6-f32 multiplies, in each 128-column tile of its output, the
+    slot-rows of the packed weight that ``fwd_f32_slot_rows`` names and no
+    other: with pack_s1's structural zeros filled with noise, its output
+    equals the twin's on that weight with the blocks outside each tile's
+    slot-rows zeroed (at co 32 none is, at co 64 the noise is then unseen)."""
+    b, h, w = 2, 13, 21
+    x = torch.relu(_f32(ci + co, b, h, w, 4 * ci))
+    wp = SC.pack_s1(_f32(co, 3, 3, ci, co, std=(9 * ci) ** -0.5))
+    filled = (wp + (wp == 0) * _f32(ci, 16 * ci, 4 * co)).contiguous()
+    seen = filled.clone()
+    for n0 in range(0, 4 * co, 128):
+        lo, hi = SC.fwd_f32_slot_rows(co, n0)
+        seen[:lo * 4 * ci, n0:n0 + 128] = 0
+        seen[hi * 4 * ci:, n0:n0 + 128] = 0
+    y = SC.s2dconv_fwd(x, filled, ci, co)
+    torch.cuda.synchronize()
+    assert _rel_l2(y, SC.conv_padded_plain(x, seen, ci, co)) <= F32_REL
+    assert (_rel_l2(y, SC.conv_padded_plain(x, filled, ci, co)) > F32_REL) == (co == 64)
 
 
 @pytest.mark.cuda
@@ -920,6 +951,26 @@ def test_cuda_blocked_conv_f32_autograd_matches_twins(exact_f32):
     assert y.dtype == xg.grad.dtype == wg.grad.dtype == torch.float32
     assert _rel_l2(y.detach(), SC.conv_padded_plain(x, SC.pack_s1(wt), ci, co)) <= F32_REL
     assert _rel_l2(xg.grad, SC.conv_padded_plain(dy, flip, co, ci)) <= F32_REL
+    ref_dw = SC.unpack_s1(SC.wgrad_plain(x, dy, ci, co), ci, co)
+    assert _rel_l2(wg.grad, ref_dw) <= F32_BWD_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ci,co", [(32, 32), (32, 64)])
+def test_cuda_blocked_conv_f32_autograd_at_stem_shapes(exact_f32, ci, co):
+    """blocked_conv3x3_s1 in fp32 through autograd at the stem's shapes
+    (batch 24, 104 x 104 cells; conv2 ci = co = 32, conv3 ci 32 -> co 64,
+    whose dgrad runs 64 -> 32): dx (K6-f32 with the flipped, swapped kernel)
+    and dw (K6b-f32 folded by unpack_s1) within F32_BWD_REL of the twin
+    path's, conv_padded_plain and unpack_s1 of wgrad_plain."""
+    x = torch.relu(_f32(ci + 1, 24, 104, 104, 4 * ci))
+    wt = _f32(co + 2, 3, 3, ci, co, std=(2.0 / (9 * ci)) ** 0.5)
+    dy = _f32(co + 3, 24, 104, 104, 4 * co)
+    xg, wg = x.clone().requires_grad_(), wt.clone().requires_grad_()
+    SC.blocked_conv3x3_s1(xg, wg).backward(dy)
+    torch.cuda.synchronize()
+    flip = SC.pack_s1(torch.flip(wt, (0, 1)).permute(0, 1, 3, 2))
+    assert _rel_l2(xg.grad, SC.conv_padded_plain(dy, flip, co, ci)) <= F32_BWD_REL
     ref_dw = SC.unpack_s1(SC.wgrad_plain(x, dy, ci, co), ci, co)
     assert _rel_l2(wg.grad, ref_dw) <= F32_BWD_REL
 

@@ -312,6 +312,32 @@ def test_f32_parts_split_each_launch_sequence_by_name():
         "attention step": 0.2}
 
 
+def test_s2d_f32_parts_and_executed_flops():
+    """chip_smoke's split of a K6-f32 / K6b-f32 launch (``s2d_f32_parts``):
+    the product (gemm_wgmma_f32.cuh's kernel, or an older tree's
+    s2dconv_f32 kernel), the TF32 planes and the fixed-order sums, nothing
+    lost; the FLOPs each executes (``s2d_f32_executed``): the whole packed
+    weight, less the quarter of the slot-rows K6-f32 skips where a tile's
+    output columns are all of one dy' (conv3's forward, co 64), 16/9 of the
+    real taps elsewhere; and each launch's widths (a dgrad swaps them)."""
+    from crog_tpu_torch.ops import work
+
+    cs = _chip_smoke()
+    new = [("crog::gw_split_b_kernel<0, true>", 0.3),
+           ("crog::gemm_wgmma_f32_kernel<0, crog::S2dPatchT<32>, 0>", 0.6),
+           ("crog::reduce_parts_kernel", 0.01)]
+    old = [("crog::s2dconv_f32_wgrad_kernel<0, 32>", 1.3), ("crog::reduce_parts_kernel", 0.01)]
+    assert dict(cs.s2d_f32_parts(new)) == {"planes": 0.3, "product": 0.6, "sums": 0.01}
+    assert dict(cs.s2d_f32_parts(old)) == {"product": 1.3, "sums": 0.01}
+    assert [cs.s2d_launch_widths(f"conv3 {k}") for k in ("forward", "dgrad", "wgrad")] == [
+        (32, 64), (64, 32), (32, 64)]
+    for label in ("conv2 forward", "conv2 dgrad", "conv3 dgrad", "conv2 wgrad", "conv3 wgrad",
+                  "conv3 forward"):
+        real = work.s2dconv_flops(cs.BATCH, 104, 104, *cs.s2d_launch_widths(label))
+        share = 0.75 if label == "conv3 forward" else 1.0
+        assert cs.s2d_f32_executed(label) == pytest.approx(real * 16 / 9 * share)
+
+
 @pytest.mark.parametrize("dtype,aten,kernels", [
     (torch.bfloat16, work.PEAK_BF16_FLOPS, work.PEAK_BF16_FLOPS),
     (torch.float32, work.PEAK_F32_FLOPS, work.PEAK_F32_TC_FLOPS),

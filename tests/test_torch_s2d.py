@@ -290,6 +290,35 @@ def test_wgrad_f32_schedule_covers_every_cell_once(b, h, w, ci, co):
     assert SC.wgrad_f32_schedule(b, h, w, ci, co) == (chunks, chunk)
 
 
+@pytest.mark.parametrize("ci,co", [(32, 32), (32, 64), (64, 32), (64, 64)])
+def test_fwd_f32_slot_rows_skip_only_structural_zeros(ci, co):
+    """K6-f32's slot-rows per 128-column tile (fwd_f32_slot_rows, the
+    mirror of the kernel's k_range): a slot-row is skipped exactly where its
+    blocks of pack_s1's layout are zero in every column of the tile; at co
+    64 each tile skips one of the four, at co 32 none."""
+    wp = SC.pack_s1(torch.ones(3, 3, ci, co))
+    for n0 in range(0, 4 * co, 128):
+        lo, hi = SC.fwd_f32_slot_rows(co, n0)
+        for t in range(4):
+            nonzero = bool(wp[t * 4 * ci:(t + 1) * 4 * ci, n0:n0 + 128].any())
+            assert nonzero == (lo <= t < hi), (n0, t)
+        assert hi - lo == (3 if co == 64 else 4)
+
+
+def test_f32_planes_workspaces():
+    """K6-f32's and K6b-f32's TF32 planes workspaces, in floats: wp's hi and
+    lo planes [4co, 16ci] (1 MB at each of the stem's widths), dy's [4co,
+    cells] with the cells rounded up to 4 (266 MB at conv2 of the main path,
+    532 MB at conv3)."""
+    for ci, co in ((32, 32), (32, 64), (64, 32)):
+        assert SC.fwd_f32_planes(ci, co) == 2 * 4 * co * 16 * ci
+        assert SC.fwd_f32_planes(ci, co) * 4 <= 2**20
+    assert SC.wgrad_f32_planes(24, 104, 104, 32) * 4 == 265_814_016
+    assert SC.wgrad_f32_planes(24, 104, 104, 64) * 4 == 531_628_032
+    assert SC.wgrad_f32_planes(1, 1, 5, 32) == 2 * 128 * 8
+    assert SC.wgrad_f32_planes(1, 2, 2, 64) == 2 * 256 * 4
+
+
 def test_fp32_s2d_wrappers_run_their_twins_on_the_cpu():
     """On CPU tensors K6's and K6b's wrappers are the plain twins, in fp32
     (the output fp32, the packed gradient f32), and launch nothing at either

@@ -1,7 +1,8 @@
-"""The fp32 kernels K1-f32..K4-f32 and K4b-f32 on one card, product by
-product, beside fp32 cuBLAS and SDPA.
+"""The fp32 kernels K1-f32..K4-f32, K4b-f32, K6-f32 and K6b-f32 on one card,
+product by product, beside fp32 cuBLAS, SDPA and cuDNN.
 
     python3 tools/torch_ffn_f32.py [--tree DIR ...] [--rounds N]
+                                   [--kernels blocks ffn s2d]
 
 On chip_smoke.py's phase-18 inputs (the main path's B 24: M = 16224 rows,
 D 512, F 2048, 8 heads over 676 tokens, 17 text tokens; the attention pool's
@@ -15,7 +16,13 @@ K3-f32's q, k, v and out-projection; the attention steps; K4-f32's hidden
 and y; K4b-f32's recompute, dhn, dx, dW1 and dW2), the weights' TF32
 planes, the LayerNorm kernels and the fixed-order sums, beside fp32 cuBLAS
 (TF32 off) at each product's shape and SDPA's fp32 forward at each
-attention step's.  Each ``--tree DIR`` (an unpacked other commit; default
+attention step's; and ``chip_smoke.f32_s2d_products``: the s2d stem's
+K6-f32 and K6b-f32 (csrc/s2dconv_f32.cu) launch by launch at a train
+step's shapes (conv2 and conv3 forward and dgrad, their wgrads; batch 24,
+104 x 104 cells), each split into its product, wp's or dy's TF32 planes
+and the fixed-order sums, beside cuDNN's fp32 conv of the blocked and of
+the unblocked tensor.  ``--kernels`` picks among the three groups (all by
+default).  Each ``--tree DIR`` (an unpacked other commit; default
 this checkout) is measured in a process of its own with its own
 ``crog_tpu_torch`` (built into its own ``_build``) and this checkout's
 ``chip_smoke.py`` for the inputs, the split and the profiler, the trees in
@@ -45,9 +52,12 @@ def load_chip_smoke():
     return cs
 
 
-def one_tree(tree: str) -> dict:
+KERNEL_GROUPS = ("blocks", "ffn", "s2d")
+
+
+def one_tree(tree: str, kernels=KERNEL_GROUPS) -> dict:
     """This process's readings with ``tree``'s crog_tpu_torch: {"kernel
-    product": [device ms, cuBLAS or SDPA device ms]}."""
+    product": [device ms, cuBLAS, SDPA or cuDNN device ms]}."""
     sys.path[:0] = [os.path.abspath(tree), ROOT]
     import torch
 
@@ -55,10 +65,19 @@ def one_tree(tree: str) -> dict:
 
     set_exact_fp32_matmul()
     cs = load_chip_smoke()
-    inp = cs.kernel_inputs(torch.device("cuda", 0), dtype=torch.float32)
+    device = torch.device("cuda", 0)
+    got = {}
     with torch.no_grad():
-        got = cs.f32_block_products(inp, cs.smi_line())
-        got.update(cs.f32_ffn_products(inp, cs.smi_line()))
+        if "blocks" in kernels or "ffn" in kernels:
+            inp = cs.kernel_inputs(device, dtype=torch.float32)
+            if "blocks" in kernels:
+                got.update(cs.f32_block_products(inp, cs.smi_line()))
+            if "ffn" in kernels:
+                got.update(cs.f32_ffn_products(inp, cs.smi_line()))
+            del inp
+        if "s2d" in kernels:
+            got.update(cs.f32_s2d_products(cs.s2dconv_cases(device, dtype=torch.float32),
+                                           cs.smi_line()))
     return {f"{kid} {p}": list(v) for (kid, p), v in got.items()}
 
 
@@ -68,10 +87,13 @@ def main(argv=None) -> int:
                     help="directories whose crog_tpu_torch is measured, in turns")
     ap.add_argument("--rounds", type=int, default=1,
                     help="rounds of turns (two trees: A B B A per round)")
+    ap.add_argument("--kernels", nargs="+", choices=KERNEL_GROUPS, default=list(KERNEL_GROUPS),
+                    help="the kernel groups measured: K1-f32..K3-f32 (blocks), K4-f32 and "
+                         "K4b-f32 (ffn), K6-f32 and K6b-f32 (s2d)")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.one:
-        print(json.dumps(one_tree(args.one)), flush=True)
+        print(json.dumps(one_tree(args.one, args.kernels)), flush=True)
         return 0
     import torch
 
@@ -87,7 +109,8 @@ def main(argv=None) -> int:
         order += trees + trees[::-1] if len(trees) == 2 else trees
     runs = []
     for tree in order:
-        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree],
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree,
+                              "--kernels", *args.kernels],
                              capture_output=True, text=True, timeout=900)
         print(res.stdout.rsplit("\n", 2)[0], flush=True)
         if res.returncode != 0:
