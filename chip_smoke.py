@@ -104,7 +104,8 @@ any failure propagates and the exit code is not 0:
      projections' shapes, SDPA's backward at K2b's and K3b's attention
      shapes and torch.mm at those of K2b's and K3b's products, all fp32;
      each product of K4-f32 and K4b-f32 (dW1 and dW2 included) by device
-     time beside fp32 cuBLAS at its shape; K6-f32 at the stem's conv2 and
+     time beside fp32 cuBLAS at its shape, and of K2b-f32 and K3b-f32 (dO,
+     dX, d(txt), each dW) beside fp32 torch.mm; K6-f32 at the stem's conv2 and
      conv3 forward and both dgrads and K6b-f32 at conv2 and conv3 (batch
      24, 104x104 cells,
      full fp32 values) within F32_REL_L2 and F32_BWD_REL_L2 of their twins,
@@ -127,10 +128,12 @@ any failure propagates and the exit code is not 0:
      CPU: the loss within F32_TRAIN_LOSS_TOL and each group's gradient
      within F32_TRAIN_GRAD_TOL, launching K1-f32 and K1b-f32 once,
      K2-K4(b)-f32 three times each, K6-f32 four times, K6b-f32 twice and no
-     bf16 kernel; (f) the fp32 model on the fused stem through
-     ``train_one_epoch`` for 4 steps at 24 on phase 5's rawlb batches: the
-     loss finite, every parameter and BatchNorm statistic moved, the same
-     launches per step; then train samples/s and peak memory of the fp32
+     bf16 kernel; the attention pool's q_proj and k_proj weight gradients
+     of the card and of the CPU against float64 at the card's inputs, and
+     the CPU's at its own (printed, no limit); (f) the fp32 model on the
+     fused stem through ``train_one_epoch`` for 4 steps at 24 on phase 5's
+     rawlb batches: the loss finite, every parameter and BatchNorm
+     statistic moved, the same launches per step; then train samples/s and peak memory of the fp32
      model on the fused stem, on the plain stem and of the bf16 model, in
      turns; the ``[stem]`` line in fp32 (plain stem, s2d on cuDNN, s2d on
      K6-f32/K6b-f32); (g) ``python -m crog_tpu_torch.train_crog
@@ -278,6 +281,7 @@ line; the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -721,11 +725,6 @@ BLOCK_FWD_SPLIT = ((("ln_pos", ("ln_pos",)),
 FFN_FWD_SPLIT = ((("hidden (cluster kernel)", ("ffn_fwd_hidden",)),
                   ("y GEMM", ("ffn_out",))),
                  "the rest (weight casts and transposes)")
-F32_BLOCK_BWD_SPLIT = ((("LayerNorm backward", ("ln_p",)),
-                        ("attention step (dq and dkv kernels)", ("attn_bwd_f32",)),
-                        ("dO, dX and dW products (gemm_kn_f32)", ("gemm_kn",)),
-                        ("fixed-order sums", ("reduce_parts", "colsum"))),
-                       "the rest")
 FFN_BWD_SPLIT = ((("K4b's kernels", ("ffn_bwd", "ffn_out")),
                   ("reduce_rows", ("reduce_rows",)),
                   ("dW1 and dW2 (library GEMMs)", ("gemm", "nvjet", "cutlass"))),
@@ -733,13 +732,14 @@ FFN_BWD_SPLIT = ((("K4b's kernels", ("ffn_bwd", "ffn_out")),
 
 
 def f32_parts(products):
-    """The split of an fp32 kernel's launches (K1-f32..K4-f32, K4b-f32) in
-    launch order -> [(part, device ms)]: the attention kernel is the
-    attention step; the n-th GEMM launch (gemm_wgmma_f32.cuh's kernel, or
-    gemm_f32.cuh's or a library GEMM in an older tree) is the n-th of
-    ``products``; then the splits of the products' B into TF32 planes, the
-    blocks' ln_pos and ln_residual, the other LayerNorm kernels, the
-    fixed-order sums and the rest (the cross block's key mask)."""
+    """The split of an fp32 kernel's launches (K1-f32..K4-f32, K2b-f32..
+    K4b-f32) in launch order -> [(part, device ms)]: the attention kernels
+    are the attention step; the n-th GEMM launch (gemm_wgmma_f32.cuh's
+    kernel, or gemm_f32.cuh's, grad_f32.cuh's gemm_kn or a library GEMM in
+    an older tree) is the n-th of ``products``; then the splits of the
+    products' B into TF32 planes, the blocks' ln_pos and ln_residual, the
+    other LayerNorm kernels (the backward's ln_post_bwd and ln_pre_bwd),
+    the fixed-order sums and the rest (the cross block's key mask)."""
     def split(seq):
         parts, n = {}, 0
         for name, t in seq:
@@ -750,8 +750,8 @@ def f32_parts(products):
                 n += 1
             elif "split_b" in name:
                 part = "B's TF32 planes"
-            elif "ln_pos" in name or "ln_residual" in name:
-                part = "ln_pos" if "ln_pos" in name else "ln_residual"
+            elif "ln_pos_" in name or "ln_residual" in name:
+                part = "ln_pos" if "ln_pos_" in name else "ln_residual"
             elif "ln_" in name:
                 part = "LayerNorm"
             elif "reduce_parts" in name or "colsum" in name:
@@ -774,9 +774,27 @@ F32_BLOCK_PRODUCTS = {"K2-f32": (("q | k", "m", 2), ("v", "m", 1), ("out-project
                                  ("out-projection", "m", 1))}
 F32_FFN_PRODUCTS = {"K4-f32": ("hidden", "y"),
                     "K4b-f32": ("recompute", "dhn", "dx", "dW1", "dW2")}
+
+
+def f32_block_bwd_shapes(m: int, mt: int, d: int = 512):
+    """K2b-f32's and K3b-f32's products over ``m`` image and ``mt`` text
+    rows in launch order (csrc/decoder_blocks_bwd_f32.cu,
+    ops/decoder_blocks.py f32_bwd_products), each on gemm_wgmma_f32.cuh's
+    kernel: {kernel: ((name, (rows, depth, cols) of C = A B, whether A is
+    read transposed: a dW, A^T B over the batch rows), ...)}."""
+    dw = lambda name, rows: (name, (d, rows, d), True)  # noqa: E731
+    return {"K2b-f32": (("dO", (m, d, d), False), ("dX", (m, 3 * d, d), False),
+                        ("dW q|k", (2 * d, m, d), True), dw("dW v", m), dw("dW out", m)),
+            "K3b-f32": (("dO", (m, d, d), False), ("dX", (m, d, d), False),
+                        ("d(txt)", (mt, 2 * d, d), False), dw("dWq", m), dw("dWk", mt),
+                        dw("dWv", mt), dw("dW out", m))}
+
+
 F32_PARTS = {"K1-f32": f32_parts(()),
              **{k: f32_parts(tuple(p[0] for p in v)) for k, v in F32_BLOCK_PRODUCTS.items()},
-             **{k: f32_parts(v) for k, v in F32_FFN_PRODUCTS.items()}}
+             **{k: f32_parts(v) for k, v in F32_FFN_PRODUCTS.items()},
+             **{k: f32_parts(tuple(p[0] for p in v))
+                for k, v in f32_block_bwd_shapes(1, 1).items()}}
 
 
 def block_bwd_parts(seq):
@@ -868,8 +886,8 @@ def _time(rec, kern, plain, lib):
         split = {"K2": BLOCK_FWD_SPLIT, "K3": BLOCK_FWD_SPLIT, "K2b": block_bwd_parts,
                  "K3b": block_bwd_parts, "K4": FFN_FWD_SPLIT, "K4b": FFN_BWD_SPLIT,
                  "K2-f32": F32_PARTS["K2-f32"], "K3-f32": F32_PARTS["K3-f32"],
-                 "K4-f32": F32_PARTS["K4-f32"], "K2b-f32": F32_BLOCK_BWD_SPLIT,
-                 "K3b-f32": F32_BLOCK_BWD_SPLIT, "K4b-f32": F32_PARTS["K4b-f32"]}.get(kid)
+                 "K4-f32": F32_PARTS["K4-f32"], "K2b-f32": F32_PARTS["K2b-f32"],
+                 "K3b-f32": F32_PARTS["K3b-f32"], "K4b-f32": F32_PARTS["K4b-f32"]}.get(kid)
         DEVICE_TIMED.append((f"{rec['name']} ({kid})", rec["ms"], kern, None, split))
     if rec["name"] in ("attention_bwd", "attention_bwd_f32"):
         kid = "K1b" if rec["name"] == "attention_bwd" else "K1b-f32"
@@ -950,6 +968,10 @@ def gemm_yardsticks(device, b=BATCH, l=676, t=17, d=512, f=2048):
         (f"[{m}, {3 * d}] x [{3 * d}, {d}] (K2b's three dX products as one)",
          rnd(m, 3 * d), rnd(3 * d, d), False),
         (f"A^T B over {m} rows, [{d}, {d}] (each dW)", rnd(m, d), rnd(m, d), True),
+        (f"A^T B over {m} rows, [{2 * d}, {d}] (K2b's dW[q | k])", rnd(m, 2 * d), rnd(m, d),
+         True),
+        (f"[{mt}, {2 * d}] x [{2 * d}, {d}] (K3b's d(txt))", rnd(mt, 2 * d), rnd(2 * d, d),
+         False),
         (f"A^T B over {mt} rows, [{d}, {d}] (K3b's dW of k and v)", rnd(mt, d), rnd(mt, d),
          True),
         (f"[{m}, {d}] x [{d}, {f}] (K4's hidden product)", rnd(m, d), rnd(d, f), False),
@@ -2553,6 +2575,7 @@ def fp32_backward_kernels(inp, timed: bool = True):
         f32_attention_bwd_steps(dev, smi)
         f32_grad_yardsticks(dev)
         f32_ffn_products(inp, smi)
+        f32_block_bwd_products(inp, smi)
     return records
 
 
@@ -2742,6 +2765,61 @@ def f32_block_products(inp, smi: str):
     return out
 
 
+def f32_block_bwd_products(inp, smi: str):
+    """Phase 18 (a): K2b-f32 and K3b-f32 (dropout RATE) at the main path's
+    shapes by the profiler's device time, split in launch order
+    (``F32_PARTS``): each product (``f32_block_bwd_shapes``) beside fp32
+    torch.mm (TF32 off) at its shape, with its rate and bound, and B's TF32
+    planes, the LayerNorm kernels, the fixed-order sums and the attention
+    step; every line names the card.  Returns {(kernel, product): (device
+    ms, torch.mm device ms)} and {(kernel, "device"): (the call's device
+    ms, None)}, as ``f32_ffn_products``."""
+    import torch
+
+    from crog_tpu_torch.ops import decoder_blocks as DB
+
+    sargs, cargs, _ = _args(inp)
+    x, xc = sargs[0], cargs[0]
+    b, l, d = x.shape
+    t = cargs[1].shape[1]
+    dys, dyc = (inp["dy"][n] for n in ("decoder_self_block", "decoder_cross_block"))
+    _, ssaved = DB.self_block_fwd(*sargs, SEED + 1, RATE, save=True)
+    _, csaved = DB.cross_block_fwd(*cargs, SEED + 2, RATE, save=True)
+    calls = {"K2b-f32": lambda: DB.self_block_bwd(x, ssaved, dys, 8, SEED + 1, RATE),
+             "K3b-f32": lambda: DB.cross_block_bwd(xc, csaved, dyc, 8, SEED + 2, RATE)}
+    gen = torch.Generator().manual_seed(SEED + 17)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen).to(x.device)  # noqa: E731
+    shown = lambda v: "not measured" if v is None else f"{v:.4f} ms"  # noqa: E731
+    lib_ms, out = {}, {}
+    for kid, call in calls.items():
+        dev, _, seq = device_ms(call)
+        out[kid, "device"] = (dev, None)
+        parts = dict(F32_PARTS[kid](seq)) if seq is not None else {}
+        print(f"[fp32] {kid} at B={b}: device time {shown(dev)} (" + ", ".join(
+            f"{p} {v:.4f}" for p, v in parts.items()) + f"); {smi}", flush=True)
+        prods = f32_block_bwd_shapes(b * l, b * t, d)[kid]
+        for name, (m, k, n), at in prods:
+            if (m, k, n, at) not in lib_ms:
+                a, w = (rnd(k, m), rnd(k, n)) if at else (rnd(m, k), rnd(k, n))
+                lib_ms[m, k, n, at] = device_ms(
+                    (lambda a=a, w=w: torch.mm(a.t(), w)) if at
+                    else (lambda a=a, w=w: torch.mm(a, w)))[0]
+                del a, w
+            lib, ms, flops = lib_ms[m, k, n, at], parts.get(name), 2.0 * m * k * n
+            bms, by = bound(flops, 0, PEAK_F32_TC_FLOPS)
+            rate = "" if ms is None else f", {flops / ms / 1e9:.1f} TFLOP/s"
+            ratio = "" if ms is None or lib is None else f", {ms / lib:.3f}x"
+            shape = f"[{k}, {m}]^T x [{k}, {n}]" if at else f"[{m}, {k}] x [{k}, {n}]"
+            print(f"[fp32] {kid} {name} {shape}: {shown(ms)}{rate} (bound {bms:.4f} ms by "
+                  f"{by}); fp32 torch.mm {shown(lib)}{ratio}; {smi}", flush=True)
+            out[kid, name] = (ms, lib)
+        known = sum(parts.get(p[0], 0.0) for p in prods)
+        print(f"[fp32] {kid} products {known:.4f} ms of {shown(dev)}; {smi}", flush=True)
+        out[kid, "products"] = (known, None)
+    del ssaved, csaved
+    return out
+
+
 def f32_bwd_rate_checks(inp):
     """K2b-f32, K3b-f32 and K4b-f32 at dropout 0 against their twins, and
     at dropout 0 and RATE twice each: every output, and K4b-f32's dh and
@@ -2794,7 +2872,8 @@ def f32_grad_yardsticks(device, b=BATCH, l=676, t=17, d=512):
     """Timed as yardsticks only (the port computes these in its own
     kernels): fp32 torch.mm, TF32 off, at the shapes of the products of
     K2b-f32 (dO and each dX [B*L, D] x [D, D], the three dX as one [B*L, 3D]
-    x [3D, D], each dW over B*L rows) and K3b-f32 (dW over B*T rows).  SDPA's
+    x [3D, D], each dW over B*L rows, dW[q | k] over them) and K3b-f32 (its
+    d(txt) [B*T, 2D] x [2D, D], dW over B*T rows).  SDPA's
     fp32 backward at the attention steps' shapes is timed beside them
     (``f32_attention_bwd_steps``), cuBLAS at K4-f32's and K4b-f32's
     products in ``f32_ffn_products``."""
@@ -2936,6 +3015,82 @@ def fp32_e2e(device, batch, smi: str):
               + f" GiB (two runs, in turns fp32 bf16 bf16 fp32) on {smi}", flush=True)
 
 
+POOL = "backbone.visual.attnpool."
+
+
+@contextlib.contextmanager
+def pool_taps(model):
+    """Inside it, the attention pool of ``model`` records the input tokens
+    of its forward (q_proj's input, the positional embedding added) as
+    ``tokens`` and the gradient at its attention's output (c_proj's input)
+    of the backward as ``da``, both f32 on the CPU."""
+    pool, got = model.backbone.visual.attnpool, {}
+
+    def tokens(mod, args):
+        got["tokens"] = args[0].detach().float().cpu()
+
+    def out(mod, args):
+        if args[0].requires_grad:
+            args[0].register_hook(lambda g: got.__setitem__("da", g.detach().float().cpu()))
+
+    hooks = [pool.q_proj.register_forward_pre_hook(tokens),
+             pool.c_proj.register_forward_pre_hook(out)]
+    try:
+        yield got
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def pool_qk_grads_f64(tokens, da, wq, bq, wk, bk, wv, bv, heads: int):
+    """(dWq, dWk) of the attention pool's q and k projections in float64,
+    the backward written out in plain torch ops: tokens [B, N, C] the
+    pool's input tokens, da [B, N, C] the gradient at its attention's
+    output; q, k, v = tokens W^T + b, per head softmax(q k^T / sqrt(dh)) v;
+    dS = P (dP - rowsum(dP P)), dq = dS k / sqrt(dh), dk = dS^T q /
+    sqrt(dh); dW = (dq or dk)^T tokens summed over B and N."""
+    import torch
+
+    t, g = tokens.double(), da.double()
+    b, n, c = t.shape
+    dh = c // heads
+    scale = dh**-0.5
+    split = lambda z: z.reshape(b, n, heads, dh).transpose(1, 2)  # noqa: E731
+    q, k, v = (split(t @ w.double().t() + bb.double())
+               for w, bb in ((wq, bq), (wk, bk), (wv, bv)))
+    p = torch.softmax(q @ k.transpose(-1, -2) * scale, -1)
+    dp = split(g) @ v.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dq, dk = ds @ k * scale, ds.transpose(-1, -2) @ q * scale
+    rows = lambda z: z.transpose(1, 2).reshape(b * n, c)  # noqa: E731
+    tt = t.reshape(b * n, c)
+    return rows(dq).t() @ tt, rows(dk).t() @ tt
+
+
+def pool_grad_reference(card, cpu, card_taps, cpu_taps, model):
+    """The attention pool's q_proj and k_proj weight gradients of one train
+    step on the card and on the CPU in fp32 (``train_grads`` results)
+    against float64 (``pool_qk_grads_f64``) at the card's tokens and
+    gradient at the attention's output, and the CPU's against float64 at
+    its own; ``model`` gives the weights (the same seeded weights on both).
+    Returns {(run, reference inputs): rel-L2 over both weights}."""
+    pool = model.backbone.visual.attnpool
+    w = [getattr(getattr(pool, f"{n}_proj"), a).detach().cpu()
+         for n in ("q", "k", "v") for a in ("weight", "bias")]
+    refs = {src: pool_qk_grads_f64(taps["tokens"], taps["da"], *w, pool.num_heads)
+            for src, taps in (("card", card_taps), ("cpu", cpu_taps))}
+    out = {}
+    for run, (_, grads) in (("card", card), ("cpu", cpu)):
+        for src in ("card", "cpu") if run == "cpu" else ("card",):
+            num = den = 0.0
+            for name, ref in zip(("q_proj", "k_proj"), refs[src]):
+                got = grads[f"{POOL}{name}.weight"].double()
+                num += float((got - ref).pow(2).sum())
+                den += float(ref.pow(2).sum())
+            out[run, src] = (num / max(den, 1e-300)) ** 0.5
+    return out
+
+
 def fp32_train_gap(device, batch):
     """Phase 18 (e): one fp32 train step at batch 2 (two samples of
     ``batch``), dropout 0, BatchNorm on running statistics, on the card with
@@ -2951,13 +3106,25 @@ def fp32_train_gap(device, batch):
     wrappers = launch_counts()
     model = grad_model(cfg, device, fused_stem=True)
     _reset(wrappers)
-    card = train_grads(model, mini)
+    with pool_taps(model) as card_taps:
+        card = train_grads(model, mini)
     torch.cuda.synchronize()
     launches = _read(wrappers)
     del model
-    cpu = train_grads(grad_model(cfg, torch.device("cpu"), torch.float32, fused_stem=False),
-                      mini)
+    cpu_model = grad_model(cfg, torch.device("cpu"), torch.float32, fused_stem=False)
+    with pool_taps(cpu_model) as cpu_taps:
+        cpu = train_grads(cpu_model, mini)
     rel, groups = grad_gap(card, cpu, "[fp32] train step at batch 2 (fused stem), card vs CPU:")
+    pool = pool_grad_reference(card, cpu, card_taps, cpu_taps, cpu_model)
+    card_rel, cpu_rel = pool["card", "card"], pool["cpu", "card"]
+    print(f"[fp32] train step's attention pool q_proj and k_proj weight gradients against "
+          f"float64 at the card's tokens and attention-output gradient: card-fp32 "
+          f"{card_rel:.4g}, CPU-fp32 {cpu_rel:.4g} (the card is "
+          + ("the farther by more than 2x" if card_rel > 2 * cpu_rel else
+             "the nearer" if card_rel <= cpu_rel else "the farther, within 2x")
+          + f"); CPU-fp32 against float64 at its own inputs {pool['cpu', 'cpu']:.4g} (card / "
+          f"CPU at own inputs {card_rel / pool['cpu', 'cpu']:.3g})", flush=True)
+    del cpu_model
     stem = stem_grad_gap(card, cpu)
     print(f"[fp32] train step: loss rel {rel:.4g} (limit {F32_TRAIN_LOSS_TOL}), grad rel_l2 "
           f"limits {F32_TRAIN_GRAD_TOL}; the stem's conv weights' gradients rel_l2 {stem:.4g}; "

@@ -17,14 +17,13 @@
 // TFLOP/s): K2b 124 GFLOP, about 0.75 ms; K3b 36 GFLOP, about 0.22 ms;
 // both bound by the products.
 //
-// Design: right and simple first, a sequence of launches per block over
-// the intermediates the fp32 forward (decoder_blocks_f32.cu) saved (xl,
-// qin, q/k/v, o and the pre-LN projection op), every intermediate in
-// device memory:
+// Design: a sequence of launches per block over the intermediates the
+// fp32 forward (decoder_blocks_f32.cu) saved (xl, qin, q/k/v, o and the
+// pre-LN projection op), every intermediate in device memory:
 //   1. ln_post_bwd: dOP = post-LN backward of drop(dy), the dropout mask
 //      regenerated from (row, column) and the seed (common.cuh); column
 //      partials of dG_post, dB_post, dB_out = sum(dOP), summed in order
-//   2. dO = dOP W_out                               grad_f32.cuh gemm_nn
+//   2. dO = dOP W_out
 //   3. the attention backward -> dQ, dK, dV         attention_bwd_f32.cuh
 //      (delta = rowsum(dP * P), as pallas_decoder.py's `_mha_bwd`): a
 //      pre-pass forms QK^T and dO V^T once for each row's max, sum and
@@ -40,12 +39,22 @@
 //      Wk, Wv in order); cross: dXL = dQ Wq, d(txt) = [dK dV] [Wk; Wv]
 //   5. ln_pre_bwd: dX = dy + pre-LN backward of dXL; partials of dG_pre,
 //      dB_pre
-//   6. dW = dY^T X for q, k, v and out over row chunks, each chunk's
-//      partial summed in chunk order (grad_f32.cuh gemm_tn), and the q/k/v
-//      bias sums as fixed-order column sums of dQ, dK, dV
+//   6. dW = dY^T X: self [q | k] (one product, 2D rows of in_w), v and
+//      out; cross q, k, v and out; and the q/k/v bias sums as fixed-order
+//      column sums of dQ, dK, dV
+// Every product of 2, 4 and 6 runs on gemm_wgmma_f32.cuh (wgmma
+// m64n128k8 .tf32, 3xTF32, A split in registers; B, the weight or the D
+// wide activation X of a dW, split once into its TF32 hi and lo planes,
+// one `planes` workspace reused in stream order; dW reads dY transposed,
+// GwAMatrix<true>).  A product whose output tiles leave most of the card
+// idle is split over K (`bwd_chunk`: the dW over the B*L rows, d(txt) and
+// the dW over the B*T text rows), one partial per chunk summed in chunk
+// order into the output (grad_f32.cuh reduce_parts): no atomics, two
+// calls give the same bits.
 // The LayerNorm kernels take a 512-wide row at a time with 64 threads of
 // 8 columns each (grad_f32.cuh RowBlock), over 32 rows per CTA.
 #include "attention_bwd_f32.cuh"
+#include "gemm_wgmma_f32.cuh"
 #include "grad_f32.cuh"
 
 namespace crog {
@@ -145,6 +154,60 @@ static cudaError_t ln_pre_bwd(const float* x, const float* dxl, const float* dy,
   return err;
 }
 
+// CTAs of one wave: an H100 SXM's SMs, one CTA each
+// (ops/decoder_blocks.py F32_BWD_WAVE)
+constexpr int kBwdWave = 132;
+
+// K per chunk of a product over depth k whose output has `tiles` tiles: as
+// many equal chunks, a multiple of kGwK each (the last one shorter), as
+// fill one wave with the tiles, and at least one
+// (ops/decoder_blocks.py f32_bwd_chunks)
+inline int bwd_chunk(int k, int tiles) {
+  const int slices = (k + kGwK - 1) / kGwK;
+  int n = kBwdWave / tiles < slices ? kBwdWave / tiles : slices;
+  if (n < 1) n = 1;
+  return round_up((k + n - 1) / n, kGwK);
+}
+
+// C [m, n] (row stride ldc) = A B over depth k, A [m, k] as stored (AT
+// false) or read transposed from [k, m] (AT true; lda its row stride), B's
+// planes split into `planes`: one chunk of bwd_chunk(k, tiles) writes C,
+// more write their partials into part [chunks, m, n] and reduce_parts adds
+// them in chunk order into C (then ldc == n)
+template <bool AT, int PRODUCT>
+static cudaError_t bwd_product(const float* a, long long lda, const float* planes, float* c,
+                               long long ldc, float* part, int m, int n, int k,
+                               cudaStream_t s) {
+  const int kc = bwd_chunk(k, (n / kGwN) * ((m + kGwM - 1) / kGwM));
+  const int chunks = (k + kc - 1) / kc;
+  if (chunks > 1 && ldc != n) return cudaErrorInvalidValue;
+  const long long mn = (long long)m * n;
+  const GemmWgF32 p{a, planes, chunks > 1 ? part : c, nullptr, lda, gw_planes_ld(k),
+                    chunks > 1 ? n : ldc, mn, m, n, k, kc, Dropout{0u, 0u, 1.0f}};
+  cudaError_t err = gemm_wgmma_f32<AT, kGwStore, PRODUCT>(p, s);
+  if (err != cudaSuccess || chunks == 1) return err;
+  return reduce_parts(part, chunks, mn, mn, c, s);
+}
+
+// c [m, D] = a w over k: a [m, k] (row stride lda), w [k, D] read with its
+// rows as K (a torch Linear weight's input gradient); dO, dX, d(txt)
+template <int PRODUCT>
+static cudaError_t bwd_weight(const float* a, long long lda, const float* w, float* planes,
+                              float* c, float* part, int m, int k, cudaStream_t s) {
+  cudaError_t err = gw_split_b_planes<true, PRODUCT>(w, planes, kBwdD, k, s);
+  if (err != cudaSuccess) return err;
+  return bwd_product<false, PRODUCT>(a, lda, planes, c, kBwdD, part, m, kBwdD, k, s);
+}
+
+// dw [n, D] = dy^T x over `rows` batch rows: dy [rows, n] (row stride
+// ldy), x [rows, D] (an activation, D wide)
+static cudaError_t bwd_dw(const float* dy, long long ldy, const float* x, float* planes,
+                          float* dw, float* part, int n, int rows, cudaStream_t s) {
+  cudaError_t err = gw_split_b_planes<true, kProdDW>(x, planes, kBwdD, rows, s);
+  if (err != cudaSuccess) return err;
+  return bwd_product<true, kProdDW>(dy, ldy, planes, dw, kBwdD, part, n, kBwdD, rows, s);
+}
+
 static AttnBwdF32Args attn_args(int heads, int lq, int lk) {
   AttnBwdF32Args a = {};
   a.heads = heads;
@@ -173,14 +236,15 @@ float* P(void* const* t, int i) { return static_cast<float*>(t[i]); }
 //   outputs 12 dx, 13 dw_in [3D, D], 14 dw_out [D, D], 15 dvec [8, D]
 //   (d b_q, b_k, b_v, b_out, g_pre, b_pre, g_post, b_post);
 //   workspace 16 dop, 17 do [B*L, D], 18 dqkv [B*L, 3D], 19 dxl [B*L, D],
-//   20 stats [B*H, 3, L], 21 wpart [splits, 2D, D], 22 lnpart
-//   [ceil(B*L/32), 3, D], 23 cpart [ceil(B*L/256), 3D], 24 dqpart
-//   [ceil(L/64), B*H, L, 64].
+//   20 stats [B*H, 3, L], 21 part (the chunk partials of the products,
+//   ops/decoder_blocks.py f32_bwd_work), 22 lnpart [ceil(B*L/32), 3, D],
+//   23 cpart [ceil(B*L/256), 3D], 24 dqpart [ceil(L/64), B*H, L, 64],
+//   25 planes (the TF32 planes of each product's B, f32_bwd_work).
 extern "C" int crog_self_block_f32_bwd(void* const* t, int b, int l, int d, int heads,
-                                       int splits, unsigned seed, unsigned thresh, float scale,
+                                       unsigned seed, unsigned thresh, float scale,
                                        void* stream) {
   using namespace crog;
-  if (d != kBwdD || heads * kAbF32DH != d || l < 1 || l > kAbF32MaxL || b < 1 || splits < 1)
+  if (d != kBwdD || heads * kAbF32DH != d || l < 1 || l > kAbF32MaxL || b < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m = b * l;
@@ -190,10 +254,11 @@ extern "C" int crog_self_block_f32_bwd(void* const* t, int b, int l, int d, int 
         *op = P(t, 10), *dy = P(t, 11);
   float *dx = P(t, 12), *dwi = P(t, 13), *dwo = P(t, 14), *dvec = P(t, 15);
   float *dop = P(t, 16), *dO = P(t, 17), *dqkv = P(t, 18), *dxl = P(t, 19), *stats = P(t, 20),
-        *wpart = P(t, 21), *lnpart = P(t, 22), *cpart = P(t, 23), *dqpart = P(t, 24);
+        *part = P(t, 21), *lnpart = P(t, 22), *cpart = P(t, 23), *dqpart = P(t, 24),
+        *planes = P(t, 25);
 
   CROG_TRY(ln_post_bwd(op, dy, g_post, Dropout{seed, thresh, scale}, dop, lnpart, dvec, m, s));
-  CROG_TRY(gemm_nn_f32<kProdDO>(dop, d, wo, d, dO, d, m, d, d, s));
+  CROG_TRY(bwd_weight<kProdDO>(dop, d, wo, planes, dO, part, m, d, s));
   AttnBwdF32Args a = attn_args(heads, l, l);
   a.q = qk;
   a.k = qk + d;
@@ -213,13 +278,12 @@ extern "C" int crog_self_block_f32_bwd(void* const* t, int b, int l, int d, int 
   a.dq_bs = a.dk_bs = a.dv_bs = (long long)l * 3 * d;
   a.dq_rs = a.dk_rs = a.dv_rs = 3 * d;
   CROG_TRY(launch_attention_bwd_f32(a, b, s));
-  CROG_TRY(gemm_nn_f32<kProdDX>(dqkv, 3 * d, wi, d, dxl, d, m, d, 3 * d, s));
+  CROG_TRY(bwd_weight<kProdDX>(dqkv, 3 * d, wi, planes, dxl, part, m, 3 * d, s));
   CROG_TRY(ln_pre_bwd(x, dxl, dy, g_pre, dx, lnpart, dvec, m, s));
   // d in_w: rows [0, 2D) = [dq dk]^T qin, rows [2D, 3D) = dv^T xl
-  CROG_TRY(gemm_tn_f32<kProdDW>(dqkv, 3 * d, qin, d, dwi, d, wpart, 2 * d, d, m, splits, s));
-  CROG_TRY(gemm_tn_f32<kProdDW>(dqkv + 2 * d, 3 * d, xl, d, dwi + 2 * dd, d, wpart, d, d, m,
-                                splits, s));
-  CROG_TRY(gemm_tn_f32<kProdDW>(dop, d, o, d, dwo, d, wpart, d, d, m, splits, s));
+  CROG_TRY(bwd_dw(dqkv, 3 * d, qin, planes, dwi, part, 2 * d, m, s));
+  CROG_TRY(bwd_dw(dqkv + 2 * d, 3 * d, xl, planes, dwi + 2 * dd, part, d, m, s));
+  CROG_TRY(bwd_dw(dop, d, o, planes, dwo, part, d, m, s));
   CROG_TRY(colsum_f32(dqkv, 3 * d, m, 3 * d, cpart, dvec, s));
   return 0;
 }
@@ -230,15 +294,15 @@ extern "C" int crog_self_block_f32_bwd(void* const* t, int b, int l, int d, int 
 //   10 kin, 11 k, 12 v [B*T, D], 13 op [B*L, D], 14 dy;
 //   outputs 15 dx, 16 dkv [B*T, D] (d txt), 17 dw_in, 18 dw_out, 19 dvec;
 //   workspace 20 dop, 21 do, 22 dq [B*L, D], 23 dkv2 [B*T, 2D] (dk | dv),
-//   24 dxl [B*L, D], 25 stats [B*H, 3, L], 26 wpart [splits, D, D],
-//   27 lnpart, 28 cpart [ceil(B*L/256), D] as for the self block, 29 dqpart
-//   [ceil(T/64), B*H, L, 64].
+//   24 dxl [B*L, D], 25 stats [B*H, 3, L], 26 part (as for the self
+//   block), 27 lnpart, 28 cpart [ceil(B*L/256), D] as for the self block,
+//   29 dqpart [ceil(T/64), B*H, L, 64], 30 planes.
 extern "C" int crog_cross_block_f32_bwd(void* const* t, int b, int l, int tt, int d, int heads,
-                                        int splits, unsigned seed, unsigned thresh, float scale,
+                                        unsigned seed, unsigned thresh, float scale,
                                         void* stream) {
   using namespace crog;
   if (d != kBwdD || heads * kAbF32DH != d || l < 1 || l > kAbF32MaxL || tt < 1 ||
-      tt > kAbF32MaxL || b < 1 || splits < 1)
+      tt > kAbF32MaxL || b < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m = b * l, mt = b * tt;
@@ -248,11 +312,11 @@ extern "C" int crog_cross_block_f32_bwd(void* const* t, int b, int l, int tt, in
         *kin = P(t, 10), *k = P(t, 11), *v = P(t, 12), *op = P(t, 13), *dy = P(t, 14);
   float *dx = P(t, 15), *dkv = P(t, 16), *dwi = P(t, 17), *dwo = P(t, 18), *dvec = P(t, 19);
   float *dop = P(t, 20), *dO = P(t, 21), *dq = P(t, 22), *dkv2 = P(t, 23), *dxl = P(t, 24),
-        *stats = P(t, 25), *wpart = P(t, 26), *lnpart = P(t, 27), *cpart = P(t, 28),
-        *dqpart = P(t, 29);
+        *stats = P(t, 25), *part = P(t, 26), *lnpart = P(t, 27), *cpart = P(t, 28),
+        *dqpart = P(t, 29), *planes = P(t, 30);
 
   CROG_TRY(ln_post_bwd(op, dy, g_post, Dropout{seed, thresh, scale}, dop, lnpart, dvec, m, s));
-  CROG_TRY(gemm_nn_f32<kProdDO>(dop, d, wo, d, dO, d, m, d, d, s));
+  CROG_TRY(bwd_weight<kProdDO>(dop, d, wo, planes, dO, part, m, d, s));
   AttnBwdF32Args a = attn_args(heads, l, tt);
   a.q = q;
   a.k = k;
@@ -271,14 +335,13 @@ extern "C" int crog_cross_block_f32_bwd(void* const* t, int b, int l, int tt, in
   a.q_rs = a.k_rs = a.v_rs = a.o_rs = a.do_rs = a.dq_rs = d;
   a.dk_rs = a.dv_rs = 2 * d;
   CROG_TRY(launch_attention_bwd_f32(a, b, s));
-  CROG_TRY(gemm_nn_f32<kProdDX>(dq, d, wi, d, dxl, d, m, d, d, s));
-  CROG_TRY(gemm_nn_f32<kProdDX>(dkv2, 2 * d, wi + dd, d, dkv, d, mt, d, 2 * d, s));
+  CROG_TRY(bwd_weight<kProdDX>(dq, d, wi, planes, dxl, part, m, d, s));
+  CROG_TRY(bwd_weight<kProdDX>(dkv2, 2 * d, wi + dd, planes, dkv, part, mt, 2 * d, s));
   CROG_TRY(ln_pre_bwd(x, dxl, dy, g_pre, dx, lnpart, dvec, m, s));
-  CROG_TRY(gemm_tn_f32<kProdDW>(dq, d, qin, d, dwi, d, wpart, d, d, m, splits, s));
-  CROG_TRY(gemm_tn_f32<kProdDW>(dkv2, 2 * d, kin, d, dwi + dd, d, wpart, d, d, mt, splits, s));
-  CROG_TRY(gemm_tn_f32<kProdDW>(dkv2 + d, 2 * d, kv, d, dwi + 2 * dd, d, wpart, d, d, mt, splits,
-                                s));
-  CROG_TRY(gemm_tn_f32<kProdDW>(dop, d, o, d, dwo, d, wpart, d, d, m, splits, s));
+  CROG_TRY(bwd_dw(dq, d, qin, planes, dwi, part, d, m, s));
+  CROG_TRY(bwd_dw(dkv2, 2 * d, kin, planes, dwi + dd, part, d, mt, s));
+  CROG_TRY(bwd_dw(dkv2 + d, 2 * d, kv, planes, dwi + 2 * dd, part, d, mt, s));
+  CROG_TRY(bwd_dw(dop, d, o, planes, dwo, part, d, m, s));
   CROG_TRY(colsum_f32(dq, d, m, d, cpart, dvec, s));
   CROG_TRY(colsum_f32(dkv2, 2 * d, mt, 2 * d, cpart, dvec + d, s));
   return 0;

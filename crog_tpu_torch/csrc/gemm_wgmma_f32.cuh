@@ -12,7 +12,8 @@
 // hidden (`ffn_hidden_f32`, the same kernels, tile, K order and epilogue,
 // so the two agree bit for bit), dhn = dy W2, dx = dh W1, dW1 = dh^T x and
 // dW2 as its transpose hn^T dy; K2-f32 and K3-f32 (decoder_blocks_f32.cu)
-// their projections.
+// their projections, K2b-f32 and K3b-f32 (decoder_blocks_bwd_f32.cu) their
+// dO, dX, d(txt) and dW.
 //
 // Bound on an H100: operations, at 3xTF32's third of TF32's 495 TFLOP/s
 // (each of the six products at the main path's M = 16224, D 512, F 2048:
@@ -47,10 +48,12 @@
 // Fresh accumulators: each 32-deep slice sums in registers that start at
 // zero (scale-d 0, 12 wgmmas), joined to the running sum by an IEEE f32
 // add: one accumulator over K = 2048 read 1.45e-5 against the twin in the
-// first fp32 GEMMs.  dW runs over row chunks of at most kGwChunkRows
-// (`gw_dw_chunk`, a function of M alone), each chunk's partial written to
-// a workspace and the partials summed in chunk order (grad_f32.cuh
-// reduce_parts): no atomics, two calls give the same bits.  Rows of C past
+// first fp32 GEMMs.  K4b-f32's dW runs over row chunks of at most
+// kGwChunkRows (`gw_dw_chunk`, a function of M alone; the decoder blocks'
+// products take a plan of their own, decoder_blocks_bwd_f32.cu
+// bwd_chunk), each chunk's partial written to a workspace and the partials
+// summed in chunk order (grad_f32.cuh reduce_parts): no atomics, two calls
+// give the same bits.  Rows of C past
 // M are not stored; rows of A past M and K past its chunk load zeros.  The
 // grid's x runs over the tiles, columns fastest (so a row tile's CTAs start
 // together), z over the chunks of K.

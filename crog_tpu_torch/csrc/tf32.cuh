@@ -1,8 +1,8 @@
 // f32 products on the tensor cores: TF32 with the 3xTF32 split, on
-// mma.sync m16n8k8 in K5/K5b (lincomb.cu) and K2b-f32/K3b-f32's GEMMs
-// (grad_f32.cuh), and on wgmma in the fp32 attention forward and backward
-// (attention_f32.cuh, attention_bwd_f32.cuh) and gemm_wgmma_f32.cuh (the
-// products of K2-f32, K3-f32, K4-f32, K4b-f32, K6-f32 and K6b-f32).
+// mma.sync m16n8k8 in K5/K5b (lincomb.cu), and on wgmma in the fp32
+// attention forward and backward (attention_f32.cuh,
+// attention_bwd_f32.cuh) and gemm_wgmma_f32.cuh (the products of K2-f32,
+// K3-f32, K4-f32, K6-f32 and of their backward kernels).
 //
 // A TF32 value keeps 10 explicit mantissa bits.  x = hi + lo with hi =
 // cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi) keeps about 21 of f32's 23;
@@ -112,19 +112,6 @@ __device__ __forceinline__ void split_p(float x, uint32_t& hi, uint32_t& lo) {
     hi = __float_as_uint(__bfloat162float(__float2bfloat16_rn(x)));
     lo = 0u;
   }
-}
-
-// d += a b with split operands (split_p<P>): three passes for k3xTF32, one
-// otherwise
-template <int P>
-__device__ __forceinline__ void mma_p(float (&d)[4], const uint32_t (&ah)[4],
-                                      const uint32_t (&al)[4], uint32_t bh0, uint32_t bl0,
-                                      uint32_t bh1, uint32_t bl1) {
-  if (P == k3xTF32) {
-    mma_tf32(d, al, bh0, bh1);
-    mma_tf32(d, ah, bl0, bl1);
-  }
-  mma_tf32(d, ah, bh0, bh1);
 }
 
 }  // namespace crog

@@ -71,8 +71,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "crog_cross_block_f32_fwd": [_P] + [_I] * 5 + _DROP + [_P],
     },
     "decoder_blocks_bwd_f32": {
-        "crog_self_block_f32_bwd": [_P] + [_I] * 5 + _DROP + [_P],
-        "crog_cross_block_f32_bwd": [_P] + [_I] * 6 + _DROP + [_P],
+        "crog_self_block_f32_bwd": [_P] + [_I] * 4 + _DROP + [_P],
+        "crog_cross_block_f32_bwd": [_P] + [_I] * 5 + _DROP + [_P],
     },
     "decoder_blocks_bwd": {
         "crog_self_block_bwd": [_P] + [_I] * 5 + _DROP + [_P],

@@ -87,6 +87,56 @@ def f32_planes(d: int = KERNEL_D) -> int:
     return 2 * (3 * d + d) * d
 
 
+# The fp32 products' GEMM (csrc/gemm_wgmma_f32.cuh: K2-f32..K4b-f32's): a
+# CTA's output tile (kGwM = kGwN) and its K slice (kGwK); and the CTAs of
+# one wave that K2b-f32's and K3b-f32's chunk plan fills
+# (csrc/decoder_blocks_bwd_f32.cu kBwdWave: an H100 SXM's 132 SMs, one CTA
+# each)
+F32_TILE = 128
+F32_SLICE = 32
+F32_BWD_WAVE = 132
+
+
+def f32_bwd_chunks(k: int, tiles: int):
+    """The K chunks [k0, k1) of one of K2b-f32's and K3b-f32's products
+    over depth ``k`` whose output has ``tiles`` tiles
+    (csrc/decoder_blocks_bwd_f32.cu ``bwd_chunk``), from the shapes alone:
+    as many equal chunks, each a multiple of F32_SLICE (the last one
+    shorter), as fill one wave of F32_BWD_WAVE CTAs with the tiles, and at
+    least one.  More than one chunk: each writes its partial, summed in
+    this order."""
+    n = max(1, min(F32_BWD_WAVE // tiles, -(-k // F32_SLICE)))
+    chunk = -(-(-(-k // n)) // F32_SLICE) * F32_SLICE
+    return [(r, min(r + chunk, k)) for r in range(0, k, chunk)]
+
+
+def f32_bwd_products(m: int, mt: int | None = None, d: int = KERNEL_D):
+    """K2b-f32's (``mt`` None) or K3b-f32's products over ``m`` image rows
+    and ``mt`` text rows, in launch order: (name, (rows, cols) of its
+    output, its depth K, K's chunks).  A dW's depth is the batch rows it
+    sums over; its output is [n, D]."""
+    def prod(name, rows, k):
+        tiles = -(-rows // F32_TILE) * (d // F32_TILE)
+        return name, (rows, d), k, f32_bwd_chunks(k, tiles)
+
+    if mt is None:
+        return [prod("dO", m, d), prod("dX", m, 3 * d), prod("dW q|k", 2 * d, m),
+                prod("dW v", d, m), prod("dW out", d, m)]
+    return [prod("dO", m, d), prod("dX", m, d), prod("d(txt)", mt, 2 * d), prod("dWq", d, m),
+            prod("dWk", d, mt), prod("dWv", d, mt), prod("dW out", d, m)]
+
+
+def f32_bwd_work(m: int, mt: int | None = None, d: int = KERNEL_D):
+    """Floats of K2b-f32's or K3b-f32's two product workspaces (as
+    ``f32_bwd_products``): part, the chunk partials [chunks, rows, cols]
+    of the largest product split over K; planes, the TF32 hi and lo planes
+    [2, D, K] of the largest B (K's row stride rounded up to 4: the TMA
+    map's 16-byte rows)."""
+    prods = f32_bwd_products(m, mt, d)
+    part = max((len(ch) * r * c for _, (r, c), _, ch in prods if len(ch) > 1), default=1)
+    return part, max(2 * d * (-(-k // 4) * 4) for _, _, k, _ in prods)
+
+
 def out_schedule(m: int):
     """The out-projection's clusters over ``m`` rows: the row range [r0, r1)
     of each cluster tile, and the column range [c0, c1) that CTA k of every
@@ -409,18 +459,19 @@ def _self_block_bwd_f32(name, x, saved, dy, nheads, seed, rate):
     dy = dy.to(torch.float32).contiguous()
     cuda_build.require(dy, "dy", torch.float32, (b, l, d))
     f32 = lambda *s: torch.empty(*s, dtype=torch.float32, device=x.device)
-    splits = _wgrad_splits(m)
+    part, planes = f32_bwd_work(m, None, d)
     dx, dwi, dwo, dvec = f32(b, l, d), f32(3 * d, d), f32(d, d), f32(8, d)
-    ws = (f32(m, d), f32(m, d), f32(m, 3 * d), f32(m, d), f32(b * nheads, 3, l),
-          f32(splits, 2 * d, d), f32(_ln_bwd_blocks(m), 3, d),
-          f32(_colsum_blocks(m), 3 * d), f32(-(-l // 64), b * nheads, l, 64))
-    # dop, do, dqkv, dxl, stats, parts (dW, LayerNorm and bias sums), the
-    # attention step's dQ partials (one per 64 keys)
+    ws = (f32(m, d), f32(m, d), f32(m, 3 * d), f32(m, d), f32(b * nheads, 3, l), f32(part),
+          f32(_ln_bwd_blocks(m), 3, d), f32(_colsum_blocks(m), 3 * d),
+          f32(-(-l // 64), b * nheads, l, 64), f32(planes))
+    # dop, do, dqkv, dxl, stats, parts (the products' chunks, LayerNorm and
+    # bias sums), the attention step's dQ partials (one per 64 keys), B's
+    # TF32 planes
     dseed, thresh, scale = kernel_args(seed, rate)
     table = cuda_build.ptr_table(x, wi, wo, g_pre, g_post, xl, qin, qk, v, o, op, dy,
                                  dx, dwi, dwo, dvec, *ws)
     lib = cuda_build.load(name)
-    rc = lib.crog_self_block_f32_bwd(table, b, l, d, nheads, splits, dseed, thresh, scale,
+    rc = lib.crog_self_block_f32_bwd(table, b, l, d, nheads, dseed, thresh, scale,
                                      cuda_build.stream_ptr(x.device))
     cuda_build.check_launch(lib, rc, "crog_self_block_f32_bwd")
     self_block_bwd.launches_f32 += 1
@@ -546,20 +597,21 @@ def _cross_block_bwd_f32(name, x, saved, dy, nheads, seed, rate):
     dy = dy.to(torch.float32).contiguous()
     cuda_build.require(dy, "dy", torch.float32, (b, l, d))
     f32 = lambda *s: torch.empty(*s, dtype=torch.float32, device=x.device)
-    splits = _wgrad_splits(m)
+    part, planes = f32_bwd_work(m, mt, d)
     dx, dkv, dwi, dwo, dvec = f32(b, l, d), f32(b, t, d), f32(3 * d, d), f32(d, d), f32(8, d)
     ws = (f32(m, d), f32(m, d), f32(m, d), f32(mt, 2 * d), f32(m, d),
-          f32(b * nheads, 3, l), f32(splits, d, d), f32(_ln_bwd_blocks(m), 3, d),
+          f32(b * nheads, 3, l), f32(part), f32(_ln_bwd_blocks(m), 3, d),
           f32(max(_colsum_blocks(m), 2 * _colsum_blocks(mt)), d),
-          f32(-(-t // 64), b * nheads, l, 64))
-    # dop, do, dq, dk|dv, dxl, stats, parts (dW, LayerNorm and bias sums), the
-    # attention step's dQ partials (one per 64 keys)
+          f32(-(-t // 64), b * nheads, l, 64), f32(planes))
+    # dop, do, dq, dk|dv, dxl, stats, parts (the products' chunks, LayerNorm
+    # and bias sums), the attention step's dQ partials (one per 64 keys),
+    # B's TF32 planes
     dseed, thresh, scale = kernel_args(seed, rate)
     table = cuda_build.ptr_table(x, kv, mask, wi, wo, g_pre, g_post, qin, q, o, kin, k, v,
                                  op, dy, dx, dkv, dwi, dwo, dvec, *ws)
     lib = cuda_build.load(name)
-    rc = lib.crog_cross_block_f32_bwd(table, b, l, t, d, nheads, splits, dseed, thresh,
-                                      scale, cuda_build.stream_ptr(x.device))
+    rc = lib.crog_cross_block_f32_bwd(table, b, l, t, d, nheads, dseed, thresh, scale,
+                                      cuda_build.stream_ptr(x.device))
     cuda_build.check_launch(lib, rc, "crog_cross_block_f32_bwd")
     cross_block_bwd.launches_f32 += 1
     return (dx, dkv, dwi, dvec[:3].reshape(-1), dwo, dvec[3], dvec[4], dvec[5], dvec[6],

@@ -37,18 +37,15 @@ from __future__ import annotations
 import torch
 
 from crog_tpu_torch.ops import cuda_build, work
-from crog_tpu_torch.ops.decoder_blocks import dense, ln_fast, ln_stats
+from crog_tpu_torch.ops.decoder_blocks import F32_SLICE, F32_TILE, dense, ln_fast, ln_stats
 from crog_tpu_torch.ops.dropout import apply_dropout, dropout_keep, kernel_args
 
 KERNEL_D, KERNEL_F = 512, 2048
 BWD_ROWS = 128  # rows per cluster tile of K4 and K4b (csrc/ffn.cuh kBM)
 BWD_CLUSTER = 8  # CTAs per K4 / K4b cluster, each with KERNEL_F // 8 hidden columns
 OUT_COLS = 256  # output columns per CTA of K4's y and K4b's dx GEMM (csrc/ffn.cuh)
-# K4-f32's and K4b-f32's GEMM (csrc/gemm_wgmma_f32.cuh): a CTA's output tile
-# (kGwM = kGwN), its K slice (kGwK) and dW's rows per chunk at most
-# (kGwChunkRows)
-F32_TILE = 128
-F32_SLICE = 32
+# K4b-f32's dW rows per chunk at most (csrc/gemm_wgmma_f32.cuh kGwChunkRows;
+# the GEMM's tile and K slice: decoder_blocks.F32_TILE, F32_SLICE)
 F32_CHUNK_ROWS = 8192
 
 

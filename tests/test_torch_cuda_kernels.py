@@ -1030,13 +1030,17 @@ def test_cuda_attention_bwd_f32_matches_twin(exact_f32, mode, b, lq, lk, heads, 
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,l,t", [(24, 676, 17), (3, 301, 17), (1, 5, 9)])
+@pytest.mark.parametrize("b,l,t", [(24, 676, 17), (3, 301, 17), (1, 5, 9), (9, 301, 23),
+                                   (10, 50, 17)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_cuda_block_bwd_f32_kernels_match_twins(exact_f32, b, l, t, rate):
     """K2b-f32 and K3b-f32 on the intermediates K2-f32 and K3-f32 saved,
     against their fp32 twins, in eval and with train-mode dropout, at the
-    main path's shapes and at ragged ones; a second call gives the same
-    bits."""
+    main path's shapes and at ragged ones: B*T text rows off the 32-row
+    slices and over one 128-row tile (207, 170; their last slice loads
+    zeros past the rows), B*L rows whose dW chunks end in a short one (2709:
+    7 of 352 and one of 245; ops/decoder_blocks.py f32_bwd_chunks); a second
+    call gives the same bits."""
     x, txt, pos, tpos, pad, w = _f32_block(b, l, t)
     dy = _f32(99, b, l, 512)
     _, ssaved = DB.self_block_fwd(x, pos, *w, 8, 7, rate, save=True)

@@ -312,6 +312,127 @@ def test_f32_parts_split_each_launch_sequence_by_name():
         "attention step": 0.2}
 
 
+@pytest.mark.parametrize("kid", ["K2b-f32", "K3b-f32"])
+def test_f32_block_bwd_parts_split_both_trees_by_product(kid):
+    """chip_smoke.F32_PARTS of K2b-f32 and K3b-f32: the n-th GEMM launch is
+    the n-th product (dO, dX, then K3b-f32's d(txt), then the dW), whether
+    gemm_wgmma_f32.cuh's kernel after B's TF32 planes or an older tree's
+    grad_f32.cuh gemm_kn; the attention kernels are the attention step, the
+    LayerNorm backward rows (ln_post_bwd is not the forward's ln_pos) and
+    the fixed-order sums their parts; nothing is lost."""
+    cs = _chip_smoke()
+    names = [p[0] for p in cs.f32_block_bwd_shapes(16224, 408)[kid]]
+    assert names[:2] == ["dO", "dX"] and names[-1] == "dW out"
+    dws = len(names) - (3 if kid == "K3b-f32" else 2)
+
+    def seq(new):
+        gemm = ("crog::gemm_wgmma_f32_kernel<0, crog::GwAMatrix<{}>, 0>" if new
+                else "crog::gemm_kn_f32_kernel<0, {}>")
+        split = [("crog::gw_split_b_kernel<0, true>", 0.5)] if new else []
+        attn = [("crog::attn_bwd_f32_stats_kernel<1>", 3.0), ("crog::attn_bwd_f32_main_kernel", 5.0),
+                ("crog::attn_bwd_f32_dq_sum_kernel", 1.0)]
+        out = [("crog::ln_post_bwd_f32_kernel", 0.25), ("crog::reduce_parts_kernel", 0.125),
+               ("crog::reduce_parts_kernel", 0.125), *split, (gemm.format("false"), 2.0), *attn]
+        for _ in names[1:len(names) - dws]:
+            out += [*split, (gemm.format("false"), 2.0)]
+        out += [("crog::ln_pre_bwd_f32_kernel", 0.25), ("crog::reduce_parts_kernel", 0.125)]
+        for _ in range(dws):
+            out += [*split, (gemm.format("true"), 4.0), ("crog::reduce_parts_kernel", 0.125)]
+        return out + [("crog::colsum_part_kernel", 0.125), ("crog::reduce_parts_kernel", 0.125)]
+
+    for new in (True, False):
+        launches = seq(new)
+        parts = dict(cs.F32_PARTS[kid](launches))
+        want = {"LayerNorm": 0.5, "fixed-order sums": 0.125 * (dws + 5), "attention step": 9.0,
+                **{n: 2.0 for n in names[:len(names) - dws]}, **{n: 4.0 for n in names[-dws:]}}
+        if new:
+            want["B's TF32 planes"] = 0.5 * len(names)
+        assert parts == want
+        assert sum(parts.values()) == sum(t for _, t in launches)
+
+
+@pytest.mark.parametrize("b,l,t", [(24, 676, 17), (9, 301, 23), (10, 50, 17), (3, 301, 17),
+                                   (1, 5, 9), (1, 1, 1)])
+def test_f32_bwd_chunk_plan_covers_every_row_and_fills_the_card(b, l, t):
+    """ops/decoder_blocks.py f32_bwd_products / f32_bwd_chunks, the mirror
+    of csrc/decoder_blocks_bwd_f32.cu's bwd_chunk: every product's depth is
+    covered once, in order, by chunks of a multiple of 32 (the last one
+    shorter); its output tiles times its chunks stay within one wave of 132
+    CTAs where it is split; at the main path (B 24) each dW over the B*L
+    rows runs 128 CTAs ([512, 512] in 8 chunks, [1024, 512] in 4), and
+    d(txt), dWk and dWv over the 408 text rows at least 64; the products
+    are chip_smoke's (``f32_block_bwd_shapes``); and the workspaces the
+    wrapper allocates (``f32_bwd_work``) hold every partial and every B's
+    planes the C side indexes."""
+    from crog_tpu_torch.ops import decoder_blocks as DB
+
+    cs = _chip_smoke()
+    m, mt, d = b * l, b * t, DB.KERNEL_D
+    shapes = cs.f32_block_bwd_shapes(m, mt, d)
+    for kid, text in (("K2b-f32", None), ("K3b-f32", mt)):
+        prods = DB.f32_bwd_products(m, text, d)
+        assert [(n, (r, c), k) for n, (r, c), k, _ in prods] == [
+            (n, (r, c), k) for n, (r, k, c), _ in shapes[kid]]
+        need_part = need_planes = 0
+        for name, (rows, cols), k, chunks in prods:
+            assert chunks[0][0] == 0 and chunks[-1][1] == k
+            assert all(a1 == b0 for (_, a1), (b0, _) in zip(chunks, chunks[1:]))
+            assert all((k1 - k0) % 32 == 0 for k0, k1 in chunks[:-1])
+            assert all(0 < k1 - k0 <= chunks[0][1] for k0, k1 in chunks)
+            ctas = -(-rows // 128) * (cols // 128) * len(chunks)
+            if len(chunks) > 1:
+                assert ctas <= DB.F32_BWD_WAVE, (name, ctas)
+                need_part = max(need_part, len(chunks) * rows * cols)
+            need_planes = max(need_planes, 2 * cols * (-(-k // 4) * 4))
+            if b == 24:
+                want = {"dW q|k": 4, "dW v": 8, "dW out": 8, "dWq": 8}.get(name)
+                if want is not None:
+                    assert (len(chunks), ctas) == (want, 128), name
+                if name in ("d(txt)", "dWk", "dWv"):
+                    assert (rows if name == "d(txt)" else k) == 408 and ctas >= 64, name
+        assert DB.f32_bwd_work(m, text, d) == (max(need_part, 1), need_planes)
+
+
+def test_f32_bwd_chunk_plan_mirrors_the_c_side():
+    """The Python mirror's tile, slice and wave are the C side's (kGwM,
+    kGwN, kGwK in csrc/gemm_wgmma_f32.cuh; kBwdWave in
+    csrc/decoder_blocks_bwd_f32.cu)."""
+    from crog_tpu_torch.ops import decoder_blocks as DB
+
+    gw = (cuda_build.CSRC / "gemm_wgmma_f32.cuh").read_text()
+    src = (cuda_build.CSRC / "decoder_blocks_bwd_f32.cu").read_text()
+    const = lambda text, n: int(re.search(rf"constexpr int {n} = (\d+);", text).group(1))  # noqa: E731
+    assert const(gw, "kGwM") == const(gw, "kGwN") == DB.F32_TILE
+    assert const(gw, "kGwK") == DB.F32_SLICE
+    assert const(src, "kBwdWave") == DB.F32_BWD_WAVE
+
+
+def test_pool_qk_grads_f64_matches_autograd():
+    """chip_smoke.pool_qk_grads_f64 (the attention pool's dWq and dWk with
+    the backward written out) against float64 autograd through the same
+    forward (q, k, v projections, per-head softmax attention) at a tiny
+    size, to 1e-12 of the gradients' magnitude."""
+    cs = _chip_smoke()
+    rng = np.random.default_rng(5)
+    b, n, c, heads = 2, 7, 16, 4
+    f = lambda *shape: torch.from_numpy(rng.standard_normal(shape))  # noqa: E731
+    tokens, da = f(b, n, c), f(b, n, c)
+    w = [f(c, c) * c**-0.5 if i % 2 == 0 else f(c) * 0.1 for i in range(6)]
+    leaves = [t.clone().requires_grad_() for t in w]
+    split = lambda z: z.reshape(b, n, heads, c // heads).transpose(1, 2)  # noqa: E731
+    q, k, v = (split(tokens @ leaves[2 * i].t() + leaves[2 * i + 1]) for i in range(3))
+    p = torch.softmax(q @ k.transpose(-1, -2) * (c // heads) ** -0.5, -1)
+    a = (p @ v).transpose(1, 2).reshape(b, n, c)
+    dwq, dwk = torch.autograd.grad((a * da).sum(), [leaves[0], leaves[2]])
+    got = cs.pool_qk_grads_f64(tokens.float(), da.float(), *w, heads)
+    ref = cs.pool_qk_grads_f64(tokens, da, *w, heads)
+    for g, r in zip(ref, (dwq, dwk)):
+        assert g.dtype == torch.float64
+        assert float((g - r).abs().max()) <= 1e-12 * float(r.abs().max())
+    assert all(float((g - r).abs().max()) <= 1e-5 * float(r.abs().max())
+               for g, r in zip(got, (dwq, dwk)))
+
+
 def test_s2d_f32_parts_and_executed_flops():
     """chip_smoke's split of a K6-f32 / K6b-f32 launch (``s2d_f32_parts``):
     the product (gemm_wgmma_f32.cuh's kernel, or an older tree's

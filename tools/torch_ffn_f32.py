@@ -1,8 +1,8 @@
-"""The fp32 kernels K1-f32..K4-f32, K4b-f32, K6-f32 and K6b-f32 on one card,
-product by product, beside fp32 cuBLAS, SDPA and cuDNN.
+"""The fp32 kernels K1-f32..K4-f32, K2b-f32..K4b-f32, K6-f32 and K6b-f32 on
+one card, product by product, beside fp32 cuBLAS, SDPA and cuDNN.
 
     python3 tools/torch_ffn_f32.py [--tree DIR ...] [--rounds N]
-                                   [--kernels blocks ffn s2d]
+                                   [--kernels blocks ffn s2d blocks-bwd]
 
 On chip_smoke.py's phase-18 inputs (the main path's B 24: M = 16224 rows,
 D 512, F 2048, 8 heads over 676 tokens, 17 text tokens; the attention pool's
@@ -21,7 +21,12 @@ K6-f32 and K6b-f32 (csrc/s2dconv_f32.cu) launch by launch at a train
 step's shapes (conv2 and conv3 forward and dgrad, their wgrads; batch 24,
 104 x 104 cells), each split into its product, wp's or dy's TF32 planes
 and the fixed-order sums, beside cuDNN's fp32 conv of the blocked and of
-the unblocked tensor.  ``--kernels`` picks among the three groups (all by
+the unblocked tensor; and ``chip_smoke.f32_block_bwd_products``: K2b-f32
+and K3b-f32 (csrc/decoder_blocks_bwd_f32.cu) split into their products
+(K2b-f32's dO, dX, dW q|k, dW v and dW out; K3b-f32's dO, dX, d(txt), dWq,
+dWk, dWv and dW out), B's TF32 planes, the LayerNorm kernels, the
+fixed-order sums and the attention step, each product beside fp32
+torch.mm at its shape.  ``--kernels`` picks among the four groups (all by
 default).  Each ``--tree DIR`` (an unpacked other commit; default
 this checkout) is measured in a process of its own with its own
 ``crog_tpu_torch`` (built into its own ``_build``) and this checkout's
@@ -52,7 +57,7 @@ def load_chip_smoke():
     return cs
 
 
-KERNEL_GROUPS = ("blocks", "ffn", "s2d")
+KERNEL_GROUPS = ("blocks", "ffn", "s2d", "blocks-bwd")
 
 
 def one_tree(tree: str, kernels=KERNEL_GROUPS) -> dict:
@@ -68,12 +73,14 @@ def one_tree(tree: str, kernels=KERNEL_GROUPS) -> dict:
     device = torch.device("cuda", 0)
     got = {}
     with torch.no_grad():
-        if "blocks" in kernels or "ffn" in kernels:
+        if {"blocks", "ffn", "blocks-bwd"} & set(kernels):
             inp = cs.kernel_inputs(device, dtype=torch.float32)
             if "blocks" in kernels:
                 got.update(cs.f32_block_products(inp, cs.smi_line()))
             if "ffn" in kernels:
                 got.update(cs.f32_ffn_products(inp, cs.smi_line()))
+            if "blocks-bwd" in kernels:
+                got.update(cs.f32_block_bwd_products(inp, cs.smi_line()))
             del inp
         if "s2d" in kernels:
             got.update(cs.f32_s2d_products(cs.s2dconv_cases(device, dtype=torch.float32),
@@ -89,7 +96,8 @@ def main(argv=None) -> int:
                     help="rounds of turns (two trees: A B B A per round)")
     ap.add_argument("--kernels", nargs="+", choices=KERNEL_GROUPS, default=list(KERNEL_GROUPS),
                     help="the kernel groups measured: K1-f32..K3-f32 (blocks), K4-f32 and "
-                         "K4b-f32 (ffn), K6-f32 and K6b-f32 (s2d)")
+                         "K4b-f32 (ffn), K6-f32 and K6b-f32 (s2d), K2b-f32 and K3b-f32 "
+                         "(blocks-bwd)")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.one:
