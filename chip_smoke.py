@@ -6,8 +6,10 @@
     python3 chip_smoke.py --tools     # phases 1, 2 and 15 only, no result line
     python3 chip_smoke.py --remat     # phases 1, 2 and 17 only, no result line
     python3 chip_smoke.py --fp32      # phases 1, 2 and 18 only, no result line
+    python3 chip_smoke.py --long      # phases 1, 2 and 19 only, no result line
 
-Phases, in order (phase 17 runs after phase 7, phase 18 after phase 17);
+Phases, in order (phase 17 runs after phase 7, phase 18 after phase 17,
+phase 19 after phase 18);
 any failure propagates and the exit code is not 0:
   1. the card's name and power limit (nvidia-smi);
   2. build the hand-written kernels from crog_tpu_torch/csrc (nvcc, sm_90a,
@@ -145,6 +147,26 @@ any failure propagates and the exit code is not 0:
      each group's gradients within SSG_GRAD_TOL); (i) tools/torch_roofline.py
      --fused-stem on crog_multiple_r50.yaml at compute_dtype float32; the
      ``[fp32]`` lines;
+ 19. CROG at input_size 640 (after phase 18; crog_synthetic_r50.yaml with
+     ``input_size 640``: full-width RN50, (640/16)^2 = 1600 decoder tokens,
+     401 in the attention pool, seeded weights, the fused stem, the rawlb
+     wire): K1 (401 tokens, 32 heads), K2 and K3 (eval), K1b, K2b and K3b
+     (dropout RATE) at batch 24 in bf16 and fp32 against their twins under
+     phase 3's and phase 18's limits (K2b and K3b twice with equal bits),
+     then the attention kernel at K2's and K3's 1600-query steps forward
+     and backward (K1b's casts on the rows / cols kernels, K1b-f32 on the
+     logsumexp, the blocks' casts), twice with equal bits, each timed
+     beside its twin, its bound and SDPA (a yardstick only), and the fp32
+     dQ workspace at 676 and 1600 tokens; ``validate_with_grasp`` over 24
+     samples at batch 24 with one forward's launches; one sample on the
+     card in bf16 (E2E_TOL) and at compute_dtype float32 (F32_E2E_TOL)
+     against the CPU in fp32; the bf16 and fp32 eval steps at 24 timed with
+     their peak memory, in turns; ``train_one_epoch`` at 24 (bf16) and
+     LONG_F32_BATCH (fp32), one step with a step's launches, then
+     LONG_TRAIN_STEPS by CUDA events with the peak memory; one fp32 train
+     step at batch 2, card vs CPU, under the F32_TRAIN_* limits; K2, K2b,
+     K3, K3b and their fp32 builds each launched over the phase's CROG
+     runs; the ``[long]`` lines;
   8. forward latency at batch 1 and eval samples/s at batch 24;
   9. SSG training at full width (config/OCID-Grasp/ssg_r50.yaml as
      written: RN50 (3,4,6,3), RGB-D, 544^2, 32 classes, 32 prototypes,
@@ -476,7 +498,7 @@ def kernel_cases(inp):
     q, k, v, h = a["q"], a["k"], a["v"], a["heads"]
     b, l, d = q.shape
 
-    def sdpa():
+    def sdpa(b=b, l=l, d=d):  # the pool's shape, not the blocks' (rebound below)
         split = lambda x: x.view(b, l, h, d // h).transpose(1, 2)
         return F.scaled_dot_product_attention(split(q), split(k), split(v))
 
@@ -3091,17 +3113,18 @@ def pool_grad_reference(card, cpu, card_taps, cpu_taps, model):
     return out
 
 
-def fp32_train_gap(device, batch):
+def fp32_train_gap(device, batch, opts=()):
     """Phase 18 (e): one fp32 train step at batch 2 (two samples of
     ``batch``), dropout 0, BatchNorm on running statistics, on the card with
     the fused s2d stem and on the CPU (the plain stem's convs, the same
     function): the loss within F32_TRAIN_LOSS_TOL and each group's gradient
     within its F32_TRAIN_GRAD_TOL; the card's forward and backward launch
     K1-f32..K4b-f32, K6-f32 and K6b-f32 (PER_STEP_F32_FUSED) and no bf16
-    kernel."""
+    kernel.  ``opts`` override further config keys (phase 19: input_size
+    640).  Returns the card's launches."""
     import torch
 
-    cfg = _cfg(opts=("dropout", "0.0", "compute_dtype", "float32"))
+    cfg = _cfg(opts=("dropout", "0.0", "compute_dtype", "float32", *opts))
     mini = mini_batch(batch, cfg.input_size)
     wrappers = launch_counts()
     model = grad_model(cfg, device, fused_stem=True)
@@ -3133,6 +3156,7 @@ def fp32_train_gap(device, batch):
     over = {g: r for g, r in groups.items() if not r <= F32_TRAIN_GRAD_TOL[g]}
     if not rel <= F32_TRAIN_LOSS_TOL or over:
         raise AssertionError(f"fp32 train step card vs CPU: loss rel {rel:.4g}, grad {over}")
+    return launches
 
 
 def _train_rate(step, batches, cfg):
@@ -3315,6 +3339,322 @@ def fp32_phase(device, batch, train_batches, smi: str):
           f"F32_IOU_TOL {F32_IOU_TOL}, F32_RECT_SHARE {F32_RECT_SHARE}, F32_TRAIN_LOSS_TOL "
           f"{F32_TRAIN_LOSS_TOL}, F32_TRAIN_GRAD_TOL {F32_TRAIN_GRAD_TOL}", flush=True)
     return records
+
+
+# phase 19: CROG at input_size 640, the size that keeps every pixel of an
+# OCID-VLG frame (640 x 480): (640 / 16)^2 = 1600 decoder tokens, past the
+# 768 the attention kernels took before, and (640 / 32)^2 + 1 = 401 in the
+# attention pool
+LONG_SIZE = 640
+LONG_TOKENS = (LONG_SIZE // 16) ** 2
+LONG_POOL = (LONG_SIZE // 32) ** 2 + 1
+LONG_TRAIN_STEPS = 3  # timed, after one that checks the launches
+# fp32 training at 640^2: activations grow with the pixels (2.37x 416^2's),
+# so batch 24 would need ~69 GiB (29.0 GiB at 416^2, PERF.md); timed at 8
+LONG_F32_BATCH = 8
+# the decoder blocks' counters read over the phase, each above 0
+LONG_COUNTED = ("decoder_self_block", "decoder_self_block_bwd", "decoder_cross_block",
+                "decoder_cross_block_bwd")
+
+
+def _long_time(label, kern, plain, lib, flops, nb, peak, smi: str):
+    """``label``'s kernel, twin and library call (or None) by CUDA events
+    beside the bound of ``flops`` and ``nb`` bytes at ``peak``."""
+    bms, by = bound(flops, nb, peak)
+    ms, plain_ms = cuda_ms(kern, reps=10), cuda_ms(plain, reps=3, warmup=1)
+    lib_ms = None if lib is None else cuda_ms(lib, reps=10)
+    shown = "none" if lib_ms is None else f"{lib_ms:.4f}"
+    print(f"[long] {label}: {ms:.4f} ms (plain {plain_ms:.4f}, library {shown}, bound "
+          f"{bms:.4f} by {by}) on {smi}", flush=True)
+    DEVICE_TIMED.append((f"[long] {label}", ms, kern, None, None))
+    if lib is not None:
+        DEVICE_TIMED.append((f"[long] {label}'s library call", lib_ms, lib, None, None))
+
+
+def _long_check(label, got, ref, dtype, tol):
+    """``got`` against its twin ``ref`` (a tensor or a backward's outputs):
+    bf16 within ``tol`` (absolute, or (relative, share) of a backward's
+    largest magnitude), fp32 within F32_REL_L2 / F32_BWD_REL_L2."""
+    import torch
+
+    torch.cuda.synchronize()
+    if not isinstance(got, (tuple, list)):
+        got, ref = (got,), (ref,)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        if dtype == torch.float32:
+            limit = F32_BWD_REL_L2 if len(got) > 1 else F32_REL_L2
+            rel = rel_l2(g, r)
+            ok = bool(torch.isfinite(g).all()) and rel <= limit
+            print(f"[long] {label}[{i}]: rel_l2 {rel:.3g} (limit {limit})", flush=True)
+            if not ok:
+                raise AssertionError(f"{label}[{i}] disagrees with its fp32 twin")
+        elif len(got) > 1:
+            rel, share = tol
+            _compare(f"[long] {label}[{i}]", g, r, rel * float(r.float().abs().max()), share)
+        else:
+            _compare(f"[long] {label}", g, r, tol)
+
+
+def long_attention(device, dtype, smi: str, b=BATCH, l=LONG_TOKENS, t=17, heads=8):
+    """The attention kernel at the 640^2 decoder's steps, forward and
+    backward, against its twins, twice with equal bits, timed beside SDPA
+    (a yardstick only): K2's self attention (1600 tokens), K3's (1600
+    queries over 17 text keys with per-sample padding), K1b's function at
+    1600 tokens (bf16: the rows / cols kernels; fp32: K1b-f32 on K1-f32's
+    logsumexp), and K2b's and K3b's steps (the blocks' cast points).  At
+    fp32 the dQ workspace bytes at 676 and 1600 tokens."""
+    import torch
+    import torch.nn.functional as F
+
+    from crog_tpu_torch.ops import attention as A
+
+    f32 = dtype == torch.float32
+    peak = PEAK_F32_TC_FLOPS if f32 else work.PEAK_BF16_FLOPS
+    tag = "-f32" if f32 else ""
+    g = torch.Generator().manual_seed(SEED + 19)
+    d = heads * 64
+    rnd = lambda *shape: torch.randn(*shape, generator=g).to(device, dtype)
+    lengths = torch.randint(4, t + 1, (b,), generator=g)
+    mask = torch.where(torch.arange(t)[None, :] >= lengths[:, None], A.NEG, 0.0).to(device)
+    split = lambda x: x.view(b, x.shape[1], heads, 64).transpose(1, 2)
+    q, do = rnd(b, l, d), rnd(b, l, d)
+    for step, kid, lk, m in (("self attention", "K2", l, None),
+                             ("cross attention, key mask", "K3", t, mask)):
+        k, v = rnd(b, lk, d), rnd(b, lk, d)
+        am = None if m is None else m[:, None, None, :].to(dtype)
+        fwd = lambda k=k, v=v, m=m: A.fused_attention(q, k, v, heads, m)
+        label = f"{kid}{tag}'s {step} (B {b}, {l} queries, {lk} keys, {heads} heads)"
+        o = fwd()
+        _long_check(label, o, A.attention_plain(q, k, v, heads, m), dtype, TOL["attention"])
+        if not torch.equal(o, fwd()):
+            raise AssertionError(f"{label} is not repeatable")
+        lib = lambda k=k, v=v, am=am: F.scaled_dot_product_attention(
+            split(q), split(k), split(v), attn_mask=am)
+        _long_time(label, fwd, lambda k=k, v=v, m=m: A.attention_plain(q, k, v, heads, m),
+                   lib, work.attention_flops(b, l, lk, d), nbytes(q, k, v, q), peak, smi)
+        leaves = [split(x).detach().requires_grad_() for x in (q, k, v)]
+        with torch.enable_grad():
+            out = F.scaled_dot_product_attention(*leaves, attn_mask=am)
+        lib_bwd = lambda out=out, leaves=leaves: torch.autograd.grad(
+            out, leaves, split(do), retain_graph=True)
+        bwds = [(f"{kid}b{tag}'s attention step", True)]
+        if m is None:
+            bwds.append((f"K1b{tag} (its casts, on the rows / cols kernels)"
+                         if not f32 else "K1b-f32 (on K1-f32's logsumexp)", False))
+        for name, casts in bwds:
+            label = f"{name} (B {b}, {l} queries, {lk} keys, {heads} heads)"
+            if casts:
+                bwd = lambda k=k, v=v, o=o, m=m: A.attention_bwd(
+                    q, k, v, o, do, heads, bf16_casts=True, mask_add=m)
+                plain = lambda k=k, v=v, m=m: A.mha_bwd_plain(q, k, v, do, heads, m)
+                tol = (BWD_REL_TOL, 1.0)
+            elif f32:
+                o32, lse = A.fused_attention(q, k, v, heads, with_lse=True)
+                bwd = lambda k=k, v=v, o32=o32, lse=lse: A.attention_bwd(
+                    q, k, v, o32, do, heads, lse=lse)
+                plain = lambda k=k, v=v, o32=o32, lse=lse: A.attention_bwd_plain(
+                    q, k, v, o32, do, heads, lse)
+                tol = None
+            else:
+                if A.bwd_path(l) != "rows_cols":
+                    raise AssertionError(f"K1b at {l} tokens is not on the rows / cols kernels")
+                bwd = lambda k=k, v=v, o=o: A.attention_bwd(q, k, v, o, do, heads)
+                plain = lambda k=k, v=v, o=o: A.attention_bwd_plain(q, k, v, o, do, heads)
+                tol = (K1B_REL_TOL, K1B_DIFF_SHARE)
+            got = bwd()
+            _long_check(label, got, plain(), dtype, tol)
+            if not all(torch.equal(x, y) for x, y in zip(got, bwd())):
+                raise AssertionError(f"{label} is not repeatable")
+            del got
+            _long_time(label, bwd, plain, lib_bwd, 10.0 * b * l * lk * d,
+                       nbytes(q, k, v, do) + nbytes(q, k, v), peak, smi)
+        del out, leaves
+    if f32:
+        for n in (676, l):
+            parts = A.f32_dq_parts(n)[1]
+            print(f"[long] K2b-f32's dQ workspace at {n} tokens (B {b}, {heads} heads): "
+                  f"{parts} partials of [{b * heads}, {n}, 64] f32, "
+                  f"{parts * b * heads * n * 64 * 4} bytes "
+                  f"(one per 64-key block: {-(-n // 64) * b * heads * n * 64 * 4})", flush=True)
+
+
+def long_kernels(device, dtype, smi: str):
+    """K1 (the attention pool at 401 tokens, 32 heads), K2 and K3 (eval)
+    and K1b, K2b and K3b (dropout RATE, on what their forwards saved) at
+    the 640^2 path's shapes (B 24, 1600 tokens, 17 text tokens) against
+    their twins under the limits phase 3 (bf16) or 18 (fp32) holds them to,
+    K2b and K3b twice with equal bits, each timed beside its twin, the
+    bound of ops/work.py's work and SDPA (K1, K1b); then the attention
+    steps (``long_attention``)."""
+    import torch
+
+    f32 = dtype == torch.float32
+    peak = PEAK_F32_TC_FLOPS if f32 else work.PEAK_BF16_FLOPS
+    tag = "-f32" if f32 else ""
+    kid = {"attention": "K1", "decoder_self_block": "K2", "decoder_cross_block": "K3",
+           "attention_bwd": "K1b", "decoder_self_block_bwd": "K2b",
+           "decoder_cross_block_bwd": "K3b"}
+    inp = kernel_inputs(device, b=BATCH, l=LONG_TOKENS, lp=LONG_POOL,
+                        dtype=torch.float32 if f32 else None)
+    with torch.no_grad():
+        for name, (kern, plain, lib, flops, nb) in kernel_cases(inp).items():
+            if name in kid:
+                label = f"{kid[name]}{tag} ({name}, eval)"
+                _long_check(label, kern(), plain(), dtype, TOL[name])
+                _long_time(label, kern, plain, lib, flops, nb, peak, smi)
+        for name, (kern, plain, lib, flops, nb, outs) in backward_cases(inp).items():
+            if name not in kid:
+                continue
+            label = f"{kid[name]}{tag} ({name}, dropout {0.0 if name == 'attention_bwd' else RATE})"
+            got = kern()
+            tol = (K1B_REL_TOL, K1B_DIFF_SHARE) if name == "attention_bwd" else (BWD_REL_TOL, 1.0)
+            _long_check(label, got, plain(), dtype, tol)
+            if name != "attention_bwd" and not all(
+                    torch.equal(x, y) for x, y in zip(got, kern())):
+                raise AssertionError(f"{label} is not repeatable")
+            del got
+            _long_time(label, kern, plain, lib, flops, nb, peak, smi)
+    del inp
+    torch.cuda.empty_cache()
+    long_attention(device, dtype, smi, BATCH, LONG_TOKENS)
+
+
+def long_phase(device, smi: str):
+    """Phase 19: CROG at input_size 640 (crog_synthetic_r50.yaml with
+    ``--opts input_size 640``: RN50 at full width, 1600 decoder tokens, 401
+    in the attention pool, seeded weights, the fused s2d stem, the rawlb
+    wire): the attention kernels and K2/K2b/K3/K3b at its shapes in both
+    dtypes (``long_kernels``); ``validate_with_grasp`` over 24 synthetic
+    samples at batch 24 (bf16) with the launches of one forward each; one
+    sample on the card at bf16 (E2E_TOL) and at compute_dtype float32
+    (F32_E2E_TOL, launches PER_FORWARD_F32_FUSED) against one CPU-fp32
+    forward; the bf16 and fp32 eval steps at batch 24 timed with their peak
+    memory; ``train_one_epoch`` at batch 24 (bf16) and LONG_F32_BATCH (fp32):
+    one step with the launches of a step, then LONG_TRAIN_STEPS timed by
+    CUDA events with the peak memory; one fp32 train step at batch 2
+    against the CPU (``fp32_train_gap``, the F32_TRAIN_* limits); the
+    counters of K2, K2b, K3, K3b and their fp32 builds over the phase, each
+    above 0.  The ``[long]`` lines."""
+    import torch
+
+    from crog_tpu_torch.data.loader import DataLoader
+    from crog_tpu_torch.engine.crog_engine import (device_batch, make_eval_step,
+                                                   make_train_step, train_one_epoch,
+                                                   validate_with_grasp)
+    from crog_tpu_torch.engine.optim import make_optimizer
+    from crog_tpu_torch.test_crog import build_dataset
+    from crog_tpu_torch.utils.seed import set_random_seed
+
+    t_phase = time.perf_counter()
+    opts = ("input_size", str(LONG_SIZE))
+    wrappers = launch_counts()
+    totals = dict.fromkeys(wrappers, 0)
+
+    def run(fn):  # fn() with the counters from 0; returns (its result, launches)
+        _reset(wrappers)
+        out = fn()
+        torch.cuda.synchronize()
+        launches = _read(wrappers)
+        for n, k in launches.items():
+            totals[n] += k
+        return out, launches
+
+    for dtype in (torch.bfloat16, torch.float32):
+        long_kernels(device, dtype, smi)
+        torch.cuda.empty_cache()
+    t_kernels = time.perf_counter() - t_phase
+
+    cfg, model, batches = build_model_and_data(device, BATCH, BATCH, opts)
+    if cfg.input_size != LONG_SIZE:
+        raise AssertionError(f"input_size {cfg.input_size}, expected {LONG_SIZE}")
+    eval_step = make_eval_step(model, input_size=cfg.input_size, device=device)
+    result, launches = run(lambda: validate_with_grasp(batches, eval_step))
+    print(f"[long] validate_with_grasp at {LONG_SIZE}^2 over {len(result['iou_list'])} samples "
+          f"at batch {BATCH}: IoU={result['iou']:.6f} J@1={result['j_index@1']:.6f}; "
+          f"launches {_launched(launches)}", flush=True)
+    for key in ("iou", "j_index@1", "j_index@5"):
+        if not math.isfinite(result[key]):
+            raise AssertionError(f"[long] {key} is not finite: {result[key]}")
+    check_launches(launches, PER_FORWARD, len(batches))
+
+    one = device_batch({k: v[:1] for k, v in batches[0].items() if isinstance(v, np.ndarray)},
+                       torch.device("cpu"), cfg.input_size, train=False)
+    img, word = one["img"], one["word"]
+    state = model.state_dict()
+    cfg32 = _cfg(BATCH, BATCH, ("compute_dtype", "float32", *opts))
+    with torch.no_grad():
+        cpu_model = _model(cfg32, torch.device("cpu"), fused_stem=True).eval()
+        cpu_model.load_state_dict({k: v.cpu() for k, v in state.items()})
+        cpu = cpu_model(img, word)
+        del cpu_model
+        model32 = _model(cfg32, device, fused_stem=True).eval()
+        model32.load_state_dict(state)
+        if (model.dtype, model32.dtype) != (torch.bfloat16, torch.float32):
+            raise AssertionError("[long] build_crog did not read compute_dtype")
+        card16 = model(img.to(device), word.to(device)).float().cpu()
+        card32, launches = run(lambda: model32(img.to(device), word.to(device)))
+    check_launches(launches, PER_FORWARD_F32_FUSED, 1)
+    for label, card, limit in (("bf16", card16, E2E_TOL), ("fp32", card32.float().cpu(),
+                                                             F32_E2E_TOL)):
+        if card.shape != cpu.shape or not torch.isfinite(card).all():
+            raise AssertionError(f"[long] {label} output {tuple(card.shape)} not finite/shaped")
+        rels = [rel_l2(card[..., i], cpu[..., i]) for i in range(cpu.shape[-1])]
+        print(f"[long] one sample at {LONG_SIZE}^2, card {label} vs CPU fp32: rel_l2 "
+              + ", ".join(f"{n} {r:.4g}" for n, r in zip(("mask", "qua", "sin", "cos", "wid"),
+                                                          rels))
+              + f" (limit {limit}); output {tuple(card.shape)}", flush=True)
+        if max(rels) > limit:
+            raise AssertionError(f"[long] {label} card vs CPU rel_l2 {max(rels):.4g} > {limit}")
+    del card16, card32, cpu
+
+    step32 = make_eval_step(model32, input_size=cfg.input_size, device=device)
+    for label, step in (("bf16", eval_step), ("fp32", step32), ("fp32", step32),
+                        ("bf16", eval_step)):
+        rate, peak = _eval_rate(step, batches[0], reps=3)
+        print(f"[long] eval step at {LONG_SIZE}^2, batch {BATCH}, {label}: {rate:.2f} "
+              f"samples/s ({BATCH / rate * 1e3:.2f} ms a batch), peak {peak / 2**30:.3f} GiB "
+              f"on {smi}", flush=True)
+    del model, model32, eval_step, step32, state
+    torch.cuda.empty_cache()
+
+    tcfg = _cfg(BATCH, BATCH, ("print_freq", "100", "epochs", "1", *opts))
+    ds = build_dataset(tcfg, tcfg.train_split)
+    for label, batch, dt_opts in (("bf16", BATCH, ()),
+                                  ("fp32", LONG_F32_BATCH, ("compute_dtype", "float32"))):
+        prepared = next(iter(DataLoader(ds, batch, shuffle=True, drop_last=True, seed=SEED)))
+        cfg_t = _cfg(BATCH, batch, ("print_freq", "100", "epochs", "1", *opts, *dt_opts))
+        model = _model(cfg_t, device).train()
+        opt, sched = make_optimizer(model, cfg_t.base_lr, cfg_t.lr_multi, cfg_t.milestones,
+                                    cfg_t.lr_decay, 1 + LONG_TRAIN_STEPS, cfg_t.weight_decay)
+        step = make_train_step(model, opt, sched, cfg_t.use_grasp_masks, cfg_t.max_norm,
+                               set_random_seed(SEED), device)
+        metrics, launches = run(lambda: train_one_epoch([prepared], step, 1, cfg_t, 1))
+        loss = float(metrics["loss"])
+        print(f"[long] train step at {LONG_SIZE}^2, batch {batch}, {label}: loss {loss:.6g}; "
+              f"launches {_launched(launches)}", flush=True)
+        if not math.isfinite(loss):
+            raise AssertionError(f"[long] {label} train loss is not finite: {loss}")
+        check_launches(launches, PER_STEP if label == "bf16" else PER_STEP_F32_FUSED, 1)
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, launches = run(lambda: train_one_epoch([prepared] * LONG_TRAIN_STEPS, step, 1, cfg_t,
+                                                  LONG_TRAIN_STEPS))
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / LONG_TRAIN_STEPS
+        print(f"[long] train step at {LONG_SIZE}^2, batch {batch}, {label}: {ms:.2f} ms "
+              f"({batch / ms * 1e3:.2f} samples/s, CUDA events over {LONG_TRAIN_STEPS} steps), "
+              f"peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB on {smi}", flush=True)
+        del model, opt, sched, step
+        torch.cuda.empty_cache()
+    _, launches = run(lambda: fp32_train_gap(device, prepared, opts))
+    counted = {f"{n}{s}": totals[f"{n}{s}"] for n in LONG_COUNTED for s in ("", "_f32")}
+    print(f"[long] phase 19 launches of K2, K2b, K3, K3b and their fp32 builds (CROG paths "
+          f"at {LONG_SIZE}^2, not the kernel checks): {counted}; took "
+          f"{time.perf_counter() - t_phase:.1f} s (kernel checks {t_kernels:.1f} s)", flush=True)
+    if not all(k > 0 for k in counted.values()):
+        raise AssertionError(f"[long] a decoder block kernel did not launch: {counted}")
 
 
 def _ssg_cfg(opts=()):
@@ -5021,6 +5361,9 @@ def main(argv=None) -> int:
     ap.add_argument("--fp32", action="store_true",
                     help="phases 1, 2 and 18 only: build, then compute_dtype float32 on the "
                          "card; no result line")
+    ap.add_argument("--long", action="store_true",
+                    help="phases 1, 2 and 19 only: build, then CROG at input_size 640 (1600 "
+                         "decoder tokens) on the card; no result line")
     ap.add_argument("--ddp-worker", metavar="DIR",
                     help="run one rank of phase 13 (started by phase 13 itself)")
     args = ap.parse_args(argv)
@@ -5068,6 +5411,11 @@ def main(argv=None) -> int:
         print_device_times()
         print(f"[done] fp32 only, {time.perf_counter() - t_start:.1f} s", flush=True)
         return 0
+    if args.long:
+        long_phase(device, smi)
+        print_device_times()
+        print(f"[done] long only, {time.perf_counter() - t_start:.1f} s", flush=True)
+        return 0
     records = check_kernels(device)
     if args.kernels:
         print_device_times()
@@ -5089,6 +5437,8 @@ def main(argv=None) -> int:
     remat_phase(device, train_batches[0], smi)
     torch.cuda.empty_cache()
     fp32_records = fp32_phase(device, batches[0], train_batches, smi)
+    torch.cuda.empty_cache()
+    long_phase(device, smi)
     torch.cuda.empty_cache()
     ssg_launches, ssg_train_rate, ssg_model, ssg_cfg, ssg_batches = ssg_train_path(device,
                                                                                   smi)

@@ -14,12 +14,14 @@
 //                                         TPU kernel rounds p before P.V)
 //   o = bf16( p v )                      (f32 accumulation)
 // q/k/v/o are [B, L, H*64] with a free row and batch stride, so q and k can
-// be column slices of one packed projection.  1 <= Lk <= 768.
+// be column slices of one packed projection.  Any Lk >= 1: the two-pass
+// path streams the key tiles, so nothing is sized by Lk.
 //
 // Bound on an H100: the CLIP attention pool (B=24, 32 heads, L=169) is 5.6
 // GFLOP against 66 MB of q/k/v/o, about 20 us, limited by memory; the
 // decoder's self attention (B=24, 8 heads, L=676) 22.5 GFLOP (with the
-// second pass's QK^T, 34) against 66 MB, about 23-34 us.
+// second pass's QK^T, 34) against 66 MB, about 23-34 us; at 640^2 (L =
+// 1600) 126 GFLOP (189 with the second QK^T) against 157 MB.
 //
 // Design.  Because p is normalized before P.V, a one-pass online softmax
 // does not compute this function: each query row needs its max and sum
@@ -57,7 +59,6 @@ constexpr int kAttnBQ = 64;   // query rows per CTA, and key rows per tile
 constexpr int kAttnDH = 64;   // head dim
 constexpr int kAttnLdT = kAttnDH + 8;  // bf16 tile row stride (conflict-free ldmatrix)
 constexpr int kAttnTile = kAttnBQ * kAttnLdT;
-constexpr int kAttnMaxLk = 768;
 constexpr int kAttnOnePassTiles = 3;  // the one-pass path holds up to 192 keys
 constexpr int kAttnThreads = 128;
 static_assert(kAttnLdT == kAbLdT && kAttnDH == kAbDH, "tiles shared with the ab_* helpers");
@@ -334,7 +335,7 @@ static cudaError_t launch_attn_fwd(const AttnArgs& a, int batch, cudaStream_t st
 }
 
 static cudaError_t launch_attention(const AttnArgs& a, int batch, cudaStream_t stream) {
-  if (a.lk > kAttnMaxLk || a.lk < 1 || a.lq < 1 || batch < 1) return cudaErrorInvalidValue;
+  if (a.lk < 1 || a.lq < 1 || batch < 1) return cudaErrorInvalidValue;
   switch (attn_fwd_key_tiles(a.lk)) {
     case 1: return launch_attn_fwd<1>(a, batch, stream);
     case 2: return launch_attn_fwd<2>(a, batch, stream);
@@ -362,7 +363,7 @@ static cudaError_t attn_fwd_attrs_of(int* out) {
 // (0: the two-pass kernel), registers per thread, shared memory per CTA
 // (static + dynamic), spill bytes per thread, and CTAs per SM
 static cudaError_t attention_fwd_attrs(int lk, int* out) {
-  if (lk > kAttnMaxLk || lk < 1) return cudaErrorInvalidValue;
+  if (lk < 1) return cudaErrorInvalidValue;
   switch (attn_fwd_key_tiles(lk)) {
     case 1: return attn_fwd_attrs_of<1>(out);
     case 2: return attn_fwd_attrs_of<2>(out);

@@ -6,7 +6,7 @@
 // (crog_tpu_torch/ops/attention.py:bwd_path) from the shapes:
 //   - heads of at most kHbMaxL = 256 tokens: one CTA per (batch, head),
 //     attention_bwd_head.cuh (its bound and design notes are there);
-//   - longer heads, up to 768 tokens, and the decoder blocks' cast points:
+//   - longer heads, of any length, and the decoder blocks' cast points:
 //     the two kernels of attention_bwd.cuh, which the decoder block backward
 //     shares.
 // Both recompute the row statistics from q and k instead of taking the

@@ -63,7 +63,6 @@ enum AttnBwdMode { kBwdF32 = 0, kBwdBf16 = 1 };
 constexpr int kAbBQ = 64;             // rows per block (queries or keys), and per tile
 constexpr int kAbDH = 64;             // head dim
 constexpr int kAbLdT = kAbDH + 8;     // bf16 tile row stride (conflict-free ldmatrix)
-constexpr int kAbMaxLk = 768;
 constexpr int kAbTile = kAbBQ * kAbLdT;  // elements of one [64, 64] tile
 
 struct AttnBwdArgs {
@@ -484,7 +483,7 @@ static cudaError_t ab_set_smem_once() {
 template <int MODE>
 inline cudaError_t launch_attention_bwd(const AttnBwdArgs& a, int batch,
                                         cudaStream_t stream) {
-  if (a.lk > kAbMaxLk || a.lk < 1 || a.lq < 1 || batch < 1) return cudaErrorInvalidValue;
+  if (a.lk < 1 || a.lq < 1 || batch < 1) return cudaErrorInvalidValue;
   const cudaError_t attr = ab_set_smem_once<MODE>();
   if (attr != cudaSuccess) return attr;
   const dim3 grid_rows((a.lq + kAbBQ - 1) / kAbBQ, batch * a.heads);

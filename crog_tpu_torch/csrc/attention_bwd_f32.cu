@@ -11,7 +11,7 @@
 
 // q, o, do, dq [B, Lq, H*64]; k, v, dk, dv [B, Lk, H*64]; mask [B, Lk]
 // additive f32 or null; lse [B*H, Lq] or null; stats [B*H, 3, Lq] and
-// dqpart [ceil(Lk / 64), B*H, Lq, 64] (work); strides in floats
+// dqpart [ab_f32_parts(Lk), B*H, Lq, 64] (work); strides in floats
 extern "C" int crog_attention_f32_bwd(
     const float* q, const float* k, const float* v, const float* o, const float* dout,
     const float* mask, const float* lse, float* dq, float* dk, float* dv, float* stats,
@@ -56,4 +56,10 @@ extern "C" int crog_attention_f32_bwd(
   a.dv_rs = dv_rs;
   a.scale = scale;
   return (int)crog::launch_attention_bwd_f32(a, batch, static_cast<cudaStream_t>(stream));
+}
+
+// the dQ partials crog_attention_f32_bwd writes for lk keys (dqpart's first
+// dimension), which ops/attention.py:f32_dq_parts mirrors to size it
+extern "C" int crog_attention_f32_dq_parts(int lk) {
+  return lk < 1 ? 0 : crog::ab_f32_parts(lk);
 }

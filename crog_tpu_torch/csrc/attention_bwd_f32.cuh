@@ -23,7 +23,7 @@
 //     rowsum(dp * p), as `_mha_bwd` takes it (an exact 0 up to rounding
 //     where one key takes all the weight).
 // q, o, do, dq are [B, Lq, H*64], k, v, dk, dv [B, Lk, H*64], f32 with a
-// free row and batch stride (multiples of 4 floats); 1 <= Lq, Lk <= 768.
+// free row and batch stride (multiples of 4 floats); any Lq, Lk >= 1.
 //
 // Products per (64-query, 64-key) pair: 5 in K1b (QK^T, dO V^T, P^T dO,
 // dS^T Q, dS K, each once), 7 in the blocks (the pre-pass forms QK^T and
@@ -34,7 +34,10 @@
 // against 266 MB, about 85 us by operations (79 us by bytes); the
 // decoder's self attention (B=24, 8 heads, L=676) 56 GFLOP, about 0.34 ms.
 // The dQ partials add 3 (K1b) and 11 (K2b) times dq's bytes, written once
-// and read once: 0.06 and 0.22 ms at 3.35 TB/s.
+// and read once: 0.06 and 0.22 ms at 3.35 TB/s.  At 640^2 (L = 1600) the
+// decoder's step is 315 GFLOP, about 1.9 ms; its 9 partials (below) add
+// 708 MB written once, read once and (by the CTAs that walk three key
+// blocks) read and written again for the second and third block.
 //
 // Design: FlashAttention-2's backward on wgmma, no atomics.
 //   attn_bwd_f32_delta_kernel (K1b): each row's (lse, 1, rowsum(do * o)).
@@ -50,10 +53,16 @@
 //     groups of 4 steps, each group's A fragments split while the group
 //     before runs), P and dS in registers, dV += P^T dO and dK += dS^T Q
 //     (m64n64k8, P and dS as register A fragments), dS to shared memory,
-//     dQ^T = K^T dS (m64n32k8, two groups) into this key block's partial
-//     [Lq, 64].
-//   attn_bwd_f32_dq_sum_kernel: dq = the key blocks' partials added in
-//     key-block order.
+//     dQ^T = K^T dS (m64n32k8, two groups) into its partial [Lq, 64].  A
+//     CTA walks ab_f32_group(Lk) consecutive key blocks, one after the
+//     other, each from its own K and V tile with fresh dK and dV: the
+//     first block writes the partial, each later one adds its dQ^T to it
+//     (the same thread reads back what it wrote), so the launch writes at
+//     most kAbF32MaxParts partials whatever Lk, and the workspace grows
+//     linearly in Lq (11 partials at 676 keys, as one per block; 9 at
+//     1600, where one per block would be 25 and grow as L^2).
+//   attn_bwd_f32_dq_sum_kernel: dq = the partials added in key-block
+//     order.  Every sum is in a fixed order, so two runs give equal bits.
 // Every product is wgmma .tf32 with the 3xTF32 split (tf32.cuh): three
 // wgmmas, lo.hi, hi.lo, hi.hi (the main kernel's scores and dP in the
 // mirrored order hi.lo, lo.hi, so that each element sums the same terms in
@@ -93,7 +102,19 @@ constexpr int kAbF32Q = 32;      // queries per streamed tile of the main kernel
 constexpr int kAbF32PreQ = 64;   // query rows per CTA of the pre-pass
 constexpr int kAbF32PreK = 64;   // keys per streamed tile of the pre-pass
 constexpr int kAbF32Threads = 128;
-constexpr int kAbF32MaxL = 768;
+constexpr int kAbF32MaxParts = 11;  // dQ partials at most (K2b-f32's count at 676 keys)
+
+// key blocks of 64 that one main-kernel CTA walks, and the dQ partials the
+// launch writes (the CTAs of a head); the wrapper sizes the workspace by
+// the same count (ops/attention.py:f32_dq_parts)
+__host__ __device__ inline int ab_f32_group(int lk) {
+  const int blocks = (lk + kAbF32Keys - 1) / kAbF32Keys;
+  return (blocks + kAbF32MaxParts - 1) / kAbF32MaxParts;
+}
+__host__ __device__ inline int ab_f32_parts(int lk) {
+  const int blocks = (lk + kAbF32Keys - 1) / kAbF32Keys, g = ab_f32_group(lk);
+  return (blocks + g - 1) / g;
+}
 
 // main kernel shared memory (bytes): planes hi at +0, lo at +kAbPlane
 constexpr int kAbPlane = 8192;            // one [32][64] or [64][32] f32 plane
@@ -125,7 +146,7 @@ struct AttnBwdF32Args {
   float* dk;
   float* dv;
   float* stats;   // [B*H, 3, Lq]: m, r, delta
-  float* dqpart;  // [ceil(Lk / 64), B*H, Lq, 64]: each key block's dq
+  float* dqpart;  // [ab_f32_parts(Lk), B*H, Lq, 64]: each CTA's dq over its key blocks
   int heads, lq, lk;
   long long q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs, do_bs, do_rs, dq_bs, dq_rs, dk_bs,
       dk_rs, dv_bs, dv_rs;
@@ -507,8 +528,9 @@ __device__ __forceinline__ void ab_c_product(float (&d)[32], const float (&x)[16
   wgmma_wait_all();
 }
 
-// The main pass over one 64-key block.  PS, PDP, PDV, PDK, PDQ: how QK^T,
-// dO V^T, P^T dO, dS^T Q and dS K form their products.
+// The main pass over ab_f32_group(Lk) consecutive 64-key blocks.  PS, PDP,
+// PDV, PDK, PDQ: how QK^T, dO V^T, P^T dO, dS^T Q and dS K form their
+// products.
 template <int PS, int PDP, int PDV, int PDK, int PDQ>
 __global__ void __launch_bounds__(kAbF32Threads, 2) attn_bwd_f32_main_kernel(
     const AttnBwdF32Args a) {
@@ -517,26 +539,16 @@ __global__ void __launch_bounds__(kAbF32Threads, 2) attn_bwd_f32_main_kernel(
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y, b = bh / a.heads, h = bh % a.heads;
-  const int k0 = blockIdx.x * kAbF32Keys;
   const uint32_t sbase = smem_u32(smem);
   if (sbase & 1023) __trap();  // the planes' swizzle needs 1024-byte alignment
   const float* kt = reinterpret_cast<const float*>(smem + kAbMainK);
   const float* vt = reinterpret_cast<const float*>(smem + kAbMainV);
-  {
-    const float* kb = a.k + b * a.k_bs + h * kAbF32DH;
-    const float* vb = a.v + b * a.v_bs + h * kAbF32DH;
-    for (int i = threadIdx.x; i < kAbF32Keys * 16; i += kAbF32Threads) {
-      const int r = i >> 4, c = (i & 15) * 4;
-      const bool in = k0 + r < a.lk;
-      const long long row = in ? k0 + r : 0;  // rows past Lk are zero-filled
-      const uint32_t off = (r * 64 + (c ^ ab_kswz(r))) * 4;
-      cp_async16(sbase + kAbMainK + off, kb + row * a.k_rs + c, in ? 16 : 0);
-      cp_async16(sbase + kAbMainV + off, vb + row * a.v_rs + c, in ? 16 : 0);
-    }
-  }
+  const float* kb = a.k + b * a.k_bs + h * kAbF32DH;
+  const float* vb = a.v + b * a.v_bs + h * kAbF32DH;
   const float* qb = a.q + b * a.q_bs + h * kAbF32DH;
   const float* db = a.dout + b * a.do_bs + h * kAbF32DH;
   const float* st = a.stats + (long long)bh * 3 * a.lq;
+  const float* mk = a.mask != nullptr ? a.mask + (long long)b * a.lk : nullptr;
   auto load_q = [&](int qt) {
     const int q0 = qt * kAbF32Q;
     ab_load_raw(sbase + kAbMainRaw, qb, a.q_rs, q0, kAbF32Q, a.lq);
@@ -549,119 +561,139 @@ __global__ void __launch_bounds__(kAbF32Threads, 2) attn_bwd_f32_main_kernel(
     }
     cp_async_commit();
   };
-  load_q(0);
-
-  // this thread's keys ka (C fragment rows g) and kc (g + 8)
-  const int ka = k0 + warp * 16 + g, kc = ka + 8;
-  const float* mk = a.mask != nullptr ? a.mask + (long long)b * a.lk : nullptr;
-  const float mka = (mk != nullptr && ka < a.lk) ? mk[ka] : 0.0f;
-  const float mkc = (mk != nullptr && kc < a.lk) ? mk[kc] : 0.0f;
   float* part = a.dqpart + ((long long)blockIdx.x * gridDim.y + bh) * a.lq * kAbF32DH;
-
-  float dk[32], dv[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.0f;
   const int nqt = (a.lq + kAbF32Q - 1) / kAbF32Q;
-  for (int qt = 0; qt < nqt; ++qt) {
-    cp_async_wait_all();
-    __syncthreads();  // tile qt landed; every warp is done with the planes
-    ab_split_tile<PS, PDK, true>(smem, kAbMainRaw, kAbMainQn, kAbMainQt, kAbF32Q, kAbPlane);
-    ab_split_tile<PDP, PDV, true>(smem, kAbMainRaw + kAbPlane, kAbMainDOn, kAbMainDOt, kAbF32Q,
-                                  kAbPlane);
-    fence_proxy_async();
-    __syncthreads();
-    if (qt + 1 < nqt) load_q(qt + 1);  // the raw tile is free: one tile ahead
-    const float* sts = reinterpret_cast<const float*>(smem + kAbMainStat) + (qt & 1) * 3 * kAbF32Q;
+  const int group = ab_f32_group(a.lk);
+  const int kb0 = blockIdx.x * group;
+  const int kb1 = min(kb0 + group, (a.lk + kAbF32Keys - 1) / kAbF32Keys);
 
-    // S^T = K Q^T and dP^T = V dO^T (keys g (+ 8) x queries 8 j + 2 t (+ 1)),
-    // 4 steps a group: each group's A fragments are split while the group
-    // before runs, in the registers of the group two before
-    float s[16], dp[16];
-#pragma unroll
-    for (int i = 0; i < 16; ++i) s[i] = dp[i] = 0.0f;
-    uint32_t fh0[4][4], fl0[4][4], fh1[4][4], fl1[4][4];
-    ab_frags4<PS, false>(kt, 0, fh0, fl0);
-    ab_issue4<PS, 32, false>(s, fh0, fl0, sbase + kAbMainQn, kAbF32Q, 0);
-    ab_frags4<PS, false>(kt, 4, fh1, fl1);
-    ab_issue4<PS, 32, false>(s, fh1, fl1, sbase + kAbMainQn, kAbF32Q, 4);
-    wgmma_wait<1>();
-    ab_frags4<PDP, false>(vt, 0, fh0, fl0);
-    ab_issue4<PDP, 32, false>(dp, fh0, fl0, sbase + kAbMainDOn, kAbF32Q, 0);
-    wgmma_wait<1>();
-    ab_frags4<PDP, false>(vt, 4, fh1, fl1);
-    ab_issue4<PDP, 32, false>(dp, fh1, fl1, sbase + kAbMainDOn, kAbF32Q, 4);
-    wgmma_wait<0>();
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ql = 8 * j + 2 * t + (e & 1);
-        const bool in = qt * kAbF32Q + ql < a.lq && ((e >> 1) ? kc : ka) < a.lk;
-        const float x = s[4 * j + e] * a.scale + ((e >> 1) ? mkc : mka);
-        const float p = in ? expf(x - sts[ql]) * sts[kAbF32Q + ql] : 0.0f;
-        s[4 * j + e] = p;
-        dp[4 * j + e] = p * (dp[4 * j + e] - sts[2 * kAbF32Q + ql]) * a.scale;  // dS
-      }
-    __syncthreads();  // every warp's scores are formed: Q's planes take dS
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        uint32_t hi, lo;
-        split_p<PDQ>(dp[4 * j + e], hi, lo);
-        const uint32_t off =
-            ab_plane_off(kAbF32Q, 8 * j + 2 * t + (e & 1), warp * 16 + g + 8 * (e >> 1));
-        *reinterpret_cast<uint32_t*>(smem + kAbMainQn + off) = hi;
-        *reinterpret_cast<uint32_t*>(smem + kAbMainQn + kAbPlane + off) = lo;
-      }
-    fence_proxy_async();
-
-    float tile[32];
-    ab_c_product<PDV>(tile, s, sbase + kAbMainDOt);  // dV += P^T dO
-#pragma unroll
-    for (int i = 0; i < 32; ++i) dv[i] += tile[i];
-    ab_c_product<PDK>(tile, dp, sbase + kAbMainQt);  // dK += dS^T Q
-#pragma unroll
-    for (int i = 0; i < 32; ++i) dk[i] += tile[i];
-    __syncthreads();  // dS is in shared memory for every warp
-    float dqt[16];  // dQ^T = K^T dS: d rows g (+ 8) x queries 8 j + 2 t (+ 1)
-#pragma unroll
-    for (int i = 0; i < 16; ++i) dqt[i] = 0.0f;
-    ab_frags4<PDQ, true>(kt, 0, fh0, fl0);
-    ab_issue4<PDQ, 32, true>(dqt, fh0, fl0, sbase + kAbMainQn, kAbF32Q, 0);
-    ab_frags4<PDQ, true>(kt, 4, fh1, fl1);
-    ab_issue4<PDQ, 32, true>(dqt, fh1, fl1, sbase + kAbMainQn, kAbF32Q, 4);
-    wgmma_wait<0>();
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = qt * kAbF32Q + 8 * j + 2 * t + (e & 1);
-        if (qi < a.lq) part[(long long)qi * kAbF32DH + warp * 16 + g + 8 * (e >> 1)] = dqt[4 * j + e];
-      }
-  }
-  float* dko = a.dk + b * a.dk_bs + h * kAbF32DH + 2 * t;
-  float* dvo = a.dv + b * a.dv_bs + h * kAbF32DH + 2 * t;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    if (ka < a.lk) {
-      *reinterpret_cast<float2*>(dko + (long long)ka * a.dk_rs + 8 * j) =
-          make_float2(dk[4 * j], dk[4 * j + 1]);
-      *reinterpret_cast<float2*>(dvo + (long long)ka * a.dv_rs + 8 * j) =
-          make_float2(dv[4 * j], dv[4 * j + 1]);
+  for (int kblk = kb0; kblk < kb1; ++kblk) {
+    const int k0 = kblk * kAbF32Keys;
+    if (kblk > kb0) __syncthreads();  // every warp is done with the last block's tiles
+    for (int i = threadIdx.x; i < kAbF32Keys * 16; i += kAbF32Threads) {
+      const int r = i >> 4, c = (i & 15) * 4;
+      const bool in = k0 + r < a.lk;
+      const long long row = in ? k0 + r : 0;  // rows past Lk are zero-filled
+      const uint32_t off = (r * 64 + (c ^ ab_kswz(r))) * 4;
+      cp_async16(sbase + kAbMainK + off, kb + row * a.k_rs + c, in ? 16 : 0);
+      cp_async16(sbase + kAbMainV + off, vb + row * a.v_rs + c, in ? 16 : 0);
     }
-    if (kc < a.lk) {
-      *reinterpret_cast<float2*>(dko + (long long)kc * a.dk_rs + 8 * j) =
-          make_float2(dk[4 * j + 2], dk[4 * j + 3]);
-      *reinterpret_cast<float2*>(dvo + (long long)kc * a.dv_rs + 8 * j) =
-          make_float2(dv[4 * j + 2], dv[4 * j + 3]);
+    load_q(0);
+
+    // this thread's keys ka (C fragment rows g) and kc (g + 8)
+    const int ka = k0 + warp * 16 + g, kc = ka + 8;
+    const float mka = (mk != nullptr && ka < a.lk) ? mk[ka] : 0.0f;
+    const float mkc = (mk != nullptr && kc < a.lk) ? mk[kc] : 0.0f;
+    const bool first = kblk == kb0;  // writes the partial; later blocks add to it
+
+    float dk[32], dv[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.0f;
+    for (int qt = 0; qt < nqt; ++qt) {
+      cp_async_wait_all();
+      __syncthreads();  // tile qt landed; every warp is done with the planes
+      ab_split_tile<PS, PDK, true>(smem, kAbMainRaw, kAbMainQn, kAbMainQt, kAbF32Q, kAbPlane);
+      ab_split_tile<PDP, PDV, true>(smem, kAbMainRaw + kAbPlane, kAbMainDOn, kAbMainDOt, kAbF32Q,
+                                    kAbPlane);
+      fence_proxy_async();
+      __syncthreads();
+      if (qt + 1 < nqt) load_q(qt + 1);  // the raw tile is free: one tile ahead
+      const float* sts =
+          reinterpret_cast<const float*>(smem + kAbMainStat) + (qt & 1) * 3 * kAbF32Q;
+
+      // S^T = K Q^T and dP^T = V dO^T (keys g (+ 8) x queries 8 j + 2 t (+ 1)),
+      // 4 steps a group: each group's A fragments are split while the group
+      // before runs, in the registers of the group two before
+      float s[16], dp[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) s[i] = dp[i] = 0.0f;
+      uint32_t fh0[4][4], fl0[4][4], fh1[4][4], fl1[4][4];
+      ab_frags4<PS, false>(kt, 0, fh0, fl0);
+      ab_issue4<PS, 32, false>(s, fh0, fl0, sbase + kAbMainQn, kAbF32Q, 0);
+      ab_frags4<PS, false>(kt, 4, fh1, fl1);
+      ab_issue4<PS, 32, false>(s, fh1, fl1, sbase + kAbMainQn, kAbF32Q, 4);
+      wgmma_wait<1>();
+      ab_frags4<PDP, false>(vt, 0, fh0, fl0);
+      ab_issue4<PDP, 32, false>(dp, fh0, fl0, sbase + kAbMainDOn, kAbF32Q, 0);
+      wgmma_wait<1>();
+      ab_frags4<PDP, false>(vt, 4, fh1, fl1);
+      ab_issue4<PDP, 32, false>(dp, fh1, fl1, sbase + kAbMainDOn, kAbF32Q, 4);
+      wgmma_wait<0>();
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ql = 8 * j + 2 * t + (e & 1);
+          const bool in = qt * kAbF32Q + ql < a.lq && ((e >> 1) ? kc : ka) < a.lk;
+          const float x = s[4 * j + e] * a.scale + ((e >> 1) ? mkc : mka);
+          const float p = in ? expf(x - sts[ql]) * sts[kAbF32Q + ql] : 0.0f;
+          s[4 * j + e] = p;
+          dp[4 * j + e] = p * (dp[4 * j + e] - sts[2 * kAbF32Q + ql]) * a.scale;  // dS
+        }
+      __syncthreads();  // every warp's scores are formed: Q's planes take dS
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          uint32_t hi, lo;
+          split_p<PDQ>(dp[4 * j + e], hi, lo);
+          const uint32_t off =
+              ab_plane_off(kAbF32Q, 8 * j + 2 * t + (e & 1), warp * 16 + g + 8 * (e >> 1));
+          *reinterpret_cast<uint32_t*>(smem + kAbMainQn + off) = hi;
+          *reinterpret_cast<uint32_t*>(smem + kAbMainQn + kAbPlane + off) = lo;
+        }
+      fence_proxy_async();
+
+      float tile[32];
+      ab_c_product<PDV>(tile, s, sbase + kAbMainDOt);  // dV += P^T dO
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dv[i] += tile[i];
+      ab_c_product<PDK>(tile, dp, sbase + kAbMainQt);  // dK += dS^T Q
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dk[i] += tile[i];
+      __syncthreads();  // dS is in shared memory for every warp
+      float dqt[16];  // dQ^T = K^T dS: d rows g (+ 8) x queries 8 j + 2 t (+ 1)
+#pragma unroll
+      for (int i = 0; i < 16; ++i) dqt[i] = 0.0f;
+      ab_frags4<PDQ, true>(kt, 0, fh0, fl0);
+      ab_issue4<PDQ, 32, true>(dqt, fh0, fl0, sbase + kAbMainQn, kAbF32Q, 0);
+      ab_frags4<PDQ, true>(kt, 4, fh1, fl1);
+      ab_issue4<PDQ, 32, true>(dqt, fh1, fl1, sbase + kAbMainQn, kAbF32Q, 4);
+      wgmma_wait<0>();
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = qt * kAbF32Q + 8 * j + 2 * t + (e & 1);
+          if (qi < a.lq) {
+            float* pp = part + (long long)qi * kAbF32DH + warp * 16 + g + 8 * (e >> 1);
+            *pp = first ? dqt[4 * j + e] : *pp + dqt[4 * j + e];
+          }
+        }
+    }
+    float* dko = a.dk + b * a.dk_bs + h * kAbF32DH + 2 * t;
+    float* dvo = a.dv + b * a.dv_bs + h * kAbF32DH + 2 * t;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (ka < a.lk) {
+        *reinterpret_cast<float2*>(dko + (long long)ka * a.dk_rs + 8 * j) =
+            make_float2(dk[4 * j], dk[4 * j + 1]);
+        *reinterpret_cast<float2*>(dvo + (long long)ka * a.dv_rs + 8 * j) =
+            make_float2(dv[4 * j], dv[4 * j + 1]);
+      }
+      if (kc < a.lk) {
+        *reinterpret_cast<float2*>(dko + (long long)kc * a.dk_rs + 8 * j) =
+            make_float2(dk[4 * j + 2], dk[4 * j + 3]);
+        *reinterpret_cast<float2*>(dvo + (long long)kc * a.dv_rs + 8 * j) =
+            make_float2(dv[4 * j + 2], dv[4 * j + 3]);
+      }
     }
   }
 }
 
-// dq = the key blocks' partials added in key-block order, a float4 a thread
+// dq = the partials added in key-block order, a float4 a thread
 __global__ void __launch_bounds__(256) attn_bwd_f32_dq_sum_kernel(const AttnBwdF32Args a,
-                                                                   int bhs, int nkb) {
+                                                                   int bhs, int nparts) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long rows = (long long)bhs * a.lq;
   if (i >= rows * 16) return;
@@ -669,8 +701,8 @@ __global__ void __launch_bounds__(256) attn_bwd_f32_dq_sum_kernel(const AttnBwdF
   const int c = (int)(i & 15) * 4;
   const float* p = a.dqpart + row * kAbF32DH + c;
   float4 acc = *reinterpret_cast<const float4*>(p);
-  for (int kb = 1; kb < nkb; ++kb) {
-    const float4 x = *reinterpret_cast<const float4*>(p + kb * rows * kAbF32DH);
+  for (int kp = 1; kp < nparts; ++kp) {
+    const float4 x = *reinterpret_cast<const float4*>(p + kp * rows * kAbF32DH);
     acc.x += x.x;
     acc.y += x.y;
     acc.z += x.z;
@@ -712,20 +744,19 @@ static cudaError_t launch_attention_bwd_f32_p(const AttnBwdF32Args& a, int batch
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int nkb = (a.lk + kAbF32Keys - 1) / kAbF32Keys;
-  main_kernel<<<dim3(nkb, bh), kAbF32Threads, kAbMainSmem, stream>>>(a);
+  const int nparts = ab_f32_parts(a.lk);
+  main_kernel<<<dim3(nparts, bh), kAbF32Threads, kAbMainSmem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   attn_bwd_f32_dq_sum_kernel<<<(unsigned)((rows * 16 + 255) / 256), 256, 0, stream>>>(a, bh,
-                                                                                    nkb);
+                                                                                    nparts);
   return cudaGetLastError();
 }
 
 // a.lse non-null: K1b (a.o required); null: the blocks (a.o unused)
 static cudaError_t launch_attention_bwd_f32(const AttnBwdF32Args& a, int batch,
                                             cudaStream_t stream) {
-  if (a.lq < 1 || a.lk < 1 || a.lq > kAbF32MaxL || a.lk > kAbF32MaxL || batch < 1 ||
-      a.heads < 1 || (a.lse != nullptr && a.o == nullptr))
+  if (a.lq < 1 || a.lk < 1 || batch < 1 || a.heads < 1 || (a.lse != nullptr && a.o == nullptr))
     return cudaErrorInvalidValue;
   if ((a.q_rs | a.k_rs | a.v_rs | a.do_rs | a.q_bs | a.k_bs | a.v_bs | a.do_bs | a.dq_rs |
        a.dk_rs | a.dv_rs | a.dq_bs | a.dk_bs | a.dv_bs) & 3 ||

@@ -4,7 +4,7 @@
 // Replaces the backward Pallas kernel `_bwd_kernel` of
 // crog_tpu/ops/pallas_attention.py:53 (pallas_call at :140) for self
 // attention over L <= kHbMaxL = 256 tokens, head dim 64, no mask (the pool
-// has 169 tokens at 416^2, 256 at 512^2).  Longer heads, up to 768, take
+// has 169 tokens at 416^2, 256 at 512^2).  Longer heads, of any length, take
 // the two-kernel path of attention_bwd.cuh.  Same function and cast points
 // as that path and as the twin `attention_bwd_plain`: P, dP and dS in f32,
 // delta = rowsum(dO * O), the f32 operands of dV = P^T dO, dK = dS^T Q and

@@ -15,7 +15,7 @@
 //   lse = logsumexp(s) over the keys     (K1-f32 only, for K1b-f32)
 // q/k/v/o are [B, L, H*64] f32 with a free row and batch stride (multiples
 // of 4 floats), so q and k can be column slices of one packed projection;
-// 1 <= Lk <= 768, Lq free.  The twin is ops/attention.py:attention_plain.
+// any Lk >= 1 and Lq >= 1 (the key tiles stream, nothing is sized by Lk).  The twin is ops/attention.py:attention_plain.
 //
 // Bound on an H100 (ops/work.py, 3xTF32 at a third of TF32's 495 TFLOP/s):
 // the CLIP attention pool (B=24, 32 heads, L=169) is 5.6 GFLOP against 133
@@ -64,7 +64,6 @@ constexpr int kF32BQ = 64;  // query rows per CTA, one warpgroup
 constexpr int kF32BK = 64;  // key rows per tile
 constexpr int kF32DH = 64;  // head dim
 constexpr int kF32AttnThreads = 128;
-constexpr int kF32MaxLk = 768;
 static_assert(kF32AttnThreads == kAbF32Threads, "ab_load_raw and ab_split_tile stride by it");
 // shared memory (bytes): planes hi at +0, lo at +kFwPlane
 constexpr int kFwPlane = 16384;           // one [64][64] f32 plane
@@ -350,7 +349,7 @@ static cudaError_t launch_attn_f32_p(const AttnF32Args& a, int batch, cudaStream
 }
 
 static cudaError_t launch_attention_f32(const AttnF32Args& a, int batch, cudaStream_t stream) {
-  if (a.lk > kF32MaxLk || a.lk < 1 || a.lq < 1 || batch < 1) return cudaErrorInvalidValue;
+  if (a.lk < 1 || a.lq < 1 || batch < 1) return cudaErrorInvalidValue;
   if ((a.q_rs | a.k_rs | a.v_rs | a.o_rs | a.q_bs | a.k_bs | a.v_bs | a.o_bs) & 3)
     return cudaErrorInvalidValue;
   return launch_attn_f32_p<products_of(kProdScores), products_of(kProdPV)>(a, batch, stream);

@@ -238,13 +238,13 @@ float* P(void* const* t, int i) { return static_cast<float*>(t[i]); }
 //   workspace 16 dop, 17 do [B*L, D], 18 dqkv [B*L, 3D], 19 dxl [B*L, D],
 //   20 stats [B*H, 3, L], 21 part (the chunk partials of the products,
 //   ops/decoder_blocks.py f32_bwd_work), 22 lnpart [ceil(B*L/32), 3, D],
-//   23 cpart [ceil(B*L/256), 3D], 24 dqpart [ceil(L/64), B*H, L, 64],
+//   23 cpart [ceil(B*L/256), 3D], 24 dqpart [ab_f32_parts(L), B*H, L, 64],
 //   25 planes (the TF32 planes of each product's B, f32_bwd_work).
 extern "C" int crog_self_block_f32_bwd(void* const* t, int b, int l, int d, int heads,
                                        unsigned seed, unsigned thresh, float scale,
                                        void* stream) {
   using namespace crog;
-  if (d != kBwdD || heads * kAbF32DH != d || l < 1 || l > kAbF32MaxL || b < 1)
+  if (d != kBwdD || heads * kAbF32DH != d || l < 1 || b < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m = b * l;
@@ -296,13 +296,12 @@ extern "C" int crog_self_block_f32_bwd(void* const* t, int b, int l, int d, int 
 //   workspace 20 dop, 21 do, 22 dq [B*L, D], 23 dkv2 [B*T, 2D] (dk | dv),
 //   24 dxl [B*L, D], 25 stats [B*H, 3, L], 26 part (as for the self
 //   block), 27 lnpart, 28 cpart [ceil(B*L/256), D] as for the self block,
-//   29 dqpart [ceil(T/64), B*H, L, 64], 30 planes.
+//   29 dqpart [ab_f32_parts(T), B*H, L, 64], 30 planes.
 extern "C" int crog_cross_block_f32_bwd(void* const* t, int b, int l, int tt, int d, int heads,
                                         unsigned seed, unsigned thresh, float scale,
                                         void* stream) {
   using namespace crog;
-  if (d != kBwdD || heads * kAbF32DH != d || l < 1 || l > kAbF32MaxL || tt < 1 ||
-      tt > kAbF32MaxL || b < 1)
+  if (d != kBwdD || heads * kAbF32DH != d || l < 1 || tt < 1 || b < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m = b * l, mt = b * tt;

@@ -119,7 +119,7 @@ extern "C" int crog_self_block_f32_fwd(const void* const* table, int b, int l, i
                                        unsigned seed, unsigned thresh, float scale,
                                        void* stream) {
   using namespace crog;
-  if (d != kBlkD || heads * kF32DH != d || l < 1 || l > kF32MaxLk || b < 1)
+  if (d != kBlkD || heads * kF32DH != d || l < 1 || b < 1)
     return (int)cudaErrorInvalidValue;
   auto in = [&](int i) { return static_cast<const float*>(table[i]); };
   auto out = [&](int i) { return static_cast<float*>(const_cast<void*>(table[i])); };
@@ -169,7 +169,7 @@ extern "C" int crog_cross_block_f32_fwd(const void* const* table, int b, int l, 
                                         int heads, unsigned seed, unsigned thresh, float scale,
                                         void* stream) {
   using namespace crog;
-  if (d != kBlkD || heads * kF32DH != d || l < 1 || t < 1 || t > kF32MaxLk || b < 1)
+  if (d != kBlkD || heads * kF32DH != d || l < 1 || t < 1 || b < 1)
     return (int)cudaErrorInvalidValue;
   auto in = [&](int i) { return static_cast<const float*>(table[i]); };
   auto out = [&](int i) { return static_cast<float*>(const_cast<void*>(table[i])); };

@@ -179,6 +179,22 @@ def clip_state_dict_from_flax(params: Mapping, batch_stats: Mapping,
     return b.sd
 
 
+def _decoder(b: _Builder, pre: str, *dec):
+    """The flax TransformerDecoder at ``dec`` -> the port's under ``pre``."""
+    n_layers = sum(1 for k in b.p(*dec) if k.startswith("layer_"))
+    for i in range(n_layers):
+        src = dec + (f"layer_{i}",)
+        dst = f"{pre}layers.{i}"
+        for ln in ("norm1", "norm2", "norm3", "self_attn_norm", "cross_attn_norm"):
+            b.ln(f"{dst}.{ln}", *src, ln)
+        b.mha_packed(f"{dst}.self_attn", *src, "self_attn")
+        b.mha_packed(f"{dst}.multihead_attn", *src, "multihead_attn")
+        b.dense(f"{dst}.ffn.0", *src, "ffn_fc1")
+        b.ln(f"{dst}.ffn.3", *src, "ffn_ln")
+        b.dense(f"{dst}.ffn.4", *src, "ffn_fc2")
+    b.ln(f"{pre}norm", *dec, "norm")
+
+
 def state_dict_from_flax(params: Mapping, batch_stats: Mapping,
                          logit_scale: float = float(np.log(1 / 0.07))
                          ) -> Dict[str, np.ndarray]:
@@ -198,20 +214,7 @@ def state_dict_from_flax(params: Mapping, batch_stats: Mapping,
     b.cbr("neck.coordconv.1", *nk, "coordconv_1")
 
     if "decoder" in params:
-        dec = ("decoder",)
-        n_layers = sum(1 for k in b.p(*dec) if k.startswith("layer_"))
-        for i in range(n_layers):
-            src = dec + (f"layer_{i}",)
-            dst = f"decoder.layers.{i}"
-            for ln in ("norm1", "norm2", "norm3", "self_attn_norm",
-                       "cross_attn_norm"):
-                b.ln(f"{dst}.{ln}", *src, ln)
-            b.mha_packed(f"{dst}.self_attn", *src, "self_attn")
-            b.mha_packed(f"{dst}.multihead_attn", *src, "multihead_attn")
-            b.dense(f"{dst}.ffn.0", *src, "ffn_fc1")
-            b.ln(f"{dst}.ffn.3", *src, "ffn_ln")
-            b.dense(f"{dst}.ffn.4", *src, "ffn_fc2")
-        b.ln("decoder.norm", *dec, "norm")
+        _decoder(b, "decoder.", "decoder")
 
     pj = ("proj",)
     b.cbr("proj.vis.1", *pj, "vis_conv1")

@@ -26,10 +26,11 @@ import torch.nn.functional as F
 from crog_tpu_torch.ops import cuda_build, work
 
 NEG = -1e30  # the kernels' mask value: finite, keeps all-masked rows finite
-MAX_KEYS = 768  # the kernels' limit on keys per head
 ONE_PASS_MAX_KEYS = 192  # the forward's one-pass kernel holds 3 key tiles of scores
 HEAD_MAX_LEN = 256  # K1b's one-CTA-per-head kernel holds a whole head
 HEAD_DIM = 64
+F32_KEY_BLOCK = 64  # keys per main-kernel block of the fp32 backward
+F32_MAX_DQ_PARTS = 11  # its dQ partials at most (csrc/attention_bwd_f32.cuh kAbF32MaxParts)
 
 
 def _use_fused(lq, lk, attn_mask, key_padding_mask) -> bool:
@@ -73,11 +74,11 @@ def _check_rows(t: torch.Tensor, name: str, dtype: torch.dtype = torch.bfloat16)
 def fwd_path(lk: int) -> str:
     """Which forward kernel takes a head of ``lk`` keys: "one_pass" (the
     head's scores in registers, K1's 169 and K3's 17 keys) up to
-    ONE_PASS_MAX_KEYS, else "two_pass" (statistics, then P.V; K2's 676), up
-    to MAX_KEYS.  csrc/attention.cuh:attn_fwd_key_tiles makes the same
-    choice on the card."""
-    if not 1 <= lk <= MAX_KEYS:
-        raise ValueError(f"attention kernel takes 1..{MAX_KEYS} keys, got {lk}")
+    ONE_PASS_MAX_KEYS, else "two_pass" (statistics, then P.V; K2's 676, and
+    any longer head: 1600 at 640^2).  csrc/attention.cuh:attn_fwd_key_tiles
+    makes the same choice on the card."""
+    if lk < 1:
+        raise ValueError(f"attention kernel takes at least 1 key, got {lk}")
     return "one_pass" if lk <= ONE_PASS_MAX_KEYS else "two_pass"
 
 
@@ -110,7 +111,7 @@ def fused_attention(q, k, v, num_heads: int, mask_add=None, with_lse: bool = Fal
             f"attention kernel takes head dim {HEAD_DIM}: q {tuple(q.shape)}, "
             f"k {tuple(k.shape)}, v {tuple(v.shape)}, {num_heads} heads"
         )
-    fwd_path(lk)  # raises past MAX_KEYS
+    fwd_path(lk)  # raises on no keys
     if mask_add is not None:
         cuda_build.require(mask_add, "mask_add", torch.float32, (b, lk))
     o = torch.empty(b, lq, d, dtype=q.dtype, device=q.device)
@@ -203,7 +204,9 @@ def attention_bwd_f32_plain(q, k, v, do, num_heads: int, mask_add=None, o=None, 
     delta = sum(p dp) / l from a pass over 64-key tiles with online
     rescaling.  Then, per 64-key block over 32-query tiles, p = exp(x - m)
     r, dS, dV and dK (each tile's sums added to the running ones) and the
-    block's dQ partial; dq is the partials added in key-block order."""
+    block's dQ; each group of ``f32_dq_parts`` consecutive blocks adds its
+    blocks' dQ in key order into one partial, and dq is the partials added
+    in key-block order."""
     qh, kh, vh, doh = (_split_heads(t, num_heads).float() for t in (q, k, v, do))
     b, h, lq, dh = qh.shape
     lk = kh.shape[2]
@@ -226,11 +229,12 @@ def attention_bwd_f32_plain(q, k, v, do, num_heads: int, mask_add=None, o=None, 
             c, e = torch.exp(m - mnew), torch.exp(x - mnew[..., None])
             l, w, m = l * c + e.sum(-1), w * c + (e * dp).sum(-1), mnew
         r, delta = 1.0 / l, w / l
-    dq, dks, dvs = None, [], []
+    group = f32_dq_parts(lk)[0]
+    dq, dks, dvs, part = None, [], [], None
     for k0 in range(0, lk, 64):
         k1 = min(k0 + 64, lk)
         dk, dv = torch.zeros(b, h, k1 - k0, dh), torch.zeros(b, h, k1 - k0, dh)
-        part = torch.zeros(b, h, lq, dh)
+        blk = torch.zeros(b, h, lq, dh)
         for q0 in range(0, lq, 32):
             q1 = min(q0 + 32, lq)
             rows = slice(q0, q1)
@@ -239,8 +243,11 @@ def attention_bwd_f32_plain(q, k, v, do, num_heads: int, mask_add=None, o=None, 
             ds = p * (dp - delta[..., rows, None]) * scale
             dv = dv + torch.matmul(p.transpose(-1, -2), doh[:, :, rows])
             dk = dk + torch.matmul(ds.transpose(-1, -2), qh[:, :, rows])
-            part[:, :, rows] = torch.matmul(ds, kh[:, :, k0:k1])
-        dq = part if dq is None else dq + part
+            blk[:, :, rows] = torch.matmul(ds, kh[:, :, k0:k1])
+        first = (k0 // 64) % group == 0
+        part = blk if first else part + blk
+        if (k0 // 64) % group == group - 1 or k1 == lk:  # the group's partial is whole
+            dq = part if dq is None else dq + part
         dks.append(dk)
         dvs.append(dv)
     return tuple(_merge_heads(t, q.dtype) for t in (dq, torch.cat(dks, 2), torch.cat(dvs, 2)))
@@ -248,17 +255,30 @@ def attention_bwd_f32_plain(q, k, v, do, num_heads: int, mask_add=None, o=None, 
 
 def _check_bwd_width(q, num_heads: int) -> None:
     b, l, d = q.shape
-    if d != num_heads * HEAD_DIM or not 1 <= l <= MAX_KEYS:
+    if d != num_heads * HEAD_DIM or l < 1:
         raise ValueError(
-            f"attention backward kernel takes head dim {HEAD_DIM} and 1..{MAX_KEYS} "
-            f"tokens: q {tuple(q.shape)}, {num_heads} heads"
+            f"attention backward kernel takes head dim {HEAD_DIM} and at least 1 "
+            f"token: q {tuple(q.shape)}, {num_heads} heads"
         )
+
+
+def f32_dq_parts(lk: int):
+    """(key blocks a CTA walks, dQ partials written) by the fp32 attention
+    backward's main kernel over ``lk`` keys: ceil(lk / 64) blocks of 64 in
+    groups of ceil(blocks / F32_MAX_DQ_PARTS) consecutive ones, one partial
+    [B*H, Lq, 64] per group, so that the workspace grows linearly in Lq
+    (one group per block up to 704 keys; 9 partials of 3 blocks at 1600).
+    csrc/attention_bwd_f32.cuh ab_f32_group / ab_f32_parts make the same
+    split, and crog_attention_f32_dq_parts reports it."""
+    blocks = -(-lk // F32_KEY_BLOCK)
+    group = -(-blocks // F32_MAX_DQ_PARTS)
+    return group, -(-blocks // group)
 
 
 def bwd_path(l: int, bf16_casts: bool = False) -> str:
     """Which K1b kernel takes a head of ``l`` tokens: "head" (one CTA per
     head, crog_attention_bwd_head) up to HEAD_MAX_LEN tokens, else
-    "rows_cols" (the two kernels of crog_attention_bwd, up to MAX_KEYS);
+    "rows_cols" (the two kernels of crog_attention_bwd, any longer head);
     the decoder blocks' cast points exist only on the two-kernel path."""
     return "head" if l <= HEAD_MAX_LEN and not bf16_casts else "rows_cols"
 
@@ -334,8 +354,8 @@ def _attention_bwd_f32(name, q, k, v, o, do, num_heads: int, mask_add=None, lse=
     delta = rowsum(do * o) beside the forward's logsumexp), without it the
     decoder blocks' attention backward (a pre-pass for each row's
     statistics, delta = rowsum(dP P); ``o`` unused); then the main kernel,
-    one CTA per 64 keys writing a dQ partial each, and their sum in
-    key-block order."""
+    one CTA per group of 64-key blocks (``f32_dq_parts``) writing a dQ
+    partial each, and their sum in key-block order."""
     b, lq, d = q.shape
     lk = k.shape[1]
     for t, n in ((q, "q"), (do, "do")) + (((o, "o"),) if lse is not None else ()):
@@ -350,8 +370,8 @@ def _attention_bwd_f32(name, q, k, v, o, do, num_heads: int, mask_add=None, lse=
         o = q  # not read
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     stats = torch.empty(b * num_heads, 3, lq, dtype=torch.float32, device=q.device)
-    dqpart = torch.empty(-(-lk // 64), b * num_heads, lq, HEAD_DIM, dtype=torch.float32,
-                         device=q.device)
+    dqpart = torch.empty(f32_dq_parts(lk)[1], b * num_heads, lq, HEAD_DIM,
+                         dtype=torch.float32, device=q.device)
     lib = cuda_build.load(name)
     strides = [s for t in (q, k, v, o, do, dq, dk, dv) for s in (t.stride(0), t.stride(1))]
     rc = lib.crog_attention_f32_bwd(

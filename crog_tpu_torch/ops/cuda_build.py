@@ -54,6 +54,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "attention_bwd_f32": {
         "crog_attention_f32_bwd": [_P] * 12 + [_I] * 4 + [_L] * 16 + [_F, _P],
+        "crog_attention_f32_dq_parts": [_I],
     },
     "attention_bwd": {
         "crog_attention_bwd": [_P] * 10 + [_I] * 4 + [_F, _I, _P],

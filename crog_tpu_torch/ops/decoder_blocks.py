@@ -39,11 +39,11 @@ from functools import lru_cache
 import torch
 
 from crog_tpu_torch.ops import cuda_build, work
-from crog_tpu_torch.ops.attention import HEAD_DIM, NEG, attention_plain, mha_bwd_plain
+from crog_tpu_torch.ops.attention import (HEAD_DIM, NEG, attention_plain, f32_dq_parts,
+                                          mha_bwd_plain)
 from crog_tpu_torch.ops.dropout import apply_dropout, dropout_keep, kernel_args
 
 EPS = 1e-5
-MAX_TOKENS = 768
 KERNEL_D = 512  # the width the block kernels take
 PROJ_ROWS = 128  # rows per CTA tile of the forward's GEMM kernels (csrc/gemm.cuh kGM)
 PROJ_COLS = 256  # output columns per CTA tile (csrc/decoder_blocks.cu kPN)
@@ -319,9 +319,8 @@ def _check_block_input(x, nheads):
             f"decoder block kernels take x [B, L, 512] with 8 heads of 64, got "
             f"{tuple(x.shape)} and {nheads} heads"
         )
-    if x.shape[1] > MAX_TOKENS:
-        raise ValueError(
-            f"decoder block kernels take at most {MAX_TOKENS} tokens, got {x.shape[1]}")
+    if x.shape[1] < 1:
+        raise ValueError(f"decoder block kernels take at least 1 token, got {x.shape[1]}")
     cuda_build.require(x, "x", x.dtype)
 
 
@@ -463,10 +462,10 @@ def _self_block_bwd_f32(name, x, saved, dy, nheads, seed, rate):
     dx, dwi, dwo, dvec = f32(b, l, d), f32(3 * d, d), f32(d, d), f32(8, d)
     ws = (f32(m, d), f32(m, d), f32(m, 3 * d), f32(m, d), f32(b * nheads, 3, l), f32(part),
           f32(_ln_bwd_blocks(m), 3, d), f32(_colsum_blocks(m), 3 * d),
-          f32(-(-l // 64), b * nheads, l, 64), f32(planes))
+          f32(f32_dq_parts(l)[1], b * nheads, l, 64), f32(planes))
     # dop, do, dqkv, dxl, stats, parts (the products' chunks, LayerNorm and
-    # bias sums), the attention step's dQ partials (one per 64 keys), B's
-    # TF32 planes
+    # bias sums), the attention step's dQ partials (f32_dq_parts), B's TF32
+    # planes
     dseed, thresh, scale = kernel_args(seed, rate)
     table = cuda_build.ptr_table(x, wi, wo, g_pre, g_post, xl, qin, qk, v, o, op, dy,
                                  dx, dwi, dwo, dvec, *ws)
@@ -602,10 +601,10 @@ def _cross_block_bwd_f32(name, x, saved, dy, nheads, seed, rate):
     ws = (f32(m, d), f32(m, d), f32(m, d), f32(mt, 2 * d), f32(m, d),
           f32(b * nheads, 3, l), f32(part), f32(_ln_bwd_blocks(m), 3, d),
           f32(max(_colsum_blocks(m), 2 * _colsum_blocks(mt)), d),
-          f32(-(-t // 64), b * nheads, l, 64), f32(planes))
+          f32(f32_dq_parts(t)[1], b * nheads, l, 64), f32(planes))
     # dop, do, dq, dk|dv, dxl, stats, parts (the products' chunks, LayerNorm
-    # and bias sums), the attention step's dQ partials (one per 64 keys),
-    # B's TF32 planes
+    # and bias sums), the attention step's dQ partials (f32_dq_parts), B's
+    # TF32 planes
     dseed, thresh, scale = kernel_args(seed, rate)
     table = cuda_build.ptr_table(x, kv, mask, wi, wo, g_pre, g_post, qin, q, o, kin, k, v,
                                  op, dy, dx, dkv, dwi, dwo, dvec, *ws)

@@ -71,7 +71,11 @@ def _bf16(seed, *shape, std=1.0, device="cuda"):
     (676, 676, False, False), (676, 676, False, True),  # K2's shape; q, k packed as K2 passes them
     (100, 768, False, False), (100, 768, True, False),  # the key limit
     (130, 192, True, False), (130, 193, True, False),  # either side of the path switch
-    (64, 1, False, False), (65, 17, "all", False), (65, 300, "all", True)])
+    (64, 1, False, False), (65, 17, "all", False), (65, 300, "all", True),
+    # past the old 768-key cap: ViT-B/16 at 448^2, a ragged tile, 640^2's
+    # decoder (self, and its cross step over 17 padded keys)
+    (785, 785, False, True), (900, 900, False, False), (1000, 1000, True, False),
+    (1600, 1600, False, True), (1600, 17, True, False)])
 def test_cuda_attention_kernel_matches_twin(card, l, lk, masked, packed):
     """The attention forward on both of its paths (``fwd_path``) against its
     twin.  ``masked``: sample 0 keeps its first lk // 2 keys, sample 1 all;
@@ -152,13 +156,16 @@ def _close_all(got, ref, rel=BWD_REL, share=1.0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,l,heads,path", [
     (2, 169, 8, "head"), (3, 169, 5, "head"), (1, 7, 3, "head"), (2, 256, 4, "head"),
-    (2, 300, 8, "rows_cols"), (1, 257, 4, "rows_cols"), (1, 768, 2, "rows_cols")])
+    (2, 300, 8, "rows_cols"), (1, 257, 4, "rows_cols"), (1, 768, 2, "rows_cols"),
+    (2, 785, 8, "rows_cols"), (1, 900, 4, "rows_cols"), (1, 1000, 4, "rows_cols"),
+    (2, 1600, 8, "rows_cols")])
 def test_cuda_attention_backward_matches_twin(card, b, l, heads, path):
     """K1b against its twin on both paths: the one-CTA-per-head kernel at
     the pool's 169 tokens (also with an odd batch x heads, 15), at a length
     that is not a multiple of 16 and at its limit of 256; the two-kernel
-    path at 300 tokens, just past the switch (257) and at its limit of 768.
-    A second call gives the same bits."""
+    path at 300 tokens, just past the switch (257), at the old cap of 768
+    and past it (ViT-B/16's 785 at 448^2, 900, a ragged 1000, 640^2's
+    1600).  A second call gives the same bits."""
     assert A.bwd_path(l) == path
     q, k, v, do = (_bf16(s, b, l, heads * 64) for s in (1, 2, 3, 4))
     o = A.fused_attention(q, k, v, heads)
@@ -194,14 +201,18 @@ def test_cuda_attention_backward_tolerance_sees_bf16_casts(card):
 @pytest.mark.parametrize("b,lq,lk,heads,mask", [
     (2, 676, 676, 8, None), (2, 676, 17, 8, "ragged"), (1, 768, 768, 2, None),
     (2, 70, 300, 4, "ragged"), (3, 65, 129, 3, None), (2, 100, 17, 8, "all"),
-    (1, 1, 1, 2, None)])
+    (1, 1, 1, 2, None),
+    (2, 785, 785, 8, None), (1, 900, 900, 2, None), (2, 1000, 1000, 2, "ragged"),
+    (2, 1600, 1600, 8, None), (2, 1600, 17, 8, "ragged")])
 def test_cuda_decoder_attention_backward_matches_twin(card, b, lq, lk, heads, mask):
     """The two-kernel attention backward with the decoder blocks' bf16 cast
     points (K2b's and K3b's attention step) against its twin: K2b's 676
     tokens, K3b's 676 queries over 17 keys with per-sample key padding,
-    the 768-key limit, lengths just past a 64-row tile, one query over one
-    key, and a sample whose every key is masked (its rows average over the
-    Lk keys, as the forward's do).  A second call gives the same bits."""
+    the old 768-key cap and past it (785, 900, 1000 with padded keys, and
+    640^2's 1600 tokens and 1600 queries over 17 padded keys), lengths
+    just past a 64-row tile, one query over one key, and a sample whose
+    every key is masked (its rows average over the Lk keys, as the
+    forward's do).  A second call gives the same bits."""
     q, do = _bf16(1, b, lq, heads * 64), _bf16(4, b, lq, heads * 64)
     k, v = _bf16(2, b, lk, heads * 64), _bf16(3, b, lk, heads * 64)
     mask_add = None
@@ -245,6 +256,35 @@ def test_cuda_block_kernels_train_mode_match_twins(card, rate):
     torch.cuda.synchronize()
     with pytest.raises(ValueError, match="512"):
         DB.self_block_bwd(x[..., :256].contiguous(), saved, dy, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_cuda_block_kernels_train_mode_match_twins_at_1600(card, rate):
+    """K2/K2b and K3/K3b at 640^2's decoder length, past the old 768-token
+    cap: 1600 tokens (their attention step on the two-kernel backward), the
+    cross block's 1600 queries over 17 text keys with per-sample padding;
+    forward within 0.125, every gradient within 2^-6 of its largest
+    magnitude, and the backward twice with equal bits."""
+    x, txt = _bf16(11, 2, 1600, 512), _bf16(12, 2, 17, 512)
+    pos, tpos = _bf16(13, 1600, 512, std=0.5), _bf16(14, 17, 512, std=0.5)
+    dy = _bf16(15, 2, 1600, 512)
+    pad = torch.arange(17, device=card)[None].expand(2, 17) >= torch.tensor(
+        [[9], [17]], device=card)
+    w = _block_args(20)
+    y, saved = DB.self_block_fwd(x, pos, *w, 8, 7, rate, save=True)
+    assert (y.float() - DB.self_block_plain(x, pos, *w, 8, 7, rate).float()).abs().max() <= 0.125
+    got = DB.self_block_bwd(x, saved, dy, 8, 7, rate)
+    _close_all(got, DB.self_block_bwd_plain(x, pos, *w, dy, 8, 7, rate))
+    assert all(torch.equal(u, v) for u, v in zip(got, DB.self_block_bwd(x, saved, dy, 8, 7, rate)))
+    y, saved = DB.cross_block_fwd(x, txt, pos, tpos, pad, *w, 8, 8, rate, save=True)
+    ref = DB.cross_block_plain(x, txt, pos, tpos, pad, *w, 8, 8, rate)
+    assert (y.float() - ref.float()).abs().max() <= 0.125
+    got = DB.cross_block_bwd(x, saved, dy, 8, 8, rate)
+    _close_all(got, DB.cross_block_bwd_plain(x, txt, pos, tpos, pad, *w, dy, 8, 8, rate))
+    again = DB.cross_block_bwd(x, saved, dy, 8, 8, rate)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
 
 
 @pytest.mark.cuda
@@ -357,7 +397,8 @@ def _saved_refs(x, txt, pos, tpos, pad, w, rate, seed, cross):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,l,t", [(24, 676, 17), (3, 301, 17), (1, 676, 9)])
+@pytest.mark.parametrize("b,l,t", [(24, 676, 17), (3, 301, 17), (1, 676, 9), (2, 1600, 17),
+                                   (1, 1000, 9)])
 @pytest.mark.parametrize("train", [False, True])
 def test_cuda_block_forward_kernels_match_twins(card, b, l, t, train):
     """K2 and K3 (the wgmma projection GEMM over K-major in_proj_weight and
@@ -667,7 +708,12 @@ def exact_f32(card):
     (65, 17, 8, "all", "plain"), (1, 5, 2, False, "packed"),
     # on and just off the 64-key tiles and 64-query CTAs
     (63, 63, 2, False, "plain"), (64, 64, 2, True, "packed"), (65, 65, 2, False, "strided"),
-    (129, 676, 2, True, "plain")])
+    (129, 676, 2, True, "plain"),
+    # past the old 768-key cap (640^2's decoder: 1600 tokens, and 1600
+    # queries over 17 padded keys)
+    (785, 785, 8, False, "packed"), (900, 900, 2, True, "plain"),
+    (1000, 1000, 2, False, "strided"), (1600, 1600, 8, False, "packed"),
+    (1600, 17, 8, True, "plain")])
 def test_cuda_attention_f32_matches_twin(exact_f32, l, lk, heads, masked, layout):
     """K1-f32 against its fp32 twin, o and the row logsumexp (the one
     attention forward of K1-f32, K2-f32 and K3-f32; K1b-f32 reads the
@@ -720,7 +766,9 @@ def _f32_block(b, l, t, seed=60, d=512):
     # B*L on and off the GEMM's 128-row tiles and the 64-row warpgroups
     (1, 1, 17), (1, 63, 17), (1, 64, 17), (1, 65, 17), (1, 129, 17),
     # the cross block's k and v over B*T = 408 text rows, not a multiple of 128
-    (24, 5, 17)])
+    (24, 5, 17),
+    # past the old 768-token cap: 640^2's 1600 tokens, a ragged 1000
+    (2, 1600, 17), (1, 1000, 17)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_cuda_block_f32_kernels_match_twins(exact_f32, b, l, t, rate):
     """K2-f32 and K3-f32 against their fp32 twins, in eval and with
@@ -991,7 +1039,11 @@ def _close_rel(got, ref, names, rel=F32_BWD_REL):
     # either side of the 64-key blocks and 32-query tiles, Lq != Lk both ways
     (2, 63, 63, 2, False), (2, 64, 64, 2, True), (2, 65, 65, 2, False),
     (2, 129, 129, 2, True), (2, 100, 768, 2, True), (2, 768, 129, 2, False),
-    (2, 33, 64, 2, False), (2, 64, 65, 2, True), (2, 97, 63, 2, "peak")])
+    (2, 33, 64, 2, False), (2, 64, 65, 2, True), (2, 97, 63, 2, "peak"),
+    # past the old 768-token cap, where a CTA walks two or three key blocks
+    # into one dQ partial (ops/attention.py:f32_dq_parts)
+    (2, 785, 785, 2, False), (1, 900, 900, 2, True), (1, 1000, 1000, 2, False),
+    (2, 1600, 1600, 8, False), (2, 1600, 17, 8, True), (2, 40, 1600, 2, True)])
 def test_cuda_attention_bwd_f32_matches_twin(exact_f32, mode, b, lq, lk, heads, masked):
     """The fp32 attention backward against its fp32 twin, on o from K1-f32:
     "k1b", K1b-f32 on K1-f32's logsumexp (twin attention_bwd_plain with the
@@ -1030,8 +1082,22 @@ def test_cuda_attention_bwd_f32_matches_twin(exact_f32, mode, b, lq, lk, heads, 
 
 
 @pytest.mark.cuda
+def test_cuda_f32_dq_partials_are_the_wrappers(card):
+    """The fp32 attention backward's launch writes as many dQ partials as
+    the wrappers allocate (ops/attention.py:f32_dq_parts), at every key
+    count from 1 to 4096: one per 64-key block up to 11 blocks, then at
+    most 11 whatever the length."""
+    from crog_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.load("attention_bwd_f32")
+    got = [lib.crog_attention_f32_dq_parts(lk) for lk in range(1, 4097)]
+    assert got == [A.f32_dq_parts(lk)[1] for lk in range(1, 4097)]
+    assert max(got) == A.F32_MAX_DQ_PARTS
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,l,t", [(24, 676, 17), (3, 301, 17), (1, 5, 9), (9, 301, 23),
-                                   (10, 50, 17)])
+                                   (10, 50, 17), (2, 1600, 17), (1, 1000, 17)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_cuda_block_bwd_f32_kernels_match_twins(exact_f32, b, l, t, rate):
     """K2b-f32 and K3b-f32 on the intermediates K2-f32 and K3-f32 saved,

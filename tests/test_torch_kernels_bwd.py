@@ -47,7 +47,7 @@ def _torch_grads(out, cot, leaves):
 
 
 # ------------------------------------------------------------------ K1b
-@pytest.mark.parametrize("l", [64, 169])
+@pytest.mark.parametrize("l", [64, 169, 833])  # 833: past the old 768-key cap
 def test_attention_grads_match_pallas_vjp(l):
     bh, dh = 6, 64
     q, k, v = (_rand(s, bh, l, dh) for s in (1, 2, 3))
@@ -201,7 +201,8 @@ def test_attention_bwd_with_a_key_mask_matches_pallas_decoder(lq, lk, mask):
 
 @pytest.mark.parametrize("l,bf16_casts,path", [
     (1, False, "head"), (169, False, "head"), (256, False, "head"), (257, False, "rows_cols"),
-    (300, False, "rows_cols"), (768, False, "rows_cols"), (169, True, "rows_cols")])
+    (300, False, "rows_cols"), (768, False, "rows_cols"), (169, True, "rows_cols"),
+    (1600, False, "rows_cols")])
 def test_attention_bwd_path_switches_at_the_head_limit(l, bf16_casts, path):
     """K1b's one-CTA-per-head kernel takes heads up to HEAD_MAX_LEN tokens;
     longer heads, and the decoder blocks' cast points, take the two-kernel
@@ -311,7 +312,9 @@ def test_unsupported_widths_raise_before_any_launch():
     kernel shapes."""
     with pytest.raises(ValueError, match="512"):
         DB._check_block_input(torch.zeros(2, 8, 256, dtype=torch.bfloat16), 4)
-    with pytest.raises(ValueError, match="768"):
+    with pytest.raises(ValueError, match="at least 1 token"):
+        DB._check_block_input(torch.zeros(1, 0, 512, dtype=torch.bfloat16), 8)
+    with pytest.raises(ValueError, match="CUDA tensor"):  # 800 tokens: past the length check
         DB._check_block_input(torch.zeros(1, 800, 512, dtype=torch.bfloat16), 8)
     with pytest.raises(ValueError, match="D=512, F=2048"):
         FF._check(torch.zeros(4, 256, dtype=torch.bfloat16), torch.zeros(1024, 256))
