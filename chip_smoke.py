@@ -7,9 +7,10 @@
     python3 chip_smoke.py --remat     # phases 1, 2 and 17 only, no result line
     python3 chip_smoke.py --fp32      # phases 1, 2 and 18 only, no result line
     python3 chip_smoke.py --long      # phases 1, 2 and 19 only, no result line
+    python3 chip_smoke.py --heads     # phases 1, 2 and 20 only, no result line
 
 Phases, in order (phase 17 runs after phase 7, phase 18 after phase 17,
-phase 19 after phase 18);
+phase 19 after phase 18, phase 20 after phase 19);
 any failure propagates and the exit code is not 0:
   1. the card's name and power limit (nvidia-smi);
   2. build the hand-written kernels from crog_tpu_torch/csrc (nvcc, sm_90a,
@@ -20,7 +21,10 @@ any failure propagates and the exit code is not 0:
      their fp32 builds K6-f32 and K6b-f32);
      the registers, shared memory and spills of the redesigned kernels (the
      attention forward's one- and two-pass kernels at K1's, K2's and K3's
-     key counts, with the path ops/attention.py:fwd_path names; K4's and
+     key counts, with the path ops/attention.py:fwd_path names, and K2's
+     and K3's at head dims 8-128; the bf16 attention backward's rows and
+     cols kernels at each head dim, and the C mirror of
+     ops/attention.py:bwd_path's head-kernel choice; K4's and
      K4b's cluster kernels and their y / dx GEMM; K2's and K3's projection
      GEMM and out-projection cluster kernel; K2b's and K3b's dX and dW
      GEMMs; K1b's one-CTA-per-head kernel; K6; K6b's cluster kernel;
@@ -167,6 +171,22 @@ any failure propagates and the exit code is not 0:
      step at batch 2, card vs CPU, under the F32_TRAIN_* limits; K2, K2b,
      K3, K3b and their fp32 builds each launched over the phase's CROG
      runs; the ``[long]`` lines;
+ 20. other decoder head counts at d_model 512 (after phase 19): K1, K1b,
+     K2, K2b, K3 and K3b at head dims 8, 16, 32 and 128 (64, 32, 16 and 4
+     heads; K1 and K1b at K2's 676-token step, the blocks at B 24 with 17
+     text keys, the backward kernels with dropout RATE) in bf16 and fp32
+     against their twins under phase 3's and phase 18's limits (K1, K2b and
+     K3b twice with equal bits), each timed beside its twin, its bound and
+     SDPA at the same attention shape (a yardstick only); then
+     crog_synthetic_r50.yaml with ``num_head`` 16 (head dim 32) and 4 (128):
+     ``validate_with_grasp`` over 48 samples at batch 24 with a forward's
+     launches each and the eval rate, ``train_one_epoch`` for
+     HEADS_TRAIN_STEPS steps at 24 with a step's launches each, timed by
+     CUDA events with the peak memory, one sample card vs CPU in bf16
+     (E2E_TOL) and fp32 (F32_E2E_TOL), one train step at batch 2 card vs
+     CPU in bf16 (TRAIN_LOSS_TOL, TRAIN_GRAD_TOL) and fp32 (the F32_TRAIN_*
+     limits); K2, K2b, K3, K3b and their fp32 builds each launched over the
+     phase's CROG runs; the ``[heads]`` lines;
   8. forward latency at batch 1 and eval samples/s at batch 24;
   9. SSG training at full width (config/OCID-Grasp/ssg_r50.yaml as
      written: RN50 (3,4,6,3), RGB-D, 544^2, 32 classes, 32 prototypes,
@@ -3357,21 +3377,21 @@ LONG_COUNTED = ("decoder_self_block", "decoder_self_block_bwd", "decoder_cross_b
                 "decoder_cross_block_bwd")
 
 
-def _long_time(label, kern, plain, lib, flops, nb, peak, smi: str):
+def _long_time(label, kern, plain, lib, flops, nb, peak, smi: str, tag: str = "[long]"):
     """``label``'s kernel, twin and library call (or None) by CUDA events
     beside the bound of ``flops`` and ``nb`` bytes at ``peak``."""
     bms, by = bound(flops, nb, peak)
     ms, plain_ms = cuda_ms(kern, reps=10), cuda_ms(plain, reps=3, warmup=1)
     lib_ms = None if lib is None else cuda_ms(lib, reps=10)
     shown = "none" if lib_ms is None else f"{lib_ms:.4f}"
-    print(f"[long] {label}: {ms:.4f} ms (plain {plain_ms:.4f}, library {shown}, bound "
+    print(f"{tag} {label}: {ms:.4f} ms (plain {plain_ms:.4f}, library {shown}, bound "
           f"{bms:.4f} by {by}) on {smi}", flush=True)
-    DEVICE_TIMED.append((f"[long] {label}", ms, kern, None, None))
+    DEVICE_TIMED.append((f"{tag} {label}", ms, kern, None, None))
     if lib is not None:
-        DEVICE_TIMED.append((f"[long] {label}'s library call", lib_ms, lib, None, None))
+        DEVICE_TIMED.append((f"{tag} {label}'s library call", lib_ms, lib, None, None))
 
 
-def _long_check(label, got, ref, dtype, tol):
+def _long_check(label, got, ref, dtype, tol, tag: str = "[long]"):
     """``got`` against its twin ``ref`` (a tensor or a backward's outputs):
     bf16 within ``tol`` (absolute, or (relative, share) of a backward's
     largest magnitude), fp32 within F32_REL_L2 / F32_BWD_REL_L2."""
@@ -3385,14 +3405,14 @@ def _long_check(label, got, ref, dtype, tol):
             limit = F32_BWD_REL_L2 if len(got) > 1 else F32_REL_L2
             rel = rel_l2(g, r)
             ok = bool(torch.isfinite(g).all()) and rel <= limit
-            print(f"[long] {label}[{i}]: rel_l2 {rel:.3g} (limit {limit})", flush=True)
+            print(f"{tag} {label}[{i}]: rel_l2 {rel:.3g} (limit {limit})", flush=True)
             if not ok:
                 raise AssertionError(f"{label}[{i}] disagrees with its fp32 twin")
         elif len(got) > 1:
             rel, share = tol
-            _compare(f"[long] {label}[{i}]", g, r, rel * float(r.float().abs().max()), share)
+            _compare(f"{tag} {label}[{i}]", g, r, rel * float(r.float().abs().max()), share)
         else:
-            _compare(f"[long] {label}", g, r, tol)
+            _compare(f"{tag} {label}", g, r, tol)
 
 
 def long_attention(device, dtype, smi: str, b=BATCH, l=LONG_TOKENS, t=17, heads=8):
@@ -3656,6 +3676,301 @@ def long_phase(device, smi: str):
     if not all(k > 0 for k in counted.values()):
         raise AssertionError(f"[long] a decoder block kernel did not launch: {counted}")
 
+
+
+# phase 20: CROG with other decoder head counts at d_model 512 (num_head is
+# a key of every OCID-VLG config): the attention kernels at head dims 8, 16,
+# 32 and 128 (64, 32, 16 and 4 heads; the configs' 8 heads give 64), and
+# crog_synthetic_r50.yaml with num_head 16 (head dim 32) and 4 (128)
+# through the entry points
+HEAD_DIMS = (8, 16, 32, 128)
+HEAD_COUNTS = (16, 4)
+HEADS_TRAIN_STEPS = 4
+
+
+def heads_kernels(device, dtype, smi: str, b=BATCH, l=676, t=17, d=512):
+    """K1, K1b, K2, K2b, K3 and K3b at head dims HEAD_DIMS (D 512, B 24, K2's
+    676 tokens and K3's 17 text keys with per-sample padding) against their
+    twins under phase 3's (bf16) or phase 18's (fp32) limits, K1, K2b and
+    K3b twice with equal bits, each timed beside its twin, the bound of
+    ops/work.py's work (which does not depend on dh at a fixed D) and SDPA
+    at the same attention shape (a yardstick only: forward for K1, K2 and
+    K3, backward for K1b, K2b and K3b).  K1 runs at K2's attention step's
+    shape (self attention over 676 tokens) and K1b on the rows / cols
+    kernels (ops/attention.py:bwd_path: the head kernel takes dh 64 only)."""
+    import torch
+    import torch.nn.functional as F
+
+    from crog_tpu_torch.ops import attention as A
+    from crog_tpu_torch.ops import decoder_blocks as DB
+
+    f32 = dtype == torch.float32
+    peak = PEAK_F32_TC_FLOPS if f32 else work.PEAK_BF16_FLOPS
+    sfx = "-f32" if f32 else ""
+    inp = kernel_inputs(device, b=b, l=l, t=t, d=d, dtype=torch.float32 if f32 else None)
+    sargs, cargs, _ = _args(inp)
+    sargs, cargs = sargs[:-1], cargs[:-1]  # without the head count
+    x, xc = sargs[0], cargs[0]
+    dys, dyc = inp["dy"]["decoder_self_block"], inp["dy"]["decoder_cross_block"]
+    g = torch.Generator().manual_seed(SEED + 20)
+    q, k, v, do = (torch.randn(b, l, d, generator=g).to(device, dtype) for _ in range(4))
+    kc, vc = (torch.randn(b, t, d, generator=g).to(device, dtype) for _ in range(2))
+    kmask = DB.key_mask(cargs[4], b, t, device)
+    es = x.element_size()
+    wbytes = 4 * d * d * es + 8 * d * 4
+    def one_dh(dh):  # a function per head dim: the timed calls keep their own operands
+        h = d // dh
+        split = lambda y: y.view(b, y.shape[1], h, dh).transpose(1, 2)
+        leaves = [split(y).detach().requires_grad_() for y in (q, k, v)]
+        cleaves = [split(y).detach().requires_grad_() for y in (q, kc, vc)]
+        am = kmask[:, None, None, :].to(dtype)
+        with torch.enable_grad():
+            sdpa_out = F.scaled_dot_product_attention(*leaves)
+            sdpa_cross = F.scaled_dot_product_attention(*cleaves, attn_mask=am)
+        sdpa = lambda: F.scaled_dot_product_attention(split(q), split(k), split(v))
+        sdpa_c = lambda: F.scaled_dot_product_attention(split(q), split(kc), split(vc),
+                                                        attn_mask=am)
+        sdpa_bwd = lambda: torch.autograd.grad(sdpa_out, leaves, split(do), retain_graph=True)
+        sdpa_cbwd = lambda: torch.autograd.grad(sdpa_cross, cleaves, split(dys),
+                                                retain_graph=True)
+        tag = f"[heads] dh {dh} ({h} heads)"
+        # K1 and K1b
+        o, lse = (A.fused_attention(q, k, v, h, with_lse=True) if f32
+                  else (A.fused_attention(q, k, v, h), None))
+        k1 = lambda: A.fused_attention(q, k, v, h)
+        _long_check(f"K1{sfx}", k1(), A.attention_plain(q, k, v, h), dtype, TOL["attention"], tag)
+        if not torch.equal(k1(), k1()):
+            raise AssertionError(f"{tag} K1{sfx} is not repeatable")
+        _long_time(f"K1{sfx} (B {b}, {l} tokens)", k1, lambda: A.attention_plain(q, k, v, h),
+                   sdpa, work.attention_flops(b, l, l, d), nbytes(q, k, v, q), peak, smi, tag)
+        if A.bwd_path(l, dh=dh) != "rows_cols":
+            raise AssertionError(f"{tag}: K1b not on the rows / cols kernels")
+        k1b = lambda: A.attention_bwd(q, k, v, o, do, h, lse=lse)
+        k1b_plain = lambda: A.attention_bwd_plain(q, k, v, o, do, h, lse)
+        _long_check(f"K1b{sfx}", k1b(), k1b_plain(), dtype, (K1B_REL_TOL, K1B_DIFF_SHARE), tag)
+        _long_time(f"K1b{sfx} (B {b}, {l} tokens)", k1b, k1b_plain, sdpa_bwd,
+                   work.attention_bwd_flops(b, l, d), 8 * nbytes(q), peak, smi, tag)
+        # K2, K2b
+        k2 = lambda: DB.self_block_fwd(*sargs, h)[0]
+        k2_plain = lambda: DB.self_block_plain(*sargs, h)
+        _long_check(f"K2{sfx} (eval)", k2(), k2_plain(), dtype, TOL["decoder_self_block"], tag)
+        _long_time(f"K2{sfx} (eval, B {b}, {l} tokens)", k2, k2_plain, sdpa,
+                   work.self_block_flops(b, l, d), nbytes(*sargs) + nbytes(x), peak, smi, tag)
+        _, ssaved = DB.self_block_fwd(*sargs, h, SEED + 1, RATE, save=True)
+        k2b = lambda: DB.self_block_bwd(x, ssaved, dys, h, SEED + 1, RATE)
+        k2b_plain = lambda: DB.self_block_bwd_plain(*sargs, dys, h, SEED + 1, RATE)
+        got = k2b()
+        _long_check(f"K2b{sfx} (dropout {RATE})", got, k2b_plain(), dtype, (BWD_REL_TOL, 1.0),
+                    tag)
+        if not all(torch.equal(y, z) for y, z in zip(got, k2b())):
+            raise AssertionError(f"{tag} K2b{sfx} is not repeatable")
+        del got
+        _long_time(f"K2b{sfx} (dropout {RATE}, B {b}, {l} tokens)", k2b, k2b_plain, sdpa_bwd,
+                   work.self_block_bwd_flops(b, l, d),
+                   nbytes(x, dys, *(ssaved or ())) + nbytes(x) + wbytes, peak, smi, tag)
+        # K3, K3b
+        k3 = lambda: DB.cross_block_fwd(*cargs, h)[0]
+        k3_plain = lambda: DB.cross_block_plain(*cargs, h)
+        _long_check(f"K3{sfx} (eval)", k3(), k3_plain(), dtype, TOL["decoder_cross_block"], tag)
+        _long_time(
+            f"K3{sfx} (eval, B {b}, {l} queries, {t} keys)", k3, k3_plain, sdpa_c,
+            work.cross_block_flops(b, l, t, d),
+            nbytes(*(y for y in cargs if y is not cargs[4])) + b * t * 4 + nbytes(xc), peak,
+            smi, tag)
+        _, csaved = DB.cross_block_fwd(*cargs, h, SEED + 2, RATE, save=True)
+        k3b = lambda: DB.cross_block_bwd(xc, csaved, dyc, h, SEED + 2, RATE)
+        k3b_plain = lambda: DB.cross_block_bwd_plain(*cargs, dyc, h, SEED + 2, RATE)
+        got = k3b()
+        _long_check(f"K3b{sfx} (dropout {RATE})", got, k3b_plain(), dtype, (BWD_REL_TOL, 1.0),
+                    tag)
+        if not all(torch.equal(y, z) for y, z in zip(got, k3b())):
+            raise AssertionError(f"{tag} K3b{sfx} is not repeatable")
+        del got
+        _long_time(
+            f"K3b{sfx} (dropout {RATE}, B {b}, {l} queries, {t} keys)", k3b, k3b_plain,
+            sdpa_cbwd, work.cross_block_bwd_flops(b, l, t, d),
+            nbytes(xc, dyc, *(csaved or ())) + nbytes(xc) + b * t * d * es + wbytes, peak, smi,
+            tag)
+
+    for dh in HEAD_DIMS:
+        one_dh(dh)
+    del inp
+    torch.cuda.empty_cache()
+
+
+def heads_gaps(device, batch, opts, counted):
+    """Card vs CPU at ``opts`` (a num_head): one sample's forward at bf16
+    (E2E_TOL) and at compute_dtype float32 (F32_E2E_TOL), against one CPU
+    fp32 forward; one train step at batch 2 (dropout 0, BatchNorm on running
+    statistics) at bf16 (TRAIN_LOSS_TOL, TRAIN_GRAD_TOL) and at fp32
+    (F32_TRAIN_LOSS_TOL, F32_TRAIN_GRAD_TOL), against one CPU fp32 step (the
+    plain stem's convs, as phase 18 (e)); the fp32 runs launch the fp32
+    kernels (PER_FORWARD_F32_FUSED, PER_STEP_F32_FUSED).  ``counted`` adds
+    each run's launches."""
+    import torch
+
+    from crog_tpu_torch.engine.crog_engine import device_batch
+    from crog_tpu_torch.models.clip import BatchNorm
+
+    wrappers = launch_counts()
+
+    def run(fn):
+        _reset(wrappers)
+        result = fn()
+        torch.cuda.synchronize()
+        launches = _read(wrappers)
+        for n, c in launches.items():
+            counted[n] += c
+        return result, launches
+
+    cfg16 = _cfg(BATCH, BATCH, ("dropout", "0.0", *opts))
+    cfg32 = _cfg(BATCH, BATCH, ("dropout", "0.0", "compute_dtype", "float32", *opts))
+    one = device_batch({k: v[:1] for k, v in batch.items() if isinstance(v, np.ndarray)},
+                       torch.device("cpu"), cfg16.input_size, train=False)
+    mini = mini_batch(batch, cfg16.input_size)
+    # each model built once: its eval forward, then its train step with the
+    # BatchNorm layers on their running statistics (grad_model's)
+    cpu_model = _model(cfg32, torch.device("cpu"), torch.float32, fused_stem=False).eval()
+    with torch.no_grad():
+        cpu_out = cpu_model(one["img"], one["word"])
+    cpu_model.train()
+    for mod in cpu_model.modules():
+        if isinstance(mod, BatchNorm):
+            mod.eval()
+    cpu = train_grads(cpu_model, mini)
+    del cpu_model
+    for label, cfg, limit, fwd, step, loss_tol in (
+            ("bf16", cfg16, E2E_TOL, PER_FORWARD, PER_STEP, TRAIN_LOSS_TOL),
+            ("fp32", cfg32, F32_E2E_TOL, PER_FORWARD_F32_FUSED, PER_STEP_F32_FUSED,
+             F32_TRAIN_LOSS_TOL)):
+        model = _model(cfg, device, fused_stem=True).eval()
+        with torch.no_grad():
+            card, launches = run(lambda: model(one["img"].to(device), one["word"].to(device)))
+        card = card.float().cpu()
+        check_launches(launches, fwd, 1)
+        if card.shape != cpu_out.shape or not torch.isfinite(card).all():
+            raise AssertionError(f"[heads] {label} output {tuple(card.shape)} not finite/shaped")
+        rels = [rel_l2(card[..., i], cpu_out[..., i]) for i in range(cpu_out.shape[-1])]
+        print(f"[heads] {' '.join(opts)}: one sample, card {label} vs CPU fp32: rel_l2 "
+              + ", ".join(f"{n} {r:.4g}" for n, r in zip(("mask", "qua", "sin", "cos", "wid"),
+                                                          rels))
+              + f" (limit {limit})", flush=True)
+        if max(rels) > limit:
+            raise AssertionError(f"[heads] {label} card vs CPU rel_l2 {max(rels):.4g}")
+        model.train()
+        for mod in model.modules():
+            if isinstance(mod, BatchNorm):
+                mod.eval()
+        got, launches = run(lambda: train_grads(model, mini))
+        del model
+        check_launches(launches, step, 1)
+        rel, groups = grad_gap(got, cpu, f"[heads] {' '.join(opts)}: train step at batch 2, "
+                                         f"card {label} vs CPU fp32:")
+        limits = ({g: TRAIN_GRAD_TOL for g in groups} if label == "bf16"
+                  else F32_TRAIN_GRAD_TOL)
+        over = {g: r for g, r in groups.items() if not r <= limits[g]}
+        print(f"[heads] {' '.join(opts)}: {label} train step loss rel {rel:.4g} (limit "
+              f"{loss_tol}), grad limits {limits}", flush=True)
+        if not rel <= loss_tol or over:
+            raise AssertionError(f"[heads] {label} train step card vs CPU: loss rel {rel:.4g}, "
+                                 f"grad {over}")
+        torch.cuda.empty_cache()
+
+def heads_phase(device, smi: str):
+    """Phase 20: the decoder at head dims other than 64.
+    crog_synthetic_r50.yaml with ``--opts num_head`` 16 and 4 (RN50 at full
+    width, 416^2, 3 decoder layers, the rawlb wire, the fused s2d stem,
+    seeded weights): ``validate_with_grasp`` over
+    SAMPLES at batch 24 (bf16) with one forward's launches each and the
+    eval rate; ``train_one_epoch`` for HEADS_TRAIN_STEPS steps at batch 24
+    (bf16) with a step's launches each, timed by CUDA events with the peak
+    memory; card vs CPU at batch 1 and 2 in bf16 and fp32 (``heads_gaps``);
+    then ``heads_kernels`` at bf16 and fp32; the counters of K2, K2b, K3,
+    K3b and their fp32 builds over the CROG runs, each above 0.  The
+    ``[heads]`` lines."""
+    import torch
+
+    from crog_tpu_torch.data.loader import DataLoader
+    from crog_tpu_torch.engine.crog_engine import (make_eval_step, make_train_step,
+                                                   train_one_epoch, validate_with_grasp)
+    from crog_tpu_torch.engine.optim import make_optimizer
+    from crog_tpu_torch.test_crog import build_dataset
+    from crog_tpu_torch.utils.seed import set_random_seed
+
+    t_phase = time.perf_counter()
+    wrappers = launch_counts()
+    totals = dict.fromkeys(wrappers, 0)
+
+    def run(fn):
+        _reset(wrappers)
+        out = fn()
+        torch.cuda.synchronize()
+        launches = _read(wrappers)
+        for n, c in launches.items():
+            totals[n] += c
+        return out, launches
+
+    for heads in HEAD_COUNTS:
+        opts = ("num_head", str(heads))
+        cfg, model, batches = build_model_and_data(device, SAMPLES, BATCH, opts)
+        if cfg.num_head != heads or model.decoder.layers[0].nhead != heads:
+            raise AssertionError(f"[heads] num_head {cfg.num_head}, expected {heads}")
+        eval_step = make_eval_step(model, input_size=cfg.input_size, device=device)
+        result, launches = run(lambda: validate_with_grasp(batches, eval_step))
+        print(f"[heads] num_head {heads} (head dim {512 // heads}): validate_with_grasp over "
+              f"{len(result['iou_list'])} samples at batch {BATCH}: IoU={result['iou']:.6f} "
+              f"J@1={result['j_index@1']:.6f}; launches {_launched(launches)}", flush=True)
+        for key in ("iou", "j_index@1", "j_index@5"):
+            if not math.isfinite(result[key]):
+                raise AssertionError(f"[heads] {key} is not finite: {result[key]}")
+        check_launches(launches, PER_FORWARD, len(batches))
+        rate, peak = _eval_rate(eval_step, batches[0], reps=3)
+        print(f"[heads] num_head {heads}: eval step at batch {BATCH}: {rate:.2f} samples/s "
+              f"({BATCH / rate * 1e3:.2f} ms a batch), peak {peak / 2**30:.3f} GiB on {smi}",
+              flush=True)
+        del model, eval_step
+        torch.cuda.empty_cache()
+        tcfg = _cfg(BATCH, BATCH, ("print_freq", "100", "epochs", "1", *opts))
+        prepared = next(iter(DataLoader(build_dataset(tcfg, tcfg.train_split), BATCH,
+                                        shuffle=True, drop_last=True, seed=SEED)))
+        model = _model(tcfg, device).train()
+        opt, sched = make_optimizer(model, tcfg.base_lr, tcfg.lr_multi, tcfg.milestones,
+                                    tcfg.lr_decay, 1 + HEADS_TRAIN_STEPS, tcfg.weight_decay)
+        step = make_train_step(model, opt, sched, tcfg.use_grasp_masks, tcfg.max_norm,
+                               set_random_seed(SEED), device)
+        metrics, launches = run(lambda: train_one_epoch([prepared], step, 1, tcfg, 1))
+        loss = float(metrics["loss"])
+        check_launches(launches, PER_STEP, 1)
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics, launches = run(lambda: train_one_epoch([prepared] * HEADS_TRAIN_STEPS, step,
+                                                        1, tcfg, HEADS_TRAIN_STEPS))
+        end.record()
+        torch.cuda.synchronize()
+        check_launches(launches, PER_STEP, HEADS_TRAIN_STEPS)
+        ms = start.elapsed_time(end) / HEADS_TRAIN_STEPS
+        print(f"[heads] num_head {heads}: train step at batch {BATCH}: first loss {loss:.6g}, "
+              f"{ms:.2f} ms ({BATCH / ms * 1e3:.2f} samples/s, CUDA events over "
+              f"{HEADS_TRAIN_STEPS} steps), peak {torch.cuda.max_memory_allocated() / 2**30:.3f}"
+              f" GiB on {smi}", flush=True)
+        if not math.isfinite(loss) or not math.isfinite(float(metrics["loss"])):
+            raise AssertionError(f"[heads] num_head {heads}: train loss is not finite")
+        del model, opt, sched, step
+        torch.cuda.empty_cache()
+        heads_gaps(device, batches[0], opts, totals)
+        del batches
+    # the kernel checks last: their timed calls hold their operands (print_device_times)
+    t_kernels = time.perf_counter()
+    for dtype in (torch.bfloat16, torch.float32):
+        heads_kernels(device, dtype, smi)
+    t_kernels = time.perf_counter() - t_kernels
+    counted = {f"{n}{s}": totals[f"{n}{s}"] for n in LONG_COUNTED for s in ("", "_f32")}
+    print(f"[heads] phase 20 launches of K2, K2b, K3, K3b and their fp32 builds (CROG paths at "
+          f"num_head {HEAD_COUNTS}, not the kernel checks): {counted}; took "
+          f"{time.perf_counter() - t_phase:.1f} s (kernel checks {t_kernels:.1f} s)", flush=True)
+    if not all(c > 0 for c in counted.values()):
+        raise AssertionError(f"[heads] a decoder block kernel did not launch: {counted}")
 
 def _ssg_cfg(opts=()):
     """SSG's config as written (raw wire, batch 32) on the synthetic data;
@@ -5261,6 +5576,7 @@ def redesigned_resources(reports):
                       ("s2dconv_f32", ("gemm_wgmma_f32",)),
                       ("ffn_f32", ("gemm_wgmma_f32",)), ("ffn_bwd_f32", ("gemm_wgmma_f32",)),
                       ("attention_f32", ("attn_fwd_f32",)),
+                      ("attention_bwd_f32", ("attn_bwd_f32_stats", "attn_bwd_f32_main")),
                       ("decoder_blocks_f32", ("gemm_wgmma_f32", "attn_fwd_f32")),
                       ("lincomb", ("lincomb_region",))):
         for entry, regs, spill in ptxas_entries(reports[lib]):
@@ -5270,12 +5586,15 @@ def redesigned_resources(reports):
     out = (ctypes.c_int * 8)()
     ptr = ctypes.cast(out, ctypes.c_void_p)
     lib = cuda_build.load("attention")
-    for lk, who in ((169, "K1"), (676, "K2"), (17, "K3")):
-        cuda_build.check_launch(lib, lib.crog_attention_fwd_attrs(lk, ptr), "attrs")
+    for lk, who, dh in ((169, "K1", 64), (676, "K2", 64), (17, "K3", 64),
+                        *((lk, f"{who} at head dim {dh}", dh) for dh in HEAD_DIMS
+                          for lk, who in ((676, "K2"), (17, "K3")))):
+        cuda_build.check_launch(lib, lib.crog_attention_fwd_attrs(lk, dh, ptr), "attrs")
         path = "one_pass" if out[0] else "two_pass"
         print(f"[build] attention forward at {who}'s {lk} keys: {path} kernel ({out[0]} key "
-              f"tiles in registers), {out[1]} registers, {out[2]} bytes shared memory per "
-              f"CTA, {out[3]} bytes local (spill) per thread, {out[4]} CTAs per SM", flush=True)
+              f"tiles in registers, head tile {A.head_tile(dh)}), {out[1]} registers, {out[2]} "
+              f"bytes shared memory per CTA, {out[3]} bytes local (spill) per thread, {out[4]} "
+              f"CTAs per SM", flush=True)
         if path != A.fwd_path(lk):
             raise AssertionError(f"the card takes the {path} kernel at {lk} keys, "
                                  f"ops/attention.py:fwd_path says {A.fwd_path(lk)}")
@@ -5308,11 +5627,19 @@ def redesigned_resources(reports):
     cuda_build.check_launch(lib, lib.crog_attention_bwd_head_attrs(169, ptr), "attrs")
     print(f"[build] K1b one-CTA-per-head kernel at 169 tokens: {out[0]} registers, {out[1]} "
           f"bytes shared memory per CTA, {out[2]} bytes local (spill) per thread", flush=True)
-    cuda_build.check_launch(lib, lib.crog_attention_bwd_attrs(1, ptr), "attrs")
-    for i, name in enumerate(("rows", "cols")):
-        print(f"[build] K2b/K3b attention backward, {name} kernel (bf16 cast points): "
-              f"{out[3 * i]} registers, {out[3 * i + 1]} bytes shared memory per CTA, "
-              f"{out[3 * i + 2]} bytes local (spill) per thread", flush=True)
+    for dh in (64, *HEAD_DIMS):
+        cuda_build.check_launch(lib, lib.crog_attention_bwd_attrs(1, dh, ptr), "attrs")
+        for i, name in enumerate(("rows", "cols")):
+            print(f"[build] K2b/K3b attention backward at head dim {dh}, {name} kernel (bf16 "
+                  f"cast points, head tile {A.head_tile(dh)}): {out[3 * i]} registers, "
+                  f"{out[3 * i + 1]} bytes shared memory per CTA, {out[3 * i + 2]} bytes "
+                  f"local (spill) per thread", flush=True)
+    for dh in (64, *HEAD_DIMS):  # the C mirror of bwd_path's head-kernel choice
+        for l in (1, 169, 256, 257):
+            takes = bool(lib.crog_attention_bwd_head_takes(l, dh))
+            if takes != (A.bwd_path(l, dh=dh) == "head"):
+                raise AssertionError(f"crog_attention_bwd_head_takes({l}, {dh}) = {takes}, "
+                                     f"ops/attention.py:bwd_path says {A.bwd_path(l, dh=dh)}")
     from crog_tpu_torch.ops import lincomb as LC
 
     lib = cuda_build.load("lincomb")
@@ -5364,6 +5691,10 @@ def main(argv=None) -> int:
     ap.add_argument("--long", action="store_true",
                     help="phases 1, 2 and 19 only: build, then CROG at input_size 640 (1600 "
                          "decoder tokens) on the card; no result line")
+    ap.add_argument("--heads", action="store_true",
+                    help="phases 1, 2 and 20 only: build, then CROG at num_head 16 and 4 "
+                         "(head dims 32 and 128) and the attention kernels at head dims 8-128 "
+                         "on the card; no result line")
     ap.add_argument("--ddp-worker", metavar="DIR",
                     help="run one rank of phase 13 (started by phase 13 itself)")
     args = ap.parse_args(argv)
@@ -5416,6 +5747,11 @@ def main(argv=None) -> int:
         print_device_times()
         print(f"[done] long only, {time.perf_counter() - t_start:.1f} s", flush=True)
         return 0
+    if args.heads:
+        heads_phase(device, smi)
+        print_device_times()
+        print(f"[done] heads only, {time.perf_counter() - t_start:.1f} s", flush=True)
+        return 0
     records = check_kernels(device)
     if args.kernels:
         print_device_times()
@@ -5439,6 +5775,8 @@ def main(argv=None) -> int:
     fp32_records = fp32_phase(device, batches[0], train_batches, smi)
     torch.cuda.empty_cache()
     long_phase(device, smi)
+    torch.cuda.empty_cache()
+    heads_phase(device, smi)
     torch.cuda.empty_cache()
     ssg_launches, ssg_train_rate, ssg_model, ssg_cfg, ssg_batches = ssg_train_path(device,
                                                                                   smi)

@@ -4,12 +4,13 @@
 // pallas_call at :111, reached through `fused_self_attention` :98 and
 // `flash_attention_bhld` :156).  The kernels themselves (one pass up to 192
 // keys, two passes beyond) and their bound and design notes are in
-// attention.cuh, which the decoder block kernels share.
+// attention.cuh, which the decoder block kernels share.  q, k, v, o are
+// [B, L, heads * dh], dh one of 8, 16, 32, 64, 128.
 #include "attention.cuh"
 
 extern "C" int crog_attention_fwd(
     const void* q, const void* k, const void* v, const float* mask, void* o,
-    int batch, int heads, int lq, int lk,
+    int batch, int heads, int lq, int lk, int dh,
     long long q_bs, long long q_rs, long long k_bs, long long k_rs,
     long long v_bs, long long v_rs, long long o_bs, long long o_rs,
     float scale, void* stream) {
@@ -22,6 +23,7 @@ extern "C" int crog_attention_fwd(
   a.heads = heads;
   a.lq = lq;
   a.lk = lk;
+  a.dh = dh;
   a.q_bs = q_bs;
   a.q_rs = q_rs;
   a.k_bs = k_bs;
@@ -34,9 +36,9 @@ extern "C" int crog_attention_fwd(
   return (int)crog::launch_attention(a, batch, static_cast<cudaStream_t>(stream));
 }
 
-// out[5] for the kernel that takes lk keys: key tiles held in registers (0:
-// the two-pass kernel), registers per thread, shared memory per CTA, spill
-// bytes per thread, CTAs per SM
-extern "C" int crog_attention_fwd_attrs(int lk, void* out) {
-  return (int)crog::attention_fwd_attrs(lk, static_cast<int*>(out));
+// out[5] for the kernel that takes lk keys of head dim dh: key tiles held in
+// registers (0: the two-pass kernel), registers per thread, shared memory per
+// CTA, spill bytes per thread, CTAs per SM
+extern "C" int crog_attention_fwd_attrs(int lk, int dh, void* out) {
+  return (int)crog::attention_fwd_attrs(lk, dh, static_cast<int*>(out));
 }

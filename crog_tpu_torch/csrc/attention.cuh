@@ -1,5 +1,5 @@
 // Softmax attention with an exact (normalized, then rounded) softmax, for
-// head dim 64.
+// head dims 8-128.
 //
 // Replaces the forward Pallas kernel `_fused_fwd` of
 // crog_tpu/ops/pallas_attention.py:104 (pallas_call at :111) and the
@@ -13,9 +13,13 @@
 //   p = bf16( exp(s - max) / sum )       (normalized, then rounded, as the
 //                                         TPU kernel rounds p before P.V)
 //   o = bf16( p v )                      (f32 accumulation)
-// q/k/v/o are [B, L, H*64] with a free row and batch stride, so q and k can
+// q/k/v/o are [B, L, H*dh] with a free row and batch stride, so q and k can
 // be column slices of one packed projection.  Any Lk >= 1: the two-pass
-// path streams the key tiles, so nothing is sized by Lk.
+// path streams the key tiles, so nothing is sized by Lk.  The head tile DH
+// (32, 64 or 128, common.cuh attn_head_tile) is a template
+// parameter that sizes the tiles and the O and Q registers; the head's dh
+// (8 to DH) is a run-time value: its columns past dh load as zeros into
+// shared memory and are not stored, so dh 8 and 16 run in the DH 32 build.
 //
 // Bound on an H100: the CLIP attention pool (B=24, 32 heads, L=169) is 5.6
 // GFLOP against 66 MB of q/k/v/o, about 20 us, limited by memory; the
@@ -43,10 +47,11 @@
 //     two-stage cp.async ring twice.  The first pass keeps each row's
 //     running max and rescaled sum; the second recomputes QK^T, forms p =
 //     bf16(exp2(s - max) / sum) in registers and accumulates P.V.
-// Shared memory is 27-64 KB (one pass) or 36 KB (two passes: Q sits in the
-// ring slot the first pass leaves free), so three to five CTAs share an SM;
-// the output leaves the registers as 16-byte bf16 row segments after a
-// shuffle within each quad.
+// At DH 64 shared memory is 27-64 KB (one pass) or 36 KB (two passes: Q
+// sits in the ring slot the first pass leaves free), so three to five CTAs
+// share an SM (DH 128: 52-122 KB or 70 KB, and launch bounds that leave
+// the O accumulator's 64 registers room); the output leaves the registers
+// as 16-byte bf16 row segments after a shuffle within each quad.
 #pragma once
 
 #include "attention_bwd.cuh"  // the ldmatrix / mma.sync fragment helpers ab_*
@@ -56,12 +61,9 @@
 namespace crog {
 
 constexpr int kAttnBQ = 64;   // query rows per CTA, and key rows per tile
-constexpr int kAttnDH = 64;   // head dim
-constexpr int kAttnLdT = kAttnDH + 8;  // bf16 tile row stride (conflict-free ldmatrix)
-constexpr int kAttnTile = kAttnBQ * kAttnLdT;
 constexpr int kAttnOnePassTiles = 3;  // the one-pass path holds up to 192 keys
 constexpr int kAttnThreads = 128;
-static_assert(kAttnLdT == kAbLdT && kAttnDH == kAbDH, "tiles shared with the ab_* helpers");
+static_assert(kAttnBQ == kAbBQ, "tiles shared with the ab_* helpers");
 
 // key tiles whose scores one CTA holds in registers (the one-pass path), or
 // 0 for the two-pass path
@@ -73,8 +75,9 @@ __host__ __device__ inline int attn_fwd_key_tiles(int lk) {
 // Q, then KT K tiles and KT V tiles (one pass); or two ring stages of K and
 // V, Q in the second stage's V slot, which the first pass leaves unused (two
 // passes)
+template <int DH>
 __host__ __device__ constexpr size_t attn_fwd_smem_bytes(int kt) {
-  return (size_t)(kt > 0 ? 1 + 2 * kt : 4) * kAttnTile * sizeof(bf16);
+  return (size_t)(kt > 0 ? 1 + 2 * kt : 4) * AbTile<DH>::kElems * sizeof(bf16);
 }
 
 struct AttnArgs {
@@ -84,25 +87,30 @@ struct AttnArgs {
   const float* mask;  // [B, Lk] additive, or nullptr
   bf16* o;
   int heads, lq, lk;
+  int dh;  // head dim; head h's columns are [h * dh, (h + 1) * dh)
   long long q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs;  // in elements
   float scale;
 };
 
-// the A fragments of this warp's 16 query rows over the head dim
-__device__ __forceinline__ void attn_q_frags(const bf16* qs, int r0, uint32_t (&fq)[4][4]) {
+// the A fragments of this warp's 16 query rows over the head tile
+template <int DH>
+__device__ __forceinline__ void attn_q_frags(const bf16* qs, int r0, uint32_t (&fq)[DH / 16][4]) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    ldsm_x4(smem_u32(qs + (r0 + (lane & 15)) * kAttnLdT + kk * 16 + (lane >> 4) * 8), fq[kk]);
+  for (int kk = 0; kk < DH / 16; ++kk)
+    ldsm_x4(smem_u32(qs + (r0 + (lane & 15)) * AbTile<DH>::kLd + kk * 16 + (lane >> 4) * 8),
+            fq[kk]);
 }
 
 // s = this warp's 16 query rows against the 64 keys of tile ks, in the log2
 // domain with the key mask: s * scale * log2(e) + mask * log2(e) for keys
 // < lk, -3e38 past it (below any real score; such keys weigh exactly 0).
 // n-tiles j >= nv are not multiplied.
-__device__ __forceinline__ void attn_scores(float (&s)[8][4], const uint32_t (&fq)[4][4],
+template <int DH>
+__device__ __forceinline__ void attn_scores(float (&s)[8][4], const uint32_t (&fq)[DH / 16][4],
                                             const bf16* ks, int kt, int lk, const float* mrow,
                                             float sl2) {
+  constexpr int LD = AbTile<DH>::kLd;
   const int lane = threadIdx.x & 31;
   const int qd = lane & 3;
   const int nv = min(8, (lk - kt + 7) / 8);
@@ -111,9 +119,9 @@ __device__ __forceinline__ void attn_scores(float (&s)[8][4], const uint32_t (&f
   for (int j = 0; j < 8; ++j) {
     if (j < nv) {
 #pragma unroll
-      for (int k2 = 0; k2 < 2; ++k2) {
+      for (int k2 = 0; k2 < DH / 32; ++k2) {
         uint32_t bb[4];
-        ldsm_x4(smem_u32(ks + (j * 8 + (lane & 7)) * kAttnLdT + k2 * 32 + (lane >> 3) * 8), bb);
+        ldsm_x4(smem_u32(ks + (j * 8 + (lane & 7)) * LD + k2 * 32 + (lane >> 3) * 8), bb);
         mma_bf16(s[j], fq[2 * k2], bb[0], bb[1]);
         mma_bf16(s[j], fq[2 * k2 + 1], bb[2], bb[3]);
       }
@@ -159,19 +167,22 @@ __device__ __forceinline__ void attn_quad_stats(float (&m)[2], const float (&l)[
 }
 
 // the rows' bf16 outputs as 16-byte segments: per pair of 8-column fragments
-// a quad holds four row segments; quad_gather16 gives each thread one whole
-__device__ __forceinline__ void attn_store(const float (&o)[8][4], bf16* ob, long long rs,
-                                           int row0, int lq) {
+// a quad holds four row segments; quad_gather16 gives each thread one whole.
+// Segments at or past column dh are not stored.
+template <int DH>
+__device__ __forceinline__ void attn_store(const float (&o)[DH / 8][4], bf16* ob, long long rs,
+                                           int row0, int lq, int dh) {
   const int lane = threadIdx.x & 31;
   const int qi = lane & 3;
   const int row = row0 + (lane >> 2) + 8 * (qi & 1);
 #pragma unroll
-  for (int j = 0; j < 8; j += 2) {
+  for (int j = 0; j < DH / 8; j += 2) {
     const uint32_t v[4] = {pack_bf16(o[j][0], o[j][1]), pack_bf16(o[j][2], o[j][3]),
                            pack_bf16(o[j + 1][0], o[j + 1][1]),
                            pack_bf16(o[j + 1][2], o[j + 1][3])};
     const uint4 seg = quad_gather16(v);
-    if (row < lq) *reinterpret_cast<uint4*>(ob + (long long)row * rs + (j + (qi >> 1)) * 8) = seg;
+    const int col = (j + (qi >> 1)) * 8;
+    if (row < lq && col < dh) *reinterpret_cast<uint4*>(ob + (long long)row * rs + col) = seg;
   }
 }
 
@@ -180,50 +191,56 @@ __device__ __forceinline__ int attn_tile_rows(int kt, int lk) {
   return min(kAttnBQ, round_up(lk - kt, 16));
 }
 
-template <int KT>
-__global__ void __launch_bounds__(kAttnThreads, KT == 0 ? 5 : 2) attn_fwd_kernel(AttnArgs a) {
+// CTAs an SM the launch bounds ask for: 2 for the one-pass kernel; for the
+// two-pass one 5 at DH 64, 4 at DH 32 (its run-time column checks), 2 at DH
+// 128 (its O 64, Q 32 and score 32 registers)
+template <int KT, int DH>
+__global__ void __launch_bounds__(kAttnThreads, KT > 0 || DH > 64 ? 2 : DH == 64 ? 5 : 4)
+    attn_fwd_kernel(AttnArgs a) {
+  constexpr int TILE = AbTile<DH>::kElems;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   // one pass: Q, K tiles, V tiles; two passes: [2 stages][K, V], Q in stage 1's V
-  bf16* ts = reinterpret_cast<bf16*>(smem_raw) + (KT > 0 ? kAttnTile : 0);
-  bf16* qs = KT > 0 ? reinterpret_cast<bf16*>(smem_raw) : ts + 3 * kAttnTile;
+  bf16* ts = reinterpret_cast<bf16*>(smem_raw) + (KT > 0 ? TILE : 0);
+  bf16* qs = KT > 0 ? reinterpret_cast<bf16*>(smem_raw) : ts + 3 * TILE;
 
   const int bh = blockIdx.y;
   const int b = bh / a.heads;
   const int h = bh % a.heads;
   const int q0 = blockIdx.x * kAttnBQ;
   const int r0 = (threadIdx.x >> 5) * 16;  // this warp's query rows
+  const int dh = attn_run_dh<DH>(a.dh);
 
-  const bf16* qb = a.q + b * a.q_bs + h * kAttnDH;
-  const bf16* kb = a.k + b * a.k_bs + h * kAttnDH;
-  const bf16* vb = a.v + b * a.v_bs + h * kAttnDH;
+  const bf16* qb = a.q + b * a.q_bs + h * dh;
+  const bf16* kb = a.k + b * a.k_bs + h * dh;
+  const bf16* vb = a.v + b * a.v_bs + h * dh;
   const float* mrow = a.mask ? a.mask + (long long)b * a.lk : nullptr;
   const float sl2 = a.scale * kLog2e;
 
-  ab_load_rows<kAttnThreads>(qs, qb, a.q_rs, q0, kAttnBQ, a.lq);
-  uint32_t fq[4][4];
+  ab_load_rows<kAttnThreads, DH>(qs, qb, a.q_rs, q0, kAttnBQ, a.lq, dh);
+  uint32_t fq[DH / 16][4];
   float m[2] = {-3.0e38f, -3.0e38f}, l[2] = {0.0f, 0.0f}, inv[2];
-  float o[8][4];
+  float o[DH / 8][4];
   ab_zero(o);
 
   if constexpr (KT > 0) {
     // ---- one pass: every K tile (with Q) as one group, every V tile as a second
 #pragma unroll
     for (int t = 0; t < KT; ++t)
-      ab_load_rows<kAttnThreads>(ts + t * kAttnTile, kb, a.k_rs, t * kAttnBQ,
-                                 attn_tile_rows(t * kAttnBQ, a.lk), a.lk);
+      ab_load_rows<kAttnThreads, DH>(ts + t * TILE, kb, a.k_rs, t * kAttnBQ,
+                                     attn_tile_rows(t * kAttnBQ, a.lk), a.lk, dh);
     cp_async_commit();
 #pragma unroll
     for (int t = 0; t < KT; ++t)
-      ab_load_rows<kAttnThreads>(ts + (KT + t) * kAttnTile, vb, a.v_rs, t * kAttnBQ,
-                                 attn_tile_rows(t * kAttnBQ, a.lk), a.lk);
+      ab_load_rows<kAttnThreads, DH>(ts + (KT + t) * TILE, vb, a.v_rs, t * kAttnBQ,
+                                     attn_tile_rows(t * kAttnBQ, a.lk), a.lk, dh);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    attn_q_frags(qs, r0, fq);
+    attn_q_frags<DH>(qs, r0, fq);
     float s[KT][8][4];
 #pragma unroll
     for (int t = 0; t < KT; ++t)
-      attn_scores(s[t], fq, ts + t * kAttnTile, t * kAttnBQ, a.lk, mrow, sl2);
+      attn_scores<DH>(s[t], fq, ts + t * TILE, t * kAttnBQ, a.lk, mrow, sl2);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
 #pragma unroll
@@ -259,16 +276,17 @@ __global__ void __launch_bounds__(kAttnThreads, KT == 0 ? 5 : 2) attn_fwd_kernel
     __syncthreads();
 #pragma unroll
     for (int t = 0; t < KT; ++t)
-      ab_nn_all<kBwdBf16>(o, s[t], ts + (KT + t) * kAttnTile, min(8, (a.lk - t * kAttnBQ + 7) / 8));
+      ab_nn_all<kBwdBf16, DH, DH>(o, s[t], ts + (KT + t) * TILE,
+                                  min(8, (a.lk - t * kAttnBQ + 7) / 8));
   } else {
     // ---- two passes over the key tiles: the statistics, then P.V
     const int T = (a.lk + kAttnBQ - 1) / kAttnBQ;
     auto load = [&](int i) {
-      bf16* st = ts + (i & 1) * 2 * kAttnTile;
+      bf16* st = ts + (i & 1) * 2 * TILE;
       const int kt = (i % T) * kAttnBQ;
       const int rows = attn_tile_rows(kt, a.lk);
-      ab_load_rows<kAttnThreads>(st, kb, a.k_rs, kt, rows, a.lk);
-      if (i >= T) ab_load_rows<kAttnThreads>(st + kAttnTile, vb, a.v_rs, kt, rows, a.lk);
+      ab_load_rows<kAttnThreads, DH>(st, kb, a.k_rs, kt, rows, a.lk, dh);
+      if (i >= T) ab_load_rows<kAttnThreads, DH>(st + TILE, vb, a.v_rs, kt, rows, a.lk, dh);
     };
     load(0);
     cp_async_commit();
@@ -278,11 +296,11 @@ __global__ void __launch_bounds__(kAttnThreads, KT == 0 ? 5 : 2) attn_fwd_kernel
       cp_async_commit();
       cp_async_wait<1>();
       __syncthreads();  // tile i (and Q) landed for every thread
-      if (i == 0) attn_q_frags(qs, r0, fq);
+      if (i == 0) attn_q_frags<DH>(qs, r0, fq);
       const int kt = (i % T) * kAttnBQ;
-      const bf16* ks = ts + (i & 1) * 2 * kAttnTile;
+      const bf16* ks = ts + (i & 1) * 2 * TILE;
       float s[8][4];
-      attn_scores(s, fq, ks, kt, a.lk, mrow, sl2);
+      attn_scores<DH>(s, fq, ks, kt, a.lk, mrow, sl2);
       if (i < T) {  // running max and rescaled sum over this thread's keys
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
@@ -305,70 +323,91 @@ __global__ void __launch_bounds__(kAttnThreads, KT == 0 ? 5 : 2) attn_fwd_kernel
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             s[j][e] = s[j][e] > -3.0e38f ? attn_exp2(s[j][e] - m[e >> 1]) * inv[e >> 1] : 0.0f;
-        ab_nn_all<kBwdBf16>(o, s, ks + kAttnTile, min(8, (a.lk - kt + 7) / 8));
+        ab_nn_all<kBwdBf16, DH, DH>(o, s, ks + TILE, min(8, (a.lk - kt + 7) / 8));
       }
       __syncthreads();  // every warp is done with stage i & 1 before it refills
     }
   }
-  attn_store(o, a.o + b * a.o_bs + h * kAttnDH, a.o_rs, q0 + r0, a.lq);
+  attn_store<DH>(o, a.o + b * a.o_bs + h * dh, a.o_rs, q0 + r0, a.lq, dh);
 }
 
 // Each kernel's dynamic shared memory limit, set once per library and card.
 // Internal linkage: two libraries include this header (attention,
 // decoder_blocks), and a function-local static of an inline function would
 // be one object across them.
-template <int KT>
+template <int KT, int DH>
 static cudaError_t attn_fwd_set_smem_once() {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      attn_fwd_kernel<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)attn_fwd_smem_bytes(KT));
+      attn_fwd_kernel<KT, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)attn_fwd_smem_bytes<DH>(KT));
   return attr;
 }
 
-template <int KT>
+template <int KT, int DH>
 static cudaError_t launch_attn_fwd(const AttnArgs& a, int batch, cudaStream_t stream) {
-  const cudaError_t attr = attn_fwd_set_smem_once<KT>();
+  const cudaError_t attr = attn_fwd_set_smem_once<KT, DH>();
   if (attr != cudaSuccess) return attr;
   const dim3 grid((a.lq + kAttnBQ - 1) / kAttnBQ, batch * a.heads);
-  attn_fwd_kernel<KT><<<grid, kAttnThreads, attn_fwd_smem_bytes(KT), stream>>>(a);
+  attn_fwd_kernel<KT, DH><<<grid, kAttnThreads, attn_fwd_smem_bytes<DH>(KT), stream>>>(a);
   return cudaGetLastError();
+}
+
+template <int DH>
+static cudaError_t launch_attention_dh(const AttnArgs& a, int batch, cudaStream_t stream) {
+  switch (attn_fwd_key_tiles(a.lk)) {
+    case 1: return launch_attn_fwd<1, DH>(a, batch, stream);
+    case 2: return launch_attn_fwd<2, DH>(a, batch, stream);
+    case 3: return launch_attn_fwd<3, DH>(a, batch, stream);
+    default: return launch_attn_fwd<0, DH>(a, batch, stream);
+  }
 }
 
 static cudaError_t launch_attention(const AttnArgs& a, int batch, cudaStream_t stream) {
   if (a.lk < 1 || a.lq < 1 || batch < 1) return cudaErrorInvalidValue;
-  switch (attn_fwd_key_tiles(a.lk)) {
-    case 1: return launch_attn_fwd<1>(a, batch, stream);
-    case 2: return launch_attn_fwd<2>(a, batch, stream);
-    case 3: return launch_attn_fwd<3>(a, batch, stream);
-    default: return launch_attn_fwd<0>(a, batch, stream);
+  switch (attn_head_tile(a.dh)) {
+    case 32: return launch_attention_dh<32>(a, batch, stream);
+    case 64: return launch_attention_dh<64>(a, batch, stream);
+    case 128: return launch_attention_dh<128>(a, batch, stream);
+    default: return cudaErrorInvalidValue;
   }
 }
 
-template <int KT>
+template <int KT, int DH>
 static cudaError_t attn_fwd_attrs_of(int* out) {
-  cudaError_t err = attn_fwd_set_smem_once<KT>();
+  cudaError_t err = attn_fwd_set_smem_once<KT, DH>();
   if (err != cudaSuccess) return err;
   cudaFuncAttributes fa;
-  err = cudaFuncGetAttributes(&fa, attn_fwd_kernel<KT>);
+  err = cudaFuncGetAttributes(&fa, attn_fwd_kernel<KT, DH>);
   if (err != cudaSuccess) return err;
   out[0] = KT;
   out[1] = fa.numRegs;
-  out[2] = (int)(fa.sharedSizeBytes + attn_fwd_smem_bytes(KT));
+  out[2] = (int)(fa.sharedSizeBytes + attn_fwd_smem_bytes<DH>(KT));
   out[3] = (int)fa.localSizeBytes;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4], attn_fwd_kernel<KT>,
-                                                        kAttnThreads, attn_fwd_smem_bytes(KT));
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4], attn_fwd_kernel<KT, DH>,
+                                                        kAttnThreads,
+                                                        attn_fwd_smem_bytes<DH>(KT));
 }
 
-// out[5] for the kernel that takes lk keys: its key tiles held in registers
-// (0: the two-pass kernel), registers per thread, shared memory per CTA
-// (static + dynamic), spill bytes per thread, and CTAs per SM
-static cudaError_t attention_fwd_attrs(int lk, int* out) {
-  if (lk < 1) return cudaErrorInvalidValue;
+template <int DH>
+static cudaError_t attention_fwd_attrs_dh(int lk, int* out) {
   switch (attn_fwd_key_tiles(lk)) {
-    case 1: return attn_fwd_attrs_of<1>(out);
-    case 2: return attn_fwd_attrs_of<2>(out);
-    case 3: return attn_fwd_attrs_of<3>(out);
-    default: return attn_fwd_attrs_of<0>(out);
+    case 1: return attn_fwd_attrs_of<1, DH>(out);
+    case 2: return attn_fwd_attrs_of<2, DH>(out);
+    case 3: return attn_fwd_attrs_of<3, DH>(out);
+    default: return attn_fwd_attrs_of<0, DH>(out);
+  }
+}
+
+// out[5] for the kernel that takes lk keys of head dim dh: its key tiles
+// held in registers (0: the two-pass kernel), registers per thread, shared
+// memory per CTA (static + dynamic), spill bytes per thread, and CTAs per SM
+static cudaError_t attention_fwd_attrs(int lk, int dh, int* out) {
+  if (lk < 1) return cudaErrorInvalidValue;
+  switch (attn_head_tile(dh)) {
+    case 32: return attention_fwd_attrs_dh<32>(lk, out);
+    case 64: return attention_fwd_attrs_dh<64>(lk, out);
+    case 128: return attention_fwd_attrs_dh<128>(lk, out);
+    default: return cudaErrorInvalidValue;
   }
 }
 

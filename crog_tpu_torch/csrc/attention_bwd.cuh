@@ -1,8 +1,8 @@
-// Softmax attention backward for head dim 64, in two kernels.
+// Softmax attention backward for head dims 8-128, in two kernels.
 //
 // Replaces the backward Pallas kernel `_bwd_kernel` of
 // crog_tpu/ops/pallas_attention.py:53 (pallas_call at :140, K1b, for heads
-// longer than the one-CTA-per-head kernel of attention_bwd_head.cuh takes)
+// the one-CTA-per-head kernel of attention_bwd_head.cuh does not take)
 // and the all-head attention backward `_mha_bwd` inside the decoder block
 // backward kernels (crog_tpu/ops/pallas_decoder.py:126, K2b/K3b).  The two
 // differ in their cast points, so the mode is a template parameter:
@@ -18,12 +18,21 @@
 //   dP = dO V^T,  dS = P (dP - delta) * scale
 //   dQ = dS K,  dK = dS^T Q,  dV = P^T dO
 //
+// Head dims.  The head tile DH (a template parameter: 32, 64 or 128,
+// attn_head_tile) sets every tile's width and every register array over
+// the head dim; the head's own width dh (8 to DH, a multiple of 8) is a
+// run-time value: the loads zero-fill the columns dh .. DH - 1 in shared
+// memory (so they add nothing to QK^T and dO V^T, and dQ, dK, dV come out
+// zero there) and the stores skip them, so dh 8 and 16 run in the DH = 32
+// instantiation.  Nothing is padded in device memory.
+//
 // Bound on an H100 at the decoder's self block (B = 24, 8 heads, L = 676):
 // five [L, L, 64] products, 56 GFLOP, 0.057 ms at the bf16 peak, against
 // 58 MB of q, k, v, dO in and dq, dk, dv out, 0.017 ms: the products bound
-// it.  This design does nine product units (S three times, dP twice), and
-// its per-element softmax work (an exp2 per score and pass, the casts)
-// costs about as much as the products.
+// it (the FLOPs and bytes do not depend on dh at a fixed model width).
+// This design does nine product units (S three times, dP twice), and its
+// per-element softmax work (an exp2 per score and pass, the casts) costs
+// about as much as the products.
 //
 // Design.  Hopper blocks cannot carry a sum from one grid step to the next
 // as the TPU's sequential grid does, and dK/dV sum over queries while dQ
@@ -35,8 +44,8 @@
 // their operand tiles through a two-stage cp.async ring, so a tile's loads
 // run behind the previous tile's products.  Scores are taken in the log2
 // domain (s * log2(e)), so each exponential is one exp2, and normalized by
-// a reciprocal.  Shared memory is 55-57 KB and registers at most 168, so
-// three CTAs of 4 warps share an SM.
+// a reciprocal.  At DH 64 shared memory is 55-57 KB and registers at most
+// 168, so three CTAs of 4 warps share an SM.
 //   attn_bwd_rows: 4 warps take 64 query rows of one head, 16 each, and
 //     walk the key tiles twice.  The first pass keeps each row's running
 //     max and sum and (kBwdBf16) the running sum of dP exp2(s - max), all
@@ -48,7 +57,10 @@
 //     the query tiles with their saved row statistics (flash-style): S^T =
 //     K Q^T and dP^T = V dO^T in registers, P^T and dS^T from them, and dV
 //     += P^T dO, dK += dS^T Q accumulated in registers across all query
-//     tiles.
+//     tiles.  A CTA owns at most 64 of dK's and dV's head columns: at DH
+//     128 two CTAs (grid z) take the two halves of a key block, each
+//     forming S^T and dP^T over the whole head, so that the accumulators
+//     stay at DH 64's registers.
 // Key and query n-tiles past the last row are skipped (the cross block's 17
 // keys take three of a tile's eight).
 #pragma once
@@ -60,10 +72,15 @@ namespace crog {
 
 enum AttnBwdMode { kBwdF32 = 0, kBwdBf16 = 1 };
 
-constexpr int kAbBQ = 64;             // rows per block (queries or keys), and per tile
-constexpr int kAbDH = 64;             // head dim
-constexpr int kAbLdT = kAbDH + 8;     // bf16 tile row stride (conflict-free ldmatrix)
-constexpr int kAbTile = kAbBQ * kAbLdT;  // elements of one [64, 64] tile
+constexpr int kAbBQ = 64;  // rows per block (queries or keys), and per tile
+
+// bf16 row stride of a tile of head tile DH (conflict-free ldmatrix), and
+// the elements of one [64, DH] tile
+template <int DH>
+struct AbTile {
+  static constexpr int kLd = DH + 8;
+  static constexpr int kElems = kAbBQ * kLd;
+};
 
 struct AttnBwdArgs {
   const bf16* q;
@@ -77,52 +94,69 @@ struct AttnBwdArgs {
   bf16* dv;
   float* stats;       // [3][B*H][Lq]: row max, 1 / row sum, delta (attn_bwd_rows)
   int heads, lq, lk;
+  int dh;             // head dim; head h's columns are [h * dh, (h + 1) * dh)
   long long q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs, do_bs, do_rs;
   long long dq_bs, dq_rs, dk_bs, dk_rs, dv_bs, dv_rs;  // in elements
   float scale;
 };
 
 constexpr int kAbThreads = 128;  // 4 warps, 16 rows each
-constexpr size_t kAbRowsSmem = 6 * kAbTile * sizeof(bf16);
-constexpr size_t kAbColsSmem = 6 * kAbTile * sizeof(bf16) + 2 * 3 * kAbBQ * sizeof(float);
+template <int DH>
+__host__ __device__ constexpr size_t ab_rows_smem() {
+  return 6 * AbTile<DH>::kElems * sizeof(bf16);
+}
+template <int DH>
+__host__ __device__ constexpr size_t ab_cols_smem() {
+  return 6 * AbTile<DH>::kElems * sizeof(bf16) + 2 * 3 * kAbBQ * sizeof(float);
+}
+// head columns of dK and dV one cols-kernel CTA owns
+template <int DH>
+__host__ __device__ constexpr int ab_cols_width() {
+  return DH < 64 ? DH : 64;
+}
 
-// rows [r0, r0 + rows) of a [L, 64] head slice into a [rows, kAbLdT] tile
-// by cp.async over THREADS threads, zeros for rows >= L
-template <int THREADS>
+// rows [r0, r0 + rows) of a head slice of dh columns (row stride rs) into a
+// [rows, DH + 8] tile by cp.async over THREADS threads: zeros for rows >= L
+// and for the columns dh .. DH - 1 (a head narrower than its tile)
+template <int THREADS, int DH>
 __device__ __forceinline__ void ab_load_rows(bf16* tile, const bf16* base, long long rs,
-                                             int r0, int rows, int L) {
-  for (int v = threadIdx.x; v < rows * 8; v += THREADS) {
-    const int r = v >> 3;
-    const int c = (v & 7) * 8;
-    const bool ok = r0 + r < L;
-    cp_async16(smem_u32(tile + r * kAbLdT + c), base + (ok ? (long long)(r0 + r) * rs : 0) + c,
-               ok ? 16 : 0);
+                                             int r0, int rows, int L, int dh) {
+  constexpr int C = DH / 8;  // 16-byte chunks per row
+  for (int v = threadIdx.x; v < rows * C; v += THREADS) {
+    const int r = (unsigned)v / C;
+    const int c = ((unsigned)v % C) * 8;
+    const bool ok = r0 + r < L && c < dh;
+    cp_async16(smem_u32(tile + r * AbTile<DH>::kLd + c),
+               base + (ok ? (long long)(r0 + r) * rs : 0) + (c < dh ? c : 0), ok ? 16 : 0);
   }
 }
 
+template <int DH>
 __device__ __forceinline__ void ab_load_async(bf16* tile, const bf16* base, long long rs,
-                                              int r0, int L) {
-  ab_load_rows<kAbThreads>(tile, base, rs, r0, kAbBQ, L);
+                                              int r0, int L, int dh) {
+  ab_load_rows<kAbThreads, DH>(tile, base, rs, r0, kAbBQ, L, dh);
 }
 
 // acc[j] (16 rows x 8 columns each) = rows r0.. of tile A times rows 8j.. of
-// tile B, transposed: A [., 64] and B [64, 64] both row-major with the head
+// tile B, transposed: A [., DH] and B [64, DH] both row-major with the head
 // dim inner, j < nv (the later n-tiles are left as they are)
+template <int DH>
 __device__ __forceinline__ void ab_nt(float (&acc)[8][4], const bf16* A, int r0, const bf16* B,
                                       int nv) {
+  constexpr int LD = AbTile<DH>::kLd;
   const int lane = threadIdx.x & 31;
   const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8;
   const int a_col = (lane >> 4) * 8;
 #pragma unroll
-  for (int k2 = 0; k2 < 2; ++k2) {
+  for (int k2 = 0; k2 < DH / 32; ++k2) {
     uint32_t a0[4], a1[4];
-    ldsm_x4(smem_u32(A + (r0 + a_row) * kAbLdT + k2 * 32 + a_col), a0);
-    ldsm_x4(smem_u32(A + (r0 + a_row) * kAbLdT + k2 * 32 + 16 + a_col), a1);
+    ldsm_x4(smem_u32(A + (r0 + a_row) * LD + k2 * 32 + a_col), a0);
+    ldsm_x4(smem_u32(A + (r0 + a_row) * LD + k2 * 32 + 16 + a_col), a1);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       if (j < nv) {
         uint32_t bb[4];
-        ldsm_x4(smem_u32(B + (j * 8 + (lane & 7)) * kAbLdT + k2 * 32 + (lane >> 3) * 8), bb);
+        ldsm_x4(smem_u32(B + (j * 8 + (lane & 7)) * LD + k2 * 32 + (lane >> 3) * 8), bb);
         mma_bf16(acc[j], a0, bb[0], bb[1]);
         mma_bf16(acc[j], a1, bb[2], bb[3]);
       }
@@ -130,15 +164,17 @@ __device__ __forceinline__ void ab_nt(float (&acc)[8][4], const bf16* A, int r0,
   }
 }
 
-// acc (16 rows x 64 head columns as 8 C fragments) += a (16 x 16) times
-// rows k0..k0+15 of the row-major [64, 64] tile B
-__device__ __forceinline__ void ab_nn(float (&acc)[8][4], const uint32_t (&a)[4], const bf16* B,
-                                      int k0) {
+// acc (16 rows x NC head columns c0.. as NC / 8 C fragments) += a (16 x 16)
+// times rows k0..k0+15 of the row-major [64, DH] tile B
+template <int DH, int NC>
+__device__ __forceinline__ void ab_nn(float (&acc)[NC / 8][4], const uint32_t (&a)[4],
+                                      const bf16* B, int k0, int c0) {
+  constexpr int LD = AbTile<DH>::kLd;
   const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int n2 = 0; n2 < 4; ++n2) {
+  for (int n2 = 0; n2 < NC / 16; ++n2) {
     uint32_t r[4];
-    ldsm_x4_t(smem_u32(B + (k0 + (lane & 15)) * kAbLdT + (2 * n2 + (lane >> 4)) * 8), r);
+    ldsm_x4_t(smem_u32(B + (k0 + (lane & 15)) * LD + c0 + (2 * n2 + (lane >> 4)) * 8), r);
     mma_bf16(acc[2 * n2], a, r[0], r[1]);
     mma_bf16(acc[2 * n2 + 1], a, r[2], r[3]);
   }
@@ -161,27 +197,47 @@ __device__ __forceinline__ void ab_frag(const float (&c)[8][4], int kk, uint32_t
   }
 }
 
-// acc += P B for k-steps kk with 2kk < nv (the product of every live key or
-// query n-tile), P in f32 C fragments: hi (and lo) halves
-template <int MODE>
-__device__ __forceinline__ void ab_nn_all(float (&acc)[8][4], const float (&p)[8][4],
-                                          const bf16* B, int nv) {
+// acc += P B[:, c0 .. c0 + NC) for k-steps kk with 2kk < nv (the product of
+// every live key or query n-tile), P in f32 C fragments: hi (and lo) halves
+template <int MODE, int DH, int NC>
+__device__ __forceinline__ void ab_nn_all(float (&acc)[NC / 8][4], const float (&p)[8][4],
+                                          const bf16* B, int nv, int c0 = 0) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     if (2 * kk < nv) {
       uint32_t hi[4], lo[4];
       ab_frag<MODE>(p, kk, hi, lo);
-      ab_nn(acc, hi, B, kk * 16);
-      if (MODE == kBwdF32) ab_nn(acc, lo, B, kk * 16);
+      ab_nn<DH, NC>(acc, hi, B, kk * 16, c0);
+      if (MODE == kBwdF32) ab_nn<DH, NC>(acc, lo, B, kk * 16, c0);
     }
   }
 }
 
-__device__ __forceinline__ void ab_zero(float (&acc)[8][4]) {
+template <int N>
+__device__ __forceinline__ void ab_zero(float (&acc)[N][4]) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < N; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+}
+
+// this thread's bf16 pairs of C fragments [N][4] (rows g, g + 8 of a warp's
+// 16 from row0, columns c0 + 8j + 2qd) into rows < nrows of a row-major
+// [., rs] slice, the columns past dh skipped
+template <int N>
+__device__ __forceinline__ void ab_store_pairs(const float (&c)[N][4], bf16* base, long long rs,
+                                               int row0, int nrows, int c0, int dh) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + (lane >> 2) + 8 * r;
+    if (row >= nrows) continue;
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      if (c0 + j * 8 < dh)
+        *reinterpret_cast<uint32_t*>(base + (long long)row * rs + c0 + j * 8 + 2 * (lane & 3)) =
+            pack_bf16(c[j][2 * r], c[j][2 * r + 1]);
+  }
 }
 
 // ------------------------------------------------------------- rows
@@ -191,12 +247,13 @@ __device__ __forceinline__ void ab_zero(float (&acc)[8][4]) {
 // exp2 (the same function as exp(s - m), rounded differently).
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int MODE>
+template <int MODE, int DH>
 __global__ void __launch_bounds__(kAbThreads) attn_bwd_rows_kernel(AttnBwdArgs a) {
+  constexpr int TILE = AbTile<DH>::kElems;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dos = qs + kAbTile;
-  bf16* ring = dos + kAbTile;  // [2 stages][K, V]
+  bf16* dos = qs + TILE;
+  bf16* ring = dos + TILE;  // [2 stages][K, V]
 
   const int bh = blockIdx.y;
   const int b = bh / a.heads;
@@ -207,11 +264,12 @@ __global__ void __launch_bounds__(kAbThreads) attn_bwd_rows_kernel(AttnBwdArgs a
   const int g = lane >> 2;
   const int qd = lane & 3;
   const int r0 = warp * 16;
+  const int dh = attn_run_dh<DH>(a.dh);
 
-  const bf16* qb = a.q + b * a.q_bs + h * kAbDH;
-  const bf16* kb = a.k + b * a.k_bs + h * kAbDH;
-  const bf16* vb = a.v + b * a.v_bs + h * kAbDH;
-  const bf16* db = a.dout + b * a.do_bs + h * kAbDH;
+  const bf16* qb = a.q + b * a.q_bs + h * dh;
+  const bf16* kb = a.k + b * a.k_bs + h * dh;
+  const bf16* vb = a.v + b * a.v_bs + h * dh;
+  const bf16* db = a.dout + b * a.do_bs + h * dh;
   const float* mrow = a.mask ? a.mask + (long long)b * a.lk : nullptr;
   const float sl2 = a.scale * kLog2e;
   const int T = (a.lk + kAbBQ - 1) / kAbBQ;
@@ -219,31 +277,34 @@ __global__ void __launch_bounds__(kAbThreads) attn_bwd_rows_kernel(AttnBwdArgs a
   // then dS and dQ.  V is needed in the first pass for delta = rowsum(dP * P)
   // (kBwdBf16) and in the second for dP.
   auto load = [&](int i) {
-    bf16* st = ring + (i & 1) * 2 * kAbTile;
-    ab_load_async(st, kb, a.k_rs, (i % T) * kAbBQ, a.lk);
+    bf16* st = ring + (i & 1) * 2 * TILE;
+    ab_load_async<DH>(st, kb, a.k_rs, (i % T) * kAbBQ, a.lk, dh);
     if (MODE == kBwdBf16 || i >= T)
-      ab_load_async(st + kAbTile, vb, a.v_rs, (i % T) * kAbBQ, a.lk);
+      ab_load_async<DH>(st + TILE, vb, a.v_rs, (i % T) * kAbBQ, a.lk, dh);
   };
-  ab_load_async(qs, qb, a.q_rs, q0, a.lq);
-  ab_load_async(dos, db, a.do_rs, q0, a.lq);
+  ab_load_async<DH>(qs, qb, a.q_rs, q0, a.lq, dh);
+  ab_load_async<DH>(dos, db, a.do_rs, q0, a.lq, dh);
   load(0);
   cp_async_commit();
 
   // per thread: rows r0 + g and r0 + g + 8, columns 2qd.. of each n-tile;
   // running max, sum and (kBwdBf16) sum of dP exp2(s - max)
   float m[2] = {-3.0e38f, -3.0e38f}, l[2] = {0.0f, 0.0f}, dl[2] = {0.0f, 0.0f};
-  if (MODE == kBwdF32) {  // delta = rowsum(dO * O): two lanes per row
-    const bf16* ob = a.o + b * a.o_bs + h * kAbDH;
+  if (MODE == kBwdF32) {  // delta = rowsum(dO * O): two lanes per row, DH / 2 columns each
+    const bf16* ob = a.o + b * a.o_bs + h * dh;
     const int row = q0 + r0 + (lane >> 1);
     float t = 0.0f;
     if (row < a.lq) {
 #pragma unroll
-      for (int c = 0; c < 32; c += 8) {
-        alignas(16) bf16 x[8], y[8];
-        copy8(x, db + (long long)row * a.do_rs + (lane & 1) * 32 + c);
-        copy8(y, ob + (long long)row * a.o_rs + (lane & 1) * 32 + c);
+      for (int c = 0; c < DH / 2; c += 8) {
+        const int col = (lane & 1) * (DH / 2) + c;
+        if (col < dh) {
+          alignas(16) bf16 x[8], y[8];
+          copy8(x, db + (long long)row * a.do_rs + col);
+          copy8(y, ob + (long long)row * a.o_rs + col);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) t += bf2f(x[e]) * bf2f(y[e]);
+          for (int e = 0; e < 8; ++e) t += bf2f(x[e]) * bf2f(y[e]);
+        }
       }
     }
     t += __shfl_xor_sync(0xffffffffu, t, 1);
@@ -251,7 +312,7 @@ __global__ void __launch_bounds__(kAbThreads) attn_bwd_rows_kernel(AttnBwdArgs a
     dl[1] = __shfl_sync(0xffffffffu, t, 2 * g + 16);
   }
   float inv[2] = {0.0f, 0.0f};
-  float dq[8][4];
+  float dq[DH / 8][4];
   ab_zero(dq);
 
 #pragma unroll 1
@@ -262,13 +323,13 @@ __global__ void __launch_bounds__(kAbThreads) attn_bwd_rows_kernel(AttnBwdArgs a
     __syncthreads();  // tile i (and Q, dO) landed for every thread
     const int kt = (i % T) * kAbBQ;
     const int nv = min(8, (a.lk - kt + 7) / 8);
-    const bf16* ks = ring + (i & 1) * 2 * kAbTile;
+    const bf16* ks = ring + (i & 1) * 2 * TILE;
     float sc[8][4], dp[8][4];
     ab_zero(sc);
-    ab_nt(sc, qs, r0, ks, nv);
+    ab_nt<DH>(sc, qs, r0, ks, nv);
     if (MODE == kBwdBf16 || i >= T) {
       ab_zero(dp);
-      ab_nt(dp, dos, r0, ks + kAbTile, nv);
+      ab_nt<DH>(dp, dos, r0, ks + TILE, nv);
     }
 #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -329,24 +390,19 @@ __global__ void __launch_bounds__(kAbThreads) attn_bwd_rows_kernel(AttnBwdArgs a
           const float p = key < a.lk ? exp2f(sc[j][e] - m[e >> 1]) * inv[e >> 1] : 0.0f;
           sc[j][e] = p * (dp[j][e] - dl[e >> 1]) * a.scale;
         }
-      ab_nn_all<MODE>(dq, sc, ks, nv);
+      ab_nn_all<MODE, DH, DH>(dq, sc, ks, nv);
     }
     __syncthreads();  // every warp is done with stage i & 1 before it refills
   }
 
   // ---- dQ (bf16) and the row statistics
-  bf16* dqb = a.dq + b * a.dq_bs + h * kAbDH;
+  ab_store_pairs(dq, a.dq + b * a.dq_bs + h * dh, a.dq_rs, q0 + r0, a.lq, 0, dh);
   const long long n = (long long)gridDim.y * a.lq;
   float* stb = a.stats + (long long)bh * a.lq;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + r0 + g + 8 * r;
-    if (row >= a.lq) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      *reinterpret_cast<uint32_t*>(dqb + (long long)row * a.dq_rs + j * 8 + 2 * qd) =
-          pack_bf16(dq[j][2 * r], dq[j][2 * r + 1]);
-    if (qd == 0) {
+    if (row < a.lq && qd == 0) {
       stb[row] = m[r];
       stb[n + row] = inv[r];
       stb[2 * n + row] = dl[r];
@@ -355,35 +411,40 @@ __global__ void __launch_bounds__(kAbThreads) attn_bwd_rows_kernel(AttnBwdArgs a
 }
 
 // ------------------------------------------------------------- cols
-template <int MODE>
-__global__ void __launch_bounds__(kAbThreads, 3) attn_bwd_cols_kernel(AttnBwdArgs a) {
+template <int MODE, int DH>
+__global__ void __launch_bounds__(kAbThreads, DH == 64 ? 3 : 2)
+    attn_bwd_cols_kernel(AttnBwdArgs a) {
+  constexpr int TILE = AbTile<DH>::kElems;
+  constexpr int NC = ab_cols_width<DH>();
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ks + kAbTile;
-  bf16* ring = vs + kAbTile;  // [2 stages][Q, dO]
-  float* sring = reinterpret_cast<float*>(ring + 4 * kAbTile);  // [2 stages][m, l, delta][64]
+  bf16* vs = ks + TILE;
+  bf16* ring = vs + TILE;  // [2 stages][Q, dO]
+  float* sring = reinterpret_cast<float*>(ring + 4 * TILE);  // [2 stages][m, l, delta][64]
 
   const int bh = blockIdx.y;
   const int b = bh / a.heads;
   const int h = bh % a.heads;
   const int k0 = blockIdx.x * kAbBQ;
+  const int c0 = NC == DH ? 0 : blockIdx.z * NC;  // this CTA's head columns of dK and dV
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int qd = lane & 3;
   const int kr = warp * 16;  // this warp's keys k0 + kr..
+  const int dh = attn_run_dh<DH>(a.dh);
 
-  const bf16* qb = a.q + b * a.q_bs + h * kAbDH;
-  const bf16* kb = a.k + b * a.k_bs + h * kAbDH;
-  const bf16* vb = a.v + b * a.v_bs + h * kAbDH;
-  const bf16* db = a.dout + b * a.do_bs + h * kAbDH;
+  const bf16* qb = a.q + b * a.q_bs + h * dh;
+  const bf16* kb = a.k + b * a.k_bs + h * dh;
+  const bf16* vb = a.v + b * a.v_bs + h * dh;
+  const bf16* db = a.dout + b * a.do_bs + h * dh;
   const long long n = (long long)gridDim.y * a.lq;
   const float* stb = a.stats + (long long)bh * a.lq;
   const int T = (a.lq + kAbBQ - 1) / kAbBQ;
   auto load = [&](int it) {  // query tile it: Q, dO and its rows' statistics
-    bf16* st = ring + (it & 1) * 2 * kAbTile;
-    ab_load_async(st, qb, a.q_rs, it * kAbBQ, a.lq);
-    ab_load_async(st + kAbTile, db, a.do_rs, it * kAbBQ, a.lq);
+    bf16* st = ring + (it & 1) * 2 * TILE;
+    ab_load_async<DH>(st, qb, a.q_rs, it * kAbBQ, a.lq, dh);
+    ab_load_async<DH>(st + TILE, db, a.do_rs, it * kAbBQ, a.lq, dh);
     float* ss = sring + (it & 1) * 3 * kAbBQ;
     for (int v = threadIdx.x; v < 3 * kAbBQ; v += kAbThreads) {
       const int r = it * kAbBQ + v % kAbBQ;
@@ -391,8 +452,8 @@ __global__ void __launch_bounds__(kAbThreads, 3) attn_bwd_cols_kernel(AttnBwdArg
       cp_async4(smem_u32(ss + v), stb + (v / kAbBQ) * n + (ok ? r : 0), ok ? 4 : 0);
     }
   };
-  ab_load_async(ks, kb, a.k_rs, k0, a.lk);
-  ab_load_async(vs, vb, a.v_rs, k0, a.lk);
+  ab_load_async<DH>(ks, kb, a.k_rs, k0, a.lk, dh);
+  ab_load_async<DH>(vs, vb, a.v_rs, k0, a.lk, dh);
   load(0);
   cp_async_commit();
 
@@ -405,7 +466,7 @@ __global__ void __launch_bounds__(kAbThreads, 3) attn_bwd_cols_kernel(AttnBwdArg
     kv[r] = key < a.lk;
     mk[r] = kv[r] && a.mask ? a.mask[(long long)b * a.lk + key] * kLog2e : 0.0f;
   }
-  float dk[8][4], dv[8][4];
+  float dk[NC / 8][4], dv[NC / 8][4];
   ab_zero(dk);
   ab_zero(dv);
 
@@ -415,8 +476,8 @@ __global__ void __launch_bounds__(kAbThreads, 3) attn_bwd_cols_kernel(AttnBwdArg
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    const bf16* qs = ring + (it & 1) * 2 * kAbTile;
-    const bf16* dos = qs + kAbTile;
+    const bf16* qs = ring + (it & 1) * 2 * TILE;
+    const bf16* dos = qs + TILE;
     const float* ss = sring + (it & 1) * 3 * kAbBQ;
     const int q0 = it * kAbBQ;
     const int nv = min(8, (a.lq - q0 + 7) / 8);
@@ -424,8 +485,8 @@ __global__ void __launch_bounds__(kAbThreads, 3) attn_bwd_cols_kernel(AttnBwdArg
     float sc[8][4], dp[8][4];
     ab_zero(sc);
     ab_zero(dp);
-    ab_nt(sc, ks, kr, qs, nv);
-    ab_nt(dp, vs, kr, dos, nv);
+    ab_nt<DH>(sc, ks, kr, qs, nv);
+    ab_nt<DH>(dp, vs, kr, dos, nv);
     // P^T and dS^T from the rows' statistics
 #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -441,25 +502,13 @@ __global__ void __launch_bounds__(kAbThreads, 3) attn_bwd_cols_kernel(AttnBwdArg
         sc[j][e] = p;
         dp[j][e] = ds;
       }
-    ab_nn_all<MODE>(dv, sc, dos, nv);  // dV += P^T dO
-    ab_nn_all<MODE>(dk, dp, qs, nv);   // dK += dS^T Q
+    ab_nn_all<MODE, DH, NC>(dv, sc, dos, nv, c0);  // dV += P^T dO
+    ab_nn_all<MODE, DH, NC>(dk, dp, qs, nv, c0);   // dK += dS^T Q
     __syncthreads();  // every warp is done with stage it & 1 before it refills
   }
 
-  bf16* dkb = a.dk + b * a.dk_bs + h * kAbDH;
-  bf16* dvb = a.dv + b * a.dv_bs + h * kAbDH;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = k0 + kr + g + 8 * r;
-    if (!kv[r]) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      *reinterpret_cast<uint32_t*>(dkb + (long long)key * a.dk_rs + j * 8 + 2 * qd) =
-          pack_bf16(dk[j][2 * r], dk[j][2 * r + 1]);
-      *reinterpret_cast<uint32_t*>(dvb + (long long)key * a.dv_rs + j * 8 + 2 * qd) =
-          pack_bf16(dv[j][2 * r], dv[j][2 * r + 1]);
-    }
-  }
+  ab_store_pairs(dk, a.dk + b * a.dk_bs + h * dh, a.dk_rs, k0 + kr, a.lk, c0, dh);
+  ab_store_pairs(dv, a.dv + b * a.dv_bs + h * dh, a.dv_rs, k0 + kr, a.lk, c0, dh);
 }
 
 // the kernels' dynamic shared memory limits, set once per library and card.
@@ -467,41 +516,53 @@ __global__ void __launch_bounds__(kAbThreads, 3) attn_bwd_cols_kernel(AttnBwdArg
 // decoder_blocks_bwd), and the local static of an inline function would be
 // one object across them (a GNU unique symbol), set for one library's
 // kernels only.
-template <int MODE>
+template <int MODE, int DH>
 static cudaError_t ab_set_smem_once() {
   static const cudaError_t attr = [] {
-    const cudaError_t e = cudaFuncSetAttribute(attn_bwd_rows_kernel<MODE>,
+    const cudaError_t e = cudaFuncSetAttribute(attn_bwd_rows_kernel<MODE, DH>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               (int)kAbRowsSmem);
+                                               (int)ab_rows_smem<DH>());
     if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(attn_bwd_cols_kernel<MODE>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kAbColsSmem);
+    return cudaFuncSetAttribute(attn_bwd_cols_kernel<MODE, DH>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)ab_cols_smem<DH>());
   }();
   return attr;
 }
 
-template <int MODE>
-inline cudaError_t launch_attention_bwd(const AttnBwdArgs& a, int batch,
-                                        cudaStream_t stream) {
-  if (a.lk < 1 || a.lq < 1 || batch < 1) return cudaErrorInvalidValue;
-  const cudaError_t attr = ab_set_smem_once<MODE>();
+template <int MODE, int DH>
+static cudaError_t launch_attention_bwd_dh(const AttnBwdArgs& a, int batch,
+                                           cudaStream_t stream) {
+  const cudaError_t attr = ab_set_smem_once<MODE, DH>();
   if (attr != cudaSuccess) return attr;
   const dim3 grid_rows((a.lq + kAbBQ - 1) / kAbBQ, batch * a.heads);
-  attn_bwd_rows_kernel<MODE><<<grid_rows, kAbThreads, kAbRowsSmem, stream>>>(a);
+  attn_bwd_rows_kernel<MODE, DH><<<grid_rows, kAbThreads, ab_rows_smem<DH>(), stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid_cols((a.lk + kAbBQ - 1) / kAbBQ, batch * a.heads);
-  attn_bwd_cols_kernel<MODE><<<grid_cols, kAbThreads, kAbColsSmem, stream>>>(a);
+  const dim3 grid_cols((a.lk + kAbBQ - 1) / kAbBQ, batch * a.heads, DH / ab_cols_width<DH>());
+  attn_bwd_cols_kernel<MODE, DH><<<grid_cols, kAbThreads, ab_cols_smem<DH>(), stream>>>(a);
   return cudaGetLastError();
 }
 
-// out[6]: registers per thread, shared memory bytes per CTA and spill bytes
-// per thread of the rows kernel, then of the cols kernel
 template <int MODE>
-cudaError_t attention_bwd_attrs(int* out) {
-  const void* fns[2] = {reinterpret_cast<const void*>(attn_bwd_rows_kernel<MODE>),
-                        reinterpret_cast<const void*>(attn_bwd_cols_kernel<MODE>)};
-  const size_t dyn[2] = {kAbRowsSmem, kAbColsSmem};
+static cudaError_t launch_attention_bwd(const AttnBwdArgs& a, int batch,
+                                        cudaStream_t stream) {
+  if (a.lk < 1 || a.lq < 1 || batch < 1) return cudaErrorInvalidValue;
+  switch (attn_head_tile(a.dh)) {
+    case 32: return launch_attention_bwd_dh<MODE, 32>(a, batch, stream);
+    case 64: return launch_attention_bwd_dh<MODE, 64>(a, batch, stream);
+    case 128: return launch_attention_bwd_dh<MODE, 128>(a, batch, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// out[6]: registers per thread, shared memory bytes per CTA and spill bytes
+// per thread of the rows kernel, then of the cols kernel, at head tile DH
+template <int MODE, int DH>
+static cudaError_t attention_bwd_attrs_dh(int* out) {
+  const void* fns[2] = {reinterpret_cast<const void*>(attn_bwd_rows_kernel<MODE, DH>),
+                        reinterpret_cast<const void*>(attn_bwd_cols_kernel<MODE, DH>)};
+  const size_t dyn[2] = {ab_rows_smem<DH>(), ab_cols_smem<DH>()};
   for (int i = 0; i < 2; ++i) {
     cudaFuncAttributes fa;
     const cudaError_t err = cudaFuncGetAttributes(&fa, fns[i]);
@@ -511,6 +572,16 @@ cudaError_t attention_bwd_attrs(int* out) {
     out[3 * i + 2] = (int)fa.localSizeBytes;
   }
   return cudaSuccess;
+}
+
+template <int MODE>
+static cudaError_t attention_bwd_attrs(int dh, int* out) {
+  switch (attn_head_tile(dh)) {
+    case 32: return attention_bwd_attrs_dh<MODE, 32>(out);
+    case 64: return attention_bwd_attrs_dh<MODE, 64>(out);
+    case 128: return attention_bwd_attrs_dh<MODE, 128>(out);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace crog

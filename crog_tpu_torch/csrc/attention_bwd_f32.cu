@@ -9,14 +9,15 @@
 // rowsum(dP * P) from the pre-pass).
 #include "attention_bwd_f32.cuh"
 
-// q, o, do, dq [B, Lq, H*64]; k, v, dk, dv [B, Lk, H*64]; mask [B, Lk]
-// additive f32 or null; lse [B*H, Lq] or null; stats [B*H, 3, Lq] and
-// dqpart [ab_f32_parts(Lk), B*H, Lq, 64] (work); strides in floats
+// q, o, do, dq [B, Lq, H*dh]; k, v, dk, dv [B, Lk, H*dh] (dh one of 8, 16,
+// 32, 64, 128); mask [B, Lk] additive f32 or null; lse [B*H, Lq] or null;
+// stats [B*H, 3, Lq] and dqpart [ab_f32_parts(Lk), B*H, Lq, dh] (work);
+// strides in floats
 extern "C" int crog_attention_f32_bwd(
     const float* q, const float* k, const float* v, const float* o, const float* dout,
     const float* mask, const float* lse, float* dq, float* dk, float* dv, float* stats,
     float* dqpart,
-    int batch, int heads, int lq, int lk,
+    int batch, int heads, int lq, int lk, int dh,
     long long q_bs, long long q_rs, long long k_bs, long long k_rs,
     long long v_bs, long long v_rs, long long o_bs, long long o_rs,
     long long do_bs, long long do_rs, long long dq_bs, long long dq_rs,
@@ -38,6 +39,7 @@ extern "C" int crog_attention_f32_bwd(
   a.heads = heads;
   a.lq = lq;
   a.lk = lk;
+  a.dh = dh;
   a.q_bs = q_bs;
   a.q_rs = q_rs;
   a.k_bs = k_bs;

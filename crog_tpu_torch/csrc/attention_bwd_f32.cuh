@@ -1,5 +1,5 @@
-// The attention backward on fp32 operands, head dim 64: K1b-f32, and the
-// attention step of K2b-f32 / K3b-f32.
+// The attention backward on fp32 operands, head dims 8-128: K1b-f32, and
+// the attention step of K2b-f32 / K3b-f32.
 //
 // Replaces crog_tpu/ops/pallas_attention.py:133 `_fused_bwd_vjp`
 // (pallas_call at :140, kernel `_bwd_kernel` :53) and the attention
@@ -22,8 +22,22 @@
 //     Lk != Lq): m and r = 1 / l from a pre-pass over the keys, delta =
 //     rowsum(dp * p), as `_mha_bwd` takes it (an exact 0 up to rounding
 //     where one key takes all the weight).
-// q, o, do, dq are [B, Lq, H*64], k, v, dk, dv [B, Lk, H*64], f32 with a
+// q, o, do, dq are [B, Lq, H*dh], k, v, dk, dv [B, Lk, H*dh], f32 with a
 // free row and batch stride (multiples of 4 floats); any Lq, Lk >= 1.
+//
+// Head dims.  The kernels are templates on the head tile DH (32, 64 or
+// 128; common.cuh attn_head_tile), the head's own dh (8 to DH) a
+// run-time value: every load zero-fills the columns dh .. DH - 1 (in
+// shared memory or registers, never in device memory) and no store writes
+// them, so dh 8 and 16 run in the DH 32 build.  At DH 128 the Q and dO
+// fragments of a 64-row tile would take 256 registers, so the pre-pass
+// keeps Q and dO raw in shared memory and splits their fragments per use
+// (as the main kernel does K's), over 32-key tiles; the main kernel's
+// CTAs each own 64 of the head's columns of dK, dV and dQ (grid z), both
+// forming S^T and dP^T over the whole head, so that the accumulators stay
+// at DH 64's registers (with one register set for the split K and V
+// fragments, which with two spill at DH 128's eight groups a product).
+// One CTA an SM at DH 128 (160 and 193 KB).
 //
 // Products per (64-query, 64-key) pair: 5 in K1b (QK^T, dO V^T, P^T dO,
 // dS^T Q, dS K, each once), 7 in the blocks (the pre-pass forms QK^T and
@@ -40,6 +54,7 @@
 // blocks) read and written again for the second and third block.
 //
 // Design: FlashAttention-2's backward on wgmma, no atomics.
+//   (At head tile 64; 32 and 128 as the paragraph above says.)
 //   attn_bwd_f32_delta_kernel (K1b): each row's (lse, 1, rowsum(do * o)).
 //   attn_bwd_f32_stats_kernel (the blocks): a CTA of one warpgroup takes
 //     64 query rows, its Q and dO fragments split once into registers, and
@@ -96,13 +111,24 @@
 
 namespace crog {
 
-constexpr int kAbF32DH = 64;     // head dim
 constexpr int kAbF32Keys = 64;   // keys per CTA of the main kernel
 constexpr int kAbF32Q = 32;      // queries per streamed tile of the main kernel
 constexpr int kAbF32PreQ = 64;   // query rows per CTA of the pre-pass
-constexpr int kAbF32PreK = 64;   // keys per streamed tile of the pre-pass
 constexpr int kAbF32Threads = 128;
 constexpr int kAbF32MaxParts = 11;  // dQ partials at most (K2b-f32's count at 676 keys)
+
+// keys per streamed tile of the pre-pass and of the forward: 64, or 32 at
+// head tile 128 (whose [key][d] planes are as large)
+template <int DH>
+__host__ __device__ constexpr int ab_f32_key_tile() {
+  return DH > 64 ? 32 : 64;
+}
+
+// head columns of dK, dV and dQ one main-kernel CTA owns
+template <int DH>
+__host__ __device__ constexpr int ab_f32_cols() {
+  return DH > 64 ? 64 : DH;
+}
 
 // key blocks of 64 that one main-kernel CTA walks, and the dQ partials the
 // launch writes (the CTAs of a head); the wrapper sizes the workspace by
@@ -116,23 +142,38 @@ __host__ __device__ inline int ab_f32_parts(int lk) {
   return (blocks + g - 1) / g;
 }
 
-// main kernel shared memory (bytes): planes hi at +0, lo at +kAbPlane
-constexpr int kAbPlane = 8192;            // one [32][64] or [64][32] f32 plane
-constexpr int kAbMainQn = 0;              // Q [query][d]; then dS [query][key]
-constexpr int kAbMainDOn = 2 * kAbPlane;  // dO [query][d]
-constexpr int kAbMainQt = 4 * kAbPlane;   // Q^T [d][query']
-constexpr int kAbMainDOt = 6 * kAbPlane;  // dO^T [d][query']
-constexpr int kAbMainRaw = 8 * kAbPlane;  // the next tile's raw Q, then dO [32][64]
-constexpr int kAbMainK = kAbMainRaw + 2 * kAbPlane;  // raw K [64][64]
-constexpr int kAbMainV = kAbMainK + 4 * kAbF32DH * kAbF32Keys;
-constexpr int kAbMainStat = kAbMainV + 4 * kAbF32DH * kAbF32Keys;  // 2 x [3][32]
-constexpr int kAbMainSmem = kAbMainStat + 2 * 3 * kAbF32Q * 4;
-// pre-pass shared memory (bytes): planes hi at +0, lo at +kAbPrePlane
-constexpr int kAbPrePlane = 16384;          // one [64][64] f32 plane
-constexpr int kAbPreK = 0;                  // K [key][d] planes
-constexpr int kAbPreV = 2 * kAbPrePlane;    // V [key][d] planes
-constexpr int kAbPreRaw = 4 * kAbPrePlane;  // the next tile's raw K, then V [64][64]
-constexpr int kAbPreSmem = 6 * kAbPrePlane;
+// main kernel shared memory (bytes); each plane pair hi at +0, lo one plane
+// after
+template <int DH>
+struct AbMain {
+  static constexpr int kNC = ab_f32_cols<DH>();
+  static constexpr int kQS = kAbF32Q * (DH > 64 ? DH : 64) * 4;  // a plane of Q [query][d], then of dS [query][key]
+  static constexpr int kQP = kAbF32Q * DH * 4;    // a plane of dO [query][d]
+  static constexpr int kTP = kNC * kAbF32Q * 4;   // a plane of Q^T or dO^T [d][query'], the CTA's columns
+  static constexpr int kRawQ = kAbF32Q * DH * 4;  // the raw Q or dO tile
+  static constexpr int kRawK = kAbF32Keys * DH * 4;  // the raw K or V tile
+  static constexpr int kQn = 0;
+  static constexpr int kDOn = kQn + 2 * kQS;
+  static constexpr int kQt = kDOn + 2 * kQP;
+  static constexpr int kDOt = kQt + 2 * kTP;
+  static constexpr int kRaw = kDOt + 2 * kTP;  // the next tile's raw Q, then dO
+  static constexpr int kK = kRaw + 2 * kRawQ;
+  static constexpr int kV = kK + kRawK;
+  static constexpr int kStat = kV + kRawK;  // 2 x [3][32]
+  static constexpr int kSmem = kStat + 2 * 3 * kAbF32Q * 4;
+};
+
+// pre-pass shared memory (bytes)
+template <int DH>
+struct AbPre {
+  static constexpr int kBK = ab_f32_key_tile<DH>();
+  static constexpr int kPlane = kBK * DH * 4;  // one [key][d] plane
+  static constexpr int kK = 0;                 // K [key][d] planes
+  static constexpr int kV = 2 * kPlane;        // V [key][d] planes
+  static constexpr int kRaw = 4 * kPlane;      // the next tile's raw K, then V
+  static constexpr int kQ = 6 * kPlane;        // DH 128: the raw Q, then dO [64][DH]
+  static constexpr int kSmem = kQ + (DH > 64 ? 2 * kAbF32PreQ * DH * 4 : 0);
+};
 
 struct AttnBwdF32Args {
   const float* q;
@@ -146,8 +187,9 @@ struct AttnBwdF32Args {
   float* dk;
   float* dv;
   float* stats;   // [B*H, 3, Lq]: m, r, delta
-  float* dqpart;  // [ab_f32_parts(Lk), B*H, Lq, 64]: each CTA's dq over its key blocks
+  float* dqpart;  // [ab_f32_parts(Lk), B*H, Lq, dh]: each CTA's dq over its key blocks
   int heads, lq, lk;
+  int dh;  // head dim; head h's columns are [h * dh, (h + 1) * dh)
   long long q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs, do_bs, do_rs, dq_bs, dq_rs, dk_bs,
       dk_rs, dv_bs, dv_rs;
   float scale;
@@ -251,29 +293,47 @@ __device__ __forceinline__ uint64_t ab_desc(uint32_t addr, int rows, int kk) {
   return wgmma_desc_sw128(addr + (kk >> 2) * rows * 128 + (kk & 3) * 32, 16, 8 * 128);
 }
 
-// a raw [rows][64] tile: 16-byte chunk c of row r at r * 256 + (c ^ (r & 7)) * 16
+// a raw [rows][DH] tile: 16-byte chunk c of row r at r * DH * 4 + (c ^ (r & 7)) * 16
+template <int DH>
 __device__ __forceinline__ uint32_t ab_raw_off(int r, int c4) {
-  return r * 256 + ((c4 ^ (r & 7)) << 4);
+  return r * (DH * 4) + ((c4 ^ (r & 7)) << 4);
 }
 
-// the raw K / V tile of the main kernel, read by A fragments both ways
-// (rows = keys, and transposed): float (r, c) at r * 64 + (c ^ ab_kswz(r)),
-// free of bank conflicts for both (bits 3-4 follow r & 3, bit 2 r & 4)
+// a raw tile read by A fragments both ways (rows, and transposed): float
+// (r, c) of a [rows][DH] tile at r * DH + (c ^ ab_kswz(r)), free of bank
+// conflicts for both (bits 3-4 follow r & 3, bit 2 r & 4)
 __device__ __forceinline__ int ab_kswz(int r) { return ((r & 3) << 3) | (((r >> 2) & 1) << 2); }
 
+template <int DH>
 __device__ __forceinline__ float ab_kval(const float* t, int r, int c) {
-  return t[r * 64 + (c ^ ab_kswz(r))];
+  return t[r * DH + (c ^ ab_kswz(r))];
 }
 
-// rows [r0, r0 + rows) of a [*, 64] head slice (row stride rs) as a raw
-// tile, rows past `limit` zero-filled
+// rows [r0, r0 + rows) of a head slice of dh columns (row stride rs) into a
+// raw [rows][DH] tile (ab_raw_off), rows past `limit` and columns past dh
+// zero-filled
+template <int DH>
 __device__ __forceinline__ void ab_load_raw(uint32_t dst, const float* src, long long rs, int r0,
-                                            int rows, int limit) {
-  for (int i = threadIdx.x; i < rows * 16; i += kAbF32Threads) {
-    const int r = i >> 4, c4 = i & 15;
-    const bool in = r0 + r < limit;
-    cp_async16(dst + ab_raw_off(r, c4), src + (in ? (long long)(r0 + r) * rs : 0) + c4 * 4,
-               in ? 16 : 0);
+                                            int rows, int limit, int dh) {
+  constexpr int C = DH / 4;  // 16-byte chunks per row
+  for (int i = threadIdx.x; i < rows * C; i += kAbF32Threads) {
+    const int r = (unsigned)i / C, c4 = (unsigned)i % C;
+    const bool in = r0 + r < limit && c4 * 4 < dh;
+    cp_async16(dst + ab_raw_off<DH>(r, c4),
+               src + (in ? (long long)(r0 + r) * rs : 0) + (c4 * 4 < dh ? c4 * 4 : 0), in ? 16 : 0);
+  }
+}
+
+// the same rows into a [rows][DH] tile read by A fragments (ab_kval)
+template <int DH>
+__device__ __forceinline__ void ab_load_kswz(uint32_t dst, const float* src, long long rs, int r0,
+                                             int rows, int limit, int dh) {
+  constexpr int C = DH / 4;
+  for (int i = threadIdx.x; i < rows * C; i += kAbF32Threads) {
+    const int r = (unsigned)i / C, c = ((unsigned)i % C) * 4;
+    const bool in = r0 + r < limit && c < dh;
+    cp_async16(dst + (r * DH + (c ^ ab_kswz(r))) * 4,
+               src + (in ? (long long)(r0 + r) * rs : 0) + (c < dh ? c : 0), in ? 16 : 0);
   }
 }
 
@@ -281,15 +341,17 @@ __device__ __forceinline__ void st_u4(unsigned char* p, const uint32_t (&v)[4]) 
   *reinterpret_cast<uint4*>(p) = make_uint4(v[0], v[1], v[2], v[3]);
 }
 
-// a raw [rows][64] tile split once into its hi / lo planes [row][d] (PN)
-// and, with T, its transposed planes [d][row'] (PT): rows' 8-steps
-// relabelled, row 8j + 2t + e at column 8j + 4e + t
-template <int PN, int PT, bool T>
+// a raw [rows][DH] tile split once into its hi / lo planes [row][d] (PN;
+// lo `plane` bytes after hi) and, with T, the head columns [c0, c0 + NC)
+// of it into transposed planes [d][row'] (PT; lo `tplane_lo` bytes after
+// hi): rows' 8-steps relabelled, row 8j + 2t + e at column 8j + 4e + t
+template <int PN, int PT, bool T, int DH, int NC = DH>
 __device__ __forceinline__ void ab_split_tile(unsigned char* smem, int raw, int nplane, int tplane,
-                                              int rows, int plane) {
-  for (int i = threadIdx.x; i < rows * 16; i += kAbF32Threads) {
+                                              int rows, int plane, int tplane_lo = 0,
+                                              int c0 = 0) {
+  for (int i = threadIdx.x; i < rows * (DH / 4); i += kAbF32Threads) {
     const int r = i % rows, c4 = i / rows;  // a warp: 32 rows of one chunk
-    const float4 x = *reinterpret_cast<const float4*>(smem + raw + ab_raw_off(r, c4));
+    const float4 x = *reinterpret_cast<const float4*>(smem + raw + ab_raw_off<DH>(r, c4));
     const float xs[4] = {x.x, x.y, x.z, x.w};
     uint32_t hi[4], lo[4];
 #pragma unroll
@@ -298,32 +360,39 @@ __device__ __forceinline__ void ab_split_tile(unsigned char* smem, int raw, int 
     st_u4(smem + nplane + on, hi);
     st_u4(smem + nplane + plane + on, lo);
     if constexpr (T) {
-      const int rp = (r & ~7) | ((r & 1) << 2) | ((r & 6) >> 1);
+      if (NC == DH || (4 * c4 >= c0 && 4 * c4 < c0 + NC)) {
+        const int rp = (r & ~7) | ((r & 1) << 2) | ((r & 6) >> 1);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        split_p<PT>(xs[e], hi[e], lo[e]);
-        const uint32_t ot = ab_plane_off(kAbF32DH, 4 * c4 + e, rp);
-        *reinterpret_cast<uint32_t*>(smem + tplane + ot) = hi[e];
-        *reinterpret_cast<uint32_t*>(smem + tplane + kAbPlane + ot) = lo[e];
+        for (int e = 0; e < 4; ++e) {
+          split_p<PT>(xs[e], hi[e], lo[e]);
+          const uint32_t ot = ab_plane_off(NC, 4 * c4 + e - c0, rp);
+          *reinterpret_cast<uint32_t*>(smem + tplane + ot) = hi[e];
+          *reinterpret_cast<uint32_t*>(smem + tplane + tplane_lo + ot) = lo[e];
+        }
       }
     }
   }
 }
 
 // K1b: each row's statistics (the forward's lse, 1, rowsum(do * o)), 16
-// threads a row summing in a fixed order
+// threads a row summing in a fixed order (64 columns a pass)
+template <int DH>
 __global__ void __launch_bounds__(256) attn_bwd_f32_delta_kernel(const AttnBwdF32Args a,
                                                                   int rows) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int row = i >> 4, c = (i & 15) * 4;
+  const int row = i >> 4;
+  const int dh = attn_run_dh<DH>(a.dh);
   float s = 0.0f;
   const int bh = row / a.lq, qi = row % a.lq, b = bh / a.heads, h = bh % a.heads;
   if (row < rows) {
-    const float4 ov = *reinterpret_cast<const float4*>(a.o + b * a.o_bs + qi * a.o_rs +
-                                                       h * kAbF32DH + c);
-    const float4 dv = *reinterpret_cast<const float4*>(a.dout + b * a.do_bs + qi * a.do_rs +
-                                                       h * kAbF32DH + c);
-    s = ov.x * dv.x + ov.y * dv.y + ov.z * dv.z + ov.w * dv.w;
+#pragma unroll
+    for (int c = (i & 15) * 4; c < dh; c += 64) {
+      const float4 ov = *reinterpret_cast<const float4*>(a.o + b * a.o_bs + qi * a.o_rs +
+                                                         h * dh + c);
+      const float4 dv = *reinterpret_cast<const float4*>(a.dout + b * a.do_bs + qi * a.do_rs +
+                                                         h * dh + c);
+      s += ov.x * dv.x + ov.y * dv.y + ov.z * dv.z + ov.w * dv.w;
+    }
   }
 #pragma unroll
   for (int o = 8; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
@@ -335,51 +404,132 @@ __global__ void __launch_bounds__(256) attn_bwd_f32_delta_kernel(const AttnBwdF3
   }
 }
 
+// this warp's A fragment of 8-deep step kk from a raw tile read by ab_kval
+// (rows of DH floats): rows 16 warp + g (+ 8), columns 8 kk + t (+ 4); with
+// T, of its transpose: rows (d) r0 + 16 warp + g (+ 8), columns (rows of
+// the tile) 8 kk + t (+ 4), zero for d >= DH (M = 64 rows over a narrower
+// head)
+template <int P, bool T, int DH>
+__device__ __forceinline__ void ab_frag(const float* tile, int kk, uint32_t (&hi)[4],
+                                        uint32_t (&lo)[4], int r0 = 0) {
+  const int lane = threadIdx.x & 31, r = r0 + (threadIdx.x >> 5) * 16 + (lane >> 2);
+  const int c0 = 8 * kk + (lane & 3);
+  float x[4];
+  if constexpr (T) {
+    const bool in = DH >= 64 || r < DH;  // the rows r, r + 8 are in or out together
+    x[0] = in ? ab_kval<DH>(tile, c0, r) : 0.0f;
+    x[1] = in ? ab_kval<DH>(tile, c0, r + 8) : 0.0f;
+    x[2] = in ? ab_kval<DH>(tile, c0 + 4, r) : 0.0f;
+    x[3] = in ? ab_kval<DH>(tile, c0 + 4, r + 8) : 0.0f;
+  } else {
+    x[0] = ab_kval<DH>(tile, r, c0);
+    x[1] = ab_kval<DH>(tile, r + 8, c0);
+    x[2] = ab_kval<DH>(tile, r, c0 + 4);
+    x[3] = ab_kval<DH>(tile, r + 8, c0 + 4);
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split_p<P>(x[e], hi[e], lo[e]);
+}
+
+// this warp's A fragments of 8-deep steps kk0 .. kk0 + 3 (ab_frag)
+template <int P, bool T, int DH>
+__device__ __forceinline__ void ab_frags4(const float* tile, int kk0, uint32_t (&hi)[4][4],
+                                          uint32_t (&lo)[4][4], int r0 = 0) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) ab_frag<P, T, DH>(tile, kk0 + i, hi[i], lo[i], r0);
+}
+
+// issues steps kk0 .. kk0 + 3 of d (+)= A B as one wgmma group, A's
+// fragments (hi, lo) in registers, B the plane pair (hi at bplane, lo
+// `lo_off` bytes after) of `brows` rows; step 0 starts d afresh
+template <int P, int N, bool LO>
+__device__ __forceinline__ void ab_issue4(float (&d)[N / 2], const uint32_t (&hi)[4][4],
+                                          const uint32_t (&lo)[4][4], uint32_t bplane,
+                                          int brows, int kk0, int lo_off) {
+  wgmma_fence();
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    wg_step<P, N, LO>(d, hi[i], lo[i], ab_desc(bplane, brows, kk0 + i),
+                      ab_desc(bplane + lo_off, brows, kk0 + i), kk0 + i > 0);
+  wgmma_commit();
+}
+
+// d (+)= A B over the head tile's DH / 8 steps in groups of 4, A's fragments
+// split per use from a raw tile read by ab_kval (ab_frags4) into SETS
+// register sets in turn: with two, each group's fragments are split while
+// the group before runs, a set refilled once the group that read it is
+// done; with one (fewer registers), each group waits for the one before.
+// G0: the groups this warpgroup issued before in the same sequence (their
+// register sets alternate on).  B the plane pair of `brows` rows.  The
+// caller waits for the last group.
+template <int P, int N, bool LO, int DH, int G0, int SETS>
+__device__ __forceinline__ void ab_product_raw(float (&d)[N / 2], const float* tile,
+                                               uint32_t bplane, int brows, int lo_off,
+                                               uint32_t (&fh)[SETS][4][4],
+                                               uint32_t (&fl)[SETS][4][4]) {
+#pragma unroll
+  for (int grp = 0; grp < DH / 32; ++grp) {
+    const int set = (G0 + grp) % SETS;
+    if (G0 + grp >= SETS) wgmma_wait<SETS - 1>();
+    ab_frags4<P, false, DH>(tile, 4 * grp, fh[set], fl[set]);
+    ab_issue4<P, N, LO>(d, fh[set], fl[set], bplane, brows, 4 * grp, lo_off);
+  }
+}
+
 // The blocks' pre-pass: each row's (m, 1 / l, delta) over every key, with
 // delta = sum(p dp).  PS, PDP: how QK^T and dO V^T form their products.
-template <int PS, int PDP>
-__global__ void __launch_bounds__(kAbF32Threads, 2) attn_bwd_f32_stats_kernel(
+template <int PS, int PDP, int DH>
+__global__ void __launch_bounds__(kAbF32Threads, DH > 64 ? 1 : 2) attn_bwd_f32_stats_kernel(
     const AttnBwdF32Args a) {
+  using L = AbPre<DH>;
+  constexpr int BK = L::kBK;
+  constexpr bool QREG = DH <= 64;  // Q and dO fragments split once into registers
   extern __shared__ __align__(1024) unsigned char ab_smem[];
   unsigned char* smem = ab_smem;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y, b = bh / a.heads, h = bh % a.heads;
+  const int dh = attn_run_dh<DH>(a.dh);
   const uint32_t sbase = smem_u32(smem);
   if (sbase & 1023) __trap();  // the planes' swizzle needs 1024-byte alignment
-  const float* kb = a.k + b * a.k_bs + h * kAbF32DH;
-  const float* vb = a.v + b * a.v_bs + h * kAbF32DH;
+  const float* kb = a.k + b * a.k_bs + h * dh;
+  const float* vb = a.v + b * a.v_bs + h * dh;
   const float* mk = a.mask != nullptr ? a.mask + (long long)b * a.lk : nullptr;
-  const int ntiles = (a.lk + kAbF32PreK - 1) / kAbF32PreK;
+  const int ntiles = (a.lk + BK - 1) / BK;
+  const int q0 = blockIdx.x * kAbF32PreQ;
+  if constexpr (!QREG) {  // the raw Q and dO tiles, in the first group
+    ab_load_kswz<DH>(sbase + L::kQ, a.q + b * a.q_bs + h * dh, a.q_rs, q0, kAbF32PreQ, a.lq, dh);
+    ab_load_kswz<DH>(sbase + L::kQ + kAbF32PreQ * DH * 4, a.dout + b * a.do_bs + h * dh,
+                     a.do_rs, q0, kAbF32PreQ, a.lq, dh);
+  }
   auto load = [&](int kt) {
-    ab_load_raw(sbase + kAbPreRaw, kb, a.k_rs, kt * kAbF32PreK, kAbF32PreK, a.lk);
-    ab_load_raw(sbase + kAbPreRaw + kAbPrePlane, vb, a.v_rs, kt * kAbF32PreK, kAbF32PreK,
-                a.lk);
+    ab_load_raw<DH>(sbase + L::kRaw, kb, a.k_rs, kt * BK, BK, a.lk, dh);
+    ab_load_raw<DH>(sbase + L::kRaw + L::kPlane, vb, a.v_rs, kt * BK, BK, a.lk, dh);
     cp_async_commit();
   };
   load(0);
 
   // this thread's rows ra, rb: their Q and dO A fragments, split once
-  const int ra = blockIdx.x * kAbF32PreQ + warp * 16 + g, rb = ra + 8;
-  uint32_t qh[8][4], ql[8][4], oh[8][4], ol[8][4];
-  {
-    const float* qa = a.q + b * a.q_bs + h * kAbF32DH + (long long)(ra < a.lq ? ra : 0) * a.q_rs;
-    const float* qc = a.q + b * a.q_bs + h * kAbF32DH + (long long)(rb < a.lq ? rb : 0) * a.q_rs;
-    const float* da =
-        a.dout + b * a.do_bs + h * kAbF32DH + (long long)(ra < a.lq ? ra : 0) * a.do_rs;
-    const float* dc =
-        a.dout + b * a.do_bs + h * kAbF32DH + (long long)(rb < a.lq ? rb : 0) * a.do_rs;
+  const int ra = q0 + warp * 16 + g, rb = ra + 8;
+  constexpr int QS = QREG ? DH / 8 : 1;
+  uint32_t qh[QS][4], ql[QS][4], oh[QS][4], ol[QS][4];
+  if constexpr (QREG) {
+    const float* qa = a.q + b * a.q_bs + h * dh + (long long)(ra < a.lq ? ra : 0) * a.q_rs;
+    const float* qc = a.q + b * a.q_bs + h * dh + (long long)(rb < a.lq ? rb : 0) * a.q_rs;
+    const float* da = a.dout + b * a.do_bs + h * dh + (long long)(ra < a.lq ? ra : 0) * a.do_rs;
+    const float* dc = a.dout + b * a.do_bs + h * dh + (long long)(rb < a.lq ? rb : 0) * a.do_rs;
 #pragma unroll
-    for (int s = 0; s < 8; ++s) {
+    for (int s = 0; s < DH / 8; ++s) {
       const int c = 8 * s + t;
-      split_p<PS>(ra < a.lq ? qa[c] : 0.0f, qh[s][0], ql[s][0]);
-      split_p<PS>(rb < a.lq ? qc[c] : 0.0f, qh[s][1], ql[s][1]);
-      split_p<PS>(ra < a.lq ? qa[c + 4] : 0.0f, qh[s][2], ql[s][2]);
-      split_p<PS>(rb < a.lq ? qc[c + 4] : 0.0f, qh[s][3], ql[s][3]);
-      split_p<PDP>(ra < a.lq ? da[c] : 0.0f, oh[s][0], ol[s][0]);
-      split_p<PDP>(rb < a.lq ? dc[c] : 0.0f, oh[s][1], ol[s][1]);
-      split_p<PDP>(ra < a.lq ? da[c + 4] : 0.0f, oh[s][2], ol[s][2]);
-      split_p<PDP>(rb < a.lq ? dc[c + 4] : 0.0f, oh[s][3], ol[s][3]);
+      const bool c_in = c < dh, c4_in = c + 4 < dh;
+      split_p<PS>(ra < a.lq && c_in ? qa[c] : 0.0f, qh[s][0], ql[s][0]);
+      split_p<PS>(rb < a.lq && c_in ? qc[c] : 0.0f, qh[s][1], ql[s][1]);
+      split_p<PS>(ra < a.lq && c4_in ? qa[c + 4] : 0.0f, qh[s][2], ql[s][2]);
+      split_p<PS>(rb < a.lq && c4_in ? qc[c + 4] : 0.0f, qh[s][3], ql[s][3]);
+      split_p<PDP>(ra < a.lq && c_in ? da[c] : 0.0f, oh[s][0], ol[s][0]);
+      split_p<PDP>(rb < a.lq && c_in ? dc[c] : 0.0f, oh[s][1], ol[s][1]);
+      split_p<PDP>(ra < a.lq && c4_in ? da[c + 4] : 0.0f, oh[s][2], ol[s][2]);
+      split_p<PDP>(rb < a.lq && c4_in ? dc[c + 4] : 0.0f, oh[s][3], ol[s][3]);
     }
   }
 
@@ -389,29 +539,36 @@ __global__ void __launch_bounds__(kAbF32Threads, 2) attn_bwd_f32_stats_kernel(
   for (int kt = 0; kt < ntiles; ++kt) {
     cp_async_wait_all();
     __syncthreads();  // tile kt landed; every warp is done with the planes
-    ab_split_tile<PS, PS, false>(smem, kAbPreRaw, kAbPreK, 0, kAbF32PreK, kAbPrePlane);
-    ab_split_tile<PDP, PDP, false>(smem, kAbPreRaw + kAbPrePlane, kAbPreV, 0, kAbF32PreK,
-                                   kAbPrePlane);
+    ab_split_tile<PS, PS, false, DH>(smem, L::kRaw, L::kK, 0, BK, L::kPlane);
+    ab_split_tile<PDP, PDP, false, DH>(smem, L::kRaw + L::kPlane, L::kV, 0, BK, L::kPlane);
     fence_proxy_async();
     __syncthreads();
     if (kt + 1 < ntiles) load(kt + 1);
-    float s[kAbF32PreK / 2], dp[kAbF32PreK / 2];
+    float s[BK / 2], dp[BK / 2];
 #pragma unroll
-    for (int i = 0; i < kAbF32PreK / 2; ++i) s[i] = dp[i] = 0.0f;
-    wgmma_fence();
+    for (int i = 0; i < BK / 2; ++i) s[i] = dp[i] = 0.0f;
+    if constexpr (QREG) {
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      wg_step<PS, kAbF32PreK>(s, qh[kk], ql[kk], ab_desc(sbase + kAbPreK, kAbF32PreK, kk),
-                              ab_desc(sbase + kAbPreK + kAbPrePlane, kAbF32PreK, kk), kk > 0);
-      wg_step<PDP, kAbF32PreK>(dp, oh[kk], ol[kk], ab_desc(sbase + kAbPreV, kAbF32PreK, kk),
-                               ab_desc(sbase + kAbPreV + kAbPrePlane, kAbF32PreK, kk), kk > 0);
+      for (int kk = 0; kk < DH / 8; ++kk) {
+        wg_step<PS, BK>(s, qh[kk], ql[kk], ab_desc(sbase + L::kK, BK, kk),
+                        ab_desc(sbase + L::kK + L::kPlane, BK, kk), kk > 0);
+        wg_step<PDP, BK>(dp, oh[kk], ol[kk], ab_desc(sbase + L::kV, BK, kk),
+                         ab_desc(sbase + L::kV + L::kPlane, BK, kk), kk > 0);
+      }
+      wgmma_commit();
+    } else {
+      uint32_t fh[2][4][4], fl[2][4][4];
+      const float* qt = reinterpret_cast<const float*>(smem + L::kQ);
+      ab_product_raw<PS, BK, true, DH, 0, 2>(s, qt, sbase + L::kK, BK, L::kPlane, fh, fl);
+      ab_product_raw<PDP, BK, true, DH, DH / 32, 2>(dp, qt + kAbF32PreQ * DH, sbase + L::kV,
+                                                    BK, L::kPlane, fh, fl);
     }
-    wgmma_commit();
     wgmma_wait_all();
-    const int k0 = kt * kAbF32PreK;
+    const int k0 = kt * BK;
     float tmax[2] = {ab_neg_inf(), ab_neg_inf()};
 #pragma unroll
-    for (int j = 0; j < kAbF32PreK / 8; ++j)
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = k0 + 8 * j + 2 * t + (e & 1);
@@ -432,7 +589,7 @@ __global__ void __launch_bounds__(kAbF32Threads, 2) attn_bwd_f32_stats_kernel(
       m[r] = mnew;
     }
 #pragma unroll
-    for (int j = 0; j < kAbF32PreK / 8; ++j)
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float p = expf(s[4 * j + e] - m[e >> 1]);
@@ -456,59 +613,13 @@ __global__ void __launch_bounds__(kAbF32Threads, 2) attn_bwd_f32_stats_kernel(
   }
 }
 
-// this warp's A fragment of 8-deep step kk from the raw K / V tile: rows
-// (keys) 16 warp + g (+ 8), columns (d) 8 kk + t (+ 4); with T, of its
-// transpose: rows (d) 16 warp + g (+ 8), columns (keys) 8 kk + t (+ 4)
-template <int P, bool T>
-__device__ __forceinline__ void ab_frag(const float* tile, int kk, uint32_t (&hi)[4],
-                                        uint32_t (&lo)[4]) {
-  const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * 16 + (lane >> 2);
-  const int c0 = 8 * kk + (lane & 3);
-  float x[4];
-  if constexpr (T) {
-    x[0] = ab_kval(tile, c0, r0);
-    x[1] = ab_kval(tile, c0, r0 + 8);
-    x[2] = ab_kval(tile, c0 + 4, r0);
-    x[3] = ab_kval(tile, c0 + 4, r0 + 8);
-  } else {
-    x[0] = ab_kval(tile, r0, c0);
-    x[1] = ab_kval(tile, r0 + 8, c0);
-    x[2] = ab_kval(tile, r0, c0 + 4);
-    x[3] = ab_kval(tile, r0 + 8, c0 + 4);
-  }
-#pragma unroll
-  for (int e = 0; e < 4; ++e) split_p<P>(x[e], hi[e], lo[e]);
-}
-
-// this warp's A fragments of 8-deep steps kk0 .. kk0 + 3 (ab_frag)
-template <int P, bool T>
-__device__ __forceinline__ void ab_frags4(const float* tile, int kk0, uint32_t (&hi)[4][4],
-                                          uint32_t (&lo)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) ab_frag<P, T>(tile, kk0 + i, hi[i], lo[i]);
-}
-
-// issues steps kk0 .. kk0 + 3 of d (+)= A B as one wgmma group, A's
-// fragments (hi, lo) in registers, B the plane pair (hi at bplane, lo
-// kAbPlane after) of `brows` rows; step 0 starts d afresh
-template <int P, int N, bool LO>
-__device__ __forceinline__ void ab_issue4(float (&d)[N / 2], const uint32_t (&hi)[4][4],
-                                          const uint32_t (&lo)[4][4], uint32_t bplane,
-                                          int brows, int kk0) {
-  wgmma_fence();
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    wg_step<P, N, LO>(d, hi[i], lo[i], ab_desc(bplane, brows, kk0 + i),
-                      ab_desc(bplane + kAbPlane, brows, kk0 + i), kk0 + i > 0);
-  wgmma_commit();
-}
-
 // d = X^T B over the tile's 32 queries (4 steps), X^T held as C fragments
 // (x[4 j + e]: key rows g + 8 (e >> 1), queries 8 j + 2 t + (e & 1)),
-// which are A fragments of the relabelled queries; B a [64][32] plane pair
-template <int P>
-__device__ __forceinline__ void ab_c_product(float (&d)[32], const float (&x)[16],
-                                             uint32_t bplane) {
+// which are A fragments of the relabelled queries; B an [N][32] plane pair
+// (lo `lo_off` bytes after hi)
+template <int P, int N>
+__device__ __forceinline__ void ab_c_product(float (&d)[N / 2], const float (&x)[16],
+                                             uint32_t bplane, int lo_off) {
   uint32_t hi[4][4], lo[4][4];
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
@@ -518,12 +629,12 @@ __device__ __forceinline__ void ab_c_product(float (&d)[32], const float (&x)[16
     split_p<P>(x[4 * kk + 3], hi[kk][3], lo[kk][3]);  // (row g + 8, query 2t + 1)
   }
 #pragma unroll
-  for (int i = 0; i < 32; ++i) d[i] = 0.0f;
+  for (int i = 0; i < N / 2; ++i) d[i] = 0.0f;
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-    wg_step<P, 64>(d, hi[kk], lo[kk], ab_desc(bplane, kAbF32DH, kk),
-                   ab_desc(bplane + kAbPlane, kAbF32DH, kk), kk > 0);
+    wg_step<P, N>(d, hi[kk], lo[kk], ab_desc(bplane, N, kk), ab_desc(bplane + lo_off, N, kk),
+                  kk > 0);
   wgmma_commit();
   wgmma_wait_all();
 }
@@ -531,37 +642,41 @@ __device__ __forceinline__ void ab_c_product(float (&d)[32], const float (&x)[16
 // The main pass over ab_f32_group(Lk) consecutive 64-key blocks.  PS, PDP,
 // PDV, PDK, PDQ: how QK^T, dO V^T, P^T dO, dS^T Q and dS K form their
 // products.
-template <int PS, int PDP, int PDV, int PDK, int PDQ>
-__global__ void __launch_bounds__(kAbF32Threads, 2) attn_bwd_f32_main_kernel(
+template <int PS, int PDP, int PDV, int PDK, int PDQ, int DH>
+__global__ void __launch_bounds__(kAbF32Threads, DH > 64 ? 1 : 2) attn_bwd_f32_main_kernel(
     const AttnBwdF32Args a) {
+  using L = AbMain<DH>;
+  constexpr int NC = L::kNC;
   extern __shared__ __align__(1024) unsigned char ab_smem[];
   unsigned char* smem = ab_smem;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y, b = bh / a.heads, h = bh % a.heads;
+  const int dh = attn_run_dh<DH>(a.dh);
+  const int c0 = NC == DH ? 0 : blockIdx.z * NC;  // this CTA's head columns of dK, dV and dQ
   const uint32_t sbase = smem_u32(smem);
   if (sbase & 1023) __trap();  // the planes' swizzle needs 1024-byte alignment
-  const float* kt = reinterpret_cast<const float*>(smem + kAbMainK);
-  const float* vt = reinterpret_cast<const float*>(smem + kAbMainV);
-  const float* kb = a.k + b * a.k_bs + h * kAbF32DH;
-  const float* vb = a.v + b * a.v_bs + h * kAbF32DH;
-  const float* qb = a.q + b * a.q_bs + h * kAbF32DH;
-  const float* db = a.dout + b * a.do_bs + h * kAbF32DH;
+  const float* kt = reinterpret_cast<const float*>(smem + L::kK);
+  const float* vt = reinterpret_cast<const float*>(smem + L::kV);
+  const float* kb = a.k + b * a.k_bs + h * dh;
+  const float* vb = a.v + b * a.v_bs + h * dh;
+  const float* qb = a.q + b * a.q_bs + h * dh;
+  const float* db = a.dout + b * a.do_bs + h * dh;
   const float* st = a.stats + (long long)bh * 3 * a.lq;
   const float* mk = a.mask != nullptr ? a.mask + (long long)b * a.lk : nullptr;
   auto load_q = [&](int qt) {
     const int q0 = qt * kAbF32Q;
-    ab_load_raw(sbase + kAbMainRaw, qb, a.q_rs, q0, kAbF32Q, a.lq);
-    ab_load_raw(sbase + kAbMainRaw + kAbPlane, db, a.do_rs, q0, kAbF32Q, a.lq);
+    ab_load_raw<DH>(sbase + L::kRaw, qb, a.q_rs, q0, kAbF32Q, a.lq, dh);
+    ab_load_raw<DH>(sbase + L::kRaw + L::kRawQ, db, a.do_rs, q0, kAbF32Q, a.lq, dh);
     if (threadIdx.x < 3 * kAbF32Q) {  // m, r, delta of the tile's rows
       const int which = threadIdx.x / kAbF32Q, r = q0 + threadIdx.x % kAbF32Q;
       const bool in = r < a.lq;
-      cp_async4(sbase + kAbMainStat + ((qt & 1) * 3 * kAbF32Q + threadIdx.x) * 4,
+      cp_async4(sbase + L::kStat + ((qt & 1) * 3 * kAbF32Q + threadIdx.x) * 4,
                 st + (long long)which * a.lq + (in ? r : 0), in ? 4 : 0);
     }
     cp_async_commit();
   };
-  float* part = a.dqpart + ((long long)blockIdx.x * gridDim.y + bh) * a.lq * kAbF32DH;
+  float* part = a.dqpart + ((long long)blockIdx.x * gridDim.y + bh) * a.lq * dh;
   const int nqt = (a.lq + kAbF32Q - 1) / kAbF32Q;
   const int group = ab_f32_group(a.lk);
   const int kb0 = blockIdx.x * group;
@@ -570,13 +685,13 @@ __global__ void __launch_bounds__(kAbF32Threads, 2) attn_bwd_f32_main_kernel(
   for (int kblk = kb0; kblk < kb1; ++kblk) {
     const int k0 = kblk * kAbF32Keys;
     if (kblk > kb0) __syncthreads();  // every warp is done with the last block's tiles
-    for (int i = threadIdx.x; i < kAbF32Keys * 16; i += kAbF32Threads) {
-      const int r = i >> 4, c = (i & 15) * 4;
-      const bool in = k0 + r < a.lk;
+    for (int i = threadIdx.x; i < kAbF32Keys * (DH / 4); i += kAbF32Threads) {
+      const int r = (unsigned)i / (DH / 4), c = ((unsigned)i % (DH / 4)) * 4;
+      const bool in = k0 + r < a.lk && c < dh;
       const long long row = in ? k0 + r : 0;  // rows past Lk are zero-filled
-      const uint32_t off = (r * 64 + (c ^ ab_kswz(r))) * 4;
-      cp_async16(sbase + kAbMainK + off, kb + row * a.k_rs + c, in ? 16 : 0);
-      cp_async16(sbase + kAbMainV + off, vb + row * a.v_rs + c, in ? 16 : 0);
+      const uint32_t off = (r * DH + (c ^ ab_kswz(r))) * 4;
+      cp_async16(sbase + L::kK + off, kb + row * a.k_rs + (c < dh ? c : 0), in ? 16 : 0);
+      cp_async16(sbase + L::kV + off, vb + row * a.v_rs + (c < dh ? c : 0), in ? 16 : 0);
     }
     load_q(0);
 
@@ -586,20 +701,21 @@ __global__ void __launch_bounds__(kAbF32Threads, 2) attn_bwd_f32_main_kernel(
     const float mkc = (mk != nullptr && kc < a.lk) ? mk[kc] : 0.0f;
     const bool first = kblk == kb0;  // writes the partial; later blocks add to it
 
-    float dk[32], dv[32];
+    float dk[NC / 2], dv[NC / 2];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.0f;
+    for (int i = 0; i < NC / 2; ++i) dk[i] = dv[i] = 0.0f;
     for (int qt = 0; qt < nqt; ++qt) {
       cp_async_wait_all();
       __syncthreads();  // tile qt landed; every warp is done with the planes
-      ab_split_tile<PS, PDK, true>(smem, kAbMainRaw, kAbMainQn, kAbMainQt, kAbF32Q, kAbPlane);
-      ab_split_tile<PDP, PDV, true>(smem, kAbMainRaw + kAbPlane, kAbMainDOn, kAbMainDOt, kAbF32Q,
-                                    kAbPlane);
+      ab_split_tile<PS, PDK, true, DH, NC>(smem, L::kRaw, L::kQn, L::kQt, kAbF32Q, L::kQS,
+                                           L::kTP, c0);
+      ab_split_tile<PDP, PDV, true, DH, NC>(smem, L::kRaw + L::kRawQ, L::kDOn, L::kDOt, kAbF32Q,
+                                            L::kQP, L::kTP, c0);
       fence_proxy_async();
       __syncthreads();
       if (qt + 1 < nqt) load_q(qt + 1);  // the raw tile is free: one tile ahead
       const float* sts =
-          reinterpret_cast<const float*>(smem + kAbMainStat) + (qt & 1) * 3 * kAbF32Q;
+          reinterpret_cast<const float*>(smem + L::kStat) + (qt & 1) * 3 * kAbF32Q;
 
       // S^T = K Q^T and dP^T = V dO^T (keys g (+ 8) x queries 8 j + 2 t (+ 1)),
       // 4 steps a group: each group's A fragments are split while the group
@@ -607,17 +723,13 @@ __global__ void __launch_bounds__(kAbF32Threads, 2) attn_bwd_f32_main_kernel(
       float s[16], dp[16];
 #pragma unroll
       for (int i = 0; i < 16; ++i) s[i] = dp[i] = 0.0f;
-      uint32_t fh0[4][4], fl0[4][4], fh1[4][4], fl1[4][4];
-      ab_frags4<PS, false>(kt, 0, fh0, fl0);
-      ab_issue4<PS, 32, false>(s, fh0, fl0, sbase + kAbMainQn, kAbF32Q, 0);
-      ab_frags4<PS, false>(kt, 4, fh1, fl1);
-      ab_issue4<PS, 32, false>(s, fh1, fl1, sbase + kAbMainQn, kAbF32Q, 4);
-      wgmma_wait<1>();
-      ab_frags4<PDP, false>(vt, 0, fh0, fl0);
-      ab_issue4<PDP, 32, false>(dp, fh0, fl0, sbase + kAbMainDOn, kAbF32Q, 0);
-      wgmma_wait<1>();
-      ab_frags4<PDP, false>(vt, 4, fh1, fl1);
-      ab_issue4<PDP, 32, false>(dp, fh1, fl1, sbase + kAbMainDOn, kAbF32Q, 4);
+      // (one register set at DH 128, whose eight groups would spill with two)
+      constexpr int SETS = DH > 64 ? 1 : 2;
+      uint32_t fh[SETS][4][4], fl[SETS][4][4];
+      ab_product_raw<PS, 32, false, DH, 0, SETS>(s, kt, sbase + L::kQn, kAbF32Q, L::kQS, fh,
+                                                 fl);
+      ab_product_raw<PDP, 32, false, DH, DH / 32, SETS>(dp, vt, sbase + L::kDOn, kAbF32Q,
+                                                        L::kQP, fh, fl);
       wgmma_wait<0>();
 #pragma unroll
       for (int j = 0; j < 4; ++j)
@@ -639,42 +751,46 @@ __global__ void __launch_bounds__(kAbF32Threads, 2) attn_bwd_f32_main_kernel(
           split_p<PDQ>(dp[4 * j + e], hi, lo);
           const uint32_t off =
               ab_plane_off(kAbF32Q, 8 * j + 2 * t + (e & 1), warp * 16 + g + 8 * (e >> 1));
-          *reinterpret_cast<uint32_t*>(smem + kAbMainQn + off) = hi;
-          *reinterpret_cast<uint32_t*>(smem + kAbMainQn + kAbPlane + off) = lo;
+          *reinterpret_cast<uint32_t*>(smem + L::kQn + off) = hi;
+          *reinterpret_cast<uint32_t*>(smem + L::kQn + L::kQS + off) = lo;
         }
       fence_proxy_async();
 
-      float tile[32];
-      ab_c_product<PDV>(tile, s, sbase + kAbMainDOt);  // dV += P^T dO
+      float tile[NC / 2];
+      ab_c_product<PDV, NC>(tile, s, sbase + L::kDOt, L::kTP);  // dV += P^T dO
 #pragma unroll
-      for (int i = 0; i < 32; ++i) dv[i] += tile[i];
-      ab_c_product<PDK>(tile, dp, sbase + kAbMainQt);  // dK += dS^T Q
+      for (int i = 0; i < NC / 2; ++i) dv[i] += tile[i];
+      ab_c_product<PDK, NC>(tile, dp, sbase + L::kQt, L::kTP);  // dK += dS^T Q
 #pragma unroll
-      for (int i = 0; i < 32; ++i) dk[i] += tile[i];
+      for (int i = 0; i < NC / 2; ++i) dk[i] += tile[i];
       __syncthreads();  // dS is in shared memory for every warp
       float dqt[16];  // dQ^T = K^T dS: d rows g (+ 8) x queries 8 j + 2 t (+ 1)
 #pragma unroll
       for (int i = 0; i < 16; ++i) dqt[i] = 0.0f;
-      ab_frags4<PDQ, true>(kt, 0, fh0, fl0);
-      ab_issue4<PDQ, 32, true>(dqt, fh0, fl0, sbase + kAbMainQn, kAbF32Q, 0);
-      ab_frags4<PDQ, true>(kt, 4, fh1, fl1);
-      ab_issue4<PDQ, 32, true>(dqt, fh1, fl1, sbase + kAbMainQn, kAbF32Q, 4);
+      ab_frags4<PDQ, true, DH>(kt, 0, fh[0], fl[0], c0);
+      ab_issue4<PDQ, 32, true>(dqt, fh[0], fl[0], sbase + L::kQn, kAbF32Q, 0, L::kQS);
+      if constexpr (SETS == 1) wgmma_wait<0>();
+      ab_frags4<PDQ, true, DH>(kt, 4, fh[SETS - 1], fl[SETS - 1], c0);
+      ab_issue4<PDQ, 32, true>(dqt, fh[SETS - 1], fl[SETS - 1], sbase + L::kQn, kAbF32Q, 4,
+                               L::kQS);
       wgmma_wait<0>();
 #pragma unroll
       for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int qi = qt * kAbF32Q + 8 * j + 2 * t + (e & 1);
-          if (qi < a.lq) {
-            float* pp = part + (long long)qi * kAbF32DH + warp * 16 + g + 8 * (e >> 1);
+          const int d = c0 + warp * 16 + g + 8 * (e >> 1);
+          if (qi < a.lq && d < dh) {
+            float* pp = part + (long long)qi * dh + d;
             *pp = first ? dqt[4 * j + e] : *pp + dqt[4 * j + e];
           }
         }
     }
-    float* dko = a.dk + b * a.dk_bs + h * kAbF32DH + 2 * t;
-    float* dvo = a.dv + b * a.dv_bs + h * kAbF32DH + 2 * t;
+    float* dko = a.dk + b * a.dk_bs + h * dh + c0 + 2 * t;
+    float* dvo = a.dv + b * a.dv_bs + h * dh + c0 + 2 * t;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < NC / 8; ++j) {
+      if (c0 + 8 * j >= dh) continue;
       if (ka < a.lk) {
         *reinterpret_cast<float2*>(dko + (long long)ka * a.dk_rs + 8 * j) =
             make_float2(dk[4 * j], dk[4 * j + 1]);
@@ -691,18 +807,22 @@ __global__ void __launch_bounds__(kAbF32Threads, 2) attn_bwd_f32_main_kernel(
   }
 }
 
-// dq = the partials added in key-block order, a float4 a thread
+// dq = the partials [parts][B*H][Lq][dh] added in key-block order, a float4
+// a thread
+template <int DH>
 __global__ void __launch_bounds__(256) attn_bwd_f32_dq_sum_kernel(const AttnBwdF32Args a,
                                                                    int bhs, int nparts) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long rows = (long long)bhs * a.lq;
-  if (i >= rows * 16) return;
-  const long long row = i >> 4;
-  const int c = (int)(i & 15) * 4;
-  const float* p = a.dqpart + row * kAbF32DH + c;
+  const int dh = attn_run_dh<DH>(a.dh);
+  const int per = dh / 4;  // float4 a row
+  if (i >= rows * per) return;
+  const long long row = i / per;
+  const int c = (int)(i % per) * 4;
+  const float* p = a.dqpart + row * dh + c;
   float4 acc = *reinterpret_cast<const float4*>(p);
   for (int kp = 1; kp < nparts; ++kp) {
-    const float4 x = *reinterpret_cast<const float4*>(p + kp * rows * kAbF32DH);
+    const float4 x = *reinterpret_cast<const float4*>(p + kp * rows * dh);
     acc.x += x.x;
     acc.y += x.y;
     acc.z += x.z;
@@ -710,47 +830,57 @@ __global__ void __launch_bounds__(256) attn_bwd_f32_dq_sum_kernel(const AttnBwdF
   }
   const int bh = (int)(row / a.lq), qi = (int)(row % a.lq);
   const int b = bh / a.heads, h = bh % a.heads;
-  *reinterpret_cast<float4*>(a.dq + b * a.dq_bs + (long long)qi * a.dq_rs + h * kAbF32DH + c) =
-      acc;
+  *reinterpret_cast<float4*>(a.dq + b * a.dq_bs + (long long)qi * a.dq_rs + h * dh + c) = acc;
 }
 
 // Internal linkage: two libraries include this header (attention_bwd_f32,
 // decoder_blocks_bwd_f32).
-template <int PS, int PDP, int PDQ, int PDV, int PDK>
+template <int PS, int PDP, int PDQ, int PDV, int PDK, int DH>
 static cudaError_t launch_attention_bwd_f32_p(const AttnBwdF32Args& a, int batch,
                                               cudaStream_t stream) {
-  auto main_kernel = attn_bwd_f32_main_kernel<PS, PDP, PDV, PDK, PDQ>;
-  auto stats_kernel = attn_bwd_f32_stats_kernel<PS, PDP>;
+  using LM = AbMain<DH>;
+  using LP = AbPre<DH>;
+  auto main_kernel = attn_bwd_f32_main_kernel<PS, PDP, PDV, PDK, PDQ, DH>;
+  auto stats_kernel = attn_bwd_f32_stats_kernel<PS, PDP, DH>;
   static const cudaError_t attr = [&] {
     cudaError_t e = cudaFuncSetAttribute(main_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         kAbMainSmem);
+                                         LM::kSmem);
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(main_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxShared);
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(stats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kAbPreSmem);
+                               LP::kSmem);
     return e;
   }();
   if (attr != cudaSuccess) return attr;
   const int bh = batch * a.heads;
   const long long rows = (long long)bh * a.lq;
   if (a.lse != nullptr) {
-    attn_bwd_f32_delta_kernel<<<(unsigned)((rows * 16 + 255) / 256), 256, 0, stream>>>(a,
-                                                                                      (int)rows);
+    attn_bwd_f32_delta_kernel<DH><<<(unsigned)((rows * 16 + 255) / 256), 256, 0, stream>>>(
+        a, (int)rows);
   } else {
-    stats_kernel<<<dim3((a.lq + kAbF32PreQ - 1) / kAbF32PreQ, bh), kAbF32Threads, kAbPreSmem,
+    stats_kernel<<<dim3((a.lq + kAbF32PreQ - 1) / kAbF32PreQ, bh), kAbF32Threads, LP::kSmem,
                    stream>>>(a);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int nparts = ab_f32_parts(a.lk);
-  main_kernel<<<dim3(nparts, bh), kAbF32Threads, kAbMainSmem, stream>>>(a);
+  main_kernel<<<dim3(nparts, bh, DH / LM::kNC), kAbF32Threads, LM::kSmem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_bwd_f32_dq_sum_kernel<<<(unsigned)((rows * 16 + 255) / 256), 256, 0, stream>>>(a, bh,
-                                                                                    nparts);
+  const long long quads = rows * (a.dh / 4);
+  attn_bwd_f32_dq_sum_kernel<DH><<<(unsigned)((quads + 255) / 256), 256, 0, stream>>>(a, bh,
+                                                                                      nparts);
   return cudaGetLastError();
+}
+
+template <int DH>
+static cudaError_t launch_attention_bwd_f32_dh(const AttnBwdF32Args& a, int batch,
+                                               cudaStream_t stream) {
+  return launch_attention_bwd_f32_p<products_of(kProdBwdScores), products_of(kProdDP),
+                                    products_of(kProdDQ), products_of(kProdDV),
+                                    products_of(kProdDK), DH>(a, batch, stream);
 }
 
 // a.lse non-null: K1b (a.o required); null: the blocks (a.o unused)
@@ -762,9 +892,12 @@ static cudaError_t launch_attention_bwd_f32(const AttnBwdF32Args& a, int batch,
        a.dk_rs | a.dv_rs | a.dq_bs | a.dk_bs | a.dv_bs) & 3 ||
       (a.lse != nullptr && (a.o_rs | a.o_bs) & 3))
     return cudaErrorInvalidValue;
-  return launch_attention_bwd_f32_p<products_of(kProdBwdScores), products_of(kProdDP),
-                                    products_of(kProdDQ), products_of(kProdDV),
-                                    products_of(kProdDK)>(a, batch, stream);
+  switch (attn_head_tile(a.dh)) {
+    case 32: return launch_attention_bwd_f32_dh<32>(a, batch, stream);
+    case 64: return launch_attention_bwd_f32_dh<64>(a, batch, stream);
+    case 128: return launch_attention_bwd_f32_dh<128>(a, batch, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace crog

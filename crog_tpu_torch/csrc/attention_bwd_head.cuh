@@ -58,7 +58,9 @@
 namespace crog {
 
 constexpr int kHbQ = 32;          // query rows per tile
-constexpr int kHbLd = kAbDH + 8;  // bf16 row stride of the K, V, Q, dO, O tiles
+constexpr int kHbDH = 64;         // head dim
+constexpr int kHbLd = kHbDH + 8;  // bf16 row stride of the K, V, Q, dO, O tiles
+
 constexpr int kHbMaxL = 256;      // longest head this kernel takes
 constexpr int kHbThreads = 512;   // 16 warps
 
@@ -67,6 +69,19 @@ __host__ __device__ constexpr size_t hb_smem(int lp) {
          + (size_t)2 * 3 * kHbQ * kHbLd * 2  // two stages of Q, dO, O
          + (size_t)4 * kHbQ * (lp + 8) * 2   // P and dS, hi and lo
          + (size_t)(2 * 8 * kHbQ + kHbQ) * 4;  // row max, row sum, delta
+}
+
+// rows [r0, r0 + rows) of a [L, 64] head slice into a [rows, kHbLd] tile by
+// cp.async over the CTA's threads, zeros for rows >= L
+__device__ __forceinline__ void hb_load_rows(bf16* tile, const bf16* base, long long rs, int r0,
+                                             int rows, int L) {
+  for (int v = threadIdx.x; v < rows * 8; v += kHbThreads) {
+    const int r = v >> 3;
+    const int c = (v & 7) * 8;
+    const bool ok = r0 + r < L;
+    cp_async16(smem_u32(tile + r * kHbLd + c), base + (ok ? (long long)(r0 + r) * rs : 0) + c,
+               ok ? 16 : 0);
+  }
 }
 
 // the hi and lo bf16 halves of two f32 values, as packed pairs
@@ -102,20 +117,20 @@ __global__ void __launch_bounds__(kHbThreads, 1) attn_bwd_head_kernel(AttnBwdArg
   const int g = lane >> 2;
   const int qd = lane & 3;
 
-  const bf16* qb = a.q + b * a.q_bs + h * kAbDH;
-  const bf16* kb = a.k + b * a.k_bs + h * kAbDH;
-  const bf16* vb = a.v + b * a.v_bs + h * kAbDH;
-  const bf16* ob = a.o + b * a.o_bs + h * kAbDH;
-  const bf16* db = a.dout + b * a.do_bs + h * kAbDH;
+  const bf16* qb = a.q + b * a.q_bs + h * kHbDH;
+  const bf16* kb = a.k + b * a.k_bs + h * kHbDH;
+  const bf16* vb = a.v + b * a.v_bs + h * kHbDH;
+  const bf16* ob = a.o + b * a.o_bs + h * kHbDH;
+  const bf16* db = a.dout + b * a.do_bs + h * kHbDH;
 
   auto load_tile = [&](int t, int st) {
     bf16* base = stg + st * 3 * TILE;
-    ab_load_rows<kHbThreads>(base, qb, a.q_rs, t * kHbQ, kHbQ, L);
-    ab_load_rows<kHbThreads>(base + TILE, db, a.do_rs, t * kHbQ, kHbQ, L);
-    ab_load_rows<kHbThreads>(base + 2 * TILE, ob, a.o_rs, t * kHbQ, kHbQ, L);
+    hb_load_rows(base, qb, a.q_rs, t * kHbQ, kHbQ, L);
+    hb_load_rows(base + TILE, db, a.do_rs, t * kHbQ, kHbQ, L);
+    hb_load_rows(base + 2 * TILE, ob, a.o_rs, t * kHbQ, kHbQ, L);
   };
-  ab_load_rows<kHbThreads>(ks, kb, a.k_rs, 0, LP, L);
-  ab_load_rows<kHbThreads>(vs, vb, a.v_rs, 0, LP, L);
+  hb_load_rows(ks, kb, a.k_rs, 0, LP, L);
+  hb_load_rows(vs, vb, a.v_rs, 0, LP, L);
   load_tile(0, 0);
   cp_async_commit();
 
@@ -345,7 +360,7 @@ __global__ void __launch_bounds__(kHbThreads, 1) attn_bwd_head_kernel(AttnBwdArg
           mma_bf16(acc_l, al, bk[2 * u], bk[2 * u + 1]);
         }
       }
-      bf16* dqb = a.dq + b * a.dq_bs + h * kAbDH + dn * 8 + 2 * qd;
+      bf16* dqb = a.dq + b * a.dq_bs + h * kHbDH + dn * 8 + 2 * qd;
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int row = t * kHbQ + sr0 + g + 8 * i;
@@ -370,8 +385,8 @@ __global__ void __launch_bounds__(kHbThreads, 1) attn_bwd_head_kernel(AttnBwdArg
         *reinterpret_cast<uint32_t*>(vs + at) = pack_bf16(dv[i][n][2 * r], dv[i][n][2 * r + 1]);
       }
   __syncthreads();
-  bf16* dkb = a.dk + b * a.dk_bs + h * kAbDH;
-  bf16* dvb = a.dv + b * a.dv_bs + h * kAbDH;
+  bf16* dkb = a.dk + b * a.dk_bs + h * kHbDH;
+  bf16* dvb = a.dv + b * a.dv_bs + h * kHbDH;
   for (int v = tid; v < L * 8; v += kHbThreads) {
     const int r = v >> 3;
     const int c = (v & 7) * 8;
@@ -393,7 +408,8 @@ cudaError_t launch_attn_bwd_head_lp(const AttnBwdArgs& a, int batch, cudaStream_
 // unmasked self attention, 1 <= L <= kHbMaxL, head dim 64
 inline cudaError_t launch_attention_bwd_head(const AttnBwdArgs& a, int batch,
                                              cudaStream_t st) {
-  if (a.lq != a.lk || a.lq < 1 || a.lq > kHbMaxL || a.mask != nullptr || batch < 1)
+  if (a.lq != a.lk || a.lq < 1 || a.lq > kHbMaxL || a.mask != nullptr || batch < 1 ||
+      a.dh != kHbDH)
     return cudaErrorInvalidValue;
   switch (round_up(a.lq, 64)) {
     case 64: return launch_attn_bwd_head_lp<64>(a, batch, st);

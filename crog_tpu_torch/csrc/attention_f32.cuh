@@ -1,5 +1,6 @@
-// Softmax attention on fp32 operands, head dim 64: the fp32 build of the
-// attention forward (K1-f32, and the attention step of K2-f32 / K3-f32).
+// Softmax attention on fp32 operands, head dims 8-128: the fp32 build of
+// the attention forward (K1-f32, and the attention step of K2-f32 /
+// K3-f32).
 //
 // Replaces crog_tpu/ops/pallas_attention.py:104 `_fused_fwd` (pallas_call
 // at :111) and the attention `_mha_fwd` inside the decoder block kernels
@@ -13,9 +14,10 @@
 //                                        real keys, as the twin's does)
 //   o = softmax(s) v                    (all in f32)
 //   lse = logsumexp(s) over the keys     (K1-f32 only, for K1b-f32)
-// q/k/v/o are [B, L, H*64] f32 with a free row and batch stride (multiples
+// q/k/v/o are [B, L, H*dh] f32 with a free row and batch stride (multiples
 // of 4 floats), so q and k can be column slices of one packed projection;
-// any Lk >= 1 and Lq >= 1 (the key tiles stream, nothing is sized by Lk).  The twin is ops/attention.py:attention_plain.
+// any Lk >= 1 and Lq >= 1 (the key tiles stream, nothing is sized by Lk).
+// The twin is ops/attention.py:attention_plain.
 //
 // Bound on an H100 (ops/work.py, 3xTF32 at a third of TF32's 495 TFLOP/s):
 // the CLIP attention pool (B=24, 32 heads, L=169) is 5.6 GFLOP against 133
@@ -47,8 +49,19 @@
 // most 64 keys.  Every wgmma is issued by the whole warpgroup under no
 // branch (ptxas may serialize the products of a wgmma under a branch);
 // keys past Lk weigh 0 and load zeros.  No product falls back to mma.sync.
-// Shared memory: K's planes 32 KiB, V^T's 32 KiB, the raw K and V tiles 32
-// KiB: 98,304 bytes, two CTAs an SM (240 registers).  A CTA of two
+// Shared memory at head tile 64: K's planes 32 KiB, V^T's 32 KiB, the raw K
+// and V tiles 32 KiB: 98,304 bytes, two CTAs an SM (242 registers).
+//
+// Head dims: a template on the head tile DH (32, 64, 128; common.cuh
+// attn_head_tile), the head's dh (8 to DH) at run time, its columns past dh
+// zero-filled where they are loaded (registers or shared memory) and never
+// stored, so dh 8 and 16 run in the DH 32 build.  At DH 128 Q's split
+// fragments would take 128 registers beside O's 64: Q stays raw in shared
+// memory and its fragments are split per use (in groups of four 8-deep
+// steps, as the backward's main kernel splits K), the key tiles are 32
+// keys (S m64n32, so the [key][d] planes stay 16 KiB), and P V runs as two
+// m64n64 halves of O's columns, each joined to O before the next: 128 KiB,
+// one CTA an SM.  A CTA of two
 // warpgroups sharing each tile's split (one CTA an SM) measured slower on
 // an H100 at the decoder's 676 keys and at the attention pool's 169.
 #pragma once
@@ -61,17 +74,22 @@
 namespace crog {
 
 constexpr int kF32BQ = 64;  // query rows per CTA, one warpgroup
-constexpr int kF32BK = 64;  // key rows per tile
-constexpr int kF32DH = 64;  // head dim
 constexpr int kF32AttnThreads = 128;
 static_assert(kF32AttnThreads == kAbF32Threads, "ab_load_raw and ab_split_tile stride by it");
-// shared memory (bytes): planes hi at +0, lo at +kFwPlane
-constexpr int kFwPlane = 16384;           // one [64][64] f32 plane
-constexpr int kFwK = 0;                   // K [key][d] planes
-constexpr int kFwVt = 2 * kFwPlane;       // V^T [d][key'] planes
-constexpr int kFwRawK = 4 * kFwPlane;     // the raw K tile [64][64]
-constexpr int kFwRawV = 5 * kFwPlane;     // the raw V tile
-constexpr int kFwSmem = 6 * kFwPlane;
+
+// shared memory (bytes) at head tile DH; each plane pair hi at +0, lo
+// kPlane after
+template <int DH>
+struct FwLayout {
+  static constexpr int kBK = ab_f32_key_tile<DH>();  // keys per tile
+  static constexpr int kPlane = kBK * DH * 4;         // one [key][d] or [d][key'] plane
+  static constexpr int kK = 0;                        // K [key][d] planes
+  static constexpr int kVt = 2 * kPlane;              // V^T [d][key'] planes
+  static constexpr int kRawK = 4 * kPlane;            // the raw K tile [kBK][DH]
+  static constexpr int kRawV = 5 * kPlane;            // the raw V tile
+  static constexpr int kQ = 6 * kPlane;               // DH 128: the raw Q tile [64][DH]
+  static constexpr int kSmem = kQ + (DH > 64 ? kF32BQ * DH * 4 : 0);
+};
 
 struct AttnF32Args {
   const float* q;
@@ -81,15 +99,17 @@ struct AttnF32Args {
   float* o;
   float* lse = nullptr;  // [B*H, Lq]: each row's logsumexp of s, or null (K2/K3-f32)
   int heads, lq, lk;
+  int dh;  // head dim; head h's columns are [h * dh, (h + 1) * dh)
   long long q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs;
   float scale;
 };
 
 // keeps the compiler from moving register accesses across the wgmma
 // issue and wait (no instruction)
-__device__ __forceinline__ void fw_fence_regs(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fw_fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
@@ -103,18 +123,21 @@ __device__ __forceinline__ float fw_exp2(float x) {
 
 // The raw K tile is loaded and split by the backward's ab_load_raw and
 // ab_split_tile (ab_raw_off's swizzle; its hi / lo planes [key][d]).
-// The raw V tile [64][64]: 16-byte chunk c of key row r at r * 256 + (c ^
-// fw_vswz(r)) * 16, so that the split below reads keys 8j + 2w + e (j of
+// The raw V tile [kBK][DH]: 16-byte chunk c of key row r at r * DH * 4 + (c
+// ^ fw_vswz(r)) * 16, so that the split below reads keys 8j + 2w + e (j of
 // one quad of j, e 0 or 1) of one chunk from 8 distinct bank groups
 __device__ __forceinline__ int fw_vswz(int r) { return ((r >> 2) & 6) | (r & 1); }
 
+template <int DH>
 __device__ __forceinline__ void fw_load_v(uint32_t dst, const float* src, long long rs, int r0,
-                                          int limit) {
-  for (int i = threadIdx.x; i < kF32BK * 16; i += kF32AttnThreads) {
-    const int r = i >> 4, c4 = i & 15;
-    const bool in = r0 + r < limit;
-    cp_async16(dst + r * 256 + ((c4 ^ fw_vswz(r)) << 4),
-               src + (in ? (long long)(r0 + r) * rs : 0) + c4 * 4, in ? 16 : 0);
+                                          int limit, int dh) {
+  constexpr int BK = FwLayout<DH>::kBK, C = DH / 4;
+  for (int i = threadIdx.x; i < BK * C; i += kF32AttnThreads) {
+    const int r = (unsigned)i / C, c4 = (unsigned)i % C;
+    const bool in = r0 + r < limit && c4 * 4 < dh;
+    cp_async16(dst + r * (DH * 4) + ((c4 ^ fw_vswz(r)) << 4),
+               src + (in ? (long long)(r0 + r) * rs : 0) + (c4 * 4 < dh ? c4 * 4 : 0),
+               in ? 16 : 0);
   }
 }
 
@@ -122,18 +145,21 @@ __device__ __forceinline__ void fw_load_v(uint32_t dst, const float* src, long l
 // key 8j + 2w + e at column 8j + 4e + w, so that a thread takes keys 8j +
 // e, + 2, + 4, + 6 of four columns d and writes each d's four keys as one
 // 16-byte chunk of each plane (the same planes as ab_split_tile's
-// transposed ones); a quarter-warp covers 8 chunks of one d
-template <int P>
+// transposed ones); a quarter-warp covers the key chunks of one d
+template <int P, int DH>
 __device__ __forceinline__ void fw_split_vt(unsigned char* smem) {
+  using L = FwLayout<DH>;
+  constexpr int NJE = L::kBK / 4;  // key chunks 8j + 4e of a column
 #pragma unroll
-  for (int u = threadIdx.x; u < kF32BK * 4; u += kF32AttnThreads) {
-    const int je = u & 15, c4 = u >> 4;  // key chunk 8j + 4e (je = 2j + e), columns 4 c4 ..
+  for (int u = threadIdx.x; u < L::kBK * DH / 16; u += kF32AttnThreads) {
+    // key chunk 8j + 4e (je = 2j + e), columns 4 c4 ..
+    const int je = (unsigned)u % NJE, c4 = (unsigned)u / NJE;
     const int r0 = 8 * (je >> 1) + (je & 1);
     float x[4][4];  // [w][i]: key r0 + 2w, column 4 c4 + i
 #pragma unroll
     for (int w = 0; w < 4; ++w) {
       const int r = r0 + 2 * w;
-      const float4 v = *reinterpret_cast<const float4*>(smem + kFwRawV + r * 256 +
+      const float4 v = *reinterpret_cast<const float4*>(smem + L::kRawV + r * (DH * 4) +
                                                         ((c4 ^ fw_vswz(r)) << 4));
       x[w][0] = v.x;
       x[w][1] = v.y;
@@ -145,65 +171,75 @@ __device__ __forceinline__ void fw_split_vt(unsigned char* smem) {
       uint32_t hi[4], lo[4];
 #pragma unroll
       for (int w = 0; w < 4; ++w) split_p<P>(x[w][i], hi[w], lo[w]);
-      const uint32_t off = ab_plane_off(kF32DH, 4 * c4 + i, 4 * je);
-      st_u4(smem + kFwVt + off, hi);
-      st_u4(smem + kFwVt + kFwPlane + off, lo);
+      const uint32_t off = ab_plane_off(DH, 4 * c4 + i, 4 * je);
+      st_u4(smem + L::kVt + off, hi);
+      st_u4(smem + L::kVt + L::kPlane + off, lo);
     }
   }
 }
 
 // PS, PO: how QK^T and P.V form their products (tf32.cuh Products)
-template <int PS, int PO>
-__global__ void __launch_bounds__(kF32AttnThreads, 2) attn_fwd_f32_kernel(const AttnF32Args a) {
+template <int PS, int PO, int DH>
+__global__ void __launch_bounds__(kF32AttnThreads, DH > 64 ? 1 : 2)
+    attn_fwd_f32_kernel(const AttnF32Args a) {
+  using L = FwLayout<DH>;
+  constexpr int BK = L::kBK;
+  constexpr bool QREG = DH <= 64;  // Q's fragments split once into registers
   extern __shared__ __align__(1024) unsigned char fw_smem[];
   unsigned char* smem = fw_smem;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int b = blockIdx.y / a.heads, h = blockIdx.y % a.heads;
+  const int dh = attn_run_dh<DH>(a.dh);
   const uint32_t sbase = smem_u32(smem);
   if (sbase & 1023) __trap();  // the planes' swizzle needs 1024-byte alignment
-  const float* kb = a.k + b * a.k_bs + h * kF32DH;
-  const float* vb = a.v + b * a.v_bs + h * kF32DH;
+  const float* kb = a.k + b * a.k_bs + h * dh;
+  const float* vb = a.v + b * a.v_bs + h * dh;
   const float* mk = a.mask != nullptr ? a.mask + (long long)b * a.lk : nullptr;
-  const int ntiles = (a.lk + kF32BK - 1) / kF32BK;
+  const int ntiles = (a.lk + BK - 1) / BK;
   // one cp.async group each, empty past the last tile, so that the waits
   // below count alike on every tile: K(kt + 1) is committed before V(kt + 1)
   auto load_k = [&](int kt) {
-    if (kt < ntiles) ab_load_raw(sbase + kFwRawK, kb, a.k_rs, kt * kF32BK, kF32BK, a.lk);
+    if (kt < ntiles) ab_load_raw<DH>(sbase + L::kRawK, kb, a.k_rs, kt * BK, BK, a.lk, dh);
     cp_async_commit();
   };
   auto load_v = [&](int kt) {
-    if (kt < ntiles) fw_load_v(sbase + kFwRawV, vb, a.v_rs, kt * kF32BK, a.lk);
+    if (kt < ntiles) fw_load_v<DH>(sbase + L::kRawV, vb, a.v_rs, kt * BK, a.lk, dh);
     cp_async_commit();
   };
+  const int q0 = blockIdx.x * kF32BQ;
+  if constexpr (!QREG)  // the raw Q tile, in K(0)'s group
+    ab_load_kswz<DH>(sbase + L::kQ, a.q + b * a.q_bs + h * dh, a.q_rs, q0, kF32BQ, a.lq, dh);
   load_k(0);
   load_v(0);
 
   // this thread's rows ra, rb: their Q A fragments, split once
-  const int ra = blockIdx.x * kF32BQ + warp * 16 + g, rb = ra + 8;
-  uint32_t qh[8][4], ql[8][4];
-  {
-    const float* qa = a.q + b * a.q_bs + h * kF32DH + (long long)(ra < a.lq ? ra : 0) * a.q_rs;
-    const float* qc = a.q + b * a.q_bs + h * kF32DH + (long long)(rb < a.lq ? rb : 0) * a.q_rs;
+  const int ra = q0 + warp * 16 + g, rb = ra + 8;
+  constexpr int QS = QREG ? DH / 8 : 1;
+  uint32_t qh[QS][4], ql[QS][4];
+  if constexpr (QREG) {
+    const float* qa = a.q + b * a.q_bs + h * dh + (long long)(ra < a.lq ? ra : 0) * a.q_rs;
+    const float* qc = a.q + b * a.q_bs + h * dh + (long long)(rb < a.lq ? rb : 0) * a.q_rs;
 #pragma unroll
-    for (int s = 0; s < 8; ++s) {
+    for (int s = 0; s < DH / 8; ++s) {
       const int c = 8 * s + t;
-      split_p<PS>(ra < a.lq ? qa[c] : 0.0f, qh[s][0], ql[s][0]);
-      split_p<PS>(rb < a.lq ? qc[c] : 0.0f, qh[s][1], ql[s][1]);
-      split_p<PS>(ra < a.lq ? qa[c + 4] : 0.0f, qh[s][2], ql[s][2]);
-      split_p<PS>(rb < a.lq ? qc[c + 4] : 0.0f, qh[s][3], ql[s][3]);
+      const bool c_in = c < dh, c4_in = c + 4 < dh;
+      split_p<PS>(ra < a.lq && c_in ? qa[c] : 0.0f, qh[s][0], ql[s][0]);
+      split_p<PS>(rb < a.lq && c_in ? qc[c] : 0.0f, qh[s][1], ql[s][1]);
+      split_p<PS>(ra < a.lq && c4_in ? qa[c + 4] : 0.0f, qh[s][2], ql[s][2]);
+      split_p<PS>(rb < a.lq && c4_in ? qc[c + 4] : 0.0f, qh[s][3], ql[s][3]);
     }
   }
   cp_async_wait<1>();  // K(0) landed
   __syncthreads();
-  ab_split_tile<PS, PS, false>(smem, kFwRawK, kFwK, 0, kF32BK, kFwPlane);
+  ab_split_tile<PS, PS, false, DH>(smem, L::kRawK, L::kK, 0, BK, L::kPlane);
   fence_proxy_async();
   __syncthreads();  // K(0)'s planes are whole; the raw K tile is free
   load_k(1);
 
-  float o[32];
+  float o[DH / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.0f;
+  for (int i = 0; i < DH / 2; ++i) o[i] = 0.0f;
   // the softmax in log2 units: x = (s * scale + mask[key]) log2(e)
   const float sl2 = a.scale * kLog2e;
   float m[2] = {ab_neg_inf(), ab_neg_inf()};  // running max of rows ra, rb (the quad's)
@@ -211,35 +247,41 @@ __global__ void __launch_bounds__(kF32AttnThreads, 2) attn_fwd_f32_kernel(const 
   for (int kt = 0; kt < ntiles; ++kt) {
     // S = Q K^T over the tile, on K(kt)'s planes (scale-d 0: s is written
     // afresh)
-    float s[32];
+    float s[BK / 2];
     fw_fence_regs(s);
-    wgmma_fence();
+    if constexpr (QREG) {
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
-      wg_step<PS, 64>(s, qh[kk], ql[kk], ab_desc(sbase + kFwK, kF32BK, kk),
-                      ab_desc(sbase + kFwK + kFwPlane, kF32BK, kk), kk > 0);
-    wgmma_commit();
+      for (int kk = 0; kk < DH / 8; ++kk)
+        wg_step<PS, BK>(s, qh[kk], ql[kk], ab_desc(sbase + L::kK, BK, kk),
+                        ab_desc(sbase + L::kK + L::kPlane, BK, kk), kk > 0);
+      wgmma_commit();
+    } else {
+      uint32_t fh[2][4][4], fl[2][4][4];
+      ab_product_raw<PS, BK, true, DH, 0, 2>(s, reinterpret_cast<const float*>(smem + L::kQ),
+                                             sbase + L::kK, BK, L::kPlane, fh, fl);
+    }
     // while they run: V(kt) into its transposed planes (P V of tile kt - 1
     // is done with them)
     cp_async_wait<1>();  // V(kt) landed (K(kt + 1) may be in flight)
     __syncthreads();
-    fw_split_vt<PO>(smem);
+    fw_split_vt<PO, DH>(smem);
     fence_proxy_async();
     wgmma_wait<0>();
     fw_fence_regs(s);
 
     // scale, key mask, keys past Lk (-inf); then the online softmax
-    const int k0 = kt * kF32BK;
+    const int k0 = kt * BK;
     float tmax[2] = {ab_neg_inf(), ab_neg_inf()};
-    if (mk == nullptr && k0 + kF32BK <= a.lk) {  // alike in the CTA: no mask, every key real
+    if (mk == nullptr && k0 + BK <= a.lk) {  // alike in the CTA: no mask, every key real
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
+      for (int i = 0; i < BK / 2; ++i) {
         s[i] *= sl2;
         tmax[(i >> 1) & 1] = fmaxf(tmax[(i >> 1) & 1], s[i]);
       }
     } else {
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int key = k0 + 8 * j + 2 * t + (e & 1);
@@ -261,9 +303,9 @@ __global__ void __launch_bounds__(kF32AttnThreads, 2) attn_fwd_f32_kernel(const 
       l[r] *= corr[r];
     }
     // P's A fragments of the 8-key steps, keys relabelled within each step
-    uint32_t ph[8][4], pl[8][4];
+    uint32_t ph[BK / 8][4], pl[BK / 8][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < BK / 8; ++j) {
       float p[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -279,26 +321,32 @@ __global__ void __launch_bounds__(kF32AttnThreads, 2) attn_fwd_f32_kernel(const 
     load_v(kt + 1);
 
     // this tile's P V (keys past Lk weigh 0, their V rows load zeros),
-    // written afresh
-    float pv[32];
-    fw_fence_regs(pv);
-    wgmma_fence();
+    // written afresh, in halves of O's columns of at most 64 (N = PN)
+    constexpr int PN = DH > 64 ? 64 : DH;
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
-      wg_step<PO, 64>(pv, ph[kk], pl[kk], ab_desc(sbase + kFwVt, kF32DH, kk),
-                      ab_desc(sbase + kFwVt + kFwPlane, kF32DH, kk), kk > 0);
-    wgmma_commit();
-    // while they run: K(kt + 1) into its planes (S of tile kt is done)
-    if (kt + 1 < ntiles) {
-      cp_async_wait<1>();  // K(kt + 1) landed (V(kt + 1) may be in flight)
-      __syncthreads();
-      ab_split_tile<PS, PS, false>(smem, kFwRawK, kFwK, 0, kF32BK, kFwPlane);
-      fence_proxy_async();
+    for (int half = 0; half < DH / PN; ++half) {
+      float pv[PN / 2];
+      fw_fence_regs(pv);
+      wgmma_fence();
+      const uint32_t vt = sbase + L::kVt + half * PN * 128;  // rows d of this half
+#pragma unroll
+      for (int kk = 0; kk < BK / 8; ++kk)
+        wg_step<PO, PN>(pv, ph[kk], pl[kk], ab_desc(vt, DH, kk),
+                        ab_desc(vt + L::kPlane, DH, kk), kk > 0);
+      wgmma_commit();
+      // while they run: K(kt + 1) into its planes (S of tile kt is done)
+      if (half == 0 && kt + 1 < ntiles) {
+        cp_async_wait<1>();  // K(kt + 1) landed (V(kt + 1) may be in flight)
+        __syncthreads();
+        ab_split_tile<PS, PS, false, DH>(smem, L::kRawK, L::kK, 0, BK, L::kPlane);
+        fence_proxy_async();
+      }
+      wgmma_wait<0>();
+      fw_fence_regs(pv);
+#pragma unroll
+      for (int i = 0; i < PN / 2; ++i)
+        o[half * PN / 2 + i] = o[half * PN / 2 + i] * corr[(i >> 1) & 1] + pv[i];
     }
-    wgmma_wait<0>();
-    fw_fence_regs(pv);
-#pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] = o[i] * corr[(i >> 1) & 1] + pv[i];
     __syncthreads();  // K(kt + 1)'s planes are whole, V^T's free; the raw K tile is free
     load_k(kt + 2);
   }
@@ -316,9 +364,10 @@ __global__ void __launch_bounds__(kF32AttnThreads, 2) attn_fwd_f32_kernel(const 
     if (ra < a.lq) ls[ra] = m[0] * kLn2 + logf(l[0]);
     if (rb < a.lq) ls[rb] = m[1] * kLn2 + logf(l[1]);
   }
-  float* ob = a.o + b * a.o_bs + h * kF32DH + 2 * t;
+  float* ob = a.o + b * a.o_bs + h * dh + 2 * t;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < DH / 8; ++j) {
+    if (8 * j >= dh) continue;
     if (ra < a.lq)
       *reinterpret_cast<float2*>(ob + (long long)ra * a.o_rs + 8 * j) =
           make_float2(o[4 * j] * inv[0], o[4 * j + 1] * inv[0]);
@@ -331,12 +380,12 @@ __global__ void __launch_bounds__(kF32AttnThreads, 2) attn_fwd_f32_kernel(const 
 // Internal linkage: two libraries include this header (attention_f32,
 // decoder_blocks_f32), and a function-local static of an inline function
 // would be one object across them.
-template <int PS, int PO>
+template <int PS, int PO, int DH>
 static cudaError_t launch_attn_f32_p(const AttnF32Args& a, int batch, cudaStream_t stream) {
-  auto kernel = attn_fwd_f32_kernel<PS, PO>;
+  auto kernel = attn_fwd_f32_kernel<PS, PO, DH>;
   static const cudaError_t attr = [&] {
-    cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwSmem);
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         FwLayout<DH>::kSmem);
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxShared);
@@ -344,15 +393,25 @@ static cudaError_t launch_attn_f32_p(const AttnF32Args& a, int batch, cudaStream
   }();
   if (attr != cudaSuccess) return attr;
   const dim3 grid((a.lq + kF32BQ - 1) / kF32BQ, batch * a.heads);
-  kernel<<<grid, kF32AttnThreads, kFwSmem, stream>>>(a);
+  kernel<<<grid, kF32AttnThreads, FwLayout<DH>::kSmem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <int DH>
+static cudaError_t launch_attention_f32_dh(const AttnF32Args& a, int batch, cudaStream_t stream) {
+  return launch_attn_f32_p<products_of(kProdScores), products_of(kProdPV), DH>(a, batch, stream);
 }
 
 static cudaError_t launch_attention_f32(const AttnF32Args& a, int batch, cudaStream_t stream) {
   if (a.lk < 1 || a.lq < 1 || batch < 1) return cudaErrorInvalidValue;
   if ((a.q_rs | a.k_rs | a.v_rs | a.o_rs | a.q_bs | a.k_bs | a.v_bs | a.o_bs) & 3)
     return cudaErrorInvalidValue;
-  return launch_attn_f32_p<products_of(kProdScores), products_of(kProdPV)>(a, batch, stream);
+  switch (attn_head_tile(a.dh)) {
+    case 32: return launch_attention_f32_dh<32>(a, batch, stream);
+    case 64: return launch_attention_f32_dh<64>(a, batch, stream);
+    case 128: return launch_attention_f32_dh<128>(a, batch, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace crog

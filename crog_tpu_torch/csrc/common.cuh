@@ -8,6 +8,8 @@
 // register-level mma.sync, cp.async, TMA and wgmma instead.
 #pragma once
 
+#include <cmath>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -54,6 +56,33 @@ __device__ __forceinline__ float warp_max(float v) {
 constexpr float kNeg = -1e30f;
 
 __host__ __device__ constexpr int round_up(int n, int m) { return (n + m - 1) / m * m; }
+
+// The attention kernels (bf16 and fp32) are templates on a head tile: the
+// one that takes a head of dh columns is 32 for dh 8, 16 and 32, else dh
+// (64 or 128); 0 for a width no kernel takes.  ops/attention.py:head_tile
+// mirrors it.
+__host__ __device__ constexpr int attn_head_tile(int dh) {
+  return (dh == 8 || dh == 16 || dh == 32) ? 32 : (dh == 64 || dh == 128) ? dh : 0;
+}
+
+// the head dim of a D-wide projection over `heads` heads that the kernels
+// take (8, 16, 32, 64 or 128), or 0
+__host__ __device__ constexpr int attn_head_dim(int d, int heads) {
+  return heads > 0 && d % heads == 0 && attn_head_tile(d / heads) ? d / heads : 0;
+}
+
+// the head dim a kernel of head tile DH runs: DH itself in the 64-wide build
+// (the only dh attn_head_tile gives it), so that the configs' build folds
+// every column check away; the argument otherwise (8, 16 or 32 in the
+// 32-wide build, 128 in the 128-wide one, whose registers ptxas allots
+// without a spill that way)
+template <int DH>
+__device__ __forceinline__ int attn_run_dh(int dh) {
+  return DH == 64 ? DH : dh;
+}
+
+// the softmax scale dh^-0.5, the value ops/attention.py passes as a float
+inline float attn_scale(int dh) { return (float)(1.0 / std::sqrt((double)dh)); }
 
 // Counter-based dropout, the device side of crog_tpu_torch/ops/dropout.py:
 // bits(seed, row, col) = mix(mix(mix(seed) ^ row) ^ col), kept where

@@ -385,7 +385,8 @@ extern "C" int crog_self_block_fwd(
   bf16* qk = static_cast<bf16*>(ws_qk);
   bf16* v = static_cast<bf16*>(ws_v);
   bf16* o = static_cast<bf16*>(ws_o);
-  if (D != crog::kDD || D != heads * crog::kAttnDH) return (int)cudaErrorInvalidValue;
+  const int dh = crog::attn_head_dim(D, heads);
+  if (D != crog::kDD || dh == 0) return (int)cudaErrorInvalidValue;
   CROG_TRY(crog::launch_ln_pos(xb, g_pre, b_pre, static_cast<const bf16*>(pos),
                                xl, qin, M, L, 1, st));
   crog::ProjArgs p = {};
@@ -408,7 +409,8 @@ extern "C" int crog_self_block_fwd(
   a.q_rs = a.k_rs = 2 * D;
   a.v_bs = a.o_bs = (long long)L * D;
   a.v_rs = a.o_rs = D;
-  a.scale = 1.0f / 8.0f;  // head dim 64
+  a.dh = dh;
+  a.scale = crog::attn_scale(dh);
   CROG_TRY(crog::launch_attention(a, B, st));
   CROG_TRY(crog::launch_outproj(o, static_cast<const bf16*>(w_out), b_out, g_post,
                                 b_post, xb, static_cast<bf16*>(y),
@@ -440,7 +442,8 @@ extern "C" int crog_cross_block_fwd(
   bf16* kin = static_cast<bf16*>(ws_kin);
   bf16* k = static_cast<bf16*>(ws_k);
   bf16* v = static_cast<bf16*>(ws_v);
-  if (D != crog::kDD || D != heads * crog::kAttnDH) return (int)cudaErrorInvalidValue;
+  const int dh = crog::attn_head_dim(D, heads);
+  if (D != crog::kDD || dh == 0) return (int)cudaErrorInvalidValue;
   CROG_TRY(crog::launch_ln_pos(xb, g_pre, b_pre, static_cast<const bf16*>(pos),
                                nullptr, qin, M, L, 1, st));
   CROG_TRY(crog::launch_ln_pos(kvb, nullptr, nullptr,
@@ -466,7 +469,8 @@ extern "C" int crog_cross_block_fwd(
   a.q_bs = a.o_bs = (long long)L * D;
   a.k_bs = a.v_bs = (long long)T * D;
   a.q_rs = a.k_rs = a.v_rs = a.o_rs = D;
-  a.scale = 1.0f / 8.0f;  // head dim 64
+  a.dh = dh;
+  a.scale = crog::attn_scale(dh);
   CROG_TRY(crog::launch_attention(a, B, st));
   CROG_TRY(crog::launch_outproj(o, static_cast<const bf16*>(w_out), b_out, g_post,
                                 b_post, xb, static_cast<bf16*>(y),

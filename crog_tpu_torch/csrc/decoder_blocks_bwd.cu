@@ -267,7 +267,8 @@ extern "C" int crog_self_block_bwd(void* const* t, int B, int L, int D, int head
                                    int splits, unsigned seed, unsigned thresh,
                                    float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D != crog::kLD || D != heads * crog::kAbDH) return (int)cudaErrorInvalidValue;
+  const int dh = crog::attn_head_dim(D, heads);
+  if (D != crog::kLD || dh == 0) return (int)cudaErrorInvalidValue;
   const int M = B * L;
   const long long DD = (long long)D * D;
   const bf16* wi = P<const bf16>(t, 1);
@@ -295,7 +296,8 @@ extern "C" int crog_self_block_bwd(void* const* t, int B, int L, int D, int head
   a.q_rs = a.k_rs = 2 * D;
   a.v_bs = a.o_bs = a.do_bs = a.dq_bs = a.dk_bs = a.dv_bs = (long long)L * D;
   a.v_rs = a.o_rs = a.do_rs = a.dq_rs = a.dk_rs = a.dv_rs = D;
-  a.scale = 1.0f / 8.0f;  // head dim 64
+  a.dh = dh;
+  a.scale = crog::attn_scale(dh);
   CROG_TRY(crog::launch_attention_bwd<crog::kBwdBf16>(a, B, st));
   float* dxl = P<float>(t, 21);
   crog::GemmArgs g = dense_t(a.dq, wi, M, D);
@@ -333,7 +335,8 @@ extern "C" int crog_cross_block_bwd(void* const* t, int B, int L, int T, int D,
                                     int heads, int splits, unsigned seed,
                                     unsigned thresh, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D != crog::kLD || D != heads * crog::kAbDH) return (int)cudaErrorInvalidValue;
+  const int dh = crog::attn_head_dim(D, heads);
+  if (D != crog::kLD || dh == 0) return (int)cudaErrorInvalidValue;
   const int M = B * L;
   const int MT = B * T;
   const long long DD = (long long)D * D;
@@ -362,7 +365,8 @@ extern "C" int crog_cross_block_bwd(void* const* t, int B, int L, int T, int D,
   a.q_bs = a.o_bs = a.do_bs = a.dq_bs = (long long)L * D;
   a.k_bs = a.v_bs = a.dk_bs = a.dv_bs = (long long)T * D;
   a.q_rs = a.k_rs = a.v_rs = a.o_rs = a.do_rs = a.dq_rs = a.dk_rs = a.dv_rs = D;
-  a.scale = 1.0f / 8.0f;  // head dim 64
+  a.dh = dh;
+  a.scale = crog::attn_scale(dh);
   CROG_TRY(crog::launch_attention_bwd<crog::kBwdBf16>(a, B, st));
   float* dxl = P<float>(t, 25);
   crog::GemmArgs g = dense_t(a.dq, wi, M, D);

@@ -208,12 +208,13 @@ static cudaError_t bwd_dw(const float* dy, long long ldy, const float* x, float*
   return bwd_product<true, kProdDW>(dy, ldy, planes, dw, kBwdD, part, n, kBwdD, rows, s);
 }
 
-static AttnBwdF32Args attn_args(int heads, int lq, int lk) {
+static AttnBwdF32Args attn_args(int heads, int dh, int lq, int lk) {
   AttnBwdF32Args a = {};
   a.heads = heads;
+  a.dh = dh;
   a.lq = lq;
   a.lk = lk;
-  a.scale = 0.125f;  // 64^-0.5, as ops/decoder_blocks.py passes it
+  a.scale = attn_scale(dh);  // dh^-0.5, as ops/attention.py passes it
   return a;
 }
 
@@ -238,13 +239,14 @@ float* P(void* const* t, int i) { return static_cast<float*>(t[i]); }
 //   workspace 16 dop, 17 do [B*L, D], 18 dqkv [B*L, 3D], 19 dxl [B*L, D],
 //   20 stats [B*H, 3, L], 21 part (the chunk partials of the products,
 //   ops/decoder_blocks.py f32_bwd_work), 22 lnpart [ceil(B*L/32), 3, D],
-//   23 cpart [ceil(B*L/256), 3D], 24 dqpart [ab_f32_parts(L), B*H, L, 64],
+//   23 cpart [ceil(B*L/256), 3D], 24 dqpart [ab_f32_parts(L), B*H, L, D / H],
 //   25 planes (the TF32 planes of each product's B, f32_bwd_work).
 extern "C" int crog_self_block_f32_bwd(void* const* t, int b, int l, int d, int heads,
                                        unsigned seed, unsigned thresh, float scale,
                                        void* stream) {
   using namespace crog;
-  if (d != kBwdD || heads * kAbF32DH != d || l < 1 || b < 1)
+  const int dh = attn_head_dim(d, heads);
+  if (d != kBwdD || dh == 0 || l < 1 || b < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m = b * l;
@@ -259,7 +261,7 @@ extern "C" int crog_self_block_f32_bwd(void* const* t, int b, int l, int d, int 
 
   CROG_TRY(ln_post_bwd(op, dy, g_post, Dropout{seed, thresh, scale}, dop, lnpart, dvec, m, s));
   CROG_TRY(bwd_weight<kProdDO>(dop, d, wo, planes, dO, part, m, d, s));
-  AttnBwdF32Args a = attn_args(heads, l, l);
+  AttnBwdF32Args a = attn_args(heads, dh, l, l);
   a.q = qk;
   a.k = qk + d;
   a.v = v;
@@ -296,12 +298,13 @@ extern "C" int crog_self_block_f32_bwd(void* const* t, int b, int l, int d, int 
 //   workspace 20 dop, 21 do, 22 dq [B*L, D], 23 dkv2 [B*T, 2D] (dk | dv),
 //   24 dxl [B*L, D], 25 stats [B*H, 3, L], 26 part (as for the self
 //   block), 27 lnpart, 28 cpart [ceil(B*L/256), D] as for the self block,
-//   29 dqpart [ab_f32_parts(T), B*H, L, 64], 30 planes.
+//   29 dqpart [ab_f32_parts(T), B*H, L, D / H], 30 planes.
 extern "C" int crog_cross_block_f32_bwd(void* const* t, int b, int l, int tt, int d, int heads,
                                         unsigned seed, unsigned thresh, float scale,
                                         void* stream) {
   using namespace crog;
-  if (d != kBwdD || heads * kAbF32DH != d || l < 1 || tt < 1 || b < 1)
+  const int dh = attn_head_dim(d, heads);
+  if (d != kBwdD || dh == 0 || l < 1 || tt < 1 || b < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m = b * l, mt = b * tt;
@@ -316,7 +319,7 @@ extern "C" int crog_cross_block_f32_bwd(void* const* t, int b, int l, int tt, in
 
   CROG_TRY(ln_post_bwd(op, dy, g_post, Dropout{seed, thresh, scale}, dop, lnpart, dvec, m, s));
   CROG_TRY(bwd_weight<kProdDO>(dop, d, wo, planes, dO, part, m, d, s));
-  AttnBwdF32Args a = attn_args(heads, l, tt);
+  AttnBwdF32Args a = attn_args(heads, dh, l, tt);
   a.q = q;
   a.k = k;
   a.v = v;

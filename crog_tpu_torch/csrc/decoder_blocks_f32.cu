@@ -41,7 +41,6 @@
 namespace crog {
 
 constexpr int kBlkD = 512;
-constexpr float kAttnScale = 0.125f;  // 64^-0.5, as ops/decoder_blocks.py passes it
 
 // xl = LN(x) * g + b when LN (else xl = x); qin = xl + pos[row % period];
 // xl is stored only where xl_out is not null
@@ -119,7 +118,8 @@ extern "C" int crog_self_block_f32_fwd(const void* const* table, int b, int l, i
                                        unsigned seed, unsigned thresh, float scale,
                                        void* stream) {
   using namespace crog;
-  if (d != kBlkD || heads * kF32DH != d || l < 1 || b < 1)
+  const int dh = attn_head_dim(d, heads);
+  if (d != kBlkD || dh == 0 || l < 1 || b < 1)
     return (int)cudaErrorInvalidValue;
   auto in = [&](int i) { return static_cast<const float*>(table[i]); };
   auto out = [&](int i) { return static_cast<float*>(const_cast<void*>(table[i])); };
@@ -151,7 +151,8 @@ extern "C" int crog_self_block_f32_fwd(const void* const* table, int b, int l, i
   a.q_rs = a.k_rs = 2 * d;
   a.v_bs = a.o_bs = (long long)l * d;
   a.v_rs = a.o_rs = d;
-  a.scale = kAttnScale;
+  a.dh = dh;
+  a.scale = attn_scale(dh);
   err = launch_attention_f32(a, b, s);
   if (err == cudaSuccess)
     err = gemm<kProdOut>(o, out_w, planes + 6 * dd, out_b, op, m, d, d, s);
@@ -169,7 +170,8 @@ extern "C" int crog_cross_block_f32_fwd(const void* const* table, int b, int l, 
                                         int heads, unsigned seed, unsigned thresh, float scale,
                                         void* stream) {
   using namespace crog;
-  if (d != kBlkD || heads * kF32DH != d || l < 1 || t < 1 || b < 1)
+  const int dh = attn_head_dim(d, heads);
+  if (d != kBlkD || dh == 0 || l < 1 || t < 1 || b < 1)
     return (int)cudaErrorInvalidValue;
   auto in = [&](int i) { return static_cast<const float*>(table[i]); };
   auto out = [&](int i) { return static_cast<float*>(const_cast<void*>(table[i])); };
@@ -205,7 +207,8 @@ extern "C" int crog_cross_block_f32_fwd(const void* const* table, int b, int l, 
   a.q_bs = a.o_bs = (long long)l * d;
   a.k_bs = a.v_bs = (long long)t * d;
   a.q_rs = a.k_rs = a.v_rs = a.o_rs = d;
-  a.scale = kAttnScale;
+  a.dh = dh;
+  a.scale = attn_scale(dh);
   err = launch_attention_f32(a, b, s);
   if (err == cudaSuccess)
     err = gemm<kProdOut>(o, out_w, planes + 6 * dd, out_b, op, m, d, d, s);

@@ -28,7 +28,9 @@ from crog_tpu_torch.ops import cuda_build, work
 NEG = -1e30  # the kernels' mask value: finite, keeps all-masked rows finite
 ONE_PASS_MAX_KEYS = 192  # the forward's one-pass kernel holds 3 key tiles of scores
 HEAD_MAX_LEN = 256  # K1b's one-CTA-per-head kernel holds a whole head
-HEAD_DIM = 64
+HEAD_KERNEL_DIM = 64  # ... of this head dim (every CLIP attention's)
+HEAD_DIMS = (8, 16, 32, 64, 128)  # the head dims the attention kernels take
+_DIMS = ", ".join(map(str, HEAD_DIMS[:-1])) + f" or {HEAD_DIMS[-1]}"
 F32_KEY_BLOCK = 64  # keys per main-kernel block of the fp32 backward
 F32_MAX_DQ_PARTS = 11  # its dQ partials at most (csrc/attention_bwd_f32.cuh kAbF32MaxParts)
 
@@ -71,6 +73,22 @@ def _check_rows(t: torch.Tensor, name: str, dtype: torch.dtype = torch.bfloat16)
         )
 
 
+def head_tile(dh: int) -> int:
+    """The head tile of the kernel build that takes a head of ``dh``
+    columns (csrc/common.cuh attn_head_tile): 32 for dh 8, 16 and 32 (the
+    columns past dh zero-filled in shared memory, never stored), else dh
+    (64, 128); 0 for a head dim no kernel takes."""
+    return max(dh, 32) if dh in HEAD_DIMS else 0
+
+
+def head_dim(d: int, num_heads: int) -> int:
+    """The head dim of a ``d``-wide projection over ``num_heads`` heads if
+    the kernels take it (one of HEAD_DIMS), else 0 (csrc/common.cuh
+    attn_head_dim)."""
+    return d // num_heads if num_heads > 0 and d % num_heads == 0 and head_tile(
+        d // num_heads) else 0
+
+
 def fwd_path(lk: int) -> str:
     """Which forward kernel takes a head of ``lk`` keys: "one_pass" (the
     head's scores in registers, K1's 169 and K3's 17 keys) up to
@@ -83,9 +101,9 @@ def fwd_path(lk: int) -> str:
 
 
 def fused_attention(q, k, v, num_heads: int, mask_add=None, with_lse: bool = False):
-    """K1.  q [B, Lq, H*64], k/v [B, Lk, H*64], all bf16 or all fp32 (any
-    row and batch stride, unit feature stride); ``mask_add`` [B, Lk] f32 or
-    None.
+    """K1.  q [B, Lq, H*dh], k/v [B, Lk, H*dh] with dh one of HEAD_DIMS,
+    all bf16 or all fp32 (any row and batch stride, unit feature stride);
+    ``mask_add`` [B, Lk] f32 or None.
 
     On a CPU tensor this is ``attention_plain``; on a CUDA tensor it launches
     the build for q's dtype (``cuda_build.library_for``): crog_attention_fwd
@@ -106,9 +124,10 @@ def fused_attention(q, k, v, num_heads: int, mask_add=None, with_lse: bool = Fal
     lk = k.shape[1]
     for t, n in ((q, "q"), (k, "k"), (v, "v")):
         _check_rows(t, n, q.dtype)
-    if d != num_heads * HEAD_DIM or k.shape != (b, lk, d) or v.shape != (b, lk, d):
+    dh = head_dim(d, num_heads)
+    if not dh or k.shape != (b, lk, d) or v.shape != (b, lk, d):
         raise ValueError(
-            f"attention kernel takes head dim {HEAD_DIM}: q {tuple(q.shape)}, "
+            f"attention kernel takes head dims {_DIMS}: q {tuple(q.shape)}, "
             f"k {tuple(k.shape)}, v {tuple(v.shape)}, {num_heads} heads"
         )
     fwd_path(lk)  # raises on no keys
@@ -118,9 +137,9 @@ def fused_attention(q, k, v, num_heads: int, mask_add=None, with_lse: bool = Fal
     lib = cuda_build.load(name)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask_add is None else mask_add.data_ptr(), o.data_ptr())
-    args = (b, num_heads, lq, lk,
+    args = (b, num_heads, lq, lk, dh,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1), o.stride(0), o.stride(1), HEAD_DIM**-0.5)
+            v.stride(0), v.stride(1), o.stride(0), o.stride(1), dh**-0.5)
     stream = cuda_build.stream_ptr(q.device)
     if q.dtype == torch.float32:
         lse = (torch.empty(b, num_heads, lq, dtype=torch.float32, device=q.device)
@@ -253,20 +272,24 @@ def attention_bwd_f32_plain(q, k, v, do, num_heads: int, mask_add=None, o=None, 
     return tuple(_merge_heads(t, q.dtype) for t in (dq, torch.cat(dks, 2), torch.cat(dvs, 2)))
 
 
-def _check_bwd_width(q, num_heads: int) -> None:
+def _check_bwd_width(q, num_heads: int) -> int:
+    """The head dim of ``q`` [B, L, H*dh] that the backward kernels take;
+    raises for any other width or no token."""
     b, l, d = q.shape
-    if d != num_heads * HEAD_DIM or l < 1:
+    dh = head_dim(d, num_heads)
+    if not dh or l < 1:
         raise ValueError(
-            f"attention backward kernel takes head dim {HEAD_DIM} and at least 1 "
+            f"attention backward kernel takes head dims {_DIMS} and at least 1 "
             f"token: q {tuple(q.shape)}, {num_heads} heads"
         )
+    return dh
 
 
 def f32_dq_parts(lk: int):
     """(key blocks a CTA walks, dQ partials written) by the fp32 attention
     backward's main kernel over ``lk`` keys: ceil(lk / 64) blocks of 64 in
     groups of ceil(blocks / F32_MAX_DQ_PARTS) consecutive ones, one partial
-    [B*H, Lq, 64] per group, so that the workspace grows linearly in Lq
+    [B*H, Lq, dh] per group, so that the workspace grows linearly in Lq
     (one group per block up to 704 keys; 9 partials of 3 blocks at 1600).
     csrc/attention_bwd_f32.cuh ab_f32_group / ab_f32_parts make the same
     split, and crog_attention_f32_dq_parts reports it."""
@@ -275,18 +298,22 @@ def f32_dq_parts(lk: int):
     return group, -(-blocks // group)
 
 
-def bwd_path(l: int, bf16_casts: bool = False) -> str:
-    """Which K1b kernel takes a head of ``l`` tokens: "head" (one CTA per
-    head, crog_attention_bwd_head) up to HEAD_MAX_LEN tokens, else
-    "rows_cols" (the two kernels of crog_attention_bwd, any longer head);
-    the decoder blocks' cast points exist only on the two-kernel path."""
-    return "head" if l <= HEAD_MAX_LEN and not bf16_casts else "rows_cols"
+def bwd_path(l: int, bf16_casts: bool = False, dh: int = HEAD_KERNEL_DIM) -> str:
+    """Which K1b kernel takes a head of ``l`` tokens and head dim ``dh``:
+    "head" (one CTA per head, crog_attention_bwd_head) up to HEAD_MAX_LEN
+    tokens of HEAD_KERNEL_DIM columns, else "rows_cols" (the two kernels of
+    crog_attention_bwd: any longer head, and every other head dim -- the
+    head kernel's warps tile 64 columns, and 256 tokens of dh 128 would not
+    fit its shared memory); the decoder blocks' cast points exist only on
+    the two-kernel path.  crog_attention_bwd_head_takes is the C mirror."""
+    head = l <= HEAD_MAX_LEN and dh == HEAD_KERNEL_DIM and not bf16_casts
+    return "head" if head else "rows_cols"
 
 
 def attention_bwd(q, k, v, o, do, num_heads: int, bf16_casts: bool = False, mask_add=None,
                   lse=None):
-    """K1b.  q, o, do [B, Lq, H*64], k, v [B, Lk, H*64], all bf16 or all
-    fp32 (contiguous) -> dq, dk, dv.
+    """K1b.  q, o, do [B, Lq, H*dh], k, v [B, Lk, H*dh] with dh one of
+    HEAD_DIMS, all bf16 or all fp32 (contiguous) -> dq, dk, dv.
 
     On a CPU tensor this is ``attention_bwd_plain``; on a CUDA tensor it
     launches the build for q's dtype (``cuda_build.library_for``): the bf16
@@ -308,7 +335,7 @@ def attention_bwd(q, k, v, o, do, num_heads: int, bf16_casts: bool = False, mask
             return mha_bwd_plain(q, k, v, do, num_heads, mask_add)
         return attention_bwd_plain(q, k, v, o, do, num_heads, lse, mask_add)
     name = cuda_build.library_for("attention_bwd", q.dtype)
-    _check_bwd_width(q, num_heads)
+    dh = _check_bwd_width(q, num_heads)
     _check_bwd_width(k, num_heads)
     b, lq, d = q.shape
     lk = k.shape[1]
@@ -331,14 +358,14 @@ def attention_bwd(q, k, v, o, do, num_heads: int, bf16_casts: bool = False, mask
     ptrs = [t.data_ptr() for t in (q, k, v, o, do, dq, dk, dv)]
     lib = cuda_build.load("attention_bwd")
     stream = cuda_build.stream_ptr(q.device)
-    if lq == lk and bwd_path(lq, bf16_casts) == "head":
-        rc = lib.crog_attention_bwd_head(*ptrs, b, num_heads, lq, HEAD_DIM**-0.5, stream)
+    if lq == lk and bwd_path(lq, bf16_casts, dh) == "head":
+        rc = lib.crog_attention_bwd_head(*ptrs, b, num_heads, lq, dh, dh**-0.5, stream)
         cuda_build.check_launch(lib, rc, "crog_attention_bwd_head")
     else:
         stats = torch.empty(3, b * num_heads, lq, dtype=torch.float32, device=q.device)
         rc = lib.crog_attention_bwd(*ptrs, stats.data_ptr(),
                                     None if mask_add is None else mask_add.data_ptr(),
-                                    b, num_heads, lq, lk, HEAD_DIM**-0.5, int(bf16_casts),
+                                    b, num_heads, lq, lk, dh, dh**-0.5, int(bf16_casts),
                                     stream)
         cuda_build.check_launch(lib, rc, "crog_attention_bwd")
     attention_bwd.launches += 1
@@ -358,6 +385,7 @@ def _attention_bwd_f32(name, q, k, v, o, do, num_heads: int, mask_add=None, lse=
     partial each, and their sum in key-block order."""
     b, lq, d = q.shape
     lk = k.shape[1]
+    dh = d // num_heads
     for t, n in ((q, "q"), (do, "do")) + (((o, "o"),) if lse is not None else ()):
         cuda_build.require(t, n, torch.float32, (b, lq, d))
     for t, n in ((k, "k"), (v, "v")):
@@ -370,7 +398,7 @@ def _attention_bwd_f32(name, q, k, v, o, do, num_heads: int, mask_add=None, lse=
         o = q  # not read
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     stats = torch.empty(b * num_heads, 3, lq, dtype=torch.float32, device=q.device)
-    dqpart = torch.empty(f32_dq_parts(lk)[1], b * num_heads, lq, HEAD_DIM,
+    dqpart = torch.empty(f32_dq_parts(lk)[1], b * num_heads, lq, dh,
                          dtype=torch.float32, device=q.device)
     lib = cuda_build.load(name)
     strides = [s for t in (q, k, v, o, do, dq, dk, dv) for s in (t.stride(0), t.stride(1))]
@@ -378,8 +406,8 @@ def _attention_bwd_f32(name, q, k, v, o, do, num_heads: int, mask_add=None, lse=
         *(t.data_ptr() for t in (q, k, v)), None if lse is None else o.data_ptr(),
         do.data_ptr(), None if mask_add is None else mask_add.data_ptr(),
         None if lse is None else lse.data_ptr(),
-        *(t.data_ptr() for t in (dq, dk, dv, stats, dqpart)), b, num_heads, lq, lk, *strides,
-        HEAD_DIM**-0.5, cuda_build.stream_ptr(q.device))
+        *(t.data_ptr() for t in (dq, dk, dv, stats, dqpart)), b, num_heads, lq, lk, dh,
+        *strides, dh**-0.5, cuda_build.stream_ptr(q.device))
     cuda_build.check_launch(lib, rc, "crog_attention_f32_bwd")
     attention_bwd.launches_f32 += 1
     return dq, dk, dv

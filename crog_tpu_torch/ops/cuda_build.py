@@ -45,22 +45,22 @@ _DROP = [_U, _U, _F]  # dropout seed, uint32 threshold (0: off), keep scale
 # order is documented at each C function.
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "attention": {
-        "crog_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I]
-        + [_L] * 8 + [_F, _P],
-        "crog_attention_fwd_attrs": [_I, _P],
+        "crog_attention_fwd": [_P] * 5 + [_I] * 5 + [_L] * 8 + [_F, _P],
+        "crog_attention_fwd_attrs": [_I, _I, _P],
     },
     "attention_f32": {
-        "crog_attention_f32_fwd": [_P] * 6 + [_I] * 4 + [_L] * 8 + [_F, _P],
+        "crog_attention_f32_fwd": [_P] * 6 + [_I] * 5 + [_L] * 8 + [_F, _P],
     },
     "attention_bwd_f32": {
-        "crog_attention_f32_bwd": [_P] * 12 + [_I] * 4 + [_L] * 16 + [_F, _P],
+        "crog_attention_f32_bwd": [_P] * 12 + [_I] * 5 + [_L] * 16 + [_F, _P],
         "crog_attention_f32_dq_parts": [_I],
     },
     "attention_bwd": {
-        "crog_attention_bwd": [_P] * 10 + [_I] * 4 + [_F, _I, _P],
-        "crog_attention_bwd_head": [_P] * 8 + [_I] * 3 + [_F, _P],
+        "crog_attention_bwd": [_P] * 10 + [_I] * 5 + [_F, _I, _P],
+        "crog_attention_bwd_head": [_P] * 8 + [_I] * 4 + [_F, _P],
         "crog_attention_bwd_head_attrs": [_I, _P],
-        "crog_attention_bwd_attrs": [_I, _P],
+        "crog_attention_bwd_attrs": [_I, _I, _P],
+        "crog_attention_bwd_head_takes": [_I, _I],
     },
     "decoder_blocks": {
         "crog_self_block_fwd": [_P] * 17 + [_I] * 6 + _DROP + [_P],

@@ -39,7 +39,7 @@ from functools import lru_cache
 import torch
 
 from crog_tpu_torch.ops import cuda_build, work
-from crog_tpu_torch.ops.attention import (HEAD_DIM, NEG, attention_plain, f32_dq_parts,
+from crog_tpu_torch.ops.attention import (NEG, attention_plain, f32_dq_parts, head_dim,
                                           mha_bwd_plain)
 from crog_tpu_torch.ops.dropout import apply_dropout, dropout_keep, kernel_args
 
@@ -309,15 +309,16 @@ def cross_block_bwd_plain(x, txt, pos, tpos, pad_mask, in_w, in_b, out_w, out_b,
 
 # ------------------------------------------------------------ CUDA side
 def kernel_supported(d_model: int, nheads: int) -> bool:
-    """Widths the block kernels take: 64-wide heads, D = 512."""
-    return d_model == KERNEL_D and d_model == nheads * HEAD_DIM
+    """Widths the block kernels take: D = 512 over 4, 8, 16, 32 or 64 heads
+    (head dims 128, 64, 32, 16, 8: ops/attention.py HEAD_DIMS)."""
+    return d_model == KERNEL_D and head_dim(d_model, nheads) > 0
 
 
 def _check_block_input(x, nheads):
     if x.dim() != 3 or not kernel_supported(x.shape[-1], nheads):
         raise ValueError(
-            f"decoder block kernels take x [B, L, 512] with 8 heads of 64, got "
-            f"{tuple(x.shape)} and {nheads} heads"
+            f"decoder block kernels take x [B, L, 512] with 4, 8, 16, 32 or 64 heads "
+            f"(head dims 128 to 8), got {tuple(x.shape)} and {nheads} heads"
         )
     if x.shape[1] < 1:
         raise ValueError(f"decoder block kernels take at least 1 token, got {x.shape[1]}")
@@ -462,7 +463,7 @@ def _self_block_bwd_f32(name, x, saved, dy, nheads, seed, rate):
     dx, dwi, dwo, dvec = f32(b, l, d), f32(3 * d, d), f32(d, d), f32(8, d)
     ws = (f32(m, d), f32(m, d), f32(m, 3 * d), f32(m, d), f32(b * nheads, 3, l), f32(part),
           f32(_ln_bwd_blocks(m), 3, d), f32(_colsum_blocks(m), 3 * d),
-          f32(f32_dq_parts(l)[1], b * nheads, l, 64), f32(planes))
+          f32(f32_dq_parts(l)[1], b * nheads, l, d // nheads), f32(planes))
     # dop, do, dqkv, dxl, stats, parts (the products' chunks, LayerNorm and
     # bias sums), the attention step's dQ partials (f32_dq_parts), B's TF32
     # planes
@@ -601,7 +602,7 @@ def _cross_block_bwd_f32(name, x, saved, dy, nheads, seed, rate):
     ws = (f32(m, d), f32(m, d), f32(m, d), f32(mt, 2 * d), f32(m, d),
           f32(b * nheads, 3, l), f32(part), f32(_ln_bwd_blocks(m), 3, d),
           f32(max(_colsum_blocks(m), 2 * _colsum_blocks(mt)), d),
-          f32(f32_dq_parts(t)[1], b * nheads, l, 64), f32(planes))
+          f32(f32_dq_parts(t)[1], b * nheads, l, d // nheads), f32(planes))
     # dop, do, dq, dk|dv, dxl, stats, parts (the products' chunks, LayerNorm
     # and bias sums), the attention step's dQ partials (f32_dq_parts), B's
     # TF32 planes

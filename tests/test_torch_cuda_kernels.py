@@ -15,7 +15,8 @@ steps at magnitude 4-8) on the blocks' and FFN's outputs of magnitude ~6.
 The forwards with dropout draw the same counter-based mask in kernel and
 twin and are held alike.  The attention forward is held on both of its
 paths (one pass up to 192 keys, two beyond), with q and k packed as the self
-block passes them; K4's, K4b's, K2b's and K3b's outputs, and K2's and K3's
+block passes them; the attention kernels and the blocks, bf16 and fp32, also
+at head dims 8, 16, 32 and 128 (D 512 over 64, 32, 16 and 4 heads); K4's, K4b's, K2b's and K3b's outputs, and K2's and K3's
 in train mode with every saved intermediate, must also repeat with equal
 bits.  The intermediates K2 and K3 save for their backward are held, like
 backward outputs, to 2^-6 of each one's largest magnitude.  Backward
@@ -66,22 +67,28 @@ def _bf16(seed, *shape, std=1.0, device="cuda"):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("l,lk,masked,packed", [
-    (169, 169, False, False), (676, 17, True, False), (70, 300, True, False),
-    (676, 676, False, False), (676, 676, False, True),  # K2's shape; q, k packed as K2 passes them
-    (100, 768, False, False), (100, 768, True, False),  # the key limit
-    (130, 192, True, False), (130, 193, True, False),  # either side of the path switch
-    (64, 1, False, False), (65, 17, "all", False), (65, 300, "all", True),
+@pytest.mark.parametrize("l,lk,masked,packed,heads", [
+    (169, 169, False, False, 8), (676, 17, True, False, 8), (70, 300, True, False, 8),
+    (676, 676, False, False, 8), (676, 676, False, True, 8),  # K2's shape; q, k packed as K2 passes them
+    (100, 768, False, False, 8), (100, 768, True, False, 8),  # the key limit
+    (130, 192, True, False, 8), (130, 193, True, False, 8),  # either side of the path switch
+    (64, 1, False, False, 8), (65, 17, "all", False, 8), (65, 300, "all", True, 8),
     # past the old 768-key cap: ViT-B/16 at 448^2, a ragged tile, 640^2's
     # decoder (self, and its cross step over 17 padded keys)
-    (785, 785, False, True), (900, 900, False, False), (1000, 1000, True, False),
-    (1600, 1600, False, True), (1600, 17, True, False)])
-def test_cuda_attention_kernel_matches_twin(card, l, lk, masked, packed):
+    (785, 785, False, True, 8), (900, 900, False, False, 8), (1000, 1000, True, False, 8),
+    (1600, 1600, False, True, 8), (1600, 17, True, False, 8)] + [
+    # head dims 8, 16, 32 and 128 (64, 32, 16 and 4 heads of D 512): one pass,
+    # two passes with q and k packed, K3's masked 17 keys, all keys masked
+    (l, lk, masked, packed, heads) for heads in (64, 32, 16, 4)
+    for l, lk, masked, packed in ((169, 169, False, False), (676, 676, False, True),
+                                  (676, 17, True, False), (65, 300, "all", True))])
+def test_cuda_attention_kernel_matches_twin(card, l, lk, masked, packed, heads):
     """The attention forward on both of its paths (``fwd_path``) against its
-    twin.  ``masked``: sample 0 keeps its first lk // 2 keys, sample 1 all;
-    "all": every key of sample 0 is masked, so its rows average over the lk
-    keys.  ``packed``: q and k are the column halves of one [B, L, 2D]
-    projection (row stride 2D), as the self block passes them."""
+    twin, at D 512 over ``heads`` heads (head dims 8 to 128).  ``masked``:
+    sample 0 keeps its first lk // 2 keys, sample 1 all; "all": every key of
+    sample 0 is masked, so its rows average over the lk keys.  ``packed``: q
+    and k are the column halves of one [B, L, 2D] projection (row stride
+    2D), as the self block passes them."""
     if packed:
         qk = _bf16(1, 2, max(l, lk), 1024)
         q, k = qk[:, :l, :512], qk[:, :lk, 512:]
@@ -92,8 +99,8 @@ def test_cuda_attention_kernel_matches_twin(card, l, lk, masked, packed):
     if masked:
         keep = torch.tensor([[0 if masked == "all" else lk // 2], [lk]])
         mask = torch.where(torch.arange(lk)[None] >= keep, -1e30, 0.0).to(card)
-    got = A.fused_attention(q, k, v, 8, mask)
-    ref = A.attention_plain(q, k, v, 8, mask)
+    got = A.fused_attention(q, k, v, heads, mask)
+    ref = A.attention_plain(q, k, v, heads, mask)
     torch.cuda.synchronize()
     assert (got.float() - ref.float()).abs().max().item() <= 3e-2  # bf16 steps
     if masked == "all":  # exactly the mean of v over the keys, up to bf16 steps
@@ -111,17 +118,20 @@ def _block_args(seed, d=512, device="cuda"):
 
 
 @pytest.mark.cuda
-def test_cuda_block_kernels_match_twins(card):
+@pytest.mark.parametrize("heads", [8, 64, 32, 16, 4])
+def test_cuda_block_kernels_match_twins(card, heads):
+    """K2 and K3 in eval at D 512 over 8 heads (the configs') and over 64,
+    32, 16 and 4 (head dims 8 to 128)."""
     x, txt = _bf16(1, 2, 676, 512), _bf16(2, 2, 17, 512)
     pos, tpos = _bf16(3, 676, 512, std=0.5), _bf16(4, 17, 512, std=0.5)
     pad = torch.arange(17, device=card)[None].expand(2, 17) >= torch.tensor(
         [[9], [17]], device=card)
     w = _block_args(10)
-    got = DB.decoder_self_block(x, pos, *w, 8)
-    ref = DB.self_block_plain(x, pos, *w, 8)
+    got = DB.decoder_self_block(x, pos, *w, heads)
+    ref = DB.self_block_plain(x, pos, *w, heads)
     assert (got.float() - ref.float()).abs().max().item() <= 0.125
-    got = DB.decoder_cross_block(x, txt, pos, tpos, pad, *w, 8)
-    ref = DB.cross_block_plain(x, txt, pos, tpos, pad, *w, 8)
+    got = DB.decoder_cross_block(x, txt, pos, tpos, pad, *w, heads)
+    ref = DB.cross_block_plain(x, txt, pos, tpos, pad, *w, heads)
     torch.cuda.synchronize()
     assert (got.float() - ref.float()).abs().max().item() <= 0.125
 
@@ -154,20 +164,26 @@ def _close_all(got, ref, rel=BWD_REL, share=1.0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,l,heads,path", [
-    (2, 169, 8, "head"), (3, 169, 5, "head"), (1, 7, 3, "head"), (2, 256, 4, "head"),
-    (2, 300, 8, "rows_cols"), (1, 257, 4, "rows_cols"), (1, 768, 2, "rows_cols"),
-    (2, 785, 8, "rows_cols"), (1, 900, 4, "rows_cols"), (1, 1000, 4, "rows_cols"),
-    (2, 1600, 8, "rows_cols")])
-def test_cuda_attention_backward_matches_twin(card, b, l, heads, path):
+@pytest.mark.parametrize("b,l,heads,path,dh", [
+    (2, 169, 8, "head", 64), (3, 169, 5, "head", 64), (1, 7, 3, "head", 64),
+    (2, 256, 4, "head", 64), (2, 300, 8, "rows_cols", 64), (1, 257, 4, "rows_cols", 64),
+    (1, 768, 2, "rows_cols", 64), (2, 785, 8, "rows_cols", 64), (1, 900, 4, "rows_cols", 64),
+    (1, 1000, 4, "rows_cols", 64), (2, 1600, 8, "rows_cols", 64),
+    # head dims 8-128: the two-kernel path at any length (the head kernel
+    # takes dh 64 only)
+    (2, 169, 64, "rows_cols", 8), (2, 169, 32, "rows_cols", 16), (2, 169, 16, "rows_cols", 32),
+    (2, 169, 4, "rows_cols", 128), (1, 7, 3, "rows_cols", 128), (1, 300, 4, "rows_cols", 128),
+    (1, 785, 16, "rows_cols", 32)])
+def test_cuda_attention_backward_matches_twin(card, b, l, heads, path, dh):
     """K1b against its twin on both paths: the one-CTA-per-head kernel at
     the pool's 169 tokens (also with an odd batch x heads, 15), at a length
     that is not a multiple of 16 and at its limit of 256; the two-kernel
     path at 300 tokens, just past the switch (257), at the old cap of 768
     and past it (ViT-B/16's 785 at 448^2, 900, a ragged 1000, 640^2's
-    1600).  A second call gives the same bits."""
-    assert A.bwd_path(l) == path
-    q, k, v, do = (_bf16(s, b, l, heads * 64) for s in (1, 2, 3, 4))
+    1600), and at head dims 8 to 128 (two kernels).  A second call gives
+    the same bits."""
+    assert A.bwd_path(l, dh=dh) == path
+    q, k, v, do = (_bf16(s, b, l, heads * dh) for s in (1, 2, 3, 4))
     o = A.fused_attention(q, k, v, heads)
     got = A.attention_bwd(q, k, v, o, do, heads)
     again = A.attention_bwd(q, k, v, o, do, heads)
@@ -175,7 +191,7 @@ def test_cuda_attention_backward_matches_twin(card, b, l, heads, path):
     torch.cuda.synchronize()
     _close_all(got, ref, K1B_REL, K1B_SHARE)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
-    with pytest.raises(ValueError, match="head dim 64"):
+    with pytest.raises(ValueError, match="head dims 8, 16, 32, 64 or 128"):
         A.attention_bwd(*(t[..., :96].contiguous() for t in (q, k, v, o, do)), 1)
 
 
@@ -198,13 +214,17 @@ def test_cuda_attention_backward_tolerance_sees_bf16_casts(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,lq,lk,heads,mask", [
-    (2, 676, 676, 8, None), (2, 676, 17, 8, "ragged"), (1, 768, 768, 2, None),
-    (2, 70, 300, 4, "ragged"), (3, 65, 129, 3, None), (2, 100, 17, 8, "all"),
-    (1, 1, 1, 2, None),
-    (2, 785, 785, 8, None), (1, 900, 900, 2, None), (2, 1000, 1000, 2, "ragged"),
-    (2, 1600, 1600, 8, None), (2, 1600, 17, 8, "ragged")])
-def test_cuda_decoder_attention_backward_matches_twin(card, b, lq, lk, heads, mask):
+@pytest.mark.parametrize("b,lq,lk,heads,mask,dh", [
+    (2, 676, 676, 8, None, 64), (2, 676, 17, 8, "ragged", 64), (1, 768, 768, 2, None, 64),
+    (2, 70, 300, 4, "ragged", 64), (3, 65, 129, 3, None, 64), (2, 100, 17, 8, "all", 64),
+    (1, 1, 1, 2, None, 64),
+    (2, 785, 785, 8, None, 64), (1, 900, 900, 2, None, 64), (2, 1000, 1000, 2, "ragged", 64),
+    (2, 1600, 1600, 8, None, 64), (2, 1600, 17, 8, "ragged", 64),
+    # head dims 8-128 at D 512 (K2b's and K3b's steps at 64, 32, 16 and 4 heads)
+    (2, 676, 676, 64, None, 8), (2, 676, 17, 32, "ragged", 16), (2, 676, 676, 16, None, 32),
+    (2, 676, 17, 4, "ragged", 128), (2, 100, 17, 64, "all", 8), (2, 1600, 1600, 4, None, 128),
+    (3, 65, 129, 3, None, 128)])
+def test_cuda_decoder_attention_backward_matches_twin(card, b, lq, lk, heads, mask, dh):
     """The two-kernel attention backward with the decoder blocks' bf16 cast
     points (K2b's and K3b's attention step) against its twin: K2b's 676
     tokens, K3b's 676 queries over 17 keys with per-sample key padding,
@@ -212,9 +232,10 @@ def test_cuda_decoder_attention_backward_matches_twin(card, b, lq, lk, heads, ma
     640^2's 1600 tokens and 1600 queries over 17 padded keys), lengths
     just past a 64-row tile, one query over one key, and a sample whose
     every key is masked (its rows average over the Lk keys, as the
-    forward's do).  A second call gives the same bits."""
-    q, do = _bf16(1, b, lq, heads * 64), _bf16(4, b, lq, heads * 64)
-    k, v = _bf16(2, b, lk, heads * 64), _bf16(3, b, lk, heads * 64)
+    forward's do); at head dims 8 to 128.  A second call gives the same
+    bits."""
+    q, do = _bf16(1, b, lq, heads * dh), _bf16(4, b, lq, heads * dh)
+    k, v = _bf16(2, b, lk, heads * dh), _bf16(3, b, lk, heads * dh)
     mask_add = None
     if mask is not None:
         keep = torch.arange(lk)[None] < torch.tensor([[max(1, lk // 3)], [lk]] + [[lk]] * (b - 2))
@@ -234,25 +255,27 @@ def test_cuda_decoder_attention_backward_matches_twin(card, b, lq, lk, heads, ma
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("heads", [8, 64, 32, 16, 4])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_cuda_block_kernels_train_mode_match_twins(card, rate):
+def test_cuda_block_kernels_train_mode_match_twins(card, rate, heads):
     """Forward with dropout and backward, self and cross block (a padded
-    key mask), L=676 as on the main path."""
+    key mask), L=676 as on the main path, over 8 heads of 64 and over 64,
+    32, 16 and 4 heads (head dims 8 to 128)."""
     x, txt = _bf16(1, 2, 676, 512), _bf16(2, 2, 17, 512)
     pos, tpos = _bf16(3, 676, 512, std=0.5), _bf16(4, 17, 512, std=0.5)
     dy = _bf16(5, 2, 676, 512)
     pad = torch.arange(17, device=card)[None].expand(2, 17) >= torch.tensor(
         [[9], [17]], device=card)
     w = _block_args(10)
-    y, saved = DB.self_block_fwd(x, pos, *w, 8, 7, rate, save=True)
-    assert (y.float() - DB.self_block_plain(x, pos, *w, 8, 7, rate).float()).abs().max() <= 0.125
-    _close_all(DB.self_block_bwd(x, saved, dy, 8, 7, rate),
-               DB.self_block_bwd_plain(x, pos, *w, dy, 8, 7, rate))
-    y, saved = DB.cross_block_fwd(x, txt, pos, tpos, pad, *w, 8, 8, rate, save=True)
-    ref = DB.cross_block_plain(x, txt, pos, tpos, pad, *w, 8, 8, rate)
+    y, saved = DB.self_block_fwd(x, pos, *w, heads, 7, rate, save=True)
+    assert (y.float() - DB.self_block_plain(x, pos, *w, heads, 7, rate).float()).abs().max() <= 0.125
+    _close_all(DB.self_block_bwd(x, saved, dy, heads, 7, rate),
+               DB.self_block_bwd_plain(x, pos, *w, dy, heads, 7, rate))
+    y, saved = DB.cross_block_fwd(x, txt, pos, tpos, pad, *w, heads, 8, rate, save=True)
+    ref = DB.cross_block_plain(x, txt, pos, tpos, pad, *w, heads, 8, rate)
     assert (y.float() - ref.float()).abs().max() <= 0.125
-    _close_all(DB.cross_block_bwd(x, saved, dy, 8, 8, rate),
-               DB.cross_block_bwd_plain(x, txt, pos, tpos, pad, *w, dy, 8, 8, rate))
+    _close_all(DB.cross_block_bwd(x, saved, dy, heads, 8, rate),
+               DB.cross_block_bwd_plain(x, txt, pos, tpos, pad, *w, dy, heads, 8, rate))
     torch.cuda.synchronize()
     with pytest.raises(ValueError, match="512"):
         DB.self_block_bwd(x[..., :256].contiguous(), saved, dy, 4)
@@ -700,29 +723,36 @@ def exact_f32(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("l,lk,heads,masked,layout", [
-    (169, 169, 32, False, "plain"), (169, 169, 32, False, "packed"),  # K1's shape
-    (169, 169, 32, False, "strided"), (676, 17, 8, True, "plain"),  # K3's step
-    (676, 676, 8, False, "packed"), (70, 300, 4, True, "plain"),  # K2's step
-    (100, 768, 8, True, "strided"), (64, 1, 8, False, "plain"),
-    (65, 17, 8, "all", "plain"), (1, 5, 2, False, "packed"),
+@pytest.mark.parametrize("l,lk,heads,masked,layout,dh", [
+    (169, 169, 32, False, "plain", 64), (169, 169, 32, False, "packed", 64),  # K1's shape
+    (169, 169, 32, False, "strided", 64), (676, 17, 8, True, "plain", 64),  # K3's step
+    (676, 676, 8, False, "packed", 64), (70, 300, 4, True, "plain", 64),  # K2's step
+    (100, 768, 8, True, "strided", 64), (64, 1, 8, False, "plain", 64),
+    (65, 17, 8, "all", "plain", 64), (1, 5, 2, False, "packed", 64),
     # on and just off the 64-key tiles and 64-query CTAs
-    (63, 63, 2, False, "plain"), (64, 64, 2, True, "packed"), (65, 65, 2, False, "strided"),
-    (129, 676, 2, True, "plain"),
+    (63, 63, 2, False, "plain", 64), (64, 64, 2, True, "packed", 64),
+    (65, 65, 2, False, "strided", 64), (129, 676, 2, True, "plain", 64),
     # past the old 768-key cap (640^2's decoder: 1600 tokens, and 1600
     # queries over 17 padded keys)
-    (785, 785, 8, False, "packed"), (900, 900, 2, True, "plain"),
-    (1000, 1000, 2, False, "strided"), (1600, 1600, 8, False, "packed"),
-    (1600, 17, 8, True, "plain")])
-def test_cuda_attention_f32_matches_twin(exact_f32, l, lk, heads, masked, layout):
+    (785, 785, 8, False, "packed", 64), (900, 900, 2, True, "plain", 64),
+    (1000, 1000, 2, False, "strided", 64), (1600, 1600, 8, False, "packed", 64),
+    (1600, 17, 8, True, "plain", 64),
+    # head dims 8-128 at D 512 (dh 128: 32-key tiles, on and off them)
+    (169, 169, 64, False, "plain", 8), (676, 17, 32, True, "plain", 16),
+    (676, 676, 16, False, "packed", 32), (65, 17, 64, "all", "plain", 8),
+    (676, 676, 4, False, "packed", 128), (676, 17, 4, True, "plain", 128),
+    (65, 17, 4, "all", "plain", 128), (129, 33, 2, True, "strided", 128),
+    (63, 31, 4, False, "plain", 128), (1600, 1600, 4, False, "packed", 128)])
+def test_cuda_attention_f32_matches_twin(exact_f32, l, lk, heads, masked, layout, dh):
     """K1-f32 against its fp32 twin, o and the row logsumexp (the one
     attention forward of K1-f32, K2-f32 and K3-f32; K1b-f32 reads the
     logsumexp), a second call with the logsumexp giving o's bits again.
     "packed": q, k and v are column thirds of one [B, L, 3D] projection
     (row stride 3D); "strided": they are the first rows of longer sequences
     (batch stride past L rows).  ``masked`` as in the bf16 test; "all"
-    masks every key of sample 0, whose rows are then the mean of v."""
-    d = heads * 64
+    masks every key of sample 0, whose rows are then the mean of v.  Head
+    dim ``dh``."""
+    d = heads * dh
     if layout == "packed":
         qkv = _f32(1, 2, max(l, lk), 3 * d)
         q, k, v = qkv[:, :l, :d], qkv[:, :lk, d:2 * d], qkv[:, :lk, 2 * d:]
@@ -761,24 +791,28 @@ def _f32_block(b, l, t, seed=60, d=512):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,l,t", [
-    (24, 676, 17), (3, 301, 17), (1, 676, 9), (2, 5, 1),
+@pytest.mark.parametrize("b,l,t,heads", [
+    (24, 676, 17, 8), (3, 301, 17, 8), (1, 676, 9, 8), (2, 5, 1, 8),
     # B*L on and off the GEMM's 128-row tiles and the 64-row warpgroups
-    (1, 1, 17), (1, 63, 17), (1, 64, 17), (1, 65, 17), (1, 129, 17),
+    (1, 1, 17, 8), (1, 63, 17, 8), (1, 64, 17, 8), (1, 65, 17, 8), (1, 129, 17, 8),
     # the cross block's k and v over B*T = 408 text rows, not a multiple of 128
-    (24, 5, 17),
+    (24, 5, 17, 8),
     # past the old 768-token cap: 640^2's 1600 tokens, a ragged 1000
-    (2, 1600, 17), (1, 1000, 17)])
+    (2, 1600, 17, 8), (1, 1000, 17, 8),
+    # head dims 8, 16, 32 and 128 at the main path's shape, and ragged
+    (24, 676, 17, 64), (24, 676, 17, 32), (24, 676, 17, 16), (24, 676, 17, 4),
+    (3, 301, 17, 4), (1, 65, 9, 16)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_cuda_block_f32_kernels_match_twins(exact_f32, b, l, t, rate):
+def test_cuda_block_f32_kernels_match_twins(exact_f32, b, l, t, heads, rate):
     """K2-f32 and K3-f32 against their fp32 twins, in eval and with
     train-mode dropout (the same counter-based mask), at the main path's
-    shapes and at ragged ones; a second call gives the same bits."""
+    shapes and at ragged ones, over 8 heads and over 64, 32, 16 and 4; a
+    second call gives the same bits."""
     x, txt, pos, tpos, pad, w = _f32_block(b, l, t)
-    cases = ((lambda: DB.self_block_fwd(x, pos, *w, 8, 7, rate)[0],
-              lambda: DB.self_block_plain(x, pos, *w, 8, 7, rate)),
-             (lambda: DB.cross_block_fwd(x, txt, pos, tpos, pad, *w, 8, 8, rate)[0],
-              lambda: DB.cross_block_plain(x, txt, pos, tpos, pad, *w, 8, 8, rate)))
+    cases = ((lambda: DB.self_block_fwd(x, pos, *w, heads, 7, rate)[0],
+              lambda: DB.self_block_plain(x, pos, *w, heads, 7, rate)),
+             (lambda: DB.cross_block_fwd(x, txt, pos, tpos, pad, *w, heads, 8, rate)[0],
+              lambda: DB.cross_block_plain(x, txt, pos, tpos, pad, *w, heads, 8, rate)))
     for kern, plain in cases:
         got, again, ref = kern(), kern(), plain()
         torch.cuda.synchronize()
@@ -1031,28 +1065,34 @@ def _close_rel(got, ref, names, rel=F32_BWD_REL):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["k1b", "blocks"])
-@pytest.mark.parametrize("b,lq,lk,heads,masked", [
-    (24, 169, 169, 32, False),  # K1b's shape (the attention pool)
-    (2, 676, 676, 8, False), (2, 676, 17, 8, True),  # K2b's and K3b's steps
-    (2, 70, 300, 4, True), (1, 768, 768, 2, False), (3, 1, 5, 2, True),
-    (2, 65, 17, 8, "all"),
+@pytest.mark.parametrize("b,lq,lk,heads,masked,dh", [
+    (24, 169, 169, 32, False, 64),  # K1b's shape (the attention pool)
+    (2, 676, 676, 8, False, 64), (2, 676, 17, 8, True, 64),  # K2b's and K3b's steps
+    (2, 70, 300, 4, True, 64), (1, 768, 768, 2, False, 64), (3, 1, 5, 2, True, 64),
+    (2, 65, 17, 8, "all", 64),
     # either side of the 64-key blocks and 32-query tiles, Lq != Lk both ways
-    (2, 63, 63, 2, False), (2, 64, 64, 2, True), (2, 65, 65, 2, False),
-    (2, 129, 129, 2, True), (2, 100, 768, 2, True), (2, 768, 129, 2, False),
-    (2, 33, 64, 2, False), (2, 64, 65, 2, True), (2, 97, 63, 2, "peak"),
+    (2, 63, 63, 2, False, 64), (2, 64, 64, 2, True, 64), (2, 65, 65, 2, False, 64),
+    (2, 129, 129, 2, True, 64), (2, 100, 768, 2, True, 64), (2, 768, 129, 2, False, 64),
+    (2, 33, 64, 2, False, 64), (2, 64, 65, 2, True, 64), (2, 97, 63, 2, "peak", 64),
     # past the old 768-token cap, where a CTA walks two or three key blocks
     # into one dQ partial (ops/attention.py:f32_dq_parts)
-    (2, 785, 785, 2, False), (1, 900, 900, 2, True), (1, 1000, 1000, 2, False),
-    (2, 1600, 1600, 8, False), (2, 1600, 17, 8, True), (2, 40, 1600, 2, True)])
-def test_cuda_attention_bwd_f32_matches_twin(exact_f32, mode, b, lq, lk, heads, masked):
+    (2, 785, 785, 2, False, 64), (1, 900, 900, 2, True, 64), (1, 1000, 1000, 2, False, 64),
+    (2, 1600, 1600, 8, False, 64), (2, 1600, 17, 8, True, 64), (2, 40, 1600, 2, True, 64),
+    # head dims 8-128 at D 512 (dh 128: the pre-pass's 32-key tiles, the main
+    # kernel's two column halves)
+    (2, 676, 676, 64, False, 8), (2, 676, 17, 32, True, 16), (2, 676, 676, 16, False, 32),
+    (2, 65, 17, 64, "all", 8), (2, 676, 676, 4, False, 128), (2, 676, 17, 4, True, 128),
+    (2, 65, 17, 4, "all", 128), (2, 33, 95, 4, True, 128), (1, 1600, 1600, 4, False, 128)])
+def test_cuda_attention_bwd_f32_matches_twin(exact_f32, mode, b, lq, lk, heads, masked, dh):
     """The fp32 attention backward against its fp32 twin, on o from K1-f32:
     "k1b", K1b-f32 on K1-f32's logsumexp (twin attention_bwd_plain with the
     same logsumexp; K1-f32's logsumexp itself within F32_REL of its twin's);
     "blocks", the decoder blocks' step with its pre-pass (twin
     mha_bwd_plain).  "all" masks every key of sample 0; "peak" makes key 5
     of sample 0 take all the weight of query 0 (its score 8 |q_0|^2 / 8
-    above the others' ~1).  A second call gives the same bits."""
-    d = heads * 64
+    above the others' ~1); head dim ``dh``.  A second call gives the same
+    bits."""
+    d = heads * dh
     q, do = _f32(1, b, lq, d), _f32(4, b, lq, d)
     k, v = _f32(2, b, lk, d), _f32(3, b, lk, d)
     mask = None
@@ -1081,6 +1121,44 @@ def test_cuda_attention_bwd_f32_matches_twin(exact_f32, mode, b, lq, lk, heads, 
             A.attention_bwd(q, k, v, o, do, heads, mask_add=mask)
 
 
+def _attention_bwd_f64(q, k, v, do, heads):
+    """dq, dk, dv of softmax attention in float64 (no mask)."""
+    split = lambda t: t.double().reshape(t.shape[0], t.shape[1], heads, -1).transpose(1, 2)
+    qh, kh, vh, doh = split(q), split(k), split(v), split(do)
+    scale = qh.shape[-1] ** -0.5
+    p = torch.softmax(qh @ kh.transpose(-1, -2) * scale, -1)
+    dp = doh @ vh.transpose(-1, -2)
+    ds = p * (dp - (doh * (p @ vh)).sum(-1, keepdim=True)) * scale
+    merge = lambda t: t.transpose(1, 2).reshape(t.shape[0], t.shape[2], -1)
+    return merge(ds @ kh), merge(ds.transpose(-1, -2) @ qh), merge(p.transpose(-1, -2) @ doh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,dh", [(2, 64), (4, 128), (2, 128)])
+def test_cuda_attention_bwd_f32_peak_against_float64(exact_f32, heads, dh):
+    """K1b-f32 where key 5 of sample 0 takes all the weight of query 0 (the
+    "peak" case of test_cuda_attention_bwd_f32_matches_twin), against the
+    float64 backward: every gradient within F32_BWD_REL.  At dh 128 the
+    peak's score is 8 |q_0|^2 / sqrt(128), about 90: there the twin on the
+    kernel's logsumexp (its own scores from an fp32 matmul, P = exp(s -
+    lse) with another rounding of s than the logsumexp's) reads dv about
+    1.8e-5 from float64, over F32_BWD_REL, while the kernel, whose P takes
+    s and the logsumexp from the same 3xTF32 products, reads about 1.4e-6;
+    so at dh 128 this case is held against float64 and not the twin.  The
+    blocks' mode (statistics from its own pre-pass) is held against its
+    twin there too."""
+    b, lq, lk, d = 2, 97, 63, heads * dh
+    q, do = _f32(1, b, lq, d), _f32(4, b, lq, d)
+    k, v = _f32(2, b, lk, d), _f32(3, b, lk, d)
+    k[0, 5] = 8 * q[0, 0]
+    o, lse = A.fused_attention(q, k, v, heads, with_lse=True)
+    got = A.attention_bwd(q, k, v, o, do, heads, lse=lse)
+    torch.cuda.synchronize()
+    _close_rel(got, _attention_bwd_f64(q, k, v, do, heads), ("dq", "dk", "dv"))
+    blocks = A.attention_bwd(q, k, v, o, do, heads, bf16_casts=True)
+    _close_rel(blocks, A.mha_bwd_plain(q, k, v, do, heads), ("dq", "dk", "dv"))
+
+
 @pytest.mark.cuda
 def test_cuda_f32_dq_partials_are_the_wrappers(card):
     """The fp32 attention backward's launch writes as many dQ partials as
@@ -1096,29 +1174,33 @@ def test_cuda_f32_dq_partials_are_the_wrappers(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,l,t", [(24, 676, 17), (3, 301, 17), (1, 5, 9), (9, 301, 23),
-                                   (10, 50, 17), (2, 1600, 17), (1, 1000, 17)])
+@pytest.mark.parametrize("b,l,t,heads", [
+    (24, 676, 17, 8), (3, 301, 17, 8), (1, 5, 9, 8), (9, 301, 23, 8), (10, 50, 17, 8),
+    (2, 1600, 17, 8), (1, 1000, 17, 8),
+    # head dims 8, 16, 32 and 128 at the main path's shape, and ragged
+    (24, 676, 17, 64), (24, 676, 17, 32), (24, 676, 17, 16), (24, 676, 17, 4),
+    (3, 301, 17, 4), (1, 65, 9, 64)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_cuda_block_bwd_f32_kernels_match_twins(exact_f32, b, l, t, rate):
+def test_cuda_block_bwd_f32_kernels_match_twins(exact_f32, b, l, t, heads, rate):
     """K2b-f32 and K3b-f32 on the intermediates K2-f32 and K3-f32 saved,
     against their fp32 twins, in eval and with train-mode dropout, at the
     main path's shapes and at ragged ones: B*T text rows off the 32-row
     slices and over one 128-row tile (207, 170; their last slice loads
     zeros past the rows), B*L rows whose dW chunks end in a short one (2709:
     7 of 352 and one of 245; ops/decoder_blocks.py f32_bwd_chunks); a second
-    call gives the same bits."""
+    call gives the same bits.  Over 8 heads and over 64, 32, 16 and 4."""
     x, txt, pos, tpos, pad, w = _f32_block(b, l, t)
     dy = _f32(99, b, l, 512)
-    _, ssaved = DB.self_block_fwd(x, pos, *w, 8, 7, rate, save=True)
-    _, csaved = DB.cross_block_fwd(x, txt, pos, tpos, pad, *w, 8, 8, rate, save=True)
+    _, ssaved = DB.self_block_fwd(x, pos, *w, heads, 7, rate, save=True)
+    _, csaved = DB.cross_block_fwd(x, txt, pos, tpos, pad, *w, heads, 8, rate, save=True)
     before = DB.self_block_bwd.launches_f32, DB.cross_block_bwd.launches_f32
     cases = (
-        (lambda: DB.self_block_bwd(x, ssaved, dy, 8, 7, rate),
-         lambda: DB.self_block_bwd_plain(x, pos, *w, dy, 8, 7, rate),
+        (lambda: DB.self_block_bwd(x, ssaved, dy, heads, 7, rate),
+         lambda: DB.self_block_bwd_plain(x, pos, *w, dy, heads, 7, rate),
          ("dx", "d_in_w", "d_in_b", "d_out_w", "d_out_b", "d_g_pre", "d_b_pre",
           "d_g_post", "d_b_post")),
-        (lambda: DB.cross_block_bwd(x, csaved, dy, 8, 8, rate),
-         lambda: DB.cross_block_bwd_plain(x, txt, pos, tpos, pad, *w, dy, 8, 8, rate),
+        (lambda: DB.cross_block_bwd(x, csaved, dy, heads, 8, rate),
+         lambda: DB.cross_block_bwd_plain(x, txt, pos, tpos, pad, *w, dy, heads, 8, rate),
          ("dx", "dtxt", "d_in_w", "d_in_b", "d_out_w", "d_out_b", "d_g_pre", "d_b_pre",
           "d_g_post", "d_b_post")))
     for kern, plain, names in cases:

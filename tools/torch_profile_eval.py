@@ -40,10 +40,11 @@ GROUPS = (
     # first match wins: the s2d kernels before K2b/K3b's "wgrad_kernel"
     ("K6b s2dconv wgrad (cluster kernel)", ("s2dconv_wgrad",)),
     ("K6 s2dconv (forward, dgrad)", ("s2dconv_",)),
-    # K1 itself (the attention pool, 169 keys: the one-pass kernel of 3 key
-    # tiles), then the attention step inside K2 (676 keys, two passes) and
-    # K3 (17 keys, one pass of 1 tile)
-    ("K1 attention pool (attn_fwd_kernel<3>)", ("attn_fwd_kernel<3>",)),
+    # K1 itself (the attention pool, 169 keys of head dim 64: the one-pass
+    # kernel of 3 key tiles, attn_fwd_kernel<3, 64>), then the attention
+    # step inside K2 (676 keys, two passes) and K3 (17 keys, one pass of 1
+    # tile)
+    ("K1 attention pool (attn_fwd_kernel<3>)", ("attn_fwd_kernel<3, 64>",)),
     ("attention forward inside K2/K3 (attn_fwd_kernel<0>, <1>)", ("attn_fwd_kernel",)),
     ("K1b attention-pool backward (one CTA per head)", ("attn_bwd_head",)),
     ("attention backward (K2b/K3b inner; K1b past 256 tokens)", ("attn_bwd_",)),
