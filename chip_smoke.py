@@ -22,7 +22,7 @@ any failure propagates and the exit code is not 0:
      the registers, shared memory and spills of the redesigned kernels (the
      attention forward's one- and two-pass kernels at K1's, K2's and K3's
      key counts, with the path ops/attention.py:fwd_path names, and K2's
-     and K3's at head dims 8-128; the bf16 attention backward's rows and
+     and K3's at head dims 8-512; the bf16 attention backward's rows and
      cols kernels at each head dim, and the C mirror of
      ops/attention.py:bwd_path's head-kernel choice; K4's and
      K4b's cluster kernels and their y / dx GEMM; K2's and K3's projection
@@ -172,13 +172,15 @@ any failure propagates and the exit code is not 0:
      K3, K3b and their fp32 builds each launched over the phase's CROG
      runs; the ``[long]`` lines;
  20. other decoder head counts at d_model 512 (after phase 19): K1, K1b,
-     K2, K2b, K3 and K3b at head dims 8, 16, 32 and 128 (64, 32, 16 and 4
-     heads; K1 and K1b at K2's 676-token step, the blocks at B 24 with 17
+     K2, K2b, K3 and K3b at head dims 8, 16, 32, 128, 256 and 512 (64, 32,
+     16, 4, 2 and 1 heads; K1 and K1b at K2's 676-token step, the blocks at B 24 with 17
      text keys, the backward kernels with dropout RATE) in bf16 and fp32
      against their twins under phase 3's and phase 18's limits (K1, K2b and
      K3b twice with equal bits), each timed beside its twin, its bound and
-     SDPA at the same attention shape (a yardstick only); then
-     crog_synthetic_r50.yaml with ``num_head`` 16 (head dim 32) and 4 (128):
+     SDPA at the same attention shape (a yardstick only; the backend that
+     ran at dh 256 and 512 is named); then
+     crog_synthetic_r50.yaml with ``num_head`` 16 (head dim 32), 4 (128), 2
+     (256) and 1 (512):
      ``validate_with_grasp`` over 48 samples at batch 24 with a forward's
      launches each and the eval rate, ``train_one_epoch`` for
      HEADS_TRAIN_STEPS steps at 24 with a step's launches each, timed by
@@ -3680,11 +3682,11 @@ def long_phase(device, smi: str):
 
 # phase 20: CROG with other decoder head counts at d_model 512 (num_head is
 # a key of every OCID-VLG config): the attention kernels at head dims 8, 16,
-# 32 and 128 (64, 32, 16 and 4 heads; the configs' 8 heads give 64), and
-# crog_synthetic_r50.yaml with num_head 16 (head dim 32) and 4 (128)
-# through the entry points
-HEAD_DIMS = (8, 16, 32, 128)
-HEAD_COUNTS = (16, 4)
+# 32, 128, 256 and 512 (64, 32, 16, 4, 2 and 1 heads; the configs' 8 heads
+# give 64), and crog_synthetic_r50.yaml with num_head 16 (head dim 32), 4
+# (128), 2 (256) and 1 (512) through the entry points
+HEAD_DIMS = (8, 16, 32, 128, 256, 512)
+HEAD_COUNTS = (16, 4, 2, 1)
 HEADS_TRAIN_STEPS = 4
 
 
@@ -3695,9 +3697,10 @@ def heads_kernels(device, dtype, smi: str, b=BATCH, l=676, t=17, d=512):
     K3b twice with equal bits, each timed beside its twin, the bound of
     ops/work.py's work (which does not depend on dh at a fixed D) and SDPA
     at the same attention shape (a yardstick only: forward for K1, K2 and
-    K3, backward for K1b, K2b and K3b).  K1 runs at K2's attention step's
-    shape (self attention over 676 tokens) and K1b on the rows / cols
-    kernels (ops/attention.py:bwd_path: the head kernel takes dh 64 only)."""
+    K3, backward for K1b, K2b and K3b; at dh 256 and 512 the backend SDPA
+    ran, by its kernels' names).  K1 runs at K2's attention step's shape
+    (self attention over 676 tokens) and K1b on the rows / cols kernels
+    (ops/attention.py:bwd_path: the head kernel takes dh 64 only)."""
     import torch
     import torch.nn.functional as F
 
@@ -3734,6 +3737,9 @@ def heads_kernels(device, dtype, smi: str, b=BATCH, l=676, t=17, d=512):
         sdpa_cbwd = lambda: torch.autograd.grad(sdpa_cross, cleaves, split(dys),
                                                 retain_graph=True)
         tag = f"[heads] dh {dh} ({h} heads)"
+        if dh >= A.WIDE_MIN_DIM:
+            print(f"{tag}: SDPA ran {sdpa_backend(sdpa, *leaves)} forward, "
+                  f"{sdpa_backend(sdpa_bwd, *leaves)} backward ({dtype})", flush=True)
         # K1 and K1b
         o, lse = (A.fused_attention(q, k, v, h, with_lse=True) if f32
                   else (A.fused_attention(q, k, v, h), None))
@@ -3796,6 +3802,38 @@ def heads_kernels(device, dtype, smi: str, b=BATCH, l=676, t=17, d=512):
         one_dh(dh)
     del inp
     torch.cuda.empty_cache()
+
+
+def sdpa_backend(fn, q, k, v, attn_mask=None) -> str:
+    """Which SDPA backend runs ``fn`` (one SDPA call, or its backward, on q,
+    k, v): the one PyTorch's dispatcher picks for these tensors
+    (``torch._fused_sdp_choice``; a backward runs its forward's), and a
+    kernel the profiler saw in one call, named by its backend ("cudnn",
+    "flash", "efficient") where one matches, else the first."""
+    import torch
+    from torch.nn.attention import SDPBackend
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        choice = SDPBackend(torch._fused_sdp_choice(q, k, v, attn_mask, 0.0, False)).name
+    except Exception as err:  # a private call: name what failed, measure on
+        choice = f"unknown ({type(err).__name__})"
+    fn()  # warm: the first call may pick or build its kernels
+    torch.cuda.synchronize()
+    names = []
+    for _ in range(2):  # the profiler now and then loses a call's kernel rows
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+        if names:
+            break
+    for kind, keys in (("cudnn", ("cudnn",)), ("flash", ("flash",)),
+                       ("efficient", ("fmha", "efficient", "mem_eff"))):
+        hit = [n for n in names if any(key in n.lower() for key in keys)]
+        if hit:
+            return f"{choice} (kernel {kind}: {hit[0][:80]})"
+    return f"{choice} (kernel {names[0][:80]})" if names else f"{choice} (no kernel row)"
 
 
 def heads_gaps(device, batch, opts, counted):
@@ -3878,7 +3916,7 @@ def heads_gaps(device, batch, opts, counted):
 
 def heads_phase(device, smi: str):
     """Phase 20: the decoder at head dims other than 64.
-    crog_synthetic_r50.yaml with ``--opts num_head`` 16 and 4 (RN50 at full
+    crog_synthetic_r50.yaml with ``--opts num_head`` 16, 4, 2 and 1 (RN50 at full
     width, 416^2, 3 decoder layers, the rawlb wire, the fused s2d stem,
     seeded weights): ``validate_with_grasp`` over
     SAMPLES at batch 24 (bf16) with one forward's launches each and the
@@ -3911,6 +3949,7 @@ def heads_phase(device, smi: str):
         return out, launches
 
     for heads in HEAD_COUNTS:
+        t_heads = time.perf_counter()
         opts = ("num_head", str(heads))
         cfg, model, batches = build_model_and_data(device, SAMPLES, BATCH, opts)
         if cfg.num_head != heads or model.decoder.layers[0].nhead != heads:
@@ -3958,8 +3997,11 @@ def heads_phase(device, smi: str):
             raise AssertionError(f"[heads] num_head {heads}: train loss is not finite")
         del model, opt, sched, step
         torch.cuda.empty_cache()
+        t_gaps = time.perf_counter()
         heads_gaps(device, batches[0], opts, totals)
         del batches
+        print(f"[heads] num_head {heads}: took {time.perf_counter() - t_heads:.1f} s (card vs "
+              f"CPU {time.perf_counter() - t_gaps:.1f} s)", flush=True)
     # the kernel checks last: their timed calls hold their operands (print_device_times)
     t_kernels = time.perf_counter()
     for dtype in (torch.bfloat16, torch.float32):
@@ -5565,13 +5607,14 @@ def redesigned_resources(reports):
 
     from crog_tpu_torch.ops import attention as A
 
-    for lib, keys in (("attention", ("attn_fwd_kernel",)),
+    for lib, keys in (("attention", ("attn_fwd_kernel", "attn_fwd_wide_kernel")),
                       ("ffn", ("ffn_fwd_hidden_kernel", "ffn_out_kernel")),
                       ("ffn_bwd", ("ffn_bwd_hidden_kernel", "ffn_out_kernel")),
                       ("decoder_blocks", ("proj_gemm_kernel", "outproj_ln_cluster_kernel")),
                       ("decoder_blocks_bwd", ("gemm_nn_kernel", "wgrad_kernel")),
                       ("attention_bwd", ("attn_bwd_head_kernel", "attn_bwd_rows_kernel",
-                                         "attn_bwd_cols_kernel")),
+                                         "attn_bwd_cols_kernel", "attn_bwd_rows_wide",
+                                         "attn_bwd_cols_wide")),
                       ("s2dconv", ("s2dconv_fwd_kernel", "s2dconv_wgrad_kernel")),
                       ("s2dconv_f32", ("gemm_wgmma_f32",)),
                       ("ffn_f32", ("gemm_wgmma_f32",)), ("ffn_bwd_f32", ("gemm_wgmma_f32",)),
@@ -5595,9 +5638,9 @@ def redesigned_resources(reports):
               f"tiles in registers, head tile {A.head_tile(dh)}), {out[1]} registers, {out[2]} "
               f"bytes shared memory per CTA, {out[3]} bytes local (spill) per thread, {out[4]} "
               f"CTAs per SM", flush=True)
-        if path != A.fwd_path(lk):
-            raise AssertionError(f"the card takes the {path} kernel at {lk} keys, "
-                                 f"ops/attention.py:fwd_path says {A.fwd_path(lk)}")
+        if path != A.fwd_path(lk, dh):
+            raise AssertionError(f"the card takes the {path} kernel at {lk} keys, head dim "
+                                 f"{dh}, ops/attention.py:fwd_path says {A.fwd_path(lk, dh)}")
     for lib_name, entry, kid, out_name in (("ffn", "crog_ffn_fwd_attrs", "K4", "y"),
                                            ("ffn_bwd", "crog_ffn_bwd_attrs", "K4b", "dx")):
         lib = cuda_build.load(lib_name)
@@ -5692,8 +5735,9 @@ def main(argv=None) -> int:
                     help="phases 1, 2 and 19 only: build, then CROG at input_size 640 (1600 "
                          "decoder tokens) on the card; no result line")
     ap.add_argument("--heads", action="store_true",
-                    help="phases 1, 2 and 20 only: build, then CROG at num_head 16 and 4 "
-                         "(head dims 32 and 128) and the attention kernels at head dims 8-128 "
+                    help="phases 1, 2 and 20 only: build, then CROG at num_head 16, 4, 2 and 1 "
+                         "(head dims 32, 128, 256, 512) and the attention kernels at head dims "
+                         "8-512 "
                          "on the card; no result line")
     ap.add_argument("--ddp-worker", metavar="DIR",
                     help="run one rank of phase 13 (started by phase 13 itself)")

@@ -5,7 +5,7 @@
 // `flash_attention_bhld` :156).  The kernels themselves (one pass up to 192
 // keys, two passes beyond) and their bound and design notes are in
 // attention.cuh, which the decoder block kernels share.  q, k, v, o are
-// [B, L, heads * dh], dh one of 8, 16, 32, 64, 128.
+// [B, L, heads * dh], dh one of 8, 16, 32, 64, 128, 256, 512.
 #include "attention.cuh"
 
 extern "C" int crog_attention_fwd(

@@ -1,5 +1,5 @@
 // Softmax attention with an exact (normalized, then rounded) softmax, for
-// head dims 8-128.
+// head dims 8-512.
 //
 // Replaces the forward Pallas kernel `_fused_fwd` of
 // crog_tpu/ops/pallas_attention.py:104 (pallas_call at :111) and the
@@ -20,6 +20,7 @@
 // parameter that sizes the tiles and the O and Q registers; the head's dh
 // (8 to DH) is a run-time value: its columns past dh load as zeros into
 // shared memory and are not stored, so dh 8 and 16 run in the DH 32 build.
+// Head tiles 256 and 512 run attn_fwd_wide_kernel (below).
 //
 // Bound on an H100: the CLIP attention pool (B=24, 32 heads, L=169) is 5.6
 // GFLOP against 66 MB of q/k/v/o, about 20 us, limited by memory; the
@@ -331,6 +332,207 @@ __global__ void __launch_bounds__(kAttnThreads, KT > 0 || DH > 64 ? 2 : DH == 64
   attn_store<DH>(o, a.o + b * a.o_bs + h * dh, a.o_rs, q0 + r0, a.lq, dh);
 }
 
+// ------------------------------------------------- head tiles 256 and 512
+// A head of 256 or 512 columns (num_head 2 and 1 at d_model 512) would hold
+// Q's fragments and O's accumulator in 192 or 384 registers a thread, and a
+// 64-key tile of K at DH 512 is 66,560 bytes.  So the wide kernel streams
+// the head in 64-column chunks: a CTA of 4 warps takes 64 query rows and
+// kAttnWideCols of O's columns (grid z: 2 CTAs a query block at DH 256, 4
+// at 512), keeps its rows of Q whole in shared memory ([DH / 64][64 x 72]),
+// and walks the key tiles twice through a kAttnWideStages ring of 64 x 64
+// chunks.  Each key tile's scores sum over the head's K chunks (ldmatrix +
+// mma.sync, each chunk's Q fragments read from shared memory when it is
+// multiplied, each chunk's product in fresh registers joined by f32 adds,
+// as attention_bwd.cuh's wide kernels sum); the first pass keeps each
+// row's running max and rescaled sum, the second forms p = bf16(exp2(s -
+// max) / sum) in registers, as attn_fwd_kernel<0> does, and multiplies it
+// by the CTA's V chunks.  Every CTA of a query block forms the whole head's
+// scores, twice: S four times at DH 256, eight times at 512 (the softmax
+// work is a quarter or an eighth of num_head 8's).  Shared memory (DH / 64
+// + 3) chunks: 64,512 bytes at DH 256, 101,376 at 512; 186 registers, two
+// CTAs an SM.
+constexpr int kAttnWideCols = 128;  // O's columns a CTA owns
+constexpr int kAttnWideStages = 3;  // 64 x 64 chunks in flight
+
+template <int DH>
+__host__ __device__ constexpr size_t attn_fwd_wide_smem_bytes() {
+  return (size_t)(DH / 64 + kAttnWideStages) * kAbChunk * sizeof(bf16);
+}
+
+// s += this warp's 16 query rows times the 64 keys of a chunk of K (64
+// columns of the head), n-tiles j >= nv skipped, summed in fresh registers
+// and joined to s by f32 adds
+__device__ __forceinline__ void attn_qk_chunk(float (&s)[8][4], const uint32_t (&fq)[4][4],
+                                              const bf16* ks, int nv) {
+  constexpr int LD = AbTile<64>::kLd;
+  const int lane = threadIdx.x & 31;
+  float t[8][4];
+  ab_zero(t);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (j < nv) {
+#pragma unroll
+      for (int k2 = 0; k2 < 2; ++k2) {
+        uint32_t bb[4];
+        ldsm_x4(smem_u32(ks + (j * 8 + (lane & 7)) * LD + k2 * 32 + (lane >> 3) * 8), bb);
+        mma_bf16(t[j], fq[2 * k2], bb[0], bb[1]);
+        mma_bf16(t[j], fq[2 * k2 + 1], bb[2], bb[3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] += t[j][e];
+}
+
+// the scores of key tile kt in the log2 domain with the key mask, as
+// attn_scores leaves them
+__device__ __forceinline__ void attn_scale_mask(float (&s)[8][4], int kt, int lk,
+                                                const float* mrow, float sl2) {
+  const int qd = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = kt + j * 8 + 2 * qd + (e & 1);
+      s[j][e] = key < lk ? s[j][e] * sl2 + (mrow ? mrow[key] * kLog2e : 0.0f) : -3.0e38f;
+    }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kAttnThreads, 2) attn_fwd_wide_kernel(AttnArgs a) {
+  constexpr int NCH = DH / 64;              // K chunks a key tile
+  constexpr int NV = kAttnWideCols / 64;    // V chunks of this CTA's columns
+  constexpr int ST = kAttnWideStages;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [NCH] chunks of Q's rows
+  bf16* ring = qs + NCH * kAbChunk;           // [ST] chunks of K or V
+
+  const int bh = blockIdx.y;
+  const int b = bh / a.heads;
+  const int h = bh % a.heads;
+  const int q0 = blockIdx.x * kAttnBQ;
+  const int c0 = blockIdx.z * kAttnWideCols;  // this CTA's columns of O
+  const int r0 = (threadIdx.x >> 5) * 16;
+  const bf16* kb = a.k + b * a.k_bs + h * DH;
+  const bf16* vb = a.v + b * a.v_bs + h * DH + c0;
+  const float* mrow = a.mask ? a.mask + (long long)b * a.lk : nullptr;
+  const float sl2 = a.scale * kLog2e;
+  const int T = (a.lk + kAttnBQ - 1) / kAttnBQ;
+  // the chunks in order: each key tile's NCH K chunks (first pass), then
+  // each key tile's NCH K chunks and NV V chunks (second pass)
+  const int n1 = T * NCH, n = n1 + T * (NCH + NV);
+  auto load = [&](int i) {
+    const int per = i < n1 ? NCH : NCH + NV, u = i < n1 ? i : i - n1;
+    const int kt = (u / per) * kAttnBQ, j = u % per;
+    const bool kc = j < NCH;
+    ab_load_rows<kAttnThreads, 64>(ring + (i % ST) * kAbChunk,
+                                   kc ? kb + j * 64 : vb + (j - NCH) * 64, kc ? a.k_rs : a.v_rs,
+                                   kt, attn_tile_rows(kt, a.lk), a.lk, 64);
+  };
+#pragma unroll
+  for (int c = 0; c < NCH; ++c)  // Q, in the first chunk's group
+    ab_load_rows<kAttnThreads, 64>(qs + c * kAbChunk, a.q + b * a.q_bs + h * DH + c * 64,
+                                   a.q_rs, q0, kAttnBQ, a.lq, 64);
+#pragma unroll
+  for (int i = 0; i < ST - 1; ++i) {
+    if (i < n) load(i);
+    cp_async_commit();
+  }
+
+  float m[2] = {-3.0e38f, -3.0e38f}, l[2] = {0.0f, 0.0f}, inv[2] = {0.0f, 0.0f};
+  float o[NV][8][4], s[8][4];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) ab_zero(o[v]);
+  ab_zero(s);
+#pragma unroll 1
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<ST - 2>();
+    __syncthreads();  // chunk i landed; every warp is done with chunk i - 1's slot
+    if (i + ST - 1 < n) load(i + ST - 1);
+    cp_async_commit();
+    const bool second = i >= n1;
+    const int per = second ? NCH + NV : NCH, u = second ? i - n1 : i;
+    const int kt = (u / per) * kAttnBQ, j = u % per;
+    const int nv = min(8, (a.lk - kt + 7) / 8);
+    const bf16* cs = ring + (i % ST) * kAbChunk;
+    if (j < NCH) {
+      uint32_t fq[4][4];
+      attn_q_frags<64>(qs + j * kAbChunk, r0, fq);
+      if (j == 0) ab_zero(s);
+      attn_qk_chunk(s, fq, cs, nv);
+      if (j == NCH - 1) {
+        attn_scale_mask(s, kt, a.lk, mrow, sl2);
+        if (!second) {  // running max and rescaled sum over this thread's keys
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float mt = m[r];
+#pragma unroll
+            for (int jj = 0; jj < 8; ++jj) mt = fmaxf(mt, fmaxf(s[jj][2 * r], s[jj][2 * r + 1]));
+            float lt = 0.0f;
+#pragma unroll
+            for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+              for (int e = 0; e < 2; ++e)
+                lt += s[jj][2 * r + e] > -3.0e38f ? attn_exp2(s[jj][2 * r + e] - mt) : 0.0f;
+            l[r] = l[r] * attn_exp2(m[r] - mt) + lt;
+            m[r] = mt;
+          }
+          if (kt + kAttnBQ >= a.lk) attn_quad_stats(m, l, inv);
+        } else {  // p = bf16(exp2(s - max) / sum), kept for the V chunks
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              s[jj][e] = s[jj][e] > -3.0e38f ? attn_exp2(s[jj][e] - m[e >> 1]) * inv[e >> 1] : 0.0f;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int v = 0; v < NV; ++v)
+        if (j == NCH + v) ab_nn_all<kBwdBf16, 64, 64>(o[v], s, cs, nv);
+    }
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int v = 0; v < NV; ++v)
+    attn_store<64>(o[v], a.o + b * a.o_bs + h * DH + c0 + v * 64, a.o_rs, q0 + r0, a.lq, 64);
+}
+
+template <int DH>
+static cudaError_t attn_fwd_wide_set_smem_once() {
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(attn_fwd_wide_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)attn_fwd_wide_smem_bytes<DH>());
+  return attr;
+}
+
+template <int DH>
+static cudaError_t launch_attention_wide(const AttnArgs& a, int batch, cudaStream_t stream) {
+  const cudaError_t attr = attn_fwd_wide_set_smem_once<DH>();
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((a.lq + kAttnBQ - 1) / kAttnBQ, batch * a.heads, DH / kAttnWideCols);
+  attn_fwd_wide_kernel<DH><<<grid, kAttnThreads, attn_fwd_wide_smem_bytes<DH>(), stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int DH>
+static cudaError_t attention_fwd_wide_attrs(int* out) {
+  cudaError_t err = attn_fwd_wide_set_smem_once<DH>();
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, attn_fwd_wide_kernel<DH>);
+  if (err != cudaSuccess) return err;
+  out[0] = 0;  // two passes at any length
+  out[1] = fa.numRegs;
+  out[2] = (int)(fa.sharedSizeBytes + attn_fwd_wide_smem_bytes<DH>());
+  out[3] = (int)fa.localSizeBytes;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4], attn_fwd_wide_kernel<DH>,
+                                                        kAttnThreads,
+                                                        attn_fwd_wide_smem_bytes<DH>());
+}
+
 // Each kernel's dynamic shared memory limit, set once per library and card.
 // Internal linkage: two libraries include this header (attention,
 // decoder_blocks), and a function-local static of an inline function would
@@ -368,6 +570,8 @@ static cudaError_t launch_attention(const AttnArgs& a, int batch, cudaStream_t s
     case 32: return launch_attention_dh<32>(a, batch, stream);
     case 64: return launch_attention_dh<64>(a, batch, stream);
     case 128: return launch_attention_dh<128>(a, batch, stream);
+    case 256: return launch_attention_wide<256>(a, batch, stream);
+    case 512: return launch_attention_wide<512>(a, batch, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -407,6 +611,8 @@ static cudaError_t attention_fwd_attrs(int lk, int dh, int* out) {
     case 32: return attention_fwd_attrs_dh<32>(lk, out);
     case 64: return attention_fwd_attrs_dh<64>(lk, out);
     case 128: return attention_fwd_attrs_dh<128>(lk, out);
+    case 256: return attention_fwd_wide_attrs<256>(out);
+    case 512: return attention_fwd_wide_attrs<512>(out);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -7,7 +7,7 @@
 //   - heads of at most kHbMaxL = 256 tokens and head dim 64: one CTA per
 //     (batch, head), attention_bwd_head.cuh (its bound and design notes are
 //     there);
-//   - longer heads, of any length, other head dims (8 to 128) and the
+//   - longer heads, of any length, other head dims (8 to 512) and the
 //     decoder blocks' cast points: the two kernels of attention_bwd.cuh,
 //     which the decoder block backward shares.
 // Both recompute the row statistics from q and k instead of taking the
@@ -45,7 +45,8 @@ crog::AttnBwdArgs self_args(const void* q, const void* k, const void* v, const v
 }  // namespace
 
 // The two-kernel path.  q, o, dout, dq: [B, Lq, H*dh] bf16; k, v, dk, dv:
-// [B, Lk, H*dh] bf16, contiguous (dh one of 8, 16, 32, 64, 128); mask: [B, Lk] additive f32 or null.
+// [B, Lk, H*dh] bf16, contiguous (dh one of 8, 16, 32, 64, 128, 256, 512); mask: [B, Lk]
+// additive f32 or null.
 // stats: [3, B*H, Lq] f32 workspace.  bf16_casts 0 is K1b (unmasked self
 // attention, Lq = Lk); 1 runs the decoder blocks' cast points (kBwdBf16),
 // on which the checks of K2b's and K3b's attention step (and that K1b's

@@ -1,4 +1,4 @@
-// Softmax attention backward for head dims 8-128, in two kernels.
+// Softmax attention backward for head dims 8-512, in two kernels.
 //
 // Replaces the backward Pallas kernel `_bwd_kernel` of
 // crog_tpu/ops/pallas_attention.py:53 (pallas_call at :140, K1b, for heads
@@ -24,7 +24,8 @@
 // run-time value: the loads zero-fill the columns dh .. DH - 1 in shared
 // memory (so they add nothing to QK^T and dO V^T, and dQ, dK, dV come out
 // zero there) and the stores skip them, so dh 8 and 16 run in the DH = 32
-// instantiation.  Nothing is padded in device memory.
+// instantiation.  Nothing is padded in device memory.  Head tiles 256 and
+// 512 run the wide rows / cols kernels (below).
 //
 // Bound on an H100 at the decoder's self block (B = 24, 8 heads, L = 676):
 // five [L, L, 64] products, 56 GFLOP, 0.057 ms at the bf16 peak, against
@@ -511,6 +512,454 @@ __global__ void __launch_bounds__(kAbThreads, DH == 64 ? 3 : 2)
   ab_store_pairs(dv, a.dv + b * a.dv_bs + h * dh, a.dv_rs, k0 + kr, a.lk, c0, dh);
 }
 
+// ------------------------------------------------- head tiles 256 and 512
+// At DH 256 and 512 the rows kernel's dQ (DH / 8 fragments) and the whole
+// head's tiles (66,560 bytes per 64 rows at DH 512) do not fit, so the wide
+// kernels stream the head in 64-column chunks (AbTile<64>), two chunks to a
+// ring slot, and split the gradients' columns over grid z:
+//   attn_bwd_rows_wide_kernel: 64 query rows, kAbWideRowsCols of dQ's
+//     columns a CTA (2 CTAs a query block at DH 256, 4 at 512); its rows of
+//     Q and dO sit whole in shared memory.  Per key tile, the slots (K, V)
+//     chunk c sum S and dP over the head's chunks; the two passes are the
+//     rows kernel's (the statistics, then dS), and the second pass's last
+//     slot holds the K chunks of the CTA's columns for dQ += dS K.  CTA z 0
+//     writes the row statistics.
+//   attn_bwd_cols_wide_kernel: 64 key rows, 64 of dK's and dV's columns a
+//     CTA (grid z DH / 64); its rows of K and V sit whole in shared memory.
+//     Per query tile the slots (Q, dO) chunk c sum S^T and dP^T, then the
+//     slot of the CTA's column chunk gives dV += P^T dO and dK += dS^T Q.
+// Every CTA of a block forms the whole head's S and dP.  Shared memory:
+// rows 110,592 bytes at DH 256 (two CTAs an SM), 184,320 at 512; cols
+// 112,128 and 185,856.
+// Sums.  A tensor-core sum truncates each add to its accumulator's f32
+// ulp, so a chain's error grows with its adds: over a 512-column head one
+// chain put K1b's dQ a bf16 step from float64's rounding in its top
+// binade.  So each 64-column chunk of S and dP, and each key or query
+// tile's part of dQ, dK and dV, sums in fresh registers joined to the
+// running sums by f32 adds; K1b (kBwdF32) multiplies P and dS in three
+// bf16 parts (hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid): 24
+// bits of the f32 value), the mid and lo products in a chain of their own;
+// and its delta = rowsum(dO * O) sums in eight running sums a lane.  Against
+// float64, 0.018-0.026% of K1b's outputs at dh 256 and 512 differ by a bf16
+// step (its twin's: 0.031-0.055%); with one chain over the head and two
+// bf16 parts, 0.21-0.31%, as the 32- to 128-wide builds read.
+constexpr int kAbWideRowsCols = 128;  // dQ's columns a rows CTA owns
+constexpr int kAbChunk = AbTile<64>::kElems;
+
+// acc += A B^T over one 64-column chunk of the head (ab_nt), summed in
+// fresh registers and joined to acc by f32 adds
+__device__ __forceinline__ void ab_nt_chunk(float (&acc)[8][4], const bf16* A, int r0,
+                                            const bf16* B, int nv) {
+  float t[8][4];
+  ab_zero(t);
+  ab_nt<64>(t, A, r0, B, nv);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] += t[j][e];
+}
+
+// acc += P B[:, 0 .. 64) for the k-steps of every live key or query
+// n-tile, B a [64, 64] chunk, in fresh registers joined to acc by f32 adds:
+// kBwdF32 takes P in three bf16 parts, the hi products in one chain and
+// the mid and lo products in another; kBwdBf16 takes bf16(P) alone
+template <int MODE>
+__device__ __forceinline__ void ab_nn_wide(float (&acc)[8][4], const float (&p)[8][4],
+                                           const bf16* B, int nv) {
+  float t[8][4], tl[8][4];
+  ab_zero(t);
+  if (MODE == kBwdF32) ab_zero(tl);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (2 * kk < nv) {
+      uint32_t hi[4], mid[4], lo[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float x0 = p[2 * kk + (u >> 1)][2 * (u & 1)];
+        const float x1 = p[2 * kk + (u >> 1)][2 * (u & 1) + 1];
+        hi[u] = pack_bf16(x0, x1);
+        if (MODE == kBwdF32) {
+          const float2 h = unpack_bf16(hi[u]);
+          const float r0 = x0 - h.x, r1 = x1 - h.y;
+          mid[u] = pack_bf16(r0, r1);
+          const float2 m = unpack_bf16(mid[u]);
+          lo[u] = pack_bf16(r0 - m.x, r1 - m.y);
+        }
+      }
+      if (MODE == kBwdF32) {
+        ab_nn<64, 64>(tl, lo, B, kk * 16, 0);
+        ab_nn<64, 64>(tl, mid, B, kk * 16, 0);
+      }
+      ab_nn<64, 64>(t, hi, B, kk * 16, 0);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] += MODE == kBwdF32 ? t[j][e] + tl[j][e] : t[j][e];
+}
+
+template <int DH>
+__host__ __device__ constexpr size_t ab_rows_wide_smem() {
+  return (size_t)(2 * (DH / 64) + 4) * kAbChunk * sizeof(bf16);
+}
+template <int DH>
+__host__ __device__ constexpr size_t ab_cols_wide_smem() {
+  return (size_t)(2 * (DH / 64) + 4) * kAbChunk * sizeof(bf16) + 2 * 3 * kAbBQ * sizeof(float);
+}
+
+// kBwdF32's delta = rowsum(dO * O) of this warp's rows r0 + g and r0 + g + 8
+// (two lanes a row, DH / 2 columns each, in eight running sums joined by a
+// tree), into dl
+template <int DH>
+__device__ __forceinline__ void ab_delta_rows(const bf16* db, long long do_rs, const bf16* ob,
+                                              long long o_rs, int row0, int lq, float (&dl)[2]) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int row = row0 + (lane >> 1);
+  float ts[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (row < lq) {
+#pragma unroll 4
+    for (int c = 0; c < DH / 2; c += 8) {
+      const int col = (lane & 1) * (DH / 2) + c;
+      alignas(16) bf16 x[8], y[8];
+      copy8(x, db + (long long)row * do_rs + col);
+      copy8(y, ob + (long long)row * o_rs + col);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) ts[e] += bf2f(x[e]) * bf2f(y[e]);
+    }
+  }
+  float t = ((ts[0] + ts[1]) + (ts[2] + ts[3])) + ((ts[4] + ts[5]) + (ts[6] + ts[7]));
+  t += __shfl_xor_sync(0xffffffffu, t, 1);
+  dl[0] = __shfl_sync(0xffffffffu, t, 2 * g);
+  dl[1] = __shfl_sync(0xffffffffu, t, 2 * g + 16);
+}
+
+template <int MODE, int DH>
+__global__ void __launch_bounds__(kAbThreads) attn_bwd_rows_wide_kernel(AttnBwdArgs a) {
+  constexpr int NCH = DH / 64;
+  constexpr int NQ = kAbWideRowsCols / 64;  // K chunks of this CTA's dQ columns
+  static_assert(NQ == 2, "the dQ slot holds two K chunks");
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [NCH] chunks of Q's rows
+  bf16* dos = qs + NCH * kAbChunk;               // [NCH] chunks of dO's rows
+  bf16* ring = dos + NCH * kAbChunk;             // [2 slots][2 chunks]
+
+  const int bh = blockIdx.y;
+  const int b = bh / a.heads;
+  const int h = bh % a.heads;
+  const int q0 = blockIdx.x * kAbBQ;
+  const int c0 = blockIdx.z * kAbWideRowsCols;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int qd = lane & 3;
+  const int r0 = warp * 16;
+  const bf16* kb = a.k + b * a.k_bs + h * DH;
+  const bf16* vb = a.v + b * a.v_bs + h * DH;
+  const float* mrow = a.mask ? a.mask + (long long)b * a.lk : nullptr;
+  const float sl2 = a.scale * kLog2e;
+  const int T = (a.lk + kAbBQ - 1) / kAbBQ;
+  // the slots in order: each key tile's NCH (K, V) chunks (first pass; V
+  // only for kBwdBf16's delta), then its NCH (K, V) chunks and the K
+  // chunks of the CTA's columns (second pass)
+  const int n1 = T * NCH, n = n1 + T * (NCH + 1);
+  auto load = [&](int i) {
+    const int per = i < n1 ? NCH : NCH + 1, u = i < n1 ? i : i - n1;
+    const int kt = (u / per) * kAbBQ, j = u % per;
+    bf16* st = ring + (i & 1) * 2 * kAbChunk;
+    if (j < NCH) {
+      ab_load_async<64>(st, kb + j * 64, a.k_rs, kt, a.lk, 64);
+      if (MODE == kBwdBf16 || i >= n1) ab_load_async<64>(st + kAbChunk, vb + j * 64, a.v_rs, kt, a.lk, 64);
+    } else {
+#pragma unroll
+      for (int v = 0; v < NQ; ++v)
+        ab_load_async<64>(st + v * kAbChunk, kb + c0 + v * 64, a.k_rs, kt, a.lk, 64);
+    }
+  };
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+    ab_load_async<64>(qs + c * kAbChunk, a.q + b * a.q_bs + h * DH + c * 64, a.q_rs, q0, a.lq, 64);
+    ab_load_async<64>(dos + c * kAbChunk, a.dout + b * a.do_bs + h * DH + c * 64, a.do_rs, q0,
+                      a.lq, 64);
+  }
+  load(0);
+  cp_async_commit();
+
+  float m[2] = {-3.0e38f, -3.0e38f}, l[2] = {0.0f, 0.0f}, dl[2] = {0.0f, 0.0f};
+  if (MODE == kBwdF32)
+    ab_delta_rows<DH>(a.dout + b * a.do_bs + h * DH, a.do_rs, a.o + b * a.o_bs + h * DH, a.o_rs,
+                      q0 + r0, a.lq, dl);
+  float inv[2] = {0.0f, 0.0f};
+  float dq[NQ][8][4], sc[8][4], dp[8][4];
+#pragma unroll
+  for (int v = 0; v < NQ; ++v) ab_zero(dq[v]);
+  ab_zero(sc);
+  ab_zero(dp);
+
+#pragma unroll 1
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<0>();
+    __syncthreads();  // slot i landed; every warp is done with slot i - 1
+    if (i + 1 < n) load(i + 1);
+    cp_async_commit();
+    const bool second = i >= n1;
+    const int per = second ? NCH + 1 : NCH, u = second ? i - n1 : i;
+    const int kt = (u / per) * kAbBQ, j = u % per;
+    const int nv = min(8, (a.lk - kt + 7) / 8);
+    const bf16* st = ring + (i & 1) * 2 * kAbChunk;
+    if (j < NCH) {
+      if (j == 0) {
+        ab_zero(sc);
+        ab_zero(dp);
+      }
+      ab_nt_chunk(sc, qs + j * kAbChunk, r0, st, nv);
+      if (MODE == kBwdBf16 || second) ab_nt_chunk(dp, dos + j * kAbChunk, r0, st + kAbChunk, nv);
+      if (j == NCH - 1) {
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = kt + jj * 8 + 2 * qd + (e & 1);
+            sc[jj][e] =
+                key < a.lk ? sc[jj][e] * sl2 + (mrow ? mrow[key] * kLog2e : 0.0f) : -3.0e38f;
+          }
+        if (!second) {  // the running statistics over this thread's keys
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float mt = m[r];
+#pragma unroll
+            for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) mt = fmaxf(mt, sc[jj][2 * r + e]);
+            const float corr = exp2f(m[r] - mt);
+            float lt = 0.0f, dt = 0.0f;
+#pragma unroll
+            for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const float x =
+                    kt + jj * 8 + 2 * qd + e < a.lk ? exp2f(sc[jj][2 * r + e] - mt) : 0.0f;
+                lt += x;
+                if (MODE == kBwdBf16) dt += x * dp[jj][2 * r + e];
+              }
+            m[r] = mt;
+            l[r] = l[r] * corr + lt;
+            if (MODE == kBwdBf16) dl[r] = dl[r] * corr + dt;
+          }
+          if (kt + kAbBQ >= a.lk) {  // the quad's four partial statistics, in a fixed order
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              float mq = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
+              mq = fmaxf(mq, __shfl_xor_sync(0xffffffffu, mq, 2));
+              const float f = exp2f(m[r] - mq);
+              float lq = l[r] * f;
+              lq += __shfl_xor_sync(0xffffffffu, lq, 1);
+              lq += __shfl_xor_sync(0xffffffffu, lq, 2);
+              m[r] = mq;
+              inv[r] = 1.0f / lq;
+              if (MODE == kBwdBf16) {
+                float dq_ = dl[r] * f;
+                dq_ += __shfl_xor_sync(0xffffffffu, dq_, 1);
+                dq_ += __shfl_xor_sync(0xffffffffu, dq_, 2);
+                dl[r] = dq_ * inv[r];
+              }
+            }
+          }
+        } else {  // P = exp2(s - m) / l, dS = P (dP - delta) * scale
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int key = kt + jj * 8 + 2 * qd + (e & 1);
+              const float p = key < a.lk ? exp2f(sc[jj][e] - m[e >> 1]) * inv[e >> 1] : 0.0f;
+              sc[jj][e] = p * (dp[jj][e] - dl[e >> 1]) * a.scale;
+            }
+        }
+      }
+    } else {  // dQ += dS K over the CTA's columns
+#pragma unroll
+      for (int v = 0; v < NQ; ++v) ab_nn_wide<MODE>(dq[v], sc, st + v * kAbChunk, nv);
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int v = 0; v < NQ; ++v)
+    ab_store_pairs(dq[v], a.dq + b * a.dq_bs + h * DH, a.dq_rs, q0 + r0, a.lq, c0 + v * 64, DH);
+  if (blockIdx.z != 0) return;
+  const long long nrow = (long long)gridDim.y * a.lq;
+  float* stb = a.stats + (long long)bh * a.lq;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + g + 8 * r;
+    if (row < a.lq && qd == 0) {
+      stb[row] = m[r];
+      stb[nrow + row] = inv[r];
+      stb[2 * nrow + row] = dl[r];
+    }
+  }
+}
+
+template <int MODE, int DH>
+__global__ void __launch_bounds__(kAbThreads) attn_bwd_cols_wide_kernel(AttnBwdArgs a) {
+  constexpr int NCH = DH / 64;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [NCH] chunks of K's rows
+  bf16* vs = ks + NCH * kAbChunk;                // [NCH] chunks of V's rows
+  bf16* ring = vs + NCH * kAbChunk;              // [2 slots][Q, dO chunk]
+  float* sring = reinterpret_cast<float*>(ring + 4 * kAbChunk);  // [2 tiles][m, l, delta][64]
+
+  const int bh = blockIdx.y;
+  const int b = bh / a.heads;
+  const int h = bh % a.heads;
+  const int k0 = blockIdx.x * kAbBQ;
+  const int cz = blockIdx.z;  // this CTA's 64 columns of dK and dV are chunk cz
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int qd = lane & 3;
+  const int kr = warp * 16;
+  const bf16* qb = a.q + b * a.q_bs + h * DH;
+  const bf16* db = a.dout + b * a.do_bs + h * DH;
+  const long long nrow = (long long)gridDim.y * a.lq;
+  const float* stb = a.stats + (long long)bh * a.lq;
+  const int T = (a.lq + kAbBQ - 1) / kAbBQ;
+  // the slots in order: per query tile its NCH (Q, dO) chunks, then the
+  // (Q, dO) chunk of the CTA's columns; a tile's statistics come with its
+  // first slot
+  const int per = NCH + 1, n = T * per;
+  auto load = [&](int i) {
+    const int it = i / per, j = i % per, c = j < NCH ? j : cz;
+    bf16* st = ring + (i & 1) * 2 * kAbChunk;
+    ab_load_async<64>(st, qb + c * 64, a.q_rs, it * kAbBQ, a.lq, 64);
+    ab_load_async<64>(st + kAbChunk, db + c * 64, a.do_rs, it * kAbBQ, a.lq, 64);
+    if (j == 0) {
+      float* ss = sring + (it & 1) * 3 * kAbBQ;
+      for (int v = threadIdx.x; v < 3 * kAbBQ; v += kAbThreads) {
+        const int r = it * kAbBQ + v % kAbBQ;
+        const bool ok = r < a.lq;
+        cp_async4(smem_u32(ss + v), stb + (v / kAbBQ) * nrow + (ok ? r : 0), ok ? 4 : 0);
+      }
+    }
+  };
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+    ab_load_async<64>(ks + c * kAbChunk, a.k + b * a.k_bs + h * DH + c * 64, a.k_rs, k0, a.lk, 64);
+    ab_load_async<64>(vs + c * kAbChunk, a.v + b * a.v_bs + h * DH + c * 64, a.v_rs, k0, a.lk, 64);
+  }
+  load(0);
+  cp_async_commit();
+
+  const float sl2 = a.scale * kLog2e;
+  bool kv[2];
+  float mk[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + kr + g + 8 * r;
+    kv[r] = key < a.lk;
+    mk[r] = kv[r] && a.mask ? a.mask[(long long)b * a.lk + key] * kLog2e : 0.0f;
+  }
+  float dk[8][4], dv[8][4], sc[8][4], dp[8][4];
+  ab_zero(dk);
+  ab_zero(dv);
+  ab_zero(sc);
+  ab_zero(dp);
+
+#pragma unroll 1
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<0>();
+    __syncthreads();  // slot i landed; every warp is done with slot i - 1
+    if (i + 1 < n) load(i + 1);
+    cp_async_commit();
+    const int it = i / per, j = i % per;
+    const int q0 = it * kAbBQ;
+    const int nv = min(8, (a.lq - q0 + 7) / 8);
+    const bf16* qc = ring + (i & 1) * 2 * kAbChunk;
+    const bf16* dc = qc + kAbChunk;
+    if (j < NCH) {  // S^T = K Q^T and dP^T = V dO^T over the head's chunks
+      if (j == 0) {
+        ab_zero(sc);
+        ab_zero(dp);
+      }
+      ab_nt_chunk(sc, ks + j * kAbChunk, kr, qc, nv);
+      ab_nt_chunk(dp, vs + j * kAbChunk, kr, dc, nv);
+      if (j == NCH - 1) {  // P^T and dS^T from the rows' statistics
+        const float* ss = sring + (it & 1) * 3 * kAbBQ;
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = jj * 8 + 2 * qd + (e & 1);
+            const int r = e >> 1;
+            float p = 0.0f, ds = 0.0f;
+            if (kv[r] && q0 + c < a.lq) {
+              p = exp2f(sc[jj][e] * sl2 + mk[r] - ss[c]) * ss[kAbBQ + c];
+              ds = p * (dp[jj][e] - ss[2 * kAbBQ + c]) * a.scale;
+            }
+            sc[jj][e] = p;
+            dp[jj][e] = ds;
+          }
+      }
+    } else {
+      ab_nn_wide<MODE>(dv, sc, dc, nv);  // dV += P^T dO
+      ab_nn_wide<MODE>(dk, dp, qc, nv);  // dK += dS^T Q
+    }
+  }
+  cp_async_wait<0>();
+
+  ab_store_pairs(dk, a.dk + b * a.dk_bs + h * DH, a.dk_rs, k0 + kr, a.lk, cz * 64, DH);
+  ab_store_pairs(dv, a.dv + b * a.dv_bs + h * DH, a.dv_rs, k0 + kr, a.lk, cz * 64, DH);
+}
+
+template <int MODE, int DH>
+static cudaError_t ab_wide_set_smem_once() {
+  static const cudaError_t attr = [] {
+    const cudaError_t e = cudaFuncSetAttribute(attn_bwd_rows_wide_kernel<MODE, DH>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)ab_rows_wide_smem<DH>());
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(attn_bwd_cols_wide_kernel<MODE, DH>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)ab_cols_wide_smem<DH>());
+  }();
+  return attr;
+}
+
+template <int MODE, int DH>
+static cudaError_t launch_attention_bwd_wide(const AttnBwdArgs& a, int batch,
+                                             cudaStream_t stream) {
+  const cudaError_t attr = ab_wide_set_smem_once<MODE, DH>();
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid_rows((a.lq + kAbBQ - 1) / kAbBQ, batch * a.heads, DH / kAbWideRowsCols);
+  attn_bwd_rows_wide_kernel<MODE, DH>
+      <<<grid_rows, kAbThreads, ab_rows_wide_smem<DH>(), stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid_cols((a.lk + kAbBQ - 1) / kAbBQ, batch * a.heads, DH / 64);
+  attn_bwd_cols_wide_kernel<MODE, DH>
+      <<<grid_cols, kAbThreads, ab_cols_wide_smem<DH>(), stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int MODE, int DH>
+static cudaError_t attention_bwd_wide_attrs(int* out) {
+  const cudaError_t attr = ab_wide_set_smem_once<MODE, DH>();
+  if (attr != cudaSuccess) return attr;
+  const void* fns[2] = {reinterpret_cast<const void*>(attn_bwd_rows_wide_kernel<MODE, DH>),
+                        reinterpret_cast<const void*>(attn_bwd_cols_wide_kernel<MODE, DH>)};
+  const size_t dyn[2] = {ab_rows_wide_smem<DH>(), ab_cols_wide_smem<DH>()};
+  for (int i = 0; i < 2; ++i) {
+    cudaFuncAttributes fa;
+    const cudaError_t err = cudaFuncGetAttributes(&fa, fns[i]);
+    if (err != cudaSuccess) return err;
+    out[3 * i] = fa.numRegs;
+    out[3 * i + 1] = (int)(fa.sharedSizeBytes + dyn[i]);
+    out[3 * i + 2] = (int)fa.localSizeBytes;
+  }
+  return cudaSuccess;
+}
+
 // the kernels' dynamic shared memory limits, set once per library and card.
 // Internal linkage: two libraries include this header (attention_bwd,
 // decoder_blocks_bwd), and the local static of an inline function would be
@@ -552,6 +1001,8 @@ static cudaError_t launch_attention_bwd(const AttnBwdArgs& a, int batch,
     case 32: return launch_attention_bwd_dh<MODE, 32>(a, batch, stream);
     case 64: return launch_attention_bwd_dh<MODE, 64>(a, batch, stream);
     case 128: return launch_attention_bwd_dh<MODE, 128>(a, batch, stream);
+    case 256: return launch_attention_bwd_wide<MODE, 256>(a, batch, stream);
+    case 512: return launch_attention_bwd_wide<MODE, 512>(a, batch, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -580,6 +1031,8 @@ static cudaError_t attention_bwd_attrs(int dh, int* out) {
     case 32: return attention_bwd_attrs_dh<MODE, 32>(out);
     case 64: return attention_bwd_attrs_dh<MODE, 64>(out);
     case 128: return attention_bwd_attrs_dh<MODE, 128>(out);
+    case 256: return attention_bwd_wide_attrs<MODE, 256>(out);
+    case 512: return attention_bwd_wide_attrs<MODE, 512>(out);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -10,7 +10,7 @@
 #include "attention_bwd_f32.cuh"
 
 // q, o, do, dq [B, Lq, H*dh]; k, v, dk, dv [B, Lk, H*dh] (dh one of 8, 16,
-// 32, 64, 128); mask [B, Lk] additive f32 or null; lse [B*H, Lq] or null;
+// 32, 64, 128, 256, 512); mask [B, Lk] additive f32 or null; lse [B*H, Lq] or null;
 // stats [B*H, 3, Lq] and dqpart [ab_f32_parts(Lk), B*H, Lq, dh] (work);
 // strides in floats
 extern "C" int crog_attention_f32_bwd(

@@ -1,4 +1,4 @@
-// The attention backward on fp32 operands, head dims 8-128: K1b-f32, and
+// The attention backward on fp32 operands, head dims 8-512: K1b-f32, and
 // the attention step of K2b-f32 / K3b-f32.
 //
 // Replaces crog_tpu/ops/pallas_attention.py:133 `_fused_bwd_vjp`
@@ -37,7 +37,8 @@
 // forming S^T and dP^T over the whole head, so that the accumulators stay
 // at DH 64's registers (with one register set for the split K and V
 // fragments, which with two spill at DH 128's eight groups a product).
-// One CTA an SM at DH 128 (160 and 193 KB).
+// One CTA an SM at DH 128 (160 and 193 KB).  Head tiles 256 and 512 run the
+// wide pre-pass and main kernel (below).
 //
 // Products per (64-query, 64-key) pair: 5 in K1b (QK^T, dO V^T, P^T dO,
 // dS^T Q, dS K, each once), 7 in the blocks (the pre-pass forms QK^T and
@@ -833,6 +834,400 @@ __global__ void __launch_bounds__(256) attn_bwd_f32_dq_sum_kernel(const AttnBwdF
   *reinterpret_cast<float4*>(a.dq + b * a.dq_bs + (long long)qi * a.dq_rs + h * dh + c) = acc;
 }
 
+// ------------------------------------------------- head tiles 256 and 512
+// At DH 256 and 512 neither kernel above fits: the pre-pass's raw Q and dO
+// rows would take 128 or 256 KiB, the main kernel's raw K and V block as
+// much, and Q's and dO's planes twice that.  The wide kernels stream the
+// head in 64-column chunks, each landing raw (double-buffered, one chunk
+// ahead) and split once into the planes its product reads, each chunk's
+// product summing in fresh registers joined to the running sums by IEEE
+// adds (no truncating tensor-core sum deeper than 64):
+//   attn_bwd_f32_stats_wide_kernel: 64 query rows a CTA; per 32-key tile
+//     the chunks (Q, dO, K, V) c give S and dP over the head (Q and dO the
+//     A fragments, split per use from their raw chunks; K and V split into
+//     [key][d] planes); then the pre-pass's online statistics.
+//   attn_bwd_f32_main_wide_kernel: 64 keys and one 64-column chunk cz of
+//     dK, dV and dQ a CTA (grid z DH / 64), over 32-query tiles as the main
+//     kernel walks them (its key-block groups and dQ partials alike).  Per
+//     tile the chunks (Q, dO, K, V) c give S^T and dP^T over the head (K
+//     and V the A fragments from their raw chunks; Q and dO split into
+//     [query][d] planes, and at c = cz also into the transposed planes of
+//     dK's and dV's B); then P, dS, dV, dK and dQ^T = K_cz^T dS as the main
+//     kernel forms them, K's chunk cz held raw for the block.
+// Every CTA of a key block forms the whole head's S^T and dP^T (4 times at
+// DH 256, 8 at 512).  Shared memory: pre-pass 131,072 bytes, main 180,992,
+// at either width: one CTA an SM.
+template <int DH>
+struct AbPreWide {
+  static constexpr int kBK = 32;                // keys per tile
+  static constexpr int kPlane = kBK * 64 * 4;   // a K or V chunk's [key][d] plane
+  static constexpr int kQRaw = kAbF32PreQ * 64 * 4;  // a raw Q or dO chunk [64][64]
+  static constexpr int kKRaw = kBK * 64 * 4;    // a raw K or V chunk [kBK][64]
+  static constexpr int kStage = 2 * kQRaw + 2 * kKRaw;  // raw Q, dO, K, V chunks
+  static constexpr int kK = 0;                  // K chunk planes
+  static constexpr int kV = 2 * kPlane;         // V chunk planes
+  static constexpr int kRaw = 4 * kPlane;       // [2 stages]
+  static constexpr int kSmem = kRaw + 2 * kStage;
+};
+
+template <int DH>
+struct AbMainWide {
+  static constexpr int kQS = kAbF32Q * 64 * 4;  // a plane of Q or dO [query][d], or dS [query][key]
+  static constexpr int kTP = 64 * kAbF32Q * 4;  // a plane of Q^T or dO^T [d][query']
+  static constexpr int kQRaw = kAbF32Q * 64 * 4;     // a raw Q or dO chunk [32][64]
+  static constexpr int kKRaw = kAbF32Keys * 64 * 4;  // a raw K or V chunk [64][64]
+  static constexpr int kStage = 2 * kQRaw + 2 * kKRaw;
+  static constexpr int kQn = 0;
+  static constexpr int kDOn = kQn + 2 * kQS;
+  static constexpr int kQt = kDOn + 2 * kQS;
+  static constexpr int kDOt = kQt + 2 * kTP;
+  static constexpr int kKz = kDOt + 2 * kTP;  // K's chunk cz, raw, for the block
+  static constexpr int kRaw = kKz + kKRaw;    // [2 stages][Q, dO, K, V]
+  static constexpr int kStat = kRaw + 2 * kStage;  // 2 x [3][32]
+  static constexpr int kSmem = kStat + 2 * 3 * kAbF32Q * 4;
+};
+
+template <int PS, int PDP, int DH>
+__global__ void __launch_bounds__(kAbF32Threads, 1) attn_bwd_f32_stats_wide_kernel(
+    const AttnBwdF32Args a) {
+  using L = AbPreWide<DH>;
+  constexpr int BK = L::kBK, NCH = DH / 64;
+  extern __shared__ __align__(1024) unsigned char ab_smem[];
+  unsigned char* smem = ab_smem;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y, b = bh / a.heads, h = bh % a.heads;
+  const uint32_t sbase = smem_u32(smem);
+  if (sbase & 1023) __trap();  // the planes' swizzle needs 1024-byte alignment
+  const float* qb = a.q + b * a.q_bs + h * DH;
+  const float* db = a.dout + b * a.do_bs + h * DH;
+  const float* kb = a.k + b * a.k_bs + h * DH;
+  const float* vb = a.v + b * a.v_bs + h * DH;
+  const float* mk = a.mask != nullptr ? a.mask + (long long)b * a.lk : nullptr;
+  const int ntiles = (a.lk + BK - 1) / BK;
+  const int q0 = blockIdx.x * kAbF32PreQ;
+  const int n = ntiles * NCH;
+  auto load = [&](int i) {  // chunk c of key tile kt: raw Q, dO (kswz), K, V
+    if (i < n) {
+      const int kt = i / NCH, c = i % NCH;
+      const uint32_t st = sbase + L::kRaw + (i & 1) * L::kStage;
+      ab_load_kswz<64>(st, qb + c * 64, a.q_rs, q0, kAbF32PreQ, a.lq, 64);
+      ab_load_kswz<64>(st + L::kQRaw, db + c * 64, a.do_rs, q0, kAbF32PreQ, a.lq, 64);
+      ab_load_raw<64>(st + 2 * L::kQRaw, kb + c * 64, a.k_rs, kt * BK, BK, a.lk, 64);
+      ab_load_raw<64>(st + 2 * L::kQRaw + L::kKRaw, vb + c * 64, a.v_rs, kt * BK, BK, a.lk, 64);
+    }
+    cp_async_commit();
+  };
+  load(0);
+
+  const int ra = q0 + warp * 16 + g, rb = ra + 8;
+  float m[2] = {ab_neg_inf(), ab_neg_inf()}, l[2] = {0.0f, 0.0f}, w[2] = {0.0f, 0.0f};
+  float s[BK / 2], dp[BK / 2];
+#pragma unroll
+  for (int e = 0; e < BK / 2; ++e) s[e] = dp[e] = 0.0f;
+#pragma unroll 1
+  for (int i = 0; i < n; ++i) {
+    const int kt = i / NCH, c = i % NCH;
+    const int so = L::kRaw + (i & 1) * L::kStage;
+    cp_async_wait<0>();
+    __syncthreads();  // chunk i landed; every warp is done with the planes and stage i - 1
+    ab_split_tile<PS, PS, false, 64>(smem, so + 2 * L::kQRaw, L::kK, 0, BK, L::kPlane);
+    ab_split_tile<PDP, PDP, false, 64>(smem, so + 2 * L::kQRaw + L::kKRaw, L::kV, 0, BK,
+                                       L::kPlane);
+    fence_proxy_async();
+    __syncthreads();
+    load(i + 1);
+    if (c == 0) {
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) s[e] = dp[e] = 0.0f;
+    }
+    float sc[BK / 2], dpc[BK / 2];
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) sc[e] = dpc[e] = 0.0f;
+    uint32_t fh[2][4][4], fl[2][4][4];
+    const float* qr = reinterpret_cast<const float*>(smem + so);
+    ab_product_raw<PS, BK, true, 64, 0, 2>(sc, qr, sbase + L::kK, BK, L::kPlane, fh, fl);
+    ab_product_raw<PDP, BK, true, 64, 2, 2>(dpc, qr + kAbF32PreQ * 64, sbase + L::kV, BK,
+                                            L::kPlane, fh, fl);
+    wgmma_wait_all();
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) {
+      s[e] += sc[e];
+      dp[e] += dpc[e];
+    }
+    if (c < NCH - 1) continue;
+    const int k0 = kt * BK;
+    float tmax[2] = {ab_neg_inf(), ab_neg_inf()};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 8 * j + 2 * t + (e & 1);
+        float x = ab_neg_inf();  // keys past Lk weigh exactly 0
+        if (key < a.lk) x = mk != nullptr ? s[4 * j + e] * a.scale + mk[key]
+                                          : s[4 * j + e] * a.scale;
+        s[4 * j + e] = x;
+        tmax[e >> 1] = fmaxf(tmax[e >> 1], x);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
+      tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
+      const float mnew = fmaxf(m[r], tmax[r]);  // finite: key 0 is in the first tile
+      const float cr = expf(m[r] - mnew);
+      l[r] *= cr;
+      w[r] *= cr;
+      m[r] = mnew;
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[4 * j + e] - m[e >> 1]);
+        l[e >> 1] += p;
+        w[e >> 1] += p * dp[4 * j + e];
+      }
+  }
+  cp_async_wait<0>();
+  float* st = a.stats + (long long)bh * 3 * a.lq;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    w[r] += __shfl_xor_sync(0xffffffffu, w[r], 1);
+    w[r] += __shfl_xor_sync(0xffffffffu, w[r], 2);
+    const int row = r ? rb : ra;
+    if (t == 0 && row < a.lq) {
+      st[row] = m[r];
+      st[a.lq + row] = 1.0f / l[r];
+      st[2 * a.lq + row] = w[r] / l[r];
+    }
+  }
+}
+
+template <int PS, int PDP, int PDV, int PDK, int PDQ, int DH>
+__global__ void __launch_bounds__(kAbF32Threads, 1) attn_bwd_f32_main_wide_kernel(
+    const AttnBwdF32Args a) {
+  using L = AbMainWide<DH>;
+  constexpr int NCH = DH / 64;
+  extern __shared__ __align__(1024) unsigned char ab_smem[];
+  unsigned char* smem = ab_smem;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y, b = bh / a.heads, h = bh % a.heads;
+  const int cz = blockIdx.z;  // this CTA's 64 columns of dK, dV and dQ are chunk cz
+  const uint32_t sbase = smem_u32(smem);
+  if (sbase & 1023) __trap();  // the planes' swizzle needs 1024-byte alignment
+  const float* kzt = reinterpret_cast<const float*>(smem + L::kKz);
+  const float* kb = a.k + b * a.k_bs + h * DH;
+  const float* vb = a.v + b * a.v_bs + h * DH;
+  const float* qb = a.q + b * a.q_bs + h * DH;
+  const float* db = a.dout + b * a.do_bs + h * DH;
+  const float* stg = a.stats + (long long)bh * 3 * a.lq;
+  const float* mk = a.mask != nullptr ? a.mask + (long long)b * a.lk : nullptr;
+  float* part = a.dqpart + ((long long)blockIdx.x * gridDim.y + bh) * a.lq * DH;
+  const int nqt = (a.lq + kAbF32Q - 1) / kAbF32Q;
+  const int n = nqt * NCH;
+  const int group = ab_f32_group(a.lk);
+  const int kb0 = blockIdx.x * group;
+  const int kb1 = min(kb0 + group, (a.lk + kAbF32Keys - 1) / kAbF32Keys);
+
+  for (int kblk = kb0; kblk < kb1; ++kblk) {
+    const int k0 = kblk * kAbF32Keys;
+    // chunk c of query tile qt: raw Q, dO, K, V (and with c = 0 the tile's
+    // statistics), one cp.async group
+    auto load = [&](int i) {
+      if (i < n) {
+        const int qt = i / NCH, c = i % NCH, q0 = qt * kAbF32Q;
+        const uint32_t st = sbase + L::kRaw + (i & 1) * L::kStage;
+        ab_load_raw<64>(st, qb + c * 64, a.q_rs, q0, kAbF32Q, a.lq, 64);
+        ab_load_raw<64>(st + L::kQRaw, db + c * 64, a.do_rs, q0, kAbF32Q, a.lq, 64);
+        ab_load_kswz<64>(st + 2 * L::kQRaw, kb + c * 64, a.k_rs, k0, kAbF32Keys, a.lk, 64);
+        ab_load_kswz<64>(st + 2 * L::kQRaw + L::kKRaw, vb + c * 64, a.v_rs, k0, kAbF32Keys,
+                         a.lk, 64);
+        if (c == 0 && threadIdx.x < 3 * kAbF32Q) {  // m, r, delta of the tile's rows
+          const int which = threadIdx.x / kAbF32Q, r = q0 + threadIdx.x % kAbF32Q;
+          const bool in = r < a.lq;
+          cp_async4(sbase + L::kStat + ((qt & 1) * 3 * kAbF32Q + threadIdx.x) * 4,
+                    stg + (long long)which * a.lq + (in ? r : 0), in ? 4 : 0);
+        }
+      }
+      cp_async_commit();
+    };
+    if (kblk > kb0) __syncthreads();  // every warp is done with the last block's tiles
+    ab_load_kswz<64>(sbase + L::kKz, kb + cz * 64, a.k_rs, k0, kAbF32Keys, a.lk, 64);
+    load(0);
+
+    const int ka = k0 + warp * 16 + g, kc = ka + 8;
+    const float mka = (mk != nullptr && ka < a.lk) ? mk[ka] : 0.0f;
+    const float mkc = (mk != nullptr && kc < a.lk) ? mk[kc] : 0.0f;
+    const bool first = kblk == kb0;  // writes the partial; later blocks add to it
+    float dk[32], dv[32], s[16], dp[16];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dk[e] = dv[e] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) s[e] = dp[e] = 0.0f;
+#pragma unroll 1
+    for (int i = 0; i < n; ++i) {
+      const int qt = i / NCH, c = i % NCH;
+      const int so = L::kRaw + (i & 1) * L::kStage;
+      cp_async_wait<0>();
+      __syncthreads();  // chunk i landed; every warp is done with the planes and stage i - 1
+      if (c == cz) {
+        ab_split_tile<PS, PDK, true, 64, 64>(smem, so, L::kQn, L::kQt, kAbF32Q, L::kQS, L::kTP);
+        ab_split_tile<PDP, PDV, true, 64, 64>(smem, so + L::kQRaw, L::kDOn, L::kDOt, kAbF32Q,
+                                              L::kQS, L::kTP);
+      } else {
+        ab_split_tile<PS, PS, false, 64>(smem, so, L::kQn, 0, kAbF32Q, L::kQS);
+        ab_split_tile<PDP, PDP, false, 64>(smem, so + L::kQRaw, L::kDOn, 0, kAbF32Q, L::kQS);
+      }
+      fence_proxy_async();
+      __syncthreads();
+      load(i + 1);
+      if (c == 0) {
+#pragma unroll
+        for (int e = 0; e < 16; ++e) s[e] = dp[e] = 0.0f;
+      }
+      // S^T = K Q^T and dP^T = V dO^T over this chunk (keys g (+ 8) x
+      // queries 8 j + 2 t (+ 1)), one register set: each group waits for
+      // the one before
+      float sc[16], dpc[16];
+#pragma unroll
+      for (int e = 0; e < 16; ++e) sc[e] = dpc[e] = 0.0f;
+      uint32_t fh[1][4][4], fl[1][4][4];
+      const float* kr = reinterpret_cast<const float*>(smem + so + 2 * L::kQRaw);
+      ab_product_raw<PS, 32, false, 64, 0, 1>(sc, kr, sbase + L::kQn, kAbF32Q, L::kQS, fh, fl);
+      ab_product_raw<PDP, 32, false, 64, 2, 1>(dpc, kr + kAbF32Keys * 64, sbase + L::kDOn,
+                                               kAbF32Q, L::kQS, fh, fl);
+      wgmma_wait<0>();
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        s[e] += sc[e];
+        dp[e] += dpc[e];
+      }
+      if (c < NCH - 1) continue;
+
+      const float* sts = reinterpret_cast<const float*>(smem + L::kStat) + (qt & 1) * 3 * kAbF32Q;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ql = 8 * j + 2 * t + (e & 1);
+          const bool in = qt * kAbF32Q + ql < a.lq && ((e >> 1) ? kc : ka) < a.lk;
+          const float x = s[4 * j + e] * a.scale + ((e >> 1) ? mkc : mka);
+          const float p = in ? expf(x - sts[ql]) * sts[kAbF32Q + ql] : 0.0f;
+          s[4 * j + e] = p;
+          dp[4 * j + e] = p * (dp[4 * j + e] - sts[2 * kAbF32Q + ql]) * a.scale;  // dS
+        }
+      __syncthreads();  // every warp's scores are formed: Q's planes take dS
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          uint32_t hi, lo;
+          split_p<PDQ>(dp[4 * j + e], hi, lo);
+          const uint32_t off =
+              ab_plane_off(kAbF32Q, 8 * j + 2 * t + (e & 1), warp * 16 + g + 8 * (e >> 1));
+          *reinterpret_cast<uint32_t*>(smem + L::kQn + off) = hi;
+          *reinterpret_cast<uint32_t*>(smem + L::kQn + L::kQS + off) = lo;
+        }
+      fence_proxy_async();
+
+      float tile[32];
+      ab_c_product<PDV, 64>(tile, s, sbase + L::kDOt, L::kTP);  // dV += P^T dO
+#pragma unroll
+      for (int e = 0; e < 32; ++e) dv[e] += tile[e];
+      ab_c_product<PDK, 64>(tile, dp, sbase + L::kQt, L::kTP);  // dK += dS^T Q
+#pragma unroll
+      for (int e = 0; e < 32; ++e) dk[e] += tile[e];
+      __syncthreads();  // dS is in shared memory for every warp
+      float dqt[16];  // dQ^T = K^T dS: d rows g (+ 8) x queries 8 j + 2 t (+ 1)
+#pragma unroll
+      for (int e = 0; e < 16; ++e) dqt[e] = 0.0f;
+      ab_frags4<PDQ, true, 64>(kzt, 0, fh[0], fl[0]);
+      ab_issue4<PDQ, 32, true>(dqt, fh[0], fl[0], sbase + L::kQn, kAbF32Q, 0, L::kQS);
+      wgmma_wait<0>();
+      ab_frags4<PDQ, true, 64>(kzt, 4, fh[0], fl[0]);
+      ab_issue4<PDQ, 32, true>(dqt, fh[0], fl[0], sbase + L::kQn, kAbF32Q, 4, L::kQS);
+      wgmma_wait<0>();
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = qt * kAbF32Q + 8 * j + 2 * t + (e & 1);
+          const int d = cz * 64 + warp * 16 + g + 8 * (e >> 1);
+          if (qi < a.lq) {
+            float* pp = part + (long long)qi * DH + d;
+            *pp = first ? dqt[4 * j + e] : *pp + dqt[4 * j + e];
+          }
+        }
+    }
+    cp_async_wait<0>();
+    float* dko = a.dk + b * a.dk_bs + h * DH + cz * 64 + 2 * t;
+    float* dvo = a.dv + b * a.dv_bs + h * DH + cz * 64 + 2 * t;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (ka < a.lk) {
+        *reinterpret_cast<float2*>(dko + (long long)ka * a.dk_rs + 8 * j) =
+            make_float2(dk[4 * j], dk[4 * j + 1]);
+        *reinterpret_cast<float2*>(dvo + (long long)ka * a.dv_rs + 8 * j) =
+            make_float2(dv[4 * j], dv[4 * j + 1]);
+      }
+      if (kc < a.lk) {
+        *reinterpret_cast<float2*>(dko + (long long)kc * a.dk_rs + 8 * j) =
+            make_float2(dk[4 * j + 2], dk[4 * j + 3]);
+        *reinterpret_cast<float2*>(dvo + (long long)kc * a.dv_rs + 8 * j) =
+            make_float2(dv[4 * j + 2], dv[4 * j + 3]);
+      }
+    }
+  }
+}
+
+template <int PS, int PDP, int PDQ, int PDV, int PDK, int DH>
+static cudaError_t launch_attention_bwd_f32_wide_p(const AttnBwdF32Args& a, int batch,
+                                                   cudaStream_t stream) {
+  using LM = AbMainWide<DH>;
+  using LP = AbPreWide<DH>;
+  auto main_kernel = attn_bwd_f32_main_wide_kernel<PS, PDP, PDV, PDK, PDQ, DH>;
+  auto stats_kernel = attn_bwd_f32_stats_wide_kernel<PS, PDP, DH>;
+  static const cudaError_t attr = [&] {
+    cudaError_t e = cudaFuncSetAttribute(main_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         LM::kSmem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(stats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               LP::kSmem);
+    return e;
+  }();
+  if (attr != cudaSuccess) return attr;
+  const int bh = batch * a.heads;
+  const long long rows = (long long)bh * a.lq;
+  if (a.lse != nullptr) {
+    attn_bwd_f32_delta_kernel<DH><<<(unsigned)((rows * 16 + 255) / 256), 256, 0, stream>>>(
+        a, (int)rows);
+  } else {
+    stats_kernel<<<dim3((a.lq + kAbF32PreQ - 1) / kAbF32PreQ, bh), kAbF32Threads, LP::kSmem,
+                   stream>>>(a);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int nparts = ab_f32_parts(a.lk);
+  main_kernel<<<dim3(nparts, bh, DH / 64), kAbF32Threads, LM::kSmem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long quads = rows * (DH / 4);
+  attn_bwd_f32_dq_sum_kernel<DH><<<(unsigned)((quads + 255) / 256), 256, 0, stream>>>(a, bh,
+                                                                                      nparts);
+  return cudaGetLastError();
+}
+
+template <int DH>
+static cudaError_t launch_attention_bwd_f32_wide(const AttnBwdF32Args& a, int batch,
+                                                 cudaStream_t stream) {
+  return launch_attention_bwd_f32_wide_p<products_of(kProdBwdScores), products_of(kProdDP),
+                                         products_of(kProdDQ), products_of(kProdDV),
+                                         products_of(kProdDK), DH>(a, batch, stream);
+}
+
 // Internal linkage: two libraries include this header (attention_bwd_f32,
 // decoder_blocks_bwd_f32).
 template <int PS, int PDP, int PDQ, int PDV, int PDK, int DH>
@@ -896,6 +1291,8 @@ static cudaError_t launch_attention_bwd_f32(const AttnBwdF32Args& a, int batch,
     case 32: return launch_attention_bwd_f32_dh<32>(a, batch, stream);
     case 64: return launch_attention_bwd_f32_dh<64>(a, batch, stream);
     case 128: return launch_attention_bwd_f32_dh<128>(a, batch, stream);
+    case 256: return launch_attention_bwd_f32_wide<256>(a, batch, stream);
+    case 512: return launch_attention_bwd_f32_wide<512>(a, batch, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,4 +1,4 @@
-// Softmax attention on fp32 operands, head dims 8-128: the fp32 build of
+// Softmax attention on fp32 operands, head dims 8-512: the fp32 build of
 // the attention forward (K1-f32, and the attention step of K2-f32 /
 // K3-f32).
 //
@@ -63,7 +63,8 @@
 // m64n64 halves of O's columns, each joined to O before the next: 128 KiB,
 // one CTA an SM.  A CTA of two
 // warpgroups sharing each tile's split (one CTA an SM) measured slower on
-// an H100 at the decoder's 676 keys and at the attention pool's 169.
+// an H100 at the decoder's 676 keys and at the attention pool's 169.  Head
+// tiles 256 and 512 run attn_fwd_f32_wide_kernel (below).
 #pragma once
 
 #include "attention_bwd_f32.cuh"  // the wgmma .tf32 and plane helpers ab_*, wg_step
@@ -128,10 +129,10 @@ __device__ __forceinline__ float fw_exp2(float x) {
 // one quad of j, e 0 or 1) of one chunk from 8 distinct bank groups
 __device__ __forceinline__ int fw_vswz(int r) { return ((r >> 2) & 6) | (r & 1); }
 
-template <int DH>
+template <int DH, class L = FwLayout<DH>>
 __device__ __forceinline__ void fw_load_v(uint32_t dst, const float* src, long long rs, int r0,
                                           int limit, int dh) {
-  constexpr int BK = FwLayout<DH>::kBK, C = DH / 4;
+  constexpr int BK = L::kBK, C = DH / 4;
   for (int i = threadIdx.x; i < BK * C; i += kF32AttnThreads) {
     const int r = (unsigned)i / C, c4 = (unsigned)i % C;
     const bool in = r0 + r < limit && c4 * 4 < dh;
@@ -145,10 +146,11 @@ __device__ __forceinline__ void fw_load_v(uint32_t dst, const float* src, long l
 // key 8j + 2w + e at column 8j + 4e + w, so that a thread takes keys 8j +
 // e, + 2, + 4, + 6 of four columns d and writes each d's four keys as one
 // 16-byte chunk of each plane (the same planes as ab_split_tile's
-// transposed ones); a quarter-warp covers the key chunks of one d
-template <int P, int DH>
+// transposed ones); a quarter-warp covers the key chunks of one d.  L
+// gives the tile's keys kBK, its offsets kRawV and kVt and the plane's
+// bytes kPlane; DH the raw tile's columns.
+template <int P, int DH, class L = FwLayout<DH>>
 __device__ __forceinline__ void fw_split_vt(unsigned char* smem) {
-  using L = FwLayout<DH>;
   constexpr int NJE = L::kBK / 4;  // key chunks 8j + 4e of a column
 #pragma unroll
   for (int u = threadIdx.x; u < L::kBK * DH / 16; u += kF32AttnThreads) {
@@ -377,6 +379,221 @@ __global__ void __launch_bounds__(kF32AttnThreads, DH > 64 ? 1 : 2)
   }
 }
 
+// ------------------------------------------------- head tiles 256 and 512
+// At DH 256 and 512 O alone would take 128 or 256 registers a thread and a
+// 32-key tile of K's planes 64 or 128 KiB.  The wide kernel gives each CTA
+// kF32WideCols of O's columns (grid z: 2 CTAs a query block at DH 256, 4
+// at 512), keeps its 64 rows of Q raw in shared memory (as the DH-128
+// build does) and streams each 32-key tile of K in 64-column chunks: a
+// chunk lands raw, is split into its [key][d] planes, and its 8 steps of S
+// = Q K^T (m64n32k8, Q's fragments split per use) sum in fresh registers
+// joined to the tile's scores by IEEE adds, so that no truncating tensor-
+// core sum runs deeper than 64.  Then the tile's V columns of the CTA land
+// raw, are split into V^T planes (fw_split_vt), and P V runs as two m64n64
+// halves joined to O after the online softmax, as at DH 128.  Chunks land
+// one ahead of their split.  Every CTA of a query block forms the whole
+// head's S: twice at DH 256, four times at 512.  Shared memory 139,264
+// bytes at DH 256, 204,800 at 512: one CTA an SM.
+constexpr int kF32WideCols = 128;  // O's columns a CTA owns
+
+template <int DH>
+struct FwWide {
+  static constexpr int kBK = 32;                     // keys per tile
+  static constexpr int kQ = 0;                       // the raw Q tile [64][DH]
+  static constexpr int kKPlane = kBK * 64 * 4;       // a K chunk's [key][d] plane
+  static constexpr int kK = kQ + kF32BQ * DH * 4;    // K chunk planes
+  static constexpr int kPlane = kF32WideCols * kBK * 4;  // a V^T [d][key'] plane
+  static constexpr int kVt = kK + 2 * kKPlane;       // V^T planes of the CTA's columns
+  static constexpr int kRawK = kVt + 2 * kPlane;     // a raw K chunk [kBK][64]
+  static constexpr int kRawV = kRawK + kBK * 64 * 4; // the raw V tile [kBK][kF32WideCols]
+  static constexpr int kSmem = kRawV + kBK * kF32WideCols * 4;
+};
+
+template <int PS, int PO, int DH>
+__global__ void __launch_bounds__(kF32AttnThreads, 1)
+    attn_fwd_f32_wide_kernel(const AttnF32Args a) {
+  using L = FwWide<DH>;
+  constexpr int BK = L::kBK, NCH = DH / 64, NO = kF32WideCols;
+  extern __shared__ __align__(1024) unsigned char fw_smem[];
+  unsigned char* smem = fw_smem;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.y / a.heads, h = blockIdx.y % a.heads;
+  const int c0 = blockIdx.z * NO;  // this CTA's columns of O
+  const uint32_t sbase = smem_u32(smem);
+  if (sbase & 1023) __trap();  // the planes' swizzle needs 1024-byte alignment
+  const float* kb = a.k + b * a.k_bs + h * DH;
+  const float* vb = a.v + b * a.v_bs + h * DH + c0;
+  const float* mk = a.mask != nullptr ? a.mask + (long long)b * a.lk : nullptr;
+  const float* qt = reinterpret_cast<const float*>(smem + L::kQ);
+  const int ntiles = (a.lk + BK - 1) / BK;
+  const int n = ntiles * (NCH + 1);  // per key tile its NCH K chunks, then V
+  // item i into its raw tile, one cp.async group
+  auto load = [&](int i) {
+    if (i < n) {
+      const int kt = i / (NCH + 1), c = i % (NCH + 1);
+      if (c < NCH)
+        ab_load_raw<64>(sbase + L::kRawK, kb + c * 64, a.k_rs, kt * BK, BK, a.lk, 64);
+      else
+        fw_load_v<NO, L>(sbase + L::kRawV, vb, a.v_rs, kt * BK, a.lk, NO);
+    }
+    cp_async_commit();
+  };
+  const int q0 = blockIdx.x * kF32BQ;
+  ab_load_kswz<DH>(sbase + L::kQ, a.q + b * a.q_bs + h * DH, a.q_rs, q0, kF32BQ, a.lq, DH);
+  load(0);
+
+  const int ra = q0 + warp * 16 + g, rb = ra + 8;
+  float o[NO / 2];
+#pragma unroll
+  for (int i = 0; i < NO / 2; ++i) o[i] = 0.0f;
+  const float sl2 = a.scale * kLog2e;
+  float m[2] = {ab_neg_inf(), ab_neg_inf()};  // running max of rows ra, rb (the quad's)
+  float l[2] = {0.0f, 0.0f};                  // this thread's share of the running sums
+  int i = 0;
+  for (int kt = 0; kt < ntiles; ++kt) {
+    // S = Q K^T over the head, a 64-column chunk at a time
+    float s[BK / 2];
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) s[e] = 0.0f;
+#pragma unroll 1
+    for (int c = 0; c < NCH; ++c, ++i) {
+      cp_async_wait<0>();
+      __syncthreads();  // chunk i landed; every warp is done with the K planes
+      ab_split_tile<PS, PS, false, 64>(smem, L::kRawK, L::kK, 0, BK, L::kKPlane);
+      fence_proxy_async();
+      __syncthreads();  // the planes are whole; the raw K chunk is free
+      load(i + 1);
+      float sc[BK / 2];
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) sc[e] = 0.0f;
+      uint32_t fh[2][4][4], fl[2][4][4];
+#pragma unroll
+      for (int grp = 0; grp < 2; ++grp) {
+        // the chunk's columns of Q (ab_kswz leaves bits 6 and up of a column alone)
+        ab_frags4<PS, false, DH>(qt + c * 64, 4 * grp, fh[grp], fl[grp]);
+        ab_issue4<PS, BK, true>(sc, fh[grp], fl[grp], sbase + L::kK, BK, 4 * grp, L::kKPlane);
+      }
+      wgmma_wait<0>();
+      fw_fence_regs(sc);
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) s[e] += sc[e];
+    }
+    // V(kt) into its transposed planes (P V of tile kt - 1 is done with them)
+    cp_async_wait<0>();
+    __syncthreads();
+    fw_split_vt<PO, NO, L>(smem);
+    fence_proxy_async();
+    __syncthreads();  // V^T's planes are whole; the raw V tile is free
+    load(++i);
+
+    // scale, key mask, keys past Lk (-inf); then the online softmax
+    const int k0 = kt * BK;
+    float tmax[2] = {ab_neg_inf(), ab_neg_inf()};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 8 * j + 2 * t + (e & 1);
+        float x = ab_neg_inf();
+        if (key < a.lk) x = mk != nullptr ? fmaf(s[4 * j + e], sl2, mk[key] * kLog2e)
+                                          : s[4 * j + e] * sl2;
+        s[4 * j + e] = x;
+        tmax[e >> 1] = fmaxf(tmax[e >> 1], x);
+      }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
+      tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
+      const float mnew = fmaxf(m[r], tmax[r]);  // finite: key 0 is in the first tile
+      corr[r] = fw_exp2(m[r] - mnew);
+      m[r] = mnew;
+      l[r] *= corr[r];
+    }
+    uint32_t ph[BK / 8][4], pl[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = fw_exp2(s[4 * j + e] - m[e >> 1]);
+        l[e >> 1] += p[e];
+      }
+      split_p<PO>(p[0], ph[j][0], pl[j][0]);  // (row g,     key 2t)
+      split_p<PO>(p[2], ph[j][1], pl[j][1]);  // (row g + 8, key 2t)
+      split_p<PO>(p[1], ph[j][2], pl[j][2]);  // (row g,     key 2t + 1)
+      split_p<PO>(p[3], ph[j][3], pl[j][3]);  // (row g + 8, key 2t + 1)
+    }
+    // this tile's P V in halves of 64 of the CTA's columns, each written
+    // afresh and joined to O
+#pragma unroll
+    for (int half = 0; half < NO / 64; ++half) {
+      float pv[32];
+      fw_fence_regs(pv);
+      wgmma_fence();
+      const uint32_t vt = sbase + L::kVt + half * 64 * 128;  // rows d of this half
+#pragma unroll
+      for (int kk = 0; kk < BK / 8; ++kk)
+        wg_step<PO, 64>(pv, ph[kk], pl[kk], ab_desc(vt, NO, kk), ab_desc(vt + L::kPlane, NO, kk),
+                        kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fw_fence_regs(pv);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) o[half * 32 + e] = o[half * 32 + e] * corr[(e >> 1) & 1] + pv[e];
+    }
+  }
+  cp_async_wait<0>();  // no copy outlives the CTA
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.0f / l[r];
+  }
+  if (a.lse != nullptr && t == 0 && blockIdx.z == 0) {
+    float* ls = a.lse + (long long)blockIdx.y * a.lq;
+    if (ra < a.lq) ls[ra] = m[0] * kLn2 + logf(l[0]);
+    if (rb < a.lq) ls[rb] = m[1] * kLn2 + logf(l[1]);
+  }
+  float* ob = a.o + b * a.o_bs + h * DH + c0 + 2 * t;
+#pragma unroll
+  for (int j = 0; j < NO / 8; ++j) {
+    if (ra < a.lq)
+      *reinterpret_cast<float2*>(ob + (long long)ra * a.o_rs + 8 * j) =
+          make_float2(o[4 * j] * inv[0], o[4 * j + 1] * inv[0]);
+    if (rb < a.lq)
+      *reinterpret_cast<float2*>(ob + (long long)rb * a.o_rs + 8 * j) =
+          make_float2(o[4 * j + 2] * inv[1], o[4 * j + 3] * inv[1]);
+  }
+}
+
+template <int PS, int PO, int DH>
+static cudaError_t launch_attn_f32_wide_p(const AttnF32Args& a, int batch, cudaStream_t stream) {
+  auto kernel = attn_fwd_f32_wide_kernel<PS, PO, DH>;
+  static const cudaError_t attr = [&] {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         FwWide<DH>::kSmem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    return e;
+  }();
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((a.lq + kF32BQ - 1) / kF32BQ, batch * a.heads, DH / kF32WideCols);
+  kernel<<<grid, kF32AttnThreads, FwWide<DH>::kSmem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int DH>
+static cudaError_t launch_attention_f32_wide(const AttnF32Args& a, int batch,
+                                             cudaStream_t stream) {
+  return launch_attn_f32_wide_p<products_of(kProdScores), products_of(kProdPV), DH>(a, batch,
+                                                                                    stream);
+}
+
 // Internal linkage: two libraries include this header (attention_f32,
 // decoder_blocks_f32), and a function-local static of an inline function
 // would be one object across them.
@@ -410,6 +627,8 @@ static cudaError_t launch_attention_f32(const AttnF32Args& a, int batch, cudaStr
     case 32: return launch_attention_f32_dh<32>(a, batch, stream);
     case 64: return launch_attention_f32_dh<64>(a, batch, stream);
     case 128: return launch_attention_f32_dh<128>(a, batch, stream);
+    case 256: return launch_attention_f32_wide<256>(a, batch, stream);
+    case 512: return launch_attention_f32_wide<512>(a, batch, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -59,14 +59,18 @@ __host__ __device__ constexpr int round_up(int n, int m) { return (n + m - 1) / 
 
 // The attention kernels (bf16 and fp32) are templates on a head tile: the
 // one that takes a head of dh columns is 32 for dh 8, 16 and 32, else dh
-// (64 or 128); 0 for a width no kernel takes.  ops/attention.py:head_tile
-// mirrors it.
+// (64, 128, 256 or 512); 0 for a width no kernel takes.  Tiles 256 and 512
+// are the wide builds (num_head 2 and 1 at d_model 512): their CTAs split
+// the head's output columns over grid z and stream the head in 64-column
+// chunks.  ops/attention.py:head_tile mirrors it.
 __host__ __device__ constexpr int attn_head_tile(int dh) {
-  return (dh == 8 || dh == 16 || dh == 32) ? 32 : (dh == 64 || dh == 128) ? dh : 0;
+  return (dh == 8 || dh == 16 || dh == 32) ? 32
+         : (dh == 64 || dh == 128 || dh == 256 || dh == 512) ? dh
+                                                              : 0;
 }
 
 // the head dim of a D-wide projection over `heads` heads that the kernels
-// take (8, 16, 32, 64 or 128), or 0
+// take (8, 16, 32, 64, 128, 256 or 512), or 0
 __host__ __device__ constexpr int attn_head_dim(int d, int heads) {
   return heads > 0 && d % heads == 0 && attn_head_tile(d / heads) ? d / heads : 0;
 }

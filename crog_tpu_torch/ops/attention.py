@@ -29,7 +29,8 @@ NEG = -1e30  # the kernels' mask value: finite, keeps all-masked rows finite
 ONE_PASS_MAX_KEYS = 192  # the forward's one-pass kernel holds 3 key tiles of scores
 HEAD_MAX_LEN = 256  # K1b's one-CTA-per-head kernel holds a whole head
 HEAD_KERNEL_DIM = 64  # ... of this head dim (every CLIP attention's)
-HEAD_DIMS = (8, 16, 32, 64, 128)  # the head dims the attention kernels take
+HEAD_DIMS = (8, 16, 32, 64, 128, 256, 512)  # the head dims the attention kernels take
+WIDE_MIN_DIM = 256  # from this head dim on the wide builds stream the head in chunks
 _DIMS = ", ".join(map(str, HEAD_DIMS[:-1])) + f" or {HEAD_DIMS[-1]}"
 F32_KEY_BLOCK = 64  # keys per main-kernel block of the fp32 backward
 F32_MAX_DQ_PARTS = 11  # its dQ partials at most (csrc/attention_bwd_f32.cuh kAbF32MaxParts)
@@ -77,7 +78,9 @@ def head_tile(dh: int) -> int:
     """The head tile of the kernel build that takes a head of ``dh``
     columns (csrc/common.cuh attn_head_tile): 32 for dh 8, 16 and 32 (the
     columns past dh zero-filled in shared memory, never stored), else dh
-    (64, 128); 0 for a head dim no kernel takes."""
+    (64, 128, and the wide builds 256 and 512, whose CTAs split the head's
+    output columns and stream it in 64-column chunks); 0 for a head dim no
+    kernel takes."""
     return max(dh, 32) if dh in HEAD_DIMS else 0
 
 
@@ -89,15 +92,17 @@ def head_dim(d: int, num_heads: int) -> int:
         d // num_heads) else 0
 
 
-def fwd_path(lk: int) -> str:
-    """Which forward kernel takes a head of ``lk`` keys: "one_pass" (the
-    head's scores in registers, K1's 169 and K3's 17 keys) up to
-    ONE_PASS_MAX_KEYS, else "two_pass" (statistics, then P.V; K2's 676, and
-    any longer head: 1600 at 640^2).  csrc/attention.cuh:attn_fwd_key_tiles
+def fwd_path(lk: int, dh: int = HEAD_KERNEL_DIM) -> str:
+    """Which forward kernel takes a head of ``lk`` keys and head dim ``dh``:
+    "one_pass" (the head's scores in registers, K1's 169 and K3's 17 keys)
+    up to ONE_PASS_MAX_KEYS below WIDE_MIN_DIM, else "two_pass" (statistics,
+    then P.V; K2's 676, any longer head: 1600 at 640^2, and every length at
+    dh 256 and 512, whose kernel streams K in chunks twice).
+    csrc/attention.cuh (attn_fwd_key_tiles, and the wide kernel's attributes)
     makes the same choice on the card."""
     if lk < 1:
         raise ValueError(f"attention kernel takes at least 1 key, got {lk}")
-    return "one_pass" if lk <= ONE_PASS_MAX_KEYS else "two_pass"
+    return "one_pass" if lk <= ONE_PASS_MAX_KEYS and dh < WIDE_MIN_DIM else "two_pass"
 
 
 def fused_attention(q, k, v, num_heads: int, mask_add=None, with_lse: bool = False):
@@ -130,7 +135,7 @@ def fused_attention(q, k, v, num_heads: int, mask_add=None, with_lse: bool = Fal
             f"attention kernel takes head dims {_DIMS}: q {tuple(q.shape)}, "
             f"k {tuple(k.shape)}, v {tuple(v.shape)}, {num_heads} heads"
         )
-    fwd_path(lk)  # raises on no keys
+    fwd_path(lk, dh)  # raises on no keys
     if mask_add is not None:
         cuda_build.require(mask_add, "mask_add", torch.float32, (b, lk))
     o = torch.empty(b, lq, d, dtype=q.dtype, device=q.device)

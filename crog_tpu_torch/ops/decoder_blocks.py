@@ -309,16 +309,17 @@ def cross_block_bwd_plain(x, txt, pos, tpos, pad_mask, in_w, in_b, out_w, out_b,
 
 # ------------------------------------------------------------ CUDA side
 def kernel_supported(d_model: int, nheads: int) -> bool:
-    """Widths the block kernels take: D = 512 over 4, 8, 16, 32 or 64 heads
-    (head dims 128, 64, 32, 16, 8: ops/attention.py HEAD_DIMS)."""
+    """Widths the block kernels take: D = 512 over 1, 2, 4, 8, 16, 32 or 64
+    heads (head dims 512, 256, 128, 64, 32, 16, 8: ops/attention.py
+    HEAD_DIMS)."""
     return d_model == KERNEL_D and head_dim(d_model, nheads) > 0
 
 
 def _check_block_input(x, nheads):
     if x.dim() != 3 or not kernel_supported(x.shape[-1], nheads):
         raise ValueError(
-            f"decoder block kernels take x [B, L, 512] with 4, 8, 16, 32 or 64 heads "
-            f"(head dims 128 to 8), got {tuple(x.shape)} and {nheads} heads"
+            f"decoder block kernels take x [B, L, 512] with 1, 2, 4, 8, 16, 32 or 64 heads "
+            f"(head dims 512 to 8), got {tuple(x.shape)} and {nheads} heads"
         )
     if x.shape[1] < 1:
         raise ValueError(f"decoder block kernels take at least 1 token, got {x.shape[1]}")

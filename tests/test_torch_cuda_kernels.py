@@ -16,7 +16,8 @@ The forwards with dropout draw the same counter-based mask in kernel and
 twin and are held alike.  The attention forward is held on both of its
 paths (one pass up to 192 keys, two beyond), with q and k packed as the self
 block passes them; the attention kernels and the blocks, bf16 and fp32, also
-at head dims 8, 16, 32 and 128 (D 512 over 64, 32, 16 and 4 heads); K4's, K4b's, K2b's and K3b's outputs, and K2's and K3's
+at head dims 8, 16, 32, 128, 256 and 512 (D 512 over 64, 32, 16, 4, 2 and 1
+heads); K4's, K4b's, K2b's and K3b's outputs, and K2's and K3's
 in train mode with every saved intermediate, must also repeat with equal
 bits.  The intermediates K2 and K3 save for their backward are held, like
 backward outputs, to 2^-6 of each one's largest magnitude.  Backward
@@ -77,14 +78,17 @@ def _bf16(seed, *shape, std=1.0, device="cuda"):
     # decoder (self, and its cross step over 17 padded keys)
     (785, 785, False, True, 8), (900, 900, False, False, 8), (1000, 1000, True, False, 8),
     (1600, 1600, False, True, 8), (1600, 17, True, False, 8)] + [
-    # head dims 8, 16, 32 and 128 (64, 32, 16 and 4 heads of D 512): one pass,
-    # two passes with q and k packed, K3's masked 17 keys, all keys masked
-    (l, lk, masked, packed, heads) for heads in (64, 32, 16, 4)
+    # head dims 8, 16, 32, 128, 256 and 512 (64, 32, 16, 4, 2 and 1 heads of D
+    # 512): one pass (two at dh 256 and 512), two passes with q and k packed,
+    # K3's masked 17 keys, all keys masked
+    (l, lk, masked, packed, heads) for heads in (64, 32, 16, 4, 2, 1)
     for l, lk, masked, packed in ((169, 169, False, False), (676, 676, False, True),
-                                  (676, 17, True, False), (65, 300, "all", True))])
+                                  (676, 17, True, False), (65, 300, "all", True))] + [
+    # the wide builds off their tiles: one query over one key, a ragged 1000
+    (1, 1, False, False, 1), (1000, 1000, True, True, 2), (130, 193, True, False, 1)])
 def test_cuda_attention_kernel_matches_twin(card, l, lk, masked, packed, heads):
     """The attention forward on both of its paths (``fwd_path``) against its
-    twin, at D 512 over ``heads`` heads (head dims 8 to 128).  ``masked``:
+    twin, at D 512 over ``heads`` heads (head dims 8 to 512).  ``masked``:
     sample 0 keeps its first lk // 2 keys, sample 1 all; "all": every key of
     sample 0 is masked, so its rows average over the lk keys.  ``packed``: q
     and k are the column halves of one [B, L, 2D] projection (row stride
@@ -118,7 +122,7 @@ def _block_args(seed, d=512, device="cuda"):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("heads", [8, 64, 32, 16, 4])
+@pytest.mark.parametrize("heads", [8, 64, 32, 16, 4, 2, 1])
 def test_cuda_block_kernels_match_twins(card, heads):
     """K2 and K3 in eval at D 512 over 8 heads (the configs') and over 64,
     32, 16 and 4 (head dims 8 to 128)."""
@@ -173,7 +177,10 @@ def _close_all(got, ref, rel=BWD_REL, share=1.0):
     # takes dh 64 only)
     (2, 169, 64, "rows_cols", 8), (2, 169, 32, "rows_cols", 16), (2, 169, 16, "rows_cols", 32),
     (2, 169, 4, "rows_cols", 128), (1, 7, 3, "rows_cols", 128), (1, 300, 4, "rows_cols", 128),
-    (1, 785, 16, "rows_cols", 32)])
+    (1, 785, 16, "rows_cols", 32),
+    # head dims 256 and 512: the wide rows / cols kernels
+    (2, 169, 2, "rows_cols", 256), (2, 169, 1, "rows_cols", 512), (1, 7, 1, "rows_cols", 512),
+    (1, 300, 2, "rows_cols", 256), (2, 676, 1, "rows_cols", 512)])
 def test_cuda_attention_backward_matches_twin(card, b, l, heads, path, dh):
     """K1b against its twin on both paths: the one-CTA-per-head kernel at
     the pool's 169 tokens (also with an odd batch x heads, 15), at a length
@@ -191,7 +198,7 @@ def test_cuda_attention_backward_matches_twin(card, b, l, heads, path, dh):
     torch.cuda.synchronize()
     _close_all(got, ref, K1B_REL, K1B_SHARE)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
-    with pytest.raises(ValueError, match="head dims 8, 16, 32, 64 or 128"):
+    with pytest.raises(ValueError, match="head dims 8, 16, 32, 64, 128, 256 or 512"):
         A.attention_bwd(*(t[..., :96].contiguous() for t in (q, k, v, o, do)), 1)
 
 
@@ -223,7 +230,11 @@ def test_cuda_attention_backward_tolerance_sees_bf16_casts(card):
     # head dims 8-128 at D 512 (K2b's and K3b's steps at 64, 32, 16 and 4 heads)
     (2, 676, 676, 64, None, 8), (2, 676, 17, 32, "ragged", 16), (2, 676, 676, 16, None, 32),
     (2, 676, 17, 4, "ragged", 128), (2, 100, 17, 64, "all", 8), (2, 1600, 1600, 4, None, 128),
-    (3, 65, 129, 3, None, 128)])
+    (3, 65, 129, 3, None, 128),
+    # head dims 256 and 512 (K2b's and K3b's steps at 2 and 1 heads)
+    (2, 676, 676, 2, None, 256), (2, 676, 17, 2, "ragged", 256), (2, 676, 676, 1, None, 512),
+    (2, 676, 17, 1, "ragged", 512), (2, 100, 17, 1, "all", 512), (3, 65, 129, 1, None, 512),
+    (1, 1, 1, 1, None, 512)])
 def test_cuda_decoder_attention_backward_matches_twin(card, b, lq, lk, heads, mask, dh):
     """The two-kernel attention backward with the decoder blocks' bf16 cast
     points (K2b's and K3b's attention step) against its twin: K2b's 676
@@ -255,12 +266,12 @@ def test_cuda_decoder_attention_backward_matches_twin(card, b, lq, lk, heads, ma
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("heads", [8, 64, 32, 16, 4])
+@pytest.mark.parametrize("heads", [8, 64, 32, 16, 4, 2, 1])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_cuda_block_kernels_train_mode_match_twins(card, rate, heads):
     """Forward with dropout and backward, self and cross block (a padded
     key mask), L=676 as on the main path, over 8 heads of 64 and over 64,
-    32, 16 and 4 heads (head dims 8 to 128)."""
+    32, 16, 4, 2 and 1 heads (head dims 8 to 512)."""
     x, txt = _bf16(1, 2, 676, 512), _bf16(2, 2, 17, 512)
     pos, tpos = _bf16(3, 676, 512, std=0.5), _bf16(4, 17, 512, std=0.5)
     dy = _bf16(5, 2, 676, 512)
@@ -742,7 +753,13 @@ def exact_f32(card):
     (676, 676, 16, False, "packed", 32), (65, 17, 64, "all", "plain", 8),
     (676, 676, 4, False, "packed", 128), (676, 17, 4, True, "plain", 128),
     (65, 17, 4, "all", "plain", 128), (129, 33, 2, True, "strided", 128),
-    (63, 31, 4, False, "plain", 128), (1600, 1600, 4, False, "packed", 128)])
+    (63, 31, 4, False, "plain", 128), (1600, 1600, 4, False, "packed", 128),
+    # head dims 256 and 512: a CTA's 128 columns of O (grid z), K in
+    # 64-column chunks over 32-key tiles, on and off them
+    (676, 676, 2, False, "packed", 256), (676, 17, 2, True, "plain", 256),
+    (65, 17, 2, "all", "plain", 256), (129, 33, 1, True, "strided", 512),
+    (676, 676, 1, False, "packed", 512), (676, 17, 1, True, "plain", 512),
+    (1, 5, 1, False, "plain", 512), (1000, 1000, 1, False, "strided", 512)])
 def test_cuda_attention_f32_matches_twin(exact_f32, l, lk, heads, masked, layout, dh):
     """K1-f32 against its fp32 twin, o and the row logsumexp (the one
     attention forward of K1-f32, K2-f32 and K3-f32; K1b-f32 reads the
@@ -799,15 +816,16 @@ def _f32_block(b, l, t, seed=60, d=512):
     (24, 5, 17, 8),
     # past the old 768-token cap: 640^2's 1600 tokens, a ragged 1000
     (2, 1600, 17, 8), (1, 1000, 17, 8),
-    # head dims 8, 16, 32 and 128 at the main path's shape, and ragged
+    # head dims 8, 16, 32, 128, 256 and 512 at the main path's shape, and ragged
     (24, 676, 17, 64), (24, 676, 17, 32), (24, 676, 17, 16), (24, 676, 17, 4),
-    (3, 301, 17, 4), (1, 65, 9, 16)])
+    (3, 301, 17, 4), (1, 65, 9, 16), (24, 676, 17, 2), (24, 676, 17, 1), (3, 301, 17, 1),
+    (1, 65, 9, 2)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_cuda_block_f32_kernels_match_twins(exact_f32, b, l, t, heads, rate):
     """K2-f32 and K3-f32 against their fp32 twins, in eval and with
     train-mode dropout (the same counter-based mask), at the main path's
-    shapes and at ragged ones, over 8 heads and over 64, 32, 16 and 4; a
-    second call gives the same bits."""
+    shapes and at ragged ones, over 8 heads and over 64, 32, 16, 4, 2 and 1;
+    a second call gives the same bits."""
     x, txt, pos, tpos, pad, w = _f32_block(b, l, t)
     cases = ((lambda: DB.self_block_fwd(x, pos, *w, heads, 7, rate)[0],
               lambda: DB.self_block_plain(x, pos, *w, heads, 7, rate)),
@@ -1082,7 +1100,12 @@ def _close_rel(got, ref, names, rel=F32_BWD_REL):
     # kernel's two column halves)
     (2, 676, 676, 64, False, 8), (2, 676, 17, 32, True, 16), (2, 676, 676, 16, False, 32),
     (2, 65, 17, 64, "all", 8), (2, 676, 676, 4, False, 128), (2, 676, 17, 4, True, 128),
-    (2, 65, 17, 4, "all", 128), (2, 33, 95, 4, True, 128), (1, 1600, 1600, 4, False, 128)])
+    (2, 65, 17, 4, "all", 128), (2, 33, 95, 4, True, 128), (1, 1600, 1600, 4, False, 128),
+    # head dims 256 and 512: the wide pre-pass and main kernel (64-column
+    # chunks; a main CTA per chunk of dK, dV and dQ)
+    (2, 676, 676, 2, False, 256), (2, 676, 17, 2, True, 256), (2, 65, 17, 2, "all", 256),
+    (2, 676, 676, 1, False, 512), (2, 676, 17, 1, True, 512), (2, 33, 95, 1, True, 512),
+    (3, 1, 5, 1, True, 512), (1, 900, 900, 1, False, 512)])
 def test_cuda_attention_bwd_f32_matches_twin(exact_f32, mode, b, lq, lk, heads, masked, dh):
     """The fp32 attention backward against its fp32 twin, on o from K1-f32:
     "k1b", K1b-f32 on K1-f32's logsumexp (twin attention_bwd_plain with the
@@ -1134,7 +1157,7 @@ def _attention_bwd_f64(q, k, v, do, heads):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("heads,dh", [(2, 64), (4, 128), (2, 128)])
+@pytest.mark.parametrize("heads,dh", [(2, 64), (4, 128), (2, 128), (2, 256), (1, 512)])
 def test_cuda_attention_bwd_f32_peak_against_float64(exact_f32, heads, dh):
     """K1b-f32 where key 5 of sample 0 takes all the weight of query 0 (the
     "peak" case of test_cuda_attention_bwd_f32_matches_twin), against the
@@ -1177,9 +1200,10 @@ def test_cuda_f32_dq_partials_are_the_wrappers(card):
 @pytest.mark.parametrize("b,l,t,heads", [
     (24, 676, 17, 8), (3, 301, 17, 8), (1, 5, 9, 8), (9, 301, 23, 8), (10, 50, 17, 8),
     (2, 1600, 17, 8), (1, 1000, 17, 8),
-    # head dims 8, 16, 32 and 128 at the main path's shape, and ragged
+    # head dims 8, 16, 32, 128, 256 and 512 at the main path's shape, and ragged
     (24, 676, 17, 64), (24, 676, 17, 32), (24, 676, 17, 16), (24, 676, 17, 4),
-    (3, 301, 17, 4), (1, 65, 9, 64)])
+    (3, 301, 17, 4), (1, 65, 9, 64), (24, 676, 17, 2), (24, 676, 17, 1), (3, 301, 17, 1),
+    (1, 65, 9, 2)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_cuda_block_bwd_f32_kernels_match_twins(exact_f32, b, l, t, heads, rate):
     """K2b-f32 and K3b-f32 on the intermediates K2-f32 and K3-f32 saved,
@@ -1188,7 +1212,7 @@ def test_cuda_block_bwd_f32_kernels_match_twins(exact_f32, b, l, t, heads, rate)
     slices and over one 128-row tile (207, 170; their last slice loads
     zeros past the rows), B*L rows whose dW chunks end in a short one (2709:
     7 of 352 and one of 245; ops/decoder_blocks.py f32_bwd_chunks); a second
-    call gives the same bits.  Over 8 heads and over 64, 32, 16 and 4."""
+    call gives the same bits.  Over 8 heads and over 64, 32, 16, 4, 2 and 1."""
     x, txt, pos, tpos, pad, w = _f32_block(b, l, t)
     dy = _f32(99, b, l, 512)
     _, ssaved = DB.self_block_fwd(x, pos, *w, heads, 7, rate, save=True)

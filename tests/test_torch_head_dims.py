@@ -1,14 +1,14 @@
 """Head dims other than 64 on the CPU: the decoder at d_model 512 with
-``num_head`` 64, 32, 16 or 4 (head dims 8, 16, 32 and 128; the configs'
-8 heads give 64).  The port's twins against the JAX package's Pallas
-kernels in interpret mode (K1 and its VJP, the self and cross blocks and
-their VJPs), the fp32 backward's decomposition against ``_mha_bwd`` and
-the Pallas VJP, CROG's decoder stack at ``num_head`` 16 and 4 against
-crog_tpu's with weights carried through the conversion, and the wrappers'
-routing: which head dims the kernels take (``head_tile``, ``head_dim``,
-``kernel_supported``), which K1b kernel a head goes to (``bwd_path``), and
-that a head dim no kernel takes (2 heads of 256) is refused before any
-launch.
+``num_head`` 64, 32, 16, 4, 2 or 1 (head dims 8, 16, 32, 128, 256 and
+512; the configs' 8 heads give 64).  The port's twins against the JAX
+package's Pallas kernels in interpret mode (K1 and its VJP, the self and
+cross blocks and their VJPs), the fp32 backward's decomposition against
+``_mha_bwd`` and the Pallas VJP, CROG's decoder stack at ``num_head`` 16,
+4, 2 and 1 against crog_tpu's with weights carried through the
+conversion, and the wrappers' routing: which head dims the kernels take
+(``head_tile``, ``head_dim``, ``kernel_supported``), which kernel a head
+goes to (``fwd_path``, ``bwd_path``), and that a head dim no kernel takes
+(128 heads of 4) is refused before any launch.
 
 Inputs: B 1, at most 96 tokens, D 512, made from numpy seeds.  Tolerances
 as in the files they extend: K1's output to 1e-5 absolute
@@ -39,7 +39,7 @@ from tests.torch_port_helpers import assert_close_scaled
 T = torch.from_numpy
 SEED0 = jnp.zeros((), jnp.int32)
 D = 512
-DIMS = (8, 16, 32, 128)  # head dims; 512 // dh heads
+DIMS = (8, 16, 32, 128, 256, 512)  # head dims; 512 // dh heads
 L, TXT = 80, 17  # tokens (80: a ragged 64-key tile), text tokens
 ATOL, BLOCK_ATOL, GRAD_TOL, REL_L2 = 1e-5, 2e-5, 1e-4, 1e-5
 
@@ -231,10 +231,11 @@ def test_cross_block_grads_match_pallas_vjp_at_head_dim(dh):
 
 
 # ------------------------------------------------------ decoder stack
-@pytest.mark.parametrize("num_head", [16, 4])
+@pytest.mark.parametrize("num_head", [16, 4, 2, 1])
 def test_decoder_stack_matches_flax_at_num_head(num_head):
     """CROG's decoder at the TINY widths of the model tests (512 wide,
-    dim_ffn 512, one layer) with ``num_head`` 16 (head dim 32) or 4 (128),
+    dim_ffn 512, one layer) with ``num_head`` 16 (head dim 32), 4 (128), 2
+    (256) or 1 (512),
     over 9 x 9 = 81 tokens, 9 of 17 text tokens real: the port's
     TransformerDecoder against crog_tpu's with the same randomized weights,
     carried through the conversion (the in-projection's shapes do not
@@ -268,7 +269,7 @@ def test_decoder_stack_matches_flax_at_num_head(num_head):
 
 # ------------------------------------------------------------- routing
 @pytest.mark.parametrize("dh,tile", [(8, 32), (16, 32), (32, 32), (64, 64), (128, 128),
-                                     (256, 0), (512, 0), (24, 0), (96, 0)])
+                                     (256, 256), (512, 512), (4, 0), (24, 0), (96, 0)])
 def test_head_tile_and_the_block_kernels_widths(dh, tile):
     """The kernel build a head dim runs in (dh 8 and 16 in the 32-wide
     build, their columns past dh zero-filled), and the block kernels' widths:
@@ -280,22 +281,25 @@ def test_head_tile_and_the_block_kernels_widths(dh, tile):
     assert (dh in A.HEAD_DIMS) == bool(tile)
 
 
-@pytest.mark.parametrize("dh", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("dh", [8, 16, 32, 64, 128, 256, 512])
 @pytest.mark.parametrize("l", [1, 17, 169, 256, 257, 1600])
 def test_bwd_path_at_each_head_dim_and_length(dh, l):
     """K1b's one-CTA-per-head kernel takes heads of at most 256 tokens of
     head dim 64 (csrc/attention_bwd.cu crog_attention_bwd_head_takes); any
     other head dim goes to the rows / cols kernels at every length, and the
-    blocks' cast points always do."""
+    blocks' cast points always do.  The forward holds a head's scores in
+    registers up to 192 keys below head dim 256; the wide builds run two
+    passes at every length."""
     head = dh == A.HEAD_KERNEL_DIM and l <= A.HEAD_MAX_LEN
     assert A.bwd_path(l, dh=dh) == ("head" if head else "rows_cols")
     assert A.bwd_path(l, True, dh) == "rows_cols"
-    assert A.fwd_path(l) == ("one_pass" if l <= A.ONE_PASS_MAX_KEYS else "two_pass")
+    one = l <= A.ONE_PASS_MAX_KEYS and dh < A.WIDE_MIN_DIM
+    assert A.fwd_path(l, dh) == ("one_pass" if one else "two_pass")
 
 
-@pytest.mark.parametrize("heads", [64, 32, 16, 4])
+@pytest.mark.parametrize("heads", [64, 32, 16, 4, 2, 1])
 def test_block_wrappers_take_every_head_count_to_the_device_check(heads):
-    """Over 64, 32, 16 and 4 heads the blocks' CUDA checks stop only at the
+    """Over 64, 32, 16, 4, 2 and 1 heads the blocks' CUDA checks stop only at the
     device: a CPU tensor reaches the CUDA-tensor check (which the wrappers
     never reach on the CPU, where the twins run), and the attention
     backward's width check passes."""
@@ -305,16 +309,21 @@ def test_block_wrappers_take_every_head_count_to_the_device_check(heads):
 
 
 def test_two_heads_of_256_raise_before_any_launch():
-    """A model with 2 heads (head dim 256, which no kernel build takes yet)
-    is refused by the block and attention wrappers' width checks, which
-    come before the device check and before any launch: no counter moves."""
+    """The refusal that 2 heads of 256 met before the wide builds, now at a
+    head count that no kernel build takes: 128 heads of 4 (a 4-column head
+    breaks the 16-byte row loads every kernel makes) are refused by the
+    block and attention wrappers' width checks, which come before the
+    device check and before any launch: no counter moves.  2 heads of 256
+    pass those checks (test_block_wrappers_take_every_head_count_to_the_
+    device_check)."""
     counters = [DB.self_block_fwd, DB.cross_block_fwd, DB.self_block_bwd, DB.cross_block_bwd,
                 A.fused_attention, A.attention_bwd]
     before = [(f.launches, f.launches_f32) for f in counters]
     x = torch.zeros(1, L, D, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="4, 8, 16, 32 or 64 heads"):
-        DB._check_block_input(x, 2)
-    with pytest.raises(ValueError, match="head dims 8, 16, 32, 64 or 128"):
-        A._check_bwd_width(x, 2)
-    assert not DB.kernel_supported(D, 2) and A.head_dim(D, 2) == 0
+    with pytest.raises(ValueError, match="1, 2, 4, 8, 16, 32 or 64 heads"):
+        DB._check_block_input(x, 128)
+    with pytest.raises(ValueError, match="head dims 8, 16, 32, 64, 128, 256 or 512"):
+        A._check_bwd_width(x, 128)
+    assert not DB.kernel_supported(D, 128) and A.head_dim(D, 128) == 0
+    assert DB.kernel_supported(D, 2) and A.head_dim(D, 2) == 256
     assert [(f.launches, f.launches_f32) for f in counters] == before

@@ -318,7 +318,7 @@ def test_unsupported_widths_raise_before_any_launch():
         DB._check_block_input(torch.zeros(1, 800, 512, dtype=torch.bfloat16), 8)
     with pytest.raises(ValueError, match="D=512, F=2048"):
         FF._check(torch.zeros(4, 256, dtype=torch.bfloat16), torch.zeros(1024, 256))
-    with pytest.raises(ValueError, match="head dims 8, 16, 32, 64 or 128"):
+    with pytest.raises(ValueError, match="head dims 8, 16, 32, 64, 128, 256 or 512"):
         A._check_bwd_width(torch.zeros(2, 16, 96), 1)
     with pytest.raises(ValueError, match="CUDA tensor"):
         DB._check_block_input(torch.zeros(2, 8, 512, dtype=torch.bfloat16), 8)
