@@ -8,9 +8,10 @@
     python3 chip_smoke.py --fp32      # phases 1, 2 and 18 only, no result line
     python3 chip_smoke.py --long      # phases 1, 2 and 19 only, no result line
     python3 chip_smoke.py --heads     # phases 1, 2 and 20 only, no result line
+    python3 chip_smoke.py --wide      # phases 1, 2 and 21 only, no result line
 
 Phases, in order (phase 17 runs after phase 7, phase 18 after phase 17,
-phase 19 after phase 18, phase 20 after phase 19);
+phase 19 after phase 18, phase 20 after phase 19, phase 21 after phase 20);
 any failure propagates and the exit code is not 0:
   1. the card's name and power limit (nvidia-smi);
   2. build the hand-written kernels from crog_tpu_torch/csrc (nvcc, sm_90a,
@@ -189,6 +190,24 @@ any failure propagates and the exit code is not 0:
      CPU in bf16 (TRAIN_LOSS_TOL, TRAIN_GRAD_TOL) and fp32 (the F32_TRAIN_*
      limits); K2, K2b, K3, K3b and their fp32 builds each launched over the
      phase's CROG runs; the ``[heads]`` lines;
+ 21. CROG on the CLIP RN50x64 backbone (after phase 20; RN50X64: vision
+     layers (3, 15, 36, 10), width 128, a 1024-wide text tower, so a
+     decoder 1024 wide over 8 heads of 128; crog_synthetic_r50.yaml's other
+     keys, seeded weights, the s2d stem on cuDNN): K2-K4 and K2b-K4b at
+     D 1024 (B 24, 676 tokens) in bf16 and fp32 against their twins under
+     phase 3's and phase 18's limits, with the repeats of those phases
+     (equal bits), each timed beside its twin, its bound and the library's
+     calls at its products' shapes (F.linear, torch.mm, SDPA forward and
+     backward; a yardstick only); ``validate_with_grasp`` over 48 samples
+     at batch 24 in bf16 and fp32 with a forward's launches (K2, K3, K4
+     three times each) and the eval rate and peak memory; one sample card
+     vs CPU in bf16 (E2E_TOL) and fp32 (F32_E2E_TOL), one train step at
+     batch 2 card vs CPU in bf16 (TRAIN_LOSS_TOL, TRAIN_GRAD_TOL) and fp32
+     (the F32_TRAIN_* limits); ``train_one_epoch`` in both dtypes at the
+     first of WIDE_TRAIN_TRIES (batch 24, 16 or 8; remat off, then full)
+     that fits, one step with a step's launches, then WIDE_TRAIN_STEPS timed
+     with the peak memory; K2-K4b and their fp32 builds each launched over
+     the phase's CROG runs; the ``[wide]`` lines;
   8. forward latency at batch 1 and eval samples/s at batch 24;
   9. SSG training at full width (config/OCID-Grasp/ssg_r50.yaml as
      written: RN50 (3,4,6,3), RGB-D, 544^2, 32 classes, 32 prototypes,
@@ -320,7 +339,9 @@ JSON line's fp32 rows count their launches on phase 18's fp32 train path
 (f, the fused stem), the bf16 rows theirs on phase 5's.
 
 The second-to-last lines are a JSON ``kernels`` record and the nvidia-smi
-line; the last line is ``{"ok": true, "device": {...}}``.
+line; the last line is ``{"ok": true, "device": {...}}``.  The JSON line's
+D 1024 rows (named with ``_d1024``) count their launches on phase 21's
+train path of their dtype.
 """
 
 from __future__ import annotations
@@ -697,8 +718,9 @@ SOURCES = {
 
 
 def _record(name, max_err, bms, by):
-    return {"name": name, "route": "cuda", "source": SOURCES[name][0],
-            "replaces": SOURCES[name][1], "launches": None, "max_abs_err": max_err,
+    source, replaces = SOURCES[name.removesuffix(WIDE_SUFFIX)]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": None, "max_abs_err": max_err,
             "ms": None, "plain_ms": None, "bound_ms": bms, "bound_by": by,
             "library_ms": None}
 
@@ -1113,10 +1135,13 @@ def check_kernels(device, timed: bool = True):
     return records
 
 
-def k4b_checks(inp):
+def k4b_checks(inp, relu_held: bool = False):
     """K4b at the main path's M with dropout off (the backward cases run it
     at RATE) against its twin under BWD_REL_TOL, and at both rates twice:
-    dx, dh, hn and the four column sums must come out with equal bits."""
+    dx, dh, hn and the four column sums must come out with equal bits.
+    With ``relu_held`` the twin takes K4b's ReLU decision
+    (``ffn_f32_relu_decision``: it may differ from the twin's own only at
+    pre-activations within F32_RELU_TIE of 0)."""
     import torch
 
     from crog_tpu_torch.ops import ffn as FF
@@ -1124,8 +1149,9 @@ def k4b_checks(inp):
     f = inp["ffn"]
     args = (f["x"], f["w1"], f["b1"], f["g"], f["be"], f["w2"], inp["dy"]["ffn"])
     names = ("dx", "dw1", "db1", "dgamma", "dbeta", "dw2", "db2")
+    mask = ffn_f32_relu_decision(args, SEED + 3, 0.0) if relu_held else None
     for o, g, r in zip(names, FF.ffn_bwd(*args, SEED + 3, 0.0),
-                       FF.ffn_bwd_plain(*args, SEED + 3, 0.0)):
+                       FF.ffn_bwd_plain(*args, SEED + 3, 0.0, relu_mask=mask)):
         _compare(f"ffn_bwd (dropout 0).{o}", g, r, BWD_REL_TOL * float(r.float().abs().max()))
     held = ("dx", "db1", "dgamma", "dbeta", "db2", "dh", "hn")
     for rate in (0.0, RATE):
@@ -1607,18 +1633,24 @@ def host_bytes(batch) -> int:
     return sum(batch[k].nbytes for k in step_keys(batch)) // len(batch["word"])
 
 
-def build_model_and_data(device, samples=SAMPLES, batch=BATCH, opts=()):
+def val_batches(cfg, batch: int):
+    """The synthetic val samples of ``cfg`` in host batches of ``batch``
+    (the last one padded)."""
     from crog_tpu_torch.data.loader import DataLoader
     from crog_tpu_torch.test_crog import build_dataset
 
-    cfg = _cfg(samples, batch, opts)
-    model = _model(cfg, device).eval()
     ds = build_dataset(cfg, cfg.val_split)
     t0 = time.perf_counter()
     batches = list(DataLoader(ds, batch, pad_last_batch=True))
-    print(f"[data] {samples} synthetic val samples prepared in "
+    print(f"[data] {len(ds)} synthetic val samples prepared in "
           f"{time.perf_counter() - t0:.1f} s (host)", flush=True)
-    return cfg, model, batches
+    return batches
+
+
+def build_model_and_data(device, samples=SAMPLES, batch=BATCH, opts=()):
+    cfg = _cfg(samples, batch, opts)
+    model = _model(cfg, device).eval()
+    return cfg, model, val_batches(cfg, batch)
 
 
 def _reset(wrappers):
@@ -2106,6 +2138,25 @@ def check_remat(readings):
                                  f"{REMAT_PEAK_SHARE} of off's {off['peak']} B")
 
 
+def counted_run(totals):
+    """run(fn) -> (fn(), {kernel: launches}): fn with every launch counter
+    from 0, synchronized, its launches added to ``totals``."""
+    import torch
+
+    wrappers = launch_counts()
+
+    def run(fn):
+        _reset(wrappers)
+        out = fn()
+        torch.cuda.synchronize()
+        launches = _read(wrappers)
+        for n, k in launches.items():
+            totals[n] += k
+        return out, launches
+
+    return run
+
+
 def _launched(launches):
     return {n: k for n, k in launches.items() if k}
 
@@ -2553,10 +2604,13 @@ def f32_s2d_products(cases, smi: str):
 
 
 def ffn_f32_relu_decision(args, seed: int, rate: float):
-    """K4b-f32's ReLU decision over ``args`` (x, w1, b1, gamma, beta, w2,
-    dy) for ffn_bwd_plain's ``relu_mask``: its dh != 0 (0 where dropout
-    drops an element, whatever the decision), after checking that it
-    differs from the twin's only at pre-activations within F32_RELU_TIE."""
+    """K4b-f32's (or, on bf16 ``args``, K4b's) ReLU decision over ``args``
+    (x, w1, b1, gamma, beta, w2, dy) for ffn_bwd_plain's ``relu_mask``: its
+    dh != 0 (0 where dropout drops an element, whatever the decision),
+    after checking that it differs from the twin's only at pre-activations
+    within F32_RELU_TIE."""
+    import torch
+
     from crog_tpu_torch.ops import decoder_blocks as DB
     from crog_tpu_torch.ops import ffn as FF
     from crog_tpu_torch.ops.dropout import dropout_keep
@@ -2566,18 +2620,22 @@ def ffn_f32_relu_decision(args, seed: int, rate: float):
     differ = ((pre > 0) & dropout_keep(seed, rate, *pre.shape, pre.device)) != active
     n = int(differ.sum())
     tie = float(pre[differ].abs().max()) if n else 0.0
-    print(f"[fp32] ffn_bwd_f32's ReLU decision at M={pre.shape[0]}, dropout {rate}: differs "
-          f"from the twin's at {n} of {active.numel()} hidden elements, largest "
-          f"|pre-activation| there {tie:.3g} (limit {F32_RELU_TIE})", flush=True)
+    f32 = pre.dtype == torch.float32
+    kid = "K4b-f32" if f32 else "K4b"
+    print(f"{'[fp32]' if f32 else '[kernels]'} {kid}'s ReLU decision at M={pre.shape[0]}, "
+          f"D={args[0].shape[1]}, dropout {rate}: differs from the twin's at {n} of "
+          f"{active.numel()} hidden elements, largest |pre-activation| there {tie:.3g} (limit "
+          f"{F32_RELU_TIE})", flush=True)
     if tie > F32_RELU_TIE:
-        raise AssertionError(f"K4b-f32's ReLU decision differs from the twin's at "
+        raise AssertionError(f"{kid}'s ReLU decision differs from the twin's at "
                              f"|pre-activation| {tie:.3g}")
     return active
 
 
 def f32_backward_cases(inp):
     """``backward_cases`` for phase 18 (fp32 ``inp``), K4b's twin on K4b-f32's
-    ReLU decision (``ffn_f32_relu_decision``)."""
+    ReLU decision (``ffn_f32_relu_decision``); phase 21 holds bf16 K4b at
+    D 1024 so too (``wide_kernels``)."""
     from crog_tpu_torch.ops import ffn as FF
 
     cases = backward_cases(inp)
@@ -3569,17 +3627,8 @@ def long_phase(device, smi: str):
 
     t_phase = time.perf_counter()
     opts = ("input_size", str(LONG_SIZE))
-    wrappers = launch_counts()
-    totals = dict.fromkeys(wrappers, 0)
-
-    def run(fn):  # fn() with the counters from 0; returns (its result, launches)
-        _reset(wrappers)
-        out = fn()
-        torch.cuda.synchronize()
-        launches = _read(wrappers)
-        for n, k in launches.items():
-            totals[n] += k
-        return out, launches
+    totals = dict.fromkeys(launch_counts(), 0)
+    run = counted_run(totals)
 
     for dtype in (torch.bfloat16, torch.float32):
         long_kernels(device, dtype, smi)
@@ -3836,83 +3885,84 @@ def sdpa_backend(fn, q, k, v, attn_mask=None) -> str:
     return f"{choice} (kernel {names[0][:80]})" if names else f"{choice} (no kernel row)"
 
 
-def heads_gaps(device, batch, opts, counted):
-    """Card vs CPU at ``opts`` (a num_head): one sample's forward at bf16
-    (E2E_TOL) and at compute_dtype float32 (F32_E2E_TOL), against one CPU
-    fp32 forward; one train step at batch 2 (dropout 0, BatchNorm on running
-    statistics) at bf16 (TRAIN_LOSS_TOL, TRAIN_GRAD_TOL) and at fp32
-    (F32_TRAIN_LOSS_TOL, F32_TRAIN_GRAD_TOL), against one CPU fp32 step (the
-    plain stem's convs, as phase 18 (e)); the fp32 runs launch the fp32
-    kernels (PER_FORWARD_F32_FUSED, PER_STEP_F32_FUSED).  ``counted`` adds
-    each run's launches."""
+def heads_gaps(device, batch, opts, counted, tag="[heads]", build=None, launches=None):
+    """Card vs CPU at ``opts`` (phase 20: a num_head): one sample's forward
+    at bf16 (E2E_TOL) and at compute_dtype float32 (F32_E2E_TOL), against
+    one CPU fp32 forward; one train step at batch 2 (dropout 0, BatchNorm on
+    running statistics) at bf16 (TRAIN_LOSS_TOL, TRAIN_GRAD_TOL) and at fp32
+    (F32_TRAIN_LOSS_TOL, F32_TRAIN_GRAD_TOL), against one CPU fp32 step.
+    ``build(cfg, device, dtype, card)`` makes each model (by default
+    ``_model``: the fused stem on the card, the plain stem's convs on the
+    CPU, as phase 18 (e)); ``launches`` maps "bf16" / "fp32" to the card's
+    (forward, step) launch counts (by default the fused stem's
+    PER_FORWARD / PER_STEP and PER_FORWARD_F32_FUSED / PER_STEP_F32_FUSED).
+    ``counted`` adds each run's launches."""
     import torch
 
     from crog_tpu_torch.engine.crog_engine import device_batch
     from crog_tpu_torch.models.clip import BatchNorm
 
-    wrappers = launch_counts()
+    if build is None:
+        build = lambda cfg, dev, dtype, card: _model(cfg, dev, dtype, fused_stem=card)  # noqa: E731
+    launches = launches or {"bf16": (PER_FORWARD, PER_STEP),
+                            "fp32": (PER_FORWARD_F32_FUSED, PER_STEP_F32_FUSED)}
+    run = counted_run(counted)
 
-    def run(fn):
-        _reset(wrappers)
-        result = fn()
-        torch.cuda.synchronize()
-        launches = _read(wrappers)
-        for n, c in launches.items():
-            counted[n] += c
-        return result, launches
+    def running_bn(model):  # train mode, the BatchNorm layers on their running statistics
+        model.train()
+        for mod in model.modules():
+            if isinstance(mod, BatchNorm):
+                mod.eval()
+        return model
 
+    head = " ".join((tag, *opts))  # "[heads] num_head 16", "[wide] RN50x64 CROG"
     cfg16 = _cfg(BATCH, BATCH, ("dropout", "0.0", *opts))
     cfg32 = _cfg(BATCH, BATCH, ("dropout", "0.0", "compute_dtype", "float32", *opts))
     one = device_batch({k: v[:1] for k, v in batch.items() if isinstance(v, np.ndarray)},
                        torch.device("cpu"), cfg16.input_size, train=False)
     mini = mini_batch(batch, cfg16.input_size)
-    # each model built once: its eval forward, then its train step with the
-    # BatchNorm layers on their running statistics (grad_model's)
-    cpu_model = _model(cfg32, torch.device("cpu"), torch.float32, fused_stem=False).eval()
+    # each model built once: its eval forward, then its train step
+    t0 = time.perf_counter()
+    cpu_model = build(cfg32, torch.device("cpu"), torch.float32, False).eval()
     with torch.no_grad():
         cpu_out = cpu_model(one["img"], one["word"])
-    cpu_model.train()
-    for mod in cpu_model.modules():
-        if isinstance(mod, BatchNorm):
-            mod.eval()
-    cpu = train_grads(cpu_model, mini)
+    cpu = train_grads(running_bn(cpu_model), mini)
     del cpu_model
-    for label, cfg, limit, fwd, step, loss_tol in (
-            ("bf16", cfg16, E2E_TOL, PER_FORWARD, PER_STEP, TRAIN_LOSS_TOL),
-            ("fp32", cfg32, F32_E2E_TOL, PER_FORWARD_F32_FUSED, PER_STEP_F32_FUSED,
-             F32_TRAIN_LOSS_TOL)):
-        model = _model(cfg, device, fused_stem=True).eval()
+    print(f"{head}: CPU fp32 references (one forward at batch 1, one train step at "
+          f"batch 2) in {time.perf_counter() - t0:.1f} s", flush=True)
+    for label, cfg, limit, loss_tol in (("bf16", cfg16, E2E_TOL, TRAIN_LOSS_TOL),
+                                        ("fp32", cfg32, F32_E2E_TOL, F32_TRAIN_LOSS_TOL)):
+        fwd, step = launches[label]
+        model = build(cfg, device, None, True).eval()
         with torch.no_grad():
-            card, launches = run(lambda: model(one["img"].to(device), one["word"].to(device)))
+            card, launched = run(lambda: model(one["img"].to(device), one["word"].to(device)))
         card = card.float().cpu()
-        check_launches(launches, fwd, 1)
+        check_launches(launched, fwd, 1)
         if card.shape != cpu_out.shape or not torch.isfinite(card).all():
-            raise AssertionError(f"[heads] {label} output {tuple(card.shape)} not finite/shaped")
+            raise AssertionError(f"{tag} {label} output {tuple(card.shape)} not finite/shaped")
         rels = [rel_l2(card[..., i], cpu_out[..., i]) for i in range(cpu_out.shape[-1])]
-        print(f"[heads] {' '.join(opts)}: one sample, card {label} vs CPU fp32: rel_l2 "
+        print(f"{head}: one sample, card {label} vs CPU fp32: rel_l2 "
               + ", ".join(f"{n} {r:.4g}" for n, r in zip(("mask", "qua", "sin", "cos", "wid"),
                                                           rels))
               + f" (limit {limit})", flush=True)
         if max(rels) > limit:
-            raise AssertionError(f"[heads] {label} card vs CPU rel_l2 {max(rels):.4g}")
-        model.train()
-        for mod in model.modules():
-            if isinstance(mod, BatchNorm):
-                mod.eval()
-        got, launches = run(lambda: train_grads(model, mini))
+            raise AssertionError(f"{tag} {label} card vs CPU rel_l2 {max(rels):.4g}")
+        got, launched = run(lambda: train_grads(running_bn(model), mini))
         del model
-        check_launches(launches, step, 1)
-        rel, groups = grad_gap(got, cpu, f"[heads] {' '.join(opts)}: train step at batch 2, "
+        check_launches(launched, step, 1)
+        rel, groups = grad_gap(got, cpu, f"{head}: train step at batch 2, "
                                          f"card {label} vs CPU fp32:")
         limits = ({g: TRAIN_GRAD_TOL for g in groups} if label == "bf16"
                   else F32_TRAIN_GRAD_TOL)
         over = {g: r for g, r in groups.items() if not r <= limits[g]}
-        print(f"[heads] {' '.join(opts)}: {label} train step loss rel {rel:.4g} (limit "
-              f"{loss_tol}), grad limits {limits}", flush=True)
+        print(f"{head}: {label} train step loss rel {rel:.4g} (limit {loss_tol}), grad "
+              f"limits {limits}", flush=True)
         if not rel <= loss_tol or over:
-            raise AssertionError(f"[heads] {label} train step card vs CPU: loss rel {rel:.4g}, "
+            raise AssertionError(f"{tag} {label} train step card vs CPU: loss rel {rel:.4g}, "
                                  f"grad {over}")
+        del got
         torch.cuda.empty_cache()
+
 
 def heads_phase(device, smi: str):
     """Phase 20: the decoder at head dims other than 64.
@@ -3936,17 +3986,8 @@ def heads_phase(device, smi: str):
     from crog_tpu_torch.utils.seed import set_random_seed
 
     t_phase = time.perf_counter()
-    wrappers = launch_counts()
-    totals = dict.fromkeys(wrappers, 0)
-
-    def run(fn):
-        _reset(wrappers)
-        out = fn()
-        torch.cuda.synchronize()
-        launches = _read(wrappers)
-        for n, c in launches.items():
-            totals[n] += c
-        return out, launches
+    totals = dict.fromkeys(launch_counts(), 0)
+    run = counted_run(totals)
 
     for heads in HEAD_COUNTS:
         t_heads = time.perf_counter()
@@ -4013,6 +4054,355 @@ def heads_phase(device, smi: str):
           f"{time.perf_counter() - t_phase:.1f} s (kernel checks {t_kernels:.1f} s)", flush=True)
     if not all(c > 0 for c in counted.values()):
         raise AssertionError(f"[heads] a decoder block kernel did not launch: {counted}")
+
+
+# phase 21: CROG on the CLIP RN50x64 backbone.  OpenAI CLIP RN50x64
+# (``clip.available_models()``; the geometry ``clip/model.py:build_model``
+# infers from its checkpoint): vision layers (3, 15, 36, 10), vision width
+# 128, embed dim 1024, a text tower 1024 wide (16 heads, 12 layers),
+# resolution 448.  CROG's cross block takes the text tower's tokens as keys
+# and values unprojected, so its decoder is as wide (vis_dim 1024): 8 heads
+# of 128 at the configs' num_head; the FPN reads (1024, 2048, 1024) and
+# writes (512, 1024, 2048).  Seeded weights (no RN50x64 checkpoint is in the
+# repository); crog_synthetic_r50.yaml's other keys.
+RN50X64 = dict(vision_layers=(3, 15, 36, 10), vision_width=128, transformer_width=1024,
+               transformer_layers=12, clip_resolution=448, word_dim=1024, vis_dim=1024,
+               fpn_in=(1024, 2048, 1024), fpn_out=(512, 1024, 2048))
+WIDE_D = RN50X64["vis_dim"]
+WIDE_TRAIN_STEPS = 4  # timed, after one that checks the launches
+# (batch, remat) in the order tried: the largest batch that fits, remat off
+# before full
+WIDE_TRAIN_TRIES = ((24, False), (24, True), (16, False), (16, True), (8, False), (8, True))
+# the plain s2d stem's convs run on cuDNN: no K6 / K6b launch
+PER_FORWARD_PLAIN = {n: k for n, k in PER_FORWARD.items() if n != "s2dconv"}
+PER_STEP_PLAIN = {n: k for n, k in PER_STEP.items() if not n.startswith("s2dconv")}
+WIDE_KIDS = {"decoder_self_block": "K2", "decoder_cross_block": "K3", "ffn": "K4",
+             "decoder_self_block_bwd": "K2b", "decoder_cross_block_bwd": "K3b",
+             "ffn_bwd": "K4b"}
+WIDE_SUFFIX = f"_d{WIDE_D}"
+_WIDE_STATE = {}
+
+
+def _wide_state():
+    """The seeded weights of CROG at RN50x64's geometry (``random_init_``),
+    made once on the CPU and loaded into every model of the phase."""
+    import torch
+
+    from crog_tpu_torch.models.crog import random_init_
+
+    if "sd" not in _WIDE_STATE:
+        model = _wide_build(_cfg(), torch.device("cpu"), torch.float32)
+        random_init_(model, torch.Generator().manual_seed(SEED))
+        _WIDE_STATE["sd"] = model.state_dict()
+    return _WIDE_STATE["sd"]
+
+
+def _wide_build(cfg, device, dtype, remat=False):
+    """CROG at RN50x64's geometry with ``cfg``'s other keys, built with the
+    CROG constructor as ``build_crog`` builds it, with the s2d stem on
+    cuDNN (``fused_stem`` False, build_crog's and the CLIs' default: the
+    stem's conv3 is 64 -> 128 wide, and K6/K6b take 32 and 64)."""
+    import torch
+
+    from crog_tpu_torch.models.crog import CROG
+
+    with torch.device(device):
+        model = CROG(word_len=cfg.word_len, num_layers=cfg.num_layers, num_head=cfg.num_head,
+                     dim_ffn=cfg.dim_ffn, dropout=cfg.dropout, input_resolution=cfg.input_size,
+                     use_contrastive=cfg.use_contrastive, use_grasp_masks=cfg.use_grasp_masks,
+                     stem_s2d=bool(cfg.get("stem_s2d", True)), fused_stem=False, remat=remat,
+                     dtype=dtype, **RN50X64)
+    return model.to(device)
+
+
+def _wide_model(cfg, device, dtype=None, remat=False):
+    """``_wide_build`` in ``cfg``'s compute_dtype unless ``dtype``, holding
+    the weights of ``_wide_state``."""
+    import torch
+
+    if dtype is None:
+        bf16 = cfg.get("compute_dtype", "bfloat16") == "bfloat16"
+        dtype = torch.bfloat16 if bf16 else torch.float32
+    model = _wide_build(cfg, device, dtype, remat)
+    model.load_state_dict(_wide_state())
+    return model
+
+
+def wide_yardsticks(device, dtype, b=BATCH, l=676, t=17, d=WIDE_D, f=2048, heads=8):
+    """The library's calls at the shapes of K2-K4b's products and attention
+    steps at width ``d`` (F.linear for the projections, torch.mm for the
+    products and dW, SDPA forward and backward over 8 heads of 128 at the
+    self and the masked cross attention), in ``dtype`` (fp32 with TF32
+    off), each timed once: {kernel: the sum of the library times of its
+    products, ms} (yardsticks only; the port computes them in its
+    kernels)."""
+    import torch
+    import torch.nn.functional as F
+
+    from crog_tpu_torch.ops import attention as A
+
+    g = torch.Generator().manual_seed(SEED + 21)
+    rnd = lambda *shape: torch.randn(*shape, generator=g).to(device, dtype)
+    m, mt, dh = b * l, b * t, d // heads
+    lengths = torch.randint(4, t + 1, (b,), generator=g)
+    am = torch.where(torch.arange(t)[None, :] >= lengths[:, None], A.NEG, 0.0)
+    am = am[:, None, None, :].to(device, dtype)
+    split = lambda x: x.view(b, x.shape[1], heads, dh).transpose(1, 2)
+    x, xt, w, bias = rnd(m, d), rnd(mt, d), rnd(3 * d, d), rnd(3 * d)
+    q, k, v, kc, vc, do = (split(rnd(b, n, d)) for n in (l, l, l, t, t, l))
+    leaves = [y.detach().requires_grad_() for y in (q, k, v)]
+    cleaves = [y.detach().requires_grad_() for y in (q, kc, vc)]
+    with torch.enable_grad():
+        out, cout = F.scaled_dot_product_attention(*leaves), F.scaled_dot_product_attention(
+            *cleaves, attn_mask=am)
+    a3, ah, af, t2 = rnd(m, 3 * d), rnd(m, d), rnd(m, f), rnd(mt, 2 * d)
+    wdf, wfd, wdd, w3 = rnd(d, f), rnd(f, d), rnd(d, d), rnd(3 * d, d)
+    calls = {
+        "linear qkv": lambda: F.linear(x, w, bias),
+        "linear d": lambda: F.linear(x, w[:d], bias[:d]),
+        "linear text": lambda: F.linear(xt, w[:d], bias[:d]),
+        "sdpa self": lambda: F.scaled_dot_product_attention(q, k, v),
+        "sdpa cross": lambda: F.scaled_dot_product_attention(q, kc, vc, attn_mask=am),
+        "sdpa self bwd": lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+        "sdpa cross bwd": lambda: torch.autograd.grad(cout, cleaves, do, retain_graph=True),
+        "mm dd": lambda: torch.mm(ah, wdd),
+        "mm 3d": lambda: torch.mm(a3, w3),
+        "mm text": lambda: torch.mm(t2, w3[:2 * d]),
+        "dw": lambda: torch.mm(ah.t(), x),
+        "dw qk": lambda: torch.mm(a3[:, :2 * d].t(), x),
+        "dw text": lambda: torch.mm(xt.t(), xt),
+        "mm hidden": lambda: torch.mm(ah, wdf),
+        "mm out": lambda: torch.mm(af, wfd),
+        "dw ffn": lambda: torch.mm(af.t(), ah),
+    }
+    ms = {name: cuda_ms(call, reps=10) for name, call in calls.items()}
+    uses = {"decoder_self_block": ("linear qkv", "sdpa self", "linear d"),
+            "decoder_cross_block": ("linear d", "linear text", "linear text", "sdpa cross",
+                                    "linear d"),
+            "ffn": ("mm hidden", "mm out"),
+            "decoder_self_block_bwd": ("mm dd", "sdpa self bwd", "mm 3d", "dw qk", "dw", "dw"),
+            "decoder_cross_block_bwd": ("mm dd", "sdpa cross bwd", "mm dd", "mm text", "dw",
+                                        "dw text", "dw text", "dw"),
+            "ffn_bwd": ("mm hidden", "mm hidden", "mm out", "dw ffn", "dw ffn")}
+    print(f"[wide] library yardsticks at D {d} ({dtype}): "
+          + ", ".join(f"{n} {t_:.4f}" for n, t_ in ms.items()) + " ms", flush=True)
+    return {n: sum(ms[u] for u in parts) for n, parts in uses.items()}
+
+
+def wide_kernels(device, dtype, smi: str):
+    """K2-K4 (eval, and with dropout RATE) and K2b-K4b (dropout RATE, on
+    what their forwards saved; K4b's twin on the kernel's ReLU decision,
+    ``ffn_f32_relu_decision``) at RN50x64's decoder shapes (B 24, 676
+    tokens, D 1024, 8 heads of 128, 17 text tokens, F 2048) in ``dtype``
+    against their twins under phase 3's (bf16: TOL, BWD_REL_TOL) or phase
+    18's (fp32: F32_REL_L2, F32_BWD_REL_L2) limits; K4, K2b, K3b (and K4b's
+    dh, hn and column sums) twice at dropout 0 and RATE, and K2 and K3 in
+    train mode, with equal bits; each timed beside its twin, the bound of
+    ops/work.py's work and the library's calls at its products' shapes
+    (``wide_yardsticks``).  Returns the records of the JSON line, named
+    with WIDE_SUFFIX."""
+    import torch
+
+    f32 = dtype == torch.float32
+    peak = PEAK_F32_TC_FLOPS if f32 else work.PEAK_BF16_FLOPS
+    sfx = "_f32" if f32 else ""
+    tag = "-f32" if f32 else ""
+    inp = kernel_inputs(device, d=WIDE_D, dtype=torch.float32 if f32 else None)
+    lib = wide_yardsticks(device, dtype)
+    records = {}
+
+    def timed(name, kern, plain, err, flops, nb):
+        bms, by = bound(flops, nb, peak)
+        rec = _record(name + sfx + WIDE_SUFFIX, err, bms, by)
+        rec["ms"], rec["plain_ms"] = cuda_ms(kern, reps=10), cuda_ms(plain, reps=3, warmup=1)
+        label = f"{WIDE_KIDS[name]}{tag} at D {WIDE_D} ({name})"
+        print(f"[wide] {label}: {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f}, library "
+              f"yardstick {lib[name]:.4f} (its products' calls, summed), bound {bms:.4f} by "
+              f"{by}) on {smi}", flush=True)
+        DEVICE_TIMED.append((f"[wide] {label}", rec["ms"], kern, None, None))
+        records[rec["name"]] = rec
+
+    with torch.no_grad():
+        for name, (kern, plain, _, flops, nb) in kernel_cases(inp).items():
+            if name not in WIDE_KIDS:
+                continue
+            got, ref = kern(), plain()
+            if f32:
+                _long_check(f"{name}{sfx} at D {WIDE_D} (eval)", got, ref, dtype, None, "[wide]")
+                err = float((got - ref).abs().max())
+            else:
+                err = _compare(f"[wide] {name} at D {WIDE_D} (eval)", got, ref, TOL[name])
+            timed(name, kern, plain, err, flops, nb)
+        for name, (kern, plain) in dropout_cases(inp).items():
+            _long_check(f"{name}{sfx} at D {WIDE_D} (dropout {RATE})", kern(), plain(), dtype,
+                        TOL[name], "[wide]")
+        # K4b's twin on the kernel's ReLU decision in both dtypes: at D 1024
+        # a handful of the 33 M pre-activations lie within f32 rounding of
+        # 0 (5-6 at B 24 on an H100, |x W1^T + b1| <= 7.2e-7) and take the
+        # other sign in the twin's sum over K = 1024, each moving a row of
+        # dx by up to 2.3x BWD_REL_TOL; with the kernel's decision the twin
+        # meets it (one bf16 step)
+        cases = f32_backward_cases(inp)
+        for name, (kern, plain, _, flops, nb, outs) in cases.items():
+            if name not in WIDE_KIDS:
+                continue
+            got, ref = kern(), plain()
+            label = f"{name}{sfx} at D {WIDE_D} (dropout {RATE})"
+            if f32:
+                err = check_f32_grads(f"[wide] {label}", outs, got, ref)
+            else:
+                err = max(_compare(f"[wide] {label}.{o}", g, r,
+                                   BWD_REL_TOL * float(r.float().abs().max()))
+                          for o, g, r in zip(outs, got, ref))
+            del got, ref
+            timed(name, kern, plain, err, flops, nb)
+        if f32:
+            f32_bwd_rate_checks(inp)
+        else:
+            k4b_checks(inp, relu_held=True)
+            repeat_checks(inp)
+            block_fwd_train_checks(inp, timed=False)
+    del inp
+    torch.cuda.empty_cache()
+    return records
+
+
+def wide_train(device, label, dt_opts, run, smi: str):
+    """``train_one_epoch`` of RN50x64 CROG at ``label``'s dtype: the first
+    of WIDE_TRAIN_TRIES that fits in the card's memory (an out-of-memory
+    error moves on to the next), one step with a step's launches, then
+    WIDE_TRAIN_STEPS timed by CUDA events with the peak memory.  Returns
+    the launches of the checked step."""
+    import gc
+
+    import torch
+
+    from crog_tpu_torch.data.loader import DataLoader
+    from crog_tpu_torch.engine.crog_engine import make_train_step, train_one_epoch
+    from crog_tpu_torch.engine.optim import make_optimizer
+    from crog_tpu_torch.test_crog import build_dataset
+    from crog_tpu_torch.utils.seed import set_random_seed
+
+    per_step = PER_STEP_PLAIN if label == "bf16" else PER_STEP_F32
+    ds = None
+    for batch, remat in WIDE_TRAIN_TRIES:
+        cfg = _cfg(BATCH, batch, ("print_freq", "100", "epochs", "1", *dt_opts))
+        if ds is None:
+            ds = build_dataset(cfg, cfg.train_split)
+        prepared = next(iter(DataLoader(ds, batch, shuffle=True, drop_last=True, seed=SEED)))
+        model = opt = sched = step = None
+        mode = "full" if remat else "off"
+        try:
+            model = _wide_model(cfg, device, remat=remat).train()
+            opt, sched = make_optimizer(model, cfg.base_lr, cfg.lr_multi, cfg.milestones,
+                                        cfg.lr_decay, 1 + WIDE_TRAIN_STEPS, cfg.weight_decay)
+            step = make_train_step(model, opt, sched, cfg.use_grasp_masks, cfg.max_norm,
+                                   set_random_seed(SEED), device)
+            metrics, launches = run(lambda: train_one_epoch([prepared], step, 1, cfg, 1))
+            loss = float(metrics["loss"])
+            check_launches(launches, per_step, 1)
+            torch.cuda.reset_peak_memory_stats()
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            metrics, more = run(lambda: train_one_epoch([prepared] * WIDE_TRAIN_STEPS, step, 1,
+                                                        cfg, WIDE_TRAIN_STEPS))
+            end.record()
+            torch.cuda.synchronize()
+            check_launches(more, per_step, WIDE_TRAIN_STEPS)
+            ms = start.elapsed_time(end) / WIDE_TRAIN_STEPS
+            print(f"[wide] RN50x64 CROG train_one_epoch, {label}, batch {batch}, remat {mode}: "
+                  f"first loss {loss:.6g}, {ms:.2f} ms a step ({batch / ms * 1e3:.2f} samples/s, "
+                  f"CUDA events over {WIDE_TRAIN_STEPS} steps), peak "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB on {smi}; launches "
+                  f"{_launched(launches)}", flush=True)
+            if not (math.isfinite(loss) and math.isfinite(float(metrics["loss"]))):
+                raise AssertionError(f"[wide] {label} train loss is not finite")
+            done = True
+        except torch.cuda.OutOfMemoryError as err:
+            print(f"[wide] RN50x64 CROG train_one_epoch, {label}, batch {batch}, remat {mode}: "
+                  f"out of memory ({str(err).splitlines()[0][:160]})", flush=True)
+            done = False
+        del model, opt, sched, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        if done:
+            return launches
+    raise AssertionError(f"[wide] {label}: no batch of {WIDE_TRAIN_TRIES} fits")
+
+
+def wide_phase(device, smi: str):
+    """Phase 21: CROG on the CLIP RN50x64 backbone (RN50X64, the rest of
+    crog_synthetic_r50.yaml: 416^2, rawlb, 3 decoder layers, 8 heads,
+    dim_ffn 2048; seeded weights; the s2d stem on cuDNN): the decoder's
+    kernels at D 1024 in both dtypes (``wide_kernels``);
+    ``validate_with_grasp`` over SAMPLES at batch 24 in bf16 and fp32, with
+    a forward's launches each (K2, K3, K4 three times) and the eval rate
+    and peak memory; card vs CPU at batch 1 and 2 (``heads_gaps``);
+    ``train_one_epoch`` in both dtypes (``wide_train``); the counters of
+    K2-K4b and their fp32 builds over the phase's CROG runs, each above 0.
+    The ``[wide]`` lines.  Returns the D 1024 records of the JSON line, each
+    with the launches of one train step of its dtype."""
+    import torch
+
+    from crog_tpu_torch.engine.crog_engine import make_eval_step, validate_with_grasp
+
+    t_phase = time.perf_counter()
+    totals = dict.fromkeys(launch_counts(), 0)
+    run = counted_run(totals)
+
+    records = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        records.update(wide_kernels(device, dtype, smi))
+    t_kernels = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    _wide_state()
+    print(f"[wide] RN50x64 CROG: {sum(v.numel() for v in _wide_state().values()) / 1e6:.1f} M "
+          f"parameters and statistics, seeded on the CPU in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    batches = val_batches(_cfg(SAMPLES, BATCH), BATCH)
+    for label, dt_opts, fwd in (("bf16", (), PER_FORWARD_PLAIN),
+                                ("fp32", ("compute_dtype", "float32"), PER_FORWARD_F32)):
+        cfg = _cfg(SAMPLES, BATCH, dt_opts)
+        model = _wide_model(cfg, device).eval()
+        eval_step = make_eval_step(model, input_size=cfg.input_size, device=device)
+        result, launches = run(lambda: validate_with_grasp(batches, eval_step))
+        print(f"[wide] RN50x64 CROG {label} validate_with_grasp over {len(result['iou_list'])} "
+              f"samples at batch {BATCH}: IoU={result['iou']:.6f} J@1={result['j_index@1']:.6f};"
+              f" launches {_launched(launches)}", flush=True)
+        for key in ("iou", "j_index@1", "j_index@5"):
+            if not math.isfinite(result[key]):
+                raise AssertionError(f"[wide] {key} is not finite: {result[key]}")
+        check_launches(launches, fwd, len(batches))
+        rate, peak = _eval_rate(eval_step, batches[0], reps=3)
+        print(f"[wide] RN50x64 CROG {label} eval step at batch {BATCH}: {rate:.2f} samples/s "
+              f"({BATCH / rate * 1e3:.2f} ms a batch), peak {peak / 2**30:.3f} GiB on {smi}",
+              flush=True)
+        del model, eval_step
+        torch.cuda.empty_cache()
+    t_gaps = time.perf_counter()
+    # the plain stem's convs on the card and on the CPU: no K6 / K6b launch
+    heads_gaps(device, batches[0], (), totals, "[wide] RN50x64 CROG",
+               lambda cfg, dev, dtype, card: _wide_model(cfg, dev, dtype),
+               {"bf16": (PER_FORWARD_PLAIN, PER_STEP_PLAIN),
+                "fp32": (PER_FORWARD_F32, PER_STEP_F32)})
+    t_gaps = time.perf_counter() - t_gaps
+    step_launches = {}
+    for label, dt_opts in (("bf16", ()), ("fp32", ("compute_dtype", "float32"))):
+        step_launches[label] = wide_train(device, label, dt_opts, run, smi)
+    for name, rec in records.items():
+        base = name[:-len(WIDE_SUFFIX)]
+        rec["launches"] = step_launches["fp32" if base.endswith("_f32") else "bf16"][base]
+    counted = {f"{n}{s}": totals[f"{n}{s}"] for n in WIDE_KIDS for s in ("", "_f32")}
+    print(f"[wide] phase 21 launches of K2-K4b and their fp32 builds at D {WIDE_D} (RN50x64 "
+          f"CROG runs, not the kernel checks): {counted}; took "
+          f"{time.perf_counter() - t_phase:.1f} s (kernel checks {t_kernels:.1f} s, card vs "
+          f"CPU {t_gaps:.1f} s)", flush=True)
+    _WIDE_STATE.clear()  # 3.1 GB of host memory the later phases do not read
+    if not all(c > 0 for c in counted.values()):
+        raise AssertionError(f"[wide] a decoder kernel did not launch: {counted}")
+    return records
+
 
 def _ssg_cfg(opts=()):
     """SSG's config as written (raw wire, batch 32) on the synthetic data;
@@ -5610,8 +6000,10 @@ def redesigned_resources(reports):
     for lib, keys in (("attention", ("attn_fwd_kernel", "attn_fwd_wide_kernel")),
                       ("ffn", ("ffn_fwd_hidden_kernel", "ffn_out_kernel")),
                       ("ffn_bwd", ("ffn_bwd_hidden_kernel", "ffn_out_kernel")),
-                      ("decoder_blocks", ("proj_gemm_kernel", "outproj_ln_cluster_kernel")),
-                      ("decoder_blocks_bwd", ("gemm_nn_kernel", "wgrad_kernel")),
+                      ("decoder_blocks", ("proj_gemm_kernel", "outproj_ln_cluster_kernel",
+                                          "ln_pos_kernel")),
+                      ("decoder_blocks_bwd", ("gemm_nn_kernel", "wgrad_kernel", "ln_post_bwd",
+                                              "ln_pre_bwd")),
                       ("attention_bwd", ("attn_bwd_head_kernel", "attn_bwd_rows_kernel",
                                          "attn_bwd_cols_kernel", "attn_bwd_rows_wide",
                                          "attn_bwd_cols_wide")),
@@ -5620,7 +6012,8 @@ def redesigned_resources(reports):
                       ("ffn_f32", ("gemm_wgmma_f32",)), ("ffn_bwd_f32", ("gemm_wgmma_f32",)),
                       ("attention_f32", ("attn_fwd_f32",)),
                       ("attention_bwd_f32", ("attn_bwd_f32_stats", "attn_bwd_f32_main")),
-                      ("decoder_blocks_f32", ("gemm_wgmma_f32", "attn_fwd_f32")),
+                      ("decoder_blocks_f32", ("gemm_wgmma_f32", "attn_fwd_f32", "ln_")),
+                      ("decoder_blocks_bwd_f32", ("ln_post_bwd", "ln_pre_bwd")),
                       ("lincomb", ("lincomb_region",))):
         for entry, regs, spill in ptxas_entries(reports[lib]):
             if any(k in entry for k in keys):
@@ -5652,13 +6045,16 @@ def redesigned_resources(reports):
               f"registers, {out[5]} bytes shared memory per CTA, {out[6]} bytes local (spill) "
               f"per thread, {out[7]} CTAs per SM", flush=True)
     lib = cuda_build.load("decoder_blocks")
-    cuda_build.check_launch(lib, lib.crog_decoder_fwd_attrs(ptr), "attrs")
-    print(f"[build] K2/K3 proj_gemm (q/k/v projections, 128 x 256 tiles, K-major in_proj_weight): "
-          f"{out[0]} registers, {out[1]} bytes shared memory per CTA, {out[2]} bytes local "
-          f"(spill) per thread, {out[3]} CTAs per SM", flush=True)
-    print(f"[build] K2/K3 outproj_ln_cluster (2 CTAs of 256 columns, 128 rows): {out[4]} "
-          f"registers, {out[5]} bytes shared memory per CTA, {out[6]} bytes local (spill) per "
-          f"thread, {out[7]} clusters resident at once", flush=True)
+    for d in (512, WIDE_D):
+        cuda_build.check_launch(lib, lib.crog_decoder_fwd_attrs(d, ptr), "attrs")
+        if d == 512:
+            print(f"[build] K2/K3 proj_gemm (q/k/v projections, 128 x 256 tiles, K-major "
+                  f"in_proj_weight; any D): {out[0]} registers, {out[1]} bytes shared memory per "
+                  f"CTA, {out[2]} bytes local (spill) per thread, {out[3]} CTAs per SM",
+                  flush=True)
+        print(f"[build] K2/K3 outproj_ln_cluster at D {d} ({d // 256} CTAs of 256 columns, 128 "
+              f"rows): {out[4]} registers, {out[5]} bytes shared memory per CTA, {out[6]} bytes "
+              f"local (spill) per thread, {out[7]} clusters resident at once", flush=True)
     lib = cuda_build.load("decoder_blocks_bwd")
     cuda_build.check_launch(lib, lib.crog_decoder_bwd_attrs(ptr), "attrs")
     for i, name in enumerate(("gemm_nn (three dX products fused, 128 x 128 tiles)",
@@ -5739,6 +6135,10 @@ def main(argv=None) -> int:
                          "(head dims 32, 128, 256, 512) and the attention kernels at head dims "
                          "8-512 "
                          "on the card; no result line")
+    ap.add_argument("--wide", action="store_true",
+                    help="phases 1, 2 and 21 only: build, then CROG on the CLIP RN50x64 "
+                         "backbone (decoder width 1024) and K2-K4b at D 1024 on the card; "
+                         "no result line")
     ap.add_argument("--ddp-worker", metavar="DIR",
                     help="run one rank of phase 13 (started by phase 13 itself)")
     args = ap.parse_args(argv)
@@ -5796,6 +6196,11 @@ def main(argv=None) -> int:
         print_device_times()
         print(f"[done] heads only, {time.perf_counter() - t_start:.1f} s", flush=True)
         return 0
+    if args.wide:
+        wide_phase(device, smi)
+        print_device_times()
+        print(f"[done] wide only, {time.perf_counter() - t_start:.1f} s", flush=True)
+        return 0
     records = check_kernels(device)
     if args.kernels:
         print_device_times()
@@ -5822,6 +6227,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     heads_phase(device, smi)
     torch.cuda.empty_cache()
+    wide_records = wide_phase(device, smi)
+    torch.cuda.empty_cache()
     ssg_launches, ssg_train_rate, ssg_model, ssg_cfg, ssg_batches = ssg_train_path(device,
                                                                                   smi)
     ssg_eval_rate = ssg_eval_path(device, ssg_model, ssg_cfg, smi)
@@ -5838,8 +6245,10 @@ def main(argv=None) -> int:
     # for K1-K4b and K6/K6b, SSG training for K5/K5b
     for n, rec in records.items():
         rec["launches"] = ssg_launches[n] if n in SSG_PER_STEP else launches[n]
-    # the fp32 kernels' launches on the fp32 train path (phase 18)
+    # the fp32 kernels' launches on the fp32 train path (phase 18), the D
+    # 1024 rows' on phase 21's train paths
     records.update(fp32_records)
+    records.update(wide_records)
     print(f"[done] {time.perf_counter() - t_start:.1f} s; CROG train {train_rate:.2f} "
           f"and eval {eval_rate:.2f} samples/s at batch {BATCH}; SSG train "
           f"{ssg_train_rate:.2f} samples/s at batch {SSG_BATCH}, eval {ssg_eval_rate:.2f} "

@@ -9,6 +9,7 @@
 #pragma once
 
 #include <cmath>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,6 +57,29 @@ __device__ __forceinline__ float warp_max(float v) {
 constexpr float kNeg = -1e30f;
 
 __host__ __device__ constexpr int round_up(int n, int m) { return (n + m - 1) / m * m; }
+
+// The decoder's model widths the block kernels (K2-K3b) and the FFN kernels
+// (K4, K4b) take, bf16 and fp32: D = 256, 512, 768 or 1024, whole 256-column
+// GEMM tiles, at most four (ops/decoder_blocks.py KERNEL_D)
+constexpr int kDecoderDMax = 1024;
+__host__ __device__ constexpr bool decoder_width_ok(int d) {
+  return d >= 256 && d <= kDecoderDMax && d % 256 == 0;
+}
+
+// fn(std::integral_constant<int, d>()) for a width d that decoder_width_ok
+// takes, then the launch error: the row kernels whose lanes hold a whole
+// D-wide row are built once per width; else cudaErrorInvalidValue
+template <typename Fn>
+inline cudaError_t with_decoder_width(int d, const Fn& fn) {
+  switch (d) {
+    case 256: fn(std::integral_constant<int, 256>()); break;
+    case 512: fn(std::integral_constant<int, 512>()); break;
+    case 768: fn(std::integral_constant<int, 768>()); break;
+    case 1024: fn(std::integral_constant<int, 1024>()); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
 
 // The attention kernels (bf16 and fp32) are templates on a head tile: the
 // one that takes a head of dh columns is 32 for dh 8, 16 and 32, else dh

@@ -15,7 +15,13 @@
 //
 // Bound on an H100 at B=24, L=676, D=512: the self block is 56.5 GFLOP over
 // 37 MB (about 57 us, limited by the tensor cores); the cross block 18.0
-// GFLOP over 36 MB (about 18 us, compute).
+// GFLOP over 36 MB (about 18 us, compute).  At D=1024 (CLIP RN50x64's text
+// width, 8 heads of 128): 181.0 GFLOP, 0.183 ms, and about 71 GFLOP, 0.072
+// ms.
+//
+// D is a run-time value, any of decoder_width_ok's 256, 512, 768 and 1024:
+// the GEMMs' K and row strides are D, the projection launch has D / 256
+// column tiles a product, and the out-projection's cluster D / 256 CTAs.
 //
 // Design: the block runs as four launches instead of the TPU's one program
 // per sample, because a Hopper SM cannot hold a sample's [688, 512]
@@ -33,12 +39,14 @@
 //   3. attention (attention.cuh): q, k, v read in place from the projection
 //      outputs by stride; the two-pass kernel for the self block's 676
 //      keys, the one-pass kernel for the cross block's 17.
-//   4. outproj_ln_cluster: the LayerNorm needs whole 512-column rows, so a
-//      cluster of 2 CTAs owns 128 rows, each CTA a [128, 256] slice of the
+//   4. outproj_ln_cluster: the LayerNorm needs whole D-column rows, so a
+//      cluster of D / 256 CTAs (1 to 4) owns 128 rows, each CTA a [128, 256] slice of the
 //      out-projection on the same mainloop (Wo K-major); bias and the bf16
 //      rounding on the accumulators, the row partials of sum and sum of
 //      squares exchanged through distributed shared memory and added in
-//      rank order while x's tile comes into the ring the mainloop has left
+//      rank order (every CTA adds all D / 256, from rank 0 up, so each row's
+//      statistics are the same bits in every CTA and every run) while x's
+//      [128, 256] tile comes into the ring the mainloop has left
 //      free (cp.async), then LN, the dropout (counter-based mask, common.cuh,
 //      keyed by the global row and column) and the residual add in
 //      registers, 16-byte stores.  In training it also writes the pre-LN
@@ -57,11 +65,14 @@
 namespace crog {
 
 constexpr float kLnEps = 1e-5f;
-constexpr int kDD = 512;                             // the width the GEMM kernels take
 using ProjRing = GemmRing<128, false, kGKDeep, true>;  // [128, 256] tiles, B K-major
 constexpr int kPN = ProjRing::kN;                    // output columns per CTA
-constexpr int kOCl = kDD / kPN;                      // CTAs per out-projection cluster
 constexpr int kPNT = ProjRing::kNT;                  // C fragments per warp
+static_assert(kPN == 256, "decoder_width_ok's widths are whole 256-column tiles");
+
+// CTAs per out-projection cluster at width D (ops/decoder_blocks.py
+// out_cluster): 1 to 4, all portable cluster sizes
+__host__ __device__ inline int out_cluster(int D) { return D / kPN; }
 constexpr int kXLd = kPN + 8;  // x's tile row stride (conflict-free 4-byte reads)
 // the out-projection's row partials, exchange and statistics after the ring
 constexpr size_t kOutSmem = ProjRing::kSmem + (size_t)8 * kGM * sizeof(float);
@@ -125,8 +136,8 @@ __global__ void __launch_bounds__(256) ln_pos_kernel(
 
 // ------------------------------------------------------------- proj_gemm
 // One product of a projection launch: C [m, ldc] (from its column 0) =
-// bf16(A W_s^T + b_s), A [m, 512] row-major, W_s rows w0 .. w0 + 256 nct - 1
-// of W [*, 512] (bias entries alike).
+// bf16(A W_s^T + b_s), A [m, D] row-major, W_s rows w0 .. w0 + 256 nct - 1
+// of W [*, D] (bias entries alike).
 struct ProjSeg {
   const bf16* a;
   bf16* c;
@@ -136,6 +147,7 @@ struct ProjSeg {
 struct ProjArgs {
   ProjSeg seg[3];
   int nseg;
+  int d;              // the model width D: A's and W's row length, the products' K
   const bf16* w;      // torch's in_proj_weight [3D, D], K-major as it is
   const float* bias;  // [3D]
 };
@@ -163,8 +175,8 @@ __global__ void __launch_bounds__(kGThreads, 1) proj_gemm_kernel(ProjArgs p) {
   const int n0 = (t % s.nct) * kPN;
   float acc[kPNT][4];
   gemm_zero(acc);
-  gemm_mainloop<128, false, kGKDeep, true>(acc, s.a, kDD, m0, s.m, p.w + (long long)s.w0 * kDD,
-                                           kDD, n0, 0, kDD, ring, NoChunkHook());
+  gemm_mainloop<128, false, kGKDeep, true>(acc, s.a, p.d, m0, s.m, p.w + (long long)s.w0 * p.d,
+                                           p.d, n0, 0, p.d, ring, NoChunkHook());
   const int cw = n0 + ((threadIdx.x >> 7) & 1) * 128;  // the warpgroup's first column
   const float* bias = p.bias + s.w0 + cw + frag_col();
   store_frags_bf16<kPNT>([&](int nt, int e) { return acc[nt][e] + bias[nt * 8 + (e & 1)]; },
@@ -172,20 +184,20 @@ __global__ void __launch_bounds__(kGThreads, 1) proj_gemm_kernel(ProjArgs p) {
 }
 
 // ---------------------------------------------------- outproj_ln_cluster
-// y = bf16(x + drop(bf16(LN(bf16(o Wo^T + bo))))) over D = 512; OP (or
-// null) receives bf16(o Wo^T + bo).  Cluster blockIdx.x / 2 takes rows m0 ..
-// m0 + 127, its CTA of rank r columns 256 r .. 256 r + 255.
+// y = bf16(x + drop(bf16(LN(bf16(o Wo^T + bo))))) over D columns; OP (or
+// null) receives bf16(o Wo^T + bo).  Cluster blockIdx.x / (D / 256) takes
+// rows m0 .. m0 + 127, its CTA of rank r columns 256 r .. 256 r + 255.
 template <bool TRAIN>
 __global__ void __launch_bounds__(kGThreads, 1) outproj_ln_cluster_kernel(
     const bf16* __restrict__ O, const bf16* __restrict__ Wo, const float* __restrict__ bo,
     const float* __restrict__ g, const float* __restrict__ be, const bf16* __restrict__ X,
-    bf16* __restrict__ Y, bf16* __restrict__ OP, int M, Dropout drop) {
+    bf16* __restrict__ Y, bf16* __restrict__ OP, int M, int D, Dropout drop) {
   unsigned char* ring = gemm_smem_base();
-  const int m0 = (blockIdx.x / kOCl) * kGM;
+  const int m0 = (blockIdx.x / out_cluster(D)) * kGM;
   float acc[kPNT][4];
   gemm_zero(acc);
-  gemm_mainloop<128, false, kGKDeep, true>(acc, O, kDD, m0, M, Wo, kDD,
-                                           (int)cluster_rank() * kPN, 0, kDD, ring,
+  gemm_mainloop<128, false, kGKDeep, true>(acc, O, D, m0, M, Wo, D,
+                                           (int)cluster_rank() * kPN, 0, D, ring,
                                            NoChunkHook());
   // (what follows is computed after the mainloop, so that nothing but the
   // accumulators stays live across it)
@@ -204,7 +216,7 @@ __global__ void __launch_bounds__(kGThreads, 1) outproj_ln_cluster_kernel(
     const int v = tid + i * kGThreads;
     const int r = v / (kPN / 8), cs = (v % (kPN / 8)) * 8;
     const bool ok = m0 + r < M;
-    cp_async16(smem_u32(xs + r * kXLd + cs), ok ? X + (long long)(m0 + r) * kDD + n0 + cs : X,
+    cp_async16(smem_u32(xs + r * kXLd + cs), ok ? X + (long long)(m0 + r) * D + n0 + cs : X,
                ok ? 16 : 0);
   }
   cp_async_commit();
@@ -219,7 +231,7 @@ __global__ void __launch_bounds__(kGThreads, 1) outproj_ln_cluster_kernel(
       pk[nt][hf] = pack_bf16(acc[nt][2 * hf] + b.x, acc[nt][2 * hf + 1] + b.y);
   }
   if (TRAIN && OP)
-    store_pairs_bf16<kPNT>([&](int nt, int hf) { return pk[nt][hf]; }, OP + cw, kDD, m0 + r0, M);
+    store_pairs_bf16<kPNT>([&](int nt, int hf) { return pk[nt][hf]; }, OP + cw, D, m0 + r0, M);
   // the row partials of sum(op), sum(op^2) over this CTA's 256 columns
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
@@ -239,12 +251,12 @@ __global__ void __launch_bounds__(kGThreads, 1) outproj_ln_cluster_kernel(
     }
   }
   __syncthreads();
-  {  // LN statistics of the whole rows, from both CTAs' partials
-    const float2 tot = cluster_row_sums<kOCl>(red, xch);
+  {  // LN statistics of the whole rows, from the cluster's partials
+    const float2 tot = cluster_row_sums(red, xch, out_cluster(D));
     if (tid < kGM) {
-      const float mu = tot.x / kDD;
+      const float mu = tot.x / D;
       rowst[tid] = mu;
-      rowst[kGM + tid] = rsqrtf(fmaxf(0.0f, tot.y / kDD - mu * mu) + kLnEps);
+      rowst[kGM + tid] = rsqrtf(fmaxf(0.0f, tot.y / D - mu * mu) + kLnEps);
     }
   }
   cp_async_wait_all();
@@ -274,16 +286,19 @@ __global__ void __launch_bounds__(kGThreads, 1) outproj_ln_cluster_kernel(
       pk[nt][hf] = pack_bf16(xv.x + on0, xv.y + on1);  // y = bf16(x + on)
     }
   }
-  store_pairs_bf16<kPNT>([&](int nt, int hf) { return pk[nt][hf]; }, Y + cw, kDD, m0 + r0, M);
-  cluster_wait();  // no CTA leaves while its peer may still read its exchange
+  store_pairs_bf16<kPNT>([&](int nt, int hf) { return pk[nt][hf]; }, Y + cw, D, m0 + r0, M);
+  cluster_wait();  // no CTA leaves while a peer may still read its exchange
 }
 
 // ------------------------------------------------------------ host side
+// one build of the row kernel per width (a lane holds D / 32 values)
 static cudaError_t launch_ln_pos(const bf16* x, const float* g, const float* b,
-                                 const bf16* pos, bf16* xl, bf16* qin, int M,
-                                 int L, int do_ln, cudaStream_t st) {
-  ln_pos_kernel<kDD><<<(M + 7) / 8, 256, 0, st>>>(x, g, b, pos, xl, qin, M, L, do_ln);
-  return cudaGetLastError();
+                                 const bf16* pos, bf16* xl, bf16* qin, int M, int L,
+                                 int D, int do_ln, cudaStream_t st) {
+  return with_decoder_width(D, [&](auto w) {
+    ln_pos_kernel<decltype(w)::value><<<(M + 7) / 8, 256, 0, st>>>(x, g, b, pos, xl, qin, M, L,
+                                                                   do_ln);
+  });
 }
 
 // the kernels' dynamic shared memory limits, set once per card
@@ -310,6 +325,7 @@ static int proj_ctas(const ProjArgs& p) {
 // `ctas` is the caller's count of the plan's CTAs (ops/decoder_blocks.py:
 // proj_plan), which must be this launch's
 static cudaError_t launch_proj(const ProjArgs& p, int ctas, cudaStream_t st) {
+  if (!decoder_width_ok(p.d)) return cudaErrorInvalidValue;
   for (int i = 0; i < p.nseg; ++i)
     if (p.seg[i].m < 1 || p.seg[i].w0 % kPN || p.seg[i].ldc % 8) return cudaErrorInvalidValue;
   if (ctas != proj_ctas(p)) return cudaErrorInvalidValue;
@@ -319,14 +335,15 @@ static cudaError_t launch_proj(const ProjArgs& p, int ctas, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// a launch of `tiles` clusters of kOCl CTAs
-static cudaLaunchConfig_t outproj_config(int tiles, cudaLaunchAttribute* attr, cudaStream_t st) {
+// a launch of `tiles` clusters of out_cluster(D) CTAs
+static cudaLaunchConfig_t outproj_config(int tiles, int D, cudaLaunchAttribute* attr,
+                                         cudaStream_t st) {
   attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = kOCl;
+  attr->val.clusterDim.x = out_cluster(D);
   attr->val.clusterDim.y = 1;
   attr->val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kOCl * tiles);
+  cfg.gridDim = dim3(out_cluster(D) * tiles);
   cfg.blockDim = dim3(kGThreads);
   cfg.dynamicSmemBytes = kOutSmem;
   cfg.stream = st;
@@ -341,14 +358,14 @@ static cudaError_t launch_outproj(const bf16* O, const bf16* Wo, const float* bo
                                   const float* g, const float* be, const bf16* X,
                                   bf16* Y, bf16* OP, int M, int D, int tiles, Dropout drop,
                                   cudaStream_t st) {
-  if (D != kDD || M < 1 || tiles != (M + kGM - 1) / kGM) return cudaErrorInvalidValue;
+  if (!decoder_width_ok(D) || M < 1 || tiles != (M + kGM - 1) / kGM) return cudaErrorInvalidValue;
   cudaError_t err = decoder_fwd_smem_once();
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = outproj_config(tiles, &attr, st);
+  const cudaLaunchConfig_t cfg = outproj_config(tiles, D, &attr, st);
   const bool train = OP != nullptr || drop.thresh != 0u;
   auto kernel = train ? outproj_ln_cluster_kernel<true> : outproj_ln_cluster_kernel<false>;
-  err = cudaLaunchKernelEx(&cfg, kernel, O, Wo, bo, g, be, X, Y, OP, M, drop);
+  err = cudaLaunchKernelEx(&cfg, kernel, O, Wo, bo, g, be, X, Y, OP, M, D, drop);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -386,13 +403,14 @@ extern "C" int crog_self_block_fwd(
   bf16* v = static_cast<bf16*>(ws_v);
   bf16* o = static_cast<bf16*>(ws_o);
   const int dh = crog::attn_head_dim(D, heads);
-  if (D != crog::kDD || dh == 0) return (int)cudaErrorInvalidValue;
+  if (!crog::decoder_width_ok(D) || dh == 0) return (int)cudaErrorInvalidValue;
   CROG_TRY(crog::launch_ln_pos(xb, g_pre, b_pre, static_cast<const bf16*>(pos),
-                               xl, qin, M, L, 1, st));
+                               xl, qin, M, L, D, 1, st));
   crog::ProjArgs p = {};
   p.seg[0] = {qin, qk, M, 2 * D, 0, 2 * D / crog::kPN};   // q and k, packed
   p.seg[1] = {xl, v, M, D, 2 * D, D / crog::kPN};          // v
   p.nseg = 2;
+  p.d = D;
   p.w = static_cast<const bf16*>(w_in);
   p.bias = b_in;
   CROG_TRY(crog::launch_proj(p, proj_ctas, st));
@@ -443,17 +461,18 @@ extern "C" int crog_cross_block_fwd(
   bf16* k = static_cast<bf16*>(ws_k);
   bf16* v = static_cast<bf16*>(ws_v);
   const int dh = crog::attn_head_dim(D, heads);
-  if (D != crog::kDD || dh == 0) return (int)cudaErrorInvalidValue;
+  if (!crog::decoder_width_ok(D) || dh == 0) return (int)cudaErrorInvalidValue;
   CROG_TRY(crog::launch_ln_pos(xb, g_pre, b_pre, static_cast<const bf16*>(pos),
-                               nullptr, qin, M, L, 1, st));
+                               nullptr, qin, M, L, D, 1, st));
   CROG_TRY(crog::launch_ln_pos(kvb, nullptr, nullptr,
                                static_cast<const bf16*>(kpos), nullptr, kin, MT,
-                               T, 0, st));
+                               T, D, 0, st));
   crog::ProjArgs p = {};
   p.seg[0] = {qin, q, M, D, 0, D / crog::kPN};       // q over the image rows
   p.seg[1] = {kin, k, MT, D, D, D / crog::kPN};      // k and v over the text rows
   p.seg[2] = {kvb, v, MT, D, 2 * D, D / crog::kPN};
   p.nseg = 3;
+  p.d = D;
   p.w = static_cast<const bf16*>(w_in);
   p.bias = b_in;
   CROG_TRY(crog::launch_proj(p, proj_ctas, st));
@@ -482,9 +501,10 @@ extern "C" int crog_cross_block_fwd(
 // out[8]: proj_gemm_kernel's registers per thread, shared memory per CTA
 // (static + dynamic), spill bytes per thread and CTAs per SM; then the
 // out-projection's cluster kernel (train variant): registers, shared
-// memory, spills and clusters resident at once
-extern "C" int crog_decoder_fwd_attrs(void* out_) {
+// memory, spills and clusters of width D's launch resident at once
+extern "C" int crog_decoder_fwd_attrs(int D, void* out_) {
   int* out = static_cast<int*>(out_);
+  if (!crog::decoder_width_ok(D)) return (int)cudaErrorInvalidValue;
   cudaError_t err = crog::decoder_fwd_smem_once();
   if (err != cudaSuccess) return (int)err;
   cudaFuncAttributes fa;
@@ -502,7 +522,7 @@ extern "C" int crog_decoder_fwd_attrs(void* out_) {
   out[5] = (int)(fa.sharedSizeBytes + crog::kOutSmem);
   out[6] = (int)fa.localSizeBytes;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = crog::outproj_config(1, &attr, nullptr);
+  const cudaLaunchConfig_t cfg = crog::outproj_config(1, D, &attr, nullptr);
   return (int)cudaOccupancyMaxActiveClusters(&out[7], crog::outproj_ln_cluster_kernel<true>,
                                              &cfg);
 }

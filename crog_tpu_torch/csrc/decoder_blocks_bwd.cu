@@ -15,6 +15,11 @@
 // forward's products (dX and dW for each of the four projections, 2.5x
 // for the attention): ~130 GFLOP over ~170 MB of inputs, saved
 // intermediates and outputs, about 0.13 ms, limited by the tensor cores.
+// At D=1024 (8 heads of 128) about 2.2x K2's 181 GFLOP.
+//
+// D is a run-time value of the GEMMs (K and N are D) and a template
+// argument of the two LayerNorm row kernels (a lane holds D / 32 values),
+// built for each of decoder_width_ok's 256, 512, 768 and 1024.
 //
 // Design: the forward (decoder_blocks.cu) saves its intermediates (xl,
 // qin, q/k/v, o and the pre-LN projection), which the TPU kernel recomputes
@@ -43,19 +48,19 @@
 
 namespace crog {
 
-constexpr int kLD = 512;           // model width
 constexpr int kLRows = 64;         // rows per block of the LN kernels
-constexpr int kLPer = kLD / 32;    // values per lane
 constexpr float kLnEpsB = 1e-5f;
 
-// lane's 16 columns of a 512-wide row: c(p, e) = p * 256 + lane * 8 + e
+// lane's D / 32 columns of a D-wide row, in D / 256 passes of 256 columns:
+// c(p, e) = p * 256 + lane * 8 + e
 __device__ __forceinline__ int ln_col(int i, int lane) {
   return (i / 8) * 256 + lane * 8 + (i % 8);
 }
 
+template <int D>
 __device__ __forceinline__ void ln_load_bf16(float* v, const bf16* row, int lane) {
 #pragma unroll
-  for (int p = 0; p < 2; ++p) {
+  for (int p = 0; p < D / 256; ++p) {
     alignas(16) bf16 t[8];
     copy8(t, row + p * 256 + lane * 8);
 #pragma unroll
@@ -63,9 +68,10 @@ __device__ __forceinline__ void ln_load_bf16(float* v, const bf16* row, int lane
   }
 }
 
+template <int D>
 __device__ __forceinline__ void ln_store_bf16(bf16* row, const float* v, int lane) {
 #pragma unroll
-  for (int p = 0; p < 2; ++p) {
+  for (int p = 0; p < D / 256; ++p) {
     alignas(16) bf16 t[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e) t[e] = f2bf(v[p * 8 + e]);
@@ -74,61 +80,66 @@ __device__ __forceinline__ void ln_store_bf16(bf16* row, const float* v, int lan
 }
 
 // x-hat and rstd of a row, f32 statistics with the fast variance
+template <int D>
 __device__ __forceinline__ float ln_xhat(float* v) {
   float s = 0.f, ss = 0.f;
 #pragma unroll
-  for (int i = 0; i < kLPer; ++i) {
+  for (int i = 0; i < D / 32; ++i) {
     s += v[i];
     ss += v[i] * v[i];
   }
   s = warp_sum(s);
   ss = warp_sum(ss);
-  const float mu = s / kLD;
-  const float rstd = rsqrtf(fmaxf(0.f, ss / kLD - mu * mu) + kLnEpsB);
+  const float mu = s / D;
+  const float rstd = rsqrtf(fmaxf(0.f, ss / D - mu * mu) + kLnEpsB);
 #pragma unroll
-  for (int i = 0; i < kLPer; ++i) v[i] = (v[i] - mu) * rstd;
+  for (int i = 0; i < D / 32; ++i) v[i] = (v[i] - mu) * rstd;
   return rstd;
 }
 
 // dx of a LayerNorm given its output gradient dy (f32) and x-hat, rstd
+template <int D>
 __device__ __forceinline__ void ln_dx(float* dx, const float* dy, const float* xhat,
                                       const float* g, float rstd, int lane) {
   float m1 = 0.f, m2 = 0.f;
 #pragma unroll
-  for (int i = 0; i < kLPer; ++i) {
+  for (int i = 0; i < D / 32; ++i) {
     dx[i] = dy[i] * g[ln_col(i, lane)];
     m1 += dx[i];
     m2 += dx[i] * xhat[i];
   }
-  m1 = warp_sum(m1) / kLD;
-  m2 = warp_sum(m2) / kLD;
+  m1 = warp_sum(m1) / D;
+  m2 = warp_sum(m2) / D;
 #pragma unroll
-  for (int i = 0; i < kLPer; ++i) dx[i] = rstd * (dx[i] - m1 - xhat[i] * m2);
+  for (int i = 0; i < D / 32; ++i) dx[i] = rstd * (dx[i] - m1 - xhat[i] * m2);
 }
 
-// per-block column sums of `nq` per-lane accumulators into part[blk][q][D]
-__device__ __forceinline__ void block_colsums(float (*acc)[kLPer], int nq, float* part,
+// per-block column sums of `nq` per-lane accumulators into part[blk][3][D]
+template <int D>
+__device__ __forceinline__ void block_colsums(float (*acc)[D / 32], int nq, float* part,
                                               float* red) {
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   for (int q = 0; q < nq; ++q) {
 #pragma unroll
-    for (int i = 0; i < kLPer; ++i) red[warp * kLD + ln_col(i, lane)] = acc[q][i];
+    for (int i = 0; i < D / 32; ++i) red[warp * D + ln_col(i, lane)] = acc[q][i];
     __syncthreads();
-    for (int c = threadIdx.x; c < kLD; c += blockDim.x) {
+    for (int c = threadIdx.x; c < D; c += blockDim.x) {
       float s = 0.f;
-      for (int w = 0; w < 8; ++w) s += red[w * kLD + c];
-      part[((long long)blockIdx.x * 3 + q) * kLD + c] = s;
+      for (int w = 0; w < 8; ++w) s += red[w * D + c];
+      part[((long long)blockIdx.x * 3 + q) * D + c] = s;
     }
     __syncthreads();
   }
 }
 
 // 1. dOP = post-LN backward of drop^T(dy); partials (dG_post, dB_post, dB_out)
+template <int D>
 __global__ void __launch_bounds__(256) ln_post_bwd_kernel(
     const bf16* __restrict__ op, const bf16* __restrict__ dy, const float* __restrict__ g,
     bf16* __restrict__ dop, float* __restrict__ part, int M, Dropout drop) {
-  __shared__ float red[8 * kLD];
+  constexpr int kLPer = D / 32;  // values per lane
+  __shared__ float red[8 * D];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   float acc[3][kLPer];
@@ -140,16 +151,16 @@ __global__ void __launch_bounds__(256) ln_post_bwd_kernel(
     const int row = blockIdx.x * kLRows + warp * (kLRows / 8) + rr;
     if (row >= M) break;
     float xh[kLPer], dn[kLPer], dx[kLPer];
-    ln_load_bf16(xh, op + (long long)row * kLD, lane);
-    const float rstd = ln_xhat(xh);
-    ln_load_bf16(dn, dy + (long long)row * kLD, lane);
+    ln_load_bf16<D>(xh, op + (long long)row * D, lane);
+    const float rstd = ln_xhat<D>(xh);
+    ln_load_bf16<D>(dn, dy + (long long)row * D, lane);
     if (drop.thresh) {
 #pragma unroll
       for (int i = 0; i < kLPer; ++i)
         dn[i] = dropout_keep(drop, row, ln_col(i, lane)) ? dn[i] * drop.scale : 0.f;
     }
-    ln_dx(dx, dn, xh, g, rstd, lane);
-    ln_store_bf16(dop + (long long)row * kLD, dx, lane);
+    ln_dx<D>(dx, dn, xh, g, rstd, lane);
+    ln_store_bf16<D>(dop + (long long)row * D, dx, lane);
 #pragma unroll
     for (int i = 0; i < kLPer; ++i) {
       acc[0][i] += dn[i] * xh[i];
@@ -157,15 +168,17 @@ __global__ void __launch_bounds__(256) ln_post_bwd_kernel(
       acc[2][i] += dx[i];
     }
   }
-  block_colsums(acc, 3, part, red);
+  block_colsums<D>(acc, 3, part, red);
 }
 
 // 5. dX = dy + pre-LN backward of dXL; partials (dG_pre, dB_pre)
+template <int D>
 __global__ void __launch_bounds__(256) ln_pre_bwd_kernel(
     const bf16* __restrict__ x, const float* __restrict__ dxl, const bf16* __restrict__ dy,
     const float* __restrict__ g, bf16* __restrict__ dx_out, float* __restrict__ part,
     int M) {
-  __shared__ float red[8 * kLD];
+  constexpr int kLPer = D / 32;  // values per lane
+  __shared__ float red[8 * D];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   float acc[2][kLPer];
@@ -177,51 +190,53 @@ __global__ void __launch_bounds__(256) ln_pre_bwd_kernel(
     const int row = blockIdx.x * kLRows + warp * (kLRows / 8) + rr;
     if (row >= M) break;
     float xh[kLPer], dl[kLPer], dx[kLPer], r[kLPer];
-    ln_load_bf16(xh, x + (long long)row * kLD, lane);
-    const float rstd = ln_xhat(xh);
+    ln_load_bf16<D>(xh, x + (long long)row * D, lane);
+    const float rstd = ln_xhat<D>(xh);
 #pragma unroll
-    for (int p = 0; p < 2; ++p) {
+    for (int p = 0; p < D / 256; ++p) {
       const float4* src =
-          reinterpret_cast<const float4*>(dxl + (long long)row * kLD + p * 256 + lane * 8);
+          reinterpret_cast<const float4*>(dxl + (long long)row * D + p * 256 + lane * 8);
       const float4 a = src[0], b = src[1];
       dl[p * 8 + 0] = a.x; dl[p * 8 + 1] = a.y; dl[p * 8 + 2] = a.z; dl[p * 8 + 3] = a.w;
       dl[p * 8 + 4] = b.x; dl[p * 8 + 5] = b.y; dl[p * 8 + 6] = b.z; dl[p * 8 + 7] = b.w;
     }
-    ln_dx(dx, dl, xh, g, rstd, lane);
-    ln_load_bf16(r, dy + (long long)row * kLD, lane);
+    ln_dx<D>(dx, dl, xh, g, rstd, lane);
+    ln_load_bf16<D>(r, dy + (long long)row * D, lane);
 #pragma unroll
     for (int i = 0; i < kLPer; ++i) {
       r[i] += dx[i];
       acc[0][i] += dl[i] * xh[i];
       acc[1][i] += dl[i];
     }
-    ln_store_bf16(dx_out + (long long)row * kLD, r, lane);
+    ln_store_bf16<D>(dx_out + (long long)row * D, r, lane);
   }
-  block_colsums(acc, 2, part, red);
+  block_colsums<D>(acc, 2, part, red);
 }
 
 static cudaError_t launch_ln_post_bwd(const bf16* op, const bf16* dy, const float* g,
-                                      bf16* dop, float* part, float* dvec, int M,
+                                      bf16* dop, float* part, float* dvec, int M, int D,
                                       Dropout drop, cudaStream_t st) {
   const int nblk = (M + kLRows - 1) / kLRows;
-  ln_post_bwd_kernel<<<nblk, 256, 0, st>>>(op, dy, g, dop, part, M, drop);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = with_decoder_width(D, [&](auto w) {
+    ln_post_bwd_kernel<decltype(w)::value><<<nblk, 256, 0, st>>>(op, dy, g, dop, part, M, drop);
+  });
   if (err != cudaSuccess) return err;
   // rows 6, 7 (dG_post, dB_post) and 3 (dB_out) of dvec
-  err = launch_reduce(part, nblk, 3 * kLD, 2 * kLD, dvec + 6 * kLD, nullptr, st);
+  err = launch_reduce(part, nblk, 3 * D, 2 * D, dvec + 6 * D, nullptr, st);
   if (err != cudaSuccess) return err;
-  return launch_reduce(part + 2 * kLD, nblk, 3 * kLD, kLD, dvec + 3 * kLD, nullptr, st);
+  return launch_reduce(part + 2 * D, nblk, 3 * D, D, dvec + 3 * D, nullptr, st);
 }
 
 static cudaError_t launch_ln_pre_bwd(const bf16* x, const float* dxl, const bf16* dy,
                                      const float* g, bf16* dx, float* part, float* dvec,
-                                     int M, cudaStream_t st) {
+                                     int M, int D, cudaStream_t st) {
   const int nblk = (M + kLRows - 1) / kLRows;
-  ln_pre_bwd_kernel<<<nblk, 256, 0, st>>>(x, dxl, dy, g, dx, part, M);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = with_decoder_width(D, [&](auto w) {
+    ln_pre_bwd_kernel<decltype(w)::value><<<nblk, 256, 0, st>>>(x, dxl, dy, g, dx, part, M);
+  });
   if (err != cudaSuccess) return err;
   // rows 4, 5 (dG_pre, dB_pre) of dvec
-  return launch_reduce(part, nblk, 3 * kLD, 2 * kLD, dvec + 4 * kLD, nullptr, st);
+  return launch_reduce(part, nblk, 3 * D, 2 * D, dvec + 4 * D, nullptr, st);
 }
 
 }  // namespace crog
@@ -268,14 +283,14 @@ extern "C" int crog_self_block_bwd(void* const* t, int B, int L, int D, int head
                                    float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int dh = crog::attn_head_dim(D, heads);
-  if (D != crog::kLD || dh == 0) return (int)cudaErrorInvalidValue;
+  if (!crog::decoder_width_ok(D) || dh == 0) return (int)cudaErrorInvalidValue;
   const int M = B * L;
   const long long DD = (long long)D * D;
   const bf16* wi = P<const bf16>(t, 1);
   float* dvec = P<float>(t, 15);
   float* lnpart = P<float>(t, 25);
   CROG_TRY(crog::launch_ln_post_bwd(P<bf16>(t, 10), P<bf16>(t, 11), P<float>(t, 4),
-                                    P<bf16>(t, 16), lnpart, dvec, M,
+                                    P<bf16>(t, 16), lnpart, dvec, M, D,
                                     crog::Dropout{seed, thresh, scale}, st));
   CROG_TRY(crog::launch_gemm_nn<1, false>(  // dO
       dense_t(P<bf16>(t, 16), P<bf16>(t, 2), M, D, P<bf16>(t, 17)), D, st));
@@ -308,7 +323,7 @@ extern "C" int crog_self_block_bwd(void* const* t, int B, int L, int D, int head
   g.cf = dxl;
   CROG_TRY(crog::launch_gemm_nn<3, true>(g, D, st));
   CROG_TRY(crog::launch_ln_pre_bwd(P<bf16>(t, 0), dxl, P<bf16>(t, 11), P<float>(t, 3),
-                                   P<bf16>(t, 12), lnpart, dvec, M, st));
+                                   P<bf16>(t, 12), lnpart, dvec, M, D, st));
   bf16* dwi = P<bf16>(t, 13);
   float* wpart = P<float>(t, 23);
   float* cpart = P<float>(t, 24);
@@ -336,7 +351,7 @@ extern "C" int crog_cross_block_bwd(void* const* t, int B, int L, int T, int D,
                                     unsigned thresh, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int dh = crog::attn_head_dim(D, heads);
-  if (D != crog::kLD || dh == 0) return (int)cudaErrorInvalidValue;
+  if (!crog::decoder_width_ok(D) || dh == 0) return (int)cudaErrorInvalidValue;
   const int M = B * L;
   const int MT = B * T;
   const long long DD = (long long)D * D;
@@ -344,7 +359,7 @@ extern "C" int crog_cross_block_bwd(void* const* t, int B, int L, int T, int D,
   float* dvec = P<float>(t, 19);
   float* lnpart = P<float>(t, 29);
   CROG_TRY(crog::launch_ln_post_bwd(P<bf16>(t, 13), P<bf16>(t, 14), P<float>(t, 6),
-                                    P<bf16>(t, 20), lnpart, dvec, M,
+                                    P<bf16>(t, 20), lnpart, dvec, M, D,
                                     crog::Dropout{seed, thresh, scale}, st));
   CROG_TRY(crog::launch_gemm_nn<1, false>(  // dO
       dense_t(P<bf16>(t, 20), P<bf16>(t, 4), M, D, P<bf16>(t, 21)), D, st));
@@ -378,7 +393,7 @@ extern "C" int crog_cross_block_bwd(void* const* t, int B, int L, int T, int D,
   g.cb = P<bf16>(t, 16);
   CROG_TRY(crog::launch_gemm_nn<2, false>(g, D, st));
   CROG_TRY(crog::launch_ln_pre_bwd(P<bf16>(t, 0), dxl, P<bf16>(t, 14), P<float>(t, 5),
-                                   P<bf16>(t, 15), lnpart, dvec, M, st));
+                                   P<bf16>(t, 15), lnpart, dvec, M, D, st));
   bf16* dwi = P<bf16>(t, 17);
   float* wpart = P<float>(t, 27);
   float* cpart = P<float>(t, 28);

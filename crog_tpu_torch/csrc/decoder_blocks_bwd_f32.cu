@@ -15,7 +15,7 @@
 // Bound on an H100 at the main path (B=24, 676 tokens, D 512, 8 heads of
 // 64, 17 text tokens; ops/work.py, 3xTF32 at a third of TF32's 495
 // TFLOP/s): K2b 124 GFLOP, about 0.75 ms; K3b 36 GFLOP, about 0.22 ms;
-// both bound by the products.
+// both bound by the products.  At D 1024 about 2.2x K2-f32's 181 GFLOP.
 //
 // Design: a sequence of launches per block over the intermediates the
 // fp32 forward (decoder_blocks_f32.cu) saved (xl, qin, q/k/v, o and the
@@ -51,26 +51,27 @@
 // the dW over the B*T text rows), one partial per chunk summed in chunk
 // order into the output (grad_f32.cuh reduce_parts): no atomics, two
 // calls give the same bits.
-// The LayerNorm kernels take a 512-wide row at a time with 64 threads of
-// 8 columns each (grad_f32.cuh RowBlock), over 32 rows per CTA.
+// The LayerNorm kernels take a D-wide row at a time with D / 8 threads of
+// 8 columns each (grad_f32.cuh RowBlock: 32 to 128 threads at D 256 to
+// 1024, one build per width), over 32 rows per CTA.  D is a run-time value
+// of every product.
 #include "attention_bwd_f32.cuh"
 #include "gemm_wgmma_f32.cuh"
 #include "grad_f32.cuh"
 
 namespace crog {
 
-constexpr int kBwdD = 512;
 constexpr int kLnBwdRows = 32;  // rows per CTA of the LayerNorm kernels
-using LnRows = RowBlock<kBwdD>;
 
 inline int ln_bwd_blocks(int rows) { return (rows + kLnBwdRows - 1) / kLnBwdRows; }
 
 // 1. dop = LN backward of drop(dy) at op's x-hat; part [blocks][3][D] of
 // (dG_post, dB_post, dB_out) = (sum drop(dy) xhat, sum drop(dy), sum dop)
-__global__ void __launch_bounds__(LnRows::kThreads) ln_post_bwd_f32_kernel(
+template <int D>
+__global__ void __launch_bounds__(RowBlock<D>::kThreads) ln_post_bwd_f32_kernel(
     const float* __restrict__ op, const float* __restrict__ dy, const float* __restrict__ g,
     Dropout drop, float* __restrict__ dop, float* __restrict__ part, int rows) {
-  __shared__ float red[2 * LnRows::kWarps];
+  __shared__ float red[2 * RowBlock<D>::kWarps];
   float acc[3][8];
 #pragma unroll
   for (int q = 0; q < 3; ++q)
@@ -79,16 +80,16 @@ __global__ void __launch_bounds__(LnRows::kThreads) ln_post_bwd_f32_kernel(
   const int r0 = blockIdx.x * kLnBwdRows, r1 = min(rows, r0 + kLnBwdRows);
   for (int r = r0; r < r1; ++r) {
     float xh[8], d[8], dx[8];
-    rb_load<kBwdD>(op + (long long)r * kBwdD, xh);
-    const float rstd = rb_xhat<kBwdD>(xh, red);
-    rb_load<kBwdD>(dy + (long long)r * kBwdD, d);
+    rb_load<D>(op + (long long)r * D, xh);
+    const float rstd = rb_xhat<D>(xh, red);
+    rb_load<D>(dy + (long long)r * D, d);
     if (drop.thresh != 0u) {
 #pragma unroll
       for (int e = 0; e < 8; ++e)
-        d[e] = dropout_keep(drop, r, rb_col<kBwdD>(e)) ? d[e] * drop.scale : 0.0f;
+        d[e] = dropout_keep(drop, r, rb_col<D>(e)) ? d[e] * drop.scale : 0.0f;
     }
-    rb_ln_dx<kBwdD>(dx, d, xh, g, rstd, red);
-    rb_store<kBwdD>(dop + (long long)r * kBwdD, dx);
+    rb_ln_dx<D>(dx, d, xh, g, rstd, red);
+    rb_store<D>(dop + (long long)r * D, dx);
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       acc[0][e] += d[e] * xh[e];
@@ -96,16 +97,17 @@ __global__ void __launch_bounds__(LnRows::kThreads) ln_post_bwd_f32_kernel(
       acc[2][e] += dx[e];
     }
   }
-  rb_store_parts<kBwdD, 3>(acc, part);
+  rb_store_parts<D, 3>(acc, part);
 }
 
 // 5. dx = dy + LN backward of dxl at x's x-hat; part [blocks][2][D] of
 // (dG_pre, dB_pre) = (sum dxl xhat, sum dxl)
-__global__ void __launch_bounds__(LnRows::kThreads) ln_pre_bwd_f32_kernel(
+template <int D>
+__global__ void __launch_bounds__(RowBlock<D>::kThreads) ln_pre_bwd_f32_kernel(
     const float* __restrict__ x, const float* __restrict__ dxl, const float* __restrict__ dy,
     const float* __restrict__ g, float* __restrict__ dx_out, float* __restrict__ part,
     int rows) {
-  __shared__ float red[2 * LnRows::kWarps];
+  __shared__ float red[2 * RowBlock<D>::kWarps];
   float acc[2][8];
 #pragma unroll
   for (int q = 0; q < 2; ++q)
@@ -114,43 +116,47 @@ __global__ void __launch_bounds__(LnRows::kThreads) ln_pre_bwd_f32_kernel(
   const int r0 = blockIdx.x * kLnBwdRows, r1 = min(rows, r0 + kLnBwdRows);
   for (int r = r0; r < r1; ++r) {
     float xh[8], dl[8], dx[8], res[8];
-    rb_load<kBwdD>(x + (long long)r * kBwdD, xh);
-    const float rstd = rb_xhat<kBwdD>(xh, red);
-    rb_load<kBwdD>(dxl + (long long)r * kBwdD, dl);
-    rb_ln_dx<kBwdD>(dx, dl, xh, g, rstd, red);
-    rb_load<kBwdD>(dy + (long long)r * kBwdD, res);
+    rb_load<D>(x + (long long)r * D, xh);
+    const float rstd = rb_xhat<D>(xh, red);
+    rb_load<D>(dxl + (long long)r * D, dl);
+    rb_ln_dx<D>(dx, dl, xh, g, rstd, red);
+    rb_load<D>(dy + (long long)r * D, res);
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       res[e] += dx[e];
       acc[0][e] += dl[e] * xh[e];
       acc[1][e] += dl[e];
     }
-    rb_store<kBwdD>(dx_out + (long long)r * kBwdD, res);
+    rb_store<D>(dx_out + (long long)r * D, res);
   }
-  rb_store_parts<kBwdD, 2>(acc, part);
+  rb_store_parts<D, 2>(acc, part);
 }
 
 // dvec rows: 0-2 d b_q, b_k, b_v; 3 d b_out; 4, 5 d g_pre, b_pre; 6, 7 d
 // g_post, b_post
 static cudaError_t ln_post_bwd(const float* op, const float* dy, const float* g, Dropout drop,
-                               float* dop, float* lnpart, float* dvec, int m, cudaStream_t s) {
+                               float* dop, float* lnpart, float* dvec, int m, int d,
+                               cudaStream_t s) {
   const int nb = ln_bwd_blocks(m);
-  ln_post_bwd_f32_kernel<<<nb, LnRows::kThreads, 0, s>>>(op, dy, g, drop, dop, lnpart, m);
-  cudaError_t err = cudaGetLastError();
-  if (err == cudaSuccess)
-    err = reduce_parts(lnpart, nb, 3 * kBwdD, 2 * kBwdD, dvec + 6 * kBwdD, s);
-  if (err == cudaSuccess)
-    err = reduce_parts(lnpart + 2 * kBwdD, nb, 3 * kBwdD, kBwdD, dvec + 3 * kBwdD, s);
+  cudaError_t err = with_decoder_width(d, [&](auto w) {
+    constexpr int D = decltype(w)::value;
+    ln_post_bwd_f32_kernel<D><<<nb, RowBlock<D>::kThreads, 0, s>>>(op, dy, g, drop, dop, lnpart,
+                                                                   m);
+  });
+  if (err == cudaSuccess) err = reduce_parts(lnpart, nb, 3 * d, 2 * d, dvec + 6 * d, s);
+  if (err == cudaSuccess) err = reduce_parts(lnpart + 2 * d, nb, 3 * d, d, dvec + 3 * d, s);
   return err;
 }
 
 static cudaError_t ln_pre_bwd(const float* x, const float* dxl, const float* dy, const float* g,
-                              float* dx, float* lnpart, float* dvec, int m, cudaStream_t s) {
+                              float* dx, float* lnpart, float* dvec, int m, int d,
+                              cudaStream_t s) {
   const int nb = ln_bwd_blocks(m);
-  ln_pre_bwd_f32_kernel<<<nb, LnRows::kThreads, 0, s>>>(x, dxl, dy, g, dx, lnpart, m);
-  cudaError_t err = cudaGetLastError();
-  if (err == cudaSuccess)
-    err = reduce_parts(lnpart, nb, 2 * kBwdD, 2 * kBwdD, dvec + 4 * kBwdD, s);
+  cudaError_t err = with_decoder_width(d, [&](auto w) {
+    constexpr int D = decltype(w)::value;
+    ln_pre_bwd_f32_kernel<D><<<nb, RowBlock<D>::kThreads, 0, s>>>(x, dxl, dy, g, dx, lnpart, m);
+  });
+  if (err == cudaSuccess) err = reduce_parts(lnpart, nb, 2 * d, 2 * d, dvec + 4 * d, s);
   return err;
 }
 
@@ -189,23 +195,23 @@ static cudaError_t bwd_product(const float* a, long long lda, const float* plane
   return reduce_parts(part, chunks, mn, mn, c, s);
 }
 
-// c [m, D] = a w over k: a [m, k] (row stride lda), w [k, D] read with its
+// c [m, d] = a w over k: a [m, k] (row stride lda), w [k, d] read with its
 // rows as K (a torch Linear weight's input gradient); dO, dX, d(txt)
 template <int PRODUCT>
 static cudaError_t bwd_weight(const float* a, long long lda, const float* w, float* planes,
-                              float* c, float* part, int m, int k, cudaStream_t s) {
-  cudaError_t err = gw_split_b_planes<true, PRODUCT>(w, planes, kBwdD, k, s);
+                              float* c, float* part, int m, int k, int d, cudaStream_t s) {
+  cudaError_t err = gw_split_b_planes<true, PRODUCT>(w, planes, d, k, s);
   if (err != cudaSuccess) return err;
-  return bwd_product<false, PRODUCT>(a, lda, planes, c, kBwdD, part, m, kBwdD, k, s);
+  return bwd_product<false, PRODUCT>(a, lda, planes, c, d, part, m, d, k, s);
 }
 
-// dw [n, D] = dy^T x over `rows` batch rows: dy [rows, n] (row stride
-// ldy), x [rows, D] (an activation, D wide)
+// dw [n, d] = dy^T x over `rows` batch rows: dy [rows, n] (row stride
+// ldy), x [rows, d] (an activation, d wide)
 static cudaError_t bwd_dw(const float* dy, long long ldy, const float* x, float* planes,
-                          float* dw, float* part, int n, int rows, cudaStream_t s) {
-  cudaError_t err = gw_split_b_planes<true, kProdDW>(x, planes, kBwdD, rows, s);
+                          float* dw, float* part, int n, int rows, int d, cudaStream_t s) {
+  cudaError_t err = gw_split_b_planes<true, kProdDW>(x, planes, d, rows, s);
   if (err != cudaSuccess) return err;
-  return bwd_product<true, kProdDW>(dy, ldy, planes, dw, kBwdD, part, n, kBwdD, rows, s);
+  return bwd_product<true, kProdDW>(dy, ldy, planes, dw, d, part, n, d, rows, s);
 }
 
 static AttnBwdF32Args attn_args(int heads, int dh, int lq, int lk) {
@@ -246,7 +252,7 @@ extern "C" int crog_self_block_f32_bwd(void* const* t, int b, int l, int d, int 
                                        void* stream) {
   using namespace crog;
   const int dh = attn_head_dim(d, heads);
-  if (d != kBwdD || dh == 0 || l < 1 || b < 1)
+  if (!decoder_width_ok(d) || dh == 0 || l < 1 || b < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m = b * l;
@@ -259,8 +265,9 @@ extern "C" int crog_self_block_f32_bwd(void* const* t, int b, int l, int d, int 
         *part = P(t, 21), *lnpart = P(t, 22), *cpart = P(t, 23), *dqpart = P(t, 24),
         *planes = P(t, 25);
 
-  CROG_TRY(ln_post_bwd(op, dy, g_post, Dropout{seed, thresh, scale}, dop, lnpart, dvec, m, s));
-  CROG_TRY(bwd_weight<kProdDO>(dop, d, wo, planes, dO, part, m, d, s));
+  CROG_TRY(ln_post_bwd(op, dy, g_post, Dropout{seed, thresh, scale}, dop, lnpart, dvec, m, d,
+                       s));
+  CROG_TRY(bwd_weight<kProdDO>(dop, d, wo, planes, dO, part, m, d, d, s));
   AttnBwdF32Args a = attn_args(heads, dh, l, l);
   a.q = qk;
   a.k = qk + d;
@@ -280,12 +287,12 @@ extern "C" int crog_self_block_f32_bwd(void* const* t, int b, int l, int d, int 
   a.dq_bs = a.dk_bs = a.dv_bs = (long long)l * 3 * d;
   a.dq_rs = a.dk_rs = a.dv_rs = 3 * d;
   CROG_TRY(launch_attention_bwd_f32(a, b, s));
-  CROG_TRY(bwd_weight<kProdDX>(dqkv, 3 * d, wi, planes, dxl, part, m, 3 * d, s));
-  CROG_TRY(ln_pre_bwd(x, dxl, dy, g_pre, dx, lnpart, dvec, m, s));
+  CROG_TRY(bwd_weight<kProdDX>(dqkv, 3 * d, wi, planes, dxl, part, m, 3 * d, d, s));
+  CROG_TRY(ln_pre_bwd(x, dxl, dy, g_pre, dx, lnpart, dvec, m, d, s));
   // d in_w: rows [0, 2D) = [dq dk]^T qin, rows [2D, 3D) = dv^T xl
-  CROG_TRY(bwd_dw(dqkv, 3 * d, qin, planes, dwi, part, 2 * d, m, s));
-  CROG_TRY(bwd_dw(dqkv + 2 * d, 3 * d, xl, planes, dwi + 2 * dd, part, d, m, s));
-  CROG_TRY(bwd_dw(dop, d, o, planes, dwo, part, d, m, s));
+  CROG_TRY(bwd_dw(dqkv, 3 * d, qin, planes, dwi, part, 2 * d, m, d, s));
+  CROG_TRY(bwd_dw(dqkv + 2 * d, 3 * d, xl, planes, dwi + 2 * dd, part, d, m, d, s));
+  CROG_TRY(bwd_dw(dop, d, o, planes, dwo, part, d, m, d, s));
   CROG_TRY(colsum_f32(dqkv, 3 * d, m, 3 * d, cpart, dvec, s));
   return 0;
 }
@@ -304,7 +311,7 @@ extern "C" int crog_cross_block_f32_bwd(void* const* t, int b, int l, int tt, in
                                         void* stream) {
   using namespace crog;
   const int dh = attn_head_dim(d, heads);
-  if (d != kBwdD || dh == 0 || l < 1 || tt < 1 || b < 1)
+  if (!decoder_width_ok(d) || dh == 0 || l < 1 || tt < 1 || b < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m = b * l, mt = b * tt;
@@ -317,8 +324,9 @@ extern "C" int crog_cross_block_f32_bwd(void* const* t, int b, int l, int tt, in
         *stats = P(t, 25), *part = P(t, 26), *lnpart = P(t, 27), *cpart = P(t, 28),
         *dqpart = P(t, 29), *planes = P(t, 30);
 
-  CROG_TRY(ln_post_bwd(op, dy, g_post, Dropout{seed, thresh, scale}, dop, lnpart, dvec, m, s));
-  CROG_TRY(bwd_weight<kProdDO>(dop, d, wo, planes, dO, part, m, d, s));
+  CROG_TRY(ln_post_bwd(op, dy, g_post, Dropout{seed, thresh, scale}, dop, lnpart, dvec, m, d,
+                       s));
+  CROG_TRY(bwd_weight<kProdDO>(dop, d, wo, planes, dO, part, m, d, d, s));
   AttnBwdF32Args a = attn_args(heads, dh, l, tt);
   a.q = q;
   a.k = k;
@@ -337,13 +345,13 @@ extern "C" int crog_cross_block_f32_bwd(void* const* t, int b, int l, int tt, in
   a.q_rs = a.k_rs = a.v_rs = a.o_rs = a.do_rs = a.dq_rs = d;
   a.dk_rs = a.dv_rs = 2 * d;
   CROG_TRY(launch_attention_bwd_f32(a, b, s));
-  CROG_TRY(bwd_weight<kProdDX>(dq, d, wi, planes, dxl, part, m, d, s));
-  CROG_TRY(bwd_weight<kProdDX>(dkv2, 2 * d, wi + dd, planes, dkv, part, mt, 2 * d, s));
-  CROG_TRY(ln_pre_bwd(x, dxl, dy, g_pre, dx, lnpart, dvec, m, s));
-  CROG_TRY(bwd_dw(dq, d, qin, planes, dwi, part, d, m, s));
-  CROG_TRY(bwd_dw(dkv2, 2 * d, kin, planes, dwi + dd, part, d, mt, s));
-  CROG_TRY(bwd_dw(dkv2 + d, 2 * d, kv, planes, dwi + 2 * dd, part, d, mt, s));
-  CROG_TRY(bwd_dw(dop, d, o, planes, dwo, part, d, m, s));
+  CROG_TRY(bwd_weight<kProdDX>(dq, d, wi, planes, dxl, part, m, d, d, s));
+  CROG_TRY(bwd_weight<kProdDX>(dkv2, 2 * d, wi + dd, planes, dkv, part, mt, 2 * d, d, s));
+  CROG_TRY(ln_pre_bwd(x, dxl, dy, g_pre, dx, lnpart, dvec, m, d, s));
+  CROG_TRY(bwd_dw(dq, d, qin, planes, dwi, part, d, m, d, s));
+  CROG_TRY(bwd_dw(dkv2, 2 * d, kin, planes, dwi + dd, part, d, mt, d, s));
+  CROG_TRY(bwd_dw(dkv2 + d, 2 * d, kv, planes, dwi + 2 * dd, part, d, mt, d, s));
+  CROG_TRY(bwd_dw(dop, d, o, planes, dwo, part, d, m, d, s));
   CROG_TRY(colsum_f32(dq, d, m, d, cpart, dvec, s));
   CROG_TRY(colsum_f32(dkv2, 2 * d, mt, 2 * d, cpart, dvec + d, s));
   return 0;

@@ -14,7 +14,11 @@
 // 64, 17 text tokens): K2 is 56.5 GFLOP (the four projections 34, the
 // attention 22.5), about 0.34 ms at 3xTF32's third of TF32's 495
 // TFLOP/s; K3 18 GFLOP, about 0.11 ms; x and y are 66 MB (20 us), so
-// operations bound both.
+// operations bound both.  At D 1024 (8 heads of 128): 181 and 71 GFLOP.
+//
+// D is a run-time value of the products (any of decoder_width_ok's 256,
+// 512, 768 and 1024) and a template argument of the two row kernels (a
+// lane holds D / 32 floats), built for each width.
 //
 // Design: a few launches per block, every intermediate [M, D] in device
 // memory (K2b-f32 / K3b-f32 read xl, qin, the q/k/v products, o and op):
@@ -40,50 +44,49 @@
 
 namespace crog {
 
-constexpr int kBlkD = 512;
-
 // xl = LN(x) * g + b when LN (else xl = x); qin = xl + pos[row % period];
 // xl is stored only where xl_out is not null
-template <bool LN>
+template <int D, bool LN>
 __global__ void __launch_bounds__(kLnF32Warps * 32)
     ln_pos_f32_kernel(const float* x, const float* g, const float* bt, const float* pos,
                       int period, float* xl_out, float* qin, int rows) {
   const int r = blockIdx.x * kLnF32Warps + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (r >= rows) return;
-  float4 v[kBlkD / 128];
-  ln_load<kBlkD>(x + (long long)r * kBlkD, v, lane);
+  float4 v[D / 128];
+  ln_load<D>(x + (long long)r * D, v, lane);
   if (LN) {
     float mu, rstd;
-    ln_stats<kBlkD>(v, mu, rstd);
-    ln_apply<kBlkD>(v, mu, rstd, g, bt, lane);
-    if (xl_out != nullptr) ln_store<kBlkD>(xl_out + (long long)r * kBlkD, v, lane);
+    ln_stats<D>(v, mu, rstd);
+    ln_apply<D>(v, mu, rstd, g, bt, lane);
+    if (xl_out != nullptr) ln_store<D>(xl_out + (long long)r * D, v, lane);
   }
-  float4 p[kBlkD / 128];
-  ln_load<kBlkD>(pos + (long long)(r % period) * kBlkD, p, lane);
+  float4 p[D / 128];
+  ln_load<D>(pos + (long long)(r % period) * D, p, lane);
 #pragma unroll
-  for (int i = 0; i < kBlkD / 128; ++i) {
+  for (int i = 0; i < D / 128; ++i) {
     v[i].x += p[i].x;
     v[i].y += p[i].y;
     v[i].z += p[i].z;
     v[i].w += p[i].w;
   }
-  ln_store<kBlkD>(qin + (long long)r * kBlkD, v, lane);
+  ln_store<D>(qin + (long long)r * D, v, lane);
 }
 
 // y = x + drop(LN(op) * g + b)
+template <int D>
 __global__ void __launch_bounds__(kLnF32Warps * 32)
     ln_residual_f32_kernel(const float* op, const float* x, const float* g, const float* bt,
                            Dropout drop, float* y, int rows) {
   const int r = blockIdx.x * kLnF32Warps + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (r >= rows) return;
-  float4 v[kBlkD / 128], xr[kBlkD / 128];
-  ln_load<kBlkD>(op + (long long)r * kBlkD, v, lane);
-  ln_load<kBlkD>(x + (long long)r * kBlkD, xr, lane);
+  float4 v[D / 128], xr[D / 128];
+  ln_load<D>(op + (long long)r * D, v, lane);
+  ln_load<D>(x + (long long)r * D, xr, lane);
   float mu, rstd;
-  ln_stats<kBlkD>(v, mu, rstd);
-  ln_apply<kBlkD>(v, mu, rstd, g, bt, lane);
+  ln_stats<D>(v, mu, rstd);
+  ln_apply<D>(v, mu, rstd, g, bt, lane);
 #pragma unroll
-  for (int i = 0; i < kBlkD / 128; ++i) {
+  for (int i = 0; i < D / 128; ++i) {
     float e[4] = {v[i].x, v[i].y, v[i].z, v[i].w};
     const float xs[4] = {xr[i].x, xr[i].y, xr[i].z, xr[i].w};
     const int c0 = 4 * (lane + 32 * i);
@@ -94,17 +97,37 @@ __global__ void __launch_bounds__(kLnF32Warps * 32)
     }
     v[i] = make_float4(e[0], e[1], e[2], e[3]);
   }
-  ln_store<kBlkD>(y + (long long)r * kBlkD, v, lane);
+  ln_store<D>(y + (long long)r * D, v, lane);
 }
 
 static int row_blocks(int rows) { return (rows + kLnF32Warps - 1) / kLnF32Warps; }
 
-// c = a W^T + bias over m rows, a [m, D] and W [n, D] as stored (rows of
-// in_w or out_w), W split first into its planes at `planes` (2 n D floats)
+// xl = LN_pre(x) (stored where xl is not null), qin = xl + pos[row % l] over
+// m rows of width d; without LN (the cross block's kin = txt + tpos) x as is
+template <bool LN>
+static cudaError_t ln_pos(const float* x, const float* g, const float* bt, const float* pos,
+                          int l, float* xl, float* qin, int m, int d, cudaStream_t s) {
+  return with_decoder_width(d, [&](auto w) {
+    ln_pos_f32_kernel<decltype(w)::value, LN><<<row_blocks(m), kLnF32Warps * 32, 0, s>>>(
+        x, g, bt, pos, l, xl, qin, m);
+  });
+}
+
+// y = x + drop(LN_post(op)) over m rows of width d
+static cudaError_t ln_residual(const float* op, const float* x, const float* g, const float* bt,
+                               Dropout drop, float* y, int m, int d, cudaStream_t s) {
+  return with_decoder_width(d, [&](auto w) {
+    ln_residual_f32_kernel<decltype(w)::value><<<row_blocks(m), kLnF32Warps * 32, 0, s>>>(
+        op, x, g, bt, drop, y, m);
+  });
+}
+
+// c = a W^T + bias over m rows, a [m, d] and W [n, d] as stored (rows of
+// in_w or out_w), W split first into its planes at `planes` (2 n d floats)
 template <int PRODUCT>
 static cudaError_t gemm(const float* a, const float* w, float* planes, const float* bias,
-                        float* c, int m, int n, long long ldc, cudaStream_t s) {
-  return gw_weight_gemm<false, kGwBias, PRODUCT>(a, kBlkD, w, planes, c, ldc, bias, m, n, kBlkD,
+                        float* c, int m, int n, long long ldc, int d, cudaStream_t s) {
+  return gw_weight_gemm<false, kGwBias, PRODUCT>(a, d, w, planes, c, ldc, bias, m, n, d,
                                                  Dropout{0u, 0u, 1.0f}, s);
 }
 
@@ -119,7 +142,7 @@ extern "C" int crog_self_block_f32_fwd(const void* const* table, int b, int l, i
                                        void* stream) {
   using namespace crog;
   const int dh = attn_head_dim(d, heads);
-  if (d != kBlkD || dh == 0 || l < 1 || b < 1)
+  if (!decoder_width_ok(d) || dh == 0 || l < 1 || b < 1)
     return (int)cudaErrorInvalidValue;
   auto in = [&](int i) { return static_cast<const float*>(table[i]); };
   auto out = [&](int i) { return static_cast<float*>(const_cast<void*>(table[i])); };
@@ -131,12 +154,11 @@ extern "C" int crog_self_block_f32_fwd(const void* const* table, int b, int l, i
   const int m = b * l;
   const long long dd = (long long)d * d;
 
-  ln_pos_f32_kernel<true><<<row_blocks(m), kLnF32Warps * 32, 0, s>>>(x, g_pre, b_pre, pos, l,
-                                                                       xl, qin, m);
-  cudaError_t err = cudaGetLastError();
-  if (err == cudaSuccess) err = gemm<kProdProj>(qin, in_w, planes, in_b, qk, m, 2 * d, 2 * d, s);
+  cudaError_t err = ln_pos<true>(x, g_pre, b_pre, pos, l, xl, qin, m, d, s);
   if (err == cudaSuccess)
-    err = gemm<kProdProj>(xl, in_w + 2 * dd, planes + 4 * dd, in_b + 2 * d, v, m, d, d, s);
+    err = gemm<kProdProj>(qin, in_w, planes, in_b, qk, m, 2 * d, 2 * d, d, s);
+  if (err == cudaSuccess)
+    err = gemm<kProdProj>(xl, in_w + 2 * dd, planes + 4 * dd, in_b + 2 * d, v, m, d, d, d, s);
   if (err != cudaSuccess) return (int)err;
   AttnF32Args a;
   a.q = qk;
@@ -155,11 +177,9 @@ extern "C" int crog_self_block_f32_fwd(const void* const* table, int b, int l, i
   a.scale = attn_scale(dh);
   err = launch_attention_f32(a, b, s);
   if (err == cudaSuccess)
-    err = gemm<kProdOut>(o, out_w, planes + 6 * dd, out_b, op, m, d, d, s);
+    err = gemm<kProdOut>(o, out_w, planes + 6 * dd, out_b, op, m, d, d, d, s);
   if (err != cudaSuccess) return (int)err;
-  ln_residual_f32_kernel<<<row_blocks(m), kLnF32Warps * 32, 0, s>>>(
-      op, x, g_post, b_post, Dropout{seed, thresh, scale}, y, m);
-  return (int)cudaGetLastError();
+  return (int)ln_residual(op, x, g_post, b_post, Dropout{seed, thresh, scale}, y, m, d, s);
 }
 
 // table: x [B, L, D], txt [B, T, D], pos [L, D], tpos [T, D], mask [B, T]
@@ -171,7 +191,7 @@ extern "C" int crog_cross_block_f32_fwd(const void* const* table, int b, int l, 
                                         void* stream) {
   using namespace crog;
   const int dh = attn_head_dim(d, heads);
-  if (d != kBlkD || dh == 0 || l < 1 || t < 1 || b < 1)
+  if (!decoder_width_ok(d) || dh == 0 || l < 1 || t < 1 || b < 1)
     return (int)cudaErrorInvalidValue;
   auto in = [&](int i) { return static_cast<const float*>(table[i]); };
   auto out = [&](int i) { return static_cast<float*>(const_cast<void*>(table[i])); };
@@ -184,16 +204,14 @@ extern "C" int crog_cross_block_f32_fwd(const void* const* table, int b, int l, 
   const int m = b * l, mt = b * t;
   const long long dd = (long long)d * d;
 
-  ln_pos_f32_kernel<true><<<row_blocks(m), kLnF32Warps * 32, 0, s>>>(x, g_pre, b_pre, pos, l,
-                                                                       nullptr, qin, m);
-  ln_pos_f32_kernel<false><<<row_blocks(mt), kLnF32Warps * 32, 0, s>>>(
-      txt, nullptr, nullptr, tpos, t, nullptr, kin, mt);
-  cudaError_t err = cudaGetLastError();
-  if (err == cudaSuccess) err = gemm<kProdProj>(qin, in_w, planes, in_b, q, m, d, d, s);
+  cudaError_t err = ln_pos<true>(x, g_pre, b_pre, pos, l, nullptr, qin, m, d, s);
   if (err == cudaSuccess)
-    err = gemm<kProdProj>(kin, in_w + dd, planes + 2 * dd, in_b + d, k, mt, d, d, s);
+    err = ln_pos<false>(txt, nullptr, nullptr, tpos, t, nullptr, kin, mt, d, s);
+  if (err == cudaSuccess) err = gemm<kProdProj>(qin, in_w, planes, in_b, q, m, d, d, d, s);
   if (err == cudaSuccess)
-    err = gemm<kProdProj>(txt, in_w + 2 * dd, planes + 4 * dd, in_b + 2 * d, v, mt, d, d, s);
+    err = gemm<kProdProj>(kin, in_w + dd, planes + 2 * dd, in_b + d, k, mt, d, d, d, s);
+  if (err == cudaSuccess)
+    err = gemm<kProdProj>(txt, in_w + 2 * dd, planes + 4 * dd, in_b + 2 * d, v, mt, d, d, d, s);
   if (err != cudaSuccess) return (int)err;
   AttnF32Args a;
   a.q = q;
@@ -211,9 +229,7 @@ extern "C" int crog_cross_block_f32_fwd(const void* const* table, int b, int l, 
   a.scale = attn_scale(dh);
   err = launch_attention_f32(a, b, s);
   if (err == cudaSuccess)
-    err = gemm<kProdOut>(o, out_w, planes + 6 * dd, out_b, op, m, d, d, s);
+    err = gemm<kProdOut>(o, out_w, planes + 6 * dd, out_b, op, m, d, d, d, s);
   if (err != cudaSuccess) return (int)err;
-  ln_residual_f32_kernel<<<row_blocks(m), kLnF32Warps * 32, 0, s>>>(
-      op, x, g_post, b_post, Dropout{seed, thresh, scale}, y, m);
-  return (int)cudaGetLastError();
+  return (int)ln_residual(op, x, g_post, b_post, Dropout{seed, thresh, scale}, y, m, d, s);
 }

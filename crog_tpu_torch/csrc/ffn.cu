@@ -8,17 +8,18 @@
 //   hn = bf16(LN(h))         f32 statistics, flax fast variance
 //   y  = bf16(hn W2^T + b2)
 //
-// for x [M, 512] bf16, W1 [2048, 512], W2 [512, 2048] (torch Linear layout).
+// for x [M, D] bf16, W1 [2048, D], W2 [D, 2048] (torch Linear layout), D any
+// of decoder_width_ok's 256, 512, 768 or 1024.
 //
 // Bound on an H100 at B=24 (M = 24*676 = 16224): 68.0 GFLOP over 37 MB,
 // about 69 us, limited by the tensor cores; with hn written and read back
-// (2 x 66 MB) about 0.11 ms.
+// (2 x 66 MB) about 0.11 ms.  At D 1024: 136.1 GFLOP, 0.138 ms.
 //
 // Design.  The LayerNorm needs each row's statistics over all 2048 hidden
 // columns before any hn, and a [128, 2048] bf16 hidden does not fit one SM,
 // so the hidden is K4b's (ffn.cuh, the code K4b's recompute runs):
 //   ffn_fwd_hidden_kernel: a thread-block cluster of 8 CTAs takes 128 rows,
-//     CTA r hidden columns [256 r, 256 r + 256): the [128 x 256 x 512]
+//     CTA r hidden columns [256 r, 256 r + 256): the [128 x 256 x D]
 //     product on wgmma m64n128k16 fed by gemm.cuh's 4-stage cp.async ring
 //     (W1 passed transposed, so B is row-major along the hidden), bias,
 //     bf16, ReLU and dropout on the accumulators, h in shared memory, the LN
@@ -44,7 +45,7 @@ template <bool DROP>
 __global__ void __launch_bounds__(kGThreads, 1) ffn_fwd_hidden_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ w1t, const float* __restrict__ b1,
     const float* __restrict__ g, const float* __restrict__ be, bf16* __restrict__ hn_out, int M,
-    Dropout drop) {
+    int D, Dropout drop) {
   unsigned char* ring = gemm_smem_base();
   bf16* hs = reinterpret_cast<bf16*>(ring + kBRingBytes);  // h: [128][kBHLd]
   float* red = reinterpret_cast<float*>(ring + kBRingBytes + kHHBytes);
@@ -54,7 +55,7 @@ __global__ void __launch_bounds__(kGThreads, 1) ffn_fwd_hidden_kernel(
   const int n0 = (int)cluster_rank() * kBN;
   float acc[kBNT][4];
   uint32_t keep[2] = {0u, 0u};
-  ffn_hidden<DROP>(acc, keep, x, w1t, b1, m0, M, n0, drop, ring, hs, red, xch, rowst);
+  ffn_hidden<DROP>(acc, keep, x, w1t, b1, m0, M, D, n0, drop, ring, hs, red, xch, rowst);
   cluster_arrive();  // this CTA is done reading its peers' shared memory
   ffn_write_hn(hs, rowst, g, be, hn_out, m0, M, n0);
   cluster_wait();  // no CTA leaves while a peer may still read its exchange
@@ -77,16 +78,17 @@ static cudaError_t ffn_fwd_set_smem_once() {
 }  // namespace crog
 
 // t: table of device pointers, in order
-//   0 x [M, 512] bf16, 1 w1t [512, 2048] bf16 (W1 transposed), 2 b1,
-//   3 gamma, 4 beta [2048] f32, 5 w2t [2048, 512] bf16 (W2 transposed),
-//   6 b2 [512] f32; output 7 y [M, 512] bf16; workspace 8 hn [M, 2048] bf16.
+//   0 x [M, D] bf16, 1 w1t [D, 2048] bf16 (W1 transposed), 2 b1,
+//   3 gamma, 4 beta [2048] f32, 5 w2t [2048, D] bf16 (W2 transposed),
+//   6 b2 [D] f32; output 7 y [M, D] bf16; workspace 8 hn [M, 2048] bf16.
 // `tiles` row tiles of 128 (ops/ffn.py:fwd_schedule), one cluster each, and
 // the y GEMM over the same tiles.  Dropout on the hidden with (seed,
 // thresh, scale); thresh 0 is eval.
 extern "C" int crog_ffn_fwd(void* const* t, int M, int D, int F, int tiles, unsigned seed,
                             unsigned thresh, float scale, void* stream) {
   using crog::bf16;
-  if (D != crog::kBD || F != crog::kBF || M < 1 || tiles != (M + crog::kBM - 1) / crog::kBM)
+  if (!crog::decoder_width_ok(D) || F != crog::kBF || M < 1 ||
+      tiles != (M + crog::kBM - 1) / crog::kBM)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = crog::ffn_fwd_set_smem_once();
@@ -97,14 +99,14 @@ extern "C" int crog_ffn_fwd(void* const* t, int M, int D, int F, int tiles, unsi
   err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const bf16*>(t[0]),
                            static_cast<const bf16*>(t[1]), static_cast<const float*>(t[2]),
                            static_cast<const float*>(t[3]), static_cast<const float*>(t[4]),
-                           static_cast<bf16*>(t[8]), M, crog::Dropout{seed, thresh, scale});
+                           static_cast<bf16*>(t[8]), M, D, crog::Dropout{seed, thresh, scale});
   if (err != cudaSuccess) return (int)err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)crog::launch_ffn_out(static_cast<const bf16*>(t[8]),
                                    static_cast<const bf16*>(t[5]),
                                    static_cast<const float*>(t[6]), static_cast<bf16*>(t[7]),
-                                   M, tiles, st);
+                                   M, D, tiles, st);
 }
 
 // out[8]: the cluster kernel's (train variant) registers per thread, shared

@@ -10,6 +10,10 @@
 // bf16 after the bias, before ReLU and dropout, and again after the dropout
 // scale; the LN statistics in f32 over the bf16 hidden with the fast
 // variance E[h^2] - E[h]^2; hn rounded once.
+//
+// The model width D is a run-time value (decoder_width_ok's 256, 512, 768
+// or 1024): the hidden product's K, and the y / dx GEMM's D / 256 column
+// tiles.  The hidden width F is kBF.
 #pragma once
 
 #include "gemm.cuh"
@@ -17,7 +21,6 @@
 
 namespace crog {
 
-constexpr int kBD = 512;             // model width
 constexpr int kBF = 2048;            // hidden width
 constexpr int kBM = kGM;             // rows per cluster tile (ops/ffn.py BWD_ROWS)
 constexpr int kBCl = 8;              // CTAs per cluster
@@ -42,25 +45,24 @@ __device__ __forceinline__ int ffn_col(int nt) {
 }
 
 // The hidden of rows m0 .. m0 + 127, columns n0 .. n0 + 255 (CTA `rank` of
-// the tile's cluster): [128 x 256 x 512] on the mainloop, then on the
+// the tile's cluster): [128 x 256 x D] on the mainloop, then on the
 // accumulators the bias, bf16, ReLU and dropout (DROP: the mask bits of
 // element (ffn_row(hf), ffn_col(nt) + e) into bit 2 nt + e of keep[hf], for
 // K4b's backward), h into hs; the row partials of sum(h), sum(h^2) cross the
 // cluster and rowst[0..127] / rowst[128..255] get each row's mean and rstd.
-// w1t is W1 transposed, [512, 2048] row-major.  Leaves acc free.
+// w1t is W1 transposed, [D, 2048] row-major.  Leaves acc free.
 template <bool DROP>
 __device__ __forceinline__ void ffn_hidden(float (&acc)[kBNT][4], uint32_t (&keep)[2],
                                            const bf16* __restrict__ x,
                                            const bf16* __restrict__ w1t,
-                                           const float* __restrict__ b1, int m0, int M, int n0,
-                                           const Dropout& drop, unsigned char* ring, bf16* hs,
-                                           float* red, float* xch, float* rowst) {
+                                           const float* __restrict__ b1, int m0, int M, int D,
+                                           int n0, const Dropout& drop, unsigned char* ring,
+                                           bf16* hs, float* red, float* xch, float* rowst) {
   const int tid = threadIdx.x;
   const int wg = tid >> 7;
   const int qd = tid & 3;
   gemm_zero(acc);
-  gemm_mainloop<128, false, kGK>(acc, x, kBD, m0, M, w1t, kBF, n0, 0, kBD, ring,
-                                      NoChunkHook());
+  gemm_mainloop<128, false, kGK>(acc, x, D, m0, M, w1t, kBF, n0, 0, D, ring, NoChunkHook());
   const bool on = DROP && drop.thresh != 0u;
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
@@ -94,7 +96,7 @@ __device__ __forceinline__ void ffn_hidden(float (&acc)[kBNT][4], uint32_t (&kee
   }
   __syncthreads();
   {  // LN statistics of the whole rows, from the 8 CTAs' partials
-    const float2 tot = cluster_row_sums<kBCl>(red, xch);
+    const float2 tot = cluster_row_sums(red, xch, kBCl);
     if (tid < kBM) {
       const float mu = tot.x / kBF;
       rowst[tid] = mu;
@@ -129,9 +131,10 @@ __device__ __forceinline__ void ffn_write_hn(const bf16* hs, const float* rowst,
   }
 }
 
-// K4's y = bf16(hn W2^T + b2) (B = W2^T [2048, 512], bias b2) and K4b's dx =
-// bf16(dh W1) (B = W1 [2048, 512], no bias): a [128, 256] tile per CTA, K =
-// 2048, blockIdx.x the column tile, blockIdx.y the row tile
+// K4's y = bf16(hn W2^T + b2) (B = W2^T [2048, D], bias b2) and K4b's dx =
+// bf16(dh W1) (B = W1 [2048, D], no bias): a [128, 256] tile per CTA, K =
+// 2048, blockIdx.x the column tile (D / 256 of them), blockIdx.y the row
+// tile
 __global__ void __launch_bounds__(kGThreads, 1) ffn_out_kernel(GemmArgs g) {
   gemm_tile<128, 1, false>(g);
 }
@@ -142,9 +145,9 @@ static cudaError_t ffn_out_smem_once() {
   return attr;
 }
 
-// [M, 512] = bf16(A [M, 2048] B [2048, 512] (+ bias)) over `tiles` row tiles
+// [M, D] = bf16(A [M, 2048] B [2048, D] (+ bias)) over `tiles` row tiles
 static cudaError_t launch_ffn_out(const bf16* a, const bf16* b, const float* bias, bf16* out,
-                                  int M, int tiles, cudaStream_t st) {
+                                  int M, int D, int tiles, cudaStream_t st) {
   const cudaError_t err = ffn_out_smem_once();
   if (err != cudaSuccess) return err;
   GemmArgs g = {};
@@ -153,10 +156,10 @@ static cudaError_t launch_ffn_out(const bf16* a, const bf16* b, const float* bia
   g.bias = bias;
   g.cb = out;
   g.lda = kBF;
-  g.ldb = g.ldc = kBD;
+  g.ldb = g.ldc = D;
   g.M = M;
   g.K = kBF;
-  ffn_out_kernel<<<dim3(kBD / FfnOutRing::kN, tiles), kGThreads, FfnOutRing::kSmem, st>>>(g);
+  ffn_out_kernel<<<dim3(D / FfnOutRing::kN, tiles), kGThreads, FfnOutRing::kSmem, st>>>(g);
   return cudaGetLastError();
 }
 

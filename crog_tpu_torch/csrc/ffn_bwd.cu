@@ -20,7 +20,9 @@
 //
 // Bound on an H100 at M = 24*676 = 16224: 3 products of 2*M*512*2048 flops
 // (the hidden recompute, dhn, dx) = 102 GFLOP, over 2 x 66 MB of dh and hn
-// written plus 50 MB in: about 0.10 ms, limited by the tensor cores.
+// written plus 50 MB in: about 0.10 ms, limited by the tensor cores (twice
+// the products at D 1024).  D is a run-time value, any of
+// decoder_width_ok's 256, 512, 768 or 1024.
 //
 // Design.  The LN backward needs two row means over all 2048 columns of dhn
 // before any dh, and the LN forward two over h, so a row's whole hidden has
@@ -28,7 +30,7 @@
 // SM.  So:
 //   ffn_bwd_hidden_kernel: a thread-block cluster of 8 CTAs takes 128 rows;
 //     CTA r owns hidden columns [256 r, 256 r + 256).  Each CTA runs two
-//     [128 x 256 x 512] products on wgmma m64n128k16 (four warpgroups of 64
+//     [128 x 256 x D] products on wgmma m64n128k16 (four warpgroups of 64
 //     rows x 128 columns, f32 accumulators in registers; A, the x or dy
 //     rows, from registers by ldmatrix; B, the W1^T or W2 columns, from
 //     shared memory in 128-byte swizzled [32][64] blocks), fed by a 4-stage
@@ -42,9 +44,10 @@
 //     accumulators (no second product): its row partials of m1 = mean(dhn
 //     g), m2 = mean(dhn g hhat) cross the cluster the same way, then dh is
 //     formed from the registers and written over h, and hn and dh leave as
-//     16-byte rows.  Column partials (db1, dgamma, dbeta; db2 over 64 of
-//     dy's columns per CTA, from the dy chunks as they pass through the
-//     ring) are summed over the tile's rows in a fixed order.  Every 128
+//     16-byte rows.  Column partials (db1, dgamma, dbeta; db2 over D / 8 of
+//     dy's columns per CTA, from its D / 256 dy chunks of 32 columns as
+//     they pass through the ring; ops/ffn.py:bwd_db2_cols) are summed over
+//     the tile's rows in a fixed order.  Every 128
 //     rows stream W1 and W2 once per cluster: 64 FLOP per weight byte from
 //     L2, four times the 32-row design's.  One CTA of 16 warps per SM
 //     (about 200 KB of shared memory).
@@ -60,7 +63,7 @@
 namespace crog {
 
 constexpr int kHColF = 8 * 3 * kBN;  // [row warp][db1, dgamma, dbeta][column]
-constexpr int kHDb2F = 8 * 64;       // [row group][column] db2 partials
+constexpr int kHDb2F = kDecoderDMax;  // [row group][D / 8 columns] db2 partials
 constexpr size_t kFfnHiddenSmem =
     1024 + kBRingBytes + kHHBytes +
     (size_t)(kHRedF + kHXchF + kHRowF + kHColF + kHDb2F) * sizeof(float);
@@ -69,7 +72,7 @@ __global__ void __launch_bounds__(kGThreads, 1) ffn_bwd_hidden_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ w1t, const float* __restrict__ b1,
     const float* __restrict__ g, const float* __restrict__ be, const bf16* __restrict__ w2,
     const bf16* __restrict__ dy, bf16* __restrict__ dh_out, bf16* __restrict__ hn_out,
-    float* __restrict__ part, int M, Dropout drop) {
+    float* __restrict__ part, int M, int D, Dropout drop) {
   unsigned char* ring = gemm_smem_base();
   bf16* hs = reinterpret_cast<bf16*>(ring + kBRingBytes);  // h, then dh: [128][kBHLd]
   float* red = reinterpret_cast<float*>(ring + kBRingBytes + kHHBytes);
@@ -88,7 +91,9 @@ __global__ void __launch_bounds__(kGThreads, 1) ffn_bwd_hidden_kernel(
   const int rw = (wg >> 1) * 4 + ((tid >> 5) & 3);  // this warp's 16 rows: 16 rw..
   const int g8 = lane >> 2;
   const int qd = lane & 3;
-  float* prow = part + (long long)tile * (3 * kBF + kBD);
+  float* prow = part + (long long)tile * (3 * kBF + D);
+  const int cpr = D / 256;  // dy chunks (and 32-column db2 groups) per CTA
+  const int dcols = D / kBCl;  // db2 columns per CTA
 
   float acc[kBNT][4];
   // bit 2 nt + e of keep[hf] is the dropout mask of element (ffn_row(hf),
@@ -97,30 +102,31 @@ __global__ void __launch_bounds__(kGThreads, 1) ffn_bwd_hidden_kernel(
 
   // ---- h = drop(relu(bf16(x W1^T + b1))) for this CTA's columns, into hs,
   // and the LN statistics of the whole rows (ffn.cuh, as K4 computes them)
-  ffn_hidden<true>(acc, keep, x, w1t, b1, m0, M, n0, drop, ring, hs, red, xch, rowst);
+  ffn_hidden<true>(acc, keep, x, w1t, b1, m0, M, D, n0, drop, ring, hs, red, xch, rowst);
 
   // ---- hn = bf16(LN(h)) out, 16-byte row segments
   ffn_write_hn(hs, rowst, g, be, hn_out, m0, M, n0);
 
   // ---- dhn = bf16(dy) W2[:, n0..] stays in the f32 accumulators; the db2
-  // partials of dy's columns [64 rank, 64 rank + 64) from the dy chunks 2
-  // rank and 2 rank + 1 as they pass (rows >= M are zeros there)
+  // partials of dy's columns [dcols rank, dcols (rank + 1)) from the dy
+  // chunks cpr rank .. cpr (rank + 1) - 1 as they pass (rows >= M are zeros
+  // there)
   gemm_zero(acc);
-  gemm_mainloop<128, false, kGK>(acc, dy, kBD, m0, M, w2, kBF, n0, 0, kBD, ring,
+  gemm_mainloop<128, false, kGK>(acc, dy, D, m0, M, w2, kBF, n0, 0, D, ring,
                             [&](int c, const bf16* as, const uint32_t (&)[2][4]) {
-    if ((c >> 1) == rank && tid < 256) {
+    if (c / cpr == rank && tid < 256) {
       const int col = tid & 31, grp = tid >> 5;  // 16 rows each
       float s = 0.0f;
 #pragma unroll
       for (int r = 0; r < 16; ++r) s += bf2f(as[(grp * 16 + r) * FfnRing::kALd + col]);
-      db2p[grp * 64 + (c & 1) * 32 + col] = s;
+      db2p[grp * dcols + (c % cpr) * 32 + col] = s;
     }
   });
-  if (tid < 64) {
+  if (tid < dcols) {
     float s = 0.0f;
 #pragma unroll
-    for (int k = 0; k < 8; ++k) s += db2p[k * 64 + tid];
-    prow[3 * kBF + rank * 64 + tid] = s;
+    for (int k = 0; k < 8; ++k) s += db2p[k * dcols + tid];
+    prow[3 * kBF + rank * dcols + tid] = s;
   }
   {  // row partials of m1 = mean(dhn g), m2 = mean(dhn g hhat); column
      // partials of dgamma = sum(dhn hhat), dbeta = sum(dhn) over the rows
@@ -174,7 +180,7 @@ __global__ void __launch_bounds__(kGThreads, 1) ffn_bwd_hidden_kernel(
   }
   __syncthreads();
   {  // the row means over the whole rows, from the 8 CTAs' partials
-    const float2 tot = cluster_row_sums<kBCl>(red, xch + 2 * kBM);
+    const float2 tot = cluster_row_sums(red, xch + 2 * kBM, kBCl);
     if (tid < kBM) {
       rowst[2 * kBM + tid] = tot.x / kBF;
       rowst[3 * kBM + tid] = tot.y / kBF;
@@ -260,17 +266,17 @@ static cudaError_t ffn_bwd_set_smem_once() {
 }  // namespace crog
 
 // t: table of device pointers, in order
-//   0 x [M, 512] bf16, 1 w1 [2048, 512] bf16, 2 b1, 3 gamma, 4 beta [2048]
-//   f32, 5 w2 [512, 2048] bf16, 6 dy [M, 512] bf16;
-//   outputs 7 dx [M, 512], 8 dh [M, 2048], 9 hn [M, 2048] bf16,
-//   10 rows f32 [3, 2048] (db1, dgamma, dbeta), 11 db2 f32 [512];
-//   workspace 12 part f32 [ceil(M/128), 3*2048 + 512] (one row per cluster
-//   tile, ops/ffn.py:bwd_schedule); 13 w1t [512, 2048] bf16, w1 transposed
+//   0 x [M, D] bf16, 1 w1 [2048, D] bf16, 2 b1, 3 gamma, 4 beta [2048]
+//   f32, 5 w2 [D, 2048] bf16, 6 dy [M, D] bf16;
+//   outputs 7 dx [M, D], 8 dh [M, 2048], 9 hn [M, 2048] bf16,
+//   10 rows f32 [3, 2048] (db1, dgamma, dbeta), 11 db2 f32 [D];
+//   workspace 12 part f32 [ceil(M/128), 3*2048 + D] (one row per cluster
+//   tile, ops/ffn.py:bwd_schedule); 13 w1t [D, 2048] bf16, w1 transposed
 //   (the recompute's B, row-major along the hidden like w2).
 extern "C" int crog_ffn_bwd(void* const* t, int M, int D, int F, unsigned seed,
                             unsigned thresh, float scale, void* stream) {
   using crog::bf16;
-  if (D != crog::kBD || F != crog::kBF || M < 1) return (int)cudaErrorInvalidValue;
+  if (!crog::decoder_width_ok(D) || F != crog::kBF || M < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = crog::ffn_bwd_set_smem_once();
   if (err != cudaSuccess) return (int)err;
@@ -282,13 +288,13 @@ extern "C" int crog_ffn_bwd(void* const* t, int M, int D, int F, unsigned seed,
                            static_cast<const bf16*>(t[13]), static_cast<const float*>(t[2]),
                            static_cast<const float*>(t[3]), static_cast<const float*>(t[4]),
                            static_cast<const bf16*>(t[5]), static_cast<const bf16*>(t[6]),
-                           static_cast<bf16*>(t[8]), static_cast<bf16*>(t[9]), part, M,
+                           static_cast<bf16*>(t[8]), static_cast<bf16*>(t[9]), part, M, D,
                            crog::Dropout{seed, thresh, scale});
   if (err != cudaSuccess) return (int)err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   err = crog::launch_ffn_out(static_cast<const bf16*>(t[8]), static_cast<const bf16*>(t[1]),
-                             nullptr, static_cast<bf16*>(t[7]), M, tiles, st);
+                             nullptr, static_cast<bf16*>(t[7]), M, D, tiles, st);
   if (err != cudaSuccess) return (int)err;
   const long long stride = 3LL * F + D;
   err = crog::launch_reduce(part, tiles, stride, 3LL * F, static_cast<float*>(t[10]),

@@ -20,7 +20,8 @@
 // Bound on an H100 at the main path's M = 16224 rows (B=24, 676 tokens),
 // D 512, F 2048 (ops/work.py, 3xTF32 at a third of TF32's 495 TFLOP/s):
 // the recompute, dhn, dx, dW1 and dW2 are 170 GFLOP, about 1.03 ms, bound
-// by the products.
+// by the products.  D is any of decoder_width_ok's 256, 512, 768 or 1024;
+// only F is fixed (the LayerNorm rows below are 2048 wide).
 //
 // Design: every product on gemm_wgmma_f32.cuh (wgmma .tf32, A split in
 // registers; a weight split once per call into TF32 hi and lo planes that
@@ -187,7 +188,7 @@ __global__ void __launch_bounds__(256) reduce_parts_t_kernel(const float* __rest
 extern "C" int crog_ffn_f32_bwd(const void* const* table, int m, int d, int f, unsigned seed,
                                 unsigned thresh, float scale, void* stream) {
   using namespace crog;
-  if (f != kFfnF || d < kGwN || d % kGwN || m < 1) return (int)cudaErrorInvalidValue;
+  if (f != kFfnF || !decoder_width_ok(d) || m < 1) return (int)cudaErrorInvalidValue;
   auto in = [&](int i) { return static_cast<const float*>(table[i]); };
   auto out = [&](int i) { return static_cast<float*>(const_cast<void*>(table[i])); };
   const float *x = in(0), *w1 = in(1), *b1 = in(2), *gamma = in(3), *beta = in(4), *w2 = in(5),

@@ -9,7 +9,8 @@
 //
 // Bound on an H100: at the main path's M = 16224 rows (B=24, 676 tokens),
 // D 512, F 2048: 68 GFLOP, about 0.41 ms at 3xTF32's third of TF32's 495
-// TFLOP/s; x and y are 66 MB (20 us), so operations bound it.
+// TFLOP/s; x and y are 66 MB (20 us), so operations bound it.  D is any of
+// decoder_width_ok's 256, 512, 768 or 1024 (136 GFLOP at 1024).
 //
 // Design: both products on gemm_wgmma_f32.cuh (wgmma .tf32, A split in
 // registers, W1 and W2 split once per call into TF32 hi and lo planes that
@@ -33,7 +34,7 @@
 extern "C" int crog_ffn_f32_fwd(const void* const* table, int m, int d, int f,
                                 unsigned seed, unsigned thresh, float scale, void* stream) {
   using namespace crog;
-  if (f != 2048 || d < kGwN || d % kGwN || m < 1) return (int)cudaErrorInvalidValue;
+  if (f != 2048 || !decoder_width_ok(d) || m < 1) return (int)cudaErrorInvalidValue;
   const float* x = static_cast<const float*>(table[0]);
   const float* w1 = static_cast<const float*>(table[1]);
   const float* b1 = static_cast<const float*>(table[2]);

@@ -269,14 +269,13 @@ __device__ __forceinline__ void store_frags_bf16(const Value& value, bf16* __res
       ldc, row0, M);
 }
 
-// Row sums across a cluster of CL CTAs that each own a column slice of the
+// Row sums across a cluster of `cl` CTAs that each own a column slice of the
 // same kGM rows: this CTA's two per-row partials (over its columns) from the
 // two column warpgroups' partials in `red` ([warpgroup % 2][row][2]),
 // published in `xch` ([2][row]); after the cluster barrier every CTA adds
-// the CL CTAs' in rank order.  Threads < kGM return the totals of row
-// threadIdx.x.
-template <int CL>
-__device__ __forceinline__ float2 cluster_row_sums(const float* red, float* xch) {
+// the cl CTAs' in rank order (from 0.0f, so the sum is the same at any
+// cl).  Threads < kGM return the totals of row threadIdx.x.
+__device__ __forceinline__ float2 cluster_row_sums(const float* red, float* xch, int cl) {
   const int t = threadIdx.x;
   if (t < kGM) {
     xch[t] = red[t * 2] + red[(kGM + t) * 2];
@@ -286,8 +285,8 @@ __device__ __forceinline__ float2 cluster_row_sums(const float* red, float* xch)
   cluster_wait();
   float2 tot = make_float2(0.0f, 0.0f);
   if (t < kGM) {
-#pragma unroll
-    for (int r = 0; r < CL; ++r) {
+#pragma unroll 4
+    for (int r = 0; r < cl; ++r) {
       tot.x += ld_dsmem_f32(xch + t, r);
       tot.y += ld_dsmem_f32(xch + kGM + t, r);
     }

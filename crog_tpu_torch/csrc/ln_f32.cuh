@@ -1,8 +1,8 @@
 // Row kernels of the fp32 forward kernels: LayerNorm with f32 statistics
 // and flax's fast variance E[x^2] - E[x]^2 (clamped at 0), as
 // ops/decoder_blocks.py:ln_stats computes it, one warp per row of N
-// floats held in registers.  Shared by K2-f32 / K3-f32 (N = 512: LN_pre
-// with the positional add, LN_post with dropout and the residual) and
+// floats held in registers.  Shared by K2-f32 / K3-f32 (N = D, 256 to 1024:
+// LN_pre with the positional add, LN_post with dropout and the residual) and
 // K4-f32 (N = 2048: the hidden's LayerNorm, in place).  Bytes bound them:
 // each reads its rows once and writes them once.
 #pragma once

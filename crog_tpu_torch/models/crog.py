@@ -174,6 +174,18 @@ def build_crog(cfg, dtype: torch.dtype | None = None, fused_stem: bool = False) 
     )
 
 
+def bottleneck_scale(blocks: int) -> float:
+    """``random_init_``'s factor on the bottlenecks' last BN scales in a
+    model of ``blocks`` bottlenecks: a quarter up to RN50's 16 (the value
+    every RN50 reading was taken at), then a quarter of sqrt(16 / blocks),
+    so that the residual stream's growth does not depend on the depth.  At
+    CLIP RN50x64's 64 a flat quarter lets the stream reach 30x RN50's RMS
+    before the attention pool (layer4 30.39 against 0.93), whose logits
+    then saturate (max |logit| 9934, the softmax one-hot) and leave the
+    vision gradient chaotic; at an eighth the stream stays at 1.7."""
+    return 0.25 * min(1.0, (16 / max(blocks, 1)) ** 0.5)
+
+
 @torch.no_grad()
 def random_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Overwrite every parameter and BatchNorm statistic with seeded random
@@ -181,20 +193,22 @@ def random_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     for convs, which feed ReLUs), norm scales ~ 1 + N(0, 0.1^2), biases and
     running means ~ N(0, 0.05^2), running variances in [0.5, 1.5).  The
     bottlenecks' last BN scales (``bn3``, zero at init in the reference) are
-    a quarter of that, so the residual stream stays bounded through the
-    tower, as in a trained network; no scale is zero, so no branch is
-    silently skipped."""
+    ``bottleneck_scale`` of that, so the residual stream stays bounded
+    through the tower at any depth, as in a trained network; no scale is
+    zero, so no branch is silently skipped."""
 
     def randn(shape):
         return torch.randn(shape, generator=generator)
 
+    last_bn = lambda name: name.endswith(".bn3.weight") and ".layer" in name  # noqa: E731
+    bn3_scale = bottleneck_scale(sum(last_bn(n) for n, _ in model.named_parameters()))
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if p.dim() <= 1:
             if leaf == "weight":  # LayerNorm / BatchNorm scale
                 p.copy_(1.0 + 0.1 * randn(p.shape))
-                if name.endswith(".bn3.weight") and ".layer" in name:
-                    p.mul_(0.25)
+                if last_bn(name):
+                    p.mul_(bn3_scale)
             else:
                 p.copy_(0.05 * randn(p.shape))
         elif p.dim() == 4:

@@ -65,7 +65,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "decoder_blocks": {
         "crog_self_block_fwd": [_P] * 17 + [_I] * 6 + _DROP + [_P],
         "crog_cross_block_fwd": [_P] * 21 + [_I] * 7 + _DROP + [_P],
-        "crog_decoder_fwd_attrs": [_P],
+        "crog_decoder_fwd_attrs": [_I, _P],
     },
     "decoder_blocks_f32": {
         "crog_self_block_f32_fwd": [_P] + [_I] * 4 + _DROP + [_P],

@@ -30,6 +30,11 @@ fp32 forward wrote.
 
 Dropout (``rate`` > 0, training) uses the counter-based mask of
 ops/dropout.py keyed by ``seed``, over rows b*L + l and columns of D.
+
+The kernels take D in KERNEL_D: 512 (CLIP RN50 and RN101), 1024 (RN50x64),
+768 (RN50x16) and 256, the multiples of the GEMMs' 256-column tiles up to
+four of them; D is a run-time value of every kernel, and the out-projection's
+cluster holds D / PROJ_COLS CTAs (``out_cluster``).
 """
 
 from __future__ import annotations
@@ -39,15 +44,21 @@ from functools import lru_cache
 import torch
 
 from crog_tpu_torch.ops import cuda_build, work
-from crog_tpu_torch.ops.attention import (NEG, attention_plain, f32_dq_parts, head_dim,
-                                          mha_bwd_plain)
+from crog_tpu_torch.ops.attention import (HEAD_DIMS, NEG, attention_plain, f32_dq_parts,
+                                          head_dim, mha_bwd_plain)
 from crog_tpu_torch.ops.dropout import apply_dropout, dropout_keep, kernel_args
 
 EPS = 1e-5
-KERNEL_D = 512  # the width the block kernels take
+KERNEL_D = (256, 512, 768, 1024)  # the widths the block kernels take
 PROJ_ROWS = 128  # rows per CTA tile of the forward's GEMM kernels (csrc/gemm.cuh kGM)
 PROJ_COLS = 256  # output columns per CTA tile (csrc/decoder_blocks.cu kPN)
-OUT_CLUSTER = KERNEL_D // PROJ_COLS  # CTAs per out-projection cluster
+_WIDTHS = ", ".join(map(str, KERNEL_D[:-1])) + f" or {KERNEL_D[-1]}"
+
+
+def out_cluster(d: int) -> int:
+    """CTAs per out-projection cluster at width ``d``: one per PROJ_COLS
+    columns, 1 to 4 (csrc/decoder_blocks.cu out_cluster)."""
+    return d // PROJ_COLS
 
 
 @lru_cache(maxsize=64)
@@ -67,19 +78,19 @@ def proj_plan(segments):
     return tuple(plan)
 
 
-def self_proj_segments(m: int, d: int = KERNEL_D):
+def self_proj_segments(m: int, d: int):
     """K2's products: q and k from qin into the packed [M, 2D] qk (in_w's
     first 2D rows), v from xl (the last D rows), both over the M rows."""
     return ((m, 0, 2 * d), (m, 2 * d, d))
 
 
-def cross_proj_segments(m: int, mt: int, d: int = KERNEL_D):
+def cross_proj_segments(m: int, mt: int, d: int):
     """K3's products: q from qin over the M image rows; k from kin and v
     from the text over the MT = B*T text rows."""
     return ((m, 0, d), (mt, d, d), (mt, 2 * d, d))
 
 
-def f32_planes(d: int = KERNEL_D) -> int:
+def f32_planes(d: int) -> int:
     """Floats of K2-f32's and K3-f32's planes workspace: the TF32 hi and lo
     planes (2 N D floats) of each product's weight rows, end to end in
     launch order (csrc/decoder_blocks_f32.cu): self [q | k] (N = 2D), v,
@@ -110,7 +121,7 @@ def f32_bwd_chunks(k: int, tiles: int):
     return [(r, min(r + chunk, k)) for r in range(0, k, chunk)]
 
 
-def f32_bwd_products(m: int, mt: int | None = None, d: int = KERNEL_D):
+def f32_bwd_products(m: int, mt: int | None, d: int):
     """K2b-f32's (``mt`` None) or K3b-f32's products over ``m`` image rows
     and ``mt`` text rows, in launch order: (name, (rows, cols) of its
     output, its depth K, K's chunks).  A dW's depth is the batch rows it
@@ -126,7 +137,7 @@ def f32_bwd_products(m: int, mt: int | None = None, d: int = KERNEL_D):
             prod("dWk", d, mt), prod("dWv", d, mt), prod("dW out", d, m)]
 
 
-def f32_bwd_work(m: int, mt: int | None = None, d: int = KERNEL_D):
+def f32_bwd_work(m: int, mt: int | None, d: int):
     """Floats of K2b-f32's or K3b-f32's two product workspaces (as
     ``f32_bwd_products``): part, the chunk partials [chunks, rows, cols]
     of the largest product split over K; planes, the TF32 hi and lo planes
@@ -137,13 +148,13 @@ def f32_bwd_work(m: int, mt: int | None = None, d: int = KERNEL_D):
     return part, max(2 * d * (-(-k // 4) * 4) for _, _, k, _ in prods)
 
 
-def out_schedule(m: int):
-    """The out-projection's clusters over ``m`` rows: the row range [r0, r1)
-    of each cluster tile, and the column range [c0, c1) that CTA k of every
-    cluster owns (together a whole row, so the LayerNorm's statistics stay
-    in the cluster)."""
+def out_schedule(m: int, d: int):
+    """The out-projection's clusters over ``m`` rows of width ``d``: the row
+    range [r0, r1) of each cluster tile, and the column range [c0, c1) that
+    CTA k of every cluster owns (together a whole row, so the LayerNorm's
+    statistics stay in the cluster, added in rank order)."""
     tiles = [(r, min(r + PROJ_ROWS, m)) for r in range(0, m, PROJ_ROWS)]
-    return tiles, [(k * PROJ_COLS, (k + 1) * PROJ_COLS) for k in range(OUT_CLUSTER)]
+    return tiles, [(k * PROJ_COLS, (k + 1) * PROJ_COLS) for k in range(out_cluster(d))]
 
 
 def ln_fast(x, g, b, eps: float = EPS):
@@ -309,17 +320,30 @@ def cross_block_bwd_plain(x, txt, pos, tpos, pad_mask, in_w, in_b, out_w, out_b,
 
 # ------------------------------------------------------------ CUDA side
 def kernel_supported(d_model: int, nheads: int) -> bool:
-    """Widths the block kernels take: D = 512 over 1, 2, 4, 8, 16, 32 or 64
-    heads (head dims 512, 256, 128, 64, 32, 16, 8: ops/attention.py
-    HEAD_DIMS)."""
-    return d_model == KERNEL_D and head_dim(d_model, nheads) > 0
+    """Widths the block kernels take: D one of KERNEL_D over a head count
+    whose head dim is one of ops/attention.py HEAD_DIMS (8 to 512; at D 512
+    1, 2, 4, 8, 16, 32 or 64 heads, at D 1024 2 to 128)."""
+    return d_model in KERNEL_D and head_dim(d_model, nheads) > 0
+
+
+def head_counts(d: int):
+    """The head counts the block kernels take at width ``d``, ascending."""
+    return sorted(d // dh for dh in HEAD_DIMS if d % dh == 0)
 
 
 def _check_block_input(x, nheads):
-    if x.dim() != 3 or not kernel_supported(x.shape[-1], nheads):
+    if x.dim() != 3 or x.shape[-1] not in KERNEL_D:
         raise ValueError(
-            f"decoder block kernels take x [B, L, 512] with 1, 2, 4, 8, 16, 32 or 64 heads "
-            f"(head dims 512 to 8), got {tuple(x.shape)} and {nheads} heads"
+            f"decoder block kernels take x [B, L, D] with D {_WIDTHS} (a multiple of "
+            f"{PROJ_COLS} up to {KERNEL_D[-1]}), got {tuple(x.shape)}"
+        )
+    if not kernel_supported(x.shape[-1], nheads):
+        d = x.shape[-1]
+        counts = head_counts(d)
+        raise ValueError(
+            f"decoder block kernels take x [B, L, {d}] with "
+            f"{', '.join(map(str, counts[:-1]))} or {counts[-1]} heads (head dims "
+            f"{d // counts[0]} to {d // counts[-1]}), got {nheads} heads"
         )
     if x.shape[1] < 1:
         raise ValueError(f"decoder block kernels take at least 1 token, got {x.shape[1]}")
@@ -344,7 +368,8 @@ def _weights(x, in_w, in_b, out_w, out_b, g_pre, b_pre, g_post, b_post):
 def _wgrad_splits(m: int) -> int:
     """Row chunks of the dW kernels' first pass (summed in a fixed order by
     the second pass): at M = 16224, 16 chunks of the 8 [128, 256] tiles of a
-    [512, 512] dW are 128 CTAs, one per SM of an H100."""
+    [512, 512] dW are 128 CTAs, one per SM of an H100 (at D 1024, 32 tiles
+    in 16 chunks: 512 CTAs, about four waves)."""
     return max(1, min(16, -(-m // 1024)))
 
 
@@ -389,8 +414,8 @@ def self_block_fwd(x, pos, in_w, in_b, out_w, out_b, g_pre, b_pre, g_post, b_pos
         wo.data_ptr(), bo.data_ptr(), gp.data_ptr(), bp.data_ptr(),
         gq.data_ptr(), bq.data_ptr(), y.data_ptr(),
         *(t.data_ptr() for t in ws), None if op is None else op.data_ptr(),
-        b, l, d, nheads, len(proj_plan(self_proj_segments(b * l))),
-        len(out_schedule(b * l)[0]), dseed, thresh, scale, stream,
+        b, l, d, nheads, len(proj_plan(self_proj_segments(b * l, d))),
+        len(out_schedule(b * l, d)[0]), dseed, thresh, scale, stream,
     )
     cuda_build.check_launch(lib, rc, "crog_self_block_fwd")
     self_block_fwd.launches += 1
@@ -537,8 +562,8 @@ def cross_block_fwd(x, txt, pos, tpos, pad_mask, in_w, in_b, out_w, out_b, g_pre
         bo.data_ptr(), gp.data_ptr(), bp.data_ptr(), gq.data_ptr(),
         bq.data_ptr(), y.data_ptr(), *(w.data_ptr() for w in ws),
         None if op is None else op.data_ptr(),
-        b, l, t, d, nheads, len(proj_plan(cross_proj_segments(b * l, b * t))),
-        len(out_schedule(b * l)[0]), dseed, thresh, scale, stream,
+        b, l, t, d, nheads, len(proj_plan(cross_proj_segments(b * l, b * t, d))),
+        len(out_schedule(b * l, d)[0]), dseed, thresh, scale, stream,
     )
     cuda_build.check_launch(lib, rc, "crog_cross_block_fwd")
     cross_block_fwd.launches += 1

@@ -30,6 +30,10 @@ the LayerNorm backward with the column sums, dx, dW1 and dW2 over row
 chunks summed in order), every product 3xTF32 on one wgmma GEMM
 (csrc/gemm_wgmma_f32.cuh, ``f32_schedule``) whose B (W1, W2 and, for dW,
 x and dy) is split once per call into TF32 planes.
+
+The kernels take D in KERNEL_D (ops/decoder_blocks.py's widths: 256, 512,
+768 and 1024, a run-time value of every kernel; the hidden product's K and
+the y / dx GEMM's D / OUT_COLS column tiles follow it) and F = KERNEL_F.
 """
 
 from __future__ import annotations
@@ -37,10 +41,11 @@ from __future__ import annotations
 import torch
 
 from crog_tpu_torch.ops import cuda_build, work
-from crog_tpu_torch.ops.decoder_blocks import F32_SLICE, F32_TILE, dense, ln_fast, ln_stats
+from crog_tpu_torch.ops.decoder_blocks import (F32_SLICE, F32_TILE, KERNEL_D, dense, ln_fast,
+                                               ln_stats)
 from crog_tpu_torch.ops.dropout import apply_dropout, dropout_keep, kernel_args
 
-KERNEL_D, KERNEL_F = 512, 2048
+KERNEL_F = 2048  # the hidden width the FFN kernels take (D: KERNEL_D)
 BWD_ROWS = 128  # rows per cluster tile of K4 and K4b (csrc/ffn.cuh kBM)
 BWD_CLUSTER = 8  # CTAs per K4 / K4b cluster, each with KERNEL_F // 8 hidden columns
 OUT_COLS = 256  # output columns per CTA of K4's y and K4b's dx GEMM (csrc/ffn.cuh)
@@ -49,15 +54,16 @@ OUT_COLS = 256  # output columns per CTA of K4's y and K4b's dx GEMM (csrc/ffn.c
 F32_CHUNK_ROWS = 8192
 
 
-def fwd_schedule(m: int):
-    """K4's work split over ``m`` rows, from the shapes alone: the row range
-    [r0, r1) of each cluster tile, the hidden column range [c0, c1) that CTA
-    k of every cluster owns (both as ``bwd_schedule``: K4b recomputes the
-    same hidden), and the output column range [c0, c1) of each CTA of the y
-    GEMM, which runs over the same row tiles.  csrc/ffn.cu launches one
-    cluster per tile and the y GEMM over len(tiles) x len(out_cols) CTAs."""
+def fwd_schedule(m: int, d: int):
+    """K4's work split over ``m`` rows of width ``d``, from the shapes
+    alone: the row range [r0, r1) of each cluster tile, the hidden column
+    range [c0, c1) that CTA k of every cluster owns (both as
+    ``bwd_schedule``: K4b recomputes the same hidden), and the output column
+    range [c0, c1) of each CTA of the y GEMM, which runs over the same row
+    tiles.  csrc/ffn.cu launches one cluster per tile and the y GEMM over
+    len(tiles) x len(out_cols) CTAs."""
     tiles, slices = bwd_schedule(m)
-    return tiles, slices, [(c, c + OUT_COLS) for c in range(0, KERNEL_D, OUT_COLS)]
+    return tiles, slices, [(c, c + OUT_COLS) for c in range(0, d, OUT_COLS)]
 
 
 def bwd_schedule(m: int):
@@ -71,6 +77,13 @@ def bwd_schedule(m: int):
     return tiles, [(k * width, (k + 1) * width) for k in range(BWD_CLUSTER)]
 
 
+def bwd_db2_cols(d: int):
+    """The columns [c0, c1) of db2 = sum(dy) whose partials CTA k of every
+    K4b cluster adds, from dy's 32-column chunks as they pass through its
+    ring (csrc/ffn_bwd.cu): d / BWD_CLUSTER each, together the whole row."""
+    width = d // BWD_CLUSTER
+    return [(k * width, (k + 1) * width) for k in range(BWD_CLUSTER)]
+
 def f32_dw_chunks(m: int):
     """The row chunks [r0, r1) over ``m`` rows of K4b-f32's dW1 and dW2
     (csrc/gemm_wgmma_f32.cuh ``gw_dw_chunk``), from m alone: ceil(m /
@@ -81,7 +94,7 @@ def f32_dw_chunks(m: int):
     return [(r, min(r + chunk, m)) for r in range(0, m, chunk)]
 
 
-def f32_schedule(m: int, d: int = KERNEL_D, f: int = KERNEL_F):
+def f32_schedule(m: int, d: int, f: int = KERNEL_F):
     """K4-f32's and K4b-f32's products over ``m`` rows, in launch order:
     {product: ((rows, cols) of its output, its CTAs' output tiles ((r0, r1),
     (c0, c1)) in launch order, its K chunks [k0, k1))}.  A CTA computes one
@@ -102,7 +115,7 @@ def f32_schedule(m: int, d: int = KERNEL_D, f: int = KERNEL_F):
             "dw2": ((f, d), tiles(f, d), dw)}
 
 
-def f32_bwd_work(m: int, d: int = KERNEL_D, f: int = KERNEL_F):
+def f32_bwd_work(m: int, d: int, f: int = KERNEL_F):
     """Floats of K4b-f32's two workspaces: part (the LayerNorm backward's
     column partials, 64 rows a block, 3F each; db2's, 256 rows a block; dW's
     chunk partials, F D each) and planes (the TF32 hi and lo planes of W1,
@@ -154,9 +167,11 @@ def ffn_bwd_plain(x, w1, b1, gamma, beta, w2, dy, seed: int = 0, rate: float = 0
 def _check(x, w1):
     m, d = x.shape
     f = w1.shape[0]
-    if (d, f) != (KERNEL_D, KERNEL_F):
+    if d not in KERNEL_D or f != KERNEL_F:
+        widths = ", ".join(map(str, KERNEL_D[:-1])) + f" or {KERNEL_D[-1]}"
         raise ValueError(
-            f"FFN kernels take D={KERNEL_D}, F={KERNEL_F}, got D={d}, F={f}"
+            f"FFN kernels take D {widths} (a multiple of {OUT_COLS} up to {KERNEL_D[-1]}) "
+            f"and F={KERNEL_F}, got D={d}, F={f}"
         )
     cuda_build.require(x, "x", x.dtype, (m, d))
 
@@ -212,7 +227,7 @@ def ffn_fwd(x, w1, b1, gamma, beta, w2, b2, seed: int = 0, rate: float = 0.0,
     # both products read a B that is row-major along their output columns
     w1t, w2t = w1b.t().contiguous(), w2b.t().contiguous()
     table = cuda_build.ptr_table(x, w1t, b1f, gf, bef, w2t, b2f, y, hn)
-    rc = lib.crog_ffn_fwd(table, m, d, f, len(fwd_schedule(m)[0]), dseed, thresh, scale,
+    rc = lib.crog_ffn_fwd(table, m, d, f, len(fwd_schedule(m, d)[0]), dseed, thresh, scale,
                           stream)
     cuda_build.check_launch(lib, rc, "crog_ffn_fwd")
     ffn_fwd.launches += 1

@@ -17,7 +17,8 @@ twin and are held alike.  The attention forward is held on both of its
 paths (one pass up to 192 keys, two beyond), with q and k packed as the self
 block passes them; the attention kernels and the blocks, bf16 and fp32, also
 at head dims 8, 16, 32, 128, 256 and 512 (D 512 over 64, 32, 16, 4, 2 and 1
-heads); K4's, K4b's, K2b's and K3b's outputs, and K2's and K3's
+heads); K2-K4b and their fp32 builds also at D 256, 768 and 1024; K4's,
+K4b's, K2b's and K3b's outputs, and K2's and K3's
 in train mode with every saved intermediate, must also repeat with equal
 bits.  The intermediates K2 and K3 save for their backward are held, like
 backward outputs, to 2^-6 of each one's largest magnitude.  Backward
@@ -288,8 +289,9 @@ def test_cuda_block_kernels_train_mode_match_twins(card, rate, heads):
     _close_all(DB.cross_block_bwd(x, saved, dy, heads, 8, rate),
                DB.cross_block_bwd_plain(x, txt, pos, tpos, pad, *w, dy, heads, 8, rate))
     torch.cuda.synchronize()
-    with pytest.raises(ValueError, match="512"):
-        DB.self_block_bwd(x[..., :256].contiguous(), saved, dy, 4)
+    with pytest.raises(ValueError, match="D 256, 512, 768 or 1024"):
+        DB.self_block_bwd(torch.zeros(2, 676, 640, dtype=torch.bfloat16, device=card), saved,
+                          dy, 4)
 
 
 @pytest.mark.cuda
@@ -343,7 +345,7 @@ def test_cuda_ffn_train_mode_matches_twin(card, rate, m):
     torch.cuda.synchronize()
     for i in (0, 2, 3, 4, 6, 7, 8):  # dx, db1, dgamma, dbeta, db2, dh, hn
         assert torch.equal(a[i], b[i]), i
-    with pytest.raises(ValueError, match="D=512, F=2048"):
+    with pytest.raises(ValueError, match="and F=2048, got D=512, F=1024"):
         FF.ffn_bwd(x, w1[:1024], b1[:1024], g[:1024], be[:1024], w2[:, :1024], dy)
 
 
@@ -876,12 +878,12 @@ def test_cuda_block_f32_autograd_reads_the_forwards_intermediates(exact_f32, rat
 FFN_F32_ROWS = [1, 63, 64, 65, 129, 1000, 16224]
 
 
-def _ffn_f32_args(m, dy: bool = False):
-    """K4-f32's (x, w1, b1, gamma, beta, w2, b2) over m rows, or K4b-f32's
-    with dy in place of b2."""
-    return (_f32(1, m, 512), _f32(2, 2048, 512, std=512**-0.5), _f32(3, 2048, std=0.05),
+def _ffn_f32_args(m, dy: bool = False, d: int = 512):
+    """K4-f32's (x, w1, b1, gamma, beta, w2, b2) over m rows of width d, or
+    K4b-f32's with dy in place of b2."""
+    return (_f32(1, m, d), _f32(2, 2048, d, std=d**-0.5), _f32(3, 2048, std=0.05),
             1 + _f32(4, 2048, std=0.1), _f32(5, 2048, std=0.05),
-            _f32(6, 512, 2048, std=2048**-0.5), _f32(8, m, 512) if dy else _f32(7, 512, std=0.05))
+            _f32(6, d, 2048, std=2048**-0.5), _f32(8, m, d) if dy else _f32(7, d, std=0.05))
 
 
 @pytest.mark.cuda
@@ -1317,3 +1319,171 @@ def test_cuda_fp32_autograd_runs_the_fp32_backward_kernels(exact_f32):
         assert _rel_l2(got, ref) <= F32_BWD_REL, name
     launched = [getattr(fn, attr) - b0 for (fn, attr), b0 in zip(counters, before)]
     assert launched == [0, 1] * 8, launched
+
+
+# ---------------------------------------------------------- model widths
+# K2-K4b and their fp32 builds at the decoder widths other than the
+# configs' 512 (ops/decoder_blocks.py KERNEL_D): 256, 768 (CLIP RN50x16's
+# text width, 12 heads of 64) and 1024 (RN50x64's, 8 heads of 128; and 16
+# of 64), held as at D 512: bf16 forwards within 0.125, their saved
+# intermediates and every backward output within BWD_REL, fp32 ones within
+# F32_REL / F32_BWD_REL, and each call twice with equal bits (the
+# out-projection's cluster of D / 256 CTAs adds its LN row sums in rank
+# order)
+WIDTHS = [(256, 4), (768, 12), (1024, 8), (1024, 16)]
+BLOCK_GRADS = ("dx", "d_in_w", "d_in_b", "d_out_w", "d_out_b", "d_g_pre", "d_b_pre",
+               "d_g_post", "d_b_post")
+
+
+def _width_block(d, seed, b=2, l=676, t=17):
+    x, txt = _bf16(seed, b, l, d), _bf16(seed + 1, b, t, d)
+    pos, tpos = _bf16(seed + 2, l, d, std=0.5), _bf16(seed + 3, t, d, std=0.5)
+    dy = _bf16(seed + 4, b, l, d)
+    lengths = torch.tensor([[1 + (t - 1) * i // max(1, b - 1)] for i in range(b)])
+    pad = (torch.arange(t)[None].expand(b, t) >= lengths).to("cuda")
+    return x, txt, pos, tpos, pad, dy, _block_args(seed + 10, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,heads", WIDTHS)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_cuda_block_kernels_at_width_match_twins_and_repeat(card, d, heads, rate):
+    """K2/K2b and K3/K3b at D 256, 768 and 1024 (B 2, 676 tokens, 17 text
+    keys with per-sample padding), in eval (rate 0) and with dropout: the
+    forward and every saved intermediate, then every gradient output, each
+    against its twin and twice with equal bits."""
+    x, txt, pos, tpos, pad, dy, w = _width_block(d, 70)
+    for cross in (False, True):
+        if cross:
+            fwd = lambda: DB.cross_block_fwd(x, txt, pos, tpos, pad, *w, heads, 8, rate,
+                                             save=True)
+            ref = DB.cross_block_plain(x, txt, pos, tpos, pad, *w, heads, 8, rate)
+        else:
+            fwd = lambda: DB.self_block_fwd(x, pos, *w, heads, 7, rate, save=True)
+            ref = DB.self_block_plain(x, pos, *w, heads, 7, rate)
+        (y, saved), (y2, saved2) = fwd(), fwd()
+        torch.cuda.synchronize()
+        assert y.shape == x.shape and (y.float() - ref.float()).abs().max().item() <= 0.125
+        assert all(torch.equal(u, v) for u, v in zip((y, *saved), (y2, *saved2))), cross
+        if cross:
+            bwd = lambda: DB.cross_block_bwd(x, saved, dy, heads, 8, rate)
+            plain = DB.cross_block_bwd_plain(x, txt, pos, tpos, pad, *w, dy, heads, 8, rate)
+        else:
+            bwd = lambda: DB.self_block_bwd(x, saved, dy, heads, 7, rate)
+            plain = DB.self_block_bwd_plain(x, pos, *w, dy, heads, 7, rate)
+        got, again = bwd(), bwd()
+        torch.cuda.synchronize()
+        _close_all(got, plain)
+        assert all(torch.equal(u, v) for u, v in zip(got, again)), cross
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [256, 768, 1024])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_cuda_ffn_kernels_at_width_match_twins_and_repeat(card, d, rate):
+    """K4 and K4b at D 256, 768 and 1024 over 1000 rows (off the 128-row
+    cluster tile): y within 0.125 and twice with equal bits; every gradient
+    output within BWD_REL, and dx, dh, hn and the four column sums (db2 from
+    each CTA's D / 8 columns) twice with equal bits."""
+    m = 1000
+    x, dy = _bf16(81, m, d), _bf16(88, m, d)
+    f32 = lambda s, n, std: (torch.randn(n, generator=torch.Generator()
+                                         .manual_seed(s)) * std).to(card)
+    w1, b1 = _bf16(82, 2048, d, std=d**-0.5), f32(83, 2048, 0.05)
+    g, be = 1 + f32(84, 2048, 0.1), f32(85, 2048, 0.05)
+    w2, b2 = _bf16(86, d, 2048, std=2048**-0.5), f32(87, d, 0.05)
+    y, y2 = (FF.ffn_fwd(x, w1, b1, g, be, w2, b2, 11, rate) for _ in range(2))
+    ref = FF.ffn_plain(x, w1, b1, g, be, w2, b2, 11, rate)
+    torch.cuda.synchronize()
+    assert (y.float() - ref.float()).abs().max().item() <= 0.125 and torch.equal(y, y2)
+    a, b = (FF.ffn_bwd(x, w1, b1, g, be, w2, dy, 11, rate, with_hidden=True)
+            for _ in range(2))
+    _close_all(a[:7], FF.ffn_bwd_plain(x, w1, b1, g, be, w2, dy, 11, rate))
+    torch.cuda.synchronize()
+    for i in (0, 2, 3, 4, 6, 7, 8):  # dx, db1, dgamma, dbeta, db2, dh, hn
+        assert torch.equal(a[i], b[i]), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,heads", WIDTHS)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_cuda_block_f32_kernels_at_width_match_twins_and_repeat(exact_f32, d, heads, rate):
+    """K2-f32/K2b-f32 and K3-f32/K3b-f32 at D 256, 768 and 1024 (B 2, 676
+    tokens, 17 text keys), in eval and with dropout: the forward within
+    F32_REL, every gradient within F32_BWD_REL, each twice with equal
+    bits."""
+    x, txt, pos, tpos, pad, w = _f32_block(2, 676, 17, seed=90, d=d)
+    dy = _f32(97, 2, 676, d)
+    _, ssaved = DB.self_block_fwd(x, pos, *w, heads, 7, rate, save=True)
+    _, csaved = DB.cross_block_fwd(x, txt, pos, tpos, pad, *w, heads, 8, rate, save=True)
+    cases = (
+        (lambda: DB.self_block_fwd(x, pos, *w, heads, 7, rate)[0],
+         lambda: DB.self_block_plain(x, pos, *w, heads, 7, rate),
+         lambda: DB.self_block_bwd(x, ssaved, dy, heads, 7, rate),
+         lambda: DB.self_block_bwd_plain(x, pos, *w, dy, heads, 7, rate), BLOCK_GRADS),
+        (lambda: DB.cross_block_fwd(x, txt, pos, tpos, pad, *w, heads, 8, rate)[0],
+         lambda: DB.cross_block_plain(x, txt, pos, tpos, pad, *w, heads, 8, rate),
+         lambda: DB.cross_block_bwd(x, csaved, dy, heads, 8, rate),
+         lambda: DB.cross_block_bwd_plain(x, txt, pos, tpos, pad, *w, dy, heads, 8, rate),
+         BLOCK_GRADS[:1] + ("dtxt",) + BLOCK_GRADS[1:]))
+    for fwd, fwd_plain, bwd, bwd_plain, names in cases:
+        got, again, ref = fwd(), fwd(), fwd_plain()
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and _rel_l2(got, ref) <= F32_REL, names
+        assert torch.equal(got, again)
+        got, again, ref = bwd(), bwd(), bwd_plain()
+        torch.cuda.synchronize()
+        _close_rel(got, ref, names)
+        assert all(torch.equal(u, v) for u, v in zip(got, again)), names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [256, 768, 1024])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_cuda_ffn_f32_kernels_at_width_match_twins_and_repeat(exact_f32, d, rate):
+    """K4-f32 and K4b-f32 at D 256, 768 and 1024 over 1000 rows: the
+    forward within F32_REL, every gradient within F32_BWD_REL (the twin on
+    the kernel's ReLU decision), each twice with equal bits."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke as cs
+
+    args = _ffn_f32_args(1000, d=d)
+    got, again, ref = (FF.fused_ffn(*args, 3, rate), FF.fused_ffn(*args, 3, rate),
+                       FF.ffn_plain(*args, 3, rate))
+    torch.cuda.synchronize()
+    assert _rel_l2(got, ref) <= F32_REL and torch.equal(got, again)
+    args = _ffn_f32_args(1000, dy=True, d=d)
+    got = FF.ffn_bwd(*args, 3, rate, with_hidden=True)
+    again = FF.ffn_bwd(*args, 3, rate, with_hidden=True)
+    ref = FF.ffn_bwd_plain(*args, 3, rate,
+                           relu_mask=cs.ffn_f32_relu_decision(args, 3, rate))
+    torch.cuda.synchronize()
+    _close_rel(got, ref, ("dx", "dw1", "db1", "dgamma", "dbeta", "dw2", "db2"))
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_widths_not_taken_raise_before_any_launch(card, dtype):
+    """On CUDA tensors, D 640 (CLIP RN50x4's width) and D 768 over 8 heads
+    (head dim 96: RN50x16 at the configs' num_head) at the blocks, and D 640
+    and F 1024 at the FFN, raise before any launch: no counter moves, and
+    no twin runs in their place."""
+    counters = [DB.self_block_fwd, DB.cross_block_fwd, DB.self_block_bwd, DB.cross_block_bwd,
+                FF.ffn_fwd, FF.ffn_bwd]
+    before = [(f.launches, f.launches_f32) for f in counters]
+    z = lambda *s: torch.zeros(*s, dtype=dtype, device=card)
+    for d, heads, match in ((640, 8, "D 256, 512, 768 or 1024"),
+                            (768, 8, "3, 6, 12, 24, 48 or 96 heads")):
+        x, w = z(1, 20, d), [t.to(dtype) for t in _block_args(3, d)]
+        with pytest.raises(ValueError, match=match):
+            DB.self_block_fwd(x, z(20, d), *w, heads)
+        with pytest.raises(ValueError, match=match):
+            DB.cross_block_fwd(x, z(1, 17, d), z(20, d), z(17, d), None, *w, heads)
+    for d, f in ((640, 2048), (512, 1024)):
+        with pytest.raises(ValueError, match="FFN kernels take D 256, 512, 768 or 1024"):
+            FF.ffn_fwd(z(8, d), z(f, d), z(f), z(f), z(f), z(d, f), z(d))
+        with pytest.raises(ValueError, match="FFN kernels take D 256, 512, 768 or 1024"):
+            FF.ffn_bwd(z(8, d), z(f, d), z(f), z(f), z(f), z(d, f), z(8, d))
+    torch.cuda.synchronize()
+    assert [(f.launches, f.launches_f32) for f in counters] == before

@@ -267,19 +267,20 @@ def test_every_entry_point_has_a_signature_with_its_argument_count():
     assert {"attention_f32", "decoder_blocks_f32", "ffn_f32"} <= set(sources)
 
 
+@pytest.mark.parametrize("d", [256, 512, 768, 1024])
 @pytest.mark.parametrize("kid", ["K2-f32", "K3-f32"])
-def test_f32_block_products_fill_the_planes_workspace(kid):
+def test_f32_block_products_fill_the_planes_workspace(kid, d):
     """K2-f32's and K3-f32's products as chip_smoke splits them, in launch
     order: their weights' rows are in_w's 3D and out_w's D, whose TF32 hi
     and lo planes (2 N D floats a product) fill the planes workspace the
     wrapper allocates, ops/decoder_blocks.py:f32_planes = 8 D^2 floats;
     the out-projection comes last, and only K3-f32's k and v run over the
-    B*T text rows."""
+    B*T text rows; at each width D the kernels take."""
     from crog_tpu_torch.ops import decoder_blocks as DB
 
-    d = DB.KERNEL_D
+    assert d in DB.KERNEL_D
     prods = _chip_smoke().F32_BLOCK_PRODUCTS[kid]
-    assert sum(2 * cols * d * d for *_, cols in prods) == DB.f32_planes() == 8 * d * d
+    assert sum(2 * cols * d * d for *_, cols in prods) == DB.f32_planes(d) == 8 * d * d
     assert prods[-1] == ("out-projection", "m", 1)
     text = ("k", "v") if kid == "K3-f32" else ()
     assert [rows for _, rows, _ in prods] == ["mt" if p[0] in text else "m" for p in prods]
@@ -367,7 +368,7 @@ def test_f32_bwd_chunk_plan_covers_every_row_and_fills_the_card(b, l, t):
     from crog_tpu_torch.ops import decoder_blocks as DB
 
     cs = _chip_smoke()
-    m, mt, d = b * l, b * t, DB.KERNEL_D
+    m, mt, d = b * l, b * t, 512
     shapes = cs.f32_block_bwd_shapes(m, mt, d)
     for kid, text in (("K2b-f32", None), ("K3b-f32", mt)):
         prods = DB.f32_bwd_products(m, text, d)

@@ -158,35 +158,39 @@ def test_ffn_matches_pallas_kernel(m):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=2e-5)
 
 
+@pytest.mark.parametrize("d", DB.KERNEL_D)
 @pytest.mark.parametrize("m", [1, 127, 128, 129, 1000, 16224])
-def test_ffn_fwd_schedule_covers_every_row_once(m):
+def test_ffn_fwd_schedule_covers_every_row_once(m, d):
     """K4's cluster tiles cover rows 0..m-1 once, in order, BWD_ROWS at a
     time, as K4b's do (K4b recomputes the same hidden); its CTAs' column
-    slices cover the hidden once; its y GEMM's column tiles cover the output
-    once; and the split depends on m alone."""
-    tiles, slices, out_cols = FF.fwd_schedule(m)
+    slices cover the hidden once; its y GEMM's column tiles cover the D
+    output columns once, at each width the kernels take; and the split
+    depends on m and D alone."""
+    tiles, slices, out_cols = FF.fwd_schedule(m, d)
     assert (tiles, slices) == FF.bwd_schedule(m)
     assert len(tiles) == -(-m // FF.BWD_ROWS)
     assert [r for r0, r1 in tiles for r in range(r0, r1)] == list(range(m))
     assert all(0 < r1 - r0 <= FF.BWD_ROWS for r0, r1 in tiles)
     assert len(slices) == FF.BWD_CLUSTER
     assert [c for c0, c1 in slices for c in range(c0, c1)] == list(range(FF.KERNEL_F))
-    assert [c for c0, c1 in out_cols for c in range(c0, c1)] == list(range(FF.KERNEL_D))
+    assert [c for c0, c1 in out_cols for c in range(c0, c1)] == list(range(d))
     assert all(c1 - c0 == FF.OUT_COLS for c0, c1 in out_cols)
-    assert FF.fwd_schedule(m) == (tiles, slices, out_cols)
+    assert FF.fwd_schedule(m, d) == (tiles, slices, out_cols)
 
 
+@pytest.mark.parametrize("d", DB.KERNEL_D)
 @pytest.mark.parametrize("m", [1, 63, 64, 65, 127, 128, 129, 1000, 16224])
-def test_f32_gemm_schedule_covers_every_output_once(m):
+def test_f32_gemm_schedule_covers_every_output_once(m, d):
     """K4-f32's and K4b-f32's wgmma GEMM: each product's output tiles cover
     its output once, row tiles outer and column tiles inner, F32_TILE
     square but the last rows; the hidden and its recompute share one
     schedule; dW1's and dW2's row chunks cover rows 0..m-1 once, in order,
     each a multiple of F32_SLICE rows but the last and at most
-    F32_CHUNK_ROWS; and all of it depends on m alone."""
-    sched = FF.f32_schedule(m)
+    F32_CHUNK_ROWS; and all of it depends on m and D alone, at each width
+    D the kernels take."""
+    sched = FF.f32_schedule(m, d)
     assert list(sched) == ["hidden", "y", "recompute", "dhn", "dx", "dw1", "dw2"]
-    d, f = FF.KERNEL_D, FF.KERNEL_F
+    f = FF.KERNEL_F
     assert sched["hidden"] == sched["recompute"]
     for name, ((rows, cols), tiles, chunks) in sched.items():
         count = np.zeros((rows, cols), np.uint8)
@@ -203,8 +207,8 @@ def test_f32_gemm_schedule_covers_every_output_once(m):
     assert len(chunks) == -(-m // FF.F32_CHUNK_ROWS)
     assert all((r1 - r0) % FF.F32_SLICE == 0 for r0, r1 in chunks[:-1])
     assert all(0 < r1 - r0 <= FF.F32_CHUNK_ROWS for r0, r1 in chunks)
-    assert FF.f32_schedule(m) == sched
-    part, planes = FF.f32_bwd_work(m)
+    assert FF.f32_schedule(m, d) == sched
+    part, planes = FF.f32_bwd_work(m, d)
     assert part >= len(chunks) * f * d and planes >= max(6 * f * d, 2 * d * m)
 
 
@@ -218,18 +222,18 @@ def _covered_once(plan, segments):
         assert (count == 1).all(), s
 
 
+@pytest.mark.parametrize("d", DB.KERNEL_D)
 @pytest.mark.parametrize("m,mt", [(1, 1), (127, 9), (128, 17), (129, 51), (903, 51),
                                   (16224, 408)])
-def test_proj_plan_covers_every_row_and_column_once(m, mt):
+def test_proj_plan_covers_every_row_and_column_once(m, mt, d):
     """K2's and K3's projection launch (one CTA per plan entry, walked in
     the plan's order by csrc/decoder_blocks.cu): every row and column of
     each product is covered once; K2's column tiles below 2D read qin and
     write the packed qk, the rest read xl and write v; K3's q runs over the
     M image rows, its k and v over the MT text rows; the products' columns
     are in_w's 3D rows, each once; the order is product by product, row
-    tiles outer."""
-    d = DB.KERNEL_D
-    for segments in (DB.self_proj_segments(m), DB.cross_proj_segments(m, mt)):
+    tiles outer; at each width D the kernels take."""
+    for segments in (DB.self_proj_segments(m, d), DB.cross_proj_segments(m, mt, d)):
         plan = DB.proj_plan(segments)
         _covered_once(plan, segments)
         cols = sorted(c for _, w0, n in segments for c in range(w0, w0 + n))
@@ -237,22 +241,25 @@ def test_proj_plan_covers_every_row_and_column_once(m, mt):
         assert [t[0] for t in plan] == sorted(t[0] for t in plan)
         assert len(plan) == sum(-(-sm // DB.PROJ_ROWS) * (n // DB.PROJ_COLS)
                                 for sm, _, n in segments)
-    self_plan = DB.proj_plan(DB.self_proj_segments(m))
+    self_plan = DB.proj_plan(DB.self_proj_segments(m, d))
     assert all((s == 0) == (c0 < 2 * d) for s, _, (c0, _c1) in self_plan)
-    assert [sm for sm, _, _ in DB.cross_proj_segments(m, mt)] == [m, mt, mt]
+    assert [sm for sm, _, _ in DB.cross_proj_segments(m, mt, d)] == [m, mt, mt]
 
 
+@pytest.mark.parametrize("d", DB.KERNEL_D)
 @pytest.mark.parametrize("m", [1, 127, 128, 129, 903, 16224])
-def test_out_schedule_covers_every_row_once_with_whole_rows(m):
+def test_out_schedule_covers_every_row_once_with_whole_rows(m, d):
     """The out-projection's cluster tiles cover rows 0..m-1 once, in order,
-    PROJ_ROWS at a time, and the CTAs of a cluster cover the D = 512
+    PROJ_ROWS at a time, and the D / 256 CTAs of a cluster (2 at the
+    configs' D 512, 1 to 4 at the widths the kernels take) cover the D
     columns once between them, so each row's LayerNorm statistics stay
     inside one cluster."""
-    tiles, slices = DB.out_schedule(m)
+    tiles, slices = DB.out_schedule(m, d)
     assert [r for r0, r1 in tiles for r in range(r0, r1)] == list(range(m))
     assert all(0 < r1 - r0 <= DB.PROJ_ROWS for r0, r1 in tiles)
-    assert len(slices) == DB.OUT_CLUSTER == 2
-    assert [c for c0, c1 in slices for c in range(c0, c1)] == list(range(DB.KERNEL_D))
+    assert len(slices) == DB.out_cluster(d) == d // 256
+    assert DB.out_cluster(512) == 2
+    assert [c for c0, c1 in slices for c in range(c0, c1)] == list(range(d))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():

@@ -308,15 +308,20 @@ def test_backward_twins_regenerate_the_forward_mask(block):
 
 
 def test_unsupported_widths_raise_before_any_launch():
-    """The CUDA paths check widths first: D=256 or 4 heads of 64 are not
-    kernel shapes."""
-    with pytest.raises(ValueError, match="512"):
+    """The CUDA paths check widths first: D=640 (CLIP RN50x4's) is not a
+    kernel shape, and the message names the widths taken; D=256 over 4
+    heads of 64 is one since the kernels take D 256-1024, and stops only at
+    the device check."""
+    with pytest.raises(ValueError, match="D 256, 512, 768 or 1024"):
+        DB._check_block_input(torch.zeros(2, 8, 640, dtype=torch.bfloat16), 8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
         DB._check_block_input(torch.zeros(2, 8, 256, dtype=torch.bfloat16), 4)
     with pytest.raises(ValueError, match="at least 1 token"):
         DB._check_block_input(torch.zeros(1, 0, 512, dtype=torch.bfloat16), 8)
     with pytest.raises(ValueError, match="CUDA tensor"):  # 800 tokens: past the length check
         DB._check_block_input(torch.zeros(1, 800, 512, dtype=torch.bfloat16), 8)
-    with pytest.raises(ValueError, match="D=512, F=2048"):
+    with pytest.raises(ValueError, match="D 256, 512, 768 or 1024 .* and F=2048, got D=256, "
+                                         "F=1024"):
         FF._check(torch.zeros(4, 256, dtype=torch.bfloat16), torch.zeros(1024, 256))
     with pytest.raises(ValueError, match="head dims 8, 16, 32, 64, 128, 256 or 512"):
         A._check_bwd_width(torch.zeros(2, 16, 96), 1)
